@@ -1,0 +1,40 @@
+"""Shared CLI flags of the port (the slice of ``audio8_tpu/cli/common.py``
+that serving needs, with the same names and defaults)."""
+from __future__ import annotations
+
+from argparse import ArgumentParser, Namespace
+
+# Size presets over the post-norm, group-norm topology the port runs
+# (``audio8_tpu.cli.common.MODEL_PRESETS``); the other presets select
+# topologies that are not ported yet.
+MODEL_PRESETS = {
+    "base": {},
+    "large": {"d_model": 1024, "d_ff": 4096, "num_heads": 16,
+              "num_layers": 24},
+}
+_PRESET_BASE_DEFAULTS = {"d_model": 768, "d_ff": 3072, "num_heads": 12,
+                         "num_layers": 12}
+
+
+def apply_preset(args: Namespace) -> Namespace:
+    """Resolve ``--preset``: an explicit size flag always wins; unset ones
+    take the preset's value, else the base default."""
+    preset = MODEL_PRESETS[args.preset]
+    for key, base_value in _PRESET_BASE_DEFAULTS.items():
+        if getattr(args, key) is None:
+            setattr(args, key, preset.get(key, base_value))
+    return args
+
+
+def add_common_model_args(parser: ArgumentParser) -> None:
+    parser.add_argument("--preset", choices=sorted(MODEL_PRESETS),
+                        default="base",
+                        help="model-size preset; individual size flags "
+                             "override it")
+    parser.add_argument("--d_model", type=int, default=None)
+    parser.add_argument("--d_ff", type=int, default=None)
+    parser.add_argument("--num_heads", type=int, default=None)
+    parser.add_argument("--num_layers", type=int, default=None)
+    parser.add_argument("--target_sample_rate", type=int, default=16_000)
+    parser.add_argument("--bf16", action="store_true",
+                        help="bfloat16 compute (fp32 params)")

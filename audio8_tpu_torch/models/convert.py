@@ -1,0 +1,171 @@
+"""Weights into and out of the port's ``Wav2Vec2AcousticModel``.
+
+The port's parameter names are fairseq's, so:
+
+* a fairseq fine-tuned CTC state dict loads by prefix alone:
+  ``w2v_encoder.w2v_model.X`` is the port's ``encoder.X`` and
+  ``w2v_encoder.proj.*`` its ``proj.*`` (:func:`from_fairseq_ctc_state`,
+  :func:`load_fairseq_ctc`); :func:`to_fairseq_ctc_state` is the inverse;
+* a JAX ``Wav2Vec2AcousticModel`` parameter tree maps key by key
+  (:func:`params_from_jax`): Dense ``kernel (in, out)`` becomes ``weight
+  (out, in)``, conv ``kernel (K, C_in/g, C_out)`` becomes ``(C_out,
+  C_in/g, K)``, ``scale`` becomes ``weight``, as the inverse of
+  ``audio8_tpu/models/convert.py:_encoder_assignments``.
+"""
+from __future__ import annotations
+
+import argparse
+from typing import Any, Callable, Dict, List, Mapping, Tuple
+
+import numpy as np
+import torch
+
+FAIRSEQ_ENCODER = "w2v_encoder.w2v_model."
+FAIRSEQ_HEAD = "w2v_encoder.proj."
+# pretraining-only modules a fine-tuned checkpoint may still carry
+_FAIRSEQ_IGNORED = ("quantizer.", "project_q.", "final_proj.")
+
+
+def from_fairseq_ctc_state(state: Mapping[str, Any]
+                           ) -> Tuple[Dict[str, torch.Tensor], List[str]]:
+    """fairseq CTC ``model`` dict -> (port state dict, ignored keys)."""
+    out, ignored = {}, []
+    for key, value in state.items():
+        if key.startswith(FAIRSEQ_ENCODER):
+            rest = key[len(FAIRSEQ_ENCODER):]
+            if rest.startswith(_FAIRSEQ_IGNORED):
+                ignored.append(key)
+                continue
+            out["encoder." + rest] = torch.as_tensor(value)
+        elif key.startswith(FAIRSEQ_HEAD):
+            out["proj." + key[len(FAIRSEQ_HEAD):]] = torch.as_tensor(value)
+        else:
+            ignored.append(key)
+    return out, ignored
+
+
+def to_fairseq_ctc_state(state: Mapping[str, torch.Tensor]
+                         ) -> Dict[str, torch.Tensor]:
+    """Port state dict -> fairseq CTC ``model`` dict."""
+    out = {}
+    for key, value in state.items():
+        if key.startswith("encoder."):
+            out[FAIRSEQ_ENCODER + key[len("encoder."):]] = value
+        elif key.startswith("proj."):
+            out[FAIRSEQ_HEAD + key[len("proj."):]] = value
+        else:
+            raise KeyError(f"no fairseq name for {key!r}")
+    return out
+
+
+def load_fairseq_ctc(path: str) -> Dict[str, torch.Tensor]:
+    """Read a fairseq CTC ``.pt`` (``{"model": ..., "args": Namespace,
+    ...}``) with ``weights_only=True`` and return the port's state dict."""
+    with torch.serialization.safe_globals([argparse.Namespace]):
+        blob = torch.load(path, map_location="cpu", weights_only=True)
+    state, _ = from_fairseq_ctc_state(blob.get("model", blob))
+    return state
+
+
+def save_fairseq_ctc(model: torch.nn.Module, path: str) -> None:
+    """Write the model as a fairseq-layout CTC checkpoint."""
+    state = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    torch.save({"model": to_fairseq_ctc_state(state)}, path)
+
+
+# ---------------------------------------------------------------- JAX trees
+
+def _t(x: np.ndarray) -> np.ndarray:  # Dense (in, out) -> (out, in)
+    return np.ascontiguousarray(x.T)
+
+
+def _conv(x: np.ndarray) -> np.ndarray:  # (K, C_in/g, C_out) -> (C_out, C_in/g, K)
+    return np.ascontiguousarray(np.transpose(x, (2, 1, 0)))
+
+
+def _same(x: np.ndarray) -> np.ndarray:
+    return x
+
+
+def _jax_assignments(num_fx_layers: int, num_layers: int
+                     ) -> List[Tuple[Tuple[str, ...], str, Callable]]:
+    """(JAX path, port key, transform) for a group-mode, post-norm
+    ``Wav2Vec2AcousticModel``."""
+    out = []
+    enc, fx = ("encoder",), ("encoder", "feature_extractor")
+    for i in range(num_fx_layers):
+        out.append((fx + (f"conv_{i}", "kernel"),
+                    f"encoder.feature_extractor.conv_layers.{i}.0.weight",
+                    _conv))
+    for jax_name, name in (("scale", "weight"), ("bias", "bias")):
+        out.append((fx + ("norm_0", jax_name),
+                    f"encoder.feature_extractor.conv_layers.0.2.{name}",
+                    _same))
+        out.append((enc + ("layer_norm", jax_name),
+                    f"encoder.layer_norm.{name}", _same))
+        out.append((enc + ("encoder", "ln", jax_name),
+                    f"encoder.encoder.layer_norm.{name}", _same))
+    out.append((enc + ("proj_to_input", "kernel"),
+                "encoder.post_extract_proj.weight", _t))
+    out.append((enc + ("proj_to_input", "bias"),
+                "encoder.post_extract_proj.bias", _same))
+    out.append((enc + ("mask_emb",), "encoder.mask_emb", _same))
+    pos = enc + ("encoder", "pos_conv")
+    out.append((pos + ("weight_v",), "encoder.encoder.pos_conv.0.weight_v",
+                _conv))
+    out.append((pos + ("weight_g",), "encoder.encoder.pos_conv.0.weight_g",
+                _conv))
+    out.append((pos + ("bias",), "encoder.encoder.pos_conv.0.bias", _same))
+    for i in range(num_layers):
+        ours = enc + ("encoder", "transformer", f"layer_{i}")
+        port = f"encoder.encoder.layers.{i}."
+        for jax_name, name in (("w_Q", "q_proj"), ("w_K", "k_proj"),
+                               ("w_V", "v_proj"), ("w_O", "out_proj")):
+            out.append((ours + ("self_attn", jax_name, "kernel"),
+                        port + f"self_attn.{name}.weight", _t))
+            out.append((ours + ("self_attn", jax_name, "bias"),
+                        port + f"self_attn.{name}.bias", _same))
+        for jax_name, name in (("expand", "fc1"), ("contract", "fc2")):
+            out.append((ours + ("ffn", jax_name, "kernel"),
+                        port + f"{name}.weight", _t))
+            out.append((ours + ("ffn", jax_name, "bias"),
+                        port + f"{name}.bias", _same))
+        for jax_name, name in (("ln_attn", "self_attn_layer_norm"),
+                               ("ln_ffn", "final_layer_norm")):
+            out.append((ours + (jax_name, "scale"), port + f"{name}.weight",
+                        _same))
+            out.append((ours + (jax_name, "bias"), port + f"{name}.bias",
+                        _same))
+    out.append((("proj", "kernel"), "proj.weight", _t))
+    out.append((("proj", "bias"), "proj.bias", _same))
+    return out
+
+
+def params_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX ``Wav2Vec2AcousticModel`` params (a nested mapping of arrays,
+    e.g. ``jax.tree.map(np.asarray, params)``) -> the port's state dict.
+    Raises ``KeyError`` naming any JAX parameter left unmapped."""
+    fx = tree["encoder"]["feature_extractor"]
+    num_fx = sum(1 for k in fx if k.startswith("conv_"))
+    num_layers = sum(1 for k in tree["encoder"]["encoder"]["transformer"]
+                     if k.startswith("layer_"))
+    state, used = {}, set()
+    for path, key, tf in _jax_assignments(num_fx, num_layers):
+        node = tree
+        for p in path:
+            node = node[p]
+        state[key] = torch.from_numpy(
+            np.array(tf(np.asarray(node, np.float32))))
+        used.add(path)
+
+    def leaves(node, prefix=()):
+        if isinstance(node, Mapping):
+            for k, v in node.items():
+                yield from leaves(v, prefix + (k,))
+        else:
+            yield prefix
+
+    left = [p for p in leaves(tree) if p not in used]
+    if left:
+        raise KeyError(f"JAX parameters with no port counterpart: {left[:5]}")
+    return state

@@ -1,0 +1,220 @@
+"""Layer primitives of the port (``audio8_tpu/nn/layers.py``).
+
+Conventions follow the JAX package at the module boundary: activations are
+channel-last ``(B, T, C)``, every module takes a compute ``dtype`` and keeps
+its parameters in float32, casting them to ``dtype`` at use (no autocast).
+Parameters keep PyTorch's own layouts and fairseq's names (``weight``,
+``bias``, ``weight_v``, ``weight_g``), so a fairseq state dict loads
+without transposes; ``models/convert.py`` moves JAX trees across.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from audio8_tpu_torch.ops.conv import conv1d_k3s2
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """Exact (erf) GELU, as the JAX package pins it."""
+    return F.gelu(x)
+
+
+class Dense(nn.Linear):
+    """``x @ W^T + b`` in the compute dtype; ``weight`` is ``(out, in)``."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool = True,
+                 dtype: torch.dtype = torch.float32, device=None):
+        super().__init__(in_features, out_features, bias=bias, device=device)
+        self.compute_dtype = dtype
+
+    def reset_parameters(self) -> None:
+        """Zeros: no global RNG at construction; ``init_from`` draws the
+        random init from an explicit generator."""
+        with torch.no_grad():
+            self.weight.zero_()
+            if self.bias is not None:
+                self.bias.zero_()
+
+    def init_from(self, generator: torch.Generator) -> None:
+        """LeCun-normal weight (the JAX ``Dense`` init), zero bias."""
+        std = 1.0 / math.sqrt(self.in_features)
+        with torch.no_grad():
+            self.weight.copy_(torch.randn(self.weight.shape,
+                                          generator=generator,
+                                          device=generator.device) * std)
+            if self.bias is not None:
+                self.bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        bias = None if self.bias is None else self.bias.to(dt)
+        return F.linear(x.to(dt), self.weight.to(dt), bias)
+
+
+class Conv1D(nn.Module):
+    """Strided VALID 1-D convolution over ``(B, T, C)`` without bias.
+
+    ``weight`` is torch's ``(C_out, C_in, K)``. The k=3, stride-2 layers
+    (the wav2vec2 extractor's 512 -> 512 blocks) run the hand-written
+    kernel ``ops.conv.conv1d_k3s2``; every other shape stays
+    ``F.conv1d``, as the JAX package left it to XLA."""
+
+    def __init__(self, in_features: int, out_features: int, kernel_size: int,
+                 stride: int = 1, dtype: torch.dtype = torch.float32,
+                 device=None):
+        super().__init__()
+        self.kernel_size = kernel_size
+        self.stride = stride
+        self.compute_dtype = dtype
+        self.weight = nn.Parameter(torch.zeros(
+            out_features, in_features, kernel_size, device=device))
+
+    def init_from(self, generator: torch.Generator) -> None:
+        """He-normal on fan_in = K * C_in (the reference's kaiming init)."""
+        c_out, c_in, k = self.weight.shape
+        std = math.sqrt(2.0 / (k * c_in))
+        with torch.no_grad():
+            self.weight.copy_(torch.randn(self.weight.shape,
+                                          generator=generator,
+                                          device=generator.device) * std)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        x = x.to(dt)
+        if self.kernel_size == 3 and self.stride == 2:
+            # (C_out, C_in, 3) -> (3, C_in, C_out), the kernel's layout
+            w = self.weight.to(dt).permute(2, 1, 0).contiguous()
+            return conv1d_k3s2(x.contiguous(), w)
+        # cuDNN takes a slow algorithm for a transposed (strided) input
+        y = F.conv1d(x.transpose(1, 2).contiguous(), self.weight.to(dt),
+                     stride=self.stride)
+        return y.transpose(1, 2)
+
+
+class LayerNorm(nn.LayerNorm):
+    """LayerNorm with torch epsilon (1e-5) and f32 statistics; output in
+    the compute dtype."""
+
+    def __init__(self, features: int, dtype: torch.dtype = torch.float32,
+                 device=None):
+        super().__init__(features, eps=1e-5, device=device)
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.layer_norm(x.float(), self.normalized_shape, self.weight,
+                         self.bias, self.eps)
+        return y.to(self.compute_dtype)
+
+
+class GroupNorm(nn.Module):
+    """GroupNorm over ``(B, T, C)``: statistics over (T, channels in group),
+    eps 1e-5, f32 math.
+
+    With a ``(B, T)`` validity ``mask`` the statistics cover valid frames
+    only and padded frames come out as the bias, so a row's output does not
+    depend on how much padding its batch carries. This is the JAX package's
+    documented deviation from torch (docs/PARITY.md); ``F.group_norm`` would
+    count the padding."""
+
+    def __init__(self, num_groups: int, features: int,
+                 dtype: torch.dtype = torch.float32, eps: float = 1e-5,
+                 device=None):
+        super().__init__()
+        self.num_groups = num_groups
+        self.eps = eps
+        self.compute_dtype = dtype
+        self.weight = nn.Parameter(torch.ones(features, device=device))
+        self.bias = nn.Parameter(torch.zeros(features, device=device))
+
+    def forward(self, x: torch.Tensor,
+                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        b, t, c = x.shape
+        g = self.num_groups
+        x32 = x.float().reshape(b, t, g, c // g)
+        if mask is None:
+            mean = x32.mean(dim=(1, 3), keepdim=True)
+            var = (x32 - mean).square().mean(dim=(1, 3), keepdim=True)
+            y = ((x32 - mean) * torch.rsqrt(var + self.eps)).reshape(b, t, c)
+        else:
+            # masked sums over time as (1, T) x (T, C) products: one read
+            # of the activation each, where elementwise masking would
+            # write and re-read full-size temporaries
+            m = mask.float()[:, None, :]
+            count = (m.sum(dim=2).clamp_min(1.0) * (c // g))[:, :, None]
+
+            def group_sums(z):
+                return torch.bmm(m, z.reshape(b, t, c)).reshape(b, g, c // g)
+
+            mean = (group_sums(x32).sum(dim=2, keepdim=True) / count)
+            d = x32 - mean[:, None]
+            var = group_sums(d * d).sum(dim=2, keepdim=True) / count
+            scale = (torch.rsqrt(var + self.eps)[:, None]
+                     * self.weight.float().reshape(g, c // g))
+            bias = self.bias.float().reshape(g, c // g)
+            y = torch.addcmul(bias, d, scale)
+            # padded frames come out as the bias, as y * mask + bias would
+            y = torch.where(mask[:, :, None, None], y, bias).reshape(b, t, c)
+            return y.to(self.compute_dtype)
+        y = y * self.weight.float() + self.bias.float()
+        return y.to(self.compute_dtype)
+
+
+class PositionalConv(nn.Module):
+    """Weight-normed grouped convolutional positional embedding + GELU
+    (``audio8_tpu/nn/layers.py:PositionalConv``; fairseq ``pos_conv.0``).
+
+    ``weight_v`` ``(C, C/groups, K)``, ``weight_g`` ``(1, 1, K)`` (torch
+    ``weight_norm`` with ``dim=2``), ``bias`` ``(C,)``. The kernel is
+    ``g * v / (||v|| + 1e-12)`` with the norm per tap, as in the JAX module.
+    fairseq SamePad: pad K//2 both sides, drop the trailing frame for an
+    even K."""
+
+    def __init__(self, features: int, kernel_size: int = 128,
+                 groups: int = 16, dtype: torch.dtype = torch.float32,
+                 device=None):
+        super().__init__()
+        self.kernel_size = kernel_size
+        self.groups = groups
+        self.compute_dtype = dtype
+        self.weight_v = nn.Parameter(torch.zeros(
+            features, features // groups, kernel_size, device=device))
+        self.weight_g = nn.Parameter(torch.ones(1, 1, kernel_size,
+                                                device=device))
+        self.bias = nn.Parameter(torch.zeros(features, device=device))
+
+    def init_from(self, generator: torch.Generator,
+                  dropout_rate: float = 0.1) -> None:
+        c_out = self.weight_v.shape[0]
+        std = math.sqrt(4.0 * (1.0 - dropout_rate)
+                        / (self.kernel_size * c_out))
+        with torch.no_grad():
+            self.weight_v.copy_(torch.randn(self.weight_v.shape,
+                                            generator=generator,
+                                            device=generator.device) * std)
+            self.weight_g.copy_(self._norm())
+            self.bias.zero_()
+
+    def _norm(self) -> torch.Tensor:
+        return torch.linalg.vector_norm(self.weight_v.float(), dim=(0, 1),
+                                        keepdim=True)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        kernel = (self.weight_g.float() * self.weight_v.float()
+                  / (self._norm() + 1e-12)).to(dt)
+        x = x.to(dt).transpose(1, 2).contiguous()
+        if not x.is_cuda:
+            # operands in the compute dtype, sums in f32, as XLA and cuDNN
+            # do; PyTorch's CPU grouped conv in bf16 does not
+            x, kernel = x.float(), kernel.float()
+        y = F.conv1d(x, kernel, padding=self.kernel_size // 2,
+                     groups=self.groups)
+        y = y.to(dt).transpose(1, 2)
+        if self.kernel_size % 2 == 0:
+            y = y[:, :-1, :]
+        return gelu(y + self.bias.to(dt))
