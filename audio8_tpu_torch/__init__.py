@@ -1,15 +1,15 @@
 """audio8-tpu on PyTorch and CUDA: the port of ``audio8_tpu`` to an NVIDIA
 H100.
 
-The package imports ``torch`` and never ``jax`` or ``flax``. Host code of
-the JAX package that is already jax-free is shared by import, not copied:
-``audio8_tpu.config`` (model configs and conv geometry),
-``audio8_tpu.utils`` (special-token registry, helpers),
-``audio8_tpu.data.audio`` (audio file decoding) and ``audio8_tpu.serve``
-(chunk geometry and batching, subclassed in ``serve.py``).
+The package imports ``torch`` and never ``jax``, ``flax`` or anything of
+``audio8_tpu``: the host code it needs from the JAX package is copied
+here (``config``, ``utils``, ``data/audio``, ``serve``), with the same
+names and defaults.
 
-Module layout mirrors ``audio8_tpu``: ``nn/`` (layers, transformer),
-``models/`` (wav2vec2, checkpoint conversion, vocab), ``ops/`` (the
-hand-written CUDA kernels' wrappers and decoding helpers), ``serve.py``
-and ``cli/`` (``transcribe``, ``serve``). Kernel sources are in ``csrc/``.
+Module layout mirrors ``audio8_tpu``: ``nn/`` (layers, transformer,
+dropout), ``models/`` (wav2vec2, checkpoint conversion, vocab), ``ops/``
+(the hand-written CUDA kernels' wrappers, hash randomness, masks, CTC,
+metrics), ``train/`` (optimizer, step factory), ``data/`` (audio,
+datasets), ``serve.py`` and ``cli/`` (``transcribe``, ``serve``,
+``train``). Kernel sources are in ``csrc/``.
 """

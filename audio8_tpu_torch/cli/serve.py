@@ -1,7 +1,8 @@
 """HTTP transcription endpoint of the port (``a8t-serve`` on PyTorch).
 
 Counterpart of ``audio8_tpu/cli/serve.py``: one process loads the model
-(on the CUDA card when there is one), then serves
+on ``--device`` (the CUDA card by default; ``--device cpu`` asks for the
+CPU), then serves
 
   GET  /healthz            -> {"ok": true, model info, batcher stats}
   POST /transcribe         -> {"text", "audio_seconds", "latency_ms"}
@@ -30,9 +31,9 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
 
-from audio8_tpu.data.audio import SoundfileAudioReader
 from audio8_tpu_torch.cli.common import add_common_model_args, apply_preset
 from audio8_tpu_torch.cli.transcribe import load_acoustic
+from audio8_tpu_torch.data.audio import SoundfileAudioReader
 from audio8_tpu_torch.ops.metrics import postproc_bpe, postproc_letters
 from audio8_tpu_torch.serve import (ChunkedTranscriber, MicroBatcher,
                                     decode_stitched)

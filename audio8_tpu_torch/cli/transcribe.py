@@ -1,7 +1,8 @@
 """Transcription CLI of the port: fairseq CTC checkpoint + audio -> text.
 
 Counterpart of ``a8t-transcribe`` (``audio8_tpu/cli/transcribe.py``) on
-PyTorch, on the CUDA card when there is one. Greedy CTC decoding; long
+PyTorch, on ``--device`` (the CUDA card by default; it raises without
+one, and ``--device cpu`` asks for the CPU). Greedy CTC decoding; long
 audio runs through the ``ChunkedTranscriber`` when ``--chunk_seconds > 0``.
 
   python -m audio8_tpu_torch.cli.transcribe --checkpoint ctc.pt \\
@@ -19,16 +20,17 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from audio8_tpu.config import AcousticConfig
-from audio8_tpu.data.audio import SoundfileAudioReader
-from audio8_tpu.utils import Offsets, revlut
-from audio8_tpu_torch.cli.common import add_common_model_args, apply_preset
+from audio8_tpu_torch.cli.common import (add_common_model_args,
+                                        apply_preset, resolve_device)
+from audio8_tpu_torch.config import AcousticConfig
+from audio8_tpu_torch.data.audio import SoundfileAudioReader
 from audio8_tpu_torch.models.convert import load_fairseq_ctc
 from audio8_tpu_torch.models.text import read_vocab_list
 from audio8_tpu_torch.models.wav2vec2 import Wav2Vec2AcousticModel
 from audio8_tpu_torch.ops.ctc import greedy_collapse
 from audio8_tpu_torch.ops.metrics import postproc_bpe, postproc_letters
 from audio8_tpu_torch.serve import ChunkedTranscriber, decode_stitched
+from audio8_tpu_torch.utils import Offsets, revlut
 
 
 def parse_args(argv=None):
@@ -48,12 +50,10 @@ def parse_args(argv=None):
     return apply_preset(p.parse_args(argv))
 
 
-def build_acoustic(args, device: Optional[torch.device] = None):
+def build_acoustic(args, device: torch.device):
     """Model with the checkpoint's weights, on ``device``, in eval mode.
 
     Returns ``(cfg, model, vocab_list, index2vocab)``."""
-    if device is None:
-        device = torch.device("cuda" if torch.cuda.is_available() else "cpu")
     Offsets.remap_fairseq_ctc()
     vocab_list = read_vocab_list(args.dict_file)
     index2vocab = revlut({v: i for i, v in enumerate(vocab_list)})
@@ -68,14 +68,16 @@ def build_acoustic(args, device: Optional[torch.device] = None):
 
 
 def load_acoustic(args, device: Optional[torch.device] = None):
-    """The eval stack a decoding surface needs.
+    """The eval stack a decoding surface needs, on ``device`` (default:
+    ``--device``, which raises for ``cuda`` without a card).
 
     Returns ``(cfg, forward, vocab_list, index2vocab, device)`` where
     ``forward(signal (B, T) f32, lengths (B,)) -> (log_probs (B, T', V)
     f32, frames (B,))`` runs the model under ``torch.inference_mode()`` on
     tensors on ``device``."""
+    if device is None:
+        device = resolve_device(args.device)
     cfg, model, vocab_list, index2vocab = build_acoustic(args, device)
-    device = next(model.parameters()).device
     if device.type == "cuda" and not args.bf16:
         # float32 means float32: cuDNN would run the convolutions that
         # stay in PyTorch in TF32 by default

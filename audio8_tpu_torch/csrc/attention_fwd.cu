@@ -41,6 +41,16 @@
 //     that its sums are full f32 (TF32 would not be).
 // wgmma/TMA pipelining is later work. The head dim is a template
 // parameter (16, 32, 64, 128).
+//
+// When the caller needs the gradient it passes `stats`, (B*H*T, 2) f32,
+// and each kernel writes every real row's softmax statistics there: the
+// row max m and the full (un-dropped, T_pad-wide) row sum l, so that the
+// backward kernel (attention_bwd.cu) recomputes p = exp(s - m) / l
+// without a second pass over the keys. Both are kept apart because
+// m + log(l) would lose log(T_pad) against m = -1e9 in f32. For bf16
+// inputs it may also pass `o32`, (B, H, T, dh) f32, for the output before
+// its rounding to bf16: the backward takes D = rowsum(dO * o) from it, as
+// the TPU kernel takes D from f32 probabilities.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -114,7 +124,9 @@ __global__ void __launch_bounds__(NT)
     attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                          const T* __restrict__ v,
                          const uint8_t* __restrict__ key_valid,
-                         T* __restrict__ o, int n_heads, int t, int t_pad,
+                         T* __restrict__ o, float* __restrict__ stats,
+                         float* __restrict__ o32, int n_heads, int t,
+                         int t_pad,
                          float scale, float inv_keep, uint32_t threshold,
                          uint32_t seed, int dropout) {
   constexpr int QLD = DH + 1;
@@ -259,9 +271,16 @@ __global__ void __launch_bounds__(NT)
     if (rg >= t) continue;
     const float l = l_s[r] + missing * expf(NEG - m_s[r]);
     const float inv = inv_keep / l;
+    if (stats != nullptr && tx == 0) {
+      stats[((size_t)bh * t + rg) * 2] = m_s[r];
+      stats[((size_t)bh * t + rg) * 2 + 1] = l;
+    }
 #pragma unroll
-    for (int j = 0; j < DJ; ++j)
-      o[base + (size_t)rg * DH + tx + 16 * j] = from_f32<T>(acc[i][j] * inv);
+    for (int j = 0; j < DJ; ++j) {
+      const size_t off = base + (size_t)rg * DH + tx + 16 * j;
+      o[off] = from_f32<T>(acc[i][j] * inv);
+      if (o32 != nullptr) o32[off] = acc[i][j] * inv;
+    }
   }
 }
 
@@ -302,7 +321,9 @@ __global__ void __launch_bounds__(128)
                                   const __nv_bfloat16* __restrict__ k,
                                   const __nv_bfloat16* __restrict__ v,
                                   const uint8_t* __restrict__ key_valid,
-                                  __nv_bfloat16* __restrict__ o, int n_heads,
+                                  __nv_bfloat16* __restrict__ o,
+                                  float* __restrict__ stats,
+                                  float* __restrict__ o32, int n_heads,
                                   int t, int t_pad, float scale,
                                   float inv_keep, uint32_t threshold,
                                   uint32_t seed, int dropout) {
@@ -445,32 +466,43 @@ __global__ void __launch_bounds__(128)
   for (int h = 0; h < 2; ++h) {
     const int r = r0 + h * 8;
     if (r >= t) continue;
-    const float inv = inv_keep / (l_r[h] + missing * expf(NEG - m_r[h]));
+    const float l = l_r[h] + missing * expf(NEG - m_r[h]);
+    const float inv = inv_keep / l;
+    if (stats != nullptr && t4 == 0) {
+      stats[((size_t)bh * t + r) * 2] = m_r[h];
+      stats[((size_t)bh * t + r) * 2 + 1] = l;
+    }
 #pragma unroll
-    for (int j = 0; j < ND; ++j)
-      *reinterpret_cast<uint32_t*>(o + base + (size_t)r * DH + j * 8 +
-                                   2 * t4) =
+    for (int j = 0; j < ND; ++j) {
+      const size_t off = base + (size_t)r * DH + j * 8 + 2 * t4;
+      *reinterpret_cast<uint32_t*>(o + off) =
           pack_bf16(acc[j][2 * h] * inv, acc[j][2 * h + 1] * inv);
+      if (o32 != nullptr) {
+        o32[off] = acc[j][2 * h] * inv;
+        o32[off + 1] = acc[j][2 * h + 1] * inv;
+      }
+    }
   }
 }
 
 template <int DH>
 int launch_mma(const void* q, const void* k, const void* v, const void* kv,
-               void* o, int batch, int heads, int t, float scale,
+               void* o, float* stats, float* o32, int batch, int heads, int t, float scale,
                float inv_keep, uint32_t threshold, uint32_t seed, int dropout,
                cudaStream_t stream) {
   const int t_pad = (t + 127) / 128 * 128;
   const dim3 grid((unsigned)((t + BQ - 1) / BQ), (unsigned)(batch * heads));
   attention_fwd_bf16_mma_kernel<DH><<<grid, 128, 0, stream>>>(
       (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
-      (const __nv_bfloat16*)v, (const uint8_t*)kv, (__nv_bfloat16*)o, heads,
+      (const __nv_bfloat16*)v, (const uint8_t*)kv, (__nv_bfloat16*)o, stats,
+      o32, heads,
       t, t_pad, scale, inv_keep, threshold, seed, dropout);
   return (int)cudaGetLastError();
 }
 
 template <typename T, int DH>
 int launch(const void* q, const void* k, const void* v, const void* kv,
-           void* o, int batch, int heads, int t, float scale, float inv_keep,
+           void* o, float* stats, float* o32, int batch, int heads, int t, float scale, float inv_keep,
            uint32_t threshold, uint32_t seed, int dropout,
            cudaStream_t stream) {
   const size_t smem = sizeof(float) * smem_floats<DH>();
@@ -481,27 +513,28 @@ int launch(const void* q, const void* k, const void* v, const void* kv,
   const int t_pad = (t + 127) / 128 * 128;
   const dim3 grid((unsigned)((t + BQ - 1) / BQ), (unsigned)(batch * heads));
   attention_fwd_kernel<T, DH><<<grid, NT, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const uint8_t*)kv, (T*)o, heads,
+      (const T*)q, (const T*)k, (const T*)v, (const uint8_t*)kv, (T*)o, stats,
+      o32, heads,
       t, t_pad, scale, inv_keep, threshold, seed, dropout);
   return (int)cudaGetLastError();
 }
 
 int dispatch_mma(int dh, const void* q, const void* k, const void* v,
-                 const void* kv, void* o, int batch, int heads, int t,
+                 const void* kv, void* o, float* stats, float* o32, int batch, int heads, int t,
                  float scale, float inv_keep, uint32_t threshold,
                  uint32_t seed, int dropout, cudaStream_t stream) {
   switch (dh) {
     case 16:
-      return launch_mma<16>(q, k, v, kv, o, batch, heads, t, scale, inv_keep,
+      return launch_mma<16>(q, k, v, kv, o, stats, o32, batch, heads, t, scale, inv_keep,
                             threshold, seed, dropout, stream);
     case 32:
-      return launch_mma<32>(q, k, v, kv, o, batch, heads, t, scale, inv_keep,
+      return launch_mma<32>(q, k, v, kv, o, stats, o32, batch, heads, t, scale, inv_keep,
                             threshold, seed, dropout, stream);
     case 64:
-      return launch_mma<64>(q, k, v, kv, o, batch, heads, t, scale, inv_keep,
+      return launch_mma<64>(q, k, v, kv, o, stats, o32, batch, heads, t, scale, inv_keep,
                             threshold, seed, dropout, stream);
     case 128:
-      return launch_mma<128>(q, k, v, kv, o, batch, heads, t, scale, inv_keep,
+      return launch_mma<128>(q, k, v, kv, o, stats, o32, batch, heads, t, scale, inv_keep,
                              threshold, seed, dropout, stream);
     default:
       return (int)cudaErrorInvalidValue;
@@ -510,21 +543,21 @@ int dispatch_mma(int dh, const void* q, const void* k, const void* v,
 
 template <typename T>
 int dispatch_dh(int dh, const void* q, const void* k, const void* v,
-                const void* kv, void* o, int batch, int heads, int t,
+                const void* kv, void* o, float* stats, float* o32, int batch, int heads, int t,
                 float scale, float inv_keep, uint32_t threshold, uint32_t seed,
                 int dropout, cudaStream_t stream) {
   switch (dh) {
     case 16:
-      return launch<T, 16>(q, k, v, kv, o, batch, heads, t, scale, inv_keep,
+      return launch<T, 16>(q, k, v, kv, o, stats, o32, batch, heads, t, scale, inv_keep,
                            threshold, seed, dropout, stream);
     case 32:
-      return launch<T, 32>(q, k, v, kv, o, batch, heads, t, scale, inv_keep,
+      return launch<T, 32>(q, k, v, kv, o, stats, o32, batch, heads, t, scale, inv_keep,
                            threshold, seed, dropout, stream);
     case 64:
-      return launch<T, 64>(q, k, v, kv, o, batch, heads, t, scale, inv_keep,
+      return launch<T, 64>(q, k, v, kv, o, stats, o32, batch, heads, t, scale, inv_keep,
                            threshold, seed, dropout, stream);
     case 128:
-      return launch<T, 128>(q, k, v, kv, o, batch, heads, t, scale, inv_keep,
+      return launch<T, 128>(q, k, v, kv, o, stats, o32, batch, heads, t, scale, inv_keep,
                             threshold, seed, dropout, stream);
     default:
       return (int)cudaErrorInvalidValue;
@@ -533,12 +566,15 @@ int dispatch_dh(int dh, const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// q, k, v, o: (B, H, T, dh) contiguous; key_valid: (B, T) uint8 or NULL.
+// q, k, v, o: (B, H, T, dh) contiguous; key_valid: (B, T) uint8 or NULL;
+// stats: (B*H*T, 2) f32 row max and row sum, or NULL when not needed;
+// o32: (B, H, T, dh) f32 copy of the output before rounding, or NULL.
 // dtype: 0 = float32, 1 = bfloat16. inv_keep = 1 / (1 - rate); threshold
 // and seed are the uint32 dropout parameters (dropout = 0 skips the hash).
 // Returns the cudaError_t of the launch.
 extern "C" int a8t_attention_fwd(const void* q, const void* k, const void* v,
-                                 const void* key_valid, void* o, int batch,
+                                 const void* key_valid, void* o,
+                                 void* stats, void* o32, int batch,
                                  int heads, int t, int dh, int dtype,
                                  float scale, float inv_keep,
                                  uint32_t threshold, uint32_t seed,
@@ -546,15 +582,19 @@ extern "C" int a8t_attention_fwd(const void* q, const void* k, const void* v,
   if (batch <= 0 || heads <= 0 || t <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0)
-    return dispatch_dh<float>(dh, q, k, v, key_valid, o, batch, heads, t,
+    return dispatch_dh<float>(dh, q, k, v, key_valid, o, (float*)stats,
+                              (float*)o32, batch, heads, t,
                               scale, inv_keep, threshold, seed, dropout, s);
   const bool aligned16 =
       (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)o) % 16) == 0;
   if (dtype == 1 && aligned16)
-    return dispatch_mma(dh, q, k, v, key_valid, o, batch, heads, t, scale,
+    return dispatch_mma(dh, q, k, v, key_valid, o, (float*)stats,
+                        (float*)o32, batch, heads, t, scale,
                         inv_keep, threshold, seed, dropout, s);
   if (dtype == 1)
-    return dispatch_dh<__nv_bfloat16>(dh, q, k, v, key_valid, o, batch, heads,
+    return dispatch_dh<__nv_bfloat16>(dh, q, k, v, key_valid, o,
+                                      (float*)stats, (float*)o32, batch,
+                                      heads,
                                       t, scale, inv_keep, threshold, seed,
                                       dropout, s);
   return (int)cudaErrorInvalidValue;

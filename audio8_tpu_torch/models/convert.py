@@ -10,7 +10,10 @@ The port's parameter names are fairseq's, so:
   (:func:`params_from_jax`): Dense ``kernel (in, out)`` becomes ``weight
   (out, in)``, conv ``kernel (K, C_in/g, C_out)`` becomes ``(C_out,
   C_in/g, K)``, ``scale`` becomes ``weight``, as the inverse of
-  ``audio8_tpu/models/convert.py:_encoder_assignments``.
+  ``audio8_tpu/models/convert.py:_encoder_assignments``. Given the JAX
+  optimizer state too (optax ``adamw``/``adam`` or ``FusedAdamW``), it
+  carries the moments and the step count across, so both packages can
+  train on from the same point.
 """
 from __future__ import annotations
 
@@ -141,10 +144,40 @@ def _jax_assignments(num_fx_layers: int, num_layers: int
     return out
 
 
-def params_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+def _adam_state(opt_state: Any):
+    """The node of a JAX optimizer state that holds ``mu`` and ``nu``
+    (optax's ScaleByAdamState, possibly inside inject_hyperparams and a
+    chain, or FusedAdamWState)."""
+    if hasattr(opt_state, "mu") and hasattr(opt_state, "nu"):
+        return opt_state
+    if isinstance(opt_state, (tuple, list)):
+        for child in opt_state:
+            found = _adam_state(child)
+            if found is not None:
+                return found
+    return None
+
+
+def params_from_jax(tree: Mapping[str, Any], opt_state: Any = None):
     """JAX ``Wav2Vec2AcousticModel`` params (a nested mapping of arrays,
     e.g. ``jax.tree.map(np.asarray, params)``) -> the port's state dict.
-    Raises ``KeyError`` naming any JAX parameter left unmapped."""
+    Raises ``KeyError`` naming any JAX parameter left unmapped.
+
+    With ``opt_state`` (the JAX AdamW state, arrays as numpy) it returns
+    ``(state_dict, (count, mu, nu))`` where ``mu`` and ``nu`` are state
+    dicts laid out like the parameters: feed them to
+    ``train.optim.TrainState.load_adam_state``."""
+    state = _params_from_jax(tree)
+    if opt_state is None:
+        return state
+    adam = _adam_state(opt_state)
+    if adam is None:
+        raise KeyError("no mu/nu (AdamW moments) in the JAX optimizer state")
+    return state, (int(np.asarray(adam.count)), _params_from_jax(adam.mu),
+                   _params_from_jax(adam.nu))
+
+
+def _params_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     fx = tree["encoder"]["feature_extractor"]
     num_fx = sum(1 for k in fx if k.startswith("conv_"))
     num_layers = sum(1 for k in tree["encoder"]["encoder"]["transformer"]

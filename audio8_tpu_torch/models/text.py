@@ -1,14 +1,17 @@
-"""Vocabulary reader (``audio8_tpu/models/text.py:read_vocab_list``).
+"""Vocabulary reader and letter tokenizer (``audio8_tpu/models/text.py:
+read_vocab_list``, ``TextVectorizer``).
 
-The JAX reader lives in a flax module, so the jax-free function is
-re-implemented here; it reads the shared ``audio8_tpu.utils.Offsets``.
+The JAX reader lives in a flax module, so the function is re-implemented
+here; it reads the port's ``audio8_tpu_torch.utils.Offsets``.
 """
 from __future__ import annotations
 
 import json
-from typing import List
+from typing import Dict, List, Sequence
 
-from audio8_tpu.utils import Offsets
+import numpy as np
+
+from audio8_tpu_torch.utils import Offsets
 
 
 def read_vocab_list(vocab_file: str) -> List[str]:
@@ -29,3 +32,20 @@ def read_vocab_list(vocab_file: str) -> List[str]:
             if parts:
                 vocab.append(parts[0])
     return vocab
+
+
+class TextVectorizer:
+    """Dict-lookup tokenizer with optional begin/end emissions
+    (``audio8_tpu/models/text.py:TextVectorizer``)."""
+
+    def __init__(self, vocab: Dict[str, int], emit_begin_tok=(),
+                 emit_end_tok=()):
+        self.vocab = vocab
+        self.emit_begin_tok = list(emit_begin_tok)
+        self.emit_end_tok = list(emit_end_tok)
+
+    def run(self, tokens: Sequence[str]) -> np.ndarray:
+        ids = ([self.vocab[t] for t in self.emit_begin_tok]
+               + [self.vocab.get(t, Offsets.UNK) for t in tokens]
+               + [self.vocab[t] for t in self.emit_end_tok])
+        return np.array(ids, dtype=np.int32)

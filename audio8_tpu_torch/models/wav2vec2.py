@@ -1,4 +1,4 @@
-"""wav2vec 2.0 CTC acoustic model, eval path (``audio8_tpu/models/wav2vec2.py``).
+"""wav2vec 2.0 CTC acoustic model (``audio8_tpu/models/wav2vec2.py``).
 
 Structure map to the JAX package (and the fairseq names the parameters
 carry, so a fairseq CTC checkpoint loads by prefix, ``models/convert.py``):
@@ -10,22 +10,33 @@ carry, so a fairseq CTC checkpoint loads by prefix, ``models/convert.py``):
   Wav2Vec2Encoder          + layer_norm, post_extract_proj, mask_emb
   Wav2Vec2AcousticModel    encoder (a Wav2Vec2Encoder) + proj (CTC head)
 
-This is the serving slice: the group-norm extractor and post-norm
-encoder of wav2vec2-base/large in eval mode. Training-time masking and
-dropout, and the other topologies of ``EncoderConfig``, are not ported
-yet; :func:`check_supported` refuses a config that asks for them.
+The group-norm extractor and post-norm encoder of wav2vec2-base/large,
+for serving and for CTC fine-tuning. Training mode is a forward given a
+``generator`` (the trainer's ``torch.Generator``): every stochastic op
+draws its integer seed from it, in forward order, and runs the JAX
+package's hash randomness with that seed (``dropout_input``, time masking
+with ``mask_emb``, channel masking, the encoder and residual dropouts,
+attention-probability dropout in the kernel). ``freeze_fx`` runs the
+extractor under ``torch.no_grad()`` (the JAX ``stop_gradient``), and
+``freeze`` the whole encoder. The other topologies of ``EncoderConfig``
+are not ported yet; :func:`check_supported` refuses a config that asks
+for them.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Sequence, Tuple
 
 import torch
 from torch import nn
 
-from audio8_tpu.config import AcousticConfig, EncoderConfig
+from audio8_tpu_torch.config import AcousticConfig, EncoderConfig
+from audio8_tpu_torch.nn.dropout import dropout
 from audio8_tpu_torch.nn.layers import (Conv1D, Dense, GroupNorm, LayerNorm,
                                         PositionalConv, gelu)
 from audio8_tpu_torch.nn.transformer import TransformerEncoderStack
+from audio8_tpu_torch.ops.hashrand import draw_seed
+from audio8_tpu_torch.ops.masks import span_mask
 
 # (EncoderConfig field, value the port runs, what a different value asks for)
 _SUPPORTED = (
@@ -110,21 +121,29 @@ class AudioTransformerEncoder(TransformerEncoderStack):
     def __init__(self, d_model: int, num_heads: int, num_layers: int,
                  d_ff: Optional[int] = None, conv_pos_kernel: int = 128,
                  conv_pos_groups: int = 16,
-                 dtype: torch.dtype = torch.float32):
-        super().__init__(num_heads, d_model, num_layers, d_ff, dtype)
+                 dtype: torch.dtype = torch.float32,
+                 dropout_rate: float = 0.0,
+                 attention_dropout: Optional[float] = None,
+                 layer_drop: float = 0.0):
+        super().__init__(num_heads, d_model, num_layers, d_ff, dtype,
+                         dropout_rate, attention_dropout, layer_drop)
+        self.dropout_rate = dropout_rate
         self.pos_conv = nn.Sequential(PositionalConv(
             d_model, conv_pos_kernel, conv_pos_groups, dtype=dtype))
         self.layer_norm = LayerNorm(d_model, dtype)
 
     def forward(self, x: torch.Tensor,
-                pad_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """Zero padded frames, add the positional conv, LayerNorm, then
-        the layers with ``pad_mask`` as the attention key mask."""
+                pad_mask: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Zero padded frames, add the positional conv, LayerNorm,
+        dropout, then the layers with ``pad_mask`` as the attention key
+        mask."""
         if pad_mask is not None:
             x = torch.where(pad_mask[..., None], x, torch.zeros((), dtype=x.dtype,
                                                                 device=x.device))
         x = self.layer_norm(x + self.pos_conv(x))
-        return super().forward(x, pad_mask)
+        x = dropout(x, self.dropout_rate, generator)
+        return super().forward(x, pad_mask, generator)
 
 
 def downsample_lengths(input_lengths: torch.Tensor, t_samples: int,
@@ -137,25 +156,33 @@ def downsample_lengths(input_lengths: torch.Tensor, t_samples: int,
 
 
 class Wav2Vec2Encoder(nn.Module):
-    """Conv features -> LayerNorm -> projection -> transformer (eval)."""
+    """Conv features -> LayerNorm -> projection -> (training-time dropout
+    and masking) -> transformer."""
 
     def __init__(self, cfg: EncoderConfig, dtype: torch.dtype = torch.float32):
         super().__init__()
         check_supported(cfg)
+        self.config = cfg
         self.feature_extractor = ConvFeatureExtractor(cfg.conv_features, dtype)
         self.layer_norm = LayerNorm(cfg.fx_dim, dtype)
         self.post_extract_proj = Dense(cfg.fx_dim, cfg.d_model, dtype=dtype)
-        # used by training-time time masking; kept so checkpoints load
-        # strictly and round-trip
+        # replaces time-masked frames in training
         self.mask_emb = nn.Parameter(torch.zeros(cfg.d_model))
         self.encoder = AudioTransformerEncoder(
             cfg.d_model, cfg.num_heads, cfg.num_layers, cfg.d_ff,
-            cfg.conv_pos_kernel, cfg.conv_pos_groups, dtype)
+            cfg.conv_pos_kernel, cfg.conv_pos_groups, dtype, cfg.dropout,
+            cfg.attention_dropout, cfg.layer_drop)
 
     def forward(self, x: torch.Tensor,
-                input_lengths: Optional[torch.Tensor] = None
+                input_lengths: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None
                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-        fx = self.feature_extractor(x, input_lengths)
+        """``generator``: the trainer's seed source; when given, the
+        forward runs in training mode."""
+        cfg = self.config
+        no_grad = torch.no_grad() if cfg.freeze_fx else contextlib.nullcontext()
+        with no_grad:
+            fx = self.feature_extractor(x, input_lengths)
         features = self.layer_norm(fx)
         pad_mask = None
         if input_lengths is not None:
@@ -164,7 +191,30 @@ class Wav2Vec2Encoder(nn.Module):
             pad_mask = (torch.arange(features.shape[1], device=x.device)[None, :]
                         < frames[:, None])
         features = self.post_extract_proj(features)
-        return self.encoder(features, pad_mask), pad_mask
+        if generator is not None:
+            features = self._train_masks(features, generator)
+        return self.encoder(features, pad_mask, generator), pad_mask
+
+    def _train_masks(self, features: torch.Tensor,
+                     generator: torch.Generator) -> torch.Tensor:
+        """``dropout_input``, then time masking (frames replaced by
+        ``mask_emb``) and channel masking (channels zeroed), each span
+        mask from its own seed (``audio8_tpu`` ``_features``)."""
+        cfg = self.config
+        b, t, c = features.shape
+        dev = features.device
+        features = dropout(features, cfg.dropout_input, generator)
+        if cfg.timestep_masking > 0.0:
+            tm = span_mask(draw_seed(generator), b, t, cfg.timestep_masking,
+                           cfg.timestep_mask_len, dev)
+            features = torch.where(tm[..., None],
+                                   self.mask_emb.to(features.dtype), features)
+        if cfg.channel_masking > 0.0:
+            cm = span_mask(draw_seed(generator), b, c, cfg.channel_masking,
+                           cfg.channel_mask_len, dev)
+            features = torch.where(cm[:, None, :], torch.zeros(
+                (), dtype=features.dtype, device=dev), features)
+        return features
 
 
 class Wav2Vec2AcousticModel(nn.Module):
@@ -191,8 +241,15 @@ class Wav2Vec2AcousticModel(nn.Module):
             self.encoder.mask_emb.uniform_(0.0, 1.0, generator=generator)
 
     def forward(self, x: torch.Tensor,
-                input_lengths: Optional[torch.Tensor] = None
+                input_lengths: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None,
+                freeze: bool = True
                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-        encoded, pad_mask = self.encoder(x, input_lengths)
+        """``generator``: training mode, seeds drawn from it. ``freeze``:
+        no gradient into the encoder (it runs under ``torch.no_grad()``,
+        the JAX ``stop_gradient`` on its output)."""
+        no_grad = torch.no_grad() if freeze else contextlib.nullcontext()
+        with no_grad:
+            encoded, pad_mask = self.encoder(x, input_lengths, generator)
         logits = self.proj(encoded).float()
         return torch.log_softmax(logits, dim=-1), pad_mask

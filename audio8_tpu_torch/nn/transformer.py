@@ -1,9 +1,11 @@
 """Transformer encoder of the port (``audio8_tpu/nn/transformer.py``).
 
-The serving slice's encoder: post-norm self-attention layers whose
-attention core is the hand-written kernel ``ops.attention.attention_core``
-(the JAX package's ``fused_attention=True`` path) under a key-validity
-mask. Module and parameter names follow fairseq's wav2vec2 encoder
+Post-norm self-attention layers whose attention core is the
+hand-written kernel ``ops.attention.attention_core`` (the JAX package's
+``fused_attention=True`` path) under a key-validity mask. In training
+(a ``generator`` is passed) the attention probabilities drop out inside
+the kernel with one seed per layer call, and the two residual branches
+take hash dropout, each seed drawn from the generator. Module and parameter names follow fairseq's wav2vec2 encoder
 (``self_attn.{q,k,v,out}_proj``, ``self_attn_layer_norm``, ``fc1``,
 ``fc2``, ``final_layer_norm``, ``layers.{i}``) so checkpoints load by
 prefix. The JAX module's other features (pre-norm, relative positions,
@@ -18,8 +20,10 @@ from typing import Optional
 import torch
 from torch import nn
 
+from audio8_tpu_torch.nn.dropout import dropout
 from audio8_tpu_torch.nn.layers import Dense, LayerNorm, gelu
 from audio8_tpu_torch.ops.attention import attention_core
+from audio8_tpu_torch.ops.hashrand import draw_seed
 
 
 class MultiHeadAttention(nn.Module):
@@ -28,11 +32,13 @@ class MultiHeadAttention(nn.Module):
     heads are split to (B, H, T, dh) for the core."""
 
     def __init__(self, num_heads: int, d_model: int,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 dropout_rate: float = 0.0):
         super().__init__()
         if d_model % num_heads:
             raise ValueError(f"d_model {d_model} % num_heads {num_heads}")
         self.num_heads = num_heads
+        self.dropout_rate = dropout_rate  # on the attention probabilities
         self.d_head = d_model // num_heads
         self.q_proj = Dense(d_model, d_model, dtype=dtype)
         self.k_proj = Dense(d_model, d_model, dtype=dtype)
@@ -45,12 +51,17 @@ class MultiHeadAttention(nn.Module):
             0, 2, 1, 3).contiguous()
 
     def forward(self, x: torch.Tensor,
-                key_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """``key_valid``: optional (B, T) bool, True = attend. Eval: the
-        attention-probability dropout waits for the training slice."""
+                key_valid: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """``key_valid``: optional (B, T) bool, True = attend. With a
+        ``generator`` the probabilities drop out at ``dropout_rate`` (head
+        (b, h) seeded ``seed + b*H + h`` inside the kernel)."""
         q, k, v = (self._split(p(x)) for p in (self.q_proj, self.k_proj,
                                                self.v_proj))
-        out = attention_core(q, k, v, key_valid, 1.0 / math.sqrt(self.d_head))
+        rate = self.dropout_rate if generator is not None else 0.0
+        seed = draw_seed(generator) if rate > 0.0 else 0
+        out = attention_core(q, k, v, key_valid, 1.0 / math.sqrt(self.d_head),
+                             rate, seed)
         b, h, t, d = out.shape
         return self.out_proj(out.permute(0, 2, 1, 3).reshape(b, t, h * d))
 
@@ -64,37 +75,58 @@ def ffn(x: torch.Tensor, fc1: Dense, fc2: Dense) -> torch.Tensor:
 
 class TransformerEncoderLayer(nn.Module):
     """Post-norm encoder layer (wav2vec2-base):
-    ``x = LN(x + attn(x)); x = LN(x + ffn(x))``."""
+    ``x = LN(x + drop(attn(x))); x = LN(x + drop(ffn(x)))``; the
+    attention-probability rate defaults to ``dropout_rate``."""
 
     def __init__(self, num_heads: int, d_model: int, d_ff: int,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 dropout_rate: float = 0.0,
+                 attention_dropout: Optional[float] = None):
         super().__init__()
-        self.self_attn = MultiHeadAttention(num_heads, d_model, dtype)
+        self.dropout_rate = dropout_rate
+        self.self_attn = MultiHeadAttention(
+            num_heads, d_model, dtype,
+            dropout_rate if attention_dropout is None else attention_dropout)
         self.self_attn_layer_norm = LayerNorm(d_model, dtype)
         self.fc1 = Dense(d_model, d_ff, dtype=dtype)
         self.fc2 = Dense(d_ff, d_model, dtype=dtype)
         self.final_layer_norm = LayerNorm(d_model, dtype)
 
     def forward(self, x: torch.Tensor,
-                key_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
-        x = self.self_attn_layer_norm(x + self.self_attn(x, key_valid))
-        return self.final_layer_norm(x + ffn(x, self.fc1, self.fc2))
+                key_valid: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        rate = self.dropout_rate
+        x = x + dropout(self.self_attn(x, key_valid, generator), rate,
+                        generator)
+        x = self.self_attn_layer_norm(x)
+        x = x + dropout(ffn(x, self.fc1, self.fc2), rate, generator)
+        return self.final_layer_norm(x)
 
 
 class TransformerEncoderStack(nn.Module):
-    """``num_layers`` post-norm layers in ``self.layers``."""
+    """``num_layers`` post-norm layers in ``self.layers``. LayerDrop is
+    not ported yet: ``layer_drop > 0`` raises in training."""
 
     def __init__(self, num_heads: int, d_model: int, num_layers: int,
                  d_ff: Optional[int] = None,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 dropout_rate: float = 0.0,
+                 attention_dropout: Optional[float] = None,
+                 layer_drop: float = 0.0):
         super().__init__()
         d_ff = d_ff or 4 * d_model
+        self.layer_drop = layer_drop
         self.layers = nn.ModuleList(
-            TransformerEncoderLayer(num_heads, d_model, d_ff, dtype)
+            TransformerEncoderLayer(num_heads, d_model, d_ff, dtype,
+                                    dropout_rate, attention_dropout)
             for _ in range(num_layers))
 
     def forward(self, x: torch.Tensor,
-                key_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+                key_valid: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        if generator is not None and self.layer_drop > 0.0:
+            raise NotImplementedError(
+                "layer_drop > 0 is not ported yet (ROADMAP.md)")
         for layer in self.layers:
-            x = layer(x, key_valid)
+            x = layer(x, key_valid, generator)
         return x

@@ -22,40 +22,55 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _U = ctypes.c_uint32
 
-# source -> (C function, argtypes)
+# source -> {entry: (C function, argtypes)}; "main" is the launch a
+# wrapper counts, other entries are helper launches of the same library
 _SIGNATURES = {
-    "conv_k3s2_fwd.cu": ("a8t_conv_k3s2_fwd",
-                         [_P, _P, _P, _I, _I, _I, _I, _I, _P]),
-    "attention_fwd.cu": ("a8t_attention_fwd",
-                         [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F,
-                          _U, _U, _I, _P]),
+    "conv_k3s2_fwd.cu": {"main": ("a8t_conv_k3s2_fwd",
+                                  [_P, _P, _P, _I, _I, _I, _I, _I, _P])},
+    "attention_fwd.cu": {"main": ("a8t_attention_fwd",
+                                  [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                   _I, _I, _F, _F, _U, _U, _I, _P])},
+    "attention_bwd.cu": {"main": ("a8t_attention_bwd",
+                                  [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                   _P, _I, _I, _I, _I, _I, _F, _F, _U, _U,
+                                   _I, _P])},
+    "ctc_loss.cu": {"main": ("a8t_ctc_loss",
+                             [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                              _I, _P]),
+                    "bwd": ("a8t_ctc_loss_bwd",
+                            [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P])},
+    "adamw.cu": {"main": ("a8t_adamw",
+                          [_P, _I, _I, _F, _F, _F, _F, _F, _F, _F, _P,
+                           _P])},
 }
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _lock = threading.Lock()
-_functions: Dict[str, ctypes._CFuncPtr] = {}
+_functions: Dict[tuple, ctypes._CFuncPtr] = {}
 
 
 def build_all() -> Dict[str, str]:
     """Build (or find) every kernel library and load it."""
     libs = _build.build(tuple(_SIGNATURES))
-    for source in _SIGNATURES:
-        function(source)
+    for source, entries in _SIGNATURES.items():
+        for entry in entries:
+            function(source, entry)
     return libs
 
 
-def function(source: str):
-    """The launch function of ``source``, built and loaded on first use."""
+def function(source: str, entry: str = "main"):
+    """The launch function ``entry`` of ``source``, built and loaded on
+    first use."""
     with _lock:
-        fn = _functions.get(source)
+        fn = _functions.get((source, entry))
         if fn is None:
             path = _build.build((source,))[source]
-            name, argtypes = _SIGNATURES[source]
+            name, argtypes = _SIGNATURES[source][entry]
             fn = getattr(ctypes.CDLL(path), name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-            _functions[source] = fn
+            _functions[(source, entry)] = fn
         return fn
 
 

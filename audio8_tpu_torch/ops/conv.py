@@ -1,7 +1,8 @@
 """Stride-2, kernel-3 VALID 1-D convolution over channel-last activations.
 
 Counterpart of ``audio8_tpu/ops/pallas/conv_kernel.py:conv1d_k3s2`` (the
-forward only; the backward kernels come with training). On a CUDA tensor
+forward only: the dgrad and wgrad kernels come with the pretraining slice,
+so on the card a call that would need a gradient raises). On a CUDA tensor
 :func:`conv1d_k3s2` launches the hand-written kernel
 ``csrc/conv_k3s2_fwd.cu``; on a CPU tensor it runs
 :func:`conv1d_k3s2_plain`, the same function in plain PyTorch, which is
@@ -40,6 +41,10 @@ def conv1d_k3s2(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if not (x.is_cuda and w.is_cuda and x.device == w.device):
         raise ValueError(f"conv1d_k3s2: x on {x.device}, w on {w.device}; "
                          "both must be CPU or the same CUDA device")
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        raise NotImplementedError(
+            "conv1d_k3s2: the backward kernels (dgrad, wgrad) are not "
+            "ported yet; train with freeze_fx (ROADMAP.md)")
     if x.dtype not in _ext.DTYPE_CODES or w.dtype != x.dtype:
         raise TypeError(f"conv1d_k3s2: dtypes {x.dtype}/{w.dtype}; the "
                         "kernel takes float32 or bfloat16, both the same")

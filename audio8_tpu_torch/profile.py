@@ -1,8 +1,9 @@
-"""Where the time of one serving dispatch goes on the card.
+"""Where the time of one serving dispatch, or of one training step, goes
+on the card.
 
-Runs the port's ``Wav2Vec2AcousticModel`` forward on one ``(batch, chunk)``
-block as the ``MicroBatcher`` dispatches it (seeded random weights, ragged
-lengths with one zero-length filler row) and prints one JSON line:
+Default: the port's ``Wav2Vec2AcousticModel`` forward on one ``(batch,
+chunk)`` block as the ``MicroBatcher`` dispatches it (seeded random
+weights, ragged lengths with one zero-length filler row). One JSON line:
 
 * ``forward_ms``: the whole forward (CUDA events, median of 5);
 * ``stage_ms``: each stage of the forward run alone on its real input,
@@ -10,7 +11,14 @@ lengths with one zero-length filler row) and prints one JSON line:
 * ``device_idle_share``: the share of one traced forward's window in
   which no kernel ran (``torch.profiler``, union of kernel intervals).
 
-    python -m audio8_tpu_torch.profile [--bf16]
+``--train``: one unfrozen CTC fine-tuning micro-step of the same model
+with dropout and masking on, on a batch of 15, 12.5, 10 s rows and a
+padding row (the ``cli.train`` defaults), through ``make_ctc_steps``:
+``step_ms`` (grad + update), ``stage_ms`` (forward, CTC, backward, the
+12 attention backwards alone, AdamW), the kernel time by group and the
+device idle share of one traced step.
+
+    python -m audio8_tpu_torch.profile [--bf16] [--train]
 """
 from __future__ import annotations
 
@@ -21,7 +29,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from audio8_tpu.config import AcousticConfig
+from audio8_tpu_torch.config import AcousticConfig
 from audio8_tpu_torch.models.wav2vec2 import Wav2Vec2AcousticModel
 from audio8_tpu_torch.nn.transformer import ffn
 from audio8_tpu_torch.ops.attention import attention_core
@@ -108,15 +116,138 @@ def stage_times(model, sig, lengths) -> dict:
     return out
 
 
+def kernel_groups(prof) -> dict:
+    """Device ms by kernel family, from profiler events, and the five
+    largest kernels of the rest by name."""
+    groups = {"attention_fwd": "attention_fwd", "attention_bwd":
+              "attention_bwd", "ctc": "ctc_", "adamw": "adamw_kernel",
+              "conv_k3s2_fwd": "conv_k3s2", "matmul": ("gemm", "cutlass",
+                                                       "sm90_", "ampere")}
+    out = {k: 0.0 for k in groups}
+    out["other"] = 0.0
+    other = {}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        ms = (e.time_range.end - e.time_range.start) / 1e3
+        for name, keys in groups.items():
+            if any(k in e.name for k in ((keys,) if isinstance(keys, str)
+                                         else keys)):
+                out[name] += ms
+                break
+        else:
+            out["other"] += ms
+            other[e.name] = other.get(e.name, 0.0) + ms
+    out["other_top5"] = {k[:90]: v for k, v in sorted(
+        other.items(), key=lambda kv: -kv[1])[:5]}
+    return out
+
+
+def idle_share(prof) -> float:
+    intervals = [(e.time_range.start, e.time_range.end) for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+    window = max(e for _, e in intervals) - min(s for s, _ in intervals)
+    return 1.0 - busy_union(intervals) / window
+
+
+def train_profile(dtype) -> dict:
+    """One unfrozen micro-step: stages alone, then one traced step."""
+    from audio8_tpu_torch.ops.attention import attention_core_bwd
+    from audio8_tpu_torch.train.optim import (TrainState, create_lrs,
+                                              create_optimizer)
+    from audio8_tpu_torch.train.steps import make_ctc_steps
+    from audio8_tpu_torch.utils import Offsets
+
+    Offsets.remap_fairseq_ctc()
+    model = Wav2Vec2AcousticModel(
+        AcousticConfig(num_labels=32), dtype,
+        generator=torch.Generator().manual_seed(SEED)).cuda()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    n = 240_000
+    lengths = torch.tensor([n, 200_000, 160_000, 0], device="cuda")
+    sig = torch.randn(4, n, device="cuda", generator=gen) * 0.1
+    sig = sig * (torch.arange(n, device="cuda")[None] < lengths[:, None])
+    tl = torch.tensor([210, 175, 140, 0], device="cuda")
+    tok = torch.randint(4, 32, (4, 256), device="cuda", generator=gen)
+    tok[torch.arange(256, device="cuda")[None] >= tl[:, None]] = Offsets.PAD
+    batch = {"signal": sig, "signal_lengths": lengths, "token_ids": tok,
+             "token_lengths": tl}
+    state = TrainState(model, create_optimizer(create_lrs(1e-4, 100)))
+    grad_fn, update_fn, _ = make_ctc_steps(model)
+    seeds = torch.Generator().manual_seed(SEED)
+
+    def step():
+        _, grads, bsz, _ = grad_fn(batch, seeds, freeze=False)
+        update_fn(state, grads, bsz)
+
+    def forward():
+        return model(sig, lengths, generator=seeds, freeze=False)
+
+    from audio8_tpu_torch.ops.ctc import ctc_loss
+
+    lp, mask = forward()
+    frames = mask.sum(-1)
+    loss = ctc_loss(lp, frames, tok, tl, blank=Offsets.GO)
+    _, grads, bsz, _ = grad_fn(batch, seeds, freeze=False)
+    # one layer's attention backward at this batch's shape, alone
+    attn = model.encoder.encoder.layers[0].self_attn
+    t = lp.shape[1]
+    q, k, v, do = (torch.randn(4, 12, t, 64, device="cuda", generator=gen)
+                   .to(dtype) for _ in range(4))
+    kv = torch.arange(t, device="cuda")[None] < frames[:, None]
+    from audio8_tpu_torch.ops.attention import _forward_kernel
+
+    _, stats, o32 = _forward_kernel(q, k, v, kv, attn.d_head ** -0.5, 0.1, 7,
+                                    with_stats=True)
+    fwd_ms = median_ms(forward)
+    stages = {
+        "forward (autograd graph)": fwd_ms,
+        "ctc_loss fwd": median_ms(lambda: ctc_loss(
+            lp.detach(), frames, tok, tl, blank=Offsets.GO)),
+        "backward (fwd+bwd minus fwd)": median_ms(
+            lambda: forward()[0].sum().backward()) - fwd_ms,
+        "attention_bwd x12 (alone)": 12 * median_ms(
+            lambda: attention_core_bwd(q, k, v, o32, stats, kv,
+                                       attn.d_head ** -0.5, 0.1, 7, do)),
+        "adamw (apply_gradients)": median_ms(
+            lambda: state.apply_gradients(grads, 1.0, 25.0)),
+    }
+    for prm in model.parameters():
+        prm.grad = None
+    step_ms = median_ms(step)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        step()
+        torch.cuda.synchronize()
+    audio_s = float(lengths.sum()) / 16_000
+    return {"profile": "wav2vec2-base CTC fine-tuning, one unfrozen "
+            "micro-step (grad + update)", "dtype": str(dtype),
+            "lengths": lengths.tolist(), "frames": t, "step_ms": step_ms,
+            "stage_ms": stages, "kernel_ms_by_group": kernel_groups(prof),
+            "device_idle_share": idle_share(prof),
+            "train_audio_s_per_s": audio_s / (step_ms / 1e3),
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "loss": float(loss.detach()),
+            "device": torch.cuda.get_device_name(0)}
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--bf16", action="store_true")
+    ap.add_argument("--train", action="store_true",
+                    help="one training micro-step instead of a serving "
+                         "dispatch")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile: no CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dtype = torch.bfloat16 if args.bf16 else torch.float32
+    if args.train:
+        out = train_profile(dtype)
+        print(json.dumps(out), flush=True)
+        return out
     cfg = AcousticConfig(num_labels=32, timestep_masking=0.0,
                          channel_masking=0.0)
     model = Wav2Vec2AcousticModel(
@@ -136,16 +267,15 @@ def main(argv=None) -> dict:
         with torch.profiler.profile(activities=acts) as prof:
             model(sig, lengths)
             torch.cuda.synchronize()
-    intervals = [(e.time_range.start, e.time_range.end) for e in prof.events()
-                 if e.device_type == torch.autograd.DeviceType.CUDA]
-    window = max(e for _, e in intervals) - min(s for s, _ in intervals)
     out = {
         "profile": "wav2vec2-base forward, one serving dispatch",
         "dtype": str(dtype), "batch": BATCH, "chunk_samples": CHUNK,
         "lengths": lengths.tolist(), "forward_ms": forward_ms,
         "stage_ms": stages, "stage_sum_ms": sum(stages.values()),
-        "device_idle_share": 1.0 - busy_union(intervals) / window,
-        "kernel_launches": len(intervals),
+        "device_idle_share": idle_share(prof),
+        "kernel_launches": sum(
+            e.device_type == torch.autograd.DeviceType.CUDA
+            for e in prof.events()),
         "forward_audio_s_per_s": float(lengths.sum()) / 16_000
         / (forward_ms / 1e3),
         "device": torch.cuda.get_device_name(0),

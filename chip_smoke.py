@@ -1,21 +1,33 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (``audio8_tpu_torch``) on one CUDA card.
 
-Drives the port's serving path at full wav2vec2-base width with seeded
-random weights and holds every hand-written kernel on it against its plain
-PyTorch version. Phases, each printing one JSON line:
+Drives the port's serving path and its CTC fine-tuning path at full
+wav2vec2-base width with seeded random weights, and holds every
+hand-written kernel against its plain PyTorch version. Phases, each
+printing JSON lines:
 
-1. build   - compile the CUDA kernels from ``audio8_tpu_torch/csrc``;
-2. kernel  - each kernel vs its plain version at the serving path's shapes
-             (30 s chunks, batch 4), float32 and bfloat16; then small
-             ragged shapes and misaligned pointers, which reach every
-             variant of each kernel;
-3. model   - the full-width model's forward on the card (through the
-             kernels) vs the same weights on the CPU (plain versions);
-4. serve   - the ``a8t-serve`` path (parse_args -> load_acoustic ->
-             make_server) on 127.0.0.1 answers concurrent requests of about
-             3, 12, 31 and 65 s; the kernels' launch counts over that run;
-5. timing  - each kernel vs its plain version (CUDA events, median);
+1. build    - compile the CUDA kernels from ``audio8_tpu_torch/csrc``;
+2. kernel   - each kernel vs its plain version at its path's shapes
+              (serving: 30 s chunks, batch 4; training: 15 s rows, batch
+              4), float32 and bfloat16 where the kernel takes both; then
+              small ragged shapes and misaligned pointers, which reach
+              every variant of each kernel;
+3. model    - the full-width model's forward on the card (through the
+              kernels) vs the same weights on the CPU (plain versions);
+4. serve    - the ``a8t-serve`` path (parse_args -> load_acoustic ->
+              make_server) on 127.0.0.1 answers concurrent requests of
+              about 3, 12, 31 and 65 s; the kernels' launch counts over
+              that run;
+5. train    - ``python -m audio8_tpu_torch.cli.train``'s entry point on a
+              synthetic corpus: 6 optimizer steps of 2 micro-batches,
+              the encoder frozen for 3 of them; step times, training
+              audio-s/s and the kernels' launch counts over that run;
+6. train_vs_cpu - one unfrozen full-width step (dropout and masking
+              off) on the card and on the CPU from the same weights:
+              loss and gradient norm;
+7. timing   - each kernel vs its plain version and the one PyTorch call
+              that computes the same function (CUDA events, median), with
+              the least time the card could take (``bound_ms``);
 
 then a ``kernels`` line, the card's name and power limit from nvidia-smi,
 and, last, ``{"ok": true, "device": {...}}``. Any failed check raises, so
@@ -28,6 +40,7 @@ from __future__ import annotations
 
 import io
 import json
+import math
 import os
 import subprocess
 import sys
@@ -55,6 +68,24 @@ ATTN_LENGTHS = [1499, 1003, 0, 377]  # ragged, with a zero-length filler row
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -5}
 MODEL_TOL = 1e-3  # float32 log-probs, 12 layers, card vs CPU sum orders
 LETTERS = "| E T A O N I H S R D L U M W C F G Y P B V K ' X J Q Z".split()
+# training path shapes: batch 4 of 15 s rows (749 frames), 14 letters/s
+TRAIN_ATTN_SHAPE = (4, 12, 749, 64)
+TRAIN_ATTN_LENGTHS = [749, 612, 0, 377]  # a padding row of a snapped batch
+CTC_SHAPE = (4, 749, 4 + len(LETTERS))
+CTC_INPUT_LENGTHS = [749, 700, 601, 0]
+CTC_TARGET_LENGTHS = [210, 195, 170, 0]
+# card vs CPU, one full-width training step in float32
+TRAIN_LOSS_RTOL, TRAIN_GNORM_RTOL = 1e-4, 1e-3
+# H100 SXM nominal peaks (dense): f32 without TF32, bf16, HBM3
+PEAK_F32, PEAK_BF16, PEAK_BYTES = 67e12, 989e12, 3.35e12
+
+
+def ctc_grad_tol(t: int, ll_max: float) -> float:
+    """Bound on |kernel - plain| for the CTC gradient. gamma = alpha + beta
+    - emit - ll cancels terms of size |ll|, and each of the 2T steps of
+    the recursions rounds at that size, so two f32 evaluations in
+    different orders agree to about sqrt(T) * 2^-24 * |ll| (times 2)."""
+    return 2.0 * math.sqrt(t) * 2.0 ** -24 * max(1.0, ll_max)
 
 
 def emit(obj: dict) -> None:
@@ -187,11 +218,163 @@ def phase_kernels(gen) -> dict:
     return worst
 
 
-def base_config(num_labels: int):
-    from audio8_tpu.config import AcousticConfig
+def attn_grads(q, k, v, kv, rate, seed, do):
+    """(dq, dk, dv) through the kernels (autograd) and the plain backward
+    on the same inputs."""
+    from audio8_tpu_torch.ops.attention import (attention_core,
+                                                attention_core_bwd_plain)
+
+    dh = q.shape[-1]
+    qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
+    out = attention_core(qg, kg, vg, kv, dh ** -0.5, rate, seed)
+    got = torch.autograd.grad(out, (qg, kg, vg), do)
+    torch.cuda.synchronize()
+    with torch.no_grad():
+        want = attention_core_bwd_plain(q, k, v, kv, dh ** -0.5, rate, seed,
+                                        do)
+    return got, want
+
+
+def check_attn_bwd(phase, shape, lengths, dtype, gen,
+                   skew: bool = False) -> float:
+    b, h, t, dh = shape
+    q, k, v, do = (torch.randn(shape, device="cuda", generator=gen).to(dtype)
+                   for _ in range(4))
+    if skew:
+        q, k, v, do = (misaligned(x) for x in (q, k, v, do))
+    kv = (torch.arange(t, device="cuda")[None, :]
+          < torch.tensor(lengths, device="cuda")[:, None])
+    worst = 0.0
+    for rate, seed in ((0.0, 0), (0.1, 4_000_000_000)):
+        got, want = attn_grads(q, k, v, kv, rate, seed, do)
+        errs = {}
+        for name, g, w in zip(("dq", "dk", "dv"), got, want):
+            err, scale = max_err(g, w)
+            tol = TOL[dtype] * max(1.0, scale)
+            errs[name] = err
+            check(bool(torch.isfinite(g).all()) and err <= tol,
+                  f"attention_bwd {name} {shape} {dtype} rate {rate}: "
+                  f"{err} > {tol}")
+            worst = max(worst, err)
+        emit({"phase": phase, "kernel": "attention_bwd", "dtype": str(dtype),
+              "shape": list(shape), "key_lengths": lengths, "rate": rate,
+              "misaligned": skew, "max_abs_err": errs,
+              "tol_factor": TOL[dtype]})
+    return worst
+
+
+def ctc_inputs(shape, input_lengths, target_lengths, gen):
+    b, t, v = shape
+    lp = torch.log_softmax(torch.randn(shape, device="cuda", generator=gen),
+                           dim=-1)
+    u = max(max(target_lengths), 1)
+    tg = torch.randint(4, v, (b, u), device="cuda", generator=gen)
+    return (lp, torch.tensor(input_lengths, device="cuda"), tg,
+            torch.tensor(target_lengths, device="cuda"))
+
+
+def check_ctc(phase, shape, input_lengths, target_lengths, gen) -> float:
+    """Loss and gradient of the kernel vs the plain scan (autograd)."""
+    from audio8_tpu_torch.ops.ctc import ctc_loss, ctc_loss_plain
+
+    lp, il, tg, tl = ctc_inputs(shape, input_lengths, target_lengths, gen)
+    lpk = lp.detach().requires_grad_()
+    loss = ctc_loss(lpk, il, tg, tl, blank=0, reduction="none")
+    w = torch.rand(shape[0], device="cuda", generator=gen)
+    (grad,) = torch.autograd.grad((loss * w).sum(), lpk)
+    torch.cuda.synchronize()
+    lpp = lp.detach().requires_grad_()
+    plain = ctc_loss_plain(lpp, il, tg, tl, 0)
+    plain = torch.where(plain >= 5e29, torch.zeros_like(plain), plain)
+    (pgrad,) = torch.autograd.grad((plain * w).sum(), lpp)
+    l_err, l_scale = max_err(loss, plain)
+    g_err, _ = max_err(grad, pgrad)
+    l_tol = TOL[torch.float32] * max(1.0, l_scale)
+    g_tol = ctc_grad_tol(shape[1], l_scale)
+    emit({"phase": phase, "kernel": "ctc_loss", "shape": list(shape),
+          "input_lengths": input_lengths, "target_lengths": target_lengths,
+          "loss_max_abs_err": l_err, "loss_tol": l_tol,
+          "grad_max_abs_err": g_err, "grad_tol": g_tol, "max_loss": l_scale})
+    check(bool(torch.isfinite(grad).all()) and l_err <= l_tol
+          and g_err <= g_tol, f"ctc_loss {shape}: loss {l_err} grad {g_err}")
+    return max(l_err, g_err)
+
+
+def adamw_leaves(shapes, gen):
+    p, g, m = ([torch.randn(s, device="cuda", generator=gen) for s in shapes]
+               for _ in range(3))
+    v = [torch.rand(s, device="cuda", generator=gen) for s in shapes]
+    return p, g, m, v
+
+
+def check_adamw(phase, shapes, gen, misalign=False) -> float:
+    from audio8_tpu_torch.ops.adamw import adamw_update, adamw_update_plain
+
+    p, g, m, v = adamw_leaves(shapes, gen)
+    if misalign:
+        p, g, m, v = ([misaligned(x) for x in xs] for xs in (p, g, m, v))
+    copies = [[x.clone() for x in xs] for xs in (p, m, v)]
+    scale = torch.tensor(0.37, device="cuda")
+    args = (scale, 3e-4, 0.9, 0.98, 1e-6, 0.01, 1.0 / (1.0 - 0.9 ** 3),
+            1.0 / (1.0 - 0.98 ** 3))
+    adamw_update(p, g, m, v, *args)
+    torch.cuda.synchronize()
+    adamw_update_plain(copies[0], g, copies[1], copies[2], *args)
+    worst, tol = 0.0, 0.0
+    for got, want in zip((p, m, v), copies):
+        for a, b in zip(got, want):
+            err, scale_ = max_err(a, b)
+            worst, tol = max(worst, err), max(tol, TOL[torch.float32]
+                                              * max(1.0, scale_))
+    emit({"phase": phase, "kernel": "adamw",
+          "leaves": len(shapes), "elements": sum(x.numel() for x in p),
+          "misaligned": misalign, "max_abs_err": worst, "tol": tol})
+    check(worst <= tol, f"adamw {len(shapes)} leaves: {worst} > {tol}")
+    return worst
+
+
+def model_shapes():
+    from audio8_tpu_torch.models.wav2vec2 import Wav2Vec2AcousticModel
+
+    model = Wav2Vec2AcousticModel(base_config(4 + len(LETTERS)))
+    return [tuple(p.shape) for p in model.parameters()]
+
+
+def phase_train_kernels(gen) -> dict:
+    """The training path's kernels at its shapes; returns f32 max errors."""
+    worst = {"attention_bwd": check_attn_bwd(
+        "kernel", TRAIN_ATTN_SHAPE, TRAIN_ATTN_LENGTHS, torch.float32, gen)}
+    check_attn_bwd("kernel", TRAIN_ATTN_SHAPE, TRAIN_ATTN_LENGTHS,
+                   torch.bfloat16, gen)
+    worst["ctc_loss"] = check_ctc("kernel", CTC_SHAPE, CTC_INPUT_LENGTHS,
+                                  CTC_TARGET_LENGTHS, gen)
+    worst["adamw"] = check_adamw("kernel", model_shapes(), gen)
+    return worst
+
+
+def phase_train_variants(gen) -> None:
+    """Small ragged shapes: every head dim and variant of the attention
+    backward (bf16 mma.sync for dh <= 64 when aligned, SIMT otherwise),
+    CTC with an empty target, an infeasible row, a padding row and
+    repeats, AdamW with odd sizes and misaligned leaves."""
+    for dtype in (torch.float32, torch.bfloat16):
+        for shape, lengths, skew in (((3, 2, 130, 16), [130, 43, 0], False),
+                                     ((2, 2, 200, 128), [200, 66], False),
+                                     ((3, 2, 65, 32), [1, 64, 65], False),
+                                     ((3, 2, 130, 32), [130, 7, 0], True)):
+            check_attn_bwd("variant", shape, lengths, dtype, gen, skew)
+    check_ctc("variant", (5, 40, 7), [40, 33, 3, 0, 25], [6, 0, 6, 0, 3],
+              gen)
+    check_ctc("variant", (2, 1, 5), [1, 1], [1, 0], gen)
+    check_adamw("variant", [(7,), (1,), (16385,), (3, 5, 2)], gen)
+    check_adamw("variant", [(7,), (1000,)], gen, misalign=True)
+
+
+def base_config(num_labels: int, **over):
+    from audio8_tpu_torch.config import AcousticConfig
 
     return AcousticConfig(num_labels=num_labels, timestep_masking=0.0,
-                          channel_masking=0.0)
+                          channel_masking=0.0, **over)
 
 
 def phase_model(seed: int):
@@ -255,8 +438,6 @@ def phase_serve(cpu_model, seed: int, tmp: str) -> dict:
     the requests' run."""
     from audio8_tpu_torch.cli.serve import build_service, make_server, parse_args
     from audio8_tpu_torch.models.convert import save_fairseq_ctc
-    from audio8_tpu_torch.ops.attention import attention_core
-    from audio8_tpu_torch.ops.conv import conv1d_k3s2
 
     ckpt = os.path.join(tmp, "ctc.pt")
     save_fairseq_ctc(cpu_model, ckpt)
@@ -284,8 +465,7 @@ def phase_serve(cpu_model, seed: int, tmp: str) -> dict:
     try:
         batcher = service.transcriber.batcher
         dispatches0 = batcher.dispatches
-        conv1d_k3s2.launches = 0
-        attention_core.launches = 0
+        reset_launches()
         t0 = time.perf_counter()
         clients = [threading.Thread(target=send, args=(i,))
                    for i in range(len(bodies))]
@@ -294,8 +474,8 @@ def phase_serve(cpu_model, seed: int, tmp: str) -> dict:
         for c in clients:
             c.join(timeout=600)
         wall = time.perf_counter() - t0
-        launches = {"conv_k3s2_fwd": conv1d_k3s2.launches,
-                    "attention_fwd": attention_core.launches}
+        launches = {k: n for k, n in read_launches().items()
+                    if k in ("conv_k3s2_fwd", "attention_fwd")}
         status, health = post(port, "/healthz")
         check(status == 200 and health["ok"], "healthz")
         for s, res in zip(seconds, results):
@@ -315,7 +495,7 @@ def phase_serve(cpu_model, seed: int, tmp: str) -> dict:
               "texts_len": [len(r[1]["text"]) for r in results]})
 
         # the served path vs the CPU model on the first request's audio
-        from audio8_tpu.data.audio import read_wav
+        from audio8_tpu_torch.data.audio import read_wav
         path = os.path.join(tmp, "req0.wav")
         with open(path, "wb") as f:
             f.write(bodies[0])
@@ -341,6 +521,156 @@ def phase_serve(cpu_model, seed: int, tmp: str) -> dict:
     return launches
 
 
+def write_corpus(root: str, seed: int) -> None:
+    """16 training and 4 validation WAVs of 4-15 s (noise under drifting
+    tones) with random letter transcripts at about 14 letters per second,
+    in the fairseq manifest layout, and the 32-label letter dict."""
+    from scipy.io import wavfile
+
+    rng = np.random.default_rng(seed + 2)
+    with open(os.path.join(root, "dict.ltr.txt"), "w") as fh:
+        fh.writelines(f"{c} {1000 - i}\n" for i, c in enumerate(LETTERS))
+    for split, n in (("train", 16), ("valid", 4)):
+        with open(os.path.join(root, f"{split}.tsv"), "w") as tf, \
+                open(os.path.join(root, f"{split}.ltr"), "w") as lf:
+            tf.write(root + "\n")
+            for i in range(n):
+                seconds = float(rng.uniform(4.0, 15.0))
+                wav = synthetic_speechlike(seconds, rng)
+                name = f"{split}{i}.wav"
+                wavfile.write(os.path.join(root, name), SR,
+                              (np.clip(wav, -1, 1) * 32767).astype(np.int16))
+                tf.write(f"{name}\t{len(wav)}\n")
+                letters = rng.choice(LETTERS[1:], size=int(14 * seconds))
+                lf.write(" ".join(letters) + " |\n")
+
+
+def reset_launches() -> None:
+    from audio8_tpu_torch.ops.adamw import adamw_update
+    from audio8_tpu_torch.ops.attention import (attention_core,
+                                                attention_core_bwd)
+    from audio8_tpu_torch.ops.conv import conv1d_k3s2
+    from audio8_tpu_torch.ops.ctc import ctc_loss
+
+    for fn in (conv1d_k3s2, attention_core, attention_core_bwd, ctc_loss,
+               adamw_update):
+        fn.launches = 0
+
+
+def read_launches() -> dict:
+    from audio8_tpu_torch.ops.adamw import adamw_update
+    from audio8_tpu_torch.ops.attention import (attention_core,
+                                                attention_core_bwd)
+    from audio8_tpu_torch.ops.conv import conv1d_k3s2
+    from audio8_tpu_torch.ops.ctc import ctc_loss
+
+    return {"conv_k3s2_fwd": conv1d_k3s2.launches,
+            "attention_fwd": attention_core.launches,
+            "attention_bwd": attention_core_bwd.launches,
+            "ctc_loss": ctc_loss.launches, "adamw": adamw_update.launches}
+
+
+TRAIN_FLAGS = ["--target_tokens_per_batch", "700000", "--grad_accum", "2",
+               "--train_steps", "6", "--unfreeze_enc_after_step", "2",
+               "--warmup_steps", "2"]
+
+
+def phase_train(tmp: str, seed: int) -> dict:
+    """The CTC fine-tuning entry point at full width; returns the launch
+    counts of its run."""
+    from audio8_tpu_torch.cli.train import train
+    from audio8_tpu_torch.models.convert import load_fairseq_ctc
+
+    corpus = os.path.join(tmp, "corpus")
+    os.makedirs(corpus)
+    write_corpus(corpus, seed)
+    basedir = os.path.join(tmp, "run")
+    argv = ["--root_dir", corpus, "--train_dataset", "train.tsv",
+            "--valid_dataset", "valid.tsv", "--basedir", basedir,
+            "--device", "cuda", "--valid_steps", "2", *TRAIN_FLAGS]
+    reset_launches()
+    t0 = time.perf_counter()
+    state = train(argv)
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    log = state.log
+    check(state.step == 6 and len(log) == 6, f"train took {state.step} steps")
+    check([r["frozen"] for r in log] == [True] * 3 + [False] * 3,
+          "freeze schedule")
+    check(all(math.isfinite(r["loss"]) for r in log), "non-finite loss")
+    for name, n in launches.items():
+        check(n > 0, f"{name} was not launched by the training run")
+    ckpt = os.path.join(basedir, "checkpoint-step-6.pt")
+    keys = set(load_fairseq_ctc(ckpt))
+    check(keys == set(state.model.state_dict()), "checkpoint keys")
+
+    def rate(rows):
+        return sum(r["audio_s"] for r in rows) / sum(r["seconds"]
+                                                     for r in rows)
+
+    emit({"phase": "train", "config": "wav2vec2-base d768 h12 L12 ff3072, "
+          "32 labels, f32", "flags": TRAIN_FLAGS,
+          "params": sum(p.numel() for p in state.params),
+          "step_seconds": [r["seconds"] for r in log],
+          "step_audio_s": [r["audio_s"] for r in log],
+          "losses": [r["loss"] for r in log],
+          # step 1 carries first-call set-up (cuBLAS handles, allocator)
+          "audio_s_per_s_frozen": rate(log[1:3]),
+          "audio_s_per_s_unfrozen": rate(log[3:]),
+          "wall_s": wall, "launches": launches,
+          "launches_per_step": {k: n / 6 for k, n in launches.items()},
+          "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9})
+    return launches
+
+
+def phase_train_vs_cpu(seed: int) -> None:
+    """One unfrozen step on the card and on the CPU from the same
+    weights (dropout and masking off): loss and gradient norm."""
+    from audio8_tpu_torch.models.wav2vec2 import Wav2Vec2AcousticModel
+    from audio8_tpu_torch.train.optim import (TrainState, create_lrs,
+                                              create_optimizer)
+    from audio8_tpu_torch.train.steps import make_ctc_steps
+    from audio8_tpu_torch.utils import Offsets
+
+    Offsets.remap_fairseq_ctc()
+    cfg = base_config(4 + len(LETTERS), dropout=0.0)
+    cpu = Wav2Vec2AcousticModel(cfg, generator=torch.Generator().manual_seed(
+        seed + 3))
+    gpu = Wav2Vec2AcousticModel(cfg).cuda()
+    gpu.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(seed + 3)
+    lengths = np.array([48_000, 41_000])
+    sig = np.zeros((2, 48_000), np.float32)
+    for i, n in enumerate(lengths):
+        sig[i, :n] = synthetic_speechlike(n / SR, rng)
+    tl = np.array([42, 36])
+    tok = np.full((2, 42), Offsets.PAD, np.int64)
+    for i, n in enumerate(tl):
+        tok[i, :n] = rng.integers(4, 4 + len(LETTERS), size=n)
+    batch = {"signal": torch.from_numpy(sig),
+             "signal_lengths": torch.from_numpy(lengths),
+             "token_ids": torch.from_numpy(tok),
+             "token_lengths": torch.from_numpy(tl)}
+    out = {}
+    for name, model in (("cuda", gpu), ("cpu", cpu)):
+        dev = next(model.parameters()).device
+        state = TrainState(model, create_optimizer(create_lrs(
+            1e-4, 10, "constant", warmup_steps=0)))
+        grad_fn, update_fn, _ = make_ctc_steps(model)
+        b = {k: v.to(dev) for k, v in batch.items()}
+        loss, grads, bsz, _ = grad_fn(b, torch.Generator(), freeze=False)
+        _, gnorm = update_fn(state, grads, bsz)
+        out[name] = (float(loss), float(gnorm))
+    (l_g, n_g), (l_c, n_c) = out["cuda"], out["cpu"]
+    l_rel, n_rel = abs(l_g - l_c) / abs(l_c), abs(n_g - n_c) / abs(n_c)
+    emit({"phase": "train_vs_cpu", "rows_s": (lengths / SR).tolist(),
+          "loss": [l_g, l_c], "gnorm": [n_g, n_c], "loss_rel_err": l_rel,
+          "loss_rtol": TRAIN_LOSS_RTOL, "gnorm_rel_err": n_rel,
+          "gnorm_rtol": TRAIN_GNORM_RTOL})
+    check(l_rel <= TRAIN_LOSS_RTOL, f"train step loss card vs CPU {l_rel}")
+    check(n_rel <= TRAIN_GNORM_RTOL, f"train step gnorm card vs CPU {n_rel}")
+
+
 def median_ms(fn, reps: int = 5, inner: int = 3) -> float:
     fn()
     torch.cuda.synchronize()
@@ -357,40 +687,178 @@ def median_ms(fn, reps: int = 5, inner: int = 3) -> float:
     return float(np.median(times))
 
 
-def phase_timing(gen) -> dict:
-    """Kernel vs plain, in turns (plain, kernel, kernel, plain)."""
+def bound(flops: float, nbytes: float, dtype=torch.float32):
+    """Least time on the card (ms) and what sets it: the bytes the function
+    must move over HBM, or its operations over the dtype's peak."""
+    peak = PEAK_BF16 if dtype == torch.bfloat16 else PEAK_F32
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def in_turns(kern, plain, library=None) -> dict:
+    """Medians in turns: plain, kernel, [library], kernel, plain,
+    [library]."""
+    p1, k1 = median_ms(plain), median_ms(kern)
+    l1 = median_ms(library) if library else None
+    k2, p2 = median_ms(kern), median_ms(plain)
+    l2 = median_ms(library) if library else None
+    return {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
+            "library_ms": None if library is None else (l1 + l2) / 2,
+            "ms_runs": [k1, k2], "plain_ms_runs": [p1, p2],
+            "library_ms_runs": None if library is None else [l1, l2]}
+
+
+def time_attention(dtype, gen) -> dict:
+    """Forward at the serving shape, backward at the training shape;
+    the yardstick is scaled_dot_product_attention (no dropout)."""
+    import torch.nn.functional as F
+
     from audio8_tpu_torch.ops.attention import (attention_core,
+                                                attention_core_bwd_plain,
                                                 attention_core_plain)
-    from audio8_tpu_torch.ops.conv import conv1d_k3s2, conv1d_k3s2_plain
 
     out = {}
+    q, k, v, kv = attn_inputs(dtype, gen)
+    mask = kv[:, None, None, :]
+    b, h, t, dh = ATTN_SHAPE
+    r = in_turns(lambda: attention_core(q, k, v, kv, 0.125),
+                 lambda: attention_core_plain(q, k, v, kv, 0.125),
+                 lambda: F.scaled_dot_product_attention(q, k, v, mask))
+    r["bound_ms"], r["bound_by"] = bound(4.0 * b * h * t * t * dh,
+                                         4 * q.numel() * q.element_size()
+                                         + kv.numel(), dtype)
+    out["attention_fwd"] = r
+    del q, k, v
+    b, h, t, dh = TRAIN_ATTN_SHAPE
+    q, k, v, do = (torch.randn(TRAIN_ATTN_SHAPE, device="cuda",
+                               generator=gen).to(dtype) for _ in range(4))
+    kv = (torch.arange(t, device="cuda")[None, :]
+          < torch.tensor(TRAIN_ATTN_LENGTHS, device="cuda")[:, None])
+    qg, kg, vg = (x.requires_grad_() for x in (q.clone(), k.clone(),
+                                               v.clone()))
+    o = attention_core(qg, kg, vg, kv, 0.125)
+    ref = F.scaled_dot_product_attention(qg, kg, vg, kv[:, None, None, :])
+    r = in_turns(
+        lambda: torch.autograd.grad(o, (qg, kg, vg), do, retain_graph=True),
+        lambda: attention_core_bwd_plain(q, k, v, kv, 0.125, 0.0, 0, do),
+        lambda: torch.autograd.grad(ref, (qg, kg, vg), do,
+                                    retain_graph=True))
+    # recompute S, then dV, dP, dQ, dK: five T x T x dh products per head;
+    # reads q, k, v, o, dO and writes dq, dk, dv
+    r["bound_ms"], r["bound_by"] = bound(10.0 * b * h * t * t * dh,
+                                         8 * q.numel() * q.element_size(),
+                                         dtype)
+    out["attention_bwd"] = r
+    return out
+
+
+def time_conv(dtype, gen) -> dict:
+    """The four k3s2 layers of one (4, 30 s) block; the yardstick is
+    cuDNN's conv1d on channel-first copies of the same inputs."""
+    import torch.nn.functional as F
+
+    from audio8_tpu_torch.ops.conv import conv1d_k3s2, conv1d_k3s2_plain
+
+    convs = [conv_inputs(sh, dtype, gen) for sh in CONV_SHAPES]
+    cf = [(x.transpose(1, 2).contiguous(), w.permute(2, 1, 0).contiguous())
+          for x, w in convs]
+    r = in_turns(lambda: [conv1d_k3s2(x, w) for x, w in convs],
+                 lambda: [conv1d_k3s2_plain(x, w) for x, w in convs],
+                 lambda: [F.conv1d(x, w, stride=2) for x, w in cf])
+    flops = sum(2.0 * CHUNK_BATCH * ((t - 3) // 2 + 1) * 3 * ci * co
+                for t, ci, co in CONV_SHAPES)
+    nbytes = sum((x.numel() + w.numel() + CHUNK_BATCH * ((t - 3) // 2 + 1)
+                  * co) * x.element_size()
+                 for (x, w), (t, _, co) in zip(convs, CONV_SHAPES))
+    r["bound_ms"], r["bound_by"] = bound(flops, nbytes, dtype)
+    return {"conv_k3s2_fwd": r}
+
+
+def time_ctc(gen) -> dict:
+    """Loss and gradient at the training shape; the yardstick is
+    F.ctc_loss (forward and backward)."""
+    import torch.nn.functional as F
+
+    from audio8_tpu_torch.ops.ctc import ctc_loss, ctc_loss_plain
+
+    lp, il, tg, tl = ctc_inputs(CTC_SHAPE, CTC_INPUT_LENGTHS,
+                                CTC_TARGET_LENGTHS, gen)
+    lpg = lp.detach().requires_grad_()
+    flat = torch.cat([tg[i, :n] for i, n in enumerate(CTC_TARGET_LENGTHS)])
+
+    def kern():
+        torch.autograd.grad(ctc_loss(lpg, il, tg, tl, 0, "sum"), lpg)
+
+    def library():
+        loss = F.ctc_loss(lpg.transpose(0, 1), flat, il, tl, blank=0,
+                          reduction="sum", zero_infinity=True)
+        torch.autograd.grad(loss, lpg)
+
+    def plain():  # the scan on the card, autograd backward
+        loss = ctc_loss_plain(lpg, il, tg, tl, 0)
+        loss = torch.where(loss >= 5e29, torch.zeros_like(loss), loss)
+        torch.autograd.grad(loss.sum(), lpg)
+
+    r = in_turns(kern, plain, library)
+    b, t, v = CTC_SHAPE
+    live = sum(2 * u + 1 for u in CTC_TARGET_LENGTHS)
+    steps = sum(CTC_INPUT_LENGTHS)
+    # per live (t, s): the alpha and the beta update (3 exp, 1 log, ~8
+    # adds, compares and selects each) and the occupancy (1 exp, 4 adds)
+    ops = steps * live / b * 2 * 12 + steps * live / b * 5
+    r["bound_ms"], r["bound_by"] = bound(ops, 2 * lp.numel() * 4)
+    # the 2T dependent steps of the two recursions, each at least a
+    # shared-memory round trip, an exp-log chain and a barrier (about 100
+    # cycles at 1.98 GHz): an estimate, not a measurement
+    r["chain_floor_ms_estimate"] = 2 * t * 100 / 1.98e9 * 1e3
+    return {"ctc_loss": r}
+
+
+def time_adamw(gen) -> dict:
+    """One update of every wav2vec2-base leaf; the yardstick is
+    torch.optim.AdamW(fused=True).step() on copies of the same tensors."""
+    from audio8_tpu_torch.ops.adamw import adamw_update, adamw_update_plain
+
+    shapes = model_shapes()
+    p, g, m, v = adamw_leaves(shapes, gen)
+    scale = torch.tensor(1.0, device="cuda")
+    args = (scale, 1e-5, 0.9, 0.999, 1e-8, 0.01, 10.0, 1000.0)
+    params = [torch.nn.Parameter(x.clone()) for x in p]
+    for prm, x in zip(params, g):
+        prm.grad = x
+    opt = torch.optim.AdamW(params, lr=1e-5, weight_decay=0.01, fused=True)
+    r = in_turns(lambda: adamw_update(p, g, m, v, *args),
+                 lambda: adamw_update_plain(p, g, m, v, *args), opt.step)
+    n = sum(x.numel() for x in p)
+    r["bound_ms"], r["bound_by"] = bound(12.0 * n, 28.0 * n)
+    r["elements"] = n
+    return {"adamw": r}
+
+
+def phase_timing(gen) -> dict:
+    """Every kernel in turns with its plain version and its yardstick, at
+    its path's shapes; float32 (the path's dtype) and, for the kernels
+    that take it, bfloat16."""
+    out = {}
     for dtype in (torch.float32, torch.bfloat16):
-        convs = [conv_inputs(s, dtype, gen) for s in CONV_SHAPES]
-        q, k, v, kv = attn_inputs(dtype, gen)
-        cases = {
-            "conv_k3s2_fwd": (lambda: [conv1d_k3s2(x, w) for x, w in convs],
-                              lambda: [conv1d_k3s2_plain(x, w)
-                                       for x, w in convs]),
-            "attention_fwd": (lambda: attention_core(q, k, v, kv, 0.125),
-                              lambda: attention_core_plain(q, k, v, kv,
-                                                           0.125)),
-        }
-        for name, (kern, plain) in cases.items():
-            p1 = median_ms(plain)
-            k1 = median_ms(kern)
-            k2 = median_ms(kern)
-            p2 = median_ms(plain)
-            ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
+        found = {**time_conv(dtype, gen), **time_attention(dtype, gen)}
+        if dtype == torch.float32:
+            found.update({**time_ctc(gen), **time_adamw(gen)})
+        for name, r in found.items():
             emit({"phase": "timing", "kernel": name, "dtype": str(dtype),
-                  "what": ("the four k3s2 layers of one batch of 30 s chunks"
-                           if name == "conv_k3s2_fwd" else
-                           "one layer's attention core"),
-                  "ms": ms, "plain_ms": plain_ms, "ms_runs": [k1, k2],
-                  "plain_ms_runs": [p1, p2]})
-            out[(name, dtype)] = (ms, plain_ms)
-        del convs, q, k, v, kv
+                  **r})
+            out[(name, dtype)] = r
         torch.cuda.empty_cache()
     return out
+
+
+REPLACES = {
+    "conv_k3s2_fwd": "audio8_tpu/ops/pallas/conv_kernel.py:107",
+    "attention_fwd": "audio8_tpu/ops/pallas/attention_kernel.py:96",
+    "attention_bwd": "audio8_tpu/ops/pallas/attention_kernel.py:109",
+    "ctc_loss": "audio8_tpu/ops/pallas/ctc_kernel.py:59",
+    "adamw": "audio8_tpu/ops/pallas/adamw_kernel.py:32",
+}
 
 
 def main() -> int:
@@ -406,25 +874,28 @@ def main() -> int:
 
     phase_build()
     worst = phase_kernels(gen)
+    worst.update(phase_train_kernels(gen))
     phase_variants(gen)
+    phase_train_variants(gen)
     cpu_model = phase_model(SEED)
     with tempfile.TemporaryDirectory() as tmp:
-        launches = phase_serve(cpu_model, SEED, tmp)
+        phase_serve(cpu_model, SEED, tmp)
+        del cpu_model
+        launches = phase_train(tmp, SEED)
+    phase_train_vs_cpu(SEED)
+    torch.cuda.empty_cache()
     times = phase_timing(gen)
-    check("jax" not in sys.modules, "jax was imported")
+    check("jax" not in sys.modules and "audio8_tpu" not in sys.modules,
+          "jax or the JAX package was imported")
 
-    replaces = {
-        "conv_k3s2_fwd": "audio8_tpu/ops/pallas/conv_kernel.py:107",
-        "attention_fwd": "audio8_tpu/ops/pallas/attention_kernel.py:96",
-    }
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     emit({"kernels": [
         {"name": name, "route": "cuda",
          "source": f"audio8_tpu_torch/csrc/{name}.cu",
-         "replaces": replaces[name], "launches": launches[name],
+         "replaces": REPLACES[name], "launches": launches[name],
          "max_abs_err": worst[name],
-         "ms": times[(name, torch.float32)][0],
-         "plain_ms": times[(name, torch.float32)][1]}
-        for name in ("conv_k3s2_fwd", "attention_fwd")]})
+         **{k: times[(name, torch.float32)][k] for k in keys}}
+        for name in REPLACES]})
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)

@@ -9,15 +9,26 @@ import torch
 from scipy.io import wavfile
 
 from audio8_tpu.config import AcousticConfig
-from audio8_tpu.utils import Offsets
 from audio8_tpu_torch.cli import serve as serve_cli
 from audio8_tpu_torch.cli import transcribe
 from audio8_tpu_torch.models.convert import load_fairseq_ctc, save_fairseq_ctc
 from audio8_tpu_torch.models.wav2vec2 import Wav2Vec2AcousticModel
+from audio8_tpu_torch.utils import Offsets
 
 LETTERS = ["|", "E", "T", "A"]
 SIZE = ["--d_model", "32", "--num_heads", "2", "--num_layers", "1",
-        "--d_ff", "64"]
+        "--d_ff", "64", "--device", "cpu"]
+
+
+@pytest.fixture(autouse=True)
+def _restore_port_offsets():
+    """The CLIs remap the port's process-global ``Offsets``; put it back
+    after each test."""
+    saved = (Offsets.PAD, Offsets.GO, Offsets.EOS, Offsets.UNK,
+             list(Offsets.VALUES))
+    yield
+    Offsets.PAD, Offsets.GO, Offsets.EOS, Offsets.UNK = saved[:4]
+    Offsets.VALUES[:] = saved[4]
 
 
 @pytest.fixture(scope="module")
@@ -93,7 +104,7 @@ def test_bf16_flag(files):
     _, ckpt, dict_file, wav_path = files
     args = transcribe.parse_args(["--checkpoint", ckpt, "--dict_file",
                                   dict_file, *SIZE, "--bf16", wav_path])
-    _, model, _, _ = transcribe.build_acoustic(args)
+    _, model, _, _ = transcribe.build_acoustic(args, torch.device("cpu"))
     assert model.encoder.post_extract_proj.compute_dtype == torch.bfloat16
     assert next(model.parameters()).dtype == torch.float32
 

@@ -1,11 +1,22 @@
-"""The PyTorch port imports with jax and flax unavailable (the card's
-machine has neither), and no module of it imports jax."""
+"""The PyTorch port imports with jax, flax and the JAX package itself
+unavailable (the card's machine has no jax, and the port keeps its own
+copies of the host code it needs); no source of the port or of
+``chip_smoke.py`` imports any of them; and the entry points run on the
+card by default, raising on a machine without one rather than falling
+back to the CPU."""
 import os
 import pkgutil
+import re
 import subprocess
 import sys
 
+import pytest
+
 import audio8_tpu_torch
+from audio8_tpu_torch.cli import serve as serve_cli
+from audio8_tpu_torch.cli import train as train_cli
+from audio8_tpu_torch.cli import transcribe
+from audio8_tpu_torch.utils import Offsets
 
 PKG_DIR = os.path.dirname(audio8_tpu_torch.__file__)
 ROOT = os.path.dirname(PKG_DIR)
@@ -19,14 +30,17 @@ def _modules():
 def test_every_module_imports_with_jax_blocked():
     mods = _modules()
     assert "audio8_tpu_torch.cli.serve" in mods
+    assert "audio8_tpu_torch.cli.train" in mods
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
         "sys.modules['flax'] = None\n"
+        "sys.modules['audio8_tpu'] = None\n"
         "import importlib\n"
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
         "assert not any(k == 'jax' or k.startswith(('jax.', 'flax'))\n"
+        "               or k == 'audio8_tpu' or k.startswith('audio8_tpu.')\n"
         "               for k, v in sys.modules.items() if v is not None)\n"
         "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -57,3 +71,52 @@ def test_chip_smoke_refuses_without_a_card():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+_JAX_PACKAGE = re.compile(r"^\s*(import audio8_tpu\b(?!_torch)|"
+                          r"from audio8_tpu(\.| import))")
+
+
+def test_no_source_imports_the_jax_package():
+    sources = [os.path.join(ROOT, "chip_smoke.py")]
+    for dirpath, _, files in os.walk(PKG_DIR):
+        sources += [os.path.join(dirpath, f) for f in files
+                    if f.endswith(".py")]
+    offenders = []
+    for path in sources:
+        with open(path) as f:
+            offenders += [f"{path}:{i}" for i, line in enumerate(f, 1)
+                          if _JAX_PACKAGE.match(line)]
+    assert offenders == []
+    assert _JAX_PACKAGE.match("from audio8_tpu.utils import Offsets")
+    assert not _JAX_PACKAGE.match("from audio8_tpu_torch.utils import x")
+
+
+@pytest.fixture
+def _restore_port_offsets():
+    saved = (Offsets.PAD, Offsets.GO, Offsets.EOS, Offsets.UNK,
+             list(Offsets.VALUES))
+    yield
+    Offsets.PAD, Offsets.GO, Offsets.EOS, Offsets.UNK = saved[:4]
+    Offsets.VALUES[:] = saved[4]
+
+
+@pytest.mark.parametrize("entry", ["transcribe", "serve", "train"])
+def test_default_device_is_cuda_and_raises_without_a_card(
+        entry, tmp_path, _restore_port_offsets):
+    """This machine has no CUDA card: the default ``--device cuda`` raises
+    before any work instead of running on the CPU."""
+    assert not __import__("torch").cuda.is_available()
+    ckpt, dict_file = str(tmp_path / "none.pt"), str(tmp_path / "d.txt")
+    with pytest.raises(RuntimeError, match="no usable CUDA device"):
+        if entry == "transcribe":
+            transcribe.main(["--checkpoint", ckpt, "--dict_file", dict_file,
+                             "a.wav"])
+        elif entry == "serve":
+            serve_cli.build_service(serve_cli.parse_args(
+                ["--checkpoint", ckpt, "--dict_file", dict_file]))
+        else:
+            train_cli.train(["--basedir", str(tmp_path / "run"),
+                             "--root_dir", str(tmp_path),
+                             "--train_dataset", "t.tsv",
+                             "--valid_dataset", "v.tsv"])
