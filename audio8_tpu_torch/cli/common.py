@@ -1,5 +1,5 @@
 """Shared CLI flags of the port (the slice of ``audio8_tpu/cli/common.py``
-that serving and CTC training share, with the same names and defaults),
+that serving, CTC training and pretraining share, with the same names and defaults),
 plus ``--device``: the entry points run on the CUDA card unless the caller
 asks for the CPU."""
 from __future__ import annotations
@@ -14,18 +14,19 @@ import torch
 MODEL_PRESETS = {
     "base": {},
     "large": {"d_model": 1024, "d_ff": 4096, "num_heads": 16,
-              "num_layers": 24},
+              "num_layers": 24, "final_dim": 768},
 }
 _PRESET_BASE_DEFAULTS = {"d_model": 768, "d_ff": 3072, "num_heads": 12,
-                         "num_layers": 12}
+                         "num_layers": 12, "final_dim": 256}
 
 
 def apply_preset(args: Namespace) -> Namespace:
     """Resolve ``--preset``: an explicit size flag always wins; unset ones
-    take the preset's value, else the base default."""
+    take the preset's value, else the base default. ``final_dim`` (the
+    pretraining projection width) only where the parser has the flag."""
     preset = MODEL_PRESETS[args.preset]
     for key, base_value in _PRESET_BASE_DEFAULTS.items():
-        if getattr(args, key) is None:
+        if hasattr(args, key) and getattr(args, key) is None:
             setattr(args, key, preset.get(key, base_value))
     return args
 

@@ -6,7 +6,8 @@ summed gradient scaled by the global example count, global-norm clipping,
 warmup + decay LR, the encoder frozen up to ``--unfreeze_enc_after_step``,
 periodic validation with WER/CER and best-metric checkpoints. It runs on
 ``--device`` (the CUDA card by default; it raises without one), through
-the attention, CTC and AdamW kernels.
+the attention, CTC, dropout and AdamW kernels, and with ``--freeze_fx
+false`` the conv backward kernels.
 
   python -m audio8_tpu_torch.cli.train --root_dir corpus \\
       --train_dataset train.tsv --valid_dataset valid.tsv --basedir run
@@ -15,9 +16,8 @@ Checkpoints are fairseq-layout CTC files (``checkpoint-step-N.pt``,
 ``checkpoint-best.pt``) that ``cli.transcribe`` reads. The flags are the
 JAX trainer's that this slice supports; those of parts not ported yet
 raise: parallelism and ``--distributed``, ``--restart_from``, noise and
-speed perturbation, ``--freeze_fx false`` on the card, ``--layer_drop``,
-``--optim sgd``, beam/LM decoding (``--verbose``, ``--lm``) and
-``--profile_dir``. ``--lane_align`` (TPU tiling) is not a flag here.
+speed perturbation, ``--layer_drop``, ``--optim sgd``, beam/LM decoding
+(``--verbose``, ``--lm``) and ``--profile_dir``. ``--lane_align`` (TPU tiling) is not a flag here.
 """
 from __future__ import annotations
 
@@ -129,17 +129,13 @@ def parse_args(argv=None):
     return apply_preset(parser.parse_args(argv))
 
 
-def check_ported(args, device: torch.device) -> None:
+def check_ported(args) -> None:
     """Raise for flags that ask for parts not ported yet."""
     for flag, unused in _NOT_PORTED.items():
         if getattr(args, flag) != unused:
             raise NotImplementedError(
                 f"--{flag} {getattr(args, flag)} is not ported yet "
                 "(ROADMAP.md)")
-    if device.type == "cuda" and not args.freeze_fx:
-        raise NotImplementedError(
-            "--freeze_fx false needs the conv backward kernels (dgrad, "
-            "wgrad), which are not ported yet (ROADMAP.md)")
 
 
 def _to_device(batch: dict, device: torch.device) -> dict:
@@ -156,7 +152,7 @@ def train(argv=None):
                         format="%(asctime)s %(levelname)s %(name)s: "
                                "%(message)s")
     device = resolve_device(args.device)
-    check_ported(args, device)
+    check_ported(args)
     args.dict_file = args.dict_file.format(args.target_type)
     if args.basedir is None:
         args.basedir = f"wav2vec2-{args.dataset_key}-{os.getpid()}"

@@ -4,7 +4,7 @@ The port keeps its own copy of the configuration it reads, with the JAX
 package's field names and defaults, so a config built for one package
 means the same in the other. Left out: the ``lane_aligned_*`` helpers
 (128-lane TPU tiling, ROADMAP "Not to port") and the configs of
-objectives that are not ported yet.
+objectives that are not ported yet (HuBERT, data2vec, seq2seq, ...).
 """
 from __future__ import annotations
 
@@ -19,6 +19,14 @@ CONV_FEATURES = {
     8: [(512, 10, 5), (512, 3, 2), (512, 3, 2), (512, 3, 2), (512, 2, 2),
         (512, 2, 2)],
 }
+
+# Pretraining constants (``audio8_tpu/config.py``): Gumbel temperature
+# anneal and the loss weights
+START_TEMP = 2.0
+END_TEMP = 0.5
+TEMP_DECAY_FACTOR = 0.999995
+XE_WGT = 0.1
+DIVERSITY_WGT = 10.0
 
 
 def conv_output_length(length: int, conv_features) -> int:
@@ -98,3 +106,23 @@ class AcousticConfig(EncoderConfig):
     """CTC acoustic model."""
 
     num_labels: int = 32
+
+
+@dataclasses.dataclass(frozen=True)
+class PretrainConfig(EncoderConfig):
+    """``Wav2Vec2Model`` contrastive pretraining: the quantizer's geometry,
+    the Gumbel temperature anneal and the pretraining defaults, which
+    differ from :class:`EncoderConfig`'s (input and feature dropout 0.1,
+    time masking 0.65, no channel masking)."""
+
+    num_vq_vars: int = 320
+    num_vq_groups: int = 2
+    final_dim: int = 256
+    start_temp: float = START_TEMP
+    end_temp: float = END_TEMP
+    temp_decay_factor: float = TEMP_DECAY_FACTOR
+    dropout_input: float = 0.1
+    dropout_features: float = 0.1
+    timestep_masking: float = 0.65
+    channel_masking: float = 0.0
+    n_negatives: int = 100

@@ -1,14 +1,18 @@
-"""Supervised training batches (the single-process slice of
+"""Training batches (the single-process slice of
 ``audio8_tpu/data/datasets.py``).
 
 Same batch composition and seed semantics as the JAX package, so both
-packages draw the same batches from the same manifest and seed: batches
-come from descending-length order with a seeded shuffled tie-break
+packages draw the same batches from the same manifest and seed.
+Supervised (``AudioTextLetterDataset``): batches come from
+descending-length order with a seeded shuffled tie-break
 (``batch_by_size``), each pads its audio to a multiple (or a length grid)
 and its batch size up a geometric grid (``snap_batch_size``; added rows
 have zero signal and lengths), and the epoch order reshuffles from a
-seeded ``random.Random``. Left out: multi-process sharding, ``lane_align``
-(TPU tiling), speed perturbation and noise mixing.
+seeded ``random.Random``. Pretraining (``AudioFileDataset``,
+``BucketingAudioDataset``): dense min-cropped (B, T) batches with no
+padding. Left out: multi-process sharding (``row_shard``, ``num_shards``,
+``batch_multiple``), ``lane_align`` (TPU tiling), speed perturbation and
+noise mixing.
 """
 from __future__ import annotations
 
@@ -19,7 +23,7 @@ import os
 import queue
 import random
 import threading
-from typing import Dict, Iterator, List, Optional, Sequence
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -49,6 +53,28 @@ def snap_batch_size(b: int, multiple: int = 1,
         if g >= target and g % max(multiple, 1) == 0:
             return g
     return target
+
+
+def snap_batch_size_down(b: int, multiple: int = 1,
+                         grid: Sequence[int] = B_GRID) -> int:
+    """Largest grid entry <= b that is a multiple of ``multiple`` (0 if
+    none): the dense pretraining stream carries leftover rows into the
+    next batch instead of padding."""
+    best = 0
+    m = max(multiple, 1)
+    for g in grid:
+        if g <= b and g % m == 0:
+            best = g
+    return best
+
+
+def find_fit(v: int, fits: Sequence[int]) -> int:
+    """Largest bucket <= v, 0 if none."""
+    best = 0
+    for f in fits:
+        if f <= v:
+            best = max(best, f)
+    return best
 
 
 def batch_by_size(indices, sizes, max_tokens=None,
@@ -215,6 +241,157 @@ class AudioTextLetterDataset:
         return {"signal": signal, "signal_lengths": audio_lengths,
                 "token_ids": token_ids, "token_lengths": text_lengths,
                 "files": files, "num_real": plan["n_real"], "row_offset": 0}
+
+
+class AudioFileDataset:
+    """Unsupervised pretraining stream: an infinite file order reshuffled
+    each epoch from a seeded ``random.Random``, and dense min-cropped (B, T)
+    float32 batches with no padding.
+
+    Samples accumulate (across epoch boundaries) until ``rows * shortest``
+    reaches the sample budget; the batch takes the largest ``B_GRID`` size
+    that fits, the rest carry into the next batch, and the sample that
+    triggered the batch is discarded (the reference's quirk). Every row is
+    cropped to the batch's shortest predicted length, snapped down to
+    ``length_grid`` when one is given."""
+
+    def __init__(self, manifest: str, max_length: int,
+                 target_tokens_per_batch: int, shuffle: bool = True,
+                 min_length: int = 0, input_sample_rate: int = 16_000,
+                 target_sample_rate: int = 16_000,
+                 length_grid: Optional[Sequence[int]] = None, seed: int = 0,
+                 read_workers: int = 4):
+        self.sample_factor = target_sample_rate / input_sample_rate
+        self.reader = (AudioResampleReader(self.sample_factor)
+                       if input_sample_rate != target_sample_rate
+                       else SoundfileAudioReader())
+        self.max_length = max_length
+        self.shuffle = shuffle
+        self.target_tokens_per_batch = target_tokens_per_batch
+        self.length_grid = sorted(length_grid) if length_grid else None
+        self._rng = random.Random(seed)
+        self._pool = (concurrent.futures.ThreadPoolExecutor(read_workers)
+                      if read_workers > 1 else None)
+        self._read_manifest(manifest, min_length)
+
+    def _read_manifest(self, manifest: str, min_length: int) -> None:
+        skipped = 0
+        self.files: List[Tuple[str, int]] = []
+        with open(manifest) as f:
+            directory = f.readline().strip()
+            for line in f:
+                items = line.strip().split("\t")
+                sz = int(int(items[1]) * self.sample_factor)
+                if min_length is not None and sz < min_length:
+                    skipped += 1
+                    continue
+                self.files.append((os.path.join(directory, items[0]), sz))
+        logger.info("loaded %d, skipped %d samples", len(self.files), skipped)
+
+    def _snap(self, length: int) -> int:
+        if not self.length_grid:
+            return length
+        snapped = find_fit(length, self.length_grid)
+        return snapped if snapped > 0 else length
+
+    def _index_stream(self) -> Iterator[int]:
+        if not self.files:
+            raise RuntimeError("empty manifest")
+        while True:
+            order = list(range(len(self.files)))
+            if self.shuffle:
+                self._rng.shuffle(order)
+            yield from order
+
+    def _compose(self, stream) -> Iterator[Tuple[List[int], int]]:
+        """(row file indices, crop length) from manifest lengths alone."""
+        samples: List[Tuple[int, int]] = []  # (file index, predicted length)
+        min_len = self.max_length
+        for idx in stream:
+            predlen = min(self.files[idx][1], self.max_length)
+            if len(samples) * min_len >= self.target_tokens_per_batch:
+                b = snap_batch_size_down(len(samples))
+                if b > 0:
+                    emitted, samples = samples[:b], samples[b:]
+                    yield ([i for i, _ in emitted],
+                           self._snap(min(p for _, p in emitted)))
+                    min_len = min([p for _, p in samples] + [self.max_length])
+                    continue  # the triggering sample is discarded
+            samples.append((idx, predlen))
+            min_len = min(min_len, predlen)
+
+    def __iter__(self):
+        for plan in self.batch_plans():
+            yield self.materialize(plan)
+
+    def batch_plans(self) -> Iterator[Tuple[List[int], int]]:
+        """Sequential (rows, crop length) plans; all the stream's
+        randomness is drawn here, so ``materialize`` may run on worker
+        threads without changing the stream."""
+        yield from self._compose(self._index_stream())
+
+    def materialize(self, plan: Tuple[List[int], int]) -> np.ndarray:
+        rows, t = plan
+        paths = [self.files[i][0] for i in rows]
+
+        def read(path):
+            return np.asarray(self.reader.read(path, self.max_length)).squeeze()
+
+        audios = (list(self._pool.map(read, paths)) if self._pool is not None
+                  else [read(p) for p in paths])
+        batch = np.zeros((len(rows), t), np.float32)
+        for i, a in enumerate(audios):
+            a = a[:t]  # the manifest length is a prediction
+            batch[i, :len(a)] = a
+        return batch
+
+
+class BucketingAudioDataset(AudioFileDataset):
+    """Each file goes to the largest bucket <= its length (shorter files
+    are skipped); batches are fixed-size chunks per bucket, emitted as the
+    shuffled stream fills them, cropped to the bucket length."""
+
+    def __init__(self, buckets, manifest, max_length, target_tokens_per_batch,
+                 shuffle=True, min_length=0, seed=0, read_workers=4,
+                 input_sample_rate=16_000, target_sample_rate=16_000):
+        self.bucket_lengths = sorted(buckets)
+        super().__init__(manifest, max_length, target_tokens_per_batch,
+                         shuffle=shuffle, min_length=min_length, seed=seed,
+                         read_workers=read_workers,
+                         input_sample_rate=input_sample_rate,
+                         target_sample_rate=target_sample_rate)
+
+    def _read_manifest(self, manifest: str, _min_length) -> None:
+        skipped = num_samples = 0
+        self.files = []
+        self.bucket_of: List[int] = []
+        with open(manifest) as f:
+            directory = f.readline().strip()
+            for line in f:
+                num_samples += 1
+                items = line.strip().split("\t")
+                sz = int(int(items[1]) * self.sample_factor)
+                bucket = find_fit(sz, self.bucket_lengths)
+                if bucket == 0:
+                    skipped += 1
+                    continue
+                self.files.append((os.path.join(directory, items[0]), sz))
+                self.bucket_of.append(bucket)
+        logger.info("Num samples %d, skipped %d", num_samples, skipped)
+
+    def _rows_per(self, bucket: int) -> int:
+        return max(snap_batch_size_down(
+            max(self.target_tokens_per_batch // bucket, 1)), 1)
+
+    def _compose(self, stream) -> Iterator[Tuple[List[int], int]]:
+        pending: Dict[int, List[int]] = {}
+        for idx in stream:
+            bucket = self.bucket_of[idx]
+            lst = pending.setdefault(bucket, [])
+            lst.append(idx)
+            if len(lst) >= self._rows_per(bucket):
+                yield list(lst), bucket
+                lst.clear()
 
 
 class PrefetchLoader:

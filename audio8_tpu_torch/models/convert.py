@@ -1,4 +1,5 @@
-"""Weights into and out of the port's ``Wav2Vec2AcousticModel``.
+"""Weights into and out of the port's ``Wav2Vec2AcousticModel`` and
+``Wav2Vec2Model``.
 
 The port's parameter names are fairseq's, so:
 
@@ -6,10 +7,14 @@ The port's parameter names are fairseq's, so:
   ``w2v_encoder.w2v_model.X`` is the port's ``encoder.X`` and
   ``w2v_encoder.proj.*`` its ``proj.*`` (:func:`from_fairseq_ctc_state`,
   :func:`load_fairseq_ctc`); :func:`to_fairseq_ctc_state` is the inverse;
-* a JAX ``Wav2Vec2AcousticModel`` parameter tree maps key by key
-  (:func:`params_from_jax`): Dense ``kernel (in, out)`` becomes ``weight
-  (out, in)``, conv ``kernel (K, C_in/g, C_out)`` becomes ``(C_out,
-  C_in/g, K)``, ``scale`` becomes ``weight``, as the inverse of
+* a fairseq pretrained wav2vec2 state dict is the ``Wav2Vec2Model``'s own,
+  except that fairseq's ``quantizer.vars`` carries a leading axis of size
+  1 (:func:`to_fairseq_pretrained_state`,
+  :func:`from_fairseq_pretrained_state`, :func:`save_fairseq_pretrained`);
+* a JAX ``Wav2Vec2AcousticModel`` or ``Wav2Vec2Model`` parameter tree maps
+  key by key (:func:`params_from_jax`): Dense ``kernel (in, out)`` becomes
+  ``weight (out, in)``, conv ``kernel (K, C_in/g, C_out)`` becomes
+  ``(C_out, C_in/g, K)``, ``scale`` becomes ``weight``, as the inverse of
   ``audio8_tpu/models/convert.py:_encoder_assignments``. Given the JAX
   optimizer state too (optax ``adamw``/``adam`` or ``FusedAdamW``), it
   carries the moments and the step count across, so both packages can
@@ -76,6 +81,40 @@ def save_fairseq_ctc(model: torch.nn.Module, path: str) -> None:
     torch.save({"model": to_fairseq_ctc_state(state)}, path)
 
 
+def to_fairseq_pretrained_state(state: Mapping[str, torch.Tensor]
+                                ) -> Dict[str, torch.Tensor]:
+    """Port ``Wav2Vec2Model`` state dict -> fairseq pretrained ``model``
+    dict (the keys of ``audio8_tpu/models/convert.py:
+    convert_pretrained_state``)."""
+    out = dict(state)
+    out["quantizer.vars"] = state["quantizer.vars"][None]
+    return out
+
+
+def from_fairseq_pretrained_state(state: Mapping[str, Any]
+                                  ) -> Dict[str, torch.Tensor]:
+    """fairseq pretrained ``model`` dict -> port ``Wav2Vec2Model`` state
+    dict."""
+    out = {k: torch.as_tensor(v) for k, v in state.items()}
+    out["quantizer.vars"] = out["quantizer.vars"][0]
+    return out
+
+
+def save_fairseq_pretrained(model: torch.nn.Module, path: str) -> None:
+    """Write a ``Wav2Vec2Model`` as a fairseq-layout pretrained
+    checkpoint."""
+    state = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    torch.save({"model": to_fairseq_pretrained_state(state)}, path)
+
+
+def load_fairseq_pretrained(path: str) -> Dict[str, torch.Tensor]:
+    """Read a fairseq pretrained ``.pt`` with ``weights_only=True`` and
+    return the port's ``Wav2Vec2Model`` state dict."""
+    with torch.serialization.safe_globals([argparse.Namespace]):
+        blob = torch.load(path, map_location="cpu", weights_only=True)
+    return from_fairseq_pretrained_state(blob.get("model", blob))
+
+
 # ---------------------------------------------------------------- JAX trees
 
 def _t(x: np.ndarray) -> np.ndarray:  # Dense (in, out) -> (out, in)
@@ -90,38 +129,41 @@ def _same(x: np.ndarray) -> np.ndarray:
     return x
 
 
-def _jax_assignments(num_fx_layers: int, num_layers: int
-                     ) -> List[Tuple[Tuple[str, ...], str, Callable]]:
-    """(JAX path, port key, transform) for a group-mode, post-norm
-    ``Wav2Vec2AcousticModel``."""
+def _encoder_assignments(jax_root: Tuple[str, ...], port_root: str,
+                         num_fx_layers: int, num_layers: int
+                         ) -> List[Tuple[Tuple[str, ...], str, Callable]]:
+    """(JAX path, port key, transform) for the body a group-mode,
+    post-norm ``Wav2Vec2Encoder`` holds: extractor, LayerNorm, input
+    projection, mask embedding and transformer. The JAX tree has it under
+    ``jax_root`` with the transformer at ``encoder``, the port under
+    ``port_root``."""
     out = []
-    enc, fx = ("encoder",), ("encoder", "feature_extractor")
+    fx = jax_root + ("feature_extractor",)
     for i in range(num_fx_layers):
         out.append((fx + (f"conv_{i}", "kernel"),
-                    f"encoder.feature_extractor.conv_layers.{i}.0.weight",
+                    f"{port_root}feature_extractor.conv_layers.{i}.0.weight",
                     _conv))
     for jax_name, name in (("scale", "weight"), ("bias", "bias")):
         out.append((fx + ("norm_0", jax_name),
-                    f"encoder.feature_extractor.conv_layers.0.2.{name}",
+                    f"{port_root}feature_extractor.conv_layers.0.2.{name}",
                     _same))
-        out.append((enc + ("layer_norm", jax_name),
-                    f"encoder.layer_norm.{name}", _same))
-        out.append((enc + ("encoder", "ln", jax_name),
-                    f"encoder.encoder.layer_norm.{name}", _same))
-    out.append((enc + ("proj_to_input", "kernel"),
-                "encoder.post_extract_proj.weight", _t))
-    out.append((enc + ("proj_to_input", "bias"),
-                "encoder.post_extract_proj.bias", _same))
-    out.append((enc + ("mask_emb",), "encoder.mask_emb", _same))
-    pos = enc + ("encoder", "pos_conv")
-    out.append((pos + ("weight_v",), "encoder.encoder.pos_conv.0.weight_v",
-                _conv))
-    out.append((pos + ("weight_g",), "encoder.encoder.pos_conv.0.weight_g",
-                _conv))
-    out.append((pos + ("bias",), "encoder.encoder.pos_conv.0.bias", _same))
+        out.append((jax_root + ("layer_norm", jax_name),
+                    f"{port_root}layer_norm.{name}", _same))
+        out.append((jax_root + ("encoder", "ln", jax_name),
+                    f"{port_root}encoder.layer_norm.{name}", _same))
+    out.append((jax_root + ("proj_to_input", "kernel"),
+                f"{port_root}post_extract_proj.weight", _t))
+    out.append((jax_root + ("proj_to_input", "bias"),
+                f"{port_root}post_extract_proj.bias", _same))
+    out.append((jax_root + ("mask_emb",), f"{port_root}mask_emb", _same))
+    pos = jax_root + ("encoder", "pos_conv")
+    port_pos = f"{port_root}encoder.pos_conv.0."
+    out.append((pos + ("weight_v",), port_pos + "weight_v", _conv))
+    out.append((pos + ("weight_g",), port_pos + "weight_g", _conv))
+    out.append((pos + ("bias",), port_pos + "bias", _same))
     for i in range(num_layers):
-        ours = enc + ("encoder", "transformer", f"layer_{i}")
-        port = f"encoder.encoder.layers.{i}."
+        ours = jax_root + ("encoder", "transformer", f"layer_{i}")
+        port = f"{port_root}encoder.layers.{i}."
         for jax_name, name in (("w_Q", "q_proj"), ("w_K", "k_proj"),
                                ("w_V", "v_proj"), ("w_O", "out_proj")):
             out.append((ours + ("self_attn", jax_name, "kernel"),
@@ -139,8 +181,34 @@ def _jax_assignments(num_fx_layers: int, num_layers: int
                         _same))
             out.append((ours + (jax_name, "bias"), port + f"{name}.bias",
                         _same))
-    out.append((("proj", "kernel"), "proj.weight", _t))
-    out.append((("proj", "bias"), "proj.bias", _same))
+    return out
+
+
+def _jax_assignments(tree: Mapping[str, Any]
+                     ) -> List[Tuple[Tuple[str, ...], str, Callable]]:
+    """(JAX path, port key, transform) for a JAX ``Wav2Vec2AcousticModel``
+    tree (the encoder body under ``encoder``, the CTC head ``proj``) or a
+    ``Wav2Vec2Model`` tree (the body at the top level, with the quantizer
+    and the two projections)."""
+    pretrain = "quantizer" in tree
+    body = tree if pretrain else tree["encoder"]
+    num_fx = sum(1 for k in body["feature_extractor"]
+                 if k.startswith("conv_"))
+    num_layers = sum(1 for k in body["encoder"]["transformer"]
+                     if k.startswith("layer_"))
+    if not pretrain:
+        out = _encoder_assignments(("encoder",), "encoder.", num_fx,
+                                   num_layers)
+        out.append((("proj", "kernel"), "proj.weight", _t))
+        out.append((("proj", "bias"), "proj.bias", _same))
+        return out
+    out = _encoder_assignments((), "", num_fx, num_layers)
+    out.append((("quantizer", "vars"), "quantizer.vars", _same))
+    for path in (("quantizer", "weight_proj"), ("project_q",),
+                 ("final_proj",)):
+        key = ".".join(path)
+        out.append((path + ("kernel",), f"{key}.weight", _t))
+        out.append((path + ("bias",), f"{key}.bias", _same))
     return out
 
 
@@ -159,8 +227,9 @@ def _adam_state(opt_state: Any):
 
 
 def params_from_jax(tree: Mapping[str, Any], opt_state: Any = None):
-    """JAX ``Wav2Vec2AcousticModel`` params (a nested mapping of arrays,
-    e.g. ``jax.tree.map(np.asarray, params)``) -> the port's state dict.
+    """JAX ``Wav2Vec2AcousticModel`` or ``Wav2Vec2Model`` params (a nested
+    mapping of arrays, e.g. ``jax.tree.map(np.asarray, params)``) -> the
+    port's state dict.
     Raises ``KeyError`` naming any JAX parameter left unmapped.
 
     With ``opt_state`` (the JAX AdamW state, arrays as numpy) it returns
@@ -178,12 +247,8 @@ def params_from_jax(tree: Mapping[str, Any], opt_state: Any = None):
 
 
 def _params_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    fx = tree["encoder"]["feature_extractor"]
-    num_fx = sum(1 for k in fx if k.startswith("conv_"))
-    num_layers = sum(1 for k in tree["encoder"]["encoder"]["transformer"]
-                     if k.startswith("layer_"))
     state, used = {}, set()
-    for path, key, tf in _jax_assignments(num_fx, num_layers):
+    for path, key, tf in _jax_assignments(tree):
         node = tree
         for p in path:
             node = node[p]

@@ -1,7 +1,8 @@
-"""wav2vec 2.0 CTC acoustic model (``audio8_tpu/models/wav2vec2.py``).
+"""wav2vec 2.0 models (``audio8_tpu/models/wav2vec2.py``): the CTC
+acoustic model and the contrastive pretraining model.
 
 Structure map to the JAX package (and the fairseq names the parameters
-carry, so a fairseq CTC checkpoint loads by prefix, ``models/convert.py``):
+carry, so fairseq checkpoints load by prefix, ``models/convert.py``):
 
   ConvFeatureExtractor     feature_extractor.conv_layers.{i}.0 (conv),
                            .conv_layers.0.2 (block-0 GroupNorm)
@@ -9,34 +10,44 @@ carry, so a fairseq CTC checkpoint loads by prefix, ``models/convert.py``):
                            encoder.layers.{i}
   Wav2Vec2Encoder          + layer_norm, post_extract_proj, mask_emb
   Wav2Vec2AcousticModel    encoder (a Wav2Vec2Encoder) + proj (CTC head)
+  GumbelVectorQuantizer    quantizer.vars, quantizer.weight_proj
+  Wav2Vec2Model            the Wav2Vec2Encoder's modules at the top level
+                           + quantizer, project_q, final_proj
+  wav2vec2_pretrain_loss   InfoNCE over sampled negatives + diversity
 
-The group-norm extractor and post-norm encoder of wav2vec2-base/large,
-for serving and for CTC fine-tuning. Training mode is a forward given a
-``generator`` (the trainer's ``torch.Generator``): every stochastic op
-draws its integer seed from it, in forward order, and runs the JAX
-package's hash randomness with that seed (``dropout_input``, time masking
-with ``mask_emb``, channel masking, the encoder and residual dropouts,
-attention-probability dropout in the kernel). ``freeze_fx`` runs the
-extractor under ``torch.no_grad()`` (the JAX ``stop_gradient``), and
-``freeze`` the whole encoder. The other topologies of ``EncoderConfig``
-are not ported yet; :func:`check_supported` refuses a config that asks
-for them.
+The group-norm extractor and post-norm encoder of wav2vec2-base/large.
+Training mode is a forward given a ``generator`` (the trainer's
+``torch.Generator``): every dropout draws its integer seed from it, in
+forward order, and runs the JAX package's hash randomness with that seed
+(``dropout_input``, ``dropout_features``, the encoder and residual
+dropouts, attention-probability dropout in the kernel). The acoustic
+model's span masks draw their seeds from it too; the pretraining model
+and loss take theirs as explicit arguments (:class:`PretrainSeeds`), so a
+step's randomness can be given from outside. ``freeze_fx`` runs the
+acoustic model's extractor under ``torch.no_grad()`` (the JAX
+``stop_gradient``), and ``freeze`` its whole encoder; the pretraining
+model always trains its extractor. The other topologies of
+``EncoderConfig`` are not ported yet; :func:`check_supported` refuses a
+config that asks for them.
 """
 from __future__ import annotations
 
 import contextlib
-from typing import Optional, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
 
-from audio8_tpu_torch.config import AcousticConfig, EncoderConfig
+from audio8_tpu_torch.config import (DIVERSITY_WGT, XE_WGT, AcousticConfig,
+                                     EncoderConfig, PretrainConfig)
 from audio8_tpu_torch.nn.dropout import dropout
 from audio8_tpu_torch.nn.layers import (Conv1D, Dense, GroupNorm, LayerNorm,
                                         PositionalConv, gelu)
 from audio8_tpu_torch.nn.transformer import TransformerEncoderStack
-from audio8_tpu_torch.ops.hashrand import draw_seed
-from audio8_tpu_torch.ops.masks import span_mask
+from audio8_tpu_torch.ops.hashrand import (draw_seed, hash_gumbel,
+                                           hash_randint)
+from audio8_tpu_torch.ops.masks import (compact_mask_indices, num_spans,
+                                        span_mask)
 
 # (EncoderConfig field, value the port runs, what a different value asks for)
 _SUPPORTED = (
@@ -253,3 +264,236 @@ class Wav2Vec2AcousticModel(nn.Module):
             encoded, pad_mask = self.encoder(x, input_lengths, generator)
         logits = self.proj(encoded).float()
         return torch.log_softmax(logits, dim=-1), pad_mask
+
+
+class GumbelVectorQuantizer(nn.Module):
+    """Gumbel-softmax vector quantizer (the JAX ``GumbelVectorQuantizer``).
+
+    ``vars`` (G*V, vq_dim/G), uniform [0, 1) init; ``weight_proj`` N(0, 1)
+    weight, zero bias. Training (a ``gumbel_seed``) takes the hard
+    straight-through Gumbel-softmax at ``temperature``; evaluation the
+    argmax. The perplexity is fairseq's: per-group soft perplexity of the
+    ``valid``-weighted average probabilities, summed over groups."""
+
+    def __init__(self, input_dim: int, num_vars: int, num_groups: int,
+                 vq_dim: int, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        if vq_dim % num_groups:
+            raise ValueError(f"vq_dim {vq_dim} % num_groups {num_groups}")
+        self.num_vars, self.num_groups, self.vq_dim = num_vars, num_groups, \
+            vq_dim
+        self.compute_dtype = dtype
+        self.vars = nn.Parameter(torch.zeros(num_groups * num_vars,
+                                             vq_dim // num_groups))
+        self.weight_proj = Dense(input_dim, num_groups * num_vars,
+                                 dtype=dtype)
+
+    def init_from(self, generator: torch.Generator) -> None:
+        with torch.no_grad():
+            self.vars.uniform_(0.0, 1.0, generator=generator)
+            self.weight_proj.weight.copy_(torch.randn(
+                self.weight_proj.weight.shape, generator=generator,
+                device=generator.device))
+            self.weight_proj.bias.zero_()
+
+    def forward(self, x: torch.Tensor, temperature: float = 1.0,
+                gumbel_seed: Optional[int] = None,
+                valid: Optional[torch.Tensor] = None):
+        """x (B, M, input_dim), valid optional (B, M) bool. Returns
+        (quantized (B, M, vq_dim), perplexity scalar, codeword indices
+        (B, M, G))."""
+        b, m, _ = x.shape
+        g, v = self.num_groups, self.num_vars
+        logits = self.weight_proj(x).reshape(b, m, g, v).float()
+        probs = torch.softmax(logits, dim=-1).reshape(b * m, g, v)
+        if valid is None:
+            avg_probs = probs.mean(dim=0)
+        else:
+            w = valid.reshape(b * m, 1, 1).float()
+            avg_probs = (probs * w).sum(dim=0) / torch.clamp(w.sum(), min=1.0)
+        prob_ppl = torch.exp(
+            -(avg_probs * torch.log(avg_probs + 1e-7)).sum(dim=-1)).sum()
+        if gumbel_seed is not None:
+            gumbels = hash_gumbel(logits.shape, gumbel_seed, logits.device)
+            y_soft = torch.softmax((logits + gumbels) / temperature, dim=-1)
+            index = y_soft.argmax(dim=-1)
+            y_hard = nn.functional.one_hot(index, v).float()
+            one_hot = y_hard - y_soft.detach() + y_soft  # straight-through
+        else:
+            index = logits.argmax(dim=-1)
+            one_hot = nn.functional.one_hot(index, v).float()
+        codebook = self.vars.float().reshape(g, v, -1)
+        quantized = torch.einsum("bmgv,gvd->bmgd", one_hot,
+                                 codebook).reshape(b, m, self.vq_dim)
+        return quantized.to(self.compute_dtype), prob_ppl, index
+
+
+class PretrainSeeds(NamedTuple):
+    """The integer seeds of one pretraining forward and loss: the time
+    mask (drawn in evaluation too), the Gumbel noise (training), the
+    channel mask (training with ``channel_masking > 0``) and the negative
+    samples."""
+
+    mask: int
+    gumbel: int
+    negatives: int
+    channel: int = 0
+
+    @classmethod
+    def draw(cls, generator: torch.Generator) -> "PretrainSeeds":
+        return cls(*(draw_seed(generator) for _ in range(4)))
+
+
+class Wav2Vec2Model(nn.Module):
+    """Contrastive pretraining model (the JAX ``Wav2Vec2Model``) over dense
+    (un-padded) min-cropped batches, so block 0's GroupNorm is unmasked.
+
+    Returns ``(context_masked (B, M, final_dim), targets_masked (B, M,
+    final_dim), prob_ppl, valid (B, M))``: ``final_proj`` of the context
+    and ``project_q`` of the quantized unmasked features at the first M
+    masked frames of each row, M = num_spans(T', p, L) * L, and which of
+    the M slots are real. ``generator``: when given, parameters get the
+    JAX package's random init drawn from it; otherwise they are zeros and
+    ones, waiting for ``load_state_dict``."""
+
+    def __init__(self, cfg: PretrainConfig, dtype: torch.dtype = torch.float32,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        check_supported(cfg)
+        self.config = cfg
+        self.feature_extractor = ConvFeatureExtractor(cfg.conv_features, dtype)
+        self.layer_norm = LayerNorm(cfg.fx_dim, dtype)
+        self.post_extract_proj = Dense(cfg.fx_dim, cfg.d_model, dtype=dtype)
+        self.mask_emb = nn.Parameter(torch.zeros(cfg.d_model))
+        self.encoder = AudioTransformerEncoder(
+            cfg.d_model, cfg.num_heads, cfg.num_layers, cfg.d_ff,
+            cfg.conv_pos_kernel, cfg.conv_pos_groups, dtype, cfg.dropout,
+            cfg.attention_dropout, cfg.layer_drop)
+        self.quantizer = GumbelVectorQuantizer(
+            cfg.fx_dim, cfg.num_vq_vars, cfg.num_vq_groups, cfg.final_dim,
+            dtype)
+        self.project_q = Dense(cfg.final_dim, cfg.final_dim, dtype=dtype)
+        self.final_proj = Dense(cfg.d_model, cfg.final_dim, dtype=dtype)
+        if generator is not None:
+            self.init_from(generator)
+
+    def init_from(self, generator: torch.Generator) -> None:
+        for m in self.modules():
+            if hasattr(m, "init_from") and m not in (self, self.quantizer):
+                m.init_from(generator)
+        self.quantizer.init_from(generator)  # after its Dense's LeCun init
+        with torch.no_grad():
+            self.mask_emb.uniform_(0.0, 1.0, generator=generator)
+
+    def forward(self, x: torch.Tensor, seeds: PretrainSeeds,
+                generator: Optional[torch.Generator] = None,
+                temperature: float = 2.0):
+        """x (B, T) dense waveforms. ``generator``: training mode (dropout
+        seeds from it, Gumbel noise from ``seeds.gumbel``); without it the
+        quantizer takes the argmax. The time mask is drawn either way."""
+        cfg = self.config
+        train = generator is not None
+        features = self.layer_norm(self.feature_extractor(x))
+        unmasked = features
+        features = self.post_extract_proj(features)
+        b, t, c = features.shape
+        dev = features.device
+        features = dropout(features, cfg.dropout_input, generator)
+        unmasked = dropout(unmasked, cfg.dropout_features, generator)
+        time_mask = span_mask(seeds.mask, b, t, cfg.timestep_masking,
+                              cfg.timestep_mask_len, dev)
+        features = torch.where(time_mask[..., None],
+                               self.mask_emb.to(features.dtype), features)
+        if train and cfg.channel_masking > 0.0:
+            cm = span_mask(seeds.channel, b, c, cfg.channel_masking,
+                           cfg.channel_mask_len, dev)
+            features = torch.where(cm[:, None, :], torch.zeros(
+                (), dtype=features.dtype, device=dev), features)
+        capacity = num_spans(t, cfg.timestep_masking,
+                             cfg.timestep_mask_len) * cfg.timestep_mask_len
+        idx, valid = compact_mask_indices(time_mask, capacity)
+        y = torch.gather(unmasked, 1,
+                         idx[..., None].expand(-1, -1, unmasked.shape[-1]))
+        context = self.encoder(features, None, generator)
+        quantized, prob_ppl, _ = self.quantizer(
+            y, temperature, seeds.gumbel if train else None, valid)
+        targets_masked = self.project_q(quantized)
+        context_masked = self.final_proj(torch.gather(
+            context, 1, idx[..., None].expand(-1, -1, context.shape[-1])))
+        return context_masked, targets_masked, prob_ppl, valid
+
+
+def sample_negative_indices(seed: int, batch: int, slots: int,
+                            n_negatives: int,
+                            valid_counts: torch.Tensor) -> torch.Tensor:
+    """(B, M, N) in-utterance negative slot ids: uniform over the row's
+    valid slots except the slot itself (draw from [0, vc - 1), shift the
+    draws at or past the own slot up by one); rows with fewer than two
+    valid slots clamp vc to 2."""
+    vc = torch.clamp(valid_counts[:, None, None], min=2)
+    r = hash_randint((batch, slots, n_negatives), seed, vc - 1)
+    own = torch.arange(slots, device=r.device)[None, :, None]
+    r = r + (r >= own).to(r.dtype)
+    return torch.minimum(r, vc - 1)
+
+
+def _l2_normalize(x: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
+    """``x * rsqrt(max(|x|^2, eps^2))``: the clamped squared norm keeps the
+    gradient finite at x = 0."""
+    norm2 = (x * x).sum(dim=-1, keepdim=True)
+    return x * torch.rsqrt(torch.clamp(norm2, min=eps * eps))
+
+
+def wav2vec2_pretrain_loss(context_masked: torch.Tensor,
+                           targets_masked: torch.Tensor,
+                           prob_ppl: torch.Tensor, valid: torch.Tensor,
+                           seed: int, n_vars: int, n_negatives: int = 100):
+    """InfoNCE + diversity (the JAX ``wav2vec2_pretrain_loss``): cosine
+    similarities of the masked-slot context to [its target; sampled
+    negative targets], cross-entropy against index 0 averaged over valid
+    slots, plus ``DIVERSITY_WGT * (n_vars - ppl) / n_vars``. ``seed``
+    draws the negatives. Returns ``(loss, metrics)``."""
+    b, m, _ = context_masked.shape
+    neg_idx = sample_negative_indices(seed, b, m, n_negatives,
+                                      valid.sum(dim=-1))
+    c_hat = _l2_normalize(context_masked.float())
+    t_hat = _l2_normalize(targets_masked.float())
+    sims = torch.bmm(c_hat, t_hat.transpose(1, 2))  # (B, M, M)
+    pos = torch.diagonal(sims, dim1=1, dim2=2)
+    # the JAX "gather" lookup; its "onehot" mode is a TPU scheduling choice
+    negs = torch.gather(sims, 2, neg_idx)
+    logits = torch.cat([pos[..., None], negs], dim=2)
+    xe = torch.logsumexp(logits, dim=-1) - logits[..., 0]
+    w = valid.float()
+    denom = torch.clamp(w.sum(), min=1.0)
+    xe_loss = (xe * w).sum() / denom
+    diversity = DIVERSITY_WGT * (n_vars - prob_ppl) / n_vars
+    loss = XE_WGT * xe_loss + diversity
+    correct = ((logits.argmax(dim=-1) == 0).float() * w).sum() / denom
+    return loss, {"contrastive_loss": xe_loss, "diversity_loss": diversity,
+                  "code_perplexity": prob_ppl, "accuracy": correct}
+
+
+class Wav2Vec2Loss:
+    """Negative sampling + InfoNCE bundled, the interface of the JAX
+    ``Wav2Vec2Loss``: call with the model outputs and a seed."""
+
+    def __init__(self, n_vars: int, n_negatives: int = 100):
+        self.n_vars = n_vars
+        self.n_negatives = n_negatives
+
+    def __call__(self, context_masked, targets_masked, prob_ppl, valid, seed):
+        return wav2vec2_pretrain_loss(context_masked, targets_masked,
+                                      prob_ppl, valid, seed, self.n_vars,
+                                      self.n_negatives)
+
+
+def create_loss(n_vars: int, n_negatives: int = 100) -> Wav2Vec2Loss:
+    return Wav2Vec2Loss(n_vars, n_negatives)
+
+
+def create_model(config: Optional[PretrainConfig] = None,
+                 dtype: torch.dtype = torch.float32,
+                 generator: Optional[torch.Generator] = None,
+                 **kwargs) -> Wav2Vec2Model:
+    return Wav2Vec2Model(config or PretrainConfig(**kwargs), dtype, generator)

@@ -21,12 +21,20 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _U = ctypes.c_uint32
+_L = ctypes.c_longlong
 
-# source -> {entry: (C function, argtypes)}; "main" is the launch a
-# wrapper counts, other entries are helper launches of the same library
+# source -> {entry: (C function, argtypes)}; each entry is one launch
+# function of the source's library
 _SIGNATURES = {
     "conv_k3s2_fwd.cu": {"main": ("a8t_conv_k3s2_fwd",
                                   [_P, _P, _P, _I, _I, _I, _I, _I, _P])},
+    "conv_k3s2_bwd.cu": {"dgrad": ("a8t_conv_k3s2_dgrad",
+                                   [_P, _P, _P, _I, _I, _I, _I, _I, _P]),
+                         "wgrad": ("a8t_conv_k3s2_wgrad",
+                                   [_P, _P, _P, _P, _I, _I, _I, _I, _I, _L,
+                                    _I, _P])},
+    "dropout.cu": {"main": ("a8t_dropout",
+                            [_P, _P, _L, _U, _U, _F, _I, _P])},
     "attention_fwd.cu": {"main": ("a8t_attention_fwd",
                                   [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                    _I, _I, _F, _F, _U, _U, _I, _P])},

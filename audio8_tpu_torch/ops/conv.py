@@ -1,20 +1,33 @@
 """Stride-2, kernel-3 VALID 1-D convolution over channel-last activations.
 
-Counterpart of ``audio8_tpu/ops/pallas/conv_kernel.py:conv1d_k3s2`` (the
-forward only: the dgrad and wgrad kernels come with the pretraining slice,
-so on the card a call that would need a gradient raises). On a CUDA tensor
-:func:`conv1d_k3s2` launches the hand-written kernel
-``csrc/conv_k3s2_fwd.cu``; on a CPU tensor it runs
-:func:`conv1d_k3s2_plain`, the same function in plain PyTorch, which is
-also what the kernel is checked against on the card.
+Counterpart of ``audio8_tpu/ops/pallas/conv_kernel.py:conv1d_k3s2`` and
+its custom VJP. :func:`conv1d_k3s2` is differentiable in ``x`` and ``w``:
+its forward is ``csrc/conv_k3s2_fwd.cu``, its backward the dgrad and
+wgrad kernels of ``csrc/conv_k3s2_bwd.cu`` (:func:`conv1d_k3s2_dgrad`,
+:func:`conv1d_k3s2_wgrad`). On CPU tensors each wrapper runs its plain
+version, the same function in plain PyTorch, which is also what the
+kernel is checked against on the card; on CUDA tensors it launches the
+kernel or raises.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
 from audio8_tpu_torch.ops import _ext
 
 SOURCE = "conv_k3s2_fwd.cu"
+BWD_SOURCE = "conv_k3s2_bwd.cu"
+# wgrad: the output tiles (3*C_in x C_out in 128x128 tiles) times the
+# splits of the row reduction aim at this many CTAs per SM (two waves of
+# two resident CTAs); a split keeps at least MIN_SPLIT_ROWS rows
+WGRAD_CTAS_PER_SM = 4
+MIN_SPLIT_ROWS = 256
+
+
+def t_out_of(t_in: int) -> int:
+    return (t_in - 3) // 2 + 1
 
 
 def conv1d_k3s2_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -23,44 +36,90 @@ def conv1d_k3s2_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     flattened, i.e. the 3*C_in contiguous elements the kernel reads."""
     b, t, c_in = x.shape
     c_out = w.shape[-1]
-    t_out = (t - 3) // 2 + 1
     x = x.contiguous()
-    rows = x.as_strided((b, t_out, 3 * c_in), (t * c_in, 2 * c_in, 1),
+    rows = x.as_strided((b, t_out_of(t), 3 * c_in), (t * c_in, 2 * c_in, 1),
                         x.storage_offset())
     return torch.matmul(rows, w.reshape(3 * c_in, c_out))
 
 
-def conv1d_k3s2(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """(B, T, C_in) x (3, C_in, C_out) -> (B, (T-3)//2+1, C_out), VALID.
+def conv1d_k3s2_dgrad_plain(dy: torch.Tensor, w: torch.Tensor,
+                            t_in: int) -> torch.Tensor:
+    """Plain dgrad: ``dx`` (B, T_in, C_in) of ``y = conv1d_k3s2(x, w)``.
 
-    f32 or bf16 inputs (both the same dtype), f32 accumulation, output in
-    the input dtype. CPU tensors take the plain version; CUDA tensors
-    launch the kernel or raise."""
+    Paired rows, as the kernel computes them: row t of a view of dy with
+    one zero row in front and one behind is ``[dy[t-1] | dy[t]]``; times
+    ``[W2^T; W0^T]`` it is dx[2t], its second half times ``W1^T`` is
+    dx[2t+1]. t runs to T_out inclusive, which gives the tail rows
+    ``dx[2 T_out] = dy[T_out-1] W2^T`` and a zero ``dx[2 T_out + 1]``
+    (even T_in)."""
+    b, t_out, c_out = dy.shape
+    c_in = w.shape[1]
+    dyp = torch.nn.functional.pad(dy, (0, 0, 1, 1))
+    rows = dyp.as_strided((b, t_out + 1, 2 * c_out),
+                          ((t_out + 2) * c_out, c_out, 1))
+    wt = w.transpose(1, 2)  # (3, C_out, C_in)
+    even = torch.matmul(rows, torch.cat([wt[2], wt[0]], dim=0))
+    odd = torch.matmul(rows[..., c_out:], wt[1])
+    dx = torch.stack([even, odd], dim=2).reshape(b, 2 * (t_out + 1), c_in)
+    return dx[:, :t_in]
+
+
+def conv1d_k3s2_wgrad_plain(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
+    """Plain wgrad: ``dW`` (3, C_in, C_out) in float32, the sum over rows
+    (b, t) of ``x[b, 2t:2t+3]`` flattened (outer) ``dy[b, t]``, from f32
+    copies of the operands (a bf16 product is exact in f32)."""
+    b, t, c_in = x.shape
+    c_out = dy.shape[-1]
+    x = x.contiguous()
+    rows = x.as_strided((b, t_out_of(t), 3 * c_in), (t * c_in, 2 * c_in, 1),
+                        x.storage_offset())
+    dw = torch.zeros((3 * c_in, c_out), dtype=torch.float32, device=x.device)
+    for i in range(b):
+        dw += torch.matmul(rows[i].float().T, dy[i].float())
+    return dw.reshape(3, c_in, c_out)
+
+
+def _check_cuda(what: str, *tensors: torch.Tensor) -> None:
+    dev = tensors[0].device
+    if not all(a.is_cuda and a.device == dev for a in tensors):
+        raise ValueError(f"{what}: tensors on "
+                         f"{[str(a.device) for a in tensors]}; both must be "
+                         "CPU or the same CUDA device")
+    dt = tensors[0].dtype
+    if dt not in _ext.DTYPE_CODES or any(a.dtype != dt for a in tensors):
+        raise TypeError(f"{what}: dtypes {[a.dtype for a in tensors]}; the "
+                        "kernel takes float32 or bfloat16, all the same")
+    if not all(a.dim() == 3 and a.is_contiguous() for a in tensors):
+        raise ValueError(f"{what}: want contiguous 3-d tensors, got "
+                         f"{[tuple(a.shape) for a in tensors]}")
+
+
+def _vectors(what: str, c_in: int, c_out: int,
+             *tensors: torch.Tensor) -> list[torch.Tensor]:
+    """The backward kernels move channel rows as 16-byte vectors: the
+    channel counts must be whole vectors (multiples of 4 in float32, of 8
+    in bfloat16), and an input whose data pointer is off a 16-byte
+    boundary is replaced by a fresh (aligned) copy."""
+    vec = 16 // tensors[0].element_size()
+    if c_in % vec or c_out % vec:
+        raise ValueError(f"{what}: C_in={c_in}, C_out={c_out}; the kernel "
+                         f"wants multiples of {vec} in {tensors[0].dtype}")
+    return [a if a.data_ptr() % 16 == 0 else a.clone() for a in tensors]
+
+
+def _forward(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if x.device.type == "cpu" and w.device.type == "cpu":
         return conv1d_k3s2_plain(x, w)
-    if not (x.is_cuda and w.is_cuda and x.device == w.device):
-        raise ValueError(f"conv1d_k3s2: x on {x.device}, w on {w.device}; "
-                         "both must be CPU or the same CUDA device")
-    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
-        raise NotImplementedError(
-            "conv1d_k3s2: the backward kernels (dgrad, wgrad) are not "
-            "ported yet; train with freeze_fx (ROADMAP.md)")
-    if x.dtype not in _ext.DTYPE_CODES or w.dtype != x.dtype:
-        raise TypeError(f"conv1d_k3s2: dtypes {x.dtype}/{w.dtype}; the "
-                        "kernel takes float32 or bfloat16, both the same")
-    if x.dim() != 3 or w.dim() != 3 or w.shape[0] != 3 \
-            or w.shape[1] != x.shape[2]:
+    _check_cuda("conv1d_k3s2", x, w)
+    b, t, c_in = x.shape
+    c_out = w.shape[2]
+    if w.shape[0] != 3 or w.shape[1] != c_in:
         raise ValueError(f"conv1d_k3s2: shapes {tuple(x.shape)} x "
                          f"{tuple(w.shape)}; want (B, T, C_in) x "
                          "(3, C_in, C_out)")
-    if not (x.is_contiguous() and w.is_contiguous()):
-        raise ValueError("conv1d_k3s2: x and w must be contiguous")
-    b, t, c_in = x.shape
-    c_out = w.shape[2]
     if t < 3:
         raise ValueError(f"conv1d_k3s2: T={t} < kernel size 3")
-    y = torch.empty((b, (t - 3) // 2 + 1, c_out), dtype=x.dtype,
-                    device=x.device)
+    y = torch.empty((b, t_out_of(t), c_out), dtype=x.dtype, device=x.device)
     fn = _ext.function(SOURCE)
     _ext.check(fn(x.data_ptr(), w.data_ptr(), y.data_ptr(), b, t, c_in,
                   c_out, _ext.DTYPE_CODES[x.dtype],
@@ -69,4 +128,105 @@ def conv1d_k3s2(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return y
 
 
+def conv1d_k3s2_dgrad(dy: torch.Tensor, w: torch.Tensor,
+                      t_in: int) -> torch.Tensor:
+    """dgrad: ``dy`` (B, T_out, C_out), ``w`` (3, C_in, C_out) -> ``dx``
+    (B, T_in, C_in) in dy's dtype, f32 accumulation. CPU tensors take the
+    plain version; CUDA tensors launch the kernel or raise (channel counts
+    as :func:`_vectors` sets out)."""
+    b, t_out, c_out = dy.shape
+    if w.dim() != 3 or w.shape[0] != 3 or w.shape[2] != c_out \
+            or t_in < 3 or t_out_of(t_in) != t_out:
+        raise ValueError(f"conv1d_k3s2_dgrad: dy {tuple(dy.shape)}, w "
+                         f"{tuple(w.shape)}, T_in {t_in} do not fit")
+    if dy.device.type == "cpu" and w.device.type == "cpu":
+        return conv1d_k3s2_dgrad_plain(dy, w, t_in)
+    wt = w.transpose(1, 2).contiguous()  # (3, C_out, C_in), as the TPU's
+    _check_cuda("conv1d_k3s2_dgrad", dy, wt)
+    c_in = w.shape[1]
+    dy, wt = _vectors("conv1d_k3s2_dgrad", c_in, c_out, dy, wt)
+    dx = torch.empty((b, t_in, c_in), dtype=dy.dtype, device=dy.device)
+    fn = _ext.function(BWD_SOURCE, "dgrad")
+    _ext.check(fn(dy.data_ptr(), wt.data_ptr(), dx.data_ptr(), b, t_in, c_in,
+                  c_out, _ext.DTYPE_CODES[dy.dtype],
+                  _ext.stream_handle(dy.device)), "conv1d_k3s2_dgrad")
+    conv1d_k3s2_dgrad.launches += 1
+    return dx
+
+
+def wgrad_splits(rows: int, c_in: int, c_out: int, sms: int
+                 ) -> tuple[int, int]:
+    """(splits, rows per split) of wgrad's row reduction: enough CTAs for
+    ``WGRAD_CTAS_PER_SM`` per SM over the 128x128 output tiles, each split
+    at least ``MIN_SPLIT_ROWS`` rows, rows per split a multiple of 64."""
+    tiles = math.ceil(3 * c_in / 128) * math.ceil(c_out / 128)
+    splits = max(1, min(math.ceil(WGRAD_CTAS_PER_SM * sms / tiles),
+                        rows // MIN_SPLIT_ROWS))
+    per = math.ceil(math.ceil(rows / splits) / 64) * 64
+    return math.ceil(rows / per), per
+
+
+def conv1d_k3s2_wgrad(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
+    """wgrad: ``x`` (B, T_in, C_in), ``dy`` (B, T_out, C_out) -> ``dW``
+    (3, C_in, C_out) in float32. CPU tensors take the plain version; CUDA
+    tensors launch the kernel (split over the rows, partials summed in a
+    fixed order) or raise (channel counts as :func:`_vectors` sets out)."""
+    b, t_in, c_in = x.shape
+    if dy.dim() != 3 or dy.shape[0] != b or t_in < 3 \
+            or dy.shape[1] != t_out_of(t_in):
+        raise ValueError(f"conv1d_k3s2_wgrad: x {tuple(x.shape)}, dy "
+                         f"{tuple(dy.shape)} do not fit")
+    if x.device.type == "cpu" and dy.device.type == "cpu":
+        return conv1d_k3s2_wgrad_plain(x, dy)
+    _check_cuda("conv1d_k3s2_wgrad", x, dy)
+    c_out = dy.shape[2]
+    x, dy = _vectors("conv1d_k3s2_wgrad", c_in, c_out, x, dy)
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    splits, per = wgrad_splits(b * dy.shape[1], c_in, c_out, sms)
+    dw = torch.empty((3, c_in, c_out), dtype=torch.float32, device=x.device)
+    part = (torch.empty((splits, 3, c_in, c_out), dtype=torch.float32,
+                        device=x.device) if splits > 1 else None)
+    fn = _ext.function(BWD_SOURCE, "wgrad")
+    _ext.check(fn(x.data_ptr(), dy.data_ptr(), dw.data_ptr(),
+                  None if part is None else part.data_ptr(), b, t_in, c_in,
+                  c_out, splits, per, _ext.DTYPE_CODES[x.dtype],
+                  _ext.stream_handle(x.device)), "conv1d_k3s2_wgrad")
+    conv1d_k3s2_wgrad.launches += 1
+    return dw
+
+
+class _ConvK3S2(torch.autograd.Function):
+    """The custom VJP of the JAX ``conv1d_k3s2``: the residuals are the
+    inputs, ``dW = wgrad(x, dy).astype(w.dtype)``."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return _forward(x, w)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        dy = dy.contiguous()
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = conv1d_k3s2_dgrad(dy, w, x.shape[1])
+        if ctx.needs_input_grad[1]:
+            dw = conv1d_k3s2_wgrad(x, dy).to(w.dtype)
+        return dx, dw
+
+
+def conv1d_k3s2(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """(B, T, C_in) x (3, C_in, C_out) -> (B, (T-3)//2+1, C_out), VALID.
+
+    f32 or bf16 inputs (both the same dtype), f32 accumulation, output in
+    the input dtype; differentiable in both. CPU tensors take the plain
+    versions; CUDA tensors launch the kernels or raise."""
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        return _ConvK3S2.apply(x, w)
+    return _forward(x, w)
+
+
 conv1d_k3s2.launches = 0
+conv1d_k3s2_dgrad.launches = 0
+conv1d_k3s2_wgrad.launches = 0

@@ -52,6 +52,21 @@ def hash_uniform(shape: Sequence[int], seed: int,
         + (0.5 / 16777216.0)
 
 
+def hash_gumbel(shape: Sequence[int], seed: int,
+                device: torch.device | str = "cpu") -> torch.Tensor:
+    """Standard Gumbel noise ``-log(-log(u))`` from :func:`hash_uniform`
+    (float32)."""
+    return -torch.log(-torch.log(hash_uniform(shape, seed, device)))
+
+
+def hash_randint(shape: Sequence[int], seed: int,
+                 maxval: torch.Tensor) -> torch.Tensor:
+    """int64 in ``[0, maxval)``: the uint32 bits modulo ``maxval``, which
+    broadcasts against ``shape`` (the JAX package's uint32 remainder)."""
+    bits = hash_bits(shape, seed, maxval.device)
+    return bits % maxval.to(torch.int64)
+
+
 def keep_threshold(rate: float) -> int:
     """uint32 threshold of a keep mask with drop probability ``rate``."""
     return min(int(rate * 4294967296.0), 4294967295)

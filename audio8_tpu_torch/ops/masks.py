@@ -5,7 +5,8 @@ Same sampling as the JAX ``span_mask``: ``N = num_spans(T, p, L)`` starts
 per row, drawn without replacement from ``[0, T - L]`` as the first N of
 a stable argsort of hash-uniform keys, each masking L consecutive
 positions. Given the same integer seed the mask is the JAX package's bit
-for bit.
+for bit. ``compact_mask_indices`` turns a mask into the static-width
+gather indices of the pretraining loss, as the JAX function does.
 """
 from __future__ import annotations
 
@@ -32,3 +33,17 @@ def span_mask(seed: int, batch: int, seq_len: int, p: float = 0.65,
     t = torch.arange(seq_len, device=device)[None, None, :]
     covered = (t >= starts[..., None]) & (t < starts[..., None] + span_len)
     return covered.any(dim=1)
+
+
+def compact_mask_indices(mask: torch.Tensor, capacity: int
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """A boolean (B, T) mask -> static-width gather indices: ``indices``
+    (B, capacity) int64, the first ``capacity`` masked positions of each
+    row in increasing order (a stable argsort of ``~mask``), and ``valid``
+    (B, capacity) bool, which of them are real."""
+    b, t = mask.shape
+    capacity = min(capacity, t)
+    order = torch.argsort((~mask).to(torch.uint8), dim=-1, stable=True)
+    counts = mask.sum(dim=-1, keepdim=True)
+    valid = torch.arange(capacity, device=mask.device)[None, :] < counts
+    return order[:, :capacity], valid

@@ -1,5 +1,5 @@
-"""Where the time of one serving dispatch, or of one training step, goes
-on the card.
+"""Where the time of one serving dispatch, or of one training or
+pretraining step, goes on the card.
 
 Default: the port's ``Wav2Vec2AcousticModel`` forward on one ``(batch,
 chunk)`` block as the ``MicroBatcher`` dispatches it (seeded random
@@ -18,7 +18,14 @@ padding row (the ``cli.train`` defaults), through ``make_ctc_steps``:
 12 attention backwards alone, AdamW), the kernel time by group and the
 device idle share of one traced step.
 
-    python -m audio8_tpu_torch.profile [--bf16] [--train]
+``--pretrain``: one contrastive pretraining step (``make_pretrain_steps``,
+dropout and masking on) of the full-width ``Wav2Vec2Model`` on the batch
+``cli.pretrain`` forms at its defaults from 4-15 s audio: 20 rows of
+71 428 samples. ``step_ms``, ``stage_ms`` (forward, loss, backward, the
+extractor's four k3s2 backwards alone, AdamW), kernel time by group and
+the device idle share of one traced step.
+
+    python -m audio8_tpu_torch.profile [--bf16] [--train | --pretrain]
 """
 from __future__ import annotations
 
@@ -121,8 +128,14 @@ def kernel_groups(prof) -> dict:
     largest kernels of the rest by name."""
     groups = {"attention_fwd": "attention_fwd", "attention_bwd":
               "attention_bwd", "ctc": "ctc_", "adamw": "adamw_kernel",
-              "conv_k3s2_fwd": "conv_k3s2", "matmul": ("gemm", "cutlass",
-                                                       "sm90_", "ampere")}
+              "conv_k3s2_dgrad": ("dgrad_f32_kernel", "dgrad_bf16_mma_kernel",
+                                  "Dgrad<"),
+              "conv_k3s2_wgrad": ("wgrad_f32_kernel", "wgrad_bf16_mma_kernel",
+                                  "Wgrad<", "sum_splits_kernel"),
+              "dropout": ("dropout_kernel", "dropout_vec_kernel"),
+              "conv_k3s2_fwd": "conv_k3s2",
+              "library_conv": ("dgrad", "wgrad", "fprop", "conv"),
+              "matmul": ("gemm", "cutlass", "sm90_", "ampere")}
     out = {k: 0.0 for k in groups}
     out["other"] = 0.0
     other = {}
@@ -232,20 +245,106 @@ def train_profile(dtype) -> dict:
             "device": torch.cuda.get_device_name(0)}
 
 
+def pretrain_profile(dtype) -> dict:
+    """One pretraining step: stages alone, then one traced step."""
+    from audio8_tpu_torch.config import PretrainConfig
+    from audio8_tpu_torch.models.wav2vec2 import (PretrainSeeds,
+                                                  Wav2Vec2Model,
+                                                  wav2vec2_pretrain_loss)
+    from audio8_tpu_torch.ops.conv import (conv1d_k3s2_dgrad,
+                                           conv1d_k3s2_wgrad)
+    from audio8_tpu_torch.train.optim import (TrainState, create_lrs,
+                                              create_optimizer)
+    from audio8_tpu_torch.train.steps import make_pretrain_steps
+
+    cfg = PretrainConfig()
+    model = Wav2Vec2Model(cfg, dtype,
+                          generator=torch.Generator().manual_seed(SEED)).cuda()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    rows, n = 20, 71_428
+    sig = torch.randn(rows, n, device="cuda", generator=gen) * 0.1
+    state = TrainState(model, create_optimizer(create_lrs(2e-4, 100),
+                                               weight_decay=0.01))
+    train_step, _ = make_pretrain_steps(model)
+    seeds = torch.Generator().manual_seed(SEED)
+    fixed = PretrainSeeds.draw(seeds)
+    n_vars = cfg.num_vq_vars * cfg.num_vq_groups
+
+    def step():
+        train_step(state, sig, PretrainSeeds.draw(seeds), seeds)
+
+    def forward():
+        return model(sig, fixed, generator=seeds)
+
+    def loss_of(out):
+        return wav2vec2_pretrain_loss(*out, fixed.negatives, n_vars)[0]
+
+    out = forward()
+    loss = loss_of(out)
+    # the extractor's four k3s2 layers' backward at this batch, alone
+    convs, t = [], n
+    for (c_out, k, stride), block in zip(cfg.conv_features,
+                                         model.feature_extractor.conv_layers):
+        if (k, stride) == (3, 2):
+            w = getattr(block, "0").weight.to(dtype).permute(2, 1, 0) \
+                .contiguous()
+            x = torch.randn(rows, t, w.shape[1], device="cuda",
+                            generator=gen).to(dtype)
+            dy = torch.randn(rows, (t - 3) // 2 + 1, c_out, device="cuda",
+                             generator=gen).to(dtype)
+            convs.append((x, w, dy))
+        t = (t - k) // stride + 1
+    fwd_ms = median_ms(forward)
+    stages = {
+        "forward (autograd graph)": fwd_ms,
+        "loss": median_ms(lambda: loss_of([o.detach() for o in out])),
+        "backward (fwd+loss+bwd minus fwd)": median_ms(
+            lambda: loss_of(forward()).backward()) - fwd_ms,
+        "conv_k3s2 dgrad+wgrad x4 (alone)": median_ms(
+            lambda: [(conv1d_k3s2_dgrad(dy, w, x.shape[1]),
+                      conv1d_k3s2_wgrad(x, dy)) for x, w, dy in convs]),
+        "adamw (apply_gradients)": median_ms(
+            lambda: state.apply_gradients(
+                [torch.zeros_like(p) for p in state.params], None, 1.0)),
+    }
+    for prm in model.parameters():
+        prm.grad = None
+    del convs
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = median_ms(step)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        step()
+        torch.cuda.synchronize()
+    return {"profile": "wav2vec2-base contrastive pretraining, one step",
+            "dtype": str(dtype), "rows": rows, "samples": n,
+            "frames": t, "masked_slots": out[3].shape[1], "step_ms": step_ms,
+            "stage_ms": stages, "kernel_ms_by_group": kernel_groups(prof),
+            "device_idle_share": idle_share(prof),
+            "train_audio_s_per_s": rows * n / 16_000 / (step_ms / 1e3),
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "loss": float(loss.detach()),
+            "device": torch.cuda.get_device_name(0)}
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--bf16", action="store_true")
-    ap.add_argument("--train", action="store_true",
-                    help="one training micro-step instead of a serving "
-                         "dispatch")
+    mode = ap.add_mutually_exclusive_group()
+    mode.add_argument("--train", action="store_true",
+                      help="one CTC training micro-step instead of a "
+                           "serving dispatch")
+    mode.add_argument("--pretrain", action="store_true",
+                      help="one contrastive pretraining step")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile: no CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dtype = torch.bfloat16 if args.bf16 else torch.float32
-    if args.train:
-        out = train_profile(dtype)
+    if args.train or args.pretrain:
+        out = (train_profile if args.train else pretrain_profile)(dtype)
         print(json.dumps(out), flush=True)
         return out
     cfg = AcousticConfig(num_labels=32, timestep_masking=0.0,

@@ -1,20 +1,32 @@
-"""The CTC fine-tuning step factory (``audio8_tpu/train/steps.py:
-make_ctc_steps``).
+"""The step factories of CTC fine-tuning and contrastive pretraining
+(``audio8_tpu/train/steps.py``: ``make_ctc_steps``,
+``make_pretrain_steps``).
 
-``grad_fn`` runs one forward and backward and returns the summed loss,
+CTC: ``grad_fn`` runs one forward and backward and returns the summed loss,
 one gradient per parameter (zeros for parameters that got none, as JAX
 returns for frozen ones), the real-row count and the token count;
 ``update_fn`` scales the (accumulated) gradient by 1/total_examples, clips
 it by global norm and steps; ``grad_fn.train_step`` fuses the two for
 ``--grad_accum 1``; ``eval_fn`` returns the loss and greedy frames.
 Randomness comes from the trainer's ``torch.Generator``.
+
+Pretraining: ``train_step`` runs the model and the InfoNCE + diversity
+loss at the annealed Gumbel temperature, clips the gradient at global
+norm 1.0 and steps (no 1/B scaling: the loss is a slot average);
+``eval_step`` returns the loss and metrics with the time mask still drawn
+and the quantizer's argmax. Both take the step's seeds
+(``models.wav2vec2.PretrainSeeds``) as an argument, as the JAX steps
+take their rng.
 """
 from __future__ import annotations
 
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 
+from audio8_tpu_torch.config import END_TEMP, START_TEMP, TEMP_DECAY_FACTOR
+from audio8_tpu_torch.models.wav2vec2 import wav2vec2_pretrain_loss
 from audio8_tpu_torch.ops.ctc import ctc_loss
 from audio8_tpu_torch.utils import Offsets
 
@@ -106,3 +118,56 @@ def make_ctc_steps(model, clip: float = 25.0, loss_reduction: str = "sum"):
 
     grad_fn.train_step = train_step
     return grad_fn, update_fn, eval_fn
+
+
+def current_temperature(step: int, start: float = START_TEMP,
+                        end: float = END_TEMP,
+                        decay: float = TEMP_DECAY_FACTOR) -> float:
+    """Gumbel temperature ``max(start * decay ** step, end)`` in float32,
+    evaluated at the step count before the update."""
+    t = np.float32(start) * np.float32(decay) ** np.float32(step)
+    return float(max(t, np.float32(end)))
+
+
+def make_pretrain_steps(model, clip: float = 1.0, n_negatives: int = 100):
+    """Returns ``(train_step, eval_step)`` for contrastive pretraining of a
+    ``Wav2Vec2Model``. ``train_step(state, signal, seeds, generator)``
+    steps the :class:`~audio8_tpu_torch.train.optim.TrainState` and
+    returns ``(state, metrics)`` (metrics as 0-dim tensors, plus
+    ``temperature``); ``eval_step(signal, seeds, step)`` returns ``(loss,
+    metrics)``. ``signal`` is a dense (B, T) batch on the model's
+    device."""
+    cfg = model.config
+    n_vars = cfg.num_vq_vars * cfg.num_vq_groups
+
+    def temperature(step: int) -> float:
+        return current_temperature(step, cfg.start_temp, cfg.end_temp,
+                                   cfg.temp_decay_factor)
+
+    def train_step(state, signal, seeds, generator):
+        temp = temperature(state.step)
+        for p in model.parameters():
+            p.grad = None
+        c, t, ppl, valid = model(signal, seeds, generator=generator,
+                                 temperature=temp)
+        loss, metrics = wav2vec2_pretrain_loss(c, t, ppl, valid,
+                                               seeds.negatives, n_vars,
+                                               n_negatives)
+        loss.backward()
+        grads = []
+        for p in model.parameters():
+            grads.append(torch.zeros_like(p) if p.grad is None else p.grad)
+            p.grad = None
+        gnorm = state.apply_gradients(grads, clip_norm=clip)
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        return state, dict(metrics, loss=loss.detach(), grad_norm=gnorm,
+                           temperature=temp)
+
+    @torch.no_grad()
+    def eval_step(signal, seeds, step: int):
+        c, t, ppl, valid = model(signal, seeds,
+                                 temperature=temperature(step))
+        return wav2vec2_pretrain_loss(c, t, ppl, valid, seeds.negatives,
+                                      n_vars, n_negatives)
+
+    return train_step, eval_step

@@ -1,17 +1,18 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (``audio8_tpu_torch``) on one CUDA card.
 
-Drives the port's serving path and its CTC fine-tuning path at full
-wav2vec2-base width with seeded random weights, and holds every
-hand-written kernel against its plain PyTorch version. Phases, each
-printing JSON lines:
+Drives the port's serving path, its CTC fine-tuning path and its
+contrastive pretraining path at full wav2vec2-base width with seeded
+random weights, and holds every hand-written kernel against its plain
+PyTorch version. Phases, each printing JSON lines:
 
 1. build    - compile the CUDA kernels from ``audio8_tpu_torch/csrc``;
 2. kernel   - each kernel vs its plain version at its path's shapes
-              (serving: 30 s chunks, batch 4; training: 15 s rows, batch
-              4), float32 and bfloat16 where the kernel takes both; then
-              small ragged shapes and misaligned pointers, which reach
-              every variant of each kernel;
+              (serving: 30 s chunks, batch 4; CTC training, extractor
+              frozen or not: 15 s rows, batch 4), float32 and bfloat16
+              where the kernel takes both; then small ragged shapes and
+              misaligned pointers, which reach every variant of each
+              kernel;
 3. model    - the full-width model's forward on the card (through the
               kernels) vs the same weights on the CPU (plain versions);
 4. serve    - the ``a8t-serve`` path (parse_args -> load_acoustic ->
@@ -22,10 +23,25 @@ printing JSON lines:
               synthetic corpus: 6 optimizer steps of 2 micro-batches,
               the encoder frozen for 3 of them; step times, training
               audio-s/s and the kernels' launch counts over that run;
-6. train_vs_cpu - one unfrozen full-width step (dropout and masking
-              off) on the card and on the CPU from the same weights:
-              loss and gradient norm;
-7. timing   - each kernel vs its plain version and the one PyTorch call
+6. train_vs_cpu - one unfrozen full-width step, extractor included
+              (dropout and masking off), on the card and on the CPU from
+              the same weights: loss and gradient norm;
+7. pretrain - ``python -m audio8_tpu_torch.cli.pretrain``'s entry point on
+              a synthetic 4-15 s corpus at the JAX defaults (1 400 000-
+              sample batches, 325 000-sample crops): 6 optimizer steps,
+              step times, training audio-s/s, loss, code perplexity,
+              accuracy, peak memory and the kernels' launch counts, then
+              a validation pass;
+8. pretrain_kernel - the conv backward and dropout kernels vs their
+              plain versions at the shapes of the batches that phase 7
+              formed (each k3s2 layer's T_in, odd and even; the 768- and
+              512-wide dropout inputs), float32 and bfloat16;
+9. pretrain_vs_cpu - one full-width pretraining step (dropout off) on
+              two rows of phase 7's length, on the card and on the CPU
+              from the same weights and seeds: loss, contrastive loss,
+              accuracy, gradient norm and how many Gumbel codeword
+              indices agree;
+10. timing   - each kernel vs its plain version and the one PyTorch call
               that computes the same function (CUDA events, median), with
               the least time the card could take (``bound_ms``);
 
@@ -76,8 +92,39 @@ CTC_INPUT_LENGTHS = [749, 700, 601, 0]
 CTC_TARGET_LENGTHS = [210, 195, 170, 0]
 # card vs CPU, one full-width training step in float32
 TRAIN_LOSS_RTOL, TRAIN_GNORM_RTOL = 1e-4, 1e-3
+# (T_in, C_in, C_out) of the four k3s2 extractor layers on a 15 s row,
+# batch 4 (179 984 output rows): the CTC trainer's unfrozen extractor and
+# the timing rows; the pretraining batches' own shapes are checked after
+# its run (phase_pretrain_path_kernels)
+TRAIN_CONV_SHAPES = [(47_999, 512, 512), (23_999, 512, 512),
+                     (11_999, 512, 512), (5_999, 512, 512)]
+DROPOUT_SHAPE = (4, 749, 768)  # the encoder's residual stream, 15 s rows
+DROPOUT_RATE, DROPOUT_SEED = 0.1, 3_000_000_007
+# card vs CPU, one full-width pretraining step in float32: a Gumbel
+# argmax near a tie may flip under rounding, so the codeword agreement
+# is a share and the loss and norm tolerances allow for a few flips. The
+# contrastive loss (the only term that sees the encoder) is held to
+# CONTRASTIVE_RTOL when every codeword agrees, else to the loss's; the
+# accuracy may differ by one masked slot's argmax.
+PRETRAIN_LOSS_RTOL, PRETRAIN_GNORM_RTOL, CODE_AGREEMENT = 1e-3, 1e-2, 0.999
+CONTRASTIVE_RTOL = 1e-4
 # H100 SXM nominal peaks (dense): f32 without TF32, bf16, HBM3
 PEAK_F32, PEAK_BF16, PEAK_BYTES = 67e12, 989e12, 3.35e12
+
+
+def wgrad_tol(rows: int, scale: float, dtype) -> float:
+    """Bound on |kernel - plain| for wgrad, which writes f32 sums of exact
+    products (a bf16 product is exact in f32) in both dtypes, so both
+    bounds are at f32 level. float32: TOL, 1e-5 * max(1, max|plain|).
+    bfloat16: the tensor cores' f32 accumulation rounds otherwise than
+    the plain version's, and two f32 sums of ``rows`` terms in different
+    orders agree to about sqrt(rows) * 2^-24 * max|sum|: four times that,
+    and at least the float32 bound. A 64-row block skipped or added moves
+    dW by about sqrt(64) times a product, hundreds of times either."""
+    rel = TOL[torch.float32]
+    if dtype == torch.bfloat16:
+        rel = max(rel, 4.0 * math.sqrt(rows) * 2.0 ** -24)
+    return rel * max(1.0, scale)
 
 
 def ctc_grad_tol(t: int, ll_max: float) -> float:
@@ -129,7 +176,8 @@ def attn_inputs(dtype, gen):
 
 def misaligned(a: torch.Tensor) -> torch.Tensor:
     """A contiguous copy of ``a`` whose data pointer is 2 bytes off a
-    16-byte boundary: the kernels' generic (non-vector) variants."""
+    16-byte boundary: the kernels' generic (non-vector) variants, or the
+    conv backward wrappers' aligned copy."""
     buf = torch.empty(a.numel() + 8, dtype=a.dtype, device=a.device)
     out = buf[1:1 + a.numel()].view(a.shape)
     out.copy_(a)
@@ -370,6 +418,161 @@ def phase_train_variants(gen) -> None:
     check_adamw("variant", [(7,), (1000,)], gen, misalign=True)
 
 
+def conv_bwd_inputs(b, t_in, c_in, c_out, dtype, gen, skew=False):
+    t_out = (t_in - 3) // 2 + 1
+    x = torch.randn(b, t_in, c_in, device="cuda", generator=gen)
+    w = torch.randn(3, c_in, c_out, device="cuda", generator=gen)
+    dy = torch.randn(b, t_out, c_out, device="cuda", generator=gen)
+    x, w, dy = x.to(dtype), (w / np.sqrt(3 * c_in)).to(dtype), dy.to(dtype)
+    if skew:
+        x, w, dy = misaligned(x), misaligned(w), misaligned(dy)
+    return x, w, dy
+
+
+def check_conv_bwd(phase, b, t_in, c_in, c_out, dtype, gen,
+                   skew: bool = False) -> dict:
+    """dgrad and wgrad kernels vs their plain versions on one input."""
+    from audio8_tpu_torch.ops.conv import (conv1d_k3s2_dgrad,
+                                           conv1d_k3s2_dgrad_plain,
+                                           conv1d_k3s2_wgrad,
+                                           conv1d_k3s2_wgrad_plain)
+
+    x, w, dy = conv_bwd_inputs(b, t_in, c_in, c_out, dtype, gen, skew)
+    got = {"conv_k3s2_dgrad": conv1d_k3s2_dgrad(dy, w, t_in),
+           "conv_k3s2_wgrad": conv1d_k3s2_wgrad(x, dy)}
+    torch.cuda.synchronize()
+    want = {"conv_k3s2_dgrad": conv1d_k3s2_dgrad_plain(dy, w, t_in),
+            "conv_k3s2_wgrad": conv1d_k3s2_wgrad_plain(x, dy)}
+    errs = {}
+    rows = b * dy.shape[1]
+    for name, g in got.items():
+        err, scale = max_err(g, want[name])
+        tol = (wgrad_tol(rows, scale, dtype) if name == "conv_k3s2_wgrad"
+               else TOL[dtype] * max(1.0, scale))
+        emit({"phase": phase, "kernel": name, "dtype": str(dtype),
+              "shape": [b, t_in, c_in, c_out], "misaligned": skew,
+              "max_abs_err": err, "tol": tol})
+        check(g.shape == want[name].shape and bool(torch.isfinite(g).all())
+              and err <= tol,
+              f"{name} {dtype} {(b, t_in, c_in, c_out)}: {err} > {tol}")
+        errs[name] = err
+    return errs
+
+
+def check_dropout(phase, shape, dtype, gen, skew: bool = False) -> float:
+    """Forward and backward (through autograd) of the dropout kernel vs
+    the plain version: exactly equal."""
+    from audio8_tpu_torch.ops.dropout import fused_dropout, hash_dropout
+
+    x, dy = (torch.randn(shape, device="cuda", generator=gen).to(dtype)
+             for _ in range(2))
+    if skew:
+        x, dy = misaligned(x), misaligned(dy)
+    xg = x.detach().requires_grad_()
+    y = fused_dropout(xg, DROPOUT_RATE, DROPOUT_SEED)
+    (dx,) = torch.autograd.grad(y, xg, dy)
+    torch.cuda.synchronize()
+    err_y, _ = max_err(y, hash_dropout(x, DROPOUT_RATE, DROPOUT_SEED))
+    err_dx, _ = max_err(dx, hash_dropout(dy, DROPOUT_RATE, DROPOUT_SEED))
+    kept = (y != 0).float().mean().item()
+    emit({"phase": phase, "kernel": "dropout", "dtype": str(dtype),
+          "shape": list(shape), "misaligned": skew, "rate": DROPOUT_RATE,
+          "kept_share": kept, "max_abs_err": {"fwd": err_y, "bwd": err_dx},
+          "tol": 0.0})
+    check(err_y == 0.0 and err_dx == 0.0,
+          f"dropout {shape} {dtype}: fwd {err_y} bwd {err_dx} != 0")
+    return max(err_y, err_dx)
+
+
+def phase_conv_bwd_kernels(gen) -> dict:
+    """The conv backward and dropout kernels at the CTC trainer's shapes
+    (the four k3s2 layers of (4, 15 s), unfrozen; the encoder's (4, 749,
+    768) residual stream); returns the float32 max errors."""
+    worst = {"conv_k3s2_dgrad": 0.0, "conv_k3s2_wgrad": 0.0, "dropout": 0.0}
+    for dtype in (torch.float32, torch.bfloat16):
+        for t_in, c_in, c_out in TRAIN_CONV_SHAPES:
+            errs = check_conv_bwd("kernel", 4, t_in, c_in, c_out, dtype, gen)
+            if dtype == torch.float32:
+                for k, e in errs.items():
+                    worst[k] = max(worst[k], e)
+            torch.cuda.empty_cache()
+        err = check_dropout("kernel", DROPOUT_SHAPE, dtype, gen)
+        if dtype == torch.float32:
+            worst["dropout"] = err
+    return worst
+
+
+def phase_pretrain_variants(gen) -> None:
+    """Odd and even T_in (dgrad's two tail paths), T_out below one tile,
+    C_in != C_out (dgrad tiles straddling the dx[2t] | dx[2t+1] halves,
+    and tiles wholly in the second half), misaligned pointers (the
+    wrapper's aligned copy, with split wgrad), channel counts off the
+    16-byte vectors (refused), and dropout at ragged sizes."""
+    from audio8_tpu_torch.ops.conv import conv1d_k3s2_dgrad, conv1d_k3s2_wgrad
+
+    for dtype in (torch.float32, torch.bfloat16):
+        for b, t_in, c_in, c_out, skew in (
+                (2, 261, 128, 64, False), (2, 260, 128, 64, False),
+                (3, 9, 40, 72, False), (2, 10, 72, 40, False),
+                (2, 101, 40, 72, False), (2, 2001, 40, 72, True),
+                (2, 38, 16, 24, True)):
+            check_conv_bwd("variant", b, t_in, c_in, c_out, dtype, gen, skew)
+        x, w, dy = conv_bwd_inputs(2, 37, 6, 10, dtype, gen)
+        for name, call in (("dgrad", lambda: conv1d_k3s2_dgrad(dy, w, 37)),
+                           ("wgrad", lambda: conv1d_k3s2_wgrad(x, dy))):
+            try:
+                call()
+            except ValueError:
+                continue
+            raise RuntimeError(f"check failed: conv_k3s2_{name} took 6 -> "
+                               f"10 channels in {dtype}")
+        for shape, skew in (((3, 37, 11), False), ((1, 5), False),
+                            ((2, 749, 768), True), ((1031,), True)):
+            check_dropout("variant", shape, dtype, gen, skew)
+
+
+def pretrain_path_shapes(rows: int, samples: int):
+    """(T_in, C_in, C_out) of each k3s2 layer of the pretraining model's
+    extractor, and its output frame count, for a batch of ``rows`` x
+    ``samples``."""
+    from audio8_tpu_torch.config import PretrainConfig
+
+    t, c_in, convs = samples, 1, []
+    for c, k, s in PretrainConfig().conv_features:
+        if (k, s) == (3, 2):  # the layers that run conv1d_k3s2
+            convs.append((t, c_in, c))
+        t, c_in = (t - k) // s + 1, c
+    return convs, t
+
+
+def phase_pretrain_path_kernels(batches, gen) -> dict:
+    """dgrad, wgrad and dropout vs their plain versions at the shapes of
+    the batches the pretraining run formed: every k3s2 layer's (B, T_in),
+    and the dropout inputs (B, frames, 768) of the encoder and (B, frames,
+    512) of the extractor's features; returns the float32 max errors."""
+    from audio8_tpu_torch.config import PretrainConfig
+
+    cfg = PretrainConfig()
+    worst = {"conv_k3s2_dgrad": 0.0, "conv_k3s2_wgrad": 0.0, "dropout": 0.0}
+    for rows, samples in batches:
+        convs, frames = pretrain_path_shapes(rows, samples)
+        emit({"phase": "pretrain_kernel", "batch": [rows, samples],
+              "k3s2_t_in": [t for t, _, _ in convs], "frames": frames})
+        for dtype in (torch.float32, torch.bfloat16):
+            errs = {}
+            for t_in, c_in, c_out in convs:
+                for k, e in check_conv_bwd("pretrain_kernel", rows, t_in,
+                                           c_in, c_out, dtype, gen).items():
+                    errs[k] = max(errs.get(k, 0.0), e)
+            for width in (cfg.d_model, cfg.fx_dim):
+                errs["dropout"] = max(errs.get("dropout", 0.0), check_dropout(
+                    "pretrain_kernel", (rows, frames, width), dtype, gen))
+            if dtype == torch.float32:
+                worst = {k: max(worst[k], e) for k, e in errs.items()}
+            torch.cuda.empty_cache()
+    return worst
+
+
 def base_config(num_labels: int, **over):
     from audio8_tpu_torch.config import AcousticConfig
 
@@ -545,31 +748,38 @@ def write_corpus(root: str, seed: int) -> None:
                 lf.write(" ".join(letters) + " |\n")
 
 
-def reset_launches() -> None:
+def counted() -> dict:
+    """Kernel name -> the wrapper that counts its launches."""
     from audio8_tpu_torch.ops.adamw import adamw_update
     from audio8_tpu_torch.ops.attention import (attention_core,
                                                 attention_core_bwd)
-    from audio8_tpu_torch.ops.conv import conv1d_k3s2
+    from audio8_tpu_torch.ops.conv import (conv1d_k3s2, conv1d_k3s2_dgrad,
+                                           conv1d_k3s2_wgrad)
     from audio8_tpu_torch.ops.ctc import ctc_loss
+    from audio8_tpu_torch.ops.dropout import fused_dropout
 
-    for fn in (conv1d_k3s2, attention_core, attention_core_bwd, ctc_loss,
-               adamw_update):
+    return {"conv_k3s2_fwd": conv1d_k3s2, "conv_k3s2_dgrad": conv1d_k3s2_dgrad,
+            "conv_k3s2_wgrad": conv1d_k3s2_wgrad,
+            "attention_fwd": attention_core,
+            "attention_bwd": attention_core_bwd, "ctc_loss": ctc_loss,
+            "dropout": fused_dropout, "adamw": adamw_update}
+
+
+def reset_launches() -> None:
+    for fn in counted().values():
         fn.launches = 0
 
 
 def read_launches() -> dict:
-    from audio8_tpu_torch.ops.adamw import adamw_update
-    from audio8_tpu_torch.ops.attention import (attention_core,
-                                                attention_core_bwd)
-    from audio8_tpu_torch.ops.conv import conv1d_k3s2
-    from audio8_tpu_torch.ops.ctc import ctc_loss
-
-    return {"conv_k3s2_fwd": conv1d_k3s2.launches,
-            "attention_fwd": attention_core.launches,
-            "attention_bwd": attention_core_bwd.launches,
-            "ctc_loss": ctc_loss.launches, "adamw": adamw_update.launches}
+    return {name: fn.launches for name, fn in counted().items()}
 
 
+# the kernels each path runs (the CTC trainer's extractor is frozen by
+# default, so its conv backward runs only in train_vs_cpu)
+TRAIN_PATH = ("conv_k3s2_fwd", "attention_fwd", "attention_bwd", "ctc_loss",
+              "dropout", "adamw")
+PRETRAIN_PATH = ("conv_k3s2_fwd", "conv_k3s2_dgrad", "conv_k3s2_wgrad",
+                 "attention_fwd", "attention_bwd", "dropout", "adamw")
 TRAIN_FLAGS = ["--target_tokens_per_batch", "700000", "--grad_accum", "2",
                "--train_steps", "6", "--unfreeze_enc_after_step", "2",
                "--warmup_steps", "2"]
@@ -592,7 +802,7 @@ def phase_train(tmp: str, seed: int) -> dict:
     t0 = time.perf_counter()
     state = train(argv)
     wall = time.perf_counter() - t0
-    launches = read_launches()
+    launches = {k: n for k, n in read_launches().items() if k in TRAIN_PATH}
     log = state.log
     check(state.step == 6 and len(log) == 6, f"train took {state.step} steps")
     check([r["frozen"] for r in log] == [True] * 3 + [False] * 3,
@@ -624,8 +834,9 @@ def phase_train(tmp: str, seed: int) -> dict:
 
 
 def phase_train_vs_cpu(seed: int) -> None:
-    """One unfrozen step on the card and on the CPU from the same
-    weights (dropout and masking off): loss and gradient norm."""
+    """One unfrozen step, extractor included (``freeze_fx`` off: the conv
+    backward kernels), on the card and on the CPU from the same weights
+    (dropout and masking off): loss and gradient norm."""
     from audio8_tpu_torch.models.wav2vec2 import Wav2Vec2AcousticModel
     from audio8_tpu_torch.train.optim import (TrainState, create_lrs,
                                               create_optimizer)
@@ -633,7 +844,7 @@ def phase_train_vs_cpu(seed: int) -> None:
     from audio8_tpu_torch.utils import Offsets
 
     Offsets.remap_fairseq_ctc()
-    cfg = base_config(4 + len(LETTERS), dropout=0.0)
+    cfg = base_config(4 + len(LETTERS), dropout=0.0, freeze_fx=False)
     cpu = Wav2Vec2AcousticModel(cfg, generator=torch.Generator().manual_seed(
         seed + 3))
     gpu = Wav2Vec2AcousticModel(cfg).cuda()
@@ -669,6 +880,166 @@ def phase_train_vs_cpu(seed: int) -> None:
           "gnorm_rtol": TRAIN_GNORM_RTOL})
     check(l_rel <= TRAIN_LOSS_RTOL, f"train step loss card vs CPU {l_rel}")
     check(n_rel <= TRAIN_GNORM_RTOL, f"train step gnorm card vs CPU {n_rel}")
+
+
+def write_pretrain_corpus(root: str, seed: int) -> None:
+    """24 training and 4 validation WAVs of 4-15 s (noise under drifting
+    tones) and their manifests."""
+    from scipy.io import wavfile
+
+    rng = np.random.default_rng(seed + 4)
+    for split, n in (("train", 24), ("valid", 4)):
+        with open(os.path.join(root, f"{split}.tsv"), "w") as tf:
+            tf.write(root + "\n")
+            for i in range(n):
+                wav = synthetic_speechlike(float(rng.uniform(4.0, 15.0)), rng)
+                name = f"{split}{i}.wav"
+                wavfile.write(os.path.join(root, name), SR,
+                              (np.clip(wav, -1, 1) * 32767).astype(np.int16))
+                tf.write(f"{name}\t{len(wav)}\n")
+
+
+PRETRAIN_FLAGS = ["--tokens_per_batch", "1400000", "--max_sample_len",
+                  "325000", "--train_steps", "6", "--steps_per_checkpoint",
+                  "3", "--warmup_steps", "2", "--num_train_workers", "4"]
+
+
+def phase_pretrain(tmp: str, seed: int):
+    """The pretraining entry point at full width; returns the launch
+    counts of its run and the (rows, samples) of its batches."""
+    from audio8_tpu_torch.cli import pretrain
+    from audio8_tpu_torch.models.convert import load_fairseq_pretrained
+    from audio8_tpu_torch.train.steps import make_pretrain_steps
+
+    corpus = os.path.join(tmp, "pretrain_corpus")
+    os.makedirs(corpus)
+    write_pretrain_corpus(corpus, seed)
+    basedir = os.path.join(tmp, "pretrain_run")
+    argv = ["--manifest_dir", corpus, "--basedir", basedir, "--device",
+            "cuda", *PRETRAIN_FLAGS]
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    state = pretrain.train(argv)
+    wall = time.perf_counter() - t0
+    launches = {k: n for k, n in read_launches().items()
+                if k in PRETRAIN_PATH}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    log = state.log
+    check(state.step == 6 and len(log) == 6,
+          f"pretrain took {state.step} steps")
+    for key in ("loss", "code_perplexity", "accuracy", "grad_norm"):
+        check(all(math.isfinite(r[key]) for r in log), f"non-finite {key}")
+    for name, n in launches.items():
+        check(n > 0, f"{name} was not launched by the pretraining run")
+    ckpts = sorted(f for f in os.listdir(basedir) if f.endswith(".pt"))
+    check(ckpts == ["checkpoint-step-2.pt", "checkpoint-step-5.pt"],
+          f"checkpoints {ckpts}")
+    keys = set(load_fairseq_pretrained(os.path.join(basedir, ckpts[-1])))
+    check(keys == set(state.model.state_dict()), "checkpoint keys")
+
+    _, valid_set = pretrain._datasets(pretrain.parse_args(argv))
+    _, eval_step = make_pretrain_steps(state.model)
+    valid = pretrain.validate(eval_step, valid_set, 2,
+                              torch.Generator().manual_seed(seed), state.step,
+                              torch.device("cuda"), {})
+    check(math.isfinite(valid["average_valid_loss"]), "non-finite valid loss")
+
+    def rate(rows):
+        return sum(r["audio_s"] for r in rows) / sum(r["seconds"]
+                                                     for r in rows)
+
+    batches = sorted({(r["rows"], r["samples"]) for r in log})
+    emit({"phase": "pretrain", "config": "wav2vec2-base d768 h12 L12 ff3072, "
+          "final_dim 256, 2x320 codewords, f32", "flags": PRETRAIN_FLAGS,
+          "params": sum(p.numel() for p in state.params),
+          "step_seconds": [r["seconds"] for r in log],
+          "step_audio_s": [r["audio_s"] for r in log],
+          "rows": [r["rows"] for r in log],
+          "samples": [r["samples"] for r in log],
+          "losses": [r["loss"] for r in log],
+          "code_perplexity": [r["code_perplexity"] for r in log],
+          "accuracy": [r["accuracy"] for r in log],
+          "temperature": [r["temperature"] for r in log],
+          # step 1 carries first-call set-up (cuBLAS handles, allocator)
+          "audio_s_per_s": rate(log[1:]), "wall_s": wall,
+          "valid_loss": valid["average_valid_loss"], "launches": launches,
+          "launches_per_step": {k: n / 6 for k, n in launches.items()},
+          "peak_memory_gb": peak})
+    return launches, batches
+
+
+def phase_pretrain_vs_cpu(seed: int, samples: int) -> None:
+    """One full-width pretraining step on two rows of ``samples`` (the
+    pretraining run's length; dropout off; masks, Gumbel noise and
+    negatives from the same seeds) on the card and on the CPU from the
+    same weights: loss, contrastive loss, accuracy, gradient norm, and
+    the share of Gumbel codeword indices that agree."""
+    from audio8_tpu_torch.config import PretrainConfig
+    from audio8_tpu_torch.models.wav2vec2 import PretrainSeeds, Wav2Vec2Model
+    from audio8_tpu_torch.train.optim import (TrainState, create_lrs,
+                                              create_optimizer)
+    from audio8_tpu_torch.train.steps import make_pretrain_steps
+
+    cfg = PretrainConfig(dropout=0.0, dropout_input=0.0,
+                         dropout_features=0.0)
+    cpu = Wav2Vec2Model(cfg, generator=torch.Generator().manual_seed(seed + 5))
+    gpu = Wav2Vec2Model(cfg).cuda()
+    gpu.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(seed + 5)
+    sig = np.stack([synthetic_speechlike((samples + 1) / SR, rng)[:samples]
+                    for _ in range(2)])
+    seeds = PretrainSeeds(mask=11, gumbel=22, negatives=33)
+    out = {}
+    for name, model in (("cuda", gpu), ("cpu", cpu)):
+        dev = next(model.parameters()).device
+        state = TrainState(model, create_optimizer(create_lrs(
+            2e-4, 10, "constant", warmup_steps=0), weight_decay=0.01))
+        train_step, _ = make_pretrain_steps(model)
+        codes, slots = [], []
+        hooks = [model.quantizer.register_forward_hook(
+                     lambda m, i, o: codes.append(o[2].cpu())),
+                 model.register_forward_hook(
+                     lambda m, i, o: slots.append(int(o[3].sum())))]
+        _, metrics = train_step(state, torch.from_numpy(sig).to(dev), seeds,
+                                torch.Generator())
+        for h in hooks:
+            h.remove()
+        out[name] = {k: float(metrics[k]) for k in (
+            "loss", "contrastive_loss", "accuracy", "grad_norm")}
+        out[name].update(codes=codes[0], slots=slots[0])
+    g, c = out["cuda"], out["cpu"]
+    rel = {k: abs(g[k] - c[k]) / abs(c[k])
+           for k in ("loss", "contrastive_loss", "grad_norm")}
+    same = int((g["codes"] == c["codes"]).sum())
+    agree = same / c["codes"].numel()
+    xe_rtol = (CONTRASTIVE_RTOL if same == c["codes"].numel()
+               else PRETRAIN_LOSS_RTOL)
+    # accuracy is (argmax hits) / (valid masked slots): one slot's flip
+    acc_atol = 1.0 / max(1, c["slots"])
+    acc_err = abs(g["accuracy"] - c["accuracy"])
+    emit({"phase": "pretrain_vs_cpu", "rows": [2, samples],
+          **{k: [g[k], c[k]] for k in ("loss", "contrastive_loss",
+                                       "accuracy", "grad_norm")},
+          "loss_rel_err": rel["loss"], "loss_rtol": PRETRAIN_LOSS_RTOL,
+          "contrastive_rel_err": rel["contrastive_loss"],
+          "contrastive_rtol": xe_rtol, "masked_slots": [g["slots"],
+                                                        c["slots"]],
+          "accuracy_abs_err": acc_err, "accuracy_atol": acc_atol,
+          "gnorm_rel_err": rel["grad_norm"],
+          "gnorm_rtol": PRETRAIN_GNORM_RTOL, "codewords": c["codes"].numel(),
+          "codewords_equal": same, "codeword_agreement": agree,
+          "codeword_agreement_min": CODE_AGREEMENT})
+    check(g["slots"] == c["slots"], "masked slots differ card vs CPU")
+    check(rel["loss"] <= PRETRAIN_LOSS_RTOL,
+          f"pretrain loss card vs CPU {rel['loss']}")
+    check(rel["contrastive_loss"] <= xe_rtol,
+          f"pretrain contrastive loss card vs CPU {rel['contrastive_loss']}")
+    check(acc_err <= acc_atol * (1 + 1e-6),
+          f"pretrain accuracy card vs CPU {acc_err}")
+    check(rel["grad_norm"] <= PRETRAIN_GNORM_RTOL,
+          f"pretrain gnorm card vs CPU {rel['grad_norm']}")
+    check(agree >= CODE_AGREEMENT, f"codeword agreement {agree}")
 
 
 def median_ms(fn, reps: int = 5, inner: int = 3) -> float:
@@ -835,6 +1206,87 @@ def time_adamw(gen) -> dict:
     return {"adamw": r}
 
 
+def time_conv_bwd(dtype, gen) -> dict:
+    """dgrad and wgrad of the four k3s2 layers of (4, 15 s); the
+    yardsticks are torch.nn.grad.conv1d_input / conv1d_weight (cuDNN) on
+    channel-first copies of the same inputs."""
+    from torch.nn import grad as nn_grad
+
+    from audio8_tpu_torch.ops.conv import (conv1d_k3s2_dgrad,
+                                           conv1d_k3s2_dgrad_plain,
+                                           conv1d_k3s2_wgrad,
+                                           conv1d_k3s2_wgrad_plain)
+
+    layers = [(t,) + conv_bwd_inputs(4, t, ci, co, dtype, gen)
+              for t, ci, co in TRAIN_CONV_SHAPES]
+    cf = [(x.transpose(1, 2).contiguous(), w.permute(2, 1, 0).contiguous(),
+           dy.transpose(1, 2).contiguous()) for _, x, w, dy in layers]
+    flops = sum(2.0 * dy.shape[0] * dy.shape[1] * 3 * x.shape[2] * dy.shape[2]
+                for _, x, _, dy in layers)
+    esize = layers[0][1].element_size()
+    out = {}
+    r = in_turns(
+        lambda: [conv1d_k3s2_dgrad(dy, w, t) for t, _, w, dy in layers],
+        lambda: [conv1d_k3s2_dgrad_plain(dy, w, t) for t, _, w, dy in layers],
+        lambda: [nn_grad.conv1d_input(x.shape, w, dy, stride=2)
+                 for x, w, dy in cf])
+    r["bound_ms"], r["bound_by"] = bound(
+        flops, sum((dy.numel() + w.numel() + x.numel()) * esize
+                   for _, x, w, dy in layers), dtype)
+    out["conv_k3s2_dgrad"] = r
+    r = in_turns(
+        lambda: [conv1d_k3s2_wgrad(x, dy) for _, x, _, dy in layers],
+        lambda: [conv1d_k3s2_wgrad_plain(x, dy) for _, x, _, dy in layers],
+        lambda: [nn_grad.conv1d_weight(x, w.shape, dy, stride=2)
+                 for x, w, dy in cf])
+    r["bound_ms"], r["bound_by"] = bound(
+        flops, sum((x.numel() + dy.numel()) * esize + w.numel() * 4
+                   for _, x, w, dy in layers), dtype)
+    out["conv_k3s2_wgrad"] = r
+    return out
+
+
+def graphed(fn, calls: int):
+    """``calls`` calls of ``fn`` captured in one CUDA graph; returns its
+    replay. Timing the replay gives device time without the host's
+    per-call launch cost."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # first call outside the capture (lazy set-up)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    return graph.replay
+
+
+def time_dropout(dtype, gen) -> dict:
+    """Forward at the encoder's (4, 749, 768) residual stream; no PyTorch
+    call computes hash dropout (F.dropout draws Philox bits). A call takes
+    microseconds on the card and tens of them on the host, so events
+    around eager calls measure the host: ``ms`` and ``plain_ms`` time 20
+    calls captured in a CUDA graph (the input stays in L2 between them),
+    and ``eager_ms`` the eager wrapper's per-call time."""
+    from audio8_tpu_torch.ops.dropout import fused_dropout, hash_dropout
+
+    calls = 20
+    x = torch.randn(DROPOUT_SHAPE, device="cuda", generator=gen).to(dtype)
+    kern = lambda: fused_dropout(x, DROPOUT_RATE, DROPOUT_SEED)
+    r = in_turns(graphed(kern, calls), graphed(
+        lambda: hash_dropout(x, DROPOUT_RATE, DROPOUT_SEED), calls))
+    for k in ("ms", "plain_ms"):
+        r[k] /= calls
+        r[f"{k}_runs"] = [t / calls for t in r[f"{k}_runs"]]
+    r["eager_ms"] = median_ms(kern)
+    # one read and one write per element; the hash's ~12 integer
+    # operations per element are far below the card's integer rate
+    r["bound_ms"], r["bound_by"] = bound(0.0, 2 * x.numel()
+                                         * x.element_size(), dtype)
+    return {"dropout": r}
+
+
 def phase_timing(gen) -> dict:
     """Every kernel in turns with its plain version and its yardstick, at
     its path's shapes; float32 (the path's dtype) and, for the kernels
@@ -842,6 +1294,9 @@ def phase_timing(gen) -> dict:
     out = {}
     for dtype in (torch.float32, torch.bfloat16):
         found = {**time_conv(dtype, gen), **time_attention(dtype, gen)}
+        torch.cuda.empty_cache()
+        found.update({**time_conv_bwd(dtype, gen),
+                      **time_dropout(dtype, gen)})
         if dtype == torch.float32:
             found.update({**time_ctc(gen), **time_adamw(gen)})
         for name, r in found.items():
@@ -854,11 +1309,20 @@ def phase_timing(gen) -> dict:
 
 REPLACES = {
     "conv_k3s2_fwd": "audio8_tpu/ops/pallas/conv_kernel.py:107",
+    "conv_k3s2_dgrad": "audio8_tpu/ops/pallas/conv_kernel.py:154",
+    "conv_k3s2_wgrad": "audio8_tpu/ops/pallas/conv_kernel.py:218",
     "attention_fwd": "audio8_tpu/ops/pallas/attention_kernel.py:96",
     "attention_bwd": "audio8_tpu/ops/pallas/attention_kernel.py:109",
     "ctc_loss": "audio8_tpu/ops/pallas/ctc_kernel.py:59",
+    "dropout": "audio8_tpu/ops/pallas/dropout_kernel.py:21",
     "adamw": "audio8_tpu/ops/pallas/adamw_kernel.py:32",
 }
+SOURCES = {"conv_k3s2_fwd": "conv_k3s2_fwd.cu",
+           "conv_k3s2_dgrad": "conv_k3s2_bwd.cu",
+           "conv_k3s2_wgrad": "conv_k3s2_bwd.cu",
+           "attention_fwd": "attention_fwd.cu",
+           "attention_bwd": "attention_bwd.cu", "ctc_loss": "ctc_loss.cu",
+           "dropout": "dropout.cu", "adamw": "adamw.cu"}
 
 
 def main() -> int:
@@ -875,24 +1339,37 @@ def main() -> int:
     phase_build()
     worst = phase_kernels(gen)
     worst.update(phase_train_kernels(gen))
+    worst.update(phase_conv_bwd_kernels(gen))
     phase_variants(gen)
     phase_train_variants(gen)
+    phase_pretrain_variants(gen)
     cpu_model = phase_model(SEED)
     with tempfile.TemporaryDirectory() as tmp:
         phase_serve(cpu_model, SEED, tmp)
         del cpu_model
-        launches = phase_train(tmp, SEED)
+        train_launches = phase_train(tmp, SEED)
+        torch.cuda.empty_cache()
+        launches, batches = phase_pretrain(tmp, SEED)
+    torch.cuda.empty_cache()
+    for k, e in phase_pretrain_path_kernels(batches, gen).items():
+        worst[k] = max(worst[k], e)
     phase_train_vs_cpu(SEED)
+    phase_pretrain_vs_cpu(SEED, batches[-1][1])
     torch.cuda.empty_cache()
     times = phase_timing(gen)
     check("jax" not in sys.modules and "audio8_tpu" not in sys.modules,
           "jax or the JAX package was imported")
 
+    # launches: the pretraining run's, this slice's main path; the CTC
+    # loss is not on it and reports the CTC training run's
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     emit({"kernels": [
         {"name": name, "route": "cuda",
-         "source": f"audio8_tpu_torch/csrc/{name}.cu",
-         "replaces": REPLACES[name], "launches": launches[name],
+         "source": f"audio8_tpu_torch/csrc/{SOURCES[name]}",
+         "replaces": REPLACES[name],
+         "path": "pretrain" if name in launches else "train",
+         "launches": (launches[name] if name in launches
+                      else train_launches[name]),
          "max_abs_err": worst[name],
          **{k: times[(name, torch.float32)][k] for k in keys}}
         for name in REPLACES]})

@@ -1,0 +1,134 @@
+"""Backward of the port's k3s2 conv: the plain dgrad and wgrad (which the
+CUDA kernels of ``csrc/conv_k3s2_bwd.cu`` are held to on the card) vs the
+JAX ``_dgrad_pallas`` / ``_wgrad_pallas`` Pallas kernels (interpret mode
+on the CPU backend) and vs ``jax.vjp`` of ``conv1d_k3s2``, in float32 and
+bfloat16, for odd and even T_in; and the port's ``conv1d_k3s2`` autograd
+through them."""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from audio8_tpu.ops.pallas.conv_kernel import _dgrad_pallas, _wgrad_pallas
+from audio8_tpu.ops.pallas.conv_kernel import conv1d_k3s2 as jax_conv1d_k3s2
+from audio8_tpu_torch.ops.conv import (conv1d_k3s2, conv1d_k3s2_dgrad,
+                                       conv1d_k3s2_dgrad_plain,
+                                       conv1d_k3s2_wgrad,
+                                       conv1d_k3s2_wgrad_plain, t_out_of,
+                                       wgrad_splits)
+from audio8_tpu_torch.ops.conv import _vectors
+
+# tests/test_torch_conv.py shapes (odd T_in 37, 259, 1027, 19, 41 and even
+# 36) plus C_in != C_out both ways and more even T_in
+SHAPES = [
+    (2, 37, 128, 128),
+    (1, 259, 256, 128),
+    (3, 1027, 128, 256),
+    (2, 36, 128, 128),
+    (1, 19, 128, 128),
+    (2, 41, 32, 32),
+    (2, 40, 32, 48),
+    (1, 4, 8, 16),
+    (1, 3, 16, 8),
+]
+# float32: only the order of the f32 sums differs. bfloat16: both sides
+# take bf16 operands with f32 sums; dgrad rounds its output to bf16
+# (2^-8 relative), wgrad returns f32.
+TOL = {"float32": 1e-4, "bfloat16": 2.0 ** -6}
+
+
+def _inputs(shape, seed=0):
+    b, t, ci, co = shape
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(b, t, ci)).astype(np.float32)
+    w = (rng.normal(size=(3, ci, co)) / np.sqrt(3 * ci)).astype(np.float32)
+    dy = rng.normal(size=(b, t_out_of(t), co)).astype(np.float32)
+    return x, w, dy
+
+
+def _close(got: torch.Tensor, want, tol: float) -> None:
+    want = np.asarray(want, np.float32)
+    got = got.float().numpy()
+    assert got.shape == want.shape
+    scale = max(1.0, float(np.abs(want).max()))
+    np.testing.assert_allclose(got, want, atol=tol * scale, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_plain_matches_jax_kernels_and_vjp(shape, dtype):
+    x, w, dy = _inputs(shape)
+    jdt = jnp.dtype(dtype)
+    tdt = getattr(torch, dtype)
+    xj, wj, dyj = (jnp.asarray(a).astype(jdt) for a in (x, w, dy))
+    xt, wt, dyt = (torch.from_numpy(a).to(tdt) for a in (x, w, dy))
+    dx = conv1d_k3s2_dgrad(dyt, wt, shape[1])
+    dw = conv1d_k3s2_wgrad(xt, dyt)
+    assert dx.dtype == tdt and dw.dtype == torch.float32
+    _close(dx, _dgrad_pallas(dyj, wj, shape[1]).astype(jnp.float32),
+           TOL[dtype])
+    _close(dw, _wgrad_pallas(xj, dyj), TOL[dtype])
+    _, vjp = jax.vjp(jax_conv1d_k3s2, xj, wj)
+    vdx, vdw = vjp(dyj)
+    _close(dx, vdx.astype(jnp.float32), TOL[dtype])
+    _close(dw.to(tdt), vdw.astype(jnp.float32), TOL[dtype])
+
+
+@pytest.mark.parametrize("shape", [(2, 37, 16, 24), (2, 36, 24, 16)])
+def test_autograd_runs_the_plain_backward(shape):
+    """conv1d_k3s2's custom backward on CPU tensors is the plain dgrad
+    and wgrad, and agrees with autograd through the plain forward."""
+    x, w, dy = _inputs(shape, seed=1)
+    xt, wt = (torch.from_numpy(a).double().requires_grad_() for a in (x, w))
+    y = conv1d_k3s2(xt, wt)
+    gx, gw = torch.autograd.grad(y, (xt, wt), torch.from_numpy(dy).double())
+    dyd = torch.from_numpy(dy).double()
+    assert torch.equal(gx, conv1d_k3s2_dgrad_plain(dyd, wt.detach(),
+                                                   shape[1]))
+    assert torch.equal(gw, conv1d_k3s2_wgrad_plain(xt.detach(), dyd)
+                       .double())
+    xr, wr = (torch.from_numpy(a).double().requires_grad_() for a in (x, w))
+    t = shape[1]
+    ref = torch.nn.functional.conv1d(xr.transpose(1, 2), wr.permute(2, 1, 0),
+                                     stride=2).transpose(1, 2)
+    rx, rw = torch.autograd.grad(ref, (xr, wr), dyd)
+    assert y.shape == (shape[0], t_out_of(t), shape[3])
+    torch.testing.assert_close(gx, rx, atol=1e-10, rtol=0)
+    torch.testing.assert_close(gw, rw, atol=1e-5, rtol=0)
+
+
+def test_wgrad_splits_cover_the_rows():
+    """The row reduction's splits: every row in exactly one split, enough
+    CTAs for the card at the extractor's shapes, none for a short input."""
+    for rows in (1, 255, 4 * 2999, 4 * 23999, 20 * 7141):
+        splits, per = wgrad_splits(rows, 512, 512, 132)
+        assert per % 64 == 0 and splits * per >= rows > (splits - 1) * per
+    assert wgrad_splits(4 * 23999, 512, 512, 132)[0] == 11  # 48 tiles
+    assert wgrad_splits(100, 512, 512, 132)[0] == 1
+
+
+def test_wrappers_reject_mismatched_shapes():
+    x, w, dy = _inputs((1, 9, 8, 8))
+    with pytest.raises(ValueError, match="do not fit"):
+        conv1d_k3s2_dgrad(torch.from_numpy(dy), torch.from_numpy(w), 11)
+    with pytest.raises(ValueError, match="do not fit"):
+        conv1d_k3s2_wgrad(torch.from_numpy(x)[:, :7], torch.from_numpy(dy))
+
+
+@pytest.mark.parametrize("dtype,vec", [(torch.float32, 4), (torch.bfloat16, 8)])
+def test_kernel_inputs_are_whole_aligned_vectors(dtype, vec):
+    """Before a launch the backward wrappers refuse channel counts that are
+    not whole 16-byte vectors and copy an input that is off a 16-byte
+    boundary (the kernels read 16-byte vectors); an aligned input is
+    passed through as it is."""
+    a = torch.arange(4 * vec + 1, dtype=dtype)
+    off = a[1:]
+    assert off.data_ptr() % 16 != 0
+    got_a, got_off = _vectors("k", vec, 2 * vec, a, off)
+    assert got_a is a
+    assert got_off.data_ptr() % 16 == 0 and torch.equal(got_off, off)
+    with pytest.raises(ValueError, match=f"multiples of {vec}"):
+        _vectors("k", vec + vec // 2, vec, a)
+    with pytest.raises(ValueError, match=f"multiples of {vec}"):
+        _vectors("k", vec, vec - 1, a)

@@ -13,6 +13,7 @@ import sys
 import pytest
 
 import audio8_tpu_torch
+from audio8_tpu_torch.cli import pretrain as pretrain_cli
 from audio8_tpu_torch.cli import serve as serve_cli
 from audio8_tpu_torch.cli import train as train_cli
 from audio8_tpu_torch.cli import transcribe
@@ -31,6 +32,7 @@ def test_every_module_imports_with_jax_blocked():
     mods = _modules()
     assert "audio8_tpu_torch.cli.serve" in mods
     assert "audio8_tpu_torch.cli.train" in mods
+    assert "audio8_tpu_torch.cli.pretrain" in mods
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
@@ -101,7 +103,8 @@ def _restore_port_offsets():
     Offsets.VALUES[:] = saved[4]
 
 
-@pytest.mark.parametrize("entry", ["transcribe", "serve", "train"])
+@pytest.mark.parametrize("entry", ["transcribe", "serve", "train",
+                                   "pretrain"])
 def test_default_device_is_cuda_and_raises_without_a_card(
         entry, tmp_path, _restore_port_offsets):
     """This machine has no CUDA card: the default ``--device cuda`` raises
@@ -115,6 +118,9 @@ def test_default_device_is_cuda_and_raises_without_a_card(
         elif entry == "serve":
             serve_cli.build_service(serve_cli.parse_args(
                 ["--checkpoint", ckpt, "--dict_file", dict_file]))
+        elif entry == "pretrain":
+            pretrain_cli.train(["--basedir", str(tmp_path / "run"),
+                                "--manifest_dir", str(tmp_path)])
         else:
             train_cli.train(["--basedir", str(tmp_path / "run"),
                              "--root_dir", str(tmp_path),

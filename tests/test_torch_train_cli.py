@@ -2,11 +2,13 @@
 takes 3 optimizer steps on a tiny synthetic corpus (frozen, then
 unfrozen; time masking and dropout on), validates, writes a
 fairseq-layout checkpoint, and ``cli.transcribe --device cpu`` reads it
-back. Flags of parts not ported yet raise."""
+back; with ``--freeze_fx false`` the unfrozen steps train the feature
+extractor too. Flags of parts not ported yet raise."""
 import os
 
 import numpy as np
 import pytest
+import torch
 from scipy.io import wavfile
 
 from audio8_tpu_torch.cli import train as train_cli
@@ -74,6 +76,40 @@ def test_train_then_transcribe(corpus, tmp_path):
     out = transcribe.main(["--checkpoint", ckpt, "--dict_file",
                            str(corpus / "dict.ltr.txt"), *SMALL, wav])
     assert out[0][0] == wav and isinstance(out[0][1], str)
+
+
+def test_unfrozen_extractor_trains(corpus, tmp_path):
+    """``--freeze_fx false``: the extractor's weights (the k3s2 layer's
+    through the conv backward's plain dgrad and wgrad) move once the
+    encoder unfreezes, and not before."""
+    seen = {}
+
+    def fx_weights(model):
+        return {k: v.detach().clone() for k, v in model.state_dict().items()
+                if "feature_extractor.conv_layers" in k}
+
+    real_save = train_cli.save_fairseq_ctc
+
+    def keep_weights(model, path):
+        seen[os.path.basename(path)] = fx_weights(model)
+        real_save(model, path)
+
+    args = _train_args(corpus, str(tmp_path / "run"))
+    args[args.index("--train_steps") + 1] = "2"
+    args[args.index("--unfreeze_enc_after_step") + 1] = "0"
+    train_cli.save_fairseq_ctc = keep_weights  # saved after every step
+    try:
+        state = train_cli.train(args + ["--freeze_fx", "false"])
+    finally:
+        train_cli.save_fairseq_ctc = real_save
+    assert [r["frozen"] for r in state.log] == [True, False]
+    assert all(np.isfinite(r["loss"]) for r in state.log)
+    frozen, unfrozen = seen["checkpoint-step-1.pt"], seen["checkpoint-step-2.pt"]
+    initial = fx_weights(train_cli.Wav2Vec2AcousticModel(
+        state.model.config, generator=torch.Generator().manual_seed(0)))
+    for k in initial:  # block 0's conv and GroupNorm, the k3s2 conv
+        assert torch.equal(initial[k], frozen[k]), k
+        assert not torch.equal(frozen[k], unfrozen[k]), k
 
 
 @pytest.mark.parametrize("flag", [["--restart_from", "x.pt"],
