@@ -76,7 +76,10 @@ class EncoderConfig:
     flash_attention: bool = False
     bf16_softmax: bool = True
     packed_qkv: bool = False
-    # None or True: the port always runs the fused attention core
+    # None or True: the fused attention core (the port's attention for
+    # both); "block": the attention block (projections and core in one
+    # call) where the JAX gate admits the layer's input (T <= 1024), else
+    # the core
     fused_attention: object = None
     remat: bool = False
     moe_experts: int = 0

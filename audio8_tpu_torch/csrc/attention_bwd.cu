@@ -153,6 +153,11 @@ struct Params {
   const uint8_t* key_valid;  // (B, T) or null
   const float* stats;        // (B*H*T, 2): row max, row sum
   float* dvec;               // (B*H*T): D = rowsum(dO * o)
+  // f32 copies of dq, dk, dv before their rounding to the input dtype,
+  // each (B, H, T, dh) or null (the attention block's bias gradients)
+  float* dq32;
+  float* dk32;
+  float* dv32;
   int n_heads, t, t_pad;
   float scale, inv_keep;
   uint32_t threshold, seed;
@@ -305,9 +310,11 @@ __global__ void __launch_bounds__(NT)
     const int rg = q0 + ty + 16 * i;
     if (rg >= P.t) continue;
 #pragma unroll
-    for (int j = 0; j < DJ; ++j)
-      dq[base + (size_t)rg * DH + tx + 16 * j] =
-          from_f32<T>(acc[i][j] * P.scale);
+    for (int j = 0; j < DJ; ++j) {
+      const size_t off = base + (size_t)rg * DH + tx + 16 * j;
+      dq[off] = from_f32<T>(acc[i][j] * P.scale);
+      if (P.dq32 != nullptr) P.dq32[off] = acc[i][j] * P.scale;
+    }
   }
 }
 
@@ -392,6 +399,8 @@ __global__ void __launch_bounds__(NT)
       const size_t off = base + (size_t)cg * DH + tx + 16 * j;
       dk[off] = from_f32<T>(adk[i][j] * P.scale);
       dv[off] = from_f32<T>(adv[i][j]);
+      if (P.dk32 != nullptr) P.dk32[off] = adk[i][j] * P.scale;
+      if (P.dv32 != nullptr) P.dv32[off] = adv[i][j];
     }
   }
 }
@@ -636,10 +645,15 @@ __global__ void __launch_bounds__(MT)
     const int row = r0 + 8 * h;
     if (row >= t) continue;
 #pragma unroll
-    for (int j = 0; j < ND; ++j)
-      *reinterpret_cast<uint32_t*>(dq + base + (size_t)row * DH + j * 8 +
-                                   2 * t4) =
+    for (int j = 0; j < ND; ++j) {
+      const size_t off = base + (size_t)row * DH + j * 8 + 2 * t4;
+      *reinterpret_cast<uint32_t*>(dq + off) =
           pack_bf16(acc[j][2 * h] * P.scale, acc[j][2 * h + 1] * P.scale);
+      if (P.dq32 != nullptr) {
+        P.dq32[off] = acc[j][2 * h] * P.scale;
+        P.dq32[off + 1] = acc[j][2 * h + 1] * P.scale;
+      }
+    }
   }
 }
 
@@ -731,6 +745,14 @@ __global__ void __launch_bounds__(MT)
           pack_bf16(adk[j][2 * h] * P.scale, adk[j][2 * h + 1] * P.scale);
       *reinterpret_cast<uint32_t*>(dv + off) =
           pack_bf16(adv[j][2 * h], adv[j][2 * h + 1]);
+      if (P.dk32 != nullptr) {
+        P.dk32[off] = adk[j][2 * h] * P.scale;
+        P.dk32[off + 1] = adk[j][2 * h + 1] * P.scale;
+      }
+      if (P.dv32 != nullptr) {
+        P.dv32[off] = adv[j][2 * h];
+        P.dv32[off + 1] = adv[j][2 * h + 1];
+      }
     }
   }
 }
@@ -753,6 +775,47 @@ int launch_mma(const void* q, const void* k, const void* v, const void* o,
   return (int)cudaGetLastError();
 }
 
+// The whole backward on one stream: a8t_attention_bwd's arguments, plus
+// optional f32 copies of dq, dk and dv (dq32, dk32, dv32; null = none).
+int run_bwd(const void* q, const void* k, const void* v, const void* o,
+            const void* dout, const void* key_valid, const void* stats,
+            void* dvec, void* dq, void* dk, void* dv, void* dq32, void* dk32,
+            void* dv32, int batch, int heads, int t, int dh, int dtype,
+            float scale, float inv_keep, uint32_t threshold, uint32_t seed,
+            int dropout, cudaStream_t s) {
+  if (batch <= 0 || heads <= 0 || t <= 0) return (int)cudaErrorInvalidValue;
+  Params P;
+  P.key_valid = (const uint8_t*)key_valid;
+  P.stats = (const float*)stats;
+  P.dvec = (float*)dvec;
+  P.dq32 = (float*)dq32;
+  P.dk32 = (float*)dk32;
+  P.dv32 = (float*)dv32;
+  P.n_heads = heads;
+  P.t = t;
+  P.t_pad = (t + 127) / 128 * 128;
+  P.scale = scale;
+  P.inv_keep = inv_keep;
+  P.threshold = threshold;
+  P.seed = seed;
+  P.dropout = dropout;
+  if (dtype == 0)
+    return dispatch_dh<float>(dh, q, k, v, o, dout, dq, dk, dv, batch, heads,
+                              P, s);
+  if (dtype != 1) return (int)cudaErrorInvalidValue;
+  const bool aligned16 = (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v |
+                           (uintptr_t)dout | (uintptr_t)dq | (uintptr_t)dk |
+                           (uintptr_t)dv) % 16) == 0;
+  if (aligned16 && dh == 16)
+    return launch_mma<16>(q, k, v, o, dout, dq, dk, dv, batch, heads, P, s);
+  if (aligned16 && dh == 32)
+    return launch_mma<32>(q, k, v, o, dout, dq, dk, dv, batch, heads, P, s);
+  if (aligned16 && dh == 64)
+    return launch_mma<64>(q, k, v, o, dout, dq, dk, dv, batch, heads, P, s);
+  return dispatch_dh<__nv_bfloat16>(dh, q, k, v, o, dout, dq, dk, dv, batch,
+                                    heads, P, s);
+}
+
 }  // namespace
 
 // q, k, v, dout, dq, dk, dv: (B, H, T, dh) contiguous; o: the forward
@@ -770,33 +833,7 @@ extern "C" int a8t_attention_bwd(const void* q, const void* k, const void* v,
                                  int dtype, float scale, float inv_keep,
                                  uint32_t threshold, uint32_t seed,
                                  int dropout, void* stream) {
-  if (batch <= 0 || heads <= 0 || t <= 0) return (int)cudaErrorInvalidValue;
-  Params P;
-  P.key_valid = (const uint8_t*)key_valid;
-  P.stats = (const float*)stats;
-  P.dvec = (float*)dvec;
-  P.n_heads = heads;
-  P.t = t;
-  P.t_pad = (t + 127) / 128 * 128;
-  P.scale = scale;
-  P.inv_keep = inv_keep;
-  P.threshold = threshold;
-  P.seed = seed;
-  P.dropout = dropout;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0)
-    return dispatch_dh<float>(dh, q, k, v, o, dout, dq, dk, dv, batch, heads,
-                              P, s);
-  if (dtype != 1) return (int)cudaErrorInvalidValue;
-  const bool aligned16 = (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v |
-                           (uintptr_t)dout | (uintptr_t)dq | (uintptr_t)dk |
-                           (uintptr_t)dv) % 16) == 0;
-  if (aligned16 && dh == 16)
-    return launch_mma<16>(q, k, v, o, dout, dq, dk, dv, batch, heads, P, s);
-  if (aligned16 && dh == 32)
-    return launch_mma<32>(q, k, v, o, dout, dq, dk, dv, batch, heads, P, s);
-  if (aligned16 && dh == 64)
-    return launch_mma<64>(q, k, v, o, dout, dq, dk, dv, batch, heads, P, s);
-  return dispatch_dh<__nv_bfloat16>(dh, q, k, v, o, dout, dq, dk, dv, batch,
-                                    heads, P, s);
+  return run_bwd(q, k, v, o, dout, key_valid, stats, dvec, dq, dk, dv,
+                 nullptr, nullptr, nullptr, batch, heads, t, dh, dtype, scale,
+                 inv_keep, threshold, seed, dropout, (cudaStream_t)stream);
 }

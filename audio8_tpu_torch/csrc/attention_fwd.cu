@@ -564,23 +564,13 @@ int dispatch_dh(int dh, const void* q, const void* k, const void* v,
   }
 }
 
-}  // namespace
-
-// q, k, v, o: (B, H, T, dh) contiguous; key_valid: (B, T) uint8 or NULL;
-// stats: (B*H*T, 2) f32 row max and row sum, or NULL when not needed;
-// o32: (B, H, T, dh) f32 copy of the output before rounding, or NULL.
-// dtype: 0 = float32, 1 = bfloat16. inv_keep = 1 / (1 - rate); threshold
-// and seed are the uint32 dropout parameters (dropout = 0 skips the hash).
-// Returns the cudaError_t of the launch.
-extern "C" int a8t_attention_fwd(const void* q, const void* k, const void* v,
-                                 const void* key_valid, void* o,
-                                 void* stats, void* o32, int batch,
-                                 int heads, int t, int dh, int dtype,
-                                 float scale, float inv_keep,
-                                 uint32_t threshold, uint32_t seed,
-                                 int dropout, void* stream) {
+// The whole forward on one stream; a8t_attention_fwd's arguments.
+int run_fwd(const void* q, const void* k, const void* v,
+            const void* key_valid, void* o, void* stats, void* o32,
+            int batch, int heads, int t, int dh, int dtype, float scale,
+            float inv_keep, uint32_t threshold, uint32_t seed, int dropout,
+            cudaStream_t s) {
   if (batch <= 0 || heads <= 0 || t <= 0) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0)
     return dispatch_dh<float>(dh, q, k, v, key_valid, o, (float*)stats,
                               (float*)o32, batch, heads, t,
@@ -598,4 +588,24 @@ extern "C" int a8t_attention_fwd(const void* q, const void* k, const void* v,
                                       t, scale, inv_keep, threshold, seed,
                                       dropout, s);
   return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+// q, k, v, o: (B, H, T, dh) contiguous; key_valid: (B, T) uint8 or NULL;
+// stats: (B*H*T, 2) f32 row max and row sum, or NULL when not needed;
+// o32: (B, H, T, dh) f32 copy of the output before rounding, or NULL.
+// dtype: 0 = float32, 1 = bfloat16. inv_keep = 1 / (1 - rate); threshold
+// and seed are the uint32 dropout parameters (dropout = 0 skips the hash).
+// Returns the cudaError_t of the launch.
+extern "C" int a8t_attention_fwd(const void* q, const void* k, const void* v,
+                                 const void* key_valid, void* o,
+                                 void* stats, void* o32, int batch,
+                                 int heads, int t, int dh, int dtype,
+                                 float scale, float inv_keep,
+                                 uint32_t threshold, uint32_t seed,
+                                 int dropout, void* stream) {
+  return run_fwd(q, k, v, key_valid, o, stats, o32, batch, heads, t, dh,
+                 dtype, scale, inv_keep, threshold, seed, dropout,
+                 (cudaStream_t)stream);
 }

@@ -3,7 +3,8 @@
 Each ``*.cu`` source in this directory has a plain C interface and is
 compiled on its own (all sources in parallel) into
 ``<repo>/build/audio8_tpu_torch/<stem>-<hash>.so``, where the hash covers
-the source text and the compiler flags: an unchanged source is not rebuilt,
+the source text, the text of the files of this directory it includes, and
+the compiler flags: an unchanged source is not rebuilt,
 and an edited one never loads a stale library. The libraries are loaded
 with ``ctypes`` by ``audio8_tpu_torch.ops._ext``; nothing here includes
 PyTorch's headers, so a cold build takes seconds.
@@ -14,6 +15,7 @@ from __future__ import annotations
 
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -45,9 +47,25 @@ def find_nvcc() -> str:
     return nvcc
 
 
+def local_includes(source: str) -> list:
+    """``source`` and every file of this directory it ``#include "..."``s,
+    directly or not, in first-seen order."""
+    seen, todo = [], [source]
+    while todo:
+        name = todo.pop(0)
+        if name in seen:
+            continue
+        seen.append(name)
+        with open(os.path.join(CSRC, name)) as f:
+            todo += re.findall(r'^\s*#include\s+"([^"]+)"', f.read(), re.M)
+    return seen
+
+
 def library_path(source: str) -> str:
-    with open(os.path.join(CSRC, source), "rb") as f:
-        digest = hashlib.sha256(f.read())
+    digest = hashlib.sha256()
+    for name in local_includes(source):
+        with open(os.path.join(CSRC, name), "rb") as f:
+            digest.update(f.read())
     digest.update(" ".join(NVCC_FLAGS).encode())
     stem = os.path.splitext(source)[0]
     return os.path.join(build_dir(), f"{stem}-{digest.hexdigest()[:16]}.so")

@@ -73,11 +73,11 @@ def check_supported(cfg: EncoderConfig) -> None:
                 f"{what} is not ported yet (ROADMAP.md, 'Modules to "
                 "port'): the PyTorch port serves the group-norm, post-norm "
                 "wav2vec2 encoder")
-    if cfg.fused_attention not in (None, True):
+    if cfg.fused_attention not in (None, True, "block"):
         raise NotImplementedError(
-            f"fused_attention={cfg.fused_attention!r} is not ported yet "
-            "(ROADMAP.md, 'TPU kernels to port'); the port always runs the "
-            "fused attention core")
+            f"fused_attention={cfg.fused_attention!r} is not a setting of "
+            "the JAX package (ROADMAP.md): None or True run the fused "
+            "attention core, 'block' the attention block")
 
 
 class _Block(nn.Module):
@@ -135,9 +135,10 @@ class AudioTransformerEncoder(TransformerEncoderStack):
                  dtype: torch.dtype = torch.float32,
                  dropout_rate: float = 0.0,
                  attention_dropout: Optional[float] = None,
-                 layer_drop: float = 0.0):
+                 layer_drop: float = 0.0, fused_attention=None):
         super().__init__(num_heads, d_model, num_layers, d_ff, dtype,
-                         dropout_rate, attention_dropout, layer_drop)
+                         dropout_rate, attention_dropout, layer_drop,
+                         fused_attention)
         self.dropout_rate = dropout_rate
         self.pos_conv = nn.Sequential(PositionalConv(
             d_model, conv_pos_kernel, conv_pos_groups, dtype=dtype))
@@ -182,7 +183,7 @@ class Wav2Vec2Encoder(nn.Module):
         self.encoder = AudioTransformerEncoder(
             cfg.d_model, cfg.num_heads, cfg.num_layers, cfg.d_ff,
             cfg.conv_pos_kernel, cfg.conv_pos_groups, dtype, cfg.dropout,
-            cfg.attention_dropout, cfg.layer_drop)
+            cfg.attention_dropout, cfg.layer_drop, cfg.fused_attention)
 
     def forward(self, x: torch.Tensor,
                 input_lengths: Optional[torch.Tensor] = None,
@@ -368,7 +369,7 @@ class Wav2Vec2Model(nn.Module):
         self.encoder = AudioTransformerEncoder(
             cfg.d_model, cfg.num_heads, cfg.num_layers, cfg.d_ff,
             cfg.conv_pos_kernel, cfg.conv_pos_groups, dtype, cfg.dropout,
-            cfg.attention_dropout, cfg.layer_drop)
+            cfg.attention_dropout, cfg.layer_drop, cfg.fused_attention)
         self.quantizer = GumbelVectorQuantizer(
             cfg.fx_dim, cfg.num_vq_vars, cfg.num_vq_groups, cfg.final_dim,
             dtype)

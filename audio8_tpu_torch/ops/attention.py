@@ -75,6 +75,15 @@ def attention_core_bwd_plain(q: torch.Tensor, k: torch.Tensor,
                              dout: torch.Tensor):
     """Plain version of the TPU kernel's backward (``_bwd_kernel``):
     ``(dq, dk, dv)`` by recompute on the T_pad grid, in the input dtype."""
+    return tuple(g.to(q.dtype) for g in attention_core_bwd_f32(
+        q, k, v, key_valid, scale, rate, seed, dout))
+
+
+def attention_core_bwd_f32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           key_valid: Optional[torch.Tensor], scale: float,
+                           rate: float, seed: int, dout: torch.Tensor):
+    """:func:`attention_core_bwd_plain` before its final rounding: the f32
+    ``(dq, dk, dv)`` that the attention block's bias gradients sum."""
     b, h, t, dh = q.shape
     t_pad = round_up(t, 128)
     pad = (0, 0, 0, t_pad - t)
@@ -103,7 +112,7 @@ def attention_core_bwd_plain(q: torch.Tensor, k: torch.Tensor,
     ds = ds.to(q.dtype).float()
     dq = torch.matmul(ds, kp) * scale
     dk = torch.matmul(ds.transpose(-1, -2), qp) * scale
-    return tuple(x[:, :, :t, :].to(q.dtype) for x in (dq, dk, dv))
+    return tuple(x[:, :, :t, :] for x in (dq, dk, dv))
 
 
 def _checked(q, k, v, key_valid, rate, what):

@@ -25,7 +25,14 @@ dropout and masking on) of the full-width ``Wav2Vec2Model`` on the batch
 extractor's four k3s2 backwards alone, AdamW), kernel time by group and
 the device idle share of one traced step.
 
+``--fused_attention block`` (with ``--train`` or ``--pretrain``): the
+same step with the model's ``fused_attention="block"``: the attention
+block kernels run each layer (the rows are at most 1024 frames), and the
+stage timed alone is the 12 layers' block backward instead of the core's.
+The counterpart of the JAX package's ``tools/exp_attn_block.py``.
+
     python -m audio8_tpu_torch.profile [--bf16] [--train | --pretrain]
+        [--fused_attention {core,block}]
 """
 from __future__ import annotations
 
@@ -126,7 +133,8 @@ def stage_times(model, sig, lengths) -> dict:
 def kernel_groups(prof) -> dict:
     """Device ms by kernel family, from profiler events, and the five
     largest kernels of the rest by name."""
-    groups = {"attention_fwd": "attention_fwd", "attention_bwd":
+    groups = {"attention_block_gemm": ("blockgemm", "bias_partials_kernel"),
+              "attention_fwd": "attention_fwd", "attention_bwd":
               "attention_bwd", "ctc": "ctc_", "adamw": "adamw_kernel",
               "conv_k3s2_dgrad": ("dgrad_f32_kernel", "dgrad_bf16_mma_kernel",
                                   "Dgrad<"),
@@ -163,7 +171,24 @@ def idle_share(prof) -> float:
     return 1.0 - busy_union(intervals) / window
 
 
-def train_profile(dtype) -> dict:
+def block_bwd_alone(x, attn, key_valid, rate: float):
+    """A callable that runs one layer's attention-block backward kernel
+    on ``x`` (the forward kernel's residuals made once)."""
+    from audio8_tpu_torch.ops.attention_block import (_forward_kernel,
+                                                      attention_block_bwd)
+
+    weights = [t.to(x.dtype) for m in (attn.q_proj, attn.k_proj, attn.v_proj,
+                                       attn.out_proj)
+               for t in (m.weight.detach(), m.bias.detach())]
+    scale = attn.d_head ** -0.5
+    _, residuals = _forward_kernel(x, weights, key_valid, attn.num_heads,
+                                   scale, rate, 7, True)
+    dy = torch.randn_like(x)
+    return lambda: attention_block_bwd(x, weights, residuals, attn.num_heads,
+                                       scale, rate, 7, dy)
+
+
+def train_profile(dtype, fused=None) -> dict:
     """One unfrozen micro-step: stages alone, then one traced step."""
     from audio8_tpu_torch.ops.attention import attention_core_bwd
     from audio8_tpu_torch.train.optim import (TrainState, create_lrs,
@@ -173,7 +198,7 @@ def train_profile(dtype) -> dict:
 
     Offsets.remap_fairseq_ctc()
     model = Wav2Vec2AcousticModel(
-        AcousticConfig(num_labels=32), dtype,
+        AcousticConfig(num_labels=32, fused_attention=fused), dtype,
         generator=torch.Generator().manual_seed(SEED)).cuda()
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     n = 240_000
@@ -212,6 +237,17 @@ def train_profile(dtype) -> dict:
 
     _, stats, o32 = _forward_kernel(q, k, v, kv, attn.d_head ** -0.5, 0.1, 7,
                                     with_stats=True)
+    if fused == "block":
+        attn_name = "attention_block_bwd x12 (alone)"
+        attn_bwd = block_bwd_alone(
+            torch.randn(4, t, 768, device="cuda", generator=gen).to(dtype),
+            attn, kv, 0.1)
+    else:
+        attn_name = "attention_bwd x12 (alone)"
+
+        def attn_bwd():
+            attention_core_bwd(q, k, v, o32, stats, kv, attn.d_head ** -0.5,
+                               0.1, 7, do)
     fwd_ms = median_ms(forward)
     stages = {
         "forward (autograd graph)": fwd_ms,
@@ -219,9 +255,7 @@ def train_profile(dtype) -> dict:
             lp.detach(), frames, tok, tl, blank=Offsets.GO)),
         "backward (fwd+bwd minus fwd)": median_ms(
             lambda: forward()[0].sum().backward()) - fwd_ms,
-        "attention_bwd x12 (alone)": 12 * median_ms(
-            lambda: attention_core_bwd(q, k, v, o32, stats, kv,
-                                       attn.d_head ** -0.5, 0.1, 7, do)),
+        attn_name: 12 * median_ms(attn_bwd),
         "adamw (apply_gradients)": median_ms(
             lambda: state.apply_gradients(grads, 1.0, 25.0)),
     }
@@ -236,6 +270,7 @@ def train_profile(dtype) -> dict:
     audio_s = float(lengths.sum()) / 16_000
     return {"profile": "wav2vec2-base CTC fine-tuning, one unfrozen "
             "micro-step (grad + update)", "dtype": str(dtype),
+            "fused_attention": fused,
             "lengths": lengths.tolist(), "frames": t, "step_ms": step_ms,
             "stage_ms": stages, "kernel_ms_by_group": kernel_groups(prof),
             "device_idle_share": idle_share(prof),
@@ -245,7 +280,7 @@ def train_profile(dtype) -> dict:
             "device": torch.cuda.get_device_name(0)}
 
 
-def pretrain_profile(dtype) -> dict:
+def pretrain_profile(dtype, fused=None) -> dict:
     """One pretraining step: stages alone, then one traced step."""
     from audio8_tpu_torch.config import PretrainConfig
     from audio8_tpu_torch.models.wav2vec2 import (PretrainSeeds,
@@ -257,7 +292,7 @@ def pretrain_profile(dtype) -> dict:
                                               create_optimizer)
     from audio8_tpu_torch.train.steps import make_pretrain_steps
 
-    cfg = PretrainConfig()
+    cfg = PretrainConfig(fused_attention=fused)
     model = Wav2Vec2Model(cfg, dtype,
                           generator=torch.Generator().manual_seed(SEED)).cuda()
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -307,6 +342,11 @@ def pretrain_profile(dtype) -> dict:
             lambda: state.apply_gradients(
                 [torch.zeros_like(p) for p in state.params], None, 1.0)),
     }
+    if fused == "block":
+        stages["attention_block_bwd x12 (alone)"] = 12 * median_ms(
+            block_bwd_alone(torch.randn(rows, t, cfg.d_model, device="cuda",
+                                        generator=gen).to(dtype),
+                            model.encoder.layers[0].self_attn, None, 0.1))
     for prm in model.parameters():
         prm.grad = None
     del convs
@@ -318,7 +358,8 @@ def pretrain_profile(dtype) -> dict:
         step()
         torch.cuda.synchronize()
     return {"profile": "wav2vec2-base contrastive pretraining, one step",
-            "dtype": str(dtype), "rows": rows, "samples": n,
+            "dtype": str(dtype), "fused_attention": fused, "rows": rows,
+            "samples": n,
             "frames": t, "masked_slots": out[3].shape[1], "step_ms": step_ms,
             "stage_ms": stages, "kernel_ms_by_group": kernel_groups(prof),
             "device_idle_share": idle_share(prof),
@@ -337,14 +378,24 @@ def main(argv=None) -> dict:
                            "serving dispatch")
     mode.add_argument("--pretrain", action="store_true",
                       help="one contrastive pretraining step")
+    ap.add_argument("--fused_attention", choices=("core", "block"),
+                    default="core",
+                    help="the model's fused_attention for --train or "
+                         "--pretrain: the attention core, or the attention "
+                         "block")
     args = ap.parse_args(argv)
+    if args.fused_attention == "block" and not (args.train or args.pretrain):
+        ap.error("--fused_attention block needs --train or --pretrain (a "
+                 "30 s serving chunk is past the block's 1024 frames)")
     if not torch.cuda.is_available():
         raise SystemExit("profile: no CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dtype = torch.bfloat16 if args.bf16 else torch.float32
     if args.train or args.pretrain:
-        out = (train_profile if args.train else pretrain_profile)(dtype)
+        fused = "block" if args.fused_attention == "block" else None
+        out = (train_profile if args.train else pretrain_profile)(dtype,
+                                                                  fused)
         print(json.dumps(out), flush=True)
         return out
     cfg = AcousticConfig(num_labels=32, timestep_masking=0.0,

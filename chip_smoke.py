@@ -3,13 +3,15 @@
 
 Drives the port's serving path, its CTC fine-tuning path and its
 contrastive pretraining path at full wav2vec2-base width with seeded
-random weights, and holds every hand-written kernel against its plain
-PyTorch version. Phases, each printing JSON lines:
+random weights, the pretraining path again through the attention block
+(``fused_attention="block"``), and holds every hand-written kernel
+against its plain PyTorch version. Phases, each printing JSON lines:
 
 1. build    - compile the CUDA kernels from ``audio8_tpu_torch/csrc``;
 2. kernel   - each kernel vs its plain version at its path's shapes
               (serving: 30 s chunks, batch 4; CTC training, extractor
-              frozen or not: 15 s rows, batch 4), float32 and bfloat16
+              frozen or not, and the attention block: 15 s rows, batch
+              4, a zero-length row), float32 and bfloat16
               where the kernel takes both; then small ragged shapes and
               misaligned pointers, which reach every variant of each
               kernel;
@@ -32,16 +34,27 @@ PyTorch version. Phases, each printing JSON lines:
               step times, training audio-s/s, loss, code perplexity,
               accuracy, peak memory and the kernels' launch counts, then
               a validation pass;
-8. pretrain_kernel - the conv backward and dropout kernels vs their
-              plain versions at the shapes of the batches that phase 7
-              formed (each k3s2 layer's T_in, odd and even; the 768- and
-              512-wide dropout inputs), float32 and bfloat16;
+8. pretrain_kernel - the conv backward, dropout and attention block
+              kernels vs their plain versions at the shapes of the
+              batches that phase 7 formed (each k3s2 layer's T_in, odd and
+              even; the 768- and 512-wide dropout inputs; the block's
+              (B, 222, 768)), float32 and bfloat16;
 9. pretrain_vs_cpu - one full-width pretraining step (dropout off) on
               two rows of phase 7's length, on the card and on the CPU
               from the same weights and seeds: loss, contrastive loss,
               accuracy, gradient norm and how many Gumbel codeword
               indices agree;
-10. timing   - each kernel vs its plain version and the one PyTorch call
+10. pretrain_block - full-width ``make_pretrain_steps`` steps with
+              ``fused_attention="block"`` at phase 7's batch shapes:
+              step times, training audio-s/s, loss and launch counts (12
+              block forwards and 12 block backwards per step, no core
+              launch), then block and core steps in turns;
+11. block_gate - eval forwards under "block": a 15 s row (749 frames)
+              runs the block, a 30 s chunk (1499 frames) the core;
+12. train_vs_cpu, pretrain_vs_cpu (phases 6 and 9, run here) and
+    block_vs_cpu - one pretraining step through the block, card vs CPU,
+              with pretrain_vs_cpu's tolerances;
+13. timing   - each kernel vs its plain version and the one PyTorch call
               that computes the same function (CUDA events, median), with
               the least time the card could take (``bound_ms``);
 
@@ -108,6 +121,14 @@ DROPOUT_RATE, DROPOUT_SEED = 0.1, 3_000_000_007
 # accuracy may differ by one masked slot's argmax.
 PRETRAIN_LOSS_RTOL, PRETRAIN_GNORM_RTOL, CODE_AGREEMENT = 1e-3, 1e-2, 0.999
 CONTRASTIVE_RTOL = 1e-4
+# the attention block (kernels 6/6b): wav2vec2-base's 12 heads of 64
+BLOCK_HEADS = 12
+# (B, T, D, H, key lengths): each head dim, T to 1024, and H*dh = 48, whose
+# dx product's 48-deep K segments send bf16 to the SIMT tile
+BLOCK_VARIANTS = [
+    (3, 37, 64, 4, [37, 12, 0]), (3, 130, 64, 2, [130, 7, 0]),
+    (3, 130, 256, 2, [130, 64, 0]), (2, 1024, 768, 12, [1024, 3]),
+    (3, 37, 48, 3, [37, 20, 0])]
 # H100 SXM nominal peaks (dense): f32 without TF32, bf16, HBM3
 PEAK_F32, PEAK_BF16, PEAK_BYTES = 67e12, 989e12, 3.35e12
 
@@ -125,6 +146,19 @@ def wgrad_tol(rows: int, scale: float, dtype) -> float:
     if dtype == torch.bfloat16:
         rel = max(rel, 4.0 * math.sqrt(rows) * 2.0 ** -24)
     return rel * max(1.0, scale)
+
+
+def sum_tol(rows: int, scale: float, dtype) -> float:
+    """Bound on |kernel - plain| for the attention block's bias gradients,
+    column sums over ``rows`` = B * T_pad rows of the core's f32 dq, dk,
+    dv. Each summand agrees with the plain version's to about TOL of a
+    row's size (the core sums in another order), and the differences add
+    like a random walk, so the bound is TOL * sqrt(rows) for unit-size
+    rows, and TOL * max|plain| where the sum is larger than that. dbk
+    cancels to about zero (a softmax ignores a key bias), so only the
+    first term holds it; a 64-row tile skipped or counted twice moves a
+    sum by about sqrt(64) times a row's size, which is far outside."""
+    return TOL[dtype] * max(math.sqrt(rows), scale)
 
 
 def ctc_grad_tol(t: int, ll_max: float) -> float:
@@ -311,6 +345,70 @@ def check_attn_bwd(phase, shape, lengths, dtype, gen,
     return worst
 
 
+def block_inputs(b, t, d, dtype, gen):
+    """x (B, T, D) and the block's weights and biases in the Dense layout
+    (wq, bq, wk, bk, wv, bv, wo, bo), LeCun-scaled weights, biases of
+    0.1: the sizes of a trained layer's."""
+    x = torch.randn(b, t, d, device="cuda", generator=gen)
+    weights = []
+    for _ in range(4):
+        w = torch.randn(d, d, device="cuda", generator=gen) / math.sqrt(d)
+        weights += [w, 0.1 * torch.randn(d, device="cuda", generator=gen)]
+    return x.to(dtype), [w.to(dtype) for w in weights]
+
+
+BLOCK_GRADS = ("x", "wq", "bq", "wk", "bk", "wv", "bv", "wo", "bo")
+
+
+def check_block(phase, b, t, d, heads, lengths, dtype, gen) -> tuple:
+    """The block's forward (with and without the backward's residuals)
+    and its nine gradients, through the kernels, vs the plain versions on
+    the same inputs, at rates 0 and 0.1; every row is compared, a
+    zero-length row included. Returns the largest forward and gradient
+    errors."""
+    from audio8_tpu_torch.ops.attention_block import (
+        attention_block, attention_block_bwd_plain, attention_block_plain)
+
+    x, weights = block_inputs(b, t, d, dtype, gen)
+    dy = torch.randn(b, t, d, device="cuda", generator=gen).to(dtype)
+    kv = None if lengths is None else (
+        torch.arange(t, device="cuda")[None, :]
+        < torch.tensor(lengths, device="cuda")[:, None])
+    scale = (d // heads) ** -0.5
+    rows = b * ((t + 127) // 128 * 128)
+    worst_fwd = worst_bwd = 0.0
+    for rate, seed in ((0.0, 0), (0.1, 3_000_000_019)):
+        xs = [a.detach().requires_grad_() for a in (x, *weights)]
+        out = attention_block(*xs, kv, heads, scale, rate, seed)
+        got = torch.autograd.grad(out, xs, dy)
+        with torch.no_grad():
+            evaluated = attention_block(x, *weights, kv, heads, scale, rate,
+                                        seed)
+        torch.cuda.synchronize()
+        with torch.no_grad():
+            want = attention_block_plain(x, *weights, kv, heads, scale, rate,
+                                         seed)
+            want_g = attention_block_bwd_plain(x, *weights, kv, heads, scale,
+                                               rate, seed, dy)
+        errs = {}
+        for name, g, w in zip(("out", "out_eval") + BLOCK_GRADS,
+                              (out, evaluated, *got), (want, want, *want_g)):
+            err, size = max_err(g, w)
+            tol = (sum_tol(rows, size, dtype) if name in ("bq", "bk", "bv")
+                   else TOL[dtype] * max(1.0, size))
+            errs[name] = err
+            check(g.shape == w.shape and bool(torch.isfinite(g).all())
+                  and err <= tol, f"attention_block {name} {(b, t, d, heads)} "
+                  f"{dtype} rate {rate}: {err} > {tol}")
+        worst_fwd = max(worst_fwd, errs["out"], errs["out_eval"])
+        worst_bwd = max(worst_bwd, *(errs[k] for k in BLOCK_GRADS))
+        emit({"phase": phase, "kernel": "attention_block(+_bwd)",
+              "dtype": str(dtype), "shape": [b, t, d, heads],
+              "key_lengths": lengths, "rate": rate, "max_abs_err": errs,
+              "tol_factor": TOL[dtype], "bias_grad_rows": rows})
+    return worst_fwd, worst_bwd
+
+
 def ctc_inputs(shape, input_lengths, target_lengths, gen):
     b, t, v = shape
     lp = torch.log_softmax(torch.randn(shape, device="cuda", generator=gen),
@@ -397,6 +495,13 @@ def phase_train_kernels(gen) -> dict:
     worst["ctc_loss"] = check_ctc("kernel", CTC_SHAPE, CTC_INPUT_LENGTHS,
                                   CTC_TARGET_LENGTHS, gen)
     worst["adamw"] = check_adamw("kernel", model_shapes(), gen)
+    b, h, t, dh = TRAIN_ATTN_SHAPE
+    for dtype in (torch.float32, torch.bfloat16):
+        errs = check_block("kernel", b, t, h * dh, h, TRAIN_ATTN_LENGTHS,
+                           dtype, gen)
+        if dtype == torch.float32:
+            worst["attention_block"], worst["attention_block_bwd"] = errs
+        torch.cuda.empty_cache()
     return worst
 
 
@@ -404,7 +509,9 @@ def phase_train_variants(gen) -> None:
     """Small ragged shapes: every head dim and variant of the attention
     backward (bf16 mma.sync for dh <= 64 when aligned, SIMT otherwise),
     CTC with an empty target, an infeasible row, a padding row and
-    repeats, AdamW with odd sizes and misaligned leaves."""
+    repeats, AdamW with odd sizes and misaligned leaves, and the attention
+    block at every head dim, T = 37, 130 and 1024, with zero-length
+    rows."""
     for dtype in (torch.float32, torch.bfloat16):
         for shape, lengths, skew in (((3, 2, 130, 16), [130, 43, 0], False),
                                      ((2, 2, 200, 128), [200, 66], False),
@@ -416,6 +523,9 @@ def phase_train_variants(gen) -> None:
     check_ctc("variant", (2, 1, 5), [1, 1], [1, 0], gen)
     check_adamw("variant", [(7,), (1,), (16385,), (3, 5, 2)], gen)
     check_adamw("variant", [(7,), (1000,)], gen, misalign=True)
+    for dtype in (torch.float32, torch.bfloat16):
+        for b, t, d, h, lengths in BLOCK_VARIANTS:
+            check_block("variant", b, t, d, h, lengths, dtype, gen)
 
 
 def conv_bwd_inputs(b, t_in, c_in, c_out, dtype, gen, skew=False):
@@ -546,14 +656,16 @@ def pretrain_path_shapes(rows: int, samples: int):
 
 
 def phase_pretrain_path_kernels(batches, gen) -> dict:
-    """dgrad, wgrad and dropout vs their plain versions at the shapes of
-    the batches the pretraining run formed: every k3s2 layer's (B, T_in),
-    and the dropout inputs (B, frames, 768) of the encoder and (B, frames,
-    512) of the extractor's features; returns the float32 max errors."""
+    """dgrad, wgrad, dropout and the attention block vs their plain
+    versions at the shapes of the batches the pretraining run formed:
+    every k3s2 layer's (B, T_in), the dropout inputs (B, frames, 768) of
+    the encoder and (B, frames, 512) of the extractor's features, and the
+    block's (B, frames, 768); returns the float32 max errors."""
     from audio8_tpu_torch.config import PretrainConfig
 
     cfg = PretrainConfig()
-    worst = {"conv_k3s2_dgrad": 0.0, "conv_k3s2_wgrad": 0.0, "dropout": 0.0}
+    worst = {"conv_k3s2_dgrad": 0.0, "conv_k3s2_wgrad": 0.0, "dropout": 0.0,
+             "attention_block": 0.0, "attention_block_bwd": 0.0}
     for rows, samples in batches:
         convs, frames = pretrain_path_shapes(rows, samples)
         emit({"phase": "pretrain_kernel", "batch": [rows, samples],
@@ -567,6 +679,9 @@ def phase_pretrain_path_kernels(batches, gen) -> dict:
             for width in (cfg.d_model, cfg.fx_dim):
                 errs["dropout"] = max(errs.get("dropout", 0.0), check_dropout(
                     "pretrain_kernel", (rows, frames, width), dtype, gen))
+            errs["attention_block"], errs["attention_block_bwd"] = \
+                check_block("pretrain_kernel", rows, frames, cfg.d_model,
+                            cfg.num_heads, None, dtype, gen)
             if dtype == torch.float32:
                 worst = {k: max(worst[k], e) for k, e in errs.items()}
             torch.cuda.empty_cache()
@@ -753,6 +868,8 @@ def counted() -> dict:
     from audio8_tpu_torch.ops.adamw import adamw_update
     from audio8_tpu_torch.ops.attention import (attention_core,
                                                 attention_core_bwd)
+    from audio8_tpu_torch.ops.attention_block import (attention_block,
+                                                      attention_block_bwd)
     from audio8_tpu_torch.ops.conv import (conv1d_k3s2, conv1d_k3s2_dgrad,
                                            conv1d_k3s2_wgrad)
     from audio8_tpu_torch.ops.ctc import ctc_loss
@@ -762,7 +879,9 @@ def counted() -> dict:
             "conv_k3s2_wgrad": conv1d_k3s2_wgrad,
             "attention_fwd": attention_core,
             "attention_bwd": attention_core_bwd, "ctc_loss": ctc_loss,
-            "dropout": fused_dropout, "adamw": adamw_update}
+            "dropout": fused_dropout, "adamw": adamw_update,
+            "attention_block": attention_block,
+            "attention_block_bwd": attention_block_bwd}
 
 
 def reset_launches() -> None:
@@ -780,6 +899,8 @@ TRAIN_PATH = ("conv_k3s2_fwd", "attention_fwd", "attention_bwd", "ctc_loss",
               "dropout", "adamw")
 PRETRAIN_PATH = ("conv_k3s2_fwd", "conv_k3s2_dgrad", "conv_k3s2_wgrad",
                  "attention_fwd", "attention_bwd", "dropout", "adamw")
+BLOCK_PATH = ("conv_k3s2_fwd", "conv_k3s2_dgrad", "conv_k3s2_wgrad",
+              "attention_block", "attention_block_bwd", "dropout", "adamw")
 TRAIN_FLAGS = ["--target_tokens_per_batch", "700000", "--grad_accum", "2",
                "--train_steps", "6", "--unfreeze_enc_after_step", "2",
                "--warmup_steps", "2"]
@@ -969,12 +1090,13 @@ def phase_pretrain(tmp: str, seed: int):
     return launches, batches
 
 
-def phase_pretrain_vs_cpu(seed: int, samples: int) -> None:
+def phase_pretrain_vs_cpu(seed: int, samples: int, fused=None) -> None:
     """One full-width pretraining step on two rows of ``samples`` (the
     pretraining run's length; dropout off; masks, Gumbel noise and
     negatives from the same seeds) on the card and on the CPU from the
     same weights: loss, contrastive loss, accuracy, gradient norm, and
-    the share of Gumbel codeword indices that agree."""
+    the share of Gumbel codeword indices that agree. ``fused="block"``:
+    the same step through the attention block (phase ``block_vs_cpu``)."""
     from audio8_tpu_torch.config import PretrainConfig
     from audio8_tpu_torch.models.wav2vec2 import PretrainSeeds, Wav2Vec2Model
     from audio8_tpu_torch.train.optim import (TrainState, create_lrs,
@@ -982,7 +1104,7 @@ def phase_pretrain_vs_cpu(seed: int, samples: int) -> None:
     from audio8_tpu_torch.train.steps import make_pretrain_steps
 
     cfg = PretrainConfig(dropout=0.0, dropout_input=0.0,
-                         dropout_features=0.0)
+                         dropout_features=0.0, fused_attention=fused)
     cpu = Wav2Vec2Model(cfg, generator=torch.Generator().manual_seed(seed + 5))
     gpu = Wav2Vec2Model(cfg).cuda()
     gpu.load_state_dict(cpu.state_dict())
@@ -1001,10 +1123,20 @@ def phase_pretrain_vs_cpu(seed: int, samples: int) -> None:
                      lambda m, i, o: codes.append(o[2].cpu())),
                  model.register_forward_hook(
                      lambda m, i, o: slots.append(int(o[3].sum())))]
+        reset_launches()
         _, metrics = train_step(state, torch.from_numpy(sig).to(dev), seeds,
                                 torch.Generator())
         for h in hooks:
             h.remove()
+        if name == "cuda":
+            ran = read_launches()
+            want = (("attention_block", "attention_block_bwd")
+                    if fused == "block" else ("attention_fwd",
+                                              "attention_bwd"))
+            layers = cfg.num_layers
+            check(all(ran[k] == layers for k in want)
+                  and sum(ran[k] for k in ("attention_block", "attention_fwd"))
+                  == layers, f"{fused} step on the card launched {ran}")
         out[name] = {k: float(metrics[k]) for k in (
             "loss", "contrastive_loss", "accuracy", "grad_norm")}
         out[name].update(codes=codes[0], slots=slots[0])
@@ -1018,7 +1150,8 @@ def phase_pretrain_vs_cpu(seed: int, samples: int) -> None:
     # accuracy is (argmax hits) / (valid masked slots): one slot's flip
     acc_atol = 1.0 / max(1, c["slots"])
     acc_err = abs(g["accuracy"] - c["accuracy"])
-    emit({"phase": "pretrain_vs_cpu", "rows": [2, samples],
+    phase = "block_vs_cpu" if fused == "block" else "pretrain_vs_cpu"
+    emit({"phase": phase, "fused_attention": fused, "rows": [2, samples],
           **{k: [g[k], c[k]] for k in ("loss", "contrastive_loss",
                                        "accuracy", "grad_norm")},
           "loss_rel_err": rel["loss"], "loss_rtol": PRETRAIN_LOSS_RTOL,
@@ -1028,6 +1161,7 @@ def phase_pretrain_vs_cpu(seed: int, samples: int) -> None:
           "accuracy_abs_err": acc_err, "accuracy_atol": acc_atol,
           "gnorm_rel_err": rel["grad_norm"],
           "gnorm_rtol": PRETRAIN_GNORM_RTOL, "codewords": c["codes"].numel(),
+          "attention_launches": {k: ran[k] for k in want},
           "codewords_equal": same, "codeword_agreement": agree,
           "codeword_agreement_min": CODE_AGREEMENT})
     check(g["slots"] == c["slots"], "masked slots differ card vs CPU")
@@ -1040,6 +1174,124 @@ def phase_pretrain_vs_cpu(seed: int, samples: int) -> None:
     check(rel["grad_norm"] <= PRETRAIN_GNORM_RTOL,
           f"pretrain gnorm card vs CPU {rel['grad_norm']}")
     check(agree >= CODE_AGREEMENT, f"codeword agreement {agree}")
+
+
+def phase_pretrain_block(batches, seed: int) -> dict:
+    """Full-width pretraining steps (``make_pretrain_steps``, dropout and
+    masking on, the JAX defaults) with ``fused_attention="block"`` at the
+    shapes of the batches phase 7 formed, one step of each shape twice;
+    then the block and the core in turns on the largest shape, from the
+    same weights. Returns the block run's launch counts."""
+    from audio8_tpu_torch.config import PretrainConfig
+    from audio8_tpu_torch.models.wav2vec2 import PretrainSeeds, Wav2Vec2Model
+    from audio8_tpu_torch.train.optim import (TrainState, create_lrs,
+                                              create_optimizer)
+    from audio8_tpu_torch.train.steps import make_pretrain_steps
+
+    rng = np.random.default_rng(seed + 6)
+    signals = {(rows, n): torch.from_numpy(np.stack([
+        synthetic_speechlike((n + 1) / SR, rng)[:n] for _ in range(rows)]))
+        .cuda() for rows, n in batches}
+    init = Wav2Vec2Model(PretrainConfig(), generator=torch.Generator()
+                         .manual_seed(seed + 6)).state_dict()
+    runs = {}
+    for fused in ("block", None):
+        model = Wav2Vec2Model(PretrainConfig(fused_attention=fused)).cuda()
+        model.load_state_dict(init)
+        state = TrainState(model, create_optimizer(create_lrs(
+            2e-4, 100, "constant", warmup_steps=0), weight_decay=0.01))
+        runs[fused] = (state, make_pretrain_steps(model)[0])
+    gen = torch.Generator().manual_seed(seed + 6)
+
+    def step(fused, shape):
+        state, train_step = runs[fused]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, m = train_step(state, signals[shape], PretrainSeeds.draw(gen), gen)
+        loss = float(m["loss"])  # synchronises
+        return {"seconds": time.perf_counter() - t0, "rows": shape[0],
+                "samples": shape[1], "loss": loss,
+                "code_perplexity": float(m["code_perplexity"]),
+                "accuracy": float(m["accuracy"])}
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    log = [step("block", shape) for shape in batches * 2]
+    launches = {k: n for k, n in read_launches().items()
+                if k in BLOCK_PATH + ("attention_fwd", "attention_bwd")}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    n = len(log)
+    layers = PretrainConfig().num_layers
+    check(launches["attention_block"] == layers * n
+          and launches["attention_block_bwd"] == layers * n,
+          f"attention block launches {launches} over {n} steps")
+    check(launches["attention_fwd"] == 0 and launches["attention_bwd"] == 0,
+          f"the core ran under fused_attention='block': {launches}")
+    for name in BLOCK_PATH:
+        check(launches[name] > 0, f"{name} was not launched")
+    for key in ("loss", "code_perplexity", "accuracy"):
+        check(all(math.isfinite(r[key]) for r in log), f"non-finite {key}")
+    largest = max(batches)
+    turns = {"block": [], "core": []}
+    for fused in ("block", None, None, "block"):
+        turns["core" if fused is None else "block"] += [
+            step(fused, largest)["seconds"] for _ in range(2)]
+
+    def rate(rows):
+        return sum(r["rows"] * r["samples"] for r in rows) / SR / sum(
+            r["seconds"] for r in rows)
+
+    audio_s = largest[0] * largest[1] / SR
+    emit({"phase": "pretrain_block", "config": "wav2vec2-base d768 h12 L12 "
+          "ff3072, final_dim 256, 2x320 codewords, f32, "
+          "fused_attention='block'",
+          "step_seconds": [r["seconds"] for r in log],
+          "rows": [r["rows"] for r in log],
+          "samples": [r["samples"] for r in log],
+          "frames": [pretrain_path_shapes(r["rows"], r["samples"])[1]
+                     for r in log],
+          "losses": [r["loss"] for r in log],
+          "code_perplexity": [r["code_perplexity"] for r in log],
+          "accuracy": [r["accuracy"] for r in log],
+          # step 1 carries first-call set-up
+          "audio_s_per_s": rate(log[1:]), "launches": launches,
+          "launches_per_step": {k: v / n for k, v in launches.items()},
+          "peak_memory_gb": peak,
+          "in_turns_shape": list(largest),
+          "in_turns_block_s": turns["block"], "in_turns_core_s": turns["core"],
+          "in_turns_audio_s_per_s": {
+              k: audio_s * len(v) / sum(v) for k, v in turns.items()}})
+    del runs, signals
+    return launches
+
+
+def phase_block_gate() -> None:
+    """Eval forwards of the acoustic model under ``fused_attention=
+    "block"``: a 15 s row (749 frames) passes the gate and launches the
+    block in all 12 layers, a 30 s serving chunk (1499 frames) does not
+    and launches the core, as the JAX gate (T <= 1024) decides."""
+    from audio8_tpu_torch.models.wav2vec2 import Wav2Vec2AcousticModel
+
+    model = Wav2Vec2AcousticModel(base_config(
+        4 + len(LETTERS), fused_attention="block")).cuda().eval()
+    layers = model.config.num_layers
+    seen = {}
+    for seconds, frames, runs, idle in ((15, 749, "attention_block",
+                                         "attention_fwd"),
+                                        (30, 1499, "attention_fwd",
+                                         "attention_block")):
+        x = torch.zeros(1, seconds * SR, device="cuda")
+        reset_launches()
+        with torch.inference_mode():
+            lp, _ = model(x, torch.tensor([seconds * SR], device="cuda"))
+        torch.cuda.synchronize()
+        n = read_launches()
+        check(lp.shape[1] == frames and bool(torch.isfinite(lp).all()),
+              f"block gate forward at {seconds} s")
+        check(n[runs] == layers and n[idle] == 0,
+              f"{seconds} s ({frames} frames) under 'block': {n}")
+        seen[f"{seconds}s"] = {"frames": frames, runs: n[runs], idle: n[idle]}
+    emit({"phase": "block_gate", **seen})
 
 
 def median_ms(fn, reps: int = 5, inner: int = 3) -> float:
@@ -1120,6 +1372,59 @@ def time_attention(dtype, gen) -> dict:
                                          8 * q.numel() * q.element_size(),
                                          dtype)
     out["attention_bwd"] = r
+    return out
+
+
+def time_block(dtype, gen) -> dict:
+    """Forward and backward at the pretraining batches' shape (20, 222,
+    768), 12 heads, no mask; the yardstick is F.multi_head_attention_
+    forward (dropout 0, need_weights off, so it runs cuBLAS and SDPA) and
+    its autograd."""
+    import torch.nn.functional as F
+
+    from audio8_tpu_torch.ops.attention_block import (
+        attention_block, attention_block_bwd_plain, attention_block_plain)
+
+    b, t, d, h = 20, 222, 768, BLOCK_HEADS
+    x, weights = block_inputs(b, t, d, dtype, gen)
+    dy = torch.randn(b, t, d, device="cuda", generator=gen).to(dtype)
+    scale = (d // h) ** -0.5
+    wq, bq, wk, bk, wv, bv, wo, bo = weights
+    lib = [torch.cat([wq, wk, wv]), torch.cat([bq, bk, bv]), wo, bo]
+
+    def library(xx, w_in, b_in, w_out, b_out):
+        q = xx.transpose(0, 1)
+        return F.multi_head_attention_forward(
+            q, q, q, d, h, w_in, b_in, None, None, False, 0.0, w_out, b_out,
+            training=False, need_weights=False)[0]
+
+    out = {}
+    r = in_turns(lambda: attention_block(x, *weights, None, h, scale),
+                 lambda: attention_block_plain(x, *weights, None, h, scale),
+                 lambda: library(x, *lib))
+    esize = x.element_size()
+    proj = 2.0 * b * t * d * d
+    core = 4.0 * b * h * t * t * (d // h)
+    r["bound_ms"], r["bound_by"] = bound(
+        4 * proj + core, (2 * x.numel() + 4 * d * d + 4 * d) * esize, dtype)
+    out["attention_block"] = r
+    xs = [a.detach().requires_grad_() for a in (x, *weights)]
+    o = attention_block(*xs, None, h, scale)
+    ls = [a.detach().requires_grad_() for a in (x, *lib)]
+    lo = library(*ls)
+    r = in_turns(
+        lambda: torch.autograd.grad(o, xs, dy, retain_graph=True),
+        lambda: attention_block_bwd_plain(x, *weights, None, h, scale, 0.0, 0,
+                                          dy),
+        lambda: torch.autograd.grad(lo, ls, dy.transpose(0, 1),
+                                    retain_graph=True))
+    # dxo, dWo, dW{q,k,v}, dx: 16 B T D^2; the core's recomputed scores
+    # and its four products: 10 B H T^2 dh. Reads x, dout, the weights;
+    # writes dx and the weight and bias gradients
+    r["bound_ms"], r["bound_by"] = bound(
+        8 * proj + 2.5 * core,
+        (3 * x.numel() + 8 * d * d + 8 * d) * esize, dtype)
+    out["attention_block_bwd"] = r
     return out
 
 
@@ -1297,6 +1602,8 @@ def phase_timing(gen) -> dict:
         torch.cuda.empty_cache()
         found.update({**time_conv_bwd(dtype, gen),
                       **time_dropout(dtype, gen)})
+        torch.cuda.empty_cache()
+        found.update(time_block(dtype, gen))
         if dtype == torch.float32:
             found.update({**time_ctc(gen), **time_adamw(gen)})
         for name, r in found.items():
@@ -1316,13 +1623,23 @@ REPLACES = {
     "ctc_loss": "audio8_tpu/ops/pallas/ctc_kernel.py:59",
     "dropout": "audio8_tpu/ops/pallas/dropout_kernel.py:21",
     "adamw": "audio8_tpu/ops/pallas/adamw_kernel.py:32",
+    "attention_block": "audio8_tpu/ops/pallas/attention_block_kernel.py:59",
+    "attention_block_bwd":
+        "audio8_tpu/ops/pallas/attention_block_kernel.py:87",
 }
 SOURCES = {"conv_k3s2_fwd": "conv_k3s2_fwd.cu",
            "conv_k3s2_dgrad": "conv_k3s2_bwd.cu",
            "conv_k3s2_wgrad": "conv_k3s2_bwd.cu",
            "attention_fwd": "attention_fwd.cu",
            "attention_bwd": "attention_bwd.cu", "ctc_loss": "ctc_loss.cu",
-           "dropout": "dropout.cu", "adamw": "adamw.cu"}
+           "dropout": "dropout.cu", "adamw": "adamw.cu",
+           "attention_block": "attention_block_fwd.cu",
+           "attention_block_bwd": "attention_block_bwd.cu"}
+# the run whose launch counts each kernel reports: the slice's own path
+# (the block runs only under fused_attention="block"; the CTC loss only on
+# the CTC trainer's)
+PATH_OF = {"attention_block": "pretrain_block",
+           "attention_block_bwd": "pretrain_block", "ctc_loss": "train"}
 
 
 def main() -> int:
@@ -1353,23 +1670,28 @@ def main() -> int:
     torch.cuda.empty_cache()
     for k, e in phase_pretrain_path_kernels(batches, gen).items():
         worst[k] = max(worst[k], e)
+    torch.cuda.empty_cache()
+    block_launches = phase_pretrain_block(batches, SEED)
+    torch.cuda.empty_cache()
+    phase_block_gate()
     phase_train_vs_cpu(SEED)
     phase_pretrain_vs_cpu(SEED, batches[-1][1])
+    phase_pretrain_vs_cpu(SEED, batches[-1][1], fused="block")
     torch.cuda.empty_cache()
     times = phase_timing(gen)
     check("jax" not in sys.modules and "audio8_tpu" not in sys.modules,
           "jax or the JAX package was imported")
 
-    # launches: the pretraining run's, this slice's main path; the CTC
-    # loss is not on it and reports the CTC training run's
+    # launches: each kernel's path run (PATH_OF, else the pretraining run)
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    path_launches = {"pretrain": launches, "train": train_launches,
+                     "pretrain_block": block_launches}
     emit({"kernels": [
         {"name": name, "route": "cuda",
          "source": f"audio8_tpu_torch/csrc/{SOURCES[name]}",
          "replaces": REPLACES[name],
-         "path": "pretrain" if name in launches else "train",
-         "launches": (launches[name] if name in launches
-                      else train_launches[name]),
+         "path": PATH_OF.get(name, "pretrain"),
+         "launches": path_launches[PATH_OF.get(name, "pretrain")][name],
          "max_abs_err": worst[name],
          **{k: times[(name, torch.float32)][k] for k in keys}}
         for name in REPLACES]})

@@ -12,7 +12,9 @@
 * A 5-step ``make_pretrain_steps`` trajectory is glued to the JAX one, as
   ``tests/test_train_dynamics.py:test_pretrain_dynamics_parity`` glues
   JAX to a torch replica: loss rtol 1e-3, grad norm rtol 5e-3, step-1 loss
-  rtol 1e-4. Dropout is off, so both runs are deterministic.
+  rtol 1e-4, with XLA attention (JAX) against the port's core, and with
+  ``fused_attention="block"`` on both sides. Dropout is off, so both runs
+  are deterministic.
 * The dropout's plain backward (the function its kernel is held to)
   equals ``jax.vjp`` of ``_hash_dropout``.
 * A checkpoint the port saves loads through the JAX
@@ -88,8 +90,8 @@ def init_params():
     return jax.tree.map(np.asarray, params)
 
 
-def _port_model(params) -> Wav2Vec2Model:
-    model = Wav2Vec2Model(PretrainConfig(**CFG))
+def _port_model(params, **over) -> Wav2Vec2Model:
+    model = Wav2Vec2Model(PretrainConfig(**CFG, **over))
     model.load_state_dict(params_from_jax(params), strict=True)
     return model
 
@@ -221,7 +223,8 @@ def test_forward_and_loss_match_jax(init_params, train):
                                    rtol=0, err_msg=k)
 
 
-def test_pretrain_trajectory_matches_jax(init_params):
+@pytest.mark.parametrize("fused", [None, "block"])
+def test_pretrain_trajectory_matches_jax(init_params, fused):
     n = 5
     signal = _signal(2)
     keys = list(jax.random.split(jax.random.PRNGKey(23), n))
@@ -230,8 +233,9 @@ def test_pretrain_trajectory_matches_jax(init_params):
     jtx = jax_opt(jax_lrs(LR, n, sched_type="constant", warmup_steps=0))
     jstate = JaxState.create(jax.tree.map(jnp.asarray, init_params), jtx)
     jstep, _ = jax_steps.make_pretrain_steps(
-        JaxModel(config=JaxConfig(**CFG)), jtx, clip=1.0, n_negatives=N_NEG)
-    model = _port_model(init_params)
+        JaxModel(config=JaxConfig(**CFG, fused_attention=fused)), jtx,
+        clip=1.0, n_negatives=N_NEG)
+    model = _port_model(init_params, fused_attention=fused)
     state = TrainState(model, create_optimizer(
         create_lrs(LR, n, sched_type="constant", warmup_steps=0)))
     step, _ = make_pretrain_steps(model, clip=1.0, n_negatives=N_NEG)

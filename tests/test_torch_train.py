@@ -9,7 +9,8 @@
   deterministic; the batch has a ragged row and a padding row. Covered:
   the grad_fn/update_fn pair with the encoder frozen then unfrozen, two
   micro-batches per step (``--grad_accum 2``), and the fused
-  ``train_step``.
+  ``train_step``, which also runs with ``fused_attention="block"`` on
+  both sides (the attention block kernel in interpret mode).
 * A JAX run's parameters, AdamW moments and step count carried into the
   port (``params_from_jax`` with the optimizer state) train on along the
   same trajectory.
@@ -95,13 +96,15 @@ def init_params():
     return jax.tree.map(np.asarray, params)
 
 
-def _both(init_params):
-    """The two packages' models, states and steps from one init."""
-    jmodel = JaxModel(config=JaxConfig(**CFG, fused_attention=True))
+def _both(init_params, fused=True):
+    """The two packages' models, states and steps from one init, both
+    with ``fused_attention=fused``."""
+    jmodel = JaxModel(config=JaxConfig(**CFG, fused_attention=fused))
     jtx = jax_opt(jax_lrs(LR, 10, sched_type="constant", warmup_steps=0))
     jstate = JaxState.create(jax.tree.map(jnp.asarray, init_params), jtx)
     jsteps = jax_steps.make_ctc_steps(jmodel, jtx, clip=CLIP)
-    model = Wav2Vec2AcousticModel(AcousticConfig(**CFG))
+    model = Wav2Vec2AcousticModel(AcousticConfig(**CFG,
+                                                 fused_attention=fused))
     model.load_state_dict(params_from_jax(init_params), strict=True)
     state = TrainState(model, create_optimizer(
         create_lrs(LR, 10, sched_type="constant", warmup_steps=0)))
@@ -169,8 +172,10 @@ def test_trajectory_grad_accum_2(init_params):
     _check(loss, gnorm, j_loss, j_gnorm)
 
 
-def test_fused_train_step(init_params):
-    (jstate, (jgrad, _, _)), (state, (grad_fn, _, _)) = _both(init_params)
+@pytest.mark.parametrize("fused", [True, "block"])
+def test_fused_train_step(init_params, fused):
+    (jstate, (jgrad, _, _)), (state, (grad_fn, _, _)) = _both(init_params,
+                                                              fused)
     batch = _batch(4)
     key, gen = jax.random.PRNGKey(0), torch.Generator().manual_seed(0)
     j_loss, loss = [], []

@@ -1,7 +1,8 @@
 """The port's ``Wav2Vec2AcousticModel`` vs the JAX model on the same
 weights (moved across with ``params_from_jax``): a tiny model with one k3s2
 extractor layer, a batch of ragged ``input_lengths`` (one row empty), with
-the JAX side on its XLA attention and on its fused Pallas core."""
+the JAX side on its XLA attention, on its fused Pallas core and on its
+fused attention block (``fused_attention="block"``)."""
 import dataclasses
 
 import jax
@@ -50,11 +51,14 @@ def _batch():
     return x, lengths
 
 
-@pytest.mark.parametrize("fused", [None, True])
+@pytest.mark.parametrize("fused", [None, True, "block"])
 def test_log_probs_match_jax(weights, fused):
+    """One ``params_from_jax`` state dict feeds every setting: "block"
+    reads the same q/k/v/out projections as the core."""
     x, lengths = _batch()
     lp_j, mask_j = _jax_log_probs(weights, x, lengths, fused_attention=fused)
-    model = Wav2Vec2AcousticModel(CFG)
+    model = Wav2Vec2AcousticModel(dataclasses.replace(
+        CFG, fused_attention=fused))
     model.load_state_dict(params_from_jax(weights), strict=True)
     with torch.inference_mode():
         lp, mask = model(torch.from_numpy(x), torch.from_numpy(lengths))
@@ -124,7 +128,7 @@ def test_seeded_init_is_reproducible():
     ("pos_conv_depth", 5), ("gated_rel_pos", True),
     ("encoder_type", "conformer"), ("causal_chunk_frames", 8),
     ("moe_experts", 4), ("packed_qkv", True), ("flash_attention", True),
-    ("fused_attention", "block")])
+    ("fused_attention", "flash")])
 def test_unported_features_raise(field, value):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Wav2Vec2AcousticModel(dataclasses.replace(CFG, **{field: value}))
