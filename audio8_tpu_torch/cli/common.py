@@ -1,34 +1,150 @@
-"""Shared CLI flags of the port (the slice of ``audio8_tpu/cli/common.py``
-that serving, CTC training and pretraining share, with the same names and defaults),
-plus ``--device``: the entry points run on the CUDA card unless the caller
-asks for the CPU."""
+"""Shared CLI flags of the port: every flag of ``audio8_tpu/cli/common.py``'s
+``add_common_model_args`` with the same names and defaults, the decoding
+flags the JAX transcribe and serve parsers share, plus ``--device``: the
+entry points run on the CUDA card unless the caller asks for the CPU.
+
+A flag the port cannot honour at the value given raises
+``NotImplementedError`` naming the ``ROADMAP.md`` item that ports it
+(:func:`check_ported`, and ``models/wav2vec2.py:check_supported`` for
+the topology flags): it never ends in an argparse exit where the JAX
+entry point runs. Flags that only matter beside another one (``--alpha``
+without ``--lm``, ``--moe_top_k`` without ``--moe_experts``, the
+transducer sizes without ``--transducer``) are inert, as in JAX.
+"""
 from __future__ import annotations
 
 from argparse import ArgumentParser, Namespace
 
 import torch
 
-# Size presets over the post-norm, group-norm topology the port runs
-# (``audio8_tpu.cli.common.MODEL_PRESETS``); the other presets select
-# topologies that are not ported yet.
+from audio8_tpu_torch.utils import str2bool
+
+# The JAX package's size and topology presets
+# (``audio8_tpu.cli.common.MODEL_PRESETS``). The port runs the post-norm,
+# group-norm transformer ("base", "large"); the others select topologies
+# that ``check_supported`` refuses (ROADMAP.md queue 1, item 7).
 MODEL_PRESETS = {
     "base": {},
     "large": {"d_model": 1024, "d_ff": 4096, "num_heads": 16,
               "num_layers": 24, "final_dim": 768},
+    "large-lv60": {"d_model": 1024, "d_ff": 4096, "num_heads": 16,
+                   "num_layers": 24, "final_dim": 768, "pre_norm": True,
+                   "extractor_mode": "layer", "conv_bias": True},
+    "hubert-large": {"d_model": 1024, "d_ff": 4096, "num_heads": 16,
+                     "num_layers": 24, "final_dim": 768, "pre_norm": True,
+                     "extractor_mode": "layer", "conv_bias": False},
+    "data2vec-base": {"extractor_mode": "layer", "pos_conv_depth": 5,
+                      "conv_pos_kernel": 19},
+    "data2vec-large": {"d_model": 1024, "d_ff": 4096, "num_heads": 16,
+                       "num_layers": 24, "final_dim": 768,
+                       "extractor_mode": "layer", "pos_conv_depth": 5,
+                       "conv_pos_kernel": 19},
+    "wavlm-base": {"gated_rel_pos": True},
+    "wavlm-large": {"d_model": 1024, "d_ff": 4096, "num_heads": 16,
+                    "num_layers": 24, "final_dim": 768, "pre_norm": True,
+                    "extractor_mode": "layer", "gated_rel_pos": True},
+    "conformer-large-rope": {"d_model": 1024, "d_ff": 4096, "num_heads": 16,
+                             "num_layers": 24, "final_dim": 768,
+                             "extractor_mode": "layer", "conv_bias": True,
+                             "encoder_type": "conformer",
+                             "position_embeddings_type": "rotary"},
+    "conformer-large-rel": {"d_model": 1024, "d_ff": 4096, "num_heads": 16,
+                            "num_layers": 24, "final_dim": 768,
+                            "extractor_mode": "layer", "conv_bias": True,
+                            "encoder_type": "conformer",
+                            "position_embeddings_type": "relative"},
 }
 _PRESET_BASE_DEFAULTS = {"d_model": 768, "d_ff": 3072, "num_heads": 12,
-                         "num_layers": 12, "final_dim": 256}
+                         "num_layers": 12, "final_dim": 256,
+                         "pre_norm": False, "extractor_mode": "group",
+                         "conv_bias": False, "pos_conv_depth": 1,
+                         "conv_pos_kernel": 128, "gated_rel_pos": False,
+                         "rel_pos_buckets": 320,
+                         "rel_pos_max_distance": 800,
+                         "encoder_type": "transformer",
+                         "position_embeddings_type": "relative",
+                         "conv_depthwise_kernel_size": 31,
+                         "rotary_base": 10000.0,
+                         "conformer_activation": "swish"}
+
+# ROADMAP.md queue 1 items, named in the refusals
+DECODE = "ROADMAP.md queue 1, item 6 (serving and inference)"
+RESTART = "ROADMAP.md queue 1, item 1 (restart, evaluation, checkpoints)"
+DATA_PARALLEL = "ROADMAP.md queue 1, item 3 (data parallel)"
+TRAINER = "ROADMAP.md queue 1, item 4 (the trainers' remaining flags)"
+TOPOLOGY = "ROADMAP.md queue 1, item 7 (topologies and recipes)"
+PARALLEL = "ROADMAP.md queue 1, item 8 (parallelism beyond DP)"
+
+# flag -> (its value when unused, the item that ports it). Any other
+# value raises; a flag an entry point does not have is skipped.
+NOT_PORTED = {
+    "tensor_parallel": (1, PARALLEL),
+    "zero1": (False, PARALLEL),
+    "fsdp": (False, PARALLEL),
+    "sequence_parallel": (False, PARALLEL),
+    "pipeline_parallel": (1, PARALLEL),
+    "moe_experts": (0, PARALLEL),
+    "remat": (False, TRAINER),
+    "distributed": (False, DATA_PARALLEL),
+    "restart_from": (None, RESTART),
+    "noise_manifest": (None, TRAINER),
+    "speed_perturb": (None, TRAINER),
+    "profile_dir": (None, TRAINER),
+    "verbose": (False, RESTART),
+    "lm": (None, DECODE),
+    "beam": (1, DECODE),
+    "device_beam": (False, TOPOLOGY),
+    "transducer": (False, TOPOLOGY),
+    "timestamps": (False, DECODE),
+    "vad": (False, DECODE),
+    "quantize": ("none", DECODE),
+    "exported": (None, DECODE),
+}
+# not ported in training; inert at inference, as in JAX
+TRAINING_ONLY = {"layer_drop": (0.0, TRAINER)}
 
 
 def apply_preset(args: Namespace) -> Namespace:
-    """Resolve ``--preset``: an explicit size flag always wins; unset ones
-    take the preset's value, else the base default. ``final_dim`` (the
+    """Resolve ``--preset``: preset-managed flags parse with a ``None``
+    sentinel, so an explicit flag always wins; unset ones take the
+    preset's value, else the base default. ``final_dim`` (the
     pretraining projection width) only where the parser has the flag."""
     preset = MODEL_PRESETS[args.preset]
     for key, base_value in _PRESET_BASE_DEFAULTS.items():
         if hasattr(args, key) and getattr(args, key) is None:
             setattr(args, key, preset.get(key, base_value))
     return args
+
+
+def encoder_kwargs(args: Namespace) -> dict:
+    """The encoder-topology, remat, sequence-parallel and MoE flags as
+    config kwargs (``audio8_tpu.cli.common.topology_kwargs`` and
+    ``moe_kwargs``); ``check_supported`` refuses what the port does not
+    run."""
+    names = ("pre_norm", "extractor_mode", "conv_bias", "pos_conv_depth",
+             "conv_pos_kernel", "gated_rel_pos", "rel_pos_buckets",
+             "rel_pos_max_distance", "encoder_type",
+             "position_embeddings_type", "conv_depthwise_kernel_size",
+             "rotary_base", "conformer_activation", "causal_chunk_frames",
+             "causal_left_chunks", "remat", "sequence_parallel",
+             "moe_experts", "moe_top_k", "moe_capacity_factor",
+             "moe_every", "moe_aux_weight")
+    return {n: getattr(args, n) for n in names}
+
+
+def check_ported(args: Namespace, training: bool) -> None:
+    """Raise ``NotImplementedError`` for a flag whose value asks for a part
+    of the JAX entry point that is not ported yet, naming the ROADMAP.md
+    item; the topology flags through ``check_supported``."""
+    from audio8_tpu_torch.config import EncoderConfig
+    from audio8_tpu_torch.models.wav2vec2 import check_supported
+
+    table = dict(NOT_PORTED, **(TRAINING_ONLY if training else {}))
+    for flag, (unused, item) in table.items():
+        if hasattr(args, flag) and getattr(args, flag) != unused:
+            raise NotImplementedError(
+                f"--{flag} {getattr(args, flag)} is not ported yet: {item}")
+    check_supported(EncoderConfig(**encoder_kwargs(args)))
 
 
 def resolve_device(name: str) -> torch.device:
@@ -51,17 +167,89 @@ def resolve_device(name: str) -> torch.device:
 
 
 def add_common_model_args(parser: ArgumentParser) -> None:
-    parser.add_argument("--preset", choices=sorted(MODEL_PRESETS),
-                        default="base",
-                        help="model-size preset; individual size flags "
-                             "override it")
-    parser.add_argument("--d_model", type=int, default=None)
-    parser.add_argument("--d_ff", type=int, default=None)
-    parser.add_argument("--num_heads", type=int, default=None)
-    parser.add_argument("--num_layers", type=int, default=None)
-    parser.add_argument("--target_sample_rate", type=int, default=16_000)
-    parser.add_argument("--bf16", action="store_true",
-                        help="bfloat16 compute (fp32 params)")
-    parser.add_argument("--device", default="cuda",
-                        help="cuda[:N] (default; raises without a card) "
-                             "or cpu")
+    """The JAX ``add_common_model_args`` flags, then ``--device``."""
+    add = parser.add_argument
+    add("--preset", choices=sorted(MODEL_PRESETS), default="base",
+        help="model-size preset; individual size flags override it")
+    add("--tensor_parallel", type=int, default=1, help="not ported yet")
+    add("--zero1", type=str2bool, default=False, help="not ported yet")
+    add("--fsdp", type=str2bool, default=False, help="not ported yet")
+    add("--sequence_parallel", type=str2bool, default=False,
+        help="not ported yet")
+    add("--moe_experts", type=int, default=0, help="not ported yet")
+    add("--moe_top_k", type=int, default=1)
+    add("--moe_capacity_factor", type=float, default=1.25)
+    add("--moe_every", type=int, default=2)
+    add("--moe_aux_weight", type=float, default=0.01)
+    add("--d_model", type=int, default=None)
+    add("--d_ff", type=int, default=None)
+    add("--num_heads", type=int, default=None)
+    add("--num_layers", type=int, default=None)
+    add("--dropout", type=float, default=0.1)
+    add("--attention_dropout", type=float, default=None,
+        help="attention-prob dropout (default: --dropout)")
+    add("--layer_drop", type=float, default=0.0,
+        help="not ported yet in training")
+    add("--pre_norm", type=str2bool, default=None)
+    add("--extractor_mode", choices=["group", "layer"], default=None)
+    add("--conv_bias", type=str2bool, default=None)
+    add("--pos_conv_depth", type=int, default=None)
+    add("--conv_pos_kernel", type=int, default=None)
+    add("--gated_rel_pos", type=str2bool, default=None)
+    add("--rel_pos_buckets", type=int, default=None)
+    add("--rel_pos_max_distance", type=int, default=None)
+    add("--encoder_type", choices=["transformer", "conformer"], default=None)
+    add("--position_embeddings_type", choices=["relative", "rotary", "none"],
+        default=None)
+    add("--conv_depthwise_kernel_size", type=int, default=None)
+    add("--rotary_base", type=float, default=None)
+    add("--conformer_activation", default=None)
+    add("--causal_chunk_frames", type=int, default=0)
+    add("--causal_left_chunks", type=int, default=-1)
+    add("--remat", type=str2bool, default=False, help="not ported yet")
+    add("--input_sample_rate", type=int, default=16_000)
+    add("--target_sample_rate", type=int, default=16_000)
+    add("--bf16", action="store_true", help="bfloat16 compute (fp32 params)")
+    add("--device", default="cuda",
+        help="cuda[:N] (default; raises without a card) or cpu")
+
+
+def add_decoding_args(parser: ArgumentParser, max_decode_len) -> None:
+    """The decoding flags of the JAX transcribe and serve parsers (their
+    ``--max_decode_len`` defaults differ: None and 8000). The port
+    decodes greedily with CTC; the rest is not ported yet."""
+    add = parser.add_argument
+    add("--exported", help="not ported yet")
+    add_beam_args(parser)
+    add("--device_beam", type=str2bool, default=False, help="not ported yet")
+    add("--transducer", type=str2bool, default=False, help="not ported yet")
+    add("--pred_layers", type=int, default=2)
+    add("--pred_dim", type=int, default=512)
+    add("--pred_embed_dim", type=int, default=256)
+    add("--d_joint", type=int, default=512)
+    add("--max_decode_len", type=int, default=max_decode_len)
+    add("--max_symbols_per_frame", type=int, default=4)
+    add("--timestamps", type=str2bool, default=False, help="not ported yet")
+    add("--quantize", choices=["none", "int8"], default="none",
+        help="not ported yet")
+
+
+def add_beam_args(parser: ArgumentParser) -> None:
+    """``--beam``, ``--lm``, ``--alpha``, ``--beta``: the JAX trainer's
+    beam-decoded validation and the decoders' flags. The port decodes
+    greedily (``--beam 1``); the LM weights are inert without ``--lm``."""
+    add = parser.add_argument
+    add("--beam", type=int, default=1, help="1: greedy; more: not ported")
+    add("--lm", help="not ported yet")
+    add("--alpha", type=float, default=0.7)
+    add("--beta", type=float, default=5.0)
+
+
+def require_checkpoint(args: Namespace) -> None:
+    """As the JAX transcribe and serve parsers: ``--checkpoint`` and
+    ``--dict_file`` are needed unless ``--exported`` is given (which is
+    not ported yet)."""
+    check_ported(args, training=False)
+    if not (args.checkpoint and args.dict_file):
+        raise SystemExit("--checkpoint and --dict_file are required "
+                         "(or pass an --exported artifact)")

@@ -30,8 +30,10 @@ from argparse import ArgumentParser
 
 import torch
 
-from audio8_tpu_torch.cli.common import (add_common_model_args,
-                                        apply_preset, resolve_device)
+from audio8_tpu_torch.cli.common import (add_beam_args,
+                                        add_common_model_args,
+                                        apply_preset, check_ported,
+                                        encoder_kwargs, resolve_device)
 from audio8_tpu_torch.config import PretrainConfig
 from audio8_tpu_torch.data.datasets import (AudioFileDataset,
                                             BucketingAudioDataset,
@@ -47,16 +49,6 @@ logger = logging.getLogger("audio8_tpu_torch.pretrain")
 
 DEFAULT_BUCKETS = [11111, 35714, 38461, 41666, 45454, 50000, 55555, 62500,
                    71428, 83333, 100000, 125000, 166666, 250000]
-
-# flag -> its value when unused: any other value asks for a part of the
-# JAX entry point that is not ported yet (ROADMAP.md)
-_NOT_PORTED = {"tensor_parallel": 1, "zero1": False, "fsdp": False,
-               "sequence_parallel": False, "distributed": False,
-               "restart_from": None, "profile_dir": None, "layer_drop": 0.0,
-               "remat": False, "moe_experts": 0, "moe_top_k": 1,
-               "moe_capacity_factor": 1.25, "moe_every": 2,
-               "moe_aux_weight": 0.01}
-
 
 def parse_args(argv=None):
     parser = ArgumentParser(description=__doc__)
@@ -92,45 +84,11 @@ def parse_args(argv=None):
                         help="not ported yet")
     parser.add_argument("--n_negatives", type=int, default=100)
     parser.add_argument("--profile_dir", type=str, help="not ported yet")
-    parser.add_argument("--tensor_parallel", type=int, default=1,
-                        help="not ported yet")
-    parser.add_argument("--zero1", type=str2bool, default=False,
-                        help="not ported yet")
-    parser.add_argument("--fsdp", type=str2bool, default=False,
-                        help="not ported yet")
-    parser.add_argument("--sequence_parallel", type=str2bool, default=False,
-                        help="not ported yet")
-    parser.add_argument("--remat", type=str2bool, default=False,
-                        help="not ported yet")
-    parser.add_argument("--moe_experts", type=int, default=0,
-                        help="not ported yet")
-    parser.add_argument("--moe_top_k", type=int, default=1,
-                        help="not ported yet")
-    parser.add_argument("--moe_capacity_factor", type=float, default=1.25,
-                        help="not ported yet")
-    parser.add_argument("--moe_every", type=int, default=2,
-                        help="not ported yet")
-    parser.add_argument("--moe_aux_weight", type=float, default=0.01,
-                        help="not ported yet")
-    parser.add_argument("--dropout", type=float, default=0.1)
-    parser.add_argument("--attention_dropout", type=float, default=None,
-                        help="attention-prob dropout (default: --dropout)")
-    parser.add_argument("--layer_drop", type=float, default=0.0,
-                        help="not ported yet")
     parser.add_argument("--seed", type=int, default=1234,
                         help="seed of the generator that dropout, masks, "
                              "Gumbel noise and negatives draw from")
     add_common_model_args(parser)
     return apply_preset(parser.parse_args(argv))
-
-
-def check_ported(args) -> None:
-    """Raise for flags that ask for parts not ported yet."""
-    for flag, unused in _NOT_PORTED.items():
-        if getattr(args, flag) != unused:
-            raise NotImplementedError(
-                f"--{flag} {getattr(args, flag)} is not ported yet "
-                "(ROADMAP.md)")
 
 
 def _datasets(args):
@@ -156,7 +114,7 @@ def train(argv=None):
                         format="%(asctime)s %(levelname)s %(name)s: "
                                "%(message)s")
     device = resolve_device(args.device)
-    check_ported(args)
+    check_ported(args, training=True)
     if args.basedir is None:
         args.basedir = f"wav2vec2-{args.dataset_key}-{os.getpid()}"
     os.makedirs(args.basedir, exist_ok=True)
@@ -174,7 +132,8 @@ def train(argv=None):
         final_dim=args.final_dim, d_model=args.d_model,
         num_heads=args.num_heads, num_layers=args.num_layers, d_ff=args.d_ff,
         dropout=args.dropout, attention_dropout=args.attention_dropout,
-        layer_drop=args.layer_drop, n_negatives=args.n_negatives)
+        layer_drop=args.layer_drop, n_negatives=args.n_negatives,
+        **encoder_kwargs(args))
     dtype = torch.bfloat16 if args.bf16 else torch.float32
     model = Wav2Vec2Model(
         cfg, dtype, generator=torch.Generator().manual_seed(0)).to(device)

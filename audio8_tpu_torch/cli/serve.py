@@ -31,7 +31,9 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
 
-from audio8_tpu_torch.cli.common import add_common_model_args, apply_preset
+from audio8_tpu_torch.cli.common import (add_common_model_args,
+                                        add_decoding_args, apply_preset,
+                                        require_checkpoint)
 from audio8_tpu_torch.cli.transcribe import load_acoustic
 from audio8_tpu_torch.data.audio import SoundfileAudioReader
 from audio8_tpu_torch.ops.metrics import postproc_bpe, postproc_letters
@@ -139,10 +141,11 @@ def make_server(service: TranscribeService, host: str = "127.0.0.1",
 
 def parse_args(argv=None):
     p = ArgumentParser(description=__doc__)
-    p.add_argument("--checkpoint", required=True,
+    p.add_argument("--checkpoint",
                    help="fairseq fine-tuned wav2vec2 CTC .pt")
-    p.add_argument("--dict_file", required=True,
+    p.add_argument("--dict_file",
                    help="fairseq dict.ltr.txt or HF vocab.json")
+    add_decoding_args(p, max_decode_len=8_000)
     p.add_argument("--host", default="0.0.0.0")
     p.add_argument("--port", type=int, default=8000)
     p.add_argument("--target_type", choices=["ltr", "bpe"], default="ltr",
@@ -155,7 +158,9 @@ def parse_args(argv=None):
                    help="max wait for co-batching concurrent requests; "
                         "0 disables the cross-request MicroBatcher")
     add_common_model_args(p)
-    return apply_preset(p.parse_args(argv))
+    args = apply_preset(p.parse_args(argv))
+    require_checkpoint(args)
+    return args
 
 
 def build_service(args) -> TranscribeService:

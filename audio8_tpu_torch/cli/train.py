@@ -29,8 +29,10 @@ from argparse import ArgumentParser
 import numpy as np
 import torch
 
-from audio8_tpu_torch.cli.common import (add_common_model_args,
-                                        apply_preset, resolve_device)
+from audio8_tpu_torch.cli.common import (add_beam_args,
+                                        add_common_model_args,
+                                        apply_preset, check_ported,
+                                        encoder_kwargs, resolve_device)
 from audio8_tpu_torch.config import AcousticConfig
 from audio8_tpu_torch.data.datasets import (AudioTextLetterDataset,
                                             PrefetchLoader)
@@ -45,16 +47,6 @@ from audio8_tpu_torch.utils import Average, Offsets, revlut, str2bool
 
 logger = logging.getLogger("audio8_tpu_torch.train")
 
-# flag -> its value when unused: any other value asks for a part of the
-# JAX trainer that is not ported yet (ROADMAP.md)
-_NOT_PORTED = {"pipeline_parallel": 1, "tensor_parallel": 1, "zero1": False,
-               "fsdp": False, "sequence_parallel": False,
-               "distributed": False, "restart_from": None,
-               "noise_manifest": None, "speed_perturb": None,
-               "verbose": False, "lm": None, "profile_dir": None,
-               "layer_drop": 0.0}
-
-
 def parse_args(argv=None):
     parser = ArgumentParser(description=__doc__)
     parser.add_argument("--basedir", type=str)
@@ -68,14 +60,8 @@ def parse_args(argv=None):
                         choices=["sum", "mean"])
     parser.add_argument("--pipeline_parallel", type=int, default=1,
                         help="not ported yet")
-    parser.add_argument("--tensor_parallel", type=int, default=1,
-                        help="not ported yet")
-    parser.add_argument("--zero1", type=str2bool, default=False,
-                        help="not ported yet")
-    parser.add_argument("--fsdp", type=str2bool, default=False,
-                        help="not ported yet")
-    parser.add_argument("--sequence_parallel", type=str2bool, default=False,
-                        help="not ported yet")
+    parser.add_argument("--pp_microbatches", type=int, default=4,
+                        help="inert without --pipeline_parallel")
     parser.add_argument("--num_train_workers", type=int, default=4)
     parser.add_argument("--max_sample_len", type=int)
     parser.add_argument("--lr_scheduler", default="cosine")
@@ -85,6 +71,8 @@ def parse_args(argv=None):
     parser.add_argument("--clip", type=float, default=25.0)
     parser.add_argument("--weight_decay", type=float, default=0.0)
     parser.add_argument("--restart_from", type=str, help="not ported yet")
+    parser.add_argument("--restart_tt", choices=["step", "ignore"],
+                        help="inert without --restart_from")
     parser.add_argument("--warmup_steps", type=int, default=10000)
     parser.add_argument("--plateau_steps", type=int, default=0)
     parser.add_argument("--unfreeze_enc_after_step", type=int, default=10_000)
@@ -107,9 +95,13 @@ def parse_args(argv=None):
     parser.add_argument("--target_type", choices=["wrd", "ltr", "bpe"],
                         default="ltr")
     parser.add_argument("--freeze_fx", type=str2bool, default=True)
-    parser.add_argument("--lm", help="not ported yet")
     parser.add_argument("--pad_to_multiple", type=int, default=16_000)
     parser.add_argument("--noise_manifest", help="not ported yet")
+    parser.add_argument("--noise_snr", type=float, nargs=2,
+                        default=[5.0, 20.0],
+                        help="inert without --noise_manifest")
+    parser.add_argument("--noise_prob", type=float, default=1.0,
+                        help="inert without --noise_manifest")
     parser.add_argument("--speed_perturb", type=float, nargs="*",
                         help="not ported yet")
     parser.add_argument("--length_buckets", type=int, nargs="*",
@@ -119,23 +111,9 @@ def parse_args(argv=None):
     parser.add_argument("--seed", type=int, default=1234,
                         help="seed of the generator that dropout and "
                              "masking draw from")
-    parser.add_argument("--dropout", type=float, default=0.1)
-    parser.add_argument("--attention_dropout", type=float, default=None,
-                        help="attention-prob dropout (default: --dropout)")
-    parser.add_argument("--layer_drop", type=float, default=0.0,
-                        help="not ported yet")
-    parser.add_argument("--input_sample_rate", type=int, default=16_000)
+    add_beam_args(parser)
     add_common_model_args(parser)
     return apply_preset(parser.parse_args(argv))
-
-
-def check_ported(args) -> None:
-    """Raise for flags that ask for parts not ported yet."""
-    for flag, unused in _NOT_PORTED.items():
-        if getattr(args, flag) != unused:
-            raise NotImplementedError(
-                f"--{flag} {getattr(args, flag)} is not ported yet "
-                "(ROADMAP.md)")
 
 
 def _to_device(batch: dict, device: torch.device) -> dict:
@@ -152,7 +130,7 @@ def train(argv=None):
                         format="%(asctime)s %(levelname)s %(name)s: "
                                "%(message)s")
     device = resolve_device(args.device)
-    check_ported(args)
+    check_ported(args, training=True)
     args.dict_file = args.dict_file.format(args.target_type)
     if args.basedir is None:
         args.basedir = f"wav2vec2-{args.dataset_key}-{os.getpid()}"
@@ -196,7 +174,8 @@ def train(argv=None):
         timestep_mask_len=args.timestep_mask_len,
         channel_masking=args.channel_masking,
         channel_mask_len=args.channel_mask_len,
-        layer_drop=args.layer_drop, freeze_fx=args.freeze_fx)
+        layer_drop=args.layer_drop, freeze_fx=args.freeze_fx,
+        **encoder_kwargs(args))
     dtype = torch.bfloat16 if args.bf16 else torch.float32
     model = Wav2Vec2AcousticModel(
         cfg, dtype, generator=torch.Generator().manual_seed(0)).to(device)

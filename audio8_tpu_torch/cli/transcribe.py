@@ -8,8 +8,10 @@ audio runs through the ``ChunkedTranscriber`` when ``--chunk_seconds > 0``.
   python -m audio8_tpu_torch.cli.transcribe --checkpoint ctc.pt \\
       --dict_file dict.ltr.txt a.wav b.wav
 
-Beam search and LM, VAD, timestamps, int8, exported artifacts and
-non-fairseq checkpoints are not ported yet (ROADMAP.md).
+Every flag of the JAX entry point but ``--lane_align`` parses; beam
+search and LM, VAD, timestamps, int8, exported artifacts, transducers
+and non-fairseq checkpoints raise ``NotImplementedError`` (ROADMAP.md
+queue 1, items 6 and 7). Dropout flags are inert at inference.
 """
 from __future__ import annotations
 
@@ -21,7 +23,9 @@ import numpy as np
 import torch
 
 from audio8_tpu_torch.cli.common import (add_common_model_args,
-                                        apply_preset, resolve_device)
+                                        add_decoding_args, apply_preset,
+                                        encoder_kwargs, require_checkpoint,
+                                        resolve_device)
 from audio8_tpu_torch.config import AcousticConfig
 from audio8_tpu_torch.data.audio import SoundfileAudioReader
 from audio8_tpu_torch.models.convert import load_fairseq_ctc
@@ -30,16 +34,19 @@ from audio8_tpu_torch.models.wav2vec2 import Wav2Vec2AcousticModel
 from audio8_tpu_torch.ops.ctc import greedy_collapse
 from audio8_tpu_torch.ops.metrics import postproc_bpe, postproc_letters
 from audio8_tpu_torch.serve import ChunkedTranscriber, decode_stitched
-from audio8_tpu_torch.utils import Offsets, revlut
+from audio8_tpu_torch.utils import Offsets, revlut, str2bool
 
 
 def parse_args(argv=None):
     p = ArgumentParser(description=__doc__)
     p.add_argument("audio", nargs="+", help="WAV files")
-    p.add_argument("--checkpoint", required=True,
+    p.add_argument("--checkpoint",
                    help="fairseq fine-tuned wav2vec2 CTC .pt")
-    p.add_argument("--dict_file", required=True,
+    p.add_argument("--dict_file",
                    help="fairseq dict.ltr.txt or HF vocab.json")
+    add_decoding_args(p, max_decode_len=None)
+    p.add_argument("--vad", type=str2bool, default=False,
+                   help="not ported yet")
     p.add_argument("--target_type", choices=["ltr", "bpe"], default="ltr",
                    help="unit type the checkpoint was trained on")
     p.add_argument("--chunk_seconds", type=float, default=0.0,
@@ -47,7 +54,9 @@ def parse_args(argv=None):
                         "fixed-size overlapped chunks")
     p.add_argument("--context_seconds", type=float, default=2.0)
     add_common_model_args(p)
-    return apply_preset(p.parse_args(argv))
+    args = apply_preset(p.parse_args(argv))
+    require_checkpoint(args)
+    return args
 
 
 def build_acoustic(args, device: torch.device):
@@ -60,7 +69,7 @@ def build_acoustic(args, device: torch.device):
     cfg = AcousticConfig(
         num_labels=len(vocab_list), d_model=args.d_model,
         num_heads=args.num_heads, num_layers=args.num_layers, d_ff=args.d_ff,
-        timestep_masking=0.0, channel_masking=0.0)
+        timestep_masking=0.0, channel_masking=0.0, **encoder_kwargs(args))
     dtype = torch.bfloat16 if args.bf16 else torch.float32
     model = Wav2Vec2AcousticModel(cfg, dtype)
     model.load_state_dict(load_fairseq_ctc(args.checkpoint), strict=True)

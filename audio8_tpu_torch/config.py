@@ -76,10 +76,13 @@ class EncoderConfig:
     flash_attention: bool = False
     bf16_softmax: bool = True
     packed_qkv: bool = False
-    # None or True: the fused attention core (the port's attention for
-    # both); "block": the attention block (projections and core in one
-    # call) where the JAX gate admits the layer's input (T <= 1024), else
-    # the core
+    # None: the JAX XLA attention, which the port runs as its core kernel
+    # in "xla" semantics; True: the core in the TPU kernel's semantics
+    # where the JAX gate admits the input (T <= 1024, d_head <= 128), else
+    # "xla"; "block": the attention block (projections and core in one
+    # call) under the gate, else the core in "xla" semantics
+    # (nn/transformer.py's table). bf16_softmax is read by "xla" under
+    # bf16 compute: the logits are rounded to bf16 before the softmax.
     fused_attention: object = None
     remat: bool = False
     moe_experts: int = 0

@@ -8,12 +8,12 @@
 //
 //   * dxo = round(dout Wo_h^T) on the T_pad grid (zero past T);
 //   * dWo partials: o_h^T dout in f32, o_h being the core's rounded output;
-//   * the core backward is attention_bwd.cu's, on the (B, H, T_pad, dh)
-//     grid with the forward's key mask, row statistics and f32 output:
-//     p regenerated, the same hash-dropout mask, ds not zeroed at masked
-//     keys (so a row with no valid key gives the padded keys a dk and dv,
-//     as on the TPU); its dq, dk, dv are written rounded to the input
-//     dtype and, for bf16, also in f32;
+//   * the core backward is attention_bwd.cu's (its "kernel" semantics),
+//     on the (B, H, T_pad, dh) grid with the forward's key mask, row
+//     statistics and f32 output: p regenerated, the same hash-dropout
+//     mask, ds not zeroed at masked keys (so a row with no valid key
+//     gives the padded keys a dk and dv, as on the TPU); its dq, dk, dv
+//     are written rounded to the input dtype and, for bf16, also in f32;
 //   * dW{q,k,v} partials: x^T d{q,k,v} from the ROUNDED gradients, in f32;
 //   * db{q,k,v} partials: column sums of the f32 gradients over all T_pad
 //     rows;
@@ -28,15 +28,16 @@
 // the real rows: operations, 0.74 ms in f32, 0.05 ms in bf16. Unlike the TPU
 // kernel this one does not recompute the forward: the forward kernel
 // keeps q, k, v, o and the core's row statistics (about 4 x 16 MB per
-// layer at that shape). Seven launches on one stream, each over the whole
+// layer at that shape). Eight launches on one stream, each over the whole
 // batch and all heads:
 //   1. dxo: GEMM of the padded dout rows with Wo, written head-major;
 //   2. dWo partials: GEMM over each batch row's T rows (z = batch row);
-//   3-4. the core's dq kernel and dk/dv kernel (attention_bwd.cu);
-//   5. dW{q,k,v} partials: GEMM over each batch row's T rows (z = which
+//   3-5. the core backward (attention_bwd.cu: D, the fused pass, the dq
+//      reduction);
+//   6. dW{q,k,v} partials: GEMM over each batch row's T rows (z = which
 //      of the three x batch row);
-//   6. dx: one GEMM over K = 3 H dh, the three products as K segments;
-//   7. bias partials: one CTA per (head, batch row, which), fixed-order
+//   7. dx: one GEMM over K = 3 H dh, the three products as K segments;
+//   8. bias partials: one CTA per (head, batch row, which), fixed-order
 //      sums.
 // No atomics: the result does not depend on scheduling. The GEMMs are
 // attention_block_gemm.cuh's 64 x 64 tile (SIMT for f32, mma.sync for
@@ -77,7 +78,7 @@ int block_bwd(const void* x, const void* wq, const void* wk, const void* wv,
               const void* wo, const void* key_valid, const void* dout,
               const void* q, const void* k, const void* v, const void* o,
               const void* o32, const void* stats, void* dxo, void* dvec,
-              void* dq, void* dk, void* dv, void* dq32, void* dk32,
+              void* dq_part, void* dq, void* dk, void* dv, void* dq32, void* dk32,
               void* dv32, void* dx, float* dw_part, float* dwo_part,
               float* db_part, int batch, int t, int d_model, int heads,
               int dh, int dtype, float scale, float inv_keep,
@@ -102,19 +103,19 @@ int block_bwd(const void* x, const void* wq, const void* wk, const void* wv,
   const Partial pwo{dwo_part, (long long)d_model * hd, hd};
   err = gemm<T>(dat, ob, pwo, d_model, hd, t, t, batch, s);
   if (err != 0) return err;
-  // 3-4. the core backward on (B, H, T_pad, dh)
-  err = run_bwd(q, k, v, o32, dxo, key_valid, stats, dvec, dq, dk, dv, dq32,
-                dk32, dv32, batch, heads, t_pad, dh, dtype, scale, inv_keep,
-                threshold, seed, dropout, s);
+  // 3-5. the core backward on (B, H, T_pad, dh), "kernel" semantics
+  err = run_bwd(q, k, v, o32, dxo, key_valid, stats, dvec, dq_part, dq, dk,
+                dv, dq32, dk32, dv32, batch, heads, t_pad, dh, dtype, scale,
+                inv_keep, threshold, seed, dropout, 0, 0, s);
   if (err != 0) return err;
-  // 5. dW{q,k,v} partials (3, B, H*dh, D): d{q,k,v}^T x per batch row
+  // 6. dW{q,k,v} partials (3, B, H*dh, D): d{q,k,v}^T x per batch row
   const HeadRows<T> ga{{(const T*)dq, (const T*)dk, (const T*)dv}, t_pad,
                        heads, lg, batch};
   const RowCols<T> xb{(const T*)x, t, d_model, batch};
   const Partial pw{dw_part, (long long)hd * d_model, d_model};
   err = gemm<T>(ga, xb, pw, hd, d_model, t, t, 3 * batch, s);
   if (err != 0) return err;
-  // 6. dx = dq Wq + dk Wk + dv Wv over the real rows
+  // 7. dx = dq Wq + dk Wk + dv Wv over the real rows
   const HeadCols<T> gc{{(const T*)dq, (const T*)dk, (const T*)dv}, t, t_pad,
                        heads, lg};
   const WeightCols<T> w3{{(const T*)wq, (const T*)wk, (const T*)wv},
@@ -122,7 +123,7 @@ int block_bwd(const void* x, const void* wq, const void* wk, const void* wv,
   const RowOut<T> xe{(T*)dx, nullptr, d_model};
   err = gemm<T>(gc, w3, xe, batch * t, d_model, 3 * hd, hd, 1, s);
   if (err != 0) return err;
-  // 7. bias partials from the f32 gradients
+  // 8. bias partials from the f32 gradients
   const float* g32[3] = {(const float*)(dq32 ? dq32 : dq),
                          (const float*)(dk32 ? dk32 : dk),
                          (const float*)(dv32 ? dv32 : dv)};
@@ -137,17 +138,18 @@ int block_bwd(const void* x, const void* wq, const void* wk, const void* wv,
 // x, dout, dx: (B, T, D); wq, wk, wv: (H*dh, D), wo: (D, H*dh); key_valid:
 // the forward's (B, T_pad) uint8 mask; q, k, v, o, stats, o32: the
 // forward's (o32 = o for float32); dxo, dq, dk, dv: (B, H, T_pad, dh)
-// scratch in the input dtype; dvec: (B*H*T_pad) f32 scratch; dq32, dk32,
+// scratch in the input dtype; dvec: (B*H*T_pad) f32 scratch; dq_part:
+// (B*H, T_pad/64, T_pad, dh) f32 scratch; dq32, dk32,
 // dv32: (B, H, T_pad, dh) f32 scratch for bfloat16, NULL for float32;
 // dw_part: (3, B, H*dh, D), dwo_part: (B, D, H*dh), db_part: (B, 3, H*dh),
 // all f32. dtype, scale and the dropout parameters as in the forward.
-// Returns the cudaError_t of the seven launches.
+// Returns the cudaError_t of the eight launches.
 extern "C" int a8t_attention_block_bwd(
     const void* x, const void* wq, const void* wk, const void* wv,
     const void* wo, const void* key_valid, const void* dout, const void* q,
     const void* k, const void* v, const void* o, const void* o32,
-    const void* stats, void* dxo, void* dvec, void* dq, void* dk, void* dv,
-    void* dq32, void* dk32, void* dv32, void* dx, void* dw_part,
+    const void* stats, void* dxo, void* dvec, void* dq_part, void* dq,
+    void* dk, void* dv, void* dq32, void* dk32, void* dv32, void* dx, void* dw_part,
     void* dwo_part, void* db_part, int batch, int t, int d_model, int heads,
     int dh, int dtype, float scale, float inv_keep, uint32_t threshold,
     uint32_t seed, int dropout, void* stream) {
@@ -158,7 +160,8 @@ extern "C" int a8t_attention_block_bwd(
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0)
     return block_bwd<float>(x, wq, wk, wv, wo, key_valid, dout, q, k, v, o,
-                            o32, stats, dxo, dvec, dq, dk, dv, nullptr,
+                            o32, stats, dxo, dvec, dq_part, dq, dk, dv,
+                            nullptr,
                             nullptr, nullptr, dx, (float*)dw_part,
                             (float*)dwo_part, (float*)db_part, batch, t,
                             d_model, heads, dh, dtype, scale, inv_keep,
@@ -166,7 +169,7 @@ extern "C" int a8t_attention_block_bwd(
   if (dtype == 1)
     return block_bwd<__nv_bfloat16>(
         x, wq, wk, wv, wo, key_valid, dout, q, k, v, o, o32, stats, dxo, dvec,
-        dq, dk, dv, dq32, dk32, dv32, dx, (float*)dw_part, (float*)dwo_part,
+        dq_part, dq, dk, dv, dq32, dk32, dv32, dx, (float*)dw_part, (float*)dwo_part,
         (float*)db_part, batch, t, d_model, heads, dh, dtype, scale,
         inv_keep, threshold, seed, dropout, s);
   return (int)cudaErrorInvalidValue;

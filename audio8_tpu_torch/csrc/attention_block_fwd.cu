@@ -65,7 +65,7 @@ int block_fwd(const void* x, const void* wq, const void* bq, const void* wk,
   if (err != 0) return err;
   // 2. the attention core on (B, H, T_pad, dh)
   err = run_fwd(q, k, v, key_valid, o, stats, o32, batch, heads, t_pad, dh,
-                dtype, scale, inv_keep, threshold, seed, dropout, s);
+                dtype, scale, inv_keep, threshold, seed, dropout, 0, 0, s);
   if (err != 0) return err;
   // 3. out = [o_1 .. o_H] Wo^T + bo over the real rows
   const HeadCols<T> oa{{(const T*)o, nullptr, nullptr}, t, t_pad, heads, lg};

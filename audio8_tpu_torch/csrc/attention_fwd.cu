@@ -24,6 +24,17 @@
 //     bf16 instead (a different rounding point, covered by the stated
 //     bf16 tolerance).
 //
+// With xla = 1 it computes the JAX package's XLA attention instead
+// (audio8_tpu/nn/transformer.py:MultiHeadAttention, the path of
+// fused_attention=None): padded columns (c >= T) are out of the softmax
+// (-inf, no missing term), so a row with no valid key is uniform over its
+// T keys; dropout keeps (b, h, r, c) iff murmur((((b*H + h)*T + r)*T + c)
+// mod 2^32 ^ seed) >= threshold, one seed per call, as
+// nn/dropout.py:_hash_keep_mask over the (B, H, T, T) probabilities; and
+// with round_logits the scaled logits are rounded to bf16 before the
+// softmax (bf16_softmax under bf16 compute; JAX then runs the softmax in
+// bf16, this kernel in f32).
+//
 // What bounds it on H100: at T' ~ 1500 frames and dh = 64 the work is the
 // score and P.V products (4*T^2*dh FLOP per head) with a T^2 probability
 // matrix that must never reach device memory (the plain version writes
@@ -97,6 +108,29 @@ __device__ __forceinline__ bool hash_keep(uint32_t idx, uint32_t seed,
   return x >= threshold;
 }
 
+// The scaled logit; with round_logits (the "xla" semantics under
+// bf16_softmax) rounded to bf16 as JAX's bf16 einsum output is.
+__device__ __forceinline__ float logit(float s, float scale, int round_logits) {
+  const float v = s * scale;
+  return round_logits ? __bfloat162float(__float2bfloat16(v)) : v;
+}
+
+// Score of a key column that is not attended: -1e9 for an invalid key,
+// and for a padded column (c >= t) under the "kernel" semantics; -inf
+// (out of the softmax) for a padded column under "xla".
+__device__ __forceinline__ float masked_score(int c, int t, int xla) {
+  return (xla && c >= t) ? -INFINITY : NEG;
+}
+
+// First hash index of query row `row`: row * T_pad ("kernel", the TPU
+// kernel's per-head mask) or the flat (B, H, T, T) index of (bh, row, 0)
+// ("xla", nn/dropout.py's _hash_keep_mask), mod 2^32.
+__device__ __forceinline__ uint32_t drop_row(int xla, int bh, int row, int t,
+                                             int t_pad) {
+  return xla ? ((uint32_t)bh * (uint32_t)t + (uint32_t)row) * (uint32_t)t
+             : (uint32_t)row * (uint32_t)t_pad;
+}
+
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1)
@@ -128,7 +162,8 @@ __global__ void __launch_bounds__(NT)
                          float* __restrict__ o32, int n_heads, int t,
                          int t_pad,
                          float scale, float inv_keep, uint32_t threshold,
-                         uint32_t seed, int dropout) {
+                         uint32_t seed, int dropout, int xla,
+                         int round_logits) {
   constexpr int QLD = DH + 1;
   constexpr int KLD = DH + 1;
   constexpr int SLD = BKV + 1;
@@ -155,7 +190,7 @@ __global__ void __launch_bounds__(NT)
   const T* kb = k + base;
   const T* vb = v + base;
   const uint8_t* kvb = key_valid ? key_valid + (size_t)b * t : nullptr;
-  const uint32_t seed_g = seed + (uint32_t)bh;
+  const uint32_t seed_g = xla ? seed : seed + (uint32_t)bh;
   const T type_tag{};
 
   for (int idx = tid; idx < BQ * DH; idx += NT) {
@@ -210,7 +245,8 @@ __global__ void __launch_bounds__(NT)
       const bool ok = c < t && (kvb == nullptr || kvb[c] != 0);
 #pragma unroll
       for (int i = 0; i < 4; ++i)
-        s_s[(ty + 16 * i) * SLD + tx + 16 * j] = ok ? s[i][j] * scale : NEG;
+        s_s[(ty + 16 * i) * SLD + tx + 16 * j] =
+            ok ? logit(s[i][j], scale, round_logits) : masked_score(c, t, xla);
     }
     __syncthreads();
 
@@ -224,7 +260,7 @@ __global__ void __launch_bounds__(NT)
       float e0 = expf(v0 - m_new), e1 = expf(v1 - m_new);
       const float sum = warp_sum(e0 + e1);
       if (dropout) {
-        const uint32_t rowbase = (uint32_t)(q0 + r) * (uint32_t)t_pad;
+        const uint32_t rowbase = drop_row(xla, bh, q0 + r, t, t_pad);
         if (!hash_keep(rowbase + (uint32_t)(c0 + lane), seed_g, threshold))
           e0 = 0.f;
         if (!hash_keep(rowbase + (uint32_t)(c0 + lane + 32), seed_g, threshold))
@@ -263,7 +299,8 @@ __global__ void __launch_bounds__(NT)
   }
 
   // columns [n_tiles * BKV, t_pad) are -1e9 in the TPU kernel's softmax
-  const float missing = (float)(t_pad - n_tiles * BKV);
+  // and out of the XLA attention's
+  const float missing = xla ? 0.f : (float)(t_pad - n_tiles * BKV);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = ty + 16 * i;
@@ -326,7 +363,8 @@ __global__ void __launch_bounds__(128)
                                   float* __restrict__ o32, int n_heads,
                                   int t, int t_pad, float scale,
                                   float inv_keep, uint32_t threshold,
-                                  uint32_t seed, int dropout) {
+                                  uint32_t seed, int dropout, int xla,
+                                  int round_logits) {
   constexpr int LD = DH + 8;  // bf16 row pitch of the k/v tiles
   constexpr int NS = BKV / 8;  // 8-key score tiles per key tile
   constexpr int ND = DH / 8;   // 8-wide output tiles
@@ -341,7 +379,7 @@ __global__ void __launch_bounds__(128)
   const int r0 = blockIdx.x * BQ + warp * 16 + g;  // rows r0 and r0 + 8
   const size_t base = (size_t)bh * t * DH;
   const uint8_t* kvb = key_valid ? key_valid + (size_t)b * t : nullptr;
-  const uint32_t seed_g = seed + (uint32_t)bh;
+  const uint32_t seed_g = xla ? seed : seed + (uint32_t)bh;
 
   auto q2 = [&](int r, int c) -> uint32_t {
     return r < t ? *reinterpret_cast<const uint32_t*>(q + base +
@@ -404,7 +442,8 @@ __global__ void __launch_bounds__(128)
       for (int e = 0; e < 4; ++e) {
         const int c = c0 + n * 8 + 2 * t4 + (e & 1);
         const bool ok = c < t && (kvb == nullptr || kvb[c] != 0);
-        s[n][e] = ok ? s[n][e] * scale : NEG;
+        s[n][e] = ok ? logit(s[n][e], scale, round_logits)
+                     : masked_score(c, t, xla);
         mx[e / 2] = fmaxf(mx[e / 2], s[n][e]);
       }
     float alpha[2], sum[2] = {0.f, 0.f};
@@ -423,9 +462,9 @@ __global__ void __launch_bounds__(128)
         s[n][e] = expf(s[n][e] - m_r[e / 2]);
         sum[e / 2] += s[n][e];
         if (dropout) {
-          const uint32_t r = (uint32_t)(r0 + (e / 2) * 8);
           const uint32_t c = (uint32_t)(c0 + n * 8 + 2 * t4 + (e & 1));
-          if (!hash_keep(r * (uint32_t)t_pad + c, seed_g, threshold))
+          if (!hash_keep(drop_row(xla, bh, r0 + (e / 2) * 8, t, t_pad) + c,
+                         seed_g, threshold))
             s[n][e] = 0.f;
         }
       }
@@ -461,7 +500,8 @@ __global__ void __launch_bounds__(128)
   }
 
   // columns [n_tiles * BKV, t_pad) are -1e9 in the TPU kernel's softmax
-  const float missing = (float)(t_pad - n_tiles * BKV);
+  // and out of the XLA attention's
+  const float missing = xla ? 0.f : (float)(t_pad - n_tiles * BKV);
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int r = r0 + h * 8;
@@ -489,22 +529,22 @@ template <int DH>
 int launch_mma(const void* q, const void* k, const void* v, const void* kv,
                void* o, float* stats, float* o32, int batch, int heads, int t, float scale,
                float inv_keep, uint32_t threshold, uint32_t seed, int dropout,
-               cudaStream_t stream) {
+               int xla, int round_logits, cudaStream_t stream) {
   const int t_pad = (t + 127) / 128 * 128;
   const dim3 grid((unsigned)((t + BQ - 1) / BQ), (unsigned)(batch * heads));
   attention_fwd_bf16_mma_kernel<DH><<<grid, 128, 0, stream>>>(
       (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
       (const __nv_bfloat16*)v, (const uint8_t*)kv, (__nv_bfloat16*)o, stats,
       o32, heads,
-      t, t_pad, scale, inv_keep, threshold, seed, dropout);
+      t, t_pad, scale, inv_keep, threshold, seed, dropout, xla, round_logits);
   return (int)cudaGetLastError();
 }
 
 template <typename T, int DH>
 int launch(const void* q, const void* k, const void* v, const void* kv,
            void* o, float* stats, float* o32, int batch, int heads, int t, float scale, float inv_keep,
-           uint32_t threshold, uint32_t seed, int dropout,
-           cudaStream_t stream) {
+           uint32_t threshold, uint32_t seed, int dropout, int xla,
+           int round_logits, cudaStream_t stream) {
   const size_t smem = sizeof(float) * smem_floats<DH>();
   cudaError_t err = cudaFuncSetAttribute(
       attention_fwd_kernel<T, DH>,
@@ -515,27 +555,32 @@ int launch(const void* q, const void* k, const void* v, const void* kv,
   attention_fwd_kernel<T, DH><<<grid, NT, smem, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (const uint8_t*)kv, (T*)o, stats,
       o32, heads,
-      t, t_pad, scale, inv_keep, threshold, seed, dropout);
+      t, t_pad, scale, inv_keep, threshold, seed, dropout, xla, round_logits);
   return (int)cudaGetLastError();
 }
 
 int dispatch_mma(int dh, const void* q, const void* k, const void* v,
                  const void* kv, void* o, float* stats, float* o32, int batch, int heads, int t,
                  float scale, float inv_keep, uint32_t threshold,
-                 uint32_t seed, int dropout, cudaStream_t stream) {
+                 uint32_t seed, int dropout, int xla, int round_logits,
+                 cudaStream_t stream) {
   switch (dh) {
     case 16:
       return launch_mma<16>(q, k, v, kv, o, stats, o32, batch, heads, t, scale, inv_keep,
-                            threshold, seed, dropout, stream);
+                            threshold, seed, dropout, xla, round_logits,
+                            stream);
     case 32:
       return launch_mma<32>(q, k, v, kv, o, stats, o32, batch, heads, t, scale, inv_keep,
-                            threshold, seed, dropout, stream);
+                            threshold, seed, dropout, xla, round_logits,
+                            stream);
     case 64:
       return launch_mma<64>(q, k, v, kv, o, stats, o32, batch, heads, t, scale, inv_keep,
-                            threshold, seed, dropout, stream);
+                            threshold, seed, dropout, xla, round_logits,
+                            stream);
     case 128:
       return launch_mma<128>(q, k, v, kv, o, stats, o32, batch, heads, t, scale, inv_keep,
-                             threshold, seed, dropout, stream);
+                             threshold, seed, dropout, xla, round_logits,
+                             stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -545,20 +590,22 @@ template <typename T>
 int dispatch_dh(int dh, const void* q, const void* k, const void* v,
                 const void* kv, void* o, float* stats, float* o32, int batch, int heads, int t,
                 float scale, float inv_keep, uint32_t threshold, uint32_t seed,
-                int dropout, cudaStream_t stream) {
+                int dropout, int xla, int round_logits,
+                cudaStream_t stream) {
   switch (dh) {
     case 16:
       return launch<T, 16>(q, k, v, kv, o, stats, o32, batch, heads, t, scale, inv_keep,
-                           threshold, seed, dropout, stream);
+                           threshold, seed, dropout, xla, round_logits, stream);
     case 32:
       return launch<T, 32>(q, k, v, kv, o, stats, o32, batch, heads, t, scale, inv_keep,
-                           threshold, seed, dropout, stream);
+                           threshold, seed, dropout, xla, round_logits, stream);
     case 64:
       return launch<T, 64>(q, k, v, kv, o, stats, o32, batch, heads, t, scale, inv_keep,
-                           threshold, seed, dropout, stream);
+                           threshold, seed, dropout, xla, round_logits, stream);
     case 128:
       return launch<T, 128>(q, k, v, kv, o, stats, o32, batch, heads, t, scale, inv_keep,
-                            threshold, seed, dropout, stream);
+                            threshold, seed, dropout, xla, round_logits,
+                            stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -569,24 +616,26 @@ int run_fwd(const void* q, const void* k, const void* v,
             const void* key_valid, void* o, void* stats, void* o32,
             int batch, int heads, int t, int dh, int dtype, float scale,
             float inv_keep, uint32_t threshold, uint32_t seed, int dropout,
-            cudaStream_t s) {
+            int xla, int round_logits, cudaStream_t s) {
   if (batch <= 0 || heads <= 0 || t <= 0) return (int)cudaErrorInvalidValue;
   if (dtype == 0)
     return dispatch_dh<float>(dh, q, k, v, key_valid, o, (float*)stats,
                               (float*)o32, batch, heads, t,
-                              scale, inv_keep, threshold, seed, dropout, s);
+                              scale, inv_keep, threshold, seed, dropout, xla,
+                              round_logits, s);
   const bool aligned16 =
       (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)o) % 16) == 0;
   if (dtype == 1 && aligned16)
     return dispatch_mma(dh, q, k, v, key_valid, o, (float*)stats,
                         (float*)o32, batch, heads, t, scale,
-                        inv_keep, threshold, seed, dropout, s);
+                        inv_keep, threshold, seed, dropout, xla, round_logits,
+                        s);
   if (dtype == 1)
     return dispatch_dh<__nv_bfloat16>(dh, q, k, v, key_valid, o,
                                       (float*)stats, (float*)o32, batch,
                                       heads,
                                       t, scale, inv_keep, threshold, seed,
-                                      dropout, s);
+                                      dropout, xla, round_logits, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -597,15 +646,18 @@ int run_fwd(const void* q, const void* k, const void* v,
 // o32: (B, H, T, dh) f32 copy of the output before rounding, or NULL.
 // dtype: 0 = float32, 1 = bfloat16. inv_keep = 1 / (1 - rate); threshold
 // and seed are the uint32 dropout parameters (dropout = 0 skips the hash).
-// Returns the cudaError_t of the launch.
+// xla = 0: the TPU kernel's semantics, 1: the XLA attention's;
+// round_logits = 1 rounds the scaled logits to bf16 (xla under
+// bf16_softmax). Returns the cudaError_t of the launch.
 extern "C" int a8t_attention_fwd(const void* q, const void* k, const void* v,
                                  const void* key_valid, void* o,
                                  void* stats, void* o32, int batch,
                                  int heads, int t, int dh, int dtype,
                                  float scale, float inv_keep,
                                  uint32_t threshold, uint32_t seed,
-                                 int dropout, void* stream) {
+                                 int dropout, int xla, int round_logits,
+                                 void* stream) {
   return run_fwd(q, k, v, key_valid, o, stats, o32, batch, heads, t, dh,
-                 dtype, scale, inv_keep, threshold, seed, dropout,
-                 (cudaStream_t)stream);
+                 dtype, scale, inv_keep, threshold, seed, dropout, xla,
+                 round_logits, (cudaStream_t)stream);
 }

@@ -7,9 +7,12 @@ the source text, the text of the files of this directory it includes, and
 the compiler flags: an unchanged source is not rebuilt,
 and an edited one never loads a stale library. The libraries are loaded
 with ``ctypes`` by ``audio8_tpu_torch.ops._ext``; nothing here includes
-PyTorch's headers, so a cold build takes seconds.
+PyTorch's headers, so a cold build takes seconds. ``ptxas -v`` reports
+each kernel's registers and spills; the report is kept beside the library
+(``<stem>-<hash>.log``) and read back by :func:`ptxas_report`.
 
-    python -m audio8_tpu_torch.csrc.build      # build (or find) every kernel
+    python -m audio8_tpu_torch.csrc.build      # build every kernel, print
+                                               # registers and spills
 """
 from __future__ import annotations
 
@@ -24,7 +27,7 @@ from typing import Dict, Sequence
 CSRC = os.path.dirname(os.path.abspath(__file__))
 SOURCES = tuple(sorted(f for f in os.listdir(CSRC) if f.endswith(".cu")))
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 def build_dir() -> str:
@@ -94,10 +97,62 @@ def build(sources: Sequence[str] = SOURCES) -> Dict[str, str]:
         if proc.returncode != 0:
             failures.append(f"{s}:\n{log.decode(errors='replace')}")
             continue
+        with open(log_path(out[s]), "wb") as f:
+            f.write(log)
         os.replace(tmp, out[s])  # atomic: a reader never sees half a file
     if failures:
         raise RuntimeError("nvcc failed for " + "\n".join(failures))
     return out
+
+
+def log_path(library: str) -> str:
+    return os.path.splitext(library)[0] + ".log"
+
+
+def kernel_name(mangled: str) -> str:
+    """``name<args>`` of a mangled ``__global__`` function whose name ends
+    in ``kernel`` (type arguments stay mangled), else ``mangled``."""
+    for i in range(len(mangled)):
+        j = i
+        while j < len(mangled) and mangled[j].isdigit():
+            j += 1
+        if j == i or mangled[i] == "0":
+            continue
+        ident = mangled[j:j + int(mangled[i:j])]
+        if ident.endswith("kernel") and ident.isidentifier():
+            rest = mangled[j + len(ident):]
+            args = re.match(r"I((?:L[a-z]-?\d+E)+)E", rest)
+            if args:  # integer template arguments
+                return ident + "<" + ", ".join(
+                    re.findall(r"L[a-z](-?\d+)E", args.group(1))) + ">"
+            args = re.match(r"I(.+?)E+v", rest)  # others, still mangled
+            return ident + (f"<{args.group(1)}>" if args else "")
+    return mangled
+
+
+def ptxas_report(library: str) -> Dict[str, dict]:
+    """``{kernel: {"registers", "spill_stores", "spill_loads"}}`` (bytes
+    for the spills) from the ``ptxas -v`` log kept beside ``library``."""
+    out, entry, props = {}, None, None
+    if not os.path.exists(log_path(library)):
+        return out
+    with open(log_path(library), errors="replace") as f:
+        for line in f:
+            m = re.search(r"Compiling entry function '([^']+)'", line)
+            if m:
+                entry = kernel_name(m.group(1))
+            m = re.search(r"Function properties for (\S+)", line)
+            if m:
+                props = kernel_name(m.group(1))
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          line)
+            if m and props is not None:
+                out.setdefault(props, {}).update(
+                    spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+            m = re.search(r"Used (\d+) registers", line)
+            if m and entry is not None:
+                out.setdefault(entry, {})["registers"] = int(m.group(1))
+    return {k: r for k, r in out.items() if "registers" in r}
 
 
 if __name__ == "__main__":
@@ -105,4 +160,8 @@ if __name__ == "__main__":
     libs = build()
     for src, lib in libs.items():
         print(f"{src} -> {lib}")
+        for kernel, r in ptxas_report(lib).items():
+            print(f"  {kernel}: {r['registers']} registers, spills "
+                  f"{r['spill_stores']} B stored / {r['spill_loads']} B "
+                  "loaded")
     print(f"build seconds: {time.perf_counter() - t0:.3f}")

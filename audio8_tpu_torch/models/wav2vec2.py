@@ -70,14 +70,14 @@ def check_supported(cfg: EncoderConfig) -> None:
     for field, value, what in _SUPPORTED:
         if getattr(cfg, field) != value:
             raise NotImplementedError(
-                f"{what} is not ported yet (ROADMAP.md, 'Modules to "
-                "port'): the PyTorch port serves the group-norm, post-norm "
-                "wav2vec2 encoder")
+                f"{what} is not ported yet (ROADMAP.md queue 1, item "
+                f"{8 if field == 'moe_experts' else 7}): the PyTorch port "
+                "runs the group-norm, post-norm wav2vec2 encoder")
     if cfg.fused_attention not in (None, True, "block"):
         raise NotImplementedError(
             f"fused_attention={cfg.fused_attention!r} is not a setting of "
-            "the JAX package (ROADMAP.md): None or True run the fused "
-            "attention core, 'block' the attention block")
+            "the JAX package (ROADMAP.md): None, True or 'block' "
+            "(nn/transformer.py's dispatch table)")
 
 
 class _Block(nn.Module):
@@ -135,10 +135,11 @@ class AudioTransformerEncoder(TransformerEncoderStack):
                  dtype: torch.dtype = torch.float32,
                  dropout_rate: float = 0.0,
                  attention_dropout: Optional[float] = None,
-                 layer_drop: float = 0.0, fused_attention=None):
+                 layer_drop: float = 0.0, fused_attention=None,
+                 bf16_softmax: bool = True):
         super().__init__(num_heads, d_model, num_layers, d_ff, dtype,
                          dropout_rate, attention_dropout, layer_drop,
-                         fused_attention)
+                         fused_attention, bf16_softmax)
         self.dropout_rate = dropout_rate
         self.pos_conv = nn.Sequential(PositionalConv(
             d_model, conv_pos_kernel, conv_pos_groups, dtype=dtype))
@@ -183,7 +184,8 @@ class Wav2Vec2Encoder(nn.Module):
         self.encoder = AudioTransformerEncoder(
             cfg.d_model, cfg.num_heads, cfg.num_layers, cfg.d_ff,
             cfg.conv_pos_kernel, cfg.conv_pos_groups, dtype, cfg.dropout,
-            cfg.attention_dropout, cfg.layer_drop, cfg.fused_attention)
+            cfg.attention_dropout, cfg.layer_drop, cfg.fused_attention,
+            cfg.bf16_softmax)
 
     def forward(self, x: torch.Tensor,
                 input_lengths: Optional[torch.Tensor] = None,
@@ -369,7 +371,8 @@ class Wav2Vec2Model(nn.Module):
         self.encoder = AudioTransformerEncoder(
             cfg.d_model, cfg.num_heads, cfg.num_layers, cfg.d_ff,
             cfg.conv_pos_kernel, cfg.conv_pos_groups, dtype, cfg.dropout,
-            cfg.attention_dropout, cfg.layer_drop, cfg.fused_attention)
+            cfg.attention_dropout, cfg.layer_drop, cfg.fused_attention,
+            cfg.bf16_softmax)
         self.quantizer = GumbelVectorQuantizer(
             cfg.fx_dim, cfg.num_vq_vars, cfg.num_vq_groups, cfg.final_dim,
             dtype)

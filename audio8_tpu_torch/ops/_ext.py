@@ -36,17 +36,16 @@ _SIGNATURES = {
     "dropout.cu": {"main": ("a8t_dropout",
                             [_P, _P, _L, _U, _U, _F, _I, _P])},
     "attention_fwd.cu": {"main": ("a8t_attention_fwd",
-                                  [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                                   _I, _I, _F, _F, _U, _U, _I, _P])},
+                                  [_P] * 7 + [_I] * 5
+                                  + [_F, _F, _U, _U, _I, _I, _I, _P])},
     "attention_bwd.cu": {"main": ("a8t_attention_bwd",
-                                  [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                   _P, _I, _I, _I, _I, _I, _F, _F, _U, _U,
-                                   _I, _P])},
+                                  [_P] * 15 + [_I] * 5
+                                  + [_F, _F, _U, _U, _I, _I, _I, _P])},
     "attention_block_fwd.cu": {"main": ("a8t_attention_block_fwd",
                                         [_P] * 17 + [_I] * 6
                                         + [_F, _F, _U, _U, _I, _P])},
     "attention_block_bwd.cu": {"main": ("a8t_attention_block_bwd",
-                                        [_P] * 25 + [_I] * 6
+                                        [_P] * 26 + [_I] * 6
                                         + [_F, _F, _U, _U, _I, _P])},
     "ctc_loss.cu": {"main": ("a8t_ctc_loss",
                              [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,

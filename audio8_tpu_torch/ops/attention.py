@@ -1,17 +1,29 @@
 """Attention core: softmax(q k^T * scale, key mask) [hash dropout] v.
 
 Counterpart of ``audio8_tpu/ops/pallas/attention_kernel.py:attention_core``
-and its custom VJP. Layout is the JAX one: q, k, v ``(B, H, T, dh)``,
-key_valid ``(B, T)``. On CUDA tensors :func:`attention_core` launches
-``csrc/attention_fwd.cu`` and, when a gradient is needed, its backward
-launches ``csrc/attention_bwd.cu``. On CPU tensors it runs the plain
-versions, which follow the TPU kernel step by step:
-:func:`attention_core_plain` (``_probs`` + ``_fwd_kernel``: T padded to a
-multiple of 128, -1e9 for invalid keys, f32 softmax, the integer-hash
-dropout mask, probabilities cast to the input dtype before P.V) and
-:func:`attention_core_bwd_plain` (``_bwd_kernel``: p recomputed, ds not
-zeroed at masked columns, pd and ds cast to the input dtype before the
-products).
+and its custom VJP and, with ``xla=True``, of the XLA attention of
+``audio8_tpu/nn/transformer.py:MultiHeadAttention`` (the JAX package's
+path for ``fused_attention=None`` and wherever its kernel gates refuse).
+Layout is the JAX one: q, k, v ``(B, H, T, dh)``, key_valid ``(B, T)``.
+On CUDA tensors :func:`attention_core` launches ``csrc/attention_fwd.cu``
+and, when a gradient is needed, its backward launches
+``csrc/attention_bwd.cu``. On CPU tensors it runs the plain versions,
+:func:`attention_core_plain` and :func:`attention_core_bwd_plain`. Two
+semantics, the same arithmetic otherwise (f32 scores and softmax, the
+probabilities and ds cast to the input dtype before their products):
+
+* "kernel" (the TPU kernel's ``_probs``, ``_fwd_kernel``,
+  ``_bwd_kernel``): T padded to a multiple of 128, -1e9 for invalid and
+  padded keys (a row with no valid key is uniform over T_pad), dropout
+  keyed by ``row * T_pad + col`` with seed ``seed + b*H + h``, ds not
+  zeroed at masked columns;
+* "xla": softmax over the T real keys only, -1e9 for invalid keys (a row
+  with no valid key is uniform over its T keys), dropout keyed by the
+  flat (B, H, T, T) index with one seed (``_hash_keep_mask``), ds zeroed
+  at masked columns (the gradient of ``jnp.where``). With
+  ``bf16_softmax`` and bf16 inputs the scaled logits are rounded to bf16
+  before the softmax, which then runs in f32 (JAX runs it in bf16: a
+  documented deviation).
 """
 from __future__ import annotations
 
@@ -21,11 +33,13 @@ import torch
 
 from audio8_tpu_torch.ops import _ext
 from audio8_tpu_torch.ops.hashrand import MASK32 as _MASK32
-from audio8_tpu_torch.ops.hashrand import keep_threshold, mix32
+from audio8_tpu_torch.ops.hashrand import hash_bits, keep_threshold, mix32
 
 SOURCE = "attention_fwd.cu"
 BWD_SOURCE = "attention_bwd.cu"
 NEG = -1e9
+HEAD_DIMS = (16, 32, 64, 128)
+KEY_TILE = 64  # keys per CTA of the backward kernel: one dq partial each
 
 
 def round_up(x: int, m: int) -> int:
@@ -43,27 +57,61 @@ def hash_keep(t_pad: int, seeds: torch.Tensor, rate: float) -> torch.Tensor:
         >= keep_threshold(rate)
 
 
+def _round_logits(xla: bool, bf16_softmax: bool, dtype) -> bool:
+    return xla and bf16_softmax and dtype == torch.bfloat16
+
+
+def _semantics_grid(q, xla):
+    t = q.shape[2]
+    return t if xla else round_up(t, 128)
+
+
+def _keep(b, h, t_grid, rate, seed, xla, device):
+    if rate <= 0.0:
+        return None
+    if xla:
+        return hash_bits((b, h, t_grid, t_grid), seed, device) \
+            >= keep_threshold(rate)
+    g = torch.arange(b * h, device=device, dtype=torch.int64)
+    return hash_keep(t_grid, (int(seed) + g) & _MASK32, rate).view(
+        b, h, t_grid, t_grid)
+
+
+def _scores(q, k, v, key_valid, scale, xla, bf16_softmax, extra=()):
+    """Pads q, k, v (and ``extra``) to the semantics' grid; returns the
+    masked f32 scores, the (B, T_grid) key mask and the padded tensors."""
+    b, h, t, _ = q.shape
+    t_grid = _semantics_grid(q, xla)
+    pad = (0, 0, 0, t_grid - t)
+    padded = [torch.nn.functional.pad(a, pad) for a in (q, k, v, *extra)]
+    qp, kp = padded[0], padded[1]
+    s = torch.matmul(qp.float(), kp.float().transpose(-1, -2)) * scale
+    if _round_logits(xla, bf16_softmax, q.dtype):
+        s = s.to(torch.bfloat16).float()
+    valid = (torch.arange(t_grid, device=q.device) < t).expand(b, t_grid)
+    if key_valid is not None:
+        kv = torch.nn.functional.pad(key_valid.to(torch.bool),
+                                     (0, t_grid - t))
+        valid = valid & kv
+    s = torch.where(valid[:, None, None, :], s,
+                    torch.tensor(NEG, device=s.device))
+    return s, valid, padded
+
+
 def attention_core_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          key_valid: Optional[torch.Tensor], scale: float,
-                         rate: float = 0.0, seed: int = 0) -> torch.Tensor:
-    """Plain version of the TPU kernel's forward (``_probs`` +
-    ``_fwd_kernel``), computed on the T_pad = round_up(T, 128) grid."""
+                         rate: float = 0.0, seed: int = 0, *,
+                         xla: bool = False,
+                         bf16_softmax: bool = False) -> torch.Tensor:
+    """Plain version of the forward in either semantics (the module
+    docstring), computed on the semantics' grid."""
     b, h, t, dh = q.shape
-    t_pad = round_up(t, 128)
-    pad = (0, 0, 0, t_pad - t)
-    qp, kp, vp = (torch.nn.functional.pad(a, pad) for a in (q, k, v))
-    s = torch.matmul(qp.float(), kp.float().transpose(-1, -2)) * scale
-    valid = torch.arange(t_pad, device=q.device) < t
-    valid = valid.expand(b, t_pad)
-    if key_valid is not None:
-        kv = torch.nn.functional.pad(key_valid.to(torch.bool), (0, t_pad - t))
-        valid = valid & kv
-    s = torch.where(valid[:, None, None, :], s, torch.tensor(NEG, device=s.device))
+    s, _, (qp, kp, vp) = _scores(q, k, v, key_valid, scale, xla,
+                                 bf16_softmax)
     p = torch.softmax(s, dim=-1)
-    if rate > 0.0:
-        g = torch.arange(b * h, device=q.device, dtype=torch.int64)
-        keep = hash_keep(t_pad, (int(seed) + g) & _MASK32, rate)
-        p = torch.where(keep.view(b, h, t_pad, t_pad), p * (1.0 / (1.0 - rate)),
+    keep = _keep(b, h, s.shape[-1], rate, seed, xla, q.device)
+    if keep is not None:
+        p = torch.where(keep, p * (1.0 / (1.0 - rate)),
                         torch.zeros((), device=p.device))
     out = torch.matmul(p.to(q.dtype), vp)
     return out[:, :, :t, :]
@@ -72,36 +120,30 @@ def attention_core_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def attention_core_bwd_plain(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, key_valid: Optional[torch.Tensor],
                              scale: float, rate: float, seed: int,
-                             dout: torch.Tensor):
-    """Plain version of the TPU kernel's backward (``_bwd_kernel``):
-    ``(dq, dk, dv)`` by recompute on the T_pad grid, in the input dtype."""
+                             dout: torch.Tensor, *, xla: bool = False,
+                             bf16_softmax: bool = False):
+    """Plain version of the backward: ``(dq, dk, dv)`` by recompute on the
+    semantics' grid, in the input dtype."""
     return tuple(g.to(q.dtype) for g in attention_core_bwd_f32(
-        q, k, v, key_valid, scale, rate, seed, dout))
+        q, k, v, key_valid, scale, rate, seed, dout, xla=xla,
+        bf16_softmax=bf16_softmax))
 
 
 def attention_core_bwd_f32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            key_valid: Optional[torch.Tensor], scale: float,
-                           rate: float, seed: int, dout: torch.Tensor):
+                           rate: float, seed: int, dout: torch.Tensor, *,
+                           xla: bool = False, bf16_softmax: bool = False):
     """:func:`attention_core_bwd_plain` before its final rounding: the f32
     ``(dq, dk, dv)`` that the attention block's bias gradients sum."""
     b, h, t, dh = q.shape
-    t_pad = round_up(t, 128)
-    pad = (0, 0, 0, t_pad - t)
-    qp, kp, vp, dop = (torch.nn.functional.pad(a, pad).float()
-                       for a in (q, k, v, dout))
-    s = torch.matmul(qp, kp.transpose(-1, -2)) * scale
-    valid = (torch.arange(t_pad, device=q.device) < t).expand(b, t_pad)
-    if key_valid is not None:
-        kv = torch.nn.functional.pad(key_valid.to(torch.bool), (0, t_pad - t))
-        valid = valid & kv
-    s = torch.where(valid[:, None, None, :], s, torch.tensor(NEG, device=s.device))
+    s, valid, padded = _scores(q, k, v, key_valid, scale, xla,
+                               bf16_softmax, extra=(dout,))
+    qp, kp, vp, dop = (a.float() for a in padded)
     p = torch.softmax(s, dim=-1)
     dpd = torch.matmul(dop, vp.transpose(-1, -2))
     zero = torch.zeros((), device=p.device)
-    if rate > 0.0:
-        g = torch.arange(b * h, device=q.device, dtype=torch.int64)
-        keep = hash_keep(t_pad, (int(seed) + g) & _MASK32, rate)
-        keep = keep.view(b, h, t_pad, t_pad)
+    keep = _keep(b, h, s.shape[-1], rate, seed, xla, q.device)
+    if keep is not None:
         pd = torch.where(keep, p * (1.0 / (1.0 - rate)), zero)
         dp = torch.where(keep, dpd * (1.0 / (1.0 - rate)), zero)
     else:
@@ -109,18 +151,17 @@ def attention_core_bwd_f32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     pd = pd.to(q.dtype).float()
     dv = torch.matmul(pd.transpose(-1, -2), dop)
     ds = p * (dp - torch.sum(dp * p, dim=-1, keepdim=True))
+    if xla:
+        ds = torch.where(valid[:, None, None, :], ds, zero)
     ds = ds.to(q.dtype).float()
     dq = torch.matmul(ds, kp) * scale
     dk = torch.matmul(ds.transpose(-1, -2), qp) * scale
     return tuple(x[:, :, :t, :] for x in (dq, dk, dv))
 
 
-def _checked(q, k, v, key_valid, rate, what):
-    """Validate CUDA inputs; returns the (B, T) uint8 key mask or None."""
-    tensors = [q, k, v] + ([] if key_valid is None else [key_valid])
-    if not all(a.is_cuda and a.device == q.device for a in tensors):
-        raise ValueError(f"{what}: inputs must all be on the CPU or all on "
-                         "one CUDA device")
+def validate(q, k, v, key_valid, rate, what):
+    """The kernels' conditions on their inputs, on any device: raises on
+    a dtype, shape, head dim or rate the kernels do not take."""
     if q.dtype not in _ext.DTYPE_CODES or k.dtype != q.dtype \
             or v.dtype != q.dtype:
         raise TypeError(f"{what}: dtypes {q.dtype}/{k.dtype}/{v.dtype}; "
@@ -130,28 +171,63 @@ def _checked(q, k, v, key_valid, rate, what):
                          f"{tuple(k.shape)}, {tuple(v.shape)}; want equal "
                          "(B, H, T, dh) (self-attention)")
     b, h, t, dh = q.shape
-    if dh not in (16, 32, 64, 128):
-        raise ValueError(f"{what}: head dim {dh} not in (16, 32, 64, 128)")
+    if dh not in HEAD_DIMS:
+        raise ValueError(f"{what}: head dim {dh} not in {HEAD_DIMS}")
     if b * h > 65535:
         raise ValueError(f"{what}: B*H = {b * h} > 65535")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError(f"{what}: q, k, v must be contiguous")
     if not 0.0 <= rate < 1.0:
         raise ValueError(f"{what}: rate {rate} not in [0, 1)")
-    if key_valid is None:
-        return None
-    if key_valid.shape != (b, t):
+    if key_valid is not None and key_valid.shape != (b, t):
         raise ValueError(f"{what}: key_valid {tuple(key_valid.shape)} != "
                          f"{(b, t)}")
-    return key_valid.to(torch.uint8).contiguous()
+
+
+def validate_bwd(q, dout, o32, stats, what="attention_core_bwd"):
+    """The backward kernel's conditions on the output gradient and the
+    forward's residuals, on any device."""
+    if dout.shape != q.shape or dout.dtype != q.dtype:
+        raise ValueError(f"{what}: dout {tuple(dout.shape)} {dout.dtype} "
+                         f"must match q {tuple(q.shape)} {q.dtype}")
+    if o32 is None or o32.shape != q.shape or o32.dtype != torch.float32:
+        raise ValueError(f"{what}: o32 must be the forward's f32 output")
+    b, h, t, _ = q.shape
+    if stats is None or stats.shape != (b * h * t, 2):
+        raise ValueError(f"{what}: the forward's row statistics are "
+                         "missing")
+
+
+def _checked(q, k, v, key_valid, rate, what):
+    """Validate CUDA inputs; returns the (B, T) uint8 key mask or None."""
+    tensors = [q, k, v] + ([] if key_valid is None else [key_valid])
+    if not all(a.is_cuda and a.device == q.device for a in tensors):
+        raise ValueError(f"{what}: inputs must all be on the CPU or all on "
+                         "one CUDA device")
+    validate(q, k, v, key_valid, rate, what)
+    return None if key_valid is None else \
+        key_valid.to(torch.uint8).contiguous()
+
+
+def aligned(*tensors: torch.Tensor) -> list:
+    """The backward kernel moves rows as 16-byte copies: a tensor whose
+    data pointer is off a 16-byte boundary is replaced by a fresh
+    (aligned) copy."""
+    return [a if a.data_ptr() % 16 == 0 else a.clone() for a in tensors]
 
 
 def _ptr(x: Optional[torch.Tensor]):
     return None if x is None else x.data_ptr()
 
 
+def _dropout_args(rate: float, seed: int):
+    return (1.0 / (1.0 - rate), keep_threshold(rate), int(seed) & _MASK32,
+            int(rate > 0.0))
+
+
 def _forward_kernel(q, k, v, key_valid, scale, rate, seed,
-                    with_stats: bool):
+                    with_stats: bool, xla: bool = False,
+                    bf16_softmax: bool = False):
     """Launch ``attention_fwd.cu``; returns ``(o, stats, o32)``. With
     ``with_stats`` the kernel also writes the row statistics and the
     output in f32 (``o`` itself for f32 inputs) for the backward; without
@@ -170,8 +246,8 @@ def _forward_kernel(q, k, v, key_valid, scale, rate, seed,
                   o.data_ptr(), _ptr(stats),
                   None if o32 is o else _ptr(o32), b, h, t, dh,
                   _ext.DTYPE_CODES[q.dtype], float(scale),
-                  1.0 / (1.0 - rate), keep_threshold(rate),
-                  int(seed) & _MASK32, int(rate > 0.0),
+                  *_dropout_args(rate, seed), int(xla),
+                  int(_round_logits(xla, bf16_softmax, q.dtype)),
                   _ext.stream_handle(q.device)), "attention_core")
     attention_core.launches += 1
     return o, stats, o32
@@ -180,82 +256,99 @@ def _forward_kernel(q, k, v, key_valid, scale, rate, seed,
 def attention_core_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        o32: torch.Tensor, stats: torch.Tensor,
                        key_valid: Optional[torch.Tensor], scale: float,
-                       rate: float, seed: int, dout: torch.Tensor):
+                       rate: float, seed: int, dout: torch.Tensor, *,
+                       xla: bool = False, bf16_softmax: bool = False,
+                       f32_copies: bool = False):
     """The backward kernel on CUDA tensors: ``(dq, dk, dv)`` from the
     forward's inputs, its output in f32 ``o32`` and its row ``stats``
-    (both written by the forward kernel when a gradient is needed)."""
+    (both written by the forward kernel when a gradient is needed). One
+    pass over the keys: the kernel writes one f32 dq partial per 64-key
+    tile into a workspace, summed in a fixed order by a last pass. With
+    ``f32_copies`` it also returns the gradients in f32 before their
+    rounding (what the attention block's bias gradients sum)."""
     kv = _checked(q, k, v, key_valid, rate, "attention_core_bwd")
+    validate_bwd(q, dout, o32, stats)
     b, h, t, dh = q.shape
-    if dout.shape != q.shape or dout.dtype != q.dtype \
-            or o32.shape != q.shape or o32.dtype != torch.float32:
-        raise ValueError("attention_core_bwd: dout must match q, o32 be "
-                         "its f32 output")
-    if stats is None or stats.shape != (b * h * t, 2):
-        raise ValueError("attention_core_bwd: the forward's row statistics "
-                         "are missing")
-    dout, o32 = dout.contiguous(), o32.contiguous()
+    q, k, v, dout, o32 = aligned(q, k, v, dout.contiguous(),
+                                 o32.contiguous())
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
-    dvec = torch.empty((b * h * t,), dtype=torch.float32, device=q.device)
+    f32 = dict(dtype=torch.float32, device=q.device)
+    dvec = torch.empty((b * h * t,), **f32)
+    dq_part = torch.empty((b * h, -(-t // KEY_TILE), t, dh), **f32)
+    copies = [torch.empty(q.shape, **f32) for _ in range(3)] \
+        if f32_copies else [None] * 3
     fn = _ext.function(BWD_SOURCE)
     _ext.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o32.data_ptr(),
                   dout.data_ptr(), _ptr(kv), stats.data_ptr(),
-                  dvec.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-                  dv.data_ptr(), b, h, t, dh, _ext.DTYPE_CODES[q.dtype],
-                  float(scale), 1.0 / (1.0 - rate), keep_threshold(rate),
-                  int(seed) & _MASK32, int(rate > 0.0),
+                  dvec.data_ptr(), dq_part.data_ptr(), dq.data_ptr(),
+                  dk.data_ptr(), dv.data_ptr(), *map(_ptr, copies),
+                  b, h, t, dh,
+                  _ext.DTYPE_CODES[q.dtype], float(scale),
+                  *_dropout_args(rate, seed), int(xla),
+                  int(_round_logits(xla, bf16_softmax, q.dtype)),
                   _ext.stream_handle(q.device)), "attention_core_bwd")
     attention_core_bwd.launches += 1
-    return dq, dk, dv
+    return (dq, dk, dv, *copies) if f32_copies else (dq, dk, dv)
 
 
 class _AttentionCore(torch.autograd.Function):
-    """The custom VJP of the JAX ``attention_core``: residuals are the
-    inputs (plus, on the card, the f32 output and the row statistics)."""
+    """The custom VJP of the JAX ``attention_core`` (and, with ``xla``, the
+    gradient of the XLA attention): residuals are the inputs (plus, on the
+    card, the f32 output and the row statistics)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, key_valid, scale, rate, seed):
+    def forward(ctx, q, k, v, key_valid, scale, rate, seed, xla,
+                bf16_softmax):
+        sem = dict(xla=xla, bf16_softmax=bf16_softmax)
         if q.is_cuda:
             o, stats, o32 = _forward_kernel(q, k, v, key_valid, scale, rate,
-                                            seed, with_stats=True)
+                                            seed, True, **sem)
         else:
-            o = attention_core_plain(q, k, v, key_valid, scale, rate, seed)
+            o = attention_core_plain(q, k, v, key_valid, scale, rate, seed,
+                                     **sem)
             stats = o32 = None
         ctx.save_for_backward(q, k, v, key_valid, o32, stats)
-        ctx.args = (scale, rate, seed)
+        ctx.args = (scale, rate, seed, sem)
         return o
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, key_valid, o32, stats = ctx.saved_tensors
-        scale, rate, seed = ctx.args
+        scale, rate, seed, sem = ctx.args
         if q.is_cuda:
             grads = attention_core_bwd(q, k, v, o32, stats, key_valid, scale,
-                                       rate, seed, dout)
+                                       rate, seed, dout, **sem)
         else:
             grads = attention_core_bwd_plain(q, k, v, key_valid, scale, rate,
-                                             seed, dout)
-        return (*grads, None, None, None, None)
+                                             seed, dout, **sem)
+        return (*grads,) + (None,) * 6
 
 
 def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    key_valid: Optional[torch.Tensor], scale: float,
-                   rate: float = 0.0, seed: int = 0) -> torch.Tensor:
+                   rate: float = 0.0, seed: int = 0, *, xla: bool = False,
+                   bf16_softmax: bool = False) -> torch.Tensor:
     """Fused attention core. q/k/v ``(B, H, T, dh)`` float32 or bfloat16;
     key_valid optional ``(B, T)`` bool; ``rate`` the probability dropout
-    (0 = off) with uint32 ``seed``; head ``(b, h)`` uses ``seed + b*H + h``.
-    Returns ``(B, H, T, dh)`` in the input dtype, differentiable in q, k
-    and v. CPU tensors take the plain versions; CUDA tensors launch the
-    kernels or raise."""
+    (0 = off) with uint32 ``seed``. ``xla`` picks the semantics (the
+    module docstring): False, the TPU kernel's (head ``(b, h)`` seeded
+    ``seed + b*H + h``); True, the JAX XLA attention's, where
+    ``bf16_softmax`` rounds bf16 logits. Returns ``(B, H, T, dh)`` in the
+    input dtype, differentiable in q, k and v. CPU tensors take the plain
+    versions; CUDA tensors launch the kernels or raise."""
     tensors = [q, k, v] + ([] if key_valid is None else [key_valid])
     on_cpu = all(a.device.type == "cpu" for a in tensors)
+    sem = dict(xla=xla, bf16_softmax=bf16_softmax)
     if torch.is_grad_enabled() and any(a.requires_grad for a in (q, k, v)):
         if not on_cpu:
             _checked(q, k, v, key_valid, rate, "attention_core")
-        return _AttentionCore.apply(q, k, v, key_valid, scale, rate, seed)
+        return _AttentionCore.apply(q, k, v, key_valid, scale, rate, seed,
+                                    xla, bf16_softmax)
     if on_cpu:
-        return attention_core_plain(q, k, v, key_valid, scale, rate, seed)
-    return _forward_kernel(q, k, v, key_valid, scale, rate, seed,
-                           with_stats=False)[0]
+        return attention_core_plain(q, k, v, key_valid, scale, rate, seed,
+                                    **sem)
+    return _forward_kernel(q, k, v, key_valid, scale, rate, seed, False,
+                           **sem)[0]
 
 
 attention_core.launches = 0

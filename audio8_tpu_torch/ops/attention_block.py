@@ -41,13 +41,13 @@ from typing import Optional
 import torch
 
 from audio8_tpu_torch.ops import _ext
-from audio8_tpu_torch.ops.attention import (attention_core_bwd_f32,
+from audio8_tpu_torch.ops.attention import (HEAD_DIMS, KEY_TILE,
+                                            attention_core_bwd_f32,
                                             attention_core_plain, round_up)
 from audio8_tpu_torch.ops.hashrand import MASK32, keep_threshold
 
 SOURCE = "attention_block_fwd.cu"
 BWD_SOURCE = "attention_block_bwd.cu"
-HEAD_DIMS = (16, 32, 64, 128)
 
 
 def padded_key_mask(key_valid: Optional[torch.Tensor], b: int, t: int,
@@ -210,9 +210,10 @@ def _forward_kernel(x, weights, key_valid, num_heads, scale, rate, seed,
 
 def attention_block_bwd(x, weights, residuals, num_heads: int, scale: float,
                         rate: float, seed: int, dout: torch.Tensor):
-    """The backward kernel on CUDA tensors (seven device kernels: dxo,
-    the dWo partials, the core's dq and dk/dv, the dW{q,k,v} partials, dx
-    and the bias partials), then the partials' sums: ``(dx, dwq, dbq,
+    """The backward kernel on CUDA tensors (eight device kernels: dxo,
+    the dWo partials, the core backward's three (D, the fused pass, the
+    dq reduction), the dW{q,k,v} partials, dx and the bias partials),
+    then the partials' sums: ``(dx, dwq, dbq,
     dwk, dbk, dwv, dbv, dwo, dbo)``. ``residuals`` are the forward
     kernel's."""
     dh, t_pad = _checked(x, weights, None, num_heads, rate,
@@ -233,6 +234,8 @@ def attention_block_bwd(x, weights, residuals, num_heads: int, scale: float,
     g32 = [None] * 3 if x.dtype == torch.float32 else [
         torch.empty(q.shape, **f32) for _ in range(3)]
     dvec = torch.empty((b * num_heads * t_pad,), **f32)
+    dq_part = torch.empty((b * num_heads, t_pad // KEY_TILE, t_pad, dh),
+                          **f32)
     dx = torch.empty_like(x)
     dw_part = torch.empty((3, b, hd, d), **f32)
     dwo_part = torch.empty((b, d, hd), **f32)
@@ -240,8 +243,8 @@ def attention_block_bwd(x, weights, residuals, num_heads: int, scale: float,
     wq, bq, wk, bk, wv, bv, wo, bo = weights
     fn = _ext.function(BWD_SOURCE)
     _ext.check(fn(*(a.data_ptr() for a in (
-        x, wq, wk, wv, wo, kv, dout, q, k, v, o, o32, stats, dxo, dvec, dq,
-        dk, dv)), *(None if a is None else a.data_ptr() for a in g32),
+        x, wq, wk, wv, wo, kv, dout, q, k, v, o, o32, stats, dxo, dvec,
+        dq_part, dq, dk, dv)), *(None if a is None else a.data_ptr() for a in g32),
         *(a.data_ptr() for a in (dx, dw_part, dwo_part, db_part)),
         b, t, d, num_heads, dh, _ext.DTYPE_CODES[x.dtype], float(scale),
         *_dropout_args(rate, seed), _ext.stream_handle(dev)),

@@ -72,8 +72,31 @@ def keep_threshold(rate: float) -> int:
     return min(int(rate * 4294967296.0), 4294967295)
 
 
-def draw_seed(generator: torch.Generator) -> int:
+class SeedReplay:
+    """A seed source that hands out given seeds in order, in place of a
+    ``torch.Generator``: the seam through which a run is fed the seeds
+    another implementation drew (the tests hold the port's dropout to the
+    JAX package's this way). ``remaining`` counts the seeds not drawn."""
+
+    def __init__(self, seeds):
+        self._seeds = [int(s) & MASK32 for s in seeds]
+        self.device = torch.device("cpu")
+
+    @property
+    def remaining(self) -> int:
+        return len(self._seeds)
+
+    def next_seed(self) -> int:
+        if not self._seeds:
+            raise RuntimeError("SeedReplay: more seeds drawn than given")
+        return self._seeds.pop(0)
+
+
+def draw_seed(generator) -> int:
     """One uint32 seed from ``generator`` (the JAX package draws an int32
-    from its key and reinterprets it as uint32)."""
+    from its key and reinterprets it as uint32), or the next seed of a
+    :class:`SeedReplay`."""
+    if isinstance(generator, SeedReplay):
+        return generator.next_seed()
     return int(torch.randint(0, 2 ** 32, (), generator=generator,
                              device=generator.device))

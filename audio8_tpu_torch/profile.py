@@ -134,8 +134,10 @@ def kernel_groups(prof) -> dict:
     """Device ms by kernel family, from profiler events, and the five
     largest kernels of the rest by name."""
     groups = {"attention_block_gemm": ("blockgemm", "bias_partials_kernel"),
-              "attention_fwd": "attention_fwd", "attention_bwd":
-              "attention_bwd", "ctc": "ctc_", "adamw": "adamw_kernel",
+              "attention_fwd": "attention_fwd",
+              "attention_bwd": ("attention_bwd", "rowdot_kernel",
+                                "dq_reduce_kernel"),
+              "ctc": "ctc_", "adamw": "adamw_kernel",
               "conv_k3s2_dgrad": ("dgrad_f32_kernel", "dgrad_bf16_mma_kernel",
                                   "Dgrad<"),
               "conv_k3s2_wgrad": ("wgrad_f32_kernel", "wgrad_bf16_mma_kernel",
@@ -161,6 +163,15 @@ def kernel_groups(prof) -> dict:
             other[e.name] = other.get(e.name, 0.0) + ms
     out["other_top5"] = {k[:90]: v for k, v in sorted(
         other.items(), key=lambda kv: -kv[1])[:5]}
+    # the attention backward's three launches: D, the fused pass, dq
+    out["attention_bwd_parts"] = {
+        part: sum((e.time_range.end - e.time_range.start) / 1e3
+                  for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and key in e.name)
+        for part, key in (("rowdot", "rowdot_kernel"),
+                          ("fused_pass", "attention_bwd_"),
+                          ("dq_reduce", "dq_reduce_kernel"))}
     return out
 
 
@@ -235,8 +246,10 @@ def train_profile(dtype, fused=None) -> dict:
     kv = torch.arange(t, device="cuda")[None] < frames[:, None]
     from audio8_tpu_torch.ops.attention import _forward_kernel
 
+    # the default path's semantics ("xla": fused_attention=None)
     _, stats, o32 = _forward_kernel(q, k, v, kv, attn.d_head ** -0.5, 0.1, 7,
-                                    with_stats=True)
+                                    with_stats=True, xla=True,
+                                    bf16_softmax=True)
     if fused == "block":
         attn_name = "attention_block_bwd x12 (alone)"
         attn_bwd = block_bwd_alone(
@@ -247,7 +260,7 @@ def train_profile(dtype, fused=None) -> dict:
 
         def attn_bwd():
             attention_core_bwd(q, k, v, o32, stats, kv, attn.d_head ** -0.5,
-                               0.1, 7, do)
+                               0.1, 7, do, xla=True, bf16_softmax=True)
     fwd_ms = median_ms(forward)
     stages = {
         "forward (autograd graph)": fwd_ms,

@@ -7,12 +7,18 @@ random weights, the pretraining path again through the attention block
 (``fused_attention="block"``), and holds every hand-written kernel
 against its plain PyTorch version. Phases, each printing JSON lines:
 
-1. build    - compile the CUDA kernels from ``audio8_tpu_torch/csrc``;
+1. build    - compile the CUDA kernels from ``audio8_tpu_torch/csrc``,
+              with each kernel's registers and spills from ptxas;
 2. kernel   - each kernel vs its plain version at its path's shapes
               (serving: 30 s chunks, batch 4; CTC training, extractor
               frozen or not, and the attention block: 15 s rows, batch
               4, a zero-length row), float32 and bfloat16
-              where the kernel takes both; then small ragged shapes and
+              where the kernel takes both, the attention core in both
+              semantics ("xla", the default paths', and "kernel", the TPU
+              kernel's), its backward also for bitwise-equal repeats and
+              its f32 gradient copies, and the bf16 logit rounding of
+              "xla" (``bf16_softmax``) at a limit that a kernel without
+              it fails; then small ragged shapes, every head dim and
               misaligned pointers, which reach every variant of each
               kernel;
 3. model    - the full-width model's forward on the card (through the
@@ -34,11 +40,13 @@ against its plain PyTorch version. Phases, each printing JSON lines:
               step times, training audio-s/s, loss, code perplexity,
               accuracy, peak memory and the kernels' launch counts, then
               a validation pass;
-8. pretrain_kernel - the conv backward, dropout and attention block
-              kernels vs their plain versions at the shapes of the
-              batches that phase 7 formed (each k3s2 layer's T_in, odd and
-              even; the 768- and 512-wide dropout inputs; the block's
-              (B, 222, 768)), float32 and bfloat16;
+8. pretrain_kernel - the conv backward, dropout, attention core
+              backward and attention block kernels vs their plain
+              versions at the shapes of the batches that phase 7 formed
+              (each k3s2 layer's T_in, odd and even; the 768- and
+              512-wide dropout inputs; the core's (B, 12, 222, 64) in
+              both semantics; the block's (B, 222, 768)), float32 and
+              bfloat16;
 9. pretrain_vs_cpu - one full-width pretraining step (dropout off) on
               two rows of phase 7's length, on the card and on the CPU
               from the same weights and seeds: loss, contrastive loss,
@@ -51,12 +59,18 @@ against its plain PyTorch version. Phases, each printing JSON lines:
               launch), then block and core steps in turns;
 11. block_gate - eval forwards under "block": a 15 s row (749 frames)
               runs the block, a 30 s chunk (1499 frames) the core;
-12. train_vs_cpu, pretrain_vs_cpu (phases 6 and 9, run here) and
+12. train_vs_cpu, pretrain_vs_cpu (phases 6 and 9, run here),
     block_vs_cpu - one pretraining step through the block, card vs CPU,
-              with pretrain_vs_cpu's tolerances;
+              with pretrain_vs_cpu's tolerances, and kernel_vs_cpu - the
+              same step with ``fused_attention=True`` (the core in the TPU
+              kernel's semantics on a model path) and every dropout at
+              0.1, both sides fed the same seeds;
 13. timing   - each kernel vs its plain version and the one PyTorch call
-              that computes the same function (CUDA events, median), with
-              the least time the card could take (``bound_ms``);
+              that computes the same function, in turns, as device time
+              (kernel durations traced by torch.profiler), with the least
+              time the card could take (``bound_ms``); the attention
+              backward at the training and the pretraining shapes in both
+              semantics, split by launch;
 
 then a ``kernels`` line, the card's name and power limit from nvidia-smi,
 and, last, ``{"ok": true, "device": {...}}``. Any failed check raises, so
@@ -100,6 +114,8 @@ LETTERS = "| E T A O N I H S R D L U M W C F G Y P B V K ' X J Q Z".split()
 # training path shapes: batch 4 of 15 s rows (749 frames), 14 letters/s
 TRAIN_ATTN_SHAPE = (4, 12, 749, 64)
 TRAIN_ATTN_LENGTHS = [749, 612, 0, 377]  # a padding row of a snapped batch
+# the pretraining batches' core: 20 rows of 222 frames, no padding
+PRETRAIN_ATTN_SHAPE = (20, 12, 222, 64)
 CTC_SHAPE = (4, 749, 4 + len(LETTERS))
 CTC_INPUT_LENGTHS = [749, 700, 601, 0]
 CTC_TARGET_LENGTHS = [210, 195, 170, 0]
@@ -184,12 +200,16 @@ def max_err(a: torch.Tensor, b: torch.Tensor) -> tuple[float, float]:
 
 
 def phase_build() -> None:
+    """Build every kernel; prints each kernel's registers and spills as
+    ptxas reports them."""
+    from audio8_tpu_torch.csrc.build import ptxas_report
     from audio8_tpu_torch.ops import _ext
 
     t0 = time.perf_counter()
     libs = _ext.build_all()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "libraries": sorted(os.path.relpath(p, HERE) for p in libs.values())})
+          "libraries": sorted(os.path.relpath(p, HERE) for p in libs.values()),
+          "ptxas": {src: ptxas_report(lib) for src, lib in libs.items()}})
 
 
 def conv_inputs(shape, dtype, gen):
@@ -249,14 +269,17 @@ def phase_variants(gen) -> None:
                 q, k, v = misaligned(q), misaligned(k), misaligned(v)
             kv = (torch.arange(t, device="cuda")[None, :]
                   < torch.tensor([t, t // 3, 0][:b], device="cuda")[:, None])
-            for rate in (0.0, 0.1):
+            for rate, xla in ((0.0, False), (0.1, False), (0.1, True)):
+                sem = dict(xla=xla, bf16_softmax=True)
                 err, scale = max_err(
-                    attention_core(q, k, v, kv, dh ** -0.5, rate, 7),
-                    attention_core_plain(q, k, v, kv, dh ** -0.5, rate, 7))
+                    attention_core(q, k, v, kv, dh ** -0.5, rate, 7, **sem),
+                    attention_core_plain(q, k, v, kv, dh ** -0.5, rate, 7,
+                                         **sem))
                 tol = TOL[dtype] * max(1.0, scale)
                 emit({"phase": "variant", "kernel": "attention_fwd",
                       "dtype": str(dtype), "shape": list(shape), "rate": rate,
-                      "misaligned": skew, "max_abs_err": err, "tol": tol})
+                      "xla": xla, "misaligned": skew, "max_abs_err": err,
+                      "tol": tol})
                 check(err <= tol,
                       f"attention_fwd variant {shape} {dtype}: {err}")
 
@@ -283,65 +306,164 @@ def phase_kernels(gen) -> dict:
             if dtype == torch.float32:
                 worst["conv_k3s2_fwd"] = max(worst["conv_k3s2_fwd"], err)
         q, k, v, kv = attn_inputs(dtype, gen)
-        for rate, seed in ((0.0, 0), (0.1, 1234)):
-            o = attention_core(q, k, v, kv, 0.125, rate, seed)
+        for (rate, seed), xla in ((r, x) for r in ((0.0, 0), (0.1, 1234))
+                                  for x in (True, False)):
+            sem = dict(xla=xla, bf16_softmax=True)
+            o = attention_core(q, k, v, kv, 0.125, rate, seed, **sem)
             torch.cuda.synchronize()
             err, scale = max_err(o, attention_core_plain(q, k, v, kv, 0.125,
-                                                         rate, seed))
+                                                         rate, seed, **sem))
             tol = TOL[dtype] * max(1.0, scale)
             emit({"phase": "kernel", "kernel": "attention_fwd",
                   "dtype": str(dtype), "shape": list(ATTN_SHAPE),
                   "key_lengths": ATTN_LENGTHS, "rate": rate, "seed": seed,
-                  "max_abs_err": err, "tol": tol})
+                  "xla": xla, "max_abs_err": err, "tol": tol})
             check(bool(torch.isfinite(o).all()) and err <= tol,
                   f"attention_fwd {dtype} rate {rate}: {err} > {tol}")
             if dtype == torch.float32:
                 worst["attention_fwd"] = max(worst["attention_fwd"], err)
+    check_logit_rounding(gen)
     return worst
 
 
-def attn_grads(q, k, v, kv, rate, seed, do):
-    """(dq, dk, dv) through the kernels (autograd) and the plain backward
-    on the same inputs."""
+def check_logit_rounding(gen) -> None:
+    """``bf16_softmax`` under "xla": both kernels round the scaled bf16
+    logits to bf16 before the softmax. Logits of size 4 (q, k ~ N(0, 4))
+    make the rounding move each probability by about 1%. The forward's
+    row max must be the max of the rounded logits, bitwise, on at least
+    99% of the rows with a valid key (the two f32 sums may round to
+    neighbouring bf16 values), where the unrounded max almost never is;
+    the backward's f32 gradient copies must sit within a quarter of the
+    mean distance between the plain f32 gradients with and without the
+    rounding, which a kernel that skipped it would be away."""
+    from audio8_tpu_torch.ops.attention import (NEG, _forward_kernel,
+                                                attention_core_bwd,
+                                                attention_core_bwd_f32)
+
+    _, h, t, dh = PRETRAIN_ATTN_SHAPE
+    b = 4
+    shape = (b, h, t, dh)
+    q, k = (2.0 * torch.randn(shape, device="cuda", generator=gen)
+            for _ in range(2))
+    v, do = (torch.randn(shape, device="cuda", generator=gen)
+             for _ in range(2))
+    q, k, v, do = (x.bfloat16() for x in (q, k, v, do))
+    kv = (torch.arange(t, device="cuda")[None, :]
+          < torch.tensor([t, 150, 0, 77], device="cuda")[:, None])
+    sem = dict(xla=True, bf16_softmax=True)
+    _, stats, o32 = _forward_kernel(q, k, v, kv, dh ** -0.5, 0.0, 0, True,
+                                    **sem)
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * dh ** -0.5
+    neg = torch.tensor(NEG, device="cuda")
+    rows = kv.any(-1)[:, None, None].expand(b, h, t).flatten()
+    m = stats[:, 0][rows]
+    share = {name: float((m == torch.where(kv[:, None, None, :], x, neg)
+                          .amax(-1).flatten()[rows]).float().mean())
+             for name, x in (("rounded", s.bfloat16().float()),
+                             ("unrounded", s))}
+    got = attention_core_bwd(q, k, v, o32, stats, kv, dh ** -0.5, 0.0, 0,
+                             do, f32_copies=True, **sem)[3:]
+    want = attention_core_bwd_f32(q, k, v, kv, dh ** -0.5, 0.0, 0, do,
+                                  **sem)
+    other = attention_core_bwd_f32(q, k, v, kv, dh ** -0.5, 0.0, 0, do,
+                                   xla=True, bf16_softmax=False)
+    errs = {}
+    for name, g, w, o in zip(("dq32", "dk32", "dv32"), got, want, other):
+        err, gap = [float((a - c).abs().mean()) for a, c in ((g, w), (w, o))]
+        errs[name] = {"mean_err": err, "mean_gap": gap}
+        check(gap > 0.0 and err <= gap / 4,
+              f"bf16 logit rounding {name}: mean error {err} vs the "
+              f"rounding's {gap}")
+    emit({"phase": "kernel", "kernel": "attention_fwd+bwd",
+          "check": "bf16_softmax logit rounding", "shape": list(shape),
+          "row_max_equal_share": share, "grads": errs})
+    check(share["rounded"] >= 0.99 and share["unrounded"] < 0.5,
+          f"bf16 logit rounding, forward row max: {share}")
+
+
+def attn_grads(q, k, v, kv, rate, seed, do, xla):
+    """(dq, dk, dv) through the kernels (autograd) twice, and the plain
+    backward on the same inputs."""
     from audio8_tpu_torch.ops.attention import (attention_core,
                                                 attention_core_bwd_plain)
 
     dh = q.shape[-1]
-    qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
-    out = attention_core(qg, kg, vg, kv, dh ** -0.5, rate, seed)
-    got = torch.autograd.grad(out, (qg, kg, vg), do)
+    sem = dict(xla=xla, bf16_softmax=True)
+    runs = []
+    for _ in range(2):
+        qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
+        out = attention_core(qg, kg, vg, kv, dh ** -0.5, rate, seed, **sem)
+        runs.append(torch.autograd.grad(out, (qg, kg, vg), do))
     torch.cuda.synchronize()
     with torch.no_grad():
         want = attention_core_bwd_plain(q, k, v, kv, dh ** -0.5, rate, seed,
-                                        do)
-    return got, want
+                                        do, **sem)
+    return runs, want
+
+
+def check_f32_copies(q, k, v, kv, rate, seed, do, xla) -> dict:
+    """The backward's f32 gradient copies (which the attention block's
+    bias gradients sum) vs the plain f32 backward."""
+    from audio8_tpu_torch.ops.attention import (_forward_kernel,
+                                                attention_core_bwd,
+                                                attention_core_bwd_f32)
+
+    dh = q.shape[-1]
+    sem = dict(xla=xla, bf16_softmax=True)
+    qc, kc, vc = (x.contiguous() for x in (q, k, v))
+    _, stats, o32 = _forward_kernel(qc, kc, vc, kv, dh ** -0.5, rate, seed,
+                                    True, **sem)
+    got = attention_core_bwd(qc, kc, vc, o32, stats, kv, dh ** -0.5, rate,
+                             seed, do, f32_copies=True, **sem)[3:]
+    torch.cuda.synchronize()
+    want = attention_core_bwd_f32(q, k, v, kv, dh ** -0.5, rate, seed, do,
+                                  **sem)
+    errs = {}
+    for name, g, w in zip(("dq32", "dk32", "dv32"), got, want):
+        err, scale = max_err(g, w)
+        tol = TOL[q.dtype] * max(1.0, scale)
+        check(bool(torch.isfinite(g).all()) and err <= tol,
+              f"attention_bwd {name} {tuple(q.shape)}: {err} > {tol}")
+        errs[name] = err
+    return errs
 
 
 def check_attn_bwd(phase, shape, lengths, dtype, gen,
                    skew: bool = False) -> float:
+    """The backward kernel vs its plain version in both semantics, rates
+    0 and 0.1: gradients within TOL, two calls bitwise equal, and (rate
+    0.1) the f32 copies within TOL; returns the largest error."""
     b, h, t, dh = shape
     q, k, v, do = (torch.randn(shape, device="cuda", generator=gen).to(dtype)
                    for _ in range(4))
     if skew:
         q, k, v, do = (misaligned(x) for x in (q, k, v, do))
-    kv = (torch.arange(t, device="cuda")[None, :]
-          < torch.tensor(lengths, device="cuda")[:, None])
+    kv = None if lengths is None else (
+        torch.arange(t, device="cuda")[None, :]
+        < torch.tensor(lengths, device="cuda")[:, None])
     worst = 0.0
-    for rate, seed in ((0.0, 0), (0.1, 4_000_000_000)):
-        got, want = attn_grads(q, k, v, kv, rate, seed, do)
-        errs = {}
-        for name, g, w in zip(("dq", "dk", "dv"), got, want):
-            err, scale = max_err(g, w)
-            tol = TOL[dtype] * max(1.0, scale)
-            errs[name] = err
-            check(bool(torch.isfinite(g).all()) and err <= tol,
-                  f"attention_bwd {name} {shape} {dtype} rate {rate}: "
-                  f"{err} > {tol}")
-            worst = max(worst, err)
-        emit({"phase": phase, "kernel": "attention_bwd", "dtype": str(dtype),
-              "shape": list(shape), "key_lengths": lengths, "rate": rate,
-              "misaligned": skew, "max_abs_err": errs,
-              "tol_factor": TOL[dtype]})
+    for xla in (True, False):
+        for rate, seed in ((0.0, 0), (0.1, 4_000_000_000)):
+            (got, again), want = attn_grads(q, k, v, kv, rate, seed, do, xla)
+            errs = {}
+            for name, g, w in zip(("dq", "dk", "dv"), got, want):
+                err, scale = max_err(g, w)
+                tol = TOL[dtype] * max(1.0, scale)
+                errs[name] = err
+                check(bool(torch.isfinite(g).all()) and err <= tol,
+                      f"attention_bwd {name} {shape} {dtype} rate {rate} "
+                      f"xla {xla}: {err} > {tol}")
+                worst = max(worst, err)
+            same = all(torch.equal(g, a) for g, a in zip(got, again))
+            check(same, f"attention_bwd {shape} {dtype}: repeats differ")
+            if rate > 0.0:
+                errs.update(check_f32_copies(q, k, v, kv, rate, seed, do,
+                                             xla))
+            emit({"phase": phase, "kernel": "attention_bwd",
+                  "dtype": str(dtype), "shape": list(shape),
+                  "key_lengths": lengths, "rate": rate, "xla": xla,
+                  "misaligned": skew, "max_abs_err": errs,
+                  "tol_factor": TOL[dtype], "repeat_bitwise_equal": same})
     return worst
 
 
@@ -506,8 +628,8 @@ def phase_train_kernels(gen) -> dict:
 
 
 def phase_train_variants(gen) -> None:
-    """Small ragged shapes: every head dim and variant of the attention
-    backward (bf16 mma.sync for dh <= 64 when aligned, SIMT otherwise),
+    """Small ragged shapes: every head dim of the attention backward in
+    both semantics (bf16 wgmma, f32 SIMT; misaligned inputs copied),
     CTC with an empty target, an infeasible row, a padding row and
     repeats, AdamW with odd sizes and misaligned leaves, and the attention
     block at every head dim, T = 37, 130 and 1024, with zero-length
@@ -656,16 +778,18 @@ def pretrain_path_shapes(rows: int, samples: int):
 
 
 def phase_pretrain_path_kernels(batches, gen) -> dict:
-    """dgrad, wgrad, dropout and the attention block vs their plain
-    versions at the shapes of the batches the pretraining run formed:
-    every k3s2 layer's (B, T_in), the dropout inputs (B, frames, 768) of
-    the encoder and (B, frames, 512) of the extractor's features, and the
-    block's (B, frames, 768); returns the float32 max errors."""
+    """dgrad, wgrad, dropout, the attention core backward and the
+    attention block vs their plain versions at the shapes of the batches
+    the pretraining run formed: every k3s2 layer's (B, T_in), the dropout
+    inputs (B, frames, 768) of the encoder and (B, frames, 512) of the
+    extractor's features, the core's (B, 12, frames, 64) and the block's
+    (B, frames, 768); returns the float32 max errors."""
     from audio8_tpu_torch.config import PretrainConfig
 
     cfg = PretrainConfig()
     worst = {"conv_k3s2_dgrad": 0.0, "conv_k3s2_wgrad": 0.0, "dropout": 0.0,
-             "attention_block": 0.0, "attention_block_bwd": 0.0}
+             "attention_bwd": 0.0, "attention_block": 0.0,
+             "attention_block_bwd": 0.0}
     for rows, samples in batches:
         convs, frames = pretrain_path_shapes(rows, samples)
         emit({"phase": "pretrain_kernel", "batch": [rows, samples],
@@ -679,6 +803,10 @@ def phase_pretrain_path_kernels(batches, gen) -> dict:
             for width in (cfg.d_model, cfg.fx_dim):
                 errs["dropout"] = max(errs.get("dropout", 0.0), check_dropout(
                     "pretrain_kernel", (rows, frames, width), dtype, gen))
+            errs["attention_bwd"] = check_attn_bwd(
+                "pretrain_kernel", (rows, cfg.num_heads, frames,
+                                    cfg.d_model // cfg.num_heads), None,
+                dtype, gen)
             errs["attention_block"], errs["attention_block_bwd"] = \
                 check_block("pretrain_kernel", rows, frames, cfg.d_model,
                             cfg.num_heads, None, dtype, gen)
@@ -1090,21 +1218,25 @@ def phase_pretrain(tmp: str, seed: int):
     return launches, batches
 
 
-def phase_pretrain_vs_cpu(seed: int, samples: int, fused=None) -> None:
+def phase_pretrain_vs_cpu(seed: int, samples: int, fused=None,
+                          dropout: float = 0.0) -> None:
     """One full-width pretraining step on two rows of ``samples`` (the
     pretraining run's length; dropout off; masks, Gumbel noise and
     negatives from the same seeds) on the card and on the CPU from the
     same weights: loss, contrastive loss, accuracy, gradient norm, and
     the share of Gumbel codeword indices that agree. ``fused="block"``:
-    the same step through the attention block (phase ``block_vs_cpu``)."""
+    the same step through the attention block (phase ``block_vs_cpu``);
+    ``fused=True`` with ``dropout`` 0.1: the core in the TPU kernel's
+    semantics with every dropout on, both sides drawing the same seeds
+    (phase ``kernel_vs_cpu``)."""
     from audio8_tpu_torch.config import PretrainConfig
     from audio8_tpu_torch.models.wav2vec2 import PretrainSeeds, Wav2Vec2Model
     from audio8_tpu_torch.train.optim import (TrainState, create_lrs,
                                               create_optimizer)
     from audio8_tpu_torch.train.steps import make_pretrain_steps
 
-    cfg = PretrainConfig(dropout=0.0, dropout_input=0.0,
-                         dropout_features=0.0, fused_attention=fused)
+    cfg = PretrainConfig(dropout=dropout, dropout_input=dropout,
+                         dropout_features=dropout, fused_attention=fused)
     cpu = Wav2Vec2Model(cfg, generator=torch.Generator().manual_seed(seed + 5))
     gpu = Wav2Vec2Model(cfg).cuda()
     gpu.load_state_dict(cpu.state_dict())
@@ -1150,8 +1282,10 @@ def phase_pretrain_vs_cpu(seed: int, samples: int, fused=None) -> None:
     # accuracy is (argmax hits) / (valid masked slots): one slot's flip
     acc_atol = 1.0 / max(1, c["slots"])
     acc_err = abs(g["accuracy"] - c["accuracy"])
-    phase = "block_vs_cpu" if fused == "block" else "pretrain_vs_cpu"
-    emit({"phase": phase, "fused_attention": fused, "rows": [2, samples],
+    phase = {"block": "block_vs_cpu", True: "kernel_vs_cpu"}.get(
+        fused, "pretrain_vs_cpu")
+    emit({"phase": phase, "fused_attention": fused, "dropout": dropout,
+          "rows": [2, samples],
           **{k: [g[k], c[k]] for k in ("loss", "contrastive_loss",
                                        "accuracy", "grad_norm")},
           "loss_rel_err": rel["loss"], "loss_rtol": PRETRAIN_LOSS_RTOL,
@@ -1294,20 +1428,38 @@ def phase_block_gate() -> None:
     emit({"phase": "block_gate", **seen})
 
 
-def median_ms(fn, reps: int = 5, inner: int = 3) -> float:
+def traced_ms(fn) -> dict:
+    """Device ms of one call of ``fn`` by kernel name: the durations of
+    the CUDA kernels (and memsets) that torch.profiler traces over up to
+    10 calls (as many as fit in about 0.2 s after a first, untraced
+    call), divided by the number of calls. The host's launch cost, which
+    exceeds the device time for a small kernel or SDPA's bf16 autograd,
+    is not in it. Every timed function launches kernels, so a trace that
+    holds none (the profiler now and then returns an empty one) is taken
+    again, up to three times."""
+    t0 = time.perf_counter()
     fn()
     torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        for _ in range(inner):
-            fn()
-        b.record()
-        torch.cuda.synchronize()
-        times.append(a.elapsed_time(b) / inner)
-    return float(np.median(times))
+    calls = max(1, min(10, int(0.2 / (time.perf_counter() - t0))))
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    for _ in range(3):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        out = {}
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                ms = (e.time_range.end - e.time_range.start) / 1e3 / calls
+                out[e.name] = out.get(e.name, 0.0) + ms
+        if out:
+            return out
+    raise RuntimeError("torch.profiler traced no CUDA kernel of a timed call")
+
+
+def device_ms(fn) -> float:
+    """Device time of one call of ``fn`` (:func:`traced_ms`, summed)."""
+    return sum(traced_ms(fn).values())
 
 
 def bound(flops: float, nbytes: float, dtype=torch.float32):
@@ -1319,12 +1471,12 @@ def bound(flops: float, nbytes: float, dtype=torch.float32):
 
 
 def in_turns(kern, plain, library=None) -> dict:
-    """Medians in turns: plain, kernel, [library], kernel, plain,
-    [library]."""
-    p1, k1 = median_ms(plain), median_ms(kern)
-    l1 = median_ms(library) if library else None
-    k2, p2 = median_ms(kern), median_ms(plain)
-    l2 = median_ms(library) if library else None
+    """Device times (``device_ms``) in turns: plain, kernel, [library],
+    kernel, plain, [library]."""
+    p1, k1 = device_ms(plain), device_ms(kern)
+    l1 = device_ms(library) if library else None
+    k2, p2 = device_ms(kern), device_ms(plain)
+    l2 = device_ms(library) if library else None
     return {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
             "library_ms": None if library is None else (l1 + l2) / 2,
             "ms_runs": [k1, k2], "plain_ms_runs": [p1, p2],
@@ -1332,11 +1484,18 @@ def in_turns(kern, plain, library=None) -> dict:
 
 
 def time_attention(dtype, gen) -> dict:
-    """Forward at the serving shape, backward at the training shape;
-    the yardstick is scaled_dot_product_attention (no dropout)."""
+    """Forward at the serving shape, backward at the training shape (the
+    kernels line reports both in "xla" semantics, the default paths'),
+    and both in the TPU kernel's semantics ("/kernel"), the backward also
+    at the pretraining shape ("/pretrain"); the yardstick is
+    scaled_dot_product_attention and its autograd (no dropout). Each
+    backward row also splits the kernel's time by launch (``launch_ms``:
+    the D prepass, the fused pass, the dq reduction)."""
     import torch.nn.functional as F
 
-    from audio8_tpu_torch.ops.attention import (attention_core,
+    from audio8_tpu_torch.ops.attention import (_forward_kernel,
+                                                attention_core,
+                                                attention_core_bwd,
                                                 attention_core_bwd_plain,
                                                 attention_core_plain)
 
@@ -1344,34 +1503,57 @@ def time_attention(dtype, gen) -> dict:
     q, k, v, kv = attn_inputs(dtype, gen)
     mask = kv[:, None, None, :]
     b, h, t, dh = ATTN_SHAPE
-    r = in_turns(lambda: attention_core(q, k, v, kv, 0.125),
-                 lambda: attention_core_plain(q, k, v, kv, 0.125),
-                 lambda: F.scaled_dot_product_attention(q, k, v, mask))
-    r["bound_ms"], r["bound_by"] = bound(4.0 * b * h * t * t * dh,
-                                         4 * q.numel() * q.element_size()
-                                         + kv.numel(), dtype)
-    out["attention_fwd"] = r
+    for xla, name in ((True, "attention_fwd"), (False, "attention_fwd/kernel")):
+        sem = dict(xla=xla, bf16_softmax=True)
+        r = in_turns(lambda: attention_core(q, k, v, kv, 0.125, **sem),
+                     lambda: attention_core_plain(q, k, v, kv, 0.125, **sem),
+                     lambda: F.scaled_dot_product_attention(q, k, v, mask))
+        r["bound_ms"], r["bound_by"] = bound(4.0 * b * h * t * t * dh,
+                                             4 * q.numel() * q.element_size()
+                                             + kv.numel(), dtype)
+        out[name] = r
     del q, k, v
-    b, h, t, dh = TRAIN_ATTN_SHAPE
-    q, k, v, do = (torch.randn(TRAIN_ATTN_SHAPE, device="cuda",
-                               generator=gen).to(dtype) for _ in range(4))
-    kv = (torch.arange(t, device="cuda")[None, :]
-          < torch.tensor(TRAIN_ATTN_LENGTHS, device="cuda")[:, None])
-    qg, kg, vg = (x.requires_grad_() for x in (q.clone(), k.clone(),
-                                               v.clone()))
-    o = attention_core(qg, kg, vg, kv, 0.125)
-    ref = F.scaled_dot_product_attention(qg, kg, vg, kv[:, None, None, :])
-    r = in_turns(
-        lambda: torch.autograd.grad(o, (qg, kg, vg), do, retain_graph=True),
-        lambda: attention_core_bwd_plain(q, k, v, kv, 0.125, 0.0, 0, do),
-        lambda: torch.autograd.grad(ref, (qg, kg, vg), do,
-                                    retain_graph=True))
-    # recompute S, then dV, dP, dQ, dK: five T x T x dh products per head;
-    # reads q, k, v, o, dO and writes dq, dk, dv
-    r["bound_ms"], r["bound_by"] = bound(10.0 * b * h * t * t * dh,
-                                         8 * q.numel() * q.element_size(),
-                                         dtype)
-    out["attention_bwd"] = r
+    for shape, lengths, tag in ((TRAIN_ATTN_SHAPE, TRAIN_ATTN_LENGTHS, ""),
+                                (PRETRAIN_ATTN_SHAPE, None, "/pretrain")):
+        b, h, t, dh = shape
+        q, k, v, do = (torch.randn(shape, device="cuda", generator=gen)
+                       .to(dtype) for _ in range(4))
+        kv = None if lengths is None else (
+            torch.arange(t, device="cuda")[None, :]
+            < torch.tensor(lengths, device="cuda")[:, None])
+        qg, kg, vg = (x.requires_grad_() for x in (q.clone(), k.clone(),
+                                                   v.clone()))
+        ref = F.scaled_dot_product_attention(
+            qg, kg, vg, None if kv is None else kv[:, None, None, :])
+        for xla, sem in ((True, ""), (False, "/kernel")):
+            sem_kw = dict(xla=xla, bf16_softmax=True)
+            _, stats, o32 = _forward_kernel(q, k, v, kv, 0.125, 0.0, 0, True,
+                                            **sem_kw)
+            def kern():
+                attention_core_bwd(q, k, v, o32, stats, kv, 0.125, 0.0, 0,
+                                   do, **sem_kw)
+
+            r = in_turns(
+                kern,
+                lambda: attention_core_bwd_plain(q, k, v, kv, 0.125, 0.0, 0,
+                                                 do, **sem_kw),
+                lambda: torch.autograd.grad(ref, (qg, kg, vg), do,
+                                            retain_graph=True))
+            by_name = traced_ms(kern)
+            r["launch_ms"] = {
+                part: sum(ms for n, ms in by_name.items() if key in n)
+                for part, key in (("rowdot", "rowdot_kernel"),
+                                  ("fused_pass", "attention_bwd_"),
+                                  ("dq_reduce", "dq_reduce_kernel"))}
+            # recompute S, then dP, dV, dK, dQ: five T x T x dh products
+            # per head; reads q, k, v, o, dO and writes dq, dk, dv
+            r["bound_ms"], r["bound_by"] = bound(
+                10.0 * b * h * t * t * dh, 8 * q.numel() * q.element_size(),
+                dtype)
+            r["shape"] = list(shape)
+            out["attention_bwd" + tag + sem] = r
+            del stats, o32
+        del q, k, v, do, qg, kg, vg, ref
     return out
 
 
@@ -1551,40 +1733,14 @@ def time_conv_bwd(dtype, gen) -> dict:
     return out
 
 
-def graphed(fn, calls: int):
-    """``calls`` calls of ``fn`` captured in one CUDA graph; returns its
-    replay. Timing the replay gives device time without the host's
-    per-call launch cost."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        fn()  # first call outside the capture (lazy set-up)
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(calls):
-            fn()
-    return graph.replay
-
-
 def time_dropout(dtype, gen) -> dict:
     """Forward at the encoder's (4, 749, 768) residual stream; no PyTorch
-    call computes hash dropout (F.dropout draws Philox bits). A call takes
-    microseconds on the card and tens of them on the host, so events
-    around eager calls measure the host: ``ms`` and ``plain_ms`` time 20
-    calls captured in a CUDA graph (the input stays in L2 between them),
-    and ``eager_ms`` the eager wrapper's per-call time."""
+    call computes hash dropout (F.dropout draws Philox bits)."""
     from audio8_tpu_torch.ops.dropout import fused_dropout, hash_dropout
 
-    calls = 20
     x = torch.randn(DROPOUT_SHAPE, device="cuda", generator=gen).to(dtype)
-    kern = lambda: fused_dropout(x, DROPOUT_RATE, DROPOUT_SEED)
-    r = in_turns(graphed(kern, calls), graphed(
-        lambda: hash_dropout(x, DROPOUT_RATE, DROPOUT_SEED), calls))
-    for k in ("ms", "plain_ms"):
-        r[k] /= calls
-        r[f"{k}_runs"] = [t / calls for t in r[f"{k}_runs"]]
-    r["eager_ms"] = median_ms(kern)
+    r = in_turns(lambda: fused_dropout(x, DROPOUT_RATE, DROPOUT_SEED),
+                 lambda: hash_dropout(x, DROPOUT_RATE, DROPOUT_SEED))
     # one read and one write per element; the hash's ~12 integer
     # operations per element are far below the card's integer rate
     r["bound_ms"], r["bound_by"] = bound(0.0, 2 * x.numel()
@@ -1677,6 +1833,7 @@ def main() -> int:
     phase_train_vs_cpu(SEED)
     phase_pretrain_vs_cpu(SEED, batches[-1][1])
     phase_pretrain_vs_cpu(SEED, batches[-1][1], fused="block")
+    phase_pretrain_vs_cpu(SEED, batches[-1][1], fused=True, dropout=0.1)
     torch.cuda.empty_cache()
     times = phase_timing(gen)
     check("jax" not in sys.modules and "audio8_tpu" not in sys.modules,

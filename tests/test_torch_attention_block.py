@@ -17,8 +17,8 @@ interpret mode, on the same inputs made with numpy:
 * ``MultiHeadAttention`` with "block" against the JAX module (the
   acoustic model with "block" from ``params_from_jax`` weights is in
   ``test_torch_wav2vec2.py``);
-* the deviation above the gate: the JAX core setting falls back to XLA
-  attention past 1024 frames, the port keeps its core; equal in f32 eval.
+* above the gate (1030 frames) ``True`` and "block" fall back to the XLA
+  attention in both packages: equal in f32 with attention dropout on.
 """
 import jax
 import jax.numpy as jnp
@@ -232,20 +232,41 @@ def test_mha_block_matches_jax_module():
     np.testing.assert_allclose(got, want, atol=FWD_TOL, rtol=FWD_TOL)
 
 
-def test_gate_deviation_above_1024():
-    """Past 1024 frames the JAX ``fused_attention=True`` (and "block")
-    layer falls back to XLA attention, while the port keeps its core:
-    equal in f32 eval on the valid frames (in training the dropout masks
-    and bf16 rounding differ: ROADMAP.md section 3)."""
+def test_gate_deviation_above_1024(monkeypatch):
+    """Past 1024 frames the JAX ``fused_attention=True`` and "block"
+    layers fall back to XLA attention, and so does the port (its core in
+    "xla" semantics): equal in f32 on every row, with attention dropout
+    at 0.1 fed the JAX module's recorded seed, and a zero-length row."""
+    import audio8_tpu.nn.dropout as jax_dropout
+    from audio8_tpu_torch.ops.hashrand import MASK32, SeedReplay
+
     t = 1030
-    port, params, x, kv = _mha_pair(True, t, seed=6)
-    jmha = JaxMHA(num_heads=H, d_model=D, fused_attention=True)
-    xj = jnp.asarray(x)
-    want = np.asarray(jmha.apply({"params": params}, xj, xj, xj,
-                                 jnp.asarray(kv)[:, None, None, :]))
-    with torch.no_grad():
-        got = port(torch.from_numpy(x), torch.from_numpy(kv)).numpy()
-    np.testing.assert_allclose(got[kv], want[kv], atol=1e-5)
+    seen = []
+    real = jax_dropout._hash_dropout
+
+    def recording(x, rate, seed):
+        seen.append(int(seed) & MASK32)
+        return real(x, rate, seed)
+
+    monkeypatch.setattr(jax_dropout, "_hash_dropout", recording)
+    for fused in (True, "block"):
+        port, params, x, _ = _mha_pair(fused, t, seed=6)
+        kv = _key_valid(t, [t, 0])
+        port.dropout_rate = 0.1
+        jmha = JaxMHA(num_heads=H, d_model=D, fused_attention=fused,
+                      dropout_rate=0.1)
+        xj = jnp.asarray(x)
+        seen.clear()
+        want = np.asarray(jmha.apply(
+            {"params": params}, xj, xj, xj,
+            jnp.asarray(kv)[:, None, None, :], deterministic=False,
+            rngs={"dropout": jax.random.PRNGKey(2)}))
+        assert len(seen) == 1  # the XLA path's Dropout, not a kernel
+        with torch.no_grad():
+            got = port(torch.from_numpy(x), torch.from_numpy(kv),
+                       SeedReplay(seen)).numpy()
+        np.testing.assert_allclose(got, want, rtol=0,
+                                   atol=1e-5 * max(1.0, np.abs(want).max()))
 
 
 def test_plain_forward_needs_no_grad_path():
@@ -279,6 +300,35 @@ def test_library_hash_covers_included_sources(tmp_path, monkeypatch):
     with open(tmp_path / "attention_block_gemm.cuh", "a") as f:
         f.write("// edited\n")
     assert build.library_path("attention_block_bwd.cu") != before
+
+
+def test_ptxas_report_reads_registers_and_spills(tmp_path):
+    """The build keeps ``ptxas -v``'s log beside each library; the report
+    gives each kernel, by its demangled name and integer template
+    arguments, its registers and spill bytes."""
+    from audio8_tpu_torch.csrc import build
+
+    assert "-v" in build.NVCC_FLAGS
+    f32 = ("_ZN12_GLOBAL__N_124attention_bwd_f32_kernelILi64EEEvPKfS2_S2_"
+           "S2_PfS3_NS_6ParamsE")
+    rowdot = "_ZN12_GLOBAL__N_113rowdot_kernelIfEEvPKT_PKfPfii"
+    lib = tmp_path / "attention_bwd-0123.so"
+    (tmp_path / "attention_bwd-0123.log").write_text(
+        "ptxas info    : 0 bytes gmem\n"
+        f"ptxas info    : Compiling entry function '{f32}' for 'sm_90a'\n"
+        f"ptxas info    : Function properties for {f32}\n"
+        "    8 bytes stack frame, 4 bytes spill stores, 8 bytes spill loads\n"
+        "ptxas info    : Used 168 registers, used 1 barriers\n"
+        f"ptxas info    : Compiling entry function '{rowdot}' for 'sm_90a'\n"
+        f"ptxas info    : Function properties for {rowdot}\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info    : Used 16 registers, 380 bytes cmem[0]\n")
+    assert build.ptxas_report(str(lib)) == {
+        "attention_bwd_f32_kernel<64>": {"registers": 168, "spill_stores": 4,
+                                         "spill_loads": 8},
+        "rowdot_kernel<f>": {"registers": 16, "spill_stores": 0,
+                             "spill_loads": 0}}
+    assert build.ptxas_report(str(tmp_path / "missing.so")) == {}
 
 
 def test_profile_block_needs_a_training_step():

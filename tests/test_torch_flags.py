@@ -1,0 +1,133 @@
+"""The port's entry-point flags against the JAX package's parsers.
+
+* Every flag of the JAX ``train``, ``pretrain``, ``transcribe`` and
+  ``serve`` parsers but ``--lane_align`` (ROADMAP.md "Not to port")
+  parses in the port's counterpart, with the same default and choices
+  (the parsers are captured at ``parse_args`` with no argument parsed).
+* A value the port cannot run raises ``NotImplementedError`` naming its
+  ROADMAP.md queue item, never an argparse exit.
+* A value the port can run runs: dropout flags at inference, the LM
+  weights without an LM, the MoE and transducer sizes without MoE or a
+  transducer, the topology flags at the port's own topology.
+"""
+import argparse
+import importlib
+
+import pytest
+
+from audio8_tpu_torch.cli.common import check_ported, encoder_kwargs
+from audio8_tpu_torch.config import AcousticConfig
+from audio8_tpu_torch.models.wav2vec2 import check_supported
+
+ENTRY_POINTS = ("train", "pretrain", "transcribe", "serve")
+# the arguments each port entry point needs to parse at all
+NEEDED = {"train": [], "pretrain": ["--manifest_dir", "m"],
+          "transcribe": ["a.wav", "--checkpoint", "c.pt", "--dict_file",
+                         "d.txt"],
+          "serve": ["--checkpoint", "c.pt", "--dict_file", "d.txt"]}
+TRAINING = {"train": True, "pretrain": True, "transcribe": False,
+            "serve": False}
+
+
+def captured_parser(module: str) -> argparse.ArgumentParser:
+    """The parser ``module.parse_args`` builds, caught before it parses."""
+    caught = {}
+    real = argparse.ArgumentParser.parse_args
+
+    def catch(self, args=None, namespace=None):
+        caught["parser"] = self
+        raise SystemExit(0)
+
+    argparse.ArgumentParser.parse_args = catch
+    try:
+        importlib.import_module(module).parse_args([])
+    except SystemExit:
+        pass
+    finally:
+        argparse.ArgumentParser.parse_args = real
+    return caught["parser"]
+
+
+def flags(parser):
+    return {s: (a.default, a.choices, a.nargs) for a in parser._actions
+            for s in a.option_strings if s.startswith("--")}
+
+
+@pytest.mark.parametrize("entry", ENTRY_POINTS)
+def test_port_parses_every_jax_flag(entry):
+    theirs = flags(captured_parser(f"audio8_tpu.cli.{entry}"))
+    ours = flags(captured_parser(f"audio8_tpu_torch.cli.{entry}"))
+    missing = set(theirs) - set(ours) - {"--lane_align"}
+    assert not missing, f"{entry}: {sorted(missing)}"
+    for flag in set(theirs) - {"--lane_align"}:
+        want, got = theirs[flag], ours[flag]
+        assert got[0] == want[0], f"{entry} {flag} default {got[0]}"
+        assert (sorted(got[1]) if got[1] else got[1]) == \
+            (sorted(want[1]) if want[1] else want[1]), f"{entry} {flag}"
+        assert got[2] == want[2], f"{entry} {flag} nargs"
+
+
+def parse_and_check(entry, extra):
+    mod = importlib.import_module(f"audio8_tpu_torch.cli.{entry}")
+    args = mod.parse_args(NEEDED[entry] + extra)
+    check_ported(args, training=TRAINING[entry])
+    return args
+
+
+@pytest.mark.parametrize("entry,extra,item", [
+    ("train", ["--beam", "4"], "item 6"),
+    ("train", ["--lm", "x.arpa"], "item 6"),
+    ("train", ["--pipeline_parallel", "2"], "item 8"),
+    ("train", ["--tensor_parallel", "2"], "item 8"),
+    ("train", ["--fsdp", "true"], "item 8"),
+    ("train", ["--moe_experts", "4"], "item 8"),
+    ("train", ["--remat", "true"], "item 4"),
+    ("train", ["--layer_drop", "0.1"], "item 4"),
+    ("train", ["--noise_manifest", "n.tsv"], "item 4"),
+    ("train", ["--restart_from", "ckpt"], "item 1"),
+    ("train", ["--distributed", "true"], "item 3"),
+    ("train", ["--pre_norm", "true"], "item 7"),
+    ("train", ["--preset", "large-lv60"], "item 7"),
+    ("train", ["--causal_chunk_frames", "16"], "item 7"),
+    ("pretrain", ["--encoder_type", "conformer"], "item 7"),
+    ("pretrain", ["--preset", "wavlm-base"], "item 7"),
+    ("pretrain", ["--extractor_mode", "layer"], "item 7"),
+    ("pretrain", ["--pos_conv_depth", "5"], "item 7"),
+    ("pretrain", ["--sequence_parallel", "true"], "item 8"),
+    ("transcribe", ["--beam", "8"], "item 6"),
+    ("transcribe", ["--timestamps", "true"], "item 6"),
+    ("transcribe", ["--vad", "true"], "item 6"),
+    ("transcribe", ["--quantize", "int8"], "item 6"),
+    ("transcribe", ["--exported", "artifact"], "item 6"),
+    ("transcribe", ["--device_beam", "true"], "item 7"),
+    ("serve", ["--transducer", "true"], "item 7"),
+    ("serve", ["--lm", "x.arpa"], "item 6"),
+    ("serve", ["--zero1", "true"], "item 8"),
+    ("serve", ["--conv_bias", "true"], "item 7"),
+])
+def test_unported_values_raise_naming_their_item(entry, extra, item):
+    with pytest.raises(NotImplementedError, match=item):
+        parse_and_check(entry, extra)
+
+
+@pytest.mark.parametrize("entry", ENTRY_POINTS)
+def test_runnable_values_run(entry):
+    extra = ([] if entry == "pretrain" else ["--alpha", "1.5"]) + [
+        "--moe_top_k", "2", "--conv_pos_kernel", "64",
+        "--rel_pos_buckets", "16", "--pre_norm", "false",
+        "--extractor_mode", "group", "--causal_left_chunks", "3",
+        "--input_sample_rate", "16000"]
+    if not TRAINING[entry]:  # inert at inference, as in JAX
+        extra += ["--dropout", "0.3", "--attention_dropout", "0.2",
+                  "--layer_drop", "0.5", "--pred_dim", "64",
+                  "--max_symbols_per_frame", "2"]
+    args = parse_and_check(entry, extra)
+    cfg = AcousticConfig(**encoder_kwargs(args))
+    check_supported(cfg)
+    assert cfg.conv_pos_kernel == 64
+
+
+def test_decoders_need_a_checkpoint_as_jax_does():
+    mod = importlib.import_module("audio8_tpu_torch.cli.serve")
+    with pytest.raises(SystemExit, match="--checkpoint and --dict_file"):
+        mod.parse_args([])
