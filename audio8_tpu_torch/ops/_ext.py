@@ -43,10 +43,13 @@ _SIGNATURES = {
                                   + [_F, _F, _U, _U, _I, _I, _I, _P])},
     "attention_block_fwd.cu": {"main": ("a8t_attention_block_fwd",
                                         [_P] * 17 + [_I] * 6
-                                        + [_F, _F, _U, _U, _I, _P])},
+                                        + [_F, _F, _U, _U, _I, _I, _P]),
+                               "route": ("a8t_attention_block_route",
+                                         [_I] * 4)},
     "attention_block_bwd.cu": {"main": ("a8t_attention_block_bwd",
                                         [_P] * 26 + [_I] * 6
-                                        + [_F, _F, _U, _U, _I, _P])},
+                                        + [_F, _F, _U, _U, _I, _I, _I, _I,
+                                           _P])},
     "ctc_loss.cu": {"main": ("a8t_ctc_loss",
                              [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                               _I, _P]),

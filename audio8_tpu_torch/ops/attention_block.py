@@ -36,6 +36,7 @@ step and which the kernels are held to on the card.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -48,6 +49,58 @@ from audio8_tpu_torch.ops.hashrand import MASK32, keep_threshold
 
 SOURCE = "attention_block_fwd.cu"
 BWD_SOURCE = "attention_block_bwd.cu"
+# the kernels' GEMM routes, by their code in attention_block_gemm.cuh
+GEMM_ROUTES = ("simt", "mma.sync", "wgmma")
+# the H100 SXM's SMs, and how many CTAs of each route's weight-gradient
+# GEMM fit on one: the K slices fill the card from the shape alone
+SMS = 132
+CTAS_PER_SM = {"simt": 2, "mma.sync": 4, "wgmma": 1}
+K_TILE = {"simt": 8, "mma.sync": 32, "wgmma": 64}
+
+
+def _tiles(route: str, m: int, n: int) -> int:
+    """Output tiles of an (m, n) product on the route: 128 x 128 (SIMT),
+    64 x 64 (mma.sync), 128 x 256 where n >= 256 else 128 x 128 (wgmma)."""
+    tm = 64 if route == "mma.sync" else 128
+    tn = 256 if route == "wgmma" and n >= 256 else tm
+    return -(-m // tm) * -(-n // tn)
+
+
+def gemm_route(dtype: torch.dtype, d_model: int, num_heads: int,
+               d_head: int) -> str:
+    """The GEMM route of the block's kernels, from the shape alone
+    (``block_route`` in ``csrc/attention_block_gemm.cuh``, which the
+    kernels check): "wgmma" for bf16 at head dim 64 or 128 and d_model a
+    multiple of 64 (TMA's 64 x 64 boxes); "mma.sync" for other bf16
+    shapes whose dx K segments, H*dh deep, are whole 32-deep tiles;
+    "simt" for float32 (full f32 sums) and the rest."""
+    if dtype != torch.bfloat16:
+        return "simt"
+    if d_head in (64, 128) and d_model % 64 == 0:
+        return "wgmma"
+    return "mma.sync" if (num_heads * d_head) % 32 == 0 else "simt"
+
+
+def weight_grad_slices(route: str, b: int, t: int, d_model: int,
+                       hd: int) -> tuple:
+    """``(s_w, s_wo)``: the fixed number of K slices of the dW{q,k,v}
+    product (3 x (H*dh, D) outputs) and of the dWo product ((D, H*dh)),
+    each over the rows of all batch rows, at most their k tiles that hold
+    real rows. The wgmma route's persistent grid (one CTA per SM) takes as
+    many as fill the SMs once; the others launch CTAs in rounds of the
+    card's slots and take the S <= 8 with the fewest rounds per unit of
+    work (the smallest on ties)."""
+    slots = SMS * CTAS_PER_SM[route]
+    stages = b * -(-t // K_TILE[route])
+
+    def slices(n):
+        if route == "wgmma":
+            return max(1, min(stages, slots // n))
+        return min(range(1, min(8, stages) + 1),
+                   key=lambda s: (-(-n * s // slots) / s, s))
+
+    return (slices(3 * _tiles(route, hd, d_model)),
+            slices(_tiles(route, d_model, hd)))
 
 
 def padded_key_mask(key_valid: Optional[torch.Tensor], b: int, t: int,
@@ -89,28 +142,52 @@ def attention_block_plain(x, wq, bq, wk, bk, wv, bv, wo, bo,
     return out.to(x.dtype)
 
 
+def weight_grad_partials(g: torch.Tensor, x: torch.Tensor,
+                         slices: int) -> torch.Tensor:
+    """``(slices, n, m)`` f32 partials of ``g^T x`` over the rows of all
+    batch rows: g ``(B, T_pad, n)`` and x ``(B, T_pad, m)`` flattened to
+    B*T_pad rows and cut into ``slices`` runs of whole 64-row tiles (the
+    last ones shorter or empty), each run's product in f32."""
+    g, x = g.reshape(-1, g.shape[-1]).float(), x.reshape(-1, x.shape[-1])
+    rows = g.shape[0]
+    per = round_up(-(-rows // slices), 64)
+    return torch.stack([torch.matmul(g[i * per:(i + 1) * per].t(),
+                                     x[i * per:(i + 1) * per].float())
+                        for i in range(slices)])
+
+
 def sum_partials(x, wq, bq, wk, bk, wv, bv, wo, bo, dw_part, dwo_part,
                  db_part, dout):
-    """The weight and bias gradients from their per-batch-row partials
-    (``dw_part`` (3, B, H*dh, D), ``dwo_part`` (B, D, H*dh), ``db_part``
-    (B, 3, H*dh), all f32), each rounded to its parameter's dtype; ``dbo``
-    is the f32 sum of dout over batch and time."""
-    dw = dw_part.sum(1)
-    db = db_part.sum(0)
-    dwo = dwo_part.sum(0)
-    dbo = dout.float().sum((0, 1))
-    return (dw[0].to(wq.dtype), db[0].to(bq.dtype), dw[1].to(wk.dtype),
-            db[1].to(bk.dtype), dw[2].to(wv.dtype), db[2].to(bv.dtype),
-            dwo.to(wo.dtype), dbo.to(bo.dtype))
+    """The weight and bias gradients from their f32 partials (``dw_part``
+    (3, S_w, H*dh, D) and ``dwo_part`` (S_wo, D, H*dh), one per K slice;
+    ``db_part`` (B, 3, H*dh), one per batch row), each summed by one
+    reduction (a fixed order, no atomics: the same bits on every call)
+    into one f32 buffer, which is rounded once to the parameters' dtype;
+    ``dbo`` is the f32 sum of dout over batch and time."""
+    hd, d = dw_part.shape[-2:]
+    shapes = ((3, hd, d), (d, hd), (3, hd), (d,))
+    sizes = [math.prod(s) for s in shapes]
+    flat = torch.empty(sum(sizes), dtype=torch.float32,
+                       device=dw_part.device)
+    dw, dwo, db, dbo = (a.view(s) for a, s in zip(flat.split(sizes), shapes))
+    torch.sum(dw_part, 1, out=dw)
+    torch.sum(dwo_part, 0, out=dwo)
+    torch.sum(db_part, 0, out=db)
+    torch.sum(dout, (0, 1), dtype=torch.float32, out=dbo)
+    dw, dwo, db, dbo = (a.view(s) for a, s in zip(
+        flat.to(wq.dtype).split(sizes), shapes))
+    return dw[0], db[0], dw[1], db[1], dw[2], db[2], dwo, dbo
 
 
 def attention_block_bwd_plain(x, wq, bq, wk, bk, wv, bv, wo, bo,
                               key_valid: Optional[torch.Tensor],
                               num_heads: int, scale: float, rate: float,
-                              seed: int, dout: torch.Tensor):
+                              seed: int, dout: torch.Tensor,
+                              slices: tuple = (1, 1)):
     """Plain version of the TPU kernel's backward (``_bwd_kernel``, then
     the sums outside it): ``(dx, dwq, dbq, dwk, dbk, dwv, dbv, dwo, dbo)``
-    by recompute."""
+    by recompute; ``slices`` = (S_w, S_wo) K slices of the dW{q,k,v} and
+    dWo products over the B*T_pad rows."""
     b, t, d = x.shape
     t_pad = round_up(t, 128)
     dt = x.dtype
@@ -121,16 +198,30 @@ def attention_block_bwd_plain(x, wq, bq, wk, bk, wv, bv, wo, bo,
     o = _merge(attention_core_plain(q, k, v, kv, scale, rate, seed))
     dop = torch.nn.functional.pad(dout.to(dt), (0, 0, 0, t_pad - t)).float()
     dxo = torch.matmul(dop, wo.float()).to(dt)                 # (B, T_pad, HD)
-    dwo_part = torch.matmul(dop.transpose(1, 2), o.float())   # (B, D, HD)
+    dwo_part = weight_grad_partials(dop, o, slices[1])        # (S, D, HD)
     dxo = dxo.view(b, t_pad, num_heads, -1).permute(0, 2, 1, 3)
     g32 = attention_core_bwd_f32(q, k, v, kv, scale, rate, seed, dxo)
     g = [_merge(a.to(dt)).float() for a in g32]               # (B, T_pad, HD)
-    xf = xp.float()
-    dw_part = torch.stack([torch.matmul(a.transpose(1, 2), xf) for a in g])
+    dw_part = torch.stack([weight_grad_partials(a, xp, slices[0])
+                           for a in g])                       # (3, S, HD, D)
     db_part = torch.stack([_merge(a).sum(1) for a in g32], 1)
     dx = sum(torch.matmul(a, w.float()) for a, w in zip(g, (wq, wk, wv)))
     return (dx[:, :t].to(dt),) + sum_partials(
         x, wq, bq, wk, bk, wv, bv, wo, bo, dw_part, dwo_part, db_part, dout)
+
+
+def _workspace(shapes, dtype, device) -> list:
+    """Contiguous tensors of ``shapes`` cut from one allocation, each at a
+    16-byte aligned offset (every size here is a multiple of 16 bytes)."""
+    sizes = [math.prod(s) for s in shapes]
+    buf = torch.empty(sum(sizes), dtype=dtype, device=device)
+    return [a.view(s) for a, s in zip(buf.split(sizes), shapes)]
+
+
+def _aligned(a: torch.Tensor) -> torch.Tensor:
+    """``a``, or a copy at a 16-byte aligned address (TMA and the 16-byte
+    loads of the kernels need one)."""
+    return a if a.data_ptr() % 16 == 0 else a.clone()
 
 
 def _checked(x, weights, key_valid, num_heads, rate, what):
@@ -185,15 +276,20 @@ def _forward_kernel(x, weights, key_valid, num_heads, scale, rate, seed,
                          "attention_block")
     b, t, d = x.shape
     dev = x.device
+    x, weights = _aligned(x), [_aligned(w) for w in weights]
+    route = GEMM_ROUTES.index(gemm_route(x.dtype, d, num_heads, dh))
     kv = padded_key_mask(key_valid, b, t, t_pad, dev).to(torch.uint8)
-    q, k, v, o = (torch.empty((b, num_heads, t_pad, dh), dtype=x.dtype,
-                              device=dev) for _ in range(4))
+    heads = (b, num_heads, t_pad, dh)
+    q, k, v, o = _workspace([heads] * 4, x.dtype, dev)
     stats = o32 = None
     if with_residuals:
-        stats = torch.empty((b * num_heads * t_pad, 2), dtype=torch.float32,
-                            device=dev)
-        o32 = o if x.dtype == torch.float32 else torch.empty(
-            o.shape, dtype=torch.float32, device=dev)
+        if x.dtype == torch.float32:
+            stats, = _workspace([(b * num_heads * t_pad, 2)], torch.float32,
+                                dev)
+            o32 = o
+        else:
+            stats, o32 = _workspace([(b * num_heads * t_pad, 2), heads],
+                                    torch.float32, dev)
     out = torch.empty_like(x)
     ptrs = [a.data_ptr() for a in (x, *weights, kv, q, k, v, o)]
     fn = _ext.function(SOURCE)
@@ -201,7 +297,8 @@ def _forward_kernel(x, weights, key_valid, num_heads, scale, rate, seed,
                   None if o32 is None or o32 is o else o32.data_ptr(),
                   out.data_ptr(), b, t, d, num_heads, dh,
                   _ext.DTYPE_CODES[x.dtype], float(scale),
-                  *_dropout_args(rate, seed), _ext.stream_handle(dev)),
+                  *_dropout_args(rate, seed), route,
+                  _ext.stream_handle(dev)),
                "attention_block")
     attention_block.launches += 1
     residuals = (kv, q, k, v, o, o32, stats) if with_residuals else None
@@ -213,9 +310,8 @@ def attention_block_bwd(x, weights, residuals, num_heads: int, scale: float,
     """The backward kernel on CUDA tensors (eight device kernels: dxo,
     the dWo partials, the core backward's three (D, the fused pass, the
     dq reduction), the dW{q,k,v} partials, dx and the bias partials),
-    then the partials' sums: ``(dx, dwq, dbq,
-    dwk, dbk, dwv, dbv, dwo, dbo)``. ``residuals`` are the forward
-    kernel's."""
+    then the partials' sums: ``(dx, dwq, dbq, dwk, dbk, dwv, dbv, dwo,
+    dbo)``. ``residuals`` are the forward kernel's."""
     dh, t_pad = _checked(x, weights, None, num_heads, rate,
                          "attention_block_bwd")
     kv, q, k, v, o, o32, stats = residuals
@@ -228,18 +324,18 @@ def attention_block_bwd(x, weights, residuals, num_heads: int, scale: float,
     if stats is None or stats.shape != (b * num_heads * t_pad, 2):
         raise ValueError("attention_block_bwd: the forward's residuals are "
                          "missing")
-    dout = dout.to(x.dtype).contiguous()
-    f32 = dict(dtype=torch.float32, device=dev)
-    dxo, dq, dk, dv = (torch.empty_like(q) for _ in range(4))
-    g32 = [None] * 3 if x.dtype == torch.float32 else [
-        torch.empty(q.shape, **f32) for _ in range(3)]
-    dvec = torch.empty((b * num_heads * t_pad,), **f32)
-    dq_part = torch.empty((b * num_heads, t_pad // KEY_TILE, t_pad, dh),
-                          **f32)
+    route = gemm_route(x.dtype, d, num_heads, dh)
+    s_w, s_wo = weight_grad_slices(route, b, t, d, hd)
+    x, weights = _aligned(x), [_aligned(w) for w in weights]
+    dout = _aligned(dout.to(x.dtype).contiguous())
+    dxo, dq, dk, dv = _workspace([q.shape] * 4, x.dtype, dev)
+    bf16 = x.dtype != torch.float32
+    dvec, dq_part, dw_part, dwo_part, db_part, *g32 = _workspace(
+        [(b * num_heads * t_pad,), (b * num_heads, t_pad // KEY_TILE, t_pad,
+                                     dh), (3, s_w, hd, d), (s_wo, d, hd),
+         (b, 3, hd)] + [q.shape] * (3 if bf16 else 0), torch.float32, dev)
+    g32 = g32 or [None] * 3
     dx = torch.empty_like(x)
-    dw_part = torch.empty((3, b, hd, d), **f32)
-    dwo_part = torch.empty((b, d, hd), **f32)
-    db_part = torch.empty((b, 3, hd), **f32)
     wq, bq, wk, bk, wv, bv, wo, bo = weights
     fn = _ext.function(BWD_SOURCE)
     _ext.check(fn(*(a.data_ptr() for a in (
@@ -247,7 +343,8 @@ def attention_block_bwd(x, weights, residuals, num_heads: int, scale: float,
         dq_part, dq, dk, dv)), *(None if a is None else a.data_ptr() for a in g32),
         *(a.data_ptr() for a in (dx, dw_part, dwo_part, db_part)),
         b, t, d, num_heads, dh, _ext.DTYPE_CODES[x.dtype], float(scale),
-        *_dropout_args(rate, seed), _ext.stream_handle(dev)),
+        *_dropout_args(rate, seed), GEMM_ROUTES.index(route), s_w, s_wo,
+        _ext.stream_handle(dev)),
         "attention_block_bwd")
     attention_block_bwd.launches += 1
     return (dx,) + sum_partials(x, *weights, dw_part, dwo_part, db_part,

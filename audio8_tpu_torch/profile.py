@@ -132,7 +132,10 @@ def stage_times(model, sig, lengths) -> dict:
 
 def kernel_groups(prof) -> dict:
     """Device ms by kernel family, from profiler events, and the five
-    largest kernels of the rest by name."""
+    largest kernels of the rest by name. The attention block's group holds
+    its GEMMs on every route (``blockgemm::``: wgmma, mma.sync, SIMT) and
+    its bias partials; ``matmul`` holds cuBLAS's kernels, whose Hopper
+    bf16 GEMMs are named ``nvjet_...``."""
     groups = {"attention_block_gemm": ("blockgemm", "bias_partials_kernel"),
               "attention_fwd": "attention_fwd",
               "attention_bwd": ("attention_bwd", "rowdot_kernel",
@@ -145,7 +148,7 @@ def kernel_groups(prof) -> dict:
               "dropout": ("dropout_kernel", "dropout_vec_kernel"),
               "conv_k3s2_fwd": "conv_k3s2",
               "library_conv": ("dgrad", "wgrad", "fprop", "conv"),
-              "matmul": ("gemm", "cutlass", "sm90_", "ampere")}
+              "matmul": ("gemm", "cutlass", "sm90_", "ampere", "nvjet")}
     out = {k: 0.0 for k in groups}
     out["other"] = 0.0
     other = {}

@@ -20,7 +20,11 @@ against its plain PyTorch version. Phases, each printing JSON lines:
               "xla" (``bf16_softmax``) at a limit that a kernel without
               it fails; then small ragged shapes, every head dim and
               misaligned pointers, which reach every variant of each
-              kernel;
+              kernel; the attention block's GEMMs on each of their three
+              routes (wgmma fed by TMA, mma.sync, SIMT), the route read
+              from the profiler's kernel names and held to the shape's
+              rule, wgmma at wav2vec2-base's shapes in bf16, and repeated
+              backward calls bitwise equal;
 3. model    - the full-width model's forward on the card (through the
               kernels) vs the same weights on the CPU (plain versions);
 4. serve    - the ``a8t-serve`` path (parse_args -> load_acoustic ->
@@ -70,7 +74,11 @@ against its plain PyTorch version. Phases, each printing JSON lines:
               (kernel durations traced by torch.profiler), with the least
               time the card could take (``bound_ms``); the attention
               backward at the training and the pretraining shapes in both
-              semantics, split by launch;
+              semantics, split by launch; the attention block forward and
+              backward split by launch (``launch_ms``: each GEMM, the
+              core's launches, the bias partials and PyTorch's sums of the
+              weight partials), with the GEMM route their kernels ran and
+              the host's ms per call beside the CUDA-event ms;
 
 then a ``kernels`` line, the card's name and power limit from nvidia-smi,
 and, last, ``{"ok": true, "device": {...}}``. Any failed check raises, so
@@ -78,6 +86,14 @@ the exit code is non-zero and the last line is not printed. Without a CUDA
 card it exits with code 2 and prints no result.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --block-timing   # only the block's timing rows
+
+``--block-timing`` builds the block's two sources and prints only the
+attention block's timing rows (phase 13) in float32 and bfloat16, then
+the card's name and power limit;
+it drives only the wrappers that every tree of the port has had since
+the block came, so a copy placed in another tree's root times that
+tree's kernels (two trees in turns in one call).
 """
 from __future__ import annotations
 
@@ -482,11 +498,37 @@ def block_inputs(b, t, d, dtype, gen):
 BLOCK_GRADS = ("x", "wq", "bq", "wk", "bk", "wv", "bv", "wo", "bo")
 
 
+# the GEMM routes check_block saw the block's kernels run
+BLOCK_ROUTES_SEEN = set()
+
+
+def check_block_route(b, t, d, heads, dtype, run) -> str:
+    """The GEMM route of the block at this shape: the kernels' own rule
+    (``a8t_attention_block_route``) and its Python mirror agree, and the
+    kernels that ``run`` (a forward and backward) launches, read from the
+    profiler's kernel names, are that route's only."""
+    from audio8_tpu_torch.ops import _ext
+    from audio8_tpu_torch.ops.attention_block import GEMM_ROUTES, gemm_route
+
+    route = gemm_route(dtype, d, heads, d // heads)
+    code = _ext.function("attention_block_fwd.cu", "route")(
+        _ext.DTYPE_CODES[dtype], d, heads, d // heads)
+    check(GEMM_ROUTES[code] == route, f"attention_block route {route} vs "
+          f"the kernels' {GEMM_ROUTES[code]} at {(b, t, d, heads)} {dtype}")
+    seen = {gemm_route_of(n) for n in traced_ms(run)} - {None}
+    check(seen == {route}, f"attention_block {(b, t, d, heads)} {dtype}: "
+          f"GEMM kernels of {seen}, want {route}")
+    BLOCK_ROUTES_SEEN.add(route)
+    return route
+
+
 def check_block(phase, b, t, d, heads, lengths, dtype, gen) -> tuple:
     """The block's forward (with and without the backward's residuals)
     and its nine gradients, through the kernels, vs the plain versions on
     the same inputs, at rates 0 and 0.1; every row is compared, a
-    zero-length row included. Returns the largest forward and gradient
+    zero-length row included; a second backward must be bitwise equal to
+    the first, and the GEMM kernels must be the shape's route
+    (:func:`check_block_route`). Returns the largest forward and gradient
     errors."""
     from audio8_tpu_torch.ops.attention_block import (
         attention_block, attention_block_bwd_plain, attention_block_plain)
@@ -499,10 +541,20 @@ def check_block(phase, b, t, d, heads, lengths, dtype, gen) -> tuple:
     scale = (d // heads) ** -0.5
     rows = b * ((t + 127) // 128 * 128)
     worst_fwd = worst_bwd = 0.0
+    route = None
     for rate, seed in ((0.0, 0), (0.1, 3_000_000_019)):
         xs = [a.detach().requires_grad_() for a in (x, *weights)]
         out = attention_block(*xs, kv, heads, scale, rate, seed)
-        got = torch.autograd.grad(out, xs, dy)
+        got = torch.autograd.grad(out, xs, dy, retain_graph=True)
+        again = torch.autograd.grad(out, xs, dy)
+        check(all(torch.equal(g1, g2) for g1, g2 in zip(got, again)),
+              f"attention_block_bwd {(b, t, d, heads)} {dtype} rate {rate}: "
+              "repeated backward calls differ")
+        if route is None:
+            route = check_block_route(
+                b, t, d, heads, dtype,
+                lambda: torch.autograd.grad(attention_block(
+                    *xs, kv, heads, scale, rate, seed), xs, dy))
         with torch.no_grad():
             evaluated = attention_block(x, *weights, kv, heads, scale, rate,
                                         seed)
@@ -526,8 +578,9 @@ def check_block(phase, b, t, d, heads, lengths, dtype, gen) -> tuple:
         worst_bwd = max(worst_bwd, *(errs[k] for k in BLOCK_GRADS))
         emit({"phase": phase, "kernel": "attention_block(+_bwd)",
               "dtype": str(dtype), "shape": [b, t, d, heads],
-              "key_lengths": lengths, "rate": rate, "max_abs_err": errs,
-              "tol_factor": TOL[dtype], "bias_grad_rows": rows})
+              "key_lengths": lengths, "rate": rate, "gemm_route": route,
+              "max_abs_err": errs, "tol_factor": TOL[dtype],
+              "bias_grad_rows": rows, "repeat_bitwise_equal": True})
     return worst_fwd, worst_bwd
 
 
@@ -1435,14 +1488,17 @@ def traced_ms(fn) -> dict:
     call), divided by the number of calls. The host's launch cost, which
     exceeds the device time for a small kernel or SDPA's bf16 autograd,
     is not in it. Every timed function launches kernels, so a trace that
-    holds none (the profiler now and then returns an empty one) is taken
-    again, up to three times."""
+    holds none (the profiler now and then returns empty ones, several in
+    a row late in a run) is taken again, up to eight times, the pause
+    before each retry doubling from 0.25 s (about 32 s in all)."""
     t0 = time.perf_counter()
     fn()
     torch.cuda.synchronize()
     calls = max(1, min(10, int(0.2 / (time.perf_counter() - t0))))
     acts = [torch.profiler.ProfilerActivity.CUDA]
-    for _ in range(3):
+    for attempt in range(8):
+        if attempt:
+            time.sleep(0.25 * 2 ** (attempt - 1))
         with torch.profiler.profile(activities=acts) as prof:
             for _ in range(calls):
                 fn()
@@ -1454,12 +1510,42 @@ def traced_ms(fn) -> dict:
                 out[e.name] = out.get(e.name, 0.0) + ms
         if out:
             return out
-    raise RuntimeError("torch.profiler traced no CUDA kernel of a timed call")
+    raise EmptyTrace("torch.profiler traced no CUDA kernel of a timed call")
+
+
+class EmptyTrace(RuntimeError):
+    pass
+
+
+def traced_or_none(fn) -> dict:
+    """:func:`traced_ms`, or ``{}`` with a ``timing_note`` line when the
+    profiler keeps returning empty traces: for the splits by launch, which
+    a run can report without."""
+    try:
+        return traced_ms(fn)
+    except EmptyTrace:
+        emit({"phase": "timing_note", "function": getattr(
+            fn, "__qualname__", repr(fn)), "split_by_launch": None})
+        return {}
 
 
 def device_ms(fn) -> float:
-    """Device time of one call of ``fn`` (:func:`traced_ms`, summed)."""
-    return sum(traced_ms(fn).values())
+    """Device time of one call of ``fn`` (:func:`traced_ms`, summed). If
+    the profiler keeps returning empty traces, the CUDA-event time of 10
+    calls instead, which also holds the host's launch gaps; a
+    ``timing_note`` line names the function."""
+    try:
+        return sum(traced_ms(fn).values())
+    except EmptyTrace:
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        for _ in range(10):
+            fn()
+        e1.record()
+        torch.cuda.synchronize()
+        emit({"phase": "timing_note", "function": getattr(
+            fn, "__qualname__", repr(fn)), "timed_by": "cuda_events"})
+        return e0.elapsed_time(e1) / 10
 
 
 def bound(flops: float, nbytes: float, dtype=torch.float32):
@@ -1539,12 +1625,13 @@ def time_attention(dtype, gen) -> dict:
                                                  do, **sem_kw),
                 lambda: torch.autograd.grad(ref, (qg, kg, vg), do,
                                             retain_graph=True))
-            by_name = traced_ms(kern)
+            by_name = traced_or_none(kern)
             r["launch_ms"] = {
                 part: sum(ms for n, ms in by_name.items() if key in n)
                 for part, key in (("rowdot", "rowdot_kernel"),
                                   ("fused_pass", "attention_bwd_"),
-                                  ("dq_reduce", "dq_reduce_kernel"))}
+                                  ("dq_reduce", "dq_reduce_kernel"))
+            } if by_name else {}
             # recompute S, then dP, dV, dK, dQ: five T x T x dh products
             # per head; reads q, k, v, o, dO and writes dq, dk, dv
             r["bound_ms"], r["bound_by"] = bound(
@@ -1557,11 +1644,76 @@ def time_attention(dtype, gen) -> dict:
     return out
 
 
+def block_launch(name: str, rest: str) -> str:
+    """Which launch of the attention block a traced kernel is, from its
+    name: the GEMMs by their operand and epilogue types (the same on every
+    route), the cores by their kernels; anything else is PyTorch's work in
+    the wrapper, labelled ``rest``."""
+    if "attention_fwd" in name:
+        return "core_fwd"
+    for key, part in (("rowdot_kernel", "D"), ("dq_reduce_kernel", "dq_sum"),
+                      ("attention_bwd_", "fused_pass"),
+                      ("bias_partials_kernel", "bias_partials")):
+        if key in name:
+            return part
+    if "blockgemm" in name:
+        if "Partial" in name:
+            return ("dWo" if name.find("RowCols") < name.find("HeadRows")
+                    else "dWqkv")
+        out = "HeadOut" in name
+        if "WeightRows" in name:
+            return "qkv" if out else "o_proj"
+        if "WeightCols" in name:
+            return "dxo" if out else "dx"
+    return rest
+
+
+def gemm_route_of(name: str):
+    """The GEMM route a traced kernel of the block ran, or None."""
+    for key, route in (("wgmma_gemm_kernel", "wgmma"),
+                       ("gemm_bf16_mma_kernel", "mma.sync"),
+                       ("gemm_kernel", "simt")):
+        if "blockgemm" in name and key in name:
+            return route
+    return None
+
+
+def launch_split(fn, rest: str) -> dict:
+    """Device ms of one call of ``fn`` by block launch (PyTorch's kernels
+    in the wrapper as ``rest``), and the GEMM routes its kernels ran."""
+    by_name = traced_or_none(fn)
+    split = {}
+    for n, ms in by_name.items():
+        part = block_launch(n, rest)
+        split[part] = split.get(part, 0.0) + ms
+    routes = sorted({gemm_route_of(n) for n in by_name} - {None})
+    return {"launch_ms": split, "gemm_routes": routes}
+
+
+def host_ms(fn, calls: int = 20) -> dict:
+    """The host's ms per call of ``fn`` (enqueue, no synchronisation)
+    against the CUDA-event ms per call over the same calls: where the two
+    agree and exceed the device time, the host sets the pace."""
+    fn()
+    torch.cuda.synchronize()
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    e0.record()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    host = (time.perf_counter() - t0) / calls * 1e3
+    e1.record()
+    torch.cuda.synchronize()
+    return {"host_ms": host, "event_ms": e0.elapsed_time(e1) / calls}
+
+
 def time_block(dtype, gen) -> dict:
     """Forward and backward at the pretraining batches' shape (20, 222,
     768), 12 heads, no mask; the yardstick is F.multi_head_attention_
     forward (dropout 0, need_weights off, so it runs cuBLAS and SDPA) and
-    its autograd."""
+    its autograd. Each row also splits the kernel's device time by launch
+    (``launch_ms``), names the GEMM route its kernels ran, and gives the
+    host's ms per call beside the CUDA-event ms."""
     import torch.nn.functional as F
 
     from audio8_tpu_torch.ops.attention_block import (
@@ -1580,8 +1732,11 @@ def time_block(dtype, gen) -> dict:
             q, q, q, d, h, w_in, b_in, None, None, False, 0.0, w_out, b_out,
             training=False, need_weights=False)[0]
 
+    def fwd():
+        return attention_block(x, *weights, None, h, scale)
+
     out = {}
-    r = in_turns(lambda: attention_block(x, *weights, None, h, scale),
+    r = in_turns(fwd,
                  lambda: attention_block_plain(x, *weights, None, h, scale),
                  lambda: library(x, *lib))
     esize = x.element_size()
@@ -1589,13 +1744,19 @@ def time_block(dtype, gen) -> dict:
     core = 4.0 * b * h * t * t * (d // h)
     r["bound_ms"], r["bound_by"] = bound(
         4 * proj + core, (2 * x.numel() + 4 * d * d + 4 * d) * esize, dtype)
+    r.update(launch_split(fwd, "key_mask"))
+    r.update(host_ms(fwd))
     out["attention_block"] = r
     xs = [a.detach().requires_grad_() for a in (x, *weights)]
     o = attention_block(*xs, None, h, scale)
     ls = [a.detach().requires_grad_() for a in (x, *lib)]
     lo = library(*ls)
+
+    def bwd():
+        return torch.autograd.grad(o, xs, dy, retain_graph=True)
+
     r = in_turns(
-        lambda: torch.autograd.grad(o, xs, dy, retain_graph=True),
+        bwd,
         lambda: attention_block_bwd_plain(x, *weights, None, h, scale, 0.0, 0,
                                           dy),
         lambda: torch.autograd.grad(lo, ls, dy.transpose(0, 1),
@@ -1606,6 +1767,8 @@ def time_block(dtype, gen) -> dict:
     r["bound_ms"], r["bound_by"] = bound(
         8 * proj + 2.5 * core,
         (3 * x.numel() + 8 * d * d + 8 * d) * esize, dtype)
+    r.update(launch_split(bwd, "sum_partials"))
+    r.update(host_ms(bwd))
     out["attention_block_bwd"] = r
     return out
 
@@ -1798,7 +1961,31 @@ PATH_OF = {"attention_block": "pretrain_block",
            "attention_block_bwd": "pretrain_block", "ctc_loss": "train"}
 
 
-def main() -> int:
+def print_card() -> None:
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    print(smi.stdout.strip().splitlines()[0], flush=True)
+
+
+def block_timing(gen) -> int:
+    """The block's timing rows alone (``--block-timing``)."""
+    from audio8_tpu_torch.csrc.build import build
+
+    t0 = time.perf_counter()
+    build(("attention_block_fwd.cu", "attention_block_bwd.cu"))
+    emit({"phase": "build", "seconds": time.perf_counter() - t0,
+          "tree": HERE})
+    for dtype in (torch.float32, torch.bfloat16):
+        for name, r in time_block(dtype, gen).items():
+            emit({"phase": "timing", "kernel": name, "dtype": str(dtype),
+                  "tree": HERE, **r})
+    print_card()
+    return 0
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
@@ -1808,6 +1995,11 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(SEED)
+    if argv == ["--block-timing"]:
+        return block_timing(gen)
+    if argv:
+        print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
+        return 2
 
     phase_build()
     worst = phase_kernels(gen)
@@ -1838,9 +2030,24 @@ def main() -> int:
     times = phase_timing(gen)
     check("jax" not in sys.modules and "audio8_tpu" not in sys.modules,
           "jax or the JAX package was imported")
+    from audio8_tpu_torch.ops.attention_block import GEMM_ROUTES
+    check(BLOCK_ROUTES_SEEN == set(GEMM_ROUTES),
+          f"attention_block routes checked: {sorted(BLOCK_ROUTES_SEEN)}")
 
-    # launches: each kernel's path run (PATH_OF, else the pretraining run)
+    # launches: each kernel's path run (PATH_OF, else the pretraining run);
+    # the block's rows also carry their launch split, GEMM route and host
+    # ms per call, and the same in bf16
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    block_keys = keys + ("launch_ms", "gemm_routes", "host_ms", "event_ms")
+
+    def extra(name):
+        if name not in ("attention_block", "attention_block_bwd"):
+            return {}
+        return {**{k: times[(name, torch.float32)][k]
+                   for k in block_keys[len(keys):]},
+                "bfloat16": {k: times[(name, torch.bfloat16)][k]
+                             for k in block_keys}}
+
     path_launches = {"pretrain": launches, "train": train_launches,
                      "pretrain_block": block_launches}
     emit({"kernels": [
@@ -1850,12 +2057,10 @@ def main() -> int:
          "path": PATH_OF.get(name, "pretrain"),
          "launches": path_launches[PATH_OF.get(name, "pretrain")][name],
          "max_abs_err": worst[name],
-         **{k: times[(name, torch.float32)][k] for k in keys}}
+         **{k: times[(name, torch.float32)][k] for k in keys},
+         **extra(name)}
         for name in REPLACES]})
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    print_card()
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

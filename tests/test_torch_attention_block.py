@@ -18,7 +18,12 @@ interpret mode, on the same inputs made with numpy:
   acoustic model with "block" from ``params_from_jax`` weights is in
   ``test_torch_wav2vec2.py``);
 * above the gate (1030 frames) ``True`` and "block" fall back to the XLA
-  attention in both packages: equal in f32 with attention dropout on.
+  attention in both packages: equal in f32 with attention dropout on;
+* the weight gradients' reduction: S fixed K slices over the B*T_pad rows
+  (padded rows, a zero-length row, rate 0.1), summed in slice order, vs
+  the JAX block's dW{q,k,v} and dWo within 1e-5;
+* the GEMM route each shape takes (``gemm_route``) and the K slices of
+  the weight gradients at the pretraining shape.
 """
 import jax
 import jax.numpy as jnp
@@ -34,7 +39,10 @@ from audio8_tpu_torch.nn import transformer
 from audio8_tpu_torch.nn.transformer import MultiHeadAttention
 from audio8_tpu_torch.ops.attention_block import (HEAD_DIMS,
                                                   attention_block,
-                                                  attention_block_plain)
+                                                  attention_block_bwd_plain,
+                                                  attention_block_plain,
+                                                  gemm_route,
+                                                  weight_grad_slices)
 
 FWD_TOL, GRAD_TOL = 2e-5, 3e-5  # tests/test_attention_block.py's bounds
 # bfloat16: both sides round q/k/v, o_h, dxo and the gradients to bf16 at
@@ -288,18 +296,20 @@ def test_library_hash_covers_included_sources(tmp_path, monkeypatch):
 
     assert build.local_includes("attention_block_fwd.cu") == [
         "attention_block_fwd.cu", "attention_fwd.cu",
-        "attention_block_gemm.cuh"]
+        "attention_block_gemm.cuh", "wgmma.cuh"]
     assert build.local_includes("attention_block_bwd.cu") == [
         "attention_block_bwd.cu", "attention_bwd.cu",
-        "attention_block_gemm.cuh"]
+        "attention_block_gemm.cuh", "wgmma.cuh"]
+    assert "wgmma.cuh" in build.local_includes("attention_bwd.cu")
     for name in build.local_includes("attention_block_bwd.cu"):
         (tmp_path / name).write_bytes(
             open(f"{build.CSRC}/{name}", "rb").read())
     monkeypatch.setattr(build, "CSRC", str(tmp_path))
-    before = build.library_path("attention_block_bwd.cu")
-    with open(tmp_path / "attention_block_gemm.cuh", "a") as f:
-        f.write("// edited\n")
-    assert build.library_path("attention_block_bwd.cu") != before
+    for header in ("attention_block_gemm.cuh", "wgmma.cuh"):
+        before = build.library_path("attention_block_bwd.cu")
+        with open(tmp_path / header, "a") as f:
+            f.write("// edited\n")
+        assert build.library_path("attention_block_bwd.cu") != before
 
 
 def test_ptxas_report_reads_registers_and_spills(tmp_path):
@@ -336,3 +346,66 @@ def test_profile_block_needs_a_training_step():
 
     with pytest.raises(SystemExit):
         profile.main(["--fused_attention", "block"])
+
+
+@pytest.mark.parametrize("slices", [(1, 1), (2, 3), (3, 2), (7, 5)])
+def test_weight_grad_slices_match_jax(slices):
+    """dW{q,k,v} and dWo as one product over the B*T_pad = 384 rows cut
+    into S fixed K slices of whole 64-row tiles (7 leaves one empty),
+    their f32 partials summed in slice order: equal to the JAX block's
+    per-(b, h) sums within 1e-5, with padded rows, a zero-length row and
+    attention dropout at 0.1."""
+    t, rate, seed = 37, 0.1, 3_000_000_019
+    args, dy = _inputs(t, seed=8)
+    kv = _key_valid(t, [t, 20, 0])
+    _, want = _jax(args, kv, rate, seed, dy)
+    ts = [torch.from_numpy(np.ascontiguousarray(a.T if a.ndim == 2 else a))
+          for a in args]
+    got = attention_block_bwd_plain(*ts, torch.from_numpy(kv), H,
+                                    (D // H) ** -0.5, rate, seed,
+                                    torch.from_numpy(dy), slices)
+    for name, g, w in zip(NAMES, got, want):
+        if name in ("wq", "wk", "wv", "wo"):
+            np.testing.assert_allclose(g.numpy().T, w, atol=1e-5, rtol=1e-5,
+                                       err_msg=name)
+    one = attention_block_bwd_plain(*ts, torch.from_numpy(kv), H,
+                                    (D // H) ** -0.5, rate, seed,
+                                    torch.from_numpy(dy))
+    assert all(torch.equal(a, b) for n, a, b in zip(NAMES, got, one)
+               if n not in ("wq", "wk", "wv", "wo"))
+
+
+# chip_smoke.py's BLOCK_VARIANTS (d_model, heads) and wav2vec2-base, with
+# the route each dtype takes
+ROUTES = [((64, 4), "simt", "mma.sync"), ((64, 2), "simt", "mma.sync"),
+          ((256, 2), "simt", "wgmma"), ((768, 12), "simt", "wgmma"),
+          ((48, 3), "simt", "simt")]
+
+
+@pytest.mark.parametrize("shape,f32,bf16", ROUTES)
+def test_gemm_route_follows_the_shape(shape, f32, bf16):
+    """float32 stays on the SIMT tile (full f32 sums); bf16 takes wgmma at
+    head dims 64 and 128 with d_model a multiple of 64, mma.sync where
+    H*dh is a multiple of 32, else SIMT (H*dh = 48: dx's 48-deep K
+    segments)."""
+    d, h = shape
+    assert gemm_route(torch.float32, d, h, d // h) == f32
+    assert gemm_route(torch.bfloat16, d, h, d // h) == bf16
+
+
+def test_weight_grad_slices_fill_the_card():
+    """At the pretraining shape (20, 222, 768), 12 heads: wgmma's 54
+    dW{q,k,v} tiles of 128 x 256 fill 132 SMs with two slices, dWo's 18
+    with seven; the SIMT tile's CTAs run in rounds of 264 (two per SM),
+    where 7 slices of 108 tiles of 128 x 128 take 3 rounds of 1/7 of the
+    work each (2 slices: 1 round of 1/2). The wgmma partials are then 30.7
+    MB, where per-batch-row partials took 188.8 MB."""
+    assert weight_grad_slices("wgmma", 20, 222, 768, 768) == (2, 7)
+    assert weight_grad_slices("simt", 20, 222, 768, 768) == (7, 7)
+    s_w, s_wo = weight_grad_slices("wgmma", 20, 222, 768, 768)
+    assert (3 * s_w + s_wo) * 768 * 768 * 4 == 30_670_848
+    assert (3 * 20 + 20) * 768 * 768 * 4 == 188_743_680
+    # never more slices than the k tiles that hold real rows
+    assert weight_grad_slices("wgmma", 2, 37, 64, 64) == (2, 2)
+    assert weight_grad_slices("mma.sync", 2, 37, 64, 64) == (4, 4)
+    assert weight_grad_slices("simt", 1, 5, 48, 48) == (1, 1)

@@ -1,0 +1,70 @@
+"""``audio8_tpu_torch.profile.kernel_groups`` on profiler events that
+carry the kernel names an H100 trace of the port shows (cuBLAS's Hopper
+bf16 GEMMs ``nvjet_...``, the attention block's GEMMs on each route, the
+core's three backward launches, PyTorch's elementwise kernels): each name
+lands in its group, and only the rest in "other". No card is needed: the
+events are stand-ins with a name, a device type and a time range."""
+from types import SimpleNamespace
+
+import pytest
+import torch
+
+from audio8_tpu_torch.profile import kernel_groups
+
+CUDA = torch.autograd.DeviceType.CUDA
+
+
+def _event(name, us, device=CUDA):
+    return SimpleNamespace(name=name, device_type=device,
+                           time_range=SimpleNamespace(start=0, end=us))
+
+
+class _Prof:
+    def __init__(self, events):
+        self._events = events
+
+    def events(self):
+        return self._events
+
+
+# (name, group): cuBLAS bf16 on Hopper, then the block's GEMM on its three
+# routes (one of each launch's operand and epilogue types), then the core
+EVENTS = [
+    ("nvjet_tst_256x128_64x4_1x4_h_bz_coopA_NNT", "matmul"),
+    ("nvjet_tst_192x128_64x5_1x2_h_bz_coopB_TNT", "matmul"),
+    ("nvjet_tst_96x64_64x8_2x4_h_bz_NTN", "matmul"),
+    ("void blockgemm::wgmma_gemm_kernel<256, blockgemm::TmaRowCols, "
+     "blockgemm::TmaHeadRows, blockgemm::Partial>(blockgemm::Maps, "
+     "blockgemm::TmaRowCols, blockgemm::TmaHeadRows, blockgemm::Partial, "
+     "int, int, int, int, int)", "attention_block_gemm"),
+    ("void blockgemm::gemm_bf16_mma_kernel<blockgemm::RowCols<__nv_bfloat16>, "
+     "blockgemm::HeadRows<__nv_bfloat16>, blockgemm::Partial>(...)",
+     "attention_block_gemm"),
+    ("void blockgemm::gemm_kernel<float, blockgemm::HeadCols<float>, "
+     "blockgemm::WeightCols<float>, blockgemm::RowOut<float> >(...)",
+     "attention_block_gemm"),
+    ("void (anonymous namespace)::bias_partials_kernel(float const*, float "
+     "const*, float const*, float*, int, int, int)", "attention_block_gemm"),
+    ("void (anonymous namespace)::attention_bwd_wgmma_kernel<64>(...)",
+     "attention_bwd"),
+    ("void (anonymous namespace)::dq_reduce_kernel<__nv_bfloat16>(...)",
+     "attention_bwd"),
+    ("void (anonymous namespace)::attention_fwd_bf16_mma_kernel<64>(...)",
+     "attention_fwd"),
+    ("void at::native::vectorized_elementwise_kernel<8, at::native::"
+     "bfloat16_copy_kernel_cuda(at::TensorIteratorBase&)...>", "other"),
+]
+
+
+def test_kernel_groups_read_a_bf16_step():
+    prof = _Prof([_event(n, 1000.0 * (i + 1)) for i, (n, _) in
+                  enumerate(EVENTS)] + [_event("cpu op", 5e6, "cpu")])
+    out = kernel_groups(prof)
+    want = {}
+    for i, (_, group) in enumerate(EVENTS):
+        want[group] = want.get(group, 0.0) + (i + 1)
+    for group, ms in want.items():
+        assert out[group] == pytest.approx(ms), group
+    assert out["matmul"] == pytest.approx(6.0)  # no longer near zero
+    assert list(out["other_top5"]) == [EVENTS[-1][0][:90]]
+    assert out["attention_bwd_parts"]["dq_reduce"] == pytest.approx(9.0)
