@@ -757,6 +757,22 @@ struct TmaHeadRows {
   }
 };
 
+// MN-major: tap z of a stride-2 conv's input x (B, T_in, C) as columns i
+// (channels) and K rows (b, t) holding x[b, 2 t + z], map m[z] (C, T_out,
+// B) from encode_tap_rows; k stage ks as TmaRowCols's.
+struct TmaTapRows {
+  static constexpr int MN = 1;
+  int row_tiles;
+  template <int NB>
+  __device__ void load(const CUtensorMap* m, int z, int mn0, int ks,
+                       uint32_t dst, uint32_t bar) const {
+    const int b = ks / row_tiles, r = 64 * (ks - b * row_tiles);
+#pragma unroll
+    for (int i = 0; i < NB; ++i)
+      wg::tma_load(dst + i * WG_BOX, m + z, bar, mn0 + 64 * i, r, b);
+  }
+};
+
 // The descriptor of k step kk (16 deep) of a 64-row (A) or BN-column (B)
 // operand tile at `tile`: K-major rows of 128 bytes stacked (SBO 1024
 // per 8 rows), or MN-major boxes of 64 k rows x 64 values side by side
@@ -946,6 +962,18 @@ inline int encode_rows(CUtensorMap* map, const void* p, int batch, int rows,
   const uint64_t dims[3] = {(uint64_t)w, (uint64_t)rows, (uint64_t)batch};
   const uint64_t strides[2] = {(uint64_t)w, (uint64_t)rows * w};
   return encode(map, p, 3, dims, strides);
+}
+// tap `tap` of a stride-2, kernel-3 VALID conv's input (B, t_in, c): rows
+// 2 t + tap for t < T_out = (t_in - 3) / 2 + 1, map (c, T_out, B) from
+// p + tap * c with a row stride of 2 c (twice the inner extent, which
+// TMA takes as a pitched row)
+inline int encode_tap_rows(CUtensorMap* map, const void* p, int batch,
+                           int t_in, int c, int tap) {
+  const uint64_t dims[3] = {(uint64_t)c, (uint64_t)((t_in - 3) / 2 + 1),
+                            (uint64_t)batch};
+  const uint64_t strides[2] = {2 * (uint64_t)c, (uint64_t)t_in * c};
+  return encode(map, (const __nv_bfloat16*)p + (size_t)tap * c, 3, dims,
+                strides);
 }
 // head-major (B, H, rows_pad, dh): map (dh, rows_pad, H, B)
 inline int encode_heads(CUtensorMap* map, const void* p, int batch, int heads,

@@ -33,7 +33,9 @@
 //
 // What bounds it on H100: at the wav2vec2 extractor shapes (512 -> 512
 // channels, up to 143k rows) both products are compute-bound, by the
-// multiply-add rate. Two variants, by dtype; both want 16-byte aligned
+// multiply-add rate. The bf16 wgrad with channel counts in multiples of
+// 64 runs attention_block_gemm.cuh's TMA-fed wgmma GEMM (below, route
+// wgrad_route); otherwise two variants, by dtype; both want 16-byte aligned
 // pointers and channel rows of whole 16-byte vectors (C_in and C_out
 // multiples of 8 for bf16, of 4 for f32), which the wrapper ensures (it
 // copies a misaligned input and refuses other channel counts):
@@ -46,13 +48,23 @@
 //     two CTAs share an SM (faster on an H100 than one CTA at 161
 //     registers, PERF.md); f32 stays on the CUDA cores so its sums are
 //     full f32.
-// wgmma/TMA and warp specialisation are later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "attention_block_gemm.cuh"
+
 namespace {
+
+enum WgradRoute { kWgradSimt = 0, kWgradMma = 1, kWgradWgmma = 2 };
+
+// wgrad's route from the shape alone (dtype 0 = float32, 1 = bfloat16);
+// ops/conv.py:wgrad_route mirrors it
+inline int wgrad_route(int dtype, int c_in, int c_out) {
+  if (dtype != 1) return kWgradSimt;
+  return c_in % 64 == 0 && c_out % 64 == 0 ? kWgradWgmma : kWgradMma;
+}
 
 // ------------------------------------------------------------ problems
 //
@@ -573,6 +585,47 @@ __global__ void __launch_bounds__(TNT, 2)
     }
 }
 
+// ------------------------------------ bf16 wgrad on the TMA-fed wgmma GEMM
+//
+// dW_z = sum_{b,t} x[b, 2t+z]^T dy[b, t] is attention_block_gemm.cuh's
+// wgmma_gemm with Z = 3 taps, M = C_in, N = C_out and K stages of 64 t
+// rows of one batch row ((b, t tile), B * ceil(T_out / 64) of them), cut
+// into S fixed slices of consecutive stages. A is tap z's MN-major map
+// (C_in, T_out, B) over x with a row stride of 2 C_in (TmaTapRows), B
+// reads dy as (C_out, T_out, B) (TmaRowCols); rows past T_out are zero in
+// both, so the ragged tile adds exact zeros. Each (tap, slice) writes
+// its f32 partial in the (S, 3, C_in, C_out) layout that
+// sum_splits_kernel sums in slice order (dw itself when S = 1).
+struct TapPartial {
+  static constexpr bool kStaged = false;
+  float* p;
+  int splits;
+  long long plane;  // C_in * C_out
+  int ld;           // C_out
+  __device__ void pair(int zs, int m, int n, float v0, float v1) const {
+    const int z = zs / splits, s = zs - z * splits;
+    *reinterpret_cast<float2*>(p + ((long long)s * 3 + z) * plane +
+                               (long long)m * ld + n) = make_float2(v0, v1);
+  }
+};
+
+int wgrad_wgmma(const void* x, const void* dy, float* out, int batch,
+                int t_in, int c_in, int c_out, int splits,
+                cudaStream_t s) {
+  const int t_out = (t_in - 3) / 2 + 1, row_tiles = (t_out + 63) / 64;
+  blockgemm::Maps maps{};
+  int err = 0;
+  for (int z = 0; z < 3 && err == 0; ++z)
+    err = blockgemm::encode_tap_rows(&maps.a[z], x, batch, t_in, c_in, z);
+  if (err == 0)
+    err = blockgemm::encode_rows(&maps.b[0], dy, batch, t_out, c_out);
+  if (err != 0) return err;
+  const TapPartial e{out, splits, (long long)c_in * c_out, c_out};
+  return blockgemm::wgmma_gemm(maps, blockgemm::TmaTapRows{row_tiles},
+                               blockgemm::TmaRowCols{row_tiles}, e, c_in,
+                               c_out, 3, splits, batch * row_tiles, s);
+}
+
 // dw[i] = sum over s of part[s][i], in split order
 __global__ void sum_splits_kernel(const float* __restrict__ part,
                                   float* __restrict__ dw, long long n,
@@ -630,8 +683,16 @@ extern "C" int a8t_conv_k3s2_dgrad(const void* dy, const void* wt, void* dx,
   return (int)cudaGetLastError();
 }
 
+// The route wgrad_route gives: 0 = SIMT, 1 = mma.sync, 2 = wgmma
+// (ops/conv.py:wgrad_route mirrors it).
+extern "C" int a8t_conv_k3s2_wgrad_route(int dtype, int c_in, int c_out) {
+  return wgrad_route(dtype, c_in, c_out);
+}
+
 // x (B, T_in, C_in), dy (B, T_out, C_out) -> dw (3, C_in, C_out) float32.
-// The B*T_out rows are cut into `splits` ranges of `rows_per_split`; with
+// The B*T_out rows are cut into `splits` ranges of `rows_per_split`; on
+// the wgmma route the ranges are whole K stages (rows_per_split = 64 x
+// ceil(B ceil(T_out / 64) / splits), the padded rows of a slice). With
 // splits > 1 each range's partial goes to part (splits, 3, C_in, C_out)
 // and a second kernel sums them into dw, with splits == 1 the GEMM writes
 // dw itself (part may be null). Returns the first launch error (invalid
@@ -653,7 +714,15 @@ extern "C" int a8t_conv_k3s2_wgrad(const void* x, const void* dy, float* dw,
   if (!fits(dtype, x, dy, out, c_in, c_out))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 1) {
+  const int route = wgrad_route(dtype, c_in, c_out);
+  if (route == kWgradWgmma) {
+    const long long stages = (long long)batch * ((t_out + 63) / 64);
+    if (rows_per_split != 64 * ((stages + splits - 1) / splits))
+      return (int)cudaErrorInvalidValue;
+    const int err = wgrad_wgmma(x, dy, out, batch, t_in, c_in, c_out, splits,
+                                s);
+    if (err != 0) return err;
+  } else if (route == kWgradMma) {
     const cudaError_t err = cudaFuncSetAttribute(
         wgrad_bf16_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         WG_SMEM);

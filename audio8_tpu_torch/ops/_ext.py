@@ -32,12 +32,15 @@ _SIGNATURES = {
                                    [_P, _P, _P, _I, _I, _I, _I, _I, _P]),
                          "wgrad": ("a8t_conv_k3s2_wgrad",
                                    [_P, _P, _P, _P, _I, _I, _I, _I, _I, _L,
-                                    _I, _P])},
+                                    _I, _P]),
+                         "wgrad_route": ("a8t_conv_k3s2_wgrad_route",
+                                         [_I] * 3)},
     "dropout.cu": {"main": ("a8t_dropout",
                             [_P, _P, _L, _U, _U, _F, _I, _P])},
     "attention_fwd.cu": {"main": ("a8t_attention_fwd",
                                   [_P] * 7 + [_I] * 5
-                                  + [_F, _F, _U, _U, _I, _I, _I, _P])},
+                                  + [_F, _F, _U, _U, _I, _I, _I, _P]),
+                         "route": ("a8t_attention_fwd_route", [_I] * 3)},
     "attention_bwd.cu": {"main": ("a8t_attention_bwd",
                                   [_P] * 15 + [_I] * 5
                                   + [_F, _F, _U, _U, _I, _I, _I, _P])},

@@ -6,7 +6,8 @@ and its custom VJP and, with ``xla=True``, of the XLA attention of
 path for ``fused_attention=None`` and wherever its kernel gates refuse).
 Layout is the JAX one: q, k, v ``(B, H, T, dh)``, key_valid ``(B, T)``.
 On CUDA tensors :func:`attention_core` launches ``csrc/attention_fwd.cu``
-and, when a gradient is needed, its backward launches
+(on the route :func:`attention_route` names) and, when a gradient is
+needed, its backward launches
 ``csrc/attention_bwd.cu``. On CPU tensors it runs the plain versions,
 :func:`attention_core_plain` and :func:`attention_core_bwd_plain`. Two
 semantics, the same arithmetic otherwise (f32 scores and softmax, the
@@ -44,6 +45,22 @@ KEY_TILE = 64  # keys per CTA of the backward kernel: one dq partial each
 
 def round_up(x: int, m: int) -> int:
     return (x + m - 1) // m * m
+
+
+# the forward kernel's routes, by their codes in attention_fwd.cu
+FWD_ROUTES = ("simt", "mma.sync", "wgmma")
+
+
+def attention_route(dtype, dh: int, aligned: bool) -> str:
+    """The forward kernel's route for a call, from its dtype, head dim and
+    whether q, k, v (and the output) are 16-byte aligned; mirrors
+    ``attention_fwd.cu:fwd_route``, which the kernel applies: "wgmma"
+    (TMA-fed, FlashAttention-3 shaped) for bfloat16 at head dim 64 or
+    128, "mma.sync" for other aligned bfloat16, "simt" for float32 and
+    misaligned bfloat16."""
+    if dtype != torch.bfloat16 or not aligned:
+        return "simt"
+    return "wgmma" if dh in (64, 128) else "mma.sync"
 
 
 def hash_keep(t_pad: int, seeds: torch.Tensor, rate: float) -> torch.Tensor:

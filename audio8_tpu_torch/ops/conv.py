@@ -24,6 +24,10 @@ BWD_SOURCE = "conv_k3s2_bwd.cu"
 # two resident CTAs); a split keeps at least MIN_SPLIT_ROWS rows
 WGRAD_CTAS_PER_SM = 4
 MIN_SPLIT_ROWS = 256
+# wgrad's routes, by their codes in conv_k3s2_bwd.cu; the wgmma route's
+# K stages are 64 t rows of one batch row
+WGRAD_ROUTES = ("simt", "mma.sync", "wgmma")
+STAGE_ROWS = 64
 
 
 def t_out_of(t_in: int) -> int:
@@ -166,11 +170,36 @@ def wgrad_splits(rows: int, c_in: int, c_out: int, sms: int
     return math.ceil(rows / per), per
 
 
+def wgrad_route(dtype, c_in: int, c_out: int) -> str:
+    """wgrad's route for a shape; mirrors ``conv_k3s2_bwd.cu:wgrad_route``,
+    which the kernel applies: "wgmma" (the attention block's TMA-fed GEMM)
+    for bfloat16 with C_in and C_out multiples of 64 (TMA's 64 x 64
+    boxes), "mma.sync" for other bfloat16, "simt" for float32."""
+    if dtype != torch.bfloat16:
+        return "simt"
+    return "wgmma" if c_in % 64 == 0 and c_out % 64 == 0 else "mma.sync"
+
+
+def wgrad_wgmma_slices(batch: int, t_in: int, c_in: int, c_out: int,
+                       sms: int) -> tuple[int, int]:
+    """(S, K stages per slice) of the wgmma route: the K stages are the
+    (b, 64-row t tile) pairs, ``batch * ceil(T_out / 64)`` of them, and
+    S fixed slices of ``ceil(stages / S)`` consecutive stages each (the
+    kernel's own cut) such that the 3 x ceil(C_in / 128) x ceil(C_out /
+    BN) output tiles (BN = 256 where C_out >= 256, else 128) times S fill
+    the ``sms`` SMs once."""
+    stages = batch * -(-t_out_of(t_in) // STAGE_ROWS)
+    tiles = 3 * -(-c_in // 128) * -(-c_out // (256 if c_out >= 256 else 128))
+    per = -(-stages // max(1, min(stages, sms // tiles)))
+    return -(-stages // per), per
+
+
 def conv1d_k3s2_wgrad(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
     """wgrad: ``x`` (B, T_in, C_in), ``dy`` (B, T_out, C_out) -> ``dW``
     (3, C_in, C_out) in float32. CPU tensors take the plain version; CUDA
-    tensors launch the kernel (split over the rows, partials summed in a
-    fixed order) or raise (channel counts as :func:`_vectors` sets out)."""
+    tensors launch the kernel on the route :func:`wgrad_route` names
+    (split over the rows, partials summed in a fixed order) or raise
+    (channel counts as :func:`_vectors` sets out)."""
     b, t_in, c_in = x.shape
     if dy.dim() != 3 or dy.shape[0] != b or t_in < 3 \
             or dy.shape[1] != t_out_of(t_in):
@@ -182,7 +211,11 @@ def conv1d_k3s2_wgrad(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
     c_out = dy.shape[2]
     x, dy = _vectors("conv1d_k3s2_wgrad", c_in, c_out, x, dy)
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    splits, per = wgrad_splits(b * dy.shape[1], c_in, c_out, sms)
+    if wgrad_route(x.dtype, c_in, c_out) == "wgmma":
+        splits, stages = wgrad_wgmma_slices(b, t_in, c_in, c_out, sms)
+        per = STAGE_ROWS * stages  # the padded rows of a slice
+    else:
+        splits, per = wgrad_splits(b * dy.shape[1], c_in, c_out, sms)
     dw = torch.empty((3, c_in, c_out), dtype=torch.float32, device=x.device)
     part = (torch.empty((splits, 3, c_in, c_out), dtype=torch.float32,
                         device=x.device) if splits > 1 else None)

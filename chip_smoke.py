@@ -20,11 +20,13 @@ against its plain PyTorch version. Phases, each printing JSON lines:
               "xla" (``bf16_softmax``) at a limit that a kernel without
               it fails; then small ragged shapes, every head dim and
               misaligned pointers, which reach every variant of each
-              kernel; the attention block's GEMMs on each of their three
-              routes (wgmma fed by TMA, mma.sync, SIMT), the route read
-              from the profiler's kernel names and held to the shape's
-              rule, wgmma at wav2vec2-base's shapes in bf16, and repeated
-              backward calls bitwise equal;
+              kernel; the attention block's GEMMs, the core forward and
+              the conv wgrad on each of their three routes (wgmma fed by
+              TMA, mma.sync, SIMT), the route read from the profiler's
+              kernel names and held to the rule, wgmma at wav2vec2-base's
+              shapes in bf16, the wgmma core at T 1 to 222 with a
+              zero-length row and dropout, and repeated backward and
+              wgrad calls bitwise equal;
 3. model    - the full-width model's forward on the card (through the
               kernels) vs the same weights on the CPU (plain versions);
 4. serve    - the ``a8t-serve`` path (parse_args -> load_acoustic ->
@@ -78,7 +80,9 @@ against its plain PyTorch version. Phases, each printing JSON lines:
               backward split by launch (``launch_ms``: each GEMM, the
               core's launches, the bias partials and PyTorch's sums of the
               weight partials), with the GEMM route their kernels ran and
-              the host's ms per call beside the CUDA-event ms;
+              the host's ms per call beside the CUDA-event ms; the core
+              forward and the conv wgrad likewise split by launch, with
+              their routes and host ms;
 
 then a ``kernels`` line, the card's name and power limit from nvidia-smi,
 and, last, ``{"ok": true, "device": {...}}``. Any failed check raises, so
@@ -87,13 +91,19 @@ card it exits with code 2 and prints no result.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --block-timing   # only the block's timing rows
+    python3 chip_smoke.py --core-timing    # only rows 2, 3c and 6
 
 ``--block-timing`` builds the block's two sources and prints only the
 attention block's timing rows (phase 13) in float32 and bfloat16, then
 the card's name and power limit;
 it drives only the wrappers that every tree of the port has had since
 the block came, so a copy placed in another tree's root times that
-tree's kernels (two trees in turns in one call).
+tree's kernels (two trees in turns in one call). ``--core-timing`` does
+the same for the attention core's forward at the serving shape in both
+semantics, the conv wgrad of the four k3s2 layers of (4, 15 s) and the
+block's forward, each row with its launch split, its route (read from
+the kernels' names, and from the port's Python rule where the tree has
+one) and the host's ms per call.
 """
 from __future__ import annotations
 
@@ -285,6 +295,8 @@ def phase_variants(gen) -> None:
                 q, k, v = misaligned(q), misaligned(k), misaligned(v)
             kv = (torch.arange(t, device="cuda")[None, :]
                   < torch.tensor([t, t // 3, 0][:b], device="cuda")[:, None])
+            route = check_attn_route(q, k, v, lambda: attention_core(
+                q, k, v, kv, dh ** -0.5))
             for rate, xla in ((0.0, False), (0.1, False), (0.1, True)):
                 sem = dict(xla=xla, bf16_softmax=True)
                 err, scale = max_err(
@@ -294,10 +306,53 @@ def phase_variants(gen) -> None:
                 tol = TOL[dtype] * max(1.0, scale)
                 emit({"phase": "variant", "kernel": "attention_fwd",
                       "dtype": str(dtype), "shape": list(shape), "rate": rate,
-                      "xla": xla, "misaligned": skew, "max_abs_err": err,
-                      "tol": tol})
+                      "xla": xla, "misaligned": skew, "route": route,
+                      "max_abs_err": err, "tol": tol})
                 check(err <= tol,
                       f"attention_fwd variant {shape} {dtype}: {err}")
+    phase_core_variants(gen)
+
+
+# (T, key lengths of the three batch rows) of the wgmma core's variants:
+# one key, T below one tile, a ragged last tile, two query tiles, the
+# pretraining frames; each with a zero-length row
+CORE_VARIANTS = [(1, [1, 1, 0]), (65, [65, 20, 0]), (130, [130, 64, 0]),
+                 (222, [222, 101, 0])]
+
+
+def phase_core_variants(gen) -> None:
+    """bf16 at head dims 64 and 128 through the wgmma core (TMA-fed) at
+    T below, at and past one 64-key tile and two 128-query tiles, with a
+    zero-length row (uniform over its keys), in both semantics with and
+    without dropout, against the plain version."""
+    from audio8_tpu_torch.ops.attention import (attention_core,
+                                                attention_core_plain)
+
+    for dh in (64, 128):
+        for t, lengths in CORE_VARIANTS:
+            shape = (3, 2, t, dh)
+            q, k, v = (torch.randn(shape, device="cuda", generator=gen)
+                       .bfloat16() for _ in range(3))
+            kv = (torch.arange(t, device="cuda")[None, :]
+                  < torch.tensor(lengths, device="cuda")[:, None])
+            route = check_attn_route(q, k, v, lambda: attention_core(
+                q, k, v, kv, dh ** -0.5))
+            check(route == "wgmma", f"bf16 dh {dh} took the {route} core")
+            for rate, xla in ((0.0, False), (0.0, True), (0.1, False),
+                              (0.1, True)):
+                sem = dict(xla=xla, bf16_softmax=True)
+                o = attention_core(q, k, v, kv, dh ** -0.5, rate, 11, **sem)
+                torch.cuda.synchronize()
+                err, scale = max_err(o, attention_core_plain(
+                    q, k, v, kv, dh ** -0.5, rate, 11, **sem))
+                tol = TOL[torch.bfloat16] * max(1.0, scale)
+                emit({"phase": "variant", "kernel": "attention_fwd",
+                      "dtype": "torch.bfloat16", "shape": list(shape),
+                      "key_lengths": lengths, "rate": rate, "xla": xla,
+                      "route": route, "max_abs_err": err, "tol": tol})
+                check(bool(torch.isfinite(o).all()) and err <= tol,
+                      f"attention_fwd wgmma variant {shape} rate {rate} "
+                      f"xla {xla}: {err} > {tol}")
 
 
 def phase_kernels(gen) -> dict:
@@ -322,6 +377,8 @@ def phase_kernels(gen) -> dict:
             if dtype == torch.float32:
                 worst["conv_k3s2_fwd"] = max(worst["conv_k3s2_fwd"], err)
         q, k, v, kv = attn_inputs(dtype, gen)
+        route = check_attn_route(
+            q, k, v, lambda: attention_core(q, k, v, kv, 0.125, xla=True))
         for (rate, seed), xla in ((r, x) for r in ((0.0, 0), (0.1, 1234))
                                   for x in (True, False)):
             sem = dict(xla=xla, bf16_softmax=True)
@@ -333,7 +390,8 @@ def phase_kernels(gen) -> dict:
             emit({"phase": "kernel", "kernel": "attention_fwd",
                   "dtype": str(dtype), "shape": list(ATTN_SHAPE),
                   "key_lengths": ATTN_LENGTHS, "rate": rate, "seed": seed,
-                  "xla": xla, "max_abs_err": err, "tol": tol})
+                  "xla": xla, "route": route, "max_abs_err": err,
+                  "tol": tol})
             check(bool(torch.isfinite(o).all()) and err <= tol,
                   f"attention_fwd {dtype} rate {rate}: {err} > {tol}")
             if dtype == torch.float32:
@@ -520,6 +578,55 @@ def check_block_route(b, t, d, heads, dtype, run) -> str:
           f"GEMM kernels of {seen}, want {route}")
     BLOCK_ROUTES_SEEN.add(route)
     return route
+
+
+# the routes the attention core's forward and the conv wgrad were seen
+# to run (each checked once against the kernels' rule and the profiler)
+ATTN_ROUTES_SEEN = set()
+WGRAD_ROUTES_SEEN = set()
+
+
+def check_kernel_route(seen, what, route, code, routes, run, route_of) -> str:
+    """A kernel's route at one call: its Python mirror (``route``) equals
+    the kernels' own rule (``routes[code]``), and, the first time a route
+    is seen, the kernels that ``run`` launches, read from the profiler's
+    kernel names, are that route's only."""
+    check(routes[code] == route, f"{what}: route {route} vs the kernels' "
+          f"{routes[code]}")
+    if route not in seen:
+        ran = {route_of(n) for n in traced_ms(run)} - {None}
+        check(ran == {route}, f"{what}: kernels of {ran}, want {route}")
+        seen.add(route)
+    return route
+
+
+def check_attn_route(q, k, v, run) -> str:
+    """:func:`check_kernel_route` for the attention core's forward."""
+    from audio8_tpu_torch.ops import _ext
+    from audio8_tpu_torch.ops.attention import FWD_ROUTES, attention_route
+
+    aligned = all(a.data_ptr() % 16 == 0 for a in (q, k, v))
+    dh = q.shape[-1]
+    code = _ext.function("attention_fwd.cu", "route")(
+        _ext.DTYPE_CODES[q.dtype], dh, int(aligned))
+    return check_kernel_route(
+        ATTN_ROUTES_SEEN, f"attention_fwd {tuple(q.shape)} {q.dtype} "
+        f"aligned={aligned}", attention_route(q.dtype, dh, aligned), code,
+        FWD_ROUTES, run, core_route_of)
+
+
+def check_wgrad_route(x, dy, run) -> str:
+    """:func:`check_kernel_route` for the conv wgrad."""
+    from audio8_tpu_torch.ops import _ext
+    from audio8_tpu_torch.ops.conv import WGRAD_ROUTES, wgrad_route
+
+    c_in, c_out = x.shape[2], dy.shape[2]
+    code = _ext.function("conv_k3s2_bwd.cu", "wgrad_route")(
+        _ext.DTYPE_CODES[x.dtype], c_in, c_out)
+    return check_kernel_route(
+        WGRAD_ROUTES_SEEN, f"conv_k3s2_wgrad {tuple(x.shape)} -> {c_out} "
+        f"{x.dtype}", wgrad_route(x.dtype, c_in, c_out), code, WGRAD_ROUTES,
+        run, wgrad_route_of)
 
 
 def check_block(phase, b, t, d, heads, lengths, dtype, gen) -> tuple:
@@ -725,6 +832,10 @@ def check_conv_bwd(phase, b, t_in, c_in, c_out, dtype, gen,
     x, w, dy = conv_bwd_inputs(b, t_in, c_in, c_out, dtype, gen, skew)
     got = {"conv_k3s2_dgrad": conv1d_k3s2_dgrad(dy, w, t_in),
            "conv_k3s2_wgrad": conv1d_k3s2_wgrad(x, dy)}
+    check(torch.equal(got["conv_k3s2_wgrad"], conv1d_k3s2_wgrad(x, dy)),
+          f"conv_k3s2_wgrad {dtype} {(b, t_in, c_in, c_out)}: repeated "
+          "calls differ")
+    route = check_wgrad_route(x, dy, lambda: conv1d_k3s2_wgrad(x, dy))
     torch.cuda.synchronize()
     want = {"conv_k3s2_dgrad": conv1d_k3s2_dgrad_plain(dy, w, t_in),
             "conv_k3s2_wgrad": conv1d_k3s2_wgrad_plain(x, dy)}
@@ -736,7 +847,9 @@ def check_conv_bwd(phase, b, t_in, c_in, c_out, dtype, gen,
                else TOL[dtype] * max(1.0, scale))
         emit({"phase": phase, "kernel": name, "dtype": str(dtype),
               "shape": [b, t_in, c_in, c_out], "misaligned": skew,
-              "max_abs_err": err, "tol": tol})
+              "max_abs_err": err, "tol": tol,
+              **({"route": route, "repeat_bitwise_equal": True}
+                 if name == "conv_k3s2_wgrad" else {})})
         check(g.shape == want[name].shape and bool(torch.isfinite(g).all())
               and err <= tol,
               f"{name} {dtype} {(b, t_in, c_in, c_out)}: {err} > {tol}")
@@ -1569,20 +1682,58 @@ def in_turns(kern, plain, library=None) -> dict:
             "library_ms_runs": None if library is None else [l1, l2]}
 
 
-def time_attention(dtype, gen) -> dict:
-    """Forward at the serving shape, backward at the training shape (the
-    kernels line reports both in "xla" semantics, the default paths'),
-    and both in the TPU kernel's semantics ("/kernel"), the backward also
-    at the pretraining shape ("/pretrain"); the yardstick is
-    scaled_dot_product_attention and its autograd (no dropout). Each
-    backward row also splits the kernel's time by launch (``launch_ms``:
-    the D prepass, the fused pass, the dq reduction)."""
+def core_route_of(name: str):
+    """The route of a traced attention-forward kernel, or None."""
+    if "attention_fwd" not in name or "kernel" not in name:
+        return None
+    if "wgmma" in name:
+        return "wgmma"
+    return "mma.sync" if "bf16_mma" in name else "simt"
+
+
+def wgrad_route_of(name: str):
+    """The route of a traced wgrad GEMM kernel, or None."""
+    for key, route in (("wgmma_gemm_kernel", "wgmma"),
+                       ("wgrad_bf16_mma_kernel", "mma.sync"),
+                       ("wgrad_f32_kernel", "simt")):
+        if key in name:
+            return route
+    return None
+
+
+def split_by(fn, parts, route_of) -> dict:
+    """Device ms of one call of ``fn`` by launch (``parts``: (label, key
+    in the kernel name) in order, anything else PyTorch's ``rest``), the
+    routes its kernels ran (read from their names) and the host's ms per
+    call beside the CUDA-event ms."""
+    by_name = traced_or_none(fn)
+    split = {}
+    for n, ms in by_name.items():
+        part = next((p for p, key in parts if key in n), "rest")
+        split[part] = split.get(part, 0.0) + ms
+    return {"launch_ms": split,
+            "routes": sorted({route_of(n) for n in by_name} - {None}),
+            **host_ms(fn)}
+
+
+def mirrored_route(module: str, fn: str, *args):
+    """A route from the port's Python mirror of a kernel's rule, or None
+    in a tree that has no such mirror (an older tree timed in turns)."""
+    import importlib
+
+    rule = getattr(importlib.import_module(module), fn, None)
+    return None if rule is None else rule(*args)
+
+
+def time_attention_fwd(dtype, gen) -> dict:
+    """The forward at the serving shape in both semantics ("xla", the
+    default paths', and "/kernel"); the yardstick is
+    scaled_dot_product_attention (no dropout). Each row also splits the
+    device time by launch, names the route the core ran and gives the
+    host's ms per call."""
     import torch.nn.functional as F
 
-    from audio8_tpu_torch.ops.attention import (_forward_kernel,
-                                                attention_core,
-                                                attention_core_bwd,
-                                                attention_core_bwd_plain,
+    from audio8_tpu_torch.ops.attention import (attention_core,
                                                 attention_core_plain)
 
     out = {}
@@ -1591,14 +1742,39 @@ def time_attention(dtype, gen) -> dict:
     b, h, t, dh = ATTN_SHAPE
     for xla, name in ((True, "attention_fwd"), (False, "attention_fwd/kernel")):
         sem = dict(xla=xla, bf16_softmax=True)
-        r = in_turns(lambda: attention_core(q, k, v, kv, 0.125, **sem),
+
+        def kern():
+            return attention_core(q, k, v, kv, 0.125, **sem)
+
+        r = in_turns(kern,
                      lambda: attention_core_plain(q, k, v, kv, 0.125, **sem),
                      lambda: F.scaled_dot_product_attention(q, k, v, mask))
         r["bound_ms"], r["bound_by"] = bound(4.0 * b * h * t * t * dh,
                                              4 * q.numel() * q.element_size()
                                              + kv.numel(), dtype)
+        r.update(split_by(kern, (("core", "attention_fwd"),), core_route_of))
+        r["route"] = mirrored_route("audio8_tpu_torch.ops.attention",
+                                    "attention_route", dtype, dh, True)
         out[name] = r
-    del q, k, v
+    return out
+
+
+def time_attention(dtype, gen) -> dict:
+    """Forward at the serving shape (:func:`time_attention_fwd`), backward
+    at the training shape (the kernels line reports both in "xla"
+    semantics, the default paths'), and both in the TPU kernel's
+    semantics ("/kernel"), the backward also at the pretraining shape
+    ("/pretrain"); the yardstick is scaled_dot_product_attention and its
+    autograd (no dropout). Each backward row also splits the kernel's
+    time by launch (``launch_ms``: the D prepass, the fused pass, the dq
+    reduction)."""
+    import torch.nn.functional as F
+
+    from audio8_tpu_torch.ops.attention import (_forward_kernel,
+                                                attention_core_bwd,
+                                                attention_core_bwd_plain)
+
+    out = time_attention_fwd(dtype, gen)
     for shape, lengths, tag in ((TRAIN_ATTN_SHAPE, TRAIN_ATTN_LENGTHS, ""),
                                 (PRETRAIN_ATTN_SHAPE, None, "/pretrain")):
         b, h, t, dh = shape
@@ -1707,9 +1883,9 @@ def host_ms(fn, calls: int = 20) -> dict:
     return {"host_ms": host, "event_ms": e0.elapsed_time(e1) / calls}
 
 
-def time_block(dtype, gen) -> dict:
-    """Forward and backward at the pretraining batches' shape (20, 222,
-    768), 12 heads, no mask; the yardstick is F.multi_head_attention_
+def time_block(dtype, gen, backward: bool = True) -> dict:
+    """Forward and (unless not ``backward``) backward at the pretraining
+    batches' shape (20, 222, 768), 12 heads, no mask; the yardstick is F.multi_head_attention_
     forward (dropout 0, need_weights off, so it runs cuBLAS and SDPA) and
     its autograd. Each row also splits the kernel's device time by launch
     (``launch_ms``), names the GEMM route its kernels ran, and gives the
@@ -1747,6 +1923,8 @@ def time_block(dtype, gen) -> dict:
     r.update(launch_split(fwd, "key_mask"))
     r.update(host_ms(fwd))
     out["attention_block"] = r
+    if not backward:
+        return out
     xs = [a.detach().requires_grad_() for a in (x, *weights)]
     o = attention_block(*xs, None, h, scale)
     ls = [a.detach().requires_grad_() for a in (x, *lib)]
@@ -1856,44 +2034,76 @@ def time_adamw(gen) -> dict:
     return {"adamw": r}
 
 
+def conv_bwd_layers(dtype, gen) -> list:
+    """(T_in, x, w, dy) of the four k3s2 layers of (4, 15 s)."""
+    return [(t,) + conv_bwd_inputs(4, t, ci, co, dtype, gen)
+            for t, ci, co in TRAIN_CONV_SHAPES]
+
+
+def conv_flops(layers) -> float:
+    return sum(2.0 * dy.shape[0] * dy.shape[1] * 3 * x.shape[2] * dy.shape[2]
+               for _, x, _, dy in layers)
+
+
 def time_conv_bwd(dtype, gen) -> dict:
-    """dgrad and wgrad of the four k3s2 layers of (4, 15 s); the
-    yardsticks are torch.nn.grad.conv1d_input / conv1d_weight (cuDNN) on
+    """dgrad and wgrad (:func:`time_wgrad`) of the four k3s2 layers of (4,
+    15 s); the yardstick is torch.nn.grad.conv1d_input (cuDNN) on
     channel-first copies of the same inputs."""
     from torch.nn import grad as nn_grad
 
     from audio8_tpu_torch.ops.conv import (conv1d_k3s2_dgrad,
-                                           conv1d_k3s2_dgrad_plain,
-                                           conv1d_k3s2_wgrad,
-                                           conv1d_k3s2_wgrad_plain)
+                                           conv1d_k3s2_dgrad_plain)
 
-    layers = [(t,) + conv_bwd_inputs(4, t, ci, co, dtype, gen)
-              for t, ci, co in TRAIN_CONV_SHAPES]
+    layers = conv_bwd_layers(dtype, gen)
     cf = [(x.transpose(1, 2).contiguous(), w.permute(2, 1, 0).contiguous(),
            dy.transpose(1, 2).contiguous()) for _, x, w, dy in layers]
-    flops = sum(2.0 * dy.shape[0] * dy.shape[1] * 3 * x.shape[2] * dy.shape[2]
-                for _, x, _, dy in layers)
     esize = layers[0][1].element_size()
-    out = {}
     r = in_turns(
         lambda: [conv1d_k3s2_dgrad(dy, w, t) for t, _, w, dy in layers],
         lambda: [conv1d_k3s2_dgrad_plain(dy, w, t) for t, _, w, dy in layers],
         lambda: [nn_grad.conv1d_input(x.shape, w, dy, stride=2)
                  for x, w, dy in cf])
     r["bound_ms"], r["bound_by"] = bound(
-        flops, sum((dy.numel() + w.numel() + x.numel()) * esize
-                   for _, x, w, dy in layers), dtype)
-    out["conv_k3s2_dgrad"] = r
+        conv_flops(layers), sum((dy.numel() + w.numel() + x.numel()) * esize
+                                for _, x, w, dy in layers), dtype)
+    del cf
+    return {"conv_k3s2_dgrad": r, **time_wgrad(dtype, gen, layers)}
+
+
+def time_wgrad(dtype, gen, layers=None) -> dict:
+    """wgrad of the four k3s2 layers of (4, 15 s); the yardstick is
+    torch.nn.grad.conv1d_weight (cuDNN) on channel-first copies of the
+    same inputs. The row also splits the device time by launch (the
+    GEMM, the sum of its K-slice partials, PyTorch's copies), names the
+    GEMM route and gives the host's ms per call."""
+    from torch.nn import grad as nn_grad
+
+    from audio8_tpu_torch.ops.conv import (conv1d_k3s2_wgrad,
+                                           conv1d_k3s2_wgrad_plain)
+
+    layers = conv_bwd_layers(dtype, gen) if layers is None else layers
+    cf = [(x.transpose(1, 2).contiguous(), w.permute(2, 1, 0).contiguous(),
+           dy.transpose(1, 2).contiguous()) for _, x, w, dy in layers]
+    esize = layers[0][1].element_size()
+
+    def kern():
+        return [conv1d_k3s2_wgrad(x, dy) for _, x, _, dy in layers]
+
     r = in_turns(
-        lambda: [conv1d_k3s2_wgrad(x, dy) for _, x, _, dy in layers],
+        kern,
         lambda: [conv1d_k3s2_wgrad_plain(x, dy) for _, x, _, dy in layers],
         lambda: [nn_grad.conv1d_weight(x, w.shape, dy, stride=2)
                  for x, w, dy in cf])
     r["bound_ms"], r["bound_by"] = bound(
-        flops, sum((x.numel() + dy.numel()) * esize + w.numel() * 4
-                   for _, x, w, dy in layers), dtype)
-    out["conv_k3s2_wgrad"] = r
-    return out
+        conv_flops(layers), sum((x.numel() + dy.numel()) * esize
+                                + w.numel() * 4 for _, x, w, dy in layers),
+        dtype)
+    r.update(split_by(kern, (("gemm", "wgrad_"), ("gemm", "wgmma_gemm"),
+                             ("sum_splits", "sum_splits")), wgrad_route_of))
+    _, x, _, dy = layers[0]
+    r["route"] = mirrored_route("audio8_tpu_torch.ops.conv", "wgrad_route",
+                                dtype, x.shape[2], dy.shape[2])
+    return {"conv_k3s2_wgrad": r}
 
 
 def time_dropout(dtype, gen) -> dict:
@@ -1984,6 +2194,27 @@ def block_timing(gen) -> int:
     return 0
 
 
+def core_timing(gen) -> int:
+    """The timing rows of kernels 2 (the forward at the serving shape in
+    both semantics), 3c (the four k3s2 layers of (4, 15 s)) and 6 (the
+    block's forward) alone (``--core-timing``)."""
+    from audio8_tpu_torch.csrc.build import build
+
+    t0 = time.perf_counter()
+    build(("attention_fwd.cu", "conv_k3s2_bwd.cu", "attention_block_fwd.cu"))
+    emit({"phase": "build", "seconds": time.perf_counter() - t0,
+          "tree": HERE})
+    for dtype in (torch.float32, torch.bfloat16):
+        rows = {**time_attention_fwd(dtype, gen), **time_wgrad(dtype, gen),
+                **time_block(dtype, gen, backward=False)}
+        for name, r in rows.items():
+            emit({"phase": "timing", "kernel": name, "dtype": str(dtype),
+                  "tree": HERE, **r})
+        torch.cuda.empty_cache()
+    print_card()
+    return 0
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if not torch.cuda.is_available():
@@ -1997,6 +2228,8 @@ def main(argv=None) -> int:
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     if argv == ["--block-timing"]:
         return block_timing(gen)
+    if argv == ["--core-timing"]:
+        return core_timing(gen)
     if argv:
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
         return 2
@@ -2031,22 +2264,40 @@ def main(argv=None) -> int:
     check("jax" not in sys.modules and "audio8_tpu" not in sys.modules,
           "jax or the JAX package was imported")
     from audio8_tpu_torch.ops.attention_block import GEMM_ROUTES
+    from audio8_tpu_torch.ops.attention import FWD_ROUTES
+    from audio8_tpu_torch.ops.conv import WGRAD_ROUTES
     check(BLOCK_ROUTES_SEEN == set(GEMM_ROUTES),
           f"attention_block routes checked: {sorted(BLOCK_ROUTES_SEEN)}")
+    check(ATTN_ROUTES_SEEN == set(FWD_ROUTES),
+          f"attention_fwd routes checked: {sorted(ATTN_ROUTES_SEEN)}")
+    check(WGRAD_ROUTES_SEEN == set(WGRAD_ROUTES),
+          f"conv_k3s2_wgrad routes checked: {sorted(WGRAD_ROUTES_SEEN)}")
+    routes_of = {"attention_fwd": ATTN_ROUTES_SEEN,
+                 "conv_k3s2_wgrad": WGRAD_ROUTES_SEEN,
+                 "attention_block": BLOCK_ROUTES_SEEN,
+                 "attention_block_bwd": BLOCK_ROUTES_SEEN}
 
     # launches: each kernel's path run (PATH_OF, else the pretraining run);
     # the block's rows also carry their launch split, GEMM route and host
     # ms per call, and the same in bf16
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    block_keys = keys + ("launch_ms", "gemm_routes", "host_ms", "event_ms")
+    split_keys = {"attention_block": ("launch_ms", "gemm_routes", "host_ms",
+                                      "event_ms"),
+                  "attention_fwd": ("launch_ms", "routes", "host_ms",
+                                    "event_ms")}
+    split_keys["attention_block_bwd"] = split_keys["attention_block"]
+    split_keys["conv_k3s2_wgrad"] = split_keys["attention_fwd"]
 
     def extra(name):
-        if name not in ("attention_block", "attention_block_bwd"):
+        if name not in split_keys:
             return {}
+        # "routes": every route the checks saw run (the timing rows'
+        # own "routes" name only the routes their dtype took)
         return {**{k: times[(name, torch.float32)][k]
-                   for k in block_keys[len(keys):]},
+                   for k in split_keys[name]},
+                "routes": sorted(routes_of[name]),
                 "bfloat16": {k: times[(name, torch.bfloat16)][k]
-                             for k in block_keys}}
+                             for k in keys + split_keys[name]}}
 
     path_launches = {"pretrain": launches, "train": train_launches,
                      "pretrain_block": block_launches}

@@ -16,7 +16,8 @@ from audio8_tpu_torch.ops.conv import (conv1d_k3s2, conv1d_k3s2_dgrad,
                                        conv1d_k3s2_dgrad_plain,
                                        conv1d_k3s2_wgrad,
                                        conv1d_k3s2_wgrad_plain, t_out_of,
-                                       wgrad_splits)
+                                       wgrad_route, wgrad_splits,
+                                       wgrad_wgmma_slices)
 from audio8_tpu_torch.ops.conv import _vectors
 
 # tests/test_torch_conv.py shapes (odd T_in 37, 259, 1027, 19, 41 and even
@@ -106,6 +107,58 @@ def test_wgrad_splits_cover_the_rows():
         assert per % 64 == 0 and splits * per >= rows > (splits - 1) * per
     assert wgrad_splits(4 * 23999, 512, 512, 132)[0] == 11  # 48 tiles
     assert wgrad_splits(100, 512, 512, 132)[0] == 1
+
+
+# conv_k3s2_bwd.cu's wgrad route rule: (dtype, C_in, C_out) -> route
+WGRAD_ROUTES = [(torch.float32, 512, 512, "simt"), (torch.float32, 40, 72, "simt"),
+                (torch.bfloat16, 512, 512, "wgmma"),
+                (torch.bfloat16, 128, 64, "wgmma"),
+                (torch.bfloat16, 40, 72, "mma.sync"),
+                (torch.bfloat16, 512, 72, "mma.sync"),
+                (torch.bfloat16, 16, 24, "mma.sync")]
+
+
+@pytest.mark.parametrize("dtype,c_in,c_out,route", WGRAD_ROUTES)
+def test_wgrad_route_follows_the_rule(dtype, c_in, c_out, route):
+    """float32 stays on the SIMT tile (full f32 sums); bf16 takes the
+    TMA-fed wgmma GEMM when both channel counts are whole 64-wide boxes,
+    else the mma.sync tile."""
+    assert wgrad_route(dtype, c_in, c_out) == route
+
+
+def _slice_stages(batch, t_in, splits, per):
+    """The (b, t tile) K stages of each slice as the wgmma kernel walks
+    them (``attention_block_gemm.cuh:wgmma_gemm_kernel``): slice s takes
+    stages [s * per, min(stages, (s + 1) * per)), stage k being (k //
+    tiles, k % tiles) with tiles = ceil(T_out / 64)."""
+    tiles = -(-t_out_of(t_in) // 64)
+    stages = batch * tiles
+    return [[divmod(k, tiles) for k in range(s * per,
+                                             min(stages, (s + 1) * per))]
+            for s in range(splits)]
+
+
+@pytest.mark.parametrize("batch", [4, 20])
+@pytest.mark.parametrize("t_in", [47_999, 14_284, 261, 260])
+def test_wgmma_slices_cover_every_stage_once(batch, t_in):
+    """The wgmma route's K slices: every (b, 64-row t tile) stage in
+    exactly one slice, none empty, for odd and even T_in (the (4, 15 s)
+    and pretraining layers' and small ones); the slices times the 24
+    output tiles of 512 -> 512 (3 taps x 4 x 2 of 128 x 256) fill the 132
+    SMs once at most, and never outnumber the stages."""
+    splits, per = wgrad_wgmma_slices(batch, t_in, 512, 512, 132)
+    tiles = -(-t_out_of(t_in) // 64)
+    slices = _slice_stages(batch, t_in, splits, per)
+    flat = [st for sl in slices for st in sl]
+    assert sorted(flat) == [(b, i) for b in range(batch)
+                            for i in range(tiles)]
+    assert len(set(flat)) == len(flat) and all(slices)
+    # the kernel cuts ceil(stages / S) stages per slice
+    assert per == -(-batch * tiles // splits)
+    # as many slices as fill the card (132 // 24 = 5), fewer only where
+    # the stages do not divide into that many whole runs
+    assert splits <= min(batch * tiles, 132 // 24)
+    assert per == -(-batch * tiles // min(batch * tiles, 132 // 24))
 
 
 def test_wrappers_reject_mismatched_shapes():

@@ -1,7 +1,9 @@
 """``audio8_tpu_torch.profile.kernel_groups`` on profiler events that
 carry the kernel names an H100 trace of the port shows (cuBLAS's Hopper
 bf16 GEMMs ``nvjet_...``, the attention block's GEMMs on each route, the
-core's three backward launches, PyTorch's elementwise kernels): each name
+core's forward routes and three backward launches, the conv wgrad's bf16
+GEMM, which is the block's wgmma kernel, PyTorch's elementwise kernels):
+each name
 lands in its group, and only the rest in "other". No card is needed: the
 events are stand-ins with a name, a device type and a time range."""
 from types import SimpleNamespace
@@ -51,6 +53,17 @@ EVENTS = [
      "attention_bwd"),
     ("void (anonymous namespace)::attention_fwd_bf16_mma_kernel<64>(...)",
      "attention_fwd"),
+    ("void (anonymous namespace)::attention_fwd_wgmma_kernel<64>((anonymous "
+     "namespace)::FwdMaps, unsigned char const*, __nv_bfloat16*, ...)",
+     "attention_fwd"),
+    ("void (anonymous namespace)::attention_fwd_simt_kernel<float, 64>(...)",
+     "attention_fwd"),
+    # the conv wgrad's bf16 GEMM is the block's wgmma kernel on its taps
+    ("void blockgemm::wgmma_gemm_kernel<256, blockgemm::TmaTapRows, "
+     "blockgemm::TmaRowCols, (anonymous namespace)::TapPartial>("
+     "blockgemm::Maps, ...)", "conv_k3s2_wgrad"),
+    ("void (anonymous namespace)::sum_splits_kernel(float const*, float*, "
+     "long long, int)", "conv_k3s2_wgrad"),
     ("void at::native::vectorized_elementwise_kernel<8, at::native::"
      "bfloat16_copy_kernel_cuda(at::TensorIteratorBase&)...>", "other"),
 ]
