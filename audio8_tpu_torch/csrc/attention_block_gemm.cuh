@@ -773,6 +773,26 @@ struct TmaTapRows {
   }
 };
 
+// K-major: the forward's A operand of a stride-2, kernel-3 conv over x
+// (B, T_in, C): rows (b, t) on the padded grid (mn0 = b * T_pad + r0) and
+// columns k = z C + c holding x[b, 2 t + z, c]; k stage ks reads tap z =
+// ks / c_stages (c_stages = C / 64) through m[z] (C, T_out, B) from
+// encode_tap_rows, channels 64 (ks % c_stages), the rows past T_out
+// zero-filled.
+struct TmaTapCols {
+  static constexpr int MN = 0;
+  int rows_pad, c_stages;
+  template <int NB>
+  __device__ void load(const CUtensorMap* m, int, int mn0, int ks,
+                       uint32_t dst, uint32_t bar) const {
+    const int z = ks / c_stages, k = 64 * (ks - z * c_stages);
+    const int b = mn0 / rows_pad, r = mn0 - b * rows_pad;
+#pragma unroll
+    for (int i = 0; i < NB; ++i)
+      wg::tma_load(dst + i * WG_BOX, m + z, bar, k, r + 64 * i, b);
+  }
+};
+
 // The descriptor of k step kk (16 deep) of a 64-row (A) or BN-column (B)
 // operand tile at `tile`: K-major rows of 128 bytes stacked (SBO 1024
 // per 8 rows), or MN-major boxes of 64 k rows x 64 values side by side

@@ -15,26 +15,54 @@
 //
 // What bounds it on H100: at the wav2vec2 extractor shapes (512 -> 512
 // channels, T_out up to 48k per row) the layer is compute-bound
-// (~1.5k FLOP per byte read), i.e. by the multiply-add rate. Three
-// variants, chosen by dtype and alignment at launch:
-//   * bf16, C_in and C_out multiples of 8, 16-byte aligned pointers: a
-//     tensor-core kernel (mma.sync m16n8k16 bf16, f32 accumulation,
-//     operands through ldmatrix), 128x128 CTA tile of four 64x64 warp
+// (~1.5k FLOP per byte read), i.e. by the multiply-add rate. Four routes,
+// chosen by dtype, channel counts and alignment at launch (fwd_route,
+// mirrored by ops/conv.py:fwd_route):
+//   * wgmma (bf16, C_in and C_out multiples of 64, 16-byte aligned
+//     pointers): attention_block_gemm.cuh's TMA-fed wgmma GEMM (a
+//     producer warp, a 3-stage mbarrier ring, two consumer warpgroups,
+//     128 x 256 tiles where C_out >= 256, a persistent grid) with M = B *
+//     T_pad rows on the padded grid (T_pad = T_out rounded up to 128, so
+//     no M tile straddles two batch rows), N = C_out and K = 3 C_in in
+//     64-deep stages. A is K-major (TmaTapCols): stage ks reads tap z =
+//     ks / (C_in / 64) through tap z's (C_in, T_out, B) tensor map over x
+//     + z C_in with a row stride of 2 C_in (the wgrad's encode_tap_rows),
+//     TMA zero-filling the rows past T_out; B is w as one row-major (3
+//     C_in, C_out) matrix read MN-major (TmaWeightCols); the bf16 output
+//     is staged through shared memory and only rows t < T_out are
+//     written (PaddedRowOut);
+//   * mma.sync (other bf16 with C_in and C_out multiples of 8, 16-byte
+//     aligned pointers): mma.sync m16n8k16 bf16, f32 accumulation,
+//     operands through ldmatrix, 128x128 CTA tile of four 64x64 warp
 //     tiles, 64-deep K chunks in a 3-stage cp.async ring (zero-filled at
 //     the ragged edges), two CTAs per SM;
-//   * f32, C_in and C_out multiples of 4, 16-byte aligned: a SIMT SGEMM,
-//     128x128 CTA tile, 8x8 outputs per thread, 8-deep K chunks double
-//     buffered through registers and shared memory, float4 traffic. f32
-//     stays on the CUDA cores so that its sums are full f32, like the
-//     plain version's (TF32 would not be);
-//   * anything else: the simple SIMT kernel, 64x64 tile, 4x4 per thread.
-// wgmma/TMA and warp specialisation are later work.
+//   * simt (f32, C_in and C_out multiples of 4, 16-byte aligned): a SIMT
+//     SGEMM, 128x128 CTA tile, 8x8 outputs per thread, 8-deep K chunks
+//     double buffered through registers and shared memory, float4
+//     traffic. f32 stays on the CUDA cores so that its sums are full f32,
+//     like the plain version's (TF32 would not be);
+//   * generic (anything else): the simple SIMT kernel, 64x64 tile, 4x4
+//     per thread.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "attention_block_gemm.cuh"
+
 namespace {
+
+enum FwdRoute { kFwdGeneric = 0, kFwdSimt = 1, kFwdMma = 2, kFwdWgmma = 3 };
+
+// The forward's route (dtype 0 = float32, 1 = bfloat16; aligned: every
+// pointer on a 16-byte boundary); ops/conv.py:fwd_route mirrors it
+inline int fwd_route(int dtype, int c_in, int c_out, int aligned) {
+  if (!aligned || (dtype != 0 && dtype != 1)) return kFwdGeneric;
+  if (dtype == 0) return c_in % 4 == 0 && c_out % 4 == 0 ? kFwdSimt
+                                                          : kFwdGeneric;
+  if (c_in % 64 == 0 && c_out % 64 == 0) return kFwdWgmma;
+  return c_in % 8 == 0 && c_out % 8 == 0 ? kFwdMma : kFwdGeneric;
+}
 
 constexpr int BM = 64;   // output rows (b, t) per CTA
 constexpr int BN = 64;   // output channels per CTA
@@ -402,20 +430,51 @@ __global__ void __launch_bounds__(TNT, 2)
     }
 }
 
+// y (B, T_out, C_out) on the wgmma route: one product over the padded
+// grid's B * T_pad rows, 3 C_in / 64 k stages, no K slices
+int fwd_wgmma(const void* x, const void* w, void* y, int batch, int t_in,
+              int c_in, int c_out, cudaStream_t s) {
+  const int t_out = (t_in - 3) / 2 + 1, t_pad = (t_out + 127) / 128 * 128;
+  blockgemm::Maps maps{};
+  int err = 0;
+  for (int z = 0; z < 3 && err == 0; ++z)
+    err = blockgemm::encode_tap_rows(&maps.a[z], x, batch, t_in, c_in, z);
+  if (err == 0)
+    err = blockgemm::encode_matrix(&maps.b[0], w, 3 * c_in, c_out);
+  if (err != 0) return err;
+  const int nk = 3 * c_in / 64;
+  const blockgemm::PaddedRowOut<__nv_bfloat16> e{
+      (__nv_bfloat16*)y, nullptr, c_out, t_out, t_pad};
+  return blockgemm::wgmma_gemm(maps, blockgemm::TmaTapCols{t_pad, c_in / 64},
+                               blockgemm::TmaWeightCols{nk}, e, batch * t_pad,
+                               c_out, 1, 1, nk, s);
+}
+
 }  // namespace
+
+// The route fwd_route gives: 0 = generic, 1 = SIMT (f32), 2 = mma.sync,
+// 3 = wgmma (ops/conv.py:fwd_route mirrors it).
+extern "C" int a8t_conv_k3s2_fwd_route(int dtype, int c_in, int c_out,
+                                       int aligned) {
+  return fwd_route(dtype, c_in, c_out, aligned);
+}
 
 // dtype: 0 = float32, 1 = bfloat16. Returns the cudaError_t of the launch.
 extern "C" int a8t_conv_k3s2_fwd(const void* x, const void* w, void* y,
                                  int batch, int t_in, int c_in, int c_out,
                                  int dtype, void* stream) {
-  if (batch <= 0 || t_in < 3 || c_in <= 0 || c_out <= 0)
+  if (batch <= 0 || t_in < 3 || c_in <= 0 || c_out <= 0 ||
+      (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   const int t_out = (t_in - 3) / 2 + 1;
   const long long m_total = (long long)batch * t_out;
   const bool aligned16 =
       (((uintptr_t)x | (uintptr_t)w | (uintptr_t)y) % 16) == 0;
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 1 && aligned16 && c_in % 8 == 0 && c_out % 8 == 0) {
+  const int route = fwd_route(dtype, c_in, c_out, aligned16);
+  if (route == kFwdWgmma)
+    return fwd_wgmma(x, w, y, batch, t_in, c_in, c_out, s);
+  if (route == kFwdMma) {
     const cudaError_t err = cudaFuncSetAttribute(
         conv_k3s2_fwd_bf16_mma_kernel,
         cudaFuncAttributeMaxDynamicSharedMemorySize, TC_SMEM);
@@ -427,7 +486,7 @@ extern "C" int a8t_conv_k3s2_fwd(const void* x, const void* w, void* y,
         t_in, t_out, c_in, c_out, m_total);
     return (int)cudaGetLastError();
   }
-  if (dtype == 0 && aligned16 && c_in % 4 == 0 && c_out % 4 == 0) {
+  if (route == kFwdSimt) {
     const dim3 grid((unsigned)((m_total + FM - 1) / FM),
                     (unsigned)((c_out + FN - 1) / FN));
     conv_k3s2_fwd_f32_kernel<<<grid, NT, 0, s>>>(
@@ -441,12 +500,10 @@ extern "C" int a8t_conv_k3s2_fwd(const void* x, const void* w, void* y,
     conv_k3s2_fwd_kernel<float><<<grid, NT, 0, s>>>(
         (const float*)x, (const float*)w, (float*)y, t_in, t_out, c_in, c_out,
         m_total);
-  } else if (dtype == 1) {
+  } else {
     conv_k3s2_fwd_kernel<__nv_bfloat16><<<grid, NT, 0, s>>>(
         (const __nv_bfloat16*)x, (const __nv_bfloat16*)w, (__nv_bfloat16*)y,
         t_in, t_out, c_in, c_out, m_total);
-  } else {
-    return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
 }

@@ -27,7 +27,8 @@ _L = ctypes.c_longlong
 # function of the source's library
 _SIGNATURES = {
     "conv_k3s2_fwd.cu": {"main": ("a8t_conv_k3s2_fwd",
-                                  [_P, _P, _P, _I, _I, _I, _I, _I, _P])},
+                                  [_P, _P, _P, _I, _I, _I, _I, _I, _P]),
+                         "route": ("a8t_conv_k3s2_fwd_route", [_I] * 4)},
     "conv_k3s2_bwd.cu": {"dgrad": ("a8t_conv_k3s2_dgrad",
                                    [_P, _P, _P, _I, _I, _I, _I, _I, _P]),
                          "wgrad": ("a8t_conv_k3s2_wgrad",
@@ -54,10 +55,8 @@ _SIGNATURES = {
                                         + [_F, _F, _U, _U, _I, _I, _I, _I,
                                            _P])},
     "ctc_loss.cu": {"main": ("a8t_ctc_loss",
-                             [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                              _I, _P]),
-                    "bwd": ("a8t_ctc_loss_bwd",
-                            [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P])},
+                             [_P] * 6 + [_I] * 5 + [_P]),
+                    "bwd": ("a8t_ctc_loss_bwd", [_P] * 7 + [_I] * 5 + [_P])},
     "adamw.cu": {"main": ("a8t_adamw",
                           [_P, _I, _I, _F, _F, _F, _F, _F, _F, _F, _P,
                            _P])},

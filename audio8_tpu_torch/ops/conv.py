@@ -2,8 +2,9 @@
 
 Counterpart of ``audio8_tpu/ops/pallas/conv_kernel.py:conv1d_k3s2`` and
 its custom VJP. :func:`conv1d_k3s2` is differentiable in ``x`` and ``w``:
-its forward is ``csrc/conv_k3s2_fwd.cu``, its backward the dgrad and
-wgrad kernels of ``csrc/conv_k3s2_bwd.cu`` (:func:`conv1d_k3s2_dgrad`,
+its forward is ``csrc/conv_k3s2_fwd.cu`` (on the route :func:`fwd_route`
+names), its backward the dgrad and wgrad kernels of
+``csrc/conv_k3s2_bwd.cu`` (:func:`conv1d_k3s2_dgrad`,
 :func:`conv1d_k3s2_wgrad`). On CPU tensors each wrapper runs its plain
 version, the same function in plain PyTorch, which is also what the
 kernel is checked against on the card; on CUDA tensors it launches the
@@ -28,10 +29,28 @@ MIN_SPLIT_ROWS = 256
 # K stages are 64 t rows of one batch row
 WGRAD_ROUTES = ("simt", "mma.sync", "wgmma")
 STAGE_ROWS = 64
+# the forward's routes, by their codes in conv_k3s2_fwd.cu
+FWD_ROUTES = ("generic", "simt", "mma.sync", "wgmma")
 
 
 def t_out_of(t_in: int) -> int:
     return (t_in - 3) // 2 + 1
+
+
+def fwd_route(dtype, c_in: int, c_out: int, aligned: bool = True) -> str:
+    """The forward's route for a shape; mirrors
+    ``conv_k3s2_fwd.cu:fwd_route``, which the kernel applies (``aligned``:
+    x, w and y on 16-byte boundaries): "wgmma" (the attention block's
+    TMA-fed GEMM) for bfloat16 with C_in and C_out multiples of 64 (TMA's
+    64 x 64 boxes), "mma.sync" for other bfloat16 with multiples of 8,
+    "simt" for float32 with multiples of 4, "generic" otherwise."""
+    if not aligned or dtype not in (torch.float32, torch.bfloat16):
+        return "generic"
+    if dtype == torch.float32:
+        return "simt" if c_in % 4 == 0 and c_out % 4 == 0 else "generic"
+    if c_in % 64 == 0 and c_out % 64 == 0:
+        return "wgmma"
+    return "mma.sync" if c_in % 8 == 0 and c_out % 8 == 0 else "generic"
 
 
 def conv1d_k3s2_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

@@ -6,8 +6,10 @@ and label counts, ``sum``/``mean``/``none`` reductions and
 ``zero_infinity``, all in float32. On CUDA tensors its forward and
 backward are the hand-written kernel ``csrc/ctc_loss.cu`` (the port of
 the Pallas ``ctc_loss_pallas``, the JAX package's default on its
-accelerator); on CPU tensors it runs :func:`ctc_loss_plain`, the
-log-semiring scan of ``ctc_forward_alphas`` differentiated by autograd.
+accelerator: the forward launch runs the alpha and beta sweeps at the
+same time, the backward launch forms dE and scatters it); on CPU tensors
+it runs :func:`ctc_loss_plain`, the log-semiring scan of
+``ctc_forward_alphas`` differentiated by autograd.
 
 Both keep the TPU kernel's conventions: NEG_INF = -1e30 with the
 double-where ``logaddexp3``, states past ``2 U_b + 1`` killed, frames at or
@@ -98,9 +100,10 @@ def _int32(x: torch.Tensor, device) -> torch.Tensor:
 
 
 class _CTCLoss(torch.autograd.Function):
-    """Per-row loss through the kernel; the forward launch also leaves
-    dE in the workspace when a gradient is needed, and the backward
-    scatters it onto the vocabulary."""
+    """Per-row loss through the kernel. The forward launch runs the alpha
+    and (when a gradient is needed) the beta sweep at the same time and
+    parks both in the workspace; the backward launch turns them into dE
+    and sums it onto the vocabulary."""
 
     @staticmethod
     def forward(ctx, log_probs, input_lengths, targets, target_lengths,
@@ -115,27 +118,30 @@ class _CTCLoss(torch.autograd.Function):
         il, tg, tl = (_int32(x, dev) for x in (input_lengths, targets,
                                                target_lengths))
         ll = torch.empty((b,), dtype=torch.float32, device=dev)
-        work = torch.empty((b, t, 2 * u + 1), dtype=torch.float32,
-                           device=dev)
-        grad = int(ctx.needs_input_grad[0])
+        # alpha and beta_hat (B, T, 2U+1) each, then ll in log2 units
+        work = (torch.empty((2 * b * t * (2 * u + 1) + b,),
+                            dtype=torch.float32, device=dev)
+                if ctx.needs_input_grad[0] else None)
         fn = _ext.function(SOURCE)
         _ext.check(fn(lp.data_ptr(), il.data_ptr(), tg.data_ptr(),
-                      tl.data_ptr(), ll.data_ptr(), work.data_ptr(), b, t, v,
-                      u, int(blank), grad, _ext.stream_handle(dev)),
-                   "ctc_loss")
+                      tl.data_ptr(), ll.data_ptr(),
+                      None if work is None else work.data_ptr(), b, t, v,
+                      u, int(blank), _ext.stream_handle(dev)), "ctc_loss")
         ctc_loss.launches += 1
-        ctx.save_for_backward(work, tg)
+        if work is not None:
+            ctx.save_for_backward(lp, il, tg, tl, work)
         ctx.shape = (b, t, v, u, int(blank), log_probs.dtype)
         return -ll
 
     @staticmethod
     def backward(ctx, g):
-        work, tg = ctx.saved_tensors
+        lp, il, tg, tl, work = ctx.saved_tensors
         b, t, v, u, blank, dtype = ctx.shape
         g = g.float().contiguous()
         grad = torch.empty((b, t, v), dtype=torch.float32, device=g.device)
         fn = _ext.function(SOURCE, "bwd")
-        _ext.check(fn(work.data_ptr(), tg.data_ptr(), g.data_ptr(),
+        _ext.check(fn(lp.data_ptr(), il.data_ptr(), tg.data_ptr(),
+                      tl.data_ptr(), work.data_ptr(), g.data_ptr(),
                       grad.data_ptr(), b, t, v, u, blank,
                       _ext.stream_handle(g.device)), "ctc_loss backward")
         return grad.to(dtype), None, None, None, None

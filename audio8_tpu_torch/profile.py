@@ -134,13 +134,16 @@ def kernel_groups(prof) -> dict:
     """Device ms by kernel family, from profiler events, and the five
     largest kernels of the rest by name. The attention block's group holds
     its GEMMs on every route (``blockgemm::``: wgmma, mma.sync, SIMT) and
-    its bias partials; the conv wgrad's group its own kernels and, in
-    bf16, the same wgmma GEMM on its tap operands (``TmaTapRows``), so it
-    is matched first; ``matmul`` holds cuBLAS's kernels, whose Hopper
-    bf16 GEMMs are named ``nvjet_...``."""
+    its bias partials; the conv wgrad's and the conv forward's groups their
+    own kernels and, in bf16, the same wgmma GEMM on their tap operands
+    (``TmaTapRows``, ``TmaTapCols``), so they are matched first; ``ctc``
+    holds the CTC sweep and gradient launches (``ctc_...``); ``matmul``
+    holds cuBLAS's kernels, whose Hopper bf16 GEMMs are named
+    ``nvjet_...``."""
     groups = {"conv_k3s2_wgrad": ("wgrad_f32_kernel", "wgrad_bf16_mma_kernel",
                                   "Wgrad<", "TmaTapRows",
                                   "sum_splits_kernel"),
+              "conv_k3s2_fwd": ("conv_k3s2", "TmaTapCols"),
               "attention_block_gemm": ("blockgemm", "bias_partials_kernel"),
               "attention_fwd": "attention_fwd",
               "attention_bwd": ("attention_bwd", "rowdot_kernel",
@@ -149,7 +152,6 @@ def kernel_groups(prof) -> dict:
               "conv_k3s2_dgrad": ("dgrad_f32_kernel", "dgrad_bf16_mma_kernel",
                                   "Dgrad<"),
               "dropout": ("dropout_kernel", "dropout_vec_kernel"),
-              "conv_k3s2_fwd": "conv_k3s2",
               "library_conv": ("dgrad", "wgrad", "fprop", "conv"),
               "matmul": ("gemm", "cutlass", "sm90_", "ampere", "nvjet")}
     out = {k: 0.0 for k in groups}

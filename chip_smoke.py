@@ -22,17 +22,24 @@ against its plain PyTorch version. Phases, each printing JSON lines:
               misaligned pointers, which reach every variant of each
               kernel; the attention block's GEMMs, the core forward and
               the conv wgrad on each of their three routes (wgmma fed by
-              TMA, mma.sync, SIMT), the route read from the profiler's
-              kernel names and held to the rule, wgmma at wav2vec2-base's
-              shapes in bf16, the wgmma core at T 1 to 222 with a
-              zero-length row and dropout, and repeated backward and
-              wgrad calls bitwise equal;
+              TMA, mma.sync, SIMT) and the conv forward on its four
+              (those and the generic SIMT kernel), the route read from
+              the profiler's kernel names and held to the rule, wgmma at
+              wav2vec2-base's shapes in bf16, the wgmma core at T 1 to
+              222 with a zero-length row and dropout, the wgmma conv
+              forward at T_out 30 to 299 and 1 to 20 rows, CTC at T 1 and
+              2, at input lengths far below T and at the state limit
+              (2U + 1 = 2047), and repeated backward (attention, CTC)
+              and wgrad calls bitwise equal;
 3. model    - the full-width model's forward on the card (through the
               kernels) vs the same weights on the CPU (plain versions);
 4. serve    - the ``a8t-serve`` path (parse_args -> load_acoustic ->
               make_server) on 127.0.0.1 answers concurrent requests of
               about 3, 12, 31 and 65 s; the kernels' launch counts over
-              that run;
+              that run; then the same requests with ``--bf16`` under the
+              profiler (``serve_bf16``): four conv forward launches per
+              dispatch, all on the wgmma route by their kernel names,
+              and the transcripts' agreement with the f32 ones;
 5. train    - ``python -m audio8_tpu_torch.cli.train``'s entry point on a
               synthetic corpus: 6 optimizer steps of 2 micro-batches,
               the encoder frozen for 3 of them; step times, training
@@ -91,7 +98,7 @@ card it exits with code 2 and prints no result.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --block-timing   # only the block's timing rows
-    python3 chip_smoke.py --core-timing    # only rows 2, 3c and 6
+    python3 chip_smoke.py --core-timing    # only rows 1, 2, 3, 3b, 3c, 6
 
 ``--block-timing`` builds the block's two sources and prints only the
 attention block's timing rows (phase 13) in float32 and bfloat16, then
@@ -99,14 +106,18 @@ the card's name and power limit;
 it drives only the wrappers that every tree of the port has had since
 the block came, so a copy placed in another tree's root times that
 tree's kernels (two trees in turns in one call). ``--core-timing`` does
-the same for the attention core's forward at the serving shape in both
-semantics, the conv wgrad of the four k3s2 layers of (4, 15 s) and the
-block's forward, each row with its launch split, its route (read from
-the kernels' names, and from the port's Python rule where the tree has
+the same for the CTC loss and gradient at the training shape (split
+into the recursion and the gradient's launch), the conv forward of the
+four k3s2 layers of (4, 30 s) (each layer beside cuDNN's), the
+attention core's forward at the serving shape in both semantics, the
+conv dgrad and wgrad of the four k3s2 layers of (4, 15 s) and the
+block's forward, each row with its launch split, its route (read from the
+kernels' names, and from the port's Python rule where the tree has
 one) and the host's ms per call.
 """
 from __future__ import annotations
 
+import contextlib
 import io
 import json
 import math
@@ -280,11 +291,13 @@ def phase_variants(gen) -> None:
             x, w = x.to(dtype), (w / np.sqrt(3 * c_in)).to(dtype)
             if skew:
                 x, w = misaligned(x), misaligned(w)
+            route = check_conv_fwd_route(x, w, lambda: conv1d_k3s2(x, w))
             err, scale = max_err(conv1d_k3s2(x, w), conv1d_k3s2_plain(x, w))
             tol = TOL[dtype] * max(1.0, scale)
             emit({"phase": "variant", "kernel": "conv_k3s2_fwd",
                   "dtype": str(dtype), "shape": list(shape),
-                  "misaligned": skew, "max_abs_err": err, "tol": tol})
+                  "misaligned": skew, "route": route, "max_abs_err": err,
+                  "tol": tol})
             check(err <= tol, f"conv_k3s2_fwd variant {shape} {dtype}: {err}")
         for shape, skew in (((3, 2, 130, 16), False), ((2, 2, 200, 128), False),
                             ((3, 2, 130, 32), True)):
@@ -311,6 +324,46 @@ def phase_variants(gen) -> None:
                 check(err <= tol,
                       f"attention_fwd variant {shape} {dtype}: {err}")
     phase_core_variants(gen)
+    phase_conv_fwd_variants(gen)
+
+
+# (B, T_in, C_in, C_out) of the bf16 conv forward's wgmma variants: T_out
+# 30 (below one 64-row box), 128 (one M tile), 299 and 149 (ragged), 1 and
+# 20 batch rows, 64 -> 128 and 512 -> 512 channels
+CONV_FWD_VARIANTS = [(1, 61, 64, 128), (20, 257, 64, 128),
+                     (4, 599, 512, 512), (20, 299, 512, 512),
+                     (1, 257, 512, 512), (20, 61, 512, 512)]
+
+
+def phase_conv_fwd_variants(gen) -> None:
+    """bf16 through the conv forward's wgmma route (TMA-fed, M tiles on
+    the padded (b, T_pad) grid) at T_out below, at and past one 128-row
+    tile, against the plain version; a misaligned copy of the same inputs
+    takes the generic route and must agree too."""
+    from audio8_tpu_torch.ops.conv import conv1d_k3s2, conv1d_k3s2_plain
+
+    for shape in CONV_FWD_VARIANTS:
+        b, t, c_in, c_out = shape
+        x = torch.randn(b, t, c_in, device="cuda", generator=gen)
+        w = torch.randn(3, c_in, c_out, device="cuda", generator=gen)
+        x, w = x.bfloat16(), (w / np.sqrt(3 * c_in)).bfloat16()
+        for skew in (False, True):
+            xs, ws = (misaligned(x), misaligned(w)) if skew else (x, w)
+            route = check_conv_fwd_route(xs, ws,
+                                         lambda: conv1d_k3s2(xs, ws))
+            check(route == ("generic" if skew else "wgmma"),
+                  f"bf16 conv forward {shape} misaligned={skew} took the "
+                  f"{route} route")
+            y = conv1d_k3s2(xs, ws)
+            torch.cuda.synchronize()
+            err, scale = max_err(y, conv1d_k3s2_plain(x, w))
+            tol = TOL[torch.bfloat16] * max(1.0, scale)
+            emit({"phase": "variant", "kernel": "conv_k3s2_fwd",
+                  "dtype": "torch.bfloat16", "shape": list(shape),
+                  "misaligned": skew, "route": route, "max_abs_err": err,
+                  "tol": tol})
+            check(bool(torch.isfinite(y).all()) and err <= tol,
+                  f"conv_k3s2_fwd {route} variant {shape}: {err} > {tol}")
 
 
 # (T, key lengths of the three batch rows) of the wgmma core's variants:
@@ -365,13 +418,14 @@ def phase_kernels(gen) -> dict:
     for dtype in (torch.float32, torch.bfloat16):
         for shape in CONV_SHAPES:
             x, w = conv_inputs(shape, dtype, gen)
+            route = check_conv_fwd_route(x, w, lambda: conv1d_k3s2(x, w))
             y = conv1d_k3s2(x, w)
             torch.cuda.synchronize()
             err, scale = max_err(y, conv1d_k3s2_plain(x, w))
             tol = TOL[dtype] * max(1.0, scale)
             emit({"phase": "kernel", "kernel": "conv_k3s2_fwd",
                   "dtype": str(dtype), "shape": [CHUNK_BATCH, *shape],
-                  "max_abs_err": err, "tol": tol})
+                  "route": route, "max_abs_err": err, "tol": tol})
             check(bool(torch.isfinite(y).all()) and err <= tol,
                   f"conv_k3s2_fwd {dtype} {shape}: {err} > {tol}")
             if dtype == torch.float32:
@@ -584,6 +638,7 @@ def check_block_route(b, t, d, heads, dtype, run) -> str:
 # to run (each checked once against the kernels' rule and the profiler)
 ATTN_ROUTES_SEEN = set()
 WGRAD_ROUTES_SEEN = set()
+CONV_FWD_ROUTES_SEEN = set()
 
 
 def check_kernel_route(seen, what, route, code, routes, run, route_of) -> str:
@@ -627,6 +682,23 @@ def check_wgrad_route(x, dy, run) -> str:
         WGRAD_ROUTES_SEEN, f"conv_k3s2_wgrad {tuple(x.shape)} -> {c_out} "
         f"{x.dtype}", wgrad_route(x.dtype, c_in, c_out), code, WGRAD_ROUTES,
         run, wgrad_route_of)
+
+
+def check_conv_fwd_route(x, w, run) -> str:
+    """:func:`check_kernel_route` for the conv forward (its output, from
+    ``torch.empty``, is aligned)."""
+    from audio8_tpu_torch.ops import _ext
+    from audio8_tpu_torch.ops.conv import FWD_ROUTES, fwd_route
+
+    c_in, c_out = w.shape[1], w.shape[2]
+    aligned = all(a.data_ptr() % 16 == 0 for a in (x, w))
+    code = _ext.function("conv_k3s2_fwd.cu", "route")(
+        _ext.DTYPE_CODES[x.dtype], c_in, c_out, int(aligned))
+    return check_kernel_route(
+        CONV_FWD_ROUTES_SEEN, f"conv_k3s2_fwd {tuple(x.shape)} -> {c_out} "
+        f"{x.dtype} aligned={aligned}", fwd_route(x.dtype, c_in, c_out,
+                                                  aligned), code, FWD_ROUTES,
+        run, conv_fwd_route_of)
 
 
 def check_block(phase, b, t, d, heads, lengths, dtype, gen) -> tuple:
@@ -709,8 +781,11 @@ def check_ctc(phase, shape, input_lengths, target_lengths, gen) -> float:
     lpk = lp.detach().requires_grad_()
     loss = ctc_loss(lpk, il, tg, tl, blank=0, reduction="none")
     w = torch.rand(shape[0], device="cuda", generator=gen)
-    (grad,) = torch.autograd.grad((loss * w).sum(), lpk)
+    (grad,) = torch.autograd.grad((loss * w).sum(), lpk, retain_graph=True)
+    (again,) = torch.autograd.grad((loss * w).sum(), lpk)
     torch.cuda.synchronize()
+    check(torch.equal(grad, again),
+          f"ctc_loss {shape}: repeated backward calls differ")
     lpp = lp.detach().requires_grad_()
     plain = ctc_loss_plain(lpp, il, tg, tl, 0)
     plain = torch.where(plain >= 5e29, torch.zeros_like(plain), plain)
@@ -722,7 +797,8 @@ def check_ctc(phase, shape, input_lengths, target_lengths, gen) -> float:
     emit({"phase": phase, "kernel": "ctc_loss", "shape": list(shape),
           "input_lengths": input_lengths, "target_lengths": target_lengths,
           "loss_max_abs_err": l_err, "loss_tol": l_tol,
-          "grad_max_abs_err": g_err, "grad_tol": g_tol, "max_loss": l_scale})
+          "grad_max_abs_err": g_err, "grad_tol": g_tol, "max_loss": l_scale,
+          "repeat_bitwise_equal": True})
     check(bool(torch.isfinite(grad).all()) and l_err <= l_tol
           and g_err <= g_tol, f"ctc_loss {shape}: loss {l_err} grad {g_err}")
     return max(l_err, g_err)
@@ -787,6 +863,19 @@ def phase_train_kernels(gen) -> dict:
     return worst
 
 
+# (shape, input lengths, target lengths) of the CTC kernel's variants: T =
+# 1 and 2 (a feasible row, an empty target, an infeasible and a padding
+# row), odd and even T with input lengths far below T, the training
+# shape with rows of 40 and 5 frames, and U at the state limit (2U + 1 =
+# 2047, 1023 and 1000 labels); labels repeat (drawn from V - 4 values)
+CTC_VARIANTS = [((4, 1, 6), [1, 1, 1, 0], [1, 0, 2, 1]),
+                ((4, 2, 6), [2, 2, 2, 0], [1, 0, 3, 1]),
+                ((4, 37, 9), [37, 36, 4, 0], [5, 3, 2, 1]),
+                ((4, 64, 9), [64, 63, 3, 64], [7, 0, 1, 20]),
+                ((4, 749, 32), [749, 40, 5, 0], [210, 10, 2, 0]),
+                ((2, 1400, 32), [1400, 1333], [1023, 1000])]
+
+
 def phase_train_variants(gen) -> None:
     """Small ragged shapes: every head dim of the attention backward in
     both semantics (bf16 wgmma, f32 SIMT; misaligned inputs copied),
@@ -803,6 +892,8 @@ def phase_train_variants(gen) -> None:
     check_ctc("variant", (5, 40, 7), [40, 33, 3, 0, 25], [6, 0, 6, 0, 3],
               gen)
     check_ctc("variant", (2, 1, 5), [1, 1], [1, 0], gen)
+    for shape, lengths, labels in CTC_VARIANTS:
+        check_ctc("variant", shape, lengths, labels, gen)
     check_adamw("variant", [(7,), (1,), (16385,), (3, 5, 2)], gen)
     check_adamw("variant", [(7,), (1000,)], gen, misalign=True)
     for dtype in (torch.float32, torch.bfloat16):
@@ -1045,28 +1136,50 @@ def post(port: int, path: str, data: bytes | None = None):
         return r.status, json.loads(r.read())
 
 
-def phase_serve(cpu_model, seed: int, tmp: str) -> dict:
-    """The serving entry point end to end; returns the launch counts of
-    the requests' run."""
-    from audio8_tpu_torch.cli.serve import build_service, make_server, parse_args
-    from audio8_tpu_torch.models.convert import save_fairseq_ctc
+SERVE_SECONDS = [3.1, 12.4, 31.0, 65.3]  # the served requests' lengths
 
-    ckpt = os.path.join(tmp, "ctc.pt")
-    save_fairseq_ctc(cpu_model, ckpt)
-    dict_file = os.path.join(tmp, "dict.ltr.txt")
-    with open(dict_file, "w") as fh:
-        fh.writelines(f"{c} {1000 - i}\n" for i, c in enumerate(LETTERS))
-    args = parse_args(["--checkpoint", ckpt, "--dict_file", dict_file,
+
+@contextlib.contextmanager
+def serving(tmp: str, *flags: str):
+    """The ``a8t-serve`` path (parse_args -> build_service -> make_server)
+    on 127.0.0.1 over tmp's ``ctc.pt`` and ``dict.ltr.txt`` with the
+    chunking defaults and ``flags``: yields the service and its port,
+    and stops the server and the batcher after."""
+    from audio8_tpu_torch.cli.serve import build_service, make_server, parse_args
+
+    args = parse_args(["--checkpoint", os.path.join(tmp, "ctc.pt"),
+                       "--dict_file", os.path.join(tmp, "dict.ltr.txt"),
                        "--host", "127.0.0.1", "--port", "0",
-                       "--batch", str(CHUNK_BATCH)])
+                       "--batch", str(CHUNK_BATCH), *flags])
     service = build_service(args)
     srv = make_server(service, args.host, args.port)
     server = threading.Thread(target=srv.serve_forever, daemon=True)
     server.start()
-    port = srv.server_address[1]
+    try:
+        yield service, srv.server_address[1]
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        service.transcriber.batcher.close()
+        server.join(timeout=10)
+
+
+def serve_bodies(seed: int) -> list:
+    """The served requests: WAV bytes of SERVE_SECONDS, from the seed."""
     rng = np.random.default_rng(seed + 1)
-    seconds = [3.1, 12.4, 31.0, 65.3]
-    bodies = [wav_bytes(synthetic_speechlike(s, rng)) for s in seconds]
+    return [wav_bytes(synthetic_speechlike(s, rng)) for s in SERVE_SECONDS]
+
+
+def phase_serve(cpu_model, seed: int, tmp: str) -> tuple:
+    """The serving entry point end to end; returns the launch counts of
+    the requests' run and the served texts."""
+    from audio8_tpu_torch.models.convert import save_fairseq_ctc
+
+    save_fairseq_ctc(cpu_model, os.path.join(tmp, "ctc.pt"))
+    with open(os.path.join(tmp, "dict.ltr.txt"), "w") as fh:
+        fh.writelines(f"{c} {1000 - i}\n" for i, c in enumerate(LETTERS))
+    seconds = SERVE_SECONDS
+    bodies = serve_bodies(seed)
     results = [None] * len(bodies)
 
     def send(i):
@@ -1074,7 +1187,7 @@ def phase_serve(cpu_model, seed: int, tmp: str) -> dict:
         results[i] = post(port, "/transcribe", bodies[i]) + (
             time.perf_counter() - t0,)
 
-    try:
+    with serving(tmp) as (service, port):
         batcher = service.transcriber.batcher
         dispatches0 = batcher.dispatches
         reset_launches()
@@ -1125,12 +1238,92 @@ def phase_serve(cpu_model, seed: int, tmp: str) -> dict:
               "frames": len(lp_served), "max_abs_err": err, "tol": MODEL_TOL,
               "argmax_agreement": agree})
         check(err <= MODEL_TOL, f"served log-probs vs CPU {err}")
-    finally:
-        srv.shutdown()
-        srv.server_close()
-        service.transcriber.batcher.close()
-        server.join(timeout=10)
-    return launches
+    return launches, [r[1]["text"] for r in results]
+
+
+def edit_distance(a: str, b: str) -> int:
+    row = list(range(len(b) + 1))
+    for i, ca in enumerate(a, 1):
+        prev, row[0] = row[0], i
+        for j, cb in enumerate(b, 1):
+            prev, row[j] = row[j], min(row[j] + 1, row[j - 1] + 1,
+                                       prev + (ca != cb))
+    return row[-1]
+
+
+def phase_serve_bf16(seed: int, tmp: str, f32_texts: list) -> None:
+    """The serving entry point again with ``--bf16`` (the serve phase's
+    checkpoint, dict and requests, the (4, 30 s) chunking defaults),
+    traced by torch.profiler: the conv forward's launches must be four per
+    dispatch, every one on the route its shape takes (wgmma at the
+    extractor's 512 channels), read from the traced kernel names. The
+    transcripts' agreement with the f32 ones is reported, not checked:
+    bf16 rounds other values."""
+    from audio8_tpu_torch.ops.conv import conv1d_k3s2, fwd_route
+
+    bodies = serve_bodies(seed)
+    results = [None] * len(bodies)
+
+    def send(i):
+        results[i] = post(port, "/transcribe", bodies[i])
+
+    def run():
+        """The requests under the profiler: (wall s, conv forward
+        launches, dispatches, traced conv forward kernels by route)."""
+        batcher = service.transcriber.batcher
+        dispatches0 = batcher.dispatches
+        reset_launches()
+        t0 = time.perf_counter()
+        acts = [torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            clients = [threading.Thread(target=send, args=(i,))
+                       for i in range(len(bodies))]
+            for c in clients:
+                c.start()
+            for c in clients:
+                c.join(timeout=600)
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        routes = {}
+        for e in prof.events():
+            route = conv_fwd_route_of(e.name)
+            if e.device_type == torch.autograd.DeviceType.CUDA and route:
+                routes[route] = routes.get(route, 0) + 1
+        return (wall, conv1d_k3s2.launches,
+                batcher.dispatches - dispatches0, routes)
+
+    with serving(tmp, "--bf16") as (service, port):
+        want = fwd_route(torch.bfloat16, *CONV_SHAPES[0][1:])
+        # every run is shown and checked; a trace short of kernels (the
+        # profiler now and then returns empty ones) is taken again, up to
+        # three runs in all
+        for attempt in range(3):
+            wall, launches, dispatches, routes = run()
+            for s_, res in zip(SERVE_SECONDS, results):
+                check(res is not None and res[0] == 200
+                      and isinstance(res[1].get("text"), str),
+                      f"bf16 request of {s_} s: {res}")
+            texts = [r[1]["text"] for r in results]
+            cer = [edit_distance(a, b) / max(1, len(a))
+                   for a, b in zip(f32_texts, texts)]
+            emit({"phase": "serve_bf16", "attempt": attempt,
+                  "requests_s": SERVE_SECONDS, "wall_s": wall,
+                  "audio_s_per_s": sum(SERVE_SECONDS) / wall,
+                  "dispatches": dispatches,
+                  "conv_k3s2_fwd_launches": launches,
+                  "conv_k3s2_fwd_routes_traced": routes,
+                  "texts_equal_f32": [a == b
+                                      for a, b in zip(f32_texts, texts)],
+                  "char_diff_vs_f32": cer,
+                  "texts_len": [len(t) for t in texts]})
+            check(dispatches > 0 and launches == 4 * dispatches,
+                  f"bf16 serving: {launches} conv forward launches in "
+                  f"{dispatches} dispatches, want 4 per dispatch")
+            if sum(routes.values()) >= launches:
+                break
+        check(routes == {want: launches},
+              f"bf16 serving: conv forward kernels {routes}, want "
+              f"{launches} on the {want} route")
 
 
 def write_corpus(root: str, seed: int) -> None:
@@ -1703,13 +1896,18 @@ def wgrad_route_of(name: str):
 
 def split_by(fn, parts, route_of) -> dict:
     """Device ms of one call of ``fn`` by launch (``parts``: (label, key
-    in the kernel name) in order, anything else PyTorch's ``rest``), the
-    routes its kernels ran (read from their names) and the host's ms per
-    call beside the CUDA-event ms."""
+    in the kernel name) in order, or a function from the traced kernel
+    names to {name: label}; anything else PyTorch's ``rest``), the routes its kernels ran (read from their names) and the
+    host's ms per call beside the CUDA-event ms."""
     by_name = traced_or_none(fn)
+    if callable(parts):
+        label = parts(list(by_name))
+    else:
+        label = {n: next((p for p, key in parts if key in n), "rest")
+                 for n in by_name}
     split = {}
     for n, ms in by_name.items():
-        part = next((p for p, key in parts if key in n), "rest")
+        part = label.get(n, "rest")
         split[part] = split.get(part, 0.0) + ms
     return {"launch_ms": split,
             "routes": sorted({route_of(n) for n in by_name} - {None}),
@@ -1951,9 +2149,26 @@ def time_block(dtype, gen, backward: bool = True) -> dict:
     return out
 
 
+def conv_fwd_route_of(name: str):
+    """The route of a traced k3s2 forward kernel, or None: the wgmma
+    route is the attention block's GEMM on the forward's tap operand
+    (``TmaTapCols``)."""
+    for key, route in (("TmaTapCols", "wgmma"),
+                       ("conv_k3s2_fwd_bf16_mma_kernel", "mma.sync"),
+                       ("conv_k3s2_fwd_f32_kernel", "simt"),
+                       ("conv_k3s2_fwd_kernel<", "generic")):
+        if key in name:
+            return route
+    return None
+
+
 def time_conv(dtype, gen) -> dict:
     """The four k3s2 layers of one (4, 30 s) block; the yardstick is
-    cuDNN's conv1d on channel-first copies of the same inputs."""
+    cuDNN's conv1d on channel-first copies of the same inputs. The row
+    also gives each layer's device ms beside cuDNN's for the same layer
+    (``layer_ms``, ``layer_library_ms``), the route its kernels ran (read
+    from their names; ``route``: the tree's Python rule, null in a tree
+    without one) and the host's ms per four-layer call."""
     import torch.nn.functional as F
 
     from audio8_tpu_torch.ops.conv import conv1d_k3s2, conv1d_k3s2_plain
@@ -1961,8 +2176,11 @@ def time_conv(dtype, gen) -> dict:
     convs = [conv_inputs(sh, dtype, gen) for sh in CONV_SHAPES]
     cf = [(x.transpose(1, 2).contiguous(), w.permute(2, 1, 0).contiguous())
           for x, w in convs]
-    r = in_turns(lambda: [conv1d_k3s2(x, w) for x, w in convs],
-                 lambda: [conv1d_k3s2_plain(x, w) for x, w in convs],
+
+    def kern():
+        return [conv1d_k3s2(x, w) for x, w in convs]
+
+    r = in_turns(kern, lambda: [conv1d_k3s2_plain(x, w) for x, w in convs],
                  lambda: [F.conv1d(x, w, stride=2) for x, w in cf])
     flops = sum(2.0 * CHUNK_BATCH * ((t - 3) // 2 + 1) * 3 * ci * co
                 for t, ci, co in CONV_SHAPES)
@@ -1970,6 +2188,16 @@ def time_conv(dtype, gen) -> dict:
                   * co) * x.element_size()
                  for (x, w), (t, _, co) in zip(convs, CONV_SHAPES))
     r["bound_ms"], r["bound_by"] = bound(flops, nbytes, dtype)
+    r["layer_ms"], r["layer_library_ms"] = [], []
+    for (x, w), (xc, wc) in zip(convs, cf):
+        r["layer_ms"].append(device_ms(lambda x=x, w=w: conv1d_k3s2(x, w)))
+        r["layer_library_ms"].append(device_ms(
+            lambda xc=xc, wc=wc: F.conv1d(xc, wc, stride=2)))
+    r.update(split_by(kern, (("gemm", "conv_k3s2_fwd"),
+                             ("gemm", "TmaTapCols")), conv_fwd_route_of))
+    _, c_in, c_out = CONV_SHAPES[0]
+    r["route"] = mirrored_route("audio8_tpu_torch.ops.conv", "fwd_route",
+                                dtype, c_in, c_out, True)
     return {"conv_k3s2_fwd": r}
 
 
@@ -1999,17 +2227,35 @@ def time_ctc(gen) -> dict:
         torch.autograd.grad(loss.sum(), lpg)
 
     r = in_turns(kern, plain, library)
+    # the launches: the recursion (alpha and beta), the one CTC kernel
+    # that a forward without a gradient also launches, and the pass that
+    # writes the gradient, any other CTC kernel; the rest is PyTorch's
+    # (the sum, zero_infinity's select)
+    def forward():
+        with torch.no_grad():
+            ctc_loss(lp, il, tg, tl, 0, "sum")
+
+    recursion = {n for n in traced_or_none(forward) if "ctc_" in n}
+    r.update(split_by(kern, lambda names: {
+        n: "recursion" if n in recursion else "finish"
+        for n in names if "ctc_" in n}, lambda name: None))
     b, t, v = CTC_SHAPE
-    live = sum(2 * u + 1 for u in CTC_TARGET_LENGTHS)
-    steps = sum(CTC_INPUT_LENGTHS)
-    # per live (t, s): the alpha and the beta update (3 exp, 1 log, ~8
-    # adds, compares and selects each) and the occupancy (1 exp, 4 adds)
-    ops = steps * live / b * 2 * 12 + steps * live / b * 5
-    r["bound_ms"], r["bound_by"] = bound(ops, 2 * lp.numel() * 4)
-    # the 2T dependent steps of the two recursions, each at least a
-    # shared-memory round trip, an exp-log chain and a barrier (about 100
-    # cycles at 1.98 GHz): an estimate, not a measurement
-    r["chain_floor_ms_estimate"] = 2 * t * 100 / 1.98e9 * 1e3
+    # the live (t, s) of this run's rows: frames t < input_length, states
+    # s < 2 U_b + 1; per live (t, s) the alpha and the beta update (2
+    # exp2, 1 log2, ~8 adds, compares and selects each) and dE (1 exp2, 4
+    # adds); reads the log-probs once, writes the gradient once
+    live = sum(n * (2 * u + 1) for n, u in zip(CTC_INPUT_LENGTHS,
+                                                CTC_TARGET_LENGTHS))
+    r["bound_ms"], r["bound_by"] = bound(live * (2 * 11 + 5),
+                                         2 * lp.numel() * 4)
+    # the T dependent steps of the alpha and beta sweeps, which run at
+    # the same time on two SMs: each step at least issues its live
+    # states' 3 MUFU operations at 16 per cycle (3 S / 16 cycles), one
+    # shared-memory round trip (about 30 cycles) and one barrier (about
+    # 20), at 1.98 GHz: an estimate, not a measurement
+    s_max = 2 * max(CTC_TARGET_LENGTHS) + 1
+    r["chain_floor_ms_estimate"] = (max(CTC_INPUT_LENGTHS)
+                                    * (3 * s_max / 16 + 50) / 1.98e9 * 1e3)
     return {"ctc_loss": r}
 
 
@@ -2195,18 +2441,27 @@ def block_timing(gen) -> int:
 
 
 def core_timing(gen) -> int:
-    """The timing rows of kernels 2 (the forward at the serving shape in
-    both semantics), 3c (the four k3s2 layers of (4, 15 s)) and 6 (the
+    """The timing rows of kernels 1 (the CTC loss and gradient at the
+    training shape, float32), 2 (the forward at the serving shape in both
+    semantics), 3 (the four k3s2 layers of (4, 30 s), each layer beside
+    cuDNN's), 3b and 3c (the four k3s2 layers of (4, 15 s)) and 6 (the
     block's forward) alone (``--core-timing``)."""
     from audio8_tpu_torch.csrc.build import build
 
     t0 = time.perf_counter()
-    build(("attention_fwd.cu", "conv_k3s2_bwd.cu", "attention_block_fwd.cu"))
+    build(("ctc_loss.cu", "conv_k3s2_fwd.cu", "attention_fwd.cu",
+           "conv_k3s2_bwd.cu", "attention_block_fwd.cu"))
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "tree": HERE})
+    for name, r in time_ctc(gen).items():
+        emit({"phase": "timing", "kernel": name, "dtype": "torch.float32",
+              "tree": HERE, **r})
     for dtype in (torch.float32, torch.bfloat16):
-        rows = {**time_attention_fwd(dtype, gen), **time_wgrad(dtype, gen),
-                **time_block(dtype, gen, backward=False)}
+        rows = dict(time_conv(dtype, gen))
+        torch.cuda.empty_cache()
+        rows.update({**time_attention_fwd(dtype, gen),
+                     **time_conv_bwd(dtype, gen),
+                     **time_block(dtype, gen, backward=False)})
         for name, r in rows.items():
             emit({"phase": "timing", "kernel": name, "dtype": str(dtype),
                   "tree": HERE, **r})
@@ -2243,8 +2498,11 @@ def main(argv=None) -> int:
     phase_pretrain_variants(gen)
     cpu_model = phase_model(SEED)
     with tempfile.TemporaryDirectory() as tmp:
-        phase_serve(cpu_model, SEED, tmp)
+        _, f32_texts = phase_serve(cpu_model, SEED, tmp)
         del cpu_model
+        torch.cuda.empty_cache()
+        phase_serve_bf16(SEED, tmp, f32_texts)
+        torch.cuda.empty_cache()
         train_launches = phase_train(tmp, SEED)
         torch.cuda.empty_cache()
         launches, batches = phase_pretrain(tmp, SEED)
@@ -2265,6 +2523,7 @@ def main(argv=None) -> int:
           "jax or the JAX package was imported")
     from audio8_tpu_torch.ops.attention_block import GEMM_ROUTES
     from audio8_tpu_torch.ops.attention import FWD_ROUTES
+    from audio8_tpu_torch.ops.conv import FWD_ROUTES as CONV_FWD_ROUTES
     from audio8_tpu_torch.ops.conv import WGRAD_ROUTES
     check(BLOCK_ROUTES_SEEN == set(GEMM_ROUTES),
           f"attention_block routes checked: {sorted(BLOCK_ROUTES_SEEN)}")
@@ -2272,8 +2531,11 @@ def main(argv=None) -> int:
           f"attention_fwd routes checked: {sorted(ATTN_ROUTES_SEEN)}")
     check(WGRAD_ROUTES_SEEN == set(WGRAD_ROUTES),
           f"conv_k3s2_wgrad routes checked: {sorted(WGRAD_ROUTES_SEEN)}")
+    check(CONV_FWD_ROUTES_SEEN == set(CONV_FWD_ROUTES),
+          f"conv_k3s2_fwd routes checked: {sorted(CONV_FWD_ROUTES_SEEN)}")
     routes_of = {"attention_fwd": ATTN_ROUTES_SEEN,
                  "conv_k3s2_wgrad": WGRAD_ROUTES_SEEN,
+                 "conv_k3s2_fwd": CONV_FWD_ROUTES_SEEN,
                  "attention_block": BLOCK_ROUTES_SEEN,
                  "attention_block_bwd": BLOCK_ROUTES_SEEN}
 
@@ -2287,17 +2549,22 @@ def main(argv=None) -> int:
                                     "event_ms")}
     split_keys["attention_block_bwd"] = split_keys["attention_block"]
     split_keys["conv_k3s2_wgrad"] = split_keys["attention_fwd"]
+    split_keys["conv_k3s2_fwd"] = split_keys["attention_fwd"] + (
+        "layer_ms", "layer_library_ms")
+    split_keys["ctc_loss"] = ("launch_ms", "host_ms", "event_ms")
 
     def extra(name):
         if name not in split_keys:
             return {}
-        # "routes": every route the checks saw run (the timing rows'
-        # own "routes" name only the routes their dtype took)
-        return {**{k: times[(name, torch.float32)][k]
-                   for k in split_keys[name]},
-                "routes": sorted(routes_of[name]),
-                "bfloat16": {k: times[(name, torch.bfloat16)][k]
-                             for k in keys + split_keys[name]}}
+        out = {k: times[(name, torch.float32)][k] for k in split_keys[name]}
+        if name in routes_of:
+            # every route the checks saw run (the timing rows' own
+            # "routes" name only the routes their dtype took)
+            out["routes"] = sorted(routes_of[name])
+        if (name, torch.bfloat16) in times:
+            out["bfloat16"] = {k: times[(name, torch.bfloat16)][k]
+                               for k in keys + split_keys[name]}
+        return out
 
     path_launches = {"pretrain": launches, "train": train_launches,
                      "pretrain_block": block_launches}

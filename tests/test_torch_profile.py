@@ -1,8 +1,9 @@
 """``audio8_tpu_torch.profile.kernel_groups`` on profiler events that
 carry the kernel names an H100 trace of the port shows (cuBLAS's Hopper
 bf16 GEMMs ``nvjet_...``, the attention block's GEMMs on each route, the
-core's forward routes and three backward launches, the conv wgrad's bf16
-GEMM, which is the block's wgmma kernel, PyTorch's elementwise kernels):
+core's forward routes and three backward launches, the conv wgrad's and
+the conv forward's bf16 GEMMs, which are the block's wgmma kernel, the
+CTC sweep and gradient launches, PyTorch's elementwise kernels):
 each name
 lands in its group, and only the rest in "other". No card is needed: the
 events are stand-ins with a name, a device type and a time range."""
@@ -64,6 +65,17 @@ EVENTS = [
      "blockgemm::Maps, ...)", "conv_k3s2_wgrad"),
     ("void (anonymous namespace)::sum_splits_kernel(float const*, float*, "
      "long long, int)", "conv_k3s2_wgrad"),
+    # the conv forward's bf16 GEMM is the same kernel on its K-major taps
+    ("void blockgemm::wgmma_gemm_kernel<256, blockgemm::TmaTapCols, "
+     "blockgemm::TmaWeightCols, blockgemm::PaddedRowOut<__nv_bfloat16> >("
+     "blockgemm::Maps, ...)", "conv_k3s2_fwd"),
+    ("void (anonymous namespace)::conv_k3s2_fwd_bf16_mma_kernel(...)",
+     "conv_k3s2_fwd"),
+    # the CTC loss: the alpha and beta sweep and the gradient pass
+    ("void (anonymous namespace)::ctc_sweep_kernel<1>((anonymous "
+     "namespace)::SweepArgs)", "ctc"),
+    ("void (anonymous namespace)::ctc_finish_kernel(float const*, int "
+     "const*, ...)", "ctc"),
     ("void at::native::vectorized_elementwise_kernel<8, at::native::"
      "bfloat16_copy_kernel_cuda(at::TensorIteratorBase&)...>", "other"),
 ]
