@@ -46,13 +46,13 @@
 //      sums.
 // No atomics: the result does not depend on scheduling. The GEMMs take
 // attention_block_gemm.cuh's route for the shape (block_route): in bf16
-// at head dim 64 or 128 the wgmma kernel fed by TMA, every operand in
-// its stored layout (dxo's Wo, both operands of dWo and dW{q,k,v} and
-// dx's W{q,k,v} MN-major), M tiles on the padded grid and K = B * T_pad
-// for the weight gradients, whose zero dout and x rows past T add exact
-// zeros; else mma.sync tiles, and in f32 the 128 x 128 SIMT tile, both
-// taking the weight gradients' K as one segment of T_pad per batch row
-// whose k tiles past T are skipped.
+// at head dim 64 or 128 tma_gemm.cuh's wgmma kernel fed by TMA, every
+// operand in its stored layout (dxo's Wo, both operands of dWo and
+// dW{q,k,v} and dx's W{q,k,v} MN-major), M tiles on the padded grid
+// and K = B * T_pad for the weight gradients, whose zero dout and x rows
+// past T add exact zeros; else mma.sync tiles, and in f32 the 128 x 128
+// SIMT tile, both taking the weight gradients' K as one segment of T_pad
+// per batch row whose k tiles past T are skipped.
 
 #include "attention_bwd.cu"
 #include "attention_block_gemm.cuh"
@@ -92,6 +92,7 @@ int products_wgmma(int which, const void* x, const void* const* w3,
                    float* dwo_part, int batch, int t, int d_model, int heads,
                    int dh, int s_w, int s_wo, cudaStream_t s) {
   using namespace blockgemm;
+  using namespace tmagemm;
   using bf16 = __nv_bfloat16;
   const int t_pad = (t + 127) / 128 * 128, hd = heads * dh;
   const int row_tiles = (t + 63) / 64, nk_rows = batch * row_tiles;
@@ -130,7 +131,7 @@ int products_wgmma(int which, const void* x, const void* const* w3,
   for (int z = 0; z < 3 && err == 0; ++z)
     err = encode_matrix(&m.b[z], w3[z], hd, d_model);
   if (err != 0) return err;
-  const PaddedRowOut<bf16> e{(bf16*)dx, nullptr, d_model, t, t_pad};
+  const PaddedRowOut e{(bf16*)dx, nullptr, d_model, t, t_pad};
   return wgmma_gemm(m, TmaHeadCols{t_pad, dh, hd / 64}, TmaWeightCols{hd / 64},
                     e, batch * t_pad, d_model, 1, 1, 3 * hd / 64, s);
 }

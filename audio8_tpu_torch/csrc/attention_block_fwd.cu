@@ -32,13 +32,13 @@
 //   3. out = [o_1 .. o_H] Wo^T + bo: one GEMM over K = H*dh reading o
 //      head-major, so the sum over heads is the GEMM's f32 sum.
 // The GEMMs take attention_block_gemm.cuh's route for the shape
-// (block_route): in bf16 at head dim 64 or 128 the wgmma kernel fed by
-// TMA (its M tiles on the padded grid for both products, the output
-// projection's rows past T dropped in its epilogue), else mma.sync tiles;
-// in f32 the 128 x 128 SIMT tile, full f32 sums. With `stats` the core
-// also writes its row statistics (and with `o32` its f32 output, for
-// bf16), which the backward (attention_block_bwd.cu) reads with q, k, v
-// and o.
+// (block_route): in bf16 at head dim 64 or 128 tma_gemm.cuh's wgmma
+// kernel fed by TMA (its M tiles on the padded grid for both products,
+// the output projection's rows past T dropped in its epilogue), else
+// mma.sync tiles; in f32 the 128 x 128 SIMT tile, full f32 sums. With
+// `stats` the core also writes its row statistics (and with `o32` its
+// f32 output, for bf16), which the backward (attention_block_bwd.cu)
+// reads with q, k, v and o.
 
 #include "attention_fwd.cu"
 #include "attention_block_gemm.cuh"
@@ -54,6 +54,7 @@ int projections_wgmma(const void* x, const void* const* w3,
                       bool output, int batch, int t, int d_model, int heads,
                       int dh, cudaStream_t s) {
   using namespace blockgemm;
+  using namespace tmagemm;
   using bf16 = __nv_bfloat16;
   const int t_pad = (t + 127) / 128 * 128, hd = heads * dh;
   const int lg = log2_exact(dh);
@@ -75,7 +76,7 @@ int projections_wgmma(const void* x, const void* const* w3,
   err = encode_heads(&m.a[0], o, batch, heads, t_pad, dh);
   if (err == 0) err = encode_matrix(&m.b[0], wo, d_model, hd);
   if (err != 0) return err;
-  const PaddedRowOut<bf16> e{(bf16*)out, (const bf16*)bo, d_model, t, t_pad};
+  const PaddedRowOut e{(bf16*)out, (const bf16*)bo, d_model, t, t_pad};
   return wgmma_gemm(m, TmaHeadCols{t_pad, dh, hd / 64},
                     TmaWeightRows{0, hd / 64}, e, batch * t_pad, d_model, 1,
                     1, hd / 64, s);

@@ -107,7 +107,7 @@
 #include <math.h>
 #include <stdint.h>
 
-#include "attention_block_gemm.cuh"
+#include "tma_gemm.cuh"
 #include "wgmma.cuh"
 
 namespace {
@@ -816,8 +816,8 @@ __global__ void __launch_bounds__(W_THREADS, WgmmaPlan<DH>::MINB)
 #pragma unroll
     for (int kk = 0; kk < DH / 16; ++kk)
       wg::wgmma_ss<0, 0>(
-          s, blockgemm::tile_desc<0>(q_wg + (kk / 4) * W_BOX, kk % 4),
-          blockgemm::tile_desc<0>(k_tile(st) + (kk / 4) * W_BOX, kk % 4), 1);
+          s, tmagemm::tile_desc<0>(q_wg + (kk / 4) * W_BOX, kk % 4),
+          tmagemm::tile_desc<0>(k_tile(st) + (kk / 4) * W_BOX, kk % 4), 1);
     wg::wg_commit();
     wg::wg_wait<0>();
     wg::keep_regs(s);
@@ -897,7 +897,7 @@ __global__ void __launch_bounds__(W_THREADS, WgmmaPlan<DH>::MINB)
     wg::wg_fence();
 #pragma unroll
     for (int kb = 0; kb < 4; ++kb)
-      wg::wgmma_rs<1>(acc, pa[kb], blockgemm::tile_desc<1>(v_tile(st), kb), 1);
+      wg::wgmma_rs<1>(acc, pa[kb], tmagemm::tile_desc<1>(v_tile(st), kb), 1);
     wg::wg_commit();
     wg::wg_wait<0>();
     wg::keep_regs(acc);
@@ -943,7 +943,7 @@ __global__ void __launch_bounds__(W_THREADS, WgmmaPlan<DH>::MINB)
                                    2 * u) = make_float2(v0, v1);
     }
   }
-  blockgemm::warpgroup_sync(1 + wi);
+  tmagemm::warpgroup_sync(1 + wi);
   for (int i = threadIdx.x % 128; i < 64 * DH / 8; i += 128) {
     const int rr = i / (DH / 8), c = 8 * (i % (DH / 8));
     const int r = q0 + 64 * wi + rr;
@@ -978,9 +978,9 @@ int launch_wgmma(const void* q, const void* k, const void* v, const void* kv,
   const uint64_t dims[3] = {(uint64_t)DH, (uint64_t)t,
                             (uint64_t)batch * heads};
   const uint64_t strides[2] = {(uint64_t)DH, (uint64_t)t * DH};
-  int code = blockgemm::encode(&maps.q, q, 3, dims, strides);
-  if (code == 0) code = blockgemm::encode(&maps.k, k, 3, dims, strides);
-  if (code == 0) code = blockgemm::encode(&maps.v, v, 3, dims, strides);
+  int code = tmagemm::encode(&maps.q, q, 3, dims, strides);
+  if (code == 0) code = tmagemm::encode(&maps.k, k, 3, dims, strides);
+  if (code == 0) code = tmagemm::encode(&maps.v, v, 3, dims, strides);
   if (code != 0) return code;
   const int t_pad = (t + 127) / 128 * 128;
   const dim3 grid((unsigned)((t + 127) / 128), (unsigned)(batch * heads));

@@ -8,18 +8,18 @@
 //     dx[2t+1] = dy[t] W1^T
 //     dW_j     = sum_{b,t} x[b, 2t+j]^T dy[b, t]       (f32)
 //
-// dgrad is an implicit GEMM over paired rows, like the TPU kernel: row
-// (b, t) of A is [dy[t-1] | dy[t]], 2*C_out elements that are contiguous
-// in (B, T_out, C_out) memory, and the output row is the paired
-// [dx[2t] | dx[2t+1]], 2*C_in contiguous elements of dx. B is
-// [[W2^T, 0], [W0^T, W1^T]] read from wt = w^T (3, C_out, C_in), which the
-// wrapper makes. A CTA tile that lies wholly in the dx[2t+1] half skips
-// the zero block (its K range starts at C_out), so only tiles that
-// straddle the halves spend operations on it. t runs to T_out inclusive:
-// the extra row t = T_out has A = [dy[T_out-1] | 0], which gives the tail
-// rows dx[2 T_out] = dy[T_out-1] W2^T and (even T_in) dx[2 T_out + 1] = 0,
-// so one launch writes every row of dx. A[.][k < C_out] is zero at t = 0,
-// A[.][k >= C_out] at t = T_out.
+// On its mma.sync and SIMT routes (below) dgrad is an implicit GEMM over
+// paired rows, like the TPU kernel: row (b, t) of A is [dy[t-1] | dy[t]],
+// 2*C_out elements that are contiguous in (B, T_out, C_out) memory, and
+// the output row is the paired [dx[2t] | dx[2t+1]], 2*C_in contiguous
+// elements of dx. B is [[W2^T, 0], [W0^T, W1^T]] read from wt = w^T (3,
+// C_out, C_in), which the wrapper makes. A CTA tile that lies wholly in
+// the dx[2t+1] half skips the zero block (its K range starts at C_out),
+// so only tiles that straddle the halves spend operations on it. t runs
+// to T_out inclusive: the extra row t = T_out has A = [dy[T_out-1] | 0],
+// which gives the tail rows dx[2 T_out] = dy[T_out-1] W2^T and (even
+// T_in) dx[2 T_out + 1] = 0, so one launch writes every row of dx.
+// A[.][k < C_out] is zero at t = 0, A[.][k >= C_out] at t = T_out.
 //
 // wgrad is dW (3C_in x C_out) = X^T DY with X the overlapping im2col view
 // the forward reads (row (b, t) = x[b, 2t : 2t+3, :], 3*C_in contiguous
@@ -33,9 +33,24 @@
 //
 // What bounds it on H100: at the wav2vec2 extractor shapes (512 -> 512
 // channels, up to 143k rows) both products are compute-bound, by the
-// multiply-add rate. The bf16 wgrad with channel counts in multiples of
-// 64 runs attention_block_gemm.cuh's TMA-fed wgmma GEMM (below, route
-// wgrad_route); otherwise two variants, by dtype; both want 16-byte aligned
+// multiply-add rate. In bf16 with channel counts in multiples of 64 both
+// run tma_gemm.cuh's TMA-fed wgmma GEMM (below; routes dgrad_route and
+// wgrad_route). dgrad there is two products over the rows (b, t) of the
+// padded grid (T_pad = T_out + 1 rounded up to 128, so the tail row t =
+// T_out lies inside a tile and no tile straddles two batch rows), N =
+// C_in, one per half of dx, so the zero block of B is never multiplied:
+// the even rows [dy[t-1] | dy[t]] [W2^T; W0^T] (K = 2 C_out), the odd
+// rows dy[t] W1^T (K = C_out). A is dy's one (C_out, T_out, B) tensor map
+// read K-major with a row shift per K segment (TmaShiftRows: t - 1, then
+// t); TMA zero-fills the rows t - 1 = -1 and t >= T_out, which are the
+// paired formulation's zero rows, so dy is not padded. B is tap z of w
+// (3, C_in, C_out) read K-major as it lies (TmaWeightRows), so this route
+// needs no w^T. The bf16 epilogue stages a tile in shared memory and
+// stores it by TMA (HalfRowsOut) through a map of every other row of dx
+// from row z, (T_in - z + 1) / 2 of them: row (b, t) of half z lands in
+// dx[b, 2t + z], TMA drops the rest, and the stores overlap the next
+// tile's products. Every row of dx is written once: no memset, no
+// atomics. Otherwise two variants, by dtype; both want 16-byte aligned
 // pointers and channel rows of whole 16-byte vectors (C_in and C_out
 // multiples of 8 for bf16, of 4 for f32), which the wrapper ensures (it
 // copies a misaligned input and refuses other channel counts):
@@ -53,17 +68,23 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "attention_block_gemm.cuh"
+#include "tma_gemm.cuh"
 
 namespace {
 
-enum WgradRoute { kWgradSimt = 0, kWgradMma = 1, kWgradWgmma = 2 };
+enum BwdRoute { kSimt = 0, kMma = 1, kWgmma = 2 };
 
 // wgrad's route from the shape alone (dtype 0 = float32, 1 = bfloat16);
 // ops/conv.py:wgrad_route mirrors it
 inline int wgrad_route(int dtype, int c_in, int c_out) {
-  if (dtype != 1) return kWgradSimt;
-  return c_in % 64 == 0 && c_out % 64 == 0 ? kWgradWgmma : kWgradMma;
+  if (dtype != 1) return kSimt;
+  return c_in % 64 == 0 && c_out % 64 == 0 ? kWgmma : kMma;
+}
+
+// dgrad's route: the same rule (both products want whole 64 x 64 boxes
+// of either channel count); ops/conv.py:dgrad_route mirrors it
+inline int dgrad_route(int dtype, int c_in, int c_out) {
+  return wgrad_route(dtype, c_in, c_out);
 }
 
 // ------------------------------------------------------------ problems
@@ -585,10 +606,57 @@ __global__ void __launch_bounds__(TNT, 2)
     }
 }
 
+// ------------------------------------ bf16 dgrad on the TMA-fed wgmma GEMM
+//
+// Row (b, t) of the padded grid (m = b * T_pad + t) of half z's product
+// is dx[b, 2t + z]: stored by TMA through the half's map m[0] (C_in,
+// (T_in - z + 1) / 2, B) of every other dx row from row z, which drops
+// the rows 2t + z >= T_in (so t <= T_out) and the rest of the padded grid.
+struct HalfRowsOut {
+  static constexpr bool kStaged = true, kTmaStore = true;
+  int rows_pad;
+  __device__ float value(int, int, float v) const { return v; }
+  // the 64 x 64 box of rows m0 .. m0 + 63 (one batch row), columns n
+  __device__ void store(const CUtensorMap* m, int, int m0, int n,
+                        uint32_t src) const {
+    const int b = m0 / rows_pad;
+    wg::tma_store(m, src, n, m0 - b * rows_pad, b);
+  }
+};
+
+// The two halves, one launch each: the even rows over K segments dy[t-1]
+// (tap 2) and dy[t] (tap 0), the odd rows over dy[t] (tap 1).
+int dgrad_wgmma(const void* dy, const void* w, void* dx, int batch,
+                int t_in, int c_in, int c_out, cudaStream_t s) {
+  const int t_out = (t_in - 3) / 2 + 1;
+  const int t_pad = (t_out + 1 + 127) / 128 * 128, c_stages = c_out / 64;
+  const __nv_bfloat16* taps = (const __nv_bfloat16*)w;
+  const int tap_of[2][2] = {{2, 0}, {1}};  // [half][K segment]
+  for (int z = 0; z < 2; ++z) {
+    const int segs = 2 - z;
+    tmagemm::Maps maps{};
+    int err = tmagemm::encode_rows(&maps.a[0], dy, batch, t_out, c_out);
+    if (err == 0)
+      err = tmagemm::encode_alternate_rows(&maps.c[0], dx, batch, t_in, c_in,
+                                           z, (t_in - z + 1) / 2);
+    for (int seg = 0; seg < segs && err == 0; ++seg)
+      err = tmagemm::encode_matrix(
+          &maps.b[seg], taps + (long long)tap_of[z][seg] * c_in * c_out,
+          c_in, c_out);
+    if (err == 0)
+      err = tmagemm::wgmma_gemm(
+          maps, tmagemm::TmaShiftRows{t_pad, c_stages, 1 - z},
+          tmagemm::TmaWeightRows{0, c_stages}, HalfRowsOut{t_pad},
+          batch * t_pad, c_in, 1, 1, segs * c_stages, s);
+    if (err != 0) return err;
+  }
+  return 0;
+}
+
 // ------------------------------------ bf16 wgrad on the TMA-fed wgmma GEMM
 //
-// dW_z = sum_{b,t} x[b, 2t+z]^T dy[b, t] is attention_block_gemm.cuh's
-// wgmma_gemm with Z = 3 taps, M = C_in, N = C_out and K stages of 64 t
+// dW_z = sum_{b,t} x[b, 2t+z]^T dy[b, t] is tma_gemm.cuh's wgmma_gemm
+// with Z = 3 taps, M = C_in, N = C_out and K stages of 64 t
 // rows of one batch row ((b, t tile), B * ceil(T_out / 64) of them), cut
 // into S fixed slices of consecutive stages. A is tap z's MN-major map
 // (C_in, T_out, B) over x with a row stride of 2 C_in (TmaTapRows), B
@@ -613,17 +681,17 @@ int wgrad_wgmma(const void* x, const void* dy, float* out, int batch,
                 int t_in, int c_in, int c_out, int splits,
                 cudaStream_t s) {
   const int t_out = (t_in - 3) / 2 + 1, row_tiles = (t_out + 63) / 64;
-  blockgemm::Maps maps{};
+  tmagemm::Maps maps{};
   int err = 0;
   for (int z = 0; z < 3 && err == 0; ++z)
-    err = blockgemm::encode_tap_rows(&maps.a[z], x, batch, t_in, c_in, z);
+    err = tmagemm::encode_tap_rows(&maps.a[z], x, batch, t_in, c_in, z);
   if (err == 0)
-    err = blockgemm::encode_rows(&maps.b[0], dy, batch, t_out, c_out);
+    err = tmagemm::encode_rows(&maps.b[0], dy, batch, t_out, c_out);
   if (err != 0) return err;
   const TapPartial e{out, splits, (long long)c_in * c_out, c_out};
-  return blockgemm::wgmma_gemm(maps, blockgemm::TmaTapRows{row_tiles},
-                               blockgemm::TmaRowCols{row_tiles}, e, c_in,
-                               c_out, 3, splits, batch * row_tiles, s);
+  return tmagemm::wgmma_gemm(maps, tmagemm::TmaTapRows{row_tiles},
+                             tmagemm::TmaRowCols{row_tiles}, e, c_in, c_out,
+                             3, splits, batch * row_tiles, s);
 }
 
 // dw[i] = sum over s of part[s][i], in split order
@@ -650,20 +718,27 @@ bool fits(int dtype, const void* a, const void* b, const void* c, int c_in,
 
 }  // namespace
 
-// dy (B, T_out, C_out), wt = w^T (3, C_out, C_in) -> dx (B, T_in, C_in),
-// T_out = (T_in - 3) / 2 + 1, every row of dx written. dtype: 0 = float32,
-// 1 = bfloat16. Returns the cudaError_t of the launch (invalid value for
-// inputs off the variants' contract).
-extern "C" int a8t_conv_k3s2_dgrad(const void* dy, const void* wt, void* dx,
-                                   int batch, int t_in, int c_in, int c_out,
-                                   int dtype, void* stream) {
+// dy (B, T_out, C_out) -> dx (B, T_in, C_in), T_out = (T_in - 3) / 2 +
+// 1, every row of dx written, from w (3, C_in, C_out) on the wgmma route
+// and from wt = w^T (3, C_out, C_in) on the others (the other pointer may
+// be null). dtype: 0 = float32, 1 = bfloat16. Returns the cudaError_t of
+// the first failed launch or tensor-map encoding (invalid value for
+// inputs off the route's contract).
+extern "C" int a8t_conv_k3s2_dgrad(const void* dy, const void* w,
+                                   const void* wt, void* dx, int batch,
+                                   int t_in, int c_in, int c_out, int dtype,
+                                   void* stream) {
+  const int route = dgrad_route(dtype, c_in, c_out);
+  const void* weight = route == kWgmma ? w : wt;
   if (batch <= 0 || t_in < 3 || c_in <= 0 || c_out <= 0 ||
-      !fits(dtype, dy, wt, dx, c_in, c_out))
+      weight == nullptr || !fits(dtype, dy, weight, dx, c_in, c_out))
     return (int)cudaErrorInvalidValue;
   const int t_out = (t_in - 3) / 2 + 1;
   const long long m_total = (long long)batch * (t_out + 1);
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 1) {
+  if (route == kWgmma)
+    return dgrad_wgmma(dy, w, dx, batch, t_in, c_in, c_out, s);
+  if (route == kMma) {
     const cudaError_t err = cudaFuncSetAttribute(
         dgrad_bf16_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         DG_SMEM);
@@ -681,6 +756,12 @@ extern "C" int a8t_conv_k3s2_dgrad(const void* dy, const void* wt, void* dx,
                      t_out, c_in, c_out, m_total});
   }
   return (int)cudaGetLastError();
+}
+
+// The route dgrad_route gives: 0 = SIMT, 1 = mma.sync, 2 = wgmma
+// (ops/conv.py:dgrad_route mirrors it).
+extern "C" int a8t_conv_k3s2_dgrad_route(int dtype, int c_in, int c_out) {
+  return dgrad_route(dtype, c_in, c_out);
 }
 
 // The route wgrad_route gives: 0 = SIMT, 1 = mma.sync, 2 = wgmma
@@ -715,14 +796,14 @@ extern "C" int a8t_conv_k3s2_wgrad(const void* x, const void* dy, float* dw,
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const int route = wgrad_route(dtype, c_in, c_out);
-  if (route == kWgradWgmma) {
+  if (route == kWgmma) {
     const long long stages = (long long)batch * ((t_out + 63) / 64);
     if (rows_per_split != 64 * ((stages + splits - 1) / splits))
       return (int)cudaErrorInvalidValue;
     const int err = wgrad_wgmma(x, dy, out, batch, t_in, c_in, c_out, splits,
                                 s);
     if (err != 0) return err;
-  } else if (route == kWgradMma) {
+  } else if (route == kMma) {
     const cudaError_t err = cudaFuncSetAttribute(
         wgrad_bf16_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         WG_SMEM);

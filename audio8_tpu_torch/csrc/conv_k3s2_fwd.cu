@@ -19,7 +19,7 @@
 // chosen by dtype, channel counts and alignment at launch (fwd_route,
 // mirrored by ops/conv.py:fwd_route):
 //   * wgmma (bf16, C_in and C_out multiples of 64, 16-byte aligned
-//     pointers): attention_block_gemm.cuh's TMA-fed wgmma GEMM (a
+//     pointers): tma_gemm.cuh's TMA-fed wgmma GEMM (a
 //     producer warp, a 3-stage mbarrier ring, two consumer warpgroups,
 //     128 x 256 tiles where C_out >= 256, a persistent grid) with M = B *
 //     T_pad rows on the padded grid (T_pad = T_out rounded up to 128, so
@@ -48,7 +48,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "attention_block_gemm.cuh"
+#include "tma_gemm.cuh"
 
 namespace {
 
@@ -435,19 +435,19 @@ __global__ void __launch_bounds__(TNT, 2)
 int fwd_wgmma(const void* x, const void* w, void* y, int batch, int t_in,
               int c_in, int c_out, cudaStream_t s) {
   const int t_out = (t_in - 3) / 2 + 1, t_pad = (t_out + 127) / 128 * 128;
-  blockgemm::Maps maps{};
+  tmagemm::Maps maps{};
   int err = 0;
   for (int z = 0; z < 3 && err == 0; ++z)
-    err = blockgemm::encode_tap_rows(&maps.a[z], x, batch, t_in, c_in, z);
+    err = tmagemm::encode_tap_rows(&maps.a[z], x, batch, t_in, c_in, z);
   if (err == 0)
-    err = blockgemm::encode_matrix(&maps.b[0], w, 3 * c_in, c_out);
+    err = tmagemm::encode_matrix(&maps.b[0], w, 3 * c_in, c_out);
   if (err != 0) return err;
   const int nk = 3 * c_in / 64;
-  const blockgemm::PaddedRowOut<__nv_bfloat16> e{
+  const tmagemm::PaddedRowOut e{
       (__nv_bfloat16*)y, nullptr, c_out, t_out, t_pad};
-  return blockgemm::wgmma_gemm(maps, blockgemm::TmaTapCols{t_pad, c_in / 64},
-                               blockgemm::TmaWeightCols{nk}, e, batch * t_pad,
-                               c_out, 1, 1, nk, s);
+  return tmagemm::wgmma_gemm(maps, tmagemm::TmaTapCols{t_pad, c_in / 64},
+                             tmagemm::TmaWeightCols{nk}, e, batch * t_pad,
+                             c_out, 1, 1, nk, s);
 }
 
 }  // namespace

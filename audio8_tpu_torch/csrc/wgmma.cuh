@@ -1,7 +1,8 @@
 // Hopper building blocks shared by the port's wgmma kernels
-// (attention_bwd.cu's bf16 pass, attention_block_gemm.cuh's TMA-fed
-// GEMM): shared-memory matrix descriptors, the wgmma instructions and
-// their fences, mbarriers, and TMA tile loads. sm_90a only.
+// (attention_bwd.cu's bf16 pass, tma_gemm.cuh's TMA-fed GEMM, the core
+// forward's wgmma kernel): shared-memory matrix descriptors, the wgmma
+// instructions and their fences, mbarriers, TMA tile loads and stores.
+// sm_90a only.
 
 #pragma once
 
@@ -46,7 +47,7 @@ __device__ __forceinline__ void wg_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 // shared-memory writes of the generic proxy (st.shared, cp.async) made
-// visible to the async proxy that wgmma reads through
+// visible to the async proxy that wgmma and TMA stores read through
 __device__ __forceinline__ void fence_async_smem() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
@@ -372,6 +373,32 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
       "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
       "l"((uint64_t)map), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
+}
+
+// One TMA box, shared -> global, through a 3-d map: the box at src
+// (laid out as the map's swizzle says) to the element coordinates
+// (innermost first); elements out of the map's range are not written.
+// The store joins the issuing thread's open bulk group.
+__device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src,
+                                          int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4}], [%1];\n" ::"l"((uint64_t)map),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// waits until at most N of this thread's bulk groups are pending: read
+// (their shared-memory sources may be written again), or done
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 }  // namespace wg

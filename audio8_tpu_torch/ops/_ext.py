@@ -30,7 +30,9 @@ _SIGNATURES = {
                                   [_P, _P, _P, _I, _I, _I, _I, _I, _P]),
                          "route": ("a8t_conv_k3s2_fwd_route", [_I] * 4)},
     "conv_k3s2_bwd.cu": {"dgrad": ("a8t_conv_k3s2_dgrad",
-                                   [_P, _P, _P, _I, _I, _I, _I, _I, _P]),
+                                   [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+                         "dgrad_route": ("a8t_conv_k3s2_dgrad_route",
+                                         [_I] * 3),
                          "wgrad": ("a8t_conv_k3s2_wgrad",
                                    [_P, _P, _P, _P, _I, _I, _I, _I, _I, _L,
                                     _I, _P]),

@@ -25,9 +25,9 @@ BWD_SOURCE = "conv_k3s2_bwd.cu"
 # two resident CTAs); a split keeps at least MIN_SPLIT_ROWS rows
 WGRAD_CTAS_PER_SM = 4
 MIN_SPLIT_ROWS = 256
-# wgrad's routes, by their codes in conv_k3s2_bwd.cu; the wgmma route's
-# K stages are 64 t rows of one batch row
-WGRAD_ROUTES = ("simt", "mma.sync", "wgmma")
+# wgrad's and dgrad's routes, by their codes in conv_k3s2_bwd.cu; the
+# wgrad wgmma route's K stages are 64 t rows of one batch row
+WGRAD_ROUTES = DGRAD_ROUTES = ("simt", "mma.sync", "wgmma")
 STAGE_ROWS = 64
 # the forward's routes, by their codes in conv_k3s2_fwd.cu
 FWD_ROUTES = ("generic", "simt", "mma.sync", "wgmma")
@@ -40,7 +40,7 @@ def t_out_of(t_in: int) -> int:
 def fwd_route(dtype, c_in: int, c_out: int, aligned: bool = True) -> str:
     """The forward's route for a shape; mirrors
     ``conv_k3s2_fwd.cu:fwd_route``, which the kernel applies (``aligned``:
-    x, w and y on 16-byte boundaries): "wgmma" (the attention block's
+    x, w and y on 16-byte boundaries): "wgmma" (``csrc/tma_gemm.cuh``'s
     TMA-fed GEMM) for bfloat16 with C_in and C_out multiples of 64 (TMA's
     64 x 64 boxes), "mma.sync" for other bfloat16 with multiples of 8,
     "simt" for float32 with multiples of 4, "generic" otherwise."""
@@ -155,8 +155,9 @@ def conv1d_k3s2_dgrad(dy: torch.Tensor, w: torch.Tensor,
                       t_in: int) -> torch.Tensor:
     """dgrad: ``dy`` (B, T_out, C_out), ``w`` (3, C_in, C_out) -> ``dx``
     (B, T_in, C_in) in dy's dtype, f32 accumulation. CPU tensors take the
-    plain version; CUDA tensors launch the kernel or raise (channel counts
-    as :func:`_vectors` sets out)."""
+    plain version; CUDA tensors launch the kernel on the route
+    :func:`dgrad_route` names or raise (channel counts as
+    :func:`_vectors` sets out)."""
     b, t_out, c_out = dy.shape
     if w.dim() != 3 or w.shape[0] != 3 or w.shape[2] != c_out \
             or t_in < 3 or t_out_of(t_in) != t_out:
@@ -164,14 +165,18 @@ def conv1d_k3s2_dgrad(dy: torch.Tensor, w: torch.Tensor,
                          f"{tuple(w.shape)}, T_in {t_in} do not fit")
     if dy.device.type == "cpu" and w.device.type == "cpu":
         return conv1d_k3s2_dgrad_plain(dy, w, t_in)
-    wt = w.transpose(1, 2).contiguous()  # (3, C_out, C_in), as the TPU's
-    _check_cuda("conv1d_k3s2_dgrad", dy, wt)
     c_in = w.shape[1]
-    dy, wt = _vectors("conv1d_k3s2_dgrad", c_in, c_out, dy, wt)
+    wgmma = dgrad_route(dy.dtype, c_in, c_out) == "wgmma"
+    # the wgmma route reads w's taps as they lie; the others read wt = w^T
+    # (3, C_out, C_in), as the TPU's
+    wk = w.contiguous() if wgmma else w.transpose(1, 2).contiguous()
+    _check_cuda("conv1d_k3s2_dgrad", dy, wk)
+    dy, wk = _vectors("conv1d_k3s2_dgrad", c_in, c_out, dy, wk)
     dx = torch.empty((b, t_in, c_in), dtype=dy.dtype, device=dy.device)
     fn = _ext.function(BWD_SOURCE, "dgrad")
-    _ext.check(fn(dy.data_ptr(), wt.data_ptr(), dx.data_ptr(), b, t_in, c_in,
-                  c_out, _ext.DTYPE_CODES[dy.dtype],
+    _ext.check(fn(dy.data_ptr(), wk.data_ptr() if wgmma else None,
+                  None if wgmma else wk.data_ptr(), dx.data_ptr(), b, t_in,
+                  c_in, c_out, _ext.DTYPE_CODES[dy.dtype],
                   _ext.stream_handle(dy.device)), "conv1d_k3s2_dgrad")
     conv1d_k3s2_dgrad.launches += 1
     return dx
@@ -191,12 +196,21 @@ def wgrad_splits(rows: int, c_in: int, c_out: int, sms: int
 
 def wgrad_route(dtype, c_in: int, c_out: int) -> str:
     """wgrad's route for a shape; mirrors ``conv_k3s2_bwd.cu:wgrad_route``,
-    which the kernel applies: "wgmma" (the attention block's TMA-fed GEMM)
-    for bfloat16 with C_in and C_out multiples of 64 (TMA's 64 x 64
+    which the kernel applies: "wgmma" (``csrc/tma_gemm.cuh``'s TMA-fed
+    GEMM) for bfloat16 with C_in and C_out multiples of 64 (TMA's 64 x 64
     boxes), "mma.sync" for other bfloat16, "simt" for float32."""
     if dtype != torch.bfloat16:
         return "simt"
     return "wgmma" if c_in % 64 == 0 and c_out % 64 == 0 else "mma.sync"
+
+
+def dgrad_route(dtype, c_in: int, c_out: int) -> str:
+    """dgrad's route for a shape; mirrors ``conv_k3s2_bwd.cu:dgrad_route``,
+    which the kernel applies, and is :func:`wgrad_route`'s rule: "wgmma"
+    (the TMA-fed GEMM, one product per half of dx) for bfloat16 with C_in
+    and C_out multiples of 64, "mma.sync" for other bfloat16, "simt" for
+    float32."""
+    return wgrad_route(dtype, c_in, c_out)
 
 
 def wgrad_wgmma_slices(batch: int, t_in: int, c_in: int, c_out: int,

@@ -38,6 +38,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 
 import numpy as np
 import torch
@@ -130,20 +131,39 @@ def stage_times(model, sig, lengths) -> dict:
     return out
 
 
+# The callers of the TMA-fed GEMM (csrc/tma_gemm.cuh), by the recipe of
+# its A operand, which names the kernel's first operand type: each recipe
+# has one caller
+GEMM_CALLERS = {"TmaPaddedRows": "attention_block_gemm",
+                "TmaHeadCols": "attention_block_gemm",
+                "TmaRowCols": "attention_block_gemm",
+                "TmaHeadRows": "attention_block_gemm",
+                "TmaTapCols": "conv_k3s2_fwd",
+                "TmaShiftRows": "conv_k3s2_dgrad",
+                "TmaTapRows": "conv_k3s2_wgrad"}
+_GEMM_A = re.compile(r"wgmma_gemm_kernel<\d+,\s*(?:\w+::)*(\w+)")
+
+
+def gemm_caller(name: str):
+    """The kernel whose product a traced kernel of the TMA-fed GEMM ran
+    (``GEMM_CALLERS``, by the A recipe in its name), or None for any other
+    kernel."""
+    m = _GEMM_A.search(name)
+    return GEMM_CALLERS.get(m.group(1)) if m else None
+
+
 def kernel_groups(prof) -> dict:
     """Device ms by kernel family, from profiler events, and the five
-    largest kernels of the rest by name. The attention block's group holds
-    its GEMMs on every route (``blockgemm::``: wgmma, mma.sync, SIMT) and
-    its bias partials; the conv wgrad's and the conv forward's groups their
-    own kernels and, in bf16, the same wgmma GEMM on their tap operands
-    (``TmaTapRows``, ``TmaTapCols``), so they are matched first; ``ctc``
-    holds the CTC sweep and gradient launches (``ctc_...``); ``matmul``
-    holds cuBLAS's kernels, whose Hopper bf16 GEMMs are named
-    ``nvjet_...``."""
+    largest kernels of the rest by name. The TMA-fed GEMM's launches go to
+    their caller's group (:func:`gemm_caller`); the attention block's
+    group also holds its GEMMs on the other routes (``blockgemm::``:
+    mma.sync, SIMT) and its bias partials, the conv's groups their own
+    kernels; ``ctc`` holds the CTC sweep and gradient launches
+    (``ctc_...``); ``matmul`` holds cuBLAS's kernels, whose Hopper bf16
+    GEMMs are named ``nvjet_...``."""
     groups = {"conv_k3s2_wgrad": ("wgrad_f32_kernel", "wgrad_bf16_mma_kernel",
-                                  "Wgrad<", "TmaTapRows",
-                                  "sum_splits_kernel"),
-              "conv_k3s2_fwd": ("conv_k3s2", "TmaTapCols"),
+                                  "Wgrad<", "sum_splits_kernel"),
+              "conv_k3s2_fwd": "conv_k3s2",
               "attention_block_gemm": ("blockgemm", "bias_partials_kernel"),
               "attention_fwd": "attention_fwd",
               "attention_bwd": ("attention_bwd", "rowdot_kernel",
@@ -161,6 +181,10 @@ def kernel_groups(prof) -> dict:
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
         ms = (e.time_range.end - e.time_range.start) / 1e3
+        caller = gemm_caller(e.name)
+        if caller is not None:
+            out[caller] += ms
+            continue
         for name, keys in groups.items():
             if any(k in e.name for k in ((keys,) if isinstance(keys, str)
                                          else keys)):

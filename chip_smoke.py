@@ -21,16 +21,19 @@ against its plain PyTorch version. Phases, each printing JSON lines:
               it fails; then small ragged shapes, every head dim and
               misaligned pointers, which reach every variant of each
               kernel; the attention block's GEMMs, the core forward and
-              the conv wgrad on each of their three routes (wgmma fed by
-              TMA, mma.sync, SIMT) and the conv forward on its four
-              (those and the generic SIMT kernel), the route read from
-              the profiler's kernel names and held to the rule, wgmma at
-              wav2vec2-base's shapes in bf16, the wgmma core at T 1 to
-              222 with a zero-length row and dropout, the wgmma conv
-              forward at T_out 30 to 299 and 1 to 20 rows, CTC at T 1 and
-              2, at input lengths far below T and at the state limit
-              (2U + 1 = 2047), and repeated backward (attention, CTC)
-              and wgrad calls bitwise equal;
+              the conv dgrad and wgrad on each of their three routes
+              (wgmma fed by TMA, mma.sync, SIMT) and the conv forward on
+              its four (those and the generic SIMT kernel), the route
+              read from the profiler's kernel names and held to the
+              rule, wgmma at wav2vec2-base's shapes in bf16, the wgmma
+              core at T 1 to 222 with a zero-length row and dropout, the
+              wgmma conv forward at T_out 30 to 299 and 1 to 20 rows,
+              the wgmma conv dgrad at T_in 41 to 261 (T_out below 64, the
+              tail row a tile's last, C_in != C_out, one row,
+              misaligned), CTC at T 1 and 2, at input lengths far below T
+              and at the state limit (2U + 1 = 2047), and repeated
+              backward (attention, CTC), dgrad and wgrad calls bitwise
+              equal;
 3. model    - the full-width model's forward on the card (through the
               kernels) vs the same weights on the CPU (plain versions);
 4. serve    - the ``a8t-serve`` path (parse_args -> load_acoustic ->
@@ -52,7 +55,10 @@ against its plain PyTorch version. Phases, each printing JSON lines:
               sample batches, 325 000-sample crops): 6 optimizer steps,
               step times, training audio-s/s, loss, code perplexity,
               accuracy, peak memory and the kernels' launch counts, then
-              a validation pass;
+              a validation pass; then 2 steps with ``--bf16`` under the
+              profiler (``pretrain_bf16``): finite losses, four conv
+              dgrad launches per step, every dgrad GEMM on the wgmma
+              route by its kernel name;
 8. pretrain_kernel - the conv backward, dropout, attention core
               backward and attention block kernels vs their plain
               versions at the shapes of the batches that phase 7 formed
@@ -88,8 +94,9 @@ against its plain PyTorch version. Phases, each printing JSON lines:
               core's launches, the bias partials and PyTorch's sums of the
               weight partials), with the GEMM route their kernels ran and
               the host's ms per call beside the CUDA-event ms; the core
-              forward and the conv wgrad likewise split by launch, with
-              their routes and host ms;
+              forward and the conv dgrad and wgrad likewise split by
+              launch, with their routes and host ms, the dgrad also by
+              layer beside cuDNN's;
 
 then a ``kernels`` line, the card's name and power limit from nvidia-smi,
 and, last, ``{"ok": true, "device": {...}}``. Any failed check raises, so
@@ -638,6 +645,7 @@ def check_block_route(b, t, d, heads, dtype, run) -> str:
 # to run (each checked once against the kernels' rule and the profiler)
 ATTN_ROUTES_SEEN = set()
 WGRAD_ROUTES_SEEN = set()
+DGRAD_ROUTES_SEEN = set()
 CONV_FWD_ROUTES_SEEN = set()
 
 
@@ -682,6 +690,20 @@ def check_wgrad_route(x, dy, run) -> str:
         WGRAD_ROUTES_SEEN, f"conv_k3s2_wgrad {tuple(x.shape)} -> {c_out} "
         f"{x.dtype}", wgrad_route(x.dtype, c_in, c_out), code, WGRAD_ROUTES,
         run, wgrad_route_of)
+
+
+def check_dgrad_route(dy, w, run) -> str:
+    """:func:`check_kernel_route` for the conv dgrad."""
+    from audio8_tpu_torch.ops import _ext
+    from audio8_tpu_torch.ops.conv import DGRAD_ROUTES, dgrad_route
+
+    c_in, c_out = w.shape[1], dy.shape[2]
+    code = _ext.function("conv_k3s2_bwd.cu", "dgrad_route")(
+        _ext.DTYPE_CODES[dy.dtype], c_in, c_out)
+    return check_kernel_route(
+        DGRAD_ROUTES_SEEN, f"conv_k3s2_dgrad {tuple(dy.shape)} -> {c_in} "
+        f"{dy.dtype}", dgrad_route(dy.dtype, c_in, c_out), code, DGRAD_ROUTES,
+        run, dgrad_route_of)
 
 
 def check_conv_fwd_route(x, w, run) -> str:
@@ -914,7 +936,10 @@ def conv_bwd_inputs(b, t_in, c_in, c_out, dtype, gen, skew=False):
 
 def check_conv_bwd(phase, b, t_in, c_in, c_out, dtype, gen,
                    skew: bool = False) -> dict:
-    """dgrad and wgrad kernels vs their plain versions on one input."""
+    """dgrad and wgrad kernels vs their plain versions on one input; a
+    second call of each must be bitwise equal to the first, and each must
+    run the route its shape takes (:func:`check_dgrad_route`,
+    :func:`check_wgrad_route`)."""
     from audio8_tpu_torch.ops.conv import (conv1d_k3s2_dgrad,
                                            conv1d_k3s2_dgrad_plain,
                                            conv1d_k3s2_wgrad,
@@ -926,7 +951,13 @@ def check_conv_bwd(phase, b, t_in, c_in, c_out, dtype, gen,
     check(torch.equal(got["conv_k3s2_wgrad"], conv1d_k3s2_wgrad(x, dy)),
           f"conv_k3s2_wgrad {dtype} {(b, t_in, c_in, c_out)}: repeated "
           "calls differ")
-    route = check_wgrad_route(x, dy, lambda: conv1d_k3s2_wgrad(x, dy))
+    check(torch.equal(got["conv_k3s2_dgrad"], conv1d_k3s2_dgrad(dy, w, t_in)),
+          f"conv_k3s2_dgrad {dtype} {(b, t_in, c_in, c_out)}: repeated "
+          "calls differ")
+    routes = {"conv_k3s2_wgrad": check_wgrad_route(
+                  x, dy, lambda: conv1d_k3s2_wgrad(x, dy)),
+              "conv_k3s2_dgrad": check_dgrad_route(
+                  dy, w, lambda: conv1d_k3s2_dgrad(dy, w, t_in))}
     torch.cuda.synchronize()
     want = {"conv_k3s2_dgrad": conv1d_k3s2_dgrad_plain(dy, w, t_in),
             "conv_k3s2_wgrad": conv1d_k3s2_wgrad_plain(x, dy)}
@@ -938,9 +969,8 @@ def check_conv_bwd(phase, b, t_in, c_in, c_out, dtype, gen,
                else TOL[dtype] * max(1.0, scale))
         emit({"phase": phase, "kernel": name, "dtype": str(dtype),
               "shape": [b, t_in, c_in, c_out], "misaligned": skew,
-              "max_abs_err": err, "tol": tol,
-              **({"route": route, "repeat_bitwise_equal": True}
-                 if name == "conv_k3s2_wgrad" else {})})
+              "max_abs_err": err, "tol": tol, "route": routes[name],
+              "repeat_bitwise_equal": True})
         check(g.shape == want[name].shape and bool(torch.isfinite(g).all())
               and err <= tol,
               f"{name} {dtype} {(b, t_in, c_in, c_out)}: {err} > {tol}")
@@ -996,7 +1026,13 @@ def phase_pretrain_variants(gen) -> None:
     C_in != C_out (dgrad tiles straddling the dx[2t] | dx[2t+1] halves,
     and tiles wholly in the second half), misaligned pointers (the
     wrapper's aligned copy, with split wgrad), channel counts off the
-    16-byte vectors (refused), and dropout at ragged sizes."""
+    16-byte vectors (refused), and dropout at ragged sizes. The dgrad
+    wgmma route (bf16, channels in multiples of 64) also at T_in 255
+    (T_out + 1 = 128: the tail row is the M tile's last), 256 (even: the
+    zero row dx[255]) and 41 (T_out below 64, where TMA fills the row t -
+    1 = -1 and every row past T_out), 64 -> 192 and 192 -> 64 channels
+    (128-wide N tiles, a ragged one), one batch row and a misaligned dy
+    (the wrapper's copy)."""
     from audio8_tpu_torch.ops.conv import conv1d_k3s2_dgrad, conv1d_k3s2_wgrad
 
     for dtype in (torch.float32, torch.bfloat16):
@@ -1004,7 +1040,10 @@ def phase_pretrain_variants(gen) -> None:
                 (2, 261, 128, 64, False), (2, 260, 128, 64, False),
                 (3, 9, 40, 72, False), (2, 10, 72, 40, False),
                 (2, 101, 40, 72, False), (2, 2001, 40, 72, True),
-                (2, 38, 16, 24, True)):
+                (2, 38, 16, 24, True), (2, 255, 64, 64, False),
+                (2, 256, 64, 64, False), (3, 41, 64, 64, False),
+                (2, 261, 64, 192, False), (2, 260, 192, 64, False),
+                (1, 259, 128, 128, False), (2, 257, 128, 64, True)):
             check_conv_bwd("variant", b, t_in, c_in, c_out, dtype, gen, skew)
         x, w, dy = conv_bwd_inputs(2, 37, 6, 10, dtype, gen)
         for name, call in (("dgrad", lambda: conv1d_k3s2_dgrad(dy, w, 37)),
@@ -1577,6 +1616,58 @@ def phase_pretrain(tmp: str, seed: int):
     return launches, batches
 
 
+PRETRAIN_BF16_STEPS = 2
+
+
+def phase_pretrain_bf16(tmp: str) -> None:
+    """The pretraining entry point again with ``--bf16`` (the pretrain
+    phase's corpus and flags, 2 steps, no checkpoint), traced by
+    torch.profiler: finite losses, four conv dgrad launches per step (one
+    per k3s2 layer), every traced dgrad GEMM kernel on the route the
+    extractor's 512 channels take (wgmma: two GEMM launches per dgrad, one
+    per half of dx), read from the kernels' names."""
+    from audio8_tpu_torch.cli import pretrain
+    from audio8_tpu_torch.ops.conv import conv1d_k3s2_dgrad, dgrad_route
+
+    flags = dict(zip(PRETRAIN_FLAGS[::2], PRETRAIN_FLAGS[1::2]))
+    flags.update({"--train_steps": str(PRETRAIN_BF16_STEPS),
+                  "--steps_per_checkpoint": "1000"})
+    argv = ["--manifest_dir", os.path.join(tmp, "pretrain_corpus"),
+            "--basedir", os.path.join(tmp, "pretrain_bf16_run"), "--device",
+            "cuda", "--bf16", *(a for kv in flags.items() for a in kv)]
+    reset_launches()
+    t0 = time.perf_counter()
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        state = pretrain.train(argv)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: n for k, n in read_launches().items()
+                if k in PRETRAIN_PATH}
+    routes = {}
+    for e in prof.events():
+        route = dgrad_route_of(e.name)
+        if e.device_type == torch.autograd.DeviceType.CUDA and route:
+            routes[route] = routes.get(route, 0) + 1
+    log = state.log
+    want = dgrad_route(torch.bfloat16, 512, 512)
+    emit({"phase": "pretrain_bf16", "steps": len(log),
+          "step_seconds": [r["seconds"] for r in log],
+          "rows": [r["rows"] for r in log],
+          "samples": [r["samples"] for r in log],
+          "losses": [r["loss"] for r in log], "wall_s": wall,
+          "launches": launches, "conv_k3s2_dgrad_kernels_traced": routes})
+    check(state.step == PRETRAIN_BF16_STEPS and len(log) == state.step,
+          f"bf16 pretrain took {state.step} steps")
+    check(all(math.isfinite(r["loss"]) for r in log),
+          "bf16 pretrain: non-finite loss")
+    check(conv1d_k3s2_dgrad.launches == 4 * PRETRAIN_BF16_STEPS,
+          f"bf16 pretrain: {conv1d_k3s2_dgrad.launches} conv dgrad launches "
+          f"in {PRETRAIN_BF16_STEPS} steps, want 4 per step")
+    check(set(routes) == {want},
+          f"bf16 pretrain: conv dgrad kernels {routes}, want {want} only")
+
+
 def phase_pretrain_vs_cpu(seed: int, samples: int, fused=None,
                           dropout: float = 0.0) -> None:
     """One full-width pretraining step on two rows of ``samples`` (the
@@ -1875,6 +1966,19 @@ def in_turns(kern, plain, library=None) -> dict:
             "library_ms_runs": None if library is None else [l1, l2]}
 
 
+def gemm_caller(name: str):
+    """The kernel whose product a traced kernel of the TMA-fed GEMM
+    (``csrc/tma_gemm.cuh``) ran, from the port's one table keyed by the A
+    operand's recipe (``profile.py:gemm_caller``), or None: any other
+    kernel, or a tree without that table (an older tree timed in
+    turns)."""
+    import importlib
+
+    rule = getattr(importlib.import_module("audio8_tpu_torch.profile"),
+                   "gemm_caller", None)
+    return None if rule is None else rule(name)
+
+
 def core_route_of(name: str):
     """The route of a traced attention-forward kernel, or None."""
     if "attention_fwd" not in name or "kernel" not in name:
@@ -1886,9 +1990,21 @@ def core_route_of(name: str):
 
 def wgrad_route_of(name: str):
     """The route of a traced wgrad GEMM kernel, or None."""
-    for key, route in (("wgmma_gemm_kernel", "wgmma"),
-                       ("wgrad_bf16_mma_kernel", "mma.sync"),
+    if gemm_caller(name) == "conv_k3s2_wgrad":
+        return "wgmma"
+    for key, route in (("wgrad_bf16_mma_kernel", "mma.sync"),
                        ("wgrad_f32_kernel", "simt")):
+        if key in name:
+            return route
+    return None
+
+
+def dgrad_route_of(name: str):
+    """The route of a traced dgrad GEMM kernel, or None."""
+    if gemm_caller(name) == "conv_k3s2_dgrad":
+        return "wgmma"
+    for key, route in (("dgrad_bf16_mma_kernel", "mma.sync"),
+                       ("dgrad_f32_kernel", "simt")):
         if key in name:
             return route
     return None
@@ -2030,7 +2146,7 @@ def block_launch(name: str, rest: str) -> str:
                       ("bias_partials_kernel", "bias_partials")):
         if key in name:
             return part
-    if "blockgemm" in name:
+    if "blockgemm" in name or gemm_caller(name) == "attention_block_gemm":
         if "Partial" in name:
             return ("dWo" if name.find("RowCols") < name.find("HeadRows")
                     else "dWqkv")
@@ -2044,10 +2160,11 @@ def block_launch(name: str, rest: str) -> str:
 
 def gemm_route_of(name: str):
     """The GEMM route a traced kernel of the block ran, or None."""
-    for key, route in (("wgmma_gemm_kernel", "wgmma"),
-                       ("gemm_bf16_mma_kernel", "mma.sync"),
-                       ("gemm_kernel", "simt")):
-        if "blockgemm" in name and key in name:
+    if gemm_caller(name) == "attention_block_gemm":
+        return "wgmma"
+    for key, route in (("blockgemm::gemm_bf16_mma_kernel", "mma.sync"),
+                       ("blockgemm::gemm_kernel", "simt")):
+        if key in name:
             return route
     return None
 
@@ -2151,10 +2268,10 @@ def time_block(dtype, gen, backward: bool = True) -> dict:
 
 def conv_fwd_route_of(name: str):
     """The route of a traced k3s2 forward kernel, or None: the wgmma
-    route is the attention block's GEMM on the forward's tap operand
-    (``TmaTapCols``)."""
-    for key, route in (("TmaTapCols", "wgmma"),
-                       ("conv_k3s2_fwd_bf16_mma_kernel", "mma.sync"),
+    route is the TMA-fed GEMM on the forward's tap operand."""
+    if gemm_caller(name) == "conv_k3s2_fwd":
+        return "wgmma"
+    for key, route in (("conv_k3s2_fwd_bf16_mma_kernel", "mma.sync"),
                        ("conv_k3s2_fwd_f32_kernel", "simt"),
                        ("conv_k3s2_fwd_kernel<", "generic")):
         if key in name:
@@ -2291,10 +2408,57 @@ def conv_flops(layers) -> float:
                for _, x, _, dy in layers)
 
 
+def launch_sequence_ms(fn, keep, calls: int = 6) -> list:
+    """Device ms of each launch of the kernels whose names ``keep``
+    accepts in one call of ``fn``, in launch order: the kernels
+    torch.profiler traces over ``calls`` calls (after a first, untraced
+    one), each call behind a one-element fill that marks where it starts;
+    the calls whose launches the trace holds in full (the most common
+    count: the profiler now and then loses kernels, mostly early in a
+    trace) are averaged launch by launch. [] and a ``timing_note`` line
+    when no two calls agree."""
+    marker = torch.empty(1, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            marker.fill_(0.0)
+            fn()
+        torch.cuda.synchronize()
+    evs = sorted((e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA),
+                 key=lambda e: e.time_range.start)
+    runs, run = [], None
+    for e in evs:
+        if keep(e.name):
+            if run is not None:
+                run.append(e)
+        elif "fill" in e.name.lower():
+            run = []
+            runs.append(run)
+    counts = [len(r) for r in runs]
+    n = max(set(counts), key=counts.count) if counts else 0
+    ref = [e.name for e in next((r for r in runs if len(r) == n), [])]
+    full = [r for r in runs if [e.name for e in r] == ref]
+    if n == 0 or len(full) < 2:
+        emit({"phase": "timing_note", "function": getattr(
+            fn, "__qualname__", repr(fn)), "launch_counts_traced": counts})
+        return []
+    return [sum(r[j].time_range.end - r[j].time_range.start for r in full)
+            / len(full) / 1e3 for j in range(n)]
+
+
 def time_conv_bwd(dtype, gen) -> dict:
     """dgrad and wgrad (:func:`time_wgrad`) of the four k3s2 layers of (4,
     15 s); the yardstick is torch.nn.grad.conv1d_input (cuDNN) on
-    channel-first copies of the same inputs."""
+    channel-first copies of the same inputs. The dgrad row also gives each
+    layer's device ms beside cuDNN's (``layer_ms``,
+    ``layer_library_ms``), splits the device time by launch (the GEMMs,
+    PyTorch's copies; ``launch_seq_ms``: each launch in order, on the
+    wgmma route each layer's even then odd half), names the route its
+    kernels ran (``routes``; ``route``: the tree's Python rule, null in a
+    tree without one) and gives the host's ms per four-layer call."""
     from torch.nn import grad as nn_grad
 
     from audio8_tpu_torch.ops.conv import (conv1d_k3s2_dgrad,
@@ -2304,14 +2468,32 @@ def time_conv_bwd(dtype, gen) -> dict:
     cf = [(x.transpose(1, 2).contiguous(), w.permute(2, 1, 0).contiguous(),
            dy.transpose(1, 2).contiguous()) for _, x, w, dy in layers]
     esize = layers[0][1].element_size()
+
+    def kern():
+        return [conv1d_k3s2_dgrad(dy, w, t) for t, _, w, dy in layers]
+
     r = in_turns(
-        lambda: [conv1d_k3s2_dgrad(dy, w, t) for t, _, w, dy in layers],
+        kern,
         lambda: [conv1d_k3s2_dgrad_plain(dy, w, t) for t, _, w, dy in layers],
         lambda: [nn_grad.conv1d_input(x.shape, w, dy, stride=2)
                  for x, w, dy in cf])
     r["bound_ms"], r["bound_by"] = bound(
         conv_flops(layers), sum((dy.numel() + w.numel() + x.numel()) * esize
                                 for _, x, w, dy in layers), dtype)
+    r["layer_ms"] = [device_ms(lambda t=t, w=w, dy=dy:
+                               conv1d_k3s2_dgrad(dy, w, t))
+                     for t, _, w, dy in layers]
+    r["layer_library_ms"] = [device_ms(
+        lambda x=x, w=w, dy=dy: nn_grad.conv1d_input(x.shape, w, dy,
+                                                     stride=2))
+        for x, w, dy in cf]
+    r.update(split_by(kern, lambda names: {n: "gemm" for n in names
+                                           if dgrad_route_of(n)},
+                      dgrad_route_of))
+    r["launch_seq_ms"] = launch_sequence_ms(kern, dgrad_route_of)
+    _, x, w, dy = layers[0]
+    r["route"] = mirrored_route("audio8_tpu_torch.ops.conv", "dgrad_route",
+                                dtype, x.shape[2], dy.shape[2])
     del cf
     return {"conv_k3s2_dgrad": r, **time_wgrad(dtype, gen, layers)}
 
@@ -2506,6 +2688,8 @@ def main(argv=None) -> int:
         train_launches = phase_train(tmp, SEED)
         torch.cuda.empty_cache()
         launches, batches = phase_pretrain(tmp, SEED)
+        torch.cuda.empty_cache()
+        phase_pretrain_bf16(tmp)
     torch.cuda.empty_cache()
     for k, e in phase_pretrain_path_kernels(batches, gen).items():
         worst[k] = max(worst[k], e)
@@ -2524,17 +2708,20 @@ def main(argv=None) -> int:
     from audio8_tpu_torch.ops.attention_block import GEMM_ROUTES
     from audio8_tpu_torch.ops.attention import FWD_ROUTES
     from audio8_tpu_torch.ops.conv import FWD_ROUTES as CONV_FWD_ROUTES
-    from audio8_tpu_torch.ops.conv import WGRAD_ROUTES
+    from audio8_tpu_torch.ops.conv import DGRAD_ROUTES, WGRAD_ROUTES
     check(BLOCK_ROUTES_SEEN == set(GEMM_ROUTES),
           f"attention_block routes checked: {sorted(BLOCK_ROUTES_SEEN)}")
     check(ATTN_ROUTES_SEEN == set(FWD_ROUTES),
           f"attention_fwd routes checked: {sorted(ATTN_ROUTES_SEEN)}")
     check(WGRAD_ROUTES_SEEN == set(WGRAD_ROUTES),
           f"conv_k3s2_wgrad routes checked: {sorted(WGRAD_ROUTES_SEEN)}")
+    check(DGRAD_ROUTES_SEEN == set(DGRAD_ROUTES),
+          f"conv_k3s2_dgrad routes checked: {sorted(DGRAD_ROUTES_SEEN)}")
     check(CONV_FWD_ROUTES_SEEN == set(CONV_FWD_ROUTES),
           f"conv_k3s2_fwd routes checked: {sorted(CONV_FWD_ROUTES_SEEN)}")
     routes_of = {"attention_fwd": ATTN_ROUTES_SEEN,
                  "conv_k3s2_wgrad": WGRAD_ROUTES_SEEN,
+                 "conv_k3s2_dgrad": DGRAD_ROUTES_SEEN,
                  "conv_k3s2_fwd": CONV_FWD_ROUTES_SEEN,
                  "attention_block": BLOCK_ROUTES_SEEN,
                  "attention_block_bwd": BLOCK_ROUTES_SEEN}
@@ -2551,6 +2738,8 @@ def main(argv=None) -> int:
     split_keys["conv_k3s2_wgrad"] = split_keys["attention_fwd"]
     split_keys["conv_k3s2_fwd"] = split_keys["attention_fwd"] + (
         "layer_ms", "layer_library_ms")
+    split_keys["conv_k3s2_dgrad"] = split_keys["conv_k3s2_fwd"] + (
+        "launch_seq_ms",)
     split_keys["ctc_loss"] = ("launch_ms", "host_ms", "event_ms")
 
     def extra(name):

@@ -289,23 +289,24 @@ def test_plain_forward_needs_no_grad_path():
 
 
 def test_library_hash_covers_included_sources(tmp_path, monkeypatch):
-    """The block sources include the core's sources and the GEMM header:
-    an edit to any of them gives the block a new library name, so a stale
-    library is never loaded."""
+    """The block sources include the core's sources, the block's GEMM
+    header and, through it, the TMA-fed GEMM's: an edit to any of them
+    gives the block a new library name, so a stale library is never
+    loaded."""
     from audio8_tpu_torch.csrc import build
 
     assert build.local_includes("attention_block_fwd.cu") == [
         "attention_block_fwd.cu", "attention_fwd.cu",
-        "attention_block_gemm.cuh", "wgmma.cuh"]
+        "attention_block_gemm.cuh", "tma_gemm.cuh", "wgmma.cuh"]
     assert build.local_includes("attention_block_bwd.cu") == [
         "attention_block_bwd.cu", "attention_bwd.cu",
-        "attention_block_gemm.cuh", "wgmma.cuh"]
+        "attention_block_gemm.cuh", "wgmma.cuh", "tma_gemm.cuh"]
     assert "wgmma.cuh" in build.local_includes("attention_bwd.cu")
     for name in build.local_includes("attention_block_bwd.cu"):
         (tmp_path / name).write_bytes(
             open(f"{build.CSRC}/{name}", "rb").read())
     monkeypatch.setattr(build, "CSRC", str(tmp_path))
-    for header in ("attention_block_gemm.cuh", "wgmma.cuh"):
+    for header in ("attention_block_gemm.cuh", "tma_gemm.cuh", "wgmma.cuh"):
         before = build.library_path("attention_block_bwd.cu")
         with open(tmp_path / header, "a") as f:
             f.write("// edited\n")
