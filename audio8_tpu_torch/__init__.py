@@ -9,7 +9,11 @@ names and defaults.
 Module layout mirrors ``audio8_tpu``: ``nn/`` (layers, transformer,
 dropout), ``models/`` (wav2vec2, checkpoint conversion, vocab), ``ops/``
 (the hand-written CUDA kernels' wrappers, hash randomness, masks, CTC,
-metrics), ``train/`` (optimizer, step factory), ``data/`` (audio,
+metrics, beam search, the ARPA LM), ``train/`` (optimizer, step
+factories, checkpoints and resume files, preemption), ``data/`` (audio,
 datasets), ``serve.py`` and ``cli/`` (``transcribe``, ``serve``,
-``train``). Kernel sources are in ``csrc/``.
+``train``, ``pretrain``, ``test``, ``convert_checkpoint``). Kernel
+sources are in ``csrc/``, beside the C++ host library (edit distance,
+beam search, LM readers, FLAC) and its ctypes bindings
+(``csrc/native.py``).
 """

@@ -10,14 +10,25 @@ the topology flags): it never ends in an argparse exit where the JAX
 entry point runs. Flags that only matter beside another one (``--alpha``
 without ``--lm``, ``--moe_top_k`` without ``--moe_experts``, the
 transducer sizes without ``--transducer``) are inert, as in JAX.
+Which flags are ported can depend on the entry point (``PORTED``):
+``cli.test`` and the trainer decode with ``--beam`` and ``--lm`` while
+``cli.transcribe`` and ``cli.serve`` still refuse them.
+
+:func:`resolve_restart` is ``--restart_from`` (fairseq ``.pt``
+warm starts, directories of the port's checkpoints, full-state resume).
 """
 from __future__ import annotations
 
+import logging
+import os
 from argparse import ArgumentParser, Namespace
+from typing import Dict, Optional
 
 import torch
 
 from audio8_tpu_torch.utils import str2bool
+
+logger = logging.getLogger("audio8_tpu_torch")
 
 # The JAX package's size and topology presets
 # (``audio8_tpu.cli.common.MODEL_PRESETS``). The port runs the post-norm,
@@ -69,7 +80,6 @@ _PRESET_BASE_DEFAULTS = {"d_model": 768, "d_ff": 3072, "num_heads": 12,
 
 # ROADMAP.md queue 1 items, named in the refusals
 DECODE = "ROADMAP.md queue 1, item 6 (serving and inference)"
-RESTART = "ROADMAP.md queue 1, item 1 (restart, evaluation, checkpoints)"
 DATA_PARALLEL = "ROADMAP.md queue 1, item 3 (data parallel)"
 TRAINER = "ROADMAP.md queue 1, item 4 (the trainers' remaining flags)"
 TOPOLOGY = "ROADMAP.md queue 1, item 7 (topologies and recipes)"
@@ -86,15 +96,14 @@ NOT_PORTED = {
     "moe_experts": (0, PARALLEL),
     "remat": (False, TRAINER),
     "distributed": (False, DATA_PARALLEL),
-    "restart_from": (None, RESTART),
     "noise_manifest": (None, TRAINER),
     "speed_perturb": (None, TRAINER),
     "profile_dir": (None, TRAINER),
-    "verbose": (False, RESTART),
     "lm": (None, DECODE),
     "beam": (1, DECODE),
     "device_beam": (False, TOPOLOGY),
     "transducer": (False, TOPOLOGY),
+    "lm_rescore": (None, TOPOLOGY),
     "timestamps": (False, DECODE),
     "vad": (False, DECODE),
     "quantize": ("none", DECODE),
@@ -102,6 +111,10 @@ NOT_PORTED = {
 }
 # not ported in training; inert at inference, as in JAX
 TRAINING_ONLY = {"layer_drop": (0.0, TRAINER)}
+TRAINING_ENTRIES = ("train", "pretrain")
+# entry point -> the flags of NOT_PORTED it has ported (the beam search
+# and LM fusion of the trainer's verbose validation and of cli.test)
+PORTED = {"train": ("beam", "lm"), "test": ("beam", "lm")}
 
 
 def apply_preset(args: Namespace) -> Namespace:
@@ -132,14 +145,18 @@ def encoder_kwargs(args: Namespace) -> dict:
     return {n: getattr(args, n) for n in names}
 
 
-def check_ported(args: Namespace, training: bool) -> None:
+def check_ported(args: Namespace, entry: str) -> None:
     """Raise ``NotImplementedError`` for a flag whose value asks for a part
-    of the JAX entry point that is not ported yet, naming the ROADMAP.md
-    item; the topology flags through ``check_supported``."""
+    of the JAX entry point ``entry`` (``train``, ``pretrain``, ``test``,
+    ``transcribe``, ``serve``) that is not ported yet, naming the
+    ROADMAP.md item; the topology flags through ``check_supported``."""
     from audio8_tpu_torch.config import EncoderConfig
     from audio8_tpu_torch.models.wav2vec2 import check_supported
 
-    table = dict(NOT_PORTED, **(TRAINING_ONLY if training else {}))
+    table = dict(NOT_PORTED, **(TRAINING_ONLY if entry in TRAINING_ENTRIES
+                                else {}))
+    for flag in PORTED.get(entry, ()):
+        del table[flag]
     for flag, (unused, item) in table.items():
         if hasattr(args, flag) and getattr(args, flag) != unused:
             raise NotImplementedError(
@@ -235,21 +252,107 @@ def add_decoding_args(parser: ArgumentParser, max_decode_len) -> None:
 
 
 def add_beam_args(parser: ArgumentParser) -> None:
-    """``--beam``, ``--lm``, ``--alpha``, ``--beta``: the JAX trainer's
-    beam-decoded validation and the decoders' flags. The port decodes
-    greedily (``--beam 1``); the LM weights are inert without ``--lm``."""
+    """``--beam``, ``--lm``, ``--alpha``, ``--beta``: the trainer's
+    beam-decoded validation samples and the decoders' flags; the LM
+    weights are inert without ``--lm``."""
     add = parser.add_argument
-    add("--beam", type=int, default=1, help="1: greedy; more: not ported")
-    add("--lm", help="not ported yet")
+    add("--beam", type=int, default=1, help="1: greedy")
+    add("--lm", help="ARPA (plain or gzipped) or KenLM binary LM")
     add("--alpha", type=float, default=0.7)
     add("--beta", type=float, default=5.0)
 
 
-def require_checkpoint(args: Namespace) -> None:
+def require_checkpoint(args: Namespace, entry: str) -> None:
     """As the JAX transcribe and serve parsers: ``--checkpoint`` and
     ``--dict_file`` are needed unless ``--exported`` is given (which is
     not ported yet)."""
-    check_ported(args, training=False)
+    check_ported(args, entry)
     if not (args.checkpoint and args.dict_file):
         raise SystemExit("--checkpoint and --dict_file are required "
                          "(or pass an --exported artifact)")
+
+
+def _fairseq_weights(path: str, model: torch.nn.Module,
+                     ctc: bool) -> Dict[str, torch.Tensor]:
+    """A fairseq ``.pt``'s weights under ``model``'s names: tried as a
+    pretrained checkpoint first (every encoder weight of ``model`` must be
+    in it), then as a CTC one. For the CTC model (``ctc``) a pretrained
+    encoder lands under ``encoder.``; for the pretraining model a CTC
+    checkpoint gives its encoder."""
+    from audio8_tpu_torch.models.convert import (load_fairseq_ctc,
+                                                 load_fairseq_pretrained)
+
+    target = model.state_dict()
+    try:
+        loaded = load_fairseq_pretrained(path)
+        if ctc:
+            loaded = {"encoder." + k: v for k, v in loaded.items()}
+        missing = [k for k in target if k not in loaded
+                   and (k.startswith("encoder.") or not ctc)]
+        if missing:
+            raise KeyError(f"missing keys: {missing[:3]}")
+    except Exception:
+        loaded = load_fairseq_ctc(path)
+        if not ctc:
+            loaded = {k[len("encoder."):]: v for k, v in loaded.items()
+                      if k.startswith("encoder.")}
+    return loaded
+
+
+def load_weights(path: str, model: torch.nn.Module, ctc: bool) -> None:
+    """Load a fairseq ``.pt``'s weights (:func:`_fairseq_weights`) over
+    ``model``'s: its keys that the file lacks (the CTC head under a
+    pretrained encoder) keep their values, the file's keys the model lacks
+    (the quantizer and projections) are dropped."""
+    loaded = _fairseq_weights(path, model, ctc)
+    merged = model.state_dict()
+    dropped = [k for k in loaded if k not in merged]
+    merged.update({k: v for k, v in loaded.items() if k in merged})
+    model.load_state_dict(merged, strict=True)
+    logger.info("weights from %s: %d tensors loaded, %d kept, %d dropped "
+                "(%s)", path, len(loaded) - len(dropped),
+                len(merged) - len(loaded) + len(dropped), len(dropped),
+                dropped[:5])
+
+
+def resolve_restart(restart_from: Optional[str], state, ctc: bool,
+                    restart_tt: Optional[str] = None) -> int:
+    """``--restart_from`` with the JAX package's semantics
+    (``audio8_tpu/cli/common.py:resolve_restart``), on the port's
+    checkpoints; loads into ``state.model`` (and ``state``) in place and
+    returns the global step to start from.
+
+    - a ``.pt`` named directly is a warm start at step 0, even when it
+      is one of the port's own checkpoints: its weights load as fairseq
+      weights over the initialised model (:func:`load_weights`);
+    - a directory picks its latest ``checkpoint-step-N.pt`` and loads its
+      weights so. A resume file beside it (``train/checkpoint.py``) of
+      this model's kind over the same parameters restores the AdamW
+      moments and the step count too, and its own step is the step;
+      otherwise the step comes from the name unless ``restart_tt ==
+      "ignore"`` (JAX's full-state and params-only restores);
+    - a HuggingFace directory is ROADMAP.md queue 1, item 7.
+    """
+    from audio8_tpu_torch.train.checkpoint import (find_latest_checkpoint,
+                                                   load_resume,
+                                                   parse_checkpoint_step)
+
+    if not restart_from:
+        return 0
+    if not os.path.isdir(restart_from):  # a fairseq .pt: a warm start
+        load_weights(restart_from, state.model, ctc)
+        state.step = state.opt_state.count = 0
+        return 0
+    if os.path.exists(os.path.join(restart_from, "config.json")):
+        raise NotImplementedError(
+            f"--restart_from {restart_from}: HuggingFace checkpoints are "
+            f"not ported yet: {TOPOLOGY}")
+    path, _ = find_latest_checkpoint(restart_from)
+    load_weights(path, state.model, ctc)
+    resumed = load_resume(state, path, "ctc" if ctc else "pretrain")
+    if resumed is not None:
+        logger.info("resumed the full state at step %d", resumed)
+        return resumed
+    step = 0 if restart_tt == "ignore" else parse_checkpoint_step(path)
+    state.step = state.opt_state.count = step
+    return step

@@ -14,10 +14,17 @@ and AdamW kernels.
   python -m audio8_tpu_torch.cli.pretrain --manifest_dir corpus \\
       --basedir run
 
+Each checkpoint has a resume file beside it (``train/checkpoint.py``):
+``--restart_from <basedir>`` continues a run at its latest step, with
+its AdamW moments, LR schedule and Gumbel temperature; a fairseq ``.pt``
+named directly warm-starts the weights at step 0
+(``cli/common.py:resolve_restart``). On SIGTERM the loop saves at the
+next step boundary and exits 0 (``train/preempt.py``).
+
 The flags are the JAX entry point's, with the same names and defaults,
-plus ``--device`` and ``--seed`` (the generator that dropout, masks, Gumbel
-noise and negatives draw their seeds from). Those of parts not ported yet
-raise: parallelism and ``--distributed``, ``--restart_from``,
+plus ``--device``, ``--seed`` (the generator that dropout, masks, Gumbel
+noise and negatives draw their seeds from) and ``--restart_tt``. Those of
+parts not ported yet raise: parallelism and ``--distributed``,
 ``--profile_dir``, ``--optim sgd``, ``--layer_drop``, ``--remat`` and the
 MoE flags. ``--lane_align`` (TPU tiling) is not a flag here.
 """
@@ -30,18 +37,19 @@ from argparse import ArgumentParser
 
 import torch
 
-from audio8_tpu_torch.cli.common import (add_beam_args,
-                                        add_common_model_args,
+from audio8_tpu_torch.cli.common import (add_common_model_args,
                                         apply_preset, check_ported,
-                                        encoder_kwargs, resolve_device)
+                                        encoder_kwargs, resolve_device,
+                                        resolve_restart)
 from audio8_tpu_torch.config import PretrainConfig
 from audio8_tpu_torch.data.datasets import (AudioFileDataset,
                                             BucketingAudioDataset,
                                             PrefetchLoader)
-from audio8_tpu_torch.models.convert import save_fairseq_pretrained
 from audio8_tpu_torch.models.wav2vec2 import PretrainSeeds, Wav2Vec2Model
+from audio8_tpu_torch.train.checkpoint import save_checkpoint
 from audio8_tpu_torch.train.optim import (TrainState, create_lrs,
                                           create_optimizer)
+from audio8_tpu_torch.train.preempt import PreemptionGuard
 from audio8_tpu_torch.train.steps import make_pretrain_steps
 from audio8_tpu_torch.utils import Average, str2bool
 
@@ -76,7 +84,14 @@ def parse_args(argv=None):
                         default=DEFAULT_BUCKETS)
     parser.add_argument("--train_steps", type=int, default=400_000)
     parser.add_argument("--valid_steps", type=int, default=10_000)
-    parser.add_argument("--restart_from", type=str, help="not ported yet")
+    parser.add_argument("--restart_from", type=str,
+                        help="a run's directory to resume, or a fairseq "
+                             ".pt to warm-start from")
+    parser.add_argument("--restart_tt", choices=["step", "ignore"],
+                        help="ignore: a params-only restore of a "
+                             "directory's checkpoint starts at step 0; a "
+                             "matching resume file beside it takes "
+                             "precedence and restores its own step")
     parser.add_argument("--warmup_steps", type=int, default=10000)
     parser.add_argument("--plateau_steps", type=int, default=0)
     parser.add_argument("--steps_per_checkpoint", type=int, default=1000)
@@ -114,7 +129,15 @@ def train(argv=None):
                         format="%(asctime)s %(levelname)s %(name)s: "
                                "%(message)s")
     device = resolve_device(args.device)
-    check_ported(args, training=True)
+    check_ported(args, "pretrain")
+    preempt = PreemptionGuard()  # catch SIGTERM from here on
+    try:
+        return _train(args, device, preempt)
+    finally:
+        preempt.close()
+
+
+def _train(args, device: torch.device, preempt: PreemptionGuard):
     if args.basedir is None:
         args.basedir = f"wav2vec2-{args.dataset_key}-{os.getpid()}"
     os.makedirs(args.basedir, exist_ok=True)
@@ -143,6 +166,8 @@ def train(argv=None):
                           plateau_steps=args.plateau_steps)
     state = TrainState(model, create_optimizer(lr_sched, args.optim,
                                                args.weight_decay))
+    resolve_restart(args.restart_from, state, ctc=False,
+                    restart_tt=args.restart_tt)
     state.log = []
     n_params = sum(p.numel() for p in model.parameters())
     logger.info("Model has %s parameters on %s", f"{n_params:,}", device)
@@ -191,7 +216,13 @@ def train(argv=None):
                         float(metrics["code_perplexity"]),
                         float(metrics["accuracy"]))
         if (steps + 1) % update_on == 0:
-            save_fairseq_pretrained(model, f"{model_base}-step-{steps}.pt")
+            save_checkpoint(state, f"{model_base}-step-{steps}.pt",
+                            "pretrain")
+        if preempt.should_save(steps):
+            save_checkpoint(state, f"{model_base}-step-{steps}.pt",
+                            "pretrain")
+            logger.warning("preempted: saved step %d, exiting", steps)
+            break
         if (steps + 1) % validate_on == 0:
             logger.info(validate(eval_step, valid_set, args.valid_steps,
                                  generator, state.step, device, {

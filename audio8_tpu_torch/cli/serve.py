@@ -159,7 +159,7 @@ def parse_args(argv=None):
                         "0 disables the cross-request MicroBatcher")
     add_common_model_args(p)
     args = apply_preset(p.parse_args(argv))
-    require_checkpoint(args)
+    require_checkpoint(args, "serve")
     return args
 
 

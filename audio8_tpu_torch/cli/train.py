@@ -13,11 +13,17 @@ false`` the conv backward kernels.
       --train_dataset train.tsv --valid_dataset valid.tsv --basedir run
 
 Checkpoints are fairseq-layout CTC files (``checkpoint-step-N.pt``,
-``checkpoint-best.pt``) that ``cli.transcribe`` reads. The flags are the
-JAX trainer's that this slice supports; those of parts not ported yet
-raise: parallelism and ``--distributed``, ``--restart_from``, noise and
-speed perturbation, ``--layer_drop``, ``--optim sgd``, beam/LM decoding
-(``--verbose``, ``--lm``) and ``--profile_dir``. ``--lane_align`` (TPU tiling) is not a flag here.
+``checkpoint-best.pt``) that ``cli.transcribe`` and ``cli.test`` read,
+each with a resume file beside it (``train/checkpoint.py``).
+``--restart_from`` warm-starts from a fairseq ``.pt`` (a pretrained one
+into the encoder) or resumes a run from its directory
+(``cli/common.py:resolve_restart``); on SIGTERM the trainer saves at the
+next step boundary and exits 0 (``train/preempt.py``). ``--verbose``
+prints a beam-decoded (``--beam``, ``--lm``) validation sample. The
+flags are the JAX trainer's; those of parts not ported yet raise:
+parallelism and ``--distributed``, noise and speed perturbation,
+``--layer_drop``, ``--optim sgd`` and ``--profile_dir``. ``--lane_align``
+(TPU tiling) is not a flag here.
 """
 from __future__ import annotations
 
@@ -32,16 +38,19 @@ import torch
 from audio8_tpu_torch.cli.common import (add_beam_args,
                                         add_common_model_args,
                                         apply_preset, check_ported,
-                                        encoder_kwargs, resolve_device)
+                                        encoder_kwargs, resolve_device,
+                                        resolve_restart)
 from audio8_tpu_torch.config import AcousticConfig
 from audio8_tpu_torch.data.datasets import (AudioTextLetterDataset,
                                             PrefetchLoader)
-from audio8_tpu_torch.models.convert import save_fairseq_ctc
 from audio8_tpu_torch.models.text import TextVectorizer, read_vocab_list
 from audio8_tpu_torch.models.wav2vec2 import Wav2Vec2AcousticModel
 from audio8_tpu_torch.ops import metrics as M
+from audio8_tpu_torch.ops.beam import PrefixBeamSearch
+from audio8_tpu_torch.train.checkpoint import save_checkpoint
 from audio8_tpu_torch.train.optim import (TrainState, create_lrs,
                                           create_optimizer)
+from audio8_tpu_torch.train.preempt import PreemptionGuard
 from audio8_tpu_torch.train.steps import accumulate_grads, make_ctc_steps
 from audio8_tpu_torch.utils import Average, Offsets, revlut, str2bool
 
@@ -70,9 +79,14 @@ def parse_args(argv=None):
     parser.add_argument("--lr", type=float, default=1.0e-4)
     parser.add_argument("--clip", type=float, default=25.0)
     parser.add_argument("--weight_decay", type=float, default=0.0)
-    parser.add_argument("--restart_from", type=str, help="not ported yet")
+    parser.add_argument("--restart_from", type=str,
+                        help="fairseq .pt to warm-start from, or a run's "
+                             "directory to resume")
     parser.add_argument("--restart_tt", choices=["step", "ignore"],
-                        help="inert without --restart_from")
+                        help="ignore: a params-only restore of a "
+                             "directory's checkpoint starts at step 0; a "
+                             "matching resume file beside it takes "
+                             "precedence and restores its own step")
     parser.add_argument("--warmup_steps", type=int, default=10000)
     parser.add_argument("--plateau_steps", type=int, default=0)
     parser.add_argument("--unfreeze_enc_after_step", type=int, default=10_000)
@@ -84,8 +98,7 @@ def parse_args(argv=None):
     parser.add_argument("--valid_steps", type=int, default=1000)
     parser.add_argument("--steps_per_checkpoint", type=int, default=2400)
     parser.add_argument("--verbose", type=str2bool, default=False,
-                        help="beam-decoded validation samples: not ported "
-                             "yet")
+                        help="print a beam-decoded validation sample")
     parser.add_argument("--distributed", type=str2bool, default=False,
                         help="not ported yet")
     parser.add_argument("--vocab_file")
@@ -130,7 +143,15 @@ def train(argv=None):
                         format="%(asctime)s %(levelname)s %(name)s: "
                                "%(message)s")
     device = resolve_device(args.device)
-    check_ported(args, training=True)
+    check_ported(args, "train")
+    preempt = PreemptionGuard()  # catch SIGTERM from here on
+    try:
+        return _train(args, device, preempt)
+    finally:
+        preempt.close()
+
+
+def _train(args, device: torch.device, preempt: PreemptionGuard):
     args.dict_file = args.dict_file.format(args.target_type)
     if args.basedir is None:
         args.basedir = f"wav2vec2-{args.dataset_key}-{os.getpid()}"
@@ -185,7 +206,13 @@ def train(argv=None):
                           plateau_steps=args.plateau_steps)
     state = TrainState(model, create_optimizer(lr_sched, args.optim,
                                                args.weight_decay))
+    resolve_restart(args.restart_from, state, ctc=True,
+                    restart_tt=args.restart_tt)
     state.log = []
+    ctc_decoder = (PrefixBeamSearch(vocab_list, alpha=args.alpha,
+                                    beta=args.beta, beam=args.beam,
+                                    lm_file=args.lm)
+                   if args.verbose else None)
     n_params = sum(p.numel() for p in model.parameters())
     logger.info("Model has %s parameters on %s", f"{n_params:,}", device)
 
@@ -253,23 +280,30 @@ def train(argv=None):
 
             if gstep % validate_on == 0:
                 valid_metrics = validate(eval_fn, valid_set, index2vocab,
-                                         args.valid_steps, postproc, device)
+                                         args.valid_steps, postproc, device,
+                                         model, ctc_decoder)
                 logger.info({"average_train_loss": avg_loss.avg})
                 logger.info(valid_metrics)
-                save_fairseq_ctc(model, f"{model_base}-step-{gstep}.pt")
+                save_checkpoint(state, f"{model_base}-step-{gstep}.pt", "ctc")
                 esm = args.early_stopping_metric
                 if esm and valid_metrics.get(esm, 1e9) < best_metric:
                     best_metric = valid_metrics[esm]
                     logger.info("New best metric %.4f", best_metric)
-                    save_fairseq_ctc(model, f"{model_base}-best.pt")
+                    save_checkpoint(state, f"{model_base}-best.pt", "ctc")
                 start = time.time()
+            if preempt.should_save(gstep):
+                save_checkpoint(state, f"{model_base}-step-{gstep}.pt", "ctc")
+                logger.warning("preempted: saved step %d, exiting", gstep)
+                break
     train_itr.close()  # stops the prefetch threads
     return state
 
 
 def validate(eval_fn, valid_set, index2vocab, valid_steps, postproc,
-             device) -> dict:
-    """Loss and greedy WER/CER over up to ``valid_steps`` + 1 batches."""
+             device, model=None, ctc_decoder=None) -> dict:
+    """Loss and greedy WER/CER over up to ``valid_steps`` + 1 batches;
+    with a ``ctc_decoder`` it prints the beam transcript of each batch's
+    first utterance, as the reference's verbose validation does."""
     avg_valid_loss = Average("average_valid_loss")
     c_errors = c_total = w_errors = w_total = 0
     valid_start = time.time()
@@ -287,6 +321,14 @@ def validate(eval_fn, valid_set, index2vocab, valid_steps, postproc,
         c_total += sm["c_total"]
         w_total += sm["w_total"]
         avg_valid_loss.update(float(loss))
+        if ctc_decoder is not None and n_real > 0:
+            tbatch = _to_device(batch, device)
+            with torch.no_grad():
+                lp, pad_mask = model(tbatch["signal"][:1],
+                                     tbatch["signal_lengths"][:1])
+            print("".join(ctc_decoder.run(
+                lp.float().cpu().numpy(),
+                pad_mask.sum(dim=-1).cpu().numpy(), n_best=1)[0]))
     return {"average_valid_loss": avg_valid_loss.avg,
             "valid_elapsed_epoch": time.time() - valid_start,
             "cer": (c_errors / max(c_total, 1)) * 100,

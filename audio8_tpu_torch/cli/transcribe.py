@@ -55,7 +55,7 @@ def parse_args(argv=None):
     p.add_argument("--context_seconds", type=float, default=2.0)
     add_common_model_args(p)
     args = apply_preset(p.parse_args(argv))
-    require_checkpoint(args)
+    require_checkpoint(args, "transcribe")
     return args
 
 

@@ -1,4 +1,5 @@
-"""Build the port's CUDA kernels into shared libraries with ``nvcc``.
+"""Build the port's CUDA kernels with ``nvcc`` and its host library with
+``g++``.
 
 Each ``*.cu`` source in this directory has a plain C interface and is
 compiled on its own (all sources in parallel) into
@@ -11,11 +12,20 @@ PyTorch's headers, so a cold build takes seconds. ``ptxas -v`` reports
 each kernel's registers and spills; the report is kept beside the library
 (``<stem>-<hash>.log``) and read back by :func:`ptxas_report`.
 
+The host library (:func:`build_host`) holds the C++ host code of the
+decode and data layer: edit distance, the CTC prefix beam search with
+and without LM fusion, the ARPA and KenLM-binary LM readers and the FLAC
+decoder (``HOST_SOURCES``). ``g++`` links them into one
+``libaudio8_host-<hash>.so`` beside the kernels, under the same content
+hash; ``csrc/native.py`` loads it with ``ctypes``.
+
     python -m audio8_tpu_torch.csrc.build      # build every kernel, print
                                                # registers and spills
+    python -m audio8_tpu_torch.csrc.build --host   # the host library only
 """
 from __future__ import annotations
 
+import fcntl
 import hashlib
 import os
 import re
@@ -26,6 +36,9 @@ from typing import Dict, Sequence
 
 CSRC = os.path.dirname(os.path.abspath(__file__))
 SOURCES = tuple(sorted(f for f in os.listdir(CSRC) if f.endswith(".cu")))
+HOST_SOURCES = ("editdistance.cc", "beam.cc", "flac.cc", "arpa_lm.cc",
+                "kenlm_bin.cc")
+HOST_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -64,14 +77,54 @@ def local_includes(source: str) -> list:
     return seen
 
 
-def library_path(source: str) -> str:
+def _content_hash(sources: Sequence[str], flags: Sequence[str]) -> str:
     digest = hashlib.sha256()
-    for name in local_includes(source):
-        with open(os.path.join(CSRC, name), "rb") as f:
-            digest.update(f.read())
-    digest.update(" ".join(NVCC_FLAGS).encode())
+    for source in sources:
+        for name in local_includes(source):
+            with open(os.path.join(CSRC, name), "rb") as f:
+                digest.update(f.read())
+    digest.update(" ".join(flags).encode())
+    return digest.hexdigest()[:16]
+
+
+def library_path(source: str) -> str:
     stem = os.path.splitext(source)[0]
-    return os.path.join(build_dir(), f"{stem}-{digest.hexdigest()[:16]}.so")
+    return os.path.join(build_dir(),
+                        f"{stem}-{_content_hash((source,), NVCC_FLAGS)}.so")
+
+
+def host_library_path() -> str:
+    return os.path.join(build_dir(), "libaudio8_host-"
+                        f"{_content_hash(HOST_SOURCES, HOST_FLAGS)}.so")
+
+
+def build_host() -> str:
+    """Compile the host library with ``g++`` unless it is built already;
+    returns its path. Processes that start together build it once (a
+    file lock), and a reader never sees half a file. Raises
+    ``RuntimeError`` with the compiler's output if ``g++`` is missing or
+    fails: nothing falls back to Python."""
+    out = host_library_path()
+    if os.path.exists(out):
+        return out
+    os.makedirs(build_dir(), exist_ok=True)
+    with open(out + ".lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if os.path.exists(out):
+            return out
+        gxx = shutil.which("g++")
+        if gxx is None:
+            raise RuntimeError("g++ not found on PATH: the host library of "
+                               "audio8_tpu_torch cannot be built")
+        tmp = f"{out}.{os.getpid()}.tmp"
+        proc = subprocess.run(
+            [gxx, *HOST_FLAGS, *(os.path.join(CSRC, s) for s in HOST_SOURCES),
+             "-o", tmp], stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+        if proc.returncode != 0:
+            raise RuntimeError("g++ failed for the host library:\n"
+                               + proc.stdout.decode(errors="replace"))
+        os.replace(tmp, out)
+    return out
 
 
 def build(sources: Sequence[str] = SOURCES) -> Dict[str, str]:
@@ -156,7 +209,12 @@ def ptxas_report(library: str) -> Dict[str, dict]:
 
 
 if __name__ == "__main__":
+    import sys
+
     t0 = time.perf_counter()
+    print(f"host library -> {build_host()}")
+    if "--host" in sys.argv[1:]:
+        raise SystemExit(0)
     libs = build()
     for src, lib in libs.items():
         print(f"{src} -> {lib}")

@@ -1,9 +1,9 @@
 """Host audio IO of the port (``audio8_tpu/data/audio.py``).
 
 WAV goes through scipy's reader; NIST SPHERE (pcm, mu-law) and AIFF/AIFC
-are read in numpy. All three need no native library. FLAC, which the JAX
-package decodes with its C++ extension, is not ported yet and raises;
-other formats go to python-soundfile when it is installed.
+are read in numpy; FLAC is decoded by the port's host library
+(``csrc/flac.cc``, built with ``g++`` at first use). Other formats go to
+python-soundfile when it is installed.
 """
 from __future__ import annotations
 
@@ -11,6 +11,7 @@ import struct
 
 import numpy as np
 
+from audio8_tpu_torch.csrc import native
 
 def _pcm_to_float(data: np.ndarray) -> np.ndarray:
     """soundfile's default float conversion: ints scale to [-1, 1)."""
@@ -31,6 +32,14 @@ def read_wav(path: str) -> tuple[np.ndarray, int]:
 
     sr, data = wavfile.read(path)
     return _pcm_to_float(data), sr
+
+
+def read_flac(path: str) -> tuple[np.ndarray, int]:
+    """Read a FLAC file -> (float32 array, sample_rate); integer samples
+    scale by 2^(bits - 1), as the JAX package's reader does."""
+    data, sr, bps = native.flac_read(path)
+    scale = float(1 << (bps - 1)) if bps > 1 else 1.0
+    return np.asarray(data, np.float32) / scale, sr
 
 
 _ULAW_BIAS = 0x84
@@ -154,7 +163,7 @@ def read_aiff(path: str) -> tuple[np.ndarray, int]:
     return _pcm_to_float(_native_order(data)), sr
 
 
-SUPPORTED_FORMATS = (".wav", ".sph", ".aif", ".aiff", ".aifc")
+SUPPORTED_FORMATS = (".wav", ".flac", ".sph", ".aif", ".aiff", ".aifc")
 
 
 def read_audio(path: str) -> tuple[np.ndarray, int]:
@@ -163,9 +172,7 @@ def read_audio(path: str) -> tuple[np.ndarray, int]:
     if low.endswith(".wav"):
         return read_wav(path)
     if low.endswith(".flac"):
-        raise NotImplementedError(
-            f"FLAC decode for {path!r} is not ported yet (the JAX package "
-            "decodes it with its native extension; ROADMAP.md)")
+        return read_flac(path)
     if low.endswith(".sph"):
         return read_sphere(path)
     if low.endswith((".aif", ".aiff", ".aifc")):

@@ -66,12 +66,17 @@ def to_fairseq_ctc_state(state: Mapping[str, torch.Tensor]
     return out
 
 
-def load_fairseq_ctc(path: str) -> Dict[str, torch.Tensor]:
-    """Read a fairseq CTC ``.pt`` (``{"model": ..., "args": Namespace,
-    ...}``) with ``weights_only=True`` and return the port's state dict."""
+def read_fairseq_state(path: str) -> Dict[str, Any]:
+    """The ``model`` dict of a fairseq ``.pt`` (``{"model": ..., "args":
+    Namespace, ...}``), read with ``weights_only=True``."""
     with torch.serialization.safe_globals([argparse.Namespace]):
         blob = torch.load(path, map_location="cpu", weights_only=True)
-    state, _ = from_fairseq_ctc_state(blob.get("model", blob))
+    return blob.get("model", blob)
+
+
+def load_fairseq_ctc(path: str) -> Dict[str, torch.Tensor]:
+    """Read a fairseq CTC ``.pt`` and return the port's state dict."""
+    state, _ = from_fairseq_ctc_state(read_fairseq_state(path))
     return state
 
 
@@ -108,11 +113,9 @@ def save_fairseq_pretrained(model: torch.nn.Module, path: str) -> None:
 
 
 def load_fairseq_pretrained(path: str) -> Dict[str, torch.Tensor]:
-    """Read a fairseq pretrained ``.pt`` with ``weights_only=True`` and
-    return the port's ``Wav2Vec2Model`` state dict."""
-    with torch.serialization.safe_globals([argparse.Namespace]):
-        blob = torch.load(path, map_location="cpu", weights_only=True)
-    return from_fairseq_pretrained_state(blob.get("model", blob))
+    """Read a fairseq pretrained ``.pt`` and return the port's
+    ``Wav2Vec2Model`` state dict."""
+    return from_fairseq_pretrained_state(read_fairseq_state(path))
 
 
 # ---------------------------------------------------------------- JAX trees

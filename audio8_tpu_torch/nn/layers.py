@@ -51,9 +51,17 @@ class Dense(nn.Linear):
                 self.bias.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """Below f32 the JAX ``Dense``'s rounding order: the product is
+        rounded to ``dt`` first, then the ``dt`` bias is added with a
+        second rounding (``F.linear`` with the bias would round once).
+        In f32 the two orders agree, and the bias stays fused."""
         dt = self.compute_dtype
-        bias = None if self.bias is None else self.bias.to(dt)
-        return F.linear(x.to(dt), self.weight.to(dt), bias)
+        x, w = x.to(dt), self.weight.to(dt)
+        if self.bias is None:
+            return F.linear(x, w)
+        if dt == torch.float32:
+            return F.linear(x, w, self.bias)
+        return F.linear(x, w) + self.bias.to(dt)
 
 
 class Conv1D(nn.Module):

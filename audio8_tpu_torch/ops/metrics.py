@@ -1,8 +1,10 @@
 """WER/CER metrics and transcript post-processing
-(``audio8_tpu/ops/metrics.py:21-91``): greedy frames -> collapse ->
-edit distance against the targets, for characters and words. Host-side,
-pure Python (the JAX package's C++ edit distance waits with the rest of
-its native code).
+(``audio8_tpu/ops/metrics.py``): greedy frames -> collapse -> edit
+distance against the targets, for characters and words, and the word
+errors of a beam transcript. Host-side; the edit
+distance runs in the port's host library (``csrc/editdistance.cc``),
+and :func:`edit_distance_plain` is the plain version the tests hold it
+to.
 """
 from __future__ import annotations
 
@@ -10,11 +12,12 @@ from typing import Callable, Dict, Iterable, List, Sequence
 
 import numpy as np
 
+from audio8_tpu_torch.csrc.native import edit_distance
 from audio8_tpu_torch.ops.ctc import greedy_collapse
 from audio8_tpu_torch.utils import Offsets
 
 
-def edit_distance(a: Sequence, b: Sequence) -> int:
+def edit_distance_plain(a: Sequence, b: Sequence) -> int:
     """Levenshtein distance with two-row DP."""
     if len(a) < len(b):
         a, b = b, a
@@ -68,3 +71,14 @@ def ctc_metrics(log_probs: np.ndarray, targets: np.ndarray,
         m["wv_errors"] += dist
         m["w_total"] += len(targ_words)
     return m
+
+
+def decode_text_wer(pred_units: str, target_row: np.ndarray,
+                    index2vocab: Dict[int, str],
+                    postproc_fn: Callable = postproc_letters):
+    """(word errors, target words) of one decoded transcription string
+    against a target row."""
+    targ = [index2vocab[x] for x in _target_units(np.asarray(target_row))]
+    targ_words = postproc_fn(targ).split()
+    return (edit_distance(postproc_fn(pred_units).split(), targ_words),
+            len(targ_words))

@@ -32,7 +32,7 @@ stage timed alone is the 12 layers' block backward instead of the core's.
 The counterpart of the JAX package's ``tools/exp_attn_block.py``.
 
     python -m audio8_tpu_torch.profile [--bf16] [--train | --pretrain]
-        [--fused_attention {core,block}]
+        [--fused_attention {core,block}] [--reps N]
 """
 from __future__ import annotations
 
@@ -231,7 +231,7 @@ def block_bwd_alone(x, attn, key_valid, rate: float):
                                        scale, rate, 7, dy)
 
 
-def train_profile(dtype, fused=None) -> dict:
+def train_profile(dtype, fused=None, reps: int = 5) -> dict:
     """One unfrozen micro-step: stages alone, then one traced step."""
     from audio8_tpu_torch.ops.attention import attention_core_bwd
     from audio8_tpu_torch.train.optim import (TrainState, create_lrs,
@@ -306,7 +306,7 @@ def train_profile(dtype, fused=None) -> dict:
     }
     for prm in model.parameters():
         prm.grad = None
-    step_ms = median_ms(step)
+    step_ms = median_ms(step, reps)
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -325,7 +325,7 @@ def train_profile(dtype, fused=None) -> dict:
             "device": torch.cuda.get_device_name(0)}
 
 
-def pretrain_profile(dtype, fused=None) -> dict:
+def pretrain_profile(dtype, fused=None, reps: int = 5) -> dict:
     """One pretraining step: stages alone, then one traced step."""
     from audio8_tpu_torch.config import PretrainConfig
     from audio8_tpu_torch.models.wav2vec2 import (PretrainSeeds,
@@ -396,7 +396,7 @@ def pretrain_profile(dtype, fused=None) -> dict:
         prm.grad = None
     del convs
     torch.cuda.reset_peak_memory_stats()
-    step_ms = median_ms(step)
+    step_ms = median_ms(step, reps)
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -423,6 +423,9 @@ def main(argv=None) -> dict:
                            "serving dispatch")
     mode.add_argument("--pretrain", action="store_true",
                       help="one contrastive pretraining step")
+    ap.add_argument("--reps", type=int, default=5,
+                    help="timed repetitions behind the headline median "
+                         "(forward_ms, step_ms)")
     ap.add_argument("--fused_attention", choices=("core", "block"),
                     default="core",
                     help="the model's fused_attention for --train or "
@@ -439,8 +442,8 @@ def main(argv=None) -> dict:
     dtype = torch.bfloat16 if args.bf16 else torch.float32
     if args.train or args.pretrain:
         fused = "block" if args.fused_attention == "block" else None
-        out = (train_profile if args.train else pretrain_profile)(dtype,
-                                                                  fused)
+        out = (train_profile if args.train else pretrain_profile)(
+            dtype, fused, args.reps)
         print(json.dumps(out), flush=True)
         return out
     cfg = AcousticConfig(num_labels=32, timestep_masking=0.0,
@@ -455,7 +458,7 @@ def main(argv=None) -> dict:
     lengths[-1] = 0
 
     with torch.inference_mode():
-        forward_ms = median_ms(lambda: model(sig, lengths))
+        forward_ms = median_ms(lambda: model(sig, lengths), args.reps)
         stages = stage_times(model, sig, lengths)
         acts = [torch.profiler.ProfilerActivity.CPU,
                 torch.profiler.ProfilerActivity.CUDA]

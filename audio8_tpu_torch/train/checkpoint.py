@@ -1,0 +1,86 @@
+"""Checkpoints of the port's trainers.
+
+A checkpoint is a fairseq-layout ``.pt`` (``{base}-step-N.pt``, CTC or
+pretrained, ``models/convert.py``), which the JAX package reads with
+``load_fairseq_bin``, plus a resume file beside it
+(``{base}-step-N.resume``, torch state dicts) that holds what a
+restart needs to continue the same run: the AdamW moments and step
+count (the LR schedule's position), the trainer's step (in pretraining
+also the Gumbel temperature's), the parameter names and the model kind.
+Orbax checkpoints of the JAX package do not cross; the two packages meet
+through the fairseq ``.pt``.
+"""
+from __future__ import annotations
+
+import os
+import re
+from typing import Optional, Tuple
+
+import torch
+
+from audio8_tpu_torch.models.convert import (save_fairseq_ctc,
+                                             save_fairseq_pretrained)
+
+RESUME_SUFFIX = ".resume"
+KINDS = ("ctc", "pretrain")
+
+
+def parse_checkpoint_step(path: str) -> int:
+    """The step in a ``...-step-N`` or ``...-step-N.pt`` name, else 0."""
+    m = re.search(r"-step-(\d+)(\.pt)?/?$", path.rstrip("/"))
+    return int(m.group(1)) if m else 0
+
+
+def find_latest_checkpoint(ckpt_dir: str) -> Tuple[str, int]:
+    """The latest ``checkpoint-step-N.pt`` under ``ckpt_dir`` -> (path,
+    N)."""
+    best, best_step = None, -1
+    pat = re.compile(r"checkpoint-step-(\d+)\.pt$")
+    for name in os.listdir(ckpt_dir):
+        m = pat.match(name)
+        if m and int(m.group(1)) > best_step:
+            best, best_step = os.path.join(ckpt_dir, name), int(m.group(1))
+    if best is None:
+        raise FileNotFoundError(f"No checkpoints under {ckpt_dir}")
+    return best, best_step
+
+
+def resume_path(checkpoint: str) -> str:
+    """The resume file beside a ``.pt`` checkpoint."""
+    return os.path.splitext(checkpoint)[0] + RESUME_SUFFIX
+
+
+def save_checkpoint(state, path: str, kind: str) -> str:
+    """Write ``state.model`` as a fairseq ``.pt`` at ``path`` (CTC or
+    pretrained by ``kind``) and the resume file beside it."""
+    if kind not in KINDS:
+        raise ValueError(f"kind {kind!r}: want one of {KINDS}")
+    save = save_fairseq_ctc if kind == "ctc" else save_fairseq_pretrained
+    save(state.model, path)
+    opt = state.opt_state
+    torch.save({"kind": kind, "step": int(state.step),
+                "count": int(opt.count), "names": list(state.names),
+                "mu": {n: m.detach().cpu() for n, m in zip(state.names,
+                                                           opt.mu)},
+                "nu": {n: v.detach().cpu() for n, v in zip(state.names,
+                                                           opt.nu)}},
+               resume_path(path))
+    return path
+
+
+def load_resume(state, checkpoint: str, kind: str) -> Optional[int]:
+    """Restore the AdamW moments and step count of ``state`` from the
+    resume file beside ``checkpoint`` when there is one of this ``kind``
+    over the same parameters (names and shapes); returns its step, else
+    ``None`` and ``state`` is untouched."""
+    path = resume_path(checkpoint)
+    if not os.path.exists(path):
+        return None
+    blob = torch.load(path, map_location="cpu", weights_only=True)
+    if blob["kind"] != kind or blob["names"] != list(state.names) or any(
+            blob["mu"][n].shape != p.shape
+            for n, p in zip(state.names, state.params)):
+        return None
+    state.load_adam_state(blob["count"], blob["mu"], blob["nu"])
+    state.step = int(blob["step"])
+    return state.step

@@ -42,7 +42,10 @@ against its plain PyTorch version. Phases, each printing JSON lines:
               that run; then the same requests with ``--bf16`` under the
               profiler (``serve_bf16``): four conv forward launches per
               dispatch, all on the wgmma route by their kernel names,
-              and the transcripts' agreement with the f32 ones;
+              the transcripts' agreement with the f32 ones, and two of
+              the served model's bf16 ``Dense`` layers held to the CPU's
+              order (product rounded, then the bias added and rounded
+              again; bitwise on exact integer sums);
 5. train    - ``python -m audio8_tpu_torch.cli.train``'s entry point on a
               synthetic corpus: 6 optimizer steps of 2 micro-batches,
               the encoder frozen for 3 of them; step times, training
@@ -58,7 +61,20 @@ against its plain PyTorch version. Phases, each printing JSON lines:
               a validation pass; then 2 steps with ``--bf16`` under the
               profiler (``pretrain_bf16``): finite losses, four conv
               dgrad launches per step, every dgrad GEMM on the wgmma
-              route by its kernel name;
+              route by its kernel name, and two bf16 ``Dense`` layers
+              held to the CPU as in serve_bf16; then ``restart_test``:
+              ``cli.train --restart_from`` phase 7's pretrained
+              ``checkpoint-step-5.pt`` (the encoder warm-starts the CTC
+              model) for 3 steps on a corpus whose valid set is FLAC
+              (written by ``flac_bytes``), step 1's loss held to a CPU
+              model restarted from the same ``.pt`` on the same batch,
+              then ``cli.test`` on the saved ``.pt``, greedy (its own
+              per-utterance log-probs and transcripts held to a CPU
+              ``cli.test`` run on the same files) and with ``--beam 8
+              --lm`` a bigram ARPA: WER, CER, beam WER, and, as smoke
+              readings of a 9-file set, the eval's audio-s/s and the
+              beam's host ms per utterance (``--test-timing`` measures
+              them);
 8. pretrain_kernel - the conv backward, dropout, attention core
               backward and attention block kernels vs their plain
               versions at the shapes of the batches that phase 7 formed
@@ -98,7 +114,8 @@ against its plain PyTorch version. Phases, each printing JSON lines:
               launch, with their routes and host ms, the dgrad also by
               layer beside cuDNN's;
 
-then a ``kernels`` line, the card's name and power limit from nvidia-smi,
+then a ``phase_seconds`` line (each phase's wall seconds), a ``kernels``
+line, the card's name and power limit from nvidia-smi,
 and, last, ``{"ok": true, "device": {...}}``. Any failed check raises, so
 the exit code is non-zero and the last line is not printed. Without a CUDA
 card it exits with code 2 and prints no result.
@@ -106,6 +123,7 @@ card it exits with code 2 and prints no result.
     python3 chip_smoke.py
     python3 chip_smoke.py --block-timing   # only the block's timing rows
     python3 chip_smoke.py --core-timing    # only rows 1, 2, 3, 3b, 3c, 6
+    python3 chip_smoke.py --test-timing    # only cli.test's throughput
 
 ``--block-timing`` builds the block's two sources and prints only the
 attention block's timing rows (phase 13) in float32 and bfloat16, then
@@ -120,7 +138,12 @@ attention core's forward at the serving shape in both semantics, the
 conv dgrad and wgrad of the four k3s2 layers of (4, 15 s) and the
 block's forward, each row with its launch split, its route (read from the
 kernels' names, and from the port's Python rule where the tree has
-one) and the host's ms per call.
+one) and the host's ms per call. ``--test-timing`` times ``cli.test``
+on the card over 320 FLACs of 1.5-15 s against a trigram ARPA of
+200 000 words: the greedy eval's audio-s/s (three runs after a warm-up),
+the beam+LM decode (``--beam 8 --lm``) on a random model's log-probs,
+and ``run_step``'s beam+LM decode of log-probs shaped like a trained
+model's (``peaky_log_probs``), in host ms per utterance.
 """
 from __future__ import annotations
 
@@ -227,6 +250,20 @@ def ctc_grad_tol(t: int, ll_max: float) -> float:
     the recursions rounds at that size, so two f32 evaluations in
     different orders agree to about sqrt(T) * 2^-24 * |ll| (times 2)."""
     return 2.0 * math.sqrt(t) * 2.0 ** -24 * max(1.0, ll_max)
+
+
+PHASE_SECONDS: dict = {}  # wall seconds of each phase of a full run
+
+
+@contextlib.contextmanager
+def timed(name: str):
+    """Add the wall seconds of the block to ``PHASE_SECONDS[name]``."""
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        PHASE_SECONDS[name] = (PHASE_SECONDS.get(name, 0.0)
+                               + time.perf_counter() - t0)
 
 
 def emit(obj: dict) -> None:
@@ -1363,6 +1400,18 @@ def phase_serve_bf16(seed: int, tmp: str, f32_texts: list) -> None:
         check(routes == {want: launches},
               f"bf16 serving: conv forward kernels {routes}, want "
               f"{launches} on the {want} route")
+    from audio8_tpu_torch.models.convert import load_fairseq_ctc
+    from audio8_tpu_torch.models.wav2vec2 import Wav2Vec2AcousticModel
+
+    served = Wav2Vec2AcousticModel(base_config(4 + len(LETTERS)),
+                                   torch.bfloat16)
+    served.load_state_dict(load_fairseq_ctc(os.path.join(tmp, "ctc.pt")))
+    layer = served.encoder.encoder.layers[0].cuda()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    rows = CHUNK_BATCH * ATTN_SHAPE[2]  # a dispatch's encoder rows
+    check_dense_bf16("serve_bf16", "layers.0.fc1", layer.fc1, rows, gen)
+    check_dense_bf16("serve_bf16", "layers.0.self_attn.q_proj",
+                     layer.self_attn.q_proj, rows, gen)
 
 
 def write_corpus(root: str, seed: int) -> None:
@@ -1666,6 +1715,303 @@ def phase_pretrain_bf16(tmp: str) -> None:
           f"in {PRETRAIN_BF16_STEPS} steps, want 4 per step")
     check(set(routes) == {want},
           f"bf16 pretrain: conv dgrad kernels {routes}, want {want} only")
+    frames = 222 * max(r["rows"] for r in log)  # the batches' encoder rows
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    check_dense_bf16("pretrain_bf16", "final_proj", state.model.final_proj,
+                     frames, gen)
+    check_dense_bf16("pretrain_bf16", "layers.0.fc2",
+                     state.model.encoder.layers[0].fc2, frames, gen)
+
+
+# a bf16 Dense rounds its product, then the bias sum, each to bf16: the
+# card and the CPU may each land one bf16 ulp (2^-7 relative) apart per
+# rounding, from the order of their f32 sums
+DENSE_BF16_TOL = 2.0 ** -6
+
+
+def check_dense_bf16(phase: str, name: str, dense, rows: int, gen) -> None:
+    """A bf16 ``Dense`` of the path (its weights) on the card against the
+    same module's plain order on the CPU: normal inputs of ``rows`` rows
+    within ``DENSE_BF16_TOL`` of max(1, max|plain|); then small integer
+    inputs and weights, whose f32 sums are exact in any order, bitwise
+    equal to the CPU's two roundings and not to one rounding of product
+    plus bias (``F.linear`` with the bias), which a card path that rounds
+    once would give."""
+    import copy
+
+    from audio8_tpu_torch.nn.layers import Dense
+
+    x = torch.randn(rows, dense.in_features, generator=gen, device="cuda")
+    with torch.no_grad():
+        got = dense(x).float().cpu()
+        plain = copy.deepcopy(dense).cpu()(x.cpu()).float()
+    err = (got - plain).abs().max().item()
+    limit = DENSE_BF16_TOL * max(1.0, plain.abs().max().item())
+    cpu_gen = torch.Generator().manual_seed(rows)
+    ints = Dense(dense.in_features, dense.out_features, dtype=torch.bfloat16)
+    with torch.no_grad():
+        ints.weight.copy_(torch.randint(-15, 16, ints.weight.shape,
+                                        generator=cpu_gen).float())
+        ints.bias.copy_(torch.randn(ints.bias.shape, generator=cpu_gen) * 64)
+        xi = torch.randint(-15, 16, (rows, dense.in_features),
+                           generator=cpu_gen).float()
+        want = ints(xi)
+        once = torch.nn.functional.linear(xi.bfloat16(),
+                                          ints.weight.bfloat16(),
+                                          ints.bias.bfloat16())
+        card = ints.cuda()(xi.cuda()).cpu()
+    emit({"phase": phase, "check": "dense_bf16", "module": name,
+          "shape": [rows, dense.in_features, dense.out_features],
+          "max_abs_err": err, "tol": limit,
+          "exact_sums_bitwise": torch.equal(card, want),
+          "exact_sums_equal_one_rounding":
+              (card == once).float().mean().item()})
+    check(err <= limit, f"{phase}: bf16 {name} card vs CPU {err} > {limit}")
+    check(torch.equal(card, want),
+          f"{phase}: bf16 {name} with exact sums differs from the CPU's "
+          "two roundings")
+    check(not torch.equal(want, once),
+          f"{phase}: bf16 {name}: the check cannot tell the orders apart")
+
+
+def flac_bytes(pcm: np.ndarray, sr: int = SR, block: int = 4096) -> bytes:
+    """16-bit PCM ((n,) or (n, channels)) as a FLAC stream of VERBATIM
+    subframes: every field byte-aligned, the CRCs left zero (the port's
+    decoder does not check them)."""
+    pcm = np.asarray(pcm, np.int16)
+    pcm = pcm[:, None] if pcm.ndim == 1 else pcm
+    n, ch = pcm.shape
+    info = (block.to_bytes(2, "big") * 2 + bytes(6)
+            + ((sr << 44) | ((ch - 1) << 41) | (15 << 36) | n).to_bytes(
+                8, "big") + bytes(16))
+    out = [b"fLaC", bytes([0x80]) + len(info).to_bytes(3, "big"), info]
+    for i, start in enumerate(range(0, n, block)):
+        blk = pcm[start:start + block]
+        if i >= 128:
+            raise ValueError("one-byte frame numbers: at most 128 blocks")
+        out.append(bytes([0xFF, 0xF8, 0x70, ((ch - 1) << 4) | 0x08, i])
+                   + (len(blk) - 1).to_bytes(2, "big") + bytes(1))
+        out += [bytes([0x02]) + blk[:, c].astype(">i2").tobytes()
+                for c in range(ch)]
+        out.append(bytes(2))
+    return b"".join(out)
+
+
+RESTART_WORDS = ["THE", "CAT", "SAT", "ON", "A", "MAT", "DOG", "RAN", "TO",
+                 "HIM"]
+
+
+def write_restart_corpus(root: str, seed: int) -> None:
+    """8 training WAVs of 2-4 s and RESTART_VALID validation FLACs, the
+    first of 3 s and the rest of 1.5-3 s, with transcripts of
+    RESTART_WORDS, the 32-label letter dict, and a bigram ARPA over the
+    words (``words.arpa``)."""
+    from scipy.io import wavfile
+
+    rng = np.random.default_rng(seed + 5)
+    with open(os.path.join(root, "dict.ltr.txt"), "w") as fh:
+        fh.writelines(f"{c} {1000 - i}\n" for i, c in enumerate(LETTERS))
+    for split, n, (lo, hi) in (("train", 8, (2.0, 4.0)),
+                               ("valid", RESTART_VALID, (1.5, 3.0))):
+        with open(os.path.join(root, f"{split}.tsv"), "w") as tf, \
+                open(os.path.join(root, f"{split}.ltr"), "w") as lf:
+            tf.write(root + "\n")
+            for i in range(n):
+                seconds = (hi if split == "valid" and i == 0
+                           else float(rng.uniform(lo, hi)))
+                wav = synthetic_speechlike(seconds, rng)
+                pcm = (np.clip(wav, -1, 1) * 32767).astype(np.int16)
+                name = f"{split}{i}." + ("wav" if split == "train" else "flac")
+                if split == "train":
+                    wavfile.write(os.path.join(root, name), SR, pcm)
+                else:
+                    with open(os.path.join(root, name), "wb") as f:
+                        f.write(flac_bytes(pcm))
+                tf.write(f"{name}\t{len(pcm)}\n")
+                words = rng.choice(RESTART_WORDS,
+                                   size=max(1, int(len(pcm) / SR * 2)))
+                lf.write(" ".join(" ".join(w) + " |" for w in words) + "\n")
+    unigrams = "".join(f"-1.0\t{w}\t-0.3\n" for w in RESTART_WORDS)
+    bigrams = "".join(f"-0.5\t{a} {b}\n" for a, b in zip(
+        RESTART_WORDS, RESTART_WORDS[1:]))
+    with open(os.path.join(root, "words.arpa"), "w") as f:
+        f.write(f"\\data\\\nngram 1={len(RESTART_WORDS) + 1}\n"
+                f"ngram 2={len(RESTART_WORDS) - 1}\n\n\\1-grams:\n"
+                f"-2.0\t<unk>\n{unigrams}\n\\2-grams:\n{bigrams}\n"
+                "\\end\\\n")
+
+
+# cli.test's batches of the valid set: the 3 s file and the next six
+# (7 rows of 48 000 samples fill the budget; snapped to 8, one padding
+# row), then the last two
+RESTART_VALID, RESTART_TEST_BATCH = 9, ["--target_tokens_per_batch",
+                                        "336000"]
+RESTART_FLAGS = ["--train_steps", "3", "--grad_accum", "1",
+                 "--unfreeze_enc_after_step", "1", "--warmup_steps", "2",
+                 "--target_tokens_per_batch", "320000", "--valid_steps", "1",
+                 "--steps_per_checkpoint", "3", "--num_train_workers", "2"]
+
+
+def phase_restart_test(tmp: str, seed: int) -> dict:
+    """Pretrain -> fine-tune -> test at full width: ``cli.train
+    --restart_from`` the pretrain phase's ``checkpoint-step-5.pt`` (its
+    encoder warm-starts the CTC model; the head keeps its seeded init)
+    for 3 steps on a corpus whose valid set is FLAC, then ``cli.test`` on
+    the saved ``.pt``, greedy and ``--beam 8 --lm`` an ARPA. The first
+    step's loss is held to a CPU model restarted from the same ``.pt`` on
+    the same batch and the same generator (TRAIN_LOSS_RTOL). The greedy
+    ``cli.test`` run's own outputs (``keep_outputs``: its batching, the
+    padding row its snapped batch carries, its ``num_real`` slicing) are
+    held to a CPU ``cli.test`` run on the same ``.pt`` and files under
+    the serve phase's rule: per utterance, log-probs within MODEL_TOL and
+    equal greedy transcripts unless a frame's top two log-probs on the
+    CPU lie within twice the error. Returns the launch counts of the
+    train and test runs and the wall seconds of its parts."""
+    from audio8_tpu_torch.cli import test as test_cli
+    from audio8_tpu_torch.cli import train as train_cli
+    from audio8_tpu_torch.cli.common import resolve_restart
+    from audio8_tpu_torch.models.wav2vec2 import Wav2Vec2AcousticModel
+    from audio8_tpu_torch.train.checkpoint import (find_latest_checkpoint,
+                                                   resume_path)
+    from audio8_tpu_torch.train.optim import (TrainState, create_lrs,
+                                              create_optimizer)
+
+    walls = {}
+    t_phase = time.perf_counter()
+    pretrained = os.path.join(tmp, "pretrain_run", "checkpoint-step-5.pt")
+    corpus = os.path.join(tmp, "restart_corpus")
+    os.makedirs(corpus)
+    write_restart_corpus(corpus, seed)
+    basedir = os.path.join(tmp, "restart_run")
+    first = {}
+    real = train_cli.make_ctc_steps
+
+    def recording(model, **kw):
+        """make_ctc_steps whose fused step keeps its first batch and
+        loss."""
+        grad_fn, update_fn, eval_fn = real(model, **kw)
+        step = grad_fn.train_step
+
+        def train_step(state, batch, generator, freeze=True):
+            if not first:
+                first["batch"] = {k: v.cpu() for k, v in batch.items()}
+            out = step(state, batch, generator, freeze=freeze)
+            if "loss" not in first:
+                first["loss"] = float(out[1])
+            return out
+
+        grad_fn.train_step = train_step
+        return grad_fn, update_fn, eval_fn
+
+    argv = ["--root_dir", corpus, "--train_dataset", "train.tsv",
+            "--valid_dataset", "valid.tsv", "--basedir", basedir,
+            "--device", "cuda", "--restart_from", pretrained, *RESTART_FLAGS]
+    walls["corpus"] = time.perf_counter() - t_phase
+    reset_launches()
+    train_cli.make_ctc_steps = recording
+    try:
+        t0 = time.perf_counter()
+        state = train_cli.train(argv)
+        walls["train"] = time.perf_counter() - t0
+    finally:
+        train_cli.make_ctc_steps = real
+    ckpt, saved = find_latest_checkpoint(basedir)
+    common = ["--checkpoint", ckpt, "--root_dir", corpus,
+              "--valid_dataset", "valid.tsv", *RESTART_TEST_BATCH]
+    t0 = time.perf_counter()
+    greedy = test_cli.evaluate(common + ["--device", "cuda"],
+                               keep_outputs=True)
+    walls["test_greedy"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    beam = test_cli.evaluate(common + ["--device", "cuda", "--beam", "8",
+                                       "--lm",
+                                       os.path.join(corpus, "words.arpa")])
+    walls["test_beam"] = time.perf_counter() - t0
+    launches = {k: n for k, n in read_launches().items() if k in TRAIN_PATH}
+    log = state.log
+    check(state.step == 3 and [r["frozen"] for r in log]
+          == [True, True, False], f"restart_test steps {log}")
+    check(all(math.isfinite(r["loss"]) for r in log),
+          "restart_test: non-finite loss")
+    check(saved == 3 and os.path.exists(resume_path(ckpt)),
+          f"restart_test: saved {ckpt}")
+    for name, n in launches.items():
+        check(n > 0, f"{name} was not launched by restart_test")
+    check(greedy["utterances"] == beam["utterances"] == RESTART_VALID
+          and greedy["step"] == 2 and beam["wer"] == greedy["wer"]
+          and "werr_lm_8" in beam
+          and all(math.isfinite(m[k]) for m in (greedy, beam)
+                  for k in ("wer", "cer")),
+          f"cli.test { {k: v for k, v in greedy.items() if k != 'outputs'} }"
+          f" {beam}")
+
+    # step 1 on the CPU: the trainer's seeded init, restarted from the .pt
+    t0 = time.perf_counter()
+    cpu = Wav2Vec2AcousticModel(state.model.config,
+                                generator=torch.Generator().manual_seed(0))
+    cpu_state = TrainState(cpu, create_optimizer(create_lrs(
+        1e-4, 10, "constant", warmup_steps=0)))
+    resolve_restart(pretrained, cpu_state, ctc=True)
+    grad_fn, _, _ = real(cpu)
+    loss_cpu = float(grad_fn(first["batch"],
+                             torch.Generator().manual_seed(1234),
+                             freeze=True)[0])
+    loss_rel = abs(first["loss"] - loss_cpu) / abs(loss_cpu)
+    del cpu, cpu_state, grad_fn
+    walls["cpu_step1"] = time.perf_counter() - t0
+
+    # cli.test's own greedy outputs on the card vs a CPU cli.test run
+    t0 = time.perf_counter()
+    on_cpu = test_cli.evaluate(common + ["--device", "cpu"],
+                               keep_outputs=True)
+    walls["cpu_test_greedy"] = time.perf_counter() - t0
+    outs_g, outs_c = greedy["outputs"], on_cpu["outputs"]
+    check([o["file"] for o in outs_g] == [o["file"] for o in outs_c]
+          and len(outs_g) == RESTART_VALID
+          and all(a["log_probs"].shape == b["log_probs"].shape
+                  for a, b in zip(outs_g, outs_c)),
+          "restart_test: cli.test's utterances or frames differ on the "
+          "CPU")
+    err, texts_equal = 0.0, []
+    for a, b in zip(outs_g, outs_c):
+        e = float(np.abs(a["log_probs"] - b["log_probs"]).max())
+        err = max(err, e)
+        top2 = np.sort(b["log_probs"], axis=-1)[:, -2:]
+        near_tie = bool(((top2[:, 1] - top2[:, 0]) <= 2 * e).any())
+        texts_equal.append(a["greedy"] == b["greedy"])
+        check(a["greedy"] == b["greedy"] or near_tie,
+              f"restart_test: cli.test's greedy transcript of {a['file']} "
+              "differs from the CPU's with no near tie")
+    if all(texts_equal):
+        check(greedy["wer"] == on_cpu["wer"]
+              and greedy["cer"] == on_cpu["cer"],
+              "restart_test: equal transcripts, different metrics")
+    walls["phase"] = time.perf_counter() - t_phase
+    emit({"phase": "restart_test",
+          "pretrained": os.path.relpath(pretrained, tmp),
+          "flags": RESTART_FLAGS, "train_wall_s": walls["train"],
+          "step_seconds": [r["seconds"] for r in log],
+          "losses": [r["loss"] for r in log],
+          "first_loss": [first["loss"], loss_cpu], "loss_rel_err": loss_rel,
+          "loss_rtol": TRAIN_LOSS_RTOL, "checkpoint": os.path.basename(ckpt),
+          "wer": greedy["wer"], "cer": greedy["cer"],
+          "beam_wer": beam["werr_lm_8"], "cpu_wer": on_cpu["wer"],
+          "cpu_cer": on_cpu["cer"], "test_batches": greedy["step"],
+          "utterances": greedy["utterances"],
+          "eval_audio_s": greedy["audio_seconds"],
+          "eval_audio_s_per_s": greedy["audio_seconds"]
+          / greedy["eval_seconds"],
+          "beam_eval_seconds": beam["eval_seconds"],
+          "beam_host_ms_per_utterance": 1e3 * beam["beam_seconds"]
+          / beam["utterances"],
+          "greedy_vs_cpu_max_abs_err": err, "tol": MODEL_TOL,
+          "greedy_texts_equal_cpu": texts_equal,
+          "greedy_texts_empty": sum(not o["greedy"] for o in outs_g),
+          "wall_s": walls, "launches": launches})
+    check(loss_rel <= TRAIN_LOSS_RTOL,
+          f"restart_test: step 1 loss card vs CPU {loss_rel}")
+    check(err <= MODEL_TOL, f"restart_test: log-probs vs CPU {err}")
+    return launches
 
 
 def phase_pretrain_vs_cpu(seed: int, samples: int, fused=None,
@@ -2652,6 +2998,205 @@ def core_timing(gen) -> int:
     return 0
 
 
+# --test-timing: cli.test over an eval set of TIMING_UTTERANCES FLACs of
+# 1.5-15 s, 2.7 words per second, against a trigram ARPA of
+# TIMING_LM_SIZES (words, bigrams, trigrams; LibriSpeech's LM vocabulary
+# has 200 000 words), at cli.test's defaults (--beam 8 with the LM)
+TIMING_UTTERANCES, TIMING_REPS = 320, 3
+TIMING_LM_SIZES = (200_000, 1_000_000, 1_000_000)
+
+
+def zipf_words(rng, n: int):
+    """``n`` distinct uppercase words (2-12 letters, letters drawn by
+    LETTERS' frequency order) and their Zipf probabilities by rank."""
+    letters = [c for c in LETTERS if c not in ("|", "'")]
+    w = 1.0 / (np.arange(len(letters)) + 3.0)
+    words, seen = [], set()
+    while len(words) < n:
+        lens = rng.integers(2, 13, size=n)
+        draws = rng.choice(len(letters), size=(n, 12), p=w / w.sum())
+        for k, row in zip(lens, draws):
+            word = "".join(letters[i] for i in row[:k])
+            if word not in seen:
+                seen.add(word)
+                words.append(word)
+    p = 1.0 / np.arange(1, n + 1)
+    return words[:n], p / p.sum()
+
+
+def write_trigram_arpa(path: str, words, p, rng) -> None:
+    """A trigram ARPA over ``words``: Zipf unigrams, TIMING_LM_SIZES'
+    bigrams and trigrams drawn by the same law (each trigram extends a
+    bigram), random log10 probabilities and backoffs."""
+    _, n_bi, n_tri = TIMING_LM_SIZES
+    n = len(words)
+    bi = np.unique(rng.choice(n, size=(int(n_bi * 1.3), 2), p=p), axis=0)
+    bi = bi[rng.permutation(len(bi))[:n_bi]]
+    tri = np.concatenate([bi[rng.integers(0, len(bi), int(n_tri * 1.1))],
+                          rng.choice(n, size=(int(n_tri * 1.1), 1), p=p)],
+                         axis=1)
+    tri = np.unique(tri, axis=0)[:n_tri]
+    uni = np.log10(p)
+    with open(path, "w") as f:
+        f.write(f"\\data\\\nngram 1={n + 3}\nngram 2={len(bi)}\n"
+                f"ngram 3={len(tri)}\n\n\\1-grams:\n-99\t<s>\t-0.5\n"
+                "-1.0\t</s>\n-7.0\t<unk>\n")
+        bo = rng.uniform(-0.8, -0.1, n)
+        f.write("".join(f"{uni[i]:.4f}\t{words[i]}\t{bo[i]:.4f}\n"
+                        for i in range(n)))
+        f.write("\n\\2-grams:\n")
+        lp, bo = rng.uniform(-3.0, -0.3, len(bi)), rng.uniform(-0.6, 0, len(bi))
+        f.write("".join(f"{lp[i]:.4f}\t{words[a]} {words[b]}\t{bo[i]:.4f}\n"
+                        for i, (a, b) in enumerate(bi)))
+        f.write("\n\\3-grams:\n")
+        lp = rng.uniform(-2.5, -0.2, len(tri))
+        f.write("".join(f"{lp[i]:.4f}\t{words[a]} {words[b]} {words[c]}\n"
+                        for i, (a, b, c) in enumerate(tri)))
+        f.write("\n\\end\\\n")
+
+
+def write_timing_corpus(root: str, seed: int) -> list:
+    """TIMING_UTTERANCES validation FLACs with Zipf transcripts over the
+    LM's words, the letter dict and ``lm.arpa``; returns each
+    utterance's (samples, transcript words)."""
+    rng = np.random.default_rng(seed + 11)
+    words, p = zipf_words(rng, TIMING_LM_SIZES[0])
+    write_trigram_arpa(os.path.join(root, "lm.arpa"), words, p, rng)
+    with open(os.path.join(root, "dict.ltr.txt"), "w") as fh:
+        fh.writelines(f"{c} {1000 - i}\n" for i, c in enumerate(LETTERS))
+    rows = []
+    with open(os.path.join(root, "valid.tsv"), "w") as tf, \
+            open(os.path.join(root, "valid.ltr"), "w") as lf:
+        tf.write(root + "\n")
+        for i in range(TIMING_UTTERANCES):
+            seconds = float(rng.uniform(1.5, 15.0))
+            pcm = (np.clip(synthetic_speechlike(seconds, rng), -1, 1)
+                   * 32767).astype(np.int16)
+            with open(os.path.join(root, f"u{i}.flac"), "wb") as f:
+                f.write(flac_bytes(pcm))
+            text = [words[j] for j in rng.choice(
+                len(words), size=max(1, round(seconds * 2.7)), p=p)]
+            tf.write(f"u{i}.flac\t{len(pcm)}\n")
+            lf.write(" ".join(" ".join(w) + " |" for w in text) + "\n")
+            rows.append((len(pcm), text))
+    return rows
+
+
+def peaky_log_probs(labels, frames: int, num_labels: int, blank: int, rng,
+                    confuse: float = 0.15) -> np.ndarray:
+    """(frames, num_labels) CTC log-probs of the shape a trained model
+    gives: blank-dominated frames with Gaussian noise, each label
+    peaking at one frame, spread evenly; at ``confuse`` of them another
+    letter peaks just above it (a substitution a word LM can repair)."""
+    u = len(labels)
+    logits = rng.normal(size=(frames, num_labels)).astype(np.float32)
+    logits[:, blank] += 7.0
+    pos = ((np.arange(u) + 0.5) * frames / u).astype(int)
+    logits[pos, labels] += 14.0
+    sub = rng.random(u) < confuse
+    other = rng.integers(num_labels - len(LETTERS), num_labels, size=u)
+    logits[pos[sub], other[sub]] += 15.0
+    m = logits.max(-1, keepdims=True)
+    return logits - m - np.log(np.exp(logits - m).sum(-1, keepdims=True))
+
+
+def test_timing() -> int:
+    """``--test-timing``: ``cli.test`` on the card over the timing set,
+    TIMING_REPS greedy runs after a warm-up (audio-s/s), then two beam+LM
+    runs (``--beam 8 --lm``) on a full-width model of seeded random
+    weights, whose log-probs are near uniform; then the beam+LM decode of
+    ``cli.test``'s ``run_step`` alone over the same transcripts' peaky
+    log-probs (``peaky_log_probs``), TIMING_REPS times: host ms per
+    utterance and the greedy and beam WERs."""
+    from audio8_tpu_torch.cli import test as test_cli
+    from audio8_tpu_torch.models.convert import save_fairseq_ctc
+    from audio8_tpu_torch.models.text import read_vocab_list
+    from audio8_tpu_torch.models.wav2vec2 import Wav2Vec2AcousticModel
+    from audio8_tpu_torch.ops.beam import PrefixBeamSearch
+    from audio8_tpu_torch.utils import Offsets, revlut
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        rows = write_timing_corpus(tmp, SEED)
+        lm = os.path.join(tmp, "lm.arpa")
+        audio_s = sum(n for n, _ in rows) / SR
+        emit({"phase": "test_timing_corpus", "utterances": len(rows),
+              "audio_s": audio_s, "words": sum(len(t) for _, t in rows),
+              "lm_ngrams": TIMING_LM_SIZES,
+              "lm_mb": os.path.getsize(lm) / 2 ** 20,
+              "seconds": time.perf_counter() - t0})
+        Offsets.remap_fairseq_ctc()
+        vocab_list = read_vocab_list(os.path.join(tmp, "dict.ltr.txt"))
+        ckpt = os.path.join(tmp, "ctc.pt")
+        save_fairseq_ctc(Wav2Vec2AcousticModel(
+            base_config(len(vocab_list)),
+            generator=torch.Generator().manual_seed(SEED)), ckpt)
+        common = ["--checkpoint", ckpt, "--root_dir", tmp,
+                  "--valid_dataset", "valid.tsv", "--device", "cuda"]
+        test_cli.evaluate(common)  # warm-up: kernels built, cuDNN tuned
+        for rep in range(TIMING_REPS):
+            m = test_cli.evaluate(common)
+            check(m["utterances"] == len(rows), f"cli.test scored {m}")
+            emit({"phase": "test_timing", "run": "greedy", "rep": rep,
+                  "eval_seconds": m["eval_seconds"],
+                  "audio_s_per_s": m["audio_seconds"] / m["eval_seconds"],
+                  "wer": m["wer"], "cer": m["cer"]})
+        for rep in range(2):
+            m = test_cli.evaluate(common + ["--beam", "8", "--lm", lm])
+            emit({"phase": "test_timing", "run": "beam_lm_model",
+                  "rep": rep, "eval_seconds": m["eval_seconds"],
+                  "beam_seconds": m["beam_seconds"],
+                  "beam_host_ms_per_utterance": 1e3 * m["beam_seconds"]
+                  / m["utterances"], "wer": m["wer"],
+                  "beam_wer": m["werr_lm_8"]})
+
+        vocab = {v: i for i, v in enumerate(vocab_list)}
+        rng = np.random.default_rng(SEED + 12)
+        lps, targets = [], []
+        for n, text in rows:
+            labels = np.array([vocab[c] for w in text for c in w + "|"])
+            frames = n // 320 - 1  # the extractor's frames at 16 kHz
+            lps.append(peaky_log_probs(labels, frames, len(vocab_list),
+                                       Offsets.GO, rng))
+            targets.append(labels)
+        t0 = time.perf_counter()
+        decoder = PrefixBeamSearch(vocab_list, alpha=0.7, beta=5.0, beam=8,
+                                   lm_file=lm)
+        emit({"phase": "test_timing", "run": "lm_load",
+              "seconds": time.perf_counter() - t0})
+        index2vocab = revlut(vocab)
+        for rep in range(TIMING_REPS):
+            errs = {"w_errors": 0, "wbeam_errors": 0, "w_total": 0}
+            host = 0.0
+            for s0 in range(0, len(rows), 16):
+                part = range(s0, min(s0 + 16, len(rows)))
+                t_max = max(len(lps[i]) for i in part)
+                lp = np.full((len(part), t_max, len(vocab_list)), -30.0,
+                             np.float32)
+                tok = np.full((len(part), max(len(targets[i])
+                                              for i in part)),
+                              Offsets.PAD, np.int32)
+                for r, i in enumerate(part):
+                    lp[r, :len(lps[i])] = lps[i]
+                    tok[r, :len(targets[i])] = targets[i]
+                lens = np.array([len(lps[i]) for i in part])
+                t0 = time.perf_counter()
+                sm = test_cli.run_step(index2vocab, lp, lens,
+                                       {"token_ids": tok},
+                                       ctc_decoder=decoder)
+                host += time.perf_counter() - t0
+                for k in errs:
+                    errs[k] += sm[k]
+            emit({"phase": "test_timing", "run": "beam_lm_peaky",
+                  "rep": rep, "host_seconds": host,
+                  "host_ms_per_utterance": 1e3 * host / len(rows),
+                  "frames": sum(len(x) for x in lps),
+                  "wer": 100 * errs["w_errors"] / errs["w_total"],
+                  "beam_wer": 100 * errs["wbeam_errors"] / errs["w_total"]})
+    print_card()
+    return 0
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if not torch.cuda.is_available():
@@ -2667,42 +3212,68 @@ def main(argv=None) -> int:
         return block_timing(gen)
     if argv == ["--core-timing"]:
         return core_timing(gen)
+    if argv == ["--test-timing"]:
+        return test_timing()
     if argv:
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
         return 2
 
-    phase_build()
-    worst = phase_kernels(gen)
-    worst.update(phase_train_kernels(gen))
-    worst.update(phase_conv_bwd_kernels(gen))
-    phase_variants(gen)
-    phase_train_variants(gen)
-    phase_pretrain_variants(gen)
-    cpu_model = phase_model(SEED)
+    start = time.perf_counter()
+    with timed("build"):
+        phase_build()
+    with timed("kernel"):
+        worst = phase_kernels(gen)
+        worst.update(phase_train_kernels(gen))
+        worst.update(phase_conv_bwd_kernels(gen))
+    with timed("variants"):
+        phase_variants(gen)
+        phase_train_variants(gen)
+        phase_pretrain_variants(gen)
+    with timed("model"):
+        cpu_model = phase_model(SEED)
     with tempfile.TemporaryDirectory() as tmp:
-        _, f32_texts = phase_serve(cpu_model, SEED, tmp)
+        with timed("serve"):
+            _, f32_texts = phase_serve(cpu_model, SEED, tmp)
         del cpu_model
         torch.cuda.empty_cache()
-        phase_serve_bf16(SEED, tmp, f32_texts)
+        with timed("serve_bf16"):
+            phase_serve_bf16(SEED, tmp, f32_texts)
         torch.cuda.empty_cache()
-        train_launches = phase_train(tmp, SEED)
+        with timed("train"):
+            train_launches = phase_train(tmp, SEED)
         torch.cuda.empty_cache()
-        launches, batches = phase_pretrain(tmp, SEED)
+        with timed("pretrain"):
+            launches, batches = phase_pretrain(tmp, SEED)
         torch.cuda.empty_cache()
-        phase_pretrain_bf16(tmp)
+        with timed("pretrain_bf16"):
+            phase_pretrain_bf16(tmp)
+        torch.cuda.empty_cache()
+        with timed("restart_test"):
+            restart_launches = phase_restart_test(tmp, SEED)
     torch.cuda.empty_cache()
-    for k, e in phase_pretrain_path_kernels(batches, gen).items():
-        worst[k] = max(worst[k], e)
+    with timed("pretrain_kernel"):
+        for k, e in phase_pretrain_path_kernels(batches, gen).items():
+            worst[k] = max(worst[k], e)
     torch.cuda.empty_cache()
-    block_launches = phase_pretrain_block(batches, SEED)
+    with timed("pretrain_block"):
+        block_launches = phase_pretrain_block(batches, SEED)
     torch.cuda.empty_cache()
-    phase_block_gate()
-    phase_train_vs_cpu(SEED)
-    phase_pretrain_vs_cpu(SEED, batches[-1][1])
-    phase_pretrain_vs_cpu(SEED, batches[-1][1], fused="block")
-    phase_pretrain_vs_cpu(SEED, batches[-1][1], fused=True, dropout=0.1)
+    with timed("block_gate"):
+        phase_block_gate()
+    with timed("train_vs_cpu"):
+        phase_train_vs_cpu(SEED)
+    with timed("pretrain_vs_cpu"):
+        phase_pretrain_vs_cpu(SEED, batches[-1][1])
+    with timed("block_vs_cpu"):
+        phase_pretrain_vs_cpu(SEED, batches[-1][1], fused="block")
+    with timed("kernel_vs_cpu"):
+        phase_pretrain_vs_cpu(SEED, batches[-1][1], fused=True,
+                              dropout=0.1)
     torch.cuda.empty_cache()
-    times = phase_timing(gen)
+    with timed("timing"):
+        times = phase_timing(gen)
+    emit({"phase": "phase_seconds", **PHASE_SECONDS,
+          "total": time.perf_counter() - start})
     check("jax" not in sys.modules and "audio8_tpu" not in sys.modules,
           "jax or the JAX package was imported")
     from audio8_tpu_torch.ops.attention_block import GEMM_ROUTES
@@ -2763,6 +3334,7 @@ def main(argv=None) -> int:
          "replaces": REPLACES[name],
          "path": PATH_OF.get(name, "pretrain"),
          "launches": path_launches[PATH_OF.get(name, "pretrain")][name],
+         "restart_test_launches": restart_launches.get(name, 0),
          "max_abs_err": worst[name],
          **{k: times[(name, torch.float32)][k] for k in keys},
          **extra(name)}

@@ -1,11 +1,15 @@
 """The port's entry-point flags against the JAX package's parsers.
 
-* Every flag of the JAX ``train``, ``pretrain``, ``transcribe`` and
-  ``serve`` parsers but ``--lane_align`` (ROADMAP.md "Not to port")
-  parses in the port's counterpart, with the same default and choices
-  (the parsers are captured at ``parse_args`` with no argument parsed).
+* Every flag of the JAX ``train``, ``pretrain``, ``transcribe``,
+  ``serve``, ``test`` and ``convert_checkpoint`` parsers but
+  ``--lane_align`` (ROADMAP.md "Not to port") parses in the port's
+  counterpart, with the same default and choices (the parsers are
+  captured at ``parse_args`` with no argument parsed).
 * A value the port cannot run raises ``NotImplementedError`` naming its
-  ROADMAP.md queue item, never an argparse exit.
+  ROADMAP.md queue item, never an argparse exit. Which values those are
+  depends on the entry point: ``cli.test`` and the trainer decode with
+  ``--beam`` and ``--lm``, which ``cli.transcribe`` and ``cli.serve``
+  still refuse, and both trainers take ``--restart_from``.
 * A value the port can run runs: dropout flags at inference, the LM
   weights without an LM, the MoE and transducer sizes without MoE or a
   transducer, the topology flags at the port's own topology.
@@ -19,18 +23,19 @@ from audio8_tpu_torch.cli.common import check_ported, encoder_kwargs
 from audio8_tpu_torch.config import AcousticConfig
 from audio8_tpu_torch.models.wav2vec2 import check_supported
 
-ENTRY_POINTS = ("train", "pretrain", "transcribe", "serve")
+ENTRY_POINTS = ("train", "pretrain", "transcribe", "serve", "test")
 # the arguments each port entry point needs to parse at all
 NEEDED = {"train": [], "pretrain": ["--manifest_dir", "m"],
           "transcribe": ["a.wav", "--checkpoint", "c.pt", "--dict_file",
                          "d.txt"],
-          "serve": ["--checkpoint", "c.pt", "--dict_file", "d.txt"]}
-TRAINING = {"train": True, "pretrain": True, "transcribe": False,
-            "serve": False}
+          "serve": ["--checkpoint", "c.pt", "--dict_file", "d.txt"],
+          "test": []}
 
 
 def captured_parser(module: str) -> argparse.ArgumentParser:
-    """The parser ``module.parse_args`` builds, caught before it parses."""
+    """The parser ``module`` builds (in ``parse_args``, or in the JAX
+    ``test.evaluate`` and ``convert_checkpoint.main``), caught before it
+    parses."""
     caught = {}
     real = argparse.ArgumentParser.parse_args
 
@@ -40,7 +45,11 @@ def captured_parser(module: str) -> argparse.ArgumentParser:
 
     argparse.ArgumentParser.parse_args = catch
     try:
-        importlib.import_module(module).parse_args([])
+        mod = importlib.import_module(module)
+        for name in ("parse_args", "evaluate", "main"):
+            if hasattr(mod, name):
+                getattr(mod, name)([])
+                break
     except SystemExit:
         pass
     finally:
@@ -53,7 +62,7 @@ def flags(parser):
             for s in a.option_strings if s.startswith("--")}
 
 
-@pytest.mark.parametrize("entry", ENTRY_POINTS)
+@pytest.mark.parametrize("entry", ENTRY_POINTS + ("convert_checkpoint",))
 def test_port_parses_every_jax_flag(entry):
     theirs = flags(captured_parser(f"audio8_tpu.cli.{entry}"))
     ours = flags(captured_parser(f"audio8_tpu_torch.cli.{entry}"))
@@ -70,13 +79,11 @@ def test_port_parses_every_jax_flag(entry):
 def parse_and_check(entry, extra):
     mod = importlib.import_module(f"audio8_tpu_torch.cli.{entry}")
     args = mod.parse_args(NEEDED[entry] + extra)
-    check_ported(args, training=TRAINING[entry])
+    check_ported(args, entry)
     return args
 
 
 @pytest.mark.parametrize("entry,extra,item", [
-    ("train", ["--beam", "4"], "item 6"),
-    ("train", ["--lm", "x.arpa"], "item 6"),
     ("train", ["--pipeline_parallel", "2"], "item 8"),
     ("train", ["--tensor_parallel", "2"], "item 8"),
     ("train", ["--fsdp", "true"], "item 8"),
@@ -84,7 +91,6 @@ def parse_and_check(entry, extra):
     ("train", ["--remat", "true"], "item 4"),
     ("train", ["--layer_drop", "0.1"], "item 4"),
     ("train", ["--noise_manifest", "n.tsv"], "item 4"),
-    ("train", ["--restart_from", "ckpt"], "item 1"),
     ("train", ["--distributed", "true"], "item 3"),
     ("train", ["--pre_norm", "true"], "item 7"),
     ("train", ["--preset", "large-lv60"], "item 7"),
@@ -95,6 +101,7 @@ def parse_and_check(entry, extra):
     ("pretrain", ["--pos_conv_depth", "5"], "item 7"),
     ("pretrain", ["--sequence_parallel", "true"], "item 8"),
     ("transcribe", ["--beam", "8"], "item 6"),
+    ("transcribe", ["--lm", "x.arpa"], "item 6"),
     ("transcribe", ["--timestamps", "true"], "item 6"),
     ("transcribe", ["--vad", "true"], "item 6"),
     ("transcribe", ["--quantize", "int8"], "item 6"),
@@ -102,12 +109,35 @@ def parse_and_check(entry, extra):
     ("transcribe", ["--device_beam", "true"], "item 7"),
     ("serve", ["--transducer", "true"], "item 7"),
     ("serve", ["--lm", "x.arpa"], "item 6"),
+    ("serve", ["--beam", "8"], "item 6"),
+    ("test", ["--exported", "artifact"], "item 6"),
+    ("test", ["--quantize", "int8"], "item 6"),
+    ("test", ["--transducer", "true"], "item 7"),
+    ("test", ["--device_beam", "true"], "item 7"),
+    ("test", ["--lm_rescore", "lm_dir"], "item 7"),
+    ("test", ["--tensor_parallel", "2"], "item 8"),
     ("serve", ["--zero1", "true"], "item 8"),
     ("serve", ["--conv_bias", "true"], "item 7"),
 ])
 def test_unported_values_raise_naming_their_item(entry, extra, item):
     with pytest.raises(NotImplementedError, match=item):
         parse_and_check(entry, extra)
+
+
+@pytest.mark.parametrize("entry,extra", [
+    ("train", ["--beam", "4"]),
+    ("train", ["--lm", "x.arpa"]),
+    ("train", ["--restart_from", "ckpt"]),
+    ("train", ["--verbose", "true", "--restart_tt", "ignore"]),
+    ("pretrain", ["--restart_from", "run"]),
+    ("test", ["--beam", "8", "--lm", "x.arpa", "--verbose", "true"]),
+])
+def test_ported_values_pass(entry, extra):
+    """Values an entry point has ported pass its check (they raised
+    before: the trainer's beam and LM flags and ``--restart_from``)."""
+    args = parse_and_check(entry, extra)
+    assert all(getattr(args, a[2:]) is not None for a in extra
+               if a.startswith("--"))
 
 
 @pytest.mark.parametrize("entry", ENTRY_POINTS)
@@ -117,7 +147,7 @@ def test_runnable_values_run(entry):
         "--rel_pos_buckets", "16", "--pre_norm", "false",
         "--extractor_mode", "group", "--causal_left_chunks", "3",
         "--input_sample_rate", "16000"]
-    if not TRAINING[entry]:  # inert at inference, as in JAX
+    if entry not in ("train", "pretrain"):  # inert at inference, as in JAX
         extra += ["--dropout", "0.3", "--attention_dropout", "0.2",
                   "--layer_drop", "0.5", "--pred_dim", "64",
                   "--max_symbols_per_frame", "2"]

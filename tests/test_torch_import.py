@@ -15,6 +15,7 @@ import pytest
 import audio8_tpu_torch
 from audio8_tpu_torch.cli import pretrain as pretrain_cli
 from audio8_tpu_torch.cli import serve as serve_cli
+from audio8_tpu_torch.cli import test as test_cli
 from audio8_tpu_torch.cli import train as train_cli
 from audio8_tpu_torch.cli import transcribe
 from audio8_tpu_torch.utils import Offsets
@@ -33,6 +34,9 @@ def test_every_module_imports_with_jax_blocked():
     assert "audio8_tpu_torch.cli.serve" in mods
     assert "audio8_tpu_torch.cli.train" in mods
     assert "audio8_tpu_torch.cli.pretrain" in mods
+    for new in ("cli.test", "cli.convert_checkpoint", "csrc.native",
+                "ops.beam", "ops.lm", "train.checkpoint", "train.preempt"):
+        assert f"audio8_tpu_torch.{new}" in mods
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
@@ -104,7 +108,7 @@ def _restore_port_offsets():
 
 
 @pytest.mark.parametrize("entry", ["transcribe", "serve", "train",
-                                   "pretrain"])
+                                   "pretrain", "test"])
 def test_default_device_is_cuda_and_raises_without_a_card(
         entry, tmp_path, _restore_port_offsets):
     """This machine has no CUDA card: the default ``--device cuda`` raises
@@ -118,6 +122,9 @@ def test_default_device_is_cuda_and_raises_without_a_card(
         elif entry == "serve":
             serve_cli.build_service(serve_cli.parse_args(
                 ["--checkpoint", ckpt, "--dict_file", dict_file]))
+        elif entry == "test":
+            test_cli.evaluate(["--checkpoint", ckpt, "--root_dir",
+                               str(tmp_path), "--valid_dataset", "v.tsv"])
         elif entry == "pretrain":
             pretrain_cli.train(["--basedir", str(tmp_path / "run"),
                                 "--manifest_dir", str(tmp_path)])

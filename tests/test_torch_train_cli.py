@@ -3,7 +3,8 @@ takes 3 optimizer steps on a tiny synthetic corpus (frozen, then
 unfrozen; time masking and dropout on), validates, writes a
 fairseq-layout checkpoint, and ``cli.transcribe --device cpu`` reads it
 back; with ``--freeze_fx false`` the unfrozen steps train the feature
-extractor too. Flags of parts not ported yet raise."""
+extractor too. Flags of parts not ported yet raise (``--restart_from`` is
+ported and tested in ``tests/test_torch_restart.py``)."""
 import os
 
 import numpy as np
@@ -88,20 +89,20 @@ def test_unfrozen_extractor_trains(corpus, tmp_path):
         return {k: v.detach().clone() for k, v in model.state_dict().items()
                 if "feature_extractor.conv_layers" in k}
 
-    real_save = train_cli.save_fairseq_ctc
+    real_save = train_cli.save_checkpoint
 
-    def keep_weights(model, path):
-        seen[os.path.basename(path)] = fx_weights(model)
-        real_save(model, path)
+    def keep_weights(state, path, kind):
+        seen[os.path.basename(path)] = fx_weights(state.model)
+        return real_save(state, path, kind)
 
     args = _train_args(corpus, str(tmp_path / "run"))
     args[args.index("--train_steps") + 1] = "2"
     args[args.index("--unfreeze_enc_after_step") + 1] = "0"
-    train_cli.save_fairseq_ctc = keep_weights  # saved after every step
+    train_cli.save_checkpoint = keep_weights  # saved after every step
     try:
         state = train_cli.train(args + ["--freeze_fx", "false"])
     finally:
-        train_cli.save_fairseq_ctc = real_save
+        train_cli.save_checkpoint = real_save
     assert [r["frozen"] for r in state.log] == [True, False]
     assert all(np.isfinite(r["loss"]) for r in state.log)
     frozen, unfrozen = seen["checkpoint-step-1.pt"], seen["checkpoint-step-2.pt"]
@@ -112,7 +113,7 @@ def test_unfrozen_extractor_trains(corpus, tmp_path):
         assert not torch.equal(frozen[k], unfrozen[k]), k
 
 
-@pytest.mark.parametrize("flag", [["--restart_from", "x.pt"],
+@pytest.mark.parametrize("flag", [["--noise_manifest", "n.tsv"],
                                   ["--speed_perturb", "0.9", "1.1"],
                                   ["--tensor_parallel", "2"],
                                   ["--layer_drop", "0.1"],
