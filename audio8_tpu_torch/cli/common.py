@@ -84,6 +84,7 @@ DATA_PARALLEL = "ROADMAP.md queue 1, item 3 (data parallel)"
 TRAINER = "ROADMAP.md queue 1, item 4 (the trainers' remaining flags)"
 TOPOLOGY = "ROADMAP.md queue 1, item 7 (topologies and recipes)"
 PARALLEL = "ROADMAP.md queue 1, item 8 (parallelism beyond DP)"
+TEXT_WARMSTART = "ROADMAP.md queue 1, item 10 (text warm start)"
 
 # flag -> (its value when unused, the item that ports it). Any other
 # value raises; a flag an entry point does not have is skipped.
@@ -108,10 +109,12 @@ NOT_PORTED = {
     "vad": (False, DECODE),
     "quantize": ("none", DECODE),
     "exported": (None, DECODE),
+    "warmstart_text": (None, TEXT_WARMSTART),
 }
 # not ported in training; inert at inference, as in JAX
 TRAINING_ONLY = {"layer_drop": (0.0, TRAINER)}
-TRAINING_ENTRIES = ("train", "pretrain")
+TRAINING_ENTRIES = ("train", "pretrain", "train_seq2seq",
+                    "pretrain_paired")
 # entry point -> the flags of NOT_PORTED it has ported (the beam search
 # and LM fusion of the trainer's verbose validation and of cli.test)
 PORTED = {"train": ("beam", "lm"), "test": ("beam", "lm")}
@@ -147,8 +150,9 @@ def encoder_kwargs(args: Namespace) -> dict:
 
 def check_ported(args: Namespace, entry: str) -> None:
     """Raise ``NotImplementedError`` for a flag whose value asks for a part
-    of the JAX entry point ``entry`` (``train``, ``pretrain``, ``test``,
-    ``transcribe``, ``serve``) that is not ported yet, naming the
+    of the JAX entry point ``entry`` (``train``, ``pretrain``,
+    ``train_seq2seq``, ``pretrain_paired``, ``test``, ``transcribe``,
+    ``serve``) that is not ported yet, naming the
     ROADMAP.md item; the topology flags through ``check_supported``."""
     from audio8_tpu_torch.config import EncoderConfig
     from audio8_tpu_torch.models.wav2vec2 import check_supported
@@ -299,11 +303,26 @@ def _fairseq_weights(path: str, model: torch.nn.Module,
     return loaded
 
 
-def load_weights(path: str, model: torch.nn.Module, ctc: bool) -> None:
-    """Load a fairseq ``.pt``'s weights (:func:`_fairseq_weights`) over
-    ``model``'s: its keys that the file lacks (the CTC head under a
-    pretrained encoder) keep their values, the file's keys the model lacks
-    (the quantizer and projections) are dropped."""
+def load_weights(path: str, model: torch.nn.Module, ctc: bool,
+                 kind: Optional[str] = None) -> None:
+    """Load a ``.pt``'s weights over ``model``'s. The port's own seq2seq
+    or paired checkpoint of ``kind`` loads whole; otherwise the file is a
+    fairseq one (:func:`_fairseq_weights`; ``ctc``: into the model's
+    ``encoder``): its keys that the file lacks (the CTC head or the
+    decoder under a pretrained encoder) keep their values, the file's
+    keys the model lacks (the quantizer and projections) are dropped. A
+    paired model takes no fairseq file (the JAX trainer would merge none
+    of its keys)."""
+    from audio8_tpu_torch.train.checkpoint import load_port_checkpoint
+
+    own = load_port_checkpoint(path, kind) if kind else None
+    if own is not None:
+        model.load_state_dict(own, strict=True)
+        logger.info("weights from %s: the %s model", path, kind)
+        return
+    if kind == "paired":
+        raise ValueError(f"{path}: not a paired checkpoint of the port; a "
+                         "fairseq .pt holds no paired model")
     loaded = _fairseq_weights(path, model, ctc)
     merged = model.state_dict()
     dropped = [k for k in loaded if k not in merged]
@@ -316,15 +335,19 @@ def load_weights(path: str, model: torch.nn.Module, ctc: bool) -> None:
 
 
 def resolve_restart(restart_from: Optional[str], state, ctc: bool,
-                    restart_tt: Optional[str] = None) -> int:
+                    restart_tt: Optional[str] = None,
+                    kind: Optional[str] = None) -> int:
     """``--restart_from`` with the JAX package's semantics
     (``audio8_tpu/cli/common.py:resolve_restart``), on the port's
     checkpoints; loads into ``state.model`` (and ``state``) in place and
-    returns the global step to start from.
+    returns the global step to start from. ``kind`` is the model's
+    checkpoint kind (``train/checkpoint.py``), by default ``ctc`` or
+    ``pretrain`` by ``ctc``; ``seq2seq`` passes ``ctc`` too, so a
+    pretrained fairseq file fills its ``encoder``.
 
     - a ``.pt`` named directly is a warm start at step 0, even when it
-      is one of the port's own checkpoints: its weights load as fairseq
-      weights over the initialised model (:func:`load_weights`);
+      is one of the port's own checkpoints: its weights load over the
+      initialised model (:func:`load_weights`);
     - a directory picks its latest ``checkpoint-step-N.pt`` and loads its
       weights so. A resume file beside it (``train/checkpoint.py``) of
       this model's kind over the same parameters restores the AdamW
@@ -339,8 +362,9 @@ def resolve_restart(restart_from: Optional[str], state, ctc: bool,
 
     if not restart_from:
         return 0
-    if not os.path.isdir(restart_from):  # a fairseq .pt: a warm start
-        load_weights(restart_from, state.model, ctc)
+    kind = kind or ("ctc" if ctc else "pretrain")
+    if not os.path.isdir(restart_from):  # a .pt: a warm start
+        load_weights(restart_from, state.model, ctc, kind)
         state.step = state.opt_state.count = 0
         return 0
     if os.path.exists(os.path.join(restart_from, "config.json")):
@@ -348,8 +372,8 @@ def resolve_restart(restart_from: Optional[str], state, ctc: bool,
             f"--restart_from {restart_from}: HuggingFace checkpoints are "
             f"not ported yet: {TOPOLOGY}")
     path, _ = find_latest_checkpoint(restart_from)
-    load_weights(path, state.model, ctc)
-    resumed = load_resume(state, path, "ctc" if ctc else "pretrain")
+    load_weights(path, state.model, ctc, kind)
+    resumed = load_resume(state, path, kind)
     if resumed is not None:
         logger.info("resumed the full state at step %d", resumed)
         return resumed

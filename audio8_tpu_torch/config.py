@@ -4,7 +4,8 @@ The port keeps its own copy of the configuration it reads, with the JAX
 package's field names and defaults, so a config built for one package
 means the same in the other. Left out: the ``lane_aligned_*`` helpers
 (128-lane TPU tiling, ROADMAP "Not to port") and the configs of
-objectives that are not ported yet (HuBERT, data2vec, seq2seq, ...).
+objectives that are not ported yet (HuBERT, data2vec, RNN-T, the text
+LM).
 """
 from __future__ import annotations
 
@@ -132,3 +133,42 @@ class PretrainConfig(EncoderConfig):
     timestep_masking: float = 0.65
     channel_masking: float = 0.0
     n_negatives: int = 100
+
+
+@dataclasses.dataclass(frozen=True)
+class PooledConfig(EncoderConfig):
+    """Pooled utterance encoder: the paired model's audio tower."""
+
+    reduction_type: str = "sha"
+    reduction_d_k: int = 64
+    final_output_dim: Optional[int] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class TextEncoderConfig:
+    """The paired model's text tower."""
+
+    vocab_size: int = 0
+    d_model: int = 512
+    num_heads: int = 8
+    num_layers: int = 8
+    dropout: float = 0.1
+    d_ff: int = 2048
+    rpr_k: Optional[int] = 8
+    reduction_type: str = "max"
+    reduction_d_k: int = 64
+    encoder_type: str = "transformer"  # or 'bow'
+
+
+@dataclasses.dataclass(frozen=True)
+class DecoderConfig:
+    """The seq2seq model's text decoder."""
+
+    vocab_size: int = 0
+    d_model: int = 768
+    num_heads: int = 4
+    num_layers: int = 2
+    dropout: float = 0.1
+    d_ff: Optional[int] = None
+    layer_drop: float = 0.0
+    max_len: int = 1200

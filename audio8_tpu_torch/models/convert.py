@@ -11,11 +11,15 @@ The port's parameter names are fairseq's, so:
   except that fairseq's ``quantizer.vars`` carries a leading axis of size
   1 (:func:`to_fairseq_pretrained_state`,
   :func:`from_fairseq_pretrained_state`, :func:`save_fairseq_pretrained`);
-* a JAX ``Wav2Vec2AcousticModel`` or ``Wav2Vec2Model`` parameter tree maps
-  key by key (:func:`params_from_jax`): Dense ``kernel (in, out)`` becomes
-  ``weight (out, in)``, conv ``kernel (K, C_in/g, C_out)`` becomes
-  ``(C_out, C_in/g, K)``, ``scale`` becomes ``weight``, as the inverse of
-  ``audio8_tpu/models/convert.py:_encoder_assignments``. Given the JAX
+* a JAX ``Wav2Vec2AcousticModel``, ``Wav2Vec2Model`` or ``Seq2Seq``
+  parameter tree, or the paired ``{'model': DualEncoderModel, 'loss':
+  SymmetricCLIPLoss}`` tree, maps key by key (:func:`params_from_jax`):
+  Dense ``kernel (in, out)`` becomes ``weight (out, in)``, conv ``kernel
+  (K, C_in/g, C_out)`` becomes ``(C_out, C_in/g, K)``, ``scale`` becomes
+  ``weight``. The wav2vec2 encoders take fairseq's names (the inverse of
+  ``audio8_tpu/models/convert.py:_encoder_assignments``); the decoder,
+  the text towers, the reductions, the projections and ``logit_scale``
+  keep the JAX names (:func:`_by_name_assignments`). Given the JAX
   optimizer state too (optax ``adamw``/``adam`` or ``FusedAdamW``), it
   carries the moments and the step count across, so both packages can
   train on from the same point.
@@ -187,25 +191,78 @@ def _encoder_assignments(jax_root: Tuple[str, ...], port_root: str,
     return out
 
 
-def _jax_assignments(tree: Mapping[str, Any]
-                     ) -> List[Tuple[Tuple[str, ...], str, Callable]]:
-    """(JAX path, port key, transform) for a JAX ``Wav2Vec2AcousticModel``
-    tree (the encoder body under ``encoder``, the CTC head ``proj``) or a
-    ``Wav2Vec2Model`` tree (the body at the top level, with the quantizer
-    and the two projections)."""
-    pretrain = "quantizer" in tree
-    body = tree if pretrain else tree["encoder"]
+def _body_assignments(tree: Mapping[str, Any], jax_root: Tuple[str, ...],
+                      port_root: str):
+    """:func:`_encoder_assignments` for the encoder body at ``jax_root``,
+    its depths read from the tree."""
+    body = tree
+    for p in jax_root:
+        body = body[p]
     num_fx = sum(1 for k in body["feature_extractor"]
                  if k.startswith("conv_"))
     num_layers = sum(1 for k in body["encoder"]["transformer"]
                      if k.startswith("layer_"))
+    return _encoder_assignments(jax_root, port_root, num_fx, num_layers)
+
+
+# flax's automatic names of the reductions' heads -> the port's
+_RENAMES = {"TwoHeadConcat_0": "head", "SingleHeadReduction_0": "head"}
+
+
+def _by_name_assignments(node: Mapping[str, Any], jax_path: Tuple[str, ...],
+                         port_prefix: str
+                         ) -> List[Tuple[Tuple[str, ...], str, Callable]]:
+    """(JAX path, port key, transform) for a subtree whose port modules
+    carry the JAX names: Dense ``kernel`` -> ``weight`` transposed,
+    LayerNorm ``scale`` -> ``weight``, every other leaf (``bias``,
+    ``embedding``, ``pos_embedding``, ``logit_scale``) as it is."""
+    out = []
+    for k, v in node.items():
+        path = jax_path + (k,)
+        if isinstance(v, Mapping):
+            out += _by_name_assignments(
+                v, path, f"{port_prefix}{_RENAMES.get(k, k)}.")
+        elif k == "kernel":
+            out.append((path, port_prefix + "weight", _t))
+        else:
+            out.append((path, port_prefix + ("weight" if k == "scale"
+                                             else k), _same))
+    return out
+
+
+def _jax_assignments(tree: Mapping[str, Any]
+                     ) -> List[Tuple[Tuple[str, ...], str, Callable]]:
+    """(JAX path, port key, transform) for a JAX ``Wav2Vec2AcousticModel``
+    tree (the encoder body under ``encoder``, the CTC head ``proj``), a
+    ``Wav2Vec2Model`` tree (the body at the top level, with the quantizer
+    and the two projections), a ``Seq2Seq`` tree (the body under
+    ``encoder``, the ``decoder``) or the paired tree (``model``: the
+    audio tower's body under ``audio_encoder/encoder``, its reduction,
+    the text tower and the projections; ``loss``)."""
+    if "model" in tree and "loss" in tree:
+        model, audio = tree["model"], tree["model"]["audio_encoder"]
+        out = _body_assignments(tree, ("model", "audio_encoder", "encoder"),
+                                "model.audio_encoder.encoder.")
+        for k in audio:
+            if k != "encoder":
+                out += _by_name_assignments(
+                    audio[k], ("model", "audio_encoder", k),
+                    f"model.audio_encoder.{k}.")
+        for k in model:
+            if k != "audio_encoder":
+                out += _by_name_assignments(model[k], ("model", k),
+                                            f"model.{k}.")
+        return out + _by_name_assignments(tree["loss"], ("loss",), "loss.")
+    if "decoder" in tree:
+        return _body_assignments(tree, ("encoder",), "encoder.") \
+            + _by_name_assignments(tree["decoder"], ("decoder",), "decoder.")
+    pretrain = "quantizer" in tree
     if not pretrain:
-        out = _encoder_assignments(("encoder",), "encoder.", num_fx,
-                                   num_layers)
+        out = _body_assignments(tree, ("encoder",), "encoder.")
         out.append((("proj", "kernel"), "proj.weight", _t))
         out.append((("proj", "bias"), "proj.bias", _same))
         return out
-    out = _encoder_assignments((), "", num_fx, num_layers)
+    out = _body_assignments(tree, (), "")
     out.append((("quantizer", "vars"), "quantizer.vars", _same))
     for path in (("quantizer", "weight_proj"), ("project_q",),
                  ("final_proj",)):
@@ -230,9 +287,11 @@ def _adam_state(opt_state: Any):
 
 
 def params_from_jax(tree: Mapping[str, Any], opt_state: Any = None):
-    """JAX ``Wav2Vec2AcousticModel`` or ``Wav2Vec2Model`` params (a nested
-    mapping of arrays, e.g. ``jax.tree.map(np.asarray, params)``) -> the
-    port's state dict.
+    """JAX ``Wav2Vec2AcousticModel``, ``Wav2Vec2Model`` or ``Seq2Seq``
+    params, or the paired ``{'model': ..., 'loss': ...}`` params (a
+    nested mapping of arrays, e.g. ``jax.tree.map(np.asarray, params)``)
+    -> the port's state dict (for the paired tree, a
+    ``models.dual_encoder.PairedModule``'s).
     Raises ``KeyError`` naming any JAX parameter left unmapped.
 
     With ``opt_state`` (the JAX AdamW state, arrays as numpy) it returns

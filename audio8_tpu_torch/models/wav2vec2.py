@@ -10,6 +10,8 @@ carry, so fairseq checkpoints load by prefix, ``models/convert.py``):
                            encoder.layers.{i}
   Wav2Vec2Encoder          + layer_norm, post_extract_proj, mask_emb
   Wav2Vec2AcousticModel    encoder (a Wav2Vec2Encoder) + proj (CTC head)
+  Wav2Vec2PooledEncoder    encoder + [proj_layer] + reduction (the paired
+                           model's audio tower; JAX names past the encoder)
   GumbelVectorQuantizer    quantizer.vars, quantizer.weight_proj
   Wav2Vec2Model            the Wav2Vec2Encoder's modules at the top level
                            + quantizer, project_q, final_proj
@@ -39,10 +41,12 @@ import torch
 from torch import nn
 
 from audio8_tpu_torch.config import (DIVERSITY_WGT, XE_WGT, AcousticConfig,
-                                     EncoderConfig, PretrainConfig)
+                                     EncoderConfig, PooledConfig,
+                                     PretrainConfig)
 from audio8_tpu_torch.nn.dropout import dropout
 from audio8_tpu_torch.nn.layers import (Conv1D, Dense, GroupNorm, LayerNorm,
                                         PositionalConv, gelu)
+from audio8_tpu_torch.nn.pooling import Reduction
 from audio8_tpu_torch.nn.transformer import TransformerEncoderStack
 from audio8_tpu_torch.ops.hashrand import (draw_seed, hash_gumbel,
                                            hash_randint)
@@ -168,6 +172,18 @@ def downsample_lengths(input_lengths: torch.Tensor, t_samples: int,
     return torch.clamp(input_lengths // ratio, max=t_frames)
 
 
+def init_weights(root: nn.Module, generator: torch.Generator,
+                 mask_emb: nn.Parameter) -> None:
+    """The JAX package's random init of a model holding a wav2vec2
+    encoder: every submodule's own ``init_from`` in module order, then
+    the encoder's mask embedding uniform in [0, 1)."""
+    for m in root.modules():
+        if hasattr(m, "init_from") and m is not root:
+            m.init_from(generator)
+    with torch.no_grad():
+        mask_emb.uniform_(0.0, 1.0, generator=generator)
+
+
 class Wav2Vec2Encoder(nn.Module):
     """Conv features -> LayerNorm -> projection -> (training-time dropout
     and masking) -> transformer."""
@@ -248,11 +264,7 @@ class Wav2Vec2AcousticModel(nn.Module):
             self.init_from(generator)
 
     def init_from(self, generator: torch.Generator) -> None:
-        for m in self.modules():
-            if hasattr(m, "init_from") and m is not self:
-                m.init_from(generator)
-        with torch.no_grad():
-            self.encoder.mask_emb.uniform_(0.0, 1.0, generator=generator)
+        init_weights(self, generator, self.encoder.mask_emb)
 
     def forward(self, x: torch.Tensor,
                 input_lengths: Optional[torch.Tensor] = None,
@@ -267,6 +279,43 @@ class Wav2Vec2AcousticModel(nn.Module):
             encoded, pad_mask = self.encoder(x, input_lengths, generator)
         logits = self.proj(encoded).float()
         return torch.log_softmax(logits, dim=-1), pad_mask
+
+
+class Wav2Vec2PooledEncoder(nn.Module):
+    """Encoder + optional projection (``proj_layer`` to
+    ``final_output_dim``) + utterance reduction -> (B, out_dim). The
+    paired model's audio tower."""
+
+    def __init__(self, cfg: PooledConfig, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.config = cfg
+        self.encoder = Wav2Vec2Encoder(cfg, dtype)
+        self.out_dim = cfg.final_output_dim or cfg.d_model
+        if cfg.final_output_dim:
+            self.proj_layer = Dense(cfg.d_model, cfg.final_output_dim,
+                                    dtype=dtype)
+        self.reduction = Reduction(cfg.reduction_type, self.out_dim,
+                                   cfg.reduction_d_k, cfg.dropout, dtype)
+
+    @property
+    def output_dim(self) -> int:
+        return self.out_dim
+
+    def forward(self, x: torch.Tensor,
+                input_lengths: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None,
+                freeze: bool = True):
+        """``generator``: training mode. ``freeze``: no gradient into the
+        encoder (it runs under ``torch.no_grad()``, the JAX
+        ``stop_gradient`` on its output)."""
+        with torch.no_grad() if freeze else contextlib.nullcontext():
+            encoded, pad_mask = self.encoder(x, input_lengths, generator)
+        if self.config.final_output_dim:
+            encoded = self.proj_layer(encoded)
+        if pad_mask is None:
+            pad_mask = torch.ones(encoded.shape[:2], dtype=torch.bool,
+                                  device=encoded.device)
+        return self.reduction(encoded, pad_mask, generator)
 
 
 class GumbelVectorQuantizer(nn.Module):

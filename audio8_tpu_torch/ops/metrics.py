@@ -73,6 +73,29 @@ def ctc_metrics(log_probs: np.ndarray, targets: np.ndarray,
     return m
 
 
+def decode_metrics(decoded: Sequence[Sequence[int]], targets: np.ndarray,
+                   index2vocab: Dict[int, str],
+                   postproc_fn: Callable = postproc_letters
+                   ) -> Dict[str, int]:
+    """WER/CER numerators and denominators of already-decoded id rows
+    (seq2seq greedy or beam outputs): each row deduplicated and stripped
+    of blanks as the CTC path does, as the JAX ``decode_metrics``."""
+    blank = Offsets.GO
+    m = dict(c_errors=0, c_total=0, w_errors=0, wv_errors=0, w_total=0)
+    for dp, t_row in zip(decoded, targets):
+        pred = greedy_collapse(dp, blank)
+        targ = _target_units(np.asarray(t_row))
+        m["c_errors"] += edit_distance(pred, targ)
+        m["c_total"] += len(targ)
+        targ_words = postproc_fn([index2vocab[x] for x in targ]).split()
+        pred_words = postproc_fn([index2vocab[x] for x in pred]).split()
+        dist = edit_distance(pred_words, targ_words)
+        m["w_errors"] += dist
+        m["wv_errors"] += dist
+        m["w_total"] += len(targ_words)
+    return m
+
+
 def decode_text_wer(pred_units: str, target_row: np.ndarray,
                     index2vocab: Dict[int, str],
                     postproc_fn: Callable = postproc_letters):

@@ -1,8 +1,10 @@
 """Checkpoints of the port's trainers.
 
-A checkpoint is a fairseq-layout ``.pt`` (``{base}-step-N.pt``, CTC or
-pretrained, ``models/convert.py``), which the JAX package reads with
-``load_fairseq_bin``, plus a resume file beside it
+A CTC or pretraining checkpoint is a fairseq-layout ``.pt``
+(``{base}-step-N.pt``, ``models/convert.py``), which the JAX package
+reads with ``load_fairseq_bin``; a seq2seq or paired one is the port's
+own ``.pt``, ``{"kind": kind, "model": state_dict}`` (no fairseq layout
+holds a decoder or a text tower). Beside each is a resume file
 (``{base}-step-N.resume``, torch state dicts) that holds what a
 restart needs to continue the same run: the AdamW moments and step
 count (the LR schedule's position), the trainer's step (in pretraining
@@ -22,7 +24,8 @@ from audio8_tpu_torch.models.convert import (save_fairseq_ctc,
                                              save_fairseq_pretrained)
 
 RESUME_SUFFIX = ".resume"
-KINDS = ("ctc", "pretrain")
+KINDS = ("ctc", "pretrain", "seq2seq", "paired")
+FAIRSEQ_KINDS = ("ctc", "pretrain")
 
 
 def parse_checkpoint_step(path: str) -> int:
@@ -51,12 +54,19 @@ def resume_path(checkpoint: str) -> str:
 
 
 def save_checkpoint(state, path: str, kind: str) -> str:
-    """Write ``state.model`` as a fairseq ``.pt`` at ``path`` (CTC or
-    pretrained by ``kind``) and the resume file beside it."""
+    """Write ``state.model`` at ``path`` (a fairseq ``.pt``, CTC or
+    pretrained, or the port's own seq2seq or paired ``.pt``, by ``kind``)
+    and the resume file beside it."""
     if kind not in KINDS:
         raise ValueError(f"kind {kind!r}: want one of {KINDS}")
-    save = save_fairseq_ctc if kind == "ctc" else save_fairseq_pretrained
-    save(state.model, path)
+    if kind in FAIRSEQ_KINDS:
+        save = (save_fairseq_ctc if kind == "ctc"
+                else save_fairseq_pretrained)
+        save(state.model, path)
+    else:
+        torch.save({"kind": kind, "model": {
+            k: v.detach().cpu() for k, v in state.model.state_dict().items()}},
+            path)
     opt = state.opt_state
     torch.save({"kind": kind, "step": int(state.step),
                 "count": int(opt.count), "names": list(state.names),
@@ -84,3 +94,15 @@ def load_resume(state, checkpoint: str, kind: str) -> Optional[int]:
     state.load_adam_state(blob["count"], blob["mu"], blob["nu"])
     state.step = int(blob["step"])
     return state.step
+
+
+def load_port_checkpoint(path: str, kind: str) -> Optional[dict]:
+    """The state dict of a seq2seq or paired ``.pt`` the port wrote, if
+    ``path`` is one of this ``kind``, else ``None``."""
+    try:
+        blob = torch.load(path, map_location="cpu", weights_only=True)
+    except Exception:  # a fairseq file holds more than tensors
+        return None
+    if isinstance(blob, dict) and blob.get("kind") == kind:
+        return blob["model"]
+    return None

@@ -1,6 +1,7 @@
-"""The step factories of CTC fine-tuning and contrastive pretraining
-(``audio8_tpu/train/steps.py``: ``make_ctc_steps``,
-``make_pretrain_steps``).
+"""The step factories of CTC fine-tuning, contrastive pretraining,
+seq2seq and paired pretraining (``audio8_tpu/train/steps.py``:
+``make_ctc_steps``, ``make_pretrain_steps``, ``make_seq2seq_steps``,
+``make_paired_steps``).
 
 CTC: ``grad_fn`` runs one forward and backward and returns the summed loss,
 one gradient per parameter (zeros for parameters that got none, as JAX
@@ -17,6 +18,16 @@ norm 1.0 and steps (no 1/B scaling: the loss is a slot average);
 and the quantizer's argmax. Both take the step's seeds
 (``models.wav2vec2.PretrainSeeds``) as an argument, as the JAX steps
 take their rng.
+
+Seq2seq: teacher forcing shifts the targets (``token_ids[:, :-1]`` in,
+``token_ids[:, 1:]`` scored by :func:`sequence_loss`), the decoder
+lengths clamp at 0 (padding rows), and the grad/update pair is CTC's;
+``decode_fn`` decodes greedily or with a beam, ``eval_loss_fn`` scores
+teacher-forced. Paired: one optimizer over the model and the loss
+module's ``logit_scale`` (``models.dual_encoder.PairedModule``), each
+tower frozen or not by its own flag. A frozen leaf still takes its zero
+gradient through AdamW, weight decay included, as optax steps every
+leaf.
 """
 from __future__ import annotations
 
@@ -54,6 +65,29 @@ def accumulate_grads(acc: Optional[Dict[str, torch.Tensor]],
     return acc
 
 
+def _take_grads(module: torch.nn.Module) -> Dict[str, torch.Tensor]:
+    """Every parameter's gradient by name (zeros where none arrived, as
+    JAX returns for a frozen leaf); the ``.grad`` fields are cleared."""
+    grads = {}
+    for n, p in module.named_parameters():
+        grads[n] = torch.zeros_like(p) if p.grad is None else p.grad
+        p.grad = None
+    return grads
+
+
+def _scaled_update(clip: float):
+    def update_fn(state_, grads, total_examples):
+        """Step with the summed gradient over ``total_examples`` rows
+        (a number or a 0-dim tensor); returns ``(state, gnorm)``."""
+        total = torch.as_tensor(total_examples, dtype=torch.float32)
+        gnorm = state_.apply_gradients(
+            grads, grad_scale=1.0 / torch.clamp(total, min=1.0),
+            clip_norm=clip)
+        return state_, gnorm
+
+    return update_fn
+
+
 def make_ctc_steps(model, clip: float = 25.0, loss_reduction: str = "sum"):
     """Returns ``(grad_fn, update_fn, eval_fn)`` for CTC fine-tuning of
     ``model``; ``update_fn`` and ``grad_fn.train_step`` step a
@@ -82,21 +116,11 @@ def make_ctc_steps(model, clip: float = 25.0, loss_reduction: str = "sum"):
         loss = masked_ctc(log_probs, pad_mask.sum(dim=-1), targets,
                           target_lengths, rows)
         loss.backward()
-        grads = {}
-        for n, p in model.named_parameters():
-            grads[n] = torch.zeros_like(p) if p.grad is None else p.grad
-            p.grad = None
+        grads = _take_grads(model)
         num_tokens = (target_lengths * rows).sum().float()
         return loss.detach(), grads, rows.sum(), num_tokens
 
-    def update_fn(state_, grads, total_examples):
-        """Step with the summed gradient over ``total_examples`` rows
-        (a number or a 0-dim tensor); returns ``(state, gnorm)``."""
-        total = torch.as_tensor(total_examples, dtype=torch.float32)
-        gnorm = state_.apply_gradients(
-            grads, grad_scale=1.0 / torch.clamp(total, min=1.0),
-            clip_norm=clip)
-        return state_, gnorm
+    update_fn = _scaled_update(clip)
 
     def train_step(state_, batch, generator, freeze: bool = True):
         loss, grads, bsz, toks = grad_fn(batch, generator, freeze)
@@ -171,3 +195,94 @@ def make_pretrain_steps(model, clip: float = 1.0, n_negatives: int = 100):
                                       n_vars, n_negatives)
 
     return train_step, eval_step
+
+
+def sequence_loss(log_probs: torch.Tensor, targets: torch.Tensor,
+                  reduction: str = "sum") -> torch.Tensor:
+    """NLL over the non-PAD target positions, summed (``sum``) or per
+    token (``token``)."""
+    nll = -torch.gather(log_probs, -1, targets[..., None].long())[..., 0]
+    mask = (targets != Offsets.PAD).float()
+    total = (nll * mask).sum()
+    if reduction == "sum":
+        return total
+    return total / torch.clamp(mask.sum(), min=1.0)
+
+
+def _teacher_forcing(batch):
+    """(decoder input, scored targets, decoder lengths)."""
+    ids = batch["token_ids"]
+    return (ids[:, :-1], ids[:, 1:],
+            torch.clamp(batch["token_lengths"] - 1, min=0))
+
+
+def make_seq2seq_steps(model, clip: float = 25.0,
+                       loss_reduction: str = "sum"):
+    """Returns ``(grad_fn, update_fn, decode_fn, eval_loss_fn)`` for a
+    ``models.seq2seq.Seq2Seq``: ``grad_fn(batch, generator, freeze)`` ->
+    (summed loss, gradients by name, real rows, decoder tokens);
+    ``decode_fn(batch, max_output_len, beam)`` -> (tokens, lengths);
+    ``eval_loss_fn(batch)`` -> the teacher-forced loss."""
+
+    def grad_fn(batch, generator: Optional[torch.Generator],
+                freeze: bool = True):
+        rows = row_validity(batch)
+        dst, tgt, dst_lengths = _teacher_forcing(batch)
+        for p in model.parameters():
+            p.grad = None
+        log_probs = model(batch["signal"], batch["signal_lengths"], dst,
+                          dst_lengths, generator=generator, freeze=freeze)
+        loss = sequence_loss(log_probs, tgt, loss_reduction)
+        loss.backward()
+        num_tokens = (dst_lengths * rows).sum().float()
+        return loss.detach(), _take_grads(model), rows.sum(), num_tokens
+
+    def decode_fn(batch, max_output_len: int = 100, beam: int = 1):
+        if beam > 1:
+            return model.decode_beam(batch["signal"],
+                                     batch["signal_lengths"], beam,
+                                     max_output_len)
+        return model.decode(batch["signal"], batch["signal_lengths"],
+                            max_output_len)
+
+    @torch.no_grad()
+    def eval_loss_fn(batch):
+        dst, tgt, dst_lengths = _teacher_forcing(batch)
+        log_probs = model(batch["signal"], batch["signal_lengths"], dst,
+                          dst_lengths)
+        return sequence_loss(log_probs, tgt, loss_reduction)
+
+    return grad_fn, _scaled_update(clip), decode_fn, eval_loss_fn
+
+
+def make_paired_steps(module, clip: float = 25.0):
+    """Returns ``(grad_fn, update_fn, eval_fn)`` for paired pretraining of
+    a ``models.dual_encoder.PairedModule`` (``module.model`` the dual
+    encoder, ``module.loss`` the CLIP loss with its temperature):
+    ``grad_fn(batch, generator, freeze_audio, freeze_text)`` -> (loss,
+    metrics, gradients by name, real rows, text tokens); ``eval_fn(batch)``
+    -> (loss, metrics)."""
+
+    def grad_fn(batch, generator: Optional[torch.Generator],
+                freeze_audio: bool = True, freeze_text: bool = True):
+        rows = row_validity(batch)
+        for p in module.parameters():
+            p.grad = None
+        a, t = module.model(batch["signal"], batch["signal_lengths"],
+                            batch["token_ids"], batch["token_lengths"],
+                            generator=generator, freeze_audio=freeze_audio,
+                            freeze_text=freeze_text)
+        loss, metrics = module.loss(a, t, rows)
+        loss.backward()
+        num_tokens = (batch["token_lengths"] * rows).sum().float()
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        return (loss.detach(), metrics, _take_grads(module), rows.sum(),
+                num_tokens)
+
+    @torch.no_grad()
+    def eval_fn(batch):
+        a, t = module.model(batch["signal"], batch["signal_lengths"],
+                            batch["token_ids"], batch["token_lengths"])
+        return module.loss(a, t, row_validity(batch))
+
+    return grad_fn, _scaled_update(clip), eval_fn

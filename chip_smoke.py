@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (``audio8_tpu_torch``) on one CUDA card.
 
-Drives the port's serving path, its CTC fine-tuning path and its
-contrastive pretraining path at full wav2vec2-base width with seeded
-random weights, the pretraining path again through the attention block
+Drives the port's serving path, its CTC fine-tuning path, its
+contrastive pretraining path, its seq2seq path and its paired audio-text
+path at full wav2vec2-base width with seeded random weights, the
+pretraining path again through the attention block
 (``fused_attention="block"``), and holds every hand-written kernel
 against its plain PyTorch version. Phases, each printing JSON lines:
 
@@ -100,7 +101,40 @@ against its plain PyTorch version. Phases, each printing JSON lines:
               same step with ``fused_attention=True`` (the core in the TPU
               kernel's semantics on a model path) and every dropout at
               0.1, both sides fed the same seeds;
-13. timing   - each kernel vs its plain version and the one PyTorch call
+13. seq2seq - ``python -m audio8_tpu_torch.cli.train_seq2seq``'s entry
+              point at full width (the wav2vec2-base encoder warm-started
+              from phase 7's ``checkpoint-step-5.pt``, the default decoder
+              of 768 wide, 4 heads, 2 layers, 3072, max_len 1200) on a
+              letter corpus of 4-15 s rows: 6 steps of 2 micro-batches,
+              the encoder frozen up to step 3, the launches of kernels 2,
+              2b, 3, 4 and 5 (2b in each unfrozen micro-step and in no
+              frozen one), a validation greedy and with a beam of 4 (ms
+              per utterance), and the f32 and bf16 steps, frozen and
+              unfrozen, timed on one batch with the device's idle share
+              and the decoder's share of the step;
+    paired  - ``python -m audio8_tpu_torch.cli.pretrain_paired`` at full
+              width (the wav2vec2-base audio tower, the text tower 512
+              wide, 8 heads, 8 layers, 2048, rpr_k 8, max reductions,
+              output_dim 256) on BPE targets that ``cli.learn_bpe`` learned
+              on the corpus: 6 steps of 8 rows, both towers unfrozen after
+              step 3, the same launch checks and step timings;
+    seq2seq_vs_cpu, paired_vs_cpu - each phase's trained weights on the
+              card and the CPU: one unfrozen step (loss, gradient norm;
+              paired also ``logit_scale`` after the step and
+              ``clip_accuracy``), the greedy and beam-4 tokens (equal
+              unless the CPU scores both choices within a tie margin),
+              and one bf16 step each (the loss within 5e-3, the gradient
+              norm within 2^-5);
+    seq2seq_kernel, paired_kernel - kernels 2, 2b, 3, 4 and 5 against
+              their plain versions, in float32 and bfloat16, at every
+              shape the seq2seq and paired runs gave them (recorded at
+              the layers' calls): each conv input, each attention shape
+              with its key lengths and semantics (the backward where it
+              ran), each dropout input (the residual streams of the
+              encoders, the decoder and the text tower, and the decoder's
+              and text tower's attention probabilities (B, H, T_q, T_k)),
+              and AdamW over the runs' parameter shapes;
+14. timing   - each kernel vs its plain version and the one PyTorch call
               that computes the same function, in turns, as device time
               (kernel durations traced by torch.profiler), with the least
               time the card could take (``bound_ms``); the attention
@@ -124,9 +158,10 @@ card it exits with code 2 and prints no result.
     python3 chip_smoke.py --block-timing   # only the block's timing rows
     python3 chip_smoke.py --core-timing    # only rows 1, 2, 3, 3b, 3c, 6
     python3 chip_smoke.py --test-timing    # only cli.test's throughput
+    python3 chip_smoke.py --freeze-timing  # frozen steps, two ways
 
 ``--block-timing`` builds the block's two sources and prints only the
-attention block's timing rows (phase 13) in float32 and bfloat16, then
+attention block's timing rows (phase 14) in float32 and bfloat16, then
 the card's name and power limit;
 it drives only the wrappers that every tree of the port has had since
 the block came, so a copy placed in another tree's root times that
@@ -144,6 +179,13 @@ on the card over 320 FLACs of 1.5-15 s against a trigram ARPA of
 the beam+LM decode (``--beam 8 --lm``) on a random model's log-probs,
 and ``run_step``'s beam+LM decode of log-probs shaped like a trained
 model's (``peaky_log_probs``), in host ms per utterance.
+``--freeze-timing`` times the frozen seq2seq and paired steps at full
+width (random weights) in float32 and bfloat16 two ways, in turns: as
+the port runs them, a frozen tower under ``torch.no_grad()``, and with
+the frozen towers' graphs built and their outputs detached (the JAX
+``stop_gradient`` written as ``.detach()``): the wall ms of 10 steps,
+the device ms and idle share of two more in one trace, and the peak
+memory of a step.
 """
 from __future__ import annotations
 
@@ -671,7 +713,7 @@ def check_block_route(b, t, d, heads, dtype, run) -> str:
         _ext.DTYPE_CODES[dtype], d, heads, d // heads)
     check(GEMM_ROUTES[code] == route, f"attention_block route {route} vs "
           f"the kernels' {GEMM_ROUTES[code]} at {(b, t, d, heads)} {dtype}")
-    seen = {gemm_route_of(n) for n in traced_ms(run)} - {None}
+    seen = {gemm_route_of(n) for n in traced_ms(run, budget=False)} - {None}
     check(seen == {route}, f"attention_block {(b, t, d, heads)} {dtype}: "
           f"GEMM kernels of {seen}, want {route}")
     BLOCK_ROUTES_SEEN.add(route)
@@ -694,7 +736,7 @@ def check_kernel_route(seen, what, route, code, routes, run, route_of) -> str:
     check(routes[code] == route, f"{what}: route {route} vs the kernels' "
           f"{routes[code]}")
     if route not in seen:
-        ran = {route_of(n) for n in traced_ms(run)} - {None}
+        ran = {route_of(n) for n in traced_ms(run, budget=False)} - {None}
         check(ran == {route}, f"{what}: kernels of {ran}, want {route}")
         seen.add(route)
     return route
@@ -2224,33 +2266,876 @@ def phase_block_gate() -> None:
     emit({"phase": "block_gate", **seen})
 
 
-def traced_ms(fn) -> dict:
+# --------------------------------------------------------- seq2seq, paired
+
+# the kernels the seq2seq and paired paths run (the decoder's, the text
+# tower's and the reductions' attention is a torch composition, which the
+# JAX package leaves to XLA too; the extractor is frozen by default)
+S2S_PATH = ("conv_k3s2_fwd", "attention_fwd", "attention_bwd", "dropout",
+            "adamw")
+SEQ2SEQ_FLAGS = ["--target_tokens_per_batch", "700000", "--grad_accum", "2",
+                 "--train_steps", "6", "--unfreeze_enc_after_step", "3",
+                 "--warmup_steps", "2", "--steps_per_checkpoint", "6",
+                 "--valid_steps", "0", "--num_train_workers", "4"]
+VALID_BEAM = 4
+PAIRED_ROWS = 8
+PAIRED_FLAGS = ["--train_steps", "6", "--unfreeze_audio_after_step", "3",
+                "--unfreeze_text_after_step", "3", "--warmup_steps", "2",
+                "--steps_per_checkpoint", "6", "--valid_steps", "0",
+                "--num_train_workers", "4", "--target_type", "bpe"]
+# card vs CPU decoding: equal tokens, unless the CPU's own scores of the
+# two choices (a greedy step's two tokens, or two beams' whole normalised
+# hypotheses) lie within TIE_MARGIN per scored token: each device's
+# log-probs may be off by MODEL_TOL
+TIE_MARGIN = 2 * MODEL_TOL
+DECODE_LEN = 12  # tokens decoded in the card vs CPU comparison
+# one bf16 step card vs CPU: the loss within the bound the CPU's bf16
+# trajectories keep to JAX's (tests/test_torch_bf16.py), the gradient
+# norm within TOL[bf16]
+BF16_LOSS_RTOL = 5e-3
+
+
+@contextlib.contextmanager
+def per_call_launches(module, factory: str, records: list):
+    """Replace ``module.<factory>`` (a step factory) so that every call of
+    the ``grad_fn`` it makes appends ``(flags, launches in the call)``."""
+    real = getattr(module, factory)
+
+    def wrapped(*args, **kwargs):
+        fns = real(*args, **kwargs)
+
+        def grad_fn(batch, generator, **flags):
+            before = read_launches()
+            out = fns[0](batch, generator, **flags)
+            after = read_launches()
+            records.append((flags, {k: after[k] - before[k]
+                                    for k in after}))
+            return out
+
+        return (grad_fn,) + tuple(fns[1:])
+
+    setattr(module, factory, wrapped)
+    try:
+        yield
+    finally:
+        setattr(module, factory, real)
+
+
+def check_path_launches(phase, launches, records, flag) -> dict:
+    """Every path kernel ran; the attention backward (2b) ran in each
+    micro-step whose ``flag`` (the encoder's freeze) was off and in none
+    where it was on. Returns the 2b launches per micro-step."""
+    for name, n in launches.items():
+        check(n > 0, f"{name} was not launched by the {phase} run")
+    bwd = [(f[flag], d["attention_bwd"]) for f, d in records]
+    check(all((n == 0) == frozen for frozen, n in bwd),
+          f"{phase}: attention_bwd launches by freeze {bwd}")
+    check(any(frozen for frozen, _ in bwd) and not all(
+        frozen for frozen, _ in bwd), f"{phase}: freeze schedule {bwd}")
+    return {"frozen": [n for frozen, n in bwd if frozen],
+            "unfrozen": [n for frozen, n in bwd if not frozen]}
+
+
+@contextlib.contextmanager
+def recorded_path_calls(calls: dict):
+    """While the block runs, every call of the conv forward, the attention
+    core and the dropout wrapper that the model's layers make is noted
+    in ``calls`` (no host read in the step: the key mask is kept as a
+    tensor): ``conv`` (x shape, w shape), ``attention`` (q shape, key
+    mask, rate, semantics, whether autograd records it, so its
+    backward ran), ``dropout`` (x shape). The wrappers are the modules'
+    own names for the port's functions, replaced for the block and
+    restored after it."""
+    import audio8_tpu_torch.nn.dropout as nn_dropout
+    import audio8_tpu_torch.nn.layers as nn_layers
+    import audio8_tpu_torch.nn.transformer as nn_transformer
+
+    calls.update(conv=[], attention=[], dropout=[])
+    real = (nn_layers.conv1d_k3s2, nn_transformer.attention_core,
+            nn_dropout.fused_dropout)
+
+    def conv(x, w):
+        calls["conv"].append((tuple(x.shape), tuple(w.shape)))
+        return real[0](x, w)
+
+    def attention(q, k, v, key_valid, scale, rate, seed, **sem):
+        grad = torch.is_grad_enabled() and q.requires_grad
+        calls["attention"].append((tuple(q.shape), None if key_valid is None
+                                   else key_valid.detach().clone(), rate,
+                                   tuple(sorted(sem.items())), grad))
+        return real[1](q, k, v, key_valid, scale, rate, seed, **sem)
+
+    def dropout(x, rate, seed):
+        calls["dropout"].append(tuple(x.shape))
+        return real[2](x, rate, seed)
+
+    nn_layers.conv1d_k3s2 = conv
+    nn_transformer.attention_core = attention
+    nn_dropout.fused_dropout = dropout
+    try:
+        yield calls
+    finally:
+        (nn_layers.conv1d_k3s2, nn_transformer.attention_core,
+         nn_dropout.fused_dropout) = real
+
+
+def path_shapes(calls: dict) -> dict:
+    """The distinct shapes of :func:`recorded_path_calls`' notes: conv
+    (x, w) pairs and dropout shapes as they came; attention by (q shape,
+    semantics), with the key lengths of the first call of each (a
+    batch's rows; ``None`` without a mask), the largest rate and whether
+    any call ran its backward."""
+    attn = {}
+    for shape, kv, rate, sem, grad in calls["attention"]:
+        if (shape, sem) not in attn:
+            attn[shape, sem] = [None if kv is None else kv.sum(-1).tolist(),
+                                rate, grad]
+        a = attn[shape, sem]
+        a[1], a[2] = max(a[1], rate), a[2] or grad
+    return {"conv": sorted(set(calls["conv"])),
+            "dropout": sorted(set(calls["dropout"])),
+            "attention": [(shape, dict(sem), grad, lengths, rate)
+                          for (shape, sem), (lengths, rate, grad)
+                          in sorted(attn.items(), key=lambda kv: kv[0][0])]}
+
+
+def check_conv_fwd(phase, x_shape, w_shape, dtype, gen) -> float:
+    """The conv forward kernel vs its plain version on random inputs of a
+    path's (B, T_in, C_in) and (3, C_in, C_out), on the route its shape
+    takes; returns the max error."""
+    from audio8_tpu_torch.ops.conv import conv1d_k3s2, conv1d_k3s2_plain
+
+    x = torch.randn(x_shape, device="cuda", generator=gen).to(dtype)
+    w = (torch.randn(w_shape, device="cuda", generator=gen)
+         / np.sqrt(3 * w_shape[1])).to(dtype)
+    route = check_conv_fwd_route(x, w, lambda: conv1d_k3s2(x, w))
+    y = conv1d_k3s2(x, w)
+    torch.cuda.synchronize()
+    err, scale = max_err(y, conv1d_k3s2_plain(x, w))
+    tol = TOL[dtype] * max(1.0, scale)
+    emit({"phase": phase, "kernel": "conv_k3s2_fwd", "dtype": str(dtype),
+          "shape": [*x_shape, w_shape[2]], "route": route,
+          "max_abs_err": err, "tol": tol})
+    check(bool(torch.isfinite(y).all()) and err <= tol,
+          f"conv_k3s2_fwd {dtype} {x_shape}: {err} > {tol}")
+    return err
+
+
+def check_attn_fwd(phase, shape, lengths, rate, sem, dtype, gen) -> float:
+    """The attention core's forward kernel vs its plain version on random
+    q, k, v of a path's shape, key lengths and semantics, at rate 0 and at
+    the path's rate; returns the max error."""
+    from audio8_tpu_torch.ops.attention import (attention_core,
+                                                attention_core_plain)
+
+    b, h, t, dh = shape
+    q, k, v = (torch.randn(shape, device="cuda", generator=gen).to(dtype)
+               for _ in range(3))
+    kv = None if lengths is None else (
+        torch.arange(t, device="cuda")[None, :]
+        < torch.tensor(lengths, device="cuda")[:, None])
+    worst = 0.0
+    for r, seed in ((0.0, 0), (rate, 1234)) if rate > 0.0 else ((0.0, 0),):
+        o = attention_core(q, k, v, kv, dh ** -0.5, r, seed, **sem)
+        torch.cuda.synchronize()
+        err, scale = max_err(o, attention_core_plain(q, k, v, kv, dh ** -0.5,
+                                                     r, seed, **sem))
+        tol = TOL[dtype] * max(1.0, scale)
+        emit({"phase": phase, "kernel": "attention_fwd", "dtype": str(dtype),
+              "shape": list(shape), "key_lengths": lengths, "rate": r,
+              **sem, "max_abs_err": err, "tol": tol})
+        check(bool(torch.isfinite(o).all()) and err <= tol,
+              f"attention_fwd {shape} {dtype} rate {r}: {err} > {tol}")
+        worst = max(worst, err)
+    return worst
+
+
+def phase_path_kernels(path: str, shapes: dict, params: list, gen) -> dict:
+    """The kernels of a path vs their plain versions at the shapes its run
+    gave them (:func:`path_shapes`), in float32 and bfloat16: the conv
+    forward at each layer's input, the attention forward at each
+    attention call's shape, key lengths and semantics, its backward where
+    autograd recorded the call, the dropout at every input it took (the
+    encoders' residual streams, the decoder's or the text tower's
+    residuals and attention probabilities (B, H, T_q, T_k)), and AdamW
+    over the run's parameter shapes; returns the float32 max errors."""
+    phase = f"{path}_kernel"
+    emit({"phase": phase, "conv_inputs": [list(x) for x, _ in shapes["conv"]],
+          "attention": [[list(s), g, lens] for s, _, g, lens, _
+                        in shapes["attention"]],
+          "dropout_inputs": [list(d) for d in shapes["dropout"]],
+          "adamw_leaves": len(params)})
+    worst = {k: 0.0 for k in S2S_PATH}
+    for dtype in (torch.float32, torch.bfloat16):
+        errs = {k: 0.0 for k in S2S_PATH}
+        for x_shape, w_shape in shapes["conv"]:
+            errs["conv_k3s2_fwd"] = max(errs["conv_k3s2_fwd"], check_conv_fwd(
+                phase, x_shape, w_shape, dtype, gen))
+        for shape, sem, grad, lengths, rate in shapes["attention"]:
+            errs["attention_fwd"] = max(errs["attention_fwd"], check_attn_fwd(
+                phase, shape, lengths, rate, sem, dtype, gen))
+            if grad:
+                errs["attention_bwd"] = max(errs["attention_bwd"],
+                                            check_attn_bwd(phase, shape,
+                                                           lengths, dtype,
+                                                           gen))
+            torch.cuda.empty_cache()
+        for shape in shapes["dropout"]:
+            errs["dropout"] = max(errs["dropout"], check_dropout(
+                phase, shape, dtype, gen))
+        if dtype == torch.float32:
+            errs["adamw"] = check_adamw(phase, params, gen)
+            worst = errs
+        torch.cuda.empty_cache()
+    check(any(g for _, _, g, _, _ in shapes["attention"]),
+          f"{path}: no attention call ran its backward")
+    return worst
+
+
+def to_cuda(batch: dict) -> dict:
+    return {k: torch.from_numpy(v).cuda() for k, v in batch.items()
+            if isinstance(v, np.ndarray)}
+
+
+# the seconds the step timings may pause between profiler retries in all,
+# apart from the kernel timings' RETRY_BUDGET_S, and what they have paused
+STEP_RETRY_BUDGET_S = 30.0
+STEP_RETRY_PAUSED = {"s": 0.0}
+
+
+def traced_window(fn, calls: int = 2) -> dict | None:
+    """``calls`` calls of ``fn`` in one torch.profiler window
+    (:func:`cuda_profiled`), framed by spin kernels
+    (``torch.cuda._sleep``): one launched on the stream before the first
+    call, one after the last call has returned on the host. The window
+    runs from the start of the last spin kernel before the calls (the
+    warm-up's last if the trace lost the frame, a host round trip
+    earlier) to the end of the one after them, on the device's clock.
+    Returns the device ms per call (the time any of the calls' kernels
+    ran: the union of their spans), their durations summed per call
+    (above the device ms where kernels overlap: the steps' library calls
+    run some on side streams), the window's ms per call and the idle
+    share 1 - device / window, all from the one trace. The window holds
+    the profiler's own cost per launch, which raises the share over an
+    untraced step's. A trace without its frames is taken again, the
+    pauses doubling from 0.25 s within STEP_RETRY_BUDGET_S for all step
+    timings; ``None`` when it runs out."""
+    fn()
+    torch.cuda.synchronize()
+    for attempt in range(8):
+        if attempt:
+            pause = 0.25 * 2 ** (attempt - 1)
+            if STEP_RETRY_PAUSED["s"] + pause > STEP_RETRY_BUDGET_S:
+                break
+            STEP_RETRY_PAUSED["s"] += pause
+            time.sleep(pause)
+        with cuda_profiled() as prof:
+            torch.cuda._sleep(1000)
+            for _ in range(calls):
+                fn()
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+        spans = cuda_spans(prof, spins=True)
+        frames = [i for i, (_, _, n) in enumerate(spans) if "spin" in n]
+        if len(spans) < 3 or frames[-1:] != [len(spans) - 1] \
+                or frames[:-1] != list(range(len(frames) - 1)) \
+                or len(frames) < 2:
+            continue
+        spans = spans[frames[-2]:]
+        window = (spans[-1][1] - spans[0][0]) / 1e3
+        busy, end = 0.0, spans[0][1]
+        for a, b, _ in spans[1:-1]:
+            busy += max(0.0, b - max(a, end)) / 1e3
+            end = max(end, b)
+        summed = sum(b - a for a, b, _ in spans[1:-1]) / 1e3
+        check(busy <= window, f"device time {busy} ms above its traced "
+              f"window {window} ms")
+        return {"device_ms": busy / calls, "kernel_sum_ms": summed / calls,
+                "window_ms": window / calls,
+                "idle_share": 1.0 - busy / window, "timed_by": "trace"}
+    emit({"phase": "timing_note", "function": getattr(
+        fn, "__qualname__", repr(fn)), "traced_window": None})
+    return None
+
+
+def step_timings(state, step_fn, flags_of: dict, n: int = 5) -> dict:
+    """Per setting (``flags_of``: name -> step flags): the wall ms of
+    ``n`` synchronised optimizer steps (``step_fn(state, flags)``) on one
+    batch, untraced, and the device ms, window ms and idle share of two
+    more in one trace (:func:`traced_window`; ``timed_by`` "none" and no
+    device numbers when the profiler returned no usable trace)."""
+    out = {}
+    for name, flags in flags_of.items():
+        ms = []
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step_fn(state, flags)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        traced = traced_window(lambda: step_fn(state, flags))
+        out[name] = {"wall_ms": ms, **(traced or {
+            "device_ms": None, "kernel_sum_ms": None, "window_ms": None,
+            "idle_share": None, "timed_by": "none"})}
+    return out
+
+
+def phase_seq2seq(tmp: str, seed: int):
+    """``cli.train_seq2seq`` at full width on a letter corpus, warm-started
+    from the pretrain phase's ``checkpoint-step-5.pt``: 6 steps of 2
+    micro-batches, the encoder frozen up to step 3; then one validation
+    greedy and with a beam of VALID_BEAM (ms per utterance), and the f32
+    and bf16 steps frozen and unfrozen timed on one batch with the
+    device's idle share, and the decoder's share of the unfrozen f32
+    step. Returns the launch counts and the trained weights."""
+    from audio8_tpu_torch.cli import train_seq2seq as s2s
+    from audio8_tpu_torch.ops.metrics import postproc_letters
+    from audio8_tpu_torch.train.checkpoint import load_port_checkpoint
+    from audio8_tpu_torch.train.optim import (TrainState, create_lrs,
+                                              create_optimizer)
+    from audio8_tpu_torch.train.steps import (make_seq2seq_steps,
+                                              sequence_loss)
+    from audio8_tpu_torch.utils import revlut
+
+    corpus = os.path.join(tmp, "seq2seq_corpus")
+    os.makedirs(corpus)
+    write_corpus(corpus, seed + 10)
+    basedir = os.path.join(tmp, "seq2seq_run")
+    pretrained = os.path.join(tmp, "pretrain_run", "checkpoint-step-5.pt")
+    argv = ["--root_dir", corpus, "--train_dataset", "train.tsv",
+            "--valid_dataset", "valid.tsv", "--basedir", basedir,
+            "--device", "cuda", "--restart_from", pretrained,
+            *SEQ2SEQ_FLAGS]
+    records, calls = [], {}
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    with per_call_launches(s2s, "make_seq2seq_steps", records), \
+            recorded_path_calls(calls):
+        state = s2s.train(argv)
+    wall = time.perf_counter() - t0
+    launches = {k: n for k, n in read_launches().items() if k in S2S_PATH}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    log = state.log
+    check(state.step == 6 and len(log) == 6, f"seq2seq took {state.step}")
+    check([r["frozen"] for r in log] == [True] * 4 + [False] * 2,
+          "seq2seq freeze schedule")
+    check(all(math.isfinite(r["loss"]) for r in log), "non-finite loss")
+    bwd = check_path_launches("seq2seq", launches, records, "freeze")
+    saved = load_port_checkpoint(os.path.join(basedir, "checkpoint-step-6.pt"),
+                                 "seq2seq")
+    check(saved is not None and set(saved) == set(state.model.state_dict()),
+          "seq2seq checkpoint keys")
+    check(len(state.valid) == 2, f"{len(state.valid)} validations")
+
+    args = s2s.parse_args(argv)
+    args.dict_file = args.dict_file.format(args.target_type)
+    vocab, train_set, valid_set = s2s.datasets(args)
+    weights = {k: v.detach().cpu().clone()
+               for k, v in state.model.state_dict().items()}
+    _, _, decode_fn, eval_fn = make_seq2seq_steps(state.model)
+    valid = {}
+    for beam in (1, VALID_BEAM):
+        vm = s2s.validate(decode_fn, eval_fn, valid_set, revlut(vocab), 0,
+                          postproc_letters, torch.device("cuda"), beam=beam)
+        check(all(math.isfinite(vm[k]) for k in ("average_valid_loss", "cer",
+                                                 "wer")), f"valid {vm}")
+        vm["ms_per_utterance"] = 1e3 * vm["decode_seconds"] / vm["utterances"]
+        valid["greedy" if beam == 1 else f"beam{beam}"] = vm
+
+    batch = to_cuda(next(iter(train_set)))
+    gen = torch.Generator().manual_seed(seed)
+    timings = {}
+    for dt in (torch.float32, torch.bfloat16):
+        model = s2s.build_model(args, len(vocab), dt).cuda()
+        model.load_state_dict(weights)
+        tstate = TrainState(model, create_optimizer(create_lrs(
+            1e-5, 100, "constant", warmup_steps=0)))
+        grad_fn, update_fn, _, _ = make_seq2seq_steps(model)
+
+        def step(st, flags):
+            out = grad_fn(batch, gen, **flags)
+            update_fn(st, out[1], out[2])
+
+        timings[str(dt).split(".")[1]] = step_timings(
+            tstate, step, {"frozen": {"freeze": True},
+                           "unfrozen": {"freeze": False}})
+        if dt == torch.float32:
+            with torch.no_grad():
+                memory, pad = model.encoder(batch["signal"],
+                                            batch["signal_lengths"])
+            ids = batch["token_ids"]
+            dst_len = torch.clamp(batch["token_lengths"] - 1, min=0)
+            dst_mask = (torch.arange(ids.shape[1] - 1, device="cuda")[None]
+                        < dst_len[:, None])
+
+            def decoder_step():
+                lp = model.decoder(memory, pad, ids[:, :-1], dst_mask, gen)
+                sequence_loss(lp, ids[:, 1:]).backward()
+
+            dec = traced_window(decoder_step)
+            timings["decoder_fwd_bwd_device_ms"] = dec and dec["device_ms"]
+        del model, tstate
+        torch.cuda.empty_cache()
+    f32 = timings["float32"]["unfrozen"]["device_ms"]
+    dec = timings["decoder_fwd_bwd_device_ms"]
+    timings["decoder_share_of_unfrozen_f32"] = dec and f32 and dec / f32
+
+    emit({"phase": "seq2seq", "config": "wav2vec2-base encoder d768 h12 L12 "
+          "ff3072 + decoder d768 h4 L2 ff3072 max_len 1200, "
+          f"{len(vocab)} letters, f32", "flags": SEQ2SEQ_FLAGS,
+          "params": sum(p.numel() for p in state.params),
+          "step_seconds": [r["seconds"] for r in log],
+          "step_audio_s": [r["audio_s"] for r in log],
+          "losses": [r["loss"] for r in log],
+          "frozen": [r["frozen"] for r in log], "wall_s": wall,
+          "launches": launches,
+          "launches_per_step": {k: n / 6 for k, n in launches.items()},
+          "attention_bwd_per_micro_step": bwd,
+          "trainer_valid": state.valid, "valid": valid,
+          "timed_batch": list(batch["signal"].shape), "step_ms": timings,
+          "peak_memory_gb": peak})
+    path = (path_shapes(calls), [tuple(p.shape) for p in state.params])
+    return launches, weights, (args, len(vocab)), path
+
+
+def s2s_batch(seed: int, vocab_size: int) -> dict:
+    """Two rows of 3.0 and 2.6 s with 40- and 34-letter targets between GO
+    and EOS, PAD after."""
+    from audio8_tpu_torch.utils import Offsets
+
+    rng = np.random.default_rng(seed + 11)
+    lengths = np.array([48_000, 41_000])
+    sig = np.zeros((2, 48_000), np.float32)
+    for i, n in enumerate(lengths):
+        sig[i, :n] = synthetic_speechlike(n / SR, rng)
+    tl = np.array([42, 36])
+    tok = np.full((2, 42), Offsets.PAD, np.int64)
+    for i, n in enumerate(tl):
+        tok[i, 0], tok[i, n - 1] = Offsets.GO, Offsets.EOS
+        tok[i, 1:n - 1] = rng.integers(4, vocab_size, size=n - 2)
+    return {"signal": torch.from_numpy(sig),
+            "signal_lengths": torch.from_numpy(lengths),
+            "token_ids": torch.from_numpy(tok),
+            "token_lengths": torch.from_numpy(tl)}
+
+
+def hyp_score(model, batch: dict, row: int, toks) -> tuple:
+    """The CPU model's teacher-forced score of one hypothesis as the beam
+    search scores it: the sum of its log-probs up to its first EOS, over
+    ((5 + emitted) / 6) ** 0.6; and the number of scored tokens."""
+    from audio8_tpu_torch.utils import Offsets
+
+    toks = [int(t) for t in toks]
+    end = toks.index(Offsets.EOS) + 1 if Offsets.EOS in toks else len(toks)
+    toks = toks[:end]
+    dst = torch.tensor([[Offsets.GO] + toks[:-1]])
+    with torch.no_grad():
+        lp = model(batch["signal"][row:row + 1],
+                   batch["signal_lengths"][row:row + 1], dst,
+                   torch.tensor([len(toks)]))[0]
+    total = float(sum(lp[i, t] for i, t in enumerate(toks)))
+    emitted = sum(t not in (Offsets.PAD, Offsets.EOS) for t in toks)
+    return total / ((5.0 + emitted) / 6.0) ** 0.6, len(toks)
+
+
+def greedy_near_tie(model, batch, row, mine, theirs) -> float:
+    """The CPU's log-prob margin at the first step where two greedy rows
+    part: its own token over the other's, given the shared prefix."""
+    from audio8_tpu_torch.utils import Offsets
+
+    i = next(j for j, (a, b) in enumerate(zip(mine, theirs)) if a != b)
+    dst = torch.tensor([[Offsets.GO] + [int(t) for t in mine[:i]]])
+    with torch.no_grad():
+        lp = model(batch["signal"][row:row + 1],
+                   batch["signal_lengths"][row:row + 1], dst,
+                   torch.tensor([i + 1]))[0, i]
+    return float(lp[int(mine[i])] - lp[int(theirs[i])])
+
+
+def compare_decodes(cpu_model, gpu_model, batch) -> dict:
+    """Greedy and beam-VALID_BEAM tokens card vs CPU under the tie rule
+    (TIE_MARGIN); returns the rows that differed and their margins."""
+    gb = {k: v.cuda() for k, v in batch.items()}
+    out = {}
+    for beam in (1, VALID_BEAM):
+        c, _ = cpu_model.decode_beam(batch["signal"], batch["signal_lengths"],
+                                     beam, DECODE_LEN)
+        g, _ = gpu_model.decode_beam(gb["signal"], gb["signal_lengths"],
+                                     beam, DECODE_LEN)
+        g = g.cpu()
+        ties = []
+        for row in range(c.shape[0]):
+            if torch.equal(c[row], g[row]):
+                continue
+            if beam == 1:
+                margin = greedy_near_tie(cpu_model, batch, row, c[row],
+                                         g[row])
+                limit = TIE_MARGIN
+            else:
+                (s_c, n_c), (s_g, n_g) = (hyp_score(cpu_model, batch, row, t)
+                                          for t in (c[row], g[row]))
+                margin, limit = s_c - s_g, TIE_MARGIN * max(n_c, n_g)
+            ties.append({"row": row, "margin": margin, "limit": limit})
+            check(abs(margin) <= limit,
+                  f"beam {beam} row {row}: card and CPU tokens differ "
+                  f"beyond a tie ({margin} > {limit})")
+        out["greedy" if beam == 1 else f"beam{beam}"] = {
+            "cpu": c.tolist(), "card": g.tolist(), "near_ties": ties}
+    return out
+
+
+def one_step(model, batch, make_steps, gen_seed: int, **flags):
+    """One grad + AdamW step from ``model``'s weights (constant LR 2e-5,
+    no warmup): returns the step's outputs and the gradient norm."""
+    from audio8_tpu_torch.train.optim import (TrainState, create_lrs,
+                                              create_optimizer)
+
+    dev = next(model.parameters()).device
+    state = TrainState(model, create_optimizer(create_lrs(
+        2e-5, 10, "constant", warmup_steps=0), weight_decay=0.01))
+    fns = make_steps(model)
+    b = {k: v.to(dev) for k, v in batch.items()}
+    out = fns[0](b, torch.Generator().manual_seed(gen_seed), **flags)
+    grads, rows = out[-3], out[-2]
+    _, gnorm = fns[1](state, grads, rows)
+    return out, float(gnorm)
+
+
+def rel(a: float, b: float) -> float:
+    return abs(a - b) / max(abs(b), 1e-30)
+
+
+def phase_seq2seq_vs_cpu(weights: dict, built, seed: int) -> None:
+    """The seq2seq phase's trained weights on the card and on the CPU: one
+    unfrozen step (dropout and masks on, the same seeds on both sides) on
+    two rows of 3.0 and 2.6 s: loss within TRAIN_LOSS_RTOL, gradient norm
+    within TRAIN_GNORM_RTOL; greedy and beam-VALID_BEAM tokens under the
+    tie rule; then one bf16 step each (BF16_LOSS_RTOL, TOL[bf16])."""
+    from audio8_tpu_torch.cli import train_seq2seq as s2s
+    from audio8_tpu_torch.train.steps import make_seq2seq_steps
+
+    args, vocab_size = built
+    batch = s2s_batch(seed, vocab_size)
+    out = {}
+    for dt in (torch.float32, torch.bfloat16):
+        res = {}
+        for dev in ("cuda", "cpu"):
+            model = s2s.build_model(args, vocab_size, dt)
+            model.load_state_dict(weights)
+            model = model.to(dev)
+            (loss, _, _, _), gnorm = one_step(model, batch,
+                                              make_seq2seq_steps, seed + 12,
+                                              freeze=False)
+            res[dev] = (float(loss), gnorm, model)
+        (l_g, n_g, gpu), (l_c, n_c, cpu) = res["cuda"], res["cpu"]
+        name = str(dt).split(".")[1]
+        lt, nt = ((TRAIN_LOSS_RTOL, TRAIN_GNORM_RTOL) if dt == torch.float32
+                  else (BF16_LOSS_RTOL, TOL[torch.bfloat16]))
+        out[name] = {"loss": [l_g, l_c], "gnorm": [n_g, n_c],
+                     "loss_rel_err": rel(l_g, l_c), "loss_rtol": lt,
+                     "gnorm_rel_err": rel(n_g, n_c), "gnorm_rtol": nt}
+        check(rel(l_g, l_c) <= lt, f"seq2seq {name} step loss card vs CPU")
+        check(rel(n_g, n_c) <= nt, f"seq2seq {name} step gnorm card vs CPU")
+        if dt == torch.float32:  # the stepped weights, both sides
+            out["decode"] = compare_decodes(cpu, gpu, batch)
+        del res
+        torch.cuda.empty_cache()
+    emit({"phase": "seq2seq_vs_cpu", "rows_s": [3.0, 41_000 / SR],
+          "tie_margin_per_token": TIE_MARGIN, **out})
+
+
+PAIRED_WORDS = 20_000  # distinct words of the paired corpus' text
+PAIRED_BPE_TOKENS = 300_000  # words of the text the BPE codes learn on
+
+
+def write_paired_corpus(root: str, seed: int) -> int:
+    """16 training and 4 validation WAVs of 4-15 s with word transcripts
+    (``.wrd``, about 2.5 words a second), the words drawn by Zipf's law
+    from PAIRED_WORDS distinct ones (:func:`zipf_words`); then BPE codes
+    learned by ``cli.learn_bpe`` at its default 10 000 merges on the
+    train transcripts and a text of PAIRED_BPE_TOKENS words drawn the
+    same way (a subword vocabulary of a real corpus' size), and the
+    ``.bpe`` transcripts and ``dict.bpe.txt`` of ``cli.wrd2bpe``.
+    Returns the longest training row's samples."""
+    from scipy.io import wavfile
+
+    from audio8_tpu_torch.cli import learn_bpe, wrd2bpe
+
+    rng = np.random.default_rng(seed + 13)
+    words, p = zipf_words(rng, PAIRED_WORDS)
+    longest = 0
+    for split, n in (("train", 16), ("valid", 4)):
+        with open(os.path.join(root, f"{split}.tsv"), "w") as tf, \
+                open(os.path.join(root, f"{split}.wrd"), "w") as wf:
+            tf.write(root + "\n")
+            for i in range(n):
+                seconds = float(rng.uniform(4.0, 15.0))
+                wav = synthetic_speechlike(seconds, rng)
+                name = f"{split}{i}.wav"
+                wavfile.write(os.path.join(root, name), SR,
+                              (np.clip(wav, -1, 1) * 32767).astype(np.int16))
+                tf.write(f"{name}\t{len(wav)}\n")
+                if split == "train":
+                    longest = max(longest, len(wav))
+                ids = rng.choice(len(words), size=int(2.5 * seconds), p=p)
+                wf.write(" ".join(words[j] for j in ids) + "\n")
+    text = os.path.join(root, "bpe_text.wrd")
+    with open(text, "w") as f:
+        ids = rng.choice(len(words), size=PAIRED_BPE_TOKENS, p=p)
+        for line in np.array_split(ids, PAIRED_BPE_TOKENS // 25):
+            f.write(" ".join(words[j] for j in line) + "\n")
+    learn_bpe.main(["--input", os.path.join(root, "train.wrd"), text,
+                    "--output", os.path.join(root, "codes.bpe"),
+                    "--write_vocab", os.path.join(root, "vocab.bpe")])
+    wrd2bpe.main(["--root_dir", root, "--train_dataset", "train.tsv",
+                  "--valid_dataset", "valid.tsv", "--subword_model_file",
+                  os.path.join(root, "codes.bpe"), "--subword_vocab_file",
+                  os.path.join(root, "vocab.bpe")])
+    return longest
+
+
+def phase_paired(tmp: str, seed: int):
+    """``cli.pretrain_paired`` at full width (the wav2vec2-base audio
+    tower; the text tower 512 wide, 8 heads, 8 layers, 2048, rpr_k 8; max
+    reductions, output_dim 256) on BPE targets learned by
+    ``cli.learn_bpe``: 6 steps of PAIRED_ROWS rows, both towers frozen up
+    to step 3, then a validation; the f32 and bf16 steps frozen and
+    unfrozen timed on one batch with the device's idle share. Returns the
+    launch counts and the trained weights."""
+    from audio8_tpu_torch.cli import pretrain_paired as pp
+    from audio8_tpu_torch.train.checkpoint import load_port_checkpoint
+    from audio8_tpu_torch.train.optim import (TrainState, create_lrs,
+                                              create_optimizer)
+    from audio8_tpu_torch.train.steps import make_paired_steps
+
+    corpus = os.path.join(tmp, "paired_corpus")
+    os.makedirs(corpus)
+    longest = write_paired_corpus(corpus, seed)
+    basedir = os.path.join(tmp, "paired_run")
+    flags = PAIRED_FLAGS + [
+        "--target_tokens_per_batch", str(PAIRED_ROWS * longest),
+        "--subword_model_file", os.path.join(corpus, "codes.bpe"),
+        "--subword_vocab_file", os.path.join(corpus, "vocab.bpe")]
+    argv = ["--root_dir", corpus, "--train_dataset", "train.tsv",
+            "--valid_dataset", "valid.tsv", "--basedir", basedir,
+            "--device", "cuda", *flags]
+    records, calls = [], {}
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    with per_call_launches(pp, "make_paired_steps", records), \
+            recorded_path_calls(calls):
+        state = pp.train(argv)
+    wall = time.perf_counter() - t0
+    launches = {k: n for k, n in read_launches().items() if k in S2S_PATH}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    log = state.log
+    check(state.step == 6 and len(log) == 6, f"paired took {state.step}")
+    check([r["freeze_audio"] for r in log] == [True] * 4 + [False] * 2
+          and [r["freeze_text"] for r in log] == [True] * 4 + [False] * 2,
+          "paired freeze schedule")
+    check(all(r["rows"] == PAIRED_ROWS for r in log),
+          f"paired rows {[r['rows'] for r in log]}")
+    for key in ("loss", "clip_accuracy", "logit_scale"):
+        check(all(math.isfinite(r[key]) for r in log), f"non-finite {key}")
+    bwd = check_path_launches("paired", launches, records, "freeze_audio")
+    saved = load_port_checkpoint(os.path.join(basedir, "checkpoint-step-6.pt"),
+                                 "paired")
+    check(saved is not None and "loss.logit_scale" in saved,
+          "paired checkpoint keys")
+    check(len(state.valid) == 2 and all(math.isfinite(
+        v["average_valid_loss"]) for v in state.valid), "paired validation")
+
+    args = pp.parse_args(argv)
+    args.dict_file = args.dict_file.format(args.target_type)
+    vocab, train_set, _ = pp.datasets(args)
+    weights = {k: v.detach().cpu().clone()
+               for k, v in state.model.state_dict().items()}
+    batch = to_cuda(next(iter(train_set)))
+    gen = torch.Generator().manual_seed(seed)
+    timings = {}
+    for dt in (torch.float32, torch.bfloat16):
+        module = pp.build_module(args, len(vocab), dt).cuda()
+        module.load_state_dict(weights)
+        tstate = TrainState(module, create_optimizer(create_lrs(
+            1e-5, 100, "constant", warmup_steps=0), weight_decay=0.01))
+        grad_fn, update_fn, _ = make_paired_steps(module)
+
+        def step(st, flags):
+            out = grad_fn(batch, gen, **flags)
+            update_fn(st, out[2], out[3])
+
+        timings[str(dt).split(".")[1]] = step_timings(tstate, step, {
+            "frozen": {"freeze_audio": True, "freeze_text": True},
+            "unfrozen": {"freeze_audio": False, "freeze_text": False}})
+        del module, tstate
+        torch.cuda.empty_cache()
+
+    emit({"phase": "paired", "config": "audio wav2vec2-base d768 h12 L12 "
+          "ff3072 max; text d512 h8 L8 ff2048 rpr_k 8 max; output_dim 256; "
+          f"{len(vocab)} BPE pieces, f32", "flags": flags,
+          "params": sum(p.numel() for p in state.params),
+          "step_seconds": [r["seconds"] for r in log],
+          "step_audio_s": [r["audio_s"] for r in log],
+          "rows": [r["rows"] for r in log],
+          "losses": [r["loss"] for r in log],
+          "clip_accuracy": [r["clip_accuracy"] for r in log],
+          "logit_scale": [r["logit_scale"] for r in log],
+          "wall_s": wall, "launches": launches,
+          "launches_per_step": {k: n / 6 for k, n in launches.items()},
+          "attention_bwd_per_micro_step": bwd, "valid": state.valid,
+          "timed_batch": list(batch["signal"].shape), "step_ms": timings,
+          "peak_memory_gb": peak})
+    path = (path_shapes(calls), [tuple(p.shape) for p in state.params])
+    return launches, weights, (args, len(vocab)), path
+
+
+def paired_batch(seed: int, vocab_size: int) -> dict:
+    """Four rows of 3.0 to 1.9 s with 9 to 4 BPE ids (PAD after)."""
+    from audio8_tpu_torch.utils import Offsets
+
+    rng = np.random.default_rng(seed + 14)
+    lengths = np.array([48_000, 41_000, 36_000, 30_000])
+    sig = np.zeros((4, 48_000), np.float32)
+    for i, n in enumerate(lengths):
+        sig[i, :n] = synthetic_speechlike(n / SR, rng)
+    tl = np.array([9, 7, 6, 4])
+    tok = np.full((4, 9), Offsets.PAD, np.int64)
+    for i, n in enumerate(tl):
+        tok[i, :n] = rng.integers(4, vocab_size, size=n)
+    return {"signal": torch.from_numpy(sig),
+            "signal_lengths": torch.from_numpy(lengths),
+            "token_ids": torch.from_numpy(tok),
+            "token_lengths": torch.from_numpy(tl)}
+
+
+def phase_paired_vs_cpu(weights: dict, built, seed: int) -> None:
+    """The paired phase's trained weights on the card and on the CPU: one
+    step with both towers unfrozen (dropout and masks on, the same seeds)
+    on four rows: loss within TRAIN_LOSS_RTOL, gradient norm within
+    TRAIN_GNORM_RTOL, ``logit_scale`` after the step within 1e-6, and
+    ``clip_accuracy`` equal unless rows whose best two logits on the CPU
+    lie within TIE_MARGIN account for the difference; then one bf16 step
+    each, the loss within BF16_LOSS_RTOL and the gradient norm within
+    TOL[bf16] (2^-5). In bf16 the max reductions' winners may change at
+    1-ulp differences; full runs on an H100 80GB HBM3 at 700 W read the
+    bf16 gradient norms 0.21% to 0.97% apart (five, a 14-piece
+    vocabulary) and 0.22% to 1.27% (three, 6 747 pieces), so the bound
+    keeps a factor of 2.5 over the worst."""
+    from audio8_tpu_torch.cli import pretrain_paired as pp
+    from audio8_tpu_torch.train.steps import make_paired_steps
+
+    args, vocab_size = built
+    batch = paired_batch(seed, vocab_size)
+    flags = dict(freeze_audio=False, freeze_text=False)
+    out = {}
+    for dt in (torch.float32, torch.bfloat16):
+        res = {}
+        for dev in ("cuda", "cpu"):
+            module = pp.build_module(args, vocab_size, dt)
+            module.load_state_dict(weights)
+            module = module.to(dev)
+            near_ties = None
+            if dev == "cpu" and dt == torch.float32:
+                # the step's own forward: the same seeds in the same order
+                with torch.no_grad():
+                    a, t = module.model(
+                        *batch.values(),
+                        generator=torch.Generator().manual_seed(seed + 15),
+                        **flags)
+                a = a.float() / a.float().norm(dim=-1, keepdim=True)
+                t = t.float() / t.float().norm(dim=-1, keepdim=True)
+                logits = torch.exp(module.loss.logit_scale) * (a @ t.t())
+                top2 = logits.topk(2, dim=-1).values
+                near_ties = int((top2[:, 0] - top2[:, 1] <= TIE_MARGIN).sum())
+            (loss, metrics, _, _, _), gnorm = one_step(
+                module, batch, make_paired_steps, seed + 15, **flags)
+            res[dev] = {"loss": float(loss), "gnorm": gnorm,
+                        "acc": float(metrics["clip_accuracy"]),
+                        "scale": float(module.loss.logit_scale.detach()),
+                        "near_ties": near_ties}
+        g, c = res["cuda"], res["cpu"]
+        name = str(dt).split(".")[1]
+        lt, nt = ((TRAIN_LOSS_RTOL, TRAIN_GNORM_RTOL) if dt == torch.float32
+                  else (BF16_LOSS_RTOL, TOL[torch.bfloat16]))
+        out[name] = {"card": g, "cpu": c, "loss_rel_err":
+                     rel(g["loss"], c["loss"]), "loss_rtol": lt,
+                     "gnorm_rel_err": rel(g["gnorm"], c["gnorm"]),
+                     "gnorm_rtol": nt}
+        check(rel(g["loss"], c["loss"]) <= lt,
+              f"paired {name} step loss card vs CPU")
+        check(rel(g["gnorm"], c["gnorm"]) <= nt,
+              f"paired {name} step gnorm card vs CPU")
+        if dt == torch.float32:
+            check(abs(g["scale"] - c["scale"]) <= 1e-6,
+                  "paired logit_scale after one step card vs CPU")
+            check(abs(g["acc"] - c["acc"]) * 4 <= c["near_ties"],
+                  "paired clip_accuracy card vs CPU")
+        torch.cuda.empty_cache()
+    emit({"phase": "paired_vs_cpu", "rows_s": [3.0, 2.5625, 2.25, 1.875],
+          **out})
+
+
+@contextlib.contextmanager
+def cuda_profiled():
+    """torch.profiler over CUDA activity, warmed up before the block: a
+    trace loses the kernels that run while the profiler is still taking
+    its buffers (a first launch waits about 2 ms for them), so four spin
+    kernels (``torch.cuda._sleep``) are launched and waited for first.
+    The block's kernels follow them; :func:`cuda_spans` leaves the spin
+    kernels it does not ask for out."""
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(4):
+            torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+        yield prof
+
+
+def cuda_spans(prof, spins: bool = False) -> list:
+    """(start, end, name) of the traced CUDA kernels and memsets, sorted,
+    in µs; without the spin kernels unless ``spins``."""
+    return sorted((e.time_range.start, e.time_range.end, e.name)
+                  for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and (spins or "spin_kernel" not in e.name))
+
+
+def traced_ms(fn, budget: bool = True) -> dict:
     """Device ms of one call of ``fn`` by kernel name: the durations of
     the CUDA kernels (and memsets) that torch.profiler traces over up to
     10 calls (as many as fit in about 0.2 s after a first, untraced
     call), divided by the number of calls. The host's launch cost, which
     exceeds the device time for a small kernel or SDPA's bf16 autograd,
-    is not in it. Every timed function launches kernels, so a trace that
-    holds none (the profiler now and then returns empty ones, several in
-    a row late in a run) is taken again, up to eight times, the pause
-    before each retry doubling from 0.25 s (about 32 s in all)."""
+    is not in it. The trace is warmed up (:func:`cuda_profiled`): a cold
+    trace loses the kernels of its first calls, so short timings read
+    low (an f32 attention core forward 0.745 ms cold against 0.957
+    warmed, AdamW 0.618 against 0.827, on an H100 80GB HBM3 at 700 W)
+    or come back empty. Every timed function launches kernels,
+    so a trace that holds none is taken again, up to eight times, the
+    pause before each retry doubling from 0.25 s (about 32 s in all),
+    while the run's timing pauses stay within RETRY_BUDGET_S (a route
+    check, not a timing, passes ``budget=False``)."""
     t0 = time.perf_counter()
     fn()
     torch.cuda.synchronize()
     calls = max(1, min(10, int(0.2 / (time.perf_counter() - t0))))
-    acts = [torch.profiler.ProfilerActivity.CUDA]
     for attempt in range(8):
         if attempt:
-            time.sleep(0.25 * 2 ** (attempt - 1))
-        with torch.profiler.profile(activities=acts) as prof:
+            pause = 0.25 * 2 ** (attempt - 1)
+            if budget:
+                if RETRY_PAUSED["s"] + pause > RETRY_BUDGET_S:
+                    break
+                RETRY_PAUSED["s"] += pause
+            time.sleep(pause)
+        with cuda_profiled() as prof:
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
         out = {}
-        for e in prof.events():
-            if e.device_type == torch.autograd.DeviceType.CUDA:
-                ms = (e.time_range.end - e.time_range.start) / 1e3 / calls
-                out[e.name] = out.get(e.name, 0.0) + ms
+        for a, b, name in cuda_spans(prof):
+            out[name] = out.get(name, 0.0) + (b - a) / 1e3 / calls
         if out:
             return out
     raise EmptyTrace("torch.profiler traced no CUDA kernel of a timed call")
@@ -2258,6 +3143,12 @@ def traced_ms(fn) -> dict:
 
 class EmptyTrace(RuntimeError):
     pass
+
+
+# the seconds a full run may pause between profiler retries, and what it
+# has paused so far: it bounds the timing phase whatever the profiler does
+RETRY_BUDGET_S = 120.0
+RETRY_PAUSED = {"s": 0.0}
 
 
 def traced_or_none(fn) -> dict:
@@ -2273,12 +3164,18 @@ def traced_or_none(fn) -> dict:
 
 
 def device_ms(fn) -> float:
-    """Device time of one call of ``fn`` (:func:`traced_ms`, summed). If
-    the profiler keeps returning empty traces, the CUDA-event time of 10
-    calls instead, which also holds the host's launch gaps; a
-    ``timing_note`` line names the function."""
+    """:func:`timed_device_ms`'s time alone."""
+    return timed_device_ms(fn)[0]
+
+
+def timed_device_ms(fn) -> tuple:
+    """Device time of one call of ``fn`` (:func:`traced_ms`, summed) and
+    ``"trace"``. If the profiler keeps returning empty traces, the
+    CUDA-event time of 10 calls instead, which also holds the host's
+    launch gaps, and ``"events"``; a ``timing_note`` line names the
+    function."""
     try:
-        return sum(traced_ms(fn).values())
+        return sum(traced_ms(fn).values()), "trace"
     except EmptyTrace:
         e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         e0.record()
@@ -2288,7 +3185,7 @@ def device_ms(fn) -> float:
         torch.cuda.synchronize()
         emit({"phase": "timing_note", "function": getattr(
             fn, "__qualname__", repr(fn)), "timed_by": "cuda_events"})
-        return e0.elapsed_time(e1) / 10
+        return e0.elapsed_time(e1) / 10, "events"
 
 
 def bound(flops: float, nbytes: float, dtype=torch.float32):
@@ -2300,16 +3197,25 @@ def bound(flops: float, nbytes: float, dtype=torch.float32):
 
 
 def in_turns(kern, plain, library=None) -> dict:
-    """Device times (``device_ms``) in turns: plain, kernel, [library],
-    kernel, plain, [library]."""
-    p1, k1 = device_ms(plain), device_ms(kern)
-    l1 = device_ms(library) if library else None
-    k2, p2 = device_ms(kern), device_ms(plain)
-    l2 = device_ms(library) if library else None
-    return {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
-            "library_ms": None if library is None else (l1 + l2) / 2,
-            "ms_runs": [k1, k2], "plain_ms_runs": [p1, p2],
-            "library_ms_runs": None if library is None else [l1, l2]}
+    """Device times (:func:`timed_device_ms`) in turns: plain, kernel,
+    [library], kernel, plain, [library]; ``timed_by`` says for each time
+    whether both its readings came from traces ("trace"), both from CUDA
+    events ("events"), or one of each ("trace+events")."""
+    p1, k1 = timed_device_ms(plain), timed_device_ms(kern)
+    l1 = timed_device_ms(library) if library else None
+    k2, p2 = timed_device_ms(kern), timed_device_ms(plain)
+    l2 = timed_device_ms(library) if library else None
+
+    def source(a, b):
+        return a[1] if a[1] == b[1] else "trace+events"
+
+    return {"ms": (k1[0] + k2[0]) / 2, "plain_ms": (p1[0] + p2[0]) / 2,
+            "library_ms": None if library is None else (l1[0] + l2[0]) / 2,
+            "ms_runs": [k1[0], k2[0]], "plain_ms_runs": [p1[0], p2[0]],
+            "library_ms_runs": None if library is None else [l1[0], l2[0]],
+            "timed_by": {"ms": source(k1, k2), "plain_ms": source(p1, p2),
+                         "library_ms": None if library is None
+                         else source(l1, l2)}}
 
 
 def gemm_caller(name: str):
@@ -3197,6 +4103,108 @@ def test_timing() -> int:
     return 0
 
 
+FREEZE_REPS = 10
+
+
+def detached(tower) -> None:
+    """Make ``tower`` run with autograd on and return detached outputs
+    (its graph built and dropped), however its caller calls it; ``del
+    tower.forward`` undoes it."""
+    real = tower.forward
+
+    def forward(*args, **kwargs):
+        with torch.enable_grad():
+            out = real(*args, **kwargs)
+        if isinstance(out, tuple):
+            return tuple(o.detach() if torch.is_tensor(o) else o for o in out)
+        return out.detach()
+
+    tower.forward = forward
+
+
+def freeze_timing() -> int:
+    """``--freeze-timing``: see the module docstring. The seq2seq step
+    on 3 rows of 13 s with 190-letter targets, the paired step on 8 rows
+    of 15 s with 50 BPE ids of 6 747 (the phases' timed batches)."""
+    from audio8_tpu_torch.cli import pretrain_paired as pp
+    from audio8_tpu_torch.cli import train_seq2seq as s2s
+    from audio8_tpu_torch.train.optim import (TrainState, create_lrs,
+                                              create_optimizer)
+    from audio8_tpu_torch.train.steps import (make_paired_steps,
+                                              make_seq2seq_steps)
+
+    phase_build()
+    rng = np.random.default_rng(SEED)
+    dirs = ["--root_dir", ".", "--train_dataset", "t", "--valid_dataset",
+            "v", "--basedir", "."]
+
+    def batch(rows, seconds, tokens, vocab):
+        n = int(seconds * SR)
+        sig = np.stack([synthetic_speechlike(seconds, rng)
+                        for _ in range(rows)]).astype(np.float32)
+        ids = rng.integers(4, vocab, size=(rows, tokens))
+        return {"signal": torch.from_numpy(sig).cuda(),
+                "signal_lengths": torch.full((rows,), n).cuda(),
+                "token_ids": torch.from_numpy(ids).cuda(),
+                "token_lengths": torch.full((rows,), tokens).cuda()}
+
+    def s2s_setup(dt):
+        model = s2s.build_model(s2s.parse_args(dirs), 32, dt).cuda()
+        grad_fn, update_fn, _, _ = make_seq2seq_steps(model)
+        return model, grad_fn, update_fn, [model.encoder], {"freeze": True}
+
+    def paired_setup(dt):
+        module = pp.build_module(pp.parse_args(dirs + PAIRED_FLAGS), 6747,
+                                 dt).cuda()
+        grad_fn, update_fn, _ = make_paired_steps(module)
+        text = module.model.text_encoder
+        return (module, grad_fn, update_fn,
+                [module.model.audio_encoder.encoder, text.embeddings,
+                 text.transformer],
+                {"freeze_audio": True, "freeze_text": True})
+
+    gen = torch.Generator().manual_seed(SEED)
+    for path, setup, b in (("seq2seq", s2s_setup, batch(3, 13.0, 190, 32)),
+                           ("paired", paired_setup,
+                            batch(8, 15.0, 50, 6747))):
+        for dt in (torch.float32, torch.bfloat16):
+            model, grad_fn, update_fn, towers, flags = setup(dt)
+            state = TrainState(model, create_optimizer(create_lrs(
+                1e-5, 100, "constant", warmup_steps=0)))
+
+            def step():
+                out = grad_fn(b, gen, **flags)
+                update_fn(state, out[-3], out[-2])
+
+            runs = {"no_grad": [], "detach": []}
+            for way in ("detach", "no_grad", "no_grad", "detach"):
+                for tower in towers:
+                    if way == "detach":
+                        detached(tower)
+                    elif "forward" in tower.__dict__:
+                        del tower.forward
+                step()
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                ms = []
+                for _ in range(FREEZE_REPS):
+                    t0 = time.perf_counter()
+                    step()
+                    torch.cuda.synchronize()
+                    ms.append((time.perf_counter() - t0) * 1e3)
+                runs[way].append({"wall_ms": ms, "peak_memory_gb":
+                                  torch.cuda.max_memory_allocated() / 1e9,
+                                  **(traced_window(step) or {})})
+            emit({"phase": "freeze_timing", "path": path, "dtype": str(dt),
+                  "batch": list(b["signal"].shape), **runs})
+            for tower in towers:
+                tower.__dict__.pop("forward", None)
+            del model, state
+            torch.cuda.empty_cache()
+    print_card()
+    return 0
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if not torch.cuda.is_available():
@@ -3214,6 +4222,8 @@ def main(argv=None) -> int:
         return core_timing(gen)
     if argv == ["--test-timing"]:
         return test_timing()
+    if argv == ["--freeze-timing"]:
+        return freeze_timing()
     if argv:
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
         return 2
@@ -3250,7 +4260,27 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         with timed("restart_test"):
             restart_launches = phase_restart_test(tmp, SEED)
+        torch.cuda.empty_cache()
+        with timed("seq2seq"):
+            s2s_launches, s2s_weights, s2s_built, s2s_path = phase_seq2seq(
+                tmp, SEED)
+        torch.cuda.empty_cache()
+        with timed("paired"):
+            (paired_launches, paired_weights, paired_built,
+             paired_path) = phase_paired(tmp, SEED)
     torch.cuda.empty_cache()
+    with timed("seq2seq_vs_cpu"):
+        phase_seq2seq_vs_cpu(s2s_weights, s2s_built, SEED)
+    torch.cuda.empty_cache()
+    with timed("paired_vs_cpu"):
+        phase_paired_vs_cpu(paired_weights, paired_built, SEED)
+    del s2s_weights, paired_weights
+    torch.cuda.empty_cache()
+    for name, path in (("seq2seq", s2s_path), ("paired", paired_path)):
+        with timed(f"{name}_kernel"):
+            for k, e in phase_path_kernels(name, *path, gen).items():
+                worst[k] = max(worst[k], e)
+        torch.cuda.empty_cache()
     with timed("pretrain_kernel"):
         for k, e in phase_pretrain_path_kernels(batches, gen).items():
             worst[k] = max(worst[k], e)
@@ -3273,6 +4303,8 @@ def main(argv=None) -> int:
     with timed("timing"):
         times = phase_timing(gen)
     emit({"phase": "phase_seconds", **PHASE_SECONDS,
+          "trace_retry_pauses": RETRY_PAUSED["s"],
+          "step_trace_retry_pauses": STEP_RETRY_PAUSED["s"],
           "total": time.perf_counter() - start})
     check("jax" not in sys.modules and "audio8_tpu" not in sys.modules,
           "jax or the JAX package was imported")
@@ -3300,7 +4332,8 @@ def main(argv=None) -> int:
     # launches: each kernel's path run (PATH_OF, else the pretraining run);
     # the block's rows also carry their launch split, GEMM route and host
     # ms per call, and the same in bf16
-    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "timed_by")
     split_keys = {"attention_block": ("launch_ms", "gemm_routes", "host_ms",
                                       "event_ms"),
                   "attention_fwd": ("launch_ms", "routes", "host_ms",
@@ -3335,6 +4368,8 @@ def main(argv=None) -> int:
          "path": PATH_OF.get(name, "pretrain"),
          "launches": path_launches[PATH_OF.get(name, "pretrain")][name],
          "restart_test_launches": restart_launches.get(name, 0),
+         "seq2seq_launches": s2s_launches.get(name, 0),
+         "paired_launches": paired_launches.get(name, 0),
          "max_abs_err": worst[name],
          **{k: times[(name, torch.float32)][k] for k in keys},
          **extra(name)}

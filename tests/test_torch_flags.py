@@ -1,7 +1,8 @@
 """The port's entry-point flags against the JAX package's parsers.
 
-* Every flag of the JAX ``train``, ``pretrain``, ``transcribe``,
-  ``serve``, ``test`` and ``convert_checkpoint`` parsers but
+* Every flag of the JAX ``train``, ``pretrain``, ``train_seq2seq``,
+  ``pretrain_paired``, ``transcribe``, ``serve``, ``test``,
+  ``learn_bpe``, ``wrd2bpe`` and ``convert_checkpoint`` parsers but
   ``--lane_align`` (ROADMAP.md "Not to port") parses in the port's
   counterpart, with the same default and choices (the parsers are
   captured at ``parse_args`` with no argument parsed).
@@ -9,7 +10,8 @@
   ROADMAP.md queue item, never an argparse exit. Which values those are
   depends on the entry point: ``cli.test`` and the trainer decode with
   ``--beam`` and ``--lm``, which ``cli.transcribe`` and ``cli.serve``
-  still refuse, and both trainers take ``--restart_from``.
+  still refuse, every trainer takes ``--restart_from``, and the paired
+  trainer refuses ``--warmstart_text`` (item 10).
 * A value the port can run runs: dropout flags at inference, the LM
   weights without an LM, the MoE and transducer sizes without MoE or a
   transducer, the topology flags at the port's own topology.
@@ -19,13 +21,16 @@ import importlib
 
 import pytest
 
-from audio8_tpu_torch.cli.common import check_ported, encoder_kwargs
+from audio8_tpu_torch.cli.common import (TRAINING_ENTRIES, check_ported,
+                                        encoder_kwargs)
 from audio8_tpu_torch.config import AcousticConfig
 from audio8_tpu_torch.models.wav2vec2 import check_supported
 
-ENTRY_POINTS = ("train", "pretrain", "transcribe", "serve", "test")
+ENTRY_POINTS = ("train", "pretrain", "train_seq2seq", "pretrain_paired",
+                "transcribe", "serve", "test")
 # the arguments each port entry point needs to parse at all
 NEEDED = {"train": [], "pretrain": ["--manifest_dir", "m"],
+          "train_seq2seq": [], "pretrain_paired": [],
           "transcribe": ["a.wav", "--checkpoint", "c.pt", "--dict_file",
                          "d.txt"],
           "serve": ["--checkpoint", "c.pt", "--dict_file", "d.txt"],
@@ -62,7 +67,8 @@ def flags(parser):
             for s in a.option_strings if s.startswith("--")}
 
 
-@pytest.mark.parametrize("entry", ENTRY_POINTS + ("convert_checkpoint",))
+@pytest.mark.parametrize("entry", ENTRY_POINTS + (
+    "convert_checkpoint", "learn_bpe", "wrd2bpe"))
 def test_port_parses_every_jax_flag(entry):
     theirs = flags(captured_parser(f"audio8_tpu.cli.{entry}"))
     ours = flags(captured_parser(f"audio8_tpu_torch.cli.{entry}"))
@@ -118,6 +124,16 @@ def parse_and_check(entry, extra):
     ("test", ["--tensor_parallel", "2"], "item 8"),
     ("serve", ["--zero1", "true"], "item 8"),
     ("serve", ["--conv_bias", "true"], "item 7"),
+    ("train_seq2seq", ["--distributed", "true"], "item 3"),
+    ("train_seq2seq", ["--noise_manifest", "n.tsv"], "item 4"),
+    ("train_seq2seq", ["--layer_drop", "0.1"], "item 4"),
+    ("train_seq2seq", ["--fsdp", "true"], "item 8"),
+    ("train_seq2seq", ["--preset", "wavlm-base"], "item 7"),
+    ("pretrain_paired", ["--warmstart_text", "tlm.npz"], "item 10"),
+    ("pretrain_paired", ["--distributed", "true"], "item 3"),
+    ("pretrain_paired", ["--remat", "true"], "item 4"),
+    ("pretrain_paired", ["--moe_experts", "4"], "item 8"),
+    ("pretrain_paired", ["--extractor_mode", "layer"], "item 7"),
 ])
 def test_unported_values_raise_naming_their_item(entry, extra, item):
     with pytest.raises(NotImplementedError, match=item):
@@ -131,6 +147,10 @@ def test_unported_values_raise_naming_their_item(entry, extra, item):
     ("train", ["--verbose", "true", "--restart_tt", "ignore"]),
     ("pretrain", ["--restart_from", "run"]),
     ("test", ["--beam", "8", "--lm", "x.arpa", "--verbose", "true"]),
+    ("train_seq2seq", ["--restart_from", "run", "--valid_beam", "4",
+                       "--restart_tt", "ignore", "--freeze_fx", "false"]),
+    ("pretrain_paired", ["--restart_from", "run", "--target_type", "bpe",
+                         "--learn_temp", "false", "--stacking_layers", "8"]),
 ])
 def test_ported_values_pass(entry, extra):
     """Values an entry point has ported pass its check (they raised
@@ -142,12 +162,13 @@ def test_ported_values_pass(entry, extra):
 
 @pytest.mark.parametrize("entry", ENTRY_POINTS)
 def test_runnable_values_run(entry):
-    extra = ([] if entry == "pretrain" else ["--alpha", "1.5"]) + [
+    extra = (["--alpha", "1.5"] if entry in ("train", "transcribe", "serve",
+                                             "test") else []) + [
         "--moe_top_k", "2", "--conv_pos_kernel", "64",
         "--rel_pos_buckets", "16", "--pre_norm", "false",
         "--extractor_mode", "group", "--causal_left_chunks", "3",
         "--input_sample_rate", "16000"]
-    if entry not in ("train", "pretrain"):  # inert at inference, as in JAX
+    if entry not in TRAINING_ENTRIES:  # inert at inference, as in JAX
         extra += ["--dropout", "0.3", "--attention_dropout", "0.2",
                   "--layer_drop", "0.5", "--pred_dim", "64",
                   "--max_symbols_per_frame", "2"]

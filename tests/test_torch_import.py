@@ -14,9 +14,11 @@ import pytest
 
 import audio8_tpu_torch
 from audio8_tpu_torch.cli import pretrain as pretrain_cli
+from audio8_tpu_torch.cli import pretrain_paired as paired_cli
 from audio8_tpu_torch.cli import serve as serve_cli
 from audio8_tpu_torch.cli import test as test_cli
 from audio8_tpu_torch.cli import train as train_cli
+from audio8_tpu_torch.cli import train_seq2seq as seq2seq_cli
 from audio8_tpu_torch.cli import transcribe
 from audio8_tpu_torch.utils import Offsets
 
@@ -35,7 +37,10 @@ def test_every_module_imports_with_jax_blocked():
     assert "audio8_tpu_torch.cli.train" in mods
     assert "audio8_tpu_torch.cli.pretrain" in mods
     for new in ("cli.test", "cli.convert_checkpoint", "csrc.native",
-                "ops.beam", "ops.lm", "train.checkpoint", "train.preempt"):
+                "ops.beam", "ops.lm", "train.checkpoint", "train.preempt",
+                "cli.train_seq2seq", "cli.pretrain_paired", "cli.learn_bpe",
+                "cli.wrd2bpe", "nn.embeddings", "nn.pooling",
+                "models.seq2seq", "models.dual_encoder"):
         assert f"audio8_tpu_torch.{new}" in mods
     code = (
         "import sys\n"
@@ -108,7 +113,8 @@ def _restore_port_offsets():
 
 
 @pytest.mark.parametrize("entry", ["transcribe", "serve", "train",
-                                   "pretrain", "test"])
+                                   "pretrain", "test", "train_seq2seq",
+                                   "pretrain_paired"])
 def test_default_device_is_cuda_and_raises_without_a_card(
         entry, tmp_path, _restore_port_offsets):
     """This machine has no CUDA card: the default ``--device cuda`` raises
@@ -128,6 +134,12 @@ def test_default_device_is_cuda_and_raises_without_a_card(
         elif entry == "pretrain":
             pretrain_cli.train(["--basedir", str(tmp_path / "run"),
                                 "--manifest_dir", str(tmp_path)])
+        elif entry in ("train_seq2seq", "pretrain_paired"):
+            cli = seq2seq_cli if entry == "train_seq2seq" else paired_cli
+            cli.train(["--basedir", str(tmp_path / "run"),
+                       "--root_dir", str(tmp_path),
+                       "--train_dataset", "t.tsv",
+                       "--valid_dataset", "v.tsv"])
         else:
             train_cli.train(["--basedir", str(tmp_path / "run"),
                              "--root_dir", str(tmp_path),
