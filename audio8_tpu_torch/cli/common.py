@@ -10,9 +10,11 @@ the topology flags): it never ends in an argparse exit where the JAX
 entry point runs. Flags that only matter beside another one (``--alpha``
 without ``--lm``, ``--moe_top_k`` without ``--moe_experts``, the
 transducer sizes without ``--transducer``) are inert, as in JAX.
-Which flags are ported can depend on the entry point (``PORTED``):
-``cli.test`` and the trainer decode with ``--beam`` and ``--lm`` while
-``cli.transcribe`` and ``cli.serve`` still refuse them.
+Which flags are ported can depend on the entry point (``PORTED``): the
+decoding flags (``--beam``, ``--lm``, ``--timestamps``, ``--vad``,
+``--quantize``) are ported where the entry point has them, and
+``--exported`` still raises everywhere (ROADMAP.md queue 1, item 6:
+export).
 
 :func:`resolve_restart` is ``--restart_from`` (fairseq ``.pt``
 warm starts, directories of the port's checkpoints, full-state resume).
@@ -80,6 +82,8 @@ _PRESET_BASE_DEFAULTS = {"d_model": 768, "d_ff": 3072, "num_heads": 12,
 
 # ROADMAP.md queue 1 items, named in the refusals
 DECODE = "ROADMAP.md queue 1, item 6 (serving and inference)"
+EXPORT = ("ROADMAP.md queue 1, item 6 (export: the kernels as torch.library "
+          "custom ops first)")
 DATA_PARALLEL = "ROADMAP.md queue 1, item 3 (data parallel)"
 TRAINER = "ROADMAP.md queue 1, item 4 (the trainers' remaining flags)"
 TOPOLOGY = "ROADMAP.md queue 1, item 7 (topologies and recipes)"
@@ -108,16 +112,19 @@ NOT_PORTED = {
     "timestamps": (False, DECODE),
     "vad": (False, DECODE),
     "quantize": ("none", DECODE),
-    "exported": (None, DECODE),
+    "exported": (None, EXPORT),
     "warmstart_text": (None, TEXT_WARMSTART),
 }
 # not ported in training; inert at inference, as in JAX
 TRAINING_ONLY = {"layer_drop": (0.0, TRAINER)}
 TRAINING_ENTRIES = ("train", "pretrain", "train_seq2seq",
                     "pretrain_paired")
-# entry point -> the flags of NOT_PORTED it has ported (the beam search
-# and LM fusion of the trainer's verbose validation and of cli.test)
-PORTED = {"train": ("beam", "lm"), "test": ("beam", "lm")}
+# entry point -> the flags of NOT_PORTED it has ported: the beam search
+# and LM fusion of the trainer's verbose validation and of the decoders,
+# word timestamps, VAD and int8 weights
+PORTED = {"train": ("beam", "lm"), "test": ("beam", "lm", "quantize"),
+          "transcribe": ("beam", "lm", "timestamps", "vad", "quantize"),
+          "serve": ("beam", "lm", "timestamps", "quantize"), "embed": ()}
 
 
 def apply_preset(args: Namespace) -> Namespace:
@@ -152,7 +159,7 @@ def check_ported(args: Namespace, entry: str) -> None:
     """Raise ``NotImplementedError`` for a flag whose value asks for a part
     of the JAX entry point ``entry`` (``train``, ``pretrain``,
     ``train_seq2seq``, ``pretrain_paired``, ``test``, ``transcribe``,
-    ``serve``) that is not ported yet, naming the
+    ``serve``, ``embed``) that is not ported yet, naming the
     ROADMAP.md item; the topology flags through ``check_supported``."""
     from audio8_tpu_torch.config import EncoderConfig
     from audio8_tpu_torch.models.wav2vec2 import check_supported
@@ -237,8 +244,8 @@ def add_common_model_args(parser: ArgumentParser) -> None:
 
 def add_decoding_args(parser: ArgumentParser, max_decode_len) -> None:
     """The decoding flags of the JAX transcribe and serve parsers (their
-    ``--max_decode_len`` defaults differ: None and 8000). The port
-    decodes greedily with CTC; the rest is not ported yet."""
+    ``--max_decode_len`` defaults differ: None and 8000); the export, the
+    device beam and the transducer are not ported yet."""
     add = parser.add_argument
     add("--exported", help="not ported yet")
     add_beam_args(parser)
@@ -250,9 +257,12 @@ def add_decoding_args(parser: ArgumentParser, max_decode_len) -> None:
     add("--d_joint", type=int, default=512)
     add("--max_decode_len", type=int, default=max_decode_len)
     add("--max_symbols_per_frame", type=int, default=4)
-    add("--timestamps", type=str2bool, default=False, help="not ported yet")
+    add("--timestamps", type=str2bool, default=False,
+        help="word-level {start, end, confidence} from the greedy CTC "
+             "alignment (ops/align.py)")
     add("--quantize", choices=["none", "int8"], default="none",
-        help="not ported yet")
+        help="int8: post-training weight quantization of the Dense "
+             "layers (ops/quant.py)")
 
 
 def add_beam_args(parser: ArgumentParser) -> None:
@@ -268,8 +278,8 @@ def add_beam_args(parser: ArgumentParser) -> None:
 
 def require_checkpoint(args: Namespace, entry: str) -> None:
     """As the JAX transcribe and serve parsers: ``--checkpoint`` and
-    ``--dict_file`` are needed unless ``--exported`` is given (which is
-    not ported yet)."""
+    ``--dict_file`` are needed unless ``--exported`` is given (which
+    raises: not ported yet)."""
     check_ported(args, entry)
     if not (args.checkpoint and args.dict_file):
         raise SystemExit("--checkpoint and --dict_file are required "

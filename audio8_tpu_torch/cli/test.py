@@ -13,11 +13,13 @@ fusion at ``--alpha`` and ``--beta`` (key ``werr_lm_{beam}`` or
       --valid_dataset dev-other.tsv --basedir run --beam 8 --lm lm.arpa
 
 The flags are the JAX entry point's with the same defaults, plus
-``--device``; ``--lane_align`` (TPU tiling) is not a flag here. Those of
-parts not ported yet raise: ``--exported`` and ``--quantize``
-(ROADMAP.md queue 1, item 6), ``--transducer``, ``--device_beam`` and
-``--lm_rescore`` (item 7). The returned metrics also carry the eval's
-audio seconds and wall seconds and the beam decode's host seconds.
+``--device``; ``--lane_align`` (TPU tiling) is not a flag here.
+``--quantize int8`` runs the Dense layers on int8 weights, quantized
+after the load (``ops/quant.py``). Those of parts not ported yet raise:
+``--exported`` (ROADMAP.md queue 1, item 6), ``--transducer``,
+``--device_beam`` and ``--lm_rescore`` (item 7). The returned metrics
+also carry the eval's audio seconds and wall seconds and the beam
+decode's host seconds.
 """
 from __future__ import annotations
 
@@ -40,6 +42,7 @@ from audio8_tpu_torch.models.wav2vec2 import Wav2Vec2AcousticModel
 from audio8_tpu_torch.ops import metrics as M
 from audio8_tpu_torch.ops.beam import PrefixBeamSearch
 from audio8_tpu_torch.ops.ctc import greedy_collapse
+from audio8_tpu_torch.ops.quant import quantize_model_params
 from audio8_tpu_torch.train.checkpoint import find_latest_checkpoint
 from audio8_tpu_torch.utils import Offsets, revlut, str2bool
 
@@ -75,7 +78,8 @@ def parse_args(argv=None):
     add("--max_symbols_per_frame", type=int, default=4)
     add("--device_beam", type=str2bool, default=False, help="not ported yet")
     add("--quantize", choices=["none", "int8"], default="none",
-        help="not ported yet")
+        help="int8: post-training weight quantization of the Dense "
+             "layers (ops/quant.py)")
     add("--alpha", type=float, default=0.7)
     add("--beta", type=float, default=5.0)
     add("--lm_rescore", help="not ported yet")
@@ -162,6 +166,8 @@ def evaluate(argv=None, keep_outputs: bool = False) -> dict:
     checkpoint = (args.checkpoint
                   or find_latest_checkpoint(args.basedir)[0])
     load_weights(checkpoint, model, ctc=True)
+    if args.quantize == "int8":
+        quantize_model_params(model)
 
     postproc = (M.postproc_bpe if args.target_type == "bpe"
                 else M.postproc_letters)

@@ -2,19 +2,26 @@
 
 Counterpart of ``a8t-transcribe`` (``audio8_tpu/cli/transcribe.py``) on
 PyTorch, on ``--device`` (the CUDA card by default; it raises without
-one, and ``--device cpu`` asks for the CPU). Greedy CTC decoding; long
-audio runs through the ``ChunkedTranscriber`` when ``--chunk_seconds > 0``.
+one, and ``--device cpu`` asks for the CPU). Greedy CTC decoding, or the
+host prefix beam search with ``--beam`` and an n-gram ``--lm``
+(``ops/beam.py``); long audio runs through the ``ChunkedTranscriber``
+when ``--chunk_seconds > 0``. ``--vad true`` transcribes only the speech
+spans (``ops/vad.py``); ``--timestamps true`` prints one JSON row per
+file with word times from the greedy alignment (``ops/align.py``), and
+under ``--vad`` the segments too. ``--quantize int8`` runs the Dense
+layers on int8 weights (``ops/quant.py``).
 
   python -m audio8_tpu_torch.cli.transcribe --checkpoint ctc.pt \\
-      --dict_file dict.ltr.txt a.wav b.wav
+      --dict_file dict.ltr.txt --beam 8 --lm lm.arpa a.wav b.wav
 
-Every flag of the JAX entry point but ``--lane_align`` parses; beam
-search and LM, VAD, timestamps, int8, exported artifacts, transducers
-and non-fairseq checkpoints raise ``NotImplementedError`` (ROADMAP.md
-queue 1, items 6 and 7). Dropout flags are inert at inference.
+Every flag of the JAX entry point but ``--lane_align`` parses;
+``--exported`` (ROADMAP.md queue 1, item 6), ``--device_beam``,
+``--transducer`` and non-fairseq checkpoints (item 7) raise
+``NotImplementedError``. Dropout flags are inert at inference.
 """
 from __future__ import annotations
 
+import json
 import logging
 from argparse import ArgumentParser
 from typing import Callable, Optional
@@ -31,8 +38,11 @@ from audio8_tpu_torch.data.audio import SoundfileAudioReader
 from audio8_tpu_torch.models.convert import load_fairseq_ctc
 from audio8_tpu_torch.models.text import read_vocab_list
 from audio8_tpu_torch.models.wav2vec2 import Wav2Vec2AcousticModel
-from audio8_tpu_torch.ops.ctc import greedy_collapse
+from audio8_tpu_torch.ops.align import timestamped_words, total_stride
+from audio8_tpu_torch.ops.beam import PrefixBeamSearch
 from audio8_tpu_torch.ops.metrics import postproc_bpe, postproc_letters
+from audio8_tpu_torch.ops.quant import quantize_model_params
+from audio8_tpu_torch.ops.vad import speech_segments
 from audio8_tpu_torch.serve import ChunkedTranscriber, decode_stitched
 from audio8_tpu_torch.utils import Offsets, revlut, str2bool
 
@@ -46,7 +56,9 @@ def parse_args(argv=None):
                    help="fairseq dict.ltr.txt or HF vocab.json")
     add_decoding_args(p, max_decode_len=None)
     p.add_argument("--vad", type=str2bool, default=False,
-                   help="not ported yet")
+                   help="energy-based voice activity detection "
+                        "(ops/vad.py): transcribe only speech spans; "
+                        "timestamps stay global")
     p.add_argument("--target_type", choices=["ltr", "bpe"], default="ltr",
                    help="unit type the checkpoint was trained on")
     p.add_argument("--chunk_seconds", type=float, default=0.0,
@@ -59,8 +71,28 @@ def parse_args(argv=None):
     return args
 
 
+def build_beam_decoder(args, vocab_list):
+    """The optional ``PrefixBeamSearch`` of a decoding surface's flags
+    (``--beam``, ``--lm``, ``--alpha``, ``--beta``), else ``None``."""
+    if args.beam <= 1 and not args.lm:
+        return None
+    return PrefixBeamSearch(vocab_list, alpha=args.alpha, beta=args.beta,
+                            beam=args.beam, lm_file=args.lm)
+
+
+def check_timestamps(args) -> None:
+    """Word times need letter units: ``--timestamps`` with ``--target_type
+    bpe`` exits, as in JAX."""
+    if args.timestamps and args.target_type != "ltr":
+        raise SystemExit("--timestamps requires --target_type ltr: word "
+                         "boundaries come from the '|' letter unit "
+                         "(ops/align.py)")
+
+
 def build_acoustic(args, device: torch.device):
-    """Model with the checkpoint's weights, on ``device``, in eval mode.
+    """Model with the checkpoint's weights, on ``device``, in eval mode;
+    under ``--quantize int8`` its Dense layers quantized after the load,
+    as in JAX.
 
     Returns ``(cfg, model, vocab_list, index2vocab)``."""
     Offsets.remap_fairseq_ctc()
@@ -73,6 +105,8 @@ def build_acoustic(args, device: torch.device):
     dtype = torch.bfloat16 if args.bf16 else torch.float32
     model = Wav2Vec2AcousticModel(cfg, dtype)
     model.load_state_dict(load_fairseq_ctc(args.checkpoint), strict=True)
+    if getattr(args, "quantize", "none") == "int8":
+        quantize_model_params(model)
     return cfg, model.to(device).eval(), vocab_list, index2vocab
 
 
@@ -83,7 +117,7 @@ def load_acoustic(args, device: Optional[torch.device] = None):
     Returns ``(cfg, forward, vocab_list, index2vocab, device)`` where
     ``forward(signal (B, T) f32, lengths (B,)) -> (log_probs (B, T', V)
     f32, frames (B,))`` runs the model under ``torch.inference_mode()`` on
-    tensors on ``device``."""
+    tensors on ``device``; ``forward.model`` is the model."""
     if device is None:
         device = resolve_device(args.device)
     cfg, model, vocab_list, index2vocab = build_acoustic(args, device)
@@ -98,35 +132,37 @@ def load_acoustic(args, device: Optional[torch.device] = None):
         lp, mask = model(signal, lengths)
         return lp, mask.sum(dim=-1)
 
+    forward.model = model
     return cfg, forward, vocab_list, index2vocab, device
 
 
 def _transcribe_wav(wav: np.ndarray, forward: Callable,
                     ct: Optional[ChunkedTranscriber], index2vocab: dict,
                     sr: int, device: torch.device,
-                    postproc: Callable = postproc_letters):
+                    postproc: Callable = postproc_letters, decoder=None):
     """One waveform -> ``(text, (T', V) log-probs)`` through the chunked
     path (any length) or one forward padded to whole seconds."""
-    if ct is not None:
+    if ct is None:
+        t_pad = max((len(wav) + sr - 1) // sr * sr, sr)
+        signal = np.zeros((1, t_pad), np.float32)
+        signal[0, :len(wav)] = wav
+        lp, frames = forward(torch.from_numpy(signal).to(device),
+                             torch.tensor([len(wav)], device=device))
+        lp = lp[0, :int(frames[0])].float().cpu().numpy()
+    else:
         lp = ct.log_probs(wav)
-        return decode_stitched(lp, index2vocab, postproc=postproc), lp
-    t_pad = max((len(wav) + sr - 1) // sr * sr, sr)
-    signal = np.zeros((1, t_pad), np.float32)
-    signal[0, :len(wav)] = wav
-    lp, frames = forward(torch.from_numpy(signal).to(device),
-                         torch.tensor([len(wav)], device=device))
-    n = int(frames[0])
-    lp = lp[0, :n].float().cpu().numpy()
-    ids = greedy_collapse(np.argmax(lp, -1), Offsets.GO)
-    return postproc([index2vocab[i] for i in ids]), lp
+    return decode_stitched(lp, index2vocab, decoder, postproc=postproc), lp
 
 
 def main(argv=None):
     args = parse_args(argv)
     logging.basicConfig(level=logging.INFO)
+    check_timestamps(args)
     postproc = postproc_bpe if args.target_type == "bpe" else postproc_letters
-    cfg, forward, _, index2vocab, device = load_acoustic(args)
+    cfg, forward, vocab_list, index2vocab, device = load_acoustic(args)
+    decoder = build_beam_decoder(args, vocab_list)
     sr = args.target_sample_rate
+    frame_sec = total_stride(cfg.conv_features) / sr
     ct = None
     if args.chunk_seconds > 0:
         ct = ChunkedTranscriber(forward, cfg.conv_features,
@@ -137,10 +173,31 @@ def main(argv=None):
     results = []
     for path in args.audio:
         wav = np.asarray(reader.read(path), np.float32)
-        text, _ = _transcribe_wav(wav, forward, ct, index2vocab, sr, device,
-                                  postproc)
-        results.append((path, text))
-        print(f"{path}\t{text}")
+        segs = speech_segments(wav, sr) if args.vad else [(0, len(wav))]
+        texts, words = [], []
+        for a, b in segs:
+            text, lp = _transcribe_wav(wav[a:b], forward, ct, index2vocab, sr,
+                                       device, postproc, decoder)
+            if text:
+                texts.append(text)
+            if args.timestamps:
+                off = a / sr
+                for w in timestamped_words(lp, index2vocab, Offsets.GO,
+                                           frame_sec):
+                    w["start"] = round(w["start"] + off, 3)
+                    w["end"] = round(w["end"] + off, 3)
+                    words.append(w)
+        text = " ".join(texts)
+        if args.timestamps:
+            row = {"file": path, "text": text, "words": words}
+            if args.vad:
+                row["segments"] = [[round(a / sr, 3), round(b / sr, 3)]
+                                   for a, b in segs]
+            results.append(row)
+            print(json.dumps(row))
+        else:
+            results.append((path, text))
+            print(f"{path}\t{text}")
     return results
 
 

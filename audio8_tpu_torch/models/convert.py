@@ -292,7 +292,10 @@ def params_from_jax(tree: Mapping[str, Any], opt_state: Any = None):
     nested mapping of arrays, e.g. ``jax.tree.map(np.asarray, params)``)
     -> the port's state dict (for the paired tree, a
     ``models.dual_encoder.PairedModule``'s).
-    Raises ``KeyError`` naming any JAX parameter left unmapped.
+    Raises ``KeyError`` naming any JAX parameter left unmapped. An
+    int8-quantized tree (JAX ``quantize_model_params``) gives the int8
+    ``weight`` and ``weight_scale`` buffers of a model quantized with
+    ``ops.quant.quantize_model_params``.
 
     With ``opt_state`` (the JAX AdamW state, arrays as numpy) it returns
     ``(state_dict, (count, mu, nu))`` where ``mu`` and ``nu`` are state
@@ -312,10 +315,20 @@ def _params_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     state, used = {}, set()
     for path, key, tf in _jax_assignments(tree):
         node = tree
-        for p in path:
+        for p in path[:-1]:
             node = node[p]
-        state[key] = torch.from_numpy(
-            np.array(tf(np.asarray(node, np.float32))))
+        leaf = np.asarray(node[path[-1]])
+        if leaf.dtype == np.int8:
+            # an int8-quantized Dense (JAX ops/quant.py): int8 (in, out)
+            # codes -> the (out, in) ``weight`` buffer, ``kernel_scale``
+            # -> ``weight_scale``
+            state[key] = torch.from_numpy(np.array(tf(leaf)))
+            state[key[:-len("weight")] + "weight_scale"] = torch.from_numpy(
+                np.array(node["kernel_scale"], np.float32))
+            used.add(path[:-1] + ("kernel_scale",))
+        else:
+            state[key] = torch.from_numpy(
+                np.array(tf(leaf.astype(np.float32))))
         used.add(path)
 
     def leaves(node, prefix=()):

@@ -17,6 +17,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from audio8_tpu_torch.ops.conv import conv1d_k3s2
+from audio8_tpu_torch.ops.quant import int8_dot, quantize_kernel
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
@@ -25,7 +26,12 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
 
 
 class Dense(nn.Linear):
-    """``x @ W^T + b`` in the compute dtype; ``weight`` is ``(out, in)``."""
+    """``x @ W^T + b`` in the compute dtype; ``weight`` is ``(out, in)``.
+
+    After :meth:`quantize_` (``ops.quant.quantize_model_params``) the
+    weight is an int8 buffer beside a float32 ``weight_scale`` buffer and
+    the product runs ``ops.quant.int8_dot``, as the JAX ``Dense`` does on
+    an int8 kernel."""
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True,
                  dtype: torch.dtype = torch.float32, device=None):
@@ -50,12 +56,23 @@ class Dense(nn.Linear):
             if self.bias is not None:
                 self.bias.zero_()
 
+    def quantize_(self) -> None:
+        """Replace the float weight by its int8 codes and per-output
+        scale (``ops.quant.quantize_kernel``), both buffers."""
+        codes, scale = quantize_kernel(self.weight)
+        del self.weight
+        self.register_buffer("weight", codes)
+        self.register_buffer("weight_scale", scale)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """Below f32 the JAX ``Dense``'s rounding order: the product is
         rounded to ``dt`` first, then the ``dt`` bias is added with a
         second rounding (``F.linear`` with the bias would round once).
         In f32 the two orders agree, and the bias stays fused."""
         dt = self.compute_dtype
+        if self.weight.dtype == torch.int8:
+            y = int8_dot(x.to(dt), self.weight, self.weight_scale, dt)
+            return y if self.bias is None else y + self.bias.to(dt)
         x, w = x.to(dt), self.weight.to(dt)
         if self.bias is None:
             return F.linear(x, w)

@@ -207,6 +207,9 @@ class MultiHeadAttention(nn.Module):
         if self.block_eligible(x.shape[1]):
             seed = draw_seed(generator) if rate > 0.0 else 0
             dt = self.compute_dtype
+            if self.projections()[0].weight.dtype == torch.int8:
+                raise ValueError("the attention block takes float weights: "
+                                 "int8 Dense layers run the core")
             params = [t.to(dt) for m in self.projections()
                       for t in (m.weight, m.bias)]
             return attention_block(x.to(dt).contiguous(), *params, key_valid,

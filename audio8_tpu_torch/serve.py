@@ -1,14 +1,17 @@
 """Serving helpers of the port (``audio8_tpu/serve.py``): cross-request
-chunk batching and long-audio transcription through fixed-size chunks.
+chunk batching, long-audio transcription through fixed-size chunks and
+incremental (streaming) transcription.
 
 :class:`ChunkedTranscriber` slices a waveform into ``chunk_samples``
 windows with ``context_samples`` of overlap on each side, runs the
 acoustic forward on ``(batch, chunk)`` blocks, drops the margin frames of
 interior chunks and stitches the per-frame log-probs; the geometry is the
 JAX package's, so both packages cut a waveform at the same frames.
-:class:`MicroBatcher` packs chunk rows from concurrent callers into
-shared dispatches. Blocks reach the model as torch tensors on its device.
-``StreamingTranscriber`` is not ported yet.
+:class:`StreamingTranscriber` produces the same stitched log-probs from
+audio fed as it arrives, holding O(chunk) samples. :class:`MicroBatcher`
+packs chunk rows from concurrent callers into shared dispatches. Blocks
+reach the model as torch tensors on its device. Text decodes greedily,
+or through a ``ops.beam.PrefixBeamSearch`` on the host.
 """
 from __future__ import annotations
 
@@ -182,17 +185,21 @@ class ChunkedTranscriber:
         cuts.append(conv_output_length(n, self.conv_features))
         segs = [wav[s:s + self.chunk] for s in starts]
         rows = self._row_log_probs(segs)
-        pieces: List[np.ndarray] = []
-        for k, (s, seg, row) in enumerate(zip(starts, segs, rows)):
-            # the chunk's exact conv frame count: the reshape-all pad mask
-            # may undercount the tail frame, which still belongs here
-            exact = conv_output_length(len(seg), self.conv_features)
-            valid = row[:min(exact, len(row))]
-            base = s // self.stride
-            pieces.append(valid[cuts[k] - base:
-                                min(cuts[k + 1] - base, len(valid))])
+        pieces = [self._kept(row, len(seg), s, cuts[k], cuts[k + 1])
+                  for k, (s, seg, row) in enumerate(zip(starts, segs, rows))]
         return np.concatenate(pieces, axis=0) if pieces else np.zeros(
             (0, 1), np.float32)
+
+    def _kept(self, row: np.ndarray, seg_len: int, start: int, lo: int,
+              hi: int) -> np.ndarray:
+        """The frames of the chunk row at sample ``start`` between global
+        frames ``lo`` and ``hi``. The chunk's exact conv frame count
+        bounds them: the reshape-all pad mask may undercount the tail
+        frame, which still belongs here."""
+        exact = conv_output_length(seg_len, self.conv_features)
+        valid = row[:min(exact, len(row))]
+        base = start // self.stride
+        return valid[lo - base:min(hi - base, len(valid))]
 
     def _row_log_probs(self, segs: List[np.ndarray]) -> List[np.ndarray]:
         """Per-chunk ``(T_chunk', V)`` rows, through the shared batcher or
@@ -206,19 +213,123 @@ class ChunkedTranscriber:
         return rows
 
     def transcribe(self, wav: np.ndarray, index2vocab: dict,
-                   blank: Optional[int] = None,
+                   decoder=None, blank: Optional[int] = None,
                    postproc: Optional[Callable] = None) -> str:
-        """Waveform -> text by greedy CTC collapse (beam search waits)."""
-        return decode_stitched(self.log_probs(wav), index2vocab, blank,
-                               postproc)
+        """Waveform -> text by greedy collapse (or a PrefixBeamSearch)."""
+        return decode_stitched(self.log_probs(wav), index2vocab, decoder,
+                               blank, postproc)
 
 
-def decode_stitched(lp: np.ndarray, index2vocab: dict,
+def decode_stitched(lp: np.ndarray, index2vocab: dict, decoder=None,
                     blank: Optional[int] = None,
                     postproc: Optional[Callable] = None) -> str:
-    """(T', V) stitched frame log-probs -> text by greedy collapse."""
+    """(T', V) stitched frame log-probs -> text (greedy or beam decode)."""
     if len(lp) == 0:
         return ""
-    b = Offsets.GO if blank is None else blank
-    ids = greedy_collapse(np.argmax(lp, -1).astype(np.int32), b)
-    return (postproc or postproc_letters)([index2vocab[i] for i in ids])
+    if decoder is not None:
+        chars = decoder.run(lp[None, ...], [len(lp)], n_best=1)[0]
+    else:
+        b = Offsets.GO if blank is None else blank
+        ids = greedy_collapse(np.argmax(lp, -1).astype(np.int32), b)
+        chars = [index2vocab[i] for i in ids]
+    return (postproc or postproc_letters)(chars)
+
+
+class StreamingTranscriber(ChunkedTranscriber):
+    """Incremental transcription: feed audio as it arrives, read partials.
+
+    Gives the same stitched log-probs as ``ChunkedTranscriber`` on the
+    whole waveform. A chunk is forwarded once its samples and one more
+    (which proves it is not the last chunk) have arrived; its kept frames
+    join the stable prefix and the samples before the next chunk's start
+    are dropped, so a stream holds O(chunk) samples. ``finish`` flushes
+    the tail when the stream ends. Without a batcher each chunk is a
+    ``(1, chunk)`` dispatch."""
+
+    def __init__(self, forward: Callable, conv_features: Sequence,
+                 chunk_samples: int = 480_000, context_samples: int = 32_000,
+                 batcher: Optional[MicroBatcher] = None,
+                 device: torch.device | str = "cpu"):
+        super().__init__(forward, conv_features, chunk_samples=chunk_samples,
+                         context_samples=context_samples, batch_size=1,
+                         batcher=batcher, device=device)
+        self.reset()
+
+    def reset(self) -> None:
+        """Forget the stream; ready for a new utterance."""
+        self._tail = np.zeros((0,), np.float32)  # retained samples
+        self._tail_base = 0                      # absolute index of _tail[0]
+        self._next_chunk = 0                     # next chunk to emit
+        self._pieces: List[np.ndarray] = []      # stable stitched frames
+        self._final: Optional[np.ndarray] = None
+
+    @property
+    def samples_fed(self) -> int:
+        return self._tail_base + len(self._tail)
+
+    def feed(self, samples: np.ndarray) -> None:
+        """Append samples; forward the chunks that became complete."""
+        if self._final is not None:
+            raise RuntimeError("stream already finished; call reset()")
+        samples = np.asarray(samples, np.float32).reshape(-1)
+        if len(samples) == 0:
+            return
+        self._tail = np.concatenate([self._tail, samples])
+        # chunk k is interior once one sample past its window arrived: the
+        # stream's end only grows, so the offline cut points hold
+        while (self.samples_fed
+               >= self._next_chunk * self.core + self.chunk + 1):
+            start = self._next_chunk * self.core
+            upper = (start + self.core) // self.stride + self.margin_frames
+            self._emit(start, self.chunk, upper)
+            self._next_chunk += 1
+            drop = self._next_chunk * self.core - self._tail_base
+            if drop > 0:
+                self._tail = self._tail[drop:]
+                self._tail_base += drop
+
+    def _emit(self, start: int, seg_len: int, upper_cut: int) -> None:
+        lo_s = start - self._tail_base
+        seg = self._tail[lo_s:lo_s + seg_len]
+        lower_cut = start // self.stride + (self.margin_frames if start
+                                            else 0)
+        self._pieces.append(self._kept(self._row_log_probs([seg])[0],
+                                       len(seg), start, lower_cut, upper_cut))
+
+    def log_probs_so_far(self) -> np.ndarray:
+        """(T_stable', V) stable stitched prefix (exact vs offline)."""
+        if not self._pieces:
+            return np.zeros((0, 1), np.float32)
+        return np.concatenate(self._pieces, axis=0)
+
+    def text_so_far(self, index2vocab: dict, decoder=None,
+                    blank: Optional[int] = None,
+                    postproc: Optional[Callable] = None) -> str:
+        return decode_stitched(self.log_probs_so_far(), index2vocab,
+                               decoder, blank, postproc)
+
+    def finish(self) -> np.ndarray:
+        """End of stream: flush the remaining chunks, return the full
+        (T', V) log-probs."""
+        if self._final is not None:
+            return self._final
+        n = self.samples_fed
+        if n == 0:
+            self._final = np.zeros((0, 1), np.float32)
+            return self._final
+        starts = self._chunk_starts(n)
+        total = conv_output_length(n, self.conv_features)
+        for k in range(self._next_chunk, len(starts)):
+            start = starts[k]
+            upper = (starts[k + 1] // self.stride + self.margin_frames
+                     if k + 1 < len(starts) else total)
+            self._emit(start, min(n - start, self.chunk), upper)
+        self._next_chunk = len(starts)
+        self._final = self.log_probs_so_far()
+        return self._final
+
+    def finish_text(self, index2vocab: dict, decoder=None,
+                    blank: Optional[int] = None,
+                    postproc: Optional[Callable] = None) -> str:
+        return decode_stitched(self.finish(), index2vocab, decoder, blank,
+                               postproc)

@@ -47,7 +47,36 @@ against its plain PyTorch version. Phases, each printing JSON lines:
               the served model's bf16 ``Dense`` layers held to the CPU's
               order (product rounded, then the bias added and rounded
               again; bitwise on exact integer sums);
-5. train    - ``python -m audio8_tpu_torch.cli.train``'s entry point on a
+4b. serve_decode - the same requests to ``--beam 8 --lm`` a trigram
+              ARPA (``ops/ngram.py`` on 6 000 sentences) ``--timestamps
+              true``: each text equal to a fresh CPU decoder's beam
+              decode of the log-probs the request decoded (concurrent
+              decodes share one loaded LM), word times inside the clip,
+              ``/metrics`` counting exactly the requests sent; beam host
+              ms per request;
+    stream  - ``POST /stream`` of the 65 s request in 0.5 s s16 blocks,
+              chunked, on that server: no error line, the final text
+              equal to ``/transcribe``'s, the streamed log-probs (and a
+              batch-1 ``StreamingTranscriber``'s without the batcher)
+              within MODEL_TOL of the offline ones; time to the first
+              partial and from the last byte to the final line;
+    serve_int8 - ``--quantize int8`` in f32 and ``--bf16``: the
+              quantized-layer count equals the CPU's, two int8 layers
+              bitwise the CPU's (weight and activation codes, int32
+              products, output), the texts' edit distance to f32's; the
+              device ms of one (4, 30 s) dispatch, f32, bf16, int8 and
+              int8 + bf16 in turns;
+    transcribe_vad - ``cli.transcribe --vad true --timestamps true`` on
+              two files with silences, card vs CPU: segments equal,
+              log-probs within MODEL_TOL, rows equal unless a near tie;
+    embed   - (after restart_test) ``cli.embed --reduction_type mean``
+              on the pretraining phase's ``.pt`` over 16 files of 2-21 s,
+              batch 8, card vs CPU: cosines >= 1 - 1e-4, unit norms, the
+              ``--trials`` EER equal; utterances/s;
+    inference_kernel - (after pretrain_kernel) kernels 2 and 3 against
+              their plain versions, f32 and bf16, at every shape those
+              five runs gave them (recorded at the layers' calls);
+5. train   - ``python -m audio8_tpu_torch.cli.train``'s entry point on a
               synthetic corpus: 6 optimizer steps of 2 micro-batches,
               the encoder frozen for 3 of them; step times, training
               audio-s/s and the kernels' launch counts over that run;
@@ -3077,6 +3106,575 @@ def phase_paired_vs_cpu(weights: dict, built, seed: int) -> None:
           **out})
 
 
+# ---------------------------------------------------------------------------
+# The serving and inference surface (slice 12): beam+LM with timestamps,
+# /stream, /metrics, int8, cli.transcribe --vad, cli.embed. Each phase
+# reads kernels 2 and 3's launches over its own run (counts set to 0 just
+# before it) and notes the shapes its layers gave them in INFER_CALLS,
+# which ``inference_kernel`` checks against the plain versions.
+
+INFER_PATH = ("conv_k3s2_fwd", "attention_fwd")
+INFER_PHASES = ("serve_decode", "stream", "serve_int8", "transcribe_vad",
+                "embed")
+INFER_CALLS: dict = {"conv": [], "attention": [], "dropout": []}
+SERVE_BEAM = 8
+STREAM_BLOCK_S = 0.5  # /stream request body blocks, s16 PCM
+# transcribe_vad: two files of bursts between near-silences
+VAD_BURSTS = ((0.6, 1.7), (0.4, 2.9))  # (silence s, burst s) ranges
+EMBED_FILES, EMBED_BATCH = 16, 8
+EMBED_COS_TOL = 1e-4  # cosine to the CPU's vector >= 1 - this; norms too
+
+
+@contextlib.contextmanager
+def inference_path(phase: str, launches: dict):
+    """Kernels 2 and 3's launches over the block into ``launches[phase]``
+    (each must be launched), the layers' calls into INFER_CALLS."""
+    calls: dict = {}
+    reset_launches()
+    with recorded_path_calls(calls):
+        yield
+    got = read_launches()
+    launches[phase] = {k: got[k] for k in INFER_PATH}
+    for key in INFER_CALLS:
+        INFER_CALLS[key] += calls[key]
+    for name, n in launches[phase].items():
+        check(n > 0, f"{name} was not launched by the {phase} run")
+
+
+def write_serve_lm(path: str, seed: int) -> int:
+    """A trigram ARPA that ``ops/ngram.py`` (interpolated modified
+    Kneser-Ney) estimates from 6 000 Zipf-drawn sentences over 2 000
+    words of the serve dict's letters; returns its n-gram count."""
+    from audio8_tpu_torch.ops.ngram import train_kneser_ney
+
+    rng = np.random.default_rng(seed + 7)
+    letters = [c for c in LETTERS if c not in ("|", "'")]
+    words = sorted({"".join(rng.choice(letters, size=rng.integers(1, 8)))
+                    for _ in range(2_600)})[:2_000]
+    p = 1.0 / np.arange(1, len(words) + 1)
+    p /= p.sum()
+    lm = train_kneser_ney([list(rng.choice(words, size=rng.integers(3, 15),
+                                           p=p)) for _ in range(6_000)], 3)
+    lm.write_arpa(path)
+    return len(lm.prob)
+
+
+def http_get_text(port: int, path: str) -> str:
+    opener = urllib.request.build_opener(urllib.request.ProxyHandler({}))
+    with opener.open(f"http://127.0.0.1:{port}{path}", timeout=60) as r:
+        return r.read().decode()
+
+
+def concurrent_posts(port: int, bodies: list) -> list:
+    """POST /transcribe every body at once; (status, json, client ms)."""
+    out = [None] * len(bodies)
+
+    def send(i):
+        t0 = time.perf_counter()
+        out[i] = post(port, "/transcribe", bodies[i]) + (
+            (time.perf_counter() - t0) * 1e3,)
+
+    clients = [threading.Thread(target=send, args=(i,))
+               for i in range(len(bodies))]
+    for c in clients:
+        c.start()
+    for c in clients:
+        c.join(timeout=600)
+    for s, res in zip(SERVE_SECONDS, out):
+        check(res is not None and res[0] == 200
+              and isinstance(res[1].get("text"), str),
+              f"request of {s} s: {res}")
+    return out
+
+
+def phase_serve_decode(service, port: int, arpa: str, seed: int,
+                       launches: dict) -> None:
+    """The serve phase's requests, concurrent, to ``a8t-serve --beam 8
+    --lm <trigram ARPA> --timestamps true``: each text equals a CPU beam
+    decode (a fresh decoder on the host) of the log-probs the request
+    decoded (the concurrent decodes share one loaded LM in the native
+    library), word times fall inside the clip, and ``/metrics`` counts
+    exactly the requests sent; the beam's host ms per request."""
+    import audio8_tpu_torch.cli.serve as serve_cli
+    from audio8_tpu_torch.config import conv_output_length
+    from audio8_tpu_torch.models.text import read_vocab_list
+    from audio8_tpu_torch.ops.beam import PrefixBeamSearch
+
+    bodies = serve_bodies(seed)
+    decoded, lock = [], threading.Lock()
+    real = serve_cli.decode_stitched
+
+    def recording(lp, index2vocab, decoder=None, **kw):
+        t0 = time.perf_counter()
+        text = real(lp, index2vocab, decoder, **kw)
+        with lock:
+            decoded.append((lp, text, (time.perf_counter() - t0) * 1e3))
+        return text
+
+    serve_cli.decode_stitched = recording
+    try:
+        with inference_path("serve_decode", launches):
+            results = concurrent_posts(port, bodies)
+    finally:
+        serve_cli.decode_stitched = real
+    metrics = http_get_text(port, "/metrics").splitlines()
+    tmp = os.path.dirname(arpa)
+    cpu_decoder = PrefixBeamSearch(
+        read_vocab_list(os.path.join(tmp, "dict.ltr.txt")), alpha=0.7,
+        beta=5.0, beam=SERVE_BEAM, lm_file=arpa)
+    check(len(decoded) == len(bodies), f"{len(decoded)} decodes")
+    by_frames = {len(lp): (lp, text, ms) for lp, text, ms in decoded}
+    beam_ms, words = [], []
+    for s, (_, body, _) in zip(SERVE_SECONDS, results):
+        lp, text, ms = by_frames[conv_output_length(
+            int(round(s * SR)), service.transcriber.conv_features)]
+        check(text == body["text"], f"{s} s: the decode's text was not sent")
+        cpu = decode_stitched_cpu(lp, service, cpu_decoder)
+        check(cpu == body["text"], f"{s} s: served beam text differs from "
+              f"the CPU's decode of its log-probs")
+        check(all(0.0 <= w["start"] < w["end"] <= s + 0.02
+                  for w in body["words"]), f"{s} s: word times {body}")
+        beam_ms.append(ms)
+        words.append(len(body["words"]))
+    sent = len(bodies)
+    audio = sum(round(len(wav_of(b)) / SR, 3) for b in bodies)
+    want = [f'a8t_requests_total{{route="/transcribe",code="200"}} {sent}',
+            f'a8t_request_seconds_count{{route="/transcribe"}} {sent}',
+            f"a8t_audio_seconds_total {audio:.3f}",
+            "a8t_batcher_dispatches_total "
+            f"{service.transcriber.batcher.dispatches}"]
+    check(all(w in metrics for w in want)
+          and sum(line.startswith("a8t_requests_total") for line in metrics)
+          == 1, f"/metrics: {metrics} lacks {want}")
+    emit({"phase": "serve_decode", "requests_s": SERVE_SECONDS,
+          "beam": SERVE_BEAM, "lm": os.path.basename(arpa),
+          "latency_ms": [r[2] for r in results],
+          "server_latency_ms": [r[1]["latency_ms"] for r in results],
+          "beam_host_ms": beam_ms, "words": words,
+          "texts_len": [len(r[1]["text"]) for r in results],
+          "metrics_lines": len(metrics), "launches": launches["serve_decode"]})
+
+
+def decode_stitched_cpu(lp, service, decoder) -> str:
+    from audio8_tpu_torch.serve import decode_stitched
+
+    return decode_stitched(lp, service.index2vocab, decoder,
+                           postproc=service.postproc)
+
+
+def wav_of(body: bytes) -> np.ndarray:
+    """The float32 samples the server reads from WAV bytes."""
+    from scipy.io import wavfile
+
+    _, pcm = wavfile.read(io.BytesIO(body))
+    return pcm.astype(np.float32) / 32768.0
+
+
+def stream_request(port: int, pcm: bytes, block: int) -> dict:
+    """POST /stream ``pcm`` in ``block``-byte chunks of a chunked body
+    from a sender thread while this one reads the ndjson lines; returns
+    the lines and the seconds from the first byte to the first partial
+    and from the last byte to the final line."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    conn.putrequest("POST", "/stream")
+    conn.putheader("Transfer-Encoding", "chunked")
+    conn.endheaders()
+    times = {}
+
+    def send():
+        times["first_byte"] = time.perf_counter()
+        for i in range(0, len(pcm), block):
+            piece = pcm[i:i + block]
+            conn.send(b"%x\r\n%s\r\n" % (len(piece), piece))
+        times["last_byte"] = time.perf_counter()
+        conn.send(b"0\r\n\r\n")
+
+    sender = threading.Thread(target=send)
+    sender.start()
+    resp = conn.getresponse()
+    lines = []
+    for raw in iter(resp.readline, b""):
+        lines.append(json.loads(raw))
+        times.setdefault("first_line", time.perf_counter())
+        if lines[-1].get("final"):
+            times["final"] = time.perf_counter()
+    sender.join(timeout=600)
+    conn.close()
+    partials = [ln for ln in lines if "partial" in ln]
+    return {"lines": lines, "status": resp.status,
+            "first_partial_s": (times["first_line"] - times["first_byte"]
+                                if partials else None),
+            "last_byte_to_final_s": times["final"] - times["last_byte"]}
+
+
+def phase_stream(service, port: int, seed: int, launches: dict) -> None:
+    """``POST /stream`` of the 65 s request in 0.5 s s16 blocks, chunked:
+    no error line, partials, the final text equal to ``/transcribe``'s
+    on the same audio, the streamed log-probs (through the batcher) equal
+    to the offline ones within MODEL_TOL; then the same audio through a
+    ``StreamingTranscriber`` without the batcher (batch-1 dispatches)
+    within MODEL_TOL too. Time to the first partial and from the last
+    byte to the final line."""
+    from audio8_tpu_torch.serve import StreamingTranscriber
+
+    body = serve_bodies(seed)[-1]
+    wav = wav_of(body)
+    pcm = (wav * 32768.0).astype("<i2").tobytes()
+    streamed = {}
+    real = service.final_text
+
+    def final_text(st, lock=None):
+        streamed["lp"] = st.finish()
+        return real(st, lock)
+
+    service.final_text = final_text
+    t = service.transcriber
+    try:
+        with inference_path("stream", launches):
+            got = stream_request(port, pcm, int(STREAM_BLOCK_S * SR) * 2)
+            st = StreamingTranscriber(t.forward, t.conv_features, t.chunk,
+                                      t.context, device=t.device)
+            block = int(STREAM_BLOCK_S * SR)
+            for i in range(0, len(wav), block):
+                st.feed(wav[i:i + block])
+            alone = st.finish()
+            status, offline = post(port, "/transcribe", body)
+    finally:
+        service.final_text = real
+    lines = got["lines"]
+    check(got["status"] == 200 and lines and all("error" not in ln
+                                                 for ln in lines),
+          f"/stream failed: {lines[-3:]}")
+    final = lines[-1]
+    check(final.get("final") is True and status == 200
+          and final["text"] == offline["text"]
+          and final["audio_seconds"] == offline["audio_seconds"],
+          f"/stream final {final} vs /transcribe {offline}")
+    lp_offline = service.log_probs(wav)
+    errs = [float(np.abs(lp - lp_offline).max()) if lp.shape ==
+            lp_offline.shape else float("inf")
+            for lp in (streamed["lp"], alone)]
+    emit({"phase": "stream", "audio_s": final["audio_seconds"],
+          "block_s": STREAM_BLOCK_S, "lines": len(lines),
+          "partials": sum("partial" in ln for ln in lines),
+          "first_partial_s": got["first_partial_s"],
+          "last_byte_to_final_s": got["last_byte_to_final_s"],
+          "upload": "unpaced",
+          "stream_vs_offline_max_abs_err": errs[0],
+          "batch1_stream_vs_offline_max_abs_err": errs[1],
+          "batch1_text_equal": decode_stitched_cpu(
+              alone, service, service.decoder) == offline["text"],
+          "tol": MODEL_TOL, "launches": launches["stream"]})
+    check(max(errs) <= MODEL_TOL, f"streamed log-probs vs offline {errs}")
+    check(got["first_partial_s"] is not None, "no partial line")
+
+
+def dispatch_ms(tmp: str, gen) -> dict:
+    """Device ms of one (4, 30 s) dispatch of the served model in f32,
+    bf16, int8 (f32 activations) and int8 with bf16, in turns, twice."""
+    from audio8_tpu_torch.cli.serve import parse_args
+    from audio8_tpu_torch.cli.transcribe import load_acoustic
+
+    base = ["--checkpoint", os.path.join(tmp, "ctc.pt"), "--dict_file",
+            os.path.join(tmp, "dict.ltr.txt")]
+    variants = {"f32": [], "bf16": ["--bf16"],
+                "int8": ["--quantize", "int8"],
+                "int8_bf16": ["--quantize", "int8", "--bf16"]}
+    forwards = {k: load_acoustic(parse_args(base + v))[1]
+                for k, v in variants.items()}
+    sig = torch.randn(CHUNK_BATCH, 30 * SR, device="cuda",
+                      generator=gen) * 0.1
+    lens = torch.full((CHUNK_BATCH,), 30 * SR, device="cuda")
+    out = {k: [] for k in variants}
+    for _ in range(2):
+        for k, fwd in forwards.items():
+            out[k].append(device_ms(lambda f=fwd: f(sig, lens)))
+    # where each variant's device time goes: its eight costliest kernels
+    for k, fwd in forwards.items():
+        by_name = traced_or_none(lambda f=fwd: f(sig, lens))
+        emit({"phase": "serve_int8", "variant": k,
+              "kernels_traced": len(by_name),
+              "top_kernels_ms": [[name[:90], ms] for name, ms in sorted(
+                  by_name.items(), key=lambda kv: -kv[1])[:8]]})
+    del forwards
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_int8_dense(phase: str, name: str, card, cpu, rows: int,
+                     gen) -> None:
+    """A served int8 ``Dense`` on the card against the same layer
+    quantized on the CPU, on the same (rows, in) input in the layer's
+    compute dtype: the weight codes, the activation codes, the int32
+    products and the output, bitwise."""
+    from audio8_tpu_torch.ops.quant import int_mm, quantize_rows
+
+    dt = card.compute_dtype
+    x = torch.randn(rows, card.in_features, device="cuda",
+                    generator=gen).to(dt)
+    xc = x.cpu()
+    with torch.inference_mode():
+        y, y_cpu = card(x), cpu(xc)
+        xq, _ = quantize_rows(x)
+        xq_cpu, _ = quantize_rows(xc)
+        p, p_cpu = int_mm(xq, card.weight), int_mm(xq_cpu, cpu.weight)
+    same = {"weight_codes": torch.equal(card.weight.cpu(), cpu.weight),
+            "weight_scale": torch.equal(card.weight_scale.cpu(),
+                                        cpu.weight_scale),
+            "activation_codes": torch.equal(xq.cpu(), xq_cpu),
+            "int32_products": torch.equal(p.cpu(), p_cpu),
+            "output": torch.equal(y.cpu(), y_cpu)}
+    emit({"phase": phase, "layer": name, "dtype": str(dt), "rows": rows,
+          "bitwise": same})
+    check(all(same.values()), f"{phase} {name} {dt}: {same}")
+
+
+def phase_serve_int8(tmp: str, seed: int, f32_texts: list,
+                     launches: dict, gen) -> None:
+    """``a8t-serve --quantize int8``, f32 and ``--bf16``: the served
+    model's quantized-layer count equals the CPU's, two int8 layers on
+    the card equal the CPU's bitwise (:func:`check_int8_dense`), the
+    transcripts' edit distance to the unquantized f32 texts; then the
+    device ms of one (4, 30 s) dispatch, int8 against bf16 against f32
+    (:func:`dispatch_ms`)."""
+    from audio8_tpu_torch.models.convert import load_fairseq_ctc
+    from audio8_tpu_torch.models.wav2vec2 import Wav2Vec2AcousticModel
+    from audio8_tpu_torch.ops.quant import quantize_model_params
+
+    bodies = serve_bodies(seed)
+    rows = CHUNK_BATCH * ATTN_SHAPE[2]
+    for flags in ([], ["--bf16"]):
+        dtype = torch.bfloat16 if flags else torch.float32
+        cpu = Wav2Vec2AcousticModel(base_config(4 + len(LETTERS)), dtype)
+        cpu.load_state_dict(load_fairseq_ctc(os.path.join(tmp, "ctc.pt")))
+        cpu_count = quantize_model_params(cpu)
+        with serving(tmp, "--quantize", "int8", *flags) as (service, port):
+            with inference_path("serve_int8", launches) if not flags \
+                    else contextlib.nullcontext():
+                results = concurrent_posts(port, bodies)
+            served = service.transcriber.forward.model
+            count = sum(m.weight.dtype == torch.int8 for m in served.modules()
+                        if hasattr(m, "weight_scale"))
+            check(count == cpu_count, f"int8 layers {count} vs CPU "
+                  f"{cpu_count}")
+            card_layer = served.encoder.encoder.layers[0]
+            cpu_layer = cpu.encoder.encoder.layers[0]
+            for name in ("fc1", "self_attn.q_proj"):
+                check_int8_dense("serve_int8", f"layers.0.{name}",
+                                 card_layer.get_submodule(name),
+                                 cpu_layer.get_submodule(name), rows, gen)
+        texts = [r[1]["text"] for r in results]
+        emit({"phase": "serve_int8", "dtype": str(dtype),
+              "quantized_layers": count, "requests_s": SERVE_SECONDS,
+              "latency_ms": [r[2] for r in results],
+              "char_diff_vs_f32": [edit_distance(a, b) / max(1, len(a))
+                                   for a, b in zip(f32_texts, texts)],
+              "texts_equal_f32": [a == b for a, b in zip(f32_texts, texts)],
+              "launches": launches["serve_int8"]})
+        del cpu
+    emit({"phase": "serve_int8", "dispatch_device_ms": dispatch_ms(tmp, gen),
+          "shape": [CHUNK_BATCH, 30 * SR], "timed_by": "torch.profiler"})
+
+
+def write_vad_files(root: str, seed: int) -> list:
+    """Two WAVs of three tone-and-noise bursts between near-silences."""
+    from scipy.io import wavfile
+
+    rng = np.random.default_rng(seed + 11)
+    paths = []
+    for i in range(2):
+        parts = []
+        for _ in range(3):
+            parts.append(rng.normal(size=int(rng.uniform(*VAD_BURSTS[0])
+                                            * SR)) * 1e-3)
+            parts.append(synthetic_speechlike(rng.uniform(*VAD_BURSTS[1]),
+                                              rng) * 4.0)
+        parts.append(rng.normal(size=SR // 2) * 1e-3)
+        path = os.path.join(root, f"vad{i}.wav")
+        wavfile.write(path, SR, (np.clip(np.concatenate(parts), -1, 1)
+                                 * 32767).astype(np.int16))
+        paths.append(path)
+    return paths
+
+
+def phase_transcribe_vad(tmp: str, seed: int, launches: dict) -> None:
+    """``cli.transcribe --vad true --timestamps true`` on two files with
+    silences, on the card and on the CPU: the segments equal; each
+    segment's log-probs within MODEL_TOL, and its text and words equal
+    unless a frame's top two CPU log-probs lie within twice the error
+    (the serve phase's rule)."""
+    import audio8_tpu_torch.cli.transcribe as transcribe
+
+    paths = write_vad_files(tmp, seed)
+    argv = ["--checkpoint", os.path.join(tmp, "ctc.pt"), "--dict_file",
+            os.path.join(tmp, "dict.ltr.txt"), "--vad", "true",
+            "--timestamps", "true", *paths]
+    real = transcribe._transcribe_wav
+    runs = {}
+    for device in ("cuda", "cpu"):
+        segs = runs[device] = []
+
+        def recording(*a, **kw):
+            out = real(*a, **kw)
+            segs.append(out)
+            return out
+
+        transcribe._transcribe_wav = recording
+        try:
+            with contextlib.redirect_stdout(io.StringIO()), (
+                    inference_path("transcribe_vad", launches)
+                    if device == "cuda" else contextlib.nullcontext()):
+                t0 = time.perf_counter()
+                rows = transcribe.main(argv + ["--device", device])
+                wall = time.perf_counter() - t0
+        finally:
+            transcribe._transcribe_wav = real
+        runs[device + "_rows"], runs[device + "_wall"] = rows, wall
+    card, cpu = runs["cuda_rows"], runs["cpu_rows"]
+    check([r["segments"] for r in card] == [r["segments"] for r in cpu]
+          and all(len(r["segments"]) > 1 for r in card),
+          f"VAD segments {[r['segments'] for r in card]} vs "
+          f"{[r['segments'] for r in cpu]}")
+    err, ties = 0.0, False
+    for (_, a), (_, b) in zip(runs["cuda"], runs["cpu"]):
+        check(a.shape == b.shape, "segment frames differ on the CPU")
+        e = float(np.abs(a - b).max())
+        err = max(err, e)
+        top2 = np.sort(b, axis=-1)[:, -2:]
+        ties = ties or bool(((top2[:, 1] - top2[:, 0]) <= 2 * e).any())
+    same = [(r["text"], r["words"]) == (c["text"], c["words"])
+            for r, c in zip(card, cpu)]
+    emit({"phase": "transcribe_vad",
+          "segments": [r["segments"] for r in card],
+          "segment_lengths_s": [round(b - a, 3) for r in card
+                                for a, b in r["segments"]],
+          "words": [len(r["words"]) for r in card],
+          "max_abs_err": err, "tol": MODEL_TOL, "near_tie": ties,
+          "rows_equal_cpu": same, "card_wall_s": runs["cuda_wall"],
+          "cpu_wall_s": runs["cpu_wall"],
+          "launches": launches["transcribe_vad"]})
+    check(err <= MODEL_TOL, f"transcribe_vad log-probs vs CPU {err}")
+    check(all(same) or ties, "transcribe_vad: rows differ from the CPU's "
+          "with no near tie")
+
+
+def write_embed_corpus(root: str, seed: int) -> tuple:
+    """EMBED_FILES WAVs of 2-21 s (four tone sets, four files each) in a
+    manifest ordered by length, and trials among the EMBED_BATCH shortest
+    files (one batch): each with the next four (same set: 1, else 0)."""
+    from scipy.io import wavfile
+
+    os.makedirs(root)
+    rng = np.random.default_rng(seed + 13)
+    seconds = np.sort(rng.uniform(2.0, 21.0, EMBED_FILES))
+    seconds[-1] = 21.0
+    sets = rng.permutation(np.repeat(np.arange(4), EMBED_FILES // 4))
+    names = []
+    with open(os.path.join(root, "test.tsv"), "w") as tf:
+        tf.write(root + "\n")
+        for i, (s, g) in enumerate(zip(seconds, sets)):
+            wav = synthetic_speechlike(float(s), np.random.default_rng(
+                [seed, int(g), i]))
+            name = f"set{g}_{i}.wav"
+            wavfile.write(os.path.join(root, name), SR,
+                          (np.clip(wav, -1, 1) * 32767).astype(np.int16))
+            tf.write(f"{name}\t{len(wav)}\n")
+            names.append((name, int(g)))
+    with open(os.path.join(root, "trials.txt"), "w") as f:
+        short = names[:EMBED_BATCH]
+        for i, (a, ga) in enumerate(short):
+            for b, gb in short[i + 1:i + 5]:
+                f.write(f"{a}\t{b}\t{int(ga == gb)}\n")
+    return os.path.join(root, "trials.txt")
+
+
+def phase_embed(tmp: str, seed: int, launches: dict) -> None:
+    """``cli.embed --reduction_type mean`` on the pretraining phase's
+    ``checkpoint-step-5.pt`` over EMBED_FILES files of 2-21 s, batch 8
+    (padded to whole seconds), on the card and on the CPU: each vector's
+    cosine to the CPU's >= 1 - EMBED_COS_TOL, norms 1 within it, the
+    ``--trials`` EER equal; utterances/s of a second, warm pass."""
+    from audio8_tpu_torch.cli import embed as embed_cli
+
+    root = os.path.join(tmp, "embed_corpus")
+    trials = write_embed_corpus(root, seed)
+    base = ["--checkpoint", os.path.join(tmp, "pretrain_run",
+                                         "checkpoint-step-5.pt"),
+            "--root_dir", root, "--reduction_type", "mean", "--batch",
+            str(EMBED_BATCH)]
+    out = {}
+    for device in ("cuda", "cpu"):
+        prefix = os.path.join(tmp, f"emb_{device}")
+        with contextlib.redirect_stdout(io.StringIO()) as printed, (
+                inference_path("embed", launches) if device == "cuda"
+                else contextlib.nullcontext()):
+            t0 = time.perf_counter()
+            embed_cli.main(base + ["--device", device, "--output", prefix])
+            wall = time.perf_counter() - t0
+            embed_cli.main(base + ["--device", device, "--trials", trials])
+        out[device] = (np.load(prefix + ".npy"), wall,
+                       printed.getvalue().strip().splitlines()[-1])
+    card, cpu = out["cuda"][0], out["cpu"][0]
+    cos = (card * cpu).sum(-1) / (np.linalg.norm(card, axis=-1)
+                                  * np.linalg.norm(cpu, axis=-1))
+    norms = np.linalg.norm(card, axis=-1)
+    with open(os.path.join(root, "test.tsv")) as f:
+        paths = [os.path.join(root, line.split("\t")[0])
+                 for line in f.read().splitlines()[1:]]
+    embed = embed_cli.build_embedder(embed_cli.parse_args(
+        base + ["--device", "cuda"]))
+    embed(paths)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    embed(paths)
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    emit({"phase": "embed", "files": len(paths), "batch": EMBED_BATCH,
+          "shape": list(card.shape), "min_cosine": float(cos.min()),
+          "max_norm_err": float(np.abs(norms - 1).max()),
+          "eer": [out["cuda"][2], out["cpu"][2]],
+          "cli_wall_s": [out["cuda"][1], out["cpu"][1]],
+          "utterances_per_s": len(paths) / warm,
+          "audio_s_per_s": sum(len(embed_cli.SoundfileAudioReader().read(p))
+                               for p in paths) / SR / warm,
+          "launches": launches["embed"]})
+    check(card.shape == cpu.shape == (EMBED_FILES, 768)
+          and bool(np.isfinite(card).all()), f"embed shape {card.shape}")
+    check(float(cos.min()) >= 1 - EMBED_COS_TOL,
+          f"embed cosine to the CPU {cos.min()}")
+    check(float(np.abs(norms - 1).max()) <= EMBED_COS_TOL,
+          f"embed norms {norms}")
+    check(out["cuda"][2] == out["cpu"][2] and out["cuda"][2].startswith(
+        "eer "), f"EER {out['cuda'][2]} vs {out['cpu'][2]}")
+
+
+def phase_inference_kernels(gen) -> dict:
+    """Kernels 2 and 3 against their plain versions, float32 and bfloat16,
+    at every shape the inference phases gave them (INFER_CALLS): each
+    conv input, each attention shape with its first call's key lengths;
+    returns the float32 max errors."""
+    shapes = path_shapes(INFER_CALLS)
+    emit({"phase": "inference_kernel",
+          "conv_inputs": [list(x) for x, _ in shapes["conv"]],
+          "attention": [[list(s), lens] for s, _, _, lens, _
+                        in shapes["attention"]]})
+    worst = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        errs = {k: 0.0 for k in INFER_PATH}
+        for x_shape, w_shape in shapes["conv"]:
+            errs["conv_k3s2_fwd"] = max(errs["conv_k3s2_fwd"], check_conv_fwd(
+                "inference_kernel", x_shape, w_shape, dtype, gen))
+        for shape, sem, _, lengths, rate in shapes["attention"]:
+            errs["attention_fwd"] = max(errs["attention_fwd"], check_attn_fwd(
+                "inference_kernel", shape, lengths, rate, sem, dtype, gen))
+            torch.cuda.empty_cache()
+        if dtype == torch.float32:
+            worst = errs
+    return worst
+
+
 @contextlib.contextmanager
 def cuda_profiled():
     """torch.profiler over CUDA activity, warmed up before the block: a
@@ -4249,6 +4847,25 @@ def main(argv=None) -> int:
         with timed("serve_bf16"):
             phase_serve_bf16(SEED, tmp, f32_texts)
         torch.cuda.empty_cache()
+        infer_launches: dict = {}
+        with contextlib.ExitStack() as stack:
+            with timed("serve_decode"):
+                arpa = os.path.join(tmp, "serve_lm.arpa")
+                emit({"phase": "serve_lm", "ngrams": write_serve_lm(arpa,
+                                                                     SEED)})
+                service, port = stack.enter_context(serving(
+                    tmp, "--beam", str(SERVE_BEAM), "--lm", arpa,
+                    "--timestamps", "true"))
+                phase_serve_decode(service, port, arpa, SEED, infer_launches)
+            with timed("stream"):
+                phase_stream(service, port, SEED, infer_launches)
+        torch.cuda.empty_cache()
+        with timed("serve_int8"):
+            phase_serve_int8(tmp, SEED, f32_texts, infer_launches, gen)
+        torch.cuda.empty_cache()
+        with timed("transcribe_vad"):
+            phase_transcribe_vad(tmp, SEED, infer_launches)
+        torch.cuda.empty_cache()
         with timed("train"):
             train_launches = phase_train(tmp, SEED)
         torch.cuda.empty_cache()
@@ -4260,6 +4877,9 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         with timed("restart_test"):
             restart_launches = phase_restart_test(tmp, SEED)
+        torch.cuda.empty_cache()
+        with timed("embed"):
+            phase_embed(tmp, SEED, infer_launches)
         torch.cuda.empty_cache()
         with timed("seq2seq"):
             s2s_launches, s2s_weights, s2s_built, s2s_path = phase_seq2seq(
@@ -4283,6 +4903,10 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
     with timed("pretrain_kernel"):
         for k, e in phase_pretrain_path_kernels(batches, gen).items():
+            worst[k] = max(worst[k], e)
+    torch.cuda.empty_cache()
+    with timed("inference_kernel"):
+        for k, e in phase_inference_kernels(gen).items():
             worst[k] = max(worst[k], e)
     torch.cuda.empty_cache()
     with timed("pretrain_block"):
@@ -4370,6 +4994,8 @@ def main(argv=None) -> int:
          "restart_test_launches": restart_launches.get(name, 0),
          "seq2seq_launches": s2s_launches.get(name, 0),
          "paired_launches": paired_launches.get(name, 0),
+         **{f"{p}_launches": infer_launches[p].get(name, 0)
+            for p in INFER_PHASES},
          "max_abs_err": worst[name],
          **{k: times[(name, torch.float32)][k] for k in keys},
          **extra(name)}

@@ -14,6 +14,9 @@ from audio8_tpu_torch.ops.attention import (FWD_ROUTES, NEG, attention_core,
                                             attention_core_plain,
                                             attention_route, hash_keep)
 from audio8_tpu_torch.ops.hashrand import MASK32, keep_threshold, mix32
+from tests.test_torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 
 def _qkv(b, h, t, dh, seed=0):

@@ -43,6 +43,9 @@ from audio8_tpu_torch.ops.attention_block import (HEAD_DIMS,
                                                   attention_block_plain,
                                                   gemm_route,
                                                   weight_grad_slices)
+from tests.test_torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 FWD_TOL, GRAD_TOL = 2e-5, 3e-5  # tests/test_attention_block.py's bounds
 # bfloat16: both sides round q/k/v, o_h, dxo and the gradients to bf16 at

@@ -16,6 +16,9 @@ from audio8_tpu.ops.pallas.attention_kernel import attention_core as jax_core
 from audio8_tpu_torch.ops.attention import (attention_core,
                                             attention_core_bwd_plain,
                                             attention_core_plain)
+from tests.test_torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 SHAPE = (3, 2, 37, 16)  # T_pad = 128
 

@@ -39,6 +39,9 @@ from audio8_tpu_torch.utils import Offsets
 from tests.test_torch_pretrain import (CFG as PRE_CFG, LR as PRE_LR, N_NEG,
                                        _record, _signal)
 from tests.test_torch_train import CFG, CLIP, LR, _batch, _jnp, _tensors
+from tests.test_torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 BF16_LOSS_RTOL = 5e-3
 

@@ -14,6 +14,9 @@ from audio8_tpu_torch.cli import transcribe
 from audio8_tpu_torch.models.convert import load_fairseq_ctc, save_fairseq_ctc
 from audio8_tpu_torch.models.wav2vec2 import Wav2Vec2AcousticModel
 from audio8_tpu_torch.utils import Offsets
+from tests.test_torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 LETTERS = ["|", "E", "T", "A"]
 SIZE = ["--d_model", "32", "--num_heads", "2", "--num_layers", "1",

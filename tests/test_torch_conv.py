@@ -11,6 +11,9 @@ from audio8_tpu.nn.layers import _conv1d_nwc
 from audio8_tpu.ops.pallas.conv_kernel import conv1d_k3s2 as jax_conv1d_k3s2
 from audio8_tpu_torch.ops.conv import (FWD_ROUTES, conv1d_k3s2,
                                        conv1d_k3s2_plain, fwd_route, t_out_of)
+from tests.test_torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 # tests/test_conv_pallas.py shapes plus C_in = 32 (the golden fixture's)
 SHAPES = [

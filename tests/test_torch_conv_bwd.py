@@ -22,6 +22,9 @@ from audio8_tpu_torch.ops.conv import (DGRAD_ROUTES, conv1d_k3s2,
                                        t_out_of, wgrad_route, wgrad_splits,
                                        wgrad_wgmma_slices)
 from audio8_tpu_torch.ops.conv import _vectors
+from tests.test_torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 # tests/test_torch_conv.py shapes (odd T_in 37, 259, 1027, 19, 41 and even
 # 36) plus C_in != C_out both ways and more even T_in

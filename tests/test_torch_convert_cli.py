@@ -18,6 +18,9 @@ from audio8_tpu_torch.models.convert import (load_fairseq_ctc,
                                              save_fairseq_pretrained)
 from audio8_tpu_torch.models.wav2vec2 import (Wav2Vec2AcousticModel,
                                               Wav2Vec2Model)
+from tests.test_torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 SIZE = dict(d_model=32, num_heads=2, num_layers=1, d_ff=64)
 FLAGS = ["--d_model", "32", "--num_heads", "2", "--num_layers", "1",

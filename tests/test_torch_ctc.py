@@ -22,6 +22,9 @@ import torch
 
 from audio8_tpu.ops.ctc import ctc_loss as jax_ctc_loss
 from audio8_tpu_torch.ops.ctc import ctc_loss, ctc_loss_plain
+from tests.test_torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 B, T, V, U = 5, 24, 7, 6

@@ -41,6 +41,9 @@ from audio8_tpu_torch.nn.transformer import (MultiHeadAttention,
 from audio8_tpu_torch.ops.dropout import hash_keep_mask
 from audio8_tpu_torch.ops.hashrand import MASK32, SeedReplay
 from audio8_tpu_torch.utils import Offsets
+from tests.test_torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 TOL = 1e-5
 BF16_BOUND = 2.0 ** -5

@@ -48,6 +48,9 @@ from audio8_tpu_torch.train.optim import (TrainState, create_lrs,
                                           create_optimizer)
 from audio8_tpu_torch.train.steps import make_ctc_steps, make_pretrain_steps
 from audio8_tpu_torch.utils import Offsets
+from tests.test_torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 FX = ((32, 10, 5), (32, 3, 2))
 DROPOUT = dict(dropout=0.1, attention_dropout=0.1, dropout_input=0.1,

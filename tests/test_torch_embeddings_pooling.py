@@ -24,6 +24,9 @@ from audio8_tpu_torch.nn.pooling import Reduction, make_reduction
 from audio8_tpu_torch.ops.hashrand import MASK32, SeedReplay
 
 from tests.test_torch_decoder import assert_close, load_by_name
+from tests.test_torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 TYPES = ("2ha", "2ha_max", "2ha_mean", "sha", "sha_max", "sha_mean", "max",
          "mean", "none")

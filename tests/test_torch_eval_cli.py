@@ -26,6 +26,9 @@ from audio8_tpu_torch.utils import Offsets
 from tests.test_beam_differential import ARPA
 from tests.test_native import encode_flac
 from tests.test_torch_train_cli import SMALL, _train_args, corpus  # noqa
+from tests.test_torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 MODEL = [a for a in SMALL if a not in ("--device", "cpu")] + [
     "--pad_to_multiple", "4000"]

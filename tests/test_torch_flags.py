@@ -8,9 +8,11 @@
   captured at ``parse_args`` with no argument parsed).
 * A value the port cannot run raises ``NotImplementedError`` naming its
   ROADMAP.md queue item, never an argparse exit. Which values those are
-  depends on the entry point: ``cli.test`` and the trainer decode with
-  ``--beam`` and ``--lm``, which ``cli.transcribe`` and ``cli.serve``
-  still refuse, every trainer takes ``--restart_from``, and the paired
+  depends on the entry point: the decoders and the trainer decode with
+  ``--beam`` and ``--lm``, ``cli.transcribe`` and ``cli.serve`` take
+  ``--timestamps`` and ``--quantize`` (and ``cli.transcribe`` ``--vad``),
+  ``cli.test`` ``--quantize``; ``--exported`` raises everywhere (item 6,
+  export); every trainer takes ``--restart_from``, and the paired
   trainer refuses ``--warmstart_text`` (item 10).
 * A value the port can run runs: dropout flags at inference, the LM
   weights without an LM, the MoE and transducer sizes without MoE or a
@@ -25,6 +27,9 @@ from audio8_tpu_torch.cli.common import (TRAINING_ENTRIES, check_ported,
                                         encoder_kwargs)
 from audio8_tpu_torch.config import AcousticConfig
 from audio8_tpu_torch.models.wav2vec2 import check_supported
+from tests.test_torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 ENTRY_POINTS = ("train", "pretrain", "train_seq2seq", "pretrain_paired",
                 "transcribe", "serve", "test")
@@ -34,7 +39,7 @@ NEEDED = {"train": [], "pretrain": ["--manifest_dir", "m"],
           "transcribe": ["a.wav", "--checkpoint", "c.pt", "--dict_file",
                          "d.txt"],
           "serve": ["--checkpoint", "c.pt", "--dict_file", "d.txt"],
-          "test": []}
+          "test": [], "embed": ["--root_dir", "r", "--checkpoint", "c.pt"]}
 
 
 def captured_parser(module: str) -> argparse.ArgumentParser:
@@ -68,7 +73,8 @@ def flags(parser):
 
 
 @pytest.mark.parametrize("entry", ENTRY_POINTS + (
-    "convert_checkpoint", "learn_bpe", "wrd2bpe"))
+    "convert_checkpoint", "learn_bpe", "wrd2bpe", "embed", "manifest",
+    "train_ngram", "average_checkpoints", "inspect_checkpoint"))
 def test_port_parses_every_jax_flag(entry):
     theirs = flags(captured_parser(f"audio8_tpu.cli.{entry}"))
     ours = flags(captured_parser(f"audio8_tpu_torch.cli.{entry}"))
@@ -106,18 +112,15 @@ def parse_and_check(entry, extra):
     ("pretrain", ["--extractor_mode", "layer"], "item 7"),
     ("pretrain", ["--pos_conv_depth", "5"], "item 7"),
     ("pretrain", ["--sequence_parallel", "true"], "item 8"),
-    ("transcribe", ["--beam", "8"], "item 6"),
-    ("transcribe", ["--lm", "x.arpa"], "item 6"),
-    ("transcribe", ["--timestamps", "true"], "item 6"),
-    ("transcribe", ["--vad", "true"], "item 6"),
-    ("transcribe", ["--quantize", "int8"], "item 6"),
     ("transcribe", ["--exported", "artifact"], "item 6"),
     ("transcribe", ["--device_beam", "true"], "item 7"),
+    ("transcribe", ["--transducer", "true"], "item 7"),
     ("serve", ["--transducer", "true"], "item 7"),
-    ("serve", ["--lm", "x.arpa"], "item 6"),
-    ("serve", ["--beam", "8"], "item 6"),
+    ("serve", ["--exported", "artifact"], "item 6"),
+    ("serve", ["--device_beam", "true"], "item 7"),
+    ("embed", ["--exported", "artifact"], "item 6"),
+    ("embed", ["--preset", "wavlm-base"], "item 7"),
     ("test", ["--exported", "artifact"], "item 6"),
-    ("test", ["--quantize", "int8"], "item 6"),
     ("test", ["--transducer", "true"], "item 7"),
     ("test", ["--device_beam", "true"], "item 7"),
     ("test", ["--lm_rescore", "lm_dir"], "item 7"),
@@ -147,6 +150,16 @@ def test_unported_values_raise_naming_their_item(entry, extra, item):
     ("train", ["--verbose", "true", "--restart_tt", "ignore"]),
     ("pretrain", ["--restart_from", "run"]),
     ("test", ["--beam", "8", "--lm", "x.arpa", "--verbose", "true"]),
+    ("test", ["--quantize", "int8"]),
+    ("transcribe", ["--beam", "8"]),
+    ("transcribe", ["--lm", "x.arpa"]),
+    ("transcribe", ["--timestamps", "true"]),
+    ("transcribe", ["--vad", "true"]),
+    ("transcribe", ["--quantize", "int8"]),
+    ("serve", ["--lm", "x.arpa"]),
+    ("serve", ["--beam", "8"]),
+    ("serve", ["--timestamps", "true", "--quantize", "int8"]),
+    ("embed", ["--reduction_type", "sha", "--batch", "4"]),
     ("train_seq2seq", ["--restart_from", "run", "--valid_beam", "4",
                        "--restart_tt", "ignore", "--freeze_fx", "false"]),
     ("pretrain_paired", ["--restart_from", "run", "--target_type", "bpe",
@@ -154,7 +167,8 @@ def test_unported_values_raise_naming_their_item(entry, extra, item):
 ])
 def test_ported_values_pass(entry, extra):
     """Values an entry point has ported pass its check (they raised
-    before: the trainer's beam and LM flags and ``--restart_from``)."""
+    before: the trainer's beam and LM flags, ``--restart_from``, the
+    decoders' beam, LM, timestamps, VAD and int8)."""
     args = parse_and_check(entry, extra)
     assert all(getattr(args, a[2:]) is not None for a in extra
                if a.startswith("--"))

@@ -11,6 +11,9 @@ import torch
 from audio8_tpu.config import AcousticConfig
 from audio8_tpu_torch.models.convert import load_fairseq_ctc
 from audio8_tpu_torch.models.wav2vec2 import Wav2Vec2AcousticModel
+from tests.test_torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 FIX = os.path.join(os.path.dirname(__file__), "fixtures", "fairseq_golden")
 

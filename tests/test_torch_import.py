@@ -13,6 +13,7 @@ import sys
 import pytest
 
 import audio8_tpu_torch
+from audio8_tpu_torch.cli import embed as embed_cli
 from audio8_tpu_torch.cli import pretrain as pretrain_cli
 from audio8_tpu_torch.cli import pretrain_paired as paired_cli
 from audio8_tpu_torch.cli import serve as serve_cli
@@ -21,6 +22,9 @@ from audio8_tpu_torch.cli import train as train_cli
 from audio8_tpu_torch.cli import train_seq2seq as seq2seq_cli
 from audio8_tpu_torch.cli import transcribe
 from audio8_tpu_torch.utils import Offsets
+from tests.test_torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 PKG_DIR = os.path.dirname(audio8_tpu_torch.__file__)
 ROOT = os.path.dirname(PKG_DIR)
@@ -40,7 +44,10 @@ def test_every_module_imports_with_jax_blocked():
                 "ops.beam", "ops.lm", "train.checkpoint", "train.preempt",
                 "cli.train_seq2seq", "cli.pretrain_paired", "cli.learn_bpe",
                 "cli.wrd2bpe", "nn.embeddings", "nn.pooling",
-                "models.seq2seq", "models.dual_encoder"):
+                "models.seq2seq", "models.dual_encoder", "ops.quant",
+                "ops.align", "ops.vad", "ops.ngram", "cli.embed",
+                "cli.manifest", "cli.train_ngram", "cli.average_checkpoints",
+                "cli.inspect_checkpoint"):
         assert f"audio8_tpu_torch.{new}" in mods
     code = (
         "import sys\n"
@@ -114,7 +121,7 @@ def _restore_port_offsets():
 
 @pytest.mark.parametrize("entry", ["transcribe", "serve", "train",
                                    "pretrain", "test", "train_seq2seq",
-                                   "pretrain_paired"])
+                                   "pretrain_paired", "embed"])
 def test_default_device_is_cuda_and_raises_without_a_card(
         entry, tmp_path, _restore_port_offsets):
     """This machine has no CUDA card: the default ``--device cuda`` raises
@@ -128,6 +135,9 @@ def test_default_device_is_cuda_and_raises_without_a_card(
         elif entry == "serve":
             serve_cli.build_service(serve_cli.parse_args(
                 ["--checkpoint", ckpt, "--dict_file", dict_file]))
+        elif entry == "embed":
+            embed_cli.build_embedder(embed_cli.parse_args(
+                ["--checkpoint", ckpt, "--root_dir", str(tmp_path)]))
         elif entry == "test":
             test_cli.evaluate(["--checkpoint", ckpt, "--root_dir",
                                str(tmp_path), "--valid_dataset", "v.tsv"])

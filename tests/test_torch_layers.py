@@ -12,6 +12,9 @@ from audio8_tpu.nn import layers as jl
 from audio8_tpu.nn.transformer import TransformerEncoderLayer as JLayer
 from audio8_tpu_torch.nn import layers as tl
 from audio8_tpu_torch.nn.transformer import TransformerEncoderLayer
+from tests.test_torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 ATOL = 1e-5
 

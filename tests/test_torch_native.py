@@ -44,6 +44,9 @@ from audio8_tpu_torch.utils import Offsets
 from tests.test_beam_differential import ARPA
 from tests.test_data import _write_sphere
 from tests.test_native import encode_flac
+from tests.test_torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 LETTERS = ["A", "C", "D", "E", "G", "H", "O", "S", "T", "|"]
 

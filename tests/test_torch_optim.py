@@ -16,6 +16,9 @@ from audio8_tpu.train.optim import create_lrs as jax_lrs
 from audio8_tpu.train.optim import create_optimizer as jax_opt
 from audio8_tpu_torch.train.optim import (TrainState, create_lrs,
                                           create_optimizer)
+from tests.test_torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 SHAPES = {"enc": (6, 5), "proj": (5, 3), "bias": (3,)}
 TOL = dict(rtol=1e-6, atol=1e-8)

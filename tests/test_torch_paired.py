@@ -49,6 +49,9 @@ from audio8_tpu_torch.models.dual_encoder import (DualEncoderModel,
                                                   SymmetricCLIPLoss)
 
 from tests.test_torch_decoder import assert_close
+from tests.test_torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 FX = ((32, 10, 5), (32, 3, 2))
 V = 14

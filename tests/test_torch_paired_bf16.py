@@ -24,6 +24,9 @@ import numpy as np
 import torch
 
 from tests.test_torch_paired_steps import run_trajectory
+from tests.test_torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 BF16_LOSS_RTOL = 5e-3
 

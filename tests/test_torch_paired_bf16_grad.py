@@ -31,6 +31,9 @@ from audio8_tpu_torch.train.steps import make_paired_steps
 
 from tests.test_torch_decoder import assert_close
 from tests.test_torch_paired import batch, models
+from tests.test_torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 BF16_LOSS_RTOL = 5e-3  # tests/test_torch_bf16.py's
 BF16 = 2.0 ** -5

@@ -21,6 +21,9 @@ from audio8_tpu_torch.train.checkpoint import load_port_checkpoint
 from audio8_tpu_torch.utils import Offsets
 
 from tests.test_torch_train_cli import SMALL, _restore_port_offsets  # noqa: F401
+from tests.test_torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 WORDS = ["THE CAT", "A DOG RAN", "GO ON", "THE MAT", "SO SO", "NO WAY"]
 TEXT = ["--text_d_model", "16", "--text_num_heads", "2", "--text_num_layers",

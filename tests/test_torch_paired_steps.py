@@ -29,6 +29,9 @@ from audio8_tpu_torch.train.steps import make_paired_steps
 
 from tests.test_torch_dropout_trajectories import JaxSeeds
 from tests.test_torch_paired import batch, models
+from tests.test_torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 LR, CLIP, WD = 5e-4, 25.0, 0.01
 

@@ -64,6 +64,9 @@ from audio8_tpu_torch.train.optim import (TrainState, create_lrs,
                                           create_optimizer)
 from audio8_tpu_torch.train.steps import (current_temperature,
                                           make_pretrain_steps)
+from tests.test_torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 FIX = os.path.join(os.path.dirname(__file__), "fixtures", "fairseq_golden")
 FX = ((32, 10, 5), (32, 3, 2))

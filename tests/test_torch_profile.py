@@ -13,6 +13,9 @@ import pytest
 import torch
 
 from audio8_tpu_torch.profile import GEMM_CALLERS, gemm_caller, kernel_groups
+from tests.test_torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 CUDA = torch.autograd.DeviceType.CUDA
 

@@ -68,6 +68,9 @@ from audio8_tpu_torch.train.preempt import PreemptionGuard
 from audio8_tpu_torch.utils import Offsets
 
 from tests.test_torch_pretrain import CFG
+from tests.test_torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 PRE_CFG = dict(CFG, d_ff=256)  # the golden pretrained checkpoint's
 from tests.test_torch_pretrain_cli import SMALL as PRE_SMALL

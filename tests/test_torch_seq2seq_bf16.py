@@ -9,6 +9,9 @@ import numpy as np
 import torch
 
 from tests.test_torch_seq2seq_steps import _fairseq_offsets, _run  # noqa: F401
+from tests.test_torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 BF16_LOSS_RTOL = 5e-3
 

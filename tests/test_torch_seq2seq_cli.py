@@ -17,6 +17,9 @@ from audio8_tpu_torch.train.checkpoint import load_port_checkpoint
 
 from tests.test_torch_train_cli import (SMALL, _restore_port_offsets,  # noqa: F401
                                         corpus)
+from tests.test_torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 
 def _args(corpus, basedir, steps="3"):

@@ -19,6 +19,9 @@ from audio8_tpu_torch.models.wav2vec2 import Wav2Vec2Model
 
 from tests.test_torch_seq2seq_cli import _args
 from tests.test_torch_train_cli import _restore_port_offsets, corpus  # noqa: F401
+from tests.test_torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 
 def test_both_trainers_restart_from_one_pt(corpus, tmp_path, monkeypatch):

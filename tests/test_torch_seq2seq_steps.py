@@ -34,6 +34,9 @@ from audio8_tpu_torch.train.steps import make_seq2seq_steps, sequence_loss
 from audio8_tpu_torch.utils import Offsets
 
 from tests.test_torch_dropout_trajectories import JaxSeeds
+from tests.test_torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 FX = ((32, 10, 5), (32, 3, 2))
 V, LR, CLIP = 12, 2e-4, 25.0

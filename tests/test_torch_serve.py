@@ -22,6 +22,9 @@ from audio8_tpu_torch import serve
 from audio8_tpu_torch.cli.serve import TranscribeService, make_server
 from audio8_tpu_torch.models.convert import params_from_jax
 from audio8_tpu_torch.models.wav2vec2 import Wav2Vec2AcousticModel
+from tests.test_torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 # CONV_FEATURES[16]'s kernels and strides (total stride 320) at width 32
 CFG = AcousticConfig(

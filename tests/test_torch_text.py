@@ -14,6 +14,9 @@ from audio8_tpu.models import text as jax_text
 from audio8_tpu_torch.cli import learn_bpe as learn_cli
 from audio8_tpu_torch.cli import wrd2bpe as wrd2bpe_cli
 from audio8_tpu_torch.models import text
+from tests.test_torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 WORDS = ["THE", "CAT", "SAT", "ON", "A", "MAT", "THAT", "CATS", "THEN",
          "SATAN", "MATTER", "AT", "HAT", "THAN", "TO", "TOTAL"]

@@ -51,6 +51,9 @@ from audio8_tpu_torch.train.optim import (TrainState, create_lrs,
                                           create_optimizer)
 from audio8_tpu_torch.train.steps import accumulate_grads, make_ctc_steps
 from audio8_tpu_torch.utils import Offsets
+from tests.test_torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 FX = ((32, 10, 5), (32, 3, 2))
 D, H, L, V = 64, 4, 2, 12

@@ -15,6 +15,9 @@ from scipy.io import wavfile
 from audio8_tpu_torch.cli import train as train_cli
 from audio8_tpu_torch.cli import transcribe
 from audio8_tpu_torch.utils import Offsets
+from tests.test_torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 SMALL = ["--d_model", "32", "--num_heads", "2", "--num_layers", "1",
          "--d_ff", "64", "--device", "cpu"]

@@ -19,6 +19,9 @@ from audio8_tpu_torch.models.convert import (from_fairseq_ctc_state,
                                              to_fairseq_ctc_state)
 from audio8_tpu_torch.models.wav2vec2 import (Wav2Vec2AcousticModel,
                                               downsample_lengths)
+from tests.test_torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 CFG = AcousticConfig(num_labels=10, d_model=64, num_heads=4, num_layers=2,
                      d_ff=128, dropout=0.0, timestep_masking=0.0,

@@ -37,6 +37,9 @@ from audio8_tpu_torch.ops.attention import (aligned, attention_core,
                                             attention_core_plain, validate,
                                             validate_bwd)
 from audio8_tpu_torch.ops.hashrand import MASK32, SeedReplay
+from tests.test_torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 B, D, H = 3, 32, 2
 TOL = 1e-5
