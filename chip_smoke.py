@@ -47,35 +47,6 @@ against its plain PyTorch version. Phases, each printing JSON lines:
               the served model's bf16 ``Dense`` layers held to the CPU's
               order (product rounded, then the bias added and rounded
               again; bitwise on exact integer sums);
-4b. serve_decode - the same requests to ``--beam 8 --lm`` a trigram
-              ARPA (``ops/ngram.py`` on 6 000 sentences) ``--timestamps
-              true``: each text equal to a fresh CPU decoder's beam
-              decode of the log-probs the request decoded (concurrent
-              decodes share one loaded LM), word times inside the clip,
-              ``/metrics`` counting exactly the requests sent; beam host
-              ms per request;
-    stream  - ``POST /stream`` of the 65 s request in 0.5 s s16 blocks,
-              chunked, on that server: no error line, the final text
-              equal to ``/transcribe``'s, the streamed log-probs (and a
-              batch-1 ``StreamingTranscriber``'s without the batcher)
-              within MODEL_TOL of the offline ones; time to the first
-              partial and from the last byte to the final line;
-    serve_int8 - ``--quantize int8`` in f32 and ``--bf16``: the
-              quantized-layer count equals the CPU's, two int8 layers
-              bitwise the CPU's (weight and activation codes, int32
-              products, output), the texts' edit distance to f32's; the
-              device ms of one (4, 30 s) dispatch, f32, bf16, int8 and
-              int8 + bf16 in turns;
-    transcribe_vad - ``cli.transcribe --vad true --timestamps true`` on
-              two files with silences, card vs CPU: segments equal,
-              log-probs within MODEL_TOL, rows equal unless a near tie;
-    embed   - (after restart_test) ``cli.embed --reduction_type mean``
-              on the pretraining phase's ``.pt`` over 16 files of 2-21 s,
-              batch 8, card vs CPU: cosines >= 1 - 1e-4, unit norms, the
-              ``--trials`` EER equal; utterances/s;
-    inference_kernel - (after pretrain_kernel) kernels 2 and 3 against
-              their plain versions, f32 and bf16, at every shape those
-              five runs gave them (recorded at the layers' calls);
 5. train   - ``python -m audio8_tpu_torch.cli.train``'s entry point on a
               synthetic corpus: 6 optimizer steps of 2 micro-batches,
               the encoder frozen for 3 of them; step times, training
@@ -177,7 +148,44 @@ against its plain PyTorch version. Phases, each printing JSON lines:
               launch, with their routes and host ms, the dgrad also by
               layer beside cuDNN's;
 
-then a ``phase_seconds`` line (each phase's wall seconds), a ``kernels``
+15. serve_decode - (after the timing phase, on the serve phase's
+              ``ctc.pt``) the serve phase's requests to ``--beam 8 --lm`` a trigram
+              ARPA (``ops/ngram.py`` on 6 000 sentences) ``--timestamps
+              true``: each text equal to a fresh CPU decoder's beam
+              decode of the log-probs the request decoded (concurrent
+              decodes share one loaded LM), word times inside the clip,
+              ``/metrics`` counting exactly the requests sent; beam host
+              ms per request;
+    stream  - ``POST /stream`` of the 65 s request in 0.5 s s16 blocks,
+              chunked, on that server: no error line, the final text
+              equal to ``/transcribe``'s, the streamed log-probs (and a
+              batch-1 ``StreamingTranscriber``'s without the batcher)
+              within MODEL_TOL of the offline ones; time to the first
+              partial and from the last byte to the final line;
+    serve_int8 - ``--quantize int8`` in f32 and ``--bf16``: the
+              quantized-layer count equals the CPU's, two int8 layers
+              bitwise the CPU's (weight and activation codes, int32
+              products, output), the texts' edit distance to f32's; the
+              device ms of one (4, 30 s) dispatch, f32, bf16, int8 and
+              int8 + bf16 in turns;
+    transcribe_vad - ``cli.transcribe --vad true --timestamps true`` on
+              two files with silences, card vs CPU: segments equal,
+              log-probs within MODEL_TOL, rows equal unless a near tie;
+    embed   - ``cli.embed --reduction_type mean`` on the pretraining
+              phase's ``.pt`` over 16 files of 2-21 s,
+              batch 8, card vs CPU: cosines >= 1 - 1e-4, unit norms, the
+              ``--trials`` EER equal; utterances/s;
+    inference_kernel - kernels 2 and 3 against their plain versions,
+              f32 and bf16, at every shape those five runs gave them
+              (recorded at the layers' calls);
+
+They run after the timing phase because, run before it, they made the
+timing phase's profiler traces come back empty more often and the phase
+longer (PERF.md §6). ``--inference-first`` runs them after restart_test
+instead, to compare.
+
+then a ``phase_seconds`` line (each phase's wall seconds and each phase's
+retried profiler traces, ``trace_retries``), a ``kernels``
 line, the card's name and power limit from nvidia-smi,
 and, last, ``{"ok": true, "device": {...}}``. Any failed check raises, so
 the exit code is non-zero and the last line is not printed. Without a CUDA
@@ -188,6 +196,8 @@ card it exits with code 2 and prints no result.
     python3 chip_smoke.py --core-timing    # only rows 1, 2, 3, 3b, 3c, 6
     python3 chip_smoke.py --test-timing    # only cli.test's throughput
     python3 chip_smoke.py --freeze-timing  # frozen steps, two ways
+    python3 chip_smoke.py --inference-first  # the full run, phases 15
+                                             # before the timing phase
 
 ``--block-timing`` builds the block's two sources and prints only the
 attention block's timing rows (phase 14) in float32 and bfloat16, then
@@ -324,17 +334,28 @@ def ctc_grad_tol(t: int, ll_max: float) -> float:
 
 
 PHASE_SECONDS: dict = {}  # wall seconds of each phase of a full run
+# each phase's retried profiler traces (count_retry), and the phase running
+TRACE_RETRIES: dict = {}
+PHASE_NOW = {"name": None}
 
 
 @contextlib.contextmanager
 def timed(name: str):
     """Add the wall seconds of the block to ``PHASE_SECONDS[name]``."""
     t0 = time.perf_counter()
+    PHASE_NOW["name"] = name
     try:
         yield
     finally:
+        PHASE_NOW["name"] = None
         PHASE_SECONDS[name] = (PHASE_SECONDS.get(name, 0.0)
                                + time.perf_counter() - t0)
+
+
+def count_retry() -> None:
+    """One more retried (empty or unframed) trace in the running phase."""
+    TRACE_RETRIES[PHASE_NOW["name"]] = (
+        TRACE_RETRIES.get(PHASE_NOW["name"], 0) + 1)
 
 
 def emit(obj: dict) -> None:
@@ -2557,6 +2578,7 @@ def traced_window(fn, calls: int = 2) -> dict | None:
             if STEP_RETRY_PAUSED["s"] + pause > STEP_RETRY_BUDGET_S:
                 break
             STEP_RETRY_PAUSED["s"] += pause
+            count_retry()
             time.sleep(pause)
         with cuda_profiled() as prof:
             torch.cuda._sleep(1000)
@@ -3675,6 +3697,39 @@ def phase_inference_kernels(gen) -> dict:
     return worst
 
 
+def phase_inference(tmp: str, f32_texts: list, worst: dict, gen) -> dict:
+    """Phases 15 on tmp's served ``ctc.pt`` and the pretraining phase's
+    ``.pt``: serve_decode and stream on one ``--beam --lm --timestamps``
+    server, serve_int8, transcribe_vad, embed, then inference_kernel
+    (raising ``worst``). Returns the runs' launches by phase."""
+    launches: dict = {}
+    with contextlib.ExitStack() as stack:
+        with timed("serve_decode"):
+            arpa = os.path.join(tmp, "serve_lm.arpa")
+            emit({"phase": "serve_lm", "ngrams": write_serve_lm(arpa, SEED)})
+            service, port = stack.enter_context(serving(
+                tmp, "--beam", str(SERVE_BEAM), "--lm", arpa,
+                "--timestamps", "true"))
+            phase_serve_decode(service, port, arpa, SEED, launches)
+        with timed("stream"):
+            phase_stream(service, port, SEED, launches)
+    torch.cuda.empty_cache()
+    with timed("serve_int8"):
+        phase_serve_int8(tmp, SEED, f32_texts, launches, gen)
+    torch.cuda.empty_cache()
+    with timed("transcribe_vad"):
+        phase_transcribe_vad(tmp, SEED, launches)
+    torch.cuda.empty_cache()
+    with timed("embed"):
+        phase_embed(tmp, SEED, launches)
+    torch.cuda.empty_cache()
+    with timed("inference_kernel"):
+        for k, e in phase_inference_kernels(gen).items():
+            worst[k] = max(worst[k], e)
+    torch.cuda.empty_cache()
+    return launches
+
+
 @contextlib.contextmanager
 def cuda_profiled():
     """torch.profiler over CUDA activity, warmed up before the block: a
@@ -3726,6 +3781,7 @@ def traced_ms(fn, budget: bool = True) -> dict:
                 if RETRY_PAUSED["s"] + pause > RETRY_BUDGET_S:
                     break
                 RETRY_PAUSED["s"] += pause
+            count_retry()
             time.sleep(pause)
         with cuda_profiled() as prof:
             for _ in range(calls):
@@ -3798,7 +3854,9 @@ def in_turns(kern, plain, library=None) -> dict:
     """Device times (:func:`timed_device_ms`) in turns: plain, kernel,
     [library], kernel, plain, [library]; ``timed_by`` says for each time
     whether both its readings came from traces ("trace"), both from CUDA
-    events ("events"), or one of each ("trace+events")."""
+    events ("events"), or one of each ("trace+events");
+    ``trace_retries`` counts the readings' retried traces."""
+    retried = sum(TRACE_RETRIES.values())
     p1, k1 = timed_device_ms(plain), timed_device_ms(kern)
     l1 = timed_device_ms(library) if library else None
     k2, p2 = timed_device_ms(kern), timed_device_ms(plain)
@@ -3813,7 +3871,8 @@ def in_turns(kern, plain, library=None) -> dict:
             "library_ms_runs": None if library is None else [l1[0], l2[0]],
             "timed_by": {"ms": source(k1, k2), "plain_ms": source(p1, p2),
                          "library_ms": None if library is None
-                         else source(l1, l2)}}
+                         else source(l1, l2)},
+            "trace_retries": sum(TRACE_RETRIES.values()) - retried}
 
 
 def gemm_caller(name: str):
@@ -4822,7 +4881,8 @@ def main(argv=None) -> int:
         return test_timing()
     if argv == ["--freeze-timing"]:
         return freeze_timing()
-    if argv:
+    inference_first = argv == ["--inference-first"]
+    if argv and not inference_first:
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
         return 2
 
@@ -4847,25 +4907,6 @@ def main(argv=None) -> int:
         with timed("serve_bf16"):
             phase_serve_bf16(SEED, tmp, f32_texts)
         torch.cuda.empty_cache()
-        infer_launches: dict = {}
-        with contextlib.ExitStack() as stack:
-            with timed("serve_decode"):
-                arpa = os.path.join(tmp, "serve_lm.arpa")
-                emit({"phase": "serve_lm", "ngrams": write_serve_lm(arpa,
-                                                                     SEED)})
-                service, port = stack.enter_context(serving(
-                    tmp, "--beam", str(SERVE_BEAM), "--lm", arpa,
-                    "--timestamps", "true"))
-                phase_serve_decode(service, port, arpa, SEED, infer_launches)
-            with timed("stream"):
-                phase_stream(service, port, SEED, infer_launches)
-        torch.cuda.empty_cache()
-        with timed("serve_int8"):
-            phase_serve_int8(tmp, SEED, f32_texts, infer_launches, gen)
-        torch.cuda.empty_cache()
-        with timed("transcribe_vad"):
-            phase_transcribe_vad(tmp, SEED, infer_launches)
-        torch.cuda.empty_cache()
         with timed("train"):
             train_launches = phase_train(tmp, SEED)
         torch.cuda.empty_cache()
@@ -4878,9 +4919,8 @@ def main(argv=None) -> int:
         with timed("restart_test"):
             restart_launches = phase_restart_test(tmp, SEED)
         torch.cuda.empty_cache()
-        with timed("embed"):
-            phase_embed(tmp, SEED, infer_launches)
-        torch.cuda.empty_cache()
+        if inference_first:
+            infer_launches = phase_inference(tmp, f32_texts, worst, gen)
         with timed("seq2seq"):
             s2s_launches, s2s_weights, s2s_built, s2s_path = phase_seq2seq(
                 tmp, SEED)
@@ -4888,45 +4928,46 @@ def main(argv=None) -> int:
         with timed("paired"):
             (paired_launches, paired_weights, paired_built,
              paired_path) = phase_paired(tmp, SEED)
-    torch.cuda.empty_cache()
-    with timed("seq2seq_vs_cpu"):
-        phase_seq2seq_vs_cpu(s2s_weights, s2s_built, SEED)
-    torch.cuda.empty_cache()
-    with timed("paired_vs_cpu"):
-        phase_paired_vs_cpu(paired_weights, paired_built, SEED)
-    del s2s_weights, paired_weights
-    torch.cuda.empty_cache()
-    for name, path in (("seq2seq", s2s_path), ("paired", paired_path)):
-        with timed(f"{name}_kernel"):
-            for k, e in phase_path_kernels(name, *path, gen).items():
+        torch.cuda.empty_cache()
+        with timed("seq2seq_vs_cpu"):
+            phase_seq2seq_vs_cpu(s2s_weights, s2s_built, SEED)
+        torch.cuda.empty_cache()
+        with timed("paired_vs_cpu"):
+            phase_paired_vs_cpu(paired_weights, paired_built, SEED)
+        del s2s_weights, paired_weights
+        torch.cuda.empty_cache()
+        for name, path in (("seq2seq", s2s_path), ("paired", paired_path)):
+            with timed(f"{name}_kernel"):
+                for k, e in phase_path_kernels(name, *path, gen).items():
+                    worst[k] = max(worst[k], e)
+            torch.cuda.empty_cache()
+        with timed("pretrain_kernel"):
+            for k, e in phase_pretrain_path_kernels(batches, gen).items():
                 worst[k] = max(worst[k], e)
         torch.cuda.empty_cache()
-    with timed("pretrain_kernel"):
-        for k, e in phase_pretrain_path_kernels(batches, gen).items():
-            worst[k] = max(worst[k], e)
-    torch.cuda.empty_cache()
-    with timed("inference_kernel"):
-        for k, e in phase_inference_kernels(gen).items():
-            worst[k] = max(worst[k], e)
-    torch.cuda.empty_cache()
-    with timed("pretrain_block"):
-        block_launches = phase_pretrain_block(batches, SEED)
-    torch.cuda.empty_cache()
-    with timed("block_gate"):
-        phase_block_gate()
-    with timed("train_vs_cpu"):
-        phase_train_vs_cpu(SEED)
-    with timed("pretrain_vs_cpu"):
-        phase_pretrain_vs_cpu(SEED, batches[-1][1])
-    with timed("block_vs_cpu"):
-        phase_pretrain_vs_cpu(SEED, batches[-1][1], fused="block")
-    with timed("kernel_vs_cpu"):
-        phase_pretrain_vs_cpu(SEED, batches[-1][1], fused=True,
-                              dropout=0.1)
-    torch.cuda.empty_cache()
-    with timed("timing"):
-        times = phase_timing(gen)
+        with timed("pretrain_block"):
+            block_launches = phase_pretrain_block(batches, SEED)
+        torch.cuda.empty_cache()
+        with timed("block_gate"):
+            phase_block_gate()
+        with timed("train_vs_cpu"):
+            phase_train_vs_cpu(SEED)
+        with timed("pretrain_vs_cpu"):
+            phase_pretrain_vs_cpu(SEED, batches[-1][1])
+        with timed("block_vs_cpu"):
+            phase_pretrain_vs_cpu(SEED, batches[-1][1], fused="block")
+        with timed("kernel_vs_cpu"):
+            phase_pretrain_vs_cpu(SEED, batches[-1][1], fused=True,
+                                  dropout=0.1)
+        torch.cuda.empty_cache()
+        with timed("timing"):
+            times = phase_timing(gen)
+        torch.cuda.empty_cache()
+        if not inference_first:
+            infer_launches = phase_inference(tmp, f32_texts, worst, gen)
     emit({"phase": "phase_seconds", **PHASE_SECONDS,
+          "inference_first": inference_first,
+          "trace_retries": {str(k): n for k, n in TRACE_RETRIES.items()},
           "trace_retry_pauses": RETRY_PAUSED["s"],
           "step_trace_retry_pauses": STEP_RETRY_PAUSED["s"],
           "total": time.perf_counter() - start})

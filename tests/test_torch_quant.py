@@ -3,10 +3,12 @@
 ``nn/layers.py:int8_dot`` on seeded numpy inputs: the codes and scales
 bitwise, ``int8_dot`` in float32 and bfloat16 within one ulp of JAX's
 (the int32 products bitwise), the quantized-layer count of the acoustic
-model, the JAX-quantized tree through ``params_from_jax``, and the tiny
-int8 acoustic model against JAX's int8 model (each quantized layer on
-JAX's own inputs within one ulp; the log-probs within the quantization's
-own error, see ``test_int8_model_matches_jax``)."""
+model, the JAX-quantized tree through ``params_from_jax``, each quantized
+``Dense.forward`` (bias included, seeded nonzero) against JAX's ``Dense``
+within one ulp in float32 and bfloat16, and the tiny int8 acoustic model
+against JAX's int8 model (each quantized layer on JAX's own inputs within
+one ulp; the log-probs within the quantization's own error, see
+``test_int8_model_matches_jax``)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -107,11 +109,26 @@ def test_dense_quantizes_into_buffers():
         quant.quantize_model_params(d)  # nothing left to quantize
 
 
+def _seeded_biases(params, seed: int):
+    """``params`` with every bias drawn from a seeded normal: JAX's
+    ``Dense`` and the port's ``init_from`` both zero them, which would
+    leave the int8 ``Dense``'s bias add untested."""
+    rng = np.random.default_rng(seed)
+
+    def draw(path, v):
+        if path[-1].key != "bias":
+            return v
+        return jnp.asarray(rng.normal(size=v.shape) * 0.1, v.dtype)
+
+    return jax.tree_util.tree_map_with_path(draw, params)
+
+
 @pytest.fixture(scope="module")
 def models():
     jm = JaxModel(config=CFG)
-    params = jax.jit(jm.init)(jax.random.PRNGKey(0),
-                              jnp.zeros((1, 8000), jnp.float32))["params"]
+    params = _seeded_biases(jax.jit(jm.init)(
+        jax.random.PRNGKey(0), jnp.zeros((1, 8000), jnp.float32))["params"],
+        seed=5)
     qparams = jax_quant.quantize_model_params(params)
     _, jax_count = jax_quant.quantize_dense_tree(params)
     model = Wav2Vec2AcousticModel(CFG)
@@ -177,6 +194,54 @@ def test_int8_model_matches_jax(models, monkeypatch):
     got, want = got.numpy()[valid], np.asarray(want)[valid]
     quant_err = np.abs(want - np.asarray(float_lp)[valid]).max()
     assert np.abs(got - want).max() <= quant_err
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_int8_dense_forward_within_one_ulp_of_jax_dense(models, dtype):
+    """Each quantized ``Dense.forward`` of the port's model (the int8
+    product, then the bias added in the compute dtype: in bfloat16 a
+    second rounding) against JAX's ``Dense`` on the input JAX's int8
+    model gave it, with seeded nonzero biases, within one ulp of the
+    compute dtype."""
+    import flax.linen as flax_nn
+
+    import audio8_tpu.nn.layers as jax_layers
+
+    _, _, _, _, _, params = models
+    jdt, tdt = jnp.dtype(dtype), getattr(torch, dtype)
+    model = Wav2Vec2AcousticModel(CFG, tdt)
+    model.load_state_dict(params_from_jax(jax.tree.map(np.asarray, params)))
+    quant.quantize_model_params(model)
+    by_codes = {m.weight.numpy().tobytes(): m for m in model.modules()
+                if isinstance(m, Dense) and m.weight.dtype == torch.int8}
+    calls = []
+
+    def recorded(next_fun, args, kwargs, context):
+        y = next_fun(*args, **kwargs)
+        if isinstance(context.module, jax_layers.Dense):
+            kernel = context.module.variables["params"]["kernel"]
+            if kernel.dtype == jnp.int8:
+                calls.append([np.array(a, np.float32) if a.dtype != jnp.int8
+                              else np.asarray(a) for a in (args[0], kernel, y)])
+        return y
+
+    rng = np.random.default_rng(2)
+    x = (rng.normal(size=(2, 24_000)) * 0.1).astype(np.float32)
+    lens = np.array([24_000, 17_000])
+    with flax_nn.intercept_methods(recorded):
+        JaxModel(config=CFG, dtype=jdt).apply(
+            {"params": jax_quant.quantize_model_params(params)},
+            jnp.asarray(x), jnp.asarray(lens))
+    assert len(calls) == len(by_codes) == 1 + 6 * CFG.num_layers
+    assert all(np.abs(y).max() > 0 for _, _, y in calls)
+    np_dt = np.float32 if dtype == "float32" else "bf16"
+    for xi, kq, want in calls:
+        layer = by_codes[np.ascontiguousarray(kq.T).tobytes()]
+        assert layer.bias.abs().min() > 0
+        with torch.inference_mode():
+            got = layer(torch.from_numpy(xi).to(tdt)).float().numpy()
+        assert np.all(np.abs(got - want) <= _ulp(want, np_dt)), \
+            np.abs(got - want).max()
 
 
 def test_cli_test_int8_scores_as_jax_does(corpus, tmp_path):  # noqa: F811

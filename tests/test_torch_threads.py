@@ -5,8 +5,7 @@ per core, so N workers fight over the cores and a test that takes 3 s
 alone takes minutes. Every ``tests/test_torch_*.py`` calls
 :func:`cap_torch_threads` when it is imported: the cap is the cores over
 the workers (``PYTEST_XDIST_WORKER_COUNT``; one worker outside xdist),
-at least 1, the same in every process whichever file it imports first.
-``A8T_TORCH_THREADS`` overrides it."""
+at least 1, the same in every process whichever file it imports first."""
 import os
 
 import torch
@@ -14,9 +13,6 @@ import torch
 
 def torch_thread_cap() -> int:
     """The intra-op thread count of a port test process."""
-    forced = os.environ.get("A8T_TORCH_THREADS")
-    if forced:
-        return max(1, int(forced))
     workers = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1") or 1)
     return max(1, (os.cpu_count() or 1) // max(1, workers))
 
@@ -38,12 +34,9 @@ def test_the_cap_holds_in_this_process():
 
 
 def test_the_cap_divides_the_cores_among_the_workers(monkeypatch):
-    monkeypatch.delenv("A8T_TORCH_THREADS", raising=False)
     monkeypatch.setattr(os, "cpu_count", lambda: 8)
     for workers, want in (("6", 1), ("4", 2), ("1", 8), ("16", 1)):
         monkeypatch.setenv("PYTEST_XDIST_WORKER_COUNT", workers)
         assert torch_thread_cap() == want
     monkeypatch.delenv("PYTEST_XDIST_WORKER_COUNT")
     assert torch_thread_cap() == 8
-    monkeypatch.setenv("A8T_TORCH_THREADS", "3")
-    assert torch_thread_cap() == 3
