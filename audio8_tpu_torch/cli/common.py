@@ -16,8 +16,10 @@ decoding flags (``--beam``, ``--lm``, ``--timestamps``, ``--vad``,
 ``--exported`` still raises everywhere (ROADMAP.md queue 1, item 6:
 export).
 
-:func:`resolve_restart` is ``--restart_from`` (fairseq ``.pt``
-warm starts, directories of the port's checkpoints, full-state resume).
+:func:`resolve_restart` is ``--restart_from`` (fairseq ``.pt`` and
+HuggingFace ``save_pretrained`` warm starts, directories of the port's
+checkpoints, full-state resume); :func:`load_weights` reads the same
+sources for the evaluation entry points.
 """
 from __future__ import annotations
 
@@ -33,9 +35,7 @@ from audio8_tpu_torch.utils import str2bool
 logger = logging.getLogger("audio8_tpu_torch")
 
 # The JAX package's size and topology presets
-# (``audio8_tpu.cli.common.MODEL_PRESETS``). The port runs the post-norm,
-# group-norm transformer ("base", "large"); the others select topologies
-# that ``check_supported`` refuses (ROADMAP.md queue 1, item 7).
+# (``audio8_tpu.cli.common.MODEL_PRESETS``); the port runs every one.
 MODEL_PRESETS = {
     "base": {},
     "large": {"d_model": 1024, "d_ff": 4096, "num_heads": 16,
@@ -115,10 +115,6 @@ NOT_PORTED = {
     "exported": (None, EXPORT),
     "warmstart_text": (None, TEXT_WARMSTART),
 }
-# not ported in training; inert at inference, as in JAX
-TRAINING_ONLY = {"layer_drop": (0.0, TRAINER)}
-TRAINING_ENTRIES = ("train", "pretrain", "train_seq2seq",
-                    "pretrain_paired")
 # entry point -> the flags of NOT_PORTED it has ported: the beam search
 # and LM fusion of the trainer's verbose validation and of the decoders,
 # word timestamps, VAD and int8 weights
@@ -164,8 +160,7 @@ def check_ported(args: Namespace, entry: str) -> None:
     from audio8_tpu_torch.config import EncoderConfig
     from audio8_tpu_torch.models.wav2vec2 import check_supported
 
-    table = dict(NOT_PORTED, **(TRAINING_ONLY if entry in TRAINING_ENTRIES
-                                else {}))
+    table = dict(NOT_PORTED)
     for flag in PORTED.get(entry, ()):
         del table[flag]
     for flag, (unused, item) in table.items():
@@ -217,7 +212,7 @@ def add_common_model_args(parser: ArgumentParser) -> None:
     add("--attention_dropout", type=float, default=None,
         help="attention-prob dropout (default: --dropout)")
     add("--layer_drop", type=float, default=0.0,
-        help="not ported yet in training")
+        help="LayerDrop rate in training (inert at inference)")
     add("--pre_norm", type=str2bool, default=None)
     add("--extractor_mode", choices=["group", "layer"], default=None)
     add("--conv_bias", type=str2bool, default=None)
@@ -313,30 +308,87 @@ def _fairseq_weights(path: str, model: torch.nn.Module,
     return loaded
 
 
+_TOPOLOGY_DEFAULTS = dict(pre_norm=False, extractor_mode="group",
+                          conv_bias=False, pos_conv_depth=1,
+                          gated_rel_pos=False, encoder_type="transformer",
+                          position_embeddings_type="relative")
+
+
+def canonical_topology(d) -> Dict:
+    """The parameter-placement topology fields of a dict (missing ones at
+    their defaults), as the JAX ``canonical_topology`` compares them."""
+    return {k: d.get(k, v) for k, v in _TOPOLOGY_DEFAULTS.items()}
+
+
+def _hf_weights(path: str, model: torch.nn.Module,
+                ctc: bool) -> Dict[str, torch.Tensor]:
+    """An HF ``save_pretrained`` directory's weights under ``model``'s
+    names (the HF branch of the JAX ``resolve_restart``): its topology
+    must be the model's (``ValueError`` otherwise: a mismatch would leave
+    norms at their initial values), only the pretraining heads may be
+    missing, a base model's encoder fills a CTC model's ``encoder`` and a
+    ForCTC model's encoder a pretraining model (its head dropped)."""
+    import dataclasses
+
+    from audio8_tpu_torch.config import EncoderConfig
+    from audio8_tpu_torch.models.convert_hf import hard_missing, load_hf_dir
+
+    loaded, report = load_hf_dir(path, ctc="auto")
+    cfg = next(m.config for m in model.modules()
+               if isinstance(getattr(m, "config", None), EncoderConfig))
+    topo = dataclasses.asdict(cfg)
+    if canonical_topology(report["topology"]) != canonical_topology(topo):
+        raise ValueError(
+            f"HF checkpoint topology {report['topology']} does not match "
+            f"the model flags {canonical_topology(topo)}; pass --pre_norm/"
+            "--extractor_mode/--conv_bias (or --preset) to match")
+    missing = hard_missing(report)
+    if missing:
+        raise ValueError(f"HF checkpoint missing keys: {missing[:5]}")
+    if ctc and report["kind"] == "pretrained":
+        loaded = {"encoder." + k: v for k, v in loaded.items()}
+    elif not ctc and report["kind"] == "ctc":
+        logger.info("CTC-source HF checkpoint: its encoder warm-starts the "
+                    "model (head dropped)")
+        loaded = {k[len("encoder."):]: v for k, v in loaded.items()
+                  if k.startswith("encoder.")}
+    logger.info("HF load report (%s): missing=%s unexpected=%s",
+                report["kind"], report["missing"][:5],
+                report["unexpected"][:5])
+    return loaded
+
+
 def load_weights(path: str, model: torch.nn.Module, ctc: bool,
                  kind: Optional[str] = None) -> None:
-    """Load a ``.pt``'s weights over ``model``'s. The port's own seq2seq
-    or paired checkpoint of ``kind`` loads whole; otherwise the file is a
-    fairseq one (:func:`_fairseq_weights`; ``ctc``: into the model's
-    ``encoder``): its keys that the file lacks (the CTC head or the
-    decoder under a pretrained encoder) keep their values, the file's
-    keys the model lacks (the quantizer and projections) are dropped. A
-    paired model takes no fairseq file (the JAX trainer would merge none
-    of its keys)."""
+    """Load a checkpoint's weights over ``model``'s. The port's own
+    seq2seq or paired ``.pt`` of ``kind`` loads whole; an HF
+    ``save_pretrained`` directory goes through :func:`_hf_weights`;
+    otherwise the file is a fairseq one (:func:`_fairseq_weights`;
+    ``ctc``: into the model's ``encoder``): its keys that the source
+    lacks (the CTC head or the decoder under a pretrained encoder) keep
+    their values, the source's keys the model lacks (the quantizer and
+    projections) are dropped. A paired model takes neither a fairseq
+    file nor an HF directory (the JAX trainer would merge none of their
+    keys)."""
+    from audio8_tpu_torch.models.convert_hf import is_hf_dir
     from audio8_tpu_torch.train.checkpoint import load_port_checkpoint
 
-    own = load_port_checkpoint(path, kind) if kind else None
+    hf = is_hf_dir(path)
+    own = load_port_checkpoint(path, kind) if kind and not hf else None
     if own is not None:
         model.load_state_dict(own, strict=True)
         logger.info("weights from %s: the %s model", path, kind)
         return
     if kind == "paired":
         raise ValueError(f"{path}: not a paired checkpoint of the port; a "
-                         "fairseq .pt holds no paired model")
-    loaded = _fairseq_weights(path, model, ctc)
+                         "fairseq .pt or an HF directory holds no paired "
+                         "model")
+    loaded = (_hf_weights(path, model, ctc) if hf
+              else _fairseq_weights(path, model, ctc))
     merged = model.state_dict()
     dropped = [k for k in loaded if k not in merged]
-    merged.update({k: v for k, v in loaded.items() if k in merged})
+    merged.update({k: v.to(merged[k].dtype) for k, v in loaded.items()
+                   if k in merged})
     model.load_state_dict(merged, strict=True)
     logger.info("weights from %s: %d tensors loaded, %d kept, %d dropped "
                 "(%s)", path, len(loaded) - len(dropped),
@@ -364,7 +416,8 @@ def resolve_restart(restart_from: Optional[str], state, ctc: bool,
       moments and the step count too, and its own step is the step;
       otherwise the step comes from the name unless ``restart_tt ==
       "ignore"`` (JAX's full-state and params-only restores);
-    - a HuggingFace directory is ROADMAP.md queue 1, item 7.
+    - a HuggingFace ``save_pretrained`` directory is a warm start at step
+      0 (:func:`_hf_weights`).
     """
     from audio8_tpu_torch.train.checkpoint import (find_latest_checkpoint,
                                                    load_resume,
@@ -373,14 +426,12 @@ def resolve_restart(restart_from: Optional[str], state, ctc: bool,
     if not restart_from:
         return 0
     kind = kind or ("ctc" if ctc else "pretrain")
-    if not os.path.isdir(restart_from):  # a .pt: a warm start
+    if not os.path.isdir(restart_from) or os.path.exists(
+            os.path.join(restart_from, "config.json")):
+        # a .pt or an HF directory: a warm start
         load_weights(restart_from, state.model, ctc, kind)
         state.step = state.opt_state.count = 0
         return 0
-    if os.path.exists(os.path.join(restart_from, "config.json")):
-        raise NotImplementedError(
-            f"--restart_from {restart_from}: HuggingFace checkpoints are "
-            f"not ported yet: {TOPOLOGY}")
     path, _ = find_latest_checkpoint(restart_from)
     load_weights(path, state.model, ctc, kind)
     resumed = load_resume(state, path, kind)

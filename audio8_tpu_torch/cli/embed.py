@@ -13,11 +13,11 @@ it scores cosine similarity per pair and prints the EER instead.
   python -m audio8_tpu_torch.cli.embed --checkpoint pretrain.pt \\
       --root_dir corpus --dataset test.tsv --reduction_type mean
 
-``--checkpoint`` is a fairseq ``.pt`` (pretrained or CTC: its encoder)
-or the port's paired ``.pt`` (its audio tower, reduction heads
-included). Use ``mean`` or ``max`` for a checkpoint without heads.
-``--exported`` raises (ROADMAP.md queue 1, item 6: export), a
-HuggingFace directory too (item 7).
+``--checkpoint`` is a fairseq ``.pt`` or an HF ``save_pretrained``
+directory (pretrained or CTC: its encoder) or the port's paired ``.pt``
+(its audio tower, reduction heads included). Use ``mean`` or ``max``
+for a checkpoint without heads. ``--exported`` raises (ROADMAP.md queue
+1, item 6: export).
 """
 from __future__ import annotations
 
@@ -29,7 +29,7 @@ from typing import Callable, List
 import numpy as np
 import torch
 
-from audio8_tpu_torch.cli.common import (TOPOLOGY, add_common_model_args,
+from audio8_tpu_torch.cli.common import (add_common_model_args,
                                         apply_preset, check_ported,
                                         encoder_kwargs, load_weights,
                                         resolve_device)
@@ -77,13 +77,11 @@ def parse_args(argv=None):
 
 def load_pooled_weights(path: str, model: Wav2Vec2PooledEncoder) -> None:
     """The audio tower of the port's paired ``.pt`` (every key of
-    ``model``), else a fairseq ``.pt``'s encoder into ``model.encoder``
-    (the reduction keeps its initial weights, as in JAX)."""
-    if os.path.isdir(path):
-        raise NotImplementedError(
-            f"--checkpoint {path}: HuggingFace checkpoints are not ported "
-            f"yet: {TOPOLOGY}")
-    paired = load_port_checkpoint(path, "paired")
+    ``model``), else a fairseq ``.pt``'s or an HF directory's encoder
+    into ``model.encoder`` (the reduction keeps its initial weights, as
+    in JAX)."""
+    paired = (None if os.path.isdir(path)
+              else load_port_checkpoint(path, "paired"))
     if paired is None:
         load_weights(path, model.encoder, ctc=False)
         return

@@ -7,11 +7,13 @@ It reads a fairseq ``.pt`` (``{"model": ..., "args": ...}``; the port's
 CTC and pretraining checkpoints have this layout) and the port's own
 seq2seq or paired ``.pt`` (``{"kind": ..., "model": ...}``), with the
 step of a ``...-step-N.pt`` name and the optimizer state of a resume
-file beside it (``train/checkpoint.py``). A HuggingFace directory
-raises (ROADMAP.md queue 1, item 7).
+file beside it (``train/checkpoint.py``), and a HuggingFace
+``save_pretrained`` directory (``model.safetensors`` or
+``pytorch_model.bin``, read without the ``safetensors`` package).
 
   python -m audio8_tpu_torch.cli.inspect_checkpoint run/checkpoint-step-40.pt
   python -m audio8_tpu_torch.cli.inspect_checkpoint wav2vec_small.pt --tree
+  python -m audio8_tpu_torch.cli.inspect_checkpoint ./hf-wav2vec2-base-960h
 """
 from __future__ import annotations
 
@@ -19,29 +21,39 @@ import json
 import os
 from argparse import ArgumentParser
 from collections import defaultdict
+from types import SimpleNamespace
 
 import numpy as np
 import torch
 
-from audio8_tpu_torch.cli.common import TOPOLOGY
+from audio8_tpu_torch.models.convert_hf import is_hf_dir, read_hf_weights
 from audio8_tpu_torch.train.checkpoint import (parse_checkpoint_step,
                                                resume_path)
+
+
+def _arrays(tensors):
+    """Tensors as numpy arrays; bf16 ones, which numpy lacks, as their
+    shape and the dtype name."""
+    return {k: SimpleNamespace(shape=tuple(v.shape), dtype="bfloat16")
+            if v.dtype == torch.bfloat16 else v.numpy()
+            for k, v in tensors.items()}
 
 
 def _load(path: str):
     """-> (format, step, {name: array}, has_opt_state)."""
     if os.path.isdir(path):
-        raise NotImplementedError(
-            f"{path}: HuggingFace checkpoint directories are not ported "
-            f"yet: {TOPOLOGY}")
+        if not is_hf_dir(path):
+            raise SystemExit(f"{path}: not a recognizable checkpoint dir")
+        return "huggingface save_pretrained", None, _arrays(
+            read_hf_weights(path)), False
     if not path.endswith((".pt", ".pth")):
         raise SystemExit(f"{path}: unknown checkpoint format")
     blob = torch.load(path, map_location="cpu", weights_only=False)
     model = blob.get("model", blob) if isinstance(blob, dict) else blob
     if hasattr(model, "state_dict"):
         model = model.state_dict()
-    tree = {k: v.numpy() if hasattr(v, "numpy") else v
-            for k, v in model.items() if hasattr(v, "shape")}
+    tree = _arrays({k: torch.as_tensor(v) for k, v in model.items()
+                    if hasattr(v, "shape")})
     # fairseq keeps optimizer state under 'last_optimizer_state' (and
     # 'optimizer_history'), plain torch loops under 'optimizer'; the
     # port's trainers in the resume file beside the checkpoint

@@ -25,8 +25,7 @@ The flags are the JAX entry point's, with the same names and defaults,
 plus ``--device``, ``--seed`` (the generator that dropout, masks, Gumbel
 noise and negatives draw their seeds from) and ``--restart_tt``. Those of
 parts not ported yet raise: parallelism and ``--distributed``,
-``--profile_dir``, ``--optim sgd``, ``--layer_drop``, ``--remat`` and the
-MoE flags. ``--lane_align`` (TPU tiling) is not a flag here.
+``--profile_dir``, ``--optim sgd``, ``--remat`` and the MoE flags. ``--lane_align`` (TPU tiling) is not a flag here.
 """
 from __future__ import annotations
 

@@ -23,8 +23,8 @@ beside each (``train/checkpoint.py``); ``--restart_from`` loads one at
 step 0 or resumes a run from its directory. On SIGTERM the trainer saves
 at the next step boundary and exits 0. The flags are the JAX trainer's;
 those of parts not ported yet raise: ``--warmstart_text`` (a mead TLM
-export), parallelism and ``--distributed``, ``--layer_drop``,
-``--remat`` and ``--optim sgd``. ``--lane_align`` (TPU tiling) is not a
+export), parallelism and ``--distributed``, ``--remat`` and ``--optim
+sgd``. ``--lane_align`` (TPU tiling) is not a
 flag here.
 """
 from __future__ import annotations

@@ -342,7 +342,7 @@ def make_server(service: TranscribeService, host: str = "127.0.0.1",
 def parse_args(argv=None):
     p = ArgumentParser(description=__doc__)
     p.add_argument("--checkpoint",
-                   help="fairseq fine-tuned wav2vec2 CTC .pt")
+                   help="fairseq fine-tuned wav2vec2 CTC .pt or HF dir")
     p.add_argument("--dict_file",
                    help="fairseq dict.ltr.txt or HF vocab.json")
     add_decoding_args(p, max_decode_len=8_000)

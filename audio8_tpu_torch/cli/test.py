@@ -1,8 +1,9 @@
 """Offline evaluation entry point of the port (``a8t-test`` on PyTorch).
 
 Counterpart of ``audio8_tpu/cli/test.py`` on its CTC path: load a
-fairseq-layout CTC checkpoint (``--checkpoint``, or the latest
-``checkpoint-step-N.pt`` under ``--basedir``), stream the validation
+fairseq-layout CTC checkpoint or an HF ``save_pretrained`` directory
+(``--checkpoint``, or the latest ``checkpoint-step-N.pt`` under
+``--basedir``), stream the validation
 manifest through the acoustic model on ``--device`` (the CUDA card by
 default; it raises without one), and accumulate greedy CER and WER; with
 ``--beam`` above 1 or ``--lm`` also the prefix-beam-search WER, with LM

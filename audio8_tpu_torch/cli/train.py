@@ -15,14 +15,16 @@ false`` the conv backward kernels.
 Checkpoints are fairseq-layout CTC files (``checkpoint-step-N.pt``,
 ``checkpoint-best.pt``) that ``cli.transcribe`` and ``cli.test`` read,
 each with a resume file beside it (``train/checkpoint.py``).
-``--restart_from`` warm-starts from a fairseq ``.pt`` (a pretrained one
-into the encoder) or resumes a run from its directory
+``--restart_from`` warm-starts from a fairseq ``.pt`` or an HF
+``save_pretrained`` directory (a pretrained one into the encoder) or
+resumes a run from its directory
 (``cli/common.py:resolve_restart``); on SIGTERM the trainer saves at the
 next step boundary and exits 0 (``train/preempt.py``). ``--verbose``
 prints a beam-decoded (``--beam``, ``--lm``) validation sample. The
 flags are the JAX trainer's; those of parts not ported yet raise:
 parallelism and ``--distributed``, noise and speed perturbation,
-``--layer_drop``, ``--optim sgd`` and ``--profile_dir``. ``--lane_align``
+``--optim sgd`` and ``--profile_dir``. ``--layer_drop`` and every
+topology flag or preset but MoE train. ``--lane_align``
 (TPU tiling) is not a flag here.
 """
 from __future__ import annotations

@@ -25,8 +25,7 @@ its directory (``cli/common.py:resolve_restart``); on SIGTERM the
 trainer saves at the next step boundary and exits 0. The flags are the
 JAX trainer's (``--attention_dropout`` is inert there and here); those
 of parts not ported yet raise: parallelism and ``--distributed``, noise
-and speed perturbation, ``--layer_drop``, ``--remat`` and ``--optim
-sgd``. ``--lane_align`` (TPU tiling) is not a flag here.
+and speed perturbation, ``--remat`` and ``--optim sgd``. ``--lane_align`` (TPU tiling) is not a flag here.
 """
 from __future__ import annotations
 

@@ -1,4 +1,4 @@
-"""Transcription CLI of the port: fairseq CTC checkpoint + audio -> text.
+"""Transcription CLI of the port: CTC checkpoint + audio -> text.
 
 Counterpart of ``a8t-transcribe`` (``audio8_tpu/cli/transcribe.py``) on
 PyTorch, on ``--device`` (the CUDA card by default; it raises without
@@ -13,10 +13,16 @@ layers on int8 weights (``ops/quant.py``).
 
   python -m audio8_tpu_torch.cli.transcribe --checkpoint ctc.pt \\
       --dict_file dict.ltr.txt --beam 8 --lm lm.arpa a.wav b.wav
+  python -m audio8_tpu_torch.cli.transcribe --preset large-lv60 \\
+      --checkpoint ./hf-wav2vec2-large-960h-lv60-self \\
+      --dict_file ./hf-wav2vec2-large-960h-lv60-self/vocab.json a.wav
 
-Every flag of the JAX entry point but ``--lane_align`` parses;
-``--exported`` (ROADMAP.md queue 1, item 6), ``--device_beam``,
-``--transducer`` and non-fairseq checkpoints (item 7) raise
+``--checkpoint`` is a fairseq CTC ``.pt`` or an HF ``save_pretrained``
+directory (``Wav2Vec2ForCTC`` and its HuBERT, data2vec-audio, WavLM and
+conformer kin); the model flags (``--preset``) must give its topology
+and sizes, and ``vocab.json`` is its symbol table. Every flag of the JAX
+entry point but ``--lane_align`` parses; ``--exported`` (ROADMAP.md
+queue 1, item 6), ``--device_beam`` and ``--transducer`` (item 7) raise
 ``NotImplementedError``. Dropout flags are inert at inference.
 """
 from __future__ import annotations
@@ -31,11 +37,12 @@ import torch
 
 from audio8_tpu_torch.cli.common import (add_common_model_args,
                                         add_decoding_args, apply_preset,
-                                        encoder_kwargs, require_checkpoint,
-                                        resolve_device)
+                                        encoder_kwargs, load_weights,
+                                        require_checkpoint, resolve_device)
 from audio8_tpu_torch.config import AcousticConfig
 from audio8_tpu_torch.data.audio import SoundfileAudioReader
 from audio8_tpu_torch.models.convert import load_fairseq_ctc
+from audio8_tpu_torch.models.convert_hf import is_hf_dir
 from audio8_tpu_torch.models.text import read_vocab_list
 from audio8_tpu_torch.models.wav2vec2 import Wav2Vec2AcousticModel
 from audio8_tpu_torch.ops.align import timestamped_words, total_stride
@@ -51,7 +58,7 @@ def parse_args(argv=None):
     p = ArgumentParser(description=__doc__)
     p.add_argument("audio", nargs="+", help="WAV files")
     p.add_argument("--checkpoint",
-                   help="fairseq fine-tuned wav2vec2 CTC .pt")
+                   help="fairseq fine-tuned wav2vec2 CTC .pt or HF dir")
     p.add_argument("--dict_file",
                    help="fairseq dict.ltr.txt or HF vocab.json")
     add_decoding_args(p, max_decode_len=None)
@@ -104,7 +111,10 @@ def build_acoustic(args, device: torch.device):
         timestep_masking=0.0, channel_masking=0.0, **encoder_kwargs(args))
     dtype = torch.bfloat16 if args.bf16 else torch.float32
     model = Wav2Vec2AcousticModel(cfg, dtype)
-    model.load_state_dict(load_fairseq_ctc(args.checkpoint), strict=True)
+    if is_hf_dir(args.checkpoint):
+        load_weights(args.checkpoint, model, ctc=True)
+    else:
+        model.load_state_dict(load_fairseq_ctc(args.checkpoint), strict=True)
     if getattr(args, "quantize", "none") == "int8":
         quantize_model_params(model)
     return cfg, model.to(device).eval(), vocab_list, index2vocab

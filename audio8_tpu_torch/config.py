@@ -41,9 +41,9 @@ def conv_output_length(length: int, conv_features) -> int:
 @dataclasses.dataclass(frozen=True)
 class EncoderConfig:
     """Wav2Vec2Encoder hyperparameters. Every field of the JAX
-    ``EncoderConfig`` is here with its default; the port runs the
-    group-norm, post-norm transformer topology and
-    ``models/wav2vec2.py:check_supported`` refuses the others."""
+    ``EncoderConfig`` is here with its default; the port runs every
+    topology but MoE, which ``models/wav2vec2.py:check_supported``
+    refuses."""
 
     sample_rate: int = 16
     d_model: int = 768

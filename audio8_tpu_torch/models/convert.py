@@ -11,6 +11,11 @@ The port's parameter names are fairseq's, so:
   except that fairseq's ``quantizer.vars`` carries a leading axis of size
   1 (:func:`to_fairseq_pretrained_state`,
   :func:`from_fairseq_pretrained_state`, :func:`save_fairseq_pretrained`);
+* on the way in, WavLM's unilm key spellings are renamed and a
+  conformer's BatchNorms folded into its ``bn_folded`` affine
+  (:func:`canonical_fairseq_state`); a conformer's k=1 pointwise convs
+  are ``(C_out, C_in, 1)`` in the files and ``Dense`` weights in the
+  port;
 * a JAX ``Wav2Vec2AcousticModel``, ``Wav2Vec2Model`` or ``Seq2Seq``
   parameter tree, or the paired ``{'model': DualEncoderModel, 'loss':
   SymmetricCLIPLoss}`` tree, maps key by key (:func:`params_from_jax`):
@@ -38,11 +43,77 @@ FAIRSEQ_HEAD = "w2v_encoder.proj."
 _FAIRSEQ_IGNORED = ("quantizer.", "project_q.", "final_proj.")
 
 
+# unilm/fairseq WavLM spellings -> the HF-style names the port carries
+# (``audio8_tpu/models/convert.py:_WAVLM_FAIRSEQ_ALIASES``)
+_WAVLM_FAIRSEQ_ALIASES = (
+    (".self_attn.grep_linear.", ".self_attn.gru_rel_pos_linear."),
+    (".self_attn.grep_a", ".self_attn.gru_rel_pos_const"),
+    (".self_attn.relative_attention_bias.", ".self_attn.rel_attn_embed."),
+)
+_POINTWISE = (".conv_module.pointwise_conv1.weight",
+              ".conv_module.pointwise_conv2.weight")
+
+
+def fold_conformer_batchnorm(state: Dict[str, Any], eps: float = 1e-5
+                             ) -> None:
+    """Fold each conformer conv module's BatchNorm (weight, bias, running
+    statistics) into ``...conv_module.bn_folded.{scale,bias}`` in place,
+    in float64 as ``audio8_tpu/models/convert.py:_fold_conformer_batchnorm``
+    does, and drop the positional weights HF builds but never applies."""
+    layers = set()
+    for k in list(state):
+        if ".conv_module.batch_norm." in k:
+            layers.add(k.split(".conv_module.")[0])
+        if ".pos_conv." in k or "embed_positions." in k:
+            state.pop(k)
+    for base in layers:
+        bn = f"{base}.conv_module.batch_norm."
+        state.pop(bn + "num_batches_tracked", None)
+        try:
+            w, b, mean, var = (np.asarray(state.pop(bn + n), np.float64)
+                               for n in ("weight", "bias", "running_mean",
+                                         "running_var"))
+        except KeyError:
+            continue  # an incomplete BN surfaces as missing bn_folded keys
+        scale = w / np.sqrt(var + eps)
+        state[f"{base}.conv_module.bn_folded.scale"] = torch.from_numpy(
+            scale.astype(np.float32))
+        state[f"{base}.conv_module.bn_folded.bias"] = torch.from_numpy(
+            (b - mean * scale).astype(np.float32))
+
+
+def canonical_fairseq_state(state: Mapping[str, Any]) -> Dict[str, Any]:
+    """A fairseq-layout dict under the port's names: WavLM's unilm
+    spellings renamed, a conformer's BatchNorms folded (its dead
+    positional weights dropped) and its k=1 pointwise convs ``(C_out,
+    C_in, 1)`` as the port's ``Dense`` weights ``(C_out, C_in)``."""
+    out = {}
+    for k, v in state.items():
+        for old, new in _WAVLM_FAIRSEQ_ALIASES:
+            if old in k:
+                k = k.replace(old, new)
+                break
+        if k.endswith(_POINTWISE) and np.ndim(v) == 3:
+            v = torch.as_tensor(np.asarray(v))[..., 0]
+        out[k] = v
+    if any(".conv_module." in k for k in out):
+        fold_conformer_batchnorm(out)
+    return out
+
+
+def _fairseq_pointwise(state: Dict[str, torch.Tensor]
+                       ) -> Dict[str, torch.Tensor]:
+    """The port's conformer pointwise weights back to fairseq's k=1 conv
+    layout ``(C_out, C_in, 1)``."""
+    return {k: v[..., None] if k.endswith(_POINTWISE) and v.dim() == 2
+            else v for k, v in state.items()}
+
+
 def from_fairseq_ctc_state(state: Mapping[str, Any]
                            ) -> Tuple[Dict[str, torch.Tensor], List[str]]:
     """fairseq CTC ``model`` dict -> (port state dict, ignored keys)."""
     out, ignored = {}, []
-    for key, value in state.items():
+    for key, value in canonical_fairseq_state(state).items():
         if key.startswith(FAIRSEQ_ENCODER):
             rest = key[len(FAIRSEQ_ENCODER):]
             if rest.startswith(_FAIRSEQ_IGNORED):
@@ -67,7 +138,7 @@ def to_fairseq_ctc_state(state: Mapping[str, torch.Tensor]
             out[FAIRSEQ_HEAD + key[len("proj."):]] = value
         else:
             raise KeyError(f"no fairseq name for {key!r}")
-    return out
+    return _fairseq_pointwise(out)
 
 
 def read_fairseq_state(path: str) -> Dict[str, Any]:
@@ -95,8 +166,9 @@ def to_fairseq_pretrained_state(state: Mapping[str, torch.Tensor]
     """Port ``Wav2Vec2Model`` state dict -> fairseq pretrained ``model``
     dict (the keys of ``audio8_tpu/models/convert.py:
     convert_pretrained_state``)."""
-    out = dict(state)
-    out["quantizer.vars"] = state["quantizer.vars"][None]
+    out = _fairseq_pointwise(dict(state))
+    if "quantizer.vars" in out:
+        out["quantizer.vars"] = state["quantizer.vars"][None]
     return out
 
 
@@ -104,8 +176,10 @@ def from_fairseq_pretrained_state(state: Mapping[str, Any]
                                   ) -> Dict[str, torch.Tensor]:
     """fairseq pretrained ``model`` dict -> port ``Wav2Vec2Model`` state
     dict."""
-    out = {k: torch.as_tensor(v) for k, v in state.items()}
-    out["quantizer.vars"] = out["quantizer.vars"][0]
+    out = {k: torch.as_tensor(v)
+           for k, v in canonical_fairseq_state(state).items()}
+    if "quantizer.vars" in out and out["quantizer.vars"].dim() == 3:
+        out["quantizer.vars"] = out["quantizer.vars"][0]
     return out
 
 
@@ -136,65 +210,136 @@ def _same(x: np.ndarray) -> np.ndarray:
     return x
 
 
-def _encoder_assignments(jax_root: Tuple[str, ...], port_root: str,
-                         num_fx_layers: int, num_layers: int
-                         ) -> List[Tuple[Tuple[str, ...], str, Callable]]:
-    """(JAX path, port key, transform) for the body a group-mode,
-    post-norm ``Wav2Vec2Encoder`` holds: extractor, LayerNorm, input
-    projection, mask embedding and transformer. The JAX tree has it under
-    ``jax_root`` with the transformer at ``encoder``, the port under
-    ``port_root``."""
+def encoder_table(topo: Mapping[str, Any], num_fx_layers: int,
+                  num_layers: int
+                  ) -> List[Tuple[str, Tuple[str, ...], Callable]]:
+    """(port key, JAX path, JAX -> port transform) for the body of a
+    ``Wav2Vec2Encoder`` of topology ``topo`` (the ``EncoderConfig``
+    topology fields; missing ones take their defaults): extractor,
+    LayerNorm, input projection, mask embedding and encoder. Port keys
+    are fairseq's (HF's for the conformer) relative to the body, as
+    ``audio8_tpu/models/convert.py:_encoder_assignments`` names them; JAX
+    paths are relative to the body in the JAX tree, the transformer at
+    ``encoder/transformer``."""
+    mode = topo.get("extractor_mode", "group")
+    conformer = topo.get("encoder_type", "transformer") == "conformer"
+    gated = topo.get("gated_rel_pos", False)
     out = []
-    fx = jax_root + ("feature_extractor",)
+
+    def add(key, path, tf=_same):
+        out.append((key, tuple(path.split("/")), tf))
+
+    def norm(key, path):
+        add(key + ".weight", path + "/scale")
+        add(key + ".bias", path + "/bias")
+
+    def dense(key, path, bias=True):
+        add(key + ".weight", path + "/kernel", _t)
+        if bias:
+            add(key + ".bias", path + "/bias")
+
     for i in range(num_fx_layers):
-        out.append((fx + (f"conv_{i}", "kernel"),
-                    f"{port_root}feature_extractor.conv_layers.{i}.0.weight",
-                    _conv))
-    for jax_name, name in (("scale", "weight"), ("bias", "bias")):
-        out.append((fx + ("norm_0", jax_name),
-                    f"{port_root}feature_extractor.conv_layers.0.2.{name}",
-                    _same))
-        out.append((jax_root + ("layer_norm", jax_name),
-                    f"{port_root}layer_norm.{name}", _same))
-        out.append((jax_root + ("encoder", "ln", jax_name),
-                    f"{port_root}encoder.layer_norm.{name}", _same))
-    out.append((jax_root + ("proj_to_input", "kernel"),
-                f"{port_root}post_extract_proj.weight", _t))
-    out.append((jax_root + ("proj_to_input", "bias"),
-                f"{port_root}post_extract_proj.bias", _same))
-    out.append((jax_root + ("mask_emb",), f"{port_root}mask_emb", _same))
-    pos = jax_root + ("encoder", "pos_conv")
-    port_pos = f"{port_root}encoder.pos_conv.0."
-    out.append((pos + ("weight_v",), port_pos + "weight_v", _conv))
-    out.append((pos + ("weight_g",), port_pos + "weight_g", _conv))
-    out.append((pos + ("bias",), port_pos + "bias", _same))
+        conv = f"feature_extractor.conv_layers.{i}.0"
+        add(conv + ".weight", f"feature_extractor/conv_{i}/kernel", _conv)
+        if topo.get("conv_bias", False):
+            add(conv + ".bias", f"feature_extractor/conv_{i}/bias")
+        if mode == "layer":
+            norm(f"feature_extractor.conv_layers.{i}.2.1",
+                 f"feature_extractor/ln_{i}")
+    if mode == "group":
+        norm("feature_extractor.conv_layers.0.2", "feature_extractor/norm_0")
+    norm("layer_norm", "layer_norm")
+    dense("post_extract_proj", "proj_to_input")
+    add("mask_emb", "mask_emb")
+    if conformer:
+        norm("encoder.layer_norm", "encoder/transformer/ln_out")
+        for i in range(num_layers):
+            base, ours = f"encoder.layers.{i}", f"encoder/transformer/layer_{i}"
+            for ffn in ("ffn1", "ffn2"):
+                norm(f"{base}.{ffn}_layer_norm", f"{ours}/{ffn}_ln")
+                dense(f"{base}.{ffn}.intermediate_dense",
+                      f"{ours}/{ffn}/expand")
+                dense(f"{base}.{ffn}.output_dense", f"{ours}/{ffn}/contract")
+            norm(f"{base}.self_attn_layer_norm", f"{ours}/attn_ln")
+            for hf, mine in (("linear_q", "w_Q"), ("linear_k", "w_K"),
+                             ("linear_v", "w_V"), ("linear_out", "w_O")):
+                dense(f"{base}.self_attn.{hf}", f"{ours}/self_attn/{mine}")
+            if topo.get("position_embeddings_type", "relative") == "relative":
+                dense(f"{base}.self_attn.linear_pos",
+                      f"{ours}/self_attn/linear_pos", bias=False)
+                add(f"{base}.self_attn.pos_bias_u",
+                    f"{ours}/self_attn/pos_bias_u")
+                add(f"{base}.self_attn.pos_bias_v",
+                    f"{ours}/self_attn/pos_bias_v")
+            cm = f"{base}.conv_module"
+            norm(f"{cm}.layer_norm", f"{ours}/conv/ln")
+            dense(f"{cm}.pointwise_conv1", f"{ours}/conv/pw1", bias=False)
+            dense(f"{cm}.pointwise_conv2", f"{ours}/conv/pw2", bias=False)
+            add(f"{cm}.depthwise_conv.weight", f"{ours}/conv/dw/kernel",
+                _conv)
+            add(f"{cm}.bn_folded.scale", f"{ours}/conv/bn_scale")
+            add(f"{cm}.bn_folded.bias", f"{ours}/conv/bn_bias")
+            norm(f"{base}.final_layer_norm", f"{ours}/final_ln")
+        return out
+    depth = topo.get("pos_conv_depth", 1)
+    if depth > 1:
+        for i in range(depth):
+            add(f"encoder.pos_conv.{i}.0.weight",
+                f"encoder/pos_conv/layer_{i}/kernel", _conv)
+            add(f"encoder.pos_conv.{i}.0.bias",
+                f"encoder/pos_conv/layer_{i}/bias")
+    else:
+        add("encoder.pos_conv.0.weight_v", "encoder/pos_conv/weight_v", _conv)
+        add("encoder.pos_conv.0.weight_g", "encoder/pos_conv/weight_g", _conv)
+        add("encoder.pos_conv.0.bias", "encoder/pos_conv/bias")
+    # the stack's final norm under pre-norm, the post-pos-conv norm else
+    norm("encoder.layer_norm", "encoder/transformer/ln_out"
+         if topo.get("pre_norm", False) else "encoder/ln")
     for i in range(num_layers):
-        ours = jax_root + ("encoder", "transformer", f"layer_{i}")
-        port = f"{port_root}encoder.layers.{i}."
-        for jax_name, name in (("w_Q", "q_proj"), ("w_K", "k_proj"),
-                               ("w_V", "v_proj"), ("w_O", "out_proj")):
-            out.append((ours + ("self_attn", jax_name, "kernel"),
-                        port + f"self_attn.{name}.weight", _t))
-            out.append((ours + ("self_attn", jax_name, "bias"),
-                        port + f"self_attn.{name}.bias", _same))
-        for jax_name, name in (("expand", "fc1"), ("contract", "fc2")):
-            out.append((ours + ("ffn", jax_name, "kernel"),
-                        port + f"{name}.weight", _t))
-            out.append((ours + ("ffn", jax_name, "bias"),
-                        port + f"{name}.bias", _same))
-        for jax_name, name in (("ln_attn", "self_attn_layer_norm"),
-                               ("ln_ffn", "final_layer_norm")):
-            out.append((ours + (jax_name, "scale"), port + f"{name}.weight",
-                        _same))
-            out.append((ours + (jax_name, "bias"), port + f"{name}.bias",
-                        _same))
+        base, ours = f"encoder.layers.{i}", f"encoder/transformer/layer_{i}"
+        for fs, mine in (("q_proj", "w_Q"), ("k_proj", "w_K"),
+                         ("v_proj", "w_V"), ("out_proj", "w_O")):
+            dense(f"{base}.self_attn.{fs}", f"{ours}/self_attn/{mine}")
+        norm(f"{base}.self_attn_layer_norm", f"{ours}/ln_attn")
+        dense(f"{base}.fc1", f"{ours}/ffn/expand")
+        dense(f"{base}.fc2", f"{ours}/ffn/contract")
+        norm(f"{base}.final_layer_norm", f"{ours}/ln_ffn")
+        if gated:
+            dense(f"{base}.self_attn.gru_rel_pos_linear",
+                  f"{ours}/self_attn/gru_rel_pos_linear")
+            add(f"{base}.self_attn.gru_rel_pos_const",
+                f"{ours}/self_attn/gru_rel_pos_const")
+    if gated and num_layers:
+        add("encoder.layers.0.self_attn.rel_attn_embed.weight",
+            "encoder/transformer/rel_pos_bias/rel_attn_embed/embedding")
     return out
+
+
+def jax_topology(body: Mapping[str, Any]) -> Dict[str, Any]:
+    """The topology fields of :func:`encoder_table` read off a JAX
+    encoder body's keys."""
+    fx, enc = body["feature_extractor"], body["encoder"]
+    tr = enc["transformer"]
+    layer0 = tr.get("layer_0", {})
+    topo = {"extractor_mode": "layer" if "ln_0" in fx else "group",
+            "conv_bias": "bias" in fx["conv_0"]}
+    if "ffn1" in layer0:
+        topo["encoder_type"] = "conformer"
+        topo["position_embeddings_type"] = (
+            "relative" if "linear_pos" in layer0["self_attn"] else "rotary")
+        return topo
+    pos = enc["pos_conv"]
+    topo["pos_conv_depth"] = sum(1 for k in pos if k.startswith("layer_")) \
+        or 1
+    topo["pre_norm"] = "ln_out" in tr
+    topo["gated_rel_pos"] = "rel_pos_bias" in tr
+    return topo
 
 
 def _body_assignments(tree: Mapping[str, Any], jax_root: Tuple[str, ...],
                       port_root: str):
-    """:func:`_encoder_assignments` for the encoder body at ``jax_root``,
-    its depths read from the tree."""
+    """(JAX path, port key, transform) for the encoder body at
+    ``jax_root``, its topology and depths read from the tree."""
     body = tree
     for p in jax_root:
         body = body[p]
@@ -202,7 +347,8 @@ def _body_assignments(tree: Mapping[str, Any], jax_root: Tuple[str, ...],
                  if k.startswith("conv_"))
     num_layers = sum(1 for k in body["encoder"]["transformer"]
                      if k.startswith("layer_"))
-    return _encoder_assignments(jax_root, port_root, num_fx, num_layers)
+    return [(jax_root + path, port_root + key, tf) for key, path, tf in
+            encoder_table(jax_topology(body), num_fx, num_layers)]
 
 
 # flax's automatic names of the reductions' heads -> the port's

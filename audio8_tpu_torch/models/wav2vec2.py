@@ -4,10 +4,12 @@ acoustic model and the contrastive pretraining model.
 Structure map to the JAX package (and the fairseq names the parameters
 carry, so fairseq checkpoints load by prefix, ``models/convert.py``):
 
-  ConvFeatureExtractor     feature_extractor.conv_layers.{i}.0 (conv),
-                           .conv_layers.0.2 (block-0 GroupNorm)
-  AudioTransformerEncoder  encoder.pos_conv.0, encoder.layer_norm,
-                           encoder.layers.{i}
+  ConvFeatureExtractor     feature_extractor.conv_layers.{i}.0 (conv and
+                           its bias), .conv_layers.0.2 (block-0 GroupNorm)
+                           or .conv_layers.{i}.2.1 (layer mode)
+  AudioTransformerEncoder  encoder.pos_conv.0 (or data2vec's
+                           pos_conv.{i}.0), encoder.layer_norm,
+                           encoder.layers.{i} (transformer or conformer)
   Wav2Vec2Encoder          + layer_norm, post_extract_proj, mask_emb
   Wav2Vec2AcousticModel    encoder (a Wav2Vec2Encoder) + proj (CTC head)
   Wav2Vec2PooledEncoder    encoder + [proj_layer] + reduction (the paired
@@ -17,7 +19,11 @@ carry, so fairseq checkpoints load by prefix, ``models/convert.py``):
                            + quantizer, project_q, final_proj
   wav2vec2_pretrain_loss   InfoNCE over sampled negatives + diversity
 
-The group-norm extractor and post-norm encoder of wav2vec2-base/large.
+Every topology of ``EncoderConfig`` but MoE: the group-norm or
+layer-norm extractor (with or without conv bias), post-norm or pre-norm
+(stable layer norm) transformer layers, data2vec's positional stack,
+WavLM's gated position bias, conformer blocks, packed Q/K/V, flash
+(which off a TPU is the JAX XLA attention), causal chunks and LayerDrop.
 Training mode is a forward given a ``generator`` (the trainer's
 ``torch.Generator``): every dropout draws its integer seed from it, in
 forward order, and runs the JAX package's hash randomness with that seed
@@ -28,9 +34,8 @@ and loss take theirs as explicit arguments (:class:`PretrainSeeds`), so a
 step's randomness can be given from outside. ``freeze_fx`` runs the
 acoustic model's extractor under ``torch.no_grad()`` (the JAX
 ``stop_gradient``), and ``freeze`` its whole encoder; the pretraining
-model always trains its extractor. The other topologies of
-``EncoderConfig`` are not ported yet; :func:`check_supported` refuses a
-config that asks for them.
+model always trains its extractor. :func:`check_supported` refuses MoE
+(ROADMAP.md queue 1, item 8).
 """
 from __future__ import annotations
 
@@ -43,11 +48,14 @@ from torch import nn
 from audio8_tpu_torch.config import (DIVERSITY_WGT, XE_WGT, AcousticConfig,
                                      EncoderConfig, PooledConfig,
                                      PretrainConfig)
+from audio8_tpu_torch.nn.conformer import ConformerBlock
 from audio8_tpu_torch.nn.dropout import dropout
 from audio8_tpu_torch.nn.layers import (Conv1D, Dense, GroupNorm, LayerNorm,
-                                        PositionalConv, gelu)
+                                        PositionalConv, StackedPositionalConv,
+                                        gelu)
 from audio8_tpu_torch.nn.pooling import Reduction
-from audio8_tpu_torch.nn.transformer import TransformerEncoderStack
+from audio8_tpu_torch.nn.transformer import (TransformerEncoderStack,
+                                             run_layers)
 from audio8_tpu_torch.ops.hashrand import (draw_seed, hash_gumbel,
                                            hash_randint)
 from audio8_tpu_torch.ops.masks import (compact_mask_indices, num_spans,
@@ -55,16 +63,7 @@ from audio8_tpu_torch.ops.masks import (compact_mask_indices, num_spans,
 
 # (EncoderConfig field, value the port runs, what a different value asks for)
 _SUPPORTED = (
-    ("pre_norm", False, "pre_norm (stable layer norm)"),
-    ("extractor_mode", "group", "extractor_mode='layer'"),
-    ("conv_bias", False, "conv_bias"),
-    ("pos_conv_depth", 1, "pos_conv_depth > 1 (data2vec positional stack)"),
-    ("gated_rel_pos", False, "gated_rel_pos (WavLM position bias)"),
-    ("encoder_type", "transformer", "encoder_type='conformer'"),
-    ("causal_chunk_frames", 0, "causal_chunk_frames (causal-chunk masks)"),
     ("moe_experts", 0, "moe_experts (MoE FFN)"),
-    ("packed_qkv", False, "packed_qkv"),
-    ("flash_attention", False, "flash_attention"),
 )
 
 
@@ -74,36 +73,51 @@ def check_supported(cfg: EncoderConfig) -> None:
     for field, value, what in _SUPPORTED:
         if getattr(cfg, field) != value:
             raise NotImplementedError(
-                f"{what} is not ported yet (ROADMAP.md queue 1, item "
-                f"{8 if field == 'moe_experts' else 7}): the PyTorch port "
-                "runs the group-norm, post-norm wav2vec2 encoder")
+                f"{what} is not ported yet (ROADMAP.md queue 1, item 8)")
     if cfg.fused_attention not in (None, True, "block"):
         raise NotImplementedError(
             f"fused_attention={cfg.fused_attention!r} is not a setting of "
             "the JAX package (ROADMAP.md): None, True or 'block' "
             "(nn/transformer.py's dispatch table)")
+    if cfg.extractor_mode not in ("group", "layer"):
+        raise ValueError(f"extractor_mode {cfg.extractor_mode!r}: want "
+                         "'group' or 'layer'")
+    if cfg.encoder_type not in ("transformer", "conformer"):
+        raise ValueError(f"encoder_type {cfg.encoder_type!r}: want "
+                         "'transformer' or 'conformer'")
 
 
 class _Block(nn.Module):
     """One extractor block; children named as fairseq's Sequential
-    (``0`` = conv, ``2`` = GroupNorm on block 0)."""
+    (``0`` = conv, ``2`` = GroupNorm on block 0 in group mode, ``2.1`` =
+    the channel LayerNorm of every block in layer mode)."""
 
 
 class ConvFeatureExtractor(nn.Module):
-    """Strided conv stack: waveform (B, T) -> frames (B, T', C), group
-    mode: conv -> [GroupNorm on block 0] -> GELU, no conv bias."""
+    """Strided conv stack: waveform (B, T) -> frames (B, T', C). Group
+    mode: conv -> [GroupNorm on block 0] -> GELU; layer mode (the
+    LV-60/XLS-R layout): conv -> channel LayerNorm (f32 statistics, then
+    the cast) -> GELU on every block. ``conv_bias`` adds a bias after
+    each conv."""
 
     def __init__(self, conv_features: Sequence[Tuple[int, int, int]],
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, mode: str = "group",
+                 conv_bias: bool = False):
         super().__init__()
         self.conv_features = [tuple(b) for b in conv_features]
         self.compute_dtype = dtype
+        self.mode = mode
         self.conv_layers = nn.ModuleList()
         c_in = 1
         for i, (dim, k, stride) in enumerate(self.conv_features):
             block = _Block()
-            block.add_module("0", Conv1D(c_in, dim, k, stride, dtype=dtype))
-            if i == 0:
+            block.add_module("0", Conv1D(c_in, dim, k, stride, dtype=dtype,
+                                         use_bias=conv_bias))
+            if mode == "layer":
+                norm = _Block()
+                norm.add_module("1", LayerNorm(dim, dtype))
+                block.add_module("2", norm)
+            elif i == 0:
                 block.add_module("2", GroupNorm(dim, dim, dtype=dtype))
             self.conv_layers.append(block)
             c_in = dim
@@ -112,12 +126,15 @@ class ConvFeatureExtractor(nn.Module):
                 input_lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
         """``input_lengths``: optional per-row valid sample counts. When
         given, the block-0 GroupNorm takes statistics over valid frames
-        only (the JAX package's masked statistics)."""
+        only (the JAX package's masked statistics); the layer mode's
+        per-frame norms need no mask."""
         x = x[..., None].to(self.compute_dtype)
         for i, ((_, k, stride), block) in enumerate(
                 zip(self.conv_features, self.conv_layers)):
             x = getattr(block, "0")(x)
-            if i == 0:
+            if self.mode == "layer":
+                x = getattr(getattr(block, "2"), "1")(x)
+            elif i == 0:
                 mask = None
                 if input_lengths is not None:
                     valid = ((input_lengths - k) // stride + 1).clamp_min(0)
@@ -128,39 +145,89 @@ class ConvFeatureExtractor(nn.Module):
         return x
 
 
-class AudioTransformerEncoder(TransformerEncoderStack):
-    """Conv positional embedding + LayerNorm + post-norm transformer
-    layers (fairseq ``TransformerEncoder``: ``pos_conv.0``,
-    ``layer_norm``, ``layers.{i}``)."""
+def causal_chunk_mask(t: int, chunk: int, left_chunks: int,
+                      device=None) -> torch.Tensor:
+    """(1, 1, T, T) block-causal mask: frame i attends to its own chunk
+    and earlier ones (at most ``left_chunks`` back when >= 0)."""
+    cid = torch.arange(t, device=device) // chunk
+    ok = cid[None, :] <= cid[:, None]
+    if left_chunks >= 0:
+        ok &= cid[None, :] >= cid[:, None] - left_chunks
+    return ok[None, None]
 
-    def __init__(self, d_model: int, num_heads: int, num_layers: int,
-                 d_ff: Optional[int] = None, conv_pos_kernel: int = 128,
-                 conv_pos_groups: int = 16,
-                 dtype: torch.dtype = torch.float32,
-                 dropout_rate: float = 0.0,
-                 attention_dropout: Optional[float] = None,
-                 layer_drop: float = 0.0, fused_attention=None,
-                 bf16_softmax: bool = True):
-        super().__init__(num_heads, d_model, num_layers, d_ff, dtype,
-                         dropout_rate, attention_dropout, layer_drop,
-                         fused_attention, bf16_softmax)
-        self.dropout_rate = dropout_rate
-        self.pos_conv = nn.Sequential(PositionalConv(
-            d_model, conv_pos_kernel, conv_pos_groups, dtype=dtype))
-        self.layer_norm = LayerNorm(d_model, dtype)
+
+class AudioTransformerEncoder(TransformerEncoderStack):
+    """Positional embedding + transformer or conformer layers (fairseq
+    ``TransformerEncoder``: ``pos_conv``, ``layer_norm``, ``layers.{i}``).
+
+    Post-norm: ``layer_norm(x + pos_conv(x))``, dropout, layers.
+    Pre-norm (stable layer norm): ``x + pos_conv(x)``, dropout, layers,
+    then ``layer_norm`` (fairseq's ``encoder.layer_norm`` sits after the
+    stack). ``pos_conv`` is the weight-normed conv (``pos_conv.0``) or
+    data2vec's stack (``pos_conv_depth > 1``, ``pos_conv.{i}.0``); the
+    conformer has none: dropout, blocks, ``layer_norm``. Causal chunks
+    (``causal_chunk_frames``) AND a block-causal (1, 1, T, T) mask into
+    the key mask, which sends attention to the composition."""
+
+    def __init__(self, cfg: EncoderConfig, dtype: torch.dtype = torch.float32):
+        conformer = cfg.encoder_type == "conformer"
+        super().__init__(cfg.num_heads, cfg.d_model,
+                         0 if conformer else cfg.num_layers, cfg.d_ff, dtype,
+                         cfg.dropout, cfg.attention_dropout, cfg.layer_drop,
+                         cfg.fused_attention, cfg.bf16_softmax, cfg.pre_norm,
+                         cfg.flash_attention, cfg.packed_qkv,
+                         cfg.gated_rel_pos, cfg.rel_pos_buckets,
+                         cfg.rel_pos_max_distance)
+        self.config = cfg
+        self.dropout_rate = cfg.dropout
+        if conformer:
+            self.layers = nn.ModuleList(
+                ConformerBlock(cfg.num_heads, cfg.d_model,
+                               cfg.d_ff or 4 * cfg.d_model,
+                               cfg.position_embeddings_type, cfg.rotary_base,
+                               cfg.conv_depthwise_kernel_size,
+                               cfg.conformer_activation, cfg.dropout,
+                               cfg.attention_dropout, cfg.bf16_softmax,
+                               dtype)
+                for _ in range(cfg.num_layers))
+        elif cfg.pos_conv_depth > 1:
+            self.pos_conv = StackedPositionalConv(
+                cfg.d_model, cfg.pos_conv_depth, cfg.conv_pos_kernel,
+                cfg.conv_pos_groups, dtype)
+        else:
+            self.pos_conv = nn.Sequential(PositionalConv(
+                cfg.d_model, cfg.conv_pos_kernel, cfg.conv_pos_groups,
+                dtype=dtype))
+        self.layer_norm = LayerNorm(cfg.d_model, dtype)
 
     def forward(self, x: torch.Tensor,
                 pad_mask: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """Zero padded frames, add the positional conv, LayerNorm,
-        dropout, then the layers with ``pad_mask`` as the attention key
-        mask."""
+        """Zero padded frames, the positional embedding and norm as the
+        layout says, dropout, then the layers with ``pad_mask`` as the
+        attention key mask."""
+        cfg = self.config
         if pad_mask is not None:
             x = torch.where(pad_mask[..., None], x, torch.zeros((), dtype=x.dtype,
                                                                 device=x.device))
-        x = self.layer_norm(x + self.pos_conv(x))
+        mask = None
+        if cfg.causal_chunk_frames > 0:
+            mask = causal_chunk_mask(x.shape[1], cfg.causal_chunk_frames,
+                                     cfg.causal_left_chunks, x.device)
+        if cfg.encoder_type == "conformer":
+            x = dropout(x, self.dropout_rate, generator)
+            if pad_mask is not None:
+                kv = pad_mask[:, None, None, :]
+                mask = kv if mask is None else mask & kv
+            x = run_layers(self.layers, x, generator, self.layer_drop,
+                           mask=mask)
+            return self.layer_norm(x)
+        x = x + self.pos_conv(x)
+        if not cfg.pre_norm:
+            x = self.layer_norm(x)
         x = dropout(x, self.dropout_rate, generator)
-        return super().forward(x, pad_mask, generator)
+        x = super().forward(x, pad_mask, generator, mask)
+        return self.layer_norm(x) if cfg.pre_norm else x
 
 
 def downsample_lengths(input_lengths: torch.Tensor, t_samples: int,
@@ -192,16 +259,13 @@ class Wav2Vec2Encoder(nn.Module):
         super().__init__()
         check_supported(cfg)
         self.config = cfg
-        self.feature_extractor = ConvFeatureExtractor(cfg.conv_features, dtype)
+        self.feature_extractor = ConvFeatureExtractor(
+            cfg.conv_features, dtype, cfg.extractor_mode, cfg.conv_bias)
         self.layer_norm = LayerNorm(cfg.fx_dim, dtype)
         self.post_extract_proj = Dense(cfg.fx_dim, cfg.d_model, dtype=dtype)
         # replaces time-masked frames in training
         self.mask_emb = nn.Parameter(torch.zeros(cfg.d_model))
-        self.encoder = AudioTransformerEncoder(
-            cfg.d_model, cfg.num_heads, cfg.num_layers, cfg.d_ff,
-            cfg.conv_pos_kernel, cfg.conv_pos_groups, dtype, cfg.dropout,
-            cfg.attention_dropout, cfg.layer_drop, cfg.fused_attention,
-            cfg.bf16_softmax)
+        self.encoder = AudioTransformerEncoder(cfg, dtype)
 
     def forward(self, x: torch.Tensor,
                 input_lengths: Optional[torch.Tensor] = None,
@@ -413,15 +477,12 @@ class Wav2Vec2Model(nn.Module):
         super().__init__()
         check_supported(cfg)
         self.config = cfg
-        self.feature_extractor = ConvFeatureExtractor(cfg.conv_features, dtype)
+        self.feature_extractor = ConvFeatureExtractor(
+            cfg.conv_features, dtype, cfg.extractor_mode, cfg.conv_bias)
         self.layer_norm = LayerNorm(cfg.fx_dim, dtype)
         self.post_extract_proj = Dense(cfg.fx_dim, cfg.d_model, dtype=dtype)
         self.mask_emb = nn.Parameter(torch.zeros(cfg.d_model))
-        self.encoder = AudioTransformerEncoder(
-            cfg.d_model, cfg.num_heads, cfg.num_layers, cfg.d_ff,
-            cfg.conv_pos_kernel, cfg.conv_pos_groups, dtype, cfg.dropout,
-            cfg.attention_dropout, cfg.layer_drop, cfg.fused_attention,
-            cfg.bf16_softmax)
+        self.encoder = AudioTransformerEncoder(cfg, dtype)
         self.quantizer = GumbelVectorQuantizer(
             cfg.fx_dim, cfg.num_vq_vars, cfg.num_vq_groups, cfg.final_dim,
             dtype)

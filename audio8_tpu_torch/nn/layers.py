@@ -82,31 +82,41 @@ class Dense(nn.Linear):
 
 
 class Conv1D(nn.Module):
-    """Strided VALID 1-D convolution over ``(B, T, C)`` without bias.
+    """Strided VALID 1-D convolution over ``(B, T, C)``, with an optional
+    bias (``use_bias``, the layer-norm extractor's conv bias).
 
     ``weight`` is torch's ``(C_out, C_in, K)``. The k=3, stride-2 layers
     (the wav2vec2 extractor's 512 -> 512 blocks) run the hand-written
     kernel ``ops.conv.conv1d_k3s2``; every other shape stays
-    ``F.conv1d``, as the JAX package left it to XLA."""
+    ``F.conv1d``, as the JAX package left it to XLA. The bias is added
+    after the product in the compute dtype (``y + bias.astype(dtype)``
+    in JAX: the product is rounded first)."""
 
     def __init__(self, in_features: int, out_features: int, kernel_size: int,
                  stride: int = 1, dtype: torch.dtype = torch.float32,
-                 device=None):
+                 device=None, use_bias: bool = False):
         super().__init__()
         self.kernel_size = kernel_size
         self.stride = stride
         self.compute_dtype = dtype
         self.weight = nn.Parameter(torch.zeros(
             out_features, in_features, kernel_size, device=device))
+        if use_bias:
+            self.bias = nn.Parameter(torch.zeros(out_features, device=device))
+        else:
+            self.bias = None
 
     def init_from(self, generator: torch.Generator) -> None:
-        """He-normal on fan_in = K * C_in (the reference's kaiming init)."""
+        """He-normal on fan_in = K * C_in (the reference's kaiming init),
+        zero bias."""
         c_out, c_in, k = self.weight.shape
         std = math.sqrt(2.0 / (k * c_in))
         with torch.no_grad():
             self.weight.copy_(torch.randn(self.weight.shape,
                                           generator=generator,
                                           device=generator.device) * std)
+            if self.bias is not None:
+                self.bias.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
@@ -114,11 +124,66 @@ class Conv1D(nn.Module):
         if self.kernel_size == 3 and self.stride == 2:
             # (C_out, C_in, 3) -> (3, C_in, C_out), the kernel's layout
             w = self.weight.to(dt).permute(2, 1, 0).contiguous()
-            return conv1d_k3s2(x.contiguous(), w)
-        # cuDNN takes a slow algorithm for a transposed (strided) input
-        y = F.conv1d(x.transpose(1, 2).contiguous(), self.weight.to(dt),
-                     stride=self.stride)
-        return y.transpose(1, 2)
+            y = conv1d_k3s2(x.contiguous(), w)
+        else:
+            # cuDNN takes a slow algorithm for a transposed (strided) input
+            y = F.conv1d(x.transpose(1, 2).contiguous(), self.weight.to(dt),
+                         stride=self.stride).transpose(1, 2)
+        return y if self.bias is None else y + self.bias.to(dt)
+
+
+def grouped_conv1d(x: torch.Tensor, weight: torch.Tensor, padding: int,
+                   groups: int) -> torch.Tensor:
+    """Stride-1 grouped convolution of ``(B, T, C)`` with ``padding``
+    zeros on both sides, in ``x``'s dtype, channel-last out. On the CPU
+    the operands are widened to f32 and the result rounded once, as XLA
+    and cuDNN sum a bf16 product in f32 (PyTorch's CPU grouped conv in
+    bf16 does not)."""
+    dt = x.dtype
+    xt = x.transpose(1, 2).contiguous()
+    w = weight.to(dt)
+    if not x.is_cuda:
+        xt, w = xt.float(), w.float()
+    y = F.conv1d(xt, w, padding=padding, groups=groups)
+    return y.to(dt).transpose(1, 2)
+
+
+class GroupedConv(nn.Module):
+    """Stride-1 SAME grouped convolution with ``weight`` ``(C_out,
+    C_in/groups, K)`` and an optional bias added after the product in the
+    compute dtype (the JAX ``Conv1D`` with ``groups`` and ``padding``):
+    data2vec's positional convs and the conformer's depthwise conv."""
+
+    def __init__(self, features: int, kernel_size: int, groups: int,
+                 use_bias: bool = True, dtype: torch.dtype = torch.float32,
+                 device=None):
+        super().__init__()
+        self.kernel_size = kernel_size
+        self.groups = groups
+        self.compute_dtype = dtype
+        self.weight = nn.Parameter(torch.zeros(
+            features, features // groups, kernel_size, device=device))
+        self.bias = (nn.Parameter(torch.zeros(features, device=device))
+                     if use_bias else None)
+
+    def init_from(self, generator: torch.Generator) -> None:
+        """He-normal on fan_in = K * C_in/groups, zero bias."""
+        _, c_in, k = self.weight.shape
+        std = math.sqrt(2.0 / (k * c_in))
+        with torch.no_grad():
+            self.weight.copy_(torch.randn(self.weight.shape,
+                                          generator=generator,
+                                          device=generator.device) * std)
+            if self.bias is not None:
+                self.bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        y = grouped_conv1d(x.to(dt), self.weight, self.kernel_size // 2,
+                           self.groups)
+        if self.kernel_size % 2 == 0:  # fairseq SamePad
+            y = y[:, :-1, :]
+        return y if self.bias is None else y + self.bias.to(dt)
 
 
 class LayerNorm(nn.LayerNorm):
@@ -232,14 +297,40 @@ class PositionalConv(nn.Module):
         dt = self.compute_dtype
         kernel = (self.weight_g.float() * self.weight_v.float()
                   / (self._norm() + 1e-12)).to(dt)
-        x = x.to(dt).transpose(1, 2).contiguous()
-        if not x.is_cuda:
-            # operands in the compute dtype, sums in f32, as XLA and cuDNN
-            # do; PyTorch's CPU grouped conv in bf16 does not
-            x, kernel = x.float(), kernel.float()
-        y = F.conv1d(x, kernel, padding=self.kernel_size // 2,
-                     groups=self.groups)
-        y = y.to(dt).transpose(1, 2)
+        y = grouped_conv1d(x.to(dt), kernel, self.kernel_size // 2,
+                           self.groups)
         if self.kernel_size % 2 == 0:
             y = y[:, :-1, :]
         return gelu(y + self.bias.to(dt))
+
+
+def _plain_layer_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """Affine-less LayerNorm over the channels with f32 statistics, in
+    ``x``'s dtype."""
+    x32 = x.float()
+    mean = x32.mean(dim=-1, keepdim=True)
+    var = (x32 - mean).square().mean(dim=-1, keepdim=True)
+    return ((x32 - mean) * torch.rsqrt(var + eps)).to(x.dtype)
+
+
+class StackedPositionalConv(nn.Module):
+    """data2vec-audio's positional embedding
+    (``audio8_tpu/nn/layers.py:StackedPositionalConv``): ``depth`` blocks
+    of [grouped SAME conv with bias, affine-less LayerNorm, GELU], no
+    weight norm. Children keep fairseq's names: block ``i``'s conv is
+    ``{i}.0`` (``weight`` ``(C, C/groups, K)``, ``bias``)."""
+
+    def __init__(self, features: int, depth: int = 5, kernel_size: int = 19,
+                 groups: int = 16, dtype: torch.dtype = torch.float32,
+                 device=None):
+        super().__init__()
+        for i in range(depth):
+            block = nn.Module()
+            block.add_module("0", GroupedConv(features, kernel_size, groups,
+                                              True, dtype, device))
+            self.add_module(str(i), block)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for block in self.children():
+            x = gelu(_plain_layer_norm(getattr(block, "0")(x)))
+        return x

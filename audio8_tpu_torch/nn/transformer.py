@@ -11,8 +11,10 @@ self-attention, key-validity mask:
  True, gate refuses                 XLA attention     core kernel, "xla"
  "block", gate passes               Pallas block      block kernel
  "block", gate refuses              XLA attention     core kernel, "xla"
-relative positions (``rpr_k``)      XLA attention     torch composition
-other masks (causal), cross         XLA attention     torch composition
+``flash_attention`` (off a TPU)     XLA attention     core kernel, "xla"
+relative positions (``rpr_k``),     XLA attention     torch composition
+ a position bias (WavLM)
+other masks (causal chunks),        XLA attention     torch composition
  attention (T_q != T_k)
 a static KV cache                   XLA attention     torch composition
 ``attend_kv``                       XLA, f32 softmax  torch composition,
@@ -43,16 +45,22 @@ keeps fairseq's module and parameter names
 ``fc2``, ``final_layer_norm``, ``layers.{i}``) so checkpoints load by
 prefix; the text encoder and the decoder stacks keep the JAX tree's
 (``layer_{i}``, ``self_attn.w_{Q,K,V,O}``, ``rpr_key_emb``,
-``ffn.{expand,contract}``, ``ln_*``). Not ported: pre-norm encoder
-stacks, biased masks (WavLM), MoE, packed QKV and flash;
-``models/wav2vec2.py`` refuses configs that ask for them.
+``ffn.{expand,contract}``, ``ln_*``). The wav2vec2 stack is post-norm or
+pre-norm (stable layer norm, its final norm after the layers), with
+WavLM's gated relative position bias (:func:`relative_position_bias`,
+the bucket table in layer 0's attention as fairseq and HF keep it), packed
+Q/K/V (one product over the three weights) and LayerDrop. MoE is not
+ported; ``models/wav2vec2.py`` refuses configs that ask for it.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from audio8_tpu_torch.nn.dropout import dropout
@@ -60,7 +68,7 @@ from audio8_tpu_torch.nn.embeddings import LookupTableEmbeddings
 from audio8_tpu_torch.nn.layers import Dense, LayerNorm, gelu
 from audio8_tpu_torch.ops.attention import attention_core
 from audio8_tpu_torch.ops.attention_block import HEAD_DIMS, attention_block
-from audio8_tpu_torch.ops.hashrand import draw_seed
+from audio8_tpu_torch.ops.hashrand import draw_keep, draw_seed
 
 
 # the JAX gates' bounds on T and the head dim
@@ -103,6 +111,49 @@ def softmax(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
     return _LowPrecisionSoftmax.apply(x, dim)
 
 
+def relative_position_buckets(t_q: int, t_k: int, num_buckets: int,
+                              max_distance: int) -> np.ndarray:
+    """WavLM/T5 bidirectional relative-position buckets, (t_q, t_k) int32
+    (``audio8_tpu/nn/transformer.py:relative_position_buckets``, numpy
+    float64 logs, so the table is the JAX one bit for bit): half the
+    buckets for each sign, half of those exact, the rest log-spaced up
+    to ``max_distance``."""
+    rel = np.arange(t_k)[None, :] - np.arange(t_q)[:, None]
+    half = num_buckets // 2
+    out = (rel > 0).astype(np.int64) * half
+    rel = np.abs(rel)
+    max_exact = half // 2
+    is_small = rel < max_exact
+    large = max_exact + (
+        np.log(np.maximum(rel, 1) / max_exact)
+        / np.log(max_distance / max_exact) * (half - max_exact)
+    ).astype(np.int64)
+    large = np.minimum(large, half - 1)
+    out += np.where(is_small, rel, large)
+    return out.astype(np.int32)
+
+
+@functools.lru_cache(maxsize=8)
+def _bucket_ids(t: int, num_buckets: int, max_distance: int,
+                device: torch.device) -> torch.Tensor:
+    """:func:`relative_position_buckets` of (t, t) on ``device``, built
+    once per length: the table is a constant of the shape, as it is under
+    JAX's jit."""
+    return torch.from_numpy(relative_position_buckets(
+        t, t, num_buckets, max_distance)).to(device, torch.long)
+
+
+def relative_position_bias(embed: torch.Tensor, t: int, num_buckets: int,
+                           max_distance: int,
+                           dtype: torch.dtype) -> torch.Tensor:
+    """The shared (1, H, T, T) bias of a WavLM stack
+    (``RelativePositionBias``): the ``(num_buckets, H)`` table looked up
+    at the bucket ids, in the compute dtype as flax's ``Embed`` gives
+    it."""
+    buckets = _bucket_ids(t, num_buckets, max_distance, embed.device)
+    return embed.to(dtype)[buckets].permute(2, 0, 1)[None]
+
+
 class MultiHeadAttention(nn.Module):
     """Q/K/V projections, attention, output projection; layout (B, T, D)
     in and out, heads split to (B, H, T, dh). Self-attention under a
@@ -118,7 +169,9 @@ class MultiHeadAttention(nn.Module):
                  dtype: torch.dtype = torch.float32,
                  dropout_rate: float = 0.0, fused_attention=None,
                  bf16_softmax: bool = True, *, rpr_k: Optional[int] = None,
-                 rpr_value_on: bool = False, names: str = "fairseq"):
+                 rpr_value_on: bool = False, names: str = "fairseq",
+                 flash: bool = False, packed_qkv: bool = False,
+                 gated_rel_pos: bool = False, rel_pos_buckets: int = 0):
         super().__init__()
         if d_model % num_heads:
             raise ValueError(f"d_model {d_model} % num_heads {num_heads}")
@@ -129,16 +182,38 @@ class MultiHeadAttention(nn.Module):
         self.compute_dtype = dtype
         self.rpr_k = rpr_k
         self.rpr_value_on = rpr_value_on
+        self.flash = flash
+        self.packed_qkv = packed_qkv
+        self.gated_rel_pos = gated_rel_pos
         self.d_head = d_model // num_heads
         self.proj_names = PROJ_NAMES[names]
         for name in self.proj_names:
             self.add_module(name, Dense(d_model, d_model, dtype=dtype))
+        if gated_rel_pos:
+            # WavLM's per-layer gate (fairseq/HF names)
+            self.gru_rel_pos_linear = Dense(self.d_head, 8, dtype=dtype)
+            self.gru_rel_pos_const = nn.Parameter(
+                torch.ones(1, num_heads, 1, 1))
+        if rel_pos_buckets:
+            # the stack's shared bucket table, in layer 0 as fairseq has it
+            self.rel_attn_embed = nn.Embedding(rel_pos_buckets, num_heads)
+            nn.init.zeros_(self.rel_attn_embed.weight)
         if rpr_k is not None:
             self.rpr_key_emb = LookupTableEmbeddings(2 * rpr_k + 1,
                                                      self.d_head, dtype)
             if rpr_value_on:
                 self.rpr_value_emb = LookupTableEmbeddings(
                     2 * rpr_k + 1, self.d_head, dtype)
+
+    def init_from(self, generator: torch.Generator) -> None:
+        """The bucket table's random init (flax ``Embed``'s: normal with
+        std 1/sqrt(H)); the gate constant stays at one."""
+        if hasattr(self, "rel_attn_embed"):
+            w = self.rel_attn_embed.weight
+            with torch.no_grad():
+                w.copy_(torch.randn(w.shape, generator=generator,
+                                    device=generator.device)
+                        / math.sqrt(w.shape[1]))
 
     def projections(self):
         """The Q, K, V and output ``Dense`` modules."""
@@ -161,15 +236,50 @@ class MultiHeadAttention(nn.Module):
         return t <= BLOCK_MAX_FRAMES and self.d_head <= GATE_MAX_HEAD_DIM
 
     def block_eligible(self, t: int) -> bool:
-        """The JAX ``_block_eligible`` gate: the block is asked for, the
-        gate passes and the head dim is one the kernels take."""
-        return (self.fused_attention == "block" and self.gate(t)
+        """The JAX ``_block_eligible`` gate: the block is asked for, no
+        flash, no WavLM gate, the gate passes and the head dim is one the
+        kernels take."""
+        return (self.fused_attention == "block" and not self.flash
+                and not self.gated_rel_pos and self.gate(t)
                 and self.d_head in HEAD_DIMS)
 
     def xla_semantics(self, t: int) -> bool:
         """Whether the core computes the JAX XLA attention (every path
-        but ``fused_attention=True`` under the gate, the TPU kernel's)."""
-        return not (self.fused_attention is True and self.gate(t))
+        but ``fused_attention=True`` under the gate without flash, the
+        TPU kernel's; flash off a TPU is the XLA attention in JAX)."""
+        return not (self.fused_attention is True and not self.flash
+                    and self.gate(t))
+
+    def qkv(self, x: torch.Tensor, key: Optional[torch.Tensor] = None,
+            value: Optional[torch.Tensor] = None):
+        """Split Q, K and V heads. Under ``packed_qkv`` self-attention
+        over float weights takes one product over the concatenated
+        weights, then the concatenated bias in the compute dtype (the
+        JAX ``jnp.dot(x, w) + b``); int8 layers stay unpacked."""
+        wq, wk, wv, _ = self.projections()
+        if (self.packed_qkv and key is None and value is None
+                and wq.weight.dtype != torch.int8):
+            dt = self.compute_dtype
+            w = torch.cat([m.weight.to(dt) for m in (wq, wk, wv)])
+            b = torch.cat([m.bias.to(dt) for m in (wq, wk, wv)])
+            qkv = F.linear(x.to(dt), w) + b
+            return tuple(self._split(t) for t in qkv.chunk(3, dim=-1))
+        key = x if key is None else key
+        value = key if value is None else value
+        return self._split(wq(x)), self._split(wk(key)), self._split(wv(value))
+
+    def gate_bias(self, x: torch.Tensor,
+                  position_bias: torch.Tensor) -> torch.Tensor:
+        """WavLM's gated bias (HF ``WavLMAttention`` steps 1-4) in f32:
+        per-head slices of the attention input -> Dense(8) -> (2, 4) sums
+        -> sigmoid -> ``a * (b * const - 1) + 2`` times the bias."""
+        b, t, _ = x.shape
+        g = x.reshape(b, t, self.num_heads, self.d_head).permute(0, 2, 1, 3)
+        proj = self.gru_rel_pos_linear(g).float()
+        gates = torch.sigmoid(proj.reshape(proj.shape[:-1] + (2, 4)).sum(-1))
+        gate_a, gate_b = gates[..., :1], gates[..., 1:]
+        const = self.gru_rel_pos_const.float()
+        return (gate_a * (gate_b * const - 1.0) + 2.0) * position_bias.float()
 
     def forward(self, x: torch.Tensor,
                 key_valid: Optional[torch.Tensor] = None,
@@ -177,7 +287,8 @@ class MultiHeadAttention(nn.Module):
                 key: Optional[torch.Tensor] = None,
                 value: Optional[torch.Tensor] = None,
                 mask: Optional[torch.Tensor] = None,
-                cache: Optional[dict] = None, cache_index: int = 0):
+                cache: Optional[dict] = None, cache_index: int = 0,
+                position_bias: Optional[torch.Tensor] = None):
         """``key_valid``: optional (B, T) bool, True = attend. With a
         ``generator`` the probabilities drop out at ``dropout_rate``, one
         seed drawn per call at the point where the JAX module draws it
@@ -187,19 +298,20 @@ class MultiHeadAttention(nn.Module):
         to (B, H, T_q, T_k), True = attend) and ``cache`` (a dict with
         (B, H, T_max, dh) ``k`` and ``v``; the new rows are written at
         ``cache_index`` in place, keys past ``cache_index + T_new`` are
-        masked, and ``(out, cache)`` is returned) take the composition."""
+        masked, and ``(out, cache)`` is returned) take the composition,
+        as does a (1|B, H, T, T) ``position_bias`` (WavLM; gated by this
+        layer's gate over ``x`` when ``gated_rel_pos``)."""
         if (key is None and value is None and mask is None and cache is None
-                and self.rpr_k is None):
+                and self.rpr_k is None and position_bias is None):
             return self._self_attention(x, key_valid, generator)
         if key_valid is not None:
             kv = key_valid[:, None, None, :]
             mask = kv if mask is None else mask & kv
-        key = x if key is None else key
-        value = key if value is None else value
-        wq, wk, wv, _ = self.projections()
-        return self._composed(self._split(wq(x)), self._split(wk(key)),
-                              self._split(wv(value)), mask, generator,
-                              cache, cache_index)
+        if position_bias is not None and self.gated_rel_pos:
+            position_bias = self.gate_bias(x, position_bias)
+        q, k, v = self.qkv(x, key, value)
+        return self._composed(q, k, v, mask, generator, cache, cache_index,
+                              position_bias)
 
     def _self_attention(self, x, key_valid, generator):
         rate = self.dropout_rate if generator is not None else 0.0
@@ -214,7 +326,7 @@ class MultiHeadAttention(nn.Module):
                       for t in (m.weight, m.bias)]
             return attention_block(x.to(dt).contiguous(), *params, key_valid,
                                    self.num_heads, scale, rate, seed)
-        q, k, v = (self._split(p(x)) for p in self.projections()[:3])
+        q, k, v = self.qkv(x)
         seed = draw_seed(generator) if rate > 0.0 else 0
         out = attention_core(q, k, v, key_valid, scale, rate, seed,
                              xla=self.xla_semantics(x.shape[1]),
@@ -234,9 +346,11 @@ class MultiHeadAttention(nn.Module):
         kj = torch.arange(t_k, device=device)[None, :]
         return torch.clamp(kj - qi, -self.rpr_k, self.rpr_k) + self.rpr_k
 
-    def _composed(self, q, k, v, mask, generator, cache, cache_index):
+    def _composed(self, q, k, v, mask, generator, cache, cache_index,
+                  position_bias=None):
         """The JAX XLA attention on split heads (``__call__`` past its
-        kernel branches)."""
+        kernel branches); ``position_bias`` (f32) is added to the logits
+        in their dtype (bf16 under ``bf16_softmax``)."""
         dt = self.compute_dtype
         q = self._scaled(q)
         q_offset = 0
@@ -255,6 +369,8 @@ class MultiHeadAttention(nn.Module):
             logits = torch.matmul(q, k.transpose(-1, -2))
         else:
             logits = torch.matmul(q.float(), k.float().transpose(-1, -2))
+        if position_bias is not None:
+            logits = logits + position_bias.to(logits.dtype)
         if self.rpr_k is not None:
             rel = self.rpr_key_emb(self._rel_ids(q.shape[2], k.shape[2],
                                                  q_offset, q.device))
@@ -311,40 +427,88 @@ def ffn(x: torch.Tensor, fc1: Dense, fc2: Dense) -> torch.Tensor:
 
 
 class TransformerEncoderLayer(nn.Module):
-    """Post-norm encoder layer (wav2vec2-base):
-    ``x = LN(x + drop(attn(x))); x = LN(x + drop(ffn(x)))``; the
-    attention-probability rate defaults to ``dropout_rate``."""
+    """Encoder layer of the wav2vec2 stack. Post-norm (wav2vec2-base):
+    ``x = LN(x + drop(attn(x))); x = LN(x + drop(ffn(x)))``; pre-norm
+    (``pre_norm``, stable layer norm): ``x = x + drop(attn(LN(x))); x =
+    x + drop(ffn(LN(x)))``. The attention-probability rate defaults to
+    ``dropout_rate``. ``mask`` (broadcastable to (B, H, T, T)) and
+    ``position_bias`` take the attention's composition."""
 
     def __init__(self, num_heads: int, d_model: int, d_ff: int,
                  dtype: torch.dtype = torch.float32,
                  dropout_rate: float = 0.0,
                  attention_dropout: Optional[float] = None,
-                 fused_attention=None, bf16_softmax: bool = True):
+                 fused_attention=None, bf16_softmax: bool = True,
+                 pre_norm: bool = False, flash: bool = False,
+                 packed_qkv: bool = False, gated_rel_pos: bool = False,
+                 rel_pos_buckets: int = 0):
         super().__init__()
         self.dropout_rate = dropout_rate
+        self.pre_norm = pre_norm
         self.self_attn = MultiHeadAttention(
             num_heads, d_model, dtype,
             dropout_rate if attention_dropout is None else attention_dropout,
-            fused_attention, bf16_softmax)
+            fused_attention, bf16_softmax, flash=flash,
+            packed_qkv=packed_qkv, gated_rel_pos=gated_rel_pos,
+            rel_pos_buckets=rel_pos_buckets)
         self.self_attn_layer_norm = LayerNorm(d_model, dtype)
         self.fc1 = Dense(d_model, d_ff, dtype=dtype)
         self.fc2 = Dense(d_ff, d_model, dtype=dtype)
         self.final_layer_norm = LayerNorm(d_model, dtype)
 
+    def num_seeds(self) -> int:
+        """The seeds a training forward draws: the attention's
+        probability dropout and the two residual dropouts."""
+        return ((self.self_attn.dropout_rate > 0.0)
+                + 2 * (self.dropout_rate > 0.0))
+
     def forward(self, x: torch.Tensor,
                 key_valid: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                mask: Optional[torch.Tensor] = None,
+                position_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
         rate = self.dropout_rate
-        x = x + dropout(self.self_attn(x, key_valid, generator), rate,
-                        generator)
+
+        def attn(h):
+            return self.self_attn(h, key_valid, generator, mask=mask,
+                                  position_bias=position_bias)
+
+        if self.pre_norm:
+            x = x + dropout(attn(self.self_attn_layer_norm(x)), rate,
+                            generator)
+            return x + dropout(ffn(self.final_layer_norm(x), self.fc1,
+                                   self.fc2), rate, generator)
+        x = x + dropout(attn(x), rate, generator)
         x = self.self_attn_layer_norm(x)
         x = x + dropout(ffn(x, self.fc1, self.fc2), rate, generator)
         return self.final_layer_norm(x)
 
 
+def run_layers(layers, x, generator, layer_drop: float, **kwargs):
+    """The layers in order, under LayerDrop in training: every layer's
+    keep decision is drawn before the first layer, as the JAX stack
+    splits its key (``jax.random.bernoulli`` with ``1 - layer_drop``); a
+    dropped layer is skipped (JAX computes it and selects its input), but
+    the seeds it would have drawn are drawn and discarded, so every later
+    draw is the one JAX makes (``ops.hashrand.SeedReplay`` lines up)."""
+    keeps = None
+    if generator is not None and layer_drop > 0.0:
+        keeps = [draw_keep(generator, 1.0 - layer_drop) for _ in layers]
+    for i, layer in enumerate(layers):
+        if keeps is not None and not keeps[i]:
+            for _ in range(layer.num_seeds()):
+                draw_seed(generator)
+            continue
+        x = layer(x, generator=generator, **kwargs)
+    return x
+
+
 class TransformerEncoderStack(nn.Module):
-    """``num_layers`` post-norm layers in ``self.layers``. LayerDrop is
-    not ported yet: ``layer_drop > 0`` raises in training."""
+    """``num_layers`` encoder layers in ``self.layers`` (post- or
+    pre-norm; the pre-norm stack's final norm belongs to its owner, the
+    fairseq ``encoder.layer_norm``), with LayerDrop in training
+    (:func:`run_layers`) and, under ``gated_rel_pos``, WavLM's shared
+    bucketed position bias from layer 0's table."""
 
     def __init__(self, num_heads: int, d_model: int, num_layers: int,
                  d_ff: Optional[int] = None,
@@ -352,25 +516,37 @@ class TransformerEncoderStack(nn.Module):
                  dropout_rate: float = 0.0,
                  attention_dropout: Optional[float] = None,
                  layer_drop: float = 0.0, fused_attention=None,
-                 bf16_softmax: bool = True):
+                 bf16_softmax: bool = True, pre_norm: bool = False,
+                 flash: bool = False, packed_qkv: bool = False,
+                 gated_rel_pos: bool = False, rel_pos_buckets: int = 320,
+                 rel_pos_max_distance: int = 800):
         super().__init__()
         d_ff = d_ff or 4 * d_model
         self.layer_drop = layer_drop
+        self.compute_dtype = dtype
+        self.gated_rel_pos = gated_rel_pos
+        self.rel_pos_buckets = rel_pos_buckets
+        self.rel_pos_max_distance = rel_pos_max_distance
         self.layers = nn.ModuleList(
-            TransformerEncoderLayer(num_heads, d_model, d_ff, dtype,
-                                    dropout_rate, attention_dropout,
-                                    fused_attention, bf16_softmax)
-            for _ in range(num_layers))
+            TransformerEncoderLayer(
+                num_heads, d_model, d_ff, dtype, dropout_rate,
+                attention_dropout, fused_attention, bf16_softmax, pre_norm,
+                flash, packed_qkv, gated_rel_pos,
+                rel_pos_buckets if gated_rel_pos and i == 0 else 0)
+            for i in range(num_layers))
 
     def forward(self, x: torch.Tensor,
                 key_valid: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        if generator is not None and self.layer_drop > 0.0:
-            raise NotImplementedError(
-                "layer_drop > 0 is not ported yet (ROADMAP.md)")
-        for layer in self.layers:
-            x = layer(x, key_valid, generator)
-        return x
+                generator: Optional[torch.Generator] = None,
+                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        bias = None
+        if self.gated_rel_pos:
+            bias = relative_position_bias(
+                self.layers[0].self_attn.rel_attn_embed.weight, x.shape[1],
+                self.rel_pos_buckets, self.rel_pos_max_distance,
+                self.compute_dtype)
+        return run_layers(self.layers, x, generator, self.layer_drop,
+                          key_valid=key_valid, mask=mask, position_bias=bias)
 
 
 class FFN(nn.Module):

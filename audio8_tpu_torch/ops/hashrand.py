@@ -76,15 +76,28 @@ class SeedReplay:
     """A seed source that hands out given seeds in order, in place of a
     ``torch.Generator``: the seam through which a run is fed the seeds
     another implementation drew (the tests hold the port's dropout to the
-    JAX package's this way). ``remaining`` counts the seeds not drawn."""
+    JAX package's this way), and LayerDrop's keep decisions (``keeps``)
+    likewise. ``remaining`` counts the seeds not drawn, ``keeps_left``
+    the decisions."""
 
-    def __init__(self, seeds):
+    def __init__(self, seeds, keeps=()):
         self._seeds = [int(s) & MASK32 for s in seeds]
+        self._keeps = [bool(k) for k in keeps]
         self.device = torch.device("cpu")
 
     @property
     def remaining(self) -> int:
         return len(self._seeds)
+
+    @property
+    def keeps_left(self) -> int:
+        return len(self._keeps)
+
+    def next_keep(self) -> bool:
+        if not self._keeps:
+            raise RuntimeError("SeedReplay: more keep decisions drawn than "
+                               "given")
+        return self._keeps.pop(0)
 
     def next_seed(self) -> int:
         if not self._seeds:
@@ -100,3 +113,12 @@ def draw_seed(generator) -> int:
         return generator.next_seed()
     return int(torch.randint(0, 2 ** 32, (), generator=generator,
                              device=generator.device))
+
+
+def draw_keep(generator, keep_prob: float) -> bool:
+    """A Bernoulli(``keep_prob``) decision from ``generator`` (LayerDrop's
+    per-layer keep), or the next given one of a :class:`SeedReplay`."""
+    if isinstance(generator, SeedReplay):
+        return generator.next_keep()
+    return bool(torch.rand((), generator=generator, device=generator.device)
+                < keep_prob)

@@ -5,8 +5,9 @@ Drives the port's serving path, its CTC fine-tuning path, its
 contrastive pretraining path, its seq2seq path and its paired audio-text
 path at full wav2vec2-base width with seeded random weights, the
 pretraining path again through the attention block
-(``fused_attention="block"``), and holds every hand-written kernel
-against its plain PyTorch version. Phases, each printing JSON lines:
+(``fused_attention="block"``), the public large layouts (LV-60, HuBERT,
+data2vec, WavLM, conformer) and HuggingFace checkpoints, and holds every
+hand-written kernel against its plain PyTorch version. Phases, each printing JSON lines:
 
 1. build    - compile the CUDA kernels from ``audio8_tpu_torch/csrc``,
               with each kernel's registers and spills from ptxas;
@@ -184,6 +185,40 @@ timing phase's profiler traces come back empty more often and the phase
 longer (PERF.md §6). ``--inference-first`` runs them after restart_test
 instead, to compare.
 
+16. topologies - each large public layout (``large-lv60``,
+              ``hubert-large``, ``data2vec-large``, ``wavlm-large``,
+              ``conformer-large-rope``, ``conformer-large-rel``: 24 layers
+              of 1024, 16 heads, 4096) with seeded weights: one (4, 30 s)
+              dispatch in f32 and in bf16 (CUDA-event ms), the card
+              against the CPU on (1, 4 s) (f32 log-probs within
+              MODEL_TOL), layer 0's first bf16 FFN ``Dense`` held to the
+              CPU's two roundings; the core (kernel 2) runs in the
+              transformer layouts and none in WavLM's and the
+              conformer's (their attention is the composition, as JAX
+              takes XLA); kernels 2 and 3 against their plain versions at
+              every shape the dispatches gave them (16 heads);
+    hf_golden - the seven HF golden fixtures of ``tests/fixtures/
+              hf_golden`` written as ``save_pretrained`` directories
+              (config.json and a ``model.safetensors`` written here),
+              loaded through ``models/convert_hf.py:load_hf_dir`` onto the
+              card: log-probs within 1e-3 of the ones ``transformers``
+              computed; then ``cli.transcribe --checkpoint <dir>
+              --dict_file vocab.json`` on the stable-LN one, card and CPU
+              transcripts equal;
+    lv60_train - ``cli.pretrain --preset large-lv60`` for 2 steps (conv
+              bias and layer-mode norms through kernels 3b and 3c), then
+              ``cli.train --preset large-lv60 --layer_drop 0.1
+              --restart_from`` its ``.pt`` for 4 steps in f32 and in bf16,
+              one unfrozen step card vs CPU (``lv60_vs_cpu``, the
+              train_vs_cpu gates, LayerDrop off), and kernels 1, 2, 2b,
+              3, 3b, 3c, 4 and 5 against their plain versions at every
+              shape those runs gave them;
+    lv60_block - pretraining steps of the LV-60 model through the
+              attention block (``fused_attention="block"``, d_model 1024,
+              pre-norm: 24 block forwards and backwards a step, no core
+              launch), then the block against its plain versions at those
+              shapes in f32 and bf16;
+
 then a ``phase_seconds`` line (each phase's wall seconds and each phase's
 retried profiler traces, ``trace_retries``), a ``kernels``
 line, the card's name and power limit from nvidia-smi,
@@ -198,6 +233,7 @@ card it exits with code 2 and prints no result.
     python3 chip_smoke.py --freeze-timing  # frozen steps, two ways
     python3 chip_smoke.py --inference-first  # the full run, phases 15
                                              # before the timing phase
+    python3 chip_smoke.py --topology-phases  # the build and phase 16 only
 
 ``--block-timing`` builds the block's two sources and prints only the
 attention block's timing rows (phase 14) in float32 and bfloat16, then
@@ -1621,10 +1657,13 @@ def phase_train(tmp: str, seed: int) -> dict:
     return launches
 
 
-def phase_train_vs_cpu(seed: int) -> None:
+def phase_train_vs_cpu(seed: int, phase: str = "train_vs_cpu",
+                       **over) -> None:
     """One unfrozen step, extractor included (``freeze_fx`` off: the conv
     backward kernels), on the card and on the CPU from the same weights
-    (dropout and masking off): loss and gradient norm."""
+    (dropout and masking off): loss and gradient norm. ``over``: config
+    fields of another model (phase ``lv60_vs_cpu``: the LV-60 layout at
+    full width)."""
     from audio8_tpu_torch.models.wav2vec2 import Wav2Vec2AcousticModel
     from audio8_tpu_torch.train.optim import (TrainState, create_lrs,
                                               create_optimizer)
@@ -1632,7 +1671,7 @@ def phase_train_vs_cpu(seed: int) -> None:
     from audio8_tpu_torch.utils import Offsets
 
     Offsets.remap_fairseq_ctc()
-    cfg = base_config(4 + len(LETTERS), dropout=0.0, freeze_fx=False)
+    cfg = base_config(4 + len(LETTERS), dropout=0.0, freeze_fx=False, **over)
     cpu = Wav2Vec2AcousticModel(cfg, generator=torch.Generator().manual_seed(
         seed + 3))
     gpu = Wav2Vec2AcousticModel(cfg).cuda()
@@ -1662,12 +1701,14 @@ def phase_train_vs_cpu(seed: int) -> None:
         out[name] = (float(loss), float(gnorm))
     (l_g, n_g), (l_c, n_c) = out["cuda"], out["cpu"]
     l_rel, n_rel = abs(l_g - l_c) / abs(l_c), abs(n_g - n_c) / abs(n_c)
-    emit({"phase": "train_vs_cpu", "rows_s": (lengths / SR).tolist(),
-          "loss": [l_g, l_c], "gnorm": [n_g, n_c], "loss_rel_err": l_rel,
-          "loss_rtol": TRAIN_LOSS_RTOL, "gnorm_rel_err": n_rel,
-          "gnorm_rtol": TRAIN_GNORM_RTOL})
-    check(l_rel <= TRAIN_LOSS_RTOL, f"train step loss card vs CPU {l_rel}")
-    check(n_rel <= TRAIN_GNORM_RTOL, f"train step gnorm card vs CPU {n_rel}")
+    emit({"phase": phase, "rows_s": (lengths / SR).tolist(),
+          "config": over, "loss": [l_g, l_c], "gnorm": [n_g, n_c],
+          "loss_rel_err": l_rel, "loss_rtol": TRAIN_LOSS_RTOL,
+          "gnorm_rel_err": n_rel, "gnorm_rtol": TRAIN_GNORM_RTOL})
+    check(l_rel <= TRAIN_LOSS_RTOL,
+          f"{phase}: step loss card vs CPU {l_rel}")
+    check(n_rel <= TRAIN_GNORM_RTOL,
+          f"{phase}: step gnorm card vs CPU {n_rel}")
 
 
 def write_pretrain_corpus(root: str, seed: int) -> None:
@@ -3730,6 +3771,510 @@ def phase_inference(tmp: str, f32_texts: list, worst: dict, gen) -> dict:
     return launches
 
 
+# ------------------------------------------------ the public topologies
+
+# the large presets of the public encoder families (cli/common.py:
+# MODEL_PRESETS), at full width: 24 layers of 1024, 16 heads, 4096
+LARGE_PRESETS = ("large-lv60", "hubert-large", "data2vec-large",
+                 "wavlm-large", "conformer-large-rope", "conformer-large-rel")
+TOPO_PATH = ("conv_k3s2_fwd", "attention_fwd")
+TOPO_LENGTHS = [30 * SR, 24 * SR, 11 * SR, 4 * SR]  # one (4, 30 s) dispatch
+LV60_PRETRAIN_FLAGS = ["--preset", "large-lv60", "--tokens_per_batch",
+                       "700000", "--max_sample_len", "250000",
+                       "--train_steps", "2", "--steps_per_checkpoint", "2",
+                       "--warmup_steps", "1", "--num_train_workers", "4"]
+LV60_TRAIN_FLAGS = ["--preset", "large-lv60", "--layer_drop", "0.1",
+                    "--target_tokens_per_batch", "700000", "--grad_accum",
+                    "1", "--train_steps", "4", "--unfreeze_enc_after_step",
+                    "1", "--warmup_steps", "2", "--valid_steps", "1"]
+LV60_PATH = ("conv_k3s2_fwd", "conv_k3s2_dgrad", "conv_k3s2_wgrad",
+             "attention_fwd", "attention_bwd", "ctc_loss", "dropout",
+             "adamw")
+LV60_BLOCK_STEPS = 2
+LV60_SIZE = dict(d_model=1024, d_ff=4096, num_heads=16, num_layers=24,
+                 pre_norm=True, extractor_mode="layer", conv_bias=True)
+
+
+TOPOLOGY_PHASES = ("topologies", "hf_golden", "lv60_train", "lv60_block")
+
+
+def topology_phases(tmp: str, worst: dict, gen) -> dict:
+    """This slice's phases in order (``tmp`` holds the train and
+    pretrain phases' corpora); each kernel's largest error merged into
+    ``worst``. Returns each phase's launch counts."""
+    out = {}
+    with timed("topologies"):
+        out["topologies"], errs = phase_topologies(SEED, gen)
+        merge_worst(worst, errs)
+    torch.cuda.empty_cache()
+    with timed("hf_golden"):
+        out["hf_golden"] = phase_hf_golden(tmp)
+    torch.cuda.empty_cache()
+    with timed("lv60_train"):
+        out["lv60_train"], errs, batches = phase_lv60_train(tmp, SEED, gen)
+        merge_worst(worst, errs)
+    torch.cuda.empty_cache()
+    with timed("lv60_block"):
+        out["lv60_block"], errs = phase_lv60_block(tmp, batches, SEED, gen)
+        merge_worst(worst, errs)
+    torch.cuda.empty_cache()
+    return out
+
+
+def topology_timing(gen) -> int:
+    """The build and this slice's phases alone on fresh corpora
+    (``--topology-phases``), then the phase seconds and the card."""
+    with timed("build"):
+        phase_build()
+    worst = {k: 0.0 for k in REPLACES}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, write in (("corpus", write_corpus),
+                            ("pretrain_corpus", write_pretrain_corpus)):
+            os.makedirs(os.path.join(tmp, name))
+            write(os.path.join(tmp, name), SEED)
+        launches = topology_phases(tmp, worst, gen)
+    emit({"phase": "phase_seconds", **PHASE_SECONDS})
+    emit({"phase": "topology_phases", "launches": launches,
+          "max_abs_err": worst})
+    print_card()
+    return 0
+
+
+def merge_worst(worst: dict, errs: dict) -> None:
+    """Keep each kernel's largest max error."""
+    for k, e in errs.items():
+        worst[k] = max(worst[k], e)
+
+
+def card_name() -> str:
+    """The card's name and power limit, as nvidia-smi prints them."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    return smi.stdout.strip().splitlines()[0]
+
+
+def event_ms(fn, calls: int = 2) -> float:
+    """Mean CUDA-event ms of ``calls`` calls after one warm-up call."""
+    fn()
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    e0.record()
+    for _ in range(calls):
+        fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / calls
+
+
+def preset_config(preset: str, num_labels: int, **over):
+    """The acoustic config of a ``MODEL_PRESETS`` entry (evaluation:
+    dropout and masking off unless ``over`` says otherwise)."""
+    from audio8_tpu_torch.cli.common import (_PRESET_BASE_DEFAULTS,
+                                             MODEL_PRESETS)
+
+    kw = {k: MODEL_PRESETS[preset].get(k, v)
+          for k, v in _PRESET_BASE_DEFAULTS.items() if k != "final_dim"}
+    kw.update(dropout=0.0)
+    kw.update(over)
+    return base_config(num_labels, **kw)
+
+
+def first_dense(model):
+    """The first FFN ``Dense`` of the encoder's layer 0."""
+    layer = model.encoder.encoder.layers[0]
+    return layer.ffn1.intermediate_dense if hasattr(layer, "ffn1") \
+        else layer.fc1
+
+
+def check_recorded_fwd(phase: str, shapes: dict, gen) -> dict:
+    """Kernels 3 and 2 against their plain versions at every forward
+    shape a run gave them, f32 and bf16; returns the f32 max errors."""
+    worst = {k: 0.0 for k in TOPO_PATH}
+    for dtype in (torch.float32, torch.bfloat16):
+        for x_shape, w_shape in shapes["conv"]:
+            e = check_conv_fwd(phase, x_shape, w_shape, dtype, gen)
+            if dtype == torch.float32:
+                worst["conv_k3s2_fwd"] = max(worst["conv_k3s2_fwd"], e)
+        for shape, sem, _, lengths, rate in shapes["attention"]:
+            e = check_attn_fwd(phase, shape, lengths, rate, sem, dtype, gen)
+            if dtype == torch.float32:
+                worst["attention_fwd"] = max(worst["attention_fwd"], e)
+            torch.cuda.empty_cache()
+    return worst
+
+
+def phase_topologies(seed: int, gen) -> tuple:
+    """Each large preset at full width with seeded weights: one (4, 30 s)
+    dispatch in f32 and in bf16 (event ms), the card against the CPU on
+    (1, 4 s) at the same weights (f32 log-probs within MODEL_TOL), and
+    layer 0's first FFN ``Dense`` in bf16 held to the CPU's order.
+    Attention runs the core (kernel 2) in the transformer layouts and the
+    composition in WavLM's and the conformer's, as JAX takes XLA there.
+    Returns the launch counts, the recorded forward shapes' max errors
+    and the shapes."""
+    from audio8_tpu_torch.models.wav2vec2 import Wav2Vec2AcousticModel
+
+    rng = np.random.default_rng(seed + 13)
+    sig = torch.zeros(CHUNK_BATCH, TOPO_LENGTHS[0])
+    for i, n in enumerate(TOPO_LENGTHS):
+        sig[i, :n] = torch.from_numpy(synthetic_speechlike(n / SR, rng))
+    lens = torch.tensor(TOPO_LENGTHS)
+    small = torch.from_numpy(synthetic_speechlike(4.0, rng))[None]
+    small_len = torch.tensor([4 * SR])
+    sig, lens_c = sig.cuda(), lens.cuda()
+    card = card_name()
+    total = {k: 0 for k in TOPO_PATH}
+    calls = {}
+    with recorded_path_calls(calls):
+        for preset in LARGE_PRESETS:
+            cfg = preset_config(preset, 4 + len(LETTERS))
+            cpu = Wav2Vec2AcousticModel(
+                cfg, generator=torch.Generator().manual_seed(seed + 13))
+            state = cpu.state_dict()
+            gpu = Wav2Vec2AcousticModel(cfg).cuda().eval()
+            gpu.load_state_dict(state)
+            bf16 = Wav2Vec2AcousticModel(cfg, torch.bfloat16).cuda().eval()
+            bf16.load_state_dict(state)
+            reset_launches()
+            ms, outs = {}, {}
+            with torch.inference_mode():
+                for name, m in (("f32", gpu), ("bf16", bf16)):
+                    outs[name] = m(sig, lens_c)[0]
+                    ms[name] = event_ms(lambda m=m: m(sig, lens_c))
+                lp_gpu, _ = gpu(small.cuda(), small_len.cuda())
+                torch.cuda.synchronize()
+            launches = {k: n for k, n in read_launches().items()
+                        if k in TOPO_PATH}
+            with torch.inference_mode():
+                lp_cpu, _ = cpu(small, small_len)
+            err = (lp_gpu.cpu() - lp_cpu).abs().max().item()
+            agree = (lp_gpu.cpu().argmax(-1) == lp_cpu.argmax(-1)).float(
+            ).mean().item()
+            composed = cfg.gated_rel_pos or cfg.encoder_type == "conformer"
+            emit({"phase": "topologies", "preset": preset,
+                  "params": sum(p.numel() for p in cpu.parameters()),
+                  "dispatch": [CHUNK_BATCH, TOPO_LENGTHS[0]],
+                  "lengths": TOPO_LENGTHS, "event_ms": ms, "card": card,
+                  "attention": "composition" if composed else "core",
+                  "launches": launches, "vs_cpu": [1, 4 * SR],
+                  "max_abs_err": err, "tol": MODEL_TOL,
+                  "argmax_agreement": agree,
+                  "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9})
+            for name, lp in outs.items():
+                check(bool(torch.isfinite(lp).all()),
+                      f"{preset} {name}: non-finite log-probs")
+            check(err <= MODEL_TOL, f"{preset} card vs CPU {err} > "
+                  f"{MODEL_TOL}")
+            check(launches["conv_k3s2_fwd"] > 0,
+                  f"{preset}: the conv forward was not launched")
+            check((launches["attention_fwd"] == 0) == composed,
+                  f"{preset}: attention core launches {launches}")
+            check_dense_bf16("topologies", f"{preset} layers.0 ffn",
+                             first_dense(bf16), 4 * 1499, gen)
+            for k, n in launches.items():
+                total[k] += n
+            del cpu, gpu, bf16, outs, state
+            torch.cuda.empty_cache()
+    shapes = path_shapes(calls)
+    emit({"phase": "topologies_kernel",
+          "conv_inputs": [list(x) for x, _ in shapes["conv"]],
+          "attention": [[list(s), lens] for s, _, _, lens, _
+                        in shapes["attention"]]})
+    check(any(s[1] == 16 for s, *_ in shapes["attention"]),
+          "no 16-head attention call recorded")
+    worst = check_recorded_fwd("topologies_kernel", shapes, gen)
+    return total, worst
+
+
+def npz_hf_dir(npz: str, directory: str) -> tuple:
+    """A golden fixture as a ``save_pretrained`` directory: config.json
+    and ``model.safetensors`` (an 8-byte header length, the JSON header,
+    the raw little-endian bytes). Returns (input, log-probs, config)."""
+    blob = np.load(npz)
+    os.makedirs(directory, exist_ok=True)
+    config = json.loads(bytes(blob["__config_json__"]).decode("utf-8"))
+    with open(os.path.join(directory, "config.json"), "w") as f:
+        json.dump(config, f)
+    header, raw = {}, []
+    for key in (k for k in blob.files if k.startswith("state::")):
+        a = np.ascontiguousarray(blob[key], dtype="<f4")
+        start = sum(len(r) for r in raw)
+        raw.append(a.tobytes())
+        header[key[len("state::"):]] = {
+            "dtype": "F32", "shape": list(a.shape),
+            "data_offsets": [start, start + len(raw[-1])]}
+    text = json.dumps(header).encode()
+    with open(os.path.join(directory, "model.safetensors"), "wb") as f:
+        f.write(len(text).to_bytes(8, "little") + text + b"".join(raw))
+    return blob["__input__"], blob["__log_probs__"], config
+
+
+HF_TOL = 1e-3  # the card's log-probs against transformers' (f32, CPU)
+HF_TRANSCRIBE = "wav2vec2_stable_ln"
+
+
+def phase_hf_golden(tmp: str) -> dict:
+    """The seven committed HF golden fixtures written as
+    ``save_pretrained`` directories, loaded through ``load_hf_dir`` onto
+    the card: log-probs within HF_TOL of the ones ``transformers``
+    computed; then ``cli.transcribe --checkpoint <dir> --dict_file
+    vocab.json --device cuda`` on the stable-LN one (its 2-layer tiny
+    extractor given to the CLI's config), whose transcript must be the
+    CLI's own on the CPU, and not empty. Returns the launch counts."""
+    import functools
+
+    from scipy.io import wavfile
+
+    from audio8_tpu_torch.cli import transcribe
+    from audio8_tpu_torch.models.convert_hf import (acoustic_config_from_hf,
+                                                    load_hf_dir)
+    from audio8_tpu_torch.models.wav2vec2 import Wav2Vec2AcousticModel
+    from audio8_tpu_torch.utils import Offsets
+
+    fixtures = os.path.join(HERE, "tests", "fixtures", "hf_golden")
+    reset_launches()
+    errs = {}
+    for name in sorted(f[:-4] for f in os.listdir(fixtures)
+                       if f.endswith(".npz")):
+        d = os.path.join(tmp, "hf", name)
+        x, want, _ = npz_hf_dir(os.path.join(fixtures, name + ".npz"), d)
+        state, report = load_hf_dir(d, ctc="auto")
+        check(report["missing"] == [] and report["unexpected"] == [],
+              f"{name}: {report['missing'][:3]} {report['unexpected'][:3]}")
+        model = Wav2Vec2AcousticModel(acoustic_config_from_hf(
+            report["hf_config"], report["topology"])).cuda().eval()
+        model.load_state_dict(state, strict=True)
+        with torch.inference_mode():
+            lp, _ = model(torch.from_numpy(x).cuda())
+        errs[name] = float(np.abs(lp.cpu().numpy() - want).max())
+        check(errs[name] <= HF_TOL, f"{name}: card vs transformers "
+              f"{errs[name]} > {HF_TOL}")
+    d = os.path.join(tmp, "hf", HF_TRANSCRIBE)
+    x, _, config = npz_hf_dir(os.path.join(fixtures, HF_TRANSCRIBE + ".npz"),
+                              d)
+    vocab = ["<pad>", "<s>", "</s>", "<unk>", "|"] + list(
+        "ETAONIHSRDL")[:config["vocab_size"] - 5]
+    with open(os.path.join(d, "vocab.json"), "w") as f:
+        json.dump({t: i for i, t in enumerate(vocab)}, f)
+    wav = os.path.join(tmp, "hf", "clip.wav")
+    wavfile.write(wav, SR, (np.clip(x[0], -1, 1) * 32767).astype(np.int16))
+    conv = tuple(zip(config["conv_dim"], config["conv_kernel"],
+                     config["conv_stride"]))
+    flags = ["--d_model", str(config["hidden_size"]), "--num_heads",
+             str(config["num_attention_heads"]), "--num_layers",
+             str(config["num_hidden_layers"]), "--d_ff",
+             str(config["intermediate_size"]), "--pre_norm", "true",
+             "--extractor_mode", "layer", "--conv_bias", "true"]
+    real = transcribe.AcousticConfig
+    transcribe.AcousticConfig = functools.partial(
+        real, custom_conv_features=conv)
+    saved = (Offsets.PAD, Offsets.GO, Offsets.EOS, Offsets.UNK,
+             list(Offsets.VALUES))
+    texts = {}
+    try:
+        for device in ("cuda", "cpu"):
+            with contextlib.redirect_stdout(io.StringIO()):
+                texts[device] = transcribe.main([
+                    "--checkpoint", d, "--dict_file",
+                    os.path.join(d, "vocab.json"), "--device", device,
+                    *flags, wav])[0][1]
+    finally:
+        transcribe.AcousticConfig = real
+        Offsets.PAD, Offsets.GO, Offsets.EOS, Offsets.UNK = saved[:4]
+        Offsets.VALUES[:] = saved[4]
+    launches = read_launches()
+    emit({"phase": "hf_golden", "families": errs, "tol": HF_TOL,
+          "transcribe": {"checkpoint": HF_TRANSCRIBE, **texts},
+          "launches": {k: launches[k] for k in TOPO_PATH}})
+    check(texts["cuda"] == texts["cpu"] and texts["cuda"],
+          f"transcribe on the HF dir: card {texts['cuda']!r}, CPU "
+          f"{texts['cpu']!r}")
+    for k in TOPO_PATH:
+        check(launches[k] > 0, f"hf_golden: {k} was not launched")
+    return {k: launches[k] for k in TOPO_PATH}
+
+
+@contextlib.contextmanager
+def recorded_ctc_calls(calls: list):
+    """Every CTC loss the CTC steps take, noted as (log-probs shape, input
+    lengths, target lengths)."""
+    import audio8_tpu_torch.train.steps as steps
+
+    real = steps.ctc_loss
+
+    def ctc(lp, il, tg, tl, **kw):
+        calls.append((tuple(lp.shape), il.tolist(), tl.tolist()))
+        return real(lp, il, tg, tl, **kw)
+
+    steps.ctc_loss = ctc
+    try:
+        yield calls
+    finally:
+        steps.ctc_loss = real
+
+
+def phase_lv60_train(tmp: str, seed: int, gen) -> tuple:
+    """``cli.pretrain --preset large-lv60`` for 2 steps (the conv bias and
+    the layer-mode norms through kernels 3b and 3c), then ``cli.train
+    --preset large-lv60 --layer_drop 0.1 --restart_from`` its ``.pt`` for
+    4 steps in f32 and in bf16; one unfrozen step card vs CPU at the same
+    weights (``layer_drop`` 0, the train_vs_cpu gates); kernels 1, 2,
+    2b, 3, 3b, 3c, 4 and 5 against their plain versions at every shape
+    the runs gave them. Returns the launch counts, the max errors and the
+    pretraining batches' (rows, samples)."""
+    from audio8_tpu_torch.cli import pretrain
+    from audio8_tpu_torch.cli.train import train
+
+    card = card_name()
+    pre_calls, calls, ctc_calls = {}, {}, []
+    run = os.path.join(tmp, "lv60_pretrain")
+    argv = ["--manifest_dir", os.path.join(tmp, "pretrain_corpus"),
+            "--basedir", run, "--device", "cuda", *LV60_PRETRAIN_FLAGS]
+    reset_launches()
+    with recorded_path_calls(pre_calls):
+        state = pretrain.train(argv)
+    pre_launches = read_launches()
+    log = state.log
+    check(state.step == 2 and all(math.isfinite(r["loss"]) for r in log),
+          f"lv60 pretrain: {[r['loss'] for r in log]}")
+    for k in ("conv_k3s2_dgrad", "conv_k3s2_wgrad"):
+        check(pre_launches[k] > 0, f"lv60 pretrain: {k} not launched")
+    batches = sorted({(r["rows"], r["samples"]) for r in log})
+    emit({"phase": "lv60_train", "run": "pretrain", "card": card,
+          "flags": LV60_PRETRAIN_FLAGS,
+          "params": sum(p.numel() for p in state.params),
+          "step_seconds": [r["seconds"] for r in log],
+          "rows": [r["rows"] for r in log],
+          "samples": [r["samples"] for r in log],
+          "losses": [r["loss"] for r in log],
+          "launches": {k: pre_launches[k] for k in PRETRAIN_PATH}})
+    ckpt = os.path.join(run, "checkpoint-step-1.pt")
+    check(os.path.exists(ckpt), f"lv60 pretrain wrote {os.listdir(run)}")
+    del state
+    torch.cuda.empty_cache()
+    corpus = os.path.join(tmp, "corpus")
+    train_launches = {k: 0 for k in LV60_PATH}
+    with recorded_path_calls(calls), recorded_ctc_calls(ctc_calls):
+        for dtype_flag in ([], ["--bf16"]):
+            reset_launches()
+            state = train(["--root_dir", corpus, "--train_dataset",
+                           "train.tsv", "--valid_dataset", "valid.tsv",
+                           "--basedir", os.path.join(tmp, "lv60_run" + (
+                               "_bf16" if dtype_flag else "")),
+                           "--device", "cuda", "--restart_from", ckpt,
+                           *LV60_TRAIN_FLAGS, *dtype_flag])
+            launches = read_launches()
+            log = state.log
+            check(state.step == 4 and all(math.isfinite(r["loss"])
+                                          for r in log),
+                  f"lv60 train {dtype_flag}: {[r['loss'] for r in log]}")
+            emit({"phase": "lv60_train", "run": "train" + (
+                      "_bf16" if dtype_flag else ""), "card": card,
+                  "flags": LV60_TRAIN_FLAGS + dtype_flag,
+                  "step_seconds": [r["seconds"] for r in log],
+                  "frozen": [r["frozen"] for r in log],
+                  "losses": [r["loss"] for r in log],
+                  "launches": {k: launches[k] for k in LV60_PATH},
+                  "peak_memory_gb":
+                      torch.cuda.max_memory_allocated() / 1e9})
+            for k in LV60_PATH:
+                if k not in ("conv_k3s2_dgrad", "conv_k3s2_wgrad"):
+                    check(launches[k] > 0, f"lv60 train: {k} not launched")
+                train_launches[k] += launches[k]
+            params = [tuple(p.shape) for p in state.params]
+            del state
+            torch.cuda.empty_cache()
+    for k in ("conv_k3s2_dgrad", "conv_k3s2_wgrad"):
+        train_launches[k] += pre_launches[k]
+    phase_train_vs_cpu(seed, phase="lv60_vs_cpu", **LV60_SIZE)
+    for k in ("conv", "attention", "dropout"):
+        calls[k] += pre_calls[k]
+    shapes = path_shapes(calls)
+    worst = phase_path_kernels("lv60_train", shapes, params, gen)
+    worst.update({"ctc_loss": 0.0, "conv_k3s2_dgrad": 0.0,
+                  "conv_k3s2_wgrad": 0.0})
+    for shape, il, tl in sorted(set((s, tuple(i), tuple(t))
+                                    for s, i, t in ctc_calls)):
+        worst["ctc_loss"] = max(worst["ctc_loss"], check_ctc(
+            "lv60_train_kernel", shape, list(il), list(tl), gen))
+    for dtype in (torch.float32, torch.bfloat16):
+        for x_shape, w_shape in path_shapes(pre_calls)["conv"]:
+            errs = check_conv_bwd("lv60_train_kernel", x_shape[0],
+                                  x_shape[1], w_shape[1], w_shape[2], dtype,
+                                  gen)
+            if dtype == torch.float32:
+                for k, e in errs.items():
+                    worst[k] = max(worst[k], e)
+        torch.cuda.empty_cache()
+    return train_launches, worst, batches
+
+
+def phase_lv60_block(tmp: str, batches, seed: int, gen) -> tuple:
+    """The attention block (kernels 6 and 6b) at d_model 1024 under
+    pre-norm: ``make_pretrain_steps`` with ``fused_attention="block"`` on
+    the LV-60 pretraining model from the lv60 run's ``.pt`` at its
+    batches' shapes (24 block forwards and backwards per step, no core
+    launch; step ms), then the block against its plain versions at those
+    shapes, f32 and bf16. Returns the launch counts and max errors."""
+    from audio8_tpu_torch.config import PretrainConfig
+    from audio8_tpu_torch.models.convert import load_fairseq_pretrained
+    from audio8_tpu_torch.models.wav2vec2 import PretrainSeeds, Wav2Vec2Model
+    from audio8_tpu_torch.train.optim import (TrainState, create_lrs,
+                                              create_optimizer)
+    from audio8_tpu_torch.train.steps import make_pretrain_steps
+
+    weights = load_fairseq_pretrained(os.path.join(
+        tmp, "lv60_pretrain", "checkpoint-step-1.pt"))
+    cfg = PretrainConfig(final_dim=weights["final_proj.weight"].shape[0],
+                         num_vq_vars=weights["quantizer.vars"].shape[0] // 2,
+                         fused_attention="block", **LV60_SIZE)
+    model = Wav2Vec2Model(cfg).cuda()
+    model.load_state_dict(weights)
+    state = TrainState(model, create_optimizer(create_lrs(
+        2e-4, 100, "constant", warmup_steps=0), weight_decay=0.01))
+    train_step = make_pretrain_steps(model)[0]
+    rng = np.random.default_rng(seed + 14)
+    cpu_gen = torch.Generator().manual_seed(seed + 14)
+    reset_launches()
+    ms = []
+    for rows, n in batches * LV60_BLOCK_STEPS:
+        x = torch.from_numpy(np.stack([synthetic_speechlike(
+            (n + 1) / SR, rng)[:n] for _ in range(rows)])).cuda()
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        _, m = train_step(state, x, PretrainSeeds.draw(cpu_gen), cpu_gen)
+        e1.record()
+        torch.cuda.synchronize()
+        ms.append(e0.elapsed_time(e1))
+        check(math.isfinite(float(m["loss"])), "lv60 block: non-finite loss")
+    launches = read_launches()
+    steps = len(batches) * LV60_BLOCK_STEPS
+    layers = cfg.num_layers
+    check(launches["attention_block"] == layers * steps
+          and launches["attention_block_bwd"] == layers * steps
+          and launches["attention_fwd"] == 0,
+          f"lv60 block launches {launches} over {steps} steps")
+    del state, model, train_step
+    torch.cuda.empty_cache()
+    worst = {"attention_block": 0.0, "attention_block_bwd": 0.0}
+    for rows, n in batches:
+        frames = pretrain_path_shapes(rows, n)[1]
+        for dtype in (torch.float32, torch.bfloat16):
+            f, b = check_block("lv60_block", rows, frames, 1024, 16, None,
+                               dtype, gen)
+            if dtype == torch.float32:
+                worst["attention_block"] = max(worst["attention_block"], f)
+                worst["attention_block_bwd"] = max(
+                    worst["attention_block_bwd"], b)
+            torch.cuda.empty_cache()
+    emit({"phase": "lv60_block", "card": card_name(),
+          "config": "large-lv60 d1024 h16 L24 ff4096, pre-norm, "
+          "fused_attention='block', f32",
+          "batches": [list(b) for b in batches], "step_event_ms": ms,
+          "launches": {k: launches[k] for k in BLOCK_PATH}})
+    return {k: launches[k] for k in BLOCK_PATH}, worst
+
+
 @contextlib.contextmanager
 def cuda_profiled():
     """torch.profiler over CUDA activity, warmed up before the block: a
@@ -4509,10 +5054,7 @@ PATH_OF = {"attention_block": "pretrain_block",
 
 
 def print_card() -> None:
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    print(card_name(), flush=True)
 
 
 def block_timing(gen) -> int:
@@ -4881,6 +5423,8 @@ def main(argv=None) -> int:
         return test_timing()
     if argv == ["--freeze-timing"]:
         return freeze_timing()
+    if argv == ["--topology-phases"]:
+        return topology_timing(gen)
     inference_first = argv == ["--inference-first"]
     if argv and not inference_first:
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
@@ -4965,6 +5509,8 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         if not inference_first:
             infer_launches = phase_inference(tmp, f32_texts, worst, gen)
+        torch.cuda.empty_cache()
+        topo_launches = topology_phases(tmp, worst, gen)
     emit({"phase": "phase_seconds", **PHASE_SECONDS,
           "inference_first": inference_first,
           "trace_retries": {str(k): n for k, n in TRACE_RETRIES.items()},
@@ -5037,6 +5583,8 @@ def main(argv=None) -> int:
          "paired_launches": paired_launches.get(name, 0),
          **{f"{p}_launches": infer_launches[p].get(name, 0)
             for p in INFER_PHASES},
+         **{f"{p}_launches": topo_launches[p].get(name, 0)
+            for p in TOPOLOGY_PHASES},
          "max_abs_err": worst[name],
          **{k: times[(name, torch.float32)][k] for k in keys},
          **extra(name)}

@@ -2,8 +2,10 @@
 pretrained ``.pt`` becomes the port's ``{output}-step-0.pt`` with every
 weight equal, which the JAX package's ``load_fairseq_bin`` reads with no
 key missing or unexpected; a source key with no place in the model, or a
-model key the source lacks, raises as the JAX converter does; HF input
-raises naming its ROADMAP.md item."""
+model key the source lacks, raises as the JAX converter does. An HF
+``save_pretrained`` directory converts into the weights JAX's
+``load_hf_dir`` reads from it, or raises as JAX does when the model
+kind asked for is not the directory's."""
 import os
 
 import pytest
@@ -72,9 +74,43 @@ def test_unmapped_keys_raise(tmp_path, edit):
                                  "--num_labels", "12", *FLAGS])
 
 
-def test_hf_input_raises_naming_its_item(tmp_path):
-    (tmp_path / "config.json").write_text("{}")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        convert_checkpoint.main(["--input", str(tmp_path), "--output",
+@pytest.mark.parametrize("family", ["wav2vec2_stable_ln", "wavlm",
+                                    "conformer_relative"])
+def test_hf_input_converts_as_in_jax(tmp_path, family):
+    """Sizes and topology from the HF config, whatever the flags say; the
+    written ``.pt`` holds JAX's weights and reads back in JAX with the
+    topology's converter."""
+    import jax
+    import numpy as np
+
+    from audio8_tpu.models.convert_hf import load_hf_dir as jax_load_hf_dir
+    from audio8_tpu_torch.models.convert import params_from_jax
+    from tests.test_torch_hf import unpack_fixture
+
+    d, _, _ = unpack_fixture(family, tmp_path / "hf")
+    out = convert_checkpoint.main(["--input", d, "--output",
+                                   str(tmp_path / "c"), "--ctc", "true",
+                                   *FLAGS])
+    got = load_fairseq_ctc(out)
+    jparams, report = jax_load_hf_dir(d, ctc=True)
+    want = params_from_jax(jax.tree.map(np.asarray, jparams))
+    assert set(got) == set(want)
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+    topo = report["topology"]
+    _, back = load_fairseq_bin(out, ctc=True, num_layers=2, **topo)
+    assert back["missing"] == [] and back["unexpected"] == []
+
+
+def test_hf_input_of_the_wrong_kind_raises(tmp_path):
+    """A ForCTC directory read as a pretrained model leaves its head
+    unmapped: both converters raise and nothing is written."""
+    from audio8_tpu.models.convert_hf import load_hf_dir as jax_load_hf_dir
+    from tests.test_torch_hf import unpack_fixture
+
+    d, _, _ = unpack_fixture("wav2vec2", tmp_path / "hf")
+    assert jax_load_hf_dir(d, ctc=False)[1]["unexpected"]
+    with pytest.raises(ValueError, match="Unmapped checkpoint keys"):
+        convert_checkpoint.main(["--input", d, "--output",
                                  str(tmp_path / "c")])
     assert not os.path.exists(str(tmp_path / "c-step-0.pt"))

@@ -3,9 +3,9 @@ pooled encoder (the JAX package's checkpoint, and the same weights as
 the port's paired ``.pt``), ``mean`` pooling over batches padded to
 whole seconds: the vectors within 1e-4 of JAX's, unit norms
 within 1e-4, the ``.tsv`` rows equal and the ``--trials`` EER equal. The
-port's paired ``.pt`` gives its audio tower and a fairseq pretrained
-``.pt`` its encoder; ``--exported`` and a
-HuggingFace directory raise naming their ROADMAP items."""
+port's paired ``.pt`` gives its audio tower, and a fairseq pretrained
+``.pt`` and an HF ``save_pretrained`` directory their encoders;
+``--exported`` raises naming its ROADMAP item."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -136,10 +136,19 @@ def test_unported_sources_raise(tmp_path, corpus):
     base = ["--root_dir", str(corpus), "--device", "cpu"]
     with pytest.raises(NotImplementedError, match="item 6"):
         embed.parse_args(base + ["--exported", "art", "--checkpoint", "c"])
-    hf = tmp_path / "hf"
-    hf.mkdir()
-    (hf / "config.json").write_text("{}")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        embed.main(base + ["--checkpoint", str(hf), "--d_model", "32",
-                           "--num_heads", "2", "--num_layers", "1",
-                           "--d_ff", "64"])
+
+
+def test_hf_directory_gives_its_encoder(tmp_path):
+    """A ForCTC HF directory (HuBERT's) fills the pooled encoder's
+    ``encoder`` with its own encoder, the head dropped."""
+    from audio8_tpu_torch.models.convert_hf import load_hf_dir
+    from tests.test_torch_hf import unpack_fixture
+
+    d, _, _ = unpack_fixture("hubert", tmp_path / "hf")
+    pooled = Wav2Vec2PooledEncoder(PooledConfig(
+        reduction_type="mean", d_model=64, num_heads=4, num_layers=2,
+        d_ff=128, custom_conv_features=((32, 10, 5), (32, 3, 2))))
+    embed.load_pooled_weights(d, pooled)
+    state, _ = load_hf_dir(d, ctc=True)
+    for k, v in pooled.encoder.state_dict().items():
+        assert torch.equal(v, state["encoder." + k]), k

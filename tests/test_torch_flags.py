@@ -13,7 +13,9 @@
   ``--timestamps`` and ``--quantize`` (and ``cli.transcribe`` ``--vad``),
   ``cli.test`` ``--quantize``; ``--exported`` raises everywhere (item 6,
   export); every trainer takes ``--restart_from``, and the paired
-  trainer refuses ``--warmstart_text`` (item 10).
+  trainer refuses ``--warmstart_text`` (item 10). The trainers take
+  ``--layer_drop`` and every entry point every topology flag and
+  preset; MoE (item 8) still raises.
 * A value the port can run runs: dropout flags at inference, the LM
   weights without an LM, the MoE and transducer sizes without MoE or a
   transducer, the topology flags at the port's own topology.
@@ -23,8 +25,7 @@ import importlib
 
 import pytest
 
-from audio8_tpu_torch.cli.common import (TRAINING_ENTRIES, check_ported,
-                                        encoder_kwargs)
+from audio8_tpu_torch.cli.common import check_ported, encoder_kwargs
 from audio8_tpu_torch.config import AcousticConfig
 from audio8_tpu_torch.models.wav2vec2 import check_supported
 from tests.test_torch_threads import cap_torch_threads
@@ -33,6 +34,7 @@ cap_torch_threads()
 
 ENTRY_POINTS = ("train", "pretrain", "train_seq2seq", "pretrain_paired",
                 "transcribe", "serve", "test")
+TRAINING_ENTRIES = ENTRY_POINTS[:4]
 # the arguments each port entry point needs to parse at all
 NEEDED = {"train": [], "pretrain": ["--manifest_dir", "m"],
           "train_seq2seq": [], "pretrain_paired": [],
@@ -101,16 +103,8 @@ def parse_and_check(entry, extra):
     ("train", ["--fsdp", "true"], "item 8"),
     ("train", ["--moe_experts", "4"], "item 8"),
     ("train", ["--remat", "true"], "item 4"),
-    ("train", ["--layer_drop", "0.1"], "item 4"),
     ("train", ["--noise_manifest", "n.tsv"], "item 4"),
     ("train", ["--distributed", "true"], "item 3"),
-    ("train", ["--pre_norm", "true"], "item 7"),
-    ("train", ["--preset", "large-lv60"], "item 7"),
-    ("train", ["--causal_chunk_frames", "16"], "item 7"),
-    ("pretrain", ["--encoder_type", "conformer"], "item 7"),
-    ("pretrain", ["--preset", "wavlm-base"], "item 7"),
-    ("pretrain", ["--extractor_mode", "layer"], "item 7"),
-    ("pretrain", ["--pos_conv_depth", "5"], "item 7"),
     ("pretrain", ["--sequence_parallel", "true"], "item 8"),
     ("transcribe", ["--exported", "artifact"], "item 6"),
     ("transcribe", ["--device_beam", "true"], "item 7"),
@@ -119,24 +113,19 @@ def parse_and_check(entry, extra):
     ("serve", ["--exported", "artifact"], "item 6"),
     ("serve", ["--device_beam", "true"], "item 7"),
     ("embed", ["--exported", "artifact"], "item 6"),
-    ("embed", ["--preset", "wavlm-base"], "item 7"),
     ("test", ["--exported", "artifact"], "item 6"),
     ("test", ["--transducer", "true"], "item 7"),
     ("test", ["--device_beam", "true"], "item 7"),
     ("test", ["--lm_rescore", "lm_dir"], "item 7"),
     ("test", ["--tensor_parallel", "2"], "item 8"),
     ("serve", ["--zero1", "true"], "item 8"),
-    ("serve", ["--conv_bias", "true"], "item 7"),
     ("train_seq2seq", ["--distributed", "true"], "item 3"),
     ("train_seq2seq", ["--noise_manifest", "n.tsv"], "item 4"),
-    ("train_seq2seq", ["--layer_drop", "0.1"], "item 4"),
     ("train_seq2seq", ["--fsdp", "true"], "item 8"),
-    ("train_seq2seq", ["--preset", "wavlm-base"], "item 7"),
     ("pretrain_paired", ["--warmstart_text", "tlm.npz"], "item 10"),
     ("pretrain_paired", ["--distributed", "true"], "item 3"),
     ("pretrain_paired", ["--remat", "true"], "item 4"),
     ("pretrain_paired", ["--moe_experts", "4"], "item 8"),
-    ("pretrain_paired", ["--extractor_mode", "layer"], "item 7"),
 ])
 def test_unported_values_raise_naming_their_item(entry, extra, item):
     with pytest.raises(NotImplementedError, match=item):
@@ -164,11 +153,25 @@ def test_unported_values_raise_naming_their_item(entry, extra, item):
                        "--restart_tt", "ignore", "--freeze_fx", "false"]),
     ("pretrain_paired", ["--restart_from", "run", "--target_type", "bpe",
                          "--learn_temp", "false", "--stacking_layers", "8"]),
+    ("train", ["--layer_drop", "0.1"]),
+    ("train", ["--pre_norm", "true"]),
+    ("train", ["--preset", "large-lv60"]),
+    ("train", ["--causal_chunk_frames", "16"]),
+    ("pretrain", ["--encoder_type", "conformer"]),
+    ("pretrain", ["--preset", "wavlm-base"]),
+    ("pretrain", ["--extractor_mode", "layer"]),
+    ("pretrain", ["--pos_conv_depth", "5"]),
+    ("embed", ["--preset", "wavlm-base"]),
+    ("serve", ["--conv_bias", "true"]),
+    ("train_seq2seq", ["--layer_drop", "0.1"]),
+    ("train_seq2seq", ["--preset", "wavlm-base"]),
+    ("pretrain_paired", ["--extractor_mode", "layer"]),
 ])
 def test_ported_values_pass(entry, extra):
     """Values an entry point has ported pass its check (they raised
     before: the trainer's beam and LM flags, ``--restart_from``, the
-    decoders' beam, LM, timestamps, VAD and int8)."""
+    decoders' beam, LM, timestamps, VAD and int8; then LayerDrop in the
+    trainers and every topology flag and preset but MoE)."""
     args = parse_and_check(entry, extra)
     assert all(getattr(args, a[2:]) is not None for a in extra
                if a.startswith("--"))

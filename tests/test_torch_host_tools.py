@@ -186,6 +186,6 @@ def test_inspect_reads_the_port_checkpoints(tmp_path):
     s = inspect_checkpoint.main([path, "--json"])
     assert s["format"] == "audio8_tpu_torch paired .pt" and s["step"] == 7
     assert s["total_params"] == 6 and s["optimizer_state"]
-    (tmp_path / "hf").mkdir()
-    with pytest.raises(NotImplementedError, match="item 7"):
+    (tmp_path / "hf").mkdir()  # neither an HF directory nor a run
+    with pytest.raises(SystemExit, match="not a recognizable"):
         inspect_checkpoint.main([str(tmp_path / "hf")])

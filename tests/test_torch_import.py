@@ -1,6 +1,7 @@
-"""The PyTorch port imports with jax, flax and the JAX package itself
-unavailable (the card's machine has no jax, and the port keeps its own
-copies of the host code it needs); no source of the port or of
+"""The PyTorch port imports with jax, flax, the JAX package itself,
+``safetensors`` and ``transformers`` unavailable (the card's machine has
+none of them, and the port keeps its own copies of the host code it
+needs and reads safetensors files itself); no source of the port or of
 ``chip_smoke.py`` imports any of them; and the entry points run on the
 card by default, raising on a machine without one rather than falling
 back to the CPU."""
@@ -47,18 +48,22 @@ def test_every_module_imports_with_jax_blocked():
                 "models.seq2seq", "models.dual_encoder", "ops.quant",
                 "ops.align", "ops.vad", "ops.ngram", "cli.embed",
                 "cli.manifest", "cli.train_ngram", "cli.average_checkpoints",
-                "cli.inspect_checkpoint"):
+                "cli.inspect_checkpoint", "models.convert_hf",
+                "nn.conformer"):
         assert f"audio8_tpu_torch.{new}" in mods
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
         "sys.modules['flax'] = None\n"
         "sys.modules['audio8_tpu'] = None\n"
+        "sys.modules['safetensors'] = None\n"
+        "sys.modules['transformers'] = None\n"
         "import importlib\n"
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
         "assert not any(k == 'jax' or k.startswith(('jax.', 'flax'))\n"
         "               or k == 'audio8_tpu' or k.startswith('audio8_tpu.')\n"
+        "               or k.startswith(('safetensors', 'transformers'))\n"
         "               for k, v in sys.modules.items() if v is not None)\n"
         "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -68,17 +73,19 @@ def test_every_module_imports_with_jax_blocked():
 
 
 def test_no_source_imports_jax():
-    offenders = []
+    """Nor ``safetensors`` or ``transformers``, which the card's machine
+    lacks too."""
+    paths = [os.path.join(ROOT, "chip_smoke.py")]
     for dirpath, _, files in os.walk(PKG_DIR):
-        for name in files:
-            if name.endswith(".py"):
-                path = os.path.join(dirpath, name)
-                with open(path) as f:
-                    for line in f:
-                        s = line.strip()
-                        if s.startswith(("import jax", "from jax",
-                                         "import flax", "from flax")):
-                            offenders.append(path)
+        paths += [os.path.join(dirpath, f) for f in files
+                  if f.endswith(".py")]
+    banned = tuple(f"{kw} {mod}" for kw in ("import", "from")
+                   for mod in ("jax", "flax", "safetensors", "transformers"))
+    offenders = []
+    for path in paths:
+        with open(path) as f:
+            offenders += [path for line in f
+                          if line.strip().startswith(banned)]
     assert offenders == []
 
 

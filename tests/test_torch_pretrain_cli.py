@@ -95,19 +95,29 @@ def test_pretrain_with_bucketing(corpus, tmp_path):
         <= {(2, 8000, 1.0), (1, 12000, 0.75)}
 
 
-@pytest.mark.parametrize("flag", [["--extractor_mode", "layer"],
-                                  ["--distributed", "true"],
+@pytest.mark.parametrize("flag", [["--distributed", "true"],
                                   ["--tensor_parallel", "2"],
                                   ["--zero1", "true"], ["--fsdp", "true"],
                                   ["--sequence_parallel", "true"],
                                   ["--profile_dir", "p"],
                                   ["--optim", "sgd"],
-                                  ["--layer_drop", "0.1"],
                                   ["--remat", "true"],
                                   ["--moe_experts", "4"]])
 def test_unported_flags_raise(corpus, tmp_path, flag):
     with pytest.raises(NotImplementedError):
         pretrain.train(_args(corpus, str(tmp_path / "r"), steps=1) + flag)
+
+
+@pytest.mark.parametrize("flag", [["--extractor_mode", "layer",
+                                   "--conv_bias", "true"],
+                                  ["--layer_drop", "0.5"]])
+def test_ported_flags_pretrain(corpus, tmp_path, flag):
+    """The layer-norm extractor with conv bias and LayerDrop, which
+    raised before this slice, pretrain."""
+    state = pretrain.train(_args(corpus, str(tmp_path / "r"), steps=2)
+                           + flag)
+    assert state.step == 2
+    assert all(np.isfinite(r["loss"]) for r in state.log)
 
 
 def test_final_dim_follows_the_preset():

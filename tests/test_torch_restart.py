@@ -9,8 +9,11 @@ on the CPU.
   pretrained ``.pt`` whole; a ``.pt`` starts at step 0; a directory
   picks its latest ``checkpoint-step-N.pt`` and starts at N, as JAX's
   ``find_latest_checkpoint`` and ``parse_checkpoint_step`` read the same
-  names, or at 0 under ``--restart_tt ignore``; an HF directory raises
-  naming its ROADMAP.md item.
+  names, or at 0 under ``--restart_tt ignore``; an HF
+  ``save_pretrained`` directory warm-starts at step 0 with JAX's
+  weights (a ForCTC directory fills the CTC model, or the pretraining
+  model with its encoder) and a topology that is not the model's raises
+  ``ValueError`` in both packages.
 * The resume file's round trip through the run's directory is bitwise
   (weights, AdamW moments, step count); a resume file of another kind or
   shape restores nothing, and a ``.pt`` named directly is a warm start
@@ -166,11 +169,48 @@ def test_directory_picks_the_latest_step(tmp_path, restart_tt):
         assert torch.equal(v, want[k]), k
 
 
-def test_hf_directory_raises_naming_its_item(tmp_path):
-    (tmp_path / "config.json").write_text("{}")
-    state = _state(Wav2Vec2AcousticModel(AcousticConfig(**CTC_CFG)))
-    with pytest.raises(NotImplementedError, match="item 7"):
-        resolve_restart(str(tmp_path), state, ctc=True)
+HF_TOPOLOGY = dict(pre_norm=True, extractor_mode="layer", conv_bias=True)
+HF_CFG = dict(CTC_CFG, num_labels=16, d_ff=128)
+
+
+@pytest.mark.parametrize("ctc,topology", [
+    (True, HF_TOPOLOGY), (False, HF_TOPOLOGY),
+    (True, dict(HF_TOPOLOGY, pre_norm=False))])
+def test_hf_directory_loads_as_in_jax(tmp_path, ctc, topology):
+    """The stable-LN golden fixture (a ``Wav2Vec2ForCTC`` directory)."""
+    from tests.test_torch_hf import unpack_fixture
+
+    d, _, _ = unpack_fixture("wav2vec2_stable_ln", tmp_path / "hf")
+    if ctc:
+        jmodel = JaxModel(config=JaxConfig(**HF_CFG, **topology))
+        init = jmodel.init(jax.random.PRNGKey(0),
+                           jnp.zeros((1, 4000)))["params"]
+        model = Wav2Vec2AcousticModel(AcousticConfig(**HF_CFG, **topology))
+    else:
+        kw = dict(PRE_CFG, d_ff=128, **topology)
+        rngs = {k: jax.random.PRNGKey(i) for i, k in
+                enumerate(("params", "mask", "gumbel", "dropout"))}
+        init = JaxPretrainModel(config=JaxPretrainConfig(**kw)).init(
+            rngs, jnp.zeros((2, 4000)), train=True)["params"]
+        model = Wav2Vec2Model(PretrainConfig(**kw))
+    init = jax.tree.map(np.asarray, init)
+    model.load_state_dict(params_from_jax(init), strict=True)
+    state = _state(model)
+    if not topology["pre_norm"]:
+        with pytest.raises(ValueError, match="topology"):
+            jax_resolve_restart(d, init, ctc=ctc, num_layers=2, **topology)
+        with pytest.raises(ValueError, match="topology"):
+            resolve_restart(d, state, ctc=ctc)
+        return
+    want, _, jstep = jax_resolve_restart(d, init, ctc=ctc, num_layers=2,
+                                         **topology)
+    want = params_from_jax(jax.tree.map(np.asarray, want))
+    assert resolve_restart(d, state, ctc=ctc) == jstep == 0
+    assert state.step == state.opt_state.count == 0
+    got = state.model.state_dict()
+    assert set(got) == set(want)
+    for k in got:
+        assert torch.equal(got[k], want[k]), k
 
 
 def _trained_state(seed):

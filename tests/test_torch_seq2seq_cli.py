@@ -83,9 +83,16 @@ def test_default_device_is_the_card(corpus, tmp_path):
 @pytest.mark.parametrize("flag,value,item", [
     ("--distributed", "true", "item 3"),
     ("--speed_perturb", "0.9", "item 4"),
-    ("--layer_drop", "0.1", "item 4"),
     ("--tensor_parallel", "2", "item 8"),
 ])
 def test_unported_flags_raise(corpus, tmp_path, flag, value, item):
     with pytest.raises(NotImplementedError, match=item):
         s2s_cli.train(_args(corpus, str(tmp_path / "r")) + [flag, value])
+
+
+def test_layer_drop_trains(corpus, tmp_path):
+    """``--layer_drop``, which raised before this slice, trains."""
+    state = s2s_cli.train(_args(corpus, str(tmp_path / "r"), steps="2")
+                          + ["--layer_drop", "0.5"])
+    assert state.step == 2
+    assert all(np.isfinite(r["loss"]) for r in state.log)

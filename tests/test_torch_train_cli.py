@@ -3,8 +3,9 @@ takes 3 optimizer steps on a tiny synthetic corpus (frozen, then
 unfrozen; time masking and dropout on), validates, writes a
 fairseq-layout checkpoint, and ``cli.transcribe --device cpu`` reads it
 back; with ``--freeze_fx false`` the unfrozen steps train the feature
-extractor too. Flags of parts not ported yet raise (``--restart_from`` is
-ported and tested in ``tests/test_torch_restart.py``)."""
+extractor too; ``--layer_drop`` and the topology flags train. Flags of
+parts not ported yet raise (``--restart_from`` is ported and tested in
+``tests/test_torch_restart.py``)."""
 import os
 
 import numpy as np
@@ -119,8 +120,19 @@ def test_unfrozen_extractor_trains(corpus, tmp_path):
 @pytest.mark.parametrize("flag", [["--noise_manifest", "n.tsv"],
                                   ["--speed_perturb", "0.9", "1.1"],
                                   ["--tensor_parallel", "2"],
-                                  ["--layer_drop", "0.1"],
                                   ["--optim", "sgd"]])
 def test_unported_flags_raise(corpus, tmp_path, flag):
     with pytest.raises(NotImplementedError):
         train_cli.train(_train_args(corpus, str(tmp_path / "r")) + flag)
+
+
+@pytest.mark.parametrize("flag", [["--layer_drop", "0.5"],
+                                  ["--extractor_mode", "layer",
+                                   "--pre_norm", "true"]])
+def test_ported_flags_train(corpus, tmp_path, flag):
+    """Flags that raised before the topologies and LayerDrop were ported
+    train (their values against JAX: ``test_torch_topologies.py`` and
+    ``test_torch_layer_drop.py``)."""
+    state = train_cli.train(_train_args(corpus, str(tmp_path / "r")) + flag)
+    assert state.step == 3
+    assert all(np.isfinite(r["loss"]) for r in state.log)

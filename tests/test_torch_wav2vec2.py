@@ -127,11 +127,25 @@ def test_seeded_init_is_reproducible():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("pre_norm", True), ("extractor_mode", "layer"), ("conv_bias", True),
-    ("pos_conv_depth", 5), ("gated_rel_pos", True),
-    ("encoder_type", "conformer"), ("causal_chunk_frames", 8),
-    ("moe_experts", 4), ("packed_qkv", True), ("flash_attention", True),
-    ("fused_attention", "flash")])
+    ("moe_experts", 4), ("fused_attention", "flash")])
 def test_unported_features_raise(field, value):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Wav2Vec2AcousticModel(dataclasses.replace(CFG, **{field: value}))
+
+
+@pytest.mark.parametrize("field,value", [
+    ("pre_norm", True), ("extractor_mode", "layer"), ("conv_bias", True),
+    ("pos_conv_depth", 5), ("gated_rel_pos", True),
+    ("encoder_type", "conformer"), ("causal_chunk_frames", 8),
+    ("packed_qkv", True), ("flash_attention", True)])
+def test_ported_features_build_and_run(field, value):
+    """The topologies that raised before this slice build and give
+    finite log-probs of the right shape (their values against JAX:
+    ``test_torch_topologies.py``)."""
+    model = Wav2Vec2AcousticModel(dataclasses.replace(CFG, **{field: value}),
+                                  generator=torch.Generator().manual_seed(0))
+    x, lengths = _batch()
+    with torch.inference_mode():
+        lp, mask = model(torch.from_numpy(x), torch.from_numpy(lengths))
+    assert lp.shape[:2] == mask.shape and lp.shape[2] == CFG.num_labels
+    assert torch.isfinite(lp).all()
