@@ -308,16 +308,21 @@ def _fairseq_weights(path: str, model: torch.nn.Module,
     return loaded
 
 
-_TOPOLOGY_DEFAULTS = dict(pre_norm=False, extractor_mode="group",
-                          conv_bias=False, pos_conv_depth=1,
-                          gated_rel_pos=False, encoder_type="transformer",
-                          position_embeddings_type="relative")
+TOPOLOGY_FIELDS = ("pre_norm", "extractor_mode", "conv_bias",
+                   "pos_conv_depth", "gated_rel_pos", "encoder_type",
+                   "position_embeddings_type")
 
 
 def canonical_topology(d) -> Dict:
     """The parameter-placement topology fields of a dict (missing ones at
-    their defaults), as the JAX ``canonical_topology`` compares them."""
-    return {k: d.get(k, v) for k, v in _TOPOLOGY_DEFAULTS.items()}
+    ``EncoderConfig``'s defaults), as the JAX ``canonical_topology``
+    compares them."""
+    import dataclasses
+
+    from audio8_tpu_torch.config import EncoderConfig
+
+    default = {f.name: f.default for f in dataclasses.fields(EncoderConfig)}
+    return {k: d.get(k, default[k]) for k in TOPOLOGY_FIELDS}
 
 
 def _hf_weights(path: str, model: torch.nn.Module,

@@ -26,7 +26,6 @@ import os
 import struct
 from typing import Any, Dict, List, Tuple
 
-import numpy as np
 import torch
 
 from audio8_tpu_torch.config import CONV_FEATURES, AcousticConfig
@@ -68,22 +67,31 @@ _OPTIONAL_HEADS = ("quantizer", "project_q", "final_proj")
 
 def read_safetensors(path: str) -> Dict[str, torch.Tensor]:
     """A ``.safetensors`` file's tensors (CPU, in the file's dtypes); the
-    header's ``__metadata__`` entry is skipped."""
+    header's ``__metadata__`` entry is skipped. The file is read into one
+    buffer and the tensors are views of it, so the host holds the
+    checkpoint once; a tensor whose offset is not a multiple of its item
+    size gets its own aligned copy."""
+    buf = bytearray(os.path.getsize(path))
     with open(path, "rb") as f:
-        blob = f.read()
-    (n,) = struct.unpack("<Q", blob[:8])
-    header = json.loads(blob[8:8 + n].decode("utf-8"))
-    data = memoryview(blob)[8 + n:]
+        f.readinto(buf)
+    (n,) = struct.unpack("<Q", buf[:8])
+    header = json.loads(buf[8:8 + n].decode("utf-8"))
     out = {}
     for name, info in header.items():
         if name == "__metadata__":
             continue
         start, end = info["data_offsets"]
         dtype = SAFETENSORS_DTYPES[info["dtype"]]
-        if end > start:
-            t = torch.frombuffer(bytearray(data[start:end]), dtype=dtype)
-        else:
+        offset, size = 8 + n + start, end - start
+        item = torch.empty((), dtype=dtype).element_size()
+        if size == 0:
             t = torch.empty(0, dtype=dtype)
+        elif offset % item:
+            t = torch.frombuffer(bytearray(buf[offset:offset + size]),
+                                 dtype=dtype)
+        else:
+            t = torch.frombuffer(buf, dtype=dtype, offset=offset,
+                                 count=size // item)
         out[name] = t.reshape(info["shape"])
     return out
 

@@ -54,8 +54,8 @@ from audio8_tpu_torch.nn.layers import (Conv1D, Dense, GroupNorm, LayerNorm,
                                         PositionalConv, StackedPositionalConv,
                                         gelu)
 from audio8_tpu_torch.nn.pooling import Reduction
-from audio8_tpu_torch.nn.transformer import (TransformerEncoderStack,
-                                             run_layers)
+from audio8_tpu_torch.nn.transformer import (TransformerEncoderLayer,
+                                             run_layers, wavlm_position_bias)
 from audio8_tpu_torch.ops.hashrand import (draw_seed, hash_gumbel,
                                            hash_randint)
 from audio8_tpu_torch.ops.masks import (compact_mask_indices, num_spans,
@@ -156,7 +156,7 @@ def causal_chunk_mask(t: int, chunk: int, left_chunks: int,
     return ok[None, None]
 
 
-class AudioTransformerEncoder(TransformerEncoderStack):
+class AudioTransformerEncoder(nn.Module):
     """Positional embedding + transformer or conformer layers (fairseq
     ``TransformerEncoder``: ``pos_conv``, ``layer_norm``, ``layers.{i}``).
 
@@ -165,39 +165,45 @@ class AudioTransformerEncoder(TransformerEncoderStack):
     then ``layer_norm`` (fairseq's ``encoder.layer_norm`` sits after the
     stack). ``pos_conv`` is the weight-normed conv (``pos_conv.0``) or
     data2vec's stack (``pos_conv_depth > 1``, ``pos_conv.{i}.0``); the
-    conformer has none: dropout, blocks, ``layer_norm``. Causal chunks
-    (``causal_chunk_frames``) AND a block-causal (1, 1, T, T) mask into
-    the key mask, which sends attention to the composition."""
+    conformer has none: dropout, blocks, ``layer_norm``. The layers run
+    under LayerDrop in training (:func:`run_layers`); under
+    ``gated_rel_pos`` they share WavLM's bucketed position bias from
+    layer 0's table. Causal chunks (``causal_chunk_frames``) AND a
+    block-causal (1, 1, T, T) mask into the key mask, which sends
+    attention to the composition."""
 
     def __init__(self, cfg: EncoderConfig, dtype: torch.dtype = torch.float32):
-        conformer = cfg.encoder_type == "conformer"
-        super().__init__(cfg.num_heads, cfg.d_model,
-                         0 if conformer else cfg.num_layers, cfg.d_ff, dtype,
-                         cfg.dropout, cfg.attention_dropout, cfg.layer_drop,
-                         cfg.fused_attention, cfg.bf16_softmax, cfg.pre_norm,
-                         cfg.flash_attention, cfg.packed_qkv,
-                         cfg.gated_rel_pos, cfg.rel_pos_buckets,
-                         cfg.rel_pos_max_distance)
+        super().__init__()
         self.config = cfg
-        self.dropout_rate = cfg.dropout
-        if conformer:
+        self.compute_dtype = dtype
+        d_ff = cfg.d_ff or 4 * cfg.d_model
+        if cfg.encoder_type == "conformer":
             self.layers = nn.ModuleList(
-                ConformerBlock(cfg.num_heads, cfg.d_model,
-                               cfg.d_ff or 4 * cfg.d_model,
+                ConformerBlock(cfg.num_heads, cfg.d_model, d_ff,
                                cfg.position_embeddings_type, cfg.rotary_base,
                                cfg.conv_depthwise_kernel_size,
                                cfg.conformer_activation, cfg.dropout,
                                cfg.attention_dropout, cfg.bf16_softmax,
                                dtype)
                 for _ in range(cfg.num_layers))
-        elif cfg.pos_conv_depth > 1:
-            self.pos_conv = StackedPositionalConv(
-                cfg.d_model, cfg.pos_conv_depth, cfg.conv_pos_kernel,
-                cfg.conv_pos_groups, dtype)
         else:
-            self.pos_conv = nn.Sequential(PositionalConv(
-                cfg.d_model, cfg.conv_pos_kernel, cfg.conv_pos_groups,
-                dtype=dtype))
+            self.layers = nn.ModuleList(
+                TransformerEncoderLayer(
+                    cfg.num_heads, cfg.d_model, d_ff, dtype, cfg.dropout,
+                    cfg.attention_dropout, cfg.fused_attention,
+                    cfg.bf16_softmax, cfg.pre_norm, cfg.flash_attention,
+                    cfg.gated_rel_pos,
+                    cfg.rel_pos_buckets if cfg.gated_rel_pos and i == 0
+                    else 0)
+                for i in range(cfg.num_layers))
+            if cfg.pos_conv_depth > 1:
+                self.pos_conv = StackedPositionalConv(
+                    cfg.d_model, cfg.pos_conv_depth, cfg.conv_pos_kernel,
+                    cfg.conv_pos_groups, dtype)
+            else:
+                self.pos_conv = nn.Sequential(PositionalConv(
+                    cfg.d_model, cfg.conv_pos_kernel, cfg.conv_pos_groups,
+                    dtype=dtype))
         self.layer_norm = LayerNorm(cfg.d_model, dtype)
 
     def forward(self, x: torch.Tensor,
@@ -215,18 +221,25 @@ class AudioTransformerEncoder(TransformerEncoderStack):
             mask = causal_chunk_mask(x.shape[1], cfg.causal_chunk_frames,
                                      cfg.causal_left_chunks, x.device)
         if cfg.encoder_type == "conformer":
-            x = dropout(x, self.dropout_rate, generator)
+            x = dropout(x, cfg.dropout, generator)
             if pad_mask is not None:
                 kv = pad_mask[:, None, None, :]
                 mask = kv if mask is None else mask & kv
-            x = run_layers(self.layers, x, generator, self.layer_drop,
+            x = run_layers(self.layers, x, generator, cfg.layer_drop,
                            mask=mask)
             return self.layer_norm(x)
         x = x + self.pos_conv(x)
         if not cfg.pre_norm:
             x = self.layer_norm(x)
-        x = dropout(x, self.dropout_rate, generator)
-        x = super().forward(x, pad_mask, generator, mask)
+        x = dropout(x, cfg.dropout, generator)
+        bias = None
+        if cfg.gated_rel_pos:
+            bias = wavlm_position_bias(self.layers, x.shape[1],
+                                       cfg.rel_pos_buckets,
+                                       cfg.rel_pos_max_distance,
+                                       self.compute_dtype)
+        x = run_layers(self.layers, x, generator, cfg.layer_drop,
+                       key_valid=pad_mask, mask=mask, position_bias=bias)
         return self.layer_norm(x) if cfg.pre_norm else x
 
 

@@ -105,11 +105,15 @@ def _device_table(kind: str, t: int, dim: int, base: float,
                   device: torch.device, dtype: torch.dtype):
     """A positional table on ``device`` in ``dtype``, built once per
     length (a constant of the shape, as under JAX's jit): ``"rotary"``
-    gives (cos, sin), ``"relative"`` the XL sinusoid table."""
-    if kind == "rotary":
-        return tuple(torch.from_numpy(a).to(device, dtype)
-                     for a in rotary_tables(t, dim, base))
-    return torch.from_numpy(relative_sinusoid_table(t, dim)).to(device, dtype)
+    gives (cos, sin), ``"relative"`` the XL sinusoid table. Built
+    outside inference mode, so a training forward may save it for
+    backward whichever call built it."""
+    with torch.inference_mode(False):
+        if kind == "rotary":
+            return tuple(torch.from_numpy(a).to(device, dtype)
+                         for a in rotary_tables(t, dim, base))
+        return torch.from_numpy(relative_sinusoid_table(t, dim)).to(device,
+                                                                    dtype)
 
 
 class ConformerAttention(nn.Module):

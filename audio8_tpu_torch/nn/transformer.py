@@ -48,9 +48,10 @@ prefix; the text encoder and the decoder stacks keep the JAX tree's
 ``ffn.{expand,contract}``, ``ln_*``). The wav2vec2 stack is post-norm or
 pre-norm (stable layer norm, its final norm after the layers), with
 WavLM's gated relative position bias (:func:`relative_position_bias`,
-the bucket table in layer 0's attention as fairseq and HF keep it), packed
-Q/K/V (one product over the three weights) and LayerDrop. MoE is not
-ported; ``models/wav2vec2.py`` refuses configs that ask for it.
+the bucket table in layer 0's attention as fairseq and HF keep it) and
+LayerDrop. Packed Q/K/V is a TPU layout of the same product: the port
+computes it unpacked, as it computes flash as the XLA attention. MoE is
+not ported; ``models/wav2vec2.py`` refuses configs that ask for it.
 """
 from __future__ import annotations
 
@@ -60,7 +61,6 @@ from typing import Optional
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from audio8_tpu_torch.nn.dropout import dropout
@@ -138,9 +138,11 @@ def _bucket_ids(t: int, num_buckets: int, max_distance: int,
                 device: torch.device) -> torch.Tensor:
     """:func:`relative_position_buckets` of (t, t) on ``device``, built
     once per length: the table is a constant of the shape, as it is under
-    JAX's jit."""
-    return torch.from_numpy(relative_position_buckets(
-        t, t, num_buckets, max_distance)).to(device, torch.long)
+    JAX's jit. Built outside inference mode, so a training forward may
+    save it for backward whichever call built it."""
+    with torch.inference_mode(False):
+        return torch.from_numpy(relative_position_buckets(
+            t, t, num_buckets, max_distance)).to(device, torch.long)
 
 
 def relative_position_bias(embed: torch.Tensor, t: int, num_buckets: int,
@@ -170,8 +172,8 @@ class MultiHeadAttention(nn.Module):
                  dropout_rate: float = 0.0, fused_attention=None,
                  bf16_softmax: bool = True, *, rpr_k: Optional[int] = None,
                  rpr_value_on: bool = False, names: str = "fairseq",
-                 flash: bool = False, packed_qkv: bool = False,
-                 gated_rel_pos: bool = False, rel_pos_buckets: int = 0):
+                 flash: bool = False, gated_rel_pos: bool = False,
+                 rel_pos_buckets: int = 0):
         super().__init__()
         if d_model % num_heads:
             raise ValueError(f"d_model {d_model} % num_heads {num_heads}")
@@ -183,7 +185,6 @@ class MultiHeadAttention(nn.Module):
         self.rpr_k = rpr_k
         self.rpr_value_on = rpr_value_on
         self.flash = flash
-        self.packed_qkv = packed_qkv
         self.gated_rel_pos = gated_rel_pos
         self.d_head = d_model // num_heads
         self.proj_names = PROJ_NAMES[names]
@@ -252,18 +253,8 @@ class MultiHeadAttention(nn.Module):
 
     def qkv(self, x: torch.Tensor, key: Optional[torch.Tensor] = None,
             value: Optional[torch.Tensor] = None):
-        """Split Q, K and V heads. Under ``packed_qkv`` self-attention
-        over float weights takes one product over the concatenated
-        weights, then the concatenated bias in the compute dtype (the
-        JAX ``jnp.dot(x, w) + b``); int8 layers stay unpacked."""
+        """Split Q, K and V heads (``key``/``value`` default to ``x``)."""
         wq, wk, wv, _ = self.projections()
-        if (self.packed_qkv and key is None and value is None
-                and wq.weight.dtype != torch.int8):
-            dt = self.compute_dtype
-            w = torch.cat([m.weight.to(dt) for m in (wq, wk, wv)])
-            b = torch.cat([m.bias.to(dt) for m in (wq, wk, wv)])
-            qkv = F.linear(x.to(dt), w) + b
-            return tuple(self._split(t) for t in qkv.chunk(3, dim=-1))
         key = x if key is None else key
         value = key if value is None else value
         return self._split(wq(x)), self._split(wk(key)), self._split(wv(value))
@@ -440,8 +431,7 @@ class TransformerEncoderLayer(nn.Module):
                  attention_dropout: Optional[float] = None,
                  fused_attention=None, bf16_softmax: bool = True,
                  pre_norm: bool = False, flash: bool = False,
-                 packed_qkv: bool = False, gated_rel_pos: bool = False,
-                 rel_pos_buckets: int = 0):
+                 gated_rel_pos: bool = False, rel_pos_buckets: int = 0):
         super().__init__()
         self.dropout_rate = dropout_rate
         self.pre_norm = pre_norm
@@ -449,7 +439,7 @@ class TransformerEncoderLayer(nn.Module):
             num_heads, d_model, dtype,
             dropout_rate if attention_dropout is None else attention_dropout,
             fused_attention, bf16_softmax, flash=flash,
-            packed_qkv=packed_qkv, gated_rel_pos=gated_rel_pos,
+            gated_rel_pos=gated_rel_pos,
             rel_pos_buckets=rel_pos_buckets)
         self.self_attn_layer_norm = LayerNorm(d_model, dtype)
         self.fc1 = Dense(d_model, d_ff, dtype=dtype)
@@ -503,50 +493,13 @@ def run_layers(layers, x, generator, layer_drop: float, **kwargs):
     return x
 
 
-class TransformerEncoderStack(nn.Module):
-    """``num_layers`` encoder layers in ``self.layers`` (post- or
-    pre-norm; the pre-norm stack's final norm belongs to its owner, the
-    fairseq ``encoder.layer_norm``), with LayerDrop in training
-    (:func:`run_layers`) and, under ``gated_rel_pos``, WavLM's shared
-    bucketed position bias from layer 0's table."""
-
-    def __init__(self, num_heads: int, d_model: int, num_layers: int,
-                 d_ff: Optional[int] = None,
-                 dtype: torch.dtype = torch.float32,
-                 dropout_rate: float = 0.0,
-                 attention_dropout: Optional[float] = None,
-                 layer_drop: float = 0.0, fused_attention=None,
-                 bf16_softmax: bool = True, pre_norm: bool = False,
-                 flash: bool = False, packed_qkv: bool = False,
-                 gated_rel_pos: bool = False, rel_pos_buckets: int = 320,
-                 rel_pos_max_distance: int = 800):
-        super().__init__()
-        d_ff = d_ff or 4 * d_model
-        self.layer_drop = layer_drop
-        self.compute_dtype = dtype
-        self.gated_rel_pos = gated_rel_pos
-        self.rel_pos_buckets = rel_pos_buckets
-        self.rel_pos_max_distance = rel_pos_max_distance
-        self.layers = nn.ModuleList(
-            TransformerEncoderLayer(
-                num_heads, d_model, d_ff, dtype, dropout_rate,
-                attention_dropout, fused_attention, bf16_softmax, pre_norm,
-                flash, packed_qkv, gated_rel_pos,
-                rel_pos_buckets if gated_rel_pos and i == 0 else 0)
-            for i in range(num_layers))
-
-    def forward(self, x: torch.Tensor,
-                key_valid: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None,
-                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        bias = None
-        if self.gated_rel_pos:
-            bias = relative_position_bias(
-                self.layers[0].self_attn.rel_attn_embed.weight, x.shape[1],
-                self.rel_pos_buckets, self.rel_pos_max_distance,
-                self.compute_dtype)
-        return run_layers(self.layers, x, generator, self.layer_drop,
-                          key_valid=key_valid, mask=mask, position_bias=bias)
+def wavlm_position_bias(layers, t: int, num_buckets: int,
+                        max_distance: int,
+                        dtype: torch.dtype) -> torch.Tensor:
+    """The bias a WavLM stack shares across its layers, from layer 0's
+    bucket table (:func:`relative_position_bias`)."""
+    return relative_position_bias(layers[0].self_attn.rel_attn_embed.weight,
+                                  t, num_buckets, max_distance, dtype)
 
 
 class FFN(nn.Module):

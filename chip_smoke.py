@@ -265,6 +265,7 @@ memory of a step.
 from __future__ import annotations
 
 import contextlib
+import gc
 import io
 import json
 import math
@@ -1623,6 +1624,7 @@ def phase_train(tmp: str, seed: int) -> dict:
             "--valid_dataset", "valid.tsv", "--basedir", basedir,
             "--device", "cuda", "--valid_steps", "2", *TRAIN_FLAGS]
     reset_launches()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     state = train(argv)
     wall = time.perf_counter() - t0
@@ -3936,10 +3938,18 @@ def phase_topologies(seed: int, gen) -> tuple:
             bf16 = Wav2Vec2AcousticModel(cfg, torch.bfloat16).cuda().eval()
             bf16.load_state_dict(state)
             reset_launches()
-            ms, outs = {}, {}
+            ms, outs, peak = {}, {}, {}
+            gc.collect()
+            torch.cuda.synchronize()
+            resident = torch.cuda.memory_allocated() / 1e9
             with torch.inference_mode():
                 for name, m in (("f32", gpu), ("bf16", bf16)):
+                    # this dispatch's own peak: the running maximum starts
+                    # again at what is resident (both models' weights)
+                    torch.cuda.reset_peak_memory_stats()
                     outs[name] = m(sig, lens_c)[0]
+                    torch.cuda.synchronize()
+                    peak[name] = torch.cuda.max_memory_allocated() / 1e9
                     ms[name] = event_ms(lambda m=m: m(sig, lens_c))
                 lp_gpu, _ = gpu(small.cuda(), small_len.cuda())
                 torch.cuda.synchronize()
@@ -3958,8 +3968,9 @@ def phase_topologies(seed: int, gen) -> tuple:
                   "attention": "composition" if composed else "core",
                   "launches": launches, "vs_cpu": [1, 4 * SR],
                   "max_abs_err": err, "tol": MODEL_TOL,
-                  "argmax_agreement": agree,
-                  "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9})
+                  "argmax_agreement": agree, "resident_gb": resident,
+                  "dispatch_peak_memory_gb": peak,
+                  "dispatch_gb": {k: v - resident for k, v in peak.items()}})
             for name, lp in outs.items():
                 check(bool(torch.isfinite(lp).all()),
                       f"{preset} {name}: non-finite log-probs")
@@ -3973,7 +3984,7 @@ def phase_topologies(seed: int, gen) -> tuple:
                              first_dense(bf16), 4 * 1499, gen)
             for k, n in launches.items():
                 total[k] += n
-            del cpu, gpu, bf16, outs, state
+            del cpu, gpu, bf16, outs, state, m
             torch.cuda.empty_cache()
     shapes = path_shapes(calls)
     emit({"phase": "topologies_kernel",
@@ -4131,8 +4142,11 @@ def phase_lv60_train(tmp: str, seed: int, gen) -> tuple:
     argv = ["--manifest_dir", os.path.join(tmp, "pretrain_corpus"),
             "--basedir", run, "--device", "cuda", *LV60_PRETRAIN_FLAGS]
     reset_launches()
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
     with recorded_path_calls(pre_calls):
         state = pretrain.train(argv)
+    pre_peak = torch.cuda.max_memory_allocated() / 1e9
     pre_launches = read_launches()
     log = state.log
     check(state.step == 2 and all(math.isfinite(r["loss"]) for r in log),
@@ -4147,7 +4161,8 @@ def phase_lv60_train(tmp: str, seed: int, gen) -> tuple:
           "rows": [r["rows"] for r in log],
           "samples": [r["samples"] for r in log],
           "losses": [r["loss"] for r in log],
-          "launches": {k: pre_launches[k] for k in PRETRAIN_PATH}})
+          "launches": {k: pre_launches[k] for k in PRETRAIN_PATH},
+          "peak_memory_gb": pre_peak})
     ckpt = os.path.join(run, "checkpoint-step-1.pt")
     check(os.path.exists(ckpt), f"lv60 pretrain wrote {os.listdir(run)}")
     del state
@@ -4157,6 +4172,8 @@ def phase_lv60_train(tmp: str, seed: int, gen) -> tuple:
     with recorded_path_calls(calls), recorded_ctc_calls(ctc_calls):
         for dtype_flag in ([], ["--bf16"]):
             reset_launches()
+            gc.collect()
+            torch.cuda.reset_peak_memory_stats()
             state = train(["--root_dir", corpus, "--train_dataset",
                            "train.tsv", "--valid_dataset", "valid.tsv",
                            "--basedir", os.path.join(tmp, "lv60_run" + (

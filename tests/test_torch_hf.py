@@ -142,6 +142,46 @@ def test_safetensors_reader_matches_the_package(tmp_path):
         assert torch.equal(got[k], v), k
 
 
+def test_safetensors_reader_holds_the_file_once(tmp_path):
+    """The tensors of a file the package wrote (its header padded to 8
+    bytes) are views of one buffer; a header of any other length, as a
+    hand-written file may have, gives misaligned offsets, read into
+    aligned copies with the same values."""
+    import json
+
+    from safetensors.torch import save_file
+
+    want = {k: v for k, v in _tensors().items() if v.numel()}
+    path = str(tmp_path / "a.safetensors")
+    save_file(want, path)
+    got = read_safetensors(path)
+    with open(path, "rb") as f:
+        n = int.from_bytes(f.read(8), "little")
+        offsets = {k: v["data_offsets"][0]
+                   for k, v in json.loads(f.read(n)).items() if k in want}
+    base = {got[k].data_ptr() - o for k, o in offsets.items()}
+    assert len(base) == 1  # every tensor at its file offset in one buffer
+    header, raw = {}, b""
+    for k, v in want.items():
+        b = v.reshape(-1).view(torch.uint8).numpy().tobytes()
+        dtype = {torch.float64: "F64", torch.float32: "F32",
+                 torch.float16: "F16",
+                 torch.bfloat16: "BF16", torch.int64: "I64",
+                 torch.int32: "I32", torch.int16: "I16", torch.int8: "I8",
+                 torch.uint8: "U8", torch.bool: "BOOL"}[v.dtype]
+        header[k] = {"dtype": dtype, "shape": list(v.shape),
+                     "data_offsets": [len(raw), len(raw) + len(b)]}
+        raw += b
+    text = json.dumps(header).encode()
+    text += b" " * ((8 - len(text) % 8) % 8 + 1)  # data start = 1 mod 8
+    odd = str(tmp_path / "odd.safetensors")
+    with open(odd, "wb") as f:
+        f.write(len(text).to_bytes(8, "little") + text + raw)
+    got = read_safetensors(odd)
+    for k, v in want.items():
+        assert got[k].dtype == v.dtype and torch.equal(got[k], v), k
+
+
 @pytest.mark.parametrize("family", ["wav2vec2", "conformer_rotary"])
 def test_inspect_summarises_an_hf_directory_as_jax(family, tmp_path):
     from audio8_tpu.cli import inspect_checkpoint as jax_inspect

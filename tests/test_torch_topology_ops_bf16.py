@@ -103,33 +103,29 @@ def test_conv_bias_after_the_rounded_conv():
 
 
 def test_packed_qkv_rounds_as_jax():
+    """JAX's packed Q/K/V (one product over the concatenated weights,
+    then the concatenated bias) is the port's unpacked projections bit
+    for bit in bf16, so the port computes ``packed_qkv`` unpacked."""
     rng = np.random.default_rng(3)
     d = 64
     x = rng.integers(-15, 16, size=(2, 7, d)).astype(np.float32)
-    packed = MultiHeadAttention(4, d, BF16, packed_qkv=True)
-    plain = MultiHeadAttention(4, d, BF16)
+    mha = MultiHeadAttention(4, d, BF16)
     params = {}
     with torch.no_grad():
-        for (name, m), jname in zip(
-                zip(packed.proj_names, packed.projections()),
-                ("w_Q", "w_K", "w_V", "w_O")):
+        for m, jname in zip(mha.projections(), ("w_Q", "w_K", "w_V", "w_O")):
             w = rng.integers(-15, 16, size=(d, d)).astype(np.float32)
             b = (rng.normal(size=d) * 64).astype(np.float32)
             m.weight.copy_(torch.from_numpy(w.T))
             m.bias.copy_(torch.from_numpy(b))
-            getattr(plain, name).load_state_dict(m.state_dict())
             params[jname] = (w, b)
-        xt = torch.from_numpy(x)
-        got = [_bits(t) for t in packed.qkv(xt)]
-        want_plain = [_bits(t) for t in plain.qkv(xt)]
+        got = [_bits(t) for t in mha.qkv(torch.from_numpy(x))]
     w = jnp.concatenate([jnp.asarray(params[n][0], jnp.bfloat16)
                          for n in ("w_Q", "w_K", "w_V")], axis=1)
     b = jnp.concatenate([jnp.asarray(params[n][1], jnp.bfloat16)
                          for n in ("w_Q", "w_K", "w_V")])
     qkv = np.asarray((jnp.dot(jnp.asarray(x, jnp.bfloat16), w) + b).astype(
         jnp.float32))
-    for i, (g, p) in enumerate(zip(got, want_plain)):
-        np.testing.assert_array_equal(g, p)
+    for i, g in enumerate(got):
         want = qkv[..., i * d:(i + 1) * d].reshape(2, 7, 4, 16).transpose(
             0, 2, 1, 3)
         np.testing.assert_array_equal(g, want)

@@ -149,3 +149,30 @@ def test_ported_features_build_and_run(field, value):
         lp, mask = model(torch.from_numpy(x), torch.from_numpy(lengths))
     assert lp.shape[:2] == mask.shape and lp.shape[2] == CFG.num_labels
     assert torch.isfinite(lp).all()
+
+
+@pytest.mark.parametrize("topology", [
+    dict(gated_rel_pos=True),
+    dict(encoder_type="conformer", position_embeddings_type="rotary"),
+    dict(encoder_type="conformer", position_embeddings_type="relative")])
+def test_inference_then_training_at_one_length(topology):
+    """The per-length position tables are cached: a table first built by
+    a forward under ``torch.inference_mode`` must still serve a training
+    step at the same length, which saves it for backward."""
+    from audio8_tpu_torch.nn.conformer import _device_table
+    from audio8_tpu_torch.nn.transformer import _bucket_ids
+
+    _bucket_ids.cache_clear()
+    _device_table.cache_clear()
+    model = Wav2Vec2AcousticModel(dataclasses.replace(CFG, **topology),
+                                  generator=torch.Generator().manual_seed(0))
+    x, lengths = (torch.from_numpy(a) for a in _batch())
+    with torch.inference_mode():
+        model(x, lengths)
+    lp, mask = model(x, lengths, generator=torch.Generator().manual_seed(1),
+                     freeze=False)
+    (lp * mask[..., None]).sum().backward()
+    grads = {n: p.grad for n, p in model.named_parameters()
+             if n.startswith("encoder.encoder.layers.")}
+    assert all(g is not None and torch.isfinite(g).all()
+               for g in grads.values())
