@@ -12,9 +12,8 @@ without ``--lm``, ``--moe_top_k`` without ``--moe_experts``, the
 transducer sizes without ``--transducer``) are inert, as in JAX.
 Which flags are ported can depend on the entry point (``PORTED``): the
 decoding flags (``--beam``, ``--lm``, ``--timestamps``, ``--vad``,
-``--quantize``) are ported where the entry point has them, and
-``--exported`` still raises everywhere (ROADMAP.md queue 1, item 6:
-export).
+``--quantize``) are ported where the entry point has them, as is
+``--exported`` (a ``cli.export`` artifact) everywhere.
 
 :func:`resolve_restart` is ``--restart_from`` (fairseq ``.pt`` and
 HuggingFace ``save_pretrained`` warm starts, directories of the port's
@@ -82,8 +81,6 @@ _PRESET_BASE_DEFAULTS = {"d_model": 768, "d_ff": 3072, "num_heads": 12,
 
 # ROADMAP.md queue 1 items, named in the refusals
 DECODE = "ROADMAP.md queue 1, item 6 (serving and inference)"
-EXPORT = ("ROADMAP.md queue 1, item 6 (export: the kernels as torch.library "
-          "custom ops first)")
 DATA_PARALLEL = "ROADMAP.md queue 1, item 3 (data parallel)"
 TRAINER = "ROADMAP.md queue 1, item 4 (the trainers' remaining flags)"
 TOPOLOGY = "ROADMAP.md queue 1, item 7 (topologies and recipes)"
@@ -112,7 +109,6 @@ NOT_PORTED = {
     "timestamps": (False, DECODE),
     "vad": (False, DECODE),
     "quantize": ("none", DECODE),
-    "exported": (None, EXPORT),
     "warmstart_text": (None, TEXT_WARMSTART),
 }
 # entry point -> the flags of NOT_PORTED it has ported: the beam search
@@ -120,7 +116,8 @@ NOT_PORTED = {
 # word timestamps, VAD and int8 weights
 PORTED = {"train": ("beam", "lm"), "test": ("beam", "lm", "quantize"),
           "transcribe": ("beam", "lm", "timestamps", "vad", "quantize"),
-          "serve": ("beam", "lm", "timestamps", "quantize"), "embed": ()}
+          "serve": ("beam", "lm", "timestamps", "quantize"),
+          "export": ("quantize",)}
 
 
 def apply_preset(args: Namespace) -> Namespace:
@@ -239,10 +236,11 @@ def add_common_model_args(parser: ArgumentParser) -> None:
 
 def add_decoding_args(parser: ArgumentParser, max_decode_len) -> None:
     """The decoding flags of the JAX transcribe and serve parsers (their
-    ``--max_decode_len`` defaults differ: None and 8000); the export, the
-    device beam and the transducer are not ported yet."""
+    ``--max_decode_len`` defaults differ: None and 8000); the device beam
+    and the transducer are not ported yet."""
     add = parser.add_argument
-    add("--exported", help="not ported yet")
+    add("--exported", help="cli.export artifact directory: run its traced "
+        "forward instead of building the model from a checkpoint")
     add_beam_args(parser)
     add("--device_beam", type=str2bool, default=False, help="not ported yet")
     add("--transducer", type=str2bool, default=False, help="not ported yet")
@@ -273,10 +271,19 @@ def add_beam_args(parser: ArgumentParser) -> None:
 
 def require_checkpoint(args: Namespace, entry: str) -> None:
     """As the JAX transcribe and serve parsers: ``--checkpoint`` and
-    ``--dict_file`` are needed unless ``--exported`` is given (which
-    raises: not ported yet)."""
+    ``--dict_file`` are needed unless ``--exported`` is given, which
+    takes neither ``--transducer`` nor ``--quantize`` (the artifact
+    records its kind, and int8 is baked at export)."""
+    if args.exported:
+        if args.transducer:
+            raise SystemExit("--transducer is not needed with --exported: "
+                             "the artifact records its own kind "
+                             "(meta.json)")
+        if args.quantize != "none":
+            raise SystemExit("--quantize is baked at export time "
+                             "(cli.export --quantize int8)")
     check_ported(args, entry)
-    if not (args.checkpoint and args.dict_file):
+    if not args.exported and not (args.checkpoint and args.dict_file):
         raise SystemExit("--checkpoint and --dict_file are required "
                          "(or pass an --exported artifact)")
 

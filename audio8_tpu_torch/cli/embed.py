@@ -16,8 +16,8 @@ it scores cosine similarity per pair and prints the EER instead.
 ``--checkpoint`` is a fairseq ``.pt`` or an HF ``save_pretrained``
 directory (pretrained or CTC: its encoder) or the port's paired ``.pt``
 (its audio tower, reduction heads included). Use ``mean`` or ``max``
-for a checkpoint without heads. ``--exported`` raises (ROADMAP.md queue
-1, item 6: export).
+for a checkpoint without heads. ``--exported`` runs a ``cli.export
+--pooled`` artifact instead (its reduction baked in at export).
 """
 from __future__ import annotations
 
@@ -47,7 +47,9 @@ def parse_args(argv=None):
     p = ArgumentParser(description=__doc__)
     p.add_argument("--checkpoint",
                    help="fairseq .pt or the port's paired .pt")
-    p.add_argument("--exported", help="not ported yet")
+    p.add_argument("--exported",
+                   help="cli.export --pooled artifact directory: run its "
+                        "traced encoder instead of building the model")
     p.add_argument("--root_dir", required=True)
     p.add_argument("--dataset", default="test.tsv",
                    help="TSV manifest (dir header + file\\tsamples rows)")
@@ -69,7 +71,7 @@ def parse_args(argv=None):
     add_common_model_args(p)
     args = apply_preset(p.parse_args(argv))
     check_ported(args, "embed")
-    if not args.checkpoint:
+    if not args.exported and not args.checkpoint:
         raise SystemExit("--checkpoint is required "
                          "(or pass an --exported artifact)")
     return args
@@ -96,14 +98,9 @@ def pad_to_seconds(n: int, sr: int = 16_000) -> int:
     return max(sr, (n + sr - 1) // sr * sr)
 
 
-def build_embedder(args, device: torch.device = None) -> Callable:
-    """-> ``embed(paths) -> (N, D)`` float32 unit vectors, the encoder on
-    ``device`` (default: ``--device``)."""
-    if device is None:
-        device = resolve_device(args.device)
-    if device.type == "cuda" and not args.bf16:
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
+def build_pooled(args, device: torch.device):
+    """``(cfg, model)``: the pooled encoder of the flags with the
+    checkpoint's weights, in eval mode on ``device``."""
     cfg = PooledConfig(
         d_model=args.d_model, num_heads=args.num_heads,
         num_layers=args.num_layers, d_ff=args.d_ff, dropout=0.0,
@@ -112,24 +109,30 @@ def build_embedder(args, device: torch.device = None) -> Callable:
     dtype = torch.bfloat16 if args.bf16 else torch.float32
     model = Wav2Vec2PooledEncoder(cfg, dtype)
     load_pooled_weights(args.checkpoint, model)
-    model = model.to(device).eval()
-    reader = SoundfileAudioReader()
+    return cfg, model.to(device).eval()
 
-    @torch.inference_mode()
-    def run(sig: np.ndarray, lens: np.ndarray) -> np.ndarray:
-        emb = model(torch.from_numpy(sig).to(device),
-                    torch.from_numpy(lens).to(device), freeze=False).float()
-        norm = torch.rsqrt(torch.clamp_min((emb * emb).sum(-1, keepdim=True),
-                                           1e-12))
-        return (emb * norm).cpu().numpy()
+
+def normalized(emb: torch.Tensor) -> torch.Tensor:
+    """Each row in float32 times ``rsqrt(max(sum(e^2), 1e-12))``."""
+    emb = emb.float()
+    return emb * torch.rsqrt(torch.clamp_min((emb * emb).sum(-1, keepdim=True),
+                                             1e-12))
+
+
+def make_embed(run: Callable, pad_target: Callable, batch: int,
+               max_sample_len: int) -> Callable:
+    """``embed(paths) -> (N, D)``: the files read, padded to
+    ``pad_target(longest)`` samples in batches of ``batch`` and run
+    through ``run(signal, lengths) -> (B, D)`` unit vectors."""
+    reader = SoundfileAudioReader()
 
     def embed(paths: List[str]) -> np.ndarray:
         out = []
-        for lo in range(0, len(paths), args.batch):
-            chunk = paths[lo:lo + args.batch]
-            audios = [reader.read(p, args.max_sample_len).squeeze()
+        for lo in range(0, len(paths), batch):
+            chunk = paths[lo:lo + batch]
+            audios = [reader.read(p, max_sample_len).squeeze()
                       for p in chunk]
-            sig = np.zeros((len(chunk), pad_to_seconds(
+            sig = np.zeros((len(chunk), pad_target(
                 max(len(a) for a in audios))), np.float32)
             lens = np.zeros(len(chunk), np.int64)
             for i, a in enumerate(audios):
@@ -140,6 +143,38 @@ def build_embedder(args, device: torch.device = None) -> Callable:
                 else np.zeros((0, 1), np.float32))
 
     return embed
+
+
+def build_embedder(args, device: torch.device = None) -> Callable:
+    """-> ``embed(paths) -> (N, D)`` float32 unit vectors, the encoder (or
+    the ``--exported`` artifact) on ``device`` (default: ``--device``)."""
+    if device is None:
+        device = resolve_device(args.device)
+    if device.type == "cuda" and not args.bf16:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    if args.exported:
+        from audio8_tpu_torch.export import load_artifact
+
+        art = load_artifact(args.exported, device)
+        if art.kind != "embed":
+            raise SystemExit(f"{args.exported} is a {art.kind!r} artifact, "
+                             "not an embed one (cli.export --pooled)")
+        # utterances must fit an exported window; the artifact pads the
+        # rest of the way to its entry table itself
+        return make_embed(
+            lambda sig, lens: art.forward(sig, lens).cpu().numpy(),
+            lambda n: n, args.batch, min(args.max_sample_len,
+                                         art.max_samples))
+    _, model = build_pooled(args, device)
+
+    @torch.inference_mode()
+    def run(sig: np.ndarray, lens: np.ndarray) -> np.ndarray:
+        emb = model(torch.from_numpy(sig).to(device),
+                    torch.from_numpy(lens).to(device), freeze=False)
+        return normalized(emb).cpu().numpy()
+
+    return make_embed(run, pad_to_seconds, args.batch, args.max_sample_len)
 
 
 def compute_eer(scores: np.ndarray, labels: np.ndarray) -> float:

@@ -23,7 +23,9 @@ decode greedily; the final text and ``/transcribe`` take the beam
 search with ``--beam``/``--lm``, decoded on the request's thread
 outside the device lock and the dispatcher. The native beam search
 reads one loaded LM from several threads at once: it only reads it.
-``--quantize int8`` serves int8 Dense weights (``ops/quant.py``).
+``--quantize int8`` serves int8 Dense weights (``ops/quant.py``);
+``--exported`` serves a ``cli.export`` artifact instead of a checkpoint,
+its chunk the smallest entry that covers ``--chunk_seconds``.
 
   python -m audio8_tpu_torch.cli.serve --checkpoint ctc.pt \\
       --dict_file dict.ltr.txt --beam 8 --lm lm.arpa --port 8000
@@ -49,7 +51,8 @@ from audio8_tpu_torch.cli.common import (add_common_model_args,
                                         add_decoding_args, apply_preset,
                                         require_checkpoint)
 from audio8_tpu_torch.cli.transcribe import (build_beam_decoder,
-                                             check_timestamps, load_acoustic)
+                                             check_timestamps, load_acoustic,
+                                             load_exported_acoustic)
 from audio8_tpu_torch.data.audio import SoundfileAudioReader
 from audio8_tpu_torch.ops.align import timestamped_words
 from audio8_tpu_torch.ops.metrics import postproc_bpe, postproc_letters
@@ -367,9 +370,22 @@ def build_service(args) -> TranscribeService:
     """Model, batcher, transcriber and decoder from the flags, warmed up
     with one second of silence."""
     check_timestamps(args)
-    cfg, forward, vocab_list, index2vocab, device = load_acoustic(args)
-    sr = args.target_sample_rate
+    art = None
+    if args.exported:
+        cfg, forward, vocab_list, index2vocab, device, art = \
+            load_exported_acoustic(args)
+        sr = art.sample_rate
+        # the artifact records the real sizes; the flags' defaults would
+        # misreport them on /healthz
+        dims = dict(d_model=art.meta.get("d_model"),
+                    num_layers=art.meta.get("num_layers"))
+    else:
+        cfg, forward, vocab_list, index2vocab, device = load_acoustic(args)
+        sr = args.target_sample_rate
+        dims = dict(d_model=args.d_model, num_layers=args.num_layers)
     chunk = int(args.chunk_seconds * sr)
+    if art is not None:
+        chunk = art.entry_samples(chunk)  # the entry table is the menu
     batcher = None
     if args.batch_wait_ms > 0:
         batcher = MicroBatcher(forward, chunk, batch_size=args.batch,
@@ -382,9 +398,11 @@ def build_service(args) -> TranscribeService:
     service = TranscribeService(
         ct, index2vocab, build_beam_decoder(args, vocab_list), sample_rate=sr,
         timestamps=args.timestamps, postproc=postproc,
-        info={"model": "wav2vec2-ctc", "beam": args.beam,
-              "d_model": args.d_model, "num_layers": args.num_layers,
-              "device": str(device), "quantize": args.quantize,
+        info={"model": "wav2vec2-ctc" + ("" if art is None
+                                         else " (exported)"),
+              "beam": args.beam, **dims, "device": str(device),
+              "quantize": (args.quantize if art is None
+                           else art.meta.get("quantize", "none")),
               "chunk_seconds": round(ct.chunk / sr, 3)})
     logger.info("warming up (%d-sample chunk forward on %s)", chunk, device)
     service.log_probs(np.zeros(sr, np.float32))

@@ -16,9 +16,11 @@ fusion at ``--alpha`` and ``--beta`` (key ``werr_lm_{beam}`` or
 The flags are the JAX entry point's with the same defaults, plus
 ``--device``; ``--lane_align`` (TPU tiling) is not a flag here.
 ``--quantize int8`` runs the Dense layers on int8 weights, quantized
-after the load (``ops/quant.py``). Those of parts not ported yet raise:
-``--exported`` (ROADMAP.md queue 1, item 6), ``--transducer``,
-``--device_beam`` and ``--lm_rescore`` (item 7). The returned metrics
+after the load (``ops/quant.py``). ``--exported`` scores a ``cli.export``
+artifact instead, the batches padded to its entry table (so its scores
+equal the live model's at that ``--length_buckets`` grid). Those of
+parts not ported yet raise: ``--transducer``, ``--device_beam`` and
+``--lm_rescore`` (ROADMAP.md queue 1, item 7). The returned metrics
 also carry the eval's audio seconds and wall seconds and the beam
 decode's host seconds.
 """
@@ -56,7 +58,9 @@ def parse_args(argv=None):
     add("--basedir", type=str)
     add("--root_dir")
     add("--checkpoint")
-    add("--exported", help="not ported yet")
+    add("--exported", help="cli.export CTC artifact directory: score its "
+        "traced forward instead of building the model (its length grid "
+        "pinned to the entry table)")
     add("--valid_dataset", type=str, help="e.g. dev-other.tsv")
     add("--dict_file", type=str, default="dict.ltr.txt")
     add("--max_sample_len", type=int, default=325_000)
@@ -116,6 +120,32 @@ def run_step(index2vocab, log_probs, frame_lengths, batch, verbose=False,
     return step_metrics
 
 
+def _live_forward(args, num_labels: int, device: torch.device):
+    """The checkpoint's model (``--checkpoint``, else the latest under
+    ``--basedir``) on ``device`` as ``forward(signal, lengths) ->
+    (log_probs, frames)``; Dense layers int8 under ``--quantize int8``,
+    quantized after the load."""
+    cfg = AcousticConfig(
+        num_labels=num_labels, sample_rate=args.target_sample_rate // 1000,
+        d_model=args.d_model, num_heads=args.num_heads,
+        num_layers=args.num_layers, d_ff=args.d_ff, dropout=args.dropout,
+        timestep_masking=0.0, channel_masking=0.0, **encoder_kwargs(args))
+    dtype = torch.bfloat16 if args.bf16 else torch.float32
+    model = Wav2Vec2AcousticModel(cfg, dtype).to(device)
+    checkpoint = (args.checkpoint
+                  or find_latest_checkpoint(args.basedir)[0])
+    load_weights(checkpoint, model, ctc=True)
+    if args.quantize == "int8":
+        quantize_model_params(model)
+
+    @torch.no_grad()
+    def forward(signal: torch.Tensor, lengths: torch.Tensor):
+        log_probs, pad_mask = model(signal, lengths)
+        return log_probs, pad_mask.sum(dim=-1)
+
+    return forward
+
+
 def evaluate(argv=None, keep_outputs: bool = False) -> dict:
     """Run the evaluation; returns ``cer``, ``wer``, the beam key when
     decoding with a beam or LM, ``step`` (batches scored), and
@@ -135,8 +165,27 @@ def evaluate(argv=None, keep_outputs: bool = False) -> dict:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
 
-    vocab_list = read_vocab_list(args.vocab_file or os.path.join(
-        args.root_dir, args.dict_file))
+    artifact = None
+    if args.exported:
+        from audio8_tpu_torch.export import load_artifact
+
+        if args.quantize != "none":
+            raise ValueError("--exported eval scores the artifact as "
+                             "written: --quantize is baked at export time")
+        artifact = load_artifact(args.exported, device)
+        if artifact.kind != "ctc":
+            raise ValueError(f"{args.exported} is a {artifact.kind!r} "
+                             "artifact; cli.test --exported scores CTC "
+                             "artifacts (embeddings run under cli.embed)")
+        vocab_list = artifact.vocab  # the artifact's vocabulary is its head
+        # the batches padded to the entry table: the valid-frame count of
+        # the pad-mask downsampling depends on the PADDED length, so the
+        # scores equal a live eval's at the same length grid
+        args.length_buckets = artifact.entry_sizes
+        args.max_sample_len = min(args.max_sample_len, artifact.max_samples)
+    else:
+        vocab_list = read_vocab_list(args.vocab_file or os.path.join(
+            args.root_dir, args.dict_file))
     vocab = {v: i for i, v in enumerate(vocab_list)}
     index2vocab = revlut(vocab)
 
@@ -157,18 +206,10 @@ def evaluate(argv=None, keep_outputs: bool = False) -> dict:
         pad_to_multiple=args.pad_to_multiple,
         length_grid=args.length_buckets)
 
-    cfg = AcousticConfig(
-        num_labels=len(vocab), sample_rate=args.target_sample_rate // 1000,
-        d_model=args.d_model, num_heads=args.num_heads,
-        num_layers=args.num_layers, d_ff=args.d_ff, dropout=args.dropout,
-        timestep_masking=0.0, channel_masking=0.0, **encoder_kwargs(args))
-    dtype = torch.bfloat16 if args.bf16 else torch.float32
-    model = Wav2Vec2AcousticModel(cfg, dtype).to(device)
-    checkpoint = (args.checkpoint
-                  or find_latest_checkpoint(args.basedir)[0])
-    load_weights(checkpoint, model, ctc=True)
-    if args.quantize == "int8":
-        quantize_model_params(model)
+    if artifact is not None:
+        forward = artifact.forward
+    else:
+        forward = _live_forward(args, len(vocab), device)
 
     postproc = (M.postproc_bpe if args.target_type == "bpe"
                 else M.postproc_letters)
@@ -182,14 +223,13 @@ def evaluate(argv=None, keep_outputs: bool = False) -> dict:
     for j, batch in enumerate(batches):
         if j > args.valid_steps:
             break
-        with torch.no_grad():
-            log_probs, pad_mask = model(
-                torch.from_numpy(batch["signal"]).to(device),
-                torch.from_numpy(batch["signal_lengths"]).to(device))
+        log_probs, frames = forward(
+            torch.from_numpy(batch["signal"]).to(device),
+            torch.from_numpy(batch["signal_lengths"]).to(device))
         # padding rows that batch-size snapping appends sit at the tail
         n_real = batch.get("num_real", len(batch["signal_lengths"]))
         log_probs = log_probs.float().cpu().numpy()[:n_real]
-        frame_lengths = pad_mask.sum(dim=-1).cpu().numpy()[:n_real]
+        frame_lengths = frames.cpu().numpy()[:n_real]
         audio_s += float(batch["signal_lengths"][:n_real].sum()) / sr
         utterances += n_real
         if keep_outputs:

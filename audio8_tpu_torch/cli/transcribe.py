@@ -20,10 +20,13 @@ layers on int8 weights (``ops/quant.py``).
 ``--checkpoint`` is a fairseq CTC ``.pt`` or an HF ``save_pretrained``
 directory (``Wav2Vec2ForCTC`` and its HuBERT, data2vec-audio, WavLM and
 conformer kin); the model flags (``--preset``) must give its topology
-and sizes, and ``vocab.json`` is its symbol table. Every flag of the JAX
-entry point but ``--lane_align`` parses; ``--exported`` (ROADMAP.md
-queue 1, item 6), ``--device_beam`` and ``--transducer`` (item 7) raise
-``NotImplementedError``. Dropout flags are inert at inference.
+and sizes, and ``vocab.json`` is its symbol table. ``--exported``
+runs a ``cli.export`` artifact instead of a checkpoint (its vocabulary
+and conv geometry come from the artifact; ``--chunk_seconds`` windows
+on its smallest entry that covers the request). Every flag of the JAX
+entry point but ``--lane_align`` parses; ``--device_beam`` and
+``--transducer`` (item 7) raise ``NotImplementedError``. Dropout flags
+are inert at inference.
 """
 from __future__ import annotations
 
@@ -120,6 +123,41 @@ def build_acoustic(args, device: torch.device):
     return cfg, model.to(device).eval(), vocab_list, index2vocab
 
 
+def no_tf32(device: torch.device, bf16: bool) -> None:
+    """float32 means float32: cuDNN would run the convolutions that stay
+    in PyTorch in TF32 by default."""
+    if device.type == "cuda" and not bf16:
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def load_exported_acoustic(args, device: Optional[torch.device] = None):
+    """:func:`load_acoustic`'s counterpart backed by a ``cli.export``
+    artifact (``--exported``) on ``device`` (default: ``--device``): its
+    traced forward runs in place of the live model, with no checkpoint
+    read and no model built.
+
+    Returns ``(cfg, forward, vocab_list, index2vocab, device, art)``;
+    ``cfg.conv_features`` is the artifact's geometry."""
+    from types import SimpleNamespace
+
+    from audio8_tpu_torch.export import load_artifact
+
+    if device is None:
+        device = resolve_device(args.device)
+    Offsets.remap_fairseq_ctc()
+    art = load_artifact(args.exported, device)
+    if art.kind != "ctc":
+        raise SystemExit(
+            f"{args.exported} is a {art.kind!r} artifact; this surface "
+            "serves CTC artifacts (embed artifacts run under cli.embed)")
+    no_tf32(device, art.meta.get("bf16", False))
+    vocab_list = art.vocab
+    index2vocab = revlut({v: i for i, v in enumerate(vocab_list)})
+    cfg = SimpleNamespace(conv_features=art.conv_features)
+    return cfg, art.forward, vocab_list, index2vocab, device, art
+
+
 def load_acoustic(args, device: Optional[torch.device] = None):
     """The eval stack a decoding surface needs, on ``device`` (default:
     ``--device``, which raises for ``cuda`` without a card).
@@ -131,11 +169,7 @@ def load_acoustic(args, device: Optional[torch.device] = None):
     if device is None:
         device = resolve_device(args.device)
     cfg, model, vocab_list, index2vocab = build_acoustic(args, device)
-    if device.type == "cuda" and not args.bf16:
-        # float32 means float32: cuDNN would run the convolutions that
-        # stay in PyTorch in TF32 by default
-        torch.backends.cudnn.allow_tf32 = False
-        torch.backends.cuda.matmul.allow_tf32 = False
+    no_tf32(device, args.bf16)
 
     @torch.inference_mode()
     def forward(signal: torch.Tensor, lengths: torch.Tensor):
@@ -169,14 +203,25 @@ def main(argv=None):
     logging.basicConfig(level=logging.INFO)
     check_timestamps(args)
     postproc = postproc_bpe if args.target_type == "bpe" else postproc_letters
-    cfg, forward, vocab_list, index2vocab, device = load_acoustic(args)
+    art = None
+    if args.exported:
+        cfg, forward, vocab_list, index2vocab, device, art = \
+            load_exported_acoustic(args)
+        sr = art.sample_rate
+    else:
+        cfg, forward, vocab_list, index2vocab, device = load_acoustic(args)
+        sr = args.target_sample_rate
     decoder = build_beam_decoder(args, vocab_list)
-    sr = args.target_sample_rate
     frame_sec = total_stride(cfg.conv_features) / sr
     ct = None
     if args.chunk_seconds > 0:
+        chunk = int(args.chunk_seconds * sr)
+        if art is not None:
+            # the entry table is the shape menu: window on the smallest
+            # exported size that covers the request
+            chunk = art.entry_samples(chunk)
         ct = ChunkedTranscriber(forward, cfg.conv_features,
-                                chunk_samples=int(args.chunk_seconds * sr),
+                                chunk_samples=chunk,
                                 context_samples=int(args.context_seconds * sr),
                                 device=device)
     reader = SoundfileAudioReader()

@@ -100,20 +100,33 @@ def relative_sinusoid_table(t: int, d_model: int) -> np.ndarray:
     return np.concatenate([pe_pos[::-1], pe_neg[1:]]).astype(np.float32)
 
 
+def _table(kind: str, t: int, dim: int, base: float, device: torch.device,
+           dtype: torch.dtype):
+    """A positional table on ``device`` in ``dtype``: ``"rotary"`` gives
+    (cos, sin), ``"relative"`` the XL sinusoid table."""
+    if kind == "rotary":
+        return tuple(torch.from_numpy(a).to(device, dtype)
+                     for a in rotary_tables(t, dim, base))
+    return torch.from_numpy(relative_sinusoid_table(t, dim)).to(device, dtype)
+
+
 @functools.lru_cache(maxsize=8)
 def _device_table(kind: str, t: int, dim: int, base: float,
                   device: torch.device, dtype: torch.dtype):
-    """A positional table on ``device`` in ``dtype``, built once per
-    length (a constant of the shape, as under JAX's jit): ``"rotary"``
-    gives (cos, sin), ``"relative"`` the XL sinusoid table. Built
-    outside inference mode, so a training forward may save it for
-    backward whichever call built it."""
+    """:func:`_table`, built once per length (a constant of the shape, as
+    under JAX's jit). Built outside inference mode, so a training forward
+    may save it for backward whichever call built it."""
     with torch.inference_mode(False):
-        if kind == "rotary":
-            return tuple(torch.from_numpy(a).to(device, dtype)
-                         for a in rotary_tables(t, dim, base))
-        return torch.from_numpy(relative_sinusoid_table(t, dim)).to(device,
-                                                                    dtype)
+        return _table(kind, t, dim, base, device, dtype)
+
+
+def position_table(kind: str, t: int, dim: int, base: float,
+                   device: torch.device, dtype: torch.dtype):
+    """The cached :func:`_device_table`, but under a trace
+    (``torch.export``) a table of its own, a constant of the program: a
+    cached one would hold the trace's fake tensor."""
+    build = _table if torch.compiler.is_compiling() else _device_table
+    return build(kind, t, dim, base, device, dtype)
 
 
 class ConformerAttention(nn.Module):
@@ -153,7 +166,7 @@ class ConformerAttention(nn.Module):
         """RoPE on the attention input (B, T, D): HF rotates the hidden
         states before the q/k projections."""
         b, t, _ = x.shape
-        cos, sin = (a[None, :, None, :] for a in _device_table(
+        cos, sin = (a[None, :, None, :] for a in position_table(
             "rotary", t, self.d_head, self.rotary_base, x.device, x.dtype))
         h = x.reshape(b, t, self.num_heads, self.d_head)
         half = self.d_head // 2
@@ -166,7 +179,7 @@ class ConformerAttention(nn.Module):
         realigned from the (T, 2T-1) distance axis by the shift trick,
         over sqrt(dh), in f32."""
         dt = q.dtype
-        pe = _device_table("relative", t, self.d_model, 0.0, q.device,
+        pe = position_table("relative", t, self.d_model, 0.0, q.device,
                            dt)[None]
         r = self._split(self.linear_pos(pe))  # (1, H, 2T-1, dh)
         u = self.pos_bias_u.to(dt)[None, :, None, :]

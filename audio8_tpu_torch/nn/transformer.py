@@ -133,16 +133,31 @@ def relative_position_buckets(t_q: int, t_k: int, num_buckets: int,
     return out.astype(np.int32)
 
 
+def _bucket_table(t: int, num_buckets: int, max_distance: int,
+                  device: torch.device) -> torch.Tensor:
+    """:func:`relative_position_buckets` of (t, t) on ``device``."""
+    return torch.from_numpy(relative_position_buckets(
+        t, t, num_buckets, max_distance)).to(device, torch.long)
+
+
 @functools.lru_cache(maxsize=8)
 def _bucket_ids(t: int, num_buckets: int, max_distance: int,
                 device: torch.device) -> torch.Tensor:
-    """:func:`relative_position_buckets` of (t, t) on ``device``, built
-    once per length: the table is a constant of the shape, as it is under
-    JAX's jit. Built outside inference mode, so a training forward may
-    save it for backward whichever call built it."""
+    """:func:`_bucket_table`, built once per length: the table is a
+    constant of the shape, as it is under JAX's jit. Built outside
+    inference mode, so a training forward may save it for backward
+    whichever call built it."""
     with torch.inference_mode(False):
-        return torch.from_numpy(relative_position_buckets(
-            t, t, num_buckets, max_distance)).to(device, torch.long)
+        return _bucket_table(t, num_buckets, max_distance, device)
+
+
+def bucket_ids(t: int, num_buckets: int, max_distance: int,
+               device: torch.device) -> torch.Tensor:
+    """The cached :func:`_bucket_ids`, but under a trace
+    (``torch.export``) a table of its own, a constant of the program: a
+    cached one would hold the trace's fake tensor."""
+    build = _bucket_table if torch.compiler.is_compiling() else _bucket_ids
+    return build(t, num_buckets, max_distance, device)
 
 
 def relative_position_bias(embed: torch.Tensor, t: int, num_buckets: int,
@@ -152,7 +167,7 @@ def relative_position_bias(embed: torch.Tensor, t: int, num_buckets: int,
     (``RelativePositionBias``): the ``(num_buckets, H)`` table looked up
     at the bucket ids, in the compute dtype as flax's ``Embed`` gives
     it."""
-    buckets = _bucket_ids(t, num_buckets, max_distance, embed.device)
+    buckets = bucket_ids(t, num_buckets, max_distance, embed.device)
     return embed.to(dtype)[buckets].permute(2, 0, 1)[None]
 
 

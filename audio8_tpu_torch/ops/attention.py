@@ -5,11 +5,13 @@ and its custom VJP and, with ``xla=True``, of the XLA attention of
 ``audio8_tpu/nn/transformer.py:MultiHeadAttention`` (the JAX package's
 path for ``fused_attention=None`` and wherever its kernel gates refuse).
 Layout is the JAX one: q, k, v ``(B, H, T, dh)``, key_valid ``(B, T)``.
-On CUDA tensors :func:`attention_core` launches ``csrc/attention_fwd.cu``
-(on the route :func:`attention_route` names) and, when a gradient is
-needed, its backward launches
-``csrc/attention_bwd.cu``. On CPU tensors it runs the plain versions,
-:func:`attention_core_plain` and :func:`attention_core_bwd_plain`. Two
+Both passes are custom ops, ``a8t::attention_core`` and
+``a8t::attention_core_bwd``, with fake implementations. On CUDA tensors
+:func:`attention_core` launches ``csrc/attention_fwd.cu`` (on the route
+:func:`attention_route` names) and, when a gradient is needed, its
+backward launches ``csrc/attention_bwd.cu``. On CPU tensors it runs the
+plain versions, :func:`attention_core_plain` and
+:func:`attention_core_bwd_plain`. Two
 semantics, the same arithmetic otherwise (f32 scores and softmax, the
 probabilities and ds cast to the input dtype before their products):
 
@@ -131,7 +133,7 @@ def attention_core_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         p = torch.where(keep, p * (1.0 / (1.0 - rate)),
                         torch.zeros((), device=p.device))
     out = torch.matmul(p.to(q.dtype), vp)
-    return out[:, :, :t, :]
+    return out[:, :, :t, :].contiguous()
 
 
 def attention_core_bwd_plain(q: torch.Tensor, k: torch.Tensor,
@@ -173,7 +175,7 @@ def attention_core_bwd_f32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ds = ds.to(q.dtype).float()
     dq = torch.matmul(ds, kp) * scale
     dk = torch.matmul(ds.transpose(-1, -2), qp) * scale
-    return tuple(x[:, :, :t, :] for x in (dq, dk, dv))
+    return tuple(x[:, :, :t, :].contiguous() for x in (dq, dk, dv))
 
 
 def validate(q, k, v, key_valid, rate, what):
@@ -270,19 +272,10 @@ def _forward_kernel(q, k, v, key_valid, scale, rate, seed,
     return o, stats, o32
 
 
-def attention_core_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                       o32: torch.Tensor, stats: torch.Tensor,
-                       key_valid: Optional[torch.Tensor], scale: float,
-                       rate: float, seed: int, dout: torch.Tensor, *,
-                       xla: bool = False, bf16_softmax: bool = False,
-                       f32_copies: bool = False):
-    """The backward kernel on CUDA tensors: ``(dq, dk, dv)`` from the
-    forward's inputs, its output in f32 ``o32`` and its row ``stats``
-    (both written by the forward kernel when a gradient is needed). One
-    pass over the keys: the kernel writes one f32 dq partial per 64-key
-    tile into a workspace, summed in a fixed order by a last pass. With
-    ``f32_copies`` it also returns the gradients in f32 before their
-    rounding (what the attention block's bias gradients sum)."""
+def _backward_kernel(q, k, v, o32, stats, key_valid, scale, rate, seed,
+                     dout, xla, bf16_softmax, f32_copies):
+    """Launch ``attention_bwd.cu``: ``(dq, dk, dv)`` and, with
+    ``f32_copies``, their f32 copies before the rounding, else None."""
     kv = _checked(q, k, v, key_valid, rate, "attention_core_bwd")
     validate_bwd(q, dout, o32, stats)
     b, h, t, dh = q.shape
@@ -305,67 +298,152 @@ def attention_core_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   int(_round_logits(xla, bf16_softmax, q.dtype)),
                   _ext.stream_handle(q.device)), "attention_core_bwd")
     attention_core_bwd.launches += 1
-    return (dq, dk, dv, *copies) if f32_copies else (dq, dk, dv)
+    return dq, dk, dv, *copies
 
 
-class _AttentionCore(torch.autograd.Function):
-    """The custom VJP of the JAX ``attention_core`` (and, with ``xla``, the
-    gradient of the XLA attention): residuals are the inputs (plus, on the
-    card, the f32 output and the row statistics)."""
+# The forward and the backward as custom ops. The backward's residuals
+# are the forward kernel's f32 output and row statistics on the card;
+# the CPU's plain backward recomputes, so there they are empty tensors
+# (each fake gives the shapes of its device). Outputs never alias one
+# another: an f32 forward's o32 is ``o`` itself, returned empty.
 
-    @staticmethod
-    def forward(ctx, q, k, v, key_valid, scale, rate, seed, xla,
-                bf16_softmax):
-        sem = dict(xla=xla, bf16_softmax=bf16_softmax)
-        if q.is_cuda:
-            o, stats, o32 = _forward_kernel(q, k, v, key_valid, scale, rate,
-                                            seed, True, **sem)
-        else:
-            o = attention_core_plain(q, k, v, key_valid, scale, rate, seed,
-                                     **sem)
-            stats = o32 = None
-        ctx.save_for_backward(q, k, v, key_valid, o32, stats)
-        ctx.args = (scale, rate, seed, sem)
-        return o
+def _empty(like: torch.Tensor) -> torch.Tensor:
+    return like.new_empty((0,), dtype=torch.float32)
 
-    @staticmethod
-    def backward(ctx, dout):
-        q, k, v, key_valid, o32, stats = ctx.saved_tensors
-        scale, rate, seed, sem = ctx.args
-        if q.is_cuda:
-            grads = attention_core_bwd(q, k, v, o32, stats, key_valid, scale,
-                                       rate, seed, dout, **sem)
-        else:
-            grads = attention_core_bwd_plain(q, k, v, key_valid, scale, rate,
-                                             seed, dout, **sem)
-        return (*grads,) + (None,) * 6
+
+def _empties(like: torch.Tensor) -> tuple:
+    return _empty(like), _empty(like), _empty(like)
+
+
+@torch.library.custom_op("a8t::attention_core", mutates_args=(),
+                         device_types="cpu")
+def attention_core_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      key_valid: Optional[torch.Tensor], scale: float,
+                      rate: float, seed: int, xla: bool, bf16_softmax: bool,
+                      with_stats: bool
+                      ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(o, o32, stats)``; the residuals empty unless ``with_stats`` on a
+    CUDA device."""
+    return (attention_core_plain(q, k, v, key_valid, scale, rate, seed,
+                                 xla=xla, bf16_softmax=bf16_softmax),
+            _empty(q), _empty(q))
+
+
+@attention_core_op.register_kernel("cuda")
+def _(q, k, v, key_valid, scale, rate, seed, xla, bf16_softmax, with_stats):
+    o, stats, o32 = _forward_kernel(q, k, v, key_valid, scale, rate, seed,
+                                    with_stats, xla, bf16_softmax)
+    return (o, _empty(q) if o32 is None or o32 is o else o32,
+            _empty(q) if stats is None else stats)
+
+
+@attention_core_op.register_fake
+def _(q, k, v, key_valid, scale, rate, seed, xla, bf16_softmax, with_stats):
+    if not (with_stats and q.is_cuda):
+        return torch.empty_like(q), _empty(q), _empty(q)
+    b, h, t, _ = q.shape
+    o32 = _empty(q) if q.dtype == torch.float32 else \
+        q.new_empty(q.shape, dtype=torch.float32)
+    return (torch.empty_like(q), o32,
+            q.new_empty((b * h * t, 2), dtype=torch.float32))
+
+
+@torch.library.custom_op("a8t::attention_core_bwd", mutates_args=(),
+                         device_types="cpu")
+def attention_core_bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          o32: torch.Tensor, stats: torch.Tensor,
+                          key_valid: Optional[torch.Tensor], scale: float,
+                          rate: float, seed: int, dout: torch.Tensor,
+                          xla: bool, bf16_softmax: bool, f32_copies: bool
+                          ) -> tuple[torch.Tensor, torch.Tensor,
+                                     torch.Tensor, torch.Tensor,
+                                     torch.Tensor, torch.Tensor]:
+    """``(dq, dk, dv)`` in the input dtype, then their f32 copies (empty
+    without ``f32_copies``); the plain version recomputes and ignores
+    ``o32`` and ``stats``."""
+    g32 = attention_core_bwd_f32(q, k, v, key_valid, scale, rate, seed,
+                                 dout, xla=xla, bf16_softmax=bf16_softmax)
+    if not f32_copies:
+        return (*(g.to(q.dtype) for g in g32), *_empties(q))
+    return (*(g.to(q.dtype, copy=True) for g in g32), *g32)
+
+
+@attention_core_bwd_op.register_kernel("cuda")
+def _(q, k, v, o32, stats, key_valid, scale, rate, seed, dout, xla,
+      bf16_softmax, f32_copies):
+    dq, dk, dv, *copies = _backward_kernel(
+        q, k, v, o32, stats, key_valid, scale, rate, seed, dout, xla,
+        bf16_softmax, f32_copies)
+    return (dq, dk, dv, *(copies if f32_copies else _empties(q)))
+
+
+@attention_core_bwd_op.register_fake
+def _(q, k, v, o32, stats, key_valid, scale, rate, seed, dout, xla,
+      bf16_softmax, f32_copies):
+    copies = tuple(q.new_empty(q.shape, dtype=torch.float32) if f32_copies
+                   else _empty(q) for _ in range(3))
+    return (*(torch.empty_like(q) for _ in range(3)), *copies)
+
+
+def _setup(ctx, inputs, output):
+    q, k, v, key_valid, scale, rate, seed, xla, bf16_softmax, _ = inputs
+    o, o32, stats = output
+    # an f32 forward's f32 output is o itself
+    o32 = o if q.dtype == torch.float32 else o32
+    ctx.save_for_backward(q, k, v, key_valid, o32, stats)
+    ctx.args = (scale, rate, seed, xla, bf16_softmax)
+
+
+def _backward(ctx, dout, *_):
+    """The custom VJP of the JAX ``attention_core`` (and, with ``xla``,
+    the gradient of the XLA attention): residuals are the inputs (plus, on
+    the card, the f32 output and the row statistics)."""
+    q, k, v, key_valid, o32, stats = ctx.saved_tensors
+    scale, rate, seed, xla, bf16_softmax = ctx.args
+    dq, dk, dv, *_ = attention_core_bwd_op(
+        q, k, v, o32, stats, key_valid, scale, rate, seed, dout, xla,
+        bf16_softmax, False)
+    return dq, dk, dv, None, None, None, None, None, None, None
+
+
+attention_core_op.register_autograd(_backward, setup_context=_setup)
+
+
+def attention_core_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       o32: torch.Tensor, stats: torch.Tensor,
+                       key_valid: Optional[torch.Tensor], scale: float,
+                       rate: float, seed: int, dout: torch.Tensor, *,
+                       xla: bool = False, bf16_softmax: bool = False,
+                       f32_copies: bool = False):
+    """The backward, ``a8t::attention_core_bwd``: ``(dq, dk, dv)`` from the
+    forward's inputs, its output in f32 ``o32`` and its row ``stats``
+    (both written by the forward kernel when a gradient is needed; the
+    CPU's plain version recomputes without them). On the card one pass
+    over the keys: the kernel writes one f32 dq partial per 64-key tile
+    into a workspace, summed in a fixed order by a last pass. With
+    ``f32_copies`` it also returns the gradients in f32 before their
+    rounding (what the attention block's bias gradients sum)."""
+    out = attention_core_bwd_op(q, k, v, o32, stats, key_valid, scale, rate,
+                                seed, dout, xla, bf16_softmax, f32_copies)
+    return out if f32_copies else out[:3]
 
 
 def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    key_valid: Optional[torch.Tensor], scale: float,
                    rate: float = 0.0, seed: int = 0, *, xla: bool = False,
                    bf16_softmax: bool = False) -> torch.Tensor:
-    """Fused attention core. q/k/v ``(B, H, T, dh)`` float32 or bfloat16;
-    key_valid optional ``(B, T)`` bool; ``rate`` the probability dropout
-    (0 = off) with uint32 ``seed``. ``xla`` picks the semantics (the
-    module docstring): False, the TPU kernel's (head ``(b, h)`` seeded
-    ``seed + b*H + h``); True, the JAX XLA attention's, where
-    ``bf16_softmax`` rounds bf16 logits. Returns ``(B, H, T, dh)`` in the
-    input dtype, differentiable in q, k and v. CPU tensors take the plain
-    versions; CUDA tensors launch the kernels or raise."""
-    tensors = [q, k, v] + ([] if key_valid is None else [key_valid])
-    on_cpu = all(a.device.type == "cpu" for a in tensors)
-    sem = dict(xla=xla, bf16_softmax=bf16_softmax)
-    if torch.is_grad_enabled() and any(a.requires_grad for a in (q, k, v)):
-        if not on_cpu:
-            _checked(q, k, v, key_valid, rate, "attention_core")
-        return _AttentionCore.apply(q, k, v, key_valid, scale, rate, seed,
-                                    xla, bf16_softmax)
-    if on_cpu:
-        return attention_core_plain(q, k, v, key_valid, scale, rate, seed,
-                                    **sem)
-    return _forward_kernel(q, k, v, key_valid, scale, rate, seed, False,
-                           **sem)[0]
+    """Fused attention core, ``a8t::attention_core``. q/k/v ``(B, H, T,
+    dh)`` float32 or bfloat16; key_valid optional ``(B, T)`` bool; ``rate``
+    the probability dropout (0 = off) with uint32 ``seed``. ``xla`` picks
+    the semantics (the module docstring): False, the TPU kernel's (head
+    ``(b, h)`` seeded ``seed + b*H + h``); True, the JAX XLA attention's,
+    where ``bf16_softmax`` rounds bf16 logits. Returns ``(B, H, T, dh)``
+    in the input dtype, differentiable in q, k and v. CPU tensors take
+    the plain versions; CUDA tensors launch the kernels or raise."""
+    with_stats = torch.is_grad_enabled() and any(
+        a.requires_grad for a in (q, k, v))
+    return attention_core_op(q, k, v, key_valid, scale, rate, seed, xla,
+                             bf16_softmax, with_stats)[0]
 
 
 attention_core.launches = 0

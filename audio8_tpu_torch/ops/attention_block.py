@@ -162,10 +162,11 @@ def sum_partials(x, wq, bq, wk, bk, wv, bv, wo, bo, dw_part, dwo_part,
     (3, S_w, H*dh, D) and ``dwo_part`` (S_wo, D, H*dh), one per K slice;
     ``db_part`` (B, 3, H*dh), one per batch row), each summed by one
     reduction (a fixed order, no atomics: the same bits on every call)
-    into one f32 buffer, which is rounded once to the parameters' dtype;
-    ``dbo`` is the f32 sum of dout over batch and time."""
+    into one f32 buffer, which is rounded once to the parameters' dtype
+    and returned whole (:func:`split_grads` cuts it); ``dbo`` is the f32
+    sum of dout over batch and time."""
     hd, d = dw_part.shape[-2:]
-    shapes = ((3, hd, d), (d, hd), (3, hd), (d,))
+    shapes = _grad_shapes(hd, d)
     sizes = [math.prod(s) for s in shapes]
     flat = torch.empty(sum(sizes), dtype=torch.float32,
                        device=dw_part.device)
@@ -174,8 +175,20 @@ def sum_partials(x, wq, bq, wk, bk, wv, bv, wo, bo, dw_part, dwo_part,
     torch.sum(dwo_part, 0, out=dwo)
     torch.sum(db_part, 0, out=db)
     torch.sum(dout, (0, 1), dtype=torch.float32, out=dbo)
+    return flat.to(wq.dtype)
+
+
+def _grad_shapes(hd: int, d: int) -> tuple:
+    """dW{q,k,v}, dWo, db{q,k,v}, dbo: the layout of the flat gradient."""
+    return (3, hd, d), (d, hd), (3, hd), (d,)
+
+
+def split_grads(flat: torch.Tensor, hd: int, d: int) -> tuple:
+    """The flat gradient of :func:`sum_partials` as ``(dwq, dbq, dwk, dbk,
+    dwv, dbv, dwo, dbo)``, views of it."""
+    shapes = _grad_shapes(hd, d)
     dw, dwo, db, dbo = (a.view(s) for a, s in zip(
-        flat.to(wq.dtype).split(sizes), shapes))
+        flat.split([math.prod(s) for s in shapes]), shapes))
     return dw[0], db[0], dw[1], db[1], dw[2], db[2], dwo, dbo
 
 
@@ -188,6 +201,15 @@ def attention_block_bwd_plain(x, wq, bq, wk, bk, wv, bv, wo, bo,
     the sums outside it): ``(dx, dwq, dbq, dwk, dbk, dwv, dbv, dwo, dbo)``
     by recompute; ``slices`` = (S_w, S_wo) K slices of the dW{q,k,v} and
     dWo products over the B*T_pad rows."""
+    dx, flat = _bwd_plain(x, wq, bq, wk, bk, wv, bv, wo, bo, key_valid,
+                          num_heads, scale, rate, seed, dout, slices)
+    return (dx,) + split_grads(flat, *wq.shape)
+
+
+def _bwd_plain(x, wq, bq, wk, bk, wv, bv, wo, bo, key_valid, num_heads,
+               scale, rate, seed, dout, slices=(1, 1)):
+    """:func:`attention_block_bwd_plain` with the weights' and biases'
+    gradients in one buffer: ``(dx, flat)``."""
     b, t, d = x.shape
     t_pad = round_up(t, 128)
     dt = x.dtype
@@ -206,7 +228,7 @@ def attention_block_bwd_plain(x, wq, bq, wk, bk, wv, bv, wo, bo,
                            for a in g])                       # (3, S, HD, D)
     db_part = torch.stack([_merge(a).sum(1) for a in g32], 1)
     dx = sum(torch.matmul(a, w.float()) for a, w in zip(g, (wq, wk, wv)))
-    return (dx[:, :t].to(dt),) + sum_partials(
+    return dx[:, :t].to(dt).contiguous(), sum_partials(
         x, wq, bq, wk, bk, wv, bv, wo, bo, dw_part, dwo_part, db_part, dout)
 
 
@@ -280,16 +302,16 @@ def _forward_kernel(x, weights, key_valid, num_heads, scale, rate, seed,
     route = GEMM_ROUTES.index(gemm_route(x.dtype, d, num_heads, dh))
     kv = padded_key_mask(key_valid, b, t, t_pad, dev).to(torch.uint8)
     heads = (b, num_heads, t_pad, dh)
-    q, k, v, o = _workspace([heads] * 4, x.dtype, dev)
-    stats = o32 = None
-    if with_residuals:
-        if x.dtype == torch.float32:
-            stats, = _workspace([(b * num_heads * t_pad, 2)], torch.float32,
-                                dev)
-            o32 = o
-        else:
-            stats, o32 = _workspace([(b * num_heads * t_pad, 2), heads],
-                                    torch.float32, dev)
+    if with_residuals:  # the op's outputs: one allocation each
+        q, k, v, o = (torch.empty(heads, dtype=x.dtype, device=dev)
+                      for _ in range(4))
+        stats = torch.empty((b * num_heads * t_pad, 2), dtype=torch.float32,
+                            device=dev)
+        o32 = o if x.dtype == torch.float32 else torch.empty(
+            heads, dtype=torch.float32, device=dev)
+    else:
+        q, k, v, o = _workspace([heads] * 4, x.dtype, dev)
+        stats = o32 = None
     out = torch.empty_like(x)
     ptrs = [a.data_ptr() for a in (x, *weights, kv, q, k, v, o)]
     fn = _ext.function(SOURCE)
@@ -305,13 +327,14 @@ def _forward_kernel(x, weights, key_valid, num_heads, scale, rate, seed,
     return out, residuals
 
 
-def attention_block_bwd(x, weights, residuals, num_heads: int, scale: float,
-                        rate: float, seed: int, dout: torch.Tensor):
+def _backward_kernel(x, weights, residuals, num_heads: int, scale: float,
+                     rate: float, seed: int, dout: torch.Tensor):
     """The backward kernel on CUDA tensors (eight device kernels: dxo,
     the dWo partials, the core backward's three (D, the fused pass, the
     dq reduction), the dW{q,k,v} partials, dx and the bias partials),
-    then the partials' sums: ``(dx, dwq, dbq, dwk, dbk, dwv, dbv, dwo,
-    dbo)``. ``residuals`` are the forward kernel's."""
+    then the partials' sums: ``(dx, flat)``, the weights' and biases'
+    gradients in one buffer (:func:`split_grads`). ``residuals`` are the
+    forward kernel's."""
     dh, t_pad = _checked(x, weights, None, num_heads, rate,
                          "attention_block_bwd")
     kv, q, k, v, o, o32, stats = residuals
@@ -347,43 +370,137 @@ def attention_block_bwd(x, weights, residuals, num_heads: int, scale: float,
         _ext.stream_handle(dev)),
         "attention_block_bwd")
     attention_block_bwd.launches += 1
-    return (dx,) + sum_partials(x, *weights, dw_part, dwo_part, db_part,
-                                dout)
+    return dx, sum_partials(x, *weights, dw_part, dwo_part, db_part, dout)
 
 
-class _AttentionBlock(torch.autograd.Function):
+# The forward and the backward as custom ops. On the card the backward's
+# residuals are the forward kernel's intermediates; the CPU's plain
+# backward recomputes, so there they are empty (each fake gives its
+# device's shapes). An f32 forward's o32 is ``o``, returned empty.
+
+def _empty(like: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
+    return like.new_empty((0,), dtype=dtype)
+
+
+_Tensors8 = tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
+                  torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
+
+
+@torch.library.custom_op("a8t::attention_block", mutates_args=(),
+                         device_types="cpu")
+def attention_block_op(x: torch.Tensor, wq: torch.Tensor, bq: torch.Tensor,
+                       wk: torch.Tensor, bk: torch.Tensor, wv: torch.Tensor,
+                       bv: torch.Tensor, wo: torch.Tensor, bo: torch.Tensor,
+                       key_valid: Optional[torch.Tensor], num_heads: int,
+                       scale: float, rate: float, seed: int,
+                       with_residuals: bool) -> _Tensors8:
+    """``(out, kv, q, k, v, o, o32, stats)``: the output, then the
+    backward kernel's residuals (empty unless ``with_residuals`` on a
+    CUDA device)."""
+    out = attention_block_plain(x, wq, bq, wk, bk, wv, bv, wo, bo, key_valid,
+                                num_heads, scale, rate, seed)
+    return (out, _empty(x, torch.uint8),
+            *(_empty(x) for _ in range(6)))
+
+
+@attention_block_op.register_kernel("cuda")
+def _(x, wq, bq, wk, bk, wv, bv, wo, bo, key_valid, num_heads, scale, rate,
+      seed, with_residuals):
+    out, res = _forward_kernel(x, (wq, bq, wk, bk, wv, bv, wo, bo),
+                               key_valid, num_heads, scale, rate, seed,
+                               with_residuals)
+    if res is None:
+        return (out, _empty(x, torch.uint8),
+                *(_empty(x) for _ in range(6)))
+    kv, q, k, v, o, o32, stats = res
+    return out, kv, q, k, v, o, _empty(x) if o32 is o else o32, stats
+
+
+@attention_block_op.register_fake
+def _(x, wq, bq, wk, bk, wv, bv, wo, bo, key_valid, num_heads, scale, rate,
+      seed, with_residuals):
+    if not (with_residuals and x.is_cuda):
+        return (torch.empty_like(x), _empty(x, torch.uint8),
+                *(_empty(x) for _ in range(6)))
+    b, t, _ = x.shape
+    t_pad = (t + 127) // 128 * 128
+    heads = (b, num_heads, t_pad, wq.shape[0] // num_heads)
+    o32 = _empty(x) if x.dtype == torch.float32 else \
+        x.new_empty(heads, dtype=torch.float32)
+    return (torch.empty_like(x), x.new_empty((b, t_pad), dtype=torch.uint8),
+            *(x.new_empty(heads) for _ in range(4)), o32,
+            x.new_empty((b * num_heads * t_pad, 2), dtype=torch.float32))
+
+
+@torch.library.custom_op("a8t::attention_block_bwd", mutates_args=(),
+                         device_types="cpu")
+def attention_block_bwd_op(x: torch.Tensor, wq: torch.Tensor,
+                           bq: torch.Tensor, wk: torch.Tensor,
+                           bk: torch.Tensor, wv: torch.Tensor,
+                           bv: torch.Tensor, wo: torch.Tensor,
+                           bo: torch.Tensor,
+                           key_valid: Optional[torch.Tensor],
+                           kv: torch.Tensor, q: torch.Tensor,
+                           k: torch.Tensor, v: torch.Tensor,
+                           o: torch.Tensor, o32: torch.Tensor,
+                           stats: torch.Tensor, num_heads: int, scale: float,
+                           rate: float, seed: int, dout: torch.Tensor
+                           ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(dx, flat)``: the weights' and biases' gradients in one buffer
+    (:func:`split_grads`); the plain version recomputes from ``x`` and
+    ``key_valid`` and ignores the residuals."""
+    return _bwd_plain(x, wq, bq, wk, bk, wv, bv, wo, bo, key_valid,
+                      num_heads, scale, rate, seed, dout)
+
+
+@attention_block_bwd_op.register_kernel("cuda")
+def _(x, wq, bq, wk, bk, wv, bv, wo, bo, key_valid, kv, q, k, v, o, o32,
+      stats, num_heads, scale, rate, seed, dout):
+    o32 = o if x.dtype == torch.float32 else o32
+    return _backward_kernel(x, (wq, bq, wk, bk, wv, bv, wo, bo),
+                            (kv, q, k, v, o, o32, stats), num_heads, scale,
+                            rate, seed, dout)
+
+
+@attention_block_bwd_op.register_fake
+def _(x, wq, bq, wk, bk, wv, bv, wo, bo, key_valid, kv, q, k, v, o, o32,
+      stats, num_heads, scale, rate, seed, dout):
+    hd, d = wq.shape
+    return torch.empty_like(x), x.new_empty((4 * hd * d + 3 * hd + d,))
+
+
+def _setup(ctx, inputs, output):
+    x, *weights = inputs[:9]
+    key_valid, num_heads, scale, rate, seed, _ = inputs[9:]
+    ctx.save_for_backward(x, *weights, key_valid, *output[1:])
+    ctx.args = (num_heads, scale, rate, seed)
+
+
+def _backward(ctx, dout, *_):
     """The custom VJP of the JAX block: gradients for x and all eight
-    weights and biases. On the card the residuals are the forward
-    kernel's intermediates; on the CPU the plain backward recomputes."""
+    weights and biases."""
+    x, *weights = ctx.saved_tensors[:9]
+    key_valid, *residuals = ctx.saved_tensors[9:]
+    num_heads, scale, rate, seed = ctx.args
+    dx, flat = attention_block_bwd_op(x, *weights, key_valid, *residuals,
+                                      num_heads, scale, rate, seed, dout)
+    return (dx, *split_grads(flat, *weights[0].shape), None, None, None,
+            None, None, None)
 
-    @staticmethod
-    def forward(ctx, x, wq, bq, wk, bk, wv, bv, wo, bo, key_valid, num_heads,
-                scale, rate, seed):
-        weights = (wq, bq, wk, bk, wv, bv, wo, bo)
-        if x.is_cuda:
-            out, residuals = _forward_kernel(x, weights, key_valid, num_heads,
-                                             scale, rate, seed, True)
-        else:
-            out = attention_block_plain(x, *weights, key_valid, num_heads,
-                                        scale, rate, seed)
-            residuals = ()
-        ctx.save_for_backward(x, *weights, key_valid, *residuals)
-        ctx.args = (num_heads, scale, rate, seed)
-        return out
 
-    @staticmethod
-    def backward(ctx, dout):
-        x, *rest = ctx.saved_tensors
-        weights, key_valid, residuals = rest[:8], rest[8], rest[9:]
-        num_heads, scale, rate, seed = ctx.args
-        if x.is_cuda:
-            grads = attention_block_bwd(x, weights, residuals, num_heads,
-                                        scale, rate, seed, dout)
-        else:
-            grads = attention_block_bwd_plain(x, *weights, key_valid,
-                                              num_heads, scale, rate, seed,
-                                              dout)
-        return (*grads, None, None, None, None, None)
+attention_block_op.register_autograd(_backward, setup_context=_setup)
+
+
+def attention_block_bwd(x, weights, residuals, num_heads: int, scale: float,
+                        rate: float, seed: int, dout: torch.Tensor):
+    """The backward, ``a8t::attention_block_bwd``, from the forward
+    kernel's ``residuals`` (:func:`_forward_kernel`): ``(dx, dwq, dbq,
+    dwk, dbk, dwv, dbv, dwo, dbo)``."""
+    kv, q, k, v, o, o32, stats = residuals
+    dx, flat = attention_block_bwd_op(
+        x, *weights, None, kv, q, k, v, o, _empty(x) if o32 is o else o32,
+        stats, num_heads, scale, rate, seed, dout)
+    return (dx,) + split_grads(flat, *weights[0].shape)
 
 
 def attention_block(x: torch.Tensor, wq: torch.Tensor, bq: torch.Tensor,
@@ -392,26 +509,17 @@ def attention_block(x: torch.Tensor, wq: torch.Tensor, bq: torch.Tensor,
                     key_valid: Optional[torch.Tensor], num_heads: int,
                     scale: float, rate: float = 0.0,
                     seed: int = 0) -> torch.Tensor:
-    """Self-attention of x through its four projections: ``(B, T, D)`` in
-    the input dtype (float32 or bfloat16; weights and biases in the same
-    dtype), differentiable in x and all eight weights and biases.
-    ``rate``: attention-probability dropout with uint32 ``seed``. CPU
-    tensors take the plain versions; CUDA tensors launch the kernels or
-    raise."""
+    """Self-attention of x through its four projections, the op
+    ``a8t::attention_block``: ``(B, T, D)`` in the input dtype (float32 or
+    bfloat16; weights and biases in the same dtype), differentiable in x
+    and all eight weights and biases. ``rate``: attention-probability
+    dropout with uint32 ``seed``. CPU tensors take the plain versions;
+    CUDA tensors launch the kernels or raise."""
     weights = (wq, bq, wk, bk, wv, bv, wo, bo)
-    tensors = [x, *weights] + ([] if key_valid is None else [key_valid])
-    on_cpu = all(a.device.type == "cpu" for a in tensors)
-    if torch.is_grad_enabled() and any(a.requires_grad for a in
-                                       (x, *weights)):
-        if not on_cpu:
-            _checked(x, weights, key_valid, num_heads, rate, "attention_block")
-        return _AttentionBlock.apply(x, *weights, key_valid, num_heads, scale,
-                                     rate, seed)
-    if on_cpu:
-        return attention_block_plain(x, *weights, key_valid, num_heads, scale,
-                                     rate, seed)
-    return _forward_kernel(x, weights, key_valid, num_heads, scale, rate,
-                           seed, False)[0]
+    with_residuals = torch.is_grad_enabled() and any(
+        a.requires_grad for a in (x, *weights))
+    return attention_block_op(x, *weights, key_valid, num_heads, scale, rate,
+                              seed, with_residuals)[0]
 
 
 attention_block.launches = 0

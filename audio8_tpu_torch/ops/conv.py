@@ -5,10 +5,12 @@ its custom VJP. :func:`conv1d_k3s2` is differentiable in ``x`` and ``w``:
 its forward is ``csrc/conv_k3s2_fwd.cu`` (on the route :func:`fwd_route`
 names), its backward the dgrad and wgrad kernels of
 ``csrc/conv_k3s2_bwd.cu`` (:func:`conv1d_k3s2_dgrad`,
-:func:`conv1d_k3s2_wgrad`). On CPU tensors each wrapper runs its plain
-version, the same function in plain PyTorch, which is also what the
-kernel is checked against on the card; on CUDA tensors it launches the
-kernel or raises.
+:func:`conv1d_k3s2_wgrad`). Each kernel is a custom op
+(``a8t::conv_k3s2``, ``a8t::conv_k3s2_dgrad``, ``a8t::conv_k3s2_wgrad``)
+with a fake implementation, so ``torch.export`` traces through it. On
+CPU tensors each op runs its plain version, the same function in plain
+PyTorch, which is also what the kernel is checked against on the card;
+on CUDA tensors it launches the kernel or raises.
 """
 from __future__ import annotations
 
@@ -84,7 +86,7 @@ def conv1d_k3s2_dgrad_plain(dy: torch.Tensor, w: torch.Tensor,
     even = torch.matmul(rows, torch.cat([wt[2], wt[0]], dim=0))
     odd = torch.matmul(rows[..., c_out:], wt[1])
     dx = torch.stack([even, odd], dim=2).reshape(b, 2 * (t_out + 1), c_in)
-    return dx[:, :t_in]
+    return dx[:, :t_in].contiguous()
 
 
 def conv1d_k3s2_wgrad_plain(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
@@ -102,12 +104,19 @@ def conv1d_k3s2_wgrad_plain(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
     return dw.reshape(3, c_in, c_out)
 
 
-def _check_cuda(what: str, *tensors: torch.Tensor) -> None:
+def _check_devices(what: str, *tensors: torch.Tensor,
+                   cuda: bool = False) -> None:
+    """All on one device (the fakes check it too), a CUDA one with
+    ``cuda``."""
     dev = tensors[0].device
-    if not all(a.is_cuda and a.device == dev for a in tensors):
+    if any(a.device != dev or (cuda and not a.is_cuda) for a in tensors):
         raise ValueError(f"{what}: tensors on "
                          f"{[str(a.device) for a in tensors]}; both must be "
                          "CPU or the same CUDA device")
+
+
+def _check_cuda(what: str, *tensors: torch.Tensor) -> None:
+    _check_devices(what, *tensors, cuda=True)
     dt = tensors[0].dtype
     if dt not in _ext.DTYPE_CODES or any(a.dtype != dt for a in tensors):
         raise TypeError(f"{what}: dtypes {[a.dtype for a in tensors]}; the "
@@ -131,8 +140,8 @@ def _vectors(what: str, c_in: int, c_out: int,
 
 
 def _forward(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    if x.device.type == "cpu" and w.device.type == "cpu":
-        return conv1d_k3s2_plain(x, w)
+    """The forward kernel on CUDA tensors (the route is the kernel's own
+    choice, :func:`fwd_route`)."""
     _check_cuda("conv1d_k3s2", x, w)
     b, t, c_in = x.shape
     c_out = w.shape[2]
@@ -154,17 +163,21 @@ def _forward(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 def conv1d_k3s2_dgrad(dy: torch.Tensor, w: torch.Tensor,
                       t_in: int) -> torch.Tensor:
     """dgrad: ``dy`` (B, T_out, C_out), ``w`` (3, C_in, C_out) -> ``dx``
-    (B, T_in, C_in) in dy's dtype, f32 accumulation. CPU tensors take the
-    plain version; CUDA tensors launch the kernel on the route
-    :func:`dgrad_route` names or raise (channel counts as
-    :func:`_vectors` sets out)."""
+    (B, T_in, C_in) in dy's dtype, f32 accumulation: the op
+    ``a8t::conv_k3s2_dgrad``. CPU tensors take the plain version; CUDA
+    tensors launch the kernel on the route :func:`dgrad_route` names or
+    raise (channel counts as :func:`_vectors` sets out)."""
     b, t_out, c_out = dy.shape
     if w.dim() != 3 or w.shape[0] != 3 or w.shape[2] != c_out \
             or t_in < 3 or t_out_of(t_in) != t_out:
         raise ValueError(f"conv1d_k3s2_dgrad: dy {tuple(dy.shape)}, w "
                          f"{tuple(w.shape)}, T_in {t_in} do not fit")
-    if dy.device.type == "cpu" and w.device.type == "cpu":
-        return conv1d_k3s2_dgrad_plain(dy, w, t_in)
+    return conv_k3s2_dgrad_op(dy, w, t_in)
+
+
+def _dgrad(dy: torch.Tensor, w: torch.Tensor, t_in: int) -> torch.Tensor:
+    """The dgrad kernel on CUDA tensors."""
+    b, t_out, c_out = dy.shape
     c_in = w.shape[1]
     wgmma = dgrad_route(dy.dtype, c_in, c_out) == "wgmma"
     # the wgmma route reads w's taps as they lie; the others read wt = w^T
@@ -229,18 +242,23 @@ def wgrad_wgmma_slices(batch: int, t_in: int, c_in: int, c_out: int,
 
 def conv1d_k3s2_wgrad(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
     """wgrad: ``x`` (B, T_in, C_in), ``dy`` (B, T_out, C_out) -> ``dW``
-    (3, C_in, C_out) in float32. CPU tensors take the plain version; CUDA
-    tensors launch the kernel on the route :func:`wgrad_route` names
-    (split over the rows, partials summed in a fixed order) or raise
-    (channel counts as :func:`_vectors` sets out)."""
+    (3, C_in, C_out) in float32: the op ``a8t::conv_k3s2_wgrad``. CPU
+    tensors take the plain version; CUDA tensors launch the kernel on the
+    route :func:`wgrad_route` names (split over the rows, partials summed
+    in a fixed order) or raise (channel counts as :func:`_vectors` sets
+    out)."""
     b, t_in, c_in = x.shape
     if dy.dim() != 3 or dy.shape[0] != b or t_in < 3 \
             or dy.shape[1] != t_out_of(t_in):
         raise ValueError(f"conv1d_k3s2_wgrad: x {tuple(x.shape)}, dy "
                          f"{tuple(dy.shape)} do not fit")
-    if x.device.type == "cpu" and dy.device.type == "cpu":
-        return conv1d_k3s2_wgrad_plain(x, dy)
+    return conv_k3s2_wgrad_op(x, dy)
+
+
+def _wgrad(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
+    """The wgrad kernel on CUDA tensors."""
     _check_cuda("conv1d_k3s2_wgrad", x, dy)
+    b, t_in, c_in = x.shape
     c_out = dy.shape[2]
     x, dy = _vectors("conv1d_k3s2_wgrad", c_in, c_out, x, dy)
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
@@ -261,36 +279,81 @@ def conv1d_k3s2_wgrad(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
     return dw
 
 
-class _ConvK3S2(torch.autograd.Function):
+# The three kernels as custom ops: "cpu" runs the plain version, "cuda"
+# the kernel (or raises), the fake gives the output's shape alone, so a
+# trace (torch.export, opcheck) neither picks a route nor counts a launch.
+
+@torch.library.custom_op("a8t::conv_k3s2", mutates_args=(),
+                         device_types="cpu")
+def conv_k3s2_op(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    return conv1d_k3s2_plain(x, w)
+
+
+@torch.library.custom_op("a8t::conv_k3s2_dgrad", mutates_args=(),
+                         device_types="cpu")
+def conv_k3s2_dgrad_op(dy: torch.Tensor, w: torch.Tensor,
+                       t_in: int) -> torch.Tensor:
+    return conv1d_k3s2_dgrad_plain(dy, w, t_in)
+
+
+@torch.library.custom_op("a8t::conv_k3s2_wgrad", mutates_args=(),
+                         device_types="cpu")
+def conv_k3s2_wgrad_op(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
+    return conv1d_k3s2_wgrad_plain(x, dy)
+
+
+conv_k3s2_op.register_kernel("cuda")(_forward)
+conv_k3s2_dgrad_op.register_kernel("cuda")(_dgrad)
+conv_k3s2_wgrad_op.register_kernel("cuda")(_wgrad)
+
+
+@conv_k3s2_op.register_fake
+def _(x, w):
+    _check_devices("conv1d_k3s2", x, w)
+    b, t, _ = x.shape
+    return x.new_empty((b, (t - 3) // 2 + 1, w.shape[2]))
+
+
+@conv_k3s2_dgrad_op.register_fake
+def _(dy, w, t_in):
+    _check_devices("conv1d_k3s2_dgrad", dy, w)
+    return dy.new_empty((dy.shape[0], t_in, w.shape[1]))
+
+
+@conv_k3s2_wgrad_op.register_fake
+def _(x, dy):
+    _check_devices("conv1d_k3s2_wgrad", x, dy)
+    return x.new_empty((3, x.shape[2], dy.shape[2]), dtype=torch.float32)
+
+
+def _setup(ctx, inputs, output):
+    ctx.save_for_backward(*inputs)
+
+
+def _backward(ctx, dy):
     """The custom VJP of the JAX ``conv1d_k3s2``: the residuals are the
     inputs, ``dW = wgrad(x, dy).astype(w.dtype)``."""
+    x, w = ctx.saved_tensors
+    dy = dy.contiguous()
+    dx = dw = None
+    if ctx.needs_input_grad[0]:
+        dx = conv1d_k3s2_dgrad(dy, w, x.shape[1])
+    if ctx.needs_input_grad[1]:
+        dw = conv1d_k3s2_wgrad(x, dy).to(w.dtype)
+    return dx, dw
 
-    @staticmethod
-    def forward(ctx, x, w):
-        ctx.save_for_backward(x, w)
-        return _forward(x, w)
 
-    @staticmethod
-    def backward(ctx, dy):
-        x, w = ctx.saved_tensors
-        dy = dy.contiguous()
-        dx = dw = None
-        if ctx.needs_input_grad[0]:
-            dx = conv1d_k3s2_dgrad(dy, w, x.shape[1])
-        if ctx.needs_input_grad[1]:
-            dw = conv1d_k3s2_wgrad(x, dy).to(w.dtype)
-        return dx, dw
+conv_k3s2_op.register_autograd(_backward, setup_context=_setup)
 
 
 def conv1d_k3s2(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """(B, T, C_in) x (3, C_in, C_out) -> (B, (T-3)//2+1, C_out), VALID.
+    """(B, T, C_in) x (3, C_in, C_out) -> (B, (T-3)//2+1, C_out), VALID:
+    the op ``a8t::conv_k3s2``.
 
     f32 or bf16 inputs (both the same dtype), f32 accumulation, output in
     the input dtype; differentiable in both. CPU tensors take the plain
     versions; CUDA tensors launch the kernels or raise."""
-    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
-        return _ConvK3S2.apply(x, w)
-    return _forward(x, w)
+    return conv_k3s2_op(x, w)
 
 
 conv1d_k3s2.launches = 0

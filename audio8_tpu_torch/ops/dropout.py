@@ -6,8 +6,9 @@ the element's flat index and an integer seed (``ops/hashrand.py``), bit
 for bit the JAX package's ``_hash_keep_mask``. :func:`fused_dropout` is
 differentiable; like ``_hash_dropout``'s custom VJP it keeps no mask: the
 backward regenerates it from the scalar seed and applies the same
-function to ``dy``. On CUDA tensors both passes launch
-``csrc/dropout.cu``; on CPU tensors they run :func:`hash_dropout`, the
+function to ``dy``. Both passes are the custom op ``a8t::hash_dropout``
+(:func:`hash_dropout_op`): on CUDA tensors it launches
+``csrc/dropout.cu``, on CPU tensors it runs :func:`hash_dropout`, the
 plain version, which the kernel is checked against on the card.
 """
 from __future__ import annotations
@@ -39,6 +40,9 @@ def hash_dropout(x: torch.Tensor, rate: float, seed: int) -> torch.Tensor:
 
 
 def _launch(x: torch.Tensor, rate: float, seed: int) -> torch.Tensor:
+    if not x.is_cuda:
+        raise ValueError(f"fused_dropout: x on {x.device}; want the CPU or "
+                         "a CUDA device")
     if x.dtype not in _ext.DTYPE_CODES:
         raise TypeError(f"fused_dropout: dtype {x.dtype}; the kernel takes "
                         "float32 or bfloat16")
@@ -52,27 +56,33 @@ def _launch(x: torch.Tensor, rate: float, seed: int) -> torch.Tensor:
     return y
 
 
-def _apply(x: torch.Tensor, rate: float, seed: int) -> torch.Tensor:
-    if x.device.type == "cpu":
-        return hash_dropout(x, rate, seed)
-    if not x.is_cuda:
-        raise ValueError(f"fused_dropout: x on {x.device}; want the CPU or "
-                         "a CUDA device")
-    return _launch(x, rate, seed)
+@torch.library.custom_op("a8t::hash_dropout", mutates_args=(),
+                         device_types="cpu")
+def hash_dropout_op(x: torch.Tensor, rate: float, seed: int) -> torch.Tensor:
+    """``a8t::hash_dropout``: the plain version on the CPU, the kernel on
+    CUDA (:func:`_launch`), a new tensor like ``x`` under a trace."""
+    y = hash_dropout(x, rate, seed)
+    return y.clone() if y is x else y  # an op's output never aliases x
 
 
-class _FusedDropout(torch.autograd.Function):
+hash_dropout_op.register_kernel("cuda")(_launch)
+
+
+@hash_dropout_op.register_fake
+def _(x, rate, seed):
+    return torch.empty_like(x)
+
+
+def _setup(ctx, inputs, output):
+    ctx.rate, ctx.seed = inputs[1], inputs[2]
+
+
+def _backward(ctx, dy):
     """``_hash_dropout``'s custom VJP: the residual is the seed."""
+    return hash_dropout_op(dy, ctx.rate, ctx.seed), None, None
 
-    @staticmethod
-    def forward(ctx, x, rate, seed):
-        ctx.args = (rate, seed)
-        return _apply(x, rate, seed)
 
-    @staticmethod
-    def backward(ctx, dy):
-        rate, seed = ctx.args
-        return _apply(dy, rate, seed), None, None
+hash_dropout_op.register_autograd(_backward, setup_context=_setup)
 
 
 def fused_dropout(x: torch.Tensor, rate: float, seed: int) -> torch.Tensor:
@@ -83,9 +93,7 @@ def fused_dropout(x: torch.Tensor, rate: float, seed: int) -> torch.Tensor:
         raise ValueError(f"fused_dropout: rate {rate} not in [0, 1)")
     if rate == 0.0:
         return x
-    if torch.is_grad_enabled() and x.requires_grad:
-        return _FusedDropout.apply(x, rate, seed)
-    return _apply(x, rate, seed)
+    return hash_dropout_op(x, rate, seed)
 
 
 fused_dropout.launches = 0

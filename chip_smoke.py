@@ -219,6 +219,25 @@ instead, to compare.
               launch), then the block against its plain versions at those
               shapes in f32 and bf16;
 
+17. export - every ``a8t::`` custom op through ``torch.library.opcheck``
+              on the card (the kernels' inputs of ``ops/samples.py``, f32
+              and bf16); ``cli.export`` of the serve phase's ``ctc.pt``
+              (full-width wav2vec2-base CTC) for the card with entries of
+              5 s and 30 s, in f32 and bf16, and with the 30 s entry in
+              ``--quantize int8``: each
+              loaded artifact against the live forward on one (4, 30 s)
+              batch and on a 3 s batch padded up (log-probs within
+              1e-5 in f32 and int8 and 2^-5 in bf16, bitwise expected;
+              argmax and greedy texts equal), one exported dispatch
+              launching kernel 2 twelve times and kernel 3 four times,
+              the (4, 30 s) dispatch's CUDA-event ms exported against
+              live in turns (``export_timing``, f32 and bf16, with each
+              side's traced device ms and costliest kernels), the three
+              artifacts in a process with the port's ``models`` and
+              ``nn`` blocked (its log-probs against this process's);
+              then ``cli.transcribe``, ``cli.test``, ``cli.serve`` and
+              ``cli.embed`` with ``--exported`` (``phase_export_clis``);
+
 then a ``phase_seconds`` line (each phase's wall seconds and each phase's
 retried profiler traces, ``trace_retries``), a ``kernels``
 line, the card's name and power limit from nvidia-smi,
@@ -234,6 +253,8 @@ card it exits with code 2 and prints no result.
     python3 chip_smoke.py --inference-first  # the full run, phases 15
                                              # before the timing phase
     python3 chip_smoke.py --topology-phases  # the build and phase 16 only
+    python3 chip_smoke.py --export-phases    # the build and phase 17 only
+    python3 chip_smoke.py --host-timing      # the wrappers' host cost
 
 ``--block-timing`` builds the block's two sources and prints only the
 attention block's timing rows (phase 14) in float32 and bfloat16, then
@@ -254,6 +275,12 @@ on the card over 320 FLACs of 1.5-15 s against a trigram ARPA of
 the beam+LM decode (``--beam 8 --lm``) on a random model's log-probs,
 and ``run_step``'s beam+LM decode of log-probs shaped like a trained
 model's (``peaky_log_probs``), in host ms per utterance.
+``--export-phases`` runs the build and phase 17 alone on a ``ctc.pt`` of
+the model phase's weights (phase 17 took 144.6 s of a full run on an
+H100 80GB HBM3 at 700 W). ``--host-timing`` prints the host us per
+call of ``fused_dropout`` and ``attention_core`` and the wall ms of a
+bf16 pretraining step; a copy placed in another tree's root times that
+tree (two trees in turns in one call).
 ``--freeze-timing`` times the frozen seq2seq and paired steps at full
 width (random weights) in float32 and bfloat16 two ways, in turns: as
 the port runs them, a frozen tower under ``torch.no_grad()``, and with
@@ -3773,6 +3800,341 @@ def phase_inference(tmp: str, f32_texts: list, worst: dict, gen) -> dict:
     return launches
 
 
+# ------------------------------------------------ export
+
+EXPORT_SECONDS = ("5", "30")  # the artifacts' entries
+EXPORT_PATH = ("conv_k3s2_fwd", "attention_fwd")
+EXPORT_LENGTHS = [30 * SR, 24 * SR, 11 * SR, 4 * SR]  # one (4, 30 s) batch
+# exported vs live on the same inputs: the same kernels, so bitwise is
+# expected; the gates are the f32 kernel tolerance and bf16's
+EXPORT_TOL = {"f32": TOL[torch.float32], "bf16": TOL[torch.bfloat16],
+              "int8": TOL[torch.float32]}
+EXPORT_FLAGS = {"f32": [], "bf16": ["--bf16"],
+                "int8": ["--quantize", "int8"]}
+# int8 and the pooled artifact take the 30 s entry alone (each entry's
+# trace and load cost 4-12 s on the card's host)
+EXPORT_ONE_ENTRY = ("30",)
+# a process that loads the three artifacts with the model code blocked
+NO_MODEL_CODE = """
+import sys
+for m in ("audio8_tpu_torch.models", "audio8_tpu_torch.nn", "jax",
+          "audio8_tpu"):
+    sys.modules[m] = None
+sys.path.insert(0, sys.argv[1])
+import numpy as np
+import torch
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+from audio8_tpu_torch.export import load_artifact
+batch = np.load(sys.argv[2])
+for path, out in zip(sys.argv[3::2], sys.argv[4::2]):
+    art = load_artifact(path, "cuda")
+    lp, frames = art.forward(torch.from_numpy(batch["signal"]).cuda(),
+                             torch.from_numpy(batch["lengths"]).cuda())
+    np.save(out, lp.float().cpu().numpy())
+assert not any(k.startswith(("audio8_tpu_torch.models",
+                             "audio8_tpu_torch.nn"))
+               for k, v in sys.modules.items() if v is not None)
+print("ok")
+"""
+
+
+def greedy_texts(lp: torch.Tensor, frames: torch.Tensor,
+                 index2vocab: dict) -> list:
+    """Each row's greedy text, decoded as the served path decodes it."""
+    from audio8_tpu_torch.serve import decode_stitched
+
+    lp = lp.float().cpu().numpy()
+    return [decode_stitched(lp[i, :int(n)], index2vocab)
+            for i, n in enumerate(frames.tolist())]
+
+
+def export_artifact(tmp: str, name: str, seconds, *flags: str) -> tuple:
+    """``cli.export`` of tmp's ``ctc.pt`` for the card with entries of
+    ``seconds``: (artifact directory, export seconds)."""
+    from audio8_tpu_torch.cli import export as export_cli
+
+    out = os.path.join(tmp, f"art_{name}")
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        export_cli.main(["--checkpoint", os.path.join(tmp, "ctc.pt"),
+                         "--dict_file", os.path.join(tmp, "dict.ltr.txt"),
+                         "--output", out, "--seconds", *seconds,
+                         "--platforms", "cuda", *flags])
+    return out, time.perf_counter() - t0
+
+
+def export_batch(seconds: list, seed: int) -> tuple:
+    """A batch of rows of ``seconds`` (speechlike audio), padded to the
+    longest, on the card."""
+    rng = np.random.default_rng(seed + 21)
+    wavs = [synthetic_speechlike(s / SR, rng) for s in seconds]
+    sig = np.zeros((len(wavs), max(seconds)), np.float32)
+    for i, w in enumerate(wavs):
+        sig[i, :len(w)] = w
+    return (torch.from_numpy(sig).cuda(),
+            torch.tensor(seconds, dtype=torch.int32).cuda())
+
+
+def check_exported(variant: str, art, live, index2vocab, sig, lens) -> dict:
+    """One dispatch of the loaded artifact against the live forward on the
+    same inputs (padded to the entry the artifact takes): the max error
+    over valid frames, bitwise equality, argmax and greedy texts."""
+    entry = art.entry_samples(sig.shape[1])
+    lp, frames = art.forward(sig, lens)
+    lp_live, frames_live = live(
+        torch.nn.functional.pad(sig, (0, entry - sig.shape[1])), lens)
+    check(torch.equal(frames, frames_live),
+          f"export {variant}: frames {frames.tolist()} vs "
+          f"{frames_live.tolist()}")
+    valid = torch.arange(lp.shape[1], device=lp.device)[None] < frames[:, None]
+    err = (lp.float() - lp_live.float()).abs()[valid].max().item()
+    argmax_equal = bool((lp.argmax(-1) == lp_live.argmax(-1))[valid].all())
+    texts = greedy_texts(lp, frames, index2vocab)
+    texts_live = greedy_texts(lp_live, frames, index2vocab)
+    row = {"batch": list(sig.shape), "entry": entry, "max_abs_err": err,
+           "bitwise": bool(torch.equal(lp, lp_live)), "tol":
+           EXPORT_TOL[variant], "argmax_equal": argmax_equal,
+           "texts_equal": texts == texts_live}
+    check(err <= EXPORT_TOL[variant], f"export {variant}: exported vs live "
+          f"{err} > {EXPORT_TOL[variant]}")
+    check(argmax_equal and texts == texts_live,
+          f"export {variant}: argmax or text differ from the live forward")
+    return row
+
+
+def phase_export(tmp: str, seed: int) -> dict:
+    """The export phase on tmp's ``ctc.pt`` and ``dict.ltr.txt``
+    (module docstring, phase 17). Returns the kernels' launches over it."""
+    import audio8_tpu_torch.cli.transcribe as transcribe
+    from audio8_tpu_torch.export import load_artifact
+    from audio8_tpu_torch.ops.samples import run_opcheck
+
+    reset_launches()
+    with timed("export_opcheck"):
+        t0 = time.perf_counter()
+        results = run_opcheck("cuda")
+        failed = {k: v for k, v in results.items()
+                  if any(r != "SUCCESS" for r in v.values())}
+        emit({"phase": "export", "opcheck": {k: sorted(set(v.values()))
+                                            for k, v in results.items()},
+              "cases": len(results), "seconds": time.perf_counter() - t0})
+        check(not failed, f"opcheck on the card: {failed}")
+    sig, lens = export_batch(EXPORT_LENGTHS, seed)
+    short = export_batch([3 * SR, 2 * SR], seed + 1)
+    arts, timings, outputs = {}, {}, {}
+    base = ["x.wav", "--checkpoint", os.path.join(tmp, "ctc.pt"),
+            "--dict_file", os.path.join(tmp, "dict.ltr.txt")]
+    for variant, flags in EXPORT_FLAGS.items():
+        entries = EXPORT_ONE_ENTRY if variant == "int8" else EXPORT_SECONDS
+        path, seconds = export_artifact(tmp, variant, entries, *flags)
+        t0 = time.perf_counter()
+        art = load_artifact(path, "cuda")
+        load_s = time.perf_counter() - t0
+        _, live, _, index2vocab, _ = transcribe.load_acoustic(
+            transcribe.parse_args(base + flags))
+        with torch.inference_mode():
+            rows = [check_exported(variant, art, live, index2vocab, sig,
+                                   lens),
+                    check_exported(variant, art, live, index2vocab, *short)]
+        reset_launches()
+        lp, _ = art.forward(sig, lens)
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in read_launches().items() if v}
+        check(launches == {"attention_fwd": 12, "conv_k3s2_fwd": 4},
+              f"export {variant}: one exported dispatch launched "
+              f"{launches}, want 12 and 4")
+        outputs[variant] = (path, lp.float().cpu().numpy())
+        if variant != "int8":
+            ms = {"live": [], "exported": []}
+            with torch.inference_mode():
+                for name in ("live", "exported", "exported", "live"):
+                    fn = live if name == "live" else art.forward
+                    ms[name].append(event_ms(lambda f=fn: f(sig, lens)))
+                # where the time goes: device ms and kernels of each
+                for name, fn in (("live", live), ("exported", art.forward)):
+                    by_name = traced_or_none(lambda f=fn: f(sig, lens))
+                    ms[name + "_device_ms"] = sum(by_name.values())
+                    ms[name + "_kernel_names"] = len(by_name)
+                    ms[name + "_top_kernels_ms"] = [
+                        [k[:80], v] for k, v in sorted(
+                            by_name.items(), key=lambda kv: -kv[1])[:4]]
+            timings[variant] = ms
+        emit({"phase": "export", "variant": variant, "flags": flags,
+              "entries_s": list(entries), "export_s": seconds,
+              "load_s": load_s, "checks": rows, "launches": launches,
+              "files": sorted(os.listdir(path))})
+        arts[variant] = (path, art)
+        del live
+        torch.cuda.empty_cache()
+    emit({"phase": "export_timing", "dispatch": [CHUNK_BATCH, 30 * SR],
+          "card": card_name(), "event_ms": timings})
+
+    # the three artifacts in a process without the model code
+    npz = os.path.join(tmp, "export_batch.npz")
+    np.savez(npz, signal=sig.cpu().numpy(), lengths=lens.cpu().numpy())
+    outs = [os.path.join(tmp, f"no_model_{v}.npy") for v in outputs]
+    argv = [x for v, o in zip(outputs, outs) for x in (outputs[v][0], o)]
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable, "-c", NO_MODEL_CODE, HERE, npz,
+                          *argv], capture_output=True, text=True,
+                         timeout=600)
+    check(run.returncode == 0 and run.stdout.strip().endswith("ok"),
+          f"export without the model code: {run.stderr[-3000:]}")
+    errs = {v: float(np.abs(np.load(o) - outputs[v][1]).max())
+            for v, o in zip(outputs, outs)}
+    emit({"phase": "export", "no_model_code": errs,
+          "seconds": time.perf_counter() - t0})
+    for v, e in errs.items():
+        check(e <= EXPORT_TOL[v], f"export {v} without the model code: {e}")
+
+    return phase_export_clis(tmp, seed, arts)
+
+
+def phase_export_clis(tmp: str, seed: int, arts: dict) -> dict:
+    """The four ``--exported`` entry points on the f32 artifact (and a
+    ``--pooled`` one): ``cli.transcribe`` texts equal the live forward's
+    at the entry's padding, ``cli.test`` scores equal the live
+    checkpoint's at the entry table's length grid, ``cli.serve``'s
+    ``/transcribe`` equals ``cli.transcribe --exported`` at the same
+    chunking, ``cli.embed`` within EXPORT_TOL of the live pooled encoder
+    at the same padding. Returns the kernels' launches over the four
+    CLIs' runs (the live comparisons' included)."""
+    from scipy.io import wavfile
+
+    import audio8_tpu_torch.cli.transcribe as transcribe
+    from audio8_tpu_torch.cli import embed as embed_cli
+    from audio8_tpu_torch.cli import export as export_cli
+    from audio8_tpu_torch.cli import test as test_cli
+
+    path, art = arts["f32"]
+    reset_launches()
+    root = os.path.join(tmp, "export_corpus")
+    os.makedirs(root)
+    rng = np.random.default_rng(seed + 23)
+    # every file under cli.test's and cli.embed's 325 000-sample cap
+    seconds = [3.1, 12.4, 19.7, 4.6]
+    files = []
+    with open(os.path.join(root, "valid.tsv"), "w") as tf, \
+            open(os.path.join(root, "valid.ltr"), "w") as lf:
+        tf.write(root + "\n")
+        for i, s in enumerate(seconds):
+            wav = synthetic_speechlike(s, rng)
+            files.append(os.path.join(root, f"e{i}.wav"))
+            wavfile.write(files[-1], SR,
+                          (np.clip(wav, -1, 1) * 32767).astype(np.int16))
+            tf.write(f"e{i}.wav\t{len(wav)}\n")
+            lf.write(" ".join(rng.choice(LETTERS[1:], 6)) + " |\n")
+    with open(os.path.join(root, "dict.ltr.txt"), "w") as f:
+        f.writelines(f"{c} {1000 - i}\n" for i, c in enumerate(LETTERS))
+    exported = ["--exported", path]
+    with contextlib.redirect_stdout(io.StringIO()):
+        t0 = time.perf_counter()
+        rows = transcribe.main(exported + files)
+        transcribe_s = time.perf_counter() - t0
+        chunked = transcribe.main(exported + ["--chunk_seconds", "30",
+                                              "--context_seconds", "2",
+                                              files[1]])
+    # cli.transcribe pads each file to whole seconds; the artifact takes
+    # it to its entry, the live forward here to the same
+    _, live, _, index2vocab, _ = transcribe.load_acoustic(
+        transcribe.parse_args(["x.wav", "--checkpoint", os.path.join(
+            tmp, "ctc.pt"), "--dict_file", os.path.join(tmp,
+                                                        "dict.ltr.txt")]))
+    want = []
+    for f in files:
+        sig, lens = padded_files([f], art.entry_sizes)
+        want += greedy_texts(*live(sig, lens), index2vocab)
+    got = [t for _, t in rows]
+    check(got == want,
+          f"cli.transcribe --exported {got} vs the live forward {want}")
+
+    common = ["--root_dir", root, "--valid_dataset", "valid.tsv"]
+    with contextlib.redirect_stdout(io.StringIO()):
+        scores = test_cli.evaluate(common + exported)
+        live_scores = test_cli.evaluate(common + [
+            "--checkpoint", os.path.join(tmp, "ctc.pt"), "--length_buckets",
+            *(str(t) for t in art.entry_sizes)])
+    keys = ("cer", "wer", "step", "utterances")
+    check({k: scores[k] for k in keys} == {k: live_scores[k] for k in keys},
+          f"cli.test --exported {scores} vs live {live_scores}")
+
+    with serving(tmp, *exported) as (service, port):
+        with open(files[1], "rb") as f:
+            status, reply = post(port, "/transcribe", f.read())
+        status_h, health = post(port, "/healthz")
+    check(status == 200 and reply["text"] == chunked[0][1],
+          f"cli.serve --exported {reply} vs cli.transcribe {chunked}")
+    check(status_h == 200 and health["model"] == "wav2vec2-ctc (exported)",
+          f"healthz {health}")
+
+    pooled = os.path.join(tmp, "art_pooled")
+    with contextlib.redirect_stdout(io.StringIO()):
+        export_cli.main(["--checkpoint", os.path.join(tmp, "ctc.pt"),
+                         "--output", pooled, "--pooled", "true",
+                         "--reduction_type", "mean", "--seconds",
+                         *EXPORT_ONE_ENTRY, "--platforms", "cuda"])
+        prefix = os.path.join(tmp, "emb_exported")
+        embed_cli.main(["--exported", pooled, "--root_dir", root,
+                        "--dataset", "valid.tsv", "--output", prefix])
+    emb = np.load(prefix + ".npy")
+    args = embed_cli.parse_args(["--checkpoint", os.path.join(tmp, "ctc.pt"),
+                                 "--root_dir", root])
+    _, model = embed_cli.build_pooled(args, torch.device("cuda"))
+    with open(os.path.join(pooled, "meta.json")) as f:
+        sizes = sorted(int(e["t"]) for e in json.load(f)["entries"])
+    with torch.inference_mode():  # one batch of the four files
+        want_emb = embed_cli.normalized(model(*padded_files(files, sizes),
+                                              freeze=False)).cpu().numpy()
+    emb_err = float(np.abs(emb - want_emb).max())
+    emit({"phase": "export", "clis": {
+        "transcribe_texts_equal": True, "transcribe_s": transcribe_s,
+        "test": {k: scores[k] for k in keys},
+        "serve_text_equal_transcribe": True,
+        "embed_shape": list(emb.shape), "embed_max_abs_err": emb_err}})
+    check(emb_err <= EXPORT_TOL["f32"],
+          f"cli.embed --exported vs the live encoder {emb_err}")
+    return read_launches()
+
+
+def padded_files(paths: list, sizes: list) -> tuple:
+    """Files as one batch on the card, padded to the smallest of
+    ``sizes`` (an artifact's entries) that holds the longest."""
+    from audio8_tpu_torch.data.audio import SoundfileAudioReader
+
+    wavs = [np.asarray(SoundfileAudioReader().read(p), np.float32)
+            for p in paths]
+    longest = max(len(w) for w in wavs)
+    sig = torch.zeros((len(wavs), min(t for t in sizes if t >= longest)),
+                      device="cuda")
+    for i, w in enumerate(wavs):
+        sig[i, :len(w)] = torch.from_numpy(w)
+    return sig, torch.tensor([len(w) for w in wavs], device="cuda")
+
+
+def export_phases(gen) -> int:
+    """The build and the export phase alone (``--export-phases``) on a
+    fresh ``ctc.pt`` of the model phase's weights."""
+    from audio8_tpu_torch.models.convert import save_fairseq_ctc
+    from audio8_tpu_torch.models.wav2vec2 import Wav2Vec2AcousticModel
+
+    with timed("build"):
+        phase_build()
+    with tempfile.TemporaryDirectory() as tmp:
+        cpu = Wav2Vec2AcousticModel(base_config(4 + len(LETTERS)),
+                                    generator=torch.Generator().manual_seed(
+                                        SEED))
+        save_fairseq_ctc(cpu, os.path.join(tmp, "ctc.pt"))
+        with open(os.path.join(tmp, "dict.ltr.txt"), "w") as fh:
+            fh.writelines(f"{c} {1000 - i}\n" for i, c in enumerate(LETTERS))
+        with timed("export"):
+            launches = phase_export(tmp, SEED)
+    emit({"phase": "phase_seconds", **PHASE_SECONDS})
+    emit({"phase": "export_phases", "launches": launches})
+    print_card()
+    return 0
+
+
 # ------------------------------------------------ the public topologies
 
 # the large presets of the public encoder families (cli/common.py:
@@ -5120,6 +5482,52 @@ def core_timing(gen) -> int:
     return 0
 
 
+HOST_CALLS = 200  # calls per host reading
+
+
+def host_timing() -> int:
+    """The host's cost of the kernels' wrappers and the bf16 pretraining
+    step (``--host-timing``), for comparing two trees in turns: the host
+    us per call (enqueue, no synchronisation; ``host_ms``) of
+    ``fused_dropout`` at the encoder's residual stream and of
+    ``attention_core`` at the serving shape ("xla", no gradient, and with
+    one, which keeps the backward's residuals), then the wall ms of one
+    bf16 (20, 71 428-sample) pretraining step (``profile.py``'s
+    ``pretrain_profile``, grad and update, median of 5). Drives only the
+    wrappers every tree of the port has had since PR 5, so a copy placed
+    in another tree's root times that tree."""
+    from audio8_tpu_torch.ops.attention import attention_core
+    from audio8_tpu_torch.ops.dropout import fused_dropout
+    from audio8_tpu_torch.profile import pretrain_profile
+
+    with timed("build"):
+        phase_build()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    x = torch.randn(DROPOUT_SHAPE, device="cuda", generator=gen)
+    q, k, v = (torch.randn(ATTN_SHAPE, device="cuda", generator=gen)
+               for _ in range(3))
+    kv = torch.ones(ATTN_SHAPE[0], ATTN_SHAPE[2], dtype=torch.bool,
+                    device="cuda")
+    qg = q.clone().requires_grad_()
+    rows = {"fused_dropout": lambda: fused_dropout(x, 0.1, 7),
+            "attention_core": lambda: attention_core(q, k, v, kv, 0.125,
+                                                     xla=True),
+            "attention_core_grad": lambda: attention_core(qg, k, v, kv,
+                                                          0.125, xla=True)}
+    out = {}
+    for name, fn in rows.items():
+        r = host_ms(fn, HOST_CALLS)
+        out[name] = {"host_us": r["host_ms"] * 1e3,
+                     "event_us": r["event_ms"] * 1e3}
+    step = pretrain_profile(torch.bfloat16)
+    emit({"phase": "host_timing", "tree": HERE, "calls": HOST_CALLS,
+          "wrappers": out, "pretrain_bf16_step_ms": step["step_ms"],
+          "pretrain_bf16_idle_share": step["device_idle_share"],
+          "card": card_name()})
+    print_card()
+    return 0
+
+
 # --test-timing: cli.test over an eval set of TIMING_UTTERANCES FLACs of
 # 1.5-15 s, 2.7 words per second, against a trigram ARPA of
 # TIMING_LM_SIZES (words, bigrams, trigrams; LibriSpeech's LM vocabulary
@@ -5442,6 +5850,10 @@ def main(argv=None) -> int:
         return freeze_timing()
     if argv == ["--topology-phases"]:
         return topology_timing(gen)
+    if argv == ["--export-phases"]:
+        return export_phases(gen)
+    if argv == ["--host-timing"]:
+        return host_timing()
     inference_first = argv == ["--inference-first"]
     if argv and not inference_first:
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
@@ -5528,6 +5940,9 @@ def main(argv=None) -> int:
             infer_launches = phase_inference(tmp, f32_texts, worst, gen)
         torch.cuda.empty_cache()
         topo_launches = topology_phases(tmp, worst, gen)
+        with timed("export"):
+            export_launches = phase_export(tmp, SEED)
+        torch.cuda.empty_cache()
     emit({"phase": "phase_seconds", **PHASE_SECONDS,
           "inference_first": inference_first,
           "trace_retries": {str(k): n for k, n in TRACE_RETRIES.items()},
@@ -5602,6 +6017,7 @@ def main(argv=None) -> int:
             for p in INFER_PHASES},
          **{f"{p}_launches": topo_launches[p].get(name, 0)
             for p in TOPOLOGY_PHASES},
+         "export_launches": export_launches.get(name, 0),
          "max_abs_err": worst[name],
          **{k: times[(name, torch.float32)][k] for k in keys},
          **extra(name)}

@@ -5,7 +5,8 @@ whole seconds: the vectors within 1e-4 of JAX's, unit norms
 within 1e-4, the ``.tsv`` rows equal and the ``--trials`` EER equal. The
 port's paired ``.pt`` gives its audio tower, and a fairseq pretrained
 ``.pt`` and an HF ``save_pretrained`` directory their encoders;
-``--exported`` raises naming its ROADMAP item."""
+``--exported`` of a transducer artifact raises naming its ROADMAP
+item."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -133,9 +134,17 @@ def test_fairseq_pretrained_gives_its_encoder(tmp_path):
 
 
 def test_unported_sources_raise(tmp_path, corpus):
+    """``--exported`` runs ``cli.export`` artifacts (item 6's export) but
+    not a transducer's, which waits for RNN-T (item 7)."""
+    import json
+
+    art = tmp_path / "rnnt"
+    art.mkdir()
+    (art / "meta.json").write_text(json.dumps({"kind": "transducer"}))
     base = ["--root_dir", str(corpus), "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match="item 6"):
-        embed.parse_args(base + ["--exported", "art", "--checkpoint", "c"])
+    with pytest.raises(NotImplementedError, match="item 7"):
+        embed.build_embedder(embed.parse_args(base + ["--exported",
+                                                      str(art)]))
 
 
 def test_hf_directory_gives_its_encoder(tmp_path):

@@ -11,9 +11,12 @@
   depends on the entry point: the decoders and the trainer decode with
   ``--beam`` and ``--lm``, ``cli.transcribe`` and ``cli.serve`` take
   ``--timestamps`` and ``--quantize`` (and ``cli.transcribe`` ``--vad``),
-  ``cli.test`` ``--quantize``; ``--exported`` raises everywhere (item 6,
-  export); every trainer takes ``--restart_from``, and the paired
-  trainer refuses ``--warmstart_text`` (item 10). The trainers take
+  ``cli.test`` ``--quantize``; ``cli.export`` refuses ``--transducer``
+  (item 7); every trainer takes ``--restart_from``, and the paired
+  trainer refuses ``--warmstart_text`` (item 10).
+* ``--exported`` (item 6, done) loads a ``cli.export`` artifact and
+  decodes in ``cli.transcribe``, ``cli.serve``, ``cli.test`` and
+  ``cli.embed``. The trainers take
   ``--layer_drop`` and every entry point every topology flag and
   preset; MoE (item 8) still raises.
 * A value the port can run runs: dropout flags at inference, the LM
@@ -41,7 +44,9 @@ NEEDED = {"train": [], "pretrain": ["--manifest_dir", "m"],
           "transcribe": ["a.wav", "--checkpoint", "c.pt", "--dict_file",
                          "d.txt"],
           "serve": ["--checkpoint", "c.pt", "--dict_file", "d.txt"],
-          "test": [], "embed": ["--root_dir", "r", "--checkpoint", "c.pt"]}
+          "test": [], "embed": ["--root_dir", "r", "--checkpoint", "c.pt"],
+          "export": ["--checkpoint", "c.pt", "--dict_file", "d.txt",
+                     "--output", "o"]}
 
 
 def captured_parser(module: str) -> argparse.ArgumentParser:
@@ -106,14 +111,10 @@ def parse_and_check(entry, extra):
     ("train", ["--noise_manifest", "n.tsv"], "item 4"),
     ("train", ["--distributed", "true"], "item 3"),
     ("pretrain", ["--sequence_parallel", "true"], "item 8"),
-    ("transcribe", ["--exported", "artifact"], "item 6"),
     ("transcribe", ["--device_beam", "true"], "item 7"),
     ("transcribe", ["--transducer", "true"], "item 7"),
     ("serve", ["--transducer", "true"], "item 7"),
-    ("serve", ["--exported", "artifact"], "item 6"),
     ("serve", ["--device_beam", "true"], "item 7"),
-    ("embed", ["--exported", "artifact"], "item 6"),
-    ("test", ["--exported", "artifact"], "item 6"),
     ("test", ["--transducer", "true"], "item 7"),
     ("test", ["--device_beam", "true"], "item 7"),
     ("test", ["--lm_rescore", "lm_dir"], "item 7"),
@@ -126,6 +127,7 @@ def parse_and_check(entry, extra):
     ("pretrain_paired", ["--distributed", "true"], "item 3"),
     ("pretrain_paired", ["--remat", "true"], "item 4"),
     ("pretrain_paired", ["--moe_experts", "4"], "item 8"),
+    ("export", ["--transducer", "true"], "item 7"),
 ])
 def test_unported_values_raise_naming_their_item(entry, extra, item):
     with pytest.raises(NotImplementedError, match=item):
@@ -199,3 +201,99 @@ def test_decoders_need_a_checkpoint_as_jax_does():
     mod = importlib.import_module("audio8_tpu_torch.cli.serve")
     with pytest.raises(SystemExit, match="--checkpoint and --dict_file"):
         mod.parse_args([])
+
+
+@pytest.fixture(scope="module")
+def artifacts(tmp_path_factory):
+    """A tiny random CTC model and its pooled encoder exported for the
+    CPU at one 1 s entry, a 0.8 s file and a two-file letter corpus."""
+    import numpy as np
+    import torch
+    from scipy.io import wavfile
+
+    from audio8_tpu_torch import export as E
+    from audio8_tpu_torch.config import PooledConfig
+    from audio8_tpu_torch.models.text import read_vocab_list
+    from audio8_tpu_torch.models.wav2vec2 import (Wav2Vec2AcousticModel,
+                                                  Wav2Vec2PooledEncoder)
+
+    root = tmp_path_factory.mktemp("exported")
+    fx = ((32, 10, 5), (32, 3, 2))
+    (root / "dict.ltr.txt").write_text("".join(f"{c} 1\n"
+                                               for c in "|ABC"))
+    letters = read_vocab_list(str(root / "dict.ltr.txt"))
+    size = dict(d_model=32, num_heads=2, num_layers=1, d_ff=64,
+                custom_conv_features=fx)
+    gen = torch.Generator().manual_seed(0)
+    ctc = Wav2Vec2AcousticModel(AcousticConfig(
+        num_labels=len(letters), timestep_masking=0.0,
+        channel_masking=0.0, **size), generator=gen).eval()
+    pooled = Wav2Vec2PooledEncoder(PooledConfig(
+        reduction_type="mean", **size)).eval()
+    heads = {"ctc": lambda out: (out[0], out[1].sum(-1)),
+             "embed": lambda emb: emb.float()}
+    for kind, model in (("ctc", ctc), ("embed", pooled)):
+        state = model.state_dict()
+        kwargs = {"freeze": False} if kind == "embed" else {}
+        program = E.export_forward(E.state_fn(model, heads[kind], **kwargs),
+                                   list(state), list(state.values()),
+                                   16_000, torch.device("cpu"))
+        E.save_artifact(str(root / kind), list(state.values()), {
+            "kind": kind, "vocab": letters,
+            "conv_features": [list(f) for f in fx], "sample_rate": 16_000,
+            "d_model": 32, "num_layers": 1},
+            [{"t": 16_000, "platform": "cpu", "program": program}])
+    (root / "audio").mkdir()
+    rng = np.random.default_rng(0)
+    with open(root / "valid.tsv", "w") as tf, \
+            open(root / "valid.ltr", "w") as lf:
+        tf.write(str(root / "audio") + "\n")
+        for i, n in enumerate((12_800, 9_000)):
+            wavfile.write(str(root / "audio" / f"v{i}.wav"), 16_000,
+                          (rng.normal(size=n) * 5000).astype(np.int16))
+            tf.write(f"v{i}.wav\t{n}\n")
+            lf.write("A B | C |\n")
+    return root
+
+
+@pytest.mark.parametrize("entry", ["transcribe", "serve", "test", "embed"])
+def test_exported_artifact_decodes(entry, artifacts):
+    """``--exported`` (which raised before item 6's export) loads an
+    artifact and decodes in each of its four entry points."""
+    from audio8_tpu_torch.utils import Offsets
+
+    saved = (Offsets.PAD, Offsets.GO, Offsets.EOS, Offsets.UNK,
+             list(Offsets.VALUES))
+    mod = importlib.import_module(f"audio8_tpu_torch.cli.{entry}")
+    wav = str(artifacts / "audio" / "v0.wav")
+    cpu = ["--device", "cpu"]
+    try:
+        if entry == "transcribe":
+            rows = mod.main(["--exported", str(artifacts / "ctc"), *cpu,
+                             wav])
+            assert [r[0] for r in rows] == [wav]
+            assert isinstance(rows[0][1], str)
+        elif entry == "serve":
+            service = mod.build_service(mod.parse_args(
+                ["--exported", str(artifacts / "ctc"), *cpu,
+                 "--context_seconds", "0.25", "--batch_wait_ms", "0"]))
+            with open(wav, "rb") as f:
+                got = service.transcribe(f.read())
+            assert isinstance(got["text"], str)
+            assert got["audio_seconds"] == 0.8
+        elif entry == "test":
+            got = mod.evaluate(["--exported", str(artifacts / "ctc"), *cpu,
+                                "--root_dir", str(artifacts),
+                                "--valid_dataset", "valid.tsv"])
+            assert got["utterances"] == 2 and got["cer"] >= 0.0 <= got["wer"]
+        else:
+            out = str(artifacts / "emb")
+            assert mod.main(["--exported", str(artifacts / "embed"), *cpu,
+                             "--root_dir", str(artifacts), "--dataset",
+                             "valid.tsv", "--output", out]) == 0
+            import numpy as np
+
+            assert np.load(out + ".npy").shape == (2, 32)
+    finally:
+        Offsets.PAD, Offsets.GO, Offsets.EOS, Offsets.UNK = saved[:4]
+        Offsets.VALUES[:] = saved[4]

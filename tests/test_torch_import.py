@@ -15,6 +15,7 @@ import pytest
 
 import audio8_tpu_torch
 from audio8_tpu_torch.cli import embed as embed_cli
+from audio8_tpu_torch.cli import export as export_cli
 from audio8_tpu_torch.cli import pretrain as pretrain_cli
 from audio8_tpu_torch.cli import pretrain_paired as paired_cli
 from audio8_tpu_torch.cli import serve as serve_cli
@@ -49,7 +50,7 @@ def test_every_module_imports_with_jax_blocked():
                 "ops.align", "ops.vad", "ops.ngram", "cli.embed",
                 "cli.manifest", "cli.train_ngram", "cli.average_checkpoints",
                 "cli.inspect_checkpoint", "models.convert_hf",
-                "nn.conformer"):
+                "nn.conformer", "export", "cli.export", "ops.samples"):
         assert f"audio8_tpu_torch.{new}" in mods
     code = (
         "import sys\n"
@@ -128,7 +129,7 @@ def _restore_port_offsets():
 
 @pytest.mark.parametrize("entry", ["transcribe", "serve", "train",
                                    "pretrain", "test", "train_seq2seq",
-                                   "pretrain_paired", "embed"])
+                                   "pretrain_paired", "embed", "export"])
 def test_default_device_is_cuda_and_raises_without_a_card(
         entry, tmp_path, _restore_port_offsets):
     """This machine has no CUDA card: the default ``--device cuda`` raises
@@ -145,6 +146,9 @@ def test_default_device_is_cuda_and_raises_without_a_card(
         elif entry == "embed":
             embed_cli.build_embedder(embed_cli.parse_args(
                 ["--checkpoint", ckpt, "--root_dir", str(tmp_path)]))
+        elif entry == "export":
+            export_cli.main(["--checkpoint", ckpt, "--dict_file", dict_file,
+                             "--output", str(tmp_path / "art")])
         elif entry == "test":
             test_cli.evaluate(["--checkpoint", ckpt, "--root_dir",
                                str(tmp_path), "--valid_dataset", "v.tsv"])
