@@ -82,10 +82,8 @@ _PRESET_BASE_DEFAULTS = {"d_model": 768, "d_ff": 3072, "num_heads": 12,
 # ROADMAP.md queue 1 items, named in the refusals
 DECODE = "ROADMAP.md queue 1, item 6 (serving and inference)"
 DATA_PARALLEL = "ROADMAP.md queue 1, item 3 (data parallel)"
-TRAINER = "ROADMAP.md queue 1, item 4 (the trainers' remaining flags)"
 TOPOLOGY = "ROADMAP.md queue 1, item 7 (topologies and recipes)"
 PARALLEL = "ROADMAP.md queue 1, item 8 (parallelism beyond DP)"
-TEXT_WARMSTART = "ROADMAP.md queue 1, item 10 (text warm start)"
 
 # flag -> (its value when unused, the item that ports it). Any other
 # value raises; a flag an entry point does not have is skipped.
@@ -96,11 +94,7 @@ NOT_PORTED = {
     "sequence_parallel": (False, PARALLEL),
     "pipeline_parallel": (1, PARALLEL),
     "moe_experts": (0, PARALLEL),
-    "remat": (False, TRAINER),
     "distributed": (False, DATA_PARALLEL),
-    "noise_manifest": (None, TRAINER),
-    "speed_perturb": (None, TRAINER),
-    "profile_dir": (None, TRAINER),
     "lm": (None, DECODE),
     "beam": (1, DECODE),
     "device_beam": (False, TOPOLOGY),
@@ -109,7 +103,6 @@ NOT_PORTED = {
     "timestamps": (False, DECODE),
     "vad": (False, DECODE),
     "quantize": ("none", DECODE),
-    "warmstart_text": (None, TEXT_WARMSTART),
 }
 # entry point -> the flags of NOT_PORTED it has ported: the beam search
 # and LM fusion of the trainer's verbose validation and of the decoders,
@@ -165,6 +158,37 @@ def check_ported(args: Namespace, entry: str) -> None:
             raise NotImplementedError(
                 f"--{flag} {getattr(args, flag)} is not ported yet: {item}")
     check_supported(EncoderConfig(**encoder_kwargs(args)))
+
+
+def add_augmentation_args(parser: ArgumentParser) -> None:
+    """The JAX trainers' augmentation flags (:func:`train_augmentation`
+    builds them)."""
+    add = parser.add_argument
+    add("--noise_manifest",
+        help="additive-noise source: an audio manifest TSV or a directory "
+             "of noise clips (data/audio.NoiseMixer)")
+    add("--noise_snr", type=float, nargs=2, default=[5.0, 20.0],
+        help="uniform SNR-dB range for --noise_manifest")
+    add("--noise_prob", type=float, default=1.0,
+        help="per-utterance probability of mixing noise")
+    add("--speed_perturb", type=float, nargs="*",
+        help="speed factors of the training utterances (e.g. 0.9 1.0 1.1); "
+             "polyphase resample per read, transcripts unchanged "
+             "(data/audio.speed_perturb_wav)")
+
+
+def train_augmentation(args: Namespace) -> dict:
+    """The training set's augmentation as ``AudioTextLetterDataset``
+    kwargs, as the JAX trainers build it: ``--speed_perturb`` factors,
+    and a ``data.audio.NoiseMixer`` over ``--noise_manifest`` (a
+    manifest or a directory of clips) at ``--noise_snr`` with
+    ``--noise_prob``."""
+    from audio8_tpu_torch.data.audio import NoiseMixer
+
+    mixer = (NoiseMixer(args.noise_manifest, snr_db=args.noise_snr,
+                        prob=args.noise_prob)
+             if args.noise_manifest else None)
+    return {"speed_perturb": args.speed_perturb or (), "noise_mixer": mixer}
 
 
 def resolve_device(name: str) -> torch.device:
@@ -226,7 +250,9 @@ def add_common_model_args(parser: ArgumentParser) -> None:
     add("--conformer_activation", default=None)
     add("--causal_chunk_frames", type=int, default=0)
     add("--causal_left_chunks", type=int, default=-1)
-    add("--remat", type=str2bool, default=False, help="not ported yet")
+    add("--remat", type=str2bool, default=False,
+        help="recompute each encoder layer in the backward (its dropout "
+             "seeds replayed) instead of keeping its activations")
     add("--input_sample_rate", type=int, default=16_000)
     add("--target_sample_rate", type=int, default=16_000)
     add("--bf16", action="store_true", help="bfloat16 compute (fp32 params)")

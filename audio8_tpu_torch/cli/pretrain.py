@@ -23,9 +23,13 @@ next step boundary and exits 0 (``train/preempt.py``).
 
 The flags are the JAX entry point's, with the same names and defaults,
 plus ``--device``, ``--seed`` (the generator that dropout, masks, Gumbel
-noise and negatives draw their seeds from) and ``--restart_tt``. Those of
-parts not ported yet raise: parallelism and ``--distributed``,
-``--profile_dir``, ``--optim sgd``, ``--remat`` and the MoE flags. ``--lane_align`` (TPU tiling) is not a flag here.
+noise and negatives draw their seeds from) and ``--restart_tt``.
+``--remat`` recomputes each encoder layer in the backward on its
+replayed dropout seeds, ``--optim sgd`` steps plain SGD, and
+``--profile_dir`` writes a Chrome trace of the five steps after the
+tenth (``train/profiler.py``). Those of parts not ported yet raise:
+parallelism and ``--distributed`` and the MoE flags. ``--lane_align``
+(TPU tiling) is not a flag here.
 """
 from __future__ import annotations
 
@@ -49,6 +53,7 @@ from audio8_tpu_torch.train.checkpoint import save_checkpoint
 from audio8_tpu_torch.train.optim import (TrainState, create_lrs,
                                           create_optimizer)
 from audio8_tpu_torch.train.preempt import PreemptionGuard
+from audio8_tpu_torch.train.profiler import StepProfiler
 from audio8_tpu_torch.train.steps import make_pretrain_steps
 from audio8_tpu_torch.utils import Average, str2bool
 
@@ -97,7 +102,9 @@ def parse_args(argv=None):
     parser.add_argument("--distributed", type=str2bool, default=False,
                         help="not ported yet")
     parser.add_argument("--n_negatives", type=int, default=100)
-    parser.add_argument("--profile_dir", type=str, help="not ported yet")
+    parser.add_argument("--profile_dir", type=str,
+                        help="write a torch.profiler Chrome trace of "
+                             "steps 11-15 here")
     parser.add_argument("--seed", type=int, default=1234,
                         help="seed of the generator that dropout, masks, "
                              "Gumbel noise and negatives draw from")
@@ -187,6 +194,7 @@ def _train(args, device: torch.device, preempt: PreemptionGuard):
     step_time = Average("average_step_time")
     start_of_run = time.time()
     generator = torch.Generator().manual_seed(args.seed)
+    profiler = StepProfiler(args.profile_dir, device=device)
 
     steps = state.step
     while steps < args.train_steps:
@@ -196,6 +204,7 @@ def _train(args, device: torch.device, preempt: PreemptionGuard):
         state, metrics = train_step(state, signal,
                                     PretrainSeeds.draw(generator), generator)
         steps += 1
+        profiler.step(steps)
         loss = float(metrics["loss"])  # synchronises with the card
         avg_loss.update(loss)
         elapsed = time.time() - start
@@ -229,6 +238,8 @@ def _train(args, device: torch.device, preempt: PreemptionGuard):
                                          (time.time() - start_of_run) / 60,
                                      "average_train_loss": avg_loss.avg}))
     train_itr.close()  # stops the prefetch threads
+    profiler.close()
+    state.profile_trace = profiler.path
     return state
 
 

@@ -21,11 +21,13 @@ tower's rpr attention is the torch composition (``nn/transformer.py``).
 Checkpoints are the port's paired ``.pt`` files with a resume file
 beside each (``train/checkpoint.py``); ``--restart_from`` loads one at
 step 0 or resumes a run from its directory. On SIGTERM the trainer saves
-at the next step boundary and exits 0. The flags are the JAX trainer's;
-those of parts not ported yet raise: ``--warmstart_text`` (a mead TLM
-export), parallelism and ``--distributed``, ``--remat`` and ``--optim
-sgd``. ``--lane_align`` (TPU tiling) is not a
-flag here.
+at the next step boundary and exits 0. ``--warmstart_text`` overlays a
+pretrained transformer LM's ``.npz`` on the text tower
+(``models/warmstart.py``) before the restart resolves, ``--remat``
+recomputes each audio encoder layer in the backward on its replayed
+dropout seeds, ``--optim sgd`` steps plain SGD. The flags are the JAX
+trainer's; those of parts not ported yet raise: parallelism and
+``--distributed``. ``--lane_align`` (TPU tiling) is not a flag here.
 """
 from __future__ import annotations
 
@@ -48,6 +50,7 @@ from audio8_tpu_torch.models.dual_encoder import (DualEncoderModel,
                                                   SymmetricCLIPLoss)
 from audio8_tpu_torch.models.text import (BPEVectorizer, TextVectorizer,
                                           read_vocab_file)
+from audio8_tpu_torch.models.warmstart import load_tlm_npz
 from audio8_tpu_torch.train.checkpoint import save_checkpoint
 from audio8_tpu_torch.train.optim import (TrainState, create_lrs,
                                           create_optimizer)
@@ -96,7 +99,10 @@ def parse_args(argv=None):
     parser.add_argument("--dict_file", default="dict.{}.txt")
     parser.add_argument("--subword_model_file")
     parser.add_argument("--subword_vocab_file")
-    parser.add_argument("--warmstart_text", type=str, help="not ported yet")
+    parser.add_argument("--warmstart_text", type=str,
+                        help="a pretrained transformer LM's .npz (flax-path, "
+                             "torch-style or converted HF BERT keys) to "
+                             "warm-start the text tower from")
     parser.add_argument("--init_temp", type=float, default=1.0)
     parser.add_argument("--learn_temp", type=str2bool, default=True)
     parser.add_argument("--output_dim", type=int, default=256)
@@ -178,7 +184,8 @@ def train(argv=None):
     """Run the trainer; returns the :class:`TrainState`, whose ``log``
     lists each optimizer step's wall seconds, audio seconds, loss,
     ``clip_accuracy``, ``logit_scale`` and frozen flags, and ``valid``
-    each validation's loss and accuracy."""
+    each validation's loss and accuracy, and ``warmstart`` the
+    ``--warmstart_text`` report (``None`` without it)."""
     args = parse_args(argv)
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(levelname)s %(name)s: "
@@ -205,13 +212,19 @@ def _train(args, device: torch.device, preempt: PreemptionGuard):
     vocab, train_set, valid_set = datasets(args)
     dtype = torch.bfloat16 if args.bf16 else torch.float32
     module = build_module(args, len(vocab), dtype).to(device)
+    warmstart = None
+    if args.warmstart_text:
+        warmstart = load_tlm_npz(module.model.text_encoder,
+                                 args.warmstart_text)
+        logger.info("warmstart_text: loaded=%d unexpected=%s",
+                    len(warmstart["loaded"]), warmstart["unexpected"][:5])
     lr_sched = create_lrs(args.lr, args.train_steps, args.lr_scheduler,
                           alpha=args.lr_alpha, warmup_steps=args.warmup_steps,
                           plateau_steps=args.plateau_steps)
     state = TrainState(module, create_optimizer(lr_sched, args.optim,
                                                 args.weight_decay))
     resolve_restart(args.restart_from, state, ctc=False, kind="paired")
-    state.log, state.valid = [], []
+    state.log, state.valid, state.warmstart = [], [], warmstart
     n_params = sum(p.numel() for p in module.parameters())
     logger.info("Model has %s parameters on %s", f"{n_params:,}", device)
 

@@ -103,11 +103,13 @@ def parse_args(argv=None):
 def run_step(index2vocab, log_probs, frame_lengths, batch, verbose=False,
              ctc_decoder=None, postproc_fn=M.postproc_letters):
     """Greedy metrics of one batch of host log-probs and, with a
-    ``ctc_decoder``, its beam word errors (``wbeam_errors``)."""
+    ``ctc_decoder``, its beam word errors (``wbeam_errors``) and
+    transcripts (``beam_texts``)."""
     step_metrics = M.ctc_metrics(log_probs, batch["token_ids"],
                                  frame_lengths, index2vocab,
                                  postproc_fn=postproc_fn)
     step_metrics["wbeam_errors"] = 0
+    step_metrics["beam_texts"] = []
     if ctc_decoder is not None:
         for b, transcription in enumerate(
                 ctc_decoder.run(log_probs, frame_lengths, n_best=1)):
@@ -117,6 +119,7 @@ def run_step(index2vocab, log_probs, frame_lengths, batch, verbose=False,
             werr, _ = M.decode_text_wer(text, batch["token_ids"][b],
                                         index2vocab, postproc_fn=postproc_fn)
             step_metrics["wbeam_errors"] += werr
+            step_metrics["beam_texts"].append(text)
     return step_metrics
 
 
@@ -150,9 +153,10 @@ def evaluate(argv=None, keep_outputs: bool = False) -> dict:
     """Run the evaluation; returns ``cer``, ``wer``, the beam key when
     decoding with a beam or LM, ``step`` (batches scored), and
     ``utterances``, ``audio_seconds``, ``eval_seconds`` (wall, data
-    included) and ``beam_seconds`` (host beam decode). With
-    ``keep_outputs`` also ``outputs``: per utterance scored, in order,
-    its file, its (frames, labels) float32 log-probs and its greedy
+    included), ``beam_seconds`` (host beam decode) and, with ``--lm``,
+    ``lm_load_seconds``. With ``keep_outputs`` also ``outputs``: per
+    utterance scored, in order, its file, its (frames, labels) float32
+    log-probs, its greedy transcript and, with a beam or an LM, its beam
     transcript."""
     args = parse_args(argv)
     logging.basicConfig(level=logging.INFO,
@@ -189,11 +193,13 @@ def evaluate(argv=None, keep_outputs: bool = False) -> dict:
     vocab = {v: i for i, v in enumerate(vocab_list)}
     index2vocab = revlut(vocab)
 
-    ctc_decoder, beam_lm_key = None, None
+    ctc_decoder, beam_lm_key, lm_load_s = None, None, None
     if args.beam > 1 or args.lm:
+        t0 = time.perf_counter()
         ctc_decoder = PrefixBeamSearch(vocab_list, alpha=args.alpha,
                                        beta=args.beta, beam=args.beam,
                                        lm_file=args.lm)
+        lm_load_s = time.perf_counter() - t0 if args.lm else None
         beam_lm_key = (f"werr_lm_{args.beam}" if args.lm
                        else f"werr_{args.beam}")
 
@@ -245,6 +251,9 @@ def evaluate(argv=None, keep_outputs: bool = False) -> dict:
                       args.verbose, ctc_decoder, postproc)
         if ctc_decoder is not None:
             beam_s += time.perf_counter() - t0
+            if keep_outputs:
+                for out, text in zip(outputs[-n_real:], sm["beam_texts"]):
+                    out["beam"] = text
         c_errors += sm["c_errors"]
         w_errors += sm["w_errors"]
         wlm_errors += sm["wbeam_errors"]
@@ -261,6 +270,8 @@ def evaluate(argv=None, keep_outputs: bool = False) -> dict:
     metrics.update(utterances=utterances, audio_seconds=audio_s,
                    eval_seconds=time.perf_counter() - start,
                    beam_seconds=beam_s)
+    if lm_load_s is not None:
+        metrics["lm_load_seconds"] = lm_load_s
     logger.info("Final results")
     logger.info(metrics)
     if keep_outputs:

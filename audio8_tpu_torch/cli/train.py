@@ -20,12 +20,15 @@ each with a resume file beside it (``train/checkpoint.py``).
 resumes a run from its directory
 (``cli/common.py:resolve_restart``); on SIGTERM the trainer saves at the
 next step boundary and exits 0 (``train/preempt.py``). ``--verbose``
-prints a beam-decoded (``--beam``, ``--lm``) validation sample. The
-flags are the JAX trainer's; those of parts not ported yet raise:
-parallelism and ``--distributed``, noise and speed perturbation,
-``--optim sgd`` and ``--profile_dir``. ``--layer_drop`` and every
-topology flag or preset but MoE train. ``--lane_align``
-(TPU tiling) is not a flag here.
+prints a beam-decoded (``--beam``, ``--lm``) validation sample.
+``--speed_perturb`` and ``--noise_manifest`` augment the training
+utterances (``data/audio.py``), ``--remat`` recomputes each encoder
+layer in the backward on its replayed dropout seeds, ``--optim sgd``
+steps plain SGD, and ``--profile_dir`` writes a Chrome trace of the
+five steps after the tenth (``train/profiler.py``). The flags are the JAX trainer's; those
+of parts not ported yet raise: parallelism and ``--distributed``.
+``--layer_drop`` and every topology flag or preset but MoE train.
+``--lane_align`` (TPU tiling) is not a flag here.
 """
 from __future__ import annotations
 
@@ -37,11 +40,12 @@ from argparse import ArgumentParser
 import numpy as np
 import torch
 
-from audio8_tpu_torch.cli.common import (add_beam_args,
+from audio8_tpu_torch.cli.common import (add_augmentation_args,
+                                        add_beam_args,
                                         add_common_model_args,
                                         apply_preset, check_ported,
                                         encoder_kwargs, resolve_device,
-                                        resolve_restart)
+                                        resolve_restart, train_augmentation)
 from audio8_tpu_torch.config import AcousticConfig
 from audio8_tpu_torch.data.datasets import (AudioTextLetterDataset,
                                             PrefetchLoader)
@@ -53,6 +57,7 @@ from audio8_tpu_torch.train.checkpoint import save_checkpoint
 from audio8_tpu_torch.train.optim import (TrainState, create_lrs,
                                           create_optimizer)
 from audio8_tpu_torch.train.preempt import PreemptionGuard
+from audio8_tpu_torch.train.profiler import StepProfiler
 from audio8_tpu_torch.train.steps import accumulate_grads, make_ctc_steps
 from audio8_tpu_torch.utils import Average, Offsets, revlut, str2bool
 
@@ -111,18 +116,13 @@ def parse_args(argv=None):
                         default="ltr")
     parser.add_argument("--freeze_fx", type=str2bool, default=True)
     parser.add_argument("--pad_to_multiple", type=int, default=16_000)
-    parser.add_argument("--noise_manifest", help="not ported yet")
-    parser.add_argument("--noise_snr", type=float, nargs=2,
-                        default=[5.0, 20.0],
-                        help="inert without --noise_manifest")
-    parser.add_argument("--noise_prob", type=float, default=1.0,
-                        help="inert without --noise_manifest")
-    parser.add_argument("--speed_perturb", type=float, nargs="*",
-                        help="not ported yet")
+    add_augmentation_args(parser)
     parser.add_argument("--length_buckets", type=int, nargs="*",
                         help="audio-length grid (samples); pads each batch "
                              "up to the next bucket")
-    parser.add_argument("--profile_dir", type=str, help="not ported yet")
+    parser.add_argument("--profile_dir", type=str,
+                        help="write a torch.profiler Chrome trace of "
+                             "steps 11-15 here")
     parser.add_argument("--seed", type=int, default=1234,
                         help="seed of the generator that dropout and "
                              "masking draw from")
@@ -181,7 +181,7 @@ def _train(args, device: torch.device, preempt: PreemptionGuard):
     train_set = AudioTextLetterDataset(
         os.path.join(args.root_dir, args.train_dataset), vec,
         args.target_tokens_per_batch, args.max_sample_len, shuffle=True,
-        **common)
+        **common, **train_augmentation(args))
     valid_set = AudioTextLetterDataset(
         os.path.join(args.root_dir, args.valid_dataset), vec,
         args.target_tokens_per_batch, args.max_sample_len, shuffle=False,
@@ -235,6 +235,7 @@ def _train(args, device: torch.device, preempt: PreemptionGuard):
     best_metric = 1e8
     generator = torch.Generator().manual_seed(args.seed)
     fused = args.grad_accum == 1
+    profiler = StepProfiler(args.profile_dir, device=device)
 
     acc_grads, acc_examples, acc_tokens, acc_audio = None, 0.0, 0.0, 0.0
     iters, gstep = 0, state.step
@@ -270,6 +271,7 @@ def _train(args, device: torch.device, preempt: PreemptionGuard):
             acc_grads, acc_examples, acc_tokens, acc_audio = \
                 None, 0.0, 0.0, 0.0
             gstep += 1
+            profiler.step(gstep)
             step_time.update(elapsed)
             start = time.time()
 
@@ -298,6 +300,8 @@ def _train(args, device: torch.device, preempt: PreemptionGuard):
                 logger.warning("preempted: saved step %d, exiting", gstep)
                 break
     train_itr.close()  # stops the prefetch threads
+    profiler.close()
+    state.profile_trace = profiler.path
     return state
 
 

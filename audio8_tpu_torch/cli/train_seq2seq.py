@@ -22,10 +22,13 @@ beside each (``train/checkpoint.py``). ``--restart_from`` warm-starts the
 encoder from a fairseq ``.pt`` (pretrained or CTC, e.g. ``cli.pretrain``'s
 checkpoints), loads a seq2seq ``.pt`` at step 0, or resumes a run from
 its directory (``cli/common.py:resolve_restart``); on SIGTERM the
-trainer saves at the next step boundary and exits 0. The flags are the
-JAX trainer's (``--attention_dropout`` is inert there and here); those
-of parts not ported yet raise: parallelism and ``--distributed``, noise
-and speed perturbation, ``--remat`` and ``--optim sgd``. ``--lane_align`` (TPU tiling) is not a flag here.
+trainer saves at the next step boundary and exits 0. ``--speed_perturb``
+and ``--noise_manifest`` augment the training utterances, ``--remat``
+recomputes each encoder layer in the backward on its replayed dropout
+seeds, ``--optim sgd`` steps plain SGD. The flags are the JAX trainer's
+(``--attention_dropout`` is inert there and here); those of parts not
+ported yet raise: parallelism and ``--distributed``. ``--lane_align``
+(TPU tiling) is not a flag here.
 """
 from __future__ import annotations
 
@@ -36,9 +39,11 @@ from argparse import ArgumentParser
 
 import torch
 
-from audio8_tpu_torch.cli.common import (add_common_model_args, apply_preset,
+from audio8_tpu_torch.cli.common import (add_augmentation_args,
+                                        add_common_model_args, apply_preset,
                                         check_ported, encoder_kwargs,
-                                        resolve_device, resolve_restart)
+                                        resolve_device, resolve_restart,
+                                        train_augmentation)
 from audio8_tpu_torch.cli.train import _to_device
 from audio8_tpu_torch.config import DecoderConfig, EncoderConfig
 from audio8_tpu_torch.data.datasets import (AudioTextLetterDataset,
@@ -107,14 +112,7 @@ def parse_args(argv=None):
                         default="ltr")
     parser.add_argument("--freeze_fx", type=str2bool, default=True)
     parser.add_argument("--pad_to_multiple", type=int, default=16_000)
-    parser.add_argument("--noise_manifest", help="not ported yet")
-    parser.add_argument("--noise_snr", type=float, nargs=2,
-                        default=[5.0, 20.0],
-                        help="inert without --noise_manifest")
-    parser.add_argument("--noise_prob", type=float, default=1.0,
-                        help="inert without --noise_manifest")
-    parser.add_argument("--speed_perturb", type=float, nargs="*",
-                        help="not ported yet")
+    add_augmentation_args(parser)
     parser.add_argument("--length_buckets", type=int, nargs="*",
                         help="audio-length grid (samples); pads each batch "
                              "up to the next bucket")
@@ -159,7 +157,7 @@ def datasets(args):
     train_set = AudioTextLetterDataset(
         os.path.join(args.root_dir, args.train_dataset), vec,
         args.target_tokens_per_batch, args.max_sample_len, shuffle=True,
-        **common)
+        **common, **train_augmentation(args))
     valid_set = AudioTextLetterDataset(
         os.path.join(args.root_dir, args.valid_dataset), vec,
         args.target_tokens_per_batch, args.max_sample_len, shuffle=False,

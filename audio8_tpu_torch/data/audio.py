@@ -215,3 +215,70 @@ class AudioResampleReader(SoundfileAudioReader):
 
         num = int(len(wav) * self.sample_factor)
         return scipy.signal.resample(wav, num).astype(np.float32)
+
+
+class NoiseMixer:
+    """Additive noise at a random SNR (``audio8_tpu/data/audio.py``'s
+    ``NoiseMixer``, MUSAN-style). ``source`` is an audio manifest TSV
+    (the audio root, then ``file\\tnum_samples`` rows) or a directory of
+    audio files. Each call mixes one noise clip chosen by ``rng``, looped
+    or cropped to the utterance's length, at an SNR drawn uniformly from
+    ``snr_db``, with probability ``prob``; the length is kept. The draws
+    and the arithmetic are the JAX package's, so the same ``rng`` gives
+    the same samples."""
+
+    def __init__(self, source: str, snr_db=(5.0, 20.0), prob: float = 1.0):
+        import os
+
+        self.snr_db = (float(snr_db[0]), float(snr_db[1]))
+        self.prob = float(prob)
+        self._reader = SoundfileAudioReader()
+        if os.path.isdir(source):
+            self.files = sorted(
+                os.path.join(source, f) for f in os.listdir(source)
+                if f.lower().endswith(SUPPORTED_FORMATS))
+        else:
+            with open(source) as f:
+                directory = f.readline().strip()
+                self.files = [os.path.join(directory, ln.split("\t")[0])
+                              for ln in f if ln.strip()]
+        if not self.files:
+            raise ValueError(f"no noise files found in {source!r}")
+
+    def __call__(self, wav: np.ndarray, rng) -> np.ndarray:
+        if self.prob < 1.0 and rng.random() > self.prob:
+            return wav
+        noise = np.asarray(
+            self._reader.read(self.files[int(rng.integers(len(self.files)))]),
+            np.float32).squeeze()
+        if noise.size == 0:
+            return wav
+        if len(noise) < len(wav):
+            noise = np.tile(noise, -(-len(wav) // len(noise)))
+        if len(noise) > len(wav):
+            start = int(rng.integers(len(noise) - len(wav) + 1))
+            noise = noise[start:start + len(wav)]
+        rms_s = float(np.sqrt(np.mean(np.square(wav)))) or 1e-8
+        rms_n = float(np.sqrt(np.mean(np.square(noise))))
+        if rms_n < 1e-8:
+            return wav
+        snr = float(rng.uniform(*self.snr_db))
+        scale = rms_s / (rms_n * 10.0 ** (snr / 20.0))
+        return (wav + scale * noise).astype(np.float32)
+
+
+def speed_perturb_wav(wav: np.ndarray, factor: float) -> np.ndarray:
+    """``wav`` played at ``factor`` times its speed (its duration divided
+    by ``factor``): a polyphase resample at the factor's rational
+    approximation with denominators up to 100, the Kaldi/fairseq
+    speed-perturbation primitive."""
+    from fractions import Fraction
+
+    import scipy.signal
+
+    frac = Fraction(factor).limit_denominator(100)
+    if frac.numerator == frac.denominator:
+        return np.asarray(wav, np.float32)
+    out = scipy.signal.resample_poly(
+        np.asarray(wav, np.float32), frac.denominator, frac.numerator)
+    return out.astype(np.float32)

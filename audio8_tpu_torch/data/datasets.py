@@ -10,9 +10,11 @@ and its batch size up a geometric grid (``snap_batch_size``; added rows
 have zero signal and lengths), and the epoch order reshuffles from a
 seeded ``random.Random``. Pretraining (``AudioFileDataset``,
 ``BucketingAudioDataset``): dense min-cropped (B, T) batches with no
-padding. Left out: multi-process sharding (``row_shard``, ``num_shards``,
-``batch_multiple``), ``lane_align`` (TPU tiling), speed perturbation and
-noise mixing.
+padding. Supervised training batches may be augmented by speed
+perturbation and additive noise, drawn in the sequential batch plan as
+the JAX package draws them. Left out: multi-process sharding
+(``row_shard``, ``num_shards``, ``batch_multiple``) and ``lane_align``
+(TPU tiling).
 """
 from __future__ import annotations
 
@@ -28,7 +30,8 @@ from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 import numpy as np
 
 from audio8_tpu_torch.data.audio import (AudioResampleReader,
-                                         SoundfileAudioReader)
+                                         SoundfileAudioReader,
+                                         speed_perturb_wav)
 from audio8_tpu_torch.utils import Offsets
 
 logger = logging.getLogger(__name__)
@@ -111,7 +114,15 @@ def batch_by_size(indices, sizes, max_tokens=None,
 class AudioTextLetterDataset:
     """(audio, transcript) batches from a TSV manifest (first line the
     audio root, then ``relative_path\\tnum_samples``) zipped with the
-    sibling ``.ltr``/``.wrd``/``.bpe`` transcript file."""
+    sibling ``.ltr``/``.wrd``/``.bpe`` transcript file.
+
+    ``speed_perturb``: speed factors (e.g. ``(0.9, 1.0, 1.1)``); each
+    utterance draws one per read and is resampled by
+    ``data.audio.speed_perturb_wav``; the audio pad scales by the slowest
+    factor's stretch, transcripts are unchanged. ``noise_mixer``: a
+    ``data.audio.NoiseMixer`` (any length-keeping ``(wav, rng) -> wav``)
+    applied after the speed change, with one child ``default_rng`` per
+    row. Both are for training sets only."""
 
     TGT_LETTER = "ltr"
     TGT_BPE = "bpe"
@@ -125,7 +136,8 @@ class AudioTextLetterDataset:
                  max_sentences: int = 128, pad_to_multiple: int = 16_000,
                  text_pad_multiple: int = 64,
                  length_grid: Optional[Sequence[int]] = None,
-                 seed: int = 0, read_workers: int = 4):
+                 seed: int = 0, read_workers: int = 4,
+                 speed_perturb: Sequence[float] = (), noise_mixer=None):
         self.sample_factor = target_sample_rate / input_sample_rate
         self.reader = (AudioResampleReader(self.sample_factor)
                        if input_sample_rate != target_sample_rate
@@ -141,6 +153,13 @@ class AudioTextLetterDataset:
         self.pad_to_multiple = pad_to_multiple
         self.text_pad_multiple = text_pad_multiple
         self.length_grid = sorted(length_grid) if length_grid else None
+        self.speed_perturb = [float(f) for f in speed_perturb]
+        if any(f <= 0 for f in self.speed_perturb):
+            raise ValueError(f"speed factors must be > 0: {speed_perturb}")
+        self.noise_mixer = noise_mixer
+        # a factor f divides the duration by f: pads fit the slowest one
+        self._max_stretch = (max(1.0 / min(self.speed_perturb), 1.0)
+                             if self.speed_perturb else 1.0)
         self._rng = random.Random(seed)
         self._np_rng = np.random.default_rng(seed)
         self._pool = (concurrent.futures.ThreadPoolExecutor(read_workers)
@@ -201,7 +220,8 @@ class AudioTextLetterDataset:
 
     def _plan_batch(self, batch: Sequence[int]) -> dict:
         n_real = len(batch)
-        max_audio = int(math.ceil(max(self.sizes[idx] for idx in batch)))
+        max_audio = int(math.ceil(max(self.sizes[idx] for idx in batch)
+                                  * self._max_stretch))
         if self.length_grid:
             fits = [g for g in self.length_grid if g >= max_audio]
             t_audio = fits[0] if fits else _round_up(max_audio,
@@ -212,21 +232,38 @@ class AudioTextLetterDataset:
                        for idx in batch)
         t_text = min(_round_up(max_text, self.text_pad_multiple),
                      _round_up(self.max_dst_length, self.text_pad_multiple))
+        # the augmentations' draws, in the JAX package's order: the speed
+        # factors, then one child generator per row for the noise
+        factors = (self._np_rng.choice(self.speed_perturb, size=n_real)
+                   if self.speed_perturb else None)
+        noise_rngs = ([np.random.default_rng(s) for s in
+                       self._np_rng.integers(0, 2**63, size=n_real)]
+                      if self.noise_mixer is not None else None)
         return {"rows": list(batch), "files": [self.files[i] for i in batch],
+                "factors": factors, "noise_rngs": noise_rngs,
                 "b_local": snap_batch_size(n_real), "t_audio": t_audio,
                 "t_text": t_text, "n_real": n_real}
 
     def materialize(self, plan: dict) -> Dict[str, np.ndarray]:
-        """Decode and pad one planned batch."""
+        """Decode, augment (speed, then noise) and pad one planned
+        batch."""
         rows, files = plan["rows"], plan["files"]
+        factors, noise_rngs = plan["factors"], plan["noise_rngs"]
         b_local, t_audio, t_text = (plan["b_local"], plan["t_audio"],
                                     plan["t_text"])
 
-        def read(path):
-            return self.reader.read(path, self.max_src_length or -1).squeeze()
+        def read(i_path):
+            i, path = i_path
+            wav = self.reader.read(path, self.max_src_length or -1).squeeze()
+            if factors is not None and factors[i] != 1.0:
+                wav = speed_perturb_wav(wav, float(factors[i]))
+            if noise_rngs is not None:
+                wav = self.noise_mixer(wav, noise_rngs[i])
+            return wav
 
-        audios = (list(self._pool.map(read, files)) if self._pool is not None
-                  else [read(p) for p in files])
+        audios = (list(self._pool.map(read, enumerate(files)))
+                  if self._pool is not None
+                  else [read(ip) for ip in enumerate(files)])
         signal = np.zeros((b_local, t_audio), np.float32)
         audio_lengths = np.zeros(b_local, np.int32)
         token_ids = np.full((b_local, t_text), Offsets.PAD, np.int32)

@@ -376,6 +376,41 @@ def _by_name_assignments(node: Mapping[str, Any], jax_path: Tuple[str, ...],
     return out
 
 
+def jax_named_assignments(module: torch.nn.Module
+                          ) -> List[Tuple[Tuple[str, ...], str, Callable]]:
+    """(JAX path, port key, transform) for every parameter of a port
+    module whose submodules carry the JAX names (a text tower, the
+    decoder): :func:`_by_name_assignments` over the JAX layout of the
+    module, which undoes its renames: a ``Dense``'s ``weight`` is its
+    ``kernel``, a ``LayerNorm``'s its ``scale``, and a child in
+    ``_RENAMES`` takes flax's automatic name of its class
+    (``TwoHeadConcat_0``). A transform maps a JAX array to the port's and
+    is its own inverse (a transpose or nothing)."""
+    from audio8_tpu_torch.nn.layers import Dense, LayerNorm
+
+    def layout(mod: torch.nn.Module) -> Dict[str, Any]:
+        node: Dict[str, Any] = {}
+        for name, p in mod.named_parameters(recurse=False):
+            if name == "weight" and isinstance(mod, (Dense, LayerNorm)):
+                name = "kernel" if isinstance(mod, Dense) else "scale"
+            node[name] = p
+        for name, child in mod.named_children():
+            flax = f"{type(child).__name__}_0"
+            if _RENAMES.get(flax) == name:
+                name = flax
+            sub = layout(child)
+            if sub:
+                node[name] = sub
+        return node
+
+    out = _by_name_assignments(layout(module), (), "")
+    keys = [k for _, k, _ in out]
+    if sorted(keys) != sorted(n for n, _ in module.named_parameters()):
+        raise KeyError(f"{type(module).__name__}: parameters without JAX "
+                       "names")
+    return out
+
+
 def _jax_assignments(tree: Mapping[str, Any]
                      ) -> List[Tuple[Tuple[str, ...], str, Callable]]:
     """(JAX path, port key, transform) for a JAX ``Wav2Vec2AcousticModel``
@@ -432,6 +467,20 @@ def _adam_state(opt_state: Any):
     return None
 
 
+def _opt_count(opt_state: Any):
+    """The step count of a JAX optimizer state: the outermost ``count``
+    (optax's inject_hyperparams state, which SGD's is, or an Adam
+    state)."""
+    if hasattr(opt_state, "count"):
+        return opt_state.count
+    if isinstance(opt_state, (tuple, list)):
+        for child in opt_state:
+            found = _opt_count(child)
+            if found is not None:
+                return found
+    return None
+
+
 def params_from_jax(tree: Mapping[str, Any], opt_state: Any = None):
     """JAX ``Wav2Vec2AcousticModel``, ``Wav2Vec2Model`` or ``Seq2Seq``
     params, or the paired ``{'model': ..., 'loss': ...}`` params (a
@@ -443,18 +492,22 @@ def params_from_jax(tree: Mapping[str, Any], opt_state: Any = None):
     ``weight`` and ``weight_scale`` buffers of a model quantized with
     ``ops.quant.quantize_model_params``.
 
-    With ``opt_state`` (the JAX AdamW state, arrays as numpy) it returns
-    ``(state_dict, (count, mu, nu))`` where ``mu`` and ``nu`` are state
-    dicts laid out like the parameters: feed them to
-    ``train.optim.TrainState.load_adam_state``."""
+    With ``opt_state`` (the JAX AdamW or SGD state, arrays as numpy) it
+    returns ``(state_dict, (count, mu, nu))`` where ``mu`` and ``nu``
+    are state dicts laid out like the parameters (``None`` for SGD,
+    whose state is its count): feed them to
+    ``train.optim.TrainState.load_opt_state``."""
     state = _params_from_jax(tree)
     if opt_state is None:
         return state
     adam = _adam_state(opt_state)
-    if adam is None:
-        raise KeyError("no mu/nu (AdamW moments) in the JAX optimizer state")
-    return state, (int(np.asarray(adam.count)), _params_from_jax(adam.mu),
-                   _params_from_jax(adam.nu))
+    if adam is not None:
+        return state, (int(np.asarray(adam.count)),
+                       _params_from_jax(adam.mu), _params_from_jax(adam.nu))
+    count = _opt_count(opt_state)
+    if count is None:
+        raise KeyError("no step count in the JAX optimizer state")
+    return state, (int(np.asarray(count)), None, None)
 
 
 def _params_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:

@@ -40,6 +40,7 @@ model always trains its extractor. :func:`check_supported` refuses MoE
 from __future__ import annotations
 
 import contextlib
+import itertools
 from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
@@ -166,7 +167,8 @@ class AudioTransformerEncoder(nn.Module):
     stack). ``pos_conv`` is the weight-normed conv (``pos_conv.0``) or
     data2vec's stack (``pos_conv_depth > 1``, ``pos_conv.{i}.0``); the
     conformer has none: dropout, blocks, ``layer_norm``. The layers run
-    under LayerDrop in training (:func:`run_layers`); under
+    under LayerDrop in training, and with ``remat`` each is recomputed
+    in the backward on its replayed seeds (:func:`run_layers`); under
     ``gated_rel_pos`` they share WavLM's bucketed position bias from
     layer 0's table. Causal chunks (``causal_chunk_frames``) AND a
     block-causal (1, 1, T, T) mask into the key mask, which sends
@@ -226,7 +228,7 @@ class AudioTransformerEncoder(nn.Module):
                 kv = pad_mask[:, None, None, :]
                 mask = kv if mask is None else mask & kv
             x = run_layers(self.layers, x, generator, cfg.layer_drop,
-                           mask=mask)
+                           cfg.remat, mask=mask)
             return self.layer_norm(x)
         x = x + self.pos_conv(x)
         if not cfg.pre_norm:
@@ -239,7 +241,8 @@ class AudioTransformerEncoder(nn.Module):
                                        cfg.rel_pos_max_distance,
                                        self.compute_dtype)
         x = run_layers(self.layers, x, generator, cfg.layer_drop,
-                       key_valid=pad_mask, mask=mask, position_bias=bias)
+                       cfg.remat, key_valid=pad_mask, mask=mask,
+                       position_bias=bias)
         return self.layer_norm(x) if cfg.pre_norm else x
 
 
@@ -455,6 +458,46 @@ class GumbelVectorQuantizer(nn.Module):
         quantized = torch.einsum("bmgv,gvd->bmgd", one_hot,
                                  codebook).reshape(b, m, self.vq_dim)
         return quantized.to(self.compute_dtype), prob_ppl, index
+
+    # the codebook utilities of the JAX quantizer (fairseq's
+    # wav2vec2.py:499-533); nothing on the training path calls them
+
+    def codebook_indices(self) -> torch.Tensor:
+        """Every G-tuple of per-group codewords as flat row indices into
+        ``vars``: (V**G * G,) int64, tuples in lexicographic order."""
+        inds = torch.tensor(list(itertools.product(
+            *[range(self.num_vars)] * self.num_groups)), dtype=torch.int64)
+        return (inds + torch.arange(self.num_groups) * self.num_vars
+                ).reshape(-1)
+
+    def codebook(self) -> torch.Tensor:
+        """(V**G, vq_dim) table of every composite codeword."""
+        idx = self.codebook_indices().to(self.vars.device)
+        return self.vars[idx].reshape(self.num_vars ** self.num_groups, -1)
+
+    def sample_from_codebook(self, b: int, n: int,
+                             generator: torch.Generator) -> torch.Tensor:
+        """(b, n, vq_dim): ``b * n`` composite codewords drawn uniformly
+        with replacement from ``generator`` (JAX draws them with
+        ``jax.random.randint``, a stream this does not reproduce)."""
+        idx = self.codebook_indices().reshape(-1, self.num_groups)
+        cb_size = idx.shape[0]
+        if n >= cb_size:
+            raise ValueError(f"sample size {n} >= codebook size {cb_size}")
+        sample = torch.randint(0, cb_size, (b * n,), generator=generator,
+                               device=generator.device).cpu()
+        rows = idx[sample].reshape(-1).to(self.vars.device)
+        return self.vars[rows].reshape(b, n, -1)
+
+    def to_codebook_index(self, indices: torch.Tensor) -> torch.Tensor:
+        """(..., G) per-group indices -> (...,) composite codebook
+        index."""
+        res = torch.zeros(indices.shape[:-1], dtype=indices.dtype,
+                          device=indices.device)
+        for i in range(self.num_groups):
+            res = res + indices[..., i] * (
+                self.num_vars ** (self.num_groups - i - 1))
+        return res
 
 
 class PretrainSeeds(NamedTuple):

@@ -61,6 +61,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from audio8_tpu_torch.nn.dropout import dropout
@@ -68,7 +69,7 @@ from audio8_tpu_torch.nn.embeddings import LookupTableEmbeddings
 from audio8_tpu_torch.nn.layers import Dense, LayerNorm, gelu
 from audio8_tpu_torch.ops.attention import attention_core
 from audio8_tpu_torch.ops.attention_block import HEAD_DIMS, attention_block
-from audio8_tpu_torch.ops.hashrand import draw_keep, draw_seed
+from audio8_tpu_torch.ops.hashrand import SeedReplay, draw_keep, draw_seed
 
 
 # the JAX gates' bounds on T and the head dim
@@ -489,13 +490,22 @@ class TransformerEncoderLayer(nn.Module):
         return self.final_layer_norm(x)
 
 
-def run_layers(layers, x, generator, layer_drop: float, **kwargs):
+def run_layers(layers, x, generator, layer_drop: float,
+               remat: bool = False, **kwargs):
     """The layers in order, under LayerDrop in training: every layer's
     keep decision is drawn before the first layer, as the JAX stack
     splits its key (``jax.random.bernoulli`` with ``1 - layer_drop``); a
     dropped layer is skipped (JAX computes it and selects its input), but
     the seeds it would have drawn are drawn and discarded, so every later
-    draw is the one JAX makes (``ops.hashrand.SeedReplay`` lines up)."""
+    draw is the one JAX makes (``ops.hashrand.SeedReplay`` lines up).
+
+    ``remat`` (the JAX ``nn.remat`` of each layer; in training, while
+    autograd records): a kept layer's activations are not kept for the
+    backward but recomputed there (``torch.utils.checkpoint``). Its
+    ``num_seeds()`` seeds are drawn before it runs, and the forward and
+    the recompute each take them from a fresh ``SeedReplay``: both apply
+    the same dropout masks, and the generator's stream ends where a
+    plain step leaves it."""
     keeps = None
     if generator is not None and layer_drop > 0.0:
         keeps = [draw_keep(generator, 1.0 - layer_drop) for _ in layers]
@@ -504,8 +514,25 @@ def run_layers(layers, x, generator, layer_drop: float, **kwargs):
             for _ in range(layer.num_seeds()):
                 draw_seed(generator)
             continue
-        x = layer(x, generator=generator, **kwargs)
+        if remat and generator is not None and torch.is_grad_enabled():
+            seeds = [draw_seed(generator) for _ in range(layer.num_seeds())]
+            x = torch.utils.checkpoint.checkpoint(
+                _replayed, layer, seeds, x, use_reentrant=False, **kwargs)
+        else:
+            x = layer(x, generator=generator, **kwargs)
     return x
+
+
+def _replayed(layer, seeds, x, **kwargs):
+    """``layer``'s forward with its dropout seeds given (a remat
+    forward and its recompute)."""
+    replay = SeedReplay(seeds)
+    out = layer(x, generator=replay, **kwargs)
+    if replay.remaining:
+        raise RuntimeError(f"{type(layer).__name__}: drew "
+                           f"{len(seeds) - replay.remaining} of its "
+                           f"{len(seeds)} seeds")
+    return out
 
 
 def wavlm_position_bias(layers, t: int, num_buckets: int,

@@ -6,9 +6,10 @@ reads with ``load_fairseq_bin``; a seq2seq or paired one is the port's
 own ``.pt``, ``{"kind": kind, "model": state_dict}`` (no fairseq layout
 holds a decoder or a text tower). Beside each is a resume file
 (``{base}-step-N.resume``, torch state dicts) that holds what a
-restart needs to continue the same run: the AdamW moments and step
-count (the LR schedule's position), the trainer's step (in pretraining
-also the Gumbel temperature's), the parameter names and the model kind.
+restart needs to continue the same run: the optimizer (``adamw`` with
+its moments, or ``sgd``) and its step count (the LR schedule's
+position), the trainer's step (in pretraining also the Gumbel
+temperature's), the parameter names and the model kind.
 Orbax checkpoints of the JAX package do not cross; the two packages meet
 through the fairseq ``.pt``.
 """
@@ -68,30 +69,38 @@ def save_checkpoint(state, path: str, kind: str) -> str:
             k: v.detach().cpu() for k, v in state.model.state_dict().items()}},
             path)
     opt = state.opt_state
-    torch.save({"kind": kind, "step": int(state.step),
-                "count": int(opt.count), "names": list(state.names),
-                "mu": {n: m.detach().cpu() for n, m in zip(state.names,
-                                                           opt.mu)},
-                "nu": {n: v.detach().cpu() for n, v in zip(state.names,
-                                                           opt.nu)}},
-               resume_path(path))
+    blob = {"kind": kind, "step": int(state.step), "count": int(opt.count),
+            "names": list(state.names), "optim": _optim_name(opt)}
+    if blob["optim"] == "adamw":
+        for key in ("mu", "nu"):
+            blob[key] = {n: m.detach().cpu()
+                         for n, m in zip(state.names, getattr(opt, key))}
+    torch.save(blob, resume_path(path))
     return path
 
 
+def _optim_name(opt_state) -> str:
+    return "adamw" if hasattr(opt_state, "mu") else "sgd"
+
+
 def load_resume(state, checkpoint: str, kind: str) -> Optional[int]:
-    """Restore the AdamW moments and step count of ``state`` from the
-    resume file beside ``checkpoint`` when there is one of this ``kind``
-    over the same parameters (names and shapes); returns its step, else
-    ``None`` and ``state`` is untouched."""
+    """Restore the optimizer state (the AdamW moments, or SGD's count
+    alone) and step count of ``state`` from the resume file beside
+    ``checkpoint`` when there is one of this ``kind``, of the same
+    optimizer, over the same parameters (names and shapes); returns its
+    step, else ``None`` and ``state`` is untouched."""
     path = resume_path(checkpoint)
     if not os.path.exists(path):
         return None
     blob = torch.load(path, map_location="cpu", weights_only=True)
-    if blob["kind"] != kind or blob["names"] != list(state.names) or any(
-            blob["mu"][n].shape != p.shape
-            for n, p in zip(state.names, state.params)):
+    optim = blob.get("optim", "adamw")
+    if blob["kind"] != kind or blob["names"] != list(state.names) \
+            or optim != _optim_name(state.opt_state) \
+            or (optim == "adamw" and any(
+                blob["mu"][n].shape != p.shape
+                for n, p in zip(state.names, state.params))):
         return None
-    state.load_adam_state(blob["count"], blob["mu"], blob["nu"])
+    state.load_opt_state(blob["count"], blob.get("mu"), blob.get("nu"))
     state.step = int(blob["step"])
     return state.step
 

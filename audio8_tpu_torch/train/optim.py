@@ -5,10 +5,12 @@
 - :func:`create_optimizer`: ``adamw`` and ``fused_adamw`` are both the
   port's fused AdamW (``ops/adamw.py``, one kernel launch per step on the
   card): optax.adamw and ``FusedAdamW`` are the same math. ``adam`` is the
-  same kernel with weight decay 0. ``sgd`` is not ported yet;
-- :class:`TrainState`: the model's parameters, the AdamW state and the
-  step. ``apply_gradients`` folds the grad scale (1/examples) and the
-  global-norm clip factor into the kernel's one scalar, as the JAX
+  same kernel with weight decay 0. ``sgd`` is :class:`SGD`, optax.sgd
+  without momentum (``p - lr * g``) as plain torch ops: the JAX package
+  leaves it to XLA, so it has no kernel;
+- :class:`TrainState`: the model's parameters, the optimizer state and
+  the step. ``apply_gradients`` folds the grad scale (1/examples) and the
+  global-norm clip factor into the optimizer's one scalar, as the JAX
   ``FusedAdamW`` path does.
 
 optax semantics: one global step count; the learning rate comes from the
@@ -107,16 +109,50 @@ class AdamW:
         return state
 
 
+@dataclasses.dataclass
+class SGDState:
+    """optax.sgd's state without momentum: the step count only."""
+
+    count: int
+
+
+class SGD:
+    """``optax.inject_hyperparams(optax.sgd)(learning_rate=schedule)``
+    (no momentum): ``p + (-lr) * (grad_scale * g)`` per leaf, with the
+    rate from the schedule at the pre-increment count."""
+
+    def __init__(self, lr_schedule: Callable[[int], float]):
+        self.lr_schedule = lr_schedule
+
+    def init(self, params: Sequence[torch.Tensor]) -> SGDState:
+        return SGDState(0)
+
+    def apply(self, grads: Sequence[torch.Tensor], state: SGDState,
+              params: Sequence[torch.Tensor],
+              grad_scale: torch.Tensor) -> SGDState:
+        """One in-place update of ``params``; ``grad_scale`` (0-dim f32
+        tensor) multiplies every gradient."""
+        lr = self.lr_schedule(state.count)
+        with torch.no_grad():
+            updates = torch._foreach_mul([g.float() for g in grads],
+                                         grad_scale)
+            torch._foreach_mul_(updates, -lr)
+            torch._foreach_add_(list(params), updates)
+        state.count += 1
+        return state
+
+
 def create_optimizer(lr_schedule: Callable, optim: str = "adamw",
                      weight_decay: float = 0.0, beta1: float = 0.9,
-                     beta2: float = 0.999, eps: float = 1e-8) -> AdamW:
+                     beta2: float = 0.999, eps: float = 1e-8):
+    """``AdamW`` (``adamw``, ``fused_adamw``; ``adam`` without weight
+    decay) or ``SGD`` (``sgd``), as the JAX ``create_optimizer``."""
     if optim in ("adamw", "fused_adamw"):
         return AdamW(lr_schedule, beta1, beta2, eps, weight_decay)
     if optim == "adam":
         return AdamW(lr_schedule, beta1, beta2, eps, 0.0)
     if optim == "sgd":
-        raise NotImplementedError("--optim sgd is not ported yet "
-                                  "(ROADMAP.md)")
+        return SGD(lr_schedule)
     raise ValueError(f"Unknown optimizer {optim!r}")
 
 
@@ -131,7 +167,8 @@ class TrainState:
     """The model's parameters (in ``named_parameters`` order), the
     optimizer state and the step count."""
 
-    def __init__(self, model: torch.nn.Module, tx: AdamW, step: int = 0):
+    def __init__(self, model: torch.nn.Module, tx: Union[AdamW, SGD],
+                 step: int = 0):
         self.model = model
         self.tx = tx
         self.names = [n for n, _ in model.named_parameters()]
@@ -165,13 +202,18 @@ class TrainState:
         self.step += 1
         return gnorm
 
-    def load_adam_state(self, count: int, mu: Dict[str, torch.Tensor],
-                        nu: Dict[str, torch.Tensor]) -> None:
-        """Take over AdamW moments and a step count (e.g. from the JAX
-        package through ``models.convert.params_from_jax``)."""
-        for i, n in enumerate(self.names):
-            self.opt_state.mu[i].copy_(mu[n])
-            self.opt_state.nu[i].copy_(nu[n])
+    def load_opt_state(self, count: int,
+                       mu: Optional[Dict[str, torch.Tensor]] = None,
+                       nu: Optional[Dict[str, torch.Tensor]] = None) -> None:
+        """Take over a step count and, for AdamW, its moments (e.g. from
+        the JAX package through ``models.convert.params_from_jax``; SGD
+        has none)."""
+        if isinstance(self.opt_state, AdamWState):
+            if mu is None or nu is None:
+                raise ValueError("AdamW state wants its moments")
+            for i, n in enumerate(self.names):
+                self.opt_state.mu[i].copy_(mu[n])
+                self.opt_state.nu[i].copy_(nu[n])
         self.opt_state.count = self.step = int(count)
 
     @property

@@ -4,6 +4,8 @@
 Drives the port's serving path, its CTC fine-tuning path, its
 contrastive pretraining path, its seq2seq path and its paired audio-text
 path at full wav2vec2-base width with seeded random weights, the
+trainers' remat, SGD, augmentation and profiler flags, KenLM binaries
+written by the port and the text tower's warm start, the
 pretraining path again through the attention block
 (``fused_attention="block"``), the public large layouts (LV-60, HuBERT,
 data2vec, WavLM, conformer) and HuggingFace checkpoints, and holds every
@@ -238,6 +240,34 @@ instead, to compare.
               then ``cli.transcribe``, ``cli.test``, ``cli.serve`` and
               ``cli.embed`` with ``--exported`` (``phase_export_clis``);
 
+18. remat  - one full-width pretraining step at the pretraining cell's
+              shape (20 rows of 71 428 samples, dropout 0.1, f32) without
+              and with ``remat`` from the same weights and generator seed:
+              the loss equal, the gradient norm within 1e-5, every
+              gradient within 1e-2 of its leaf's scale, the generator's
+              stream equal, kernel 2 and the layers' dropouts launched
+              twice, the peak memory lower; each run's peak memory, step
+              ms and launches; then ``cli.train --remat true --optim sgd``
+              for 4 CTC steps (``remat_sgd``): kernels 1 and 2 in every
+              micro-step, the recompute in the unfrozen ones, kernel 5
+              never;
+    augment - ``cli.train --speed_perturb 0.9 1.0 1.1 --noise_manifest``
+              over synthetic noise clips with ``--profile_dir`` for 12
+              steps: finite losses, both augmentations applied, the
+              Chrome trace of the window after step 10 parsed, its
+              ``ProfilerStep#`` spans and CUDA kernel events counted;
+    kenlm_binary - ``cli.build_binary`` writes PROBING, TRIE and
+              QUANT_TRIE binaries of the serve phase's trigram ARPA, and
+              ``cli.test --beam 8 --lm`` decodes with each on the card:
+              PROBING and TRIE transcripts equal the ARPA run's, the
+              QUANT_TRIE WER difference and each LM's load seconds
+              printed;
+    warmstart - a ``.npz`` from the port's ``save_tlm_npz`` of a seeded
+              text tower in the paired cell's text config, then
+              ``cli.pretrain_paired --warmstart_text`` for 2 steps: every
+              array loaded, nothing unexpected or missing, the frozen
+              text tower equal to the file after the run, finite losses;
+
 then a ``phase_seconds`` line (each phase's wall seconds and each phase's
 retried profiler traces, ``trace_retries``), a ``kernels``
 line, the card's name and power limit from nvidia-smi,
@@ -255,6 +285,7 @@ card it exits with code 2 and prints no result.
     python3 chip_smoke.py --topology-phases  # the build and phase 16 only
     python3 chip_smoke.py --export-phases    # the build and phase 17 only
     python3 chip_smoke.py --host-timing      # the wrappers' host cost
+    python3 chip_smoke.py --trainer-phases   # the build and phase 18 only
 
 ``--block-timing`` builds the block's two sources and prints only the
 attention block's timing rows (phase 14) in float32 and bfloat16, then
@@ -281,6 +312,9 @@ H100 80GB HBM3 at 700 W). ``--host-timing`` prints the host us per
 call of ``fused_dropout`` and ``attention_core`` and the wall ms of a
 bf16 pretraining step; a copy placed in another tree's root times that
 tree (two trees in turns in one call).
+``--trainer-phases`` runs the build and phase 18 alone on fresh corpora
+(it writes the train phase's corpus, the serve phase's ARPA and the
+paired corpus itself).
 ``--freeze-timing`` times the frozen seq2seq and paired steps at full
 width (random weights) in float32 and bfloat16 two ways, in turns: as
 the port runs them, a frozen tower under ``torch.no_grad()``, and with
@@ -5829,6 +5863,492 @@ def freeze_timing() -> int:
     return 0
 
 
+# ------------------------------------ the trainers' flags, binary LMs
+
+TRAINER_PHASES = ("remat", "augment", "kenlm_binary", "warmstart")
+REMAT_ROWS, REMAT_SAMPLES = 20, 71_428  # the pretraining cell's batches
+REMAT_TIMED_STEPS = 3
+REMAT_GNORM_RTOL = 1e-5  # remat vs plain on one card: the global norm
+REMAT_SGD_STEPS = 4
+REMAT_SGD_FLAGS = ["--target_tokens_per_batch", "700000", "--grad_accum",
+                   "2", "--train_steps", str(REMAT_SGD_STEPS),
+                   "--unfreeze_enc_after_step", "1", "--warmup_steps", "2",
+                   "--valid_steps", "0", "--steps_per_checkpoint",
+                   str(REMAT_SGD_STEPS), "--remat", "true", "--optim", "sgd"]
+AUGMENT_STEPS = 12  # the profiler's window opens after step 10
+AUGMENT_FLAGS = ["--target_tokens_per_batch", "700000", "--grad_accum", "1",
+                 "--train_steps", str(AUGMENT_STEPS),
+                 "--unfreeze_enc_after_step", "6", "--warmup_steps", "2",
+                 "--valid_steps", "0", "--steps_per_checkpoint", "100",
+                 "--speed_perturb", "0.9", "1.0", "1.1"]
+KENLM_LAYOUTS = {"probing": [], "trie": ["--trie"],
+                 "quant_trie": ["--trie", "-q"]}
+WARMSTART_FLAGS = ["--train_steps", "2", "--unfreeze_audio_after_step", "0",
+                   "--unfreeze_text_after_step", "5", "--warmup_steps", "1",
+                   "--steps_per_checkpoint", "2", "--valid_steps", "0",
+                   "--num_train_workers", "4", "--target_type", "bpe",
+                   "--weight_decay", "0"]
+
+
+def remat_run(weights: dict, signal: torch.Tensor, remat: bool,
+              seed: int) -> dict:
+    """One full-width pretraining step (``make_pretrain_steps``, dropout
+    0.1, the JAX defaults) from ``weights`` with seeds drawn from a
+    generator seeded ``seed``, then REMAT_TIMED_STEPS more, each
+    synchronised: step 1's loss, gradient norm and gradients (on the
+    host), the generator's state after it and its launches; the later
+    steps' wall ms; the peak memory of the run (reset after the weights
+    and the AdamW state are placed) and what was resident before it.
+    Everything the run placed on the card is freed before it returns."""
+    from audio8_tpu_torch.config import PretrainConfig
+    from audio8_tpu_torch.models.wav2vec2 import PretrainSeeds, Wav2Vec2Model
+    from audio8_tpu_torch.train.optim import (TrainState, create_lrs,
+                                              create_optimizer)
+    from audio8_tpu_torch.train.steps import make_pretrain_steps
+
+    model = Wav2Vec2Model(PretrainConfig(remat=remat)).cuda()
+    model.load_state_dict(weights)
+    state = TrainState(model, create_optimizer(create_lrs(
+        2e-4, 10, "constant", warmup_steps=0), weight_decay=0.01))
+    train_step, _ = make_pretrain_steps(model)
+    grads = {}
+    apply = state.apply_gradients
+
+    def keeping(g, **kw):
+        grads.update({n: t.detach().cpu() for n, t in zip(state.names, g)})
+        return apply(g, **kw)
+
+    state.apply_gradients = keeping
+    gen = torch.Generator().manual_seed(seed)
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    _, metrics = train_step(state, signal, PretrainSeeds.draw(gen), gen)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    launches = read_launches()
+    rng = gen.get_state()
+    del state.apply_gradients  # the class's again
+    ms = []
+    for _ in range(REMAT_TIMED_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        train_step(state, signal, PretrainSeeds.draw(gen), gen)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    out = {"loss": float(metrics["loss"]),
+           "grad_norm": float(metrics["grad_norm"]), "grads": grads,
+           "rng": rng, "launches": launches, "first_step_ms": first_ms,
+           "step_ms": ms, "resident_gb": resident,
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    del model, state, train_step, metrics
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+OPTIM_CALLS = 10
+
+
+def optimizer_ms(model) -> dict:
+    """Wall ms of one synchronised ``apply_gradients`` (grad scale and
+    clip included) of AdamW (kernel 5) and of SGD (torch ops) over
+    ``model``'s parameters, OPTIM_CALLS calls each after a warm-up, in
+    turns (adamw, sgd, sgd, adamw)."""
+    from audio8_tpu_torch.train.optim import (TrainState, create_lrs,
+                                              create_optimizer)
+
+    grads = [torch.full_like(p, 1e-3) for p in model.parameters()]
+    out = {}
+    for name in ("adamw", "sgd", "sgd", "adamw"):
+        state = TrainState(model, create_optimizer(create_lrs(
+            1e-9, 100, "constant", warmup_steps=0), name))
+        state.apply_gradients(grads, grad_scale=0.5, clip_norm=25.0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(OPTIM_CALLS):
+            state.apply_gradients(grads, grad_scale=0.5, clip_norm=25.0)
+        torch.cuda.synchronize()
+        out.setdefault(name, []).append(
+            (time.perf_counter() - t0) * 1e3 / OPTIM_CALLS)
+        del state
+    del grads
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_remat(tmp: str, seed: int) -> tuple:
+    """``--remat``: one full-width pretraining step at the pretraining
+    cell's shape (REMAT_ROWS rows of REMAT_SAMPLES samples, dropout 0.1,
+    f32) without and with remat from the same weights and generator seed,
+    in turns (plain, remat, remat, plain): the loss equal, the gradient norm within REMAT_GNORM_RTOL, every
+    gradient within PRETRAIN_GNORM_RTOL of its leaf's largest entry (at
+    least 1e-3 of the model's largest), the generator's stream equal;
+    the layers' forwards doubled (kernel 2 twice, kernel 4 two more
+    launches a layer), everything else equal; the remat step's peak
+    memory below the plain one's; each run's peak memory, step ms and
+    launches of kernels 2, 2b, 3, 3b, 3c and 4. Then ``cli.train
+    --remat true --optim sgd`` for REMAT_SGD_STEPS CTC steps at the
+    ``a8t-train`` defaults on the train phase's corpus: finite losses,
+    kernels 1 and 2 in every micro-step, kernel 2 twice a layer in the
+    unfrozen ones (the recompute), kernel 5 never, an SGD state; then the
+    optimizer update's ms on its model, AdamW against SGD
+    (:func:`optimizer_ms`). Returns the remat step's launches, the CTC
+    run's, its checkpoint and its corpus."""
+    from audio8_tpu_torch.cli import train as train_cli
+    from audio8_tpu_torch.config import PretrainConfig
+    from audio8_tpu_torch.models.wav2vec2 import Wav2Vec2Model
+    from audio8_tpu_torch.train.checkpoint import find_latest_checkpoint
+    from audio8_tpu_torch.train.optim import SGDState
+
+    cfg = PretrainConfig()
+    weights = Wav2Vec2Model(cfg, generator=torch.Generator().manual_seed(
+        seed + 17)).state_dict()
+    rng = np.random.default_rng(seed + 17)
+    signal = torch.from_numpy(np.stack([
+        synthetic_speechlike((REMAT_SAMPLES + 1) / SR, rng)[:REMAT_SAMPLES]
+        for _ in range(REMAT_ROWS)])).cuda()
+    runs = {name: remat_run(weights, signal, name.startswith("remat"),
+                            seed + 18)
+            for name in ("plain", "remat", "remat_again", "plain_again")}
+    plain, remat = runs["plain"], runs["remat"]
+    top = max(float(g.abs().max()) for g in plain["grads"].values())
+    worst_leaf, worst = None, 0.0
+    for k, g in plain["grads"].items():
+        scale = max(float(g.abs().max()), 1e-3 * top)
+        e = float((remat["grads"][k] - g).abs().max()) / scale
+        if e >= worst:
+            worst_leaf, worst = k, e
+    gnorm_rel = abs(remat["grad_norm"] - plain["grad_norm"]) / \
+        plain["grad_norm"]
+    shown = ("attention_fwd", "attention_bwd", "conv_k3s2_fwd",
+             "conv_k3s2_dgrad", "conv_k3s2_wgrad", "dropout")
+    emit({"phase": "remat", "config": "wav2vec2-base d768 h12 L12 ff3072, "
+          "final_dim 256, dropout 0.1, f32", "rows": [REMAT_ROWS,
+                                                     REMAT_SAMPLES],
+          **{name: {"loss": r["loss"], "grad_norm": r["grad_norm"],
+                    "peak_memory_gb": r["peak_memory_gb"],
+                    "resident_gb": r["resident_gb"],
+                    "first_step_ms": r["first_step_ms"],
+                    "step_ms": r["step_ms"],
+                    "launches": {k: r["launches"][k] for k in shown}}
+             for name, r in runs.items()},
+          "gnorm_rel_err": gnorm_rel, "gnorm_rtol": REMAT_GNORM_RTOL,
+          "grad_worst_rel_err": worst, "grad_worst_leaf": worst_leaf,
+          "grad_rtol": PRETRAIN_GNORM_RTOL})
+    check(remat["loss"] == plain["loss"],
+          f"remat: loss {remat['loss']} != plain {plain['loss']}")
+    check(gnorm_rel <= REMAT_GNORM_RTOL, f"remat: gnorm {gnorm_rel}")
+    check(worst <= PRETRAIN_GNORM_RTOL, f"remat: {worst_leaf} {worst}")
+    check(torch.equal(remat["rng"], plain["rng"]),
+          "remat: the generator's stream moved")
+    layers = cfg.num_layers
+    want = dict(plain["launches"], attention_fwd=2 * layers,
+                dropout=plain["launches"]["dropout"] + 2 * layers)
+    check(plain["launches"]["attention_fwd"] == layers
+          and remat["launches"] == want,
+          f"remat launches {remat['launches']} against plain "
+          f"{plain['launches']}")
+    check(all(runs[f"{a}_again"]["loss"] == runs[a]["loss"]
+              for a in ("plain", "remat")), "remat: a repeat's loss moved")
+    check(remat["peak_memory_gb"] < plain["peak_memory_gb"],
+          "remat: no memory saved")
+    step_launches = remat["launches"]
+    del runs, plain, remat, weights, signal
+    torch.cuda.empty_cache()
+
+    corpus = os.path.join(tmp, "corpus")
+    if not os.path.isdir(corpus):
+        os.makedirs(corpus)
+        write_corpus(corpus, seed)
+    basedir = os.path.join(tmp, "remat_sgd_run")
+    records = []
+    reset_launches()
+    t0 = time.perf_counter()
+    with per_call_launches(train_cli, "make_ctc_steps", records):
+        state = train_cli.train([
+            "--root_dir", corpus, "--train_dataset", "train.tsv",
+            "--valid_dataset", "valid.tsv", "--basedir", basedir,
+            "--device", "cuda", *REMAT_SGD_FLAGS])
+    wall = time.perf_counter() - t0
+    launches = {k: n for k, n in read_launches().items()
+                if k in TRAIN_PATH}
+    log = state.log
+    per_micro = [(f["freeze"], d["ctc_loss"], d["attention_fwd"])
+                 for f, d in records]
+    optim = optimizer_ms(state.model)
+    emit({"phase": "remat_sgd", "flags": REMAT_SGD_FLAGS,
+          "losses": [r["loss"] for r in log],
+          "step_seconds": [r["seconds"] for r in log],
+          "frozen": [r["frozen"] for r in log], "wall_s": wall,
+          "micro_steps": [{"frozen": f, "ctc_loss": c, "attention_fwd": a}
+                          for f, c, a in per_micro],
+          "launches": launches, "optimizer_ms": optim,
+          "params": sum(p.numel() for p in state.params)})
+    check(state.step == REMAT_SGD_STEPS and isinstance(state.opt_state,
+                                                       SGDState)
+          and state.model.config.remat, "remat_sgd: the run's state")
+    check(all(math.isfinite(r["loss"]) for r in log),
+          "remat_sgd: non-finite loss")
+    check(len(per_micro) == 2 * REMAT_SGD_STEPS
+          and all(c > 0 and a > 0 for _, c, a in per_micro),
+          f"remat_sgd: kernels 1 and 2 by micro-step {per_micro}")
+    check(all(a == (1 if f else 2) * layers for f, _, a in per_micro),
+          f"remat_sgd: the unfrozen micro-steps' recompute {per_micro}")
+    check(launches["adamw"] == 0, "remat_sgd: AdamW launched under SGD")
+    return (step_launches, launches, find_latest_checkpoint(basedir)[0],
+            corpus)
+
+
+def write_noise(root: str, seed: int) -> None:
+    """Four noise clips of 1-8 s: white, pink (a running sum), a hum and
+    bursts, at several levels."""
+    from scipy.io import wavfile
+
+    rng = np.random.default_rng(seed + 21)
+    for i in range(4):
+        n = int(rng.uniform(1.0, 8.0) * SR)
+        white = rng.normal(size=n)
+        noise = (white, np.cumsum(white) / np.sqrt(np.arange(1, n + 1)),
+                 np.sin(2 * np.pi * 50 * np.arange(n) / SR)
+                 + 0.1 * white, white * (rng.random(n) < 0.2))[i]
+        noise = noise / np.abs(noise).max() * rng.uniform(0.1, 0.8)
+        wavfile.write(os.path.join(root, f"noise{i}.wav"), SR,
+                      (noise * 32767).astype(np.int16))
+
+
+def phase_augment(tmp: str, corpus: str, seed: int) -> dict:
+    """``cli.train`` with ``--speed_perturb 0.9 1.0 1.1`` and
+    ``--noise_manifest`` over four synthetic noise clips for AUGMENT_STEPS
+    steps, with ``--profile_dir``: finite losses, speed perturbation and
+    noise mixing applied (their calls counted), the Chrome trace of the
+    window after step 10 written, parsing as JSON and holding its
+    ``ProfilerStep#`` spans; its count of CUDA kernel events printed (a
+    trace that comes back without any is reported, not failed). Returns
+    the run's launches."""
+    import audio8_tpu_torch.data.datasets as datasets
+    from audio8_tpu_torch.cli import train as train_cli
+    from audio8_tpu_torch.data.audio import NoiseMixer
+
+    noise = os.path.join(tmp, "augment_noise")
+    os.makedirs(noise)
+    write_noise(noise, seed)
+    profile = os.path.join(tmp, "augment_profile")
+    calls = {"speed": [], "noise": []}
+    speed, mix = datasets.speed_perturb_wav, NoiseMixer.__call__
+
+    def counted_speed(wav, factor):
+        calls["speed"].append(factor)
+        return speed(wav, factor)
+
+    def counted_mix(self, wav, rng):
+        calls["noise"].append(len(wav))
+        return mix(self, wav, rng)
+
+    datasets.speed_perturb_wav, NoiseMixer.__call__ = counted_speed, \
+        counted_mix
+    reset_launches()
+    t0 = time.perf_counter()
+    try:
+        state = train_cli.train([
+            "--root_dir", corpus, "--train_dataset", "train.tsv",
+            "--valid_dataset", "valid.tsv", "--basedir",
+            os.path.join(tmp, "augment_run"), "--device", "cuda",
+            "--noise_manifest", noise, "--profile_dir", profile,
+            *AUGMENT_FLAGS])
+    finally:
+        datasets.speed_perturb_wav, NoiseMixer.__call__ = speed, mix
+    wall = time.perf_counter() - t0
+    launches = {k: n for k, n in read_launches().items()
+                if k in TRAIN_PATH}
+    log = state.log
+    trace = state.profile_trace
+    check(trace is not None and os.path.exists(trace),
+          f"augment: no trace in {os.listdir(profile)}")
+    with open(trace) as f:
+        events = json.load(f)["traceEvents"]
+    steps = sorted({e["name"] for e in events
+                    if str(e.get("name", "")).startswith("ProfilerStep#")})
+    kernels = sum(1 for e in events if e.get("cat") == "kernel")
+    emit({"phase": "augment", "flags": AUGMENT_FLAGS,
+          "noise_clips": len(os.listdir(noise)),
+          "losses": [r["loss"] for r in log],
+          "step_seconds": [r["seconds"] for r in log],
+          "speed_perturbed_rows": len(calls["speed"]),
+          "speed_factors": sorted(set(calls["speed"])),
+          "noise_mixed_rows": len(calls["noise"]), "wall_s": wall,
+          "trace": os.path.basename(trace),
+          "trace_mb": os.path.getsize(trace) / 1e6,
+          "trace_steps": steps, "trace_events": len(events),
+          "trace_cuda_kernel_events": kernels,
+          "trace_empty_of_kernels": kernels == 0, "launches": launches})
+    check(state.step == AUGMENT_STEPS and all(
+        math.isfinite(r["loss"]) for r in log), "augment: the run's losses")
+    check(calls["speed"] and calls["noise"],
+          f"augment: speed {len(calls['speed'])}, noise "
+          f"{len(calls['noise'])} rows")
+    check("ProfilerStep#0" in steps and len(steps) >= 2,
+          f"augment: trace steps {steps}")
+    return launches
+
+
+def phase_kenlm_binary(tmp: str, checkpoint: str, corpus: str,
+                       seed: int) -> dict:
+    """``cli.build_binary`` writes PROBING, TRIE and QUANT_TRIE binaries
+    of the serve phase's trigram ARPA (written here when the run has
+    none); ``cli.test --beam 8 --lm`` on the card decodes the CTC
+    checkpoint's valid set with the ARPA and with each binary: the
+    PROBING and TRIE beam transcripts equal the ARPA run's; QUANT_TRIE's
+    WER difference is printed; each LM's load seconds and file MB.
+    Returns the runs' launches."""
+    from audio8_tpu_torch.cli import build_binary
+    from audio8_tpu_torch.cli import test as test_cli
+
+    arpa = os.path.join(tmp, "serve_lm.arpa")
+    if not os.path.exists(arpa):
+        write_serve_lm(arpa, seed)
+    lms, build_s = {"arpa": arpa}, {}
+    for name, flags in KENLM_LAYOUTS.items():
+        lms[name] = os.path.join(tmp, f"serve_lm.{name}.bin")
+        t0 = time.perf_counter()
+        check(build_binary.main([arpa, lms[name], *flags]) == 0,
+              f"kenlm_binary: build_binary {name}")
+        build_s[name] = time.perf_counter() - t0
+    common = ["--checkpoint", checkpoint, "--root_dir", corpus,
+              "--valid_dataset", "valid.tsv", "--device", "cuda",
+              "--beam", "8"]
+    reset_launches()
+    runs = {name: test_cli.evaluate(common + ["--lm", lm],
+                                    keep_outputs=True)
+            for name, lm in lms.items()}
+    launches = {k: n for k, n in read_launches().items()
+                if k in INFER_PATH}
+    texts = {name: [o["beam"] for o in r["outputs"]]
+             for name, r in runs.items()}
+    emit({"phase": "kenlm_binary", "arpa_mb": os.path.getsize(arpa) / 1e6,
+          "build_seconds": build_s,
+          "file_mb": {n: os.path.getsize(p) / 1e6 for n, p in lms.items()},
+          "lm_load_seconds": {n: r["lm_load_seconds"]
+                              for n, r in runs.items()},
+          "beam_seconds": {n: r["beam_seconds"] for n, r in runs.items()},
+          "beam_wer": {n: r["werr_lm_8"] for n, r in runs.items()},
+          "quant_trie_wer_minus_arpa": runs["quant_trie"]["werr_lm_8"]
+          - runs["arpa"]["werr_lm_8"],
+          "texts_equal_arpa": {n: texts[n] == texts["arpa"] for n in lms},
+          "utterances": runs["arpa"]["utterances"], "launches": launches})
+    check(all(math.isfinite(r["werr_lm_8"]) for r in runs.values())
+          and runs["arpa"]["utterances"] > 0, "kenlm_binary: the runs")
+    for name in ("probing", "trie"):
+        check(texts[name] == texts["arpa"],
+              f"kenlm_binary: {name} transcripts differ from the ARPA's")
+    for name, n in launches.items():
+        check(n > 0, f"{name} was not launched by kenlm_binary")
+    return launches
+
+
+def phase_warmstart(tmp: str, seed: int) -> dict:
+    """``--warmstart_text``: a ``.npz`` written by the port's
+    ``save_tlm_npz`` from a seeded text tower in the paired cell's text
+    config (512 wide, 8 heads, 8 layers, 2048, rpr_k 8, the paired
+    corpus' BPE pieces), then ``cli.pretrain_paired --warmstart_text`` for
+    2 steps on the card, the text tower frozen and no weight decay: the
+    report loads every array and finds nothing unexpected and nothing
+    missing, the text tower after the run equals the file bitwise (its
+    own ``save_tlm_npz`` against the file), the losses are finite.
+    Returns the run's launches."""
+    from audio8_tpu_torch.cli import pretrain_paired as pp
+    from audio8_tpu_torch.models.warmstart import save_tlm_npz
+
+    corpus = os.path.join(tmp, "paired_corpus")
+    if os.path.isdir(corpus):
+        with open(os.path.join(corpus, "train.tsv")) as f:
+            longest = max(int(ln.split("\t")[1]) for ln in f.readlines()[1:])
+    else:
+        os.makedirs(corpus)
+        longest = write_paired_corpus(corpus, seed)
+    argv = ["--root_dir", corpus, "--train_dataset", "train.tsv",
+            "--valid_dataset", "valid.tsv", "--basedir",
+            os.path.join(tmp, "warmstart_run"), "--device", "cuda",
+            *WARMSTART_FLAGS, "--target_tokens_per_batch",
+            str(PAIRED_ROWS * longest), "--subword_model_file",
+            os.path.join(corpus, "codes.bpe"), "--subword_vocab_file",
+            os.path.join(corpus, "vocab.bpe")]
+    args = pp.parse_args(argv)
+    args.dict_file = args.dict_file.format(args.target_type)
+    vocab, _, _ = pp.datasets(args)
+    tower = pp.build_module(args, len(vocab), torch.float32).model
+    tower.init_from(torch.Generator().manual_seed(seed + 19))
+    npz = os.path.join(tmp, "tlm.npz")
+    save_tlm_npz(tower.text_encoder, npz)
+    del tower
+    reset_launches()
+    t0 = time.perf_counter()
+    state = pp.train(argv + ["--warmstart_text", npz])
+    wall = time.perf_counter() - t0
+    launches = {k: n for k, n in read_launches().items() if k in S2S_PATH}
+    after = os.path.join(tmp, "tlm_after.npz")
+    save_tlm_npz(state.model.model.text_encoder, after)
+    want, got = np.load(npz), np.load(after)
+    differ = [k for k in want.files
+              if not np.array_equal(want[k], got[k])]
+    report = state.warmstart
+    log = state.log
+    emit({"phase": "warmstart", "flags": WARMSTART_FLAGS,
+          "npz_mb": os.path.getsize(npz) / 1e6, "arrays": len(want.files),
+          "loaded": len(report["loaded"]),
+          "unexpected": report["unexpected"],
+          "missing_in_npz": report["missing_in_npz"],
+          "arrays_differing_after": differ,
+          "losses": [r["loss"] for r in log],
+          "step_seconds": [r["seconds"] for r in log], "wall_s": wall,
+          "launches": launches})
+    check(len(report["loaded"]) == len(want.files)
+          and not report["unexpected"] and not report["missing_in_npz"],
+          "warmstart: the report")
+    check(want.files == got.files and not differ,
+          f"warmstart: the text tower differs from the file at {differ[:3]}")
+    check(state.step == 2 and all(math.isfinite(r["loss"]) for r in log),
+          "warmstart: the run's losses")
+    for name, n in launches.items():
+        check(n > 0, f"{name} was not launched by warmstart")
+    return launches
+
+
+def trainer_phases(tmp: str) -> dict:
+    """This slice's phases in order (``tmp`` may hold the train phase's
+    corpus, the serve phase's ARPA and the paired corpus; missing ones
+    are written). Returns each run's launch counts."""
+    out = {}
+    with timed("remat"):
+        out["remat"], out["remat_sgd"], ckpt, corpus = phase_remat(tmp,
+                                                                   SEED)
+    torch.cuda.empty_cache()
+    with timed("augment"):
+        out["augment"] = phase_augment(tmp, corpus, SEED)
+    torch.cuda.empty_cache()
+    with timed("kenlm_binary"):
+        out["kenlm_binary"] = phase_kenlm_binary(tmp, ckpt, corpus, SEED)
+    torch.cuda.empty_cache()
+    with timed("warmstart"):
+        out["warmstart"] = phase_warmstart(tmp, SEED)
+    torch.cuda.empty_cache()
+    return out
+
+
+def trainer_timing() -> int:
+    """The build and this slice's phases alone (``--trainer-phases``) on
+    fresh corpora, then the phase seconds and the card."""
+    with timed("build"):
+        phase_build()
+    with tempfile.TemporaryDirectory() as tmp:
+        launches = trainer_phases(tmp)
+    emit({"phase": "phase_seconds", **PHASE_SECONDS})
+    emit({"phase": "trainer_phases", "launches": launches})
+    print_card()
+    return 0
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if not torch.cuda.is_available():
@@ -5854,6 +6374,8 @@ def main(argv=None) -> int:
         return export_phases(gen)
     if argv == ["--host-timing"]:
         return host_timing()
+    if argv == ["--trainer-phases"]:
+        return trainer_timing()
     inference_first = argv == ["--inference-first"]
     if argv and not inference_first:
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
@@ -5943,6 +6465,7 @@ def main(argv=None) -> int:
         with timed("export"):
             export_launches = phase_export(tmp, SEED)
         torch.cuda.empty_cache()
+        trainer_launches = trainer_phases(tmp)
     emit({"phase": "phase_seconds", **PHASE_SECONDS,
           "inference_first": inference_first,
           "trace_retries": {str(k): n for k, n in TRACE_RETRIES.items()},
@@ -6018,6 +6541,8 @@ def main(argv=None) -> int:
          **{f"{p}_launches": topo_launches[p].get(name, 0)
             for p in TOPOLOGY_PHASES},
          "export_launches": export_launches.get(name, 0),
+         **{f"{p}_launches": trainer_launches[p].get(name, 0)
+            for p in trainer_launches},
          "max_abs_err": worst[name],
          **{k: times[(name, torch.float32)][k] for k in keys},
          **extra(name)}

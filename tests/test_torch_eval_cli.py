@@ -5,7 +5,9 @@ one checkpoint, on the CPU.
   CER in JAX's ``cli/test.py:evaluate`` and in the port's, on a valid set
   of FLAC files, and the same beam+LM WER at ``--beam 8`` with the ARPA
   text of ``tests/test_beam_differential.py`` (``werr_lm_8``); without an
-  LM the beam key is ``werr_8`` in both.
+  LM the beam key is ``werr_8`` in both. KenLM binaries written by the
+  port's ``cli.build_binary`` (PROBING, TRIE, QUANT_TRIE) give the ARPA
+  run's beam transcripts.
 * Both trainers, restarted from that ``.pt`` on one tiny corpus with
   dropout and masking off (``--grad_accum 1``, two frozen steps, then
   unfrozen), log the same per-step losses within the trajectory
@@ -89,6 +91,31 @@ def test_cli_test_scores_a_port_checkpoint_as_jax_does(flac_corpus,
     assert {k: ours[k] for k in keys} == theirs
     assert ours["audio_seconds"] == pytest.approx(
         sum(8000 + 2000 * i for i in range(6)) / 16000)
+
+
+@pytest.mark.parametrize("layout", [[], ["--trie"], ["--trie", "-q"]])
+def test_cli_test_decodes_with_the_ports_binary_lm(flac_corpus, checkpoint,
+                                                   layout):
+    """``cli.build_binary``'s PROBING and TRIE files give ``cli.test``'s
+    beam+LM the ARPA run's transcripts and WER; QUANT_TRIE decodes (8-bit
+    tables hold the few values of this LM exactly). Each run reports its
+    LM's load seconds."""
+    from audio8_tpu_torch.cli import build_binary
+
+    lm = str(flac_corpus / "lm.bin")
+    assert build_binary.main([str(flac_corpus / "lm.arpa"), lm]
+                             + layout) == 0
+    common = MODEL + ["--checkpoint", checkpoint, "--root_dir",
+                      str(flac_corpus), "--valid_dataset", "valid_flac.tsv",
+                      "--target_tokens_per_batch", "40000", "--beam", "8",
+                      "--device", "cpu"]
+    arpa = test_cli.evaluate(common + ["--lm", str(flac_corpus / "lm.arpa")],
+                             keep_outputs=True)
+    binary = test_cli.evaluate(common + ["--lm", lm], keep_outputs=True)
+    assert [o["beam"] for o in binary["outputs"]] == \
+        [o["beam"] for o in arpa["outputs"]]
+    assert binary["werr_lm_8"] == arpa["werr_lm_8"]
+    assert binary["lm_load_seconds"] >= 0.0 <= arpa["lm_load_seconds"]
 
 
 def test_both_trainers_restart_from_one_pt(flac_corpus, checkpoint,

@@ -12,8 +12,12 @@
   ``--beam`` and ``--lm``, ``cli.transcribe`` and ``cli.serve`` take
   ``--timestamps`` and ``--quantize`` (and ``cli.transcribe`` ``--vad``),
   ``cli.test`` ``--quantize``; ``cli.export`` refuses ``--transducer``
-  (item 7); every trainer takes ``--restart_from``, and the paired
-  trainer refuses ``--warmstart_text`` (item 10).
+  (item 7); every trainer takes ``--restart_from``.
+* The trainers' flags of items 4 and 10 parse, pass ``check_ported`` and
+  reach the module that runs them: ``--remat`` the encoder config,
+  ``--noise_manifest`` and ``--speed_perturb`` the training set's
+  augmentation, ``--optim sgd`` the port's ``SGD``, ``--profile_dir``
+  the step profiler, ``--warmstart_text`` the text tower.
 * ``--exported`` (item 6, done) loads a ``cli.export`` artifact and
   decodes in ``cli.transcribe``, ``cli.serve``, ``cli.test`` and
   ``cli.embed``. The trainers take
@@ -107,8 +111,6 @@ def parse_and_check(entry, extra):
     ("train", ["--tensor_parallel", "2"], "item 8"),
     ("train", ["--fsdp", "true"], "item 8"),
     ("train", ["--moe_experts", "4"], "item 8"),
-    ("train", ["--remat", "true"], "item 4"),
-    ("train", ["--noise_manifest", "n.tsv"], "item 4"),
     ("train", ["--distributed", "true"], "item 3"),
     ("pretrain", ["--sequence_parallel", "true"], "item 8"),
     ("transcribe", ["--device_beam", "true"], "item 7"),
@@ -121,17 +123,90 @@ def parse_and_check(entry, extra):
     ("test", ["--tensor_parallel", "2"], "item 8"),
     ("serve", ["--zero1", "true"], "item 8"),
     ("train_seq2seq", ["--distributed", "true"], "item 3"),
-    ("train_seq2seq", ["--noise_manifest", "n.tsv"], "item 4"),
     ("train_seq2seq", ["--fsdp", "true"], "item 8"),
-    ("pretrain_paired", ["--warmstart_text", "tlm.npz"], "item 10"),
     ("pretrain_paired", ["--distributed", "true"], "item 3"),
-    ("pretrain_paired", ["--remat", "true"], "item 4"),
     ("pretrain_paired", ["--moe_experts", "4"], "item 8"),
     ("export", ["--transducer", "true"], "item 7"),
 ])
 def test_unported_values_raise_naming_their_item(entry, extra, item):
     with pytest.raises(NotImplementedError, match=item):
         parse_and_check(entry, extra)
+
+
+def _reaches(args, flag, tmp_path):
+    """Whether ``flag`` of the parsed ``args`` reached what runs it."""
+    import numpy as np
+
+    from audio8_tpu_torch.cli.common import train_augmentation
+    from audio8_tpu_torch.train.optim import SGD, create_lrs, create_optimizer
+    from audio8_tpu_torch.train.profiler import StepProfiler
+
+    if flag == "--remat":
+        return AcousticConfig(**encoder_kwargs(args)).remat is True
+    if flag in ("--noise_manifest", "--speed_perturb"):
+        aug = train_augmentation(args)
+        return (aug["noise_mixer"].files == [str(tmp_path / "n.wav")]
+                if flag == "--noise_manifest"
+                else list(aug["speed_perturb"]) == [0.9, 1.1])
+    if flag == "--optim":
+        return isinstance(create_optimizer(create_lrs(1e-3, 10),
+                                           args.optim), SGD)
+    if flag == "--profile_dir":
+        return StepProfiler(args.profile_dir).trace_dir == str(tmp_path)
+    from audio8_tpu_torch.cli.pretrain_paired import build_module
+    from audio8_tpu_torch.models.warmstart import load_tlm_npz
+
+    import torch
+
+    text = build_module(args, 12, torch.float32).model.text_encoder
+    report = load_tlm_npz(text, args.warmstart_text)
+    return not report["unexpected"] and not report["missing_in_npz"] and \
+        np.array_equal(text.embeddings.embedding.detach().numpy(),
+                       np.load(args.warmstart_text)["embeddings/embedding"])
+
+
+SMALL_PAIRED = ["--d_model", "32", "--num_heads", "2", "--num_layers", "1",
+                "--d_ff", "64", "--text_d_model", "16", "--text_num_heads",
+                "2", "--text_num_layers", "1", "--text_d_ff", "32"]
+
+
+@pytest.mark.parametrize("entry,extra", [
+    ("train", ["--remat", "true"]),
+    ("train", ["--noise_manifest", "{tmp}"]),
+    ("train", ["--speed_perturb", "0.9", "1.1"]),
+    ("train", ["--optim", "sgd"]),
+    ("train", ["--profile_dir", "{tmp}"]),
+    ("pretrain", ["--remat", "true"]),
+    ("pretrain", ["--profile_dir", "{tmp}"]),
+    ("train_seq2seq", ["--noise_manifest", "{tmp}"]),
+    ("train_seq2seq", ["--remat", "true"]),
+    ("pretrain_paired", ["--warmstart_text", "{tmp}/tlm.npz"]),
+    ("pretrain_paired", ["--remat", "true"]),
+    ("pretrain_paired", ["--optim", "sgd"]),
+])
+def test_trainer_flags_reach_their_module(entry, extra, tmp_path):
+    """Flags that raised naming items 4 and 10 before they were ported
+    parse, pass the check and reach what runs them."""
+    import numpy as np
+    from scipy.io import wavfile
+
+    extra = [a.replace("{tmp}", str(tmp_path)) for a in extra]
+    if extra[0] == "--noise_manifest":
+        wavfile.write(str(tmp_path / "n.wav"), 16000,
+                      np.ones(100, np.int16))
+    small = SMALL_PAIRED if entry == "pretrain_paired" else []
+    if extra[0] == "--warmstart_text":  # a text tower of other weights
+        import torch
+
+        from audio8_tpu_torch.cli.pretrain_paired import (build_module,
+                                                          parse_args)
+        from audio8_tpu_torch.models.warmstart import save_tlm_npz
+
+        other = build_module(parse_args(small), 12, torch.float32).model
+        other.init_from(torch.Generator().manual_seed(1))
+        save_tlm_npz(other.text_encoder, extra[1])
+    args = parse_and_check(entry, small + extra)
+    assert _reaches(args, extra[0], tmp_path)
 
 
 @pytest.mark.parametrize("entry,extra", [

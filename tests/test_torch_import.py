@@ -50,7 +50,9 @@ def test_every_module_imports_with_jax_blocked():
                 "ops.align", "ops.vad", "ops.ngram", "cli.embed",
                 "cli.manifest", "cli.train_ngram", "cli.average_checkpoints",
                 "cli.inspect_checkpoint", "models.convert_hf",
-                "nn.conformer", "export", "cli.export", "ops.samples"):
+                "nn.conformer", "export", "cli.export", "ops.samples",
+                "ops.kenlm_bin", "cli.build_binary", "models.warmstart",
+                "train.profiler"):
         assert f"audio8_tpu_torch.{new}" in mods
     code = (
         "import sys\n"

@@ -8,7 +8,7 @@ plain Python versions, on the CPU.
 * Edit distance on random token lists equals JAX's and the two-row DP.
 * The prefix beam search, without an LM, with the ARPA text of
   ``tests/test_beam_differential.py`` (plain and gzipped) and with KenLM
-  binaries written by the JAX package's own writer (PROBING, TRIE),
+  binaries written by the port's writer (PROBING, TRIE),
   gives JAX's n-best lists, and its 1-best equals the plain Python
   search scoring with the pure-Python ARPA LM. The LMs' scores agree
   within 1e-5. The JAX package's C++ reader takes a gzipped ARPA as
@@ -30,7 +30,7 @@ import pytest
 from audio8_tpu.csrc import native as jax_native
 from audio8_tpu.data.audio import read_audio as jax_read_audio
 from audio8_tpu.ops.beam import PrefixBeamSearch as JaxBeamSearch
-from audio8_tpu.ops.kenlm_bin import write_kenlm_binary
+from audio8_tpu_torch.ops.kenlm_bin import write_kenlm_binary
 from audio8_tpu.utils import Offsets as JaxOffsets
 from audio8_tpu_torch.csrc import build as port_build
 from audio8_tpu_torch.csrc import native

@@ -14,7 +14,7 @@ import torch
 from audio8_tpu.train.optim import TrainState as JaxState
 from audio8_tpu.train.optim import create_lrs as jax_lrs
 from audio8_tpu.train.optim import create_optimizer as jax_opt
-from audio8_tpu_torch.train.optim import (TrainState, create_lrs,
+from audio8_tpu_torch.train.optim import (SGD, TrainState, create_lrs,
                                           create_optimizer)
 from tests.test_torch_threads import cap_torch_threads
 
@@ -102,5 +102,6 @@ def test_create_optimizer_kinds():
     sched = create_lrs(1e-3, 10)
     assert create_optimizer(sched, "fused_adamw", 0.01).weight_decay == 0.01
     assert create_optimizer(sched, "adam", 0.01).weight_decay == 0.0
-    with pytest.raises(NotImplementedError):
-        create_optimizer(sched, "sgd")
+    assert isinstance(create_optimizer(sched, "sgd"), SGD)
+    with pytest.raises(ValueError):
+        create_optimizer(sched, "lamb")

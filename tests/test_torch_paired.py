@@ -184,7 +184,7 @@ def test_params_from_jax_carries_the_adam_state():
     module.load_state_dict(state_dict, strict=True)
     state = TrainState(module, create_optimizer(
         create_lrs(1e-3, 10, sched_type="constant", warmup_steps=0)))
-    state.load_adam_state(count, mu, nu)
+    state.load_opt_state(count, mu, nu)
     assert state.step == count == 1
     adam = _adam_state(jstate.opt_state)
     for name, moments, jax_moments in (("mu", state.opt_state.mu, adam.mu),

@@ -4,9 +4,10 @@
 and with word targets (the bag-of-words tower), each tower unfrozen at
 its own step and the temperature learned, validates, writes checkpoints
 with resume files, and ``--restart_from <basedir>`` resumes the run at
-its step with the AdamW state, ``logit_scale`` included. Without
-``--device`` it asks for the card; ``--warmstart_text`` and the other
-unported flags raise naming their ROADMAP.md item.
+its step with the AdamW state, ``logit_scale`` included;
+``--warmstart_text`` loads a text tower's ``.npz`` before the first
+step, and ``--remat`` trains. Without ``--device`` it asks for the card;
+the unported flags raise naming their ROADMAP.md item.
 """
 import os
 
@@ -123,11 +124,44 @@ def test_default_device_is_the_card(corpus, tmp_path):
 
 
 @pytest.mark.parametrize("flag,value,item", [
-    ("--warmstart_text", "tlm.npz", "item 10"),
     ("--distributed", "true", "item 3"),
-    ("--remat", "true", "item 4"),
     ("--zero1", "true", "item 8"),
 ])
 def test_unported_flags_raise(corpus, tmp_path, flag, value, item):
     with pytest.raises(NotImplementedError, match=item):
         paired_cli.train(_args(corpus, str(tmp_path / "r")) + [flag, value])
+
+
+@pytest.mark.parametrize("flag", [["--warmstart_text", "{npz}"],
+                                  ["--remat", "true"]])
+def test_trainer_flags_train(corpus, tmp_path, flag):
+    """``--warmstart_text`` and ``--remat``, which raised before they were
+    ported, train. The warm start loads the whole text tower (written
+    from a second init of it) before the first step: with the text tower
+    frozen for both steps and no weight decay, its weights after the run
+    are the file's."""
+    from audio8_tpu_torch.models.warmstart import save_tlm_npz
+
+    npz = str(tmp_path / "tlm.npz")
+    args = _args(corpus, str(tmp_path / "r"), "2")
+    args[args.index("--unfreeze_text_after_step") + 1] = "5"
+    args += ["--weight_decay", "0"]
+    if flag[0] == "--warmstart_text":
+        vocab, _, _ = paired_cli.datasets(paired_cli.parse_args(args))
+        other = paired_cli.build_module(paired_cli.parse_args(args),
+                                        len(vocab), torch.float32).model
+        other.init_from(torch.Generator().manual_seed(7))
+        save_tlm_npz(other.text_encoder, npz)
+    state = paired_cli.train(args + [f.replace("{npz}", npz) for f in flag])
+    assert state.step == 2 and all(np.isfinite(r["loss"])
+                                   for r in state.log)
+    if flag[0] == "--remat":
+        assert state.model.model.audio_encoder.encoder.config.remat
+        return
+    report = state.warmstart
+    assert report["loaded"] and not report["unexpected"]
+    assert not report["missing_in_npz"]
+    blob = np.load(npz)
+    text = state.model.model.text_encoder
+    np.testing.assert_array_equal(text.embeddings.embedding.detach().numpy(),
+                                  blob["embeddings/embedding"])

@@ -2,8 +2,9 @@
 --device cpu`` takes 10 steps of two 0.5 s rows on a tiny synthetic
 corpus (dropout and time masking on, the Gumbel temperature annealing),
 validates, and writes fairseq-layout pretrained checkpoints that load
-back, each with its resume file; bucketed batches train too. Flags of
-parts not ported yet raise (``--restart_from`` is ported and tested in
+back, each with its resume file; bucketed batches train too, and so do
+``--optim sgd``, ``--remat`` and ``--profile_dir``. Flags of parts not
+ported yet raise (``--restart_from`` is ported and tested in
 ``tests/test_torch_restart.py``)."""
 import os
 import subprocess
@@ -99,13 +100,30 @@ def test_pretrain_with_bucketing(corpus, tmp_path):
                                   ["--tensor_parallel", "2"],
                                   ["--zero1", "true"], ["--fsdp", "true"],
                                   ["--sequence_parallel", "true"],
-                                  ["--profile_dir", "p"],
-                                  ["--optim", "sgd"],
-                                  ["--remat", "true"],
                                   ["--moe_experts", "4"]])
 def test_unported_flags_raise(corpus, tmp_path, flag):
     with pytest.raises(NotImplementedError):
         pretrain.train(_args(corpus, str(tmp_path / "r"), steps=1) + flag)
+
+
+@pytest.mark.parametrize("flag", [["--optim", "sgd"], ["--remat", "true"],
+                                  ["--profile_dir", "{tmp}"]])
+def test_trainer_flags_pretrain(corpus, tmp_path, flag):
+    """``--optim sgd``, ``--remat`` and ``--profile_dir``, which raised
+    before they were ported, pretrain; the profiler's window opens after
+    step 10 and its trace is written when the 11-step run ends."""
+    from audio8_tpu_torch.train.optim import SGDState
+
+    flag = [f.replace("{tmp}", str(tmp_path / "p")) for f in flag]
+    profiled = flag[0] == "--profile_dir"
+    state = pretrain.train(_args(corpus, str(tmp_path / "r"),
+                                 steps=11 if profiled else 2) + flag)
+    assert all(np.isfinite(r["loss"]) for r in state.log)
+    assert isinstance(state.opt_state, SGDState) == (flag[0] == "--optim")
+    assert state.model.config.remat == (flag[0] == "--remat")
+    assert (state.profile_trace is not None) == profiled
+    if profiled:
+        assert os.listdir(tmp_path / "p") == ["trace-steps-10-15.json"]
 
 
 @pytest.mark.parametrize("flag", [["--extractor_mode", "layer",

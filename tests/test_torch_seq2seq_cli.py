@@ -82,12 +82,32 @@ def test_default_device_is_the_card(corpus, tmp_path):
 
 @pytest.mark.parametrize("flag,value,item", [
     ("--distributed", "true", "item 3"),
-    ("--speed_perturb", "0.9", "item 4"),
     ("--tensor_parallel", "2", "item 8"),
 ])
 def test_unported_flags_raise(corpus, tmp_path, flag, value, item):
     with pytest.raises(NotImplementedError, match=item):
         s2s_cli.train(_args(corpus, str(tmp_path / "r")) + [flag, value])
+
+
+@pytest.mark.parametrize("flag", [["--speed_perturb", "0.9", "1.1"],
+                                  ["--noise_manifest", "{noise}"],
+                                  ["--remat", "true"]])
+def test_trainer_flags_train(corpus, tmp_path, flag):
+    """Speed and noise perturbation and ``--remat``, which raised before
+    they were ported, train."""
+    from scipy.io import wavfile
+
+    noise = tmp_path / "noise"
+    noise.mkdir()
+    wavfile.write(str(noise / "n.wav"), 16000,
+                  (np.random.default_rng(1).normal(size=3000) * 2000)
+                  .astype(np.int16))
+    flag = [f.replace("{noise}", str(noise)) for f in flag]
+    state = s2s_cli.train(_args(corpus, str(tmp_path / "r"), steps="2")
+                          + flag)
+    assert state.step == 2
+    assert all(np.isfinite(r["loss"]) for r in state.log)
+    assert state.model.encoder.config.remat == (flag[0] == "--remat")
 
 
 def test_layer_drop_trains(corpus, tmp_path):

@@ -206,7 +206,7 @@ def test_state_carried_from_jax(init_params):
         jax.tree.map(np.asarray, jstate.opt_state))
     assert count == 2
     state.model.load_state_dict(params, strict=True)
-    state.load_adam_state(count, mu, nu)
+    state.load_opt_state(count, mu, nu)
     j_loss, j_gnorm, loss, gnorm = [], [], [], []
     for _ in range(3):  # both, from the carried state
         jl, jg, jb, _ = jgrad(jstate.params, _jnp(batch), key, freeze=False)

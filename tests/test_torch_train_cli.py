@@ -3,9 +3,11 @@ takes 3 optimizer steps on a tiny synthetic corpus (frozen, then
 unfrozen; time masking and dropout on), validates, writes a
 fairseq-layout checkpoint, and ``cli.transcribe --device cpu`` reads it
 back; with ``--freeze_fx false`` the unfrozen steps train the feature
-extractor too; ``--layer_drop`` and the topology flags train. Flags of
-parts not ported yet raise (``--restart_from`` is ported and tested in
-``tests/test_torch_restart.py``)."""
+extractor too; ``--layer_drop``, the topology flags, noise and speed
+perturbation, ``--optim sgd`` and ``--remat`` train, and
+``--profile_dir`` writes the trace of the steps after the tenth. Flags
+of parts not ported yet raise (``--restart_from`` is ported and tested
+in ``tests/test_torch_restart.py``)."""
 import os
 
 import numpy as np
@@ -117,13 +119,55 @@ def test_unfrozen_extractor_trains(corpus, tmp_path):
         assert not torch.equal(frozen[k], unfrozen[k]), k
 
 
-@pytest.mark.parametrize("flag", [["--noise_manifest", "n.tsv"],
-                                  ["--speed_perturb", "0.9", "1.1"],
-                                  ["--tensor_parallel", "2"],
-                                  ["--optim", "sgd"]])
+@pytest.mark.parametrize("flag", [["--tensor_parallel", "2"],
+                                  ["--distributed", "true"]])
 def test_unported_flags_raise(corpus, tmp_path, flag):
     with pytest.raises(NotImplementedError):
         train_cli.train(_train_args(corpus, str(tmp_path / "r")) + flag)
+
+
+@pytest.mark.parametrize("flag", [["--noise_manifest", "{noise}"],
+                                  ["--speed_perturb", "0.9", "1.1"],
+                                  ["--optim", "sgd"],
+                                  ["--remat", "true"]])
+def test_trainer_flags_train(corpus, tmp_path, flag):
+    """The flags that raised before they were ported (noise and speed
+    perturbation, SGD, remat) train: augmented batches, an SGD state,
+    each layer recomputed (their values against JAX:
+    ``test_torch_augment.py``, ``test_torch_sgd.py``,
+    ``test_torch_remat.py``)."""
+    from audio8_tpu_torch.train.optim import SGDState
+
+    noise = tmp_path / "noise"
+    noise.mkdir()
+    wavfile.write(str(noise / "n.wav"), 16000,
+                  (np.random.default_rng(1).normal(size=3000) * 2000)
+                  .astype(np.int16))
+    flag = [f.replace("{noise}", str(noise)) for f in flag]
+    state = train_cli.train(_train_args(corpus, str(tmp_path / "r")) + flag)
+    assert state.step == 3 and all(np.isfinite(r["loss"])
+                                   for r in state.log)
+    assert isinstance(state.opt_state, SGDState) == (flag[0] == "--optim")
+    assert state.model.config.remat == (flag[0] == "--remat")
+
+
+def test_profile_dir_traces_steps_11_to_15(corpus, tmp_path):
+    """``--profile_dir``: the window opens after step 10, and the trace of
+    the steps after it is written when the run ends (step 12)."""
+    import json
+
+    args = _train_args(corpus, str(tmp_path / "r"))
+    for k, v in (("--train_steps", "12"), ("--grad_accum", "1"),
+                 ("--steps_per_checkpoint", "100")):
+        args[args.index(k) + 1] = v
+    state = train_cli.train(args + ["--profile_dir", str(tmp_path / "p")])
+    assert os.listdir(tmp_path / "p") == ["trace-steps-10-15.json"]
+    with open(state.profile_trace) as f:
+        events = json.load(f)["traceEvents"]
+    # steps 11 and 12, then the loop's tail up to ``close()``
+    assert {e["name"] for e in events if e.get("name", "").startswith(
+        "ProfilerStep#")} == {"ProfilerStep#0", "ProfilerStep#1",
+                              "ProfilerStep#2"}
 
 
 @pytest.mark.parametrize("flag", [["--layer_drop", "0.5"],
