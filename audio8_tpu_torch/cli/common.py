@@ -98,7 +98,6 @@ NOT_PORTED = {
     "lm": (None, DECODE),
     "beam": (1, DECODE),
     "device_beam": (False, TOPOLOGY),
-    "transducer": (False, TOPOLOGY),
     "lm_rescore": (None, TOPOLOGY),
     "timestamps": (False, DECODE),
     "vad": (False, DECODE),
@@ -263,13 +262,15 @@ def add_common_model_args(parser: ArgumentParser) -> None:
 def add_decoding_args(parser: ArgumentParser, max_decode_len) -> None:
     """The decoding flags of the JAX transcribe and serve parsers (their
     ``--max_decode_len`` defaults differ: None and 8000); the device beam
-    and the transducer are not ported yet."""
+    is not ported yet."""
     add = parser.add_argument
     add("--exported", help="cli.export artifact directory: run its traced "
         "forward instead of building the model from a checkpoint")
     add_beam_args(parser)
     add("--device_beam", type=str2bool, default=False, help="not ported yet")
-    add("--transducer", type=str2bool, default=False, help="not ported yet")
+    add("--transducer", type=str2bool, default=False,
+        help="the checkpoint is a cli.train_transducer model: RNN-T "
+             "decoding (models/transducer.py)")
     add("--pred_layers", type=int, default=2)
     add("--pred_dim", type=int, default=512)
     add("--pred_embed_dim", type=int, default=256)

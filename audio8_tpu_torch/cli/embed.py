@@ -154,12 +154,13 @@ def build_embedder(args, device: torch.device = None) -> Callable:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
     if args.exported:
-        from audio8_tpu_torch.export import load_artifact
+        from audio8_tpu_torch.export import artifact_kind, load_artifact
 
-        art = load_artifact(args.exported, device)
-        if art.kind != "embed":
-            raise SystemExit(f"{args.exported} is a {art.kind!r} artifact, "
+        kind = artifact_kind(args.exported)  # refused before it loads
+        if kind != "embed":
+            raise SystemExit(f"{args.exported} is a {kind!r} artifact, "
                              "not an embed one (cli.export --pooled)")
+        art = load_artifact(args.exported, device)
         # utterances must fit an exported window; the artifact pads the
         # rest of the way to its entry table itself
         return make_embed(

@@ -21,7 +21,11 @@ card by default; it raises without one).
   python -m audio8_tpu_torch.cli.serve --exported model.a8x --port 8000
   python -m audio8_tpu_torch.cli.export --device cpu --platforms cpu ...
 
-``--transducer`` raises (ROADMAP.md queue 1, item 7: RNN-T).
+``--transducer true`` exports a ``cli.train_transducer`` checkpoint as
+the three streaming-decode entries (``audio8_tpu_torch/export.py``): the
+encoder over one ``--seconds`` chunk, the decode init, and the greedy
+search over one frame, which the loader runs over ``--window_frames``
+frame windows with a ``--max_decode_len`` label budget.
 """
 from __future__ import annotations
 
@@ -34,7 +38,8 @@ from audio8_tpu_torch.cli.common import (add_common_model_args,
                                         apply_preset, check_ported,
                                         resolve_device)
 from audio8_tpu_torch.export import (PLATFORMS, export_forward,
-                                     save_artifact, state_fn)
+                                     export_program, save_artifact,
+                                     state_fn)
 from audio8_tpu_torch.utils import str2bool
 
 logger = logging.getLogger("audio8_tpu_torch.export")
@@ -67,7 +72,10 @@ def parse_args(argv=None):
                             "2ha", "2ha_max", "2ha_mean"],
                    help="utterance pooling baked into a --pooled export")
     p.add_argument("--transducer", type=str2bool, default=False,
-                   help="not ported yet")
+                   help="export a cli.train_transducer checkpoint: the "
+                        "encoder chunk, the decode init and the one-frame "
+                        "greedy search that serve.TransducerStreamer "
+                        "drives")
     p.add_argument("--pred_layers", type=int, default=2)
     p.add_argument("--pred_dim", type=int, default=512)
     p.add_argument("--pred_embed_dim", type=int, default=256)
@@ -124,11 +132,79 @@ def _build(args, device: torch.device):
         "num_layers": cfg.num_layers, "quantize": args.quantize}
 
 
+def _export_transducer(args, device: torch.device, traced_on: dict):
+    """The RNN-T artifact: per platform an ``encode`` entry (symbolic
+    batch, one chunk of ``--seconds``), ``decode_init`` and the one-frame
+    ``decode_frames`` (batch 1, ``--max_decode_len`` labels)."""
+    from audio8_tpu_torch.cli.transcribe import build_transducer
+    from audio8_tpu_torch.models.text import read_vocab_list
+
+    if len(args.seconds) != 1:
+        raise SystemExit("--transducer exports ONE encoder-chunk window; "
+                         f"pass a single --seconds value (got "
+                         f"{args.seconds})")
+    cfg, model, _ = build_transducer(args, device)  # fairseq specials
+    vocab_list = read_vocab_list(args.dict_file)
+    sr = args.target_sample_rate
+    t = int(args.seconds[0] * sr)
+    budget, dt = args.max_decode_len, model.compute_dtype
+    encode = state_fn(model, lambda out: (out[0].float(), out[1]),
+                      "encode")
+    init_fn = state_fn(model, method="decode_init")
+    body = state_fn(model, method="decode_frames")
+
+    def init(state):
+        return init_fn(state, 1)
+
+    def frame(state, enc, n_frames, tokens, n, pred_out, carry):
+        return body(state, enc.to(dt), n_frames, tokens, n, pred_out, carry,
+                    args.max_symbols_per_frame)
+
+    entries, flat = [], None
+    for platform in args.platforms:
+        on = traced_on[platform]
+        model.to(on)
+        state = model.state_dict()
+        names, flat = list(state), list(state.values())
+        logger.info("exporting transducer entries on %s: chunk t=%d, "
+                    "window=%d, label budget=%d", on, t, args.window_frames,
+                    budget)
+        entries.append({"role": "encode", "t": t, "platform": platform,
+                        "program": export_forward(encode, names, flat, t,
+                                                  on)})
+        entries.append({"role": "decode_init", "platform": platform,
+                        "program": export_program(init, names, flat, ())})
+        with torch.no_grad():
+            pred_out, carry = model.decode_init(1, on)
+        example = (torch.zeros((1, 1, cfg.d_model), device=on),
+                   torch.ones((1,), dtype=torch.int32, device=on),
+                   torch.zeros((1, budget), dtype=torch.int32, device=on),
+                   torch.zeros((1,), dtype=torch.int32, device=on),
+                   pred_out, carry)
+        entries.append({"role": "decode_frames", "platform": platform,
+                        "program": export_program(frame, names, flat,
+                                                  example)})
+    meta = {"kind": "transducer", "vocab": vocab_list,
+            "conv_features": [list(f) for f in cfg.conv_features],
+            "sample_rate": sr, "d_model": cfg.d_model,
+            "num_layers": cfg.num_layers,
+            "window_frames": args.window_frames, "max_output_len": budget,
+            "max_symbols_per_frame": args.max_symbols_per_frame,
+            "bf16": bool(args.bf16), "platforms": list(args.platforms),
+            "checkpoint": args.checkpoint}
+    save_artifact(args.output, flat, meta, entries)
+    logger.info("wrote %s: transducer artifact, %d params", args.output,
+                len(flat))
+    return args.output
+
+
 def main(argv=None):
     args = parse_args(argv)
     logging.basicConfig(level=logging.INFO)
     device = resolve_device(args.device)
     traced_on = {p: _platform_device(p, device) for p in args.platforms}
+    if args.transducer:
+        return _export_transducer(args, device, traced_on)
     model, head, meta = _build(args, device)
     kwargs = {"freeze": False} if args.pooled else {}
     fn = state_fn(model, head, **kwargs)

@@ -26,6 +26,10 @@ reads one loaded LM from several threads at once: it only reads it.
 ``--quantize int8`` serves int8 Dense weights (``ops/quant.py``);
 ``--exported`` serves a ``cli.export`` artifact instead of a checkpoint,
 its chunk the smallest entry that covers ``--chunk_seconds``.
+``--transducer true`` serves an RNN-T checkpoint (and ``--exported`` a
+transducer artifact) through :class:`TransducerService`: per-request
+``TransducerStreamer`` state, the greedy windowed lattice search behind
+both routes, the encoder chunks batched across requests as CTC's are.
 
   python -m audio8_tpu_torch.cli.serve --checkpoint ctc.pt \\
       --dict_file dict.ltr.txt --beam 8 --lm lm.arpa --port 8000
@@ -49,11 +53,12 @@ import numpy as np
 
 from audio8_tpu_torch.cli.common import (add_common_model_args,
                                         add_decoding_args, apply_preset,
-                                        require_checkpoint)
+                                        require_checkpoint, resolve_device)
 from audio8_tpu_torch.cli.transcribe import (build_beam_decoder,
                                              check_timestamps, load_acoustic,
                                              load_exported_acoustic)
 from audio8_tpu_torch.data.audio import SoundfileAudioReader
+from audio8_tpu_torch.export import artifact_kind
 from audio8_tpu_torch.ops.align import timestamped_words
 from audio8_tpu_torch.ops.metrics import postproc_bpe, postproc_letters
 from audio8_tpu_torch.serve import (ChunkedTranscriber, MicroBatcher,
@@ -148,6 +153,42 @@ class TranscribeService:
         if self.transcriber.batcher is not None:
             return contextlib.nullcontext()
         return self._lock
+
+
+class TransducerService(TranscribeService):
+    """RNN-T serving: per-request ``TransducerStreamer`` state instead of
+    stateless stitched log-probs. ``/transcribe`` and ``/stream`` both
+    run the resumable windowed lattice search; the encoder chunks share
+    the ``MicroBatcher``'s cross-request batches as the CTC path's do."""
+
+    def __init__(self, streamer_factory, index2vocab: dict,
+                 sample_rate: int = 16_000, info: dict = None,
+                 postproc=None):
+        self._factory = streamer_factory
+        probe = streamer_factory()  # geometry and batcher for health()
+        super().__init__(probe, index2vocab, decoder=None,
+                         sample_rate=sample_rate, info=info,
+                         timestamps=False, postproc=postproc)
+
+    def new_stream(self):
+        return self._factory()
+
+    def final_text(self, st, lock=None) -> str:
+        with lock or contextlib.nullcontext():
+            st.finish()
+        return st.text_so_far(self.index2vocab, postproc=self.postproc)
+
+    def transcribe(self, data: bytes, content_type: str = "") -> dict:
+        wav = self.decode_bytes(data, content_type)
+        t0 = time.perf_counter()
+        st = self.new_stream()
+        lock = self.stream_lock()
+        with lock:
+            st.feed(wav)
+        text = self.final_text(st, lock)
+        return {"text": text,
+                "audio_seconds": round(len(wav) / self.sample_rate, 3),
+                "latency_ms": round((time.perf_counter() - t0) * 1e3, 1)}
 
 
 def pcm_to_float(data: bytes, fmt: str) -> np.ndarray:
@@ -368,7 +409,11 @@ def parse_args(argv=None):
 
 def build_service(args) -> TranscribeService:
     """Model, batcher, transcriber and decoder from the flags, warmed up
-    with one second of silence."""
+    with one second of silence; an RNN-T checkpoint or artifact goes to
+    :func:`build_transducer_service`."""
+    if args.transducer or (args.exported and
+                           artifact_kind(args.exported) == "transducer"):
+        return build_transducer_service(args)
     check_timestamps(args)
     art = None
     if args.exported:
@@ -406,6 +451,71 @@ def build_service(args) -> TranscribeService:
               "chunk_seconds": round(ct.chunk / sr, 3)})
     logger.info("warming up (%d-sample chunk forward on %s)", chunk, device)
     service.log_probs(np.zeros(sr, np.float32))
+    return service
+
+
+def build_transducer_service(args) -> TransducerService:
+    """The RNN-T branch of :func:`build_service`: a checkpoint
+    (``--transducer``) or an exported transducer artifact, warmed up
+    with one second of silence."""
+    from audio8_tpu_torch.cli.transcribe import load_transducer_stream
+    from audio8_tpu_torch.serve import TransducerStreamer
+
+    if (args.timestamps or args.beam > 1 or args.lm or args.device_beam
+            or args.quantize != "none"):
+        raise SystemExit(
+            "the transducer path serves the greedy streaming lattice "
+            "search: --timestamps/--beam/--lm/--device_beam/--quantize "
+            "are CTC-path flags")
+    postproc = postproc_bpe if args.target_type == "bpe" else postproc_letters
+    if args.exported:
+        from audio8_tpu_torch.export import load_artifact
+        from audio8_tpu_torch.utils import revlut
+
+        device = resolve_device(args.device)
+        art = load_artifact(args.exported, device)
+        index2vocab = revlut({v: i for i, v in enumerate(art.vocab)})
+        conv_features, sr = art.conv_features, art.sample_rate
+        encode, decode_init, decode_frames = (
+            art.encode, art.decode_init, art.decode_frames)
+        chunk = art.chunk_samples  # the artifact's entry is the shape
+        window, budget = art.window_frames, art.max_output_len
+        model_name = "wav2vec2-transducer (exported)"
+        dims = dict(d_model=art.meta.get("d_model"),
+                    num_layers=art.meta.get("num_layers"))
+    else:
+        cfg, encode, decode_init, decode_frames, index2vocab, device = \
+            load_transducer_stream(args)
+        conv_features, sr = cfg.conv_features, args.target_sample_rate
+        chunk = int(args.chunk_seconds * sr)
+        window, budget = 256, args.max_decode_len
+        model_name = "wav2vec2-transducer"
+        dims = dict(d_model=args.d_model, num_layers=args.num_layers)
+    batcher = None
+    if args.batch_wait_ms > 0:
+        batcher = MicroBatcher(encode, chunk, batch_size=args.batch,
+                               max_wait_ms=args.batch_wait_ms, device=device)
+
+    def factory():
+        # a decode window well under a chunk's frames: windowing is exact,
+        # and /stream emits partials as soon as the first chunk's stable
+        # frames land
+        return TransducerStreamer(
+            encode, decode_init, decode_frames, conv_features,
+            chunk_samples=chunk,
+            context_samples=int(args.context_seconds * sr),
+            window_frames=window, max_output_len=budget, batcher=batcher,
+            device=device)
+
+    service = TransducerService(
+        factory, index2vocab, sample_rate=sr, postproc=postproc,
+        info={"model": model_name, **dims, "device": str(device),
+              "chunk_seconds": round(chunk / sr, 3)})
+    logger.info("warming up (%d-sample chunk encode + decode window on "
+                "%s)", chunk, device)
+    st = factory()
+    st.feed(np.zeros(sr, np.float32))
+    st.finish()
     return service
 
 

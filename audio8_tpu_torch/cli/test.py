@@ -18,11 +18,14 @@ The flags are the JAX entry point's with the same defaults, plus
 ``--quantize int8`` runs the Dense layers on int8 weights, quantized
 after the load (``ops/quant.py``). ``--exported`` scores a ``cli.export``
 artifact instead, the batches padded to its entry table (so its scores
-equal the live model's at that ``--length_buckets`` grid). Those of
-parts not ported yet raise: ``--transducer``, ``--device_beam`` and
-``--lm_rescore`` (ROADMAP.md queue 1, item 7). The returned metrics
-also carry the eval's audio seconds and wall seconds and the beam
-decode's host seconds.
+equal the live model's at that ``--length_buckets`` grid).
+``--transducer true`` scores an RNN-T checkpoint with its greedy search
+or, with ``--beam``, the beam search's 1-best; an exported transducer
+artifact scores through the ``TransducerStreamer`` (greedy). Those of
+parts not ported yet raise: ``--device_beam`` and ``--lm_rescore``
+(ROADMAP.md queue 1, item 7). The returned metrics also carry the
+eval's audio seconds and wall seconds and the beam decode's host
+seconds.
 """
 from __future__ import annotations
 
@@ -74,7 +77,8 @@ def parse_args(argv=None):
     add("--lm", help="ARPA (plain or gzipped) or KenLM binary LM")
     add("--beam", type=int, default=1)
     add("--transducer", type=str2bool, default=False,
-        help="not ported yet")
+        help="the checkpoint is a cli.train_transducer model: WER/CER of "
+             "the greedy search, or of the --beam search's 1-best")
     add("--pred_layers", type=int, default=2)
     add("--pred_dim", type=int, default=512)
     add("--pred_embed_dim", type=int, default=256)
@@ -173,10 +177,15 @@ def evaluate(argv=None, keep_outputs: bool = False) -> dict:
     if args.exported:
         from audio8_tpu_torch.export import load_artifact
 
-        if args.quantize != "none":
+        if args.transducer or args.quantize != "none":
             raise ValueError("--exported eval scores the artifact as "
-                             "written: --quantize is baked at export time")
+                             "written: --quantize is baked at export "
+                             "time and the artifact's kind (meta.json) "
+                             "routes itself; drop --transducer")
         artifact = load_artifact(args.exported, device)
+        if artifact.kind == "transducer":
+            return _evaluate_transducer(args, artifact.vocab, device,
+                                        artifact)
         if artifact.kind != "ctc":
             raise ValueError(f"{args.exported} is a {artifact.kind!r} "
                              "artifact; cli.test --exported scores CTC "
@@ -190,6 +199,11 @@ def evaluate(argv=None, keep_outputs: bool = False) -> dict:
     else:
         vocab_list = read_vocab_list(args.vocab_file or os.path.join(
             args.root_dir, args.dict_file))
+    if args.transducer:
+        if args.lm or args.device_beam or args.quantize != "none":
+            raise ValueError("--transducer eval: --lm/--device_beam/"
+                             "--quantize are CTC-path flags")
+        return _evaluate_transducer(args, vocab_list, device)
     vocab = {v: i for i, v in enumerate(vocab_list)}
     index2vocab = revlut(vocab)
 
@@ -276,6 +290,103 @@ def evaluate(argv=None, keep_outputs: bool = False) -> dict:
     logger.info(metrics)
     if keep_outputs:
         metrics["outputs"] = outputs
+    return metrics
+
+
+def _evaluate_transducer(args, vocab_list, device: torch.device,
+                         artifact=None) -> dict:
+    """WER/CER of an RNN-T checkpoint (``--checkpoint``, else the latest
+    under ``--basedir``): the batched greedy search, or the beam search's
+    1-best with ``--beam``; or of an exported transducer ``artifact``,
+    each utterance through its ``TransducerStreamer`` (the greedy search
+    serving runs, so the scores are the artifact's)."""
+    from audio8_tpu_torch.cli.train import _to_device
+    from audio8_tpu_torch.cli.transcribe import build_transducer
+    from audio8_tpu_torch.serve import TransducerStreamer
+
+    vocab = {v: i for i, v in enumerate(vocab_list)}
+    index2vocab = revlut(vocab)
+    valid_set = AudioTextLetterDataset(
+        os.path.join(args.root_dir, args.valid_dataset),
+        TextVectorizer(vocab), args.target_tokens_per_batch,
+        args.max_sample_len, input_sample_rate=args.input_sample_rate,
+        target_sample_rate=args.target_sample_rate, shuffle=False,
+        is_infinite=False, tgt_type=args.target_type,
+        pad_to_multiple=args.pad_to_multiple,
+        length_grid=args.length_buckets)
+    sr = args.target_sample_rate
+    if artifact is not None:
+        if args.beam > 1:
+            raise ValueError("exported transducer artifacts bake the greedy "
+                             "streaming search; --beam certification needs "
+                             "the checkpoint path (--transducer)")
+        streamer = TransducerStreamer(
+            artifact.encode, artifact.decode_init, artifact.decode_frames,
+            artifact.conv_features, chunk_samples=artifact.chunk_samples,
+            context_samples=2 * sr, window_frames=artifact.window_frames,
+            max_output_len=artifact.max_output_len, device=device)
+
+        def decode(batch, n_real):
+            out = []
+            for i in range(n_real):
+                streamer.reset()
+                streamer.feed(batch["signal"][i, :int(
+                    batch["signal_lengths"][i])])
+                out.append(streamer.finish().tolist())
+            return out
+    else:
+        args.checkpoint = (args.checkpoint
+                           or find_latest_checkpoint(args.basedir)[0])
+        _, model, _ = build_transducer(args, device, vocab_list)
+
+        @torch.inference_mode()
+        def decode(batch, n_real):
+            tb = _to_device(batch, device)
+            if args.beam > 1:
+                toks, lens, _ = model.decode_beam(
+                    tb["signal"], tb["signal_lengths"], args.beam,
+                    args.max_decode_len, args.max_symbols_per_frame)
+                toks, lens = toks[:, 0], lens[:, 0]
+            else:
+                toks, lens = model.decode(
+                    tb["signal"], tb["signal_lengths"], args.max_decode_len,
+                    args.max_symbols_per_frame)
+            toks, lens = toks.cpu().numpy(), lens.cpu().numpy()
+            return [toks[i, :lens[i]].tolist() for i in range(n_real)]
+
+    postproc = (M.postproc_bpe if args.target_type == "bpe"
+                else M.postproc_letters)
+    metrics = {}
+    c_errors = c_total = w_errors = w_total = utterances = 0
+    audio_s = 0.0
+    start = time.perf_counter()
+    batches = iter(PrefetchLoader(valid_set, prefetch=4))
+    for j, batch in enumerate(batches):
+        if j > args.valid_steps:
+            break
+        n_real = batch.get("num_real", len(batch["signal_lengths"]))
+        decoded = decode(batch, n_real)
+        audio_s += float(batch["signal_lengths"][:n_real].sum()) / sr
+        utterances += n_real
+        if args.verbose:
+            for ids in decoded:
+                print(postproc([index2vocab[t] for t in ids]))
+        sm = M.decode_metrics(decoded, batch["token_ids"][:n_real],
+                              index2vocab, postproc_fn=postproc)
+        c_errors += sm["c_errors"]
+        w_errors += sm["w_errors"]
+        c_total += sm["c_total"]
+        w_total += sm["w_total"]
+        metrics["cer"] = (c_errors / max(c_total, 1)) * 100
+        metrics["wer"] = (w_errors / max(w_total, 1)) * 100
+        metrics["step"] = j + 1
+        if (j + 1) % args.steps_per_update == 0:
+            logger.info(metrics)
+    batches.close()  # stops the prefetch threads
+    metrics.update(utterances=utterances, audio_seconds=audio_s,
+                   eval_seconds=time.perf_counter() - start)
+    logger.info("Final results")
+    logger.info(metrics)
     return metrics
 
 

@@ -1,0 +1,341 @@
+"""RNN-T fine-tuning entry point of the port (``a8t-train-transducer`` on
+PyTorch).
+
+Counterpart of ``audio8_tpu/cli/train_transducer.py``: a wav2vec2
+encoder, an LSTM prediction network and an additive joint
+(``models/transducer.py``) trained with the transducer loss
+(``ops/transducer.py``, ``--fused_loss`` for the analytic occupancy
+backward) on the same TSV/.ltr|.bpe corpora as ``cli.train``: gradient
+accumulation, the summed gradient scaled by the example count,
+global-norm clipping, warmup + decay LR, the encoder frozen up to
+``--unfreeze_enc_after_step``, and periodic validation: the loss and
+WER/CER of the greedy decode, or of the beam search's 1-best with
+``--valid_beam``. It runs on ``--device`` (the CUDA card by default; it
+raises without one), through the attention, dropout and AdamW kernels
+and the conv forward (with ``--freeze_fx false`` the conv backward too;
+the predictor's dropout runs the dropout kernel); the loss, the LSTM
+and the joint are torch ops, as they are XLA in JAX.
+
+  python -m audio8_tpu_torch.cli.train_transducer --root_dir corpus \\
+      --train_dataset train.tsv --valid_dataset valid.tsv --basedir run
+
+Checkpoints are the port's transducer ``.pt`` files with a resume file
+beside each (``train/checkpoint.py``). ``--restart_from`` warm-starts the
+encoder from a fairseq ``.pt`` (pretrained or CTC, e.g. ``cli.pretrain``'s
+or ``cli.train``'s checkpoints) or an HF directory, loads a transducer
+``.pt`` at step 0, or resumes a run from its directory
+(``cli/common.py:resolve_restart``); on SIGTERM the trainer saves at the
+next step boundary and exits 0. ``--speed_perturb`` and
+``--noise_manifest`` augment the training utterances, ``--remat``
+recomputes each encoder layer in the backward on its replayed dropout
+seeds, ``--optim sgd`` steps plain SGD, ``--profile_dir`` writes a
+Chrome trace of the five steps after the tenth. The flags are the JAX
+trainer's; those of parts not ported yet raise: parallelism, MoE and
+``--distributed``. ``--lane_align`` (TPU tiling) is not a flag here.
+"""
+from __future__ import annotations
+
+import logging
+import os
+import time
+from argparse import ArgumentParser
+
+import torch
+
+from audio8_tpu_torch.cli.common import (add_augmentation_args,
+                                        add_common_model_args, apply_preset,
+                                        check_ported, encoder_kwargs,
+                                        resolve_device, resolve_restart,
+                                        train_augmentation)
+from audio8_tpu_torch.cli.train import _to_device
+from audio8_tpu_torch.config import TransducerConfig
+from audio8_tpu_torch.data.datasets import (AudioTextLetterDataset,
+                                            PrefetchLoader)
+from audio8_tpu_torch.models.text import TextVectorizer, read_vocab_list
+from audio8_tpu_torch.models.transducer import Transducer
+from audio8_tpu_torch.ops import metrics as M
+from audio8_tpu_torch.train.checkpoint import save_checkpoint
+from audio8_tpu_torch.train.optim import (TrainState, create_lrs,
+                                          create_optimizer)
+from audio8_tpu_torch.train.preempt import PreemptionGuard
+from audio8_tpu_torch.train.profiler import StepProfiler
+from audio8_tpu_torch.train.steps import (accumulate_grads,
+                                          make_transducer_steps)
+from audio8_tpu_torch.utils import Average, Offsets, revlut, str2bool
+
+logger = logging.getLogger("audio8_tpu_torch.train_transducer")
+
+
+def parse_args(argv=None):
+    parser = ArgumentParser(description=__doc__)
+    add = parser.add_argument
+    add("--basedir", type=str)
+    add("--root_dir")
+    add("--train_dataset", type=str)
+    add("--valid_dataset", type=str)
+    add("--dict_file", type=str, default="dict.{}.txt")
+    add("--dataset_key", default="LibriSpeech")
+    add("--grad_accum", type=int, default=2)
+    add("--loss_reduction_type", default="sum", choices=["sum", "mean"])
+    add("--fused_loss", type=str2bool, default=False,
+        help="analytic alpha/beta occupancy backward for the RNN-T loss "
+             "instead of autograd through the recursion (first-order "
+             "only; ops/transducer.py)")
+    add("--num_train_workers", type=int, default=4)
+    add("--max_sample_len", type=int)
+    add("--lr_scheduler", default="cosine")
+    add("--lr_alpha", type=float, default=0.0)
+    add("--optim", default="adamw")
+    add("--lr", type=float, default=1.0e-4)
+    add("--clip", type=float, default=25.0)
+    add("--weight_decay", type=float, default=0.0)
+    add("--restart_tt", choices=["step", "ignore"])
+    add("--restart_from", type=str,
+        help="fairseq .pt or HF directory to warm-start the encoder from, "
+             "a transducer .pt, or a run's directory to resume")
+    add("--warmup_steps", type=int, default=10000)
+    add("--plateau_steps", type=int, default=0)
+    add("--unfreeze_enc_after_step", type=int, default=10_000)
+    add("--timestep_masking", type=float, default=0.5)
+    add("--timestep_mask_len", type=int, default=10)
+    add("--channel_masking", type=float, default=0.1)
+    add("--channel_mask_len", type=int, default=64)
+    add("--train_steps", type=int, default=320_000)
+    add("--valid_steps", type=int, default=1000)
+    add("--steps_per_checkpoint", type=int, default=2400)
+    add("--distributed", type=str2bool, default=False, help="not ported yet")
+    add("--vocab_file")
+    add("--early_stopping_metric", type=str)
+    add("--target_tokens_per_batch", type=int, default=700_000)
+    add("--target_type", choices=["wrd", "ltr", "bpe"], default="ltr")
+    add("--freeze_fx", type=str2bool, default=True)
+    add("--pred_layers", type=int, default=2)
+    add("--pred_dim", type=int, default=512)
+    add("--pred_embed_dim", type=int, default=256)
+    add("--pred_dropout", type=float, default=0.1)
+    add("--d_joint", type=int, default=512)
+    add("--max_decode_len", type=int, default=200)
+    add("--max_symbols_per_frame", type=int, default=4)
+    add("--valid_beam", type=int, default=1,
+        help=">1: validation decodes with the 1-best of the time-"
+             "synchronous beam search (Transducer.decode_beam)")
+    add("--pad_to_multiple", type=int, default=16_000)
+    add_augmentation_args(parser)
+    add("--length_buckets", type=int, nargs="*",
+        help="audio-length grid (samples); pads each batch up to the next "
+             "bucket")
+    add("--profile_dir", type=str,
+        help="write a torch.profiler Chrome trace of steps 11-15 here")
+    add("--seed", type=int, default=1234,
+        help="seed of the generator that dropout and masking draw from")
+    add_common_model_args(parser)
+    return apply_preset(parser.parse_args(argv))
+
+
+def build_model(args, vocab_size: int, dtype: torch.dtype,
+                **over) -> Transducer:
+    """The JAX trainer's ``TransducerConfig`` from the flags (``over``
+    replaces fields), the parameters drawn from a generator seeded 0."""
+    cfg = dict(
+        vocab_size=vocab_size, sample_rate=args.target_sample_rate // 1000,
+        d_model=args.d_model, num_heads=args.num_heads,
+        num_layers=args.num_layers, d_ff=args.d_ff, dropout=args.dropout,
+        attention_dropout=args.attention_dropout,
+        timestep_masking=args.timestep_masking,
+        timestep_mask_len=args.timestep_mask_len,
+        channel_masking=args.channel_masking,
+        channel_mask_len=args.channel_mask_len, layer_drop=args.layer_drop,
+        freeze_fx=args.freeze_fx, pred_layers=args.pred_layers,
+        pred_dim=args.pred_dim, pred_embed_dim=args.pred_embed_dim,
+        pred_dropout=args.pred_dropout, d_joint=args.d_joint,
+        **encoder_kwargs(args))
+    cfg.update(over)
+    return Transducer(TransducerConfig(**cfg), dtype,
+                      generator=torch.Generator().manual_seed(0))
+
+
+def train(argv=None):
+    """Run the trainer; returns the :class:`TrainState`, whose ``log``
+    lists each optimizer step's wall seconds, audio seconds, loss and
+    frozen flag, and ``valid`` each validation's metrics."""
+    args = parse_args(argv)
+    logging.basicConfig(level=logging.INFO,
+                        format="%(asctime)s %(levelname)s %(name)s: "
+                               "%(message)s")
+    device = resolve_device(args.device)
+    check_ported(args, "train_transducer")
+    preempt = PreemptionGuard()  # catch SIGTERM from here on
+    try:
+        return _train(args, device, preempt)
+    finally:
+        preempt.close()
+
+
+def _train(args, device: torch.device, preempt: PreemptionGuard):
+    args.dict_file = args.dict_file.format(args.target_type)
+    if args.basedir is None:
+        args.basedir = f"transducer-{args.dataset_key}-{os.getpid()}"
+    os.makedirs(args.basedir, exist_ok=True)
+    if device.type == "cuda" and not args.bf16:
+        # float32 means float32: no TF32 in cuBLAS or cuDNN
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+
+    Offsets.remap_fairseq_ctc()
+    vocab_list = read_vocab_list(args.vocab_file or os.path.join(
+        args.root_dir, args.dict_file))
+    vocab = {v: i for i, v in enumerate(vocab_list)}
+    vec = TextVectorizer(vocab)
+    index2vocab = revlut(vocab)
+    postproc = (M.postproc_bpe if args.target_type == "bpe"
+                else M.postproc_letters)
+    common = dict(input_sample_rate=args.input_sample_rate,
+                  target_sample_rate=args.target_sample_rate,
+                  tgt_type=args.target_type,
+                  pad_to_multiple=args.pad_to_multiple,
+                  length_grid=args.length_buckets)
+    train_set = AudioTextLetterDataset(
+        os.path.join(args.root_dir, args.train_dataset), vec,
+        args.target_tokens_per_batch, args.max_sample_len, shuffle=True,
+        **common, **train_augmentation(args))
+    valid_set = AudioTextLetterDataset(
+        os.path.join(args.root_dir, args.valid_dataset), vec,
+        args.target_tokens_per_batch, args.max_sample_len, shuffle=False,
+        is_infinite=False, **common)
+    logger.info("Loaded datasets")
+
+    dtype = torch.bfloat16 if args.bf16 else torch.float32
+    model = build_model(args, len(vocab), dtype).to(device)
+    lr_sched = create_lrs(args.lr, args.train_steps, args.lr_scheduler,
+                          alpha=args.lr_alpha, warmup_steps=args.warmup_steps,
+                          plateau_steps=args.plateau_steps)
+    state = TrainState(model, create_optimizer(lr_sched, args.optim,
+                                               args.weight_decay))
+    resolve_restart(args.restart_from, state, ctc=True,
+                    restart_tt=args.restart_tt, kind="transducer")
+    state.log, state.valid = [], []
+    n_params = sum(p.numel() for p in model.parameters())
+    logger.info("Model has %s parameters on %s", f"{n_params:,}", device)
+
+    grad_fn, update_fn, decode_fn, eval_loss_fn = make_transducer_steps(
+        model, clip=args.clip, loss_reduction=args.loss_reduction_type,
+        fused_loss=args.fused_loss)
+    profiler = StepProfiler(args.profile_dir, device=device)
+    validate_on = min(args.train_steps // 2, args.steps_per_checkpoint)
+    report_on = max(10, args.steps_per_checkpoint) // 10
+    model_base = os.path.join(args.basedir, "checkpoint")
+    sr = args.target_sample_rate
+
+    train_itr = iter(PrefetchLoader(train_set,
+                                    num_workers=args.num_train_workers,
+                                    prefetch=4))
+    avg_loss = Average("average_train_loss")
+    step_time = Average("average_step_time")
+    best_metric = 1e8
+    generator = torch.Generator().manual_seed(args.seed)
+    fused = args.grad_accum == 1
+    acc_grads, acc_examples, acc_audio = None, 0.0, 0.0
+    iters, gstep = 0, state.step
+    start = time.time()
+    while gstep < args.train_steps:
+        freeze = gstep <= args.unfreeze_enc_after_step
+        iters += 1
+        batch = next(train_itr)
+        tbatch = _to_device(batch, device)
+        if fused:
+            _, loss, _, _ = grad_fn.train_step(state, tbatch, generator,
+                                               freeze=freeze)
+        else:
+            loss, grads, _, _ = grad_fn(tbatch, generator, freeze=freeze)
+            acc_grads = accumulate_grads(acc_grads, grads)
+        acc_examples += batch["num_real"]
+        acc_audio += float(batch["signal_lengths"].sum()) / sr
+        if iters % args.grad_accum:
+            continue
+        if not fused:
+            update_fn(state, acc_grads, acc_examples)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        elapsed = time.time() - start
+        avg_loss.update(float(loss))
+        state.log.append({"step": gstep + 1, "seconds": elapsed,
+                          "audio_s": acc_audio, "loss": float(loss),
+                          "frozen": freeze})
+        acc_grads, acc_examples, acc_audio = None, 0.0, 0.0
+        gstep += 1
+        profiler.step(gstep)
+        step_time.update(elapsed)
+        start = time.time()
+        if gstep % report_on == 0 and step_time.avg:
+            logger.info("%s, steps/min %.2f, LR %.6f", avg_loss,
+                        60.0 / step_time.avg, state.current_lr)
+        if gstep % validate_on == 0:
+            vm = validate(decode_fn, eval_loss_fn, valid_set, index2vocab,
+                          args.valid_steps, postproc, device,
+                          args.max_decode_len, args.max_symbols_per_frame,
+                          beam=args.valid_beam)
+            state.valid.append(vm)
+            logger.info({"average_train_loss": avg_loss.avg})
+            logger.info(vm)
+            save_checkpoint(state, f"{model_base}-step-{gstep}.pt",
+                            "transducer")
+            esm = args.early_stopping_metric
+            if esm and vm.get(esm, 1e9) < best_metric:
+                best_metric = vm[esm]
+                logger.info("New best metric %.4f", best_metric)
+                save_checkpoint(state, f"{model_base}-best.pt", "transducer")
+            start = time.time()
+        if preempt.should_save(gstep):
+            save_checkpoint(state, f"{model_base}-step-{gstep}.pt",
+                            "transducer")
+            logger.warning("preempted: saved step %d, exiting", gstep)
+            break
+    train_itr.close()  # stops the prefetch threads
+    profiler.close()
+    state.profile_trace = profiler.path
+    return state
+
+
+def validate(decode_fn, eval_loss_fn, valid_set, index2vocab, valid_steps,
+             postproc, device, max_decode_len: int, max_symbols: int,
+             beam: int = 1) -> dict:
+    """Loss and WER/CER of the decode (greedy, or the 1-best of a beam of
+    ``beam``) over up to ``valid_steps`` + 1 batches. ``decode_seconds``
+    and ``utterances`` time the decodes."""
+    avg_valid_loss = Average("average_valid_loss")
+    c_errors = c_total = w_errors = w_total = utts = 0
+    decode_seconds = 0.0
+    valid_start = time.time()
+    for j, batch in enumerate(iter(valid_set)):
+        if j > valid_steps:
+            break
+        tbatch = _to_device(batch, device)
+        avg_valid_loss.update(float(eval_loss_fn(tbatch)))
+        t0 = time.perf_counter()
+        toks, lengths = decode_fn(tbatch, max_output_len=max_decode_len,
+                                  max_symbols=max_symbols, beam=beam)
+        toks, lengths = toks.cpu().numpy(), lengths.cpu().numpy()
+        decode_seconds += time.perf_counter() - t0
+        n_real = batch["num_real"]
+        utts += n_real
+        decoded = [toks[i, :lengths[i]].tolist() for i in range(n_real)]
+        sm = M.decode_metrics(decoded, batch["token_ids"][:n_real],
+                              index2vocab, postproc_fn=postproc)
+        c_errors += sm["c_errors"]
+        w_errors += sm["w_errors"]
+        c_total += sm["c_total"]
+        w_total += sm["w_total"]
+    return {"average_valid_loss": avg_valid_loss.avg,
+            "valid_elapsed_epoch": time.time() - valid_start,
+            "cer": (c_errors / max(c_total, 1)) * 100,
+            "wer": (w_errors / max(w_total, 1)) * 100,
+            "beam": beam, "decode_seconds": decode_seconds,
+            "utterances": utts}
+
+
+def main():
+    train()
+
+
+if __name__ == "__main__":
+    main()

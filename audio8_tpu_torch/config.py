@@ -4,7 +4,7 @@ The port keeps its own copy of the configuration it reads, with the JAX
 package's field names and defaults, so a config built for one package
 means the same in the other. Left out: the ``lane_aligned_*`` helpers
 (128-lane TPU tiling, ROADMAP "Not to port") and the configs of
-objectives that are not ported yet (HuBERT, data2vec, RNN-T, the text
+objectives that are not ported yet (HuBERT, data2vec, the text
 LM).
 """
 from __future__ import annotations
@@ -142,6 +142,19 @@ class PooledConfig(EncoderConfig):
     reduction_type: str = "sha"
     reduction_d_k: int = 64
     final_output_dim: Optional[int] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class TransducerConfig(EncoderConfig):
+    """RNN-T (transducer) ASR: the wav2vec2 encoder, an LSTM prediction
+    network and an additive joint (``models/transducer.py``)."""
+
+    vocab_size: int = 0
+    pred_layers: int = 2
+    pred_dim: int = 512
+    pred_embed_dim: int = 256
+    pred_dropout: float = 0.1
+    d_joint: int = 512
 
 
 @dataclasses.dataclass(frozen=True)

@@ -34,6 +34,17 @@ Design points, as in JAX:
   device it is given.
 - ``meta.json`` records the torch version and the artifact schema
   version.
+
+A transducer artifact (kind ``transducer``) holds three entries per
+platform, by ``role``: ``encode`` (the encoder over one chunk, symbolic
+batch, float32 features), ``decode_init`` (the predictor advanced once
+on blank) and ``decode_frames``: the greedy search over ONE frame, with
+its ``max_symbols_per_frame`` rounds (batch 1). ``torch.export`` unrolls
+Python loops, so a window of 256 frames would trace into a graph of
+tens of thousands of nodes; :class:`ExportedTransducer` loops the
+one-frame program over a window's frames instead, keeping
+``window_frames`` in ``meta`` and in the streamer's interface. Its
+tokens equal the live search's (JAX exports the whole window).
 """
 from __future__ import annotations
 
@@ -45,36 +56,67 @@ import numpy as np
 import torch
 
 import audio8_tpu_torch.ops  # noqa: F401 - registers the a8t:: custom ops
+from audio8_tpu_torch.utils import Offsets
 
 ARTIFACT_VERSION = 1
 PLATFORMS = ("cpu", "cuda")
-TRANSDUCER = ("ROADMAP.md queue 1, item 7 (RNN-T: the transducer's export "
-              "waits for its recipe)")
 
 
 class _Traced(torch.nn.Module):
-    """``fn(state, signal, lengths)`` as a module with no parameters of
-    its own: the model's weights enter as the flat list ``flat``, named
-    ``names``, so the trace holds none of them."""
+    """``fn(state, *args)`` as a module with no parameters of its own:
+    the model's weights enter as the flat list ``flat``, named ``names``,
+    so the trace holds none of them."""
 
     def __init__(self, fn: Callable, names: Sequence[str]):
         super().__init__()
         self._fn, self._names = fn, list(names)
 
-    def forward(self, flat: List[torch.Tensor], signal: torch.Tensor,
-                lengths: torch.Tensor):
-        return self._fn(dict(zip(self._names, flat)), signal, lengths)
+    def forward(self, flat: List[torch.Tensor], *args):
+        return self._fn(dict(zip(self._names, flat)), *args)
 
 
-def state_fn(model: torch.nn.Module, head: Callable, **kwargs) -> Callable:
-    """``fn(state, signal, lengths) = head(functional_call(model, state,
-    (signal, lengths), kwargs))``."""
+class _Method(torch.nn.Module):
+    """``model.<method>`` as a module's forward, so that
+    ``torch.func.functional_call`` runs it on given weights (its state
+    dict keys take the prefix ``model.``)."""
 
-    def fn(state, signal, lengths):
-        return head(torch.func.functional_call(model, state,
-                                                (signal, lengths), kwargs))
+    def __init__(self, model: torch.nn.Module, method: str):
+        super().__init__()
+        self.model, self._method = model, method
+
+    def forward(self, *args, **kwargs):
+        return getattr(self.model, self._method)(*args, **kwargs)
+
+
+def state_fn(model: torch.nn.Module, head: Callable = lambda out: out,
+             method: str = "forward", **kwargs) -> Callable:
+    """``fn(state, *args) = head(model.<method>(*args, **kwargs))`` with
+    ``model``'s weights taken from ``state`` (keyed as
+    ``model.state_dict()``)."""
+    wrapper = _Method(model, method)
+
+    def fn(state, *args):
+        state = {"model." + k: v for k, v in state.items()}
+        return head(torch.func.functional_call(wrapper, state, args,
+                                               kwargs))
 
     return fn
+
+
+def export_program(fn: Callable, names: Sequence[str],
+                   flat: Sequence[torch.Tensor], args: tuple,
+                   dynamic_shapes=None) -> torch.export.ExportedProgram:
+    """Trace ``fn(state, *args)`` under ``torch.no_grad()`` with the
+    example ``args`` (``dynamic_shapes`` for them, the weights static)."""
+    dyn = None
+    if dynamic_shapes is not None:
+        dyn = ([None] * len(flat), tuple(dynamic_shapes))
+    with torch.no_grad():
+        program = torch.export.export(_Traced(fn, names),
+                                      (list(flat), *args),
+                                      dynamic_shapes=dyn)
+    program.example_inputs = None  # else torch.export.save keeps the weights
+    return program
 
 
 def export_forward(fn: Callable, names: Sequence[str],
@@ -87,12 +129,8 @@ def export_forward(fn: Callable, names: Sequence[str],
     # an example batch of 2: torch.export specializes a size of 1
     signal = torch.zeros((2, t_samples), dtype=torch.float32, device=device)
     lengths = torch.full((2,), t_samples, dtype=torch.int32, device=device)
-    with torch.no_grad():
-        program = torch.export.export(
-            _Traced(fn, names), (list(flat), signal, lengths),
-            dynamic_shapes=([None] * len(flat), {0: batch}, {0: batch}))
-    program.example_inputs = None  # else torch.export.save keeps the weights
-    return program
+    return export_program(fn, names, flat, (signal, lengths),
+                          ({0: batch}, {0: batch}))
 
 
 def save_artifact(out_dir: str, flat: Sequence[torch.Tensor], meta: dict,
@@ -106,10 +144,11 @@ def save_artifact(out_dir: str, flat: Sequence[torch.Tensor], meta: dict,
     np.savez(os.path.join(out_dir, "params.npz"), **arrays)
     entry_meta = []
     for e in entries:
-        name = f"fwd_t{e['t']}_{e['platform']}.pt2"
+        name = (f"fwd_t{e['t']}_{e['platform']}.pt2" if "t" in e
+                else f"{e['role']}_{e['platform']}.pt2")
         torch.export.save(e["program"], os.path.join(out_dir, name))
-        entry_meta.append({"t": e["t"], "platform": e["platform"],
-                           "file": name})
+        entry_meta.append({k: e[k] for k in ("role", "t") if k in e}
+                          | {"platform": e["platform"], "file": name})
     meta = dict(meta)
     meta["version"] = ARTIFACT_VERSION
     meta["torch_version"] = torch.__version__
@@ -232,6 +271,71 @@ class ExportedEmbedder(ExportedAcoustic):
         return self.meta.get("reduction_type", "mean")
 
 
+class ExportedTransducer(_ArtifactBase):
+    """A loaded RNN-T artifact: ``encode``, ``decode_init`` and
+    ``decode_frames`` with the interface of
+    ``cli/transcribe.py:load_transducer_stream``, so a
+    ``serve.TransducerStreamer`` takes them unchanged (chunk
+    ``chunk_samples`` for the encoder, ``window_frames`` per decode
+    window, ``max_output_len`` labels). ``decode_frames`` runs the
+    exported one-frame search over the window's live frames."""
+
+    def __init__(self, path: str, device: torch.device | str = "cpu"):
+        Offsets.remap_fairseq_ctc()  # PAD and blank in the CTC layout
+        super().__init__(path, device)
+        platform = self.device.type
+        entries = [e for e in self.meta["entries"]
+                   if e.get("platform") == platform]
+        fns = {e["role"]: self._load(e) for e in entries if "role" in e}
+        missing = {"encode", "decode_init", "decode_frames"} - set(fns)
+        if missing:
+            raise ValueError(f"artifact {path} has no {sorted(missing)} "
+                             f"entries for {platform}")
+        self._encode, self._init, self._frame = (
+            fns["encode"], fns["decode_init"], fns["decode_frames"])
+        self.chunk_samples = int(next(e["t"] for e in entries
+                                      if e["role"] == "encode"))
+        self.window_frames = int(self.meta["window_frames"])
+        self.max_output_len = int(self.meta["max_output_len"])
+
+    @property
+    def vocab(self) -> List[str]:
+        return list(self.meta["vocab"])
+
+    @torch.no_grad()
+    def encode(self, signal, lengths):
+        signal = torch.as_tensor(signal, dtype=torch.float32,
+                                 device=self.device)
+        t = signal.shape[-1]
+        if t > self.chunk_samples:
+            raise ValueError(
+                f"encode window of {t} samples exceeds the exported chunk "
+                f"({self.chunk_samples}); the TransducerStreamer must "
+                "window on chunk_samples")
+        if t < self.chunk_samples:
+            signal = torch.nn.functional.pad(signal,
+                                             (0, self.chunk_samples - t))
+        lengths = torch.as_tensor(lengths, device=self.device).to(
+            torch.int32)
+        return self._encode(self._params, signal.contiguous(), lengths)
+
+    @torch.no_grad()
+    def decode_init(self):
+        return self._init(self._params)
+
+    @torch.no_grad()
+    def decode_frames(self, enc, n_frames, tokens, n, pred_out, carry):
+        """The window's frames one by one; frames at or past
+        ``n_frames`` are inert, so the loop stops there."""
+        live = min(int(n_frames.reshape(-1)[0]), enc.shape[1])
+        one = torch.ones((1,), dtype=torch.int32, device=self.device)
+        state = (tokens, n, pred_out, carry)
+        for t in range(live):
+            state = self._frame(self._params, enc[:, t:t + 1].contiguous(),
+                                one, *state)
+        return state
+
+
 def artifact_kind(path: str) -> str:
     with open(os.path.join(path, "meta.json")) as f:
         return json.load(f).get("kind", "ctc")
@@ -239,12 +343,11 @@ def artifact_kind(path: str) -> str:
 
 def load_artifact(path: str, device: torch.device | str = "cpu"):
     """Load an artifact by its recorded kind onto ``device``:
-    ``ExportedAcoustic`` (kind 'ctc'), ``ExportedEmbedder`` ('embed');
-    'transducer' raises (:data:`TRANSDUCER`)."""
+    ``ExportedAcoustic`` (kind 'ctc'), ``ExportedEmbedder`` ('embed') or
+    ``ExportedTransducer`` ('transducer')."""
     kind = artifact_kind(path)
     if kind == "transducer":
-        raise NotImplementedError(
-            f"{path}: transducer artifacts are not ported yet: {TRANSDUCER}")
+        return ExportedTransducer(path, device)
     if kind == "ctc":
         return ExportedAcoustic(path, device)
     if kind == "embed":

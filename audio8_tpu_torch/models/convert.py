@@ -417,7 +417,9 @@ def _jax_assignments(tree: Mapping[str, Any]
     tree (the encoder body under ``encoder``, the CTC head ``proj``), a
     ``Wav2Vec2Model`` tree (the body at the top level, with the quantizer
     and the two projections), a ``Seq2Seq`` tree (the body under
-    ``encoder``, the ``decoder``) or the paired tree (``model``: the
+    ``encoder``, the ``decoder``), a ``Transducer`` tree (the body under
+    ``encoder``, the ``predictor`` and the ``joint``, whose port modules
+    carry the JAX names) or the paired tree (``model``: the
     audio tower's body under ``audio_encoder/encoder``, its reduction,
     the text tower and the projections; ``loss``)."""
     if "model" in tree and "loss" in tree:
@@ -437,6 +439,11 @@ def _jax_assignments(tree: Mapping[str, Any]
     if "decoder" in tree:
         return _body_assignments(tree, ("encoder",), "encoder.") \
             + _by_name_assignments(tree["decoder"], ("decoder",), "decoder.")
+    if "predictor" in tree and "joint" in tree:
+        return _body_assignments(tree, ("encoder",), "encoder.") \
+            + _by_name_assignments(tree["predictor"], ("predictor",),
+                                   "predictor.") \
+            + _by_name_assignments(tree["joint"], ("joint",), "joint.")
     pretrain = "quantizer" in tree
     if not pretrain:
         out = _body_assignments(tree, ("encoder",), "encoder.")
@@ -482,8 +489,8 @@ def _opt_count(opt_state: Any):
 
 
 def params_from_jax(tree: Mapping[str, Any], opt_state: Any = None):
-    """JAX ``Wav2Vec2AcousticModel``, ``Wav2Vec2Model`` or ``Seq2Seq``
-    params, or the paired ``{'model': ..., 'loss': ...}`` params (a
+    """JAX ``Wav2Vec2AcousticModel``, ``Wav2Vec2Model``, ``Seq2Seq`` or
+    ``Transducer`` params, or the paired ``{'model': ..., 'loss': ...}`` params (a
     nested mapping of arrays, e.g. ``jax.tree.map(np.asarray, params)``)
     -> the port's state dict (for the paired tree, a
     ``models.dual_encoder.PairedModule``'s).

@@ -17,7 +17,7 @@ import torch
 MASK32 = 0xFFFFFFFF
 
 
-def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
+def mul32(x: torch.Tensor, c: int) -> torch.Tensor:
     """(x * c) mod 2**32 for int64 ``x`` in [0, 2**32)."""
     lo = (x & 0xFFFF) * c
     hi = (((x >> 16) * c) & 0xFFFF) << 16
@@ -27,9 +27,9 @@ def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
 def mix32(x: torch.Tensor) -> torch.Tensor:
     """The murmur finaliser on int64 values in [0, 2**32)."""
     x = x ^ (x >> 16)
-    x = _mul32(x, 0x7FEB352D)
+    x = mul32(x, 0x7FEB352D)
     x = x ^ (x >> 15)
-    x = _mul32(x, 0x846CA68B)
+    x = mul32(x, 0x846CA68B)
     return x ^ (x >> 16)
 
 

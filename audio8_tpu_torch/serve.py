@@ -333,3 +333,113 @@ class StreamingTranscriber(ChunkedTranscriber):
                     postproc: Optional[Callable] = None) -> str:
         return decode_stitched(self.finish(), index2vocab, decoder, blank,
                                postproc)
+
+
+class TransducerStreamer(StreamingTranscriber):
+    """Streaming RNN-T recognition: feed audio, read partial text.
+
+    The encoder runs as fixed-shape overlapped chunks whose feature rows
+    (not log-probs) are stitched as the CTC path stitches frames, and the
+    greedy lattice search consumes the stable stitched frames through a
+    fixed-width ``decode_frames`` window, carrying (tokens, n, pred_out,
+    carry) across windows; on ``finish`` the remainder goes as one short
+    (masked) window. The decoded ids equal one ``decode_frames`` run over
+    the offline-stitched features.
+
+    ``encode(signal (B, chunk) f32, lengths (B,)) -> (enc (B, F, D),
+    frames (B,))``, ``decode_init() -> (pred_out, carry)`` and
+    ``decode_frames(enc (1, W, D), n_frames (1,), tokens, n, pred_out,
+    carry) -> (tokens, n, pred_out, carry)`` take and return tensors on
+    ``device`` (``cli/transcribe.py:load_transducer_stream``, or an
+    exported artifact's)."""
+
+    def __init__(self, encode: Callable, decode_init: Callable,
+                 decode_frames: Callable, conv_features: Sequence,
+                 chunk_samples: int = 480_000,
+                 context_samples: int = 32_000,
+                 window_frames: Optional[int] = None,
+                 max_output_len: int = 8_000,
+                 batcher: Optional[MicroBatcher] = None,
+                 device: torch.device | str = "cpu"):
+        super().__init__(encode, conv_features, chunk_samples=chunk_samples,
+                         context_samples=context_samples, batcher=batcher,
+                         device=device)
+        self.decode_init = decode_init
+        self.decode_frames_fn = decode_frames
+        self.window = int(window_frames or self.frames_per_chunk)
+        self.max_output_len = int(max_output_len)
+        self.reset()
+
+    def reset(self) -> None:
+        super().reset()
+        # the parent's __init__ calls reset() before the decode functions
+        # exist: the decode state starts lazily
+        self._dec = None
+
+    def _decode_state(self):
+        if self._dec is None:
+            pred_out, carry = self.decode_init()
+            tokens = torch.full((1, self.max_output_len), Offsets.PAD,
+                                dtype=torch.int32, device=self.device)
+            n = torch.zeros((1,), dtype=torch.int32, device=self.device)
+            self._dec = [tokens, n, pred_out, carry]
+        return self._dec
+
+    def feed(self, samples: np.ndarray) -> None:
+        super().feed(samples)
+        self._drain(final=False)
+
+    def _drain(self, final: bool) -> None:
+        """Decode full windows of the stable frames not consumed yet; on
+        ``final`` flush the remainder as one short window."""
+        self._decode_state()
+        while True:
+            avail = sum(len(p) for p in self._pieces)
+            if avail < self.window and not (final and avail > 0):
+                return
+            take = min(self.window, avail)
+            frames, rest, got = [], [], 0
+            for p in self._pieces:
+                if got >= take:
+                    rest.append(p)
+                    continue
+                use = min(len(p), take - got)
+                frames.append(p[:use])
+                got += use
+                if use < len(p):
+                    rest.append(p[use:])
+            self._pieces = rest
+            flat = np.concatenate(frames, axis=0)
+            win = np.zeros((1, self.window, flat.shape[-1]), np.float32)
+            win[0, :take] = flat
+            self._dec = list(self.decode_frames_fn(
+                torch.from_numpy(win).to(self.device),
+                torch.tensor([take], dtype=torch.int32, device=self.device),
+                *self._dec))
+
+    def tokens_so_far(self):
+        """(ids list, count) decoded from the stable frames consumed."""
+        state = self._decode_state()
+        n = int(state[1][0])
+        return state[0][0, :n].cpu().tolist(), n
+
+    def text_so_far(self, index2vocab: dict, decoder=None,
+                    blank: Optional[int] = None,
+                    postproc: Optional[Callable] = None) -> str:
+        ids, _ = self.tokens_so_far()
+        return (postproc or postproc_letters)(
+            [index2vocab[int(i)] for i in ids])
+
+    def finish(self) -> np.ndarray:
+        """End of stream: flush the encoder chunks, decode every stable
+        frame left, return the decoded ids (1-D int32)."""
+        super().finish()
+        self._drain(final=True)
+        ids, _ = self.tokens_so_far()
+        return np.asarray(ids, np.int32)
+
+    def finish_text(self, index2vocab: dict, decoder=None,
+                    blank: Optional[int] = None,
+                    postproc: Optional[Callable] = None) -> str:
+        self.finish()
+        return self.text_so_far(index2vocab, postproc=postproc)

@@ -2,9 +2,9 @@
 
 A CTC or pretraining checkpoint is a fairseq-layout ``.pt``
 (``{base}-step-N.pt``, ``models/convert.py``), which the JAX package
-reads with ``load_fairseq_bin``; a seq2seq or paired one is the port's
-own ``.pt``, ``{"kind": kind, "model": state_dict}`` (no fairseq layout
-holds a decoder or a text tower). Beside each is a resume file
+reads with ``load_fairseq_bin``; a seq2seq, paired or transducer one is
+the port's own ``.pt``, ``{"kind": kind, "model": state_dict}`` (no
+fairseq layout holds a decoder, a text tower or a predictor). Beside each is a resume file
 (``{base}-step-N.resume``, torch state dicts) that holds what a
 restart needs to continue the same run: the optimizer (``adamw`` with
 its moments, or ``sgd``) and its step count (the LR schedule's
@@ -25,7 +25,7 @@ from audio8_tpu_torch.models.convert import (save_fairseq_ctc,
                                              save_fairseq_pretrained)
 
 RESUME_SUFFIX = ".resume"
-KINDS = ("ctc", "pretrain", "seq2seq", "paired")
+KINDS = ("ctc", "pretrain", "seq2seq", "paired", "transducer")
 FAIRSEQ_KINDS = ("ctc", "pretrain")
 
 
@@ -56,7 +56,8 @@ def resume_path(checkpoint: str) -> str:
 
 def save_checkpoint(state, path: str, kind: str) -> str:
     """Write ``state.model`` at ``path`` (a fairseq ``.pt``, CTC or
-    pretrained, or the port's own seq2seq or paired ``.pt``, by ``kind``)
+    pretrained, or the port's own seq2seq, paired or transducer ``.pt``,
+    by ``kind``)
     and the resume file beside it."""
     if kind not in KINDS:
         raise ValueError(f"kind {kind!r}: want one of {KINDS}")
@@ -106,7 +107,8 @@ def load_resume(state, checkpoint: str, kind: str) -> Optional[int]:
 
 
 def load_port_checkpoint(path: str, kind: str) -> Optional[dict]:
-    """The state dict of a seq2seq or paired ``.pt`` the port wrote, if
+    """The state dict of a seq2seq, paired or transducer ``.pt`` the port
+    wrote, if
     ``path`` is one of this ``kind``, else ``None``."""
     try:
         blob = torch.load(path, map_location="cpu", weights_only=True)

@@ -1,7 +1,7 @@
 """The step factories of CTC fine-tuning, contrastive pretraining,
-seq2seq and paired pretraining (``audio8_tpu/train/steps.py``:
+seq2seq, paired pretraining and RNN-T (``audio8_tpu/train/steps.py``:
 ``make_ctc_steps``, ``make_pretrain_steps``, ``make_seq2seq_steps``,
-``make_paired_steps``).
+``make_paired_steps``, ``make_transducer_steps``).
 
 CTC: ``grad_fn`` runs one forward and backward and returns the summed loss,
 one gradient per parameter (zeros for parameters that got none, as JAX
@@ -27,7 +27,12 @@ teacher-forced. Paired: one optimizer over the model and the loss
 module's ``logit_scale`` (``models.dual_encoder.PairedModule``), each
 tower frozen or not by its own flag. A frozen leaf still takes its zero
 gradient through AdamW, weight decay included, as optax steps every
-leaf.
+leaf. RNN-T: CTC's conventions (blank = GO, the ``sum`` loss scaled by
+1/total_examples at update, ``freeze`` a plain flag, the fused
+``train_step`` for ``--grad_accum 1``, padding rows weighted out) over
+``ops.transducer.transducer_loss`` with either backward route;
+``decode_fn`` decodes greedily or, with ``beam > 1``, returns the beam
+search's 1-best.
 """
 from __future__ import annotations
 
@@ -39,6 +44,7 @@ import torch
 from audio8_tpu_torch.config import END_TEMP, START_TEMP, TEMP_DECAY_FACTOR
 from audio8_tpu_torch.models.wav2vec2 import wav2vec2_pretrain_loss
 from audio8_tpu_torch.ops.ctc import ctc_loss
+from audio8_tpu_torch.ops.transducer import transducer_loss
 from audio8_tpu_torch.utils import Offsets
 
 
@@ -286,3 +292,72 @@ def make_paired_steps(module, clip: float = 25.0):
         return module.loss(a, t, row_validity(batch))
 
     return grad_fn, _scaled_update(clip), eval_fn
+
+
+def make_transducer_steps(model, clip: float = 25.0,
+                          loss_reduction: str = "sum",
+                          fused_loss: bool = False):
+    """Returns ``(grad_fn, update_fn, decode_fn, eval_loss_fn)`` for a
+    ``models.transducer.Transducer``: ``grad_fn(batch, generator,
+    freeze)`` -> (loss, gradients by name, real rows, label tokens) and
+    ``grad_fn.train_step`` fusing it with the update;
+    ``decode_fn(batch, max_output_len, max_symbols, beam)`` -> (tokens,
+    lengths); ``eval_loss_fn(batch)`` -> the loss. ``sum`` sums the
+    rows' NLL, ``mean`` averages each row's NLL per label over the real
+    rows."""
+
+    def masked_loss(log_probs, frame_lengths, targets, target_lengths,
+                    rows):
+        per_row = transducer_loss(log_probs, frame_lengths, targets,
+                                  target_lengths, blank=Offsets.GO,
+                                  reduction="none", fused=fused_loss)
+        if loss_reduction == "sum":
+            return torch.sum(per_row * rows)
+        per = per_row / torch.clamp(target_lengths.float(), min=1.0)
+        return torch.sum(per * rows) / torch.clamp(rows.sum(), min=1.0)
+
+    def grad_fn(batch, generator: Optional[torch.Generator],
+                freeze: bool = True):
+        targets, target_lengths = clean_targets(batch["token_ids"],
+                                                batch["token_lengths"])
+        rows = row_validity(batch)
+        for p in model.parameters():
+            p.grad = None
+        log_probs, pad_mask = model(batch["signal"], batch["signal_lengths"],
+                                    targets, generator=generator,
+                                    freeze=freeze)
+        loss = masked_loss(log_probs, pad_mask.sum(dim=-1), targets,
+                           target_lengths, rows)
+        loss.backward()
+        num_tokens = (target_lengths * rows).sum().float()
+        return loss.detach(), _take_grads(model), rows.sum(), num_tokens
+
+    def train_step(state_, batch, generator, freeze: bool = True):
+        loss, grads, bsz, toks = grad_fn(batch, generator, freeze)
+        state_.apply_gradients(grads,
+                               grad_scale=1.0 / torch.clamp(bsz, min=1.0),
+                               clip_norm=clip)
+        return state_, loss, bsz, toks
+
+    @torch.no_grad()
+    def decode_fn(batch, max_output_len: int = 200, max_symbols: int = 4,
+                  beam: int = 1):
+        if beam > 1:
+            toks, n, _ = model.decode_beam(
+                batch["signal"], batch["signal_lengths"], beam,
+                max_output_len, max_symbols)
+            return toks[:, 0], n[:, 0]
+        return model.decode(batch["signal"], batch["signal_lengths"],
+                            max_output_len, max_symbols)
+
+    @torch.no_grad()
+    def eval_loss_fn(batch):
+        targets, target_lengths = clean_targets(batch["token_ids"],
+                                                batch["token_lengths"])
+        log_probs, pad_mask = model(batch["signal"], batch["signal_lengths"],
+                                    targets)
+        return masked_loss(log_probs, pad_mask.sum(dim=-1), targets,
+                           target_lengths, row_validity(batch))
+
+    grad_fn.train_step = train_step
+    return grad_fn, _scaled_update(clip), decode_fn, eval_loss_fn

@@ -2,8 +2,9 @@
 """Smoke run of the PyTorch port (``audio8_tpu_torch``) on one CUDA card.
 
 Drives the port's serving path, its CTC fine-tuning path, its
-contrastive pretraining path, its seq2seq path and its paired audio-text
-path at full wav2vec2-base width with seeded random weights, the
+contrastive pretraining path, its seq2seq path, its paired audio-text
+path and its RNN-T path (training, decoding, streaming, serving, eval
+and export) at full wav2vec2-base width with seeded random weights, the
 trainers' remat, SGD, augmentation and profiler flags, KenLM binaries
 written by the port and the text tower's warm start, the
 pretraining path again through the attention block
@@ -267,6 +268,33 @@ instead, to compare.
               ``cli.pretrain_paired --warmstart_text`` for 2 steps: every
               array loaded, nothing unexpected or missing, the frozen
               text tower equal to the file after the run, finite losses;
+19. transducer - ``cli.train_transducer`` at full width (wav2vec2-base
+              encoder, 2 x 512 LSTM predictor, 512 joint) warm-started
+              from the train phase's CTC ``.pt`` on its corpus: 2 f32
+              steps (1 frozen), 2 with ``--fused_loss true --valid_beam
+              4`` and 2 with ``--bf16`` (these two on SGD, to keep the
+              full run's disk writes down), each
+              micro-step's launches of kernels 2, 2b, 3 and 4 and each
+              AdamW update's of 5 held to what the code predicts; one
+              unfrozen step card vs CPU for each
+              loss route (loss 1e-4, gradient norm 1e-3);
+              bench_transducer's step ((16, 41 359) samples, U 64)
+              timed in f32 and bf16 in turns (wall and device ms, idle
+              share, peak memory, the loss's device ms forward and
+              backward); kernels 2, 2b, 3, 4 and 5 against their plain
+              versions at that step's shapes; greedy decode of three of
+              the served requests (30 s chunks) against the CPU's tokens
+              (near ties allowed), the timed decode, the
+              ``TransducerStreamer`` against the offline stitch, beam 4
+              on short clips against the CPU, one ``decode_frames``
+              window and one beam search under
+              ``torch.cuda.set_sync_debug_mode("error")``, ``cli.serve
+              --transducer`` (``/transcribe``, ``/stream``), ``cli.test
+              --transducer`` greedy and ``--beam 4``, ``cli.export
+              --transducer`` and its artifact in transcribe, serve and
+              test (tokens equal the live model's); greedy ms per
+              utterance and audio-s/s at (4, 30 s) and beam ms per
+              utterance;
 
 then a ``phase_seconds`` line (each phase's wall seconds and each phase's
 retried profiler traces, ``trace_retries``), a ``kernels``
@@ -286,6 +314,7 @@ card it exits with code 2 and prints no result.
     python3 chip_smoke.py --export-phases    # the build and phase 17 only
     python3 chip_smoke.py --host-timing      # the wrappers' host cost
     python3 chip_smoke.py --trainer-phases   # the build and phase 18 only
+    python3 chip_smoke.py --transducer-phases  # the build and phase 19 only
 
 ``--block-timing`` builds the block's two sources and prints only the
 attention block's timing rows (phase 14) in float32 and bfloat16, then
@@ -314,7 +343,9 @@ bf16 pretraining step; a copy placed in another tree's root times that
 tree (two trees in turns in one call).
 ``--trainer-phases`` runs the build and phase 18 alone on fresh corpora
 (it writes the train phase's corpus, the serve phase's ARPA and the
-paired corpus itself).
+paired corpus itself). ``--transducer-phases`` runs the build and phase
+19 alone (it writes the train phase's corpus and warm-starts from a
+random CTC model's ``.pt``).
 ``--freeze-timing`` times the frozen seq2seq and paired steps at full
 width (random weights) in float32 and bfloat16 two ways, in turns: as
 the port runs them, a frozen tower under ``torch.no_grad()``, and with
@@ -2653,7 +2684,8 @@ def to_cuda(batch: dict) -> dict:
 
 # the seconds the step timings may pause between profiler retries in all,
 # apart from the kernel timings' RETRY_BUDGET_S, and what they have paused
-STEP_RETRY_BUDGET_S = 30.0
+# (30 s until phase 19 came)
+STEP_RETRY_BUDGET_S = 15.0
 STEP_RETRY_PAUSED = {"s": 0.0}
 
 
@@ -4759,7 +4791,9 @@ class EmptyTrace(RuntimeError):
 
 # the seconds a full run may pause between profiler retries, and what it
 # has paused so far: it bounds the timing phase whatever the profiler does
-RETRY_BUDGET_S = 120.0
+# (120 s until phase 19 came: a run that spent it all took 1 104 s of the
+# script's 1 200 s budget; a row past it takes CUDA-event times)
+RETRY_BUDGET_S = 45.0
 RETRY_PAUSED = {"s": 0.0}
 
 
@@ -6349,6 +6383,729 @@ def trainer_timing() -> int:
     print_card()
     return 0
 
+# ----------------------------------------------------------------- RNN-T
+
+# the kernels of the transducer's training path (the extractor frozen, as
+# cli.train_transducer's default --freeze_fx): 2, 2b, 3, 4 and 5
+RNNT_PATH = ("conv_k3s2_fwd", "attention_fwd", "attention_bwd", "dropout",
+             "adamw")
+# the model: the JAX defaults at full width (wav2vec2-base encoder, a
+# 2 x 512 LSTM predictor on 256-wide embeddings, a 512-wide joint)
+RNNT_SIZE: list = []
+RNNT_FLAGS = ["--target_tokens_per_batch", "700000", "--grad_accum", "2",
+              "--warmup_steps", "2", "--valid_steps", "0",
+              "--num_train_workers", "4", "--max_decode_len", "200"]
+# the f32 run (autograd loss), the fused-loss run and the bf16 run: 2
+# steps each, 1 frozen, the fused one validating with a beam. Each run
+# checkpoints at both steps (1.2 GB each with AdamW's moments); to keep
+# the full run's disk writes down (over 40 GB in all), the fused and bf16
+# runs step SGD, whose resume files hold no moments (0.4 GB)
+RNNT_RUNS = {"f32": ["--train_steps", "2", "--unfreeze_enc_after_step", "0",
+                     "--steps_per_checkpoint", "2"],
+             "fused": ["--train_steps", "2", "--unfreeze_enc_after_step",
+                       "0", "--steps_per_checkpoint", "2", "--fused_loss",
+                       "true", "--valid_beam", "4", "--optim", "sgd"],
+             "bf16": ["--train_steps", "2", "--unfreeze_enc_after_step",
+                      "0", "--steps_per_checkpoint", "2", "--bf16",
+                      "--optim", "sgd"]}
+RNNT_BENCH = (16, 41_359, 64)  # bench.py:bench_transducer's rows, samples, U
+RNNT_REQUESTS = 2  # the served requests phase 19 decodes (3.1, 12.4 s)
+RNNT_CPU_REQUESTS = 2  # of them, those whose greedy tokens the CPU checks
+RNNT_STREAMED = 1  # the one the streamer decodes
+RNNT_BEAM = 4
+RNNT_BEAM_SECONDS = (5.0, 3.1)  # the clips the beam search runs on
+RNNT_DECODE_ROWS = 4  # the decode-cost batch: 4 rows of 30 s
+RNNT_SYNC_FRAMES = 64  # one decode window under the sync check
+RNNT_MAX_SYMBOLS = 4  # --max_symbols_per_frame's default
+
+
+RNNT_VALID = "rnnt_valid.tsv"  # the validation manifest phase 19 decodes
+RNNT_VALID_SAMPLES = 2 * SR  # its one clip: the shortest one's first 2 s
+
+
+def rnnt_sources(tmp: str, seed: int) -> tuple:
+    """The train phase's corpus and CTC checkpoint (a random CTC model
+    saved in fairseq's layout when the phase runs alone), and beside the
+    corpus' manifests RNNT_VALID: the first 2 s of its shortest
+    validation utterance with as many of its letters (the validations
+    and ``cli.test`` decode it: a beam validation of the whole set took
+    9 s)."""
+    from audio8_tpu_torch.models.convert import save_fairseq_ctc
+    from audio8_tpu_torch.models.wav2vec2 import Wav2Vec2AcousticModel
+
+    corpus = os.path.join(tmp, "corpus")
+    if not os.path.isdir(corpus):
+        os.makedirs(corpus)
+        write_corpus(corpus, seed)
+    ckpt = os.path.join(tmp, "run", "checkpoint-step-6.pt")
+    if not os.path.exists(ckpt):
+        ckpt = os.path.join(tmp, "rnnt_warm_start.pt")
+        save_fairseq_ctc(Wav2Vec2AcousticModel(base_config(
+            4 + len(LETTERS)), generator=torch.Generator().manual_seed(
+                seed + 40)), ckpt)
+    from scipy.io import wavfile
+
+    with open(os.path.join(corpus, "valid.tsv")) as fh:
+        root, *rows = fh.read().splitlines()
+    with open(os.path.join(corpus, "valid.ltr")) as fh:
+        texts = fh.read().splitlines()
+    i = min(range(len(rows)), key=lambda j: int(rows[j].split("\t")[1]))
+    name, n = rows[i].split("\t")
+    _, pcm = wavfile.read(os.path.join(root, name))
+    keep = min(int(n), RNNT_VALID_SAMPLES)
+    wavfile.write(os.path.join(root, "rnnt_valid0.wav"), SR, pcm[:keep])
+    letters = texts[i].split()
+    stem = os.path.splitext(RNNT_VALID)[0]
+    with open(os.path.join(corpus, RNNT_VALID), "w") as fh:
+        fh.write(f"{root}\nrnnt_valid0.wav\t{keep}\n")
+    with open(os.path.join(corpus, f"{stem}.ltr"), "w") as fh:
+        fh.write(" ".join(letters[:len(letters) * keep // int(n)]) + " |\n")
+    return corpus, ckpt
+
+
+def encoder_dropouts(cfg) -> int:
+    """The encoder's hash-dropout calls in one training forward, counted
+    on a copy at width 32 with the same layers and rates on the CPU:
+    what the code predicts kernel 4's launches per forward to be."""
+    import dataclasses
+
+    import audio8_tpu_torch.nn.dropout as nn_dropout
+    from audio8_tpu_torch.models.wav2vec2 import Wav2Vec2Encoder
+
+    small = dataclasses.replace(cfg, d_model=32, num_heads=2, d_ff=64,
+                                custom_conv_features=((32, 10, 5),
+                                                      (32, 3, 2)),
+                                timestep_masking=0.0, channel_masking=0.0)
+    calls, real = [], nn_dropout.fused_dropout
+    nn_dropout.fused_dropout = lambda x, r, s: calls.append(1) or real(
+        x, r, s)
+    try:
+        Wav2Vec2Encoder(small)(torch.zeros(2, 400),
+                               torch.tensor([400, 300]),
+                               torch.Generator().manual_seed(0))
+    finally:
+        nn_dropout.fused_dropout = real
+    return len(calls)
+
+
+def rnnt_train(tmp: str, corpus: str, ckpt: str) -> dict:
+    """``cli.train_transducer`` from ``ckpt`` on ``corpus``: the three
+    RNNT_RUNS, each micro-step's launches held to the code's prediction
+    (kernel 2 once a layer, 2b once a layer when unfrozen, 3 once a k3s2
+    layer, 4 the encoder's dropouts and the predictor's 1 + pred_layers
+    forward, and again in the backward: the predictor's always, the
+    encoder's when unfrozen; 5 once an AdamW update, never under SGD).
+    Returns each run's
+    summary and the f32 run's state and launches."""
+    from audio8_tpu_torch.cli import train_transducer as rnnt_cli
+
+    out = {}
+    for name, flags in RNNT_RUNS.items():
+        basedir = os.path.join(tmp, f"rnnt_{name}")
+        records = []
+        reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with per_call_launches(rnnt_cli, "make_transducer_steps", records):
+            state = rnnt_cli.train([
+                "--root_dir", corpus, "--train_dataset", "train.tsv",
+                "--valid_dataset", RNNT_VALID, "--basedir", basedir,
+                "--device", "cuda", "--restart_from", ckpt, *RNNT_SIZE,
+                *RNNT_FLAGS, *flags])
+        wall = time.perf_counter() - t0
+        sgd = "sgd" in flags
+        launches = {k: n for k, n in read_launches().items()
+                    if k in RNNT_PATH and not (sgd and k == "adamw")}
+        cfg = state.model.config
+        steps = int(flags[flags.index("--train_steps") + 1])
+        log = state.log
+        check(state.step == steps and len(log) == steps,
+              f"rnnt {name}: {state.step} steps")
+        check(all(math.isfinite(r["loss"]) for r in log),
+              f"rnnt {name}: non-finite loss")
+        check(any(r["frozen"] for r in log) and not all(
+            r["frozen"] for r in log), f"rnnt {name}: freeze schedule")
+        bwd = check_path_launches(f"rnnt_{name}", launches, records,
+                                  "freeze")
+        # kernel 4 runs again in the backward of every dropout whose
+        # input needs a gradient: the predictor's always, the encoder's
+        # when unfrozen
+        enc_drop, pred_drop = encoder_dropouts(cfg), 1 + cfg.pred_layers
+        k3s2 = sum(1 for _, k, s in cfg.conv_features if (k, s) == (3, 2))
+        for flags_, d in records:
+            frozen = flags_["freeze"]
+            want = {"attention_fwd": cfg.num_layers, "conv_k3s2_fwd": k3s2,
+                    "attention_bwd": 0 if frozen else cfg.num_layers,
+                    "dropout": enc_drop * (1 if frozen else 2)
+                    + 2 * pred_drop}
+            got = {k: d[k] for k in want}
+            check(got == want, f"rnnt {name} micro-step launches {got} "
+                  f"against the prediction {want}")
+        adamw = read_launches()["adamw"]
+        check(adamw == (0 if sgd else steps), f"rnnt {name}: adamw "
+              f"{adamw} launches for {steps} updates")
+        check(len(state.valid) >= 1 and all(
+            math.isfinite(v["wer"]) for v in state.valid),
+            f"rnnt {name}: validation {state.valid}")
+        out[name] = {"step_seconds": [r["seconds"] for r in log],
+                     "losses": [r["loss"] for r in log],
+                     "frozen": [r["frozen"] for r in log], "wall_s": wall,
+                     "launches": launches,
+                     "micro_steps": len(records),
+                     "predicted_per_micro_step": {
+                         "attention_fwd": cfg.num_layers,
+                         "attention_bwd_unfrozen": cfg.num_layers,
+                         "conv_k3s2_fwd": k3s2,
+                         "dropout_frozen": enc_drop + 2 * pred_drop,
+                         "dropout_unfrozen": 2 * (enc_drop + pred_drop)},
+                     "attention_bwd_per_micro_step": bwd,
+                     "valid": state.valid,
+                     "peak_memory_gb": torch.cuda.max_memory_allocated()
+                     / 1e9}
+        if name == "f32":
+            f32 = (state, launches)
+        del state
+        torch.cuda.empty_cache()
+    return out, f32
+
+
+def rnnt_batch(seed: int, vocab_size: int, rows=None, samples=None,
+               labels=None) -> dict:
+    """Two rows of 3.0 and 2.6 s with 42 and 36 letters (PAD after), or
+    ``rows`` full rows of ``samples`` with ``labels`` letters each."""
+    from audio8_tpu_torch.utils import Offsets
+
+    rng = np.random.default_rng(seed)
+    if rows is None:
+        lengths, tl = np.array([48_000, 41_000]), np.array([42, 36])
+    else:
+        lengths, tl = np.full(rows, samples), np.full(rows, labels)
+    sig = np.zeros((len(lengths), lengths.max()), np.float32)
+    for i, n in enumerate(lengths):
+        sig[i, :n] = synthetic_speechlike((n + 1) / SR, rng)[:n]
+    tok = np.full((len(tl), tl.max()), Offsets.PAD, np.int64)
+    for i, n in enumerate(tl):
+        tok[i, :n] = rng.integers(4, vocab_size, size=n)
+    return {"signal": torch.from_numpy(sig),
+            "signal_lengths": torch.from_numpy(lengths),
+            "token_ids": torch.from_numpy(tok),
+            "token_lengths": torch.from_numpy(tl)}
+
+
+def rnnt_model(cfg, weights: dict, dtype, device: str):
+    from audio8_tpu_torch.models.transducer import Transducer
+
+    model = Transducer(cfg, dtype)
+    model.load_state_dict(weights)
+    return model.to(device)
+
+
+def rnnt_vs_cpu(cfg, weights: dict, seed: int) -> dict:
+    """One unfrozen f32 step (dropout and masking off) on the card and on
+    the CPU from the trained weights, for each loss route: loss within
+    TRAIN_LOSS_RTOL, gradient norm within TRAIN_GNORM_RTOL."""
+    from audio8_tpu_torch.train.optim import (TrainState, create_lrs,
+                                              create_optimizer)
+    from audio8_tpu_torch.train.steps import make_transducer_steps
+
+    batch = rnnt_batch(seed + 41, cfg.vocab_size)
+    out = {}
+    for fused in (False, True):
+        res = {}
+        for dev in ("cuda", "cpu"):
+            model = rnnt_model(cfg, weights, torch.float32, dev)
+            state = TrainState(model, create_optimizer(create_lrs(
+                1e-5, 10, "constant", warmup_steps=0)))
+            grad_fn, update_fn, _, _ = make_transducer_steps(
+                model, fused_loss=fused)
+            loss, grads, rows, _ = grad_fn(
+                {k: v.to(dev) for k, v in batch.items()}, None,
+                freeze=False)
+            _, gnorm = update_fn(state, grads, rows)
+            res[dev] = (float(loss), float(gnorm))
+            del model, state, grads
+        (l_g, n_g), (l_c, n_c) = res["cuda"], res["cpu"]
+        out["fused" if fused else "autograd"] = {
+            "loss": [l_g, l_c], "gnorm": [n_g, n_c],
+            "loss_rel_err": rel(l_g, l_c), "gnorm_rel_err": rel(n_g, n_c)}
+        check(rel(l_g, l_c) <= TRAIN_LOSS_RTOL,
+              f"rnnt fused={fused}: step loss card vs CPU {rel(l_g, l_c)}")
+        check(rel(n_g, n_c) <= TRAIN_GNORM_RTOL,
+              f"rnnt fused={fused}: step gnorm card vs CPU {rel(n_g, n_c)}")
+        torch.cuda.empty_cache()
+    return dict(out, loss_rtol=TRAIN_LOSS_RTOL, gnorm_rtol=TRAIN_GNORM_RTOL,
+                rows_s=[3.0, 41_000 / SR])
+
+
+def rnnt_timing(cfg, weights: dict, seed: int) -> tuple:
+    """bench_transducer's step ((16, 41 359) samples, U 64, V 32,
+    dropout 0.1, masking 0.5 and 0.1, unfrozen) in f32 and bf16 in turns
+    (f32, bf16, bf16, f32): wall ms and peak memory, and in the first
+    turn of each dtype the device ms and idle share of a trace;
+    the loss's device ms at its (16, T', 65, 32) log-probs, forward and
+    forward + backward, each route. Returns the timings and the path
+    shapes of one f32 step."""
+    import dataclasses
+
+    from audio8_tpu_torch.ops.transducer import transducer_loss
+    from audio8_tpu_torch.train.optim import (TrainState, create_lrs,
+                                              create_optimizer)
+    from audio8_tpu_torch.train.steps import make_transducer_steps
+
+    rows, samples, labels = RNNT_BENCH
+    bcfg = dataclasses.replace(cfg, dropout=0.1, timestep_masking=0.5,
+                               channel_masking=0.1)
+    batch = {k: v.cuda() for k, v in rnnt_batch(
+        seed + 42, cfg.vocab_size, rows, samples, labels).items()}
+    gen = torch.Generator().manual_seed(seed + 42)
+    out, calls, runs = {"shape": [rows, samples, labels]}, {}, {}
+    for dt in (torch.float32, torch.bfloat16):
+        model = rnnt_model(bcfg, weights, dt, "cuda")
+        runs[dt] = (model, TrainState(model, create_optimizer(create_lrs(
+            1e-5, 100, "constant", warmup_steps=0))),
+            make_transducer_steps(model)[0])
+    for turn, dt in enumerate((torch.float32, torch.bfloat16,
+                               torch.bfloat16, torch.float32)):
+        model, state, grad_fn = runs[dt]
+
+        def step(st, flags, grad_fn=grad_fn):
+            grad_fn.train_step(st, batch, gen, **flags)
+
+        if turn == 0:
+            with recorded_path_calls(calls):
+                step(state, {"freeze": False})
+            params = [tuple(p.shape) for p in model.parameters()]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated() / 1e9  # both models
+        if turn < 2:  # the first turn of each dtype is traced too
+            t = step_timings(state, step, {"unfrozen": {"freeze": False}},
+                             n=3)["unfrozen"]
+        else:
+            t = {"wall_ms": []}
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                step(state, {"freeze": False})
+                torch.cuda.synchronize()
+                t["wall_ms"].append((time.perf_counter() - t0) * 1e3)
+        t["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        t["resident_gb"] = resident
+        out.setdefault(str(dt).split(".")[1], []).append(t)
+        if turn == 0:
+            with torch.no_grad():
+                lp, mask = model(batch["signal"], batch["signal_lengths"],
+                                 batch["token_ids"], gen, freeze=False)
+            lp = lp.detach().requires_grad_()
+            frames = mask.sum(-1)
+            loss = {"log_probs": list(lp.shape)}
+            for fused in (False, True):
+                args = (lp, frames, batch["token_ids"],
+                        batch["token_lengths"])
+
+                def fwd():
+                    with torch.no_grad():
+                        transducer_loss(*args, reduction="sum", fused=fused)
+
+                def fwd_bwd():
+                    transducer_loss(*args, reduction="sum",
+                                    fused=fused).backward()
+                    lp.grad = None
+
+                name = "fused" if fused else "autograd"
+                loss[name] = {"fwd": traced_window(fwd),
+                              "fwd_bwd": traced_window(fwd_bwd)}
+            out["loss"] = loss
+            del lp
+    del runs, model, state, grad_fn
+    torch.cuda.empty_cache()
+    step_ms = out["float32"][0]["device_ms"]
+    for name in ("autograd", "fused"):
+        fb = out["loss"][name]["fwd_bwd"]
+        out["loss"][name]["share_of_f32_step"] = (
+            fb["device_ms"] / step_ms if fb and step_ms else None)
+    return out, path_shapes(calls), params
+
+
+def rnnt_greedy_tie(cpu_model, enc: torch.Tensor, mine: tuple,
+                    theirs: tuple) -> float:
+    """The CPU's log-prob margin at the first (frame, round) where two
+    timed greedy decodes of one row part: its own choice (a label, or
+    blank, moving on) over the other's, the state replayed from the
+    shared prefix. ``mine``/``theirs``: (tokens, frames) lists."""
+    from audio8_tpu_torch.utils import Offsets
+
+    (t_m, f_m), (t_t, f_t) = mine, theirs
+    i = next((j for j in range(min(len(t_m), len(t_t)))
+              if (t_m[j], f_m[j]) != (t_t[j], f_t[j])),
+             min(len(t_m), len(t_t)))
+    frame = min(f_m[i] if i < len(t_m) else 10 ** 9,
+                f_t[i] if i < len(t_t) else 10 ** 9)
+    with torch.no_grad():
+        tokens = torch.full((1, len(t_m) + 1), Offsets.PAD,
+                            dtype=torch.int32)
+        n = torch.zeros((1,), dtype=torch.int32)
+        pred, carry = cpu_model.decode_init(1)
+        _, _, pred, carry = cpu_model.decode_frames(
+            enc[None, :frame], torch.tensor([frame]), tokens, n, pred,
+            carry, RNNT_MAX_SYMBOLS)
+        for j in range(i):  # the shared emissions inside the frame
+            if f_m[j] == frame:
+                pred, carry = cpu_model.predictor.step(
+                    carry, torch.tensor([t_m[j]]))
+        lp = torch.log_softmax(cpu_model.joint.single(
+            enc[None, frame], pred), dim=-1)[0]
+
+    def choice(toks, frames):
+        return (toks[i] if i < len(toks) and frames[i] == frame
+                else Offsets.GO)
+
+    return float(lp[choice(t_m, f_m)] - lp[choice(t_t, f_t)])
+
+
+def rnnt_emitting(cfg, weights: dict, wav: np.ndarray) -> tuple:
+    """The trained weights made to emit: a few steps of training teach
+    blank first and the letters' frequencies in the output bias, so the
+    model would decode nothing, or one letter at every frame. The
+    joint's label biases are set to their mean, and the blank's lowered
+    by a quantile of its margin over the best label on ``wav``'s frames
+    at the predictor's start state: the median, a quarter or a tenth,
+    the first that decodes ``wav`` to at least one token and at most one
+    a frame. Returns (weights, the blank's shift, the quantile)."""
+    from audio8_tpu_torch.utils import Offsets
+
+    bias = weights["joint.out.bias"].clone()
+    labels = torch.arange(len(bias)) != Offsets.GO
+    bias[labels] = bias[labels].mean()
+    weights = dict(weights, **{"joint.out.bias": bias})
+    model = rnnt_model(cfg, weights, torch.float32, "cuda").eval()
+    sig = torch.from_numpy(wav)[None].cuda()
+    lens = torch.tensor([len(wav)], device="cuda")
+    with torch.no_grad():
+        enc, frames = model.encode(sig, lens)
+        pred, _ = model.decode_init(1)
+        logits = model.joint.single(enc[0], pred.expand(enc.shape[1], -1))
+        margin = logits[:, Offsets.GO] - logits[:, labels.cuda()].max(-1)[0]
+        for q in (0.5, 0.25, 0.1):
+            shift = float(torch.quantile(margin, q))
+            model.joint.out.bias[Offsets.GO] = bias[Offsets.GO] - shift
+            _, n = model.decode(sig, lens, int(frames[0]) + 1,
+                                RNNT_MAX_SYMBOLS)
+            if 0 < int(n[0]) <= int(frames[0]):
+                break
+    check(0 < int(n[0]) <= int(frames[0]),
+          f"rnnt: no blank shift decodes to one token a frame or fewer")
+    bias[Offsets.GO] -= shift
+    del model
+    return weights, shift, q
+
+
+def rnnt_decode(tmp: str, corpus: str, cfg, weights: dict, seed: int
+                ) -> dict:
+    """The decode paths at full width from the trained f32 weights (the
+    blank bias lowered, :func:`rnnt_emitting`; the CLIs read them from a
+    transducer ``.pt``):
+    greedy over the serve phase's requests (30 s chunks stitched) with
+    the CPU's tokens on the first RNNT_CPU_REQUESTS (near ties allowed,
+    TIE_MARGIN), the timed decode, the ``TransducerStreamer`` against
+    the offline stitch, beam RNNT_BEAM on short clips against the CPU,
+    the decode loops under ``torch.cuda.set_sync_debug_mode("error")``,
+    ``cli.serve --transducer`` (``/transcribe`` and one ``/stream``),
+    ``cli.test --transducer`` greedy and beam, ``cli.export
+    --transducer`` and ``--exported`` in transcribe, serve and test; and
+    the greedy and beam decode costs."""
+    from scipy.io import wavfile
+
+    from audio8_tpu_torch.cli import export as export_cli
+    from audio8_tpu_torch.cli import test as test_cli
+    from audio8_tpu_torch.cli import transcribe
+    from audio8_tpu_torch.cli.transcribe import transducer_stream_fns
+    from audio8_tpu_torch.models.text import read_vocab_list
+    from audio8_tpu_torch.ops.metrics import postproc_letters
+    from audio8_tpu_torch.serve import ChunkedTranscriber, TransducerStreamer
+    from audio8_tpu_torch.utils import Offsets
+
+    out = {}
+    wavs = [wav_of(b) for b in serve_bodies(seed)]
+    weights, shift, q = rnnt_emitting(cfg, weights, wavs[0])
+    out["blank_bias_lowered_by"] = {"shift": shift, "quantile": q}
+    ckpt = os.path.join(tmp, "rnnt_decode.pt")
+    torch.save({"kind": "transducer", "model": weights}, ckpt)
+    gpu = rnnt_model(cfg, weights, torch.float32, "cuda").eval()
+    cpu = rnnt_model(cfg, weights, torch.float32, "cpu").eval()
+    encode, decode_init, decode_frames = transducer_stream_fns(
+        gpu, RNNT_MAX_SYMBOLS)
+    # (1, chunk) dispatches, as the streamer's: a batch of other rows may
+    # round the features otherwise
+    ct = ChunkedTranscriber(encode, cfg.conv_features,
+                            chunk_samples=30 * SR, context_samples=2 * SR,
+                            batch_size=1, device="cuda")
+    budget = 8000
+    greedy, ties = [], []
+    t0 = time.perf_counter()
+    feats = [ct.log_probs(w) for w in wavs[:RNNT_REQUESTS]]
+    for r, f in enumerate(feats):
+        enc = torch.from_numpy(f)
+        state = []
+        for dev, model in (("cuda", gpu), ("cpu", cpu))[
+                :1 + (r < RNNT_CPU_REQUESTS)]:
+            with torch.inference_mode():
+                tok, n, _, _, (times, _) = model.decode_frames(
+                    enc[None].to(dev), torch.tensor([len(f)], device=dev),
+                    torch.full((1, budget), Offsets.PAD, dtype=torch.int32,
+                               device=dev),
+                    torch.zeros((1,), dtype=torch.int32, device=dev),
+                    *model.decode_init(1, torch.device(dev)),
+                    RNNT_MAX_SYMBOLS,
+                    extra=(torch.full((1, budget), -1, dtype=torch.int32,
+                                      device=dev),
+                           torch.zeros((1, budget), device=dev)))
+            k = int(n[0])
+            state.append((tok[0, :k].tolist(), times[0, :k].tolist()))
+        greedy.append(state[0][0])
+        if len(state) == 2 and state[0] != state[1]:
+            margin = rnnt_greedy_tie(cpu, enc, state[1], state[0])
+            ties.append({"request": r, "margin": margin})
+            check(abs(margin) <= TIE_MARGIN, f"rnnt greedy request {r}: "
+                  f"card and CPU differ beyond a tie ({margin})")
+    out["greedy"] = {"seconds": SERVE_SECONDS[:RNNT_REQUESTS],
+                     "tokens": [len(g)
+                                                          for g in greedy],
+                     "cpu_checked": RNNT_CPU_REQUESTS, "near_ties": ties,
+                     "wall_s": time.perf_counter() - t0}
+    check(sum(len(g) for g in greedy) > 0, "rnnt: nothing decoded")
+
+    # the streamer, fed 0.5 s blocks, against the offline stitch
+    w = wavs[RNNT_STREAMED]
+    st = TransducerStreamer(encode, decode_init, decode_frames,
+                            cfg.conv_features, chunk_samples=30 * SR,
+                            context_samples=2 * SR, window_frames=256,
+                            max_output_len=budget, device="cuda")
+    for i in range(0, len(w), SR // 2):
+        st.feed(w[i:i + SR // 2])
+    check(st.finish().tolist() == greedy[RNNT_STREAMED],
+          "rnnt: the streamer differs from the offline stitch")
+
+    # the greedy cost at (4, 30 s), and the timed decode of the first
+    # request
+    sig = torch.from_numpy(np.stack([
+        np.resize(wavs[1], 30 * SR) for _ in range(RNNT_DECODE_ROWS)])).cuda()
+    lens = torch.full((RNNT_DECODE_ROWS,), 30 * SR, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gpu.decode(sig, lens, 200, RNNT_MAX_SYMBOLS)
+    torch.cuda.synchronize()
+    g_s = time.perf_counter() - t0
+    tsig = torch.from_numpy(wavs[0])[None].cuda()
+    tlens = torch.tensor([len(wavs[0])], device="cuda")
+    tok, n = gpu.decode(tsig, tlens, budget, RNNT_MAX_SYMBOLS)
+    ttok, tn, times, lps = gpu.decode(tsig, tlens, budget, RNNT_MAX_SYMBOLS,
+                                      timed=True)
+    k = int(tn[0])
+    ts = times[0, :k].tolist()
+    check(torch.equal(tok, ttok) and torch.equal(n, tn) and k > 0
+          and ts == sorted(ts) and all(0 <= t for t in ts)
+          and bool((lps[0, :k] <= 0).all()),
+          f"rnnt: timed decode ({k} tokens, frames {ts[:8]})")
+    with torch.inference_mode():
+        frames = int(gpu.encode(sig[:1], lens[:1])[0].shape[1])
+    out["decode_cost"] = {
+        "greedy_batch": [RNNT_DECODE_ROWS, 30 * SR],
+        "greedy_ms_per_utterance": 1e3 * g_s / RNNT_DECODE_ROWS,
+        "greedy_audio_s_per_s": 30 * RNNT_DECODE_ROWS / g_s,
+        "frames": frames, "rounds_per_frame": RNNT_MAX_SYMBOLS}
+
+    # beam RNNT_BEAM on short clips: the card's 1-best against the CPU's
+    rng = np.random.default_rng(seed + 43)
+    clips = [synthetic_speechlike(s, rng) for s in RNNT_BEAM_SECONDS]
+    bsig = np.zeros((len(clips), max(map(len, clips))), np.float32)
+    for i, c in enumerate(clips):
+        bsig[i, :len(c)] = c
+    blens = torch.tensor([len(c) for c in clips])
+    res = {}
+    for dev, model in (("cuda", gpu), ("cpu", cpu)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        toks, bn, scores = model.decode_beam(
+            torch.from_numpy(bsig).to(dev), blens.to(dev), RNNT_BEAM, 200,
+            RNNT_MAX_SYMBOLS)
+        torch.cuda.synchronize()
+        res[dev] = (toks.cpu(), bn.cpu(), scores.cpu(),
+                    time.perf_counter() - t0)
+    beam_ties = []
+    (gt, gn, gs, g_s), (ct_, cn, cs, _) = res["cuda"], res["cpu"]
+    for row in range(len(clips)):
+        mine = gt[row, 0, :gn[row, 0]].tolist()
+        if mine == ct_[row, 0, :cn[row, 0]].tolist():
+            continue
+        found = [j for j in range(RNNT_BEAM)
+                 if ct_[row, j, :cn[row, j]].tolist() == mine]
+        margin = float(cs[row, 0] - cs[row, found[0]]) if found else None
+        limit = TIE_MARGIN * max(1, len(mine))
+        beam_ties.append({"row": row, "margin": margin, "limit": limit})
+        check(margin is not None and margin <= limit,
+              f"rnnt beam row {row}: card and CPU 1-best differ beyond a "
+              f"tie ({margin})")
+    out["beam"] = {"beam": RNNT_BEAM, "seconds": list(RNNT_BEAM_SECONDS),
+                   "tokens": gn[:, 0].tolist(),
+                   "score_max_abs_diff": float((gs - cs).abs().max()),
+                   "near_ties": beam_ties,
+                   "ms_per_utterance": 1e3 * g_s / len(clips)}
+
+    # nothing in the decode loops synchronises with the host
+    with torch.inference_mode():
+        f0 = torch.from_numpy(feats[1][:RNNT_SYNC_FRAMES])[None].cuda()
+        benc, bframes = gpu.encode(torch.from_numpy(bsig).cuda(),
+                                   blens.cuda())
+        st0 = (torch.full((1, 200), Offsets.PAD, dtype=torch.int32,
+                          device="cuda"),
+               torch.zeros((1,), dtype=torch.int32, device="cuda"),
+               *gpu.decode_init(1))
+        frames0 = torch.tensor([RNNT_SYNC_FRAMES], device="cuda")
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            gpu.decode_frames(f0, frames0, *st0, RNNT_MAX_SYMBOLS)
+            gpu.beam_search(benc, bframes, RNNT_BEAM, 200, RNNT_MAX_SYMBOLS)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    out["no_host_sync"] = {"decode_frames_window": RNNT_SYNC_FRAMES,
+                           "beam_search_frames": int(benc.shape[1])}
+
+    # the entry points over the f32 run's checkpoint
+    dict_file = os.path.join(corpus, "dict.ltr.txt")
+    live = ["--checkpoint", ckpt, "--dict_file", dict_file, *RNNT_SIZE]
+    files = [os.path.join(tmp, "rnnt_request0.wav")]
+    with open(files[0], "wb") as fh:
+        fh.write(serve_bodies(seed)[0])
+    with contextlib.redirect_stdout(io.StringIO()):
+        texts = [t for _, t in transcribe.main(
+            files + live + ["--transducer", "true", "--chunk_seconds",
+                            "30"])]
+    Offsets.remap_fairseq_ctc()
+    i2v = dict(enumerate(read_vocab_list(dict_file)))
+    want = [postproc_letters([i2v[t] for t in greedy[0]])]
+    check(texts == want, f"rnnt transcribe {texts} != {want}")
+    served = rnnt_serve(live + ["--transducer", "true"], seed, want[0])
+    evals = {}
+    for beam in (1, RNNT_BEAM):
+        with contextlib.redirect_stdout(io.StringIO()):
+            m = test_cli.evaluate(["--root_dir", corpus, "--valid_dataset",
+                                   RNNT_VALID, "--checkpoint", ckpt,
+                                   "--transducer", "true", "--beam",
+                                   str(beam), "--valid_steps", "0",
+                                   *RNNT_SIZE])
+        check(math.isfinite(m["wer"]) and m["utterances"] > 0,
+              f"rnnt cli.test beam {beam}: {m}")
+        evals[f"beam{beam}"] = m
+
+    art = os.path.join(tmp, "rnnt_art")
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        export_cli.main(live + ["--transducer", "true", "--output", art,
+                                "--seconds", "30", "--platforms", "cuda"])
+    export_s = time.perf_counter() - t0
+    exported = ["--exported", art]
+    with contextlib.redirect_stdout(io.StringIO()):
+        ex_texts = [t for _, t in transcribe.main(files + exported)]
+    check(ex_texts == want, f"rnnt exported transcribe {ex_texts} != {want}")
+    ex_served = rnnt_serve(exported, seed, want[0])
+    with contextlib.redirect_stdout(io.StringIO()):
+        ex_eval = test_cli.evaluate(["--root_dir", corpus, "--valid_dataset",
+                                     RNNT_VALID, "--valid_steps", "0",
+                                     *exported])
+    check(ex_eval["utterances"] == evals["beam1"]["utterances"]
+          and math.isfinite(ex_eval["wer"]), f"rnnt exported eval {ex_eval}")
+    out["clis"] = {"transcribe": texts, "serve": served, "test": evals,
+                   "export_s": export_s, "exported_serve": ex_served,
+                   "exported_test": ex_eval}
+    del gpu, cpu
+    torch.cuda.empty_cache()
+    return out
+
+
+def rnnt_serve(argv: list, seed: int, want: str) -> dict:
+    """``cli.serve`` with ``argv`` on 127.0.0.1: ``/transcribe`` of the
+    first served request and one ``/stream`` of it in 1 s blocks, both
+    giving ``want``."""
+    from audio8_tpu_torch.cli.serve import (build_service, make_server,
+                                            parse_args)
+
+    body = serve_bodies(seed)[0]
+    # batch 1: the (1, chunk) dispatches of the streamer it is held to
+    args = parse_args(argv + ["--host", "127.0.0.1", "--port", "0",
+                              "--batch", "1"])
+    service = build_service(args)
+    srv = make_server(service, args.host, args.port)
+    server = threading.Thread(target=srv.serve_forever, daemon=True)
+    server.start()
+    try:
+        port = srv.server_address[1]
+        status, one = post(port, "/transcribe", body)
+        pcm = (wav_of(body) * 32768.0).astype("<i2").tobytes()
+        streamed = stream_request(port, pcm, SR)
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        service.transcriber.batcher.close()
+        server.join(timeout=10)
+    final = streamed["lines"][-1]
+    check(status == 200 and one["text"] == want,
+          f"rnnt /transcribe {one} != {want!r}")
+    check(final.get("final") and final["text"] == want,
+          f"rnnt /stream {final} != {want!r}")
+    return {"text": one["text"], "latency_ms": one["latency_ms"],
+            "stream_lines": len(streamed["lines"]),
+            "last_byte_to_final_s": streamed["last_byte_to_final_s"]}
+
+
+def phase_transducer(tmp: str, seed: int, gen) -> tuple:
+    """Phase 19: the RNN-T path at full width. ``cli.train_transducer``
+    warm-started from the train phase's CTC checkpoint on its corpus
+    (RNNT_RUNS), one step card vs CPU for each loss route, the
+    bench_transducer step timed, kernels 2, 2b, 3, 4 and 5 against their
+    plain versions at the shapes the timed step gave them, and the
+    decode paths (:func:`rnnt_decode`). Returns the f32 run's launches
+    and the kernels' max errors."""
+    corpus, warm = rnnt_sources(tmp, seed)
+    with timed("transducer_train"):
+        runs, (state, launches) = rnnt_train(tmp, corpus, warm)
+    cfg = state.model.config
+    weights = {k: v.detach().cpu().clone()
+               for k, v in state.model.state_dict().items()}
+    n_params = sum(p.numel() for p in state.params)
+    del state
+    torch.cuda.empty_cache()
+    with timed("transducer_vs_cpu"):
+        vs_cpu = rnnt_vs_cpu(cfg, weights, seed)
+    with timed("transducer_timing"):
+        timing, shapes, params = rnnt_timing(cfg, weights, seed)
+    with timed("transducer_kernel"):
+        worst = phase_path_kernels("transducer", shapes, params, gen)
+    with timed("transducer_decode"):
+        decode = rnnt_decode(tmp, corpus, cfg, weights, seed)
+    emit({"phase": "transducer", "config": "wav2vec2-base encoder d768 h12 "
+          "L12 ff3072 + LSTM predictor 2 x 512 (embed 256) + joint 512, "
+          f"{cfg.vocab_size} letters", "params": n_params,
+          "warm_start": os.path.basename(warm), "runs": runs,
+          "vs_cpu": vs_cpu, "step": timing, "decode": decode,
+          "launches": launches, "kernel_max_abs_err": worst})
+    return launches, worst
+
+
+def transducer_timing(gen) -> int:
+    """The build and phase 19 alone (``--transducer-phases``) on a fresh
+    corpus and warm start, then the phase seconds and the card."""
+    with timed("build"):
+        phase_build()
+    with tempfile.TemporaryDirectory() as tmp:
+        launches, _ = phase_transducer(tmp, SEED, gen)
+    emit({"phase": "phase_seconds", **PHASE_SECONDS})
+    emit({"phase": "transducer_phases", "launches": launches})
+    print_card()
+    return 0
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if not torch.cuda.is_available():
@@ -6376,6 +7133,8 @@ def main(argv=None) -> int:
         return host_timing()
     if argv == ["--trainer-phases"]:
         return trainer_timing()
+    if argv == ["--transducer-phases"]:
+        return transducer_timing(gen)
     inference_first = argv == ["--inference-first"]
     if argv and not inference_first:
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
@@ -6466,6 +7225,9 @@ def main(argv=None) -> int:
             export_launches = phase_export(tmp, SEED)
         torch.cuda.empty_cache()
         trainer_launches = trainer_phases(tmp)
+        rnnt_launches, errs = phase_transducer(tmp, SEED, gen)
+        for k, e in errs.items():
+            worst[k] = max(worst[k], e)
     emit({"phase": "phase_seconds", **PHASE_SECONDS,
           "inference_first": inference_first,
           "trace_retries": {str(k): n for k, n in TRACE_RETRIES.items()},
@@ -6543,6 +7305,7 @@ def main(argv=None) -> int:
          "export_launches": export_launches.get(name, 0),
          **{f"{p}_launches": trainer_launches[p].get(name, 0)
             for p in trainer_launches},
+         "transducer_launches": rnnt_launches.get(name, 0),
          "max_abs_err": worst[name],
          **{k: times[(name, torch.float32)][k] for k in keys},
          **extra(name)}

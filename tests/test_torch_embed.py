@@ -134,15 +134,17 @@ def test_fairseq_pretrained_gives_its_encoder(tmp_path):
 
 
 def test_unported_sources_raise(tmp_path, corpus):
-    """``--exported`` runs ``cli.export`` artifacts (item 6's export) but
-    not a transducer's, which waits for RNN-T (item 7)."""
+    """``--exported`` runs ``cli.export --pooled`` artifacts; any other
+    kind (a transducer's here) exits naming it, as JAX's ``cli.embed``
+    does, before the artifact loads."""
     import json
 
     art = tmp_path / "rnnt"
     art.mkdir()
     (art / "meta.json").write_text(json.dumps({"kind": "transducer"}))
     base = ["--root_dir", str(corpus), "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(SystemExit, match="'transducer' artifact, not an "
+                       "embed one"):
         embed.build_embedder(embed.parse_args(base + ["--exported",
                                                       str(art)]))
 

@@ -19,13 +19,16 @@ decoding surfaces to JAX's.
   ``jax_version``.
 * Every preset exports at a tiny size and equals its live forward, and
   the position tables a trace builds stay out of the live caches;
-  ``--transducer`` and transducer artifacts raise naming item 7; every
+  ``--transducer`` refuses what JAX's refuses, and a transducer artifact
+  without its three roles does not load (``test_torch_transducer_cli.py``
+  exports and runs one); every
   JAX flag of ``cli.export`` parses with its default but ``--platforms``
   (``cpu cuda`` for JAX's ``cpu tpu``), and ``tpu`` is refused.
 """
 import functools
 import json
 import os
+import shutil
 import subprocess
 import sys
 
@@ -322,16 +325,26 @@ def test_every_preset_exports_and_equals_its_live_forward(preset):
 
 
 def test_transducer_export_and_artifacts_raise_naming_item_7(art, tmp_path):
-    with pytest.raises(NotImplementedError, match="item 7"):
-        export_cli.parse_args(["--checkpoint", "c.pt", "--dict_file", "d",
-                               "--output", "o", "--transducer", "true"])
+    """The transducer's export is ported (``test_torch_transducer_cli.py``
+    runs it): what still refuses is what JAX refuses. ``--transducer``
+    takes one ``--seconds`` value, excludes ``--pooled`` and
+    ``--quantize``; a transducer artifact without its three roles does
+    not load."""
+    base = ["--checkpoint", "c.pt", "--dict_file", "d", "--output", "o",
+            "--transducer", "true"]
+    with pytest.raises(SystemExit, match="exclusive"):
+        export_cli.parse_args(base + ["--pooled", "true"])
+    with pytest.raises(SystemExit, match="CTC-path export option"):
+        export_cli.parse_args(base + ["--quantize", "int8"])
     fake = tmp_path / "rnnt"
     fake.mkdir()
     with open(os.path.join(art["port"], "meta.json")) as f:
         meta = json.load(f)
     (fake / "meta.json").write_text(json.dumps(dict(meta,
                                                     kind="transducer")))
-    with pytest.raises(NotImplementedError, match="item 7"):
+    shutil.copy(os.path.join(art["port"], "params.npz"), fake)
+    with pytest.raises(ValueError, match="no .'decode_frames', "
+                       "'decode_init', 'encode'. entries"):
         E.load_artifact(str(fake))
 
 

@@ -1,8 +1,9 @@
 """The port's entry-point flags against the JAX package's parsers.
 
 * Every flag of the JAX ``train``, ``pretrain``, ``train_seq2seq``,
-  ``pretrain_paired``, ``transcribe``, ``serve``, ``test``,
-  ``learn_bpe``, ``wrd2bpe`` and ``convert_checkpoint`` parsers but
+  ``pretrain_paired``, ``train_transducer``, ``transcribe``, ``serve``,
+  ``test``, ``learn_bpe``, ``wrd2bpe`` and ``convert_checkpoint`` parsers
+  but
   ``--lane_align`` (ROADMAP.md "Not to port") parses in the port's
   counterpart, with the same default and choices (the parsers are
   captured at ``parse_args`` with no argument parsed).
@@ -11,8 +12,9 @@
   depends on the entry point: the decoders and the trainer decode with
   ``--beam`` and ``--lm``, ``cli.transcribe`` and ``cli.serve`` take
   ``--timestamps`` and ``--quantize`` (and ``cli.transcribe`` ``--vad``),
-  ``cli.test`` ``--quantize``; ``cli.export`` refuses ``--transducer``
-  (item 7); every trainer takes ``--restart_from``.
+  ``cli.test`` ``--quantize``; ``--transducer`` runs in the decoders
+  and ``cli.export`` (``--device_beam`` and ``--lm_rescore`` still raise
+  naming item 7); every trainer takes ``--restart_from``.
 * The trainers' flags of items 4 and 10 parse, pass ``check_ported`` and
   reach the module that runs them: ``--remat`` the encoder config,
   ``--noise_manifest`` and ``--speed_perturb`` the training set's
@@ -49,6 +51,7 @@ NEEDED = {"train": [], "pretrain": ["--manifest_dir", "m"],
                          "d.txt"],
           "serve": ["--checkpoint", "c.pt", "--dict_file", "d.txt"],
           "test": [], "embed": ["--root_dir", "r", "--checkpoint", "c.pt"],
+          "train_transducer": [],
           "export": ["--checkpoint", "c.pt", "--dict_file", "d.txt",
                      "--output", "o"]}
 
@@ -85,7 +88,8 @@ def flags(parser):
 
 @pytest.mark.parametrize("entry", ENTRY_POINTS + (
     "convert_checkpoint", "learn_bpe", "wrd2bpe", "embed", "manifest",
-    "train_ngram", "average_checkpoints", "inspect_checkpoint"))
+    "train_ngram", "average_checkpoints", "inspect_checkpoint",
+    "train_transducer"))
 def test_port_parses_every_jax_flag(entry):
     theirs = flags(captured_parser(f"audio8_tpu.cli.{entry}"))
     ours = flags(captured_parser(f"audio8_tpu_torch.cli.{entry}"))
@@ -114,10 +118,11 @@ def parse_and_check(entry, extra):
     ("train", ["--distributed", "true"], "item 3"),
     ("pretrain", ["--sequence_parallel", "true"], "item 8"),
     ("transcribe", ["--device_beam", "true"], "item 7"),
-    ("transcribe", ["--transducer", "true"], "item 7"),
-    ("serve", ["--transducer", "true"], "item 7"),
+    ("transcribe", ["--transducer", "true", "--device_beam", "true"],
+     "item 7"),
+    ("serve", ["--transducer", "true", "--device_beam", "true"], "item 7"),
     ("serve", ["--device_beam", "true"], "item 7"),
-    ("test", ["--transducer", "true"], "item 7"),
+    ("test", ["--transducer", "true", "--lm_rescore", "lm_dir"], "item 7"),
     ("test", ["--device_beam", "true"], "item 7"),
     ("test", ["--lm_rescore", "lm_dir"], "item 7"),
     ("test", ["--tensor_parallel", "2"], "item 8"),
@@ -126,7 +131,10 @@ def parse_and_check(entry, extra):
     ("train_seq2seq", ["--fsdp", "true"], "item 8"),
     ("pretrain_paired", ["--distributed", "true"], "item 3"),
     ("pretrain_paired", ["--moe_experts", "4"], "item 8"),
-    ("export", ["--transducer", "true"], "item 7"),
+    ("export", ["--transducer", "true", "--tensor_parallel", "2"], "item 8"),
+    ("train_transducer", ["--distributed", "true"], "item 3"),
+    ("train_transducer", ["--moe_experts", "4"], "item 8"),
+    ("train_transducer", ["--fsdp", "true"], "item 8"),
 ])
 def test_unported_values_raise_naming_their_item(entry, extra, item):
     with pytest.raises(NotImplementedError, match=item):
@@ -183,6 +191,10 @@ SMALL_PAIRED = ["--d_model", "32", "--num_heads", "2", "--num_layers", "1",
     ("pretrain_paired", ["--warmstart_text", "{tmp}/tlm.npz"]),
     ("pretrain_paired", ["--remat", "true"]),
     ("pretrain_paired", ["--optim", "sgd"]),
+    ("train_transducer", ["--remat", "true"]),
+    ("train_transducer", ["--speed_perturb", "0.9", "1.1"]),
+    ("train_transducer", ["--optim", "sgd"]),
+    ("train_transducer", ["--profile_dir", "{tmp}"]),
 ])
 def test_trainer_flags_reach_their_module(entry, extra, tmp_path):
     """Flags that raised naming items 4 and 10 before they were ported
@@ -243,6 +255,13 @@ def test_trainer_flags_reach_their_module(entry, extra, tmp_path):
     ("train_seq2seq", ["--layer_drop", "0.1"]),
     ("train_seq2seq", ["--preset", "wavlm-base"]),
     ("pretrain_paired", ["--extractor_mode", "layer"]),
+    ("transcribe", ["--transducer", "true", "--beam", "4",
+                    "--max_symbols_per_frame", "2"]),
+    ("serve", ["--transducer", "true", "--pred_dim", "64"]),
+    ("test", ["--transducer", "true", "--beam", "4"]),
+    ("export", ["--transducer", "true", "--window_frames", "128"]),
+    ("train_transducer", ["--fused_loss", "true", "--valid_beam", "4",
+                          "--restart_from", "run", "--freeze_fx", "false"]),
 ])
 def test_ported_values_pass(entry, extra):
     """Values an entry point has ported pass its check (they raised

@@ -22,6 +22,7 @@ from audio8_tpu_torch.cli import serve as serve_cli
 from audio8_tpu_torch.cli import test as test_cli
 from audio8_tpu_torch.cli import train as train_cli
 from audio8_tpu_torch.cli import train_seq2seq as seq2seq_cli
+from audio8_tpu_torch.cli import train_transducer as transducer_cli
 from audio8_tpu_torch.cli import transcribe
 from audio8_tpu_torch.utils import Offsets
 from tests.test_torch_threads import cap_torch_threads
@@ -52,7 +53,8 @@ def test_every_module_imports_with_jax_blocked():
                 "cli.inspect_checkpoint", "models.convert_hf",
                 "nn.conformer", "export", "cli.export", "ops.samples",
                 "ops.kenlm_bin", "cli.build_binary", "models.warmstart",
-                "train.profiler"):
+                "train.profiler", "cli.train_transducer",
+                "models.transducer", "ops.transducer"):
         assert f"audio8_tpu_torch.{new}" in mods
     code = (
         "import sys\n"
@@ -131,29 +133,42 @@ def _restore_port_offsets():
 
 @pytest.mark.parametrize("entry", ["transcribe", "serve", "train",
                                    "pretrain", "test", "train_seq2seq",
-                                   "pretrain_paired", "embed", "export"])
+                                   "pretrain_paired", "embed", "export",
+                                   "train_transducer",
+                                   "transcribe --transducer",
+                                   "serve --transducer",
+                                   "test --transducer",
+                                   "export --transducer"])
 def test_default_device_is_cuda_and_raises_without_a_card(
         entry, tmp_path, _restore_port_offsets):
     """This machine has no CUDA card: the default ``--device cuda`` raises
     before any work instead of running on the CPU."""
     assert not __import__("torch").cuda.is_available()
     ckpt, dict_file = str(tmp_path / "none.pt"), str(tmp_path / "d.txt")
+    entry, *flag = entry.split()
+    rnnt = ["--transducer", "true"] if flag else []
     with pytest.raises(RuntimeError, match="no usable CUDA device"):
-        if entry == "transcribe":
+        if entry == "train_transducer":
+            transducer_cli.train(["--basedir", str(tmp_path / "run"),
+                                  "--root_dir", str(tmp_path),
+                                  "--train_dataset", "t.tsv",
+                                  "--valid_dataset", "v.tsv"])
+        elif entry == "transcribe":
             transcribe.main(["--checkpoint", ckpt, "--dict_file", dict_file,
-                             "a.wav"])
+                             "a.wav"] + rnnt)
         elif entry == "serve":
             serve_cli.build_service(serve_cli.parse_args(
-                ["--checkpoint", ckpt, "--dict_file", dict_file]))
+                ["--checkpoint", ckpt, "--dict_file", dict_file] + rnnt))
         elif entry == "embed":
             embed_cli.build_embedder(embed_cli.parse_args(
                 ["--checkpoint", ckpt, "--root_dir", str(tmp_path)]))
         elif entry == "export":
             export_cli.main(["--checkpoint", ckpt, "--dict_file", dict_file,
-                             "--output", str(tmp_path / "art")])
+                             "--output", str(tmp_path / "art")] + rnnt)
         elif entry == "test":
             test_cli.evaluate(["--checkpoint", ckpt, "--root_dir",
-                               str(tmp_path), "--valid_dataset", "v.tsv"])
+                               str(tmp_path), "--valid_dataset", "v.tsv"]
+                              + rnnt)
         elif entry == "pretrain":
             pretrain_cli.train(["--basedir", str(tmp_path / "run"),
                                 "--manifest_dir", str(tmp_path)])
