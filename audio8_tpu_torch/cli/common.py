@@ -143,7 +143,8 @@ def encoder_kwargs(args: Namespace) -> dict:
 def check_ported(args: Namespace, entry: str) -> None:
     """Raise ``NotImplementedError`` for a flag whose value asks for a part
     of the JAX entry point ``entry`` (``train``, ``pretrain``,
-    ``train_seq2seq``, ``pretrain_paired``, ``test``, ``transcribe``,
+    ``train_seq2seq``, ``pretrain_paired``, ``pretrain_hubert``,
+    ``pretrain_data2vec``, ``cluster_targets``, ``test``, ``transcribe``,
     ``serve``, ``embed``) that is not ported yet, naming the
     ROADMAP.md item; the topology flags through ``check_supported``."""
     from audio8_tpu_torch.config import EncoderConfig
@@ -406,9 +407,10 @@ def load_weights(path: str, model: torch.nn.Module, ctc: bool,
     ``ctc``: into the model's ``encoder``): its keys that the source
     lacks (the CTC head or the decoder under a pretrained encoder) keep
     their values, the source's keys the model lacks (the quantizer and
-    projections) are dropped. A paired model takes neither a fairseq
-    file nor an HF directory (the JAX trainer would merge none of their
-    keys)."""
+    projections, HuBERT's ``final_proj`` and ``label_embs_concat``,
+    data2vec's ``final_proj``) are dropped, as the JAX merge drops them.
+    A paired model takes neither a fairseq file nor an HF directory (the
+    JAX trainer would merge none of their keys)."""
     from audio8_tpu_torch.models.convert_hf import is_hf_dir
     from audio8_tpu_torch.train.checkpoint import load_port_checkpoint
 

@@ -3,9 +3,8 @@
 The port keeps its own copy of the configuration it reads, with the JAX
 package's field names and defaults, so a config built for one package
 means the same in the other. Left out: the ``lane_aligned_*`` helpers
-(128-lane TPU tiling, ROADMAP "Not to port") and the configs of
-objectives that are not ported yet (HuBERT, data2vec, the text
-LM).
+(128-lane TPU tiling, ROADMAP "Not to port") and the config of the
+text LM, which is not ported yet.
 """
 from __future__ import annotations
 
@@ -133,6 +132,38 @@ class PretrainConfig(EncoderConfig):
     timestep_masking: float = 0.65
     channel_masking: float = 0.0
     n_negatives: int = 100
+
+
+@dataclasses.dataclass(frozen=True)
+class HubertPretrainConfig(EncoderConfig):
+    """HuBERT masked-prediction pretraining (``models/hubert.py``):
+    fairseq hubert-base's defaults (mask probability 0.8 in spans of 10,
+    logit temperature 0.1, the loss on masked frames only)."""
+
+    num_clusters: int = 100
+    final_dim: int = 256
+    logit_temp: float = 0.1
+    pred_masked_weight: float = 1.0
+    pred_unmasked_weight: float = 0.0
+    dropout_input: float = 0.1
+    timestep_masking: float = 0.80
+    channel_masking: float = 0.0
+
+
+@dataclasses.dataclass(frozen=True)
+class Data2VecPretrainConfig(EncoderConfig):
+    """data2vec-audio masked regression (``models/data2vec.py``): the
+    student regresses an EMA teacher's instance-normalised average of its
+    top-k layer outputs at masked frames; fairseq data2vec_audio base's
+    defaults."""
+
+    average_top_k_layers: int = 8
+    ema_decay: float = 0.999
+    ema_end_decay: float = 0.9999
+    ema_anneal_steps: int = 30_000
+    dropout_input: float = 0.0
+    timestep_masking: float = 0.65
+    channel_masking: float = 0.0
 
 
 @dataclasses.dataclass(frozen=True)

@@ -114,7 +114,8 @@ def batch_by_size(indices, sizes, max_tokens=None,
 class AudioTextLetterDataset:
     """(audio, transcript) batches from a TSV manifest (first line the
     audio root, then ``relative_path\\tnum_samples``) zipped with the
-    sibling ``.ltr``/``.wrd``/``.bpe`` transcript file.
+    sibling ``.ltr``/``.wrd``/``.bpe`` transcript file, or the ``.km``
+    file of HuBERT's frame cluster ids (``TGT_KM``: int ids, padded -1).
 
     ``speed_perturb``: speed factors (e.g. ``(0.9, 1.0, 1.1)``); each
     utterance draws one per read and is resampled by
@@ -127,6 +128,10 @@ class AudioTextLetterDataset:
     TGT_LETTER = "ltr"
     TGT_BPE = "bpe"
     TGT_WRD = "wrd"
+    # HuBERT cluster targets (``cli.cluster_targets``): one int id per
+    # encoder frame, padded with -1 (every id 0..K-1 is a cluster, so
+    # ``Offsets.PAD`` would collide); ``vec`` may be None
+    TGT_KM = "km"
 
     def __init__(self, tsv_file: str, vec, target_tokens_per_batch: int,
                  max_src_length: Optional[int] = None, shuffle: bool = True,
@@ -183,7 +188,9 @@ class AudioTextLetterDataset:
                 if self.max_src_length and x_length > self.max_src_length:
                     continue
                 text = transcription.split()
-                if self.tgt_type != self.TGT_BPE:
+                if self.tgt_type == self.TGT_KM:
+                    tokens = np.array([int(t) for t in text], dtype=np.int32)
+                elif self.tgt_type != self.TGT_BPE:
                     tokens = self.vec.run(text)
                 else:
                     go = [self.vec.vocab[t] for t in self.vec.emit_begin_tok]
@@ -266,7 +273,8 @@ class AudioTextLetterDataset:
                   else [read(ip) for ip in enumerate(files)])
         signal = np.zeros((b_local, t_audio), np.float32)
         audio_lengths = np.zeros(b_local, np.int32)
-        token_ids = np.full((b_local, t_text), Offsets.PAD, np.int32)
+        pad_id = -1 if self.tgt_type == self.TGT_KM else Offsets.PAD
+        token_ids = np.full((b_local, t_text), pad_id, np.int32)
         text_lengths = np.zeros(b_local, np.int32)
         for i, idx in enumerate(rows):
             a = audios[i][:t_audio]

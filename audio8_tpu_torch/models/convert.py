@@ -1,5 +1,5 @@
-"""Weights into and out of the port's ``Wav2Vec2AcousticModel`` and
-``Wav2Vec2Model``.
+"""Weights into and out of the port's ``Wav2Vec2AcousticModel``,
+``Wav2Vec2Model``, ``HubertPretrainModel`` and ``Data2VecAudioModel``.
 
 The port's parameter names are fairseq's, so:
 
@@ -416,12 +416,15 @@ def _jax_assignments(tree: Mapping[str, Any]
     """(JAX path, port key, transform) for a JAX ``Wav2Vec2AcousticModel``
     tree (the encoder body under ``encoder``, the CTC head ``proj``), a
     ``Wav2Vec2Model`` tree (the body at the top level, with the quantizer
-    and the two projections), a ``Seq2Seq`` tree (the body under
-    ``encoder``, the ``decoder``), a ``Transducer`` tree (the body under
-    ``encoder``, the ``predictor`` and the ``joint``, whose port modules
-    carry the JAX names) or the paired tree (``model``: the
-    audio tower's body under ``audio_encoder/encoder``, its reduction,
-    the text tower and the projections; ``loss``)."""
+    and the two projections), a ``HubertPretrainModel`` or
+    ``Data2VecAudioModel`` tree (the body at the top level with
+    ``final_proj``, HuBERT's ``label_embs`` as ``label_embs_concat``), a
+    ``Seq2Seq`` tree (the body under ``encoder``, the ``decoder``), a
+    ``Transducer`` tree (the body under ``encoder``, the ``predictor``
+    and the ``joint``, whose port modules carry the JAX names) or the
+    paired tree (``model``: the audio tower's body under
+    ``audio_encoder/encoder``, its reduction, the text tower and the
+    projections; ``loss``)."""
     if "model" in tree and "loss" in tree:
         model, audio = tree["model"], tree["model"]["audio_encoder"]
         out = _body_assignments(tree, ("model", "audio_encoder", "encoder"),
@@ -444,6 +447,15 @@ def _jax_assignments(tree: Mapping[str, Any]
             + _by_name_assignments(tree["predictor"], ("predictor",),
                                    "predictor.") \
             + _by_name_assignments(tree["joint"], ("joint",), "joint.")
+    if "feature_extractor" in tree and "quantizer" not in tree:
+        # HubertPretrainModel (the body, final_proj, label_embs) or
+        # Data2VecAudioModel (the body, final_proj), the teacher too
+        out = _body_assignments(tree, (), "")
+        out.append((("final_proj", "kernel"), "final_proj.weight", _t))
+        out.append((("final_proj", "bias"), "final_proj.bias", _same))
+        if "label_embs" in tree:
+            out.append((("label_embs",), "label_embs_concat", _same))
+        return out
     pretrain = "quantizer" in tree
     if not pretrain:
         out = _body_assignments(tree, ("encoder",), "encoder.")
@@ -489,11 +501,12 @@ def _opt_count(opt_state: Any):
 
 
 def params_from_jax(tree: Mapping[str, Any], opt_state: Any = None):
-    """JAX ``Wav2Vec2AcousticModel``, ``Wav2Vec2Model``, ``Seq2Seq`` or
-    ``Transducer`` params, or the paired ``{'model': ..., 'loss': ...}`` params (a
-    nested mapping of arrays, e.g. ``jax.tree.map(np.asarray, params)``)
-    -> the port's state dict (for the paired tree, a
-    ``models.dual_encoder.PairedModule``'s).
+    """JAX ``Wav2Vec2AcousticModel``, ``Wav2Vec2Model``,
+    ``HubertPretrainModel``, ``Data2VecAudioModel`` (a student or its EMA
+    teacher), ``Seq2Seq`` or ``Transducer`` params, or the paired
+    ``{'model': ..., 'loss': ...}`` params (a nested mapping of arrays,
+    e.g. ``jax.tree.map(np.asarray, params)``) -> the port's state dict
+    (for the paired tree, a ``models.dual_encoder.PairedModule``'s).
     Raises ``KeyError`` naming any JAX parameter left unmapped. An
     int8-quantized tree (JAX ``quantize_model_params``) gives the int8
     ``weight`` and ``weight_scale`` buffers of a model quantized with

@@ -210,11 +210,18 @@ class AudioTransformerEncoder(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 pad_mask: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                return_hiddens: bool = False):
         """Zero padded frames, the positional embedding and norm as the
         layout says, dropout, then the layers with ``pad_mask`` as the
-        attention key mask."""
+        attention key mask. ``return_hiddens``: ``(output, [each layer's
+        output])``, the per-layer outputs taken before the pre-norm
+        ``layer_norm`` (the data2vec teacher's); the conformer refuses it,
+        as the JAX encoder asserts."""
         cfg = self.config
+        if return_hiddens and cfg.encoder_type == "conformer":
+            raise ValueError("return_hiddens: transformer stack only")
+        hiddens = [] if return_hiddens else None
         if pad_mask is not None:
             x = torch.where(pad_mask[..., None], x, torch.zeros((), dtype=x.dtype,
                                                                 device=x.device))
@@ -241,9 +248,10 @@ class AudioTransformerEncoder(nn.Module):
                                        cfg.rel_pos_max_distance,
                                        self.compute_dtype)
         x = run_layers(self.layers, x, generator, cfg.layer_drop,
-                       cfg.remat, key_valid=pad_mask, mask=mask,
-                       position_bias=bias)
-        return self.layer_norm(x) if cfg.pre_norm else x
+                       cfg.remat, hiddens=hiddens, key_valid=pad_mask,
+                       mask=mask, position_bias=bias)
+        out = self.layer_norm(x) if cfg.pre_norm else x
+        return (out, hiddens) if return_hiddens else out
 
 
 def downsample_lengths(input_lengths: torch.Tensor, t_samples: int,

@@ -491,7 +491,8 @@ class TransformerEncoderLayer(nn.Module):
 
 
 def run_layers(layers, x, generator, layer_drop: float,
-               remat: bool = False, **kwargs):
+               remat: bool = False, hiddens: Optional[list] = None,
+               **kwargs):
     """The layers in order, under LayerDrop in training: every layer's
     keep decision is drawn before the first layer, as the JAX stack
     splits its key (``jax.random.bernoulli`` with ``1 - layer_drop``); a
@@ -505,7 +506,10 @@ def run_layers(layers, x, generator, layer_drop: float,
     ``num_seeds()`` seeds are drawn before it runs, and the forward and
     the recompute each take them from a fresh ``SeedReplay``: both apply
     the same dropout masks, and the generator's stream ends where a
-    plain step leaves it."""
+    plain step leaves it.
+
+    ``hiddens``: a list that gets each layer's output appended (a
+    dropped layer's input), the JAX stack's ``return_hiddens``."""
     keeps = None
     if generator is not None and layer_drop > 0.0:
         keeps = [draw_keep(generator, 1.0 - layer_drop) for _ in layers]
@@ -513,6 +517,8 @@ def run_layers(layers, x, generator, layer_drop: float,
         if keeps is not None and not keeps[i]:
             for _ in range(layer.num_seeds()):
                 draw_seed(generator)
+            if hiddens is not None:
+                hiddens.append(x)
             continue
         if remat and generator is not None and torch.is_grad_enabled():
             seeds = [draw_seed(generator) for _ in range(layer.num_seeds())]
@@ -520,6 +526,8 @@ def run_layers(layers, x, generator, layer_drop: float,
                 _replayed, layer, seeds, x, use_reentrant=False, **kwargs)
         else:
             x = layer(x, generator=generator, **kwargs)
+        if hiddens is not None:
+            hiddens.append(x)
     return x
 
 

@@ -1,8 +1,12 @@
 """Checkpoints of the port's trainers.
 
-A CTC or pretraining checkpoint is a fairseq-layout ``.pt``
-(``{base}-step-N.pt``, ``models/convert.py``), which the JAX package
-reads with ``load_fairseq_bin``; a seq2seq, paired or transducer one is
+A CTC, pretraining, HuBERT or data2vec checkpoint is a fairseq-layout
+``.pt`` (``{base}-step-N.pt``, ``models/convert.py``; HuBERT's and
+data2vec's carry fairseq's head names, ``final_proj`` and
+``label_embs_concat``), which the JAX package reads with
+``load_fairseq_bin``; data2vec also writes its EMA teacher beside the
+student as ``teacher-step-N.pt`` (the same layout, no resume file;
+:func:`load_teacher`); a seq2seq, paired or transducer one is
 the port's own ``.pt``, ``{"kind": kind, "model": state_dict}`` (no
 fairseq layout holds a decoder, a text tower or a predictor). Beside each is a resume file
 (``{base}-step-N.resume``, torch state dicts) that holds what a
@@ -21,12 +25,15 @@ from typing import Optional, Tuple
 
 import torch
 
-from audio8_tpu_torch.models.convert import (save_fairseq_ctc,
+from audio8_tpu_torch.models.convert import (load_fairseq_pretrained,
+                                             save_fairseq_ctc,
                                              save_fairseq_pretrained)
 
 RESUME_SUFFIX = ".resume"
-KINDS = ("ctc", "pretrain", "seq2seq", "paired", "transducer")
-FAIRSEQ_KINDS = ("ctc", "pretrain")
+KINDS = ("ctc", "pretrain", "hubert", "data2vec", "seq2seq", "paired",
+         "transducer")
+FAIRSEQ_KINDS = ("ctc", "pretrain", "hubert", "data2vec")
+TEACHER_BASE = "teacher"
 
 
 def parse_checkpoint_step(path: str) -> int:
@@ -35,11 +42,11 @@ def parse_checkpoint_step(path: str) -> int:
     return int(m.group(1)) if m else 0
 
 
-def find_latest_checkpoint(ckpt_dir: str) -> Tuple[str, int]:
-    """The latest ``checkpoint-step-N.pt`` under ``ckpt_dir`` -> (path,
-    N)."""
+def find_latest_checkpoint(ckpt_dir: str, base: str = "checkpoint"
+                           ) -> Tuple[str, int]:
+    """The latest ``{base}-step-N.pt`` under ``ckpt_dir`` -> (path, N)."""
     best, best_step = None, -1
-    pat = re.compile(r"checkpoint-step-(\d+)\.pt$")
+    pat = re.compile(re.escape(base) + r"-step-(\d+)\.pt$")
     for name in os.listdir(ckpt_dir):
         m = pat.match(name)
         if m and int(m.group(1)) > best_step:
@@ -77,6 +84,25 @@ def save_checkpoint(state, path: str, kind: str) -> str:
             blob[key] = {n: m.detach().cpu()
                          for n, m in zip(state.names, getattr(opt, key))}
     torch.save(blob, resume_path(path))
+    return path
+
+
+def load_teacher(teacher: torch.nn.Module,
+                 restart_from: str) -> Optional[str]:
+    """Load the latest ``teacher-step-N.pt`` beside ``restart_from`` (a
+    run's directory or a checkpoint in it) into ``teacher``, as the JAX
+    entry point's ``find_latest_checkpoint(..., base="teacher")`` restores it;
+    returns its path, or ``None`` when there is none (the teacher then
+    stays the student's copy)."""
+    directory = (restart_from if os.path.isdir(restart_from)
+                 else os.path.dirname(restart_from))
+    try:
+        path, _ = find_latest_checkpoint(directory or ".", TEACHER_BASE)
+    except (FileNotFoundError, OSError):
+        return None
+    state = load_fairseq_pretrained(path)
+    teacher.load_state_dict({k: state[k].to(v.dtype) for k, v in
+                             teacher.state_dict().items()}, strict=True)
     return path
 
 

@@ -1,7 +1,9 @@
-"""The step factories of CTC fine-tuning, contrastive pretraining,
-seq2seq, paired pretraining and RNN-T (``audio8_tpu/train/steps.py``:
-``make_ctc_steps``, ``make_pretrain_steps``, ``make_seq2seq_steps``,
-``make_paired_steps``, ``make_transducer_steps``).
+"""The step factories of CTC fine-tuning, contrastive pretraining, HuBERT
+and data2vec pretraining, seq2seq, paired pretraining and RNN-T
+(``audio8_tpu/train/steps.py``: ``make_ctc_steps``,
+``make_pretrain_steps``, ``make_hubert_steps``, ``make_data2vec_steps``,
+``make_seq2seq_steps``, ``make_paired_steps``,
+``make_transducer_steps``).
 
 CTC: ``grad_fn`` runs one forward and backward and returns the summed loss,
 one gradient per parameter (zeros for parameters that got none, as JAX
@@ -18,6 +20,12 @@ norm 1.0 and steps (no 1/B scaling: the loss is a slot average);
 and the quantizer's argmax. Both take the step's seeds
 (``models.wav2vec2.PretrainSeeds``) as an argument, as the JAX steps
 take their rng.
+
+HuBERT and data2vec: the pretraining step's shape (a clipped step at
+norm 1.0 on a frame-averaged loss, explicit mask seeds). HuBERT's batches
+are the supervised pipeline's with frame cluster ids; data2vec steps the
+student, then moves the teacher by the EMA at the new step's decay
+(``audio8_tpu/train/steps.py:276-282``).
 
 Seq2seq: teacher forcing shifts the targets (``token_ids[:, :-1]`` in,
 ``token_ids[:, 1:]`` scored by :func:`sequence_loss`), the decoder
@@ -42,6 +50,10 @@ import numpy as np
 import torch
 
 from audio8_tpu_torch.config import END_TEMP, START_TEMP, TEMP_DECAY_FACTOR
+from audio8_tpu_torch.models.data2vec import (data2vec_loss,
+                                              data2vec_targets,
+                                              ema_decay_schedule, ema_update)
+from audio8_tpu_torch.models.hubert import hubert_pretrain_loss
 from audio8_tpu_torch.models.wav2vec2 import wav2vec2_pretrain_loss
 from audio8_tpu_torch.ops.ctc import ctc_loss
 from audio8_tpu_torch.ops.transducer import transducer_loss
@@ -199,6 +211,92 @@ def make_pretrain_steps(model, clip: float = 1.0, n_negatives: int = 100):
                                  temperature=temperature(step))
         return wav2vec2_pretrain_loss(c, t, ppl, valid, seeds.negatives,
                                       n_vars, n_negatives)
+
+    return train_step, eval_step
+
+
+def _step_grads(model, state, loss, clip: float):
+    """Backward, every parameter's gradient (zeros where none arrived),
+    then one clipped optimizer step; returns the global norm."""
+    loss.backward()
+    return state.apply_gradients(_take_grads(model), clip_norm=clip)
+
+
+def make_hubert_steps(model, clip: float = 1.0):
+    """Returns ``(train_step, eval_step)`` for HuBERT masked-prediction
+    pretraining of a ``models.hubert.HubertPretrainModel``.
+    ``train_step(state, batch, seeds, generator)`` steps the
+    :class:`~audio8_tpu_torch.train.optim.TrainState` (the loss is a frame
+    average: no 1/B scaling) and returns ``(state, metrics)``;
+    ``eval_step(batch, seeds)`` returns ``(loss, metrics)`` with the time
+    mask still drawn. Batches are the supervised pipeline's dicts with
+    ``token_ids`` the frame cluster ids (``TGT_KM``, padded -1); a padding
+    row (``signal_lengths == 0``) has an empty pad mask and adds
+    nothing."""
+    cfg = model.config
+
+    def loss_of(batch, seeds, generator):
+        logits, time_mask, pad_mask = model(
+            batch["signal"], batch["signal_lengths"], seeds,
+            generator=generator)
+        return hubert_pretrain_loss(
+            logits, time_mask, pad_mask, batch["token_ids"],
+            batch["token_lengths"], cfg.pred_masked_weight,
+            cfg.pred_unmasked_weight)
+
+    def train_step(state, batch, seeds, generator):
+        for p in model.parameters():
+            p.grad = None
+        loss, metrics = loss_of(batch, seeds, generator)
+        gnorm = _step_grads(model, state, loss, clip)
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        return state, dict(metrics, loss=loss.detach(), grad_norm=gnorm)
+
+    @torch.no_grad()
+    def eval_step(batch, seeds):
+        return loss_of(batch, seeds, None)
+
+    return train_step, eval_step
+
+
+def make_data2vec_steps(model, teacher, clip: float = 1.0):
+    """Returns ``(train_step, eval_step)`` for data2vec masked regression
+    of a ``models.data2vec.Data2VecAudioModel`` (the student) against
+    ``teacher``, a module of the same config (at the start a copy of the
+    student). ``train_step(state, batch, mask_seed, generator)`` runs the
+    teacher under ``torch.no_grad()`` in evaluation mode (no dropout, no
+    LayerDrop, no mask) for the targets, steps the student, then moves the
+    teacher by the EMA with the decay at the new step; it returns
+    ``(state, metrics)``. ``eval_step(batch, mask_seed)`` returns ``(loss,
+    metrics)``."""
+    cfg = model.config
+    student_params = list(model.parameters())
+    teacher_params = list(teacher.parameters())
+
+    def loss_of(batch, mask_seed, generator):
+        signal, lengths = batch["signal"], batch.get("signal_lengths")
+        with torch.no_grad():
+            hiddens, _, _ = teacher(signal, lengths, collect_hiddens=True)
+            target = data2vec_targets(hiddens, cfg.average_top_k_layers)
+        pred, time_mask, pad_mask = model(signal, lengths, mask_seed,
+                                          generator=generator)
+        return data2vec_loss(pred, target, time_mask, pad_mask)
+
+    def train_step(state, batch, mask_seed, generator):
+        for p in model.parameters():
+            p.grad = None
+        loss, metrics = loss_of(batch, mask_seed, generator)
+        gnorm = _step_grads(model, state, loss, clip)
+        decay = ema_decay_schedule(state.step, cfg.ema_decay,
+                                   cfg.ema_end_decay, cfg.ema_anneal_steps)
+        ema_update(teacher_params, student_params, decay)
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        return state, dict(metrics, loss=loss.detach(), grad_norm=gnorm,
+                           ema_decay=decay)
+
+    @torch.no_grad()
+    def eval_step(batch, mask_seed):
+        return loss_of(batch, mask_seed, None)
 
     return train_step, eval_step
 

@@ -3,14 +3,15 @@
 
 Drives the port's serving path, its CTC fine-tuning path, its
 contrastive pretraining path, its seq2seq path, its paired audio-text
-path and its RNN-T path (training, decoding, streaming, serving, eval
-and export) at full wav2vec2-base width with seeded random weights, the
-trainers' remat, SGD, augmentation and profiler flags, KenLM binaries
-written by the port and the text tower's warm start, the
-pretraining path again through the attention block
-(``fused_attention="block"``), the public large layouts (LV-60, HuBERT,
-data2vec, WavLM, conformer) and HuggingFace checkpoints, and holds every
-hand-written kernel against its plain PyTorch version. Phases, each printing JSON lines:
+path, its RNN-T path (training, decoding, streaming, serving, eval
+and export) and its HuBERT and data2vec pretraining paths at full
+wav2vec2-base width with seeded random weights, the trainers' remat,
+SGD, augmentation and profiler flags, KenLM binaries written by the port
+and the text tower's warm start, the pretraining path again through the
+attention block (``fused_attention="block"``), the public large layouts
+(LV-60, HuBERT, data2vec, WavLM, conformer) and HuggingFace checkpoints,
+and holds every hand-written kernel against its plain PyTorch version.
+Phases, each printing JSON lines:
 
 1. build    - compile the CUDA kernels from ``audio8_tpu_torch/csrc``,
               with each kernel's registers and spills from ptxas;
@@ -295,6 +296,28 @@ instead, to compare.
               test (tokens equal the live model's); greedy ms per
               utterance and audio-s/s at (4, 30 s) and beam ms per
               utterance;
+20. ssl     - HuBERT and data2vec pretraining at full width on a corpus of
+              its own: ``cli.cluster_targets`` (MFCC k-means targets on the
+              host, then iteration 2: layer 6 of a random base HuBERT
+              ``.pt`` on the card, two clips' ids recomputed from CPU
+              features, equal but near ties); one step of each objective
+              card vs CPU on two rows of 3.0 and 2.6 s (HuBERT f32 loss
+              1e-4, gradient norm 1e-3, masked accuracy equal but argmax
+              near ties, then bf16 5e-3; data2vec-base f32 with the EMA
+              teacher after the step within 1e-6 of its largest weight);
+              bench_hubert's step ((8, 163 920), T' 512, 100 clusters,
+              AdamW) of each objective in f32 and bf16 in turns (wall and
+              device ms, idle share, peak memory, audio-s/s), its
+              launches held to the code's prediction first; kernels 2,
+              2b, 3, 3b, 3c, 4 and 5 against their plain versions at those
+              steps' shapes; then ``cli.pretrain_hubert`` for 2 steps from
+              the ``.km`` files, ``cli.train --restart_from`` its
+              checkpoint for 2 CTC steps (kernel 1; every encoder weight
+              the HuBERT checkpoint's after the run), and
+              ``cli.pretrain_data2vec --preset data2vec-base`` for 2 steps
+              and a restart whose teacher is bitwise the saved one (the
+              three on SGD, whose checkpoints carry no moments); the
+              bytes the phase wrote;
 
 then a ``phase_seconds`` line (each phase's wall seconds and each phase's
 retried profiler traces, ``trace_retries``), a ``kernels``
@@ -315,6 +338,7 @@ card it exits with code 2 and prints no result.
     python3 chip_smoke.py --host-timing      # the wrappers' host cost
     python3 chip_smoke.py --trainer-phases   # the build and phase 18 only
     python3 chip_smoke.py --transducer-phases  # the build and phase 19 only
+    python3 chip_smoke.py --ssl-phases       # the build and phase 20 only
 
 ``--block-timing`` builds the block's two sources and prints only the
 attention block's timing rows (phase 14) in float32 and bfloat16, then
@@ -345,7 +369,8 @@ tree (two trees in turns in one call).
 (it writes the train phase's corpus, the serve phase's ARPA and the
 paired corpus itself). ``--transducer-phases`` runs the build and phase
 19 alone (it writes the train phase's corpus and warm-starts from a
-random CTC model's ``.pt``).
+random CTC model's ``.pt``). ``--ssl-phases`` runs the build and phase
+20 alone and ends with the last line of a full run.
 ``--freeze-timing`` times the frozen seq2seq and paired steps at full
 width (random weights) in float32 and bfloat16 two ways, in turns: as
 the port runs them, a frozen tower under ``torch.no_grad()``, and with
@@ -6463,29 +6488,42 @@ def rnnt_sources(tmp: str, seed: int) -> tuple:
     return corpus, ckpt
 
 
-def encoder_dropouts(cfg) -> int:
-    """The encoder's hash-dropout calls in one training forward, counted
-    on a copy at width 32 with the same layers and rates on the CPU:
-    what the code predicts kernel 4's launches per forward to be."""
-    import dataclasses
-
+def counted_dropouts(run) -> int:
+    """The hash-dropout calls ``run()`` makes (a training forward of a
+    copy at width 32 on the CPU): what the code predicts kernel 4's
+    launches per forward to be."""
     import audio8_tpu_torch.nn.dropout as nn_dropout
-    from audio8_tpu_torch.models.wav2vec2 import Wav2Vec2Encoder
 
-    small = dataclasses.replace(cfg, d_model=32, num_heads=2, d_ff=64,
-                                custom_conv_features=((32, 10, 5),
-                                                      (32, 3, 2)),
-                                timestep_masking=0.0, channel_masking=0.0)
     calls, real = [], nn_dropout.fused_dropout
     nn_dropout.fused_dropout = lambda x, r, s: calls.append(1) or real(
         x, r, s)
     try:
-        Wav2Vec2Encoder(small)(torch.zeros(2, 400),
-                               torch.tensor([400, 300]),
-                               torch.Generator().manual_seed(0))
+        with torch.no_grad():
+            run()
     finally:
         nn_dropout.fused_dropout = real
     return len(calls)
+
+
+def small_copy(cfg, **over):
+    """``cfg`` at width 32 with a two-layer 32-channel extractor: the same
+    layers and rates, cheap on the CPU."""
+    import dataclasses
+
+    return dataclasses.replace(cfg, d_model=32, num_heads=2, d_ff=64,
+                               custom_conv_features=((32, 10, 5),
+                                                     (32, 3, 2)), **over)
+
+
+def encoder_dropouts(cfg) -> int:
+    """The encoder's hash-dropout calls in one training forward."""
+    from audio8_tpu_torch.models.wav2vec2 import Wav2Vec2Encoder
+
+    model = Wav2Vec2Encoder(small_copy(cfg, timestep_masking=0.0,
+                                       channel_masking=0.0))
+    return counted_dropouts(lambda: model(
+        torch.zeros(2, 400), torch.tensor([400, 300]),
+        torch.Generator().manual_seed(0)))
 
 
 def rnnt_train(tmp: str, corpus: str, ckpt: str) -> dict:
@@ -7106,6 +7144,566 @@ def transducer_timing(gen) -> int:
     return 0
 
 
+SSL_PATH = ("conv_k3s2_fwd", "conv_k3s2_dgrad", "conv_k3s2_wgrad",
+            "attention_fwd", "attention_bwd", "dropout", "adamw")
+# bench.py:bench_hubert's step: rows, samples (T' 512), clusters
+SSL_BENCH = (8, 163_920, 100)
+SSL_VS_CPU = (48_000, 41_000)  # the card-vs-CPU steps' two rows
+SSL_FEATURE_LAYER = 6  # iteration 2 clusters layer 6 of a base model
+SSL_CPU_CLIPS = 2  # the iteration-2 clips whose ids the CPU recomputes
+SSL_TIE_RTOL = 1e-3  # a k-means near tie: two distances this close
+EMA_RTOL = 1e-6  # the teacher after one EMA, card vs CPU
+SSL_CLI = ["--device", "cuda", "--warmup_steps", "1", "--valid_steps", "1",
+           "--num_train_workers", "4", "--train_steps", "2",
+           "--steps_per_checkpoint", "2", "--optim", "sgd"]
+SSL_SIZE: list = []  # the models' size flags: the defaults, full width
+# the data2vec-base preset's layout
+D2V_TOPOLOGY = {"extractor_mode": "layer", "pos_conv_depth": 5,
+                "conv_pos_kernel": 19}
+
+
+def tree_bytes(*dirs: str) -> int:
+    """The bytes of every file under ``dirs``."""
+    return sum(os.path.getsize(os.path.join(d, f)) for top in dirs
+               for d, _, files in os.walk(top) for f in files)
+
+
+def ssl_configs() -> dict:
+    """Full width: HuBERT base (``HubertPretrainConfig()``: 768 wide, 12
+    heads, 12 layers, d_ff 3072, 100 clusters, final_dim 256) and
+    data2vec-base (the same widths, the layer-norm extractor and five
+    stacked positional convs of k 19)."""
+    from audio8_tpu_torch.config import (Data2VecPretrainConfig,
+                                         HubertPretrainConfig)
+
+    return {"hubert": HubertPretrainConfig(),
+            "data2vec": Data2VecPretrainConfig(**D2V_TOPOLOGY)}
+
+
+def ssl_model(kind: str, cfg, dtype, device: str, weights=None,
+              seed: int = 0):
+    """``kind``'s model of ``cfg`` with ``weights`` or the JAX init drawn
+    from ``seed``."""
+    from audio8_tpu_torch.models.data2vec import Data2VecAudioModel
+    from audio8_tpu_torch.models.hubert import HubertPretrainModel
+
+    cls = HubertPretrainModel if kind == "hubert" else Data2VecAudioModel
+    if weights is None:
+        return cls(cfg, dtype, torch.Generator().manual_seed(seed)).to(
+            device)
+    model = cls(cfg, dtype)
+    model.load_state_dict(weights)
+    return model.to(device)
+
+
+def ssl_batch(seed: int, lengths, clusters: int) -> dict:
+    """Rows of ``lengths`` samples (padded to the longest) and one random
+    cluster id per frame of each row's conv grid (-1 after)."""
+    from audio8_tpu_torch.config import CONV_FEATURES, conv_output_length
+
+    rng = np.random.default_rng(seed)
+    lengths = np.asarray(lengths)
+    sig = np.zeros((len(lengths), lengths.max()), np.float32)
+    for i, n in enumerate(lengths):
+        sig[i, :n] = synthetic_speechlike((n + 1) / SR, rng)[:n]
+    u = np.array([conv_output_length(int(n), CONV_FEATURES[16])
+                  for n in lengths])
+    ids = np.full((len(lengths), u.max()), -1, np.int32)
+    for i, n in enumerate(u):
+        ids[i, :n] = rng.integers(0, clusters, size=n)
+    return {"signal": torch.from_numpy(sig),
+            "signal_lengths": torch.from_numpy(lengths.astype(np.int32)),
+            "token_ids": torch.from_numpy(ids),
+            "token_lengths": torch.from_numpy(u.astype(np.int32))}
+
+
+def ssl_steps(kind: str, model, teacher=None):
+    """One call of ``kind``'s train step as ``step(state, batch, seed)``,
+    its seeds drawn from a fresh generator of ``seed``."""
+    from audio8_tpu_torch.models.hubert import HubertSeeds
+    from audio8_tpu_torch.ops.hashrand import draw_seed
+    from audio8_tpu_torch.train.steps import (make_data2vec_steps,
+                                              make_hubert_steps)
+
+    if kind == "hubert":
+        train_step, _ = make_hubert_steps(model)
+
+        def step(state, batch, seed):
+            gen = torch.Generator().manual_seed(seed)
+            return train_step(state, batch, HubertSeeds.draw(gen), gen)
+    else:
+        train_step, _ = make_data2vec_steps(model, teacher)
+
+        def step(state, batch, seed):
+            gen = torch.Generator().manual_seed(seed)
+            return train_step(state, batch, draw_seed(gen), gen)
+    return step
+
+
+def ssl_state(model):
+    from audio8_tpu_torch.train.optim import (TrainState, create_lrs,
+                                              create_optimizer)
+
+    return TrainState(model, create_optimizer(create_lrs(
+        2e-5, 100, "constant", warmup_steps=0), weight_decay=0.01))
+
+
+def ssl_predicted(kind: str, cfg) -> dict:
+    """Each kernel's launches in one unfrozen training step, as the code
+    predicts them: kernel 2 once a layer (twice for data2vec: the
+    teacher's forward and the student's), 2b once a layer, 3 once a k3s2
+    layer (twice for data2vec), 3b and 3c once a k3s2 layer (the
+    extractor trains), 4 once for every dropout the student's forward
+    draws (counted on a copy at width 32 on the CPU; the teacher draws
+    none) and once more in its backward, 5 once."""
+    from audio8_tpu_torch.models.hubert import HubertSeeds
+
+    model = ssl_model(kind, small_copy(cfg), torch.float32, "cpu")
+    seeds = HubertSeeds(1, 2) if kind == "hubert" else 1
+    drops = counted_dropouts(lambda: model(
+        torch.zeros(2, 4000), torch.tensor([4000, 3000]), seeds,
+        generator=torch.Generator().manual_seed(0)))
+    k3s2 = sum(1 for _, k, s in cfg.conv_features if (k, s) == (3, 2))
+    fwd = 2 if kind == "data2vec" else 1
+    return {"conv_k3s2_fwd": fwd * k3s2, "conv_k3s2_dgrad": k3s2,
+            "conv_k3s2_wgrad": k3s2, "attention_fwd": fwd * cfg.num_layers,
+            "attention_bwd": cfg.num_layers, "dropout": 2 * drops,
+            "adamw": 1}
+
+
+def ssl_targets(tmp: str, corpus: str, cfg, seed: int) -> dict:
+    """``cli.cluster_targets`` on the corpus: MFCC targets (the ``.km``
+    files HuBERT trains on), then iteration 2 on a copy of the manifests:
+    layer SSL_FEATURE_LAYER of a random base HuBERT model's ``.pt`` on the
+    card, whose ids on SSL_CPU_CLIPS validation clips are recomputed from
+    CPU features of the same weights (the same centroids): equal, or the
+    card's choice within SSL_TIE_RTOL of the CPU's best distance."""
+    import shutil
+
+    from audio8_tpu_torch.cli import cluster_targets
+    from audio8_tpu_torch.config import CONV_FEATURES, conv_output_length
+    from audio8_tpu_torch.data.audio import SoundfileAudioReader
+    from audio8_tpu_torch.models.convert import save_fairseq_pretrained
+
+    def km_lines(root, split):
+        with open(os.path.join(root, f"{split}.tsv")) as fh:
+            audio_root, *rows = fh.read().splitlines()
+        with open(os.path.join(root, f"{split}.km")) as fh:
+            lines = fh.read().splitlines()
+        for row, line in zip(rows, lines, strict=True):
+            n = int(row.split("\t")[1])
+            check(len(line.split()) == conv_output_length(
+                n, CONV_FEATURES[16]), f"{split}.km: {row} ids off the grid")
+        return audio_root, rows, lines
+
+    out = {}
+    t0 = time.perf_counter()
+    check(cluster_targets.main(["--root_dir", corpus, "--manifests",
+                                "train.tsv", "valid.tsv"]) == 0,
+          "cluster_targets (MFCC) failed")
+    out["mfcc_s"] = time.perf_counter() - t0
+    for split in ("train", "valid"):
+        _, rows, lines = km_lines(corpus, split)
+        out[f"mfcc_{split}_frames"] = sum(len(x.split()) for x in lines)
+    out["mfcc_clusters_used"] = len({i for split in ("train", "valid")
+                                     for line in km_lines(corpus, split)[2]
+                                     for i in line.split()})
+
+    it2 = os.path.join(tmp, "ssl_it2")
+    os.makedirs(it2)
+    for name in ("train.tsv", "valid.tsv"):
+        shutil.copy(os.path.join(corpus, name), it2)
+    ckpt = os.path.join(tmp, "ssl_random_hubert.pt")
+    save_fairseq_pretrained(ssl_model("hubert", cfg, torch.float32, "cpu",
+                                      seed=seed + 60), ckpt)
+    argv = ["--root_dir", it2, "--manifests", "train.tsv", "valid.tsv",
+            "--checkpoint", ckpt, "--feature_layer",
+            str(SSL_FEATURE_LAYER), *SSL_SIZE]
+    t0 = time.perf_counter()
+    check(cluster_targets.main(argv) == 0, "cluster_targets (layer 6) "
+          "failed")
+    out["layer_s"] = time.perf_counter() - t0
+    audio_root, rows, lines = km_lines(it2, "valid")
+    cents = np.load(os.path.join(it2, "train.centroids.npy")).astype(
+        np.float64)
+    featurize = cluster_targets.make_model_featurizer(
+        cluster_targets.parse_args(argv + ["--device", "cpu"]),
+        torch.device("cpu"))
+    reader = SoundfileAudioReader()
+    short = sorted(range(len(rows)),
+                   key=lambda i: int(rows[i].split("\t")[1]))[:SSL_CPU_CLIPS]
+    frames = agree = ties = 0
+    worst_gap = 0.0
+    for i in short:
+        feats = featurize(reader.read(os.path.join(
+            audio_root, rows[i].split("\t")[0])).squeeze()).astype(
+                np.float64)
+        card = np.array([int(v) for v in lines[i].split()])
+        d = ((feats[:, None, :] - cents[None]) ** 2).sum(-1)
+        cpu = d.argmin(-1)
+        frames += len(card)
+        agree += int((card == cpu).sum())
+        for f in np.flatnonzero(card != cpu):
+            gap = (d[f, card[f]] - d[f, cpu[f]]) / d[f, cpu[f]]
+            worst_gap = max(worst_gap, float(gap))
+            ties += int(gap <= SSL_TIE_RTOL)
+    out.update({"layer_cpu_frames": frames, "layer_agreement": agree / frames,
+                "layer_near_ties": ties, "layer_worst_gap": worst_gap,
+                "tie_rtol": SSL_TIE_RTOL})
+    check(agree + ties == frames and agree / frames >= CODE_AGREEMENT,
+          f"iteration-2 ids card vs CPU: {agree}/{frames} equal, {ties} "
+          "near ties")
+    return out, ckpt
+
+
+def ssl_vs_cpu(kind: str, cfg, weights: dict, seed: int) -> dict:
+    """One full-width training step (dropout and masks on, the seeds of
+    one generator seed on both sides) on two rows of 3.0 and 2.6 s, card
+    and CPU from the same weights: in f32 the loss within TRAIN_LOSS_RTOL
+    and the gradient norm within TRAIN_GNORM_RTOL; HuBERT's masked
+    accuracy may differ only where the CPU's logits are within
+    TIE_MARGIN of a tie, and a bf16 step follows (BF16_LOSS_RTOL,
+    TOL[bf16]); data2vec's EMA teacher after the step within EMA_RTOL of
+    the CPU's, relative to its largest weight."""
+    import copy
+
+    from audio8_tpu_torch.models.hubert import HubertSeeds
+
+    batch = ssl_batch(seed + 61, SSL_VS_CPU, cfg.num_clusters
+                      if kind == "hubert" else 2)
+    dtypes = ((torch.float32, torch.bfloat16) if kind == "hubert"
+              else (torch.float32,))
+    out = {"rows_s": [n / SR for n in SSL_VS_CPU]}
+    for dt in dtypes:
+        res = {}
+        for dev in ("cuda", "cpu"):
+            model = ssl_model(kind, cfg, dt, dev, weights)
+            b = {k: v.to(dev) for k, v in batch.items()}
+            teacher = None
+            if kind == "data2vec":
+                teacher = copy.deepcopy(model).requires_grad_(False)
+                del b["token_ids"], b["token_lengths"]
+            logits = None
+            if kind == "hubert" and dt == torch.float32:
+                gen = torch.Generator().manual_seed(seed + 62)
+                with torch.no_grad():
+                    logits, tm, _ = model(b["signal"], b["signal_lengths"],
+                                          HubertSeeds.draw(gen), gen)
+                logits = (logits.float().cpu(), tm.cpu())
+            state = ssl_state(model)
+            _, m = ssl_steps(kind, model, teacher)(state, b, seed + 62)
+            res[dev] = ({k: float(v) for k, v in m.items()}, logits,
+                        None if teacher is None else
+                        {k: v.float().cpu() for k, v in
+                         teacher.state_dict().items()})
+            del model, state, teacher
+        (m_g, lg_g, t_g), (m_c, lg_c, t_c) = res["cuda"], res["cpu"]
+        name = str(dt).split(".")[1]
+        lt, nt = ((TRAIN_LOSS_RTOL, TRAIN_GNORM_RTOL) if dt == torch.float32
+                  else (BF16_LOSS_RTOL, TOL[torch.bfloat16]))
+        row = {"loss": [m_g["loss"], m_c["loss"]],
+               "gnorm": [m_g["grad_norm"], m_c["grad_norm"]],
+               "loss_rel_err": rel(m_g["loss"], m_c["loss"]),
+               "loss_rtol": lt,
+               "gnorm_rel_err": rel(m_g["grad_norm"], m_c["grad_norm"]),
+               "gnorm_rtol": nt, "n_masked": [m_g["n_masked"],
+                                               m_c["n_masked"]]}
+        check(row["loss_rel_err"] <= lt,
+              f"{kind} {name} step loss card vs CPU {row['loss_rel_err']}")
+        check(row["gnorm_rel_err"] <= nt,
+              f"{kind} {name} step gnorm card vs CPU {row['gnorm_rel_err']}")
+        check(m_g["n_masked"] == m_c["n_masked"],
+              f"{kind} {name}: masked frames differ")
+        if lg_g is not None:
+            (g, tm), (c, _) = lg_g, lg_c
+            diff = (g.argmax(-1) != c.argmax(-1)) & tm
+            gap = (c.max(-1).values - c.gather(
+                -1, g.argmax(-1, keepdim=True))[..., 0])[diff]
+            ties = int((gap <= TIE_MARGIN).sum())
+            row.update({"acc_masked": [m_g["acc_masked"],
+                                       m_c["acc_masked"]],
+                        "argmax_differs": int(diff.sum()),
+                        "near_ties": ties, "tie_margin": TIE_MARGIN})
+            check(ties == int(diff.sum()), f"hubert: {int(diff.sum())} "
+                  f"argmax changes, {ties} near ties")
+            check(abs(m_g["acc_masked"] - m_c["acc_masked"])
+                  * m_c["n_masked"] <= ties + 1e-3,
+                  "hubert: masked accuracy card vs CPU")
+        if t_g is not None:
+            # relative to the teacher's largest weight: a zero-initialised
+            # bias holds only (1 - decay) times one update after a step
+            err = max(float((t_g[k] - t_c[k]).abs().max()) for k in t_c)
+            scale = max(float(t_c[k].abs().max()) for k in t_c)
+            row.update({"ema_decay": m_g["ema_decay"],
+                        "teacher_max_abs_err": err, "teacher_scale": scale,
+                        "teacher_rel_err": err / scale,
+                        "teacher_rtol": EMA_RTOL})
+            check(m_g["ema_decay"] == m_c["ema_decay"], "ema decay")
+            check(err / scale <= EMA_RTOL,
+                  f"data2vec teacher card vs CPU {err} of {scale}")
+        emit({"phase": f"ssl_{kind}_vs_cpu", name: row})
+        out[name] = row
+        torch.cuda.empty_cache()
+    return out
+
+
+def ssl_timing(kind: str, cfg, weights: dict, seed: int) -> tuple:
+    """bench_hubert's step ((8, 163 920) samples, T' 512, 100 clusters,
+    AdamW, the recipe's dropouts and masks) of ``kind`` in f32 and bf16 in
+    turns (f32, bf16, bf16, f32): wall ms, peak memory and audio-s/s, and
+    in the first turn of each dtype the device ms and idle share of a
+    trace; first one f32 step with the launches counted (against
+    :func:`ssl_predicted`) and the path's calls recorded. Returns the
+    timings, the launches and the path's calls."""
+    import copy
+
+    rows, samples, clusters = SSL_BENCH
+    batch = {k: v.cuda() for k, v in ssl_batch(
+        seed + 63, [samples] * rows, clusters).items()}
+    if kind == "data2vec":  # dense rows, as its entry point batches them
+        batch = {"signal": batch["signal"], "signal_lengths": None}
+    runs = {}
+    for dt in (torch.float32, torch.bfloat16):
+        model = ssl_model(kind, cfg, dt, "cuda", weights)
+        teacher = (copy.deepcopy(model).requires_grad_(False)
+                   if kind == "data2vec" else None)
+        runs[dt] = (model, ssl_state(model), ssl_steps(kind, model, teacher))
+    model, state, step = runs[torch.float32]
+    predicted = ssl_predicted(kind, cfg)
+    calls = {}
+    reset_launches()
+    with recorded_path_calls(calls):
+        step(state, batch, seed)
+    torch.cuda.synchronize()
+    launches = {k: n for k, n in read_launches().items() if k in SSL_PATH}
+    check(launches == predicted, f"{kind} step launches {launches} "
+          f"against the prediction {predicted}")
+    params = [tuple(p.shape) for p in model.parameters()]
+    audio_s = rows * samples / SR
+    out = {"shape": [rows, samples], "clusters": clusters}
+    for turn, dt in enumerate((torch.float32, torch.bfloat16,
+                               torch.bfloat16, torch.float32)):
+        model, state, step = runs[dt]
+
+        def step_fn(st, flags, step=step):
+            step(st, batch, seed + turn)
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated() / 1e9  # both dtypes' runs
+        t = step_timings(state, step_fn, {"step": {}},
+                         n=3)["step"] if turn < 2 else {"wall_ms": []}
+        if turn >= 2:
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                step_fn(state, {})
+                torch.cuda.synchronize()
+                t["wall_ms"].append((time.perf_counter() - t0) * 1e3)
+        t["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        t["resident_gb"] = resident
+        t["audio_s_per_s"] = audio_s / (float(np.median(t["wall_ms"]))
+                                        / 1e3)
+        out.setdefault(str(dt).split(".")[1], []).append(t)
+    del runs, model, state, step
+    torch.cuda.empty_cache()
+    return out, launches, predicted, calls, params
+
+
+def ssl_kernels(calls: dict, params: list, gen) -> dict:
+    """Kernels 2, 2b, 3, 4 and 5 (:func:`phase_path_kernels`) and 3b and
+    3c (each recorded k3s2 layer's input) against their plain versions at
+    the shapes the timed HuBERT and data2vec steps gave them, float32 and
+    bfloat16; returns the float32 max errors."""
+    worst = phase_path_kernels("ssl", path_shapes(calls), params, gen)
+    worst.update({"conv_k3s2_dgrad": 0.0, "conv_k3s2_wgrad": 0.0})
+    for x_shape, w_shape in sorted(set(calls["conv"])):
+        for dtype in (torch.float32, torch.bfloat16):
+            errs = check_conv_bwd("ssl_kernel", x_shape[0], x_shape[1],
+                                  w_shape[1], w_shape[2], dtype, gen)
+            if dtype == torch.float32:
+                for k, e in errs.items():
+                    worst[k] = max(worst[k], e)
+            torch.cuda.empty_cache()
+    return worst
+
+
+def ssl_clis(tmp: str, corpus: str) -> dict:
+    """The entry points at full width on the corpus (SSL_CLI: 2 steps,
+    validating and saving at both, as the JAX entry points' cadence has it):
+    ``cli.pretrain_hubert`` from the MFCC ``.km`` files, then
+    ``cli.train --restart_from`` its last ``.pt`` for 2 CTC steps (the
+    encoder frozen, so after the run every encoder weight must still be
+    the HuBERT checkpoint's, bitwise: the warm start, heads dropped), then
+    ``cli.pretrain_data2vec --preset data2vec-base`` and a restart from
+    its directory at its last step, whose teacher must be bitwise the
+    saved one and the one the run ended with. All three step SGD (the
+    timed steps run AdamW): its resume files hold no moments, which keeps
+    the full run's disk writes under the machine's cap."""
+    from audio8_tpu_torch.cli import pretrain_data2vec, pretrain_hubert
+    from audio8_tpu_torch.cli import train as ctc_train
+    from audio8_tpu_torch.models.convert import load_fairseq_pretrained
+
+    out = {}
+    hub_dir = os.path.join(tmp, "ssl_hubert")
+    reset_launches()
+    t0 = time.perf_counter()
+    state = pretrain_hubert.train(["--root_dir", corpus, "--train_dataset",
+                                   "train.tsv", "--valid_dataset",
+                                   "valid.tsv", "--basedir", hub_dir,
+                                   *SSL_CLI, *SSL_SIZE])
+    runs = {"hubert": read_launches()}
+    launches = {k: n for k, n in runs["hubert"].items()
+                if k in SSL_PATH and k != "adamw"}
+    check(state.step == 2 and all(math.isfinite(r["loss"])
+                                  for r in state.log),
+          f"pretrain_hubert: {state.step} steps, {state.log}")
+    check(all(n > 0 for n in launches.values()),
+          f"pretrain_hubert launches {launches}")
+    out["hubert"] = {"wall_s": time.perf_counter() - t0,
+                     "log": state.log, "valid": state.valid,
+                     "launches": launches}
+    del state
+    torch.cuda.empty_cache()
+
+    ckpt = os.path.join(hub_dir, "checkpoint-step-2.pt")
+    reset_launches()
+    t0 = time.perf_counter()
+    state = ctc_train.train(["--root_dir", corpus, "--train_dataset",
+                             "train.tsv", "--valid_dataset", "valid.tsv",
+                             "--basedir", os.path.join(tmp, "ssl_ctc"),
+                             "--restart_from", ckpt, "--grad_accum", "1",
+                             "--target_tokens_per_batch", "700000",
+                             *SSL_CLI, *SSL_SIZE])
+    ctc_launches = runs["ctc"] = read_launches()
+    body = load_fairseq_pretrained(ckpt)
+    moved = [k for k, v in state.model.state_dict().items()
+             if k.startswith("encoder.")
+             and not torch.equal(v.cpu(), body[k[len("encoder."):]])]
+    check(not moved, f"CTC warm start: encoder weights {moved[:3]} are not "
+          "the HuBERT checkpoint's")
+    check(ctc_launches["ctc_loss"] > 0 and all(
+        math.isfinite(r["loss"]) for r in state.log),
+        f"CTC from HuBERT: {ctc_launches}, {state.log}")
+    out["ctc_warm_start"] = {"wall_s": time.perf_counter() - t0,
+                             "losses": [r["loss"] for r in state.log],
+                             "ctc_loss_launches": ctc_launches["ctc_loss"],
+                             "encoder_tensors_from_hubert": sum(
+                                 1 for k in state.model.state_dict()
+                                 if k.startswith("encoder."))}
+    del state
+    torch.cuda.empty_cache()
+
+    d2v_dir = os.path.join(tmp, "ssl_data2vec")
+    d2v = ["--manifest_dir", corpus, "--basedir", d2v_dir, "--preset",
+           "data2vec-base", *SSL_CLI, *SSL_SIZE]
+    reset_launches()
+    t0 = time.perf_counter()
+    state, teacher = pretrain_data2vec.train(d2v)
+    runs["data2vec"] = read_launches()
+    launches = {k: n for k, n in runs["data2vec"].items()
+                if k in SSL_PATH and k != "adamw"}
+    ended = {k: v.cpu().clone() for k, v in teacher.state_dict().items()}
+    check(state.step == 2 and all(math.isfinite(r["loss"])
+                                  for r in state.log),
+          f"pretrain_data2vec: {state.step} steps, {state.log}")
+    check(all(n > 0 for n in launches.values()),
+          f"pretrain_data2vec launches {launches}")
+    out["data2vec"] = {"wall_s": time.perf_counter() - t0,
+                       "log": state.log, "valid": state.valid,
+                       "launches": launches}
+    del state, teacher
+    torch.cuda.empty_cache()
+    state, teacher = pretrain_data2vec.train(d2v + ["--restart_from",
+                                                    d2v_dir])
+    saved = load_fairseq_pretrained(os.path.join(d2v_dir,
+                                                 "teacher-step-2.pt"))
+    restored = teacher.state_dict()
+    check(state.step == 2 and state.log == [], "data2vec restart stepped")
+    check(all(torch.equal(v.cpu(), saved[k]) and torch.equal(v.cpu(),
+                                                             ended[k])
+              for k, v in restored.items()),
+          "data2vec restart: the teacher is not the saved one")
+    out["data2vec"]["restart_teacher_bitwise"] = True
+    del state, teacher
+    torch.cuda.empty_cache()
+    out["launches"] = {k: sum(r[k] for r in runs.values())
+                       for k in runs["hubert"]}
+    return out
+
+
+def phase_ssl(tmp: str, seed: int, gen) -> tuple:
+    """Phase 20: HuBERT and data2vec pretraining at full width on a fresh
+    corpus: the targets (:func:`ssl_targets`), each objective's step card
+    vs CPU (:func:`ssl_vs_cpu`) and timed with its launches held to the
+    prediction (:func:`ssl_timing`), the kernels at those steps' shapes
+    (:func:`ssl_kernels`), and the entry points (:func:`ssl_clis`).
+    Returns the HuBERT step's launches, the three entry-point runs'
+    launches summed, and the kernels' max errors."""
+    cfgs = ssl_configs()
+    corpus = os.path.join(tmp, "ssl_corpus")
+    os.makedirs(corpus)
+    write_corpus(corpus, seed + 60)
+    dirs = [os.path.join(tmp, d) for d in ("ssl_corpus", "ssl_it2",
+                                           "ssl_hubert", "ssl_ctc",
+                                           "ssl_data2vec")]
+    with timed("ssl_targets"):
+        targets, ckpt = ssl_targets(tmp, corpus, cfgs["hubert"], seed)
+    emit({"phase": "ssl_targets", **targets})
+    weights = {
+        "hubert": {k: v for k, v in ssl_model(
+            "hubert", cfgs["hubert"], torch.float32, "cpu",
+            seed=seed + 60).state_dict().items()},
+        "data2vec": {k: v for k, v in ssl_model(
+            "data2vec", cfgs["data2vec"], torch.float32, "cpu",
+            seed=seed + 64).state_dict().items()}}
+    vs_cpu, timing, launches, predicted, calls = {}, {}, {}, {}, {}
+    for kind in ("hubert", "data2vec"):
+        with timed(f"ssl_{kind}_vs_cpu"):
+            vs_cpu[kind] = ssl_vs_cpu(kind, cfgs[kind], weights[kind], seed)
+        with timed(f"ssl_{kind}_timing"):
+            (timing[kind], launches[kind], predicted[kind], c,
+             params) = ssl_timing(kind, cfgs[kind], weights[kind], seed)
+        emit({"phase": f"ssl_{kind}_step", **timing[kind],
+              "launches": launches[kind], "predicted": predicted[kind]})
+        for key, v in c.items():
+            calls.setdefault(key, []).extend(v)
+    with timed("ssl_kernel"):
+        worst = ssl_kernels(calls, params, gen)
+    with timed("ssl_cli"):
+        clis = ssl_clis(tmp, corpus)
+    emit({"phase": "ssl_cli", **clis})
+    emit({"phase": "ssl", "config": {
+        "hubert": "HuBERT base d768 h12 L12 ff3072, 100 clusters, "
+                  "final_dim 256", "data2vec": "data2vec-base: the same "
+                  "widths, layer-norm extractor, 5 positional convs of k "
+                  "19, top 8 layers"},
+        "iteration2_checkpoint": os.path.basename(ckpt),
+        "vs_cpu": vs_cpu, "launches_per_step": launches,
+        "predicted_per_step": predicted, "cli_launches": clis["launches"],
+        "kernel_max_abs_err": worst, "bytes_written": tree_bytes(*dirs),
+        "bytes_written_by_dir": {os.path.basename(d): tree_bytes(d)
+                                 for d in dirs}})
+    return launches["hubert"], clis["launches"], worst
+
+
+def ssl_phases(gen) -> int:
+    """The build and phase 20 alone (``--ssl-phases``) on a fresh corpus,
+    then the phase seconds, the card and the last line."""
+    with timed("build"):
+        phase_build()
+    with tempfile.TemporaryDirectory() as tmp:
+        launches, cli_launches, worst = phase_ssl(tmp, SEED, gen)
+    emit({"phase": "phase_seconds", **PHASE_SECONDS})
+    emit({"phase": "ssl_phases", "step_launches": launches,
+          "cli_launches": cli_launches, "kernel_max_abs_err": worst})
+    print_card()
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if not torch.cuda.is_available():
@@ -7135,6 +7733,8 @@ def main(argv=None) -> int:
         return trainer_timing()
     if argv == ["--transducer-phases"]:
         return transducer_timing(gen)
+    if argv == ["--ssl-phases"]:
+        return ssl_phases(gen)
     inference_first = argv == ["--inference-first"]
     if argv and not inference_first:
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
@@ -7228,6 +7828,9 @@ def main(argv=None) -> int:
         rnnt_launches, errs = phase_transducer(tmp, SEED, gen)
         for k, e in errs.items():
             worst[k] = max(worst[k], e)
+        ssl_launches, ssl_cli_launches, errs = phase_ssl(tmp, SEED, gen)
+        for k, e in errs.items():
+            worst[k] = max(worst[k], e)
     emit({"phase": "phase_seconds", **PHASE_SECONDS,
           "inference_first": inference_first,
           "trace_retries": {str(k): n for k, n in TRACE_RETRIES.items()},
@@ -7306,6 +7909,8 @@ def main(argv=None) -> int:
          **{f"{p}_launches": trainer_launches[p].get(name, 0)
             for p in trainer_launches},
          "transducer_launches": rnnt_launches.get(name, 0),
+         "ssl_step_launches": ssl_launches.get(name, 0),
+         "ssl_cli_launches": ssl_cli_launches.get(name, 0),
          "max_abs_err": worst[name],
          **{k: times[(name, torch.float32)][k] for k in keys},
          **extra(name)}

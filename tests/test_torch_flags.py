@@ -1,7 +1,8 @@
 """The port's entry-point flags against the JAX package's parsers.
 
 * Every flag of the JAX ``train``, ``pretrain``, ``train_seq2seq``,
-  ``pretrain_paired``, ``train_transducer``, ``transcribe``, ``serve``,
+  ``pretrain_paired``, ``train_transducer``, ``pretrain_hubert``,
+  ``pretrain_data2vec``, ``cluster_targets``, ``transcribe``, ``serve``,
   ``test``, ``learn_bpe``, ``wrd2bpe`` and ``convert_checkpoint`` parsers
   but
   ``--lane_align`` (ROADMAP.md "Not to port") parses in the port's
@@ -53,7 +54,11 @@ NEEDED = {"train": [], "pretrain": ["--manifest_dir", "m"],
           "test": [], "embed": ["--root_dir", "r", "--checkpoint", "c.pt"],
           "train_transducer": [],
           "export": ["--checkpoint", "c.pt", "--dict_file", "d.txt",
-                     "--output", "o"]}
+                     "--output", "o"],
+          "cluster_targets": ["--root_dir", "r", "--manifests", "t.tsv"],
+          "pretrain_hubert": [], "pretrain_data2vec": ["--manifest_dir",
+                                                       "m"]}
+SSL_ENTRIES = ("cluster_targets", "pretrain_hubert", "pretrain_data2vec")
 
 
 def captured_parser(module: str) -> argparse.ArgumentParser:
@@ -89,7 +94,7 @@ def flags(parser):
 @pytest.mark.parametrize("entry", ENTRY_POINTS + (
     "convert_checkpoint", "learn_bpe", "wrd2bpe", "embed", "manifest",
     "train_ngram", "average_checkpoints", "inspect_checkpoint",
-    "train_transducer"))
+    "train_transducer") + SSL_ENTRIES)
 def test_port_parses_every_jax_flag(entry):
     theirs = flags(captured_parser(f"audio8_tpu.cli.{entry}"))
     ours = flags(captured_parser(f"audio8_tpu_torch.cli.{entry}"))
@@ -135,6 +140,20 @@ def parse_and_check(entry, extra):
     ("train_transducer", ["--distributed", "true"], "item 3"),
     ("train_transducer", ["--moe_experts", "4"], "item 8"),
     ("train_transducer", ["--fsdp", "true"], "item 8"),
+    ("pretrain_hubert", ["--distributed", "true"], "item 3"),
+    ("pretrain_hubert", ["--tensor_parallel", "2"], "item 8"),
+    ("pretrain_hubert", ["--zero1", "true"], "item 8"),
+    ("pretrain_hubert", ["--fsdp", "true"], "item 8"),
+    ("pretrain_hubert", ["--sequence_parallel", "true"], "item 8"),
+    ("pretrain_hubert", ["--moe_experts", "4"], "item 8"),
+    ("pretrain_data2vec", ["--distributed", "true"], "item 3"),
+    ("pretrain_data2vec", ["--tensor_parallel", "2"], "item 8"),
+    ("pretrain_data2vec", ["--zero1", "true"], "item 8"),
+    ("pretrain_data2vec", ["--fsdp", "true"], "item 8"),
+    ("pretrain_data2vec", ["--sequence_parallel", "true"], "item 8"),
+    ("pretrain_data2vec", ["--moe_experts", "4"], "item 8"),
+    ("cluster_targets", ["--tensor_parallel", "2"], "item 8"),
+    ("cluster_targets", ["--moe_experts", "4"], "item 8"),
 ])
 def test_unported_values_raise_naming_their_item(entry, extra, item):
     with pytest.raises(NotImplementedError, match=item):
@@ -289,6 +308,16 @@ def test_runnable_values_run(entry):
     cfg = AcousticConfig(**encoder_kwargs(args))
     check_supported(cfg)
     assert cfg.conv_pos_kernel == 64
+
+
+@pytest.mark.parametrize("entry", SSL_ENTRIES)
+def test_ssl_entries_default_to_the_card(entry):
+    """The HuBERT and data2vec entry points parse with ``--device cuda``
+    and take every topology preset but MoE."""
+    args = parse_and_check(entry, [])
+    assert args.device == "cuda"
+    for preset in ("data2vec-base", "hubert-large", "wavlm-base"):
+        parse_and_check(entry, ["--preset", preset])
 
 
 def test_decoders_need_a_checkpoint_as_jax_does():

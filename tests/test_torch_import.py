@@ -14,9 +14,12 @@ import sys
 import pytest
 
 import audio8_tpu_torch
+from audio8_tpu_torch.cli import cluster_targets as cluster_cli
 from audio8_tpu_torch.cli import embed as embed_cli
 from audio8_tpu_torch.cli import export as export_cli
 from audio8_tpu_torch.cli import pretrain as pretrain_cli
+from audio8_tpu_torch.cli import pretrain_data2vec as data2vec_cli
+from audio8_tpu_torch.cli import pretrain_hubert as hubert_cli
 from audio8_tpu_torch.cli import pretrain_paired as paired_cli
 from audio8_tpu_torch.cli import serve as serve_cli
 from audio8_tpu_torch.cli import test as test_cli
@@ -54,7 +57,9 @@ def test_every_module_imports_with_jax_blocked():
                 "nn.conformer", "export", "cli.export", "ops.samples",
                 "ops.kenlm_bin", "cli.build_binary", "models.warmstart",
                 "train.profiler", "cli.train_transducer",
-                "models.transducer", "ops.transducer"):
+                "models.transducer", "ops.transducer", "data.mfcc",
+                "models.hubert", "models.data2vec", "cli.cluster_targets",
+                "cli.pretrain_hubert", "cli.pretrain_data2vec"):
         assert f"audio8_tpu_torch.{new}" in mods
     code = (
         "import sys\n"
@@ -138,7 +143,9 @@ def _restore_port_offsets():
                                    "transcribe --transducer",
                                    "serve --transducer",
                                    "test --transducer",
-                                   "export --transducer"])
+                                   "export --transducer",
+                                   "cluster_targets", "pretrain_hubert",
+                                   "pretrain_data2vec"])
 def test_default_device_is_cuda_and_raises_without_a_card(
         entry, tmp_path, _restore_port_offsets):
     """This machine has no CUDA card: the default ``--device cuda`` raises
@@ -171,6 +178,17 @@ def test_default_device_is_cuda_and_raises_without_a_card(
                               + rnnt)
         elif entry == "pretrain":
             pretrain_cli.train(["--basedir", str(tmp_path / "run"),
+                                "--manifest_dir", str(tmp_path)])
+        elif entry == "cluster_targets":
+            cluster_cli.main(["--root_dir", str(tmp_path), "--manifests",
+                              "t.tsv"])
+        elif entry == "pretrain_hubert":
+            hubert_cli.train(["--basedir", str(tmp_path / "run"),
+                              "--root_dir", str(tmp_path),
+                              "--train_dataset", "t.tsv",
+                              "--valid_dataset", "v.tsv"])
+        elif entry == "pretrain_data2vec":
+            data2vec_cli.train(["--basedir", str(tmp_path / "run"),
                                 "--manifest_dir", str(tmp_path)])
         elif entry in ("train_seq2seq", "pretrain_paired"):
             cli = seq2seq_cli if entry == "train_seq2seq" else paired_cli
