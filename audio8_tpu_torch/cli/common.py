@@ -12,8 +12,9 @@ without ``--lm``, ``--moe_top_k`` without ``--moe_experts``, the
 transducer sizes without ``--transducer``) are inert, as in JAX.
 Which flags are ported can depend on the entry point (``PORTED``): the
 decoding flags (``--beam``, ``--lm``, ``--timestamps``, ``--vad``,
-``--quantize``) are ported where the entry point has them, as is
-``--exported`` (a ``cli.export`` artifact) everywhere.
+``--quantize``, ``--device_beam``, ``--lm_rescore``) are ported where the
+entry point has them, as is ``--exported`` (a ``cli.export`` artifact)
+everywhere.
 
 :func:`resolve_restart` is ``--restart_from`` (fairseq ``.pt`` and
 HuggingFace ``save_pretrained`` warm starts, directories of the port's
@@ -82,7 +83,6 @@ _PRESET_BASE_DEFAULTS = {"d_model": 768, "d_ff": 3072, "num_heads": 12,
 # ROADMAP.md queue 1 items, named in the refusals
 DECODE = "ROADMAP.md queue 1, item 6 (serving and inference)"
 DATA_PARALLEL = "ROADMAP.md queue 1, item 3 (data parallel)"
-TOPOLOGY = "ROADMAP.md queue 1, item 7 (topologies and recipes)"
 PARALLEL = "ROADMAP.md queue 1, item 8 (parallelism beyond DP)"
 
 # flag -> (its value when unused, the item that ports it). Any other
@@ -97,15 +97,14 @@ NOT_PORTED = {
     "distributed": (False, DATA_PARALLEL),
     "lm": (None, DECODE),
     "beam": (1, DECODE),
-    "device_beam": (False, TOPOLOGY),
-    "lm_rescore": (None, TOPOLOGY),
     "timestamps": (False, DECODE),
     "vad": (False, DECODE),
     "quantize": ("none", DECODE),
 }
 # entry point -> the flags of NOT_PORTED it has ported: the beam search
 # and LM fusion of the trainer's verbose validation and of the decoders,
-# word timestamps, VAD and int8 weights
+# word timestamps, VAD and int8 weights (``--device_beam`` and
+# ``--lm_rescore`` run wherever an entry point has them)
 PORTED = {"train": ("beam", "lm"), "test": ("beam", "lm", "quantize"),
           "transcribe": ("beam", "lm", "timestamps", "vad", "quantize"),
           "serve": ("beam", "lm", "timestamps", "quantize"),
@@ -262,13 +261,13 @@ def add_common_model_args(parser: ArgumentParser) -> None:
 
 def add_decoding_args(parser: ArgumentParser, max_decode_len) -> None:
     """The decoding flags of the JAX transcribe and serve parsers (their
-    ``--max_decode_len`` defaults differ: None and 8000); the device beam
-    is not ported yet."""
+    ``--max_decode_len`` defaults differ: None and 8000)."""
     add = parser.add_argument
     add("--exported", help="cli.export artifact directory: run its traced "
         "forward instead of building the model from a checkpoint")
     add_beam_args(parser)
-    add("--device_beam", type=str2bool, default=False, help="not ported yet")
+    add("--device_beam", type=str2bool, default=False,
+        help="no-LM batch beam decode on --device (ops/beam_device.py)")
     add("--transducer", type=str2bool, default=False,
         help="the checkpoint is a cli.train_transducer model: RNN-T "
              "decoding (models/transducer.py)")

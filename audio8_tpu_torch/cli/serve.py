@@ -21,8 +21,10 @@ and streams share device batches through the ``MicroBatcher``
 dispatcher; without it device work serializes behind a lock. Partials
 decode greedily; the final text and ``/transcribe`` take the beam
 search with ``--beam``/``--lm``, decoded on the request's thread
-outside the device lock and the dispatcher. The native beam search
-reads one loaded LM from several threads at once: it only reads it.
+outside the device lock and the dispatcher (with ``--device_beam true``
+and no LM, batched on ``--device``, ``ops/beam_device.py``). The native
+beam search reads one loaded LM from several threads at once: it only
+reads it.
 ``--quantize int8`` serves int8 Dense weights (``ops/quant.py``);
 ``--exported`` serves a ``cli.export`` artifact instead of a checkpoint,
 its chunk the smallest entry that covers ``--chunk_seconds``.
@@ -441,7 +443,8 @@ def build_service(args) -> TranscribeService:
                             device=device)
     postproc = postproc_bpe if args.target_type == "bpe" else postproc_letters
     service = TranscribeService(
-        ct, index2vocab, build_beam_decoder(args, vocab_list), sample_rate=sr,
+        ct, index2vocab, build_beam_decoder(args, vocab_list, device),
+        sample_rate=sr,
         timestamps=args.timestamps, postproc=postproc,
         info={"model": "wav2vec2-ctc" + ("" if art is None
                                          else " (exported)"),

@@ -8,7 +8,13 @@ manifest through the acoustic model on ``--device`` (the CUDA card by
 default; it raises without one), and accumulate greedy CER and WER; with
 ``--beam`` above 1 or ``--lm`` also the prefix-beam-search WER, with LM
 fusion at ``--alpha`` and ``--beta`` (key ``werr_lm_{beam}`` or
-``werr_{beam}``), decoded on the host by the port's native library.
+``werr_{beam}``), decoded on the host by the port's native library or,
+with ``--device_beam true`` and no LM, batched on ``--device`` where the
+log-probs are (``ops/beam_device.py``). ``--lm_rescore <cli.train_lm
+basedir>`` (with ``--beam`` above 1) reranks each utterance's n-best list
+by the exact CTC score (kernel 1 on the card), the neural LM at
+``--rescore_alpha`` and ``--rescore_word_bonus`` per label
+(``ops/rescore.py``; key ``werr_rescore_{beam}``).
 
   python -m audio8_tpu_torch.cli.test --root_dir corpus \\
       --valid_dataset dev-other.tsv --basedir run --beam 8 --lm lm.arpa
@@ -21,11 +27,14 @@ artifact instead, the batches padded to its entry table (so its scores
 equal the live model's at that ``--length_buckets`` grid).
 ``--transducer true`` scores an RNN-T checkpoint with its greedy search
 or, with ``--beam``, the beam search's 1-best; an exported transducer
-artifact scores through the ``TransducerStreamer`` (greedy). Those of
-parts not ported yet raise: ``--device_beam`` and ``--lm_rescore``
-(ROADMAP.md queue 1, item 7). The returned metrics also carry the
-eval's audio seconds and wall seconds and the beam decode's host
-seconds.
+artifact scores through the ``TransducerStreamer`` (greedy); with
+``--beam`` and ``--lm_rescore`` the neural LM reranks the beam's n-best.
+JAX's refusals hold: ``--lm_rescore`` needs ``--beam`` above 1, and
+``--transducer`` takes neither ``--lm``, ``--device_beam`` nor
+``--quantize``. The returned metrics also carry the eval's audio seconds
+and wall seconds, the beam decode's host seconds and, with
+``--lm_rescore``, the host seconds of the beam, the CTC recompute and the
+LM.
 """
 from __future__ import annotations
 
@@ -49,6 +58,8 @@ from audio8_tpu_torch.ops import metrics as M
 from audio8_tpu_torch.ops.beam import PrefixBeamSearch
 from audio8_tpu_torch.ops.ctc import greedy_collapse
 from audio8_tpu_torch.ops.quant import quantize_model_params
+from audio8_tpu_torch.ops.rescore import (NeuralLMRescorer, rescore_nbest,
+                                          rescore_transducer_nbest)
 from audio8_tpu_torch.train.checkpoint import find_latest_checkpoint
 from audio8_tpu_torch.utils import Offsets, revlut, str2bool
 
@@ -85,17 +96,18 @@ def parse_args(argv=None):
     add("--d_joint", type=int, default=512)
     add("--max_decode_len", type=int, default=200)
     add("--max_symbols_per_frame", type=int, default=4)
-    add("--device_beam", type=str2bool, default=False, help="not ported yet")
+    add("--device_beam", type=str2bool, default=False,
+        help="no-LM batch beam decode on --device (ops/beam_device.py)")
     add("--quantize", choices=["none", "int8"], default="none",
         help="int8: post-training weight quantization of the Dense "
              "layers (ops/quant.py)")
     add("--alpha", type=float, default=0.7)
     add("--beta", type=float, default=5.0)
-    add("--lm_rescore", help="not ported yet")
+    add("--lm_rescore", help="cli.train_lm basedir: neural-LM n-best "
+        "rescoring of the beam output (ops/rescore.py)")
     add("--rescore_alpha", type=float, default=0.5,
-        help="inert without --lm_rescore")
-    add("--rescore_word_bonus", type=float, default=0.0,
-        help="inert without --lm_rescore")
+        help="LM weight in ctc + alpha*lm + bonus*len")
+    add("--rescore_word_bonus", type=float, default=0.0)
     add("--pad_to_multiple", type=int, default=16_000)
     add("--length_buckets", type=int, nargs="*",
         help="audio-length grid (samples); pads each batch up to the next "
@@ -105,25 +117,47 @@ def parse_args(argv=None):
 
 
 def run_step(index2vocab, log_probs, frame_lengths, batch, verbose=False,
-             ctc_decoder=None, postproc_fn=M.postproc_letters):
+             ctc_decoder=None, postproc_fn=M.postproc_letters,
+             rescorer=None, device_log_probs=None, timings=None):
     """Greedy metrics of one batch of host log-probs and, with a
     ``ctc_decoder``, its beam word errors (``wbeam_errors``) and
-    transcripts (``beam_texts``)."""
+    transcripts (``beam_texts``); with a ``rescorer`` the beam's n-best
+    reranked (``ops/rescore.py:rescore_nbest``). ``device_log_probs``:
+    the same log-probs where the model left them, which a device beam
+    searches and the rescorer's CTC recompute reads. ``timings``: a dict
+    that accumulates the host seconds of the beam (``beam``) and, with a
+    rescorer, of the CTC recompute (``ctc``) and the LM (``lm``)."""
     step_metrics = M.ctc_metrics(log_probs, batch["token_ids"],
                                  frame_lengths, index2vocab,
                                  postproc_fn=postproc_fn)
     step_metrics["wbeam_errors"] = 0
     step_metrics["beam_texts"] = []
-    if ctc_decoder is not None:
-        for b, transcription in enumerate(
-                ctc_decoder.run(log_probs, frame_lengths, n_best=1)):
-            text = "".join(transcription)
-            if verbose:
-                print(text)
-            werr, _ = M.decode_text_wer(text, batch["token_ids"][b],
-                                        index2vocab, postproc_fn=postproc_fn)
-            step_metrics["wbeam_errors"] += werr
-            step_metrics["beam_texts"].append(text)
+    if ctc_decoder is None:
+        return step_metrics
+    timings = {} if timings is None else timings
+    search_lp = log_probs if device_log_probs is None else device_log_probs
+    t0 = time.perf_counter()
+    nbest = ctc_decoder.run(
+        search_lp, frame_lengths,
+        n_best=1 if rescorer is None else ctc_decoder.beam,
+        return_ids=rescorer is not None)
+    timings["beam"] = timings.get("beam", 0.0) + time.perf_counter() - t0
+    for b, hyps in enumerate(nbest):
+        if rescorer is None:
+            text = "".join(hyps)
+        elif not hyps:
+            text = ""
+        else:
+            best = rescore_nbest(search_lp[b], int(frame_lengths[b]), hyps,
+                                 rescorer, timings=timings)
+            text = "".join(index2vocab[t] if t != ctc_decoder.bar_off
+                           else "|" for t in hyps[best])
+        if verbose:
+            print(text)
+        werr, _ = M.decode_text_wer(text, batch["token_ids"][b],
+                                    index2vocab, postproc_fn=postproc_fn)
+        step_metrics["wbeam_errors"] += werr
+        step_metrics["beam_texts"].append(text)
     return step_metrics
 
 
@@ -157,11 +191,13 @@ def evaluate(argv=None, keep_outputs: bool = False) -> dict:
     """Run the evaluation; returns ``cer``, ``wer``, the beam key when
     decoding with a beam or LM, ``step`` (batches scored), and
     ``utterances``, ``audio_seconds``, ``eval_seconds`` (wall, data
-    included), ``beam_seconds`` (host beam decode) and, with ``--lm``,
-    ``lm_load_seconds``. With ``keep_outputs`` also ``outputs``: per
-    utterance scored, in order, its file, its (frames, labels) float32
-    log-probs, its greedy transcript and, with a beam or an LM, its beam
-    transcript."""
+    included), ``beam_seconds`` (host beam decode, rescoring included)
+    and, with ``--lm``, ``lm_load_seconds``, with ``--lm_rescore``
+    ``rescore_seconds`` (the host seconds of the search, the CTC
+    recompute and the LM: ``beam``, ``ctc``, ``lm``). With
+    ``keep_outputs`` also ``outputs``: per utterance scored, in order,
+    its file, its (frames, labels) float32 log-probs, its greedy
+    transcript and, with a beam or an LM, its beam transcript."""
     args = parse_args(argv)
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(levelname)s %(name)s: "
@@ -203,19 +239,32 @@ def evaluate(argv=None, keep_outputs: bool = False) -> dict:
         if args.lm or args.device_beam or args.quantize != "none":
             raise ValueError("--transducer eval: --lm/--device_beam/"
                              "--quantize are CTC-path flags")
+        if args.lm_rescore and args.beam <= 1:
+            raise ValueError("--lm_rescore needs --beam > 1 (it reranks "
+                             "the transducer beam's n-best list)")
         return _evaluate_transducer(args, vocab_list, device)
+    if args.lm_rescore and args.beam <= 1:
+        raise ValueError("--lm_rescore needs --beam > 1 (it reranks the "
+                         "beam's n-best list)")
     vocab = {v: i for i, v in enumerate(vocab_list)}
     index2vocab = revlut(vocab)
 
-    ctc_decoder, beam_lm_key, lm_load_s = None, None, None
+    ctc_decoder, beam_lm_key, lm_load_s, rescorer = None, None, None, None
     if args.beam > 1 or args.lm:
         t0 = time.perf_counter()
-        ctc_decoder = PrefixBeamSearch(vocab_list, alpha=args.alpha,
-                                       beta=args.beta, beam=args.beam,
-                                       lm_file=args.lm)
+        ctc_decoder = PrefixBeamSearch(
+            vocab_list, alpha=args.alpha, beta=args.beta, beam=args.beam,
+            lm_file=args.lm, device=device if args.device_beam else False)
         lm_load_s = time.perf_counter() - t0 if args.lm else None
-        beam_lm_key = (f"werr_lm_{args.beam}" if args.lm
-                       else f"werr_{args.beam}")
+        if args.lm_rescore:
+            rescorer = NeuralLMRescorer(args.lm_rescore,
+                                        alpha=args.rescore_alpha,
+                                        word_bonus=args.rescore_word_bonus,
+                                        device=device)
+            beam_lm_key = f"werr_rescore_{args.beam}"
+        else:
+            beam_lm_key = (f"werr_lm_{args.beam}" if args.lm
+                           else f"werr_{args.beam}")
 
     valid_set = AudioTextLetterDataset(
         os.path.join(args.root_dir, args.valid_dataset),
@@ -237,7 +286,7 @@ def evaluate(argv=None, keep_outputs: bool = False) -> dict:
     metrics = {}
     c_errors = c_total = w_errors = w_total = wlm_errors = utterances = 0
     audio_s = beam_s = 0.0
-    outputs = []
+    outputs, timings = [], {}
     start = time.perf_counter()
     batches = iter(PrefetchLoader(valid_set, prefetch=4))
     for j, batch in enumerate(batches):
@@ -248,6 +297,7 @@ def evaluate(argv=None, keep_outputs: bool = False) -> dict:
             torch.from_numpy(batch["signal_lengths"]).to(device))
         # padding rows that batch-size snapping appends sit at the tail
         n_real = batch.get("num_real", len(batch["signal_lengths"]))
+        device_lp = log_probs[:n_real]
         log_probs = log_probs.float().cpu().numpy()[:n_real]
         frame_lengths = frames.cpu().numpy()[:n_real]
         audio_s += float(batch["signal_lengths"][:n_real].sum()) / sr
@@ -262,7 +312,8 @@ def evaluate(argv=None, keep_outputs: bool = False) -> dict:
         t0 = time.perf_counter()
         sm = run_step(index2vocab, log_probs, frame_lengths,
                       dict(batch, token_ids=batch["token_ids"][:n_real]),
-                      args.verbose, ctc_decoder, postproc)
+                      args.verbose, ctc_decoder, postproc, rescorer,
+                      device_lp, timings)
         if ctc_decoder is not None:
             beam_s += time.perf_counter() - t0
             if keep_outputs:
@@ -286,6 +337,8 @@ def evaluate(argv=None, keep_outputs: bool = False) -> dict:
                    beam_seconds=beam_s)
     if lm_load_s is not None:
         metrics["lm_load_seconds"] = lm_load_s
+    if rescorer is not None:
+        metrics["rescore_seconds"] = timings
     logger.info("Final results")
     logger.info(metrics)
     if keep_outputs:
@@ -297,7 +350,8 @@ def _evaluate_transducer(args, vocab_list, device: torch.device,
                          artifact=None) -> dict:
     """WER/CER of an RNN-T checkpoint (``--checkpoint``, else the latest
     under ``--basedir``): the batched greedy search, or the beam search's
-    1-best with ``--beam``; or of an exported transducer ``artifact``,
+    1-best with ``--beam`` (with ``--lm_rescore``, the n-best's pick under
+    the neural LM); or of an exported transducer ``artifact``,
     each utterance through its ``TransducerStreamer`` (the greedy search
     serving runs, so the scores are the artifact's)."""
     from audio8_tpu_torch.cli.train import _to_device
@@ -316,10 +370,11 @@ def _evaluate_transducer(args, vocab_list, device: torch.device,
         length_grid=args.length_buckets)
     sr = args.target_sample_rate
     if artifact is not None:
-        if args.beam > 1:
+        if args.beam > 1 or args.lm_rescore:
             raise ValueError("exported transducer artifacts bake the greedy "
-                             "streaming search; --beam certification needs "
-                             "the checkpoint path (--transducer)")
+                             "streaming search; --beam/--lm_rescore "
+                             "certification needs the checkpoint path "
+                             "(--transducer)")
         streamer = TransducerStreamer(
             artifact.encode, artifact.decode_init, artifact.decode_frames,
             artifact.conv_features, chunk_samples=artifact.chunk_samples,
@@ -338,14 +393,23 @@ def _evaluate_transducer(args, vocab_list, device: torch.device,
         args.checkpoint = (args.checkpoint
                            or find_latest_checkpoint(args.basedir)[0])
         _, model, _ = build_transducer(args, device, vocab_list)
+        rescorer = None
+        if args.lm_rescore:
+            rescorer = NeuralLMRescorer(args.lm_rescore,
+                                        alpha=args.rescore_alpha,
+                                        word_bonus=args.rescore_word_bonus,
+                                        device=device)
 
         @torch.inference_mode()
         def decode(batch, n_real):
             tb = _to_device(batch, device)
             if args.beam > 1:
-                toks, lens, _ = model.decode_beam(
+                toks, lens, scores = model.decode_beam(
                     tb["signal"], tb["signal_lengths"], args.beam,
                     args.max_decode_len, args.max_symbols_per_frame)
+                if rescorer is not None:
+                    return _rescored(toks.cpu().numpy(), lens.cpu().numpy(),
+                                     scores.cpu().numpy(), n_real, rescorer)
                 toks, lens = toks[:, 0], lens[:, 0]
             else:
                 toks, lens = model.decode(
@@ -388,6 +452,19 @@ def _evaluate_transducer(args, vocab_list, device: torch.device,
     logger.info("Final results")
     logger.info(metrics)
     return metrics
+
+
+def _rescored(toks, lens, scores, n_real: int, rescorer) -> list:
+    """Each row's pick of the transducer beam's live hypotheses (score
+    above -1e20) under the neural LM (``rescore_transducer_nbest``)."""
+    decoded = []
+    for i in range(n_real):
+        live = scores[i] > -1e20
+        hyps = [toks[i, kk, :lens[i, kk]].tolist()
+                for kk in range(toks.shape[1]) if live[kk]]
+        best = rescore_transducer_nbest(scores[i][live], hyps, rescorer)
+        decoded.append(hyps[best] if hyps else [])
+    return decoded
 
 
 def main():

@@ -4,12 +4,14 @@ Counterpart of ``a8t-transcribe`` (``audio8_tpu/cli/transcribe.py``) on
 PyTorch, on ``--device`` (the CUDA card by default; it raises without
 one, and ``--device cpu`` asks for the CPU). Greedy CTC decoding, or the
 host prefix beam search with ``--beam`` and an n-gram ``--lm``
-(``ops/beam.py``); long audio runs through the ``ChunkedTranscriber``
-when ``--chunk_seconds > 0``. ``--vad true`` transcribes only the speech
-spans (``ops/vad.py``); ``--timestamps true`` prints one JSON row per
-file with word times from the greedy alignment (``ops/align.py``), and
-under ``--vad`` the segments too. ``--quantize int8`` runs the Dense
-layers on int8 weights (``ops/quant.py``).
+(``ops/beam.py``), or with ``--device_beam true`` and no LM the batched
+beam search on ``--device`` (``ops/beam_device.py``); long audio runs
+through the ``ChunkedTranscriber`` when ``--chunk_seconds > 0``. ``--vad
+true`` transcribes only the speech spans (``ops/vad.py``);
+``--timestamps true`` prints one JSON row per file with word times from
+the greedy alignment (``ops/align.py``), and under ``--vad`` the
+segments too. ``--quantize int8`` runs the Dense layers on int8 weights
+(``ops/quant.py``).
 
   python -m audio8_tpu_torch.cli.transcribe --checkpoint ctc.pt \\
       --dict_file dict.ltr.txt --beam 8 --lm lm.arpa a.wav b.wav
@@ -28,9 +30,9 @@ decodes an RNN-T checkpoint (``cli.train_transducer``'s ``.pt``): greedy,
 the 1-best of the beam search with ``--beam``, word times from the
 greedy search's own alignment with ``--timestamps``, and through the
 ``TransducerStreamer`` with ``--chunk_seconds``; an exported transducer
-artifact decodes through the streamer. Every flag of the JAX entry point
-but ``--lane_align`` parses; ``--device_beam`` (item 7) raises
-``NotImplementedError``. Dropout flags are inert at inference.
+artifact decodes through the streamer; ``--lm``, ``--device_beam`` and
+``--quantize`` exit there, as in JAX. Every flag of the JAX entry point
+but ``--lane_align`` parses. Dropout flags are inert at inference.
 """
 from __future__ import annotations
 
@@ -85,13 +87,17 @@ def parse_args(argv=None):
     return args
 
 
-def build_beam_decoder(args, vocab_list):
+def build_beam_decoder(args, vocab_list, device=None):
     """The optional ``PrefixBeamSearch`` of a decoding surface's flags
-    (``--beam``, ``--lm``, ``--alpha``, ``--beta``), else ``None``."""
+    (``--beam``, ``--lm``, ``--alpha``, ``--beta``, ``--device_beam``:
+    the search on ``device``, default ``--device``), else ``None``."""
     if args.beam <= 1 and not args.lm:
         return None
+    if args.device_beam and device is None:
+        device = resolve_device(args.device)
     return PrefixBeamSearch(vocab_list, alpha=args.alpha, beta=args.beta,
-                            beam=args.beam, lm_file=args.lm)
+                            beam=args.beam, lm_file=args.lm,
+                            device=device if args.device_beam else False)
 
 
 def check_timestamps(args) -> None:
@@ -434,7 +440,7 @@ def main(argv=None):
     else:
         cfg, forward, vocab_list, index2vocab, device = load_acoustic(args)
         sr = args.target_sample_rate
-    decoder = build_beam_decoder(args, vocab_list)
+    decoder = build_beam_decoder(args, vocab_list, device)
     frame_sec = total_stride(cfg.conv_features) / sr
     ct = None
     if args.chunk_seconds > 0:

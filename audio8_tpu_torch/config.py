@@ -3,8 +3,7 @@
 The port keeps its own copy of the configuration it reads, with the JAX
 package's field names and defaults, so a config built for one package
 means the same in the other. Left out: the ``lane_aligned_*`` helpers
-(128-lane TPU tiling, ROADMAP "Not to port") and the config of the
-text LM, which is not ported yet.
+(128-lane TPU tiling, ROADMAP "Not to port").
 """
 from __future__ import annotations
 
@@ -202,6 +201,21 @@ class TextEncoderConfig:
     reduction_type: str = "max"
     reduction_d_k: int = 64
     encoder_type: str = "transformer"  # or 'bow'
+
+
+@dataclasses.dataclass(frozen=True)
+class TextLMConfig:
+    """The causal (decoder-only) text LM of n-best rescoring
+    (``models/text.py:CausalTextLM``, ``cli/train_lm.py``)."""
+
+    vocab_size: int = 0
+    d_model: int = 512
+    num_heads: int = 8
+    num_layers: int = 6
+    dropout: float = 0.1
+    d_ff: int = 2048
+    rpr_k: Optional[int] = 8  # relative attention: any length at eval
+    block_len: int = 512      # packed training block (tokens)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -16,12 +16,13 @@ The port's parameter names are fairseq's, so:
   (:func:`canonical_fairseq_state`); a conformer's k=1 pointwise convs
   are ``(C_out, C_in, 1)`` in the files and ``Dense`` weights in the
   port;
-* a JAX ``Wav2Vec2AcousticModel``, ``Wav2Vec2Model`` or ``Seq2Seq``
-  parameter tree, or the paired ``{'model': DualEncoderModel, 'loss':
-  SymmetricCLIPLoss}`` tree, maps key by key (:func:`params_from_jax`):
-  Dense ``kernel (in, out)`` becomes ``weight (out, in)``, conv ``kernel
-  (K, C_in/g, C_out)`` becomes ``(C_out, C_in/g, K)``, ``scale`` becomes
-  ``weight``. The wav2vec2 encoders take fairseq's names (the inverse of
+* a JAX ``Wav2Vec2AcousticModel``, ``Wav2Vec2Model``, ``Seq2Seq`` or
+  ``CausalTextLM`` parameter tree, or the paired ``{'model':
+  DualEncoderModel, 'loss': SymmetricCLIPLoss}`` tree, maps key by key
+  (:func:`params_from_jax`): Dense ``kernel (in, out)`` becomes ``weight
+  (out, in)``, conv ``kernel (K, C_in/g, C_out)`` becomes ``(C_out,
+  C_in/g, K)``, ``scale`` becomes ``weight``. The wav2vec2 encoders take
+  fairseq's names (the inverse of
   ``audio8_tpu/models/convert.py:_encoder_assignments``); the decoder,
   the text towers, the reductions, the projections and ``logit_scale``
   keep the JAX names (:func:`_by_name_assignments`). Given the JAX
@@ -424,7 +425,10 @@ def _jax_assignments(tree: Mapping[str, Any]
     and the ``joint``, whose port modules carry the JAX names) or the
     paired tree (``model``: the audio tower's body under
     ``audio_encoder/encoder``, its reduction, the text tower and the
-    projections; ``loss``)."""
+    projections; ``loss``) or a ``CausalTextLM`` tree (``embeddings``
+    and ``transformer`` alone, every module under its JAX name)."""
+    if set(tree) == {"embeddings", "transformer"}:
+        return _by_name_assignments(tree, (), "")
     if "model" in tree and "loss" in tree:
         model, audio = tree["model"], tree["model"]["audio_encoder"]
         out = _body_assignments(tree, ("model", "audio_encoder", "encoder"),
@@ -503,10 +507,10 @@ def _opt_count(opt_state: Any):
 def params_from_jax(tree: Mapping[str, Any], opt_state: Any = None):
     """JAX ``Wav2Vec2AcousticModel``, ``Wav2Vec2Model``,
     ``HubertPretrainModel``, ``Data2VecAudioModel`` (a student or its EMA
-    teacher), ``Seq2Seq`` or ``Transducer`` params, or the paired
-    ``{'model': ..., 'loss': ...}`` params (a nested mapping of arrays,
-    e.g. ``jax.tree.map(np.asarray, params)``) -> the port's state dict
-    (for the paired tree, a ``models.dual_encoder.PairedModule``'s).
+    teacher), ``Seq2Seq``, ``Transducer`` or ``CausalTextLM`` params, or
+    the paired ``{'model': ..., 'loss': ...}`` params (a nested mapping of
+    arrays, e.g. ``jax.tree.map(np.asarray, params)``) -> the port's state
+    dict (for the paired tree, a ``models.dual_encoder.PairedModule``'s).
     Raises ``KeyError`` naming any JAX parameter left unmapped. An
     int8-quantized tree (JAX ``quantize_model_params``) gives the int8
     ``weight`` and ``weight_scale`` buffers of a model quantized with

@@ -3,9 +3,10 @@
 Host half: vocab IO, the letter/word tokenizer, and the subword-nmt BPE
 codec (learning merges, applying them with '@@' continuation pieces).
 Module half: the paired model's text towers (bag of words, and an
-rpr-attention transformer with a reduction) and the seq2seq model's
+rpr-attention transformer with a reduction), the seq2seq model's
 decoder (learned-positional embeddings, a pre-norm decoder stack, tied
-log-softmax output, KV-cached single-token steps).
+log-softmax output, KV-cached single-token steps) and the causal text LM
+of n-best rescoring (:class:`CausalTextLM`).
 
 The JAX module is a flax module, so the host functions are copies; they
 read the port's ``audio8_tpu_torch.utils.Offsets``. Parameter names are
@@ -18,13 +19,14 @@ from __future__ import annotations
 import contextlib
 import heapq
 import json
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
-from audio8_tpu_torch.config import DecoderConfig, TextEncoderConfig
+from audio8_tpu_torch.config import (DecoderConfig, TextEncoderConfig,
+                                     TextLMConfig)
 from audio8_tpu_torch.nn.embeddings import (LearnedPositionalEmbeddings,
                                             LookupTableEmbeddings)
 from audio8_tpu_torch.nn.pooling import MaxPool1D, MeanPool1D, Reduction
@@ -338,3 +340,46 @@ class TextTransformerDecoder(nn.Module):
         out, cache = self.transformer.step(embed, memory, src_mask, cache,
                                            cross_kv)
         return self._output(out)[:, 0], cache
+
+
+class CausalTextLM(nn.Module):
+    """Decoder-only text LM (``audio8_tpu/models/text.py:CausalTextLM``):
+    embeddings, the pre-norm rpr-attention stack under the causal mask,
+    and the tied log-softmax output computed in f32. Relative attention
+    (no absolute positions) scores any length, whatever the training
+    block. ``generator``: when given, the parameters get the JAX
+    package's random init drawn from it."""
+
+    def __init__(self, cfg: TextLMConfig, dtype: torch.dtype = torch.float32,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.config = cfg
+        self.embeddings = LookupTableEmbeddings(cfg.vocab_size, cfg.d_model,
+                                                dtype)
+        self.transformer = TextTransformerEncoderStack(
+            cfg.num_heads, cfg.d_model, cfg.num_layers, cfg.d_ff, dtype,
+            cfg.dropout, cfg.rpr_k, pre_norm=True)
+        if generator is not None:
+            for m in self.modules():
+                if hasattr(m, "init_from") and m is not self:
+                    m.init_from(generator)
+
+    def forward(self, ids: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """(B, L) token ids -> (B, L, V) f32 next-token log-probs (position
+        t predicts ``ids[:, t + 1]``); ``generator``: training mode."""
+        h = self.transformer(self.embeddings(ids), generator=generator,
+                             mask=subsequent_mask(ids.shape[1], ids.device))
+        return torch.log_softmax(self.embeddings.attend(h.float()), dim=-1)
+
+    def sequence_logp(self, ids: torch.Tensor,
+                      lengths: torch.Tensor) -> torch.Tensor:
+        """(B,) total log-prob of each row: the sum over 1 <= t < length
+        of ``log p(ids[t] | ids[:t])`` (``ids[:, 0]`` is the GO context;
+        the PAD tail is masked out)."""
+        lp = self(ids)
+        tgt = ids[:, 1:].long()
+        tok_lp = torch.gather(lp[:, :-1], 2, tgt[..., None])[..., 0]
+        pos = torch.arange(tgt.shape[1], device=ids.device)[None, :]
+        valid = pos < (lengths.to(ids.device)[:, None] - 1)
+        return torch.where(valid, tok_lp, torch.zeros_like(tok_lp)).sum(-1)

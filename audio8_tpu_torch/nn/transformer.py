@@ -33,7 +33,8 @@ a cache and T_q != T_k), so the port computes them as torch ops that
 follow the JAX code step by step (:meth:`MultiHeadAttention._composed`):
 q scaled in its own dtype before the product, under bf16 the logits and
 softmax in bf16 (``bf16_softmax``, no rpr), with rpr the logits summed
-in f32 and rounded to bf16 before the softmax, and ``attend_kv``'s
+in f32 (the relative term as q against the 2k+1 table rows, gathered)
+and rounded to bf16 before the softmax, and ``attend_kv``'s
 softmax in f32. Its probability dropout is the flat (B, H, T_q, T_k)
 hash mask of the JAX ``Dropout`` (``nn/dropout.py``: kernel 4 on the
 card).
@@ -379,10 +380,15 @@ class MultiHeadAttention(nn.Module):
         if position_bias is not None:
             logits = logits + position_bias.to(logits.dtype)
         if self.rpr_k is not None:
-            rel = self.rpr_key_emb(self._rel_ids(q.shape[2], k.shape[2],
-                                                 q_offset, q.device))
-            logits = logits + torch.einsum("bhqd,qkd->bhqk", q.float(),
-                                           rel.float())
+            # JAX's einsum("bhqd,qkd->bhqk", q, table[ids]) in f32 as q
+            # against each of the 2k+1 rows, then gathered by the ids: the
+            # same products, and its backward a scatter over 2k+1 bins
+            # where the (T_q, T_k, dh) lookup's took 0.5 s a step
+            ids = self._rel_ids(q.shape[2], k.shape[2], q_offset, q.device)
+            table = self.rpr_key_emb.embedding.to(self.compute_dtype)
+            per_id = torch.matmul(q.float(), table.float().t())
+            logits = logits + torch.gather(
+                per_id, -1, ids.expand(*per_id.shape[:-1], ids.shape[-1]))
         if mask is not None:
             logits = torch.where(mask, logits, torch.tensor(
                 NEG_INF, dtype=logits.dtype, device=logits.device))
@@ -567,15 +573,19 @@ class FFN(nn.Module):
 
 
 class TextEncoderLayer(nn.Module):
-    """Post-norm encoder layer under the JAX names (``self_attn``,
-    ``ffn``, ``ln_attn``, ``ln_ffn``), with relative positions: the text
-    tower's layer. The arithmetic is :class:`TransformerEncoderLayer`'s."""
+    """Encoder layer under the JAX names (``self_attn``, ``ffn``,
+    ``ln_attn``, ``ln_ffn``), with relative positions: post-norm for the
+    text tower, pre-norm (``pre_norm``) for the causal LM. The arithmetic
+    is :class:`TransformerEncoderLayer`'s; ``mask`` (broadcastable to (B,
+    H, T, T), True = attend) takes the attention's composition."""
 
     def __init__(self, num_heads: int, d_model: int, d_ff: int,
                  dtype: torch.dtype = torch.float32,
-                 dropout_rate: float = 0.1, rpr_k: Optional[int] = None):
+                 dropout_rate: float = 0.1, rpr_k: Optional[int] = None,
+                 pre_norm: bool = False):
         super().__init__()
         self.dropout_rate = dropout_rate
+        self.pre_norm = pre_norm
         self.self_attn = MultiHeadAttention(num_heads, d_model, dtype,
                                             dropout_rate, rpr_k=rpr_k,
                                             names="jax")
@@ -583,36 +593,50 @@ class TextEncoderLayer(nn.Module):
         self.ln_attn = LayerNorm(d_model, dtype)
         self.ln_ffn = LayerNorm(d_model, dtype)
 
-    def forward(self, x, key_valid=None, generator=None):
+    def forward(self, x, key_valid=None, generator=None, mask=None):
         rate = self.dropout_rate
-        x = x + dropout(self.self_attn(x, key_valid, generator), rate,
-                        generator)
+
+        def attn(h):
+            return self.self_attn(h, key_valid, generator, mask=mask)
+
+        if self.pre_norm:
+            x = x + dropout(attn(self.ln_attn(x)), rate, generator)
+            return x + dropout(self.ffn(self.ln_ffn(x)), rate, generator)
+        x = x + dropout(attn(x), rate, generator)
         x = self.ln_attn(x)
         x = x + dropout(self.ffn(x), rate, generator)
         return self.ln_ffn(x)
 
 
 class TextTransformerEncoderStack(nn.Module):
-    """The JAX ``TransformerEncoderStack`` as the text tower builds it:
-    post-norm, gelu, ``rpr_k`` relative positions on the keys, layers
-    ``layer_{i}``."""
+    """The JAX ``TransformerEncoderStack`` as the text models build it:
+    gelu, ``rpr_k`` relative positions on the keys, layers ``layer_{i}``;
+    post-norm (the paired text tower) or pre-norm with the final
+    ``ln_out`` (``pre_norm``, the causal LM under ``subsequent_mask``)."""
 
     def __init__(self, num_heads: int, d_model: int, num_layers: int,
                  d_ff: Optional[int] = None,
                  dtype: torch.dtype = torch.float32,
-                 dropout_rate: float = 0.1, rpr_k: Optional[int] = None):
+                 dropout_rate: float = 0.1, rpr_k: Optional[int] = None,
+                 pre_norm: bool = False):
         super().__init__()
         d_ff = d_ff or 4 * d_model
         self.num_layers = num_layers
         for i in range(num_layers):
             self.add_module(f"layer_{i}", TextEncoderLayer(
-                num_heads, d_model, d_ff, dtype, dropout_rate, rpr_k))
+                num_heads, d_model, d_ff, dtype, dropout_rate, rpr_k,
+                pre_norm))
+        if pre_norm:
+            self.ln_out = LayerNorm(d_model, dtype)
 
     def forward(self, x: torch.Tensor,
                 key_valid: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         for i in range(self.num_layers):
-            x = getattr(self, f"layer_{i}")(x, key_valid, generator)
+            x = getattr(self, f"layer_{i}")(x, key_valid, generator, mask)
+        if hasattr(self, "ln_out"):
+            x = self.ln_out(x)
         return x
 
 

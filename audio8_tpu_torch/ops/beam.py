@@ -2,22 +2,23 @@
 (``audio8_tpu/ops/beam.py``).
 
 :class:`PrefixBeamSearch` has the JAX package's interface (vocab_list,
-alpha, beta, beam, lm_file; blank = ``Offsets.GO``; '|' <-> ' '; the
-same ``run`` n-best convention), without ``device=``: the on-device
-search is ROADMAP.md queue 1, item 7. Every decode runs in the port's
-host library (``csrc/beam.cc``, ``csrc/arpa_lm.cc``), and its LM is read
-there too (:func:`_load_lm`). :func:`_prefix_beam_search_py` (Hannun et
-al. 2014's prefix search with a word-insertion bonus and LM fusion at
-word boundaries) is the plain version the tests hold it to; nothing
-else calls it.
+alpha, beta, beam, lm_file, device; blank = ``Offsets.GO``; '|' <-> ' ';
+the same ``run`` n-best convention). A decode runs in the port's host
+library (``csrc/beam.cc``, ``csrc/arpa_lm.cc``), which reads the LM too
+(:func:`_load_lm`), or, with ``device`` and no LM, batched on a device
+(``ops/beam_device.py``, the JAX ``beam_jax.py``).
+:func:`_prefix_beam_search_py` (Hannun et al. 2014's prefix search with
+a word-insertion bonus and LM fusion at word boundaries) is the plain
+version the tests hold it to; nothing else calls it.
 """
 from __future__ import annotations
 
 import math
 from collections import defaultdict
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Union
 
 import numpy as np
+import torch
 
 from audio8_tpu_torch.csrc import native
 from audio8_tpu_torch.ops.lm import ensure_arpa
@@ -143,11 +144,17 @@ def _prefix_beam_search_py(log_probs: np.ndarray, blank: int, beam: int,
 
 
 class PrefixBeamSearch:
-    """The JAX package's ``PrefixBeamSearch`` without ``device=``."""
+    """The JAX package's ``PrefixBeamSearch``. ``device`` (no-LM only, as
+    in JAX): False decodes row by row in the host library; True runs the
+    batched device search where the log-probs lie (a numpy array on the
+    CPU, a tensor on its own device, a CUDA one never copied to the
+    host); a torch device (or its name) runs it there, numpy log-probs
+    copied to it and tensors searched where they lie."""
 
     def __init__(self, vocab_list: Sequence[str], alpha: float = 0.2,
                  beta: float = 5.0, beam: int = 100,
-                 lm_file: Optional[str] = None):
+                 lm_file: Optional[str] = None,
+                 device: Union[bool, str, torch.device] = False):
         self.vocab_list = list(vocab_list)
         self.use_bar = "|" in self.vocab_list
         self.bar_off = self.vocab_list.index("|") if self.use_bar else -1
@@ -159,6 +166,10 @@ class PrefixBeamSearch:
         self.blank = Offsets.GO
         self._lm_file = lm_file
         self.lm = _load_lm(lm_file) if lm_file else None
+        if self.lm is not None or not device:
+            self.device = False
+        else:
+            self.device = True if device is True else torch.device(device)
 
     def _decode_one(self, lp: np.ndarray) -> List[List[int]]:
         lp32 = np.ascontiguousarray(lp, np.float32)
@@ -170,11 +181,22 @@ class PrefixBeamSearch:
             lp32, self.blank, self.beam, self.bar_off, self.alpha, self.beta,
             self.vocab_list, self.lm)
 
-    def run(self, log_probs: np.ndarray, frame_lengths=None, n_best=None,
+    def _device_nbest(self, log_probs, frame_lengths) -> list:
+        from audio8_tpu_torch.ops.beam_device import ctc_beam_search
+
+        if not torch.is_tensor(log_probs):
+            log_probs = torch.from_numpy(np.asarray(log_probs))
+            if self.device is not True:
+                log_probs = log_probs.to(self.device)
+        return ctc_beam_search(log_probs, frame_lengths, beam=self.beam,
+                               blank=self.blank, space=self.bar_off,
+                               beta=self.beta)[0]
+
+    def run(self, log_probs, frame_lengths=None, n_best=None,
             return_ids: bool = False):
-        """n-best transcriptions per batch row; at ``n_best=1`` the
-        singleton axis collapses, as in the reference."""
-        log_probs = np.asarray(log_probs)
+        """n-best transcriptions per batch row of (B, T, V) log-probs (a
+        numpy array, or a tensor); at ``n_best=1`` the singleton axis
+        collapses, as in the reference."""
         if n_best is None:
             n_best = self.beam
 
@@ -182,12 +204,21 @@ class PrefixBeamSearch:
             return t if return_ids else (
                 self.vocab_list[t] if t != self.bar_off else "|")
 
+        if self.device is not False:
+            rows = self._device_nbest(log_probs, frame_lengths)
+        else:
+            if torch.is_tensor(log_probs):
+                log_probs = log_probs.float().cpu().numpy()
+            log_probs = np.asarray(log_probs)
+            rows = []
+            for b in range(log_probs.shape[0]):
+                lp = log_probs[b]
+                if frame_lengths is not None:
+                    lp = lp[:int(frame_lengths[b])]
+                rows.append(self._decode_one(lp))
         out = []
-        for b in range(log_probs.shape[0]):
-            lp = log_probs[b]
-            if frame_lengths is not None:
-                lp = lp[:int(frame_lengths[b])]
-            nbest = self._decode_one(lp)[:n_best]
+        for row in rows:
+            nbest = row[:n_best]
             if n_best == 1:
                 out.append([transform(t) for t in (nbest[0] if nbest
                                                    else [])])

@@ -8,8 +8,9 @@ data2vec's carry fairseq's head names, ``final_proj`` and
 student as ``teacher-step-N.pt`` (the same layout, no resume file;
 :func:`load_teacher`); a seq2seq, paired or transducer one is
 the port's own ``.pt``, ``{"kind": kind, "model": state_dict}`` (no
-fairseq layout holds a decoder, a text tower or a predictor). Beside each is a resume file
-(``{base}-step-N.resume``, torch state dicts) that holds what a
+fairseq layout holds a decoder, a text tower or a predictor), and so is
+a text LM's (kind ``lm``, ``cli/train_lm.py``). Beside each is a
+resume file (``{base}-step-N.resume``, torch state dicts) that holds what a
 restart needs to continue the same run: the optimizer (``adamw`` with
 its moments, or ``sgd``) and its step count (the LR schedule's
 position), the trainer's step (in pretraining also the Gumbel
@@ -31,7 +32,7 @@ from audio8_tpu_torch.models.convert import (load_fairseq_pretrained,
 
 RESUME_SUFFIX = ".resume"
 KINDS = ("ctc", "pretrain", "hubert", "data2vec", "seq2seq", "paired",
-         "transducer")
+         "transducer", "lm")
 FAIRSEQ_KINDS = ("ctc", "pretrain", "hubert", "data2vec")
 TEACHER_BASE = "teacher"
 
@@ -63,8 +64,8 @@ def resume_path(checkpoint: str) -> str:
 
 def save_checkpoint(state, path: str, kind: str) -> str:
     """Write ``state.model`` at ``path`` (a fairseq ``.pt``, CTC or
-    pretrained, or the port's own seq2seq, paired or transducer ``.pt``,
-    by ``kind``)
+    pretrained, or the port's own seq2seq, paired, transducer or LM
+    ``.pt``, by ``kind``)
     and the resume file beside it."""
     if kind not in KINDS:
         raise ValueError(f"kind {kind!r}: want one of {KINDS}")
@@ -133,8 +134,8 @@ def load_resume(state, checkpoint: str, kind: str) -> Optional[int]:
 
 
 def load_port_checkpoint(path: str, kind: str) -> Optional[dict]:
-    """The state dict of a seq2seq, paired or transducer ``.pt`` the port
-    wrote, if
+    """The state dict of a seq2seq, paired, transducer or LM ``.pt`` the
+    port wrote, if
     ``path`` is one of this ``kind``, else ``None``."""
     try:
         blob = torch.load(path, map_location="cpu", weights_only=True)

@@ -3,7 +3,7 @@ and data2vec pretraining, seq2seq, paired pretraining and RNN-T
 (``audio8_tpu/train/steps.py``: ``make_ctc_steps``,
 ``make_pretrain_steps``, ``make_hubert_steps``, ``make_data2vec_steps``,
 ``make_seq2seq_steps``, ``make_paired_steps``,
-``make_transducer_steps``).
+``make_transducer_steps``, ``make_lm_steps``).
 
 CTC: ``grad_fn`` runs one forward and backward and returns the summed loss,
 one gradient per parameter (zeros for parameters that got none, as JAX
@@ -40,7 +40,8 @@ leaf. RNN-T: CTC's conventions (blank = GO, the ``sum`` loss scaled by
 ``train_step`` for ``--grad_accum 1``, padding rows weighted out) over
 ``ops.transducer.transducer_loss`` with either backward route;
 ``decode_fn`` decodes greedily or, with ``beam > 1``, returns the beam
-search's 1-best.
+search's 1-best. Text LM: the token-mean NLL of packed blocks, clipped,
+then AdamW.
 """
 from __future__ import annotations
 
@@ -459,3 +460,38 @@ def make_transducer_steps(model, clip: float = 25.0,
 
     grad_fn.train_step = train_step
     return grad_fn, _scaled_update(clip), decode_fn, eval_loss_fn
+
+
+def make_lm_steps(model, clip: float = 1.0):
+    """Returns ``(train_step, eval_fn)`` for causal text-LM training of a
+    ``models.text.CausalTextLM`` (``cli/train_lm.py``). Batches are
+    ``{"ids": (B, L + 1)}`` packed token blocks: position t predicts
+    t + 1, and PAD targets (the tail of the last partial block) are
+    masked out of the token-mean NLL. ``train_step(state, batch,
+    generator)`` clips the gradient at ``clip`` and steps the
+    :class:`~audio8_tpu_torch.train.optim.TrainState`, returning
+    ``(state, {"loss", "tokens", "grad_norm"})``; ``eval_fn(batch)``
+    returns ``(loss, tokens)`` without dropout."""
+    pad = Offsets.PAD
+
+    def nll(ids, generator):
+        lp = model(ids[:, :-1], generator=generator)
+        tgt = ids[:, 1:].long()
+        tok_lp = torch.gather(lp, 2, tgt[..., None])[..., 0]
+        valid = (tgt != pad).float()
+        n = torch.clamp(valid.sum(), min=1.0)
+        return -(tok_lp * valid).sum() / n, n
+
+    def train_step(state, batch, generator):
+        for p in model.parameters():
+            p.grad = None
+        loss, ntok = nll(batch["ids"], generator)
+        gnorm = _step_grads(model, state, loss, clip)
+        return state, {"loss": loss.detach(), "tokens": ntok,
+                       "grad_norm": gnorm}
+
+    @torch.no_grad()
+    def eval_fn(batch):
+        return nll(batch["ids"], None)
+
+    return train_step, eval_fn

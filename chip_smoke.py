@@ -4,7 +4,8 @@
 Drives the port's serving path, its CTC fine-tuning path, its
 contrastive pretraining path, its seq2seq path, its paired audio-text
 path, its RNN-T path (training, decoding, streaming, serving, eval
-and export) and its HuBERT and data2vec pretraining paths at full
+and export), its HuBERT and data2vec pretraining paths, and its
+decoders' device beam, text-LM trainer and n-best rescoring at full
 wav2vec2-base width with seeded random weights, the trainers' remat,
 SGD, augmentation and profiler flags, KenLM binaries written by the port
 and the text tower's warm start, the pretraining path again through the
@@ -212,11 +213,12 @@ instead, to compare.
     lv60_train - ``cli.pretrain --preset large-lv60`` for 2 steps (conv
               bias and layer-mode norms through kernels 3b and 3c), then
               ``cli.train --preset large-lv60 --layer_drop 0.1
-              --restart_from`` its ``.pt`` for 4 steps in f32 and in bf16,
-              one unfrozen step card vs CPU (``lv60_vs_cpu``, the
-              train_vs_cpu gates, LayerDrop off), and kernels 1, 2, 2b,
-              3, 3b, 3c, 4 and 5 against their plain versions at every
-              shape those runs gave them;
+              --restart_from`` its ``.pt`` for 4 steps in f32 and in bf16
+              (on SGD, to keep the full run's disk writes under the
+              machine's cap), one unfrozen step card vs CPU
+              (``lv60_vs_cpu``, the train_vs_cpu gates, LayerDrop off),
+              and kernels 1, 2, 2b, 3, 3b, 3c, 4 and 5 against their
+              plain versions at every shape those runs gave them;
     lv60_block - pretraining steps of the LV-60 model through the
               attention block (``fused_attention="block"``, d_model 1024,
               pre-norm: 24 block forwards and backwards a step, no core
@@ -318,6 +320,35 @@ instead, to compare.
               and a restart whose teacher is bitwise the saved one (the
               three on SGD, whose checkpoints carry no moments); the
               bytes the phase wrote;
+21. decode  - the device beam (``ops/beam_device.py``) at beams 8 and
+              100 on one (4, 30 s) batch of (4, 1499, 32) log-probs shaped
+              like a trained model's, timed on the card (ms per batch,
+              audio-s/s) beside the host library's search; its n-best
+              equal to the same search on the CPU (every row at beam 8,
+              the two shorter at beam 100; scores within 1e-4), every
+              rank equal to the host search's unless a near tie (beam
+              100 also with the word bonus, that search run under
+              ``torch.cuda.set_sync_debug_mode("error")``; at beam 8 the
+              host search's symbol pruning splits them with it);
+              ``cli.train_lm`` at its JAX defaults (512 wide, 8 heads, 6
+              layers, 2048, rpr_k 8, block 512, batch 32, dropout 0.1) on
+              a synthetic transcript corpus, 3 f32 and 2 bf16 steps:
+              kernel 4's launches as the code predicts (its forward
+              dropouts, each again in the backward), kernel 5's once a
+              step, step ms, tokens/s, peak memory, a traced step's
+              device ms, idle share and costliest kernels; one step card
+              vs CPU
+              (loss 1e-4, gradient norm 1e-3); kernels 4 and 5 against
+              their plain versions at the LM's shapes; ``cli.test --beam
+              8 --lm_rescore`` that LM on the CTC cell's ``ctc.pt`` over
+              6 clips of 1.5-15 s with and without ``--device_beam``:
+              kernel 1 once per utterance, kernels 2 and 3 once per
+              forward, picks equal to the CPU's on the card's log-probs
+              but near ties, the host ms per utterance of the beam, the
+              CTC recompute and the LM; kernel 1 against its plain
+              version at the rescoring shape; ``cli.test --transducer
+              --beam 4 --lm_rescore`` on phase 19's transducer at its
+              JAX defaults (a random one when phase 21 runs alone);
 
 then a ``phase_seconds`` line (each phase's wall seconds and each phase's
 retried profiler traces, ``trace_retries``), a ``kernels``
@@ -339,6 +370,7 @@ card it exits with code 2 and prints no result.
     python3 chip_smoke.py --trainer-phases   # the build and phase 18 only
     python3 chip_smoke.py --transducer-phases  # the build and phase 19 only
     python3 chip_smoke.py --ssl-phases       # the build and phase 20 only
+    python3 chip_smoke.py --decode-phases    # the build and phase 21 only
 
 ``--block-timing`` builds the block's two sources and prints only the
 attention block's timing rows (phase 14) in float32 and bfloat16, then
@@ -370,7 +402,9 @@ tree (two trees in turns in one call).
 paired corpus itself). ``--transducer-phases`` runs the build and phase
 19 alone (it writes the train phase's corpus and warm-starts from a
 random CTC model's ``.pt``). ``--ssl-phases`` runs the build and phase
-20 alone and ends with the last line of a full run.
+20 alone and ends with the last line of a full run, and
+``--decode-phases`` phase 21 likewise (on a random CTC model's
+``ctc.pt``).
 ``--freeze-timing`` times the frozen seq2seq and paired steps at full
 width (random weights) in float32 and bfloat16 two ways, in turns: as
 the port runs them, a frozen tower under ``torch.no_grad()``, and with
@@ -4581,10 +4615,10 @@ def phase_lv60_train(tmp: str, seed: int, gen) -> tuple:
     """``cli.pretrain --preset large-lv60`` for 2 steps (the conv bias and
     the layer-mode norms through kernels 3b and 3c), then ``cli.train
     --preset large-lv60 --layer_drop 0.1 --restart_from`` its ``.pt`` for
-    4 steps in f32 and in bf16; one unfrozen step card vs CPU at the same
-    weights (``layer_drop`` 0, the train_vs_cpu gates); kernels 1, 2,
-    2b, 3, 3b, 3c, 4 and 5 against their plain versions at every shape
-    the runs gave them. Returns the launch counts, the max errors and the
+    4 steps in f32 and in bf16 (on SGD); one unfrozen step card vs CPU at
+    the same weights (``layer_drop`` 0, the train_vs_cpu gates); kernels
+    1, 2, 2b, 3, 3b, 3c, 4 and 5 against their plain versions at every
+    shape the runs gave them. Returns the launch counts, the max errors and the
     pretraining batches' (rows, samples)."""
     from audio8_tpu_torch.cli import pretrain
     from audio8_tpu_torch.cli.train import train
@@ -4623,7 +4657,10 @@ def phase_lv60_train(tmp: str, seed: int, gen) -> tuple:
     corpus = os.path.join(tmp, "corpus")
     train_launches = {k: 0 for k in LV60_PATH}
     with recorded_path_calls(calls), recorded_ctc_calls(ctc_calls):
-        for dtype_flag in ([], ["--bf16"]):
+        # the bf16 run steps SGD: its resume files hold no moments, which
+        # keeps the full run's disk writes under the machine's cap (each
+        # of its two saves wrote 3.8 GB on AdamW)
+        for dtype_flag in ([], ["--bf16", "--optim", "sgd"]):
             reset_launches()
             gc.collect()
             torch.cuda.reset_peak_memory_stats()
@@ -4648,7 +4685,8 @@ def phase_lv60_train(tmp: str, seed: int, gen) -> tuple:
                   "peak_memory_gb":
                       torch.cuda.max_memory_allocated() / 1e9})
             for k in LV60_PATH:
-                if k not in ("conv_k3s2_dgrad", "conv_k3s2_wgrad"):
+                if k not in ("conv_k3s2_dgrad", "conv_k3s2_wgrad") and (
+                        k != "adamw" or not dtype_flag):
                     check(launches[k] > 0, f"lv60 train: {k} not launched")
                 train_launches[k] += launches[k]
             params = [tuple(p.shape) for p in state.params]
@@ -7704,6 +7742,562 @@ def ssl_phases(gen) -> int:
     return 0
 
 
+# phase 21: the device beam, the text LM and n-best rescoring
+DECODE_PHASES = ("decode_beam", "decode_lm", "decode_rescore")
+BEAM_WIDTHS = (8, 100)  # a serving beam and PrefixBeamSearch's default
+BEAM_SECONDS = (30.0, 24.0, 11.0, 4.0)  # one ragged (4, 30 s) batch
+BEAM_BLANK, BEAM_SPACE = 0, 4  # fairseq's <s> and '|' in the letter dict
+# the word bonus of the timed searches, and cli.test's --beta, held to the
+# host search at beam 100 only: the host search extends each frame's
+# max(beam, 16) likeliest symbols, the device search (JAX's) every one,
+# so at beam 8 a bonus-earning unlikely space splits them by design
+BEAM_BETA, BONUS_BETA = 0.0, 5.0
+BEAM_TIE = 1e-3  # two search scores this close are a near tie
+BEAM_CPU_RTOL = 1e-4  # the card's search scores against the CPU's
+BEAM_CPU_FRAMES = {8: 1499, 100: 549}  # the CPU's loop: every row at beam
+# 8, the two shorter rows at beam 100 (the whole batch took 9.5 s there)
+LM_TEXT_LINES = (3000, 100)  # train and valid transcript lines
+LM_RUNS = {"f32": ["--train_steps", "3", "--steps_per_checkpoint", "3"],
+           "bf16": ["--train_steps", "2", "--steps_per_checkpoint", "2",
+                    "--bf16"]}
+LM_CPU_ROWS = 2  # the card-vs-CPU step's packed blocks
+RESCORE_BEAM = 8
+RESCORE_CLIPS = 6  # of 1.5-15 s
+RESCORE_CPU_UTTS = 2  # the shortest utterances, whose picks the CPU redoes
+RNNT_RESCORE_BEAM = 4
+RNNT_RESCORE_CLIPS = 2  # the shortest clips
+
+
+def decode_log_probs(seed: int) -> tuple:
+    """(4, 1499, 32) CTC log-probs of the shape a trained model gives
+    (``peaky_log_probs``) over BEAM_SECONDS of letters at about 14 a
+    second, words of 2-9 letters, and each row's frame count."""
+    from audio8_tpu_torch.config import CONV_FEATURES, conv_output_length
+
+    rng = np.random.default_rng(seed + 70)
+    frames = [conv_output_length(int(s * SR), CONV_FEATURES[16])
+              for s in BEAM_SECONDS]
+    v = 4 + len(LETTERS)
+    lp = np.full((len(frames), frames[0], v), -np.log(v), np.float32)
+    for b, n in enumerate(frames):
+        labels = []
+        while len(labels) < int(14 * BEAM_SECONDS[b]):
+            labels += list(rng.integers(5, v, size=rng.integers(2, 10)))
+            labels.append(BEAM_SPACE)
+        lp[b, :n] = peaky_log_probs(np.array(labels), n, v, BEAM_BLANK, rng)
+    return lp, frames
+
+
+def near_tie_ranks(scores: np.ndarray) -> set:
+    """The ranks whose score is within BEAM_TIE of a neighbour's or of
+    the last kept one (where a search may keep either of two)."""
+    k = len(scores)
+    return {r for r in range(k)
+            if (r > 0 and scores[r - 1] - scores[r] <= BEAM_TIE)
+            or (r + 1 < k and scores[r] - scores[r + 1] <= BEAM_TIE)
+            or scores[r] - scores[-1] <= BEAM_TIE}
+
+
+def decode_beam(seed: int) -> dict:
+    """The device beam on the card on one (4, 30 s) batch of log-probs:
+    first the widest beam with the word bonus under
+    ``torch.cuda.set_sync_debug_mode("error")`` (the warm-up), held to
+    the host library's search; then at each of BEAM_WIDTHS without it, ms
+    per batch and audio-s/s, n-best equal to the same search on the CPU
+    (every row at beam 8, the rows of BEAM_CPU_FRAMES at beam 100),
+    scores within BEAM_CPU_RTOL, and against the host search per row (ms
+    per batch too) every rank equal unless a near tie, top-1 included."""
+    from audio8_tpu_torch.csrc import native
+    from audio8_tpu_torch.ops.beam_device import (backtrace, beam_search,
+                                                  ctc_beam_search)
+
+    lp, frames = decode_log_probs(seed)
+    lp_gpu = torch.from_numpy(lp).cuda()
+    fl_gpu = torch.tensor(frames, device="cuda")
+    audio_s = sum(BEAM_SECONDS)
+    out = {"shape": list(lp.shape), "frames": frames, "beta": BEAM_BETA}
+
+    def against_host(k, beta, nbest, scores) -> tuple:
+        t0 = time.perf_counter()
+        host = [native.prefix_beam_search(
+            np.ascontiguousarray(lp[b, :n]), BEAM_BLANK, k, BEAM_SPACE, 0.0,
+            beta) for b, n in enumerate(frames)]
+        host_s = time.perf_counter() - t0
+        ties, off = 0, []
+        for b in range(len(frames)):
+            tied = near_tie_ranks(scores[b])
+            for r in range(min(k, len(host[b]))):
+                if host[b][r] != nbest[b][r]:
+                    if r in tied:
+                        ties += 1
+                    else:
+                        off.append((b, r))
+        check(not off, f"device beam {k}, beta {beta}: ranks {off[:5]} "
+              "differ from the host search without a near tie")
+        return host_s, ties
+
+    # first the widest beam with the word bonus, under the sync check (it
+    # is also the loop's warm-up), against the host search
+    k = BEAM_WIDTHS[-1]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        parents, tokens, scores = beam_search(
+            lp_gpu, fl_gpu, beam=k, blank=BEAM_BLANK, space=BEAM_SPACE,
+            beta=BONUS_BETA)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    out["no_host_sync"] = {"beam": k, "frames": frames[0]}
+    nbest = backtrace(parents.cpu().numpy(), tokens.cpu().numpy())
+    _, ties = against_host(k, BONUS_BETA, nbest, scores.cpu().numpy())
+    out[f"beam{k}_bonus"] = {"beta": BONUS_BETA,
+                             "rank_differences_at_near_ties": ties,
+                             "top1_labels": [len(nb[0]) for nb in nbest]}
+    for k in BEAM_WIDTHS:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        parents, tokens, scores = beam_search(
+            lp_gpu, fl_gpu, beam=k, blank=BEAM_BLANK, space=BEAM_SPACE,
+            beta=BEAM_BETA)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        nbest = backtrace(parents.cpu().numpy(), tokens.cpu().numpy())
+        scores = scores.cpu().numpy()
+        # the CPU runs the same search on the rows whose frames fit a
+        # BEAM_CPU_FRAMES loop (rows are independent: tested on the CPU)
+        rows = [b for b, n in enumerate(frames) if n <= BEAM_CPU_FRAMES[k]]
+        n_cpu = max(frames[b] for b in rows)
+        t0 = time.perf_counter()
+        cpu_nbest, cpu_scores = ctc_beam_search(
+            lp[rows, :n_cpu], [frames[b] for b in rows], beam=k,
+            blank=BEAM_BLANK, space=BEAM_SPACE, beta=BEAM_BETA)
+        cpu_s = time.perf_counter() - t0
+        score_err = float(np.abs(scores[rows] - cpu_scores).max()
+                          / max(1.0, np.abs(cpu_scores).max()))
+        same = [nbest[b] for b in rows] == cpu_nbest
+        check(same and score_err <= BEAM_CPU_RTOL,
+              f"device beam {k}: card vs CPU n-best equal {same}, score "
+              f"rel err {score_err}")
+        host_s, ties = against_host(k, BEAM_BETA, nbest, scores)
+        out[f"beam{k}"] = {
+            "ms_per_batch": 1e3 * wall, "audio_s_per_s": audio_s / wall,
+            "host_ms_per_batch": 1e3 * host_s,
+            "host_audio_s_per_s": audio_s / host_s,
+            "cpu_rows": rows, "cpu_device_search_ms": 1e3 * cpu_s,
+            "card_vs_cpu_score_rel_err": score_err,
+            "rank_differences_at_near_ties": ties,
+            "top1_labels": [len(nb[0]) for nb in nbest]}
+    return out
+
+
+def write_lm_text(root: str, seed: int) -> None:
+    """Letter transcripts (``train.ltr``, ``valid.ltr``) of LM_TEXT_LINES
+    lines of 4-30 Zipf words over 5 000 words, and the letter dict."""
+    rng = np.random.default_rng(seed + 72)
+    words, p = zipf_words(rng, 5000)
+    with open(os.path.join(root, "dict.ltr.txt"), "w") as fh:
+        fh.writelines(f"{c} {1000 - i}\n" for i, c in enumerate(LETTERS))
+    for split, n in zip(("train", "valid"), LM_TEXT_LINES):
+        with open(os.path.join(root, f"{split}.ltr"), "w") as fh:
+            for _ in range(n):
+                line = rng.choice(len(words), size=rng.integers(4, 31), p=p)
+                fh.write(" ".join(" ".join(words[i]) + " |"
+                                  for i in line) + "\n")
+
+
+def lm_predicted_dropouts() -> int:
+    """The hash-dropout calls of one training forward of the LM at the
+    JAX defaults' depth and rate (a 32-wide copy on the CPU)."""
+    from audio8_tpu_torch.config import TextLMConfig
+    from audio8_tpu_torch.models.text import CausalTextLM
+
+    model = CausalTextLM(TextLMConfig(vocab_size=4 + len(LETTERS),
+                                      d_model=32, num_heads=2, d_ff=64),
+                         generator=torch.Generator().manual_seed(0))
+    return counted_dropouts(lambda: model(
+        torch.ones((2, 9), dtype=torch.long),
+        generator=torch.Generator().manual_seed(0)))
+
+
+def lm_vs_cpu(corpus: str, seed: int) -> dict:
+    """One LM step at the JAX defaults' width (dropout 0.1) on
+    LM_CPU_ROWS packed blocks, on the card and on the CPU from the same
+    weights and seeds: loss within 1e-4, gradient norm within 1e-3."""
+    from audio8_tpu_torch.cli.train_lm import pack_token_stream
+    from audio8_tpu_torch.config import TextLMConfig
+    from audio8_tpu_torch.models.text import (CausalTextLM, TextVectorizer,
+                                              read_vocab_list)
+    from audio8_tpu_torch.train.optim import (TrainState, create_lrs,
+                                              create_optimizer)
+    from audio8_tpu_torch.train.steps import make_lm_steps
+
+    vocab = read_vocab_list(os.path.join(corpus, "dict.ltr.txt"))
+    blocks = pack_token_stream(
+        [os.path.join(corpus, "train.ltr")],
+        TextVectorizer({v: i for i, v in enumerate(vocab)}), 512, seed)
+    ids = torch.from_numpy(blocks[:LM_CPU_ROWS])
+    cfg = TextLMConfig(vocab_size=len(vocab))
+    weights = CausalTextLM(cfg, generator=torch.Generator().manual_seed(
+        seed + 73)).state_dict()
+    res = {}
+    for dev in ("cuda", "cpu"):
+        model = CausalTextLM(cfg).to(dev)
+        model.load_state_dict(weights)
+        state = TrainState(model, create_optimizer(
+            create_lrs(3e-4, 10, warmup_steps=1), weight_decay=0.01))
+        step, _ = make_lm_steps(model, clip=1.0)
+        _, m = step(state, {"ids": ids.to(dev)},
+                    torch.Generator().manual_seed(seed))
+        res[dev] = (float(m["loss"]), float(m["grad_norm"]))
+        del model, state
+    torch.cuda.empty_cache()
+    out = {"loss": res["cuda"][0], "cpu_loss": res["cpu"][0],
+           "grad_norm": res["cuda"][1], "cpu_grad_norm": res["cpu"][1],
+           "loss_rel_err": rel(res["cuda"][0], res["cpu"][0]),
+           "grad_norm_rel_err": rel(res["cuda"][1], res["cpu"][1])}
+    check(out["loss_rel_err"] <= 1e-4 and out["grad_norm_rel_err"] <= 1e-3,
+          f"LM step card vs CPU {out}")
+    return out
+
+
+def lm_step_trace(state, make_lm_steps, gen) -> dict:
+    """Where an LM step's time goes: the trained state's step on a batch
+    of 32 random blocks, its device ms and idle share from one traced
+    window, and its eight costliest kernels."""
+    cfg = state.model.config
+    ids = torch.randint(4, cfg.vocab_size, (32, cfg.block_len + 1),
+                        device="cuda", generator=gen)
+    step, _ = make_lm_steps(state.model, clip=1.0)
+    g = torch.Generator().manual_seed(0)
+
+    def fn():
+        step(state, {"ids": ids}, g)
+
+    window = traced_window(fn, calls=1)
+    by_name = traced_or_none(fn)
+    return {"trace": window, "top_kernels_ms": [
+        [n[:90], ms] for n, ms in sorted(by_name.items(),
+                                         key=lambda kv: -kv[1])[:8]]
+        if by_name else None}
+
+
+def decode_lm(tmp: str, seed: int, gen) -> tuple:
+    """``cli.train_lm`` at its JAX defaults (512 wide, 8 heads, 6 layers,
+    2048, rpr_k 8, block 512, batch 32, dropout 0.1, AdamW) on a
+    synthetic transcript corpus, f32 then bf16: finite losses, kernel 4's
+    launches per step as the code predicts (each forward dropout again
+    in the backward) and kernel 5's once a step, no other kernel; step
+    ms, tokens/s and peak memory; one step card vs CPU; kernels 4 and 5
+    against their plain versions at the run's shapes. Returns (results,
+    the f32 run's basedir, the runs' launches, the kernels' errors)."""
+    from audio8_tpu_torch.cli import train_lm
+    from audio8_tpu_torch.train.steps import make_lm_steps
+
+    corpus = os.path.join(tmp, "lm_corpus")
+    os.makedirs(corpus, exist_ok=True)
+    write_lm_text(corpus, seed)
+    per_step = 2 * lm_predicted_dropouts()
+    base = ["--text", os.path.join(corpus, "train.ltr"), "--valid_text",
+            os.path.join(corpus, "valid.ltr"), "--dict_file",
+            os.path.join(corpus, "dict.ltr.txt"), "--warmup_steps", "1",
+            "--device", "cuda"]
+    out, total = {"predicted_dropouts_per_step": per_step}, {}
+    for name, flags in LM_RUNS.items():
+        basedir = os.path.join(tmp, f"lm_{name}")
+        reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            state = train_lm.train(base + ["--basedir", basedir, *flags])
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        steps = len(state.log)
+        want = {k: 0 for k in launches}
+        want.update(dropout=per_step * steps, adamw=steps)
+        check(launches == want, f"train_lm {name}: launches {launches} "
+              f"!= {want}")
+        check(all(math.isfinite(r["loss"]) for r in state.log)
+              and state.valid and math.isfinite(state.valid[-1]["valid_nll"]),
+              f"train_lm {name}: {state.log} {state.valid}")
+        timed_steps = state.log[1:]
+        ms = [1e3 * r["seconds"] for r in timed_steps]
+        out[name] = {"wall_s": wall, "steps": steps,
+                     "losses": [r["loss"] for r in state.log],
+                     "valid": state.valid[-1], "step_ms": ms,
+                     "tokens_per_s": [r["tokens"] / r["seconds"]
+                                      for r in timed_steps],
+                     "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                     "parameters": sum(p.numel() for p in
+                                       state.model.parameters()),
+                     "launches": launches}
+        for k, n in launches.items():
+            total[k] = total.get(k, 0) + n
+        with timed("decode_lm_trace"):
+            out[name].update(lm_step_trace(state, make_lm_steps, gen))
+        if name == "f32":
+            shapes = [tuple(p.shape) for p in state.model.parameters()]
+            cfg = state.model.config
+        del state
+        torch.cuda.empty_cache()
+    with timed("decode_lm_vs_cpu"):
+        out["vs_cpu"] = lm_vs_cpu(corpus, seed)
+    rows, t = 32, cfg.block_len
+    worst = {"dropout": 0.0, "adamw": 0.0}
+    with timed("decode_lm_kernel"):
+        for dtype in (torch.float32, torch.bfloat16):
+            for shape in ((rows, t, cfg.d_model),
+                          (rows, cfg.num_heads, t, t)):
+                worst["dropout"] = max(worst["dropout"], check_dropout(
+                    "decode_kernel", shape, dtype, gen))
+        worst["adamw"] = check_adamw("decode_kernel", shapes, gen)
+    torch.cuda.empty_cache()
+    return out, os.path.join(tmp, "lm_f32"), total, worst
+
+
+def write_rescore_corpus(root: str, seed: int) -> None:
+    """RESCORE_CLIPS WAVs of 1.5-15 s with letter transcripts, their
+    manifest and the letter dict; and ``rnnt.tsv``, the shortest
+    RNNT_RESCORE_CLIPS of them."""
+    from scipy.io import wavfile
+
+    rng = np.random.default_rng(seed + 74)
+    with open(os.path.join(root, "dict.ltr.txt"), "w") as fh:
+        fh.writelines(f"{c} {1000 - i}\n" for i, c in enumerate(LETTERS))
+    rows, texts = [], []
+    for i in range(RESCORE_CLIPS):
+        seconds = float(rng.uniform(1.5, 15.0))
+        wav = synthetic_speechlike(seconds, rng)
+        wavfile.write(os.path.join(root, f"r{i}.wav"), SR,
+                      (np.clip(wav, -1, 1) * 32767).astype(np.int16))
+        rows.append((f"r{i}.wav", len(wav)))
+        texts.append(" ".join(rng.choice(LETTERS[1:], size=int(
+            14 * seconds))) + " |")
+    short = sorted(range(len(rows)), key=lambda j: rows[j][1])
+    for stem, keep in (("valid", range(len(rows))),
+                       ("rnnt", short[:RNNT_RESCORE_CLIPS])):
+        with open(os.path.join(root, f"{stem}.tsv"), "w") as tf, \
+                open(os.path.join(root, f"{stem}.ltr"), "w") as lf:
+            tf.write(root + "\n")
+            for j in keep:
+                tf.write(f"{rows[j][0]}\t{rows[j][1]}\n")
+                lf.write(texts[j] + "\n")
+
+
+def text_ids(text: str, vocab_list) -> list:
+    """A beam transcript of ``cli.test`` back to its ids: each symbol is
+    one character or a bracketed special (``<pad>``), '|' the space."""
+    import re
+
+    index = {v: i for i, v in enumerate(vocab_list)}
+    return [index[t] for t in re.findall(r"<[^>]*>|.", text)]
+
+
+def rescore_on_cpu(outputs, vocab_list, lm_dir: str, device_beam: bool
+                   ) -> dict:
+    """The RESCORE_CPU_UTTS shortest utterances' picks recomputed on the
+    CPU from the card's log-probs: the n-best of the search ``cli.test`` ran
+    (the host library's, or the device search on the card), the exact
+    CTC and the LM on the CPU, whose pick must be the card's or within a
+    near tie of it; the CTC kernel's and the card LM's scores against the
+    CPU's; with the device search, whether the CPU's own device search
+    gave the same n-best (flat log-probs of a random model put near ties
+    at the beam's cut, where the two may keep different prefixes)."""
+    from audio8_tpu_torch.ops.beam import PrefixBeamSearch
+    from audio8_tpu_torch.ops.rescore import (NeuralLMRescorer,
+                                              ctc_label_logp)
+
+    search = PrefixBeamSearch(vocab_list, alpha=0.7, beta=5.0,
+                              beam=RESCORE_BEAM,
+                              device="cuda" if device_beam else False)
+    cpu_search = PrefixBeamSearch(vocab_list, alpha=0.7, beta=5.0,
+                                  beam=RESCORE_BEAM, device=device_beam)
+    cpu = NeuralLMRescorer(lm_dir, alpha=0.5, word_bonus=0.0)
+    card = NeuralLMRescorer(lm_dir, alpha=0.5, word_bonus=0.0,
+                            device="cuda")
+    res = {"equal": 0, "near_tie": 0, "ctc_rel_err": 0.0,
+           "lm_rel_err": 0.0, "cpu_search_equal": []}
+    for o in sorted(outputs, key=lambda o: len(o["log_probs"])
+                    )[:RESCORE_CPU_UTTS]:
+        lp = o["log_probs"]
+        hyps = search.run(lp[None], [len(lp)], n_best=RESCORE_BEAM,
+                          return_ids=True)[0]
+        if device_beam:
+            res["cpu_search_equal"].append(hyps == cpu_search.run(
+                lp[None], [len(lp)], n_best=RESCORE_BEAM,
+                return_ids=True)[0])
+        ac = ctc_label_logp(lp, len(lp), hyps)
+        ac_card = ctc_label_logp(torch.from_numpy(lp).cuda(), len(lp), hyps)
+        lm = cpu.lm_logp(hyps)
+        lm_card = card.lm_logp(hyps)
+        res["ctc_rel_err"] = max(res["ctc_rel_err"], float(
+            np.abs(ac - ac_card).max() / max(1.0, np.abs(ac).max())))
+        res["lm_rel_err"] = max(res["lm_rel_err"], float(
+            np.abs(lm - lm_card).max() / max(1.0, np.abs(lm).max())))
+        total = np.where([len(h) == 0 for h in hyps], -np.inf,
+                         ac + cpu.alpha * lm)
+        mine = int(np.argmax(total))
+        picked = text_ids(o["beam"], vocab_list)
+        check(picked in hyps, f"rescore: the card's pick {o['beam']!r} is "
+              "not in the search's n-best")
+        theirs = hyps.index(picked)
+        if theirs == mine:
+            res["equal"] += 1
+        else:
+            gap = abs(total[mine] - total[theirs])
+            check(gap <= BEAM_TIE * max(1.0, abs(total[mine])),
+                  f"rescore: card pick {theirs} vs CPU {mine}, gap {gap}")
+            res["near_tie"] += 1
+    check(res["ctc_rel_err"] <= 1e-4 and res["lm_rel_err"] <= 1e-3,
+          f"rescore scores card vs CPU {res}")
+    return res
+
+
+def decode_rescore(tmp: str, seed: int, lm_dir: str, gen) -> tuple:
+    """``cli.test --beam RESCORE_BEAM --lm_rescore`` the f32 LM on the CTC
+    cell's ``ctc.pt`` (a random base model's when phase 21 runs alone)
+    over RESCORE_CLIPS clips, with and without ``--device_beam``: kernel
+    1 once per utterance, kernels 2 and 3 once per forward, the picks
+    the CPU's but near ties (:func:`rescore_on_cpu`), the host ms per
+    utterance of the beam, the CTC recompute and the LM; kernel 1
+    against its plain version at the rescoring shape; then ``cli.test
+    --transducer --beam RNNT_RESCORE_BEAM --lm_rescore`` on the RNN-T
+    cell's f32 checkpoint (a random transducer at its JAX defaults when
+    the phase runs alone) over the shortest clips. Returns
+    (results, the CTC runs' launches, kernel 1's error)."""
+    from audio8_tpu_torch.cli import test as test_cli
+    from audio8_tpu_torch.config import TransducerConfig
+    from audio8_tpu_torch.models.convert import save_fairseq_ctc
+    from audio8_tpu_torch.models.text import read_vocab_list
+    from audio8_tpu_torch.models.transducer import Transducer
+    from audio8_tpu_torch.models.wav2vec2 import Wav2Vec2AcousticModel
+    from audio8_tpu_torch.utils import Offsets
+
+    corpus = os.path.join(tmp, "rescore_corpus")
+    os.makedirs(corpus, exist_ok=True)
+    write_rescore_corpus(corpus, seed)
+    v = 4 + len(LETTERS)
+    ckpt = os.path.join(tmp, "ctc.pt")
+    if not os.path.exists(ckpt):
+        save_fairseq_ctc(Wav2Vec2AcousticModel(
+            base_config(v), generator=torch.Generator().manual_seed(seed)),
+            ckpt)
+    common = ["--root_dir", corpus, "--valid_dataset", "valid.tsv",
+              "--checkpoint", ckpt, "--beam", str(RESCORE_BEAM),
+              "--lm_rescore", lm_dir, "--device", "cuda"]
+    out, total = {}, {}
+    for device_beam in ("false", "true"):
+        reset_launches()
+        with timed("decode_rescore_cli"), \
+                contextlib.redirect_stdout(io.StringIO()):
+            m = test_cli.evaluate(common + ["--device_beam", device_beam],
+                                  keep_outputs=True)
+        launches = read_launches()
+        n, batches = m["utterances"], m["step"]
+        want = {k: 0 for k in launches}
+        want.update(ctc_loss=n, attention_fwd=12 * batches,
+                    conv_k3s2_fwd=4 * batches)
+        check(launches == want and n == RESCORE_CLIPS
+              and math.isfinite(m[f"werr_rescore_{RESCORE_BEAM}"]),
+              f"cli.test --lm_rescore device_beam {device_beam}: "
+              f"{launches} != {want}, {n} utterances")
+        Offsets.remap_fairseq_ctc()
+        vocab_list = read_vocab_list(os.path.join(corpus, "dict.ltr.txt"))
+        with timed("decode_rescore_cpu"):
+            cpu = rescore_on_cpu(m["outputs"], vocab_list, lm_dir,
+                                 device_beam == "true")
+        hyp_labels = [len(text_ids(o["beam"], vocab_list))
+                      for o in m["outputs"]]
+        out[f"device_beam_{device_beam}"] = {
+            "werr": m[f"werr_rescore_{RESCORE_BEAM}"], "wer": m["wer"],
+            "utterances": n, "eval_seconds": m["eval_seconds"],
+            "host_ms_per_utterance": {k: 1e3 * s / n for k, s in
+                                      m["rescore_seconds"].items()},
+            "beam_seconds": m["beam_seconds"], "launches": launches,
+            "pick_labels": hyp_labels, "cpu": cpu}
+        for k, c in launches.items():
+            total[k] = total.get(k, 0) + c
+    frames = max(len(o["log_probs"]) for o in m["outputs"])
+    labels = max(1, max(hyp_labels))
+    with timed("decode_rescore_kernel"):
+        err = check_ctc("decode_kernel", (RESCORE_BEAM, frames, v),
+                        [frames] * RESCORE_BEAM,
+                        [labels] + [max(1, labels // 2)]
+                        * (RESCORE_BEAM - 1), gen)
+
+    # the RNN-T cell's f32 checkpoint (2 steps from a CTC warm start), or
+    # a random transducer's when phase 21 runs alone
+    rnnt_ckpt = os.path.join(tmp, "rnnt_f32", "checkpoint-step-2.pt")
+    if not os.path.exists(rnnt_ckpt):
+        rnnt_ckpt = os.path.join(tmp, "rescore_rnnt.pt")
+        cfg = TransducerConfig(vocab_size=v, timestep_masking=0.0,
+                               channel_masking=0.0)
+        torch.save({"kind": "transducer", "model": Transducer(
+            cfg, generator=torch.Generator().manual_seed(seed + 75)
+        ).state_dict()}, rnnt_ckpt)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        m = test_cli.evaluate(["--root_dir", corpus, "--valid_dataset",
+                               "rnnt.tsv", "--checkpoint", rnnt_ckpt,
+                               "--transducer", "true", "--beam",
+                               str(RNNT_RESCORE_BEAM), "--lm_rescore",
+                               lm_dir, "--device", "cuda"])
+    check(m["utterances"] == RNNT_RESCORE_CLIPS and math.isfinite(m["wer"]),
+          f"cli.test --transducer --lm_rescore: {m}")
+    out["transducer"] = {"wer": m["wer"], "utterances": m["utterances"],
+                         "eval_seconds": m["eval_seconds"],
+                         "wall_s": time.perf_counter() - t0}
+    torch.cuda.empty_cache()
+    return out, total, err
+
+
+def phase_decode(tmp: str, seed: int, gen) -> tuple:
+    """Phase 21: the device beam (:func:`decode_beam`), the text LM's
+    trainer (:func:`decode_lm`) and n-best rescoring through ``cli.test``
+    (:func:`decode_rescore`). Returns the launches of the LM runs and of
+    the rescoring runs, and the kernels' max errors."""
+    with timed("decode_beam"):
+        beam = decode_beam(seed)
+    emit({"phase": "decode_beam", **beam})
+    with timed("decode_lm"):
+        lm, lm_dir, lm_launches, worst = decode_lm(tmp, seed, gen)
+    emit({"phase": "decode_lm", **lm})
+    with timed("decode_rescore"):
+        rescore, rescore_launches, err = decode_rescore(tmp, seed, lm_dir,
+                                                        gen)
+    emit({"phase": "decode_rescore", **rescore})
+    worst["ctc_loss"] = err
+    emit({"phase": "decode", "config": {
+        "beam": f"peaky log-probs {list(beam['shape'])}, beams "
+                f"{list(BEAM_WIDTHS)}, beta {BEAM_BETA} (and "
+                f"{BONUS_BETA} at beam {BEAM_WIDTHS[-1]})",
+        "lm": "CausalTextLM 512 wide, 8 heads, 6 layers, 2048, rpr_k 8, "
+              "block 512, batch 32, dropout 0.1 (the JAX defaults)",
+        "rescore": f"wav2vec2-base CTC, beam {RESCORE_BEAM}, "
+                   f"{RESCORE_CLIPS} clips of 1.5-15 s; transducer at its "
+                   f"JAX defaults, beam {RNNT_RESCORE_BEAM}"},
+        "lm_launches": lm_launches, "rescore_launches": rescore_launches,
+        "kernel_max_abs_err": worst})
+    return lm_launches, rescore_launches, worst
+
+
+def decode_phases(gen) -> int:
+    """The build and phase 21 alone (``--decode-phases``), then the phase
+    seconds, the card and the last line."""
+    with timed("build"):
+        phase_build()
+    with tempfile.TemporaryDirectory() as tmp:
+        lm_launches, rescore_launches, worst = phase_decode(tmp, SEED, gen)
+    emit({"phase": "phase_seconds", **PHASE_SECONDS})
+    emit({"phase": "decode_phases", "lm_launches": lm_launches,
+          "rescore_launches": rescore_launches,
+          "kernel_max_abs_err": worst})
+    print_card()
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if not torch.cuda.is_available():
@@ -7735,6 +8329,8 @@ def main(argv=None) -> int:
         return transducer_timing(gen)
     if argv == ["--ssl-phases"]:
         return ssl_phases(gen)
+    if argv == ["--decode-phases"]:
+        return decode_phases(gen)
     inference_first = argv == ["--inference-first"]
     if argv and not inference_first:
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
@@ -7831,6 +8427,9 @@ def main(argv=None) -> int:
         ssl_launches, ssl_cli_launches, errs = phase_ssl(tmp, SEED, gen)
         for k, e in errs.items():
             worst[k] = max(worst[k], e)
+        lm_launches, rescore_launches, errs = phase_decode(tmp, SEED, gen)
+        for k, e in errs.items():
+            worst[k] = max(worst[k], e)
     emit({"phase": "phase_seconds", **PHASE_SECONDS,
           "inference_first": inference_first,
           "trace_retries": {str(k): n for k, n in TRACE_RETRIES.items()},
@@ -7911,6 +8510,8 @@ def main(argv=None) -> int:
          "transducer_launches": rnnt_launches.get(name, 0),
          "ssl_step_launches": ssl_launches.get(name, 0),
          "ssl_cli_launches": ssl_cli_launches.get(name, 0),
+         "decode_lm_launches": lm_launches.get(name, 0),
+         "decode_rescore_launches": rescore_launches.get(name, 0),
          "max_abs_err": worst[name],
          **{k: times[(name, torch.float32)][k] for k in keys},
          **extra(name)}

@@ -1,21 +1,23 @@
 """The port's entry-point flags against the JAX package's parsers.
 
 * Every flag of the JAX ``train``, ``pretrain``, ``train_seq2seq``,
-  ``pretrain_paired``, ``train_transducer``, ``pretrain_hubert``,
-  ``pretrain_data2vec``, ``cluster_targets``, ``transcribe``, ``serve``,
-  ``test``, ``learn_bpe``, ``wrd2bpe`` and ``convert_checkpoint`` parsers
-  but
-  ``--lane_align`` (ROADMAP.md "Not to port") parses in the port's
-  counterpart, with the same default and choices (the parsers are
-  captured at ``parse_args`` with no argument parsed).
+  ``pretrain_paired``, ``train_transducer``, ``train_lm``,
+  ``pretrain_hubert``, ``pretrain_data2vec``, ``cluster_targets``,
+  ``transcribe``, ``serve``, ``test``, ``learn_bpe``, ``wrd2bpe`` and
+  ``convert_checkpoint`` parsers but ``--lane_align`` (ROADMAP.md "Not
+  to port") parses in the port's counterpart, with the same default and
+  choices (the parsers are captured at ``parse_args`` with no argument
+  parsed).
 * A value the port cannot run raises ``NotImplementedError`` naming its
   ROADMAP.md queue item, never an argparse exit. Which values those are
   depends on the entry point: the decoders and the trainer decode with
   ``--beam`` and ``--lm``, ``cli.transcribe`` and ``cli.serve`` take
   ``--timestamps`` and ``--quantize`` (and ``cli.transcribe`` ``--vad``),
   ``cli.test`` ``--quantize``; ``--transducer`` runs in the decoders
-  and ``cli.export`` (``--device_beam`` and ``--lm_rescore`` still raise
-  naming item 7); every trainer takes ``--restart_from``.
+  and ``cli.export``, ``--device_beam`` in the three decoders and
+  ``--lm_rescore`` in ``cli.test``, where JAX's own refusals hold
+  (``--transducer`` takes no ``--device_beam``, ``--lm_rescore`` needs a
+  beam); every trainer takes ``--restart_from``.
 * The trainers' flags of items 4 and 10 parse, pass ``check_ported`` and
   reach the module that runs them: ``--remat`` the encoder config,
   ``--noise_manifest`` and ``--speed_perturb`` the training set's
@@ -41,6 +43,19 @@ from audio8_tpu_torch.models.wav2vec2 import check_supported
 from tests.test_torch_threads import cap_torch_threads
 
 cap_torch_threads()
+
+
+@pytest.fixture(autouse=True)
+def _restore_port_offsets():
+    """``cli.test`` remaps the process-global ``Offsets``; put them back."""
+    from audio8_tpu_torch.utils import Offsets
+
+    saved = (Offsets.PAD, Offsets.GO, Offsets.EOS, Offsets.UNK,
+             list(Offsets.VALUES))
+    yield
+    Offsets.PAD, Offsets.GO, Offsets.EOS, Offsets.UNK = saved[:4]
+    Offsets.VALUES[:] = saved[4]
+
 
 ENTRY_POINTS = ("train", "pretrain", "train_seq2seq", "pretrain_paired",
                 "transcribe", "serve", "test")
@@ -94,7 +109,7 @@ def flags(parser):
 @pytest.mark.parametrize("entry", ENTRY_POINTS + (
     "convert_checkpoint", "learn_bpe", "wrd2bpe", "embed", "manifest",
     "train_ngram", "average_checkpoints", "inspect_checkpoint",
-    "train_transducer") + SSL_ENTRIES)
+    "train_transducer", "train_lm") + SSL_ENTRIES)
 def test_port_parses_every_jax_flag(entry):
     theirs = flags(captured_parser(f"audio8_tpu.cli.{entry}"))
     ours = flags(captured_parser(f"audio8_tpu_torch.cli.{entry}"))
@@ -122,14 +137,6 @@ def parse_and_check(entry, extra):
     ("train", ["--moe_experts", "4"], "item 8"),
     ("train", ["--distributed", "true"], "item 3"),
     ("pretrain", ["--sequence_parallel", "true"], "item 8"),
-    ("transcribe", ["--device_beam", "true"], "item 7"),
-    ("transcribe", ["--transducer", "true", "--device_beam", "true"],
-     "item 7"),
-    ("serve", ["--transducer", "true", "--device_beam", "true"], "item 7"),
-    ("serve", ["--device_beam", "true"], "item 7"),
-    ("test", ["--transducer", "true", "--lm_rescore", "lm_dir"], "item 7"),
-    ("test", ["--device_beam", "true"], "item 7"),
-    ("test", ["--lm_rescore", "lm_dir"], "item 7"),
     ("test", ["--tensor_parallel", "2"], "item 8"),
     ("serve", ["--zero1", "true"], "item 8"),
     ("train_seq2seq", ["--distributed", "true"], "item 3"),
@@ -281,6 +288,10 @@ def test_trainer_flags_reach_their_module(entry, extra, tmp_path):
     ("export", ["--transducer", "true", "--window_frames", "128"]),
     ("train_transducer", ["--fused_loss", "true", "--valid_beam", "4",
                           "--restart_from", "run", "--freeze_fx", "false"]),
+    ("transcribe", ["--device_beam", "true"]),
+    ("serve", ["--device_beam", "true"]),
+    ("test", ["--device_beam", "true"]),
+    ("test", ["--beam", "4", "--lm_rescore", "lm_dir"]),
 ])
 def test_ported_values_pass(entry, extra):
     """Values an entry point has ported pass its check (they raised
@@ -290,6 +301,39 @@ def test_ported_values_pass(entry, extra):
     args = parse_and_check(entry, extra)
     assert all(getattr(args, a[2:]) is not None for a in extra
                if a.startswith("--"))
+
+
+@pytest.mark.parametrize("entry,extra,exc,match", [
+    ("transcribe", ["--transducer", "true", "--device_beam", "true"],
+     SystemExit, "CTC-path"),
+    ("serve", ["--transducer", "true", "--device_beam", "true"],
+     SystemExit, "CTC-path"),
+    ("test", ["--transducer", "true", "--device_beam", "true"],
+     ValueError, "CTC-path"),
+    ("test", ["--transducer", "true", "--lm_rescore", "lm_dir"],
+     ValueError, "needs --beam > 1"),
+    ("test", ["--lm_rescore", "lm_dir"], ValueError, "needs --beam > 1"),
+])
+def test_jax_refusals_of_the_decode_flags(entry, extra, exc, match,
+                                          tmp_path):
+    """The values that raised naming item 7 before it was ported pass the
+    check, and the entry point refuses them where JAX does, before
+    anything is loaded."""
+    args = parse_and_check(entry, extra)
+    assert all(getattr(args, a[2:]) is not None for a in extra
+               if a.startswith("--"))
+    with open(tmp_path / "dict.ltr.txt", "w") as f:
+        f.write("A 1\n| 1\n")
+    mod = importlib.import_module(f"audio8_tpu_torch.cli.{entry}")
+    argv = NEEDED[entry] + extra
+    with pytest.raises(exc, match=match):
+        if entry == "serve":
+            mod.build_service(mod.parse_args(argv))
+        elif entry == "test":
+            mod.evaluate(argv + ["--device", "cpu", "--root_dir",
+                                 str(tmp_path)])
+        else:
+            mod.main(argv)
 
 
 @pytest.mark.parametrize("entry", ENTRY_POINTS)

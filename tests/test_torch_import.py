@@ -24,6 +24,7 @@ from audio8_tpu_torch.cli import pretrain_paired as paired_cli
 from audio8_tpu_torch.cli import serve as serve_cli
 from audio8_tpu_torch.cli import test as test_cli
 from audio8_tpu_torch.cli import train as train_cli
+from audio8_tpu_torch.cli import train_lm as train_lm_cli
 from audio8_tpu_torch.cli import train_seq2seq as seq2seq_cli
 from audio8_tpu_torch.cli import train_transducer as transducer_cli
 from audio8_tpu_torch.cli import transcribe
@@ -145,7 +146,7 @@ def _restore_port_offsets():
                                    "test --transducer",
                                    "export --transducer",
                                    "cluster_targets", "pretrain_hubert",
-                                   "pretrain_data2vec"])
+                                   "pretrain_data2vec", "train_lm"])
 def test_default_device_is_cuda_and_raises_without_a_card(
         entry, tmp_path, _restore_port_offsets):
     """This machine has no CUDA card: the default ``--device cuda`` raises
@@ -187,6 +188,10 @@ def test_default_device_is_cuda_and_raises_without_a_card(
                               "--root_dir", str(tmp_path),
                               "--train_dataset", "t.tsv",
                               "--valid_dataset", "v.tsv"])
+        elif entry == "train_lm":
+            train_lm_cli.train(["--basedir", str(tmp_path / "run"),
+                                "--text", "t.ltr", "--dict_file",
+                                dict_file])
         elif entry == "pretrain_data2vec":
             data2vec_cli.train(["--basedir", str(tmp_path / "run"),
                                 "--manifest_dir", str(tmp_path)])

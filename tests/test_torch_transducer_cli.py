@@ -10,9 +10,10 @@ cpu``), on a tiny synthetic letter corpus:
   ``--chunk_seconds`` (the ``TransducerStreamer``);
 * ``cli.serve --transducer``: ``/transcribe`` and ``/stream`` give the
   streamer's text;
-* ``cli.test --transducer``, greedy and ``--beam``;
+* ``cli.test --transducer``, greedy, ``--beam``, and ``--beam`` with
+  ``--lm_rescore`` a ``cli.train_lm`` basedir;
 * JAX's refusals: CTC-path flags under ``--transducer`` exit,
-  ``--device_beam`` and ``--lm_rescore`` raise naming item 7.
+  ``--device_beam`` among them.
 
 The export's CLIs are in ``test_torch_transducer_export.py``.
 """
@@ -29,7 +30,7 @@ from scipy.io import wavfile
 
 from audio8_tpu_torch.cli import serve as serve_cli
 from audio8_tpu_torch.cli import test as test_cli
-from audio8_tpu_torch.cli import train_transducer
+from audio8_tpu_torch.cli import train_lm, train_transducer
 from audio8_tpu_torch.cli import transcribe
 from audio8_tpu_torch.utils import Offsets
 from tests.test_torch_threads import cap_torch_threads
@@ -144,7 +145,7 @@ def test_transcribe_greedy_beam_timestamps_chunked(run, capsys):
         transcribe.main(base + ["--timestamps", "true", "--beam", "2"])
     with pytest.raises(SystemExit, match="CTC-path"):
         transcribe.main(base + ["--lm", "lm.arpa"])
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(SystemExit, match="CTC-path"):
         transcribe.main(base + ["--device_beam", "true"])
 
 
@@ -203,7 +204,16 @@ def test_test_cli_greedy_and_beam(run):
     beam = test_cli.evaluate(argv + ["--beam", "3"])
     for m in (greedy, beam):
         assert m["utterances"] == 6 and np.isfinite(m["wer"])
-    with pytest.raises(NotImplementedError, match="item 7"):
-        test_cli.evaluate(argv + ["--beam", "2", "--lm_rescore", "lm_dir"])
+    lm_dir = str(root / "lm")
+    train_lm.train(["--text", str(root / "train.ltr"), "--dict_file",
+                    str(root / "dict.ltr.txt"), "--basedir", lm_dir,
+                    "--d_model", "16", "--num_heads", "2", "--num_layers",
+                    "1", "--d_ff", "32", "--block_len", "16",
+                    "--batch_size", "4", "--train_steps", "2",
+                    "--steps_per_checkpoint", "2", "--warmup_steps", "1",
+                    "--device", "cpu"])
+    rescored = test_cli.evaluate(argv + ["--beam", "3", "--lm_rescore",
+                                         lm_dir])
+    assert rescored["utterances"] == 6 and np.isfinite(rescored["wer"])
     with pytest.raises(ValueError, match="CTC-path"):
         test_cli.evaluate(argv + ["--lm", "lm.arpa"])
