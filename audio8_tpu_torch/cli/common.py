@@ -93,7 +93,6 @@ NOT_PORTED = {
     "fsdp": (False, PARALLEL),
     "sequence_parallel": (False, PARALLEL),
     "pipeline_parallel": (1, PARALLEL),
-    "moe_experts": (0, PARALLEL),
     "distributed": (False, DATA_PARALLEL),
     "lm": (None, DECODE),
     "beam": (1, DECODE),
@@ -137,6 +136,13 @@ def encoder_kwargs(args: Namespace) -> dict:
              "moe_experts", "moe_top_k", "moe_capacity_factor",
              "moe_every", "moe_aux_weight")
     return {n: getattr(args, n) for n in names}
+
+
+def moe_aux(metrics: dict) -> dict:
+    """``{"moe_aux": value}`` for a step log row when the step reported
+    the MoE load-balance loss, else nothing."""
+    return ({"moe_aux": float(metrics["moe_aux"])} if "moe_aux" in metrics
+            else {})
 
 
 def check_ported(args: Namespace, entry: str) -> None:
@@ -219,7 +225,9 @@ def add_common_model_args(parser: ArgumentParser) -> None:
     add("--fsdp", type=str2bool, default=False, help="not ported yet")
     add("--sequence_parallel", type=str2bool, default=False,
         help="not ported yet")
-    add("--moe_experts", type=int, default=0, help="not ported yet")
+    add("--moe_experts", type=int, default=0,
+        help="Mixture-of-Experts FFN with this many experts in every "
+             "--moe_every-th transformer layer (nn/moe.py; 0: dense)")
     add("--moe_top_k", type=int, default=1)
     add("--moe_capacity_factor", type=float, default=1.25)
     add("--moe_every", type=int, default=2)

@@ -28,8 +28,10 @@ noise and negatives draw their seeds from) and ``--restart_tt``.
 replayed dropout seeds, ``--optim sgd`` steps plain SGD, and
 ``--profile_dir`` writes a Chrome trace of the five steps after the
 tenth (``train/profiler.py``). Those of parts not ported yet raise:
-parallelism and ``--distributed`` and the MoE flags. ``--lane_align``
-(TPU tiling) is not a flag here.
+parallelism and ``--distributed``. ``--moe_experts`` (with
+``--moe_top_k``, ``--moe_capacity_factor``, ``--moe_every`` and
+``--moe_aux_weight``) trains a Mixture-of-Experts encoder and logs
+``moe_aux``. ``--lane_align`` (TPU tiling) is not a flag here.
 """
 from __future__ import annotations
 
@@ -42,8 +44,8 @@ import torch
 
 from audio8_tpu_torch.cli.common import (add_common_model_args,
                                         apply_preset, check_ported,
-                                        encoder_kwargs, resolve_device,
-                                        resolve_restart)
+                                        encoder_kwargs, moe_aux,
+                                        resolve_device, resolve_restart)
 from audio8_tpu_torch.config import PretrainConfig
 from audio8_tpu_torch.data.datasets import (AudioFileDataset,
                                             BucketingAudioDataset,
@@ -215,7 +217,7 @@ def _train(args, device: torch.device, preempt: PreemptionGuard):
             "code_perplexity": float(metrics["code_perplexity"]),
             "accuracy": float(metrics["accuracy"]),
             "temperature": metrics["temperature"],
-            "grad_norm": float(metrics["grad_norm"])})
+            "grad_norm": float(metrics["grad_norm"]), **moe_aux(metrics)})
 
         if (steps + 1) % report_on == 0 and step_time.avg:
             logger.info("%s, steps/min %.2f, LR %.6f, temp %.4f, ppl %.1f, "

@@ -28,7 +28,9 @@ step boundary and exits 0.
 The flags are the JAX entry point's, with the same names and defaults,
 plus ``--device`` and ``--seed`` (the generator that dropout and the mask
 draw their seeds from). Those of parts not ported yet raise:
-parallelism, ``--distributed`` and the MoE flags.
+parallelism and ``--distributed``. The MoE flags train a
+Mixture-of-Experts student (its teacher is the EMA of the same
+layout) and log ``moe_aux``.
 """
 from __future__ import annotations
 
@@ -42,8 +44,8 @@ import torch
 
 from audio8_tpu_torch.cli.common import (add_common_model_args,
                                         apply_preset, check_ported,
-                                        encoder_kwargs, resolve_device,
-                                        resolve_restart)
+                                        encoder_kwargs, moe_aux,
+                                        resolve_device, resolve_restart)
 from audio8_tpu_torch.config import Data2VecPretrainConfig
 from audio8_tpu_torch.data.datasets import AudioFileDataset, PrefetchLoader
 from audio8_tpu_torch.models.convert import save_fairseq_pretrained
@@ -219,7 +221,7 @@ def _train(args, device: torch.device, preempt: PreemptionGuard):
             "loss": loss, "target_std": float(metrics["target_std"]),
             "pred_std": float(metrics["pred_std"]),
             "ema_decay": metrics["ema_decay"],
-            "grad_norm": float(metrics["grad_norm"])})
+            "grad_norm": float(metrics["grad_norm"]), **moe_aux(metrics)})
         start = time.time()
 
         if gstep % report_on == 0 and step_time.avg:

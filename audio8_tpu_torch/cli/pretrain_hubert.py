@@ -29,7 +29,8 @@ saves at the next step boundary and exits 0 (``train/preempt.py``).
 The flags are the JAX entry point's, with the same names and defaults,
 plus ``--device`` and ``--seed`` (the generator that dropout and the
 masks draw their seeds from). Those of parts not ported yet raise:
-parallelism, ``--distributed`` and the MoE flags. ``--lane_align`` (TPU
+parallelism and ``--distributed``. The MoE flags train a
+Mixture-of-Experts encoder and log ``moe_aux``. ``--lane_align`` (TPU
 tiling) is not a flag here.
 """
 from __future__ import annotations
@@ -44,8 +45,8 @@ import torch
 
 from audio8_tpu_torch.cli.common import (add_common_model_args,
                                         apply_preset, check_ported,
-                                        encoder_kwargs, resolve_device,
-                                        resolve_restart)
+                                        encoder_kwargs, moe_aux,
+                                        resolve_device, resolve_restart)
 from audio8_tpu_torch.config import HubertPretrainConfig
 from audio8_tpu_torch.data.datasets import (AudioTextLetterDataset,
                                             PrefetchLoader)
@@ -219,7 +220,8 @@ def _train(args, device: torch.device, preempt: PreemptionGuard):
             "audio_s": float(batch["signal_lengths"].sum()) / sr,
             "rows": batch["signal"].shape[0],
             "samples": batch["signal"].shape[1], "loss": loss,
-            "acc_masked": acc, "grad_norm": float(metrics["grad_norm"])})
+            "acc_masked": acc, "grad_norm": float(metrics["grad_norm"]),
+            **moe_aux(metrics)})
         start = time.time()
 
         if gstep % report_on == 0 and step_time.avg:

@@ -40,7 +40,8 @@ import torch
 
 from audio8_tpu_torch.cli.common import (add_common_model_args, apply_preset,
                                         check_ported, encoder_kwargs,
-                                        resolve_device, resolve_restart)
+                                        moe_aux, resolve_device,
+                                        resolve_restart)
 from audio8_tpu_torch.cli.train import _to_device
 from audio8_tpu_torch.config import PooledConfig, TextEncoderConfig
 from audio8_tpu_torch.data.datasets import (AudioTextLetterDataset,
@@ -263,7 +264,8 @@ def _train(args, device: torch.device, preempt: PreemptionGuard):
                           "audio_s": acc_audio, "loss": float(loss),
                           "clip_accuracy": float(metrics["clip_accuracy"]),
                           "logit_scale": float(metrics["logit_scale"]),
-                          "rows": int(batch["signal"].shape[0]), **flags})
+                          "rows": int(batch["signal"].shape[0]), **flags,
+                          **moe_aux(metrics)})
         acc_grads, acc_examples, acc_audio = None, 0.0, 0.0
         gstep += 1
         step_time.update(elapsed)

@@ -27,7 +27,8 @@ layer in the backward on its replayed dropout seeds, ``--optim sgd``
 steps plain SGD, and ``--profile_dir`` writes a Chrome trace of the
 five steps after the tenth (``train/profiler.py``). The flags are the JAX trainer's; those
 of parts not ported yet raise: parallelism and ``--distributed``.
-``--layer_drop`` and every topology flag or preset but MoE train.
+``--layer_drop``, every topology flag or preset and the MoE flags
+(``--moe_experts`` and its four companions) train.
 ``--lane_align`` (TPU tiling) is not a flag here.
 """
 from __future__ import annotations

@@ -30,8 +30,8 @@ next step boundary and exits 0. ``--speed_perturb`` and
 recomputes each encoder layer in the backward on its replayed dropout
 seeds, ``--optim sgd`` steps plain SGD, ``--profile_dir`` writes a
 Chrome trace of the five steps after the tenth. The flags are the JAX
-trainer's; those of parts not ported yet raise: parallelism, MoE and
-``--distributed``. ``--lane_align`` (TPU tiling) is not a flag here.
+trainer's; those of parts not ported yet raise: parallelism and
+``--distributed``. The MoE flags train a Mixture-of-Experts encoder. ``--lane_align`` (TPU tiling) is not a flag here.
 """
 from __future__ import annotations
 

@@ -40,8 +40,7 @@ def conv_output_length(length: int, conv_features) -> int:
 class EncoderConfig:
     """Wav2Vec2Encoder hyperparameters. Every field of the JAX
     ``EncoderConfig`` is here with its default; the port runs every
-    topology but MoE, which ``models/wav2vec2.py:check_supported``
-    refuses."""
+    topology, the Mixture-of-Experts FFN (``moe_*``) included."""
 
     sample_rate: int = 16
     d_model: int = 768

@@ -23,7 +23,10 @@ Design points, as in JAX:
 
 - **Batch-polymorphic, time-static.** Each entry has a symbolic batch
   dimension and a FIXED sample count T; long audio rides
-  ``serve.ChunkedTranscriber`` over an entry-sized window.
+  ``serve.ChunkedTranscriber`` over an entry-sized window. A
+  Mixture-of-Experts layer's capacity is a symbolic expression of B * T'
+  (``nn/moe.py:capacity``), the live model's arithmetic, so an entry
+  gives the live forward's log-probs at any batch size.
 - **Parameters ride as call arguments,** not baked constants
   (``torch.func.functional_call`` over the flat list), so several
   entries share one ``params.npz``.

@@ -221,7 +221,10 @@ def encoder_table(topo: Mapping[str, Any], num_fx_layers: int,
     are fairseq's (HF's for the conformer) relative to the body, as
     ``audio8_tpu/models/convert.py:_encoder_assignments`` names them; JAX
     paths are relative to the body in the JAX tree, the transformer at
-    ``encoder/transformer``."""
+    ``encoder/transformer``. A transformer layer with a Mixture-of-Experts
+    FFN (``moe_experts`` > 0, every ``moe_every``-th layer) maps
+    ``moe.router`` to ``ffn/router`` (a bias-free Dense) and ``moe.wi``,
+    ``bi``, ``wo``, ``bo`` to the same leaves in their (E, ...) layout."""
     mode = topo.get("extractor_mode", "group")
     conformer = topo.get("encoder_type", "transformer") == "conformer"
     gated = topo.get("gated_rel_pos", False)
@@ -296,14 +299,20 @@ def encoder_table(topo: Mapping[str, Any], num_fx_layers: int,
     # the stack's final norm under pre-norm, the post-pos-conv norm else
     norm("encoder.layer_norm", "encoder/transformer/ln_out"
          if topo.get("pre_norm", False) else "encoder/ln")
+    every = max(topo.get("moe_every", 2), 1)
     for i in range(num_layers):
         base, ours = f"encoder.layers.{i}", f"encoder/transformer/layer_{i}"
         for fs, mine in (("q_proj", "w_Q"), ("k_proj", "w_K"),
                          ("v_proj", "w_V"), ("out_proj", "w_O")):
             dense(f"{base}.self_attn.{fs}", f"{ours}/self_attn/{mine}")
         norm(f"{base}.self_attn_layer_norm", f"{ours}/ln_attn")
-        dense(f"{base}.fc1", f"{ours}/ffn/expand")
-        dense(f"{base}.fc2", f"{ours}/ffn/contract")
+        if topo.get("moe_experts", 0) > 0 and i % every == every - 1:
+            dense(f"{base}.moe.router", f"{ours}/ffn/router", bias=False)
+            for leaf in ("wi", "bi", "wo", "bo"):
+                add(f"{base}.moe.{leaf}", f"{ours}/ffn/{leaf}")
+        else:
+            dense(f"{base}.fc1", f"{ours}/ffn/expand")
+            dense(f"{base}.fc2", f"{ours}/ffn/contract")
         norm(f"{base}.final_layer_norm", f"{ours}/ln_ffn")
         if gated:
             dense(f"{base}.self_attn.gru_rel_pos_linear",
@@ -334,6 +343,13 @@ def jax_topology(body: Mapping[str, Any]) -> Dict[str, Any]:
         or 1
     topo["pre_norm"] = "ln_out" in tr
     topo["gated_rel_pos"] = "rel_pos_bias" in tr
+    moe = sorted(int(k[len("layer_"):]) for k, v in tr.items()
+                 if k.startswith("layer_") and "wi" in v.get("ffn", {}))
+    if moe:
+        # the first MoE layer is moe_every - 1
+        topo["moe_experts"] = int(tr[f"layer_{moe[0]}"]["ffn"]["wi"]
+                                  .shape[0])
+        topo["moe_every"] = moe[0] + 1
     return topo
 
 

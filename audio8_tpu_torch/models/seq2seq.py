@@ -14,7 +14,6 @@ same beams.
 """
 from __future__ import annotations
 
-import contextlib
 from typing import Optional
 
 import torch
@@ -22,7 +21,8 @@ from torch import nn
 
 from audio8_tpu_torch.config import DecoderConfig, EncoderConfig
 from audio8_tpu_torch.models.text import TextTransformerDecoder, sequence_mask
-from audio8_tpu_torch.models.wav2vec2 import Wav2Vec2Encoder, init_weights
+from audio8_tpu_torch.models.wav2vec2 import (Wav2Vec2Encoder,
+                                              frozen_encoder, init_weights)
 from audio8_tpu_torch.utils import Offsets
 
 
@@ -59,11 +59,13 @@ class Seq2Seq(nn.Module):
                 freeze: bool = True) -> torch.Tensor:
         """Teacher-forced forward -> (B, T_dst, V) f32 log-probs.
         ``generator``: training mode; ``freeze``: no gradient into the
-        encoder (it runs under ``torch.no_grad()``, the JAX
-        ``stop_gradient`` on its output)."""
+        encoder (the JAX ``stop_gradient`` on its output,
+        ``models.wav2vec2.frozen_encoder``)."""
         dst_mask = sequence_mask(dst_lengths, dst.shape[1])
-        with torch.no_grad() if freeze else contextlib.nullcontext():
+        with frozen_encoder(self.encoder_config, freeze):
             memory, src_pad_mask = self.encoder(x, input_lengths, generator)
+        if freeze:
+            memory = memory.detach()
         return self.decoder(memory, src_pad_mask, dst, dst_mask, generator)
 
     @torch.no_grad()

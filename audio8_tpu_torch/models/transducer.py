@@ -29,7 +29,6 @@ each op of every (frame, round) on its own.
 """
 from __future__ import annotations
 
-import contextlib
 from typing import List, Optional, Tuple
 
 import torch
@@ -38,7 +37,8 @@ from torch import nn
 
 from audio8_tpu_torch.config import TransducerConfig
 from audio8_tpu_torch.models.seq2seq import top_k_stable
-from audio8_tpu_torch.models.wav2vec2 import Wav2Vec2Encoder, init_weights
+from audio8_tpu_torch.models.wav2vec2 import (Wav2Vec2Encoder,
+                                              frozen_encoder, init_weights)
 from audio8_tpu_torch.nn.conformer import sigmoid
 from audio8_tpu_torch.nn.dropout import dropout
 from audio8_tpu_torch.nn.embeddings import LookupTableEmbeddings
@@ -271,10 +271,12 @@ class Transducer(nn.Module):
                 freeze: bool = True):
         """Training forward: targets (B, U) label ids (no GO/EOS) ->
         (log_probs (B, T', U+1, V) float32, pad_mask). ``generator``:
-        training mode; ``freeze``: no gradient into the encoder (it runs
-        under ``torch.no_grad()``, the JAX ``stop_gradient``)."""
-        with torch.no_grad() if freeze else contextlib.nullcontext():
+        training mode; ``freeze``: no gradient into the encoder (the JAX
+        ``stop_gradient``, ``models.wav2vec2.frozen_encoder``)."""
+        with frozen_encoder(self.config, freeze):
             enc, pad_mask = self.encoder(x, input_lengths, generator)
+        if freeze:
+            enc = enc.detach()
         go = torch.full((targets.shape[0], 1), Offsets.GO,
                         dtype=targets.dtype, device=targets.device)
         pred = self.predictor(torch.cat([go, targets], dim=1), generator)

@@ -19,11 +19,14 @@ carry, so fairseq checkpoints load by prefix, ``models/convert.py``):
                            + quantizer, project_q, final_proj
   wav2vec2_pretrain_loss   InfoNCE over sampled negatives + diversity
 
-Every topology of ``EncoderConfig`` but MoE: the group-norm or
-layer-norm extractor (with or without conv bias), post-norm or pre-norm
-(stable layer norm) transformer layers, data2vec's positional stack,
-WavLM's gated position bias, conformer blocks, packed Q/K/V, flash
-(which off a TPU is the JAX XLA attention), causal chunks and LayerDrop.
+Every topology of ``EncoderConfig``: the group-norm or layer-norm
+extractor (with or without conv bias), post-norm or pre-norm (stable
+layer norm) transformer layers, data2vec's positional stack, WavLM's
+gated position bias, conformer blocks, packed Q/K/V, flash (which off a
+TPU is the JAX XLA attention), causal chunks, LayerDrop and the
+Mixture-of-Experts FFN (``moe_experts``: every ``moe_every``-th layer,
+``nn/moe.py``; the conformer ignores the MoE fields, as the JAX
+conformer stack does, and builds dense blocks).
 Training mode is a forward given a ``generator`` (the trainer's
 ``torch.Generator``): every dropout draws its integer seed from it, in
 forward order, and runs the JAX package's hash randomness with that seed
@@ -33,9 +36,9 @@ model's span masks draw their seeds from it too; the pretraining model
 and loss take theirs as explicit arguments (:class:`PretrainSeeds`), so a
 step's randomness can be given from outside. ``freeze_fx`` runs the
 acoustic model's extractor under ``torch.no_grad()`` (the JAX
-``stop_gradient``), and ``freeze`` its whole encoder; the pretraining
-model always trains its extractor. :func:`check_supported` refuses MoE
-(ROADMAP.md queue 1, item 8).
+``stop_gradient``), and ``freeze`` its whole encoder, except where the
+MoE aux loss trains the encoder (:func:`frozen_encoder`); the
+pretraining model always trains its extractor.
 """
 from __future__ import annotations
 
@@ -62,19 +65,9 @@ from audio8_tpu_torch.ops.hashrand import (draw_seed, hash_gumbel,
 from audio8_tpu_torch.ops.masks import (compact_mask_indices, num_spans,
                                         span_mask)
 
-# (EncoderConfig field, value the port runs, what a different value asks for)
-_SUPPORTED = (
-    ("moe_experts", 0, "moe_experts (MoE FFN)"),
-)
-
-
 def check_supported(cfg: EncoderConfig) -> None:
-    """Raise ``NotImplementedError`` for a config the port cannot run
-    rather than computing something else silently."""
-    for field, value, what in _SUPPORTED:
-        if getattr(cfg, field) != value:
-            raise NotImplementedError(
-                f"{what} is not ported yet (ROADMAP.md queue 1, item 8)")
+    """Raise for a config the port cannot run rather than computing
+    something else silently."""
     if cfg.fused_attention not in (None, True, "block"):
         raise NotImplementedError(
             f"fused_attention={cfg.fused_attention!r} is not a setting of "
@@ -146,6 +139,27 @@ class ConvFeatureExtractor(nn.Module):
         return x
 
 
+def moe_aux_weight(cfg: EncoderConfig) -> float:
+    """The weight of the MoE load-balance loss in the objective (the JAX
+    ``train/steps.py:moe_aux_weight``), 0.0 for a dense config."""
+    return float(cfg.moe_aux_weight) if cfg.moe_experts > 0 else 0.0
+
+
+@contextlib.contextmanager
+def frozen_encoder(cfg: EncoderConfig, freeze: bool):
+    """The context an encoder runs in under ``freeze`` (no gradient into
+    it; the caller detaches its output). JAX freezes by
+    ``stop_gradient`` on the encoder's output, so a weighted MoE aux
+    loss still trains the encoder: then the encoder runs with autograd
+    and only its output is detached. Otherwise it runs under
+    ``torch.no_grad()``."""
+    if freeze and moe_aux_weight(cfg) <= 0.0:
+        with torch.no_grad():
+            yield
+    else:
+        yield
+
+
 def causal_chunk_mask(t: int, chunk: int, left_chunks: int,
                       device=None) -> torch.Tensor:
     """(1, 1, T, T) block-causal mask: frame i attends to its own chunk
@@ -189,6 +203,7 @@ class AudioTransformerEncoder(nn.Module):
                                dtype)
                 for _ in range(cfg.num_layers))
         else:
+            every = max(cfg.moe_every, 1)
             self.layers = nn.ModuleList(
                 TransformerEncoderLayer(
                     cfg.num_heads, cfg.d_model, d_ff, dtype, cfg.dropout,
@@ -196,7 +211,10 @@ class AudioTransformerEncoder(nn.Module):
                     cfg.bf16_softmax, cfg.pre_norm, cfg.flash_attention,
                     cfg.gated_rel_pos,
                     cfg.rel_pos_buckets if cfg.gated_rel_pos and i == 0
-                    else 0)
+                    else 0,
+                    cfg.moe_experts if i % every == every - 1 else 0,
+                    cfg.moe_top_k, cfg.moe_capacity_factor,
+                    name=f"layer_{i}")
                 for i in range(cfg.num_layers))
             if cfg.pos_conv_depth > 1:
                 self.pos_conv = StackedPositionalConv(
@@ -360,11 +378,12 @@ class Wav2Vec2AcousticModel(nn.Module):
                 freeze: bool = True
                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """``generator``: training mode, seeds drawn from it. ``freeze``:
-        no gradient into the encoder (it runs under ``torch.no_grad()``,
-        the JAX ``stop_gradient`` on its output)."""
-        no_grad = torch.no_grad() if freeze else contextlib.nullcontext()
-        with no_grad:
+        no gradient into the encoder (the JAX ``stop_gradient`` on its
+        output, :func:`frozen_encoder`)."""
+        with frozen_encoder(self.config, freeze):
             encoded, pad_mask = self.encoder(x, input_lengths, generator)
+        if freeze:
+            encoded = encoded.detach()
         logits = self.proj(encoded).float()
         return torch.log_softmax(logits, dim=-1), pad_mask
 
@@ -394,10 +413,12 @@ class Wav2Vec2PooledEncoder(nn.Module):
                 generator: Optional[torch.Generator] = None,
                 freeze: bool = True):
         """``generator``: training mode. ``freeze``: no gradient into the
-        encoder (it runs under ``torch.no_grad()``, the JAX
-        ``stop_gradient`` on its output)."""
-        with torch.no_grad() if freeze else contextlib.nullcontext():
+        encoder (the JAX ``stop_gradient`` on its output,
+        :func:`frozen_encoder`)."""
+        with frozen_encoder(self.config, freeze):
             encoded, pad_mask = self.encoder(x, input_lengths, generator)
+        if freeze:
+            encoded = encoded.detach()
         if self.config.final_output_dim:
             encoded = self.proj_layer(encoded)
         if pad_mask is None:

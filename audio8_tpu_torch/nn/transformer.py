@@ -51,8 +51,11 @@ pre-norm (stable layer norm, its final norm after the layers), with
 WavLM's gated relative position bias (:func:`relative_position_bias`,
 the bucket table in layer 0's attention as fairseq and HF keep it) and
 LayerDrop. Packed Q/K/V is a TPU layout of the same product: the port
-computes it unpacked, as it computes flash as the XLA attention. MoE is
-not ported; ``models/wav2vec2.py`` refuses configs that ask for it.
+computes it unpacked, as it computes flash as the XLA attention. A
+wav2vec2 layer's FFN can be a Mixture-of-Experts (``nn/moe.py``,
+``layers.{i}.moe``) whose load-balance loss goes to the active
+``nn.moe.AuxLosses``; :func:`run_layers` keeps it right under LayerDrop
+and remat.
 """
 from __future__ import annotations
 
@@ -68,6 +71,7 @@ from torch import nn
 from audio8_tpu_torch.nn.dropout import dropout
 from audio8_tpu_torch.nn.embeddings import LookupTableEmbeddings
 from audio8_tpu_torch.nn.layers import Dense, LayerNorm, gelu
+from audio8_tpu_torch.nn.moe import AuxLosses, MoEFFN, record_aux
 from audio8_tpu_torch.ops.attention import attention_core
 from audio8_tpu_torch.ops.attention_block import HEAD_DIMS, attention_block
 from audio8_tpu_torch.ops.hashrand import SeedReplay, draw_keep, draw_seed
@@ -445,7 +449,11 @@ class TransformerEncoderLayer(nn.Module):
     (``pre_norm``, stable layer norm): ``x = x + drop(attn(LN(x))); x =
     x + drop(ffn(LN(x)))``. The attention-probability rate defaults to
     ``dropout_rate``. ``mask`` (broadcastable to (B, H, T, T)) and
-    ``position_bias`` take the attention's composition."""
+    ``position_bias`` take the attention's composition.
+
+    With ``moe_experts > 0`` the FFN is an :class:`~audio8_tpu_torch.nn.
+    moe.MoEFFN` (``moe``, in place of ``fc1``/``fc2``) whose aux loss is
+    recorded under ``name`` (the JAX layer's, ``layer_{i}``)."""
 
     def __init__(self, num_heads: int, d_model: int, d_ff: int,
                  dtype: torch.dtype = torch.float32,
@@ -453,8 +461,11 @@ class TransformerEncoderLayer(nn.Module):
                  attention_dropout: Optional[float] = None,
                  fused_attention=None, bf16_softmax: bool = True,
                  pre_norm: bool = False, flash: bool = False,
-                 gated_rel_pos: bool = False, rel_pos_buckets: int = 0):
+                 gated_rel_pos: bool = False, rel_pos_buckets: int = 0,
+                 moe_experts: int = 0, moe_top_k: int = 1,
+                 moe_capacity_factor: float = 1.25, name: str = ""):
         super().__init__()
+        self.name = name
         self.dropout_rate = dropout_rate
         self.pre_norm = pre_norm
         self.self_attn = MultiHeadAttention(
@@ -464,9 +475,21 @@ class TransformerEncoderLayer(nn.Module):
             gated_rel_pos=gated_rel_pos,
             rel_pos_buckets=rel_pos_buckets)
         self.self_attn_layer_norm = LayerNorm(d_model, dtype)
-        self.fc1 = Dense(d_model, d_ff, dtype=dtype)
-        self.fc2 = Dense(d_ff, d_model, dtype=dtype)
+        self.moe = None
+        if moe_experts > 0:
+            self.moe = MoEFFN(d_model, d_ff, moe_experts, moe_top_k,
+                              moe_capacity_factor, dtype)
+        else:
+            self.fc1 = Dense(d_model, d_ff, dtype=dtype)
+            self.fc2 = Dense(d_ff, d_model, dtype=dtype)
         self.final_layer_norm = LayerNorm(d_model, dtype)
+
+    def ffn(self, x: torch.Tensor) -> torch.Tensor:
+        if self.moe is None:
+            return ffn(x, self.fc1, self.fc2)
+        y, aux = self.moe(x)
+        record_aux(self.name, aux)
+        return y
 
     def num_seeds(self) -> int:
         """The seeds a training forward draws: the attention's
@@ -488,11 +511,11 @@ class TransformerEncoderLayer(nn.Module):
         if self.pre_norm:
             x = x + dropout(attn(self.self_attn_layer_norm(x)), rate,
                             generator)
-            return x + dropout(ffn(self.final_layer_norm(x), self.fc1,
-                                   self.fc2), rate, generator)
+            return x + dropout(self.ffn(self.final_layer_norm(x)), rate,
+                               generator)
         x = x + dropout(attn(x), rate, generator)
         x = self.self_attn_layer_norm(x)
-        x = x + dropout(ffn(x, self.fc1, self.fc2), rate, generator)
+        x = x + dropout(self.ffn(x), rate, generator)
         return self.final_layer_norm(x)
 
 
@@ -504,7 +527,10 @@ def run_layers(layers, x, generator, layer_drop: float,
     splits its key (``jax.random.bernoulli`` with ``1 - layer_drop``); a
     dropped layer is skipped (JAX computes it and selects its input), but
     the seeds it would have drawn are drawn and discarded, so every later
-    draw is the one JAX makes (``ops.hashrand.SeedReplay`` lines up).
+    draw is the one JAX makes (``ops.hashrand.SeedReplay`` lines up). A
+    dropped MoE layer is computed as JAX computes it, on those seeds, and
+    only its output is discarded: its aux loss counts, and its gradient
+    reaches the layer's attention and router.
 
     ``remat`` (the JAX ``nn.remat`` of each layer; in training, while
     autograd records): a kept layer's activations are not kept for the
@@ -512,7 +538,8 @@ def run_layers(layers, x, generator, layer_drop: float,
     ``num_seeds()`` seeds are drawn before it runs, and the forward and
     the recompute each take them from a fresh ``SeedReplay``: both apply
     the same dropout masks, and the generator's stream ends where a
-    plain step leaves it.
+    plain step leaves it. An MoE layer's aux loss is an output of the
+    checkpointed call, recorded once (the recompute's is dropped).
 
     ``hiddens``: a list that gets each layer's output appended (a
     dropped layer's input), the JAX stack's ``return_hiddens``."""
@@ -520,7 +547,9 @@ def run_layers(layers, x, generator, layer_drop: float,
     if generator is not None and layer_drop > 0.0:
         keeps = [draw_keep(generator, 1.0 - layer_drop) for _ in layers]
     for i, layer in enumerate(layers):
-        if keeps is not None and not keeps[i]:
+        dropped = keeps is not None and not keeps[i]
+        moe = getattr(layer, "moe", None) is not None
+        if dropped and not moe:
             for _ in range(layer.num_seeds()):
                 draw_seed(generator)
             if hiddens is not None:
@@ -528,10 +557,15 @@ def run_layers(layers, x, generator, layer_drop: float,
             continue
         if remat and generator is not None and torch.is_grad_enabled():
             seeds = [draw_seed(generator) for _ in range(layer.num_seeds())]
-            x = torch.utils.checkpoint.checkpoint(
+            y = torch.utils.checkpoint.checkpoint(
                 _replayed, layer, seeds, x, use_reentrant=False, **kwargs)
+            if moe:
+                y, aux = y
+                record_aux(layer.name, aux)
         else:
-            x = layer(x, generator=generator, **kwargs)
+            y = layer(x, generator=generator, **kwargs)
+        if not dropped:
+            x = y
         if hiddens is not None:
             hiddens.append(x)
     return x
@@ -539,13 +573,16 @@ def run_layers(layers, x, generator, layer_drop: float,
 
 def _replayed(layer, seeds, x, **kwargs):
     """``layer``'s forward with its dropout seeds given (a remat
-    forward and its recompute)."""
+    forward and its recompute); an MoE layer's returns ``(out, aux)``."""
     replay = SeedReplay(seeds)
-    out = layer(x, generator=replay, **kwargs)
+    with AuxLosses() as aux:
+        out = layer(x, generator=replay, **kwargs)
     if replay.remaining:
         raise RuntimeError(f"{type(layer).__name__}: drew "
                            f"{len(seeds) - replay.remaining} of its "
                            f"{len(seeds)} seeds")
+    if getattr(layer, "moe", None) is not None:
+        return out, aux.total()
     return out
 
 

@@ -8,7 +8,11 @@ min_dim`` by int8 codes and a per-output-channel ``weight_scale`` (both
 buffers, not parameters); ``Dense`` dispatches on the weight's dtype to
 :func:`int8_dot`. In the acoustic model those are the attention's Q, K,
 V and output projections, ``fc1``, ``fc2`` and ``post_extract_proj``;
-the 768 -> 32 CTC head stays float.
+the 768 -> 32 CTC head stays float. In a Mixture-of-Experts layer
+(``nn/moe.py``) the experts are (E, ...) parameters, not ``Dense``
+layers, and the router is a ``Dense`` only E wide (under ``min_dim`` at
+E < 64), so both stay float, as JAX's tree walk leaves them: the count
+drops by the two ``Dense`` layers of each FFN the experts replace.
 
 :func:`int8_dot` quantizes the activations per row (symmetric absmax
 over the contraction dim, computed in the compute dtype, as JAX does in

@@ -158,9 +158,13 @@ def create_optimizer(lr_schedule: Callable, optim: str = "adamw",
 
 def global_norm(grads: Sequence[torch.Tensor]) -> torch.Tensor:
     """sqrt(sum of squares) over every leaf (optax.global_norm), as a
-    0-dim f32 tensor on the leaves' device."""
+    0-dim f32 tensor on the leaves' device. The squares are summed in
+    float64: a gradient above ~1e19 (the MoE aux loss reaches the
+    zero-variance LayerNorms of an all-padding row) would square past
+    float32's range and make the norm, and the clipped step, infinite."""
     return torch.linalg.vector_norm(torch.stack(
-        [torch.linalg.vector_norm(g.float()) for g in grads]))
+        [torch.linalg.vector_norm(g, dtype=torch.float64) for g in grads]
+    )).float()
 
 
 class TrainState:

@@ -42,6 +42,15 @@ leaf. RNN-T: CTC's conventions (blank = GO, the ``sum`` loss scaled by
 ``decode_fn`` decodes greedily or, with ``beam > 1``, returns the beam
 search's 1-best. Text LM: the token-mean NLL of packed blocks, clipped,
 then AdamW.
+
+MoE: a model whose encoder has MoE layers adds ``moe_aux_weight *
+aux`` (the layers' summed load-balance losses, collected by
+``nn.moe.AuxLosses`` around the forward) to its objective, times
+``max(real rows, 1)`` where the update scales the gradient by
+1/total_examples (CTC, seq2seq, paired, RNN-T), so the per-example
+weight survives. Pretraining, HuBERT, data2vec and paired report it as
+``moe_aux``; data2vec collects it from the student alone, in its
+evaluation too (the JAX steps).
 """
 from __future__ import annotations
 
@@ -55,7 +64,9 @@ from audio8_tpu_torch.models.data2vec import (data2vec_loss,
                                               data2vec_targets,
                                               ema_decay_schedule, ema_update)
 from audio8_tpu_torch.models.hubert import hubert_pretrain_loss
-from audio8_tpu_torch.models.wav2vec2 import wav2vec2_pretrain_loss
+from audio8_tpu_torch.models.wav2vec2 import (moe_aux_weight,
+                                              wav2vec2_pretrain_loss)
+from audio8_tpu_torch.nn.moe import AuxLosses
 from audio8_tpu_torch.ops.ctc import ctc_loss
 from audio8_tpu_torch.ops.transducer import transducer_loss
 from audio8_tpu_torch.utils import Offsets
@@ -72,6 +83,32 @@ def row_validity(batch) -> torch.Tensor:
     """1.0 for real rows, 0.0 for the padding rows of batch-size snapping
     (``signal_lengths == 0``)."""
     return (batch["signal_lengths"] > 0).float()
+
+
+def collecting_aux(aux_w: float, fn, *args, **kwargs):
+    """``fn(*args, **kwargs)`` and the MoE aux loss it recorded (the JAX
+    ``apply_collecting_aux``): ``(out, aux)``, ``aux`` None when
+    ``aux_w`` is 0 (nothing is collected)."""
+    if aux_w <= 0.0:
+        return fn(*args, **kwargs), None
+    with AuxLosses() as aux:
+        out = fn(*args, **kwargs)
+    return out, aux.total()
+
+
+def _per_example_aux(loss, aux_w: float, aux, rows):
+    """``loss + aux_w * aux * max(rows, 1)`` (the factories whose update
+    divides by the real-row count)."""
+    if aux is None:
+        return loss
+    return loss + aux_w * aux * torch.clamp(rows.sum(), min=1.0)
+
+
+def _with_aux(loss, metrics, aux_w: float, aux):
+    """``loss + aux_w * aux`` and ``moe_aux`` in the metrics."""
+    if aux is None:
+        return loss, metrics
+    return loss + aux_w * aux, dict(metrics, moe_aux=aux)
 
 
 def accumulate_grads(acc: Optional[Dict[str, torch.Tensor]],
@@ -123,6 +160,8 @@ def make_ctc_steps(model, clip: float = 25.0, loss_reduction: str = "sum"):
         per = per_row / torch.clamp(target_lengths.float(), min=1.0)
         return torch.sum(per * rows) / torch.clamp(rows.sum(), min=1.0)
 
+    aux_w = moe_aux_weight(model.config)
+
     def grad_fn(batch, generator: Optional[torch.Generator],
                 freeze: bool = True):
         targets, target_lengths = clean_targets(batch["token_ids"],
@@ -130,10 +169,12 @@ def make_ctc_steps(model, clip: float = 25.0, loss_reduction: str = "sum"):
         rows = row_validity(batch)
         for p in model.parameters():
             p.grad = None
-        log_probs, pad_mask = model(batch["signal"], batch["signal_lengths"],
-                                    generator=generator, freeze=freeze)
+        (log_probs, pad_mask), aux = collecting_aux(
+            aux_w, model, batch["signal"], batch["signal_lengths"],
+            generator=generator, freeze=freeze)
         loss = masked_ctc(log_probs, pad_mask.sum(dim=-1), targets,
                           target_lengths, rows)
+        loss = _per_example_aux(loss, aux_w, aux, rows)
         loss.backward()
         grads = _take_grads(model)
         num_tokens = (target_lengths * rows).sum().float()
@@ -182,6 +223,7 @@ def make_pretrain_steps(model, clip: float = 1.0, n_negatives: int = 100):
     device."""
     cfg = model.config
     n_vars = cfg.num_vq_vars * cfg.num_vq_groups
+    aux_w = moe_aux_weight(cfg)
 
     def temperature(step: int) -> float:
         return current_temperature(step, cfg.start_temp, cfg.end_temp,
@@ -191,11 +233,13 @@ def make_pretrain_steps(model, clip: float = 1.0, n_negatives: int = 100):
         temp = temperature(state.step)
         for p in model.parameters():
             p.grad = None
-        c, t, ppl, valid = model(signal, seeds, generator=generator,
-                                 temperature=temp)
+        (c, t, ppl, valid), aux = collecting_aux(
+            aux_w, model, signal, seeds, generator=generator,
+            temperature=temp)
         loss, metrics = wav2vec2_pretrain_loss(c, t, ppl, valid,
                                                seeds.negatives, n_vars,
                                                n_negatives)
+        loss, metrics = _with_aux(loss, metrics, aux_w, aux)
         loss.backward()
         grads = []
         for p in model.parameters():
@@ -235,6 +279,7 @@ def make_hubert_steps(model, clip: float = 1.0):
     row (``signal_lengths == 0``) has an empty pad mask and adds
     nothing."""
     cfg = model.config
+    aux_w = moe_aux_weight(cfg)
 
     def loss_of(batch, seeds, generator):
         logits, time_mask, pad_mask = model(
@@ -248,7 +293,9 @@ def make_hubert_steps(model, clip: float = 1.0):
     def train_step(state, batch, seeds, generator):
         for p in model.parameters():
             p.grad = None
-        loss, metrics = loss_of(batch, seeds, generator)
+        (loss, metrics), aux = collecting_aux(aux_w, loss_of, batch, seeds,
+                                              generator)
+        loss, metrics = _with_aux(loss, metrics, aux_w, aux)
         gnorm = _step_grads(model, state, loss, clip)
         metrics = {k: v.detach() for k, v in metrics.items()}
         return state, dict(metrics, loss=loss.detach(), grad_norm=gnorm)
@@ -271,6 +318,7 @@ def make_data2vec_steps(model, teacher, clip: float = 1.0):
     ``(state, metrics)``. ``eval_step(batch, mask_seed)`` returns ``(loss,
     metrics)``."""
     cfg = model.config
+    aux_w = moe_aux_weight(cfg)
     student_params = list(model.parameters())
     teacher_params = list(teacher.parameters())
 
@@ -279,9 +327,10 @@ def make_data2vec_steps(model, teacher, clip: float = 1.0):
         with torch.no_grad():
             hiddens, _, _ = teacher(signal, lengths, collect_hiddens=True)
             target = data2vec_targets(hiddens, cfg.average_top_k_layers)
-        pred, time_mask, pad_mask = model(signal, lengths, mask_seed,
-                                          generator=generator)
-        return data2vec_loss(pred, target, time_mask, pad_mask)
+        (pred, time_mask, pad_mask), aux = collecting_aux(
+            aux_w, model, signal, lengths, mask_seed, generator=generator)
+        loss, metrics = data2vec_loss(pred, target, time_mask, pad_mask)
+        return _with_aux(loss, metrics, aux_w, aux)
 
     def train_step(state, batch, mask_seed, generator):
         for p in model.parameters():
@@ -328,6 +377,7 @@ def make_seq2seq_steps(model, clip: float = 25.0,
     (summed loss, gradients by name, real rows, decoder tokens);
     ``decode_fn(batch, max_output_len, beam)`` -> (tokens, lengths);
     ``eval_loss_fn(batch)`` -> the teacher-forced loss."""
+    aux_w = moe_aux_weight(model.encoder_config)
 
     def grad_fn(batch, generator: Optional[torch.Generator],
                 freeze: bool = True):
@@ -335,9 +385,11 @@ def make_seq2seq_steps(model, clip: float = 25.0,
         dst, tgt, dst_lengths = _teacher_forcing(batch)
         for p in model.parameters():
             p.grad = None
-        log_probs = model(batch["signal"], batch["signal_lengths"], dst,
-                          dst_lengths, generator=generator, freeze=freeze)
+        log_probs, aux = collecting_aux(
+            aux_w, model, batch["signal"], batch["signal_lengths"], dst,
+            dst_lengths, generator=generator, freeze=freeze)
         loss = sequence_loss(log_probs, tgt, loss_reduction)
+        loss = _per_example_aux(loss, aux_w, aux, rows)
         loss.backward()
         num_tokens = (dst_lengths * rows).sum().float()
         return loss.detach(), _take_grads(model), rows.sum(), num_tokens
@@ -367,17 +419,21 @@ def make_paired_steps(module, clip: float = 25.0):
     ``grad_fn(batch, generator, freeze_audio, freeze_text)`` -> (loss,
     metrics, gradients by name, real rows, text tokens); ``eval_fn(batch)``
     -> (loss, metrics)."""
+    aux_w = moe_aux_weight(module.model.audio_encoder.config)
 
     def grad_fn(batch, generator: Optional[torch.Generator],
                 freeze_audio: bool = True, freeze_text: bool = True):
         rows = row_validity(batch)
         for p in module.parameters():
             p.grad = None
-        a, t = module.model(batch["signal"], batch["signal_lengths"],
-                            batch["token_ids"], batch["token_lengths"],
-                            generator=generator, freeze_audio=freeze_audio,
-                            freeze_text=freeze_text)
+        (a, t), aux = collecting_aux(
+            aux_w, module.model, batch["signal"], batch["signal_lengths"],
+            batch["token_ids"], batch["token_lengths"], generator=generator,
+            freeze_audio=freeze_audio, freeze_text=freeze_text)
         loss, metrics = module.loss(a, t, rows)
+        if aux is not None:
+            loss = _per_example_aux(loss, aux_w, aux, rows)
+            metrics = dict(metrics, moe_aux=aux)
         loss.backward()
         num_tokens = (batch["token_lengths"] * rows).sum().float()
         metrics = {k: v.detach() for k, v in metrics.items()}
@@ -415,6 +471,8 @@ def make_transducer_steps(model, clip: float = 25.0,
         per = per_row / torch.clamp(target_lengths.float(), min=1.0)
         return torch.sum(per * rows) / torch.clamp(rows.sum(), min=1.0)
 
+    aux_w = moe_aux_weight(model.config)
+
     def grad_fn(batch, generator: Optional[torch.Generator],
                 freeze: bool = True):
         targets, target_lengths = clean_targets(batch["token_ids"],
@@ -422,11 +480,12 @@ def make_transducer_steps(model, clip: float = 25.0,
         rows = row_validity(batch)
         for p in model.parameters():
             p.grad = None
-        log_probs, pad_mask = model(batch["signal"], batch["signal_lengths"],
-                                    targets, generator=generator,
-                                    freeze=freeze)
+        (log_probs, pad_mask), aux = collecting_aux(
+            aux_w, model, batch["signal"], batch["signal_lengths"], targets,
+            generator=generator, freeze=freeze)
         loss = masked_loss(log_probs, pad_mask.sum(dim=-1), targets,
                            target_lengths, rows)
+        loss = _per_example_aux(loss, aux_w, aux, rows)
         loss.backward()
         num_tokens = (target_lengths * rows).sum().float()
         return loss.detach(), _take_grads(model), rows.sum(), num_tokens

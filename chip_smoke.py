@@ -214,7 +214,7 @@ instead, to compare.
               bias and layer-mode norms through kernels 3b and 3c), then
               ``cli.train --preset large-lv60 --layer_drop 0.1
               --restart_from`` its ``.pt`` for 4 steps in f32 and in bf16
-              (on SGD, to keep the full run's disk writes under the
+              (both on SGD, to keep the full run's disk writes under the
               machine's cap), one unfrozen step card vs CPU
               (``lv60_vs_cpu``, the train_vs_cpu gates, LayerDrop off),
               and kernels 1, 2, 2b, 3, 3b, 3c, 4 and 5 against their
@@ -349,6 +349,32 @@ instead, to compare.
               version at the rescoring shape; ``cli.test --transducer
               --beam 4 --lm_rescore`` on phase 19's transducer at its
               JAX defaults (a random one when phase 21 runs alone);
+22. moe     - the Mixture-of-Experts FFN (``nn/moe.py``) at full width:
+              ``PretrainConfig()`` with 8 experts in layers 1, 3, ...,
+              11 (293 M parameters), top-1 at capacity factor 1.25. One
+              pretraining step card vs CPU on two rows of 71 428 samples
+              (the pretraining gates, ``moe_aux`` within 1e-5, each MoE
+              layer's kept tokens per expert equal but for near ties);
+              the f32 and bf16 steps at (20, 71 428) beside the dense f32
+              step in turns (wall ms, a trace's device ms and idle share,
+              peak memory), the launches of one step as the code predicts
+              them, one MoE layer's device ms split into router,
+              dispatch, expert GEMMs and combine, its forward and
+              backward run under ``torch.cuda.set_sync_debug_mode
+              ("error")`` (no host read inside the layer); kernels 2,
+              2b, 3, 3b, 3c, 4 and 5 against their plain versions at
+              that step's shapes (the expert leaves among AdamW's);
+              ``cli.train --moe_experts 8 --moe_top_k 2`` from the
+              step's weights saved as a pretrained ``.pt``, 2 SGD steps,
+              the first frozen: its encoder gradient the aux's alone
+              (the routers' non-zero, the last layer's experts' zero),
+              kernel 1 once and 2b 12 times in each step; the result
+              served by ``cli.transcribe`` on four WAVs of 30-4 s and
+              through its loader in f32, bf16 and int8 (one (4, 30 s)
+              dispatch each: event ms, launches; the int8 model's
+              quantized count the dense model's less two per MoE layer)
+              and exported by ``cli.export``, whose log-probs must be
+              bitwise the live forward's;
 
 then a ``phase_seconds`` line (each phase's wall seconds and each phase's
 retried profiler traces, ``trace_retries``), a ``kernels``
@@ -371,6 +397,7 @@ card it exits with code 2 and prints no result.
     python3 chip_smoke.py --transducer-phases  # the build and phase 19 only
     python3 chip_smoke.py --ssl-phases       # the build and phase 20 only
     python3 chip_smoke.py --decode-phases    # the build and phase 21 only
+    python3 chip_smoke.py --moe-phases       # the build and phase 22 only
 
 ``--block-timing`` builds the block's two sources and prints only the
 attention block's timing rows (phase 14) in float32 and bfloat16, then
@@ -404,7 +431,7 @@ paired corpus itself). ``--transducer-phases`` runs the build and phase
 random CTC model's ``.pt``). ``--ssl-phases`` runs the build and phase
 20 alone and ends with the last line of a full run, and
 ``--decode-phases`` phase 21 likewise (on a random CTC model's
-``ctc.pt``).
+``ctc.pt``), and ``--moe-phases`` phase 22 (it writes its own corpus).
 ``--freeze-timing`` times the frozen seq2seq and paired steps at full
 width (random weights) in float32 and bfloat16 two ways, in turns: as
 the port runs them, a frozen tower under ``torch.no_grad()``, and with
@@ -2301,7 +2328,7 @@ def phase_restart_test(tmp: str, seed: int) -> dict:
 
 
 def phase_pretrain_vs_cpu(seed: int, samples: int, fused=None,
-                          dropout: float = 0.0) -> None:
+                          dropout: float = 0.0, moe: dict = None) -> dict:
     """One full-width pretraining step on two rows of ``samples`` (the
     pretraining run's length; dropout off; masks, Gumbel noise and
     negatives from the same seeds) on the card and on the CPU from the
@@ -2310,7 +2337,10 @@ def phase_pretrain_vs_cpu(seed: int, samples: int, fused=None,
     the same step through the attention block (phase ``block_vs_cpu``);
     ``fused=True`` with ``dropout`` 0.1: the core in the TPU kernel's
     semantics with every dropout on, both sides drawing the same seeds
-    (phase ``kernel_vs_cpu``)."""
+    (phase ``kernel_vs_cpu``). ``moe``: the MoE fields of the config
+    (phase ``moe_vs_cpu``): also ``moe_aux`` within MOE_AUX_RTOL and each
+    MoE layer's kept tokens per expert equal but for near ties
+    (:func:`moe_routing`). Returns the emitted line."""
     from audio8_tpu_torch.config import PretrainConfig
     from audio8_tpu_torch.models.wav2vec2 import PretrainSeeds, Wav2Vec2Model
     from audio8_tpu_torch.train.optim import (TrainState, create_lrs,
@@ -2318,7 +2348,8 @@ def phase_pretrain_vs_cpu(seed: int, samples: int, fused=None,
     from audio8_tpu_torch.train.steps import make_pretrain_steps
 
     cfg = PretrainConfig(dropout=dropout, dropout_input=dropout,
-                         dropout_features=dropout, fused_attention=fused)
+                         dropout_features=dropout, fused_attention=fused,
+                         **(moe or {}))
     cpu = Wav2Vec2Model(cfg, generator=torch.Generator().manual_seed(seed + 5))
     gpu = Wav2Vec2Model(cfg).cuda()
     gpu.load_state_dict(cpu.state_dict())
@@ -2338,8 +2369,10 @@ def phase_pretrain_vs_cpu(seed: int, samples: int, fused=None,
                  model.register_forward_hook(
                      lambda m, i, o: slots.append(int(o[3].sum())))]
         reset_launches()
-        _, metrics = train_step(state, torch.from_numpy(sig).to(dev), seeds,
-                                torch.Generator())
+        routing = []
+        with moe_routing(routing):
+            _, metrics = train_step(state, torch.from_numpy(sig).to(dev),
+                                    seeds, torch.Generator())
         for h in hooks:
             h.remove()
         if name == "cuda":
@@ -2353,7 +2386,9 @@ def phase_pretrain_vs_cpu(seed: int, samples: int, fused=None,
                   == layers, f"{fused} step on the card launched {ran}")
         out[name] = {k: float(metrics[k]) for k in (
             "loss", "contrastive_loss", "accuracy", "grad_norm")}
-        out[name].update(codes=codes[0], slots=slots[0])
+        out[name].update(codes=codes[0], slots=slots[0], routing=routing)
+        if moe:
+            out[name]["moe_aux"] = float(metrics["moe_aux"])
     g, c = out["cuda"], out["cpu"]
     rel = {k: abs(g[k] - c[k]) / abs(c[k])
            for k in ("loss", "contrastive_loss", "grad_norm")}
@@ -2365,8 +2400,9 @@ def phase_pretrain_vs_cpu(seed: int, samples: int, fused=None,
     acc_atol = 1.0 / max(1, c["slots"])
     acc_err = abs(g["accuracy"] - c["accuracy"])
     phase = {"block": "block_vs_cpu", True: "kernel_vs_cpu"}.get(
-        fused, "pretrain_vs_cpu")
-    emit({"phase": phase, "fused_attention": fused, "dropout": dropout,
+        fused, "moe_vs_cpu" if moe else "pretrain_vs_cpu")
+    extra = moe_vs_cpu_fields(g, c) if moe else {}
+    line = {"phase": phase, "fused_attention": fused, "dropout": dropout,
           "rows": [2, samples],
           **{k: [g[k], c[k]] for k in ("loss", "contrastive_loss",
                                        "accuracy", "grad_norm")},
@@ -2379,7 +2415,11 @@ def phase_pretrain_vs_cpu(seed: int, samples: int, fused=None,
           "gnorm_rtol": PRETRAIN_GNORM_RTOL, "codewords": c["codes"].numel(),
           "attention_launches": {k: ran[k] for k in want},
           "codewords_equal": same, "codeword_agreement": agree,
-          "codeword_agreement_min": CODE_AGREEMENT})
+          "codeword_agreement_min": CODE_AGREEMENT, **extra}
+    emit(line)
+    if moe:
+        check(not extra["moe_failures"], f"moe_vs_cpu: "
+              f"{extra['moe_failures']}")
     check(g["slots"] == c["slots"], "masked slots differ card vs CPU")
     check(rel["loss"] <= PRETRAIN_LOSS_RTOL,
           f"pretrain loss card vs CPU {rel['loss']}")
@@ -2390,6 +2430,7 @@ def phase_pretrain_vs_cpu(seed: int, samples: int, fused=None,
     check(rel["grad_norm"] <= PRETRAIN_GNORM_RTOL,
           f"pretrain gnorm card vs CPU {rel['grad_norm']}")
     check(agree >= CODE_AGREEMENT, f"codeword agreement {agree}")
+    return line
 
 
 def phase_pretrain_block(batches, seed: int) -> dict:
@@ -2743,8 +2784,8 @@ def to_cuda(batch: dict) -> dict:
 
 # the seconds the step timings may pause between profiler retries in all,
 # apart from the kernel timings' RETRY_BUDGET_S, and what they have paused
-# (30 s until phase 19 came)
-STEP_RETRY_BUDGET_S = 15.0
+# (30 s until phase 19 came, 15 s until phase 22 came)
+STEP_RETRY_BUDGET_S = 5.0
 STEP_RETRY_PAUSED = {"s": 0.0}
 
 
@@ -4272,10 +4313,15 @@ LV60_PRETRAIN_FLAGS = ["--preset", "large-lv60", "--tokens_per_batch",
                        "700000", "--max_sample_len", "250000",
                        "--train_steps", "2", "--steps_per_checkpoint", "2",
                        "--warmup_steps", "1", "--num_train_workers", "4"]
+# both CTC runs step SGD: their resume files hold no moments, which keeps
+# the full run's disk writes under the machine's 45 GiB cap (each save
+# of the f32 run wrote 3.8 GB on AdamW; kernel 5 runs at LV-60's 317 M
+# parameters in the pretraining run)
 LV60_TRAIN_FLAGS = ["--preset", "large-lv60", "--layer_drop", "0.1",
                     "--target_tokens_per_batch", "700000", "--grad_accum",
                     "1", "--train_steps", "4", "--unfreeze_enc_after_step",
-                    "1", "--warmup_steps", "2", "--valid_steps", "1"]
+                    "1", "--warmup_steps", "2", "--valid_steps", "1",
+                    "--optim", "sgd"]
 LV60_PATH = ("conv_k3s2_fwd", "conv_k3s2_dgrad", "conv_k3s2_wgrad",
              "attention_fwd", "attention_bwd", "ctc_loss", "dropout",
              "adamw")
@@ -4615,8 +4661,8 @@ def phase_lv60_train(tmp: str, seed: int, gen) -> tuple:
     """``cli.pretrain --preset large-lv60`` for 2 steps (the conv bias and
     the layer-mode norms through kernels 3b and 3c), then ``cli.train
     --preset large-lv60 --layer_drop 0.1 --restart_from`` its ``.pt`` for
-    4 steps in f32 and in bf16 (on SGD); one unfrozen step card vs CPU at
-    the same weights (``layer_drop`` 0, the train_vs_cpu gates); kernels
+    4 steps in f32 and in bf16 (both on SGD); one unfrozen step card vs
+    CPU at the same weights (``layer_drop`` 0, the train_vs_cpu gates); kernels
     1, 2, 2b, 3, 3b, 3c, 4 and 5 against their plain versions at every
     shape the runs gave them. Returns the launch counts, the max errors and the
     pretraining batches' (rows, samples)."""
@@ -4657,10 +4703,7 @@ def phase_lv60_train(tmp: str, seed: int, gen) -> tuple:
     corpus = os.path.join(tmp, "corpus")
     train_launches = {k: 0 for k in LV60_PATH}
     with recorded_path_calls(calls), recorded_ctc_calls(ctc_calls):
-        # the bf16 run steps SGD: its resume files hold no moments, which
-        # keeps the full run's disk writes under the machine's cap (each
-        # of its two saves wrote 3.8 GB on AdamW)
-        for dtype_flag in ([], ["--bf16", "--optim", "sgd"]):
+        for dtype_flag in ([], ["--bf16"]):
             reset_launches()
             gc.collect()
             torch.cuda.reset_peak_memory_stats()
@@ -4685,8 +4728,8 @@ def phase_lv60_train(tmp: str, seed: int, gen) -> tuple:
                   "peak_memory_gb":
                       torch.cuda.max_memory_allocated() / 1e9})
             for k in LV60_PATH:
-                if k not in ("conv_k3s2_dgrad", "conv_k3s2_wgrad") and (
-                        k != "adamw" or not dtype_flag):
+                if k not in ("conv_k3s2_dgrad", "conv_k3s2_wgrad",
+                             "adamw"):
                     check(launches[k] > 0, f"lv60 train: {k} not launched")
                 train_launches[k] += launches[k]
             params = [tuple(p.shape) for p in state.params]
@@ -4855,8 +4898,10 @@ class EmptyTrace(RuntimeError):
 # the seconds a full run may pause between profiler retries, and what it
 # has paused so far: it bounds the timing phase whatever the profiler does
 # (120 s until phase 19 came: a run that spent it all took 1 104 s of the
-# script's 1 200 s budget; a row past it takes CUDA-event times)
-RETRY_BUDGET_S = 45.0
+# script's 1 200 s budget; 45 s until phase 22 came, whose full runs took
+# 903.8 and 1 198.7 s on two H100 machines; a row past it takes
+# CUDA-event times)
+RETRY_BUDGET_S = 20.0
 RETRY_PAUSED = {"s": 0.0}
 
 
@@ -6473,7 +6518,7 @@ RNNT_RUNS = {"f32": ["--train_steps", "2", "--unfreeze_enc_after_step", "0",
                       "--optim", "sgd"]}
 RNNT_BENCH = (16, 41_359, 64)  # bench.py:bench_transducer's rows, samples, U
 RNNT_REQUESTS = 2  # the served requests phase 19 decodes (3.1, 12.4 s)
-RNNT_CPU_REQUESTS = 2  # of them, those whose greedy tokens the CPU checks
+RNNT_CPU_REQUESTS = 1  # of them, those whose greedy tokens the CPU checks
 RNNT_STREAMED = 1  # the one the streamer decodes
 RNNT_BEAM = 4
 RNNT_BEAM_SECONDS = (5.0, 3.1)  # the clips the beam search runs on
@@ -7548,16 +7593,16 @@ def ssl_timing(kind: str, cfg, weights: dict, seed: int) -> tuple:
     return out, launches, predicted, calls, params
 
 
-def ssl_kernels(calls: dict, params: list, gen) -> dict:
+def ssl_kernels(calls: dict, params: list, gen, path: str = "ssl") -> dict:
     """Kernels 2, 2b, 3, 4 and 5 (:func:`phase_path_kernels`) and 3b and
     3c (each recorded k3s2 layer's input) against their plain versions at
-    the shapes the timed HuBERT and data2vec steps gave them, float32 and
-    bfloat16; returns the float32 max errors."""
-    worst = phase_path_kernels("ssl", path_shapes(calls), params, gen)
+    the shapes the timed HuBERT and data2vec steps (or ``path``'s) gave
+    them, float32 and bfloat16; returns the float32 max errors."""
+    worst = phase_path_kernels(path, path_shapes(calls), params, gen)
     worst.update({"conv_k3s2_dgrad": 0.0, "conv_k3s2_wgrad": 0.0})
     for x_shape, w_shape in sorted(set(calls["conv"])):
         for dtype in (torch.float32, torch.bfloat16):
-            errs = check_conv_bwd("ssl_kernel", x_shape[0], x_shape[1],
+            errs = check_conv_bwd(f"{path}_kernel", x_shape[0], x_shape[1],
                                   w_shape[1], w_shape[2], dtype, gen)
             if dtype == torch.float32:
                 for k, e in errs.items():
@@ -8298,6 +8343,564 @@ def decode_phases(gen) -> int:
     return 0
 
 
+# phase 22: the Mixture-of-Experts FFN
+
+MOE_EXPERTS = 8
+# the pretraining model: top-1 (Switch) at the JAX default capacity
+MOE = {"moe_experts": MOE_EXPERTS, "moe_top_k": 1,
+       "moe_capacity_factor": 1.25}
+MOE_AUX_RTOL = 1e-5  # card vs CPU: the routers run in float32
+MOE_TIE = 1e-6  # a token whose two likeliest experts are this close
+MOE_BATCH = (20, 71_428)  # the pretraining run's largest batch (T' 222)
+MOE_VS_CPU_SAMPLES = 71_428
+MOE_PATH = PRETRAIN_PATH
+MOE_CTC_PATH = TRAIN_PATH
+MOE_CLI = ["--moe_experts", str(MOE_EXPERTS), "--moe_top_k", "2"]
+# two CTC steps from the MoE pretraining checkpoint, the first frozen;
+# SGD, so the two saves (1.17 GB each) carry no moments
+MOE_CTC_FLAGS = ["--target_tokens_per_batch", "700000", "--grad_accum",
+                 "1", "--train_steps", "2", "--unfreeze_enc_after_step",
+                 "0", "--warmup_steps", "1", "--valid_steps", "1",
+                 "--optim", "sgd", "--num_train_workers", "4"]
+
+
+@contextlib.contextmanager
+def moe_routing(stats: list):
+    """While the block runs, each MoE layer's forward appends its routing
+    to ``stats`` (a global forward hook; it reads the tokens back to the
+    host, so it stays out of timed steps): the tokens each expert kept,
+    the tokens whose two likeliest experts are within MOE_TIE (a near
+    tie, which rounding may flip), and the layer's aux loss."""
+    from audio8_tpu_torch.nn.moe import MoEFFN, capacity, route
+
+    def hook(module, args, out):
+        if not isinstance(module, MoEFFN):
+            return
+        with torch.no_grad():
+            x = args[0]
+            s = x.shape[0] * x.shape[1]
+            probs = torch.softmax(module.router(x.reshape(s, -1).float()),
+                                  dim=-1)
+            cap = capacity(s, module.num_experts, module.top_k,
+                           module.capacity_factor)
+            slots, _ = route(probs, module.top_k, cap)
+            kept = torch.zeros(module.num_experts, dtype=torch.long,
+                               device=x.device)
+            for idx, pos in slots:
+                kept.index_add_(0, idx, (pos < cap).long())
+            top = probs.topk(min(3, module.num_experts), dim=-1).values
+            gaps = top[:, :-1] - top[:, 1:]
+            ties = int((gaps[:, :module.top_k] <= MOE_TIE).any(-1).sum())
+        stats.append({"kept": kept.tolist(), "tokens": s, "capacity": cap,
+                      "near_ties": ties, "aux": float(out[1])})
+
+    handle = torch.nn.modules.module.register_module_forward_hook(hook)
+    try:
+        yield stats
+    finally:
+        handle.remove()
+
+
+def moe_vs_cpu_fields(g: dict, c: dict) -> dict:
+    """The MoE readings of :func:`phase_pretrain_vs_cpu` (card ``g``, CPU
+    ``c``): ``moe_aux`` within MOE_AUX_RTOL, and in each MoE layer the
+    tokens each expert kept equal, or apart by no more than the CPU's
+    near ties (each flips one token from one expert to another). The
+    failures are listed, not raised, so the line is printed first."""
+    aux_err = abs(g["moe_aux"] - c["moe_aux"]) / abs(c["moe_aux"])
+    layers, failures = [], []
+    for i, (rg, rc) in enumerate(zip(g["routing"], c["routing"])):
+        moved = sum(abs(a - b) for a, b in zip(rg["kept"], rc["kept"])) // 2
+        layers.append({"kept_card": rg["kept"], "kept_cpu": rc["kept"],
+                       "moved": moved, "near_ties": rc["near_ties"],
+                       "capacity": rc["capacity"]})
+        if moved > rc["near_ties"]:
+            failures.append(f"MoE layer {i}: {moved} tokens kept by other "
+                            f"experts, {rc['near_ties']} near ties")
+    if len(g["routing"]) != len(c["routing"]) or not g["routing"]:
+        failures.append(f"MoE layers seen: {len(g['routing'])} card, "
+                        f"{len(c['routing'])} CPU")
+    if aux_err > MOE_AUX_RTOL:
+        failures.append(f"moe_aux card vs CPU {aux_err}")
+    return {"moe": MOE, "moe_aux": [g["moe_aux"], c["moe_aux"]],
+            "moe_aux_rel_err": aux_err, "moe_aux_rtol": MOE_AUX_RTOL,
+            "moe_layers": layers, "moe_failures": failures}
+
+
+def moe_model(dtype, seed: int, moe: bool = True):
+    """The full-width pretraining model (``PretrainConfig()``: 768 wide,
+    12 heads, 12 layers, 3072; with MOE its layers 1, 3, ..., 11 hold 8
+    experts each) on the card, the JAX init drawn from ``seed``."""
+    from audio8_tpu_torch.config import PretrainConfig
+    from audio8_tpu_torch.models.wav2vec2 import Wav2Vec2Model
+
+    cfg = PretrainConfig(**(MOE if moe else {}))
+    return Wav2Vec2Model(cfg, dtype, torch.Generator().manual_seed(
+        seed)).cuda()
+
+
+def moe_predicted(cfg) -> dict:
+    """Each kernel's launches in one pretraining step, as the code
+    predicts them: kernels 3, 3b and 3c once a k3s2 layer, 2 and 2b once
+    a layer, 4 once for every dropout the forward draws (counted on a
+    copy at width 32 on the CPU; the MoE FFN draws none) and once more in
+    its backward, 5 once."""
+    from audio8_tpu_torch.models.wav2vec2 import PretrainSeeds, Wav2Vec2Model
+
+    model = Wav2Vec2Model(small_copy(cfg))
+    drops = counted_dropouts(lambda: model(
+        torch.zeros(2, 4000), PretrainSeeds(1, 2, 3),
+        generator=torch.Generator().manual_seed(0)))
+    k3s2 = sum(1 for _, k, s in cfg.conv_features if (k, s) == (3, 2))
+    return {"conv_k3s2_fwd": k3s2, "conv_k3s2_dgrad": k3s2,
+            "conv_k3s2_wgrad": k3s2, "attention_fwd": cfg.num_layers,
+            "attention_bwd": cfg.num_layers, "dropout": 2 * drops,
+            "adamw": 1}
+
+
+def moe_split(layer, rows: int, frames: int) -> dict:
+    """Device ms of one MoE layer's forward at the step's (rows, frames,
+    768) input, split into the router (its f32 product, softmax and aux
+    loss), the dispatch (routing and the gather), the expert GEMMs (the
+    two batched products, their biases and gelu) and the combine; the
+    whole layer forward, and forward and backward; the dispatch's
+    costliest kernels by name. The forward and
+    backward also run under ``torch.cuda.set_sync_debug_mode("error")``:
+    a host read inside the layer raises."""
+    from audio8_tpu_torch.nn.layers import gelu
+    from audio8_tpu_torch.nn.moe import (capacity, combine, dispatch,
+                                         load_balance_loss, route)
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 71)
+    x = torch.randn(rows, frames, layer.wi.shape[1], device="cuda",
+                    generator=gen)
+    dt = layer.compute_dtype
+    s, e = rows * frames, layer.num_experts
+    cap = capacity(s, e, layer.top_k, layer.capacity_factor)
+    xf = x.reshape(s, -1)
+    wi, wo = layer.wi.to(dt), layer.wo.to(dt)
+    bi, bo = layer.bi.to(dt)[:, None], layer.bo.to(dt)[:, None]
+
+    def router():
+        p = torch.softmax(layer.router(xf.float()), dim=-1)
+        return p, load_balance_loss(p)
+
+    probs, _ = router()
+
+    def dispatched():
+        slots, weights = route(probs, layer.top_k, cap)
+        return slots, weights, dispatch(xf.to(dt), slots, e, cap)
+
+    slots, weights, xe = dispatched()
+
+    def experts():
+        return torch.bmm(gelu(torch.bmm(xe, wi) + bi), wo) + bo
+
+    ye = experts()
+    xg = x.clone().requires_grad_()
+
+    def fwd_bwd():
+        y, aux = layer(xg)
+        (y.float().sum() + aux).backward()
+
+    with torch.no_grad():
+        out = {name: timed_device_ms(fn) for name, fn in (
+            ("router", router), ("dispatch", dispatched),
+            ("experts", experts),
+            ("combine", lambda: combine(ye, slots, weights)),
+            ("layer_forward", lambda: layer(x)))}
+    out["layer_forward_backward"] = timed_device_ms(fwd_bwd)
+    with torch.no_grad():
+        by_name = traced_or_none(dispatched)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fwd_bwd()
+        torch.cuda.synchronize()
+    except RuntimeError as err:
+        check(False, f"a host sync inside the MoE layer: {err}")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    layer.zero_grad(set_to_none=True)
+    row = {"input": [rows, frames, int(x.shape[-1])], "capacity": cap,
+           "experts": e, "timed_by": sorted({t for _, t in out.values()}),
+           **{f"{k}_ms": v for k, (v, _) in out.items()},
+           "dispatch_kernels": len(by_name),
+           "dispatch_top_kernels_ms": [[k[:80], v] for k, v in sorted(
+               by_name.items(), key=lambda kv: -kv[1])[:5]],
+           "host_syncs_in_layer": 0}
+    row["split_sum_ms"] = sum(row[f"{k}_ms"] for k in (
+        "router", "dispatch", "experts", "combine"))
+    return row
+
+
+def moe_timing(seed: int) -> tuple:
+    """The MoE pretraining step at MOE_BATCH (the recipe's dropouts and
+    masks, AdamW) in f32 and bf16, beside the dense f32 step from the
+    same seed, in turns (moe f32, dense f32, moe bf16, moe f32): first
+    one MoE f32 step with the launches counted (against
+    :func:`moe_predicted`) and the path's calls recorded; then per model
+    the wall ms of 3 steps and a trace's device ms and idle share (the
+    MoE f32 model's second turn: wall only), peak memory beside the
+    three runs' resident memory (their parameters and moments), and the
+    MoE layers' device split (:func:`moe_split`). Returns the readings,
+    the launches, the prediction, the path's calls, the parameter shapes
+    and the f32 model (whose weights the CTC run starts from)."""
+    from audio8_tpu_torch.config import CONV_FEATURES, conv_output_length
+    from audio8_tpu_torch.models.wav2vec2 import PretrainSeeds
+    from audio8_tpu_torch.train.optim import (TrainState, create_lrs,
+                                              create_optimizer)
+    from audio8_tpu_torch.train.steps import make_pretrain_steps
+
+    rows, samples = MOE_BATCH
+    rng = np.random.default_rng(seed + 72)
+    signal = torch.from_numpy(np.stack([
+        synthetic_speechlike((samples + 1) / SR, rng)[:samples]
+        for _ in range(rows)])).cuda()
+    runs = {}
+    for name, dt, moe in (("moe_f32", torch.float32, True),
+                          ("dense_f32", torch.float32, False),
+                          ("moe_bf16", torch.bfloat16, True)):
+        model = moe_model(dt, seed + 70, moe)
+        state = TrainState(model, create_optimizer(create_lrs(
+            2e-5, 100, "constant", warmup_steps=0), weight_decay=0.01))
+        runs[name] = (model, state, make_pretrain_steps(model)[0])
+    gen = torch.Generator().manual_seed(seed + 73)
+    model, state, step = runs["moe_f32"]
+    predicted = moe_predicted(model.config)
+    calls = {}
+    reset_launches()
+    with recorded_path_calls(calls):
+        _, m = step(state, signal, PretrainSeeds.draw(gen), gen)
+    torch.cuda.synchronize()
+    launches = {k: n for k, n in read_launches().items() if k in MOE_PATH}
+    first = {"loss": float(m["loss"]), "moe_aux": float(m["moe_aux"]),
+             "grad_norm": float(m["grad_norm"])}
+    check(all(math.isfinite(v) for v in first.values())
+          and first["moe_aux"] >= 1.0 - 1e-5, f"moe step {first}")
+    check(launches == predicted, f"moe step launches {launches} against "
+          f"the prediction {predicted}")
+    params = [tuple(p.shape) for p in model.parameters()]
+    out = {"shape": [rows, samples], "first_step": first,
+           "params": {k: sum(p.numel() for p in v[0].parameters())
+                      for k, v in runs.items()}}
+    for turn, name in enumerate(("moe_f32", "dense_f32", "moe_bf16",
+                                 "moe_f32")):
+        model, state, step = runs[name]
+
+        def step_fn(st, flags, step=step):
+            step(st, signal, PretrainSeeds.draw(gen), gen)
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated() / 1e9  # the three runs'
+        if turn < 3:
+            t = step_timings(state, step_fn, {"step": {}}, n=3)["step"]
+        else:
+            t = {"wall_ms": [event_ms(lambda: step_fn(state, {}), 1)
+                             for _ in range(3)]}
+        t["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        t["resident_gb"] = resident
+        # the step's own activations and temporaries (and, in the first
+        # step of a run, AdamW's moments)
+        t["step_above_resident_gb"] = t["peak_memory_gb"] - resident
+        t["audio_s_per_s"] = rows * samples / SR / (
+            float(np.median(t["wall_ms"])) / 1e3)
+        out.setdefault(name, []).append(t)
+    frames = conv_output_length(samples, CONV_FEATURES[16])
+    out["moe_layer_split"] = {
+        name: moe_split(runs[name][0].encoder.layers[1].moe, rows, frames)
+        for name in ("moe_f32", "moe_bf16")}
+    model = runs["moe_f32"][0]
+    del runs
+    torch.cuda.empty_cache()
+    return out, launches, predicted, calls, params, model
+
+
+@contextlib.contextmanager
+def moe_ctc_calls(records: list):
+    """While the block runs, ``cli.train``'s step factory records every
+    fused train step and evaluation as ``(kind, frozen, launches in the
+    call, the gradient's sums)``: the routers', the last MoE layer's
+    experts' (which no router reads: a frozen step leaves them 0), the
+    first layer's attention's and the CTC head's."""
+    from audio8_tpu_torch.cli import train as train_cli
+
+    real = train_cli.make_ctc_steps
+
+    def made(model, *args, **kwargs):
+        grad_fn, update_fn, eval_fn = real(model, *args, **kwargs)
+        real_step = grad_fn.train_step
+        last = model.config.num_layers - 1
+        groups = {"routers": ".moe.router.",
+                  "last_experts": f"layers.{last}.moe.w",
+                  "first_attention": "layers.0.self_attn.",
+                  "ctc_head": "proj."}
+
+        def train_step(state, batch, generator, freeze=True):
+            real_apply = state.apply_gradients
+
+            def apply(grads, *a, **k):
+                sums = {g: float(sum(v.abs().sum() for n, v in grads.items()
+                                     if pat in n))
+                        for g, pat in groups.items()}
+                records[-1] = records[-1][:3] + (sums,)
+                return real_apply(grads, *a, **k)
+
+            state.apply_gradients = apply
+            before = read_launches()
+            records.append(("train", freeze, None, None))
+            try:
+                out = real_step(state, batch, generator, freeze)
+            finally:
+                del state.apply_gradients
+            after = read_launches()
+            records[-1] = ("train", freeze, {k: after[k] - before[k]
+                                             for k in after},
+                           records[-1][3])
+            return out
+
+        def evaluate(batch):
+            before = read_launches()
+            out = eval_fn(batch)
+            after = read_launches()
+            records.append(("eval", True, {k: after[k] - before[k]
+                                           for k in after}, None))
+            return out
+
+        grad_fn.train_step = train_step
+        return grad_fn, update_fn, evaluate
+
+    train_cli.make_ctc_steps = made
+    try:
+        yield records
+    finally:
+        train_cli.make_ctc_steps = real
+
+
+def moe_ctc(tmp: str, corpus: str, ckpt: str) -> tuple:
+    """``cli.train --moe_experts 8 --moe_top_k 2`` from the MoE
+    pretraining checkpoint, 2 steps of SGD (MOE_CTC_FLAGS), the first
+    with the encoder frozen. As in JAX (``stop_gradient`` on the encoder's
+    output), the frozen step's encoder gradient is the aux loss's alone:
+    the routers' and the first layer's attention's non-zero, the last
+    MoE layer's experts' zero; the unfrozen step's all non-zero. Per
+    step, as the code predicts: kernel 1 once, kernels 3 and 2 once a
+    k3s2 layer and a layer, and 2b once a layer in both steps (the aux
+    reaches every layer; a dense frozen step launches none); per
+    evaluation kernels 1, 2 and 3 alike and no backward. Returns the
+    readings, the run's launches and the last checkpoint."""
+    from audio8_tpu_torch.cli import train as train_cli
+
+    basedir = os.path.join(tmp, "moe_ctc")
+    records = []
+    reset_launches()
+    t0 = time.perf_counter()
+    with moe_ctc_calls(records):
+        state = train_cli.train([
+            "--root_dir", corpus, "--train_dataset", "train.tsv",
+            "--valid_dataset", "valid.tsv", "--basedir", basedir,
+            "--device", "cuda", "--restart_from", ckpt, *MOE_CLI,
+            *MOE_CTC_FLAGS])
+    wall = time.perf_counter() - t0
+    launches = {k: n for k, n in read_launches().items()
+                if k in MOE_CTC_PATH}
+    layers = state.model.config.num_layers
+    k3s2 = sum(1 for _, k, s in state.model.config.conv_features
+               if (k, s) == (3, 2))
+    steps = [r for r in records if r[0] == "train"]
+    evals = [r for r in records if r[0] == "eval"]
+    check([r["frozen"] for r in state.log] == [True, False]
+          and all(math.isfinite(r["loss"]) for r in state.log),
+          f"moe CTC run: {state.log}")
+    check([f for _, f, _, _ in steps] == [True, False] and evals,
+          f"moe CTC calls {[(k, f) for k, f, _, _ in records]}")
+    for kind, frozen, got, _ in records:
+        want = {"ctc_loss": 1, "attention_fwd": layers,
+                "conv_k3s2_fwd": k3s2,
+                "attention_bwd": layers if kind == "train" else 0}
+        check(all(got[k] == n for k, n in want.items()),
+              f"moe CTC {kind} (frozen {frozen}) launches {got}, want "
+              f"{want}")
+    (_, _, _, frozen), (_, _, _, unfrozen) = steps
+    check(frozen["routers"] > 0 and frozen["first_attention"] > 0
+          and frozen["last_experts"] == 0 and frozen["ctc_head"] > 0,
+          f"moe CTC frozen step gradient sums {frozen}")
+    check(all(v > 0 for v in unfrozen.values()),
+          f"moe CTC unfrozen step gradient sums {unfrozen}")
+    out = {"wall_s": wall, "log": state.log, "frozen_grad_abs_sums": frozen,
+           "unfrozen_grad_abs_sums": unfrozen,
+           "launches_per_call": [{"kind": k, "frozen": f, **{
+               n: v for n, v in got.items() if n in MOE_CTC_PATH}}
+               for k, f, got, _ in records]}
+    del state
+    torch.cuda.empty_cache()
+    return out, launches, os.path.join(basedir, "checkpoint-step-2.pt")
+
+
+def moe_serve(tmp: str, corpus: str, ckpt: str, seed: int) -> tuple:
+    """The MoE CTC checkpoint served: ``cli.transcribe`` on four WAVs of
+    30, 24, 11 and 4 s, and its loader, ``load_acoustic``, in f32, bf16
+    and under ``--quantize int8`` dispatching the (4, 30 s) batch (event
+    ms, launches, the bf16 texts' agreement with the f32 ones reported;
+    the int8 model's quantized Dense count must be the dense model's
+    less the two FFN layers of each MoE layer: the routers, 8 wide, and
+    the experts stay float, as in JAX), and ``cli.export`` of a 30 s
+    entry for the card, whose log-probs must be bitwise the live f32
+    forward's (``check_exported``). Returns the readings and the
+    launches."""
+    import audio8_tpu_torch.cli.transcribe as transcribe
+    from scipy.io import wavfile
+
+    from audio8_tpu_torch.cli import export as export_cli
+    from audio8_tpu_torch.config import AcousticConfig
+    from audio8_tpu_torch.export import load_artifact
+    from audio8_tpu_torch.models.wav2vec2 import Wav2Vec2AcousticModel
+    from audio8_tpu_torch.ops.quant import _is_plain_dense
+
+    dict_file = os.path.join(corpus, "dict.ltr.txt")
+    sig, lens = export_batch(EXPORT_LENGTHS, seed + 74)
+    wavs = []
+    for i, n in enumerate(EXPORT_LENGTHS):
+        wavs.append(os.path.join(tmp, f"moe_serve{i}.wav"))
+        wavfile.write(wavs[-1], SR, (np.clip(sig[i, :n].cpu().numpy(), -1,
+                                             1) * 32767).astype(np.int16))
+    base = ["--checkpoint", ckpt, "--dict_file", dict_file, "--device",
+            "cuda", *MOE_CLI]
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        served = transcribe.main([*base, *wavs])
+    out = {"cli_s": time.perf_counter() - t0,
+           "cli_texts_chars": [len(t) for _, t in served]}
+    check(len(served) == len(wavs), f"moe cli.transcribe: {served}")
+    launches, lives, texts, counts = {}, {}, {}, []
+    real_quantize = transcribe.quantize_model_params
+
+    def counted(model, *args, **kwargs):
+        counts.append(real_quantize(model, *args, **kwargs))
+        return counts[-1]
+
+    for variant, flags in (("f32", []), ("bf16", ["--bf16"]),
+                           ("int8", ["--quantize", "int8"])):
+        transcribe.quantize_model_params = counted
+        try:
+            cfg, live, _, index2vocab, _ = transcribe.load_acoustic(
+                transcribe.parse_args(["x.wav", *base, *flags]))
+        finally:
+            transcribe.quantize_model_params = real_quantize
+        with torch.inference_mode():
+            reset_launches()
+            lp, frames = live(sig, lens)
+            torch.cuda.synchronize()
+            ran = {k: v for k, v in read_launches().items() if v}
+            ms = [event_ms(lambda: live(sig, lens), 1) for _ in range(3)]
+        check(ran == {"attention_fwd": 12, "conv_k3s2_fwd": 4},
+              f"moe serve {variant}: one dispatch launched {ran}")
+        check(bool(torch.isfinite(lp).all()),
+              f"moe serve {variant}: non-finite log-probs")
+        texts[variant] = greedy_texts(lp, frames, index2vocab)
+        out[variant] = {"dispatch_event_ms": ms,
+                        "audio_s_per_s": float(lens.sum()) / SR
+                        / (float(np.median(ms)) / 1e3),
+                        "launches": ran}
+        for k, v in ran.items():
+            launches[k] = launches.get(k, 0) + v
+        lives[variant] = (live, index2vocab)
+    out["bf16_texts_equal_f32"] = [a == b for a, b in zip(texts["f32"],
+                                                          texts["bf16"])]
+
+    dense = sum(1 for m in Wav2Vec2AcousticModel(AcousticConfig(
+        num_labels=cfg.num_labels)).modules() if _is_plain_dense(m, 64))
+    every = max(cfg.moe_every, 1)
+    moe_layers = sum(1 for i in range(cfg.num_layers)
+                     if i % every == every - 1)
+    out["int8"].update(quantized=counts, dense_model_quantized=dense,
+                       moe_layers=moe_layers)
+    check(counts == [dense - 2 * moe_layers],
+          f"int8 quantized {counts} Dense, want {dense} - 2 x {moe_layers}")
+
+    path, seconds = os.path.join(tmp, "moe_art"), None
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        export_cli.main([*base, "--output", path, "--seconds", "30",
+                         "--platforms", "cuda"])
+    seconds = time.perf_counter() - t0
+    art = load_artifact(path, "cuda")
+    live, index2vocab = lives["f32"]
+    with torch.inference_mode():
+        row = check_exported("f32", art, live, index2vocab, sig, lens)
+    check(row["bitwise"], f"moe export: log-probs not bitwise the live "
+          f"forward's ({row['max_abs_err']})")
+    out["export"] = {"export_s": seconds, **row}
+    del lives, art, live
+    torch.cuda.empty_cache()
+    return out, launches
+
+
+def phase_moe(tmp: str, seed: int, gen) -> tuple:
+    """Phase 22: the Mixture-of-Experts FFN at full width (module
+    docstring). Returns the phase's launches (the timed pretraining
+    step's, the CTC run's and the served dispatches' summed) and the
+    kernels' max errors at its shapes."""
+    from audio8_tpu_torch.models.convert import save_fairseq_pretrained
+
+    corpus = os.path.join(tmp, "moe_corpus")
+    os.makedirs(corpus)
+    write_corpus(corpus, seed + 75)
+    dirs = [corpus, os.path.join(tmp, "moe_pretrain"),
+            os.path.join(tmp, "moe_ctc"), os.path.join(tmp, "moe_art")]
+    with timed("moe_vs_cpu"):
+        vs_cpu = phase_pretrain_vs_cpu(seed + 70, MOE_VS_CPU_SAMPLES,
+                                       moe=MOE)
+    torch.cuda.empty_cache()
+    with timed("moe_timing"):
+        timing, launches, predicted, calls, params, model = moe_timing(seed)
+    emit({"phase": "moe_step", "card": card_name(), **timing,
+          "launches": launches, "predicted": predicted})
+    with timed("moe_kernel"):
+        worst = ssl_kernels(calls, params, gen, "moe")
+    os.makedirs(dirs[1])
+    ckpt = os.path.join(dirs[1], "checkpoint-step-6.pt")
+    save_fairseq_pretrained(model, ckpt)
+    del model
+    torch.cuda.empty_cache()
+    with timed("moe_ctc"):
+        ctc, ctc_launches, ctc_ckpt = moe_ctc(tmp, corpus, ckpt)
+    emit({"phase": "moe_ctc", **ctc, "launches": ctc_launches})
+    with timed("moe_serve"):
+        serve, serve_launches = moe_serve(tmp, corpus, ctc_ckpt, seed)
+    emit({"phase": "moe_serve", "card": card_name(), **serve})
+    moe_launches = {k: launches.get(k, 0) + ctc_launches.get(k, 0)
+                    + serve_launches.get(k, 0) for k in REPLACES}
+    emit({"phase": "moe", "config": {
+        "pretrain": "wav2vec2-base d768 h12 L12 ff3072, MoE FFN in layers "
+                    "1, 3, ..., 11: 8 experts, top-1, capacity factor 1.25",
+        "ctc": "the same encoder, top-2, 32 labels"},
+        "vs_cpu_moe_aux_rel_err": vs_cpu["moe_aux_rel_err"],
+        "launches": moe_launches, "kernel_max_abs_err": worst,
+        "bytes_written": tree_bytes(*dirs),
+        "bytes_written_by_dir": {os.path.basename(d): tree_bytes(d)
+                                 for d in dirs}})
+    return moe_launches, worst
+
+
+def moe_phases(gen) -> int:
+    """The build and phase 22 alone (``--moe-phases``), then the phase
+    seconds, the card and the last line."""
+    with timed("build"):
+        phase_build()
+    with tempfile.TemporaryDirectory() as tmp:
+        launches, worst = phase_moe(tmp, SEED, gen)
+    emit({"phase": "phase_seconds", **PHASE_SECONDS})
+    emit({"phase": "moe_phases", "launches": launches,
+          "kernel_max_abs_err": worst})
+    print_card()
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if not torch.cuda.is_available():
@@ -8331,6 +8934,8 @@ def main(argv=None) -> int:
         return ssl_phases(gen)
     if argv == ["--decode-phases"]:
         return decode_phases(gen)
+    if argv == ["--moe-phases"]:
+        return moe_phases(gen)
     inference_first = argv == ["--inference-first"]
     if argv and not inference_first:
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
@@ -8430,6 +9035,10 @@ def main(argv=None) -> int:
         lm_launches, rescore_launches, errs = phase_decode(tmp, SEED, gen)
         for k, e in errs.items():
             worst[k] = max(worst[k], e)
+        torch.cuda.empty_cache()
+        moe_launches, errs = phase_moe(tmp, SEED, gen)
+        for k, e in errs.items():
+            worst[k] = max(worst[k], e)
     emit({"phase": "phase_seconds", **PHASE_SECONDS,
           "inference_first": inference_first,
           "trace_retries": {str(k): n for k, n in TRACE_RETRIES.items()},
@@ -8512,6 +9121,7 @@ def main(argv=None) -> int:
          "ssl_cli_launches": ssl_cli_launches.get(name, 0),
          "decode_lm_launches": lm_launches.get(name, 0),
          "decode_rescore_launches": rescore_launches.get(name, 0),
+         "moe_launches": moe_launches.get(name, 0),
          "max_abs_err": worst[name],
          **{k: times[(name, torch.float32)][k] for k in keys},
          **extra(name)}

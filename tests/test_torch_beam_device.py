@@ -7,8 +7,10 @@ space symbol and the word bonus, with frame lengths, batch rows
 independent of each other, and ``PrefixBeamSearch(device=True).run``
 against JAX's ``PrefixBeamSearch(device=True).run``; the port's device
 search against its host library search, and a tensor input searched on
-its own device. Both packages' ``Offsets`` (the blank is ``GO``) are at
-their defaults.
+its own device. The edges, with n-best lists equal and scores bitwise:
+beams wider than the vocabulary (16 and 40 over 8 symbols, 100 over 32
+with a word bonus of 5), beam 1, and rows of frame length 0 and 1. Both
+packages' ``Offsets`` (the blank is ``GO``) are at their defaults.
 """
 import numpy as np
 import pytest
@@ -109,3 +111,31 @@ def test_tensor_input_stays_on_its_device():
     assert parents.device == lp.device and scores.shape == (2, 4)
     assert backtrace(parents.numpy(), tokens.numpy())[1] == \
         ctc_beam_search(lp.numpy()[1:, :12], beam=4)[0][0]
+
+
+@pytest.mark.parametrize("b,t,v,beam,space,beta,seed", [
+    (2, 30, 8, 16, -1, 0.0, 7),    # beams wider than the vocabulary
+    (2, 30, 8, 40, 2, 0.0, 8),
+    (1, 60, 32, 100, 4, 5.0, 9),   # 100 over 32 with a word bonus of 5
+    (3, 25, 8, 1, 2, 0.5, 10),     # beam 1
+])
+def test_wide_and_single_beams_match_jax_bitwise(b, t, v, beam, space, beta,
+                                                 seed):
+    lp = _log_probs(seed, b, t, v)
+    (nbest, scores), (j_nbest, j_scores) = (
+        ctc_beam_search(lp, beam=beam, blank=0, space=space, beta=beta),
+        ctc_beam_search_jax(lp, beam=beam, blank=0, space=space, beta=beta))
+    assert nbest == j_nbest
+    np.testing.assert_array_equal(scores, np.asarray(j_scores))
+
+
+def test_rows_of_length_zero_and_one_match_jax_bitwise():
+    lp = _log_probs(11, 3, 20, 8)
+    lengths = np.array([0, 1, 20], np.int32)
+    (nbest, scores), (j_nbest, j_scores) = (
+        ctc_beam_search(lp, lengths, beam=6, blank=0, space=2, beta=0.5),
+        ctc_beam_search_jax(lp, lengths, beam=6, blank=0, space=2,
+                            beta=0.5))
+    assert nbest == j_nbest
+    np.testing.assert_array_equal(scores, np.asarray(j_scores))
+    assert nbest[0][0] == []  # no frame: the empty hypothesis first

@@ -27,7 +27,8 @@
   decodes in ``cli.transcribe``, ``cli.serve``, ``cli.test`` and
   ``cli.embed``. The trainers take
   ``--layer_drop`` and every entry point every topology flag and
-  preset; MoE (item 8) still raises.
+  preset, and the MoE flags; expert parallelism (``--moe_experts``
+  beside ``--tensor_parallel 2``, item 8) still raises.
 * A value the port can run runs: dropout flags at inference, the LM
   weights without an LM, the MoE and transducer sizes without MoE or a
   transducer, the topology flags at the port's own topology.
@@ -134,7 +135,8 @@ def parse_and_check(entry, extra):
     ("train", ["--pipeline_parallel", "2"], "item 8"),
     ("train", ["--tensor_parallel", "2"], "item 8"),
     ("train", ["--fsdp", "true"], "item 8"),
-    ("train", ["--moe_experts", "4"], "item 8"),
+    ("train", ["--moe_experts", "4", "--tensor_parallel", "2"],
+     "item 8"),
     ("train", ["--distributed", "true"], "item 3"),
     ("pretrain", ["--sequence_parallel", "true"], "item 8"),
     ("test", ["--tensor_parallel", "2"], "item 8"),
@@ -142,25 +144,30 @@ def parse_and_check(entry, extra):
     ("train_seq2seq", ["--distributed", "true"], "item 3"),
     ("train_seq2seq", ["--fsdp", "true"], "item 8"),
     ("pretrain_paired", ["--distributed", "true"], "item 3"),
-    ("pretrain_paired", ["--moe_experts", "4"], "item 8"),
+    ("pretrain_paired", ["--moe_experts", "4", "--tensor_parallel", "2"],
+     "item 8"),
     ("export", ["--transducer", "true", "--tensor_parallel", "2"], "item 8"),
     ("train_transducer", ["--distributed", "true"], "item 3"),
-    ("train_transducer", ["--moe_experts", "4"], "item 8"),
+    ("train_transducer", ["--moe_experts", "4", "--tensor_parallel", "2"],
+     "item 8"),
     ("train_transducer", ["--fsdp", "true"], "item 8"),
     ("pretrain_hubert", ["--distributed", "true"], "item 3"),
     ("pretrain_hubert", ["--tensor_parallel", "2"], "item 8"),
     ("pretrain_hubert", ["--zero1", "true"], "item 8"),
     ("pretrain_hubert", ["--fsdp", "true"], "item 8"),
     ("pretrain_hubert", ["--sequence_parallel", "true"], "item 8"),
-    ("pretrain_hubert", ["--moe_experts", "4"], "item 8"),
+    ("pretrain_hubert", ["--moe_experts", "4", "--tensor_parallel", "2"],
+     "item 8"),
     ("pretrain_data2vec", ["--distributed", "true"], "item 3"),
     ("pretrain_data2vec", ["--tensor_parallel", "2"], "item 8"),
     ("pretrain_data2vec", ["--zero1", "true"], "item 8"),
     ("pretrain_data2vec", ["--fsdp", "true"], "item 8"),
     ("pretrain_data2vec", ["--sequence_parallel", "true"], "item 8"),
-    ("pretrain_data2vec", ["--moe_experts", "4"], "item 8"),
+    ("pretrain_data2vec", ["--moe_experts", "4", "--tensor_parallel", "2"],
+     "item 8"),
     ("cluster_targets", ["--tensor_parallel", "2"], "item 8"),
-    ("cluster_targets", ["--moe_experts", "4"], "item 8"),
+    ("cluster_targets", ["--moe_experts", "4", "--tensor_parallel", "2"],
+     "item 8"),
 ])
 def test_unported_values_raise_naming_their_item(entry, extra, item):
     with pytest.raises(NotImplementedError, match=item):

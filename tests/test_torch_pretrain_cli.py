@@ -100,7 +100,8 @@ def test_pretrain_with_bucketing(corpus, tmp_path):
                                   ["--tensor_parallel", "2"],
                                   ["--zero1", "true"], ["--fsdp", "true"],
                                   ["--sequence_parallel", "true"],
-                                  ["--moe_experts", "4"]])
+                                  ["--moe_experts", "4",
+                                   "--tensor_parallel", "2"]])
 def test_unported_flags_raise(corpus, tmp_path, flag):
     with pytest.raises(NotImplementedError):
         pretrain.train(_args(corpus, str(tmp_path / "r"), steps=1) + flag)
@@ -128,14 +129,19 @@ def test_trainer_flags_pretrain(corpus, tmp_path, flag):
 
 @pytest.mark.parametrize("flag", [["--extractor_mode", "layer",
                                    "--conv_bias", "true"],
-                                  ["--layer_drop", "0.5"]])
+                                  ["--layer_drop", "0.5"],
+                                  ["--moe_experts", "4", "--moe_every", "1"]])
 def test_ported_flags_pretrain(corpus, tmp_path, flag):
-    """The layer-norm extractor with conv bias and LayerDrop, which
-    raised before this slice, pretrain."""
+    """The layer-norm extractor with conv bias, LayerDrop and the MoE FFN,
+    which raised before they were ported, pretrain; the MoE run logs its
+    load-balance loss, at least its floor of 1."""
     state = pretrain.train(_args(corpus, str(tmp_path / "r"), steps=2)
                            + flag)
     assert state.step == 2
     assert all(np.isfinite(r["loss"]) for r in state.log)
+    moe = flag[0] == "--moe_experts"
+    assert all(("moe_aux" in r) == moe for r in state.log)
+    assert all(r["moe_aux"] >= 1.0 - 1e-5 for r in state.log if moe)
 
 
 def test_final_dim_follows_the_preset():

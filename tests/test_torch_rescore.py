@@ -12,6 +12,10 @@ JAX package's on the CPU, under the default and the fairseq CTC
 * ``rescore_nbest`` and ``rescore_transducer_nbest``: the same pick and
   totals, an empty hypothesis never picked unless all are, at two LM
   weights and a word bonus.
+* The long edges: ``lm_logp`` on hypotheses of up to 520 labels (past
+  the LM's ``block_len`` and JAX's 512-label grid step) within 2e-7
+  relative, and ``ctc_label_logp`` at (1015 frames, 600 labels) and
+  (300, 140) bitwise.
 """
 import json
 
@@ -150,3 +154,28 @@ def test_rescore_transducer_nbest_picks_as_jax(offsets, lm, monkeypatch):
         assert rescore.rescore_transducer_nbest(scores, nbest, mine) == \
             jax_rescore.rescore_transducer_nbest(scores, nbest, theirs)
     assert rescore.rescore_transducer_nbest([], [], mine) == 0
+
+
+def test_lm_logp_past_block_len_and_jax_grid_step(lm, monkeypatch):
+    """Hypotheses of up to 520 labels: past the LM's ``block_len`` (16)
+    and JAX's 512-label grid step, within 2e-7 relative (1.1e-7 seen)."""
+    basedir, params = lm
+    mine = rescore.NeuralLMRescorer(basedir, alpha=0.5)
+    theirs = jax_rescorer(monkeypatch, basedir, params, 0.5, 0.0)
+    rng = np.random.default_rng(4)
+    hyps = [list(rng.integers(4, 12, size=n)) for n in (17, 300, 512, 520)]
+    np.testing.assert_allclose(mine.lm_logp(hyps), theirs.lm_logp(hyps),
+                               rtol=2e-7)
+
+
+def test_ctc_label_logp_long_is_bitwise_jax():
+    """(1015 frames, 600 labels) and (300, 140)."""
+    rng = np.random.default_rng(5)
+    for t, u in ((1015, 600), (300, 140)):
+        x = rng.normal(size=(t, V)).astype(np.float32) * 2.0
+        lp = x - np.log(np.exp(x).sum(-1, keepdims=True))
+        hyps = [list(rng.integers(4, V, size=n)) for n in (u, u // 2)]
+        got = rescore.ctc_label_logp(lp, t, hyps)
+        want = jax_rescore.ctc_label_logp(lp, t, hyps)
+        np.testing.assert_array_equal(got, np.asarray(want))
+        assert np.all(got < 0)

@@ -126,8 +126,7 @@ def test_seeded_init_is_reproducible():
     assert w.std() > 0
 
 
-@pytest.mark.parametrize("field,value", [
-    ("moe_experts", 4), ("fused_attention", "flash")])
+@pytest.mark.parametrize("field,value", [("fused_attention", "flash")])
 def test_unported_features_raise(field, value):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Wav2Vec2AcousticModel(dataclasses.replace(CFG, **{field: value}))
@@ -137,11 +136,12 @@ def test_unported_features_raise(field, value):
     ("pre_norm", True), ("extractor_mode", "layer"), ("conv_bias", True),
     ("pos_conv_depth", 5), ("gated_rel_pos", True),
     ("encoder_type", "conformer"), ("causal_chunk_frames", 8),
-    ("packed_qkv", True), ("flash_attention", True)])
+    ("packed_qkv", True), ("flash_attention", True), ("moe_experts", 4)])
 def test_ported_features_build_and_run(field, value):
     """The topologies that raised before this slice build and give
     finite log-probs of the right shape (their values against JAX:
-    ``test_torch_topologies.py``)."""
+    ``test_torch_topologies.py``, the MoE FFN's
+    ``test_torch_moe_model.py``)."""
     model = Wav2Vec2AcousticModel(dataclasses.replace(CFG, **{field: value}),
                                   generator=torch.Generator().manual_seed(0))
     x, lengths = _batch()
