@@ -82,7 +82,6 @@ _PRESET_BASE_DEFAULTS = {"d_model": 768, "d_ff": 3072, "num_heads": 12,
 
 # ROADMAP.md queue 1 items, named in the refusals
 DECODE = "ROADMAP.md queue 1, item 6 (serving and inference)"
-DATA_PARALLEL = "ROADMAP.md queue 1, item 3 (data parallel)"
 PARALLEL = "ROADMAP.md queue 1, item 8 (parallelism beyond DP)"
 
 # flag -> (its value when unused, the item that ports it). Any other
@@ -93,7 +92,6 @@ NOT_PORTED = {
     "fsdp": (False, PARALLEL),
     "sequence_parallel": (False, PARALLEL),
     "pipeline_parallel": (1, PARALLEL),
-    "distributed": (False, DATA_PARALLEL),
     "lm": (None, DECODE),
     "beam": (1, DECODE),
     "timestamps": (False, DECODE),
@@ -163,6 +161,41 @@ def check_ported(args: Namespace, entry: str) -> None:
             raise NotImplementedError(
                 f"--{flag} {getattr(args, flag)} is not ported yet: {item}")
     check_supported(EncoderConfig(**encoder_kwargs(args)))
+
+
+def start_distributed(args):
+    """``--distributed``: the rank's device (``cuda`` is
+    ``cuda:$LOCAL_RANK``), then the process group
+    (``parallel/sharding.py:setup``); returns ``(device, rank, world,
+    group)``, ``group`` None when no process group runs. Without
+    ``--distributed``: ``--device``, rank 0 of 1, no group."""
+    from audio8_tpu_torch.parallel.sharding import (dp_device, setup,
+                                                    world_group)
+
+    device = resolve_device(dp_device(args.device, args.distributed))
+    rank, world = setup(args.distributed, device)
+    return device, rank, world, world_group()
+
+
+def shard_kwargs(rank: int, world: int) -> dict:
+    """The datasets' row-block sharding for rank ``rank`` of ``world``
+    (the JAX trainers': every rank walks the same batches and reads its
+    block of rows)."""
+    return {"shard_index": rank, "num_shards": world,
+            "row_shard": world > 1}
+
+
+def save_on_rank0(group, save, *args) -> None:
+    """``save(*args)`` on rank 0 of ``group`` only (always without a
+    group); every rank then waits at a barrier, so no rank reads or
+    resumes from a file still being written."""
+    import torch.distributed as dist
+
+    from audio8_tpu_torch.parallel.sharding import barrier
+
+    if group is None or dist.get_rank(group) == 0:
+        save(*args)
+    barrier(group)
 
 
 def add_augmentation_args(parser: ArgumentParser) -> None:

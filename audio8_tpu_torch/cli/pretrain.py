@@ -27,8 +27,14 @@ noise and negatives draw their seeds from) and ``--restart_tt``.
 ``--remat`` recomputes each encoder layer in the backward on its
 replayed dropout seeds, ``--optim sgd`` steps plain SGD, and
 ``--profile_dir`` writes a Chrome trace of the five steps after the
-tenth (``train/profiler.py``). Those of parts not ported yet raise:
-parallelism and ``--distributed``. ``--moe_experts`` (with
+tenth (``train/profiler.py``). ``--distributed true`` under
+``torchrun`` trains data-parallel, one rank per card
+(``parallel/sharding.py``): each rank reads its block of the rows of the
+same min-cropped global batch, the masks, noise and negatives are the
+global batch's, the loss's slot average, accuracy and code perplexity
+are taken over all ranks, and rank 0 alone writes checkpoints. Those of
+parts not ported yet raise: parallelism beyond data parallelism.
+``--moe_experts`` (with
 ``--moe_top_k``, ``--moe_capacity_factor``, ``--moe_every`` and
 ``--moe_aux_weight``) trains a Mixture-of-Experts encoder and logs
 ``moe_aux``. ``--lane_align`` (TPU tiling) is not a flag here.
@@ -45,12 +51,14 @@ import torch
 from audio8_tpu_torch.cli.common import (add_common_model_args,
                                         apply_preset, check_ported,
                                         encoder_kwargs, moe_aux,
-                                        resolve_device, resolve_restart)
+                                        resolve_restart, save_on_rank0,
+                                        shard_kwargs, start_distributed)
 from audio8_tpu_torch.config import PretrainConfig
 from audio8_tpu_torch.data.datasets import (AudioFileDataset,
                                             BucketingAudioDataset,
                                             PrefetchLoader)
 from audio8_tpu_torch.models.wav2vec2 import PretrainSeeds, Wav2Vec2Model
+from audio8_tpu_torch.parallel.sharding import sync_from_rank0
 from audio8_tpu_torch.train.checkpoint import save_checkpoint
 from audio8_tpu_torch.train.optim import (TrainState, create_lrs,
                                           create_optimizer)
@@ -102,7 +110,8 @@ def parse_args(argv=None):
     parser.add_argument("--plateau_steps", type=int, default=0)
     parser.add_argument("--steps_per_checkpoint", type=int, default=1000)
     parser.add_argument("--distributed", type=str2bool, default=False,
-                        help="not ported yet")
+                        help="data-parallel over the ranks torchrun "
+                             "starts, one card each")
     parser.add_argument("--n_negatives", type=int, default=100)
     parser.add_argument("--profile_dir", type=str,
                         help="write a torch.profiler Chrome trace of "
@@ -114,16 +123,17 @@ def parse_args(argv=None):
     return apply_preset(parser.parse_args(argv))
 
 
-def _datasets(args):
+def _datasets(args, rank: int = 0, world: int = 1):
     train_manifest = os.path.join(args.manifest_dir, args.train_manifest_file)
     valid_manifest = os.path.join(args.manifest_dir, args.valid_manifest_file)
+    shards = shard_kwargs(rank, world)
     if args.bucketing:
         return tuple(BucketingAudioDataset(
-            args.buckets, m, args.max_sample_len, args.tokens_per_batch)
-            for m in (train_manifest, valid_manifest))
+            args.buckets, m, args.max_sample_len, args.tokens_per_batch,
+            **shards) for m in (train_manifest, valid_manifest))
     return tuple(AudioFileDataset(m, args.max_sample_len,
                                   args.tokens_per_batch,
-                                  length_grid=args.buckets)
+                                  length_grid=args.buckets, **shards)
                  for m in (train_manifest, valid_manifest))
 
 
@@ -136,16 +146,17 @@ def train(argv=None):
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(levelname)s %(name)s: "
                                "%(message)s")
-    device = resolve_device(args.device)
     check_ported(args, "pretrain")
-    preempt = PreemptionGuard()  # catch SIGTERM from here on
+    device, rank, world, group = start_distributed(args)
+    preempt = PreemptionGuard(group)  # catch SIGTERM from here on
     try:
-        return _train(args, device, preempt)
+        return _train(args, device, preempt, rank, world, group)
     finally:
         preempt.close()
 
 
-def _train(args, device: torch.device, preempt: PreemptionGuard):
+def _train(args, device: torch.device, preempt: PreemptionGuard,
+           rank: int = 0, world: int = 1, group=None):
     if args.basedir is None:
         args.basedir = f"wav2vec2-{args.dataset_key}-{os.getpid()}"
     os.makedirs(args.basedir, exist_ok=True)
@@ -154,7 +165,7 @@ def _train(args, device: torch.device, preempt: PreemptionGuard):
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
 
-    train_set, valid_set = _datasets(args)
+    train_set, valid_set = _datasets(args, rank, world)
     logger.info("Loaded datasets")
 
     cfg = PretrainConfig(
@@ -176,12 +187,14 @@ def _train(args, device: torch.device, preempt: PreemptionGuard):
                                                args.weight_decay))
     resolve_restart(args.restart_from, state, ctc=False,
                     restart_tt=args.restart_tt)
+    if group is not None:
+        sync_from_rank0(model, group)
     state.log = []
     n_params = sum(p.numel() for p in model.parameters())
     logger.info("Model has %s parameters on %s", f"{n_params:,}", device)
 
     train_step, eval_step = make_pretrain_steps(
-        model, clip=args.clip, n_negatives=args.n_negatives)
+        model, clip=args.clip, n_negatives=args.n_negatives, group=group)
 
     update_on = args.steps_per_checkpoint
     validate_on = update_on * 10
@@ -203,8 +216,10 @@ def _train(args, device: torch.device, preempt: PreemptionGuard):
         start = time.time()
         batch = next(train_itr)
         signal = torch.from_numpy(batch).to(device, non_blocking=True)
+        # every rank's block has the same rows: the global batch's offset
         state, metrics = train_step(state, signal,
-                                    PretrainSeeds.draw(generator), generator)
+                                    PretrainSeeds.draw(generator), generator,
+                                    rank * batch.shape[0])
         steps += 1
         profiler.step(steps)
         loss = float(metrics["loss"])  # synchronises with the card
@@ -212,8 +227,10 @@ def _train(args, device: torch.device, preempt: PreemptionGuard):
         elapsed = time.time() - start
         step_time.update(elapsed)
         state.log.append({
-            "step": steps, "seconds": elapsed, "audio_s": batch.size / sr,
-            "rows": batch.shape[0], "samples": batch.shape[1], "loss": loss,
+            "step": steps, "seconds": elapsed,
+            "audio_s": batch.size * world / sr,
+            "rows": batch.shape[0] * world, "samples": batch.shape[1],
+            "loss": loss,
             "code_perplexity": float(metrics["code_perplexity"]),
             "accuracy": float(metrics["accuracy"]),
             "temperature": metrics["temperature"],
@@ -226,11 +243,11 @@ def _train(args, device: torch.device, preempt: PreemptionGuard):
                         float(metrics["code_perplexity"]),
                         float(metrics["accuracy"]))
         if (steps + 1) % update_on == 0:
-            save_checkpoint(state, f"{model_base}-step-{steps}.pt",
-                            "pretrain")
+            save_on_rank0(group, save_checkpoint, state,
+                          f"{model_base}-step-{steps}.pt", "pretrain")
         if preempt.should_save(steps):
-            save_checkpoint(state, f"{model_base}-step-{steps}.pt",
-                            "pretrain")
+            save_on_rank0(group, save_checkpoint, state,
+                          f"{model_base}-step-{steps}.pt", "pretrain")
             logger.warning("preempted: saved step %d, exiting", steps)
             break
         if (steps + 1) % validate_on == 0:
@@ -238,7 +255,8 @@ def _train(args, device: torch.device, preempt: PreemptionGuard):
                                  generator, state.step, device, {
                                      "train_elapsed_min":
                                          (time.time() - start_of_run) / 60,
-                                     "average_train_loss": avg_loss.avg}))
+                                     "average_train_loss": avg_loss.avg},
+                                 rank))
     train_itr.close()  # stops the prefetch threads
     profiler.close()
     state.profile_trace = profiler.path
@@ -246,17 +264,21 @@ def _train(args, device: torch.device, preempt: PreemptionGuard):
 
 
 def validate(eval_step, valid_set, valid_steps, generator, step, device,
-             m: dict) -> dict:
-    """The average loss over up to ``valid_steps`` validation batches."""
+             m: dict, rank: int = 0) -> dict:
+    """The average loss over up to ``valid_steps`` validation batches (the
+    global batches' under data parallelism: ``rank``'s rows start at
+    ``rank`` times its row count)."""
     avg_valid = Average("average_valid_loss")
     vstart = time.time()
     valid_itr = iter(valid_set)
     for _ in range(valid_steps):
         try:
-            signal = torch.from_numpy(next(valid_itr)).to(device)
+            batch = next(valid_itr)
         except StopIteration:
             break
-        loss, _ = eval_step(signal, PretrainSeeds.draw(generator), step)
+        signal = torch.from_numpy(batch).to(device)
+        loss, _ = eval_step(signal, PretrainSeeds.draw(generator), step,
+                            rank * batch.shape[0])
         avg_valid.update(float(loss))
     return dict(m, average_valid_loss=avg_valid.avg,
                 valid_elapsed_epoch=(time.time() - vstart) / 60)

@@ -27,8 +27,13 @@ step boundary and exits 0.
 
 The flags are the JAX entry point's, with the same names and defaults,
 plus ``--device`` and ``--seed`` (the generator that dropout and the mask
-draw their seeds from). Those of parts not ported yet raise:
-parallelism and ``--distributed``. The MoE flags train a
+draw their seeds from). ``--distributed true`` under ``torchrun`` trains
+data-parallel (``parallel/sharding.py``): each rank reads its row block
+of the same min-cropped batches, the mask is the global batch's, the
+loss and the collapse monitors are taken over all ranks' frames, and
+every rank's teacher moves by the same EMA. Those of parts not ported
+yet raise: parallelism beyond data parallelism, and ``--moe_experts``
+under ``--distributed``. The MoE flags train a
 Mixture-of-Experts student (its teacher is the EMA of the same
 layout) and log ``moe_aux``.
 """
@@ -45,12 +50,14 @@ import torch
 from audio8_tpu_torch.cli.common import (add_common_model_args,
                                         apply_preset, check_ported,
                                         encoder_kwargs, moe_aux,
-                                        resolve_device, resolve_restart)
+                                        resolve_restart, save_on_rank0,
+                                        shard_kwargs, start_distributed)
 from audio8_tpu_torch.config import Data2VecPretrainConfig
 from audio8_tpu_torch.data.datasets import AudioFileDataset, PrefetchLoader
 from audio8_tpu_torch.models.convert import save_fairseq_pretrained
 from audio8_tpu_torch.models.data2vec import Data2VecAudioModel
 from audio8_tpu_torch.ops.hashrand import draw_seed
+from audio8_tpu_torch.parallel.sharding import sync_from_rank0
 from audio8_tpu_torch.train.checkpoint import (TEACHER_BASE, load_teacher,
                                                save_checkpoint)
 from audio8_tpu_torch.train.optim import (TrainState, create_lrs,
@@ -95,7 +102,8 @@ def parse_args(argv=None):
     parser.add_argument("--valid_steps", type=int, default=10)
     parser.add_argument("--steps_per_checkpoint", type=int, default=1000)
     parser.add_argument("--distributed", type=str2bool, default=False,
-                        help="not ported yet")
+                        help="data-parallel over the ranks torchrun "
+                             "starts, one card each")
     parser.add_argument("--seed", type=int, default=1234,
                         help="seed of the generator that dropout and the "
                              "mask draw from")
@@ -139,16 +147,17 @@ def train(argv=None):
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(levelname)s %(name)s: "
                                "%(message)s")
-    device = resolve_device(args.device)
     check_ported(args, "pretrain_data2vec")
-    preempt = PreemptionGuard()  # catch SIGTERM from here on
+    device, rank, world, group = start_distributed(args)
+    preempt = PreemptionGuard(group)  # catch SIGTERM from here on
     try:
-        return _train(args, device, preempt)
+        return _train(args, device, preempt, rank, world, group)
     finally:
         preempt.close()
 
 
-def _train(args, device: torch.device, preempt: PreemptionGuard):
+def _train(args, device: torch.device, preempt: PreemptionGuard,
+           rank: int = 0, world: int = 1, group=None):
     if args.basedir is None:
         args.basedir = f"data2vec-{args.dataset_key}-{os.getpid()}"
     os.makedirs(args.basedir, exist_ok=True)
@@ -159,7 +168,8 @@ def _train(args, device: torch.device, preempt: PreemptionGuard):
 
     train_set, valid_set = (AudioFileDataset(
         os.path.join(args.manifest_dir, m), args.max_sample_len,
-        args.tokens_per_batch, length_grid=args.buckets)
+        args.tokens_per_batch, length_grid=args.buckets,
+        **shard_kwargs(rank, world))
         for m in (args.train_manifest_file, args.valid_manifest_file))
     logger.info("Loaded datasets")
 
@@ -174,6 +184,8 @@ def _train(args, device: torch.device, preempt: PreemptionGuard):
                                                args.weight_decay))
     resolve_restart(args.restart_from, state, ctc=False,
                     restart_tt=args.restart_tt, kind="data2vec")
+    if group is not None:
+        sync_from_rank0(model, group)
     teacher = make_teacher(state, args.restart_from)
     state.log = []
     n_params = sum(p.numel() for p in model.parameters())
@@ -181,7 +193,7 @@ def _train(args, device: torch.device, preempt: PreemptionGuard):
                 f"{n_params:,}", device)
 
     train_step, eval_step = make_data2vec_steps(model, teacher,
-                                                clip=args.clip)
+                                                clip=args.clip, group=group)
     validate_on = min(args.train_steps // 2, args.steps_per_checkpoint)
     report_on = max(10, args.steps_per_checkpoint) // 10
     model_base = os.path.join(args.basedir, "checkpoint")
@@ -191,6 +203,9 @@ def _train(args, device: torch.device, preempt: PreemptionGuard):
     def save(step: int) -> None:
         save_checkpoint(state, f"{model_base}-step-{step}.pt", "data2vec")
         save_fairseq_pretrained(teacher, f"{teacher_base}-step-{step}.pt")
+
+    def save_all(step: int) -> None:
+        save_on_rank0(group, save, step)
 
     train_itr = iter(PrefetchLoader(train_set,
                                     num_workers=args.num_train_workers,
@@ -206,7 +221,8 @@ def _train(args, device: torch.device, preempt: PreemptionGuard):
         signal = next(train_itr)
         batch = {"signal": torch.from_numpy(signal).to(device,
                                                        non_blocking=True),
-                 "signal_lengths": None}
+                 "signal_lengths": None,
+                 "row_offset": rank * signal.shape[0]}
         state, metrics = train_step(state, batch, draw_seed(generator),
                                     generator)
         gstep += 1
@@ -216,8 +232,9 @@ def _train(args, device: torch.device, preempt: PreemptionGuard):
         elapsed = time.time() - start
         step_time.update(elapsed)
         state.log.append({
-            "step": gstep, "seconds": elapsed, "audio_s": signal.size / sr,
-            "rows": signal.shape[0], "samples": signal.shape[1],
+            "step": gstep, "seconds": elapsed,
+            "audio_s": signal.size * world / sr,
+            "rows": signal.shape[0] * world, "samples": signal.shape[1],
             "loss": loss, "target_std": float(metrics["target_std"]),
             "pred_std": float(metrics["pred_std"]),
             "ema_decay": metrics["ema_decay"],
@@ -230,12 +247,12 @@ def _train(args, device: torch.device, preempt: PreemptionGuard):
                         state.current_lr, metrics["ema_decay"])
         if gstep % validate_on == 0:
             state.valid = validate(eval_step, valid_set, args.valid_steps,
-                                   generator, device)
+                                   generator, device, rank)
             logger.info(state.valid)
-            save(gstep)
+            save_all(gstep)
             start = time.time()
         if preempt.should_save(gstep):
-            save(gstep)
+            save_all(gstep)
             logger.warning("preempted: saved step %d, exiting", gstep)
             break
     train_itr.close()  # stops the prefetch threads
@@ -243,8 +260,9 @@ def _train(args, device: torch.device, preempt: PreemptionGuard):
 
 
 def validate(eval_step, valid_set, valid_steps: int, generator,
-             device: torch.device) -> dict:
-    """The average loss over up to ``valid_steps`` validation batches."""
+             device: torch.device, rank: int = 0) -> dict:
+    """The average loss over up to ``valid_steps`` validation batches
+    (the global batches' under data parallelism)."""
     avg_loss = Average("average_valid_loss")
     t0 = time.time()
     itr = iter(valid_set)
@@ -253,7 +271,8 @@ def validate(eval_step, valid_set, valid_steps: int, generator,
             signal = torch.from_numpy(next(itr)).to(device)
         except StopIteration:
             break
-        loss, _ = eval_step({"signal": signal, "signal_lengths": None},
+        loss, _ = eval_step({"signal": signal, "signal_lengths": None,
+                             "row_offset": rank * signal.shape[0]},
                             draw_seed(generator))
         avg_loss.update(float(loss))
     return {"average_valid_loss": avg_loss.avg,

@@ -28,9 +28,13 @@ saves at the next step boundary and exits 0 (``train/preempt.py``).
 
 The flags are the JAX entry point's, with the same names and defaults,
 plus ``--device`` and ``--seed`` (the generator that dropout and the
-masks draw their seeds from). Those of parts not ported yet raise:
-parallelism and ``--distributed``. The MoE flags train a
-Mixture-of-Experts encoder and log ``moe_aux``. ``--lane_align`` (TPU
+masks draw their seeds from). ``--distributed true`` under ``torchrun``
+trains data-parallel (``parallel/sharding.py``): each rank reads its row
+block of the same batches, the masks are the global batch's and the
+loss and accuracy are taken over all ranks' frames. Those of parts not
+ported yet raise: parallelism beyond data parallelism. The MoE flags
+train a Mixture-of-Experts encoder (under ``--distributed`` too) and
+log ``moe_aux``. ``--lane_align`` (TPU
 tiling) is not a flag here.
 """
 from __future__ import annotations
@@ -46,11 +50,14 @@ import torch
 from audio8_tpu_torch.cli.common import (add_common_model_args,
                                         apply_preset, check_ported,
                                         encoder_kwargs, moe_aux,
-                                        resolve_device, resolve_restart)
+                                        resolve_restart, save_on_rank0,
+                                        shard_kwargs, start_distributed)
 from audio8_tpu_torch.config import HubertPretrainConfig
 from audio8_tpu_torch.data.datasets import (AudioTextLetterDataset,
                                             PrefetchLoader)
 from audio8_tpu_torch.models.hubert import HubertPretrainModel, HubertSeeds
+from audio8_tpu_torch.parallel.sharding import (global_sum_scalars,
+                                                sync_from_rank0)
 from audio8_tpu_torch.train.checkpoint import save_checkpoint
 from audio8_tpu_torch.train.optim import (TrainState, create_lrs,
                                           create_optimizer)
@@ -95,7 +102,8 @@ def parse_args(argv=None):
     parser.add_argument("--valid_steps", type=int, default=100)
     parser.add_argument("--steps_per_checkpoint", type=int, default=2400)
     parser.add_argument("--distributed", type=str2bool, default=False,
-                        help="not ported yet")
+                        help="data-parallel over the ranks torchrun "
+                             "starts, one card each")
     parser.add_argument("--target_tokens_per_batch", type=int,
                         default=1_400_000)
     parser.add_argument("--pad_to_multiple", type=int, default=16_000)
@@ -108,8 +116,10 @@ def parse_args(argv=None):
 
 
 def make_dataset(args, tsv: str, shuffle: bool = True,
-                 infinite: bool = True) -> AudioTextLetterDataset:
-    """The supervised pipeline over ``tsv`` and its ``.km`` targets."""
+                 infinite: bool = True, rank: int = 0,
+                 world: int = 1) -> AudioTextLetterDataset:
+    """The supervised pipeline over ``tsv`` and its ``.km`` targets,
+    row-sharded for rank ``rank`` of ``world``."""
     return AudioTextLetterDataset(
         os.path.join(args.root_dir, tsv), None,
         args.target_tokens_per_batch, args.max_sample_len,
@@ -119,7 +129,7 @@ def make_dataset(args, tsv: str, shuffle: bool = True,
         tgt_type=AudioTextLetterDataset.TGT_KM,
         max_dst_length=2048,  # frames at 50 Hz; >= max_sample_len / 320
         pad_to_multiple=args.pad_to_multiple,
-        length_grid=args.length_buckets)
+        length_grid=args.length_buckets, **shard_kwargs(rank, world))
 
 
 def build_config(args) -> HubertPretrainConfig:
@@ -138,8 +148,11 @@ def build_config(args) -> HubertPretrainConfig:
 
 
 def to_device(batch: dict, device: torch.device) -> dict:
-    return {k: torch.from_numpy(v).to(device, non_blocking=True)
-            for k, v in batch.items() if isinstance(v, np.ndarray)}
+    out = {k: torch.from_numpy(v).to(device, non_blocking=True)
+           for k, v in batch.items() if isinstance(v, np.ndarray)}
+    if batch.get("row_offset"):  # a row-sharded block past row 0
+        out["row_offset"] = batch["row_offset"]
+    return out
 
 
 def train(argv=None):
@@ -150,16 +163,17 @@ def train(argv=None):
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(levelname)s %(name)s: "
                                "%(message)s")
-    device = resolve_device(args.device)
     check_ported(args, "pretrain_hubert")
-    preempt = PreemptionGuard()  # catch SIGTERM from here on
+    device, rank, world, group = start_distributed(args)
+    preempt = PreemptionGuard(group)  # catch SIGTERM from here on
     try:
-        return _train(args, device, preempt)
+        return _train(args, device, preempt, rank, world, group)
     finally:
         preempt.close()
 
 
-def _train(args, device: torch.device, preempt: PreemptionGuard):
+def _train(args, device: torch.device, preempt: PreemptionGuard,
+           rank: int = 0, world: int = 1, group=None):
     if args.basedir is None:
         args.basedir = f"hubert-{args.dataset_key}-{os.getpid()}"
     os.makedirs(args.basedir, exist_ok=True)
@@ -168,9 +182,10 @@ def _train(args, device: torch.device, preempt: PreemptionGuard):
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
 
-    train_set = make_dataset(args, args.train_dataset)
+    train_set = make_dataset(args, args.train_dataset, rank=rank,
+                             world=world)
     valid_set = make_dataset(args, args.valid_dataset, shuffle=False,
-                             infinite=False)
+                             infinite=False, rank=rank, world=world)
     logger.info("Loaded datasets")
 
     dtype = torch.bfloat16 if args.bf16 else torch.float32
@@ -184,11 +199,14 @@ def _train(args, device: torch.device, preempt: PreemptionGuard):
                                                args.weight_decay))
     resolve_restart(args.restart_from, state, ctc=False,
                     restart_tt=args.restart_tt, kind="hubert")
+    if group is not None:
+        sync_from_rank0(model, group)
     state.log = []
     n_params = sum(p.numel() for p in model.parameters())
     logger.info("Model has %s parameters on %s", f"{n_params:,}", device)
 
-    train_step, eval_step = make_hubert_steps(model, clip=args.clip)
+    train_step, eval_step = make_hubert_steps(model, clip=args.clip,
+                                              group=group)
     validate_on = min(args.train_steps // 2, args.steps_per_checkpoint)
     report_on = max(10, args.steps_per_checkpoint) // 10
     model_base = os.path.join(args.basedir, "checkpoint")
@@ -215,10 +233,11 @@ def _train(args, device: torch.device, preempt: PreemptionGuard):
         avg_acc.update(acc)
         elapsed = time.time() - start
         step_time.update(elapsed)
+        audio_s, = global_sum_scalars(
+            [float(batch["signal_lengths"].sum()) / sr], group).tolist()
         state.log.append({
-            "step": gstep, "seconds": elapsed,
-            "audio_s": float(batch["signal_lengths"].sum()) / sr,
-            "rows": batch["signal"].shape[0],
+            "step": gstep, "seconds": elapsed, "audio_s": audio_s,
+            "rows": batch["signal"].shape[0] * world,
             "samples": batch["signal"].shape[1], "loss": loss,
             "acc_masked": acc, "grad_norm": float(metrics["grad_norm"]),
             **moe_aux(metrics)})
@@ -231,11 +250,12 @@ def _train(args, device: torch.device, preempt: PreemptionGuard):
             state.valid = validate(eval_step, valid_set, args.valid_steps,
                                    generator, device)
             logger.info(state.valid)
-            save_checkpoint(state, f"{model_base}-step-{gstep}.pt",
-                            "hubert")
+            save_on_rank0(group, save_checkpoint, state,
+                          f"{model_base}-step-{gstep}.pt", "hubert")
             start = time.time()
         if preempt.should_save(gstep):
-            save_checkpoint(state, f"{model_base}-step-{gstep}.pt", "hubert")
+            save_on_rank0(group, save_checkpoint, state,
+                          f"{model_base}-step-{gstep}.pt", "hubert")
             logger.warning("preempted: saved step %d, exiting", gstep)
             break
     train_itr.close()  # stops the prefetch threads

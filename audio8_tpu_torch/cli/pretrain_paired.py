@@ -25,8 +25,13 @@ at the next step boundary and exits 0. ``--warmstart_text`` overlays a
 pretrained transformer LM's ``.npz`` on the text tower
 (``models/warmstart.py``) before the restart resolves, ``--remat``
 recomputes each audio encoder layer in the backward on its replayed
-dropout seeds, ``--optim sgd`` steps plain SGD. The flags are the JAX
-trainer's; those of parts not ported yet raise: parallelism and
+dropout seeds, ``--optim sgd`` steps plain SGD. ``--distributed true``
+under ``torchrun`` trains data-parallel (``parallel/sharding.py``): each
+rank reads its row block, the CLIP similarities are the global batch's
+(every rank gathers all ranks' embeddings; its gradient reaches its own
+rows, the temperature's rank 0's), and rank 0 alone writes checkpoints.
+The flags are the JAX trainer's; those of parts not ported yet raise:
+parallelism beyond data parallelism, and ``--moe_experts`` under
 ``--distributed``. ``--lane_align`` (TPU tiling) is not a flag here.
 """
 from __future__ import annotations
@@ -40,9 +45,10 @@ import torch
 
 from audio8_tpu_torch.cli.common import (add_common_model_args, apply_preset,
                                         check_ported, encoder_kwargs,
-                                        moe_aux, resolve_device,
-                                        resolve_restart)
-from audio8_tpu_torch.cli.train import _to_device
+                                        moe_aux, resolve_restart,
+                                        save_on_rank0, shard_kwargs,
+                                        start_distributed)
+from audio8_tpu_torch.cli.train import _to_device, real_rows_here
 from audio8_tpu_torch.config import PooledConfig, TextEncoderConfig
 from audio8_tpu_torch.data.datasets import (AudioTextLetterDataset,
                                             PrefetchLoader)
@@ -52,6 +58,8 @@ from audio8_tpu_torch.models.dual_encoder import (DualEncoderModel,
 from audio8_tpu_torch.models.text import (BPEVectorizer, TextVectorizer,
                                           read_vocab_file)
 from audio8_tpu_torch.models.warmstart import load_tlm_npz
+from audio8_tpu_torch.parallel.sharding import (global_sum_scalars,
+                                                sync_from_rank0)
 from audio8_tpu_torch.train.checkpoint import save_checkpoint
 from audio8_tpu_torch.train.optim import (TrainState, create_lrs,
                                           create_optimizer)
@@ -91,7 +99,8 @@ def parse_args(argv=None):
     parser.add_argument("--valid_steps", type=int, default=1000)
     parser.add_argument("--steps_per_checkpoint", type=int, default=1000)
     parser.add_argument("--distributed", type=str2bool, default=False,
-                        help="not ported yet")
+                        help="data-parallel over the ranks torchrun "
+                             "starts, one card each")
     parser.add_argument("--target_tokens_per_batch", type=int,
                         default=700_000)
     parser.add_argument("--target_type", choices=["wrd", "bpe"],
@@ -153,10 +162,10 @@ def build_module(args, vocab_size: int, dtype: torch.dtype) -> PairedModule:
                                                  args.learn_temp))
 
 
-def datasets(args):
+def datasets(args, rank: int = 0, world: int = 1):
     """(vocab, train set, valid set) of parsed ``args`` (``dict_file``
     already formatted): BPE pieces with ``--subword_model_file``, else the
-    dict's words."""
+    dict's words; row-sharded for rank ``rank`` of ``world``."""
     if args.target_type == "bpe" and args.subword_model_file:
         vec = BPEVectorizer(args.subword_model_file, args.subword_vocab_file,
                             ["<s>"], ["</s>"])
@@ -173,11 +182,11 @@ def datasets(args):
     train_set = AudioTextLetterDataset(
         os.path.join(args.root_dir, args.train_dataset), vec,
         args.target_tokens_per_batch, args.max_sample_len, shuffle=True,
-        **common)
+        **common, **shard_kwargs(rank, world))
     valid_set = AudioTextLetterDataset(
         os.path.join(args.root_dir, args.valid_dataset), vec,
         args.target_tokens_per_batch, args.max_sample_len, shuffle=False,
-        is_infinite=False, **common)
+        is_infinite=False, **common, **shard_kwargs(rank, world))
     return vocab, train_set, valid_set
 
 
@@ -191,16 +200,17 @@ def train(argv=None):
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(levelname)s %(name)s: "
                                "%(message)s")
-    device = resolve_device(args.device)
     check_ported(args, "pretrain_paired")
-    preempt = PreemptionGuard()  # catch SIGTERM from here on
+    device, rank, world, group = start_distributed(args)
+    preempt = PreemptionGuard(group)  # catch SIGTERM from here on
     try:
-        return _train(args, device, preempt)
+        return _train(args, device, preempt, rank, world, group)
     finally:
         preempt.close()
 
 
-def _train(args, device: torch.device, preempt: PreemptionGuard):
+def _train(args, device: torch.device, preempt: PreemptionGuard,
+           rank: int = 0, world: int = 1, group=None):
     args.dict_file = args.dict_file.format(args.target_type)
     if args.basedir is None:
         args.basedir = f"paired-{args.dataset_key}-{os.getpid()}"
@@ -210,7 +220,7 @@ def _train(args, device: torch.device, preempt: PreemptionGuard):
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
 
-    vocab, train_set, valid_set = datasets(args)
+    vocab, train_set, valid_set = datasets(args, rank, world)
     dtype = torch.bfloat16 if args.bf16 else torch.float32
     module = build_module(args, len(vocab), dtype).to(device)
     warmstart = None
@@ -225,11 +235,14 @@ def _train(args, device: torch.device, preempt: PreemptionGuard):
     state = TrainState(module, create_optimizer(lr_sched, args.optim,
                                                 args.weight_decay))
     resolve_restart(args.restart_from, state, ctc=False, kind="paired")
+    if group is not None:
+        sync_from_rank0(module, group)
     state.log, state.valid, state.warmstart = [], [], warmstart
     n_params = sum(p.numel() for p in module.parameters())
     logger.info("Model has %s parameters on %s", f"{n_params:,}", device)
 
-    grad_fn, update_fn, eval_fn = make_paired_steps(module, clip=args.clip)
+    grad_fn, update_fn, eval_fn = make_paired_steps(module, clip=args.clip,
+                                                    group=group)
     validate_on = min(args.train_steps // 2, args.steps_per_checkpoint)
     report_on = max(10, args.steps_per_checkpoint) // 10
     model_base = os.path.join(args.basedir, "checkpoint")
@@ -251,11 +264,12 @@ def _train(args, device: torch.device, preempt: PreemptionGuard):
         loss, metrics, grads, _, _ = grad_fn(_to_device(batch, device),
                                              generator, **flags)
         acc_grads = accumulate_grads(acc_grads, grads)
-        acc_examples += batch["num_real"]
+        acc_examples += real_rows_here(batch)
         acc_audio += float(batch["signal_lengths"].sum()) / sr
         if iters % args.grad_accum:
             continue
         update_fn(state, acc_grads, acc_examples)
+        acc_audio, = global_sum_scalars([acc_audio], group).tolist()
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         elapsed = time.time() - start
@@ -264,7 +278,8 @@ def _train(args, device: torch.device, preempt: PreemptionGuard):
                           "audio_s": acc_audio, "loss": float(loss),
                           "clip_accuracy": float(metrics["clip_accuracy"]),
                           "logit_scale": float(metrics["logit_scale"]),
-                          "rows": int(batch["signal"].shape[0]), **flags,
+                          "rows": int(batch["signal"].shape[0]) * world,
+                          **flags,
                           **moe_aux(metrics)})
         acc_grads, acc_examples, acc_audio = None, 0.0, 0.0
         gstep += 1
@@ -279,10 +294,12 @@ def _train(args, device: torch.device, preempt: PreemptionGuard):
             vm = validate(eval_fn, valid_set, args.valid_steps, device)
             state.valid.append(vm)
             logger.info(vm)
-            save_checkpoint(state, f"{model_base}-step-{gstep}.pt", "paired")
+            save_on_rank0(group, save_checkpoint, state,
+                          f"{model_base}-step-{gstep}.pt", "paired")
             start = time.time()
         if preempt.should_save(gstep):
-            save_checkpoint(state, f"{model_base}-step-{gstep}.pt", "paired")
+            save_on_rank0(group, save_checkpoint, state,
+                          f"{model_base}-step-{gstep}.pt", "paired")
             logger.warning("preempted: saved step %d, exiting", gstep)
             break
     train_itr.close()  # stops the prefetch threads

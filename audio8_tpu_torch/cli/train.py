@@ -25,8 +25,20 @@ prints a beam-decoded (``--beam``, ``--lm``) validation sample.
 utterances (``data/audio.py``), ``--remat`` recomputes each encoder
 layer in the backward on its replayed dropout seeds, ``--optim sgd``
 steps plain SGD, and ``--profile_dir`` writes a Chrome trace of the
-five steps after the tenth (``train/profiler.py``). The flags are the JAX trainer's; those
-of parts not ported yet raise: parallelism and ``--distributed``.
+five steps after the tenth (``train/profiler.py``).
+
+``--distributed true`` under ``torchrun`` trains data-parallel, one rank
+per card (``parallel/sharding.py``): every rank reads its block of rows
+of the same global batch, the gradients and counts are summed over the
+ranks, and the step is the single-process step on the global batch.
+Validation scores each rank's real rows and sums the counts; rank 0
+alone writes checkpoints. Without it the trainer drives one card:
+
+  torchrun --nproc_per_node 8 -m audio8_tpu_torch.cli.train \\
+      --distributed true --root_dir corpus ...
+
+The flags are the JAX trainer's; those of parts not ported yet raise:
+parallelism beyond data parallelism.
 ``--layer_drop``, every topology flag or preset and the MoE flags
 (``--moe_experts`` and its four companions) train.
 ``--lane_align`` (TPU tiling) is not a flag here.
@@ -45,8 +57,10 @@ from audio8_tpu_torch.cli.common import (add_augmentation_args,
                                         add_beam_args,
                                         add_common_model_args,
                                         apply_preset, check_ported,
-                                        encoder_kwargs, resolve_device,
-                                        resolve_restart, train_augmentation)
+                                        encoder_kwargs, resolve_restart,
+                                        save_on_rank0, shard_kwargs,
+                                        start_distributed,
+                                        train_augmentation)
 from audio8_tpu_torch.config import AcousticConfig
 from audio8_tpu_torch.data.datasets import (AudioTextLetterDataset,
                                             PrefetchLoader)
@@ -54,6 +68,8 @@ from audio8_tpu_torch.models.text import TextVectorizer, read_vocab_list
 from audio8_tpu_torch.models.wav2vec2 import Wav2Vec2AcousticModel
 from audio8_tpu_torch.ops import metrics as M
 from audio8_tpu_torch.ops.beam import PrefixBeamSearch
+from audio8_tpu_torch.parallel.sharding import (global_sum_scalars,
+                                                sync_from_rank0)
 from audio8_tpu_torch.train.checkpoint import save_checkpoint
 from audio8_tpu_torch.train.optim import (TrainState, create_lrs,
                                           create_optimizer)
@@ -108,7 +124,8 @@ def parse_args(argv=None):
     parser.add_argument("--verbose", type=str2bool, default=False,
                         help="print a beam-decoded validation sample")
     parser.add_argument("--distributed", type=str2bool, default=False,
-                        help="not ported yet")
+                        help="data-parallel over the ranks torchrun "
+                             "starts, one card each")
     parser.add_argument("--vocab_file")
     parser.add_argument("--early_stopping_metric", type=str)
     parser.add_argument("--target_tokens_per_batch", type=int,
@@ -133,8 +150,20 @@ def parse_args(argv=None):
 
 
 def _to_device(batch: dict, device: torch.device) -> dict:
-    return {k: torch.from_numpy(v).to(device, non_blocking=True)
-            for k, v in batch.items() if isinstance(v, np.ndarray)}
+    """The batch's arrays on ``device``, and a row-sharded block's first
+    global row (``row_offset``) where it is past row 0."""
+    out = {k: torch.from_numpy(v).to(device, non_blocking=True)
+           for k, v in batch.items() if isinstance(v, np.ndarray)}
+    if batch.get("row_offset"):
+        out["row_offset"] = batch["row_offset"]
+    return out
+
+
+def real_rows_here(batch: dict) -> int:
+    """How many of a (row-sharded) batch's rows are real: the global
+    ``num_real`` less the rows before this block, within the block."""
+    return min(max(batch["num_real"] - batch.get("row_offset", 0), 0),
+               batch["signal"].shape[0])
 
 
 def train(argv=None):
@@ -145,16 +174,17 @@ def train(argv=None):
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(levelname)s %(name)s: "
                                "%(message)s")
-    device = resolve_device(args.device)
     check_ported(args, "train")
-    preempt = PreemptionGuard()  # catch SIGTERM from here on
+    device, rank, world, group = start_distributed(args)
+    preempt = PreemptionGuard(group)  # catch SIGTERM from here on
     try:
-        return _train(args, device, preempt)
+        return _train(args, device, preempt, rank, world, group)
     finally:
         preempt.close()
 
 
-def _train(args, device: torch.device, preempt: PreemptionGuard):
+def _train(args, device: torch.device, preempt: PreemptionGuard,
+           rank: int = 0, world: int = 1, group=None):
     args.dict_file = args.dict_file.format(args.target_type)
     if args.basedir is None:
         args.basedir = f"wav2vec2-{args.dataset_key}-{os.getpid()}"
@@ -182,11 +212,11 @@ def _train(args, device: torch.device, preempt: PreemptionGuard):
     train_set = AudioTextLetterDataset(
         os.path.join(args.root_dir, args.train_dataset), vec,
         args.target_tokens_per_batch, args.max_sample_len, shuffle=True,
-        **common, **train_augmentation(args))
+        **common, **train_augmentation(args), **shard_kwargs(rank, world))
     valid_set = AudioTextLetterDataset(
         os.path.join(args.root_dir, args.valid_dataset), vec,
         args.target_tokens_per_batch, args.max_sample_len, shuffle=False,
-        is_infinite=False, **common)
+        is_infinite=False, **common, **shard_kwargs(rank, world))
     logger.info("Loaded datasets")
 
     cfg = AcousticConfig(
@@ -211,6 +241,8 @@ def _train(args, device: torch.device, preempt: PreemptionGuard):
                                                args.weight_decay))
     resolve_restart(args.restart_from, state, ctc=True,
                     restart_tt=args.restart_tt)
+    if group is not None:
+        sync_from_rank0(model, group)
     state.log = []
     ctc_decoder = (PrefixBeamSearch(vocab_list, alpha=args.alpha,
                                     beta=args.beta, beam=args.beam,
@@ -220,7 +252,8 @@ def _train(args, device: torch.device, preempt: PreemptionGuard):
     logger.info("Model has %s parameters on %s", f"{n_params:,}", device)
 
     grad_fn, update_fn, eval_fn = make_ctc_steps(
-        model, clip=args.clip, loss_reduction=args.loss_reduction_type)
+        model, clip=args.clip, loss_reduction=args.loss_reduction_type,
+        group=group)
     validate_on = min(args.train_steps // 2, args.steps_per_checkpoint)
     report_on = max(10, args.steps_per_checkpoint) // 10
     model_base = os.path.join(args.basedir, "checkpoint")
@@ -252,11 +285,12 @@ def _train(args, device: torch.device, preempt: PreemptionGuard):
         else:
             loss, grads, _, _ = grad_fn(tbatch, generator, freeze=freeze)
             acc_grads = accumulate_grads(acc_grads, grads)
-        acc_examples += batch["num_real"]
+        acc_examples += real_rows_here(batch)
         acc_tokens += float(batch["token_lengths"].sum())
         acc_audio += float(batch["signal_lengths"].sum()) / sr
         if iters % 8 == 0:  # subsample the loss fetch (host sync)
-            avg_loss.update(float(loss), n=8)
+            avg_loss.update(float(global_sum_scalars([float(loss)],
+                                                     group)[0]), n=8)
 
         if iters % args.grad_accum == 0:
             if not fused:
@@ -264,8 +298,12 @@ def _train(args, device: torch.device, preempt: PreemptionGuard):
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
             elapsed = time.time() - start
+            # the global batch's: every rank's shares summed
+            loss_g, acc_audio, acc_examples, acc_tokens = \
+                global_sum_scalars([float(loss), acc_audio, acc_examples,
+                                    acc_tokens], group).tolist()
             state.log.append({"step": gstep + 1, "seconds": elapsed,
-                              "audio_s": acc_audio, "loss": float(loss),
+                              "audio_s": acc_audio, "loss": loss_g,
                               "frozen": freeze})
             batch_size_sent.update(acc_examples)
             batch_size_toks.update(acc_tokens)
@@ -286,18 +324,21 @@ def _train(args, device: torch.device, preempt: PreemptionGuard):
             if gstep % validate_on == 0:
                 valid_metrics = validate(eval_fn, valid_set, index2vocab,
                                          args.valid_steps, postproc, device,
-                                         model, ctc_decoder)
+                                         model, ctc_decoder, group)
                 logger.info({"average_train_loss": avg_loss.avg})
                 logger.info(valid_metrics)
-                save_checkpoint(state, f"{model_base}-step-{gstep}.pt", "ctc")
+                save_on_rank0(group, save_checkpoint, state,
+                              f"{model_base}-step-{gstep}.pt", "ctc")
                 esm = args.early_stopping_metric
                 if esm and valid_metrics.get(esm, 1e9) < best_metric:
                     best_metric = valid_metrics[esm]
                     logger.info("New best metric %.4f", best_metric)
-                    save_checkpoint(state, f"{model_base}-best.pt", "ctc")
+                    save_on_rank0(group, save_checkpoint, state,
+                                  f"{model_base}-best.pt", "ctc")
                 start = time.time()
             if preempt.should_save(gstep):
-                save_checkpoint(state, f"{model_base}-step-{gstep}.pt", "ctc")
+                save_on_rank0(group, save_checkpoint, state,
+                              f"{model_base}-step-{gstep}.pt", "ctc")
                 logger.warning("preempted: saved step %d, exiting", gstep)
                 break
     train_itr.close()  # stops the prefetch threads
@@ -307,18 +348,21 @@ def _train(args, device: torch.device, preempt: PreemptionGuard):
 
 
 def validate(eval_fn, valid_set, index2vocab, valid_steps, postproc,
-             device, model=None, ctc_decoder=None) -> dict:
+             device, model=None, ctc_decoder=None, group=None) -> dict:
     """Loss and greedy WER/CER over up to ``valid_steps`` + 1 batches;
     with a ``ctc_decoder`` it prints the beam transcript of each batch's
-    first utterance, as the reference's verbose validation does."""
-    avg_valid_loss = Average("average_valid_loss")
+    first utterance, as the reference's verbose validation does. Under a
+    process ``group`` each rank scores its own real rows and the error
+    counts and losses are summed over the ranks (JAX
+    ``cli/train.py:371-403``), so every rank reports the same numbers."""
+    loss_sum, n_batches = 0.0, 0
     c_errors = c_total = w_errors = w_total = 0
     valid_start = time.time()
     for j, batch in enumerate(iter(valid_set)):
         if j > valid_steps:
             break
         loss, frames, frame_lengths = eval_fn(_to_device(batch, device))
-        n_real = batch["num_real"]
+        n_real = real_rows_here(batch)
         sm = M.ctc_metrics(frames.cpu().numpy()[:n_real],
                            batch["token_ids"][:n_real],
                            frame_lengths.cpu().numpy()[:n_real], index2vocab,
@@ -327,7 +371,8 @@ def validate(eval_fn, valid_set, index2vocab, valid_steps, postproc,
         w_errors += sm["w_errors"]
         c_total += sm["c_total"]
         w_total += sm["w_total"]
-        avg_valid_loss.update(float(loss))
+        loss_sum += float(loss)
+        n_batches += 1
         if ctc_decoder is not None and n_real > 0:
             tbatch = _to_device(batch, device)
             with torch.no_grad():
@@ -336,7 +381,9 @@ def validate(eval_fn, valid_set, index2vocab, valid_steps, postproc,
             print("".join(ctc_decoder.run(
                 lp.float().cpu().numpy(),
                 pad_mask.sum(dim=-1).cpu().numpy(), n_best=1)[0]))
-    return {"average_valid_loss": avg_valid_loss.avg,
+    c_errors, c_total, w_errors, w_total, loss_sum = global_sum_scalars(
+        [c_errors, c_total, w_errors, w_total, loss_sum], group).tolist()
+    return {"average_valid_loss": loss_sum / n_batches if n_batches else 0.0,
             "valid_elapsed_epoch": time.time() - valid_start,
             "cer": (c_errors / max(c_total, 1)) * 100,
             "wer": (w_errors / max(w_total, 1)) * 100}

@@ -23,8 +23,13 @@ The flags are the JAX trainer's with the same defaults, plus
 ``--restart_from`` (a run's directory or one of its ``.pt`` files: the
 weights, and with the resume file beside it the AdamW moments and the
 step; the block draws of the steps already taken are replayed, the
-dropout seeds are drawn afresh). ``--distributed true`` raises naming
-ROADMAP.md queue 1, item 3.
+dropout seeds are drawn afresh). ``--distributed true`` under
+``torchrun`` trains data-parallel as the JAX entry point does
+(``parallel/sharding.py``): every rank draws ``batch_size // world``
+blocks from the same seeded ``RandomState`` (so, as in JAX, each rank
+holds the same blocks and the global batch holds each of them once per
+rank), the loss is the token mean over the global batch, and rank 0
+alone writes checkpoints.
 """
 from __future__ import annotations
 
@@ -38,10 +43,11 @@ from argparse import ArgumentParser
 import numpy as np
 import torch
 
-from audio8_tpu_torch.cli.common import DATA_PARALLEL, resolve_device
+from audio8_tpu_torch.cli.common import save_on_rank0, start_distributed
 from audio8_tpu_torch.config import TextLMConfig
 from audio8_tpu_torch.models.text import (CausalTextLM, TextVectorizer,
                                           read_vocab_list)
+from audio8_tpu_torch.parallel.sharding import sync_from_rank0
 from audio8_tpu_torch.train.checkpoint import (find_latest_checkpoint,
                                                load_port_checkpoint,
                                                load_resume, save_checkpoint)
@@ -116,12 +122,14 @@ def parse_args(argv=None):
 
 
 def validate(eval_fn, valid_blocks: np.ndarray, batch: int,
-             device: torch.device) -> dict:
-    """Token-mean NLL and perplexity over the validation blocks."""
+             device: torch.device, rank: int = 0) -> dict:
+    """Token-mean NLL and perplexity over the validation blocks (every
+    rank scores the same ``batch`` blocks a step, as in JAX; the mean is
+    the global batch's)."""
     nll, ntok = 0.0, 0.0
     for i0 in range(0, len(valid_blocks), batch):
         ids = torch.from_numpy(valid_blocks[i0:i0 + batch]).to(device)
-        loss, n = eval_fn({"ids": ids})
+        loss, n = eval_fn({"ids": ids, "row_offset": rank * batch})
         nll += float(loss) * float(n)
         ntok += float(n)
     mean = nll / max(ntok, 1)
@@ -136,19 +144,16 @@ def train(argv=None):
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(levelname)s %(name)s: "
                                "%(message)s")
-    device = resolve_device(args.device)
-    if args.distributed:
-        raise NotImplementedError(
-            f"--distributed {args.distributed} is not ported yet: "
-            f"{DATA_PARALLEL}")
-    preempt = PreemptionGuard()  # catch SIGTERM from here on
+    device, rank, world, group = start_distributed(args)
+    preempt = PreemptionGuard(group)  # catch SIGTERM from here on
     try:
-        return _train(args, device, preempt)
+        return _train(args, device, preempt, rank, world, group)
     finally:
         preempt.close()
 
 
-def _train(args, device: torch.device, preempt: PreemptionGuard):
+def _train(args, device: torch.device, preempt: PreemptionGuard,
+           rank: int = 0, world: int = 1, group=None):
     if args.basedir is None:
         args.basedir = f"textlm-{os.getpid()}"
     os.makedirs(args.basedir, exist_ok=True)
@@ -184,16 +189,18 @@ def _train(args, device: torch.device, preempt: PreemptionGuard):
         weight_decay=args.weight_decay))
     if args.restart_from:
         restore(state, args.restart_from)
+    if group is not None:
+        sync_from_rank0(model, group)
     state.log, state.valid = [], []
     logger.info("LM has %s parameters on %s",
                 f"{sum(p.numel() for p in model.parameters()):,}", device)
 
-    train_step, eval_fn = make_lm_steps(model, clip=args.clip)
+    train_step, eval_fn = make_lm_steps(model, clip=args.clip, group=group)
     model_base = os.path.join(args.basedir, "checkpoint")
     avg_loss = Average("average_train_loss")
     generator = torch.Generator().manual_seed(args.seed)
     perm = np.random.RandomState(args.seed + 1)
-    b = args.batch_size
+    b = max(args.batch_size // world, 1)  # this rank's blocks, as in JAX
     gstep = state.step
     for _ in range(gstep):  # the block draws of the steps already taken
         perm.randint(0, len(blocks), size=b)
@@ -203,7 +210,9 @@ def _train(args, device: torch.device, preempt: PreemptionGuard):
         t0 = time.time()
         rows = perm.randint(0, len(blocks), size=b)
         ids = torch.from_numpy(blocks[rows]).to(device)
-        state, metrics = train_step(state, {"ids": ids}, generator)
+        state, metrics = train_step(state, {"ids": ids,
+                                            "row_offset": rank * b},
+                                    generator)
         loss = float(metrics["loss"])
         gstep += 1
         state.log.append({"step": gstep, "loss": loss,
@@ -219,13 +228,15 @@ def _train(args, device: torch.device, preempt: PreemptionGuard):
         if gstep % args.steps_per_checkpoint == 0 \
                 or gstep == args.train_steps:
             if valid_blocks is not None:
-                vm = dict(validate(eval_fn, valid_blocks, b, device),
+                vm = dict(validate(eval_fn, valid_blocks, b, device, rank),
                           step=gstep)
                 state.valid.append(vm)
                 logger.info(vm)
-            save_checkpoint(state, f"{model_base}-step-{gstep}.pt", "lm")
+            save_on_rank0(group, save_checkpoint, state,
+                          f"{model_base}-step-{gstep}.pt", "lm")
         if preempt.should_save(gstep):
-            save_checkpoint(state, f"{model_base}-step-{gstep}.pt", "lm")
+            save_on_rank0(group, save_checkpoint, state,
+                          f"{model_base}-step-{gstep}.pt", "lm")
             logger.warning("preempted: saved step %d, exiting", gstep)
             break
     return state

@@ -26,9 +26,11 @@ trainer saves at the next step boundary and exits 0. ``--speed_perturb``
 and ``--noise_manifest`` augment the training utterances, ``--remat``
 recomputes each encoder layer in the backward on its replayed dropout
 seeds, ``--optim sgd`` steps plain SGD. The flags are the JAX trainer's
-(``--attention_dropout`` is inert there and here); those of parts not
-ported yet raise: parallelism and ``--distributed``. ``--lane_align``
-(TPU tiling) is not a flag here.
+(``--attention_dropout`` is inert there and here). ``--distributed
+true`` under ``torchrun`` trains data-parallel as ``cli.train`` does
+(``parallel/sharding.py``); those of parts not ported yet raise:
+parallelism beyond data parallelism, and ``--moe_experts`` under
+``--distributed``. ``--lane_align`` (TPU tiling) is not a flag here.
 """
 from __future__ import annotations
 
@@ -42,15 +44,18 @@ import torch
 from audio8_tpu_torch.cli.common import (add_augmentation_args,
                                         add_common_model_args, apply_preset,
                                         check_ported, encoder_kwargs,
-                                        resolve_device, resolve_restart,
+                                        resolve_restart, save_on_rank0,
+                                        shard_kwargs, start_distributed,
                                         train_augmentation)
-from audio8_tpu_torch.cli.train import _to_device
+from audio8_tpu_torch.cli.train import _to_device, real_rows_here
 from audio8_tpu_torch.config import DecoderConfig, EncoderConfig
 from audio8_tpu_torch.data.datasets import (AudioTextLetterDataset,
                                             PrefetchLoader)
 from audio8_tpu_torch.models.seq2seq import Seq2Seq
 from audio8_tpu_torch.models.text import TextVectorizer, read_vocab_file
 from audio8_tpu_torch.ops import metrics as M
+from audio8_tpu_torch.parallel.sharding import (global_sum_scalars,
+                                                sync_from_rank0)
 from audio8_tpu_torch.train.checkpoint import save_checkpoint
 from audio8_tpu_torch.train.optim import (TrainState, create_lrs,
                                           create_optimizer)
@@ -103,7 +108,8 @@ def parse_args(argv=None):
     parser.add_argument("--steps_per_checkpoint", type=int, default=2400)
     parser.add_argument("--verbose", type=str2bool, default=False)
     parser.add_argument("--distributed", type=str2bool, default=False,
-                        help="not ported yet")
+                        help="data-parallel over the ranks torchrun "
+                             "starts, one card each")
     parser.add_argument("--vocab_file")
     parser.add_argument("--early_stopping_metric", type=str)
     parser.add_argument("--target_tokens_per_batch", type=int,
@@ -141,10 +147,11 @@ def build_model(args, vocab_size: int, dtype: torch.dtype) -> Seq2Seq:
     return Seq2Seq(enc, dec, dtype, generator=torch.Generator().manual_seed(0))
 
 
-def datasets(args):
+def datasets(args, rank: int = 0, world: int = 1):
     """(vocab, train set, valid set) of parsed ``args`` (``dict_file``
     already formatted), with the specials remapped to fairseq's and GO
-    and EOS emitted around every target."""
+    and EOS emitted around every target; row-sharded for rank ``rank`` of
+    ``world``."""
     Offsets.remap_fairseq_ctc()
     vocab = read_vocab_file(args.vocab_file or os.path.join(
         args.root_dir, args.dict_file))
@@ -157,11 +164,11 @@ def datasets(args):
     train_set = AudioTextLetterDataset(
         os.path.join(args.root_dir, args.train_dataset), vec,
         args.target_tokens_per_batch, args.max_sample_len, shuffle=True,
-        **common, **train_augmentation(args))
+        **common, **train_augmentation(args), **shard_kwargs(rank, world))
     valid_set = AudioTextLetterDataset(
         os.path.join(args.root_dir, args.valid_dataset), vec,
         args.target_tokens_per_batch, args.max_sample_len, shuffle=False,
-        is_infinite=False, **common)
+        is_infinite=False, **common, **shard_kwargs(rank, world))
     return vocab, train_set, valid_set
 
 
@@ -173,16 +180,17 @@ def train(argv=None):
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(levelname)s %(name)s: "
                                "%(message)s")
-    device = resolve_device(args.device)
     check_ported(args, "train_seq2seq")
-    preempt = PreemptionGuard()  # catch SIGTERM from here on
+    device, rank, world, group = start_distributed(args)
+    preempt = PreemptionGuard(group)  # catch SIGTERM from here on
     try:
-        return _train(args, device, preempt)
+        return _train(args, device, preempt, rank, world, group)
     finally:
         preempt.close()
 
 
-def _train(args, device: torch.device, preempt: PreemptionGuard):
+def _train(args, device: torch.device, preempt: PreemptionGuard,
+           rank: int = 0, world: int = 1, group=None):
     args.dict_file = args.dict_file.format(args.target_type)
     if args.basedir is None:
         args.basedir = f"wav2vec2-s2s-{args.dataset_key}-{os.getpid()}"
@@ -192,7 +200,7 @@ def _train(args, device: torch.device, preempt: PreemptionGuard):
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
 
-    vocab, train_set, valid_set = datasets(args)
+    vocab, train_set, valid_set = datasets(args, rank, world)
     index2vocab = revlut(vocab)
     postproc = (M.postproc_bpe if args.target_type == "bpe"
                 else M.postproc_letters)
@@ -205,12 +213,15 @@ def _train(args, device: torch.device, preempt: PreemptionGuard):
                                                args.weight_decay))
     resolve_restart(args.restart_from, state, ctc=True,
                     restart_tt=args.restart_tt, kind="seq2seq")
+    if group is not None:
+        sync_from_rank0(model, group)
     state.log, state.valid = [], []
     n_params = sum(p.numel() for p in model.parameters())
     logger.info("Model has %s parameters on %s", f"{n_params:,}", device)
 
     grad_fn, update_fn, decode_fn, eval_loss_fn = make_seq2seq_steps(
-        model, clip=args.clip, loss_reduction=args.loss_reduction_type)
+        model, clip=args.clip, loss_reduction=args.loss_reduction_type,
+        group=group)
     validate_on = min(args.train_steps // 2, args.steps_per_checkpoint)
     report_on = max(10, args.steps_per_checkpoint) // 10
     model_base = os.path.join(args.basedir, "checkpoint")
@@ -233,7 +244,7 @@ def _train(args, device: torch.device, preempt: PreemptionGuard):
         loss, grads, _, _ = grad_fn(_to_device(batch, device), generator,
                                     freeze=freeze)
         acc_grads = accumulate_grads(acc_grads, grads)
-        acc_examples += batch["num_real"]
+        acc_examples += real_rows_here(batch)
         acc_audio += float(batch["signal_lengths"].sum()) / sr
         if iters % args.grad_accum:
             continue
@@ -241,9 +252,12 @@ def _train(args, device: torch.device, preempt: PreemptionGuard):
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         elapsed = time.time() - start
-        avg_loss.update(float(loss))
+        # the global batch's: every rank's shares summed
+        loss_g, acc_audio = global_sum_scalars([float(loss), acc_audio],
+                                               group).tolist()
+        avg_loss.update(loss_g)
         state.log.append({"step": gstep + 1, "seconds": elapsed,
-                          "audio_s": acc_audio, "loss": float(loss),
+                          "audio_s": acc_audio, "loss": loss_g,
                           "frozen": freeze})
         acc_grads, acc_examples, acc_audio = None, 0.0, 0.0
         gstep += 1
@@ -255,19 +269,22 @@ def _train(args, device: torch.device, preempt: PreemptionGuard):
         if gstep % validate_on == 0:
             vm = validate(decode_fn, eval_loss_fn, valid_set, index2vocab,
                           args.valid_steps, postproc, device,
-                          beam=args.valid_beam, verbose=args.verbose)
+                          beam=args.valid_beam, verbose=args.verbose,
+                          group=group)
             state.valid.append(vm)
             logger.info({"average_train_loss": avg_loss.avg})
             logger.info(vm)
-            save_checkpoint(state, f"{model_base}-step-{gstep}.pt",
-                            "seq2seq")
+            save_on_rank0(group, save_checkpoint, state,
+                          f"{model_base}-step-{gstep}.pt", "seq2seq")
             esm = args.early_stopping_metric
             if esm and vm.get(esm, 1e9) < best_metric:
                 best_metric = vm[esm]
-                save_checkpoint(state, f"{model_base}-best.pt", "seq2seq")
+                save_on_rank0(group, save_checkpoint, state,
+                              f"{model_base}-best.pt", "seq2seq")
             start = time.time()
         if preempt.should_save(gstep):
-            save_checkpoint(state, f"{model_base}-step-{gstep}.pt", "seq2seq")
+            save_on_rank0(group, save_checkpoint, state,
+                          f"{model_base}-step-{gstep}.pt", "seq2seq")
             logger.warning("preempted: saved step %d, exiting", gstep)
             break
     train_itr.close()  # stops the prefetch threads
@@ -275,25 +292,29 @@ def _train(args, device: torch.device, preempt: PreemptionGuard):
 
 
 def validate(decode_fn, eval_loss_fn, valid_set, index2vocab, valid_steps,
-             postproc, device, beam: int = 1, verbose: bool = False) -> dict:
+             postproc, device, beam: int = 1, verbose: bool = False,
+             group=None) -> dict:
     """Teacher-forced loss and WER/CER of the decode (greedy, or a beam
     of ``beam``) over up to ``valid_steps`` + 1 batches; the decode
     horizon is the batch's text width rounded up to 32, as in JAX.
-    ``decode_seconds`` and ``utterances`` time the decodes."""
-    avg_valid_loss = Average("average_valid_loss")
+    ``decode_seconds`` and ``utterances`` time the decodes (this
+    rank's). Under a process ``group`` each rank scores its own real rows
+    and the counts and losses are summed over the ranks."""
+    loss_sum, n_batches = 0.0, 0
     c_errors = c_total = w_errors = w_total = utts = 0
     decode_seconds = 0.0
     for j, batch in enumerate(iter(valid_set)):
         if j > valid_steps:
             break
         tbatch = _to_device(batch, device)
-        avg_valid_loss.update(float(eval_loss_fn(tbatch)))
+        loss_sum += float(eval_loss_fn(tbatch))
+        n_batches += 1
         max_len = (int(batch["token_ids"].shape[1]) + 31) // 32 * 32
         t0 = time.perf_counter()
         toks, _ = decode_fn(tbatch, max_output_len=max_len, beam=beam)
         toks = toks.cpu().numpy()
         decode_seconds += time.perf_counter() - t0
-        n_real = batch["num_real"]
+        n_real = real_rows_here(batch)
         utts += n_real
         decoded = [[t for t in row.tolist()
                     if t not in (Offsets.PAD, Offsets.EOS)]
@@ -310,7 +331,9 @@ def validate(decode_fn, eval_loss_fn, valid_set, index2vocab, valid_steps,
         w_errors += sm["w_errors"]
         c_total += sm["c_total"]
         w_total += sm["w_total"]
-    return {"average_valid_loss": avg_valid_loss.avg,
+    c_errors, c_total, w_errors, w_total, loss_sum = global_sum_scalars(
+        [c_errors, c_total, w_errors, w_total, loss_sum], group).tolist()
+    return {"average_valid_loss": loss_sum / n_batches if n_batches else 0.0,
             "cer": (c_errors / max(c_total, 1)) * 100,
             "wer": (w_errors / max(w_total, 1)) * 100,
             "beam": beam, "decode_seconds": decode_seconds,

@@ -29,9 +29,12 @@ next step boundary and exits 0. ``--speed_perturb`` and
 ``--noise_manifest`` augment the training utterances, ``--remat``
 recomputes each encoder layer in the backward on its replayed dropout
 seeds, ``--optim sgd`` steps plain SGD, ``--profile_dir`` writes a
-Chrome trace of the five steps after the tenth. The flags are the JAX
-trainer's; those of parts not ported yet raise: parallelism and
-``--distributed``. The MoE flags train a Mixture-of-Experts encoder. ``--lane_align`` (TPU tiling) is not a flag here.
+Chrome trace of the five steps after the tenth. ``--distributed true``
+under ``torchrun`` trains data-parallel as ``cli.train`` does
+(``parallel/sharding.py``). The flags are the JAX trainer's; those of
+parts not ported yet raise: parallelism beyond data parallelism. The
+MoE flags train a Mixture-of-Experts encoder. ``--lane_align`` (TPU
+tiling) is not a flag here.
 """
 from __future__ import annotations
 
@@ -45,15 +48,18 @@ import torch
 from audio8_tpu_torch.cli.common import (add_augmentation_args,
                                         add_common_model_args, apply_preset,
                                         check_ported, encoder_kwargs,
-                                        resolve_device, resolve_restart,
+                                        resolve_restart, save_on_rank0,
+                                        shard_kwargs, start_distributed,
                                         train_augmentation)
-from audio8_tpu_torch.cli.train import _to_device
+from audio8_tpu_torch.cli.train import _to_device, real_rows_here
 from audio8_tpu_torch.config import TransducerConfig
 from audio8_tpu_torch.data.datasets import (AudioTextLetterDataset,
                                             PrefetchLoader)
 from audio8_tpu_torch.models.text import TextVectorizer, read_vocab_list
 from audio8_tpu_torch.models.transducer import Transducer
 from audio8_tpu_torch.ops import metrics as M
+from audio8_tpu_torch.parallel.sharding import (global_sum_scalars,
+                                                sync_from_rank0)
 from audio8_tpu_torch.train.checkpoint import save_checkpoint
 from audio8_tpu_torch.train.optim import (TrainState, create_lrs,
                                           create_optimizer)
@@ -103,7 +109,8 @@ def parse_args(argv=None):
     add("--train_steps", type=int, default=320_000)
     add("--valid_steps", type=int, default=1000)
     add("--steps_per_checkpoint", type=int, default=2400)
-    add("--distributed", type=str2bool, default=False, help="not ported yet")
+    add("--distributed", type=str2bool, default=False,
+        help="data-parallel over the ranks torchrun starts, one card each")
     add("--vocab_file")
     add("--early_stopping_metric", type=str)
     add("--target_tokens_per_batch", type=int, default=700_000)
@@ -162,16 +169,17 @@ def train(argv=None):
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(levelname)s %(name)s: "
                                "%(message)s")
-    device = resolve_device(args.device)
     check_ported(args, "train_transducer")
-    preempt = PreemptionGuard()  # catch SIGTERM from here on
+    device, rank, world, group = start_distributed(args)
+    preempt = PreemptionGuard(group)  # catch SIGTERM from here on
     try:
-        return _train(args, device, preempt)
+        return _train(args, device, preempt, rank, world, group)
     finally:
         preempt.close()
 
 
-def _train(args, device: torch.device, preempt: PreemptionGuard):
+def _train(args, device: torch.device, preempt: PreemptionGuard,
+           rank: int = 0, world: int = 1, group=None):
     args.dict_file = args.dict_file.format(args.target_type)
     if args.basedir is None:
         args.basedir = f"transducer-{args.dataset_key}-{os.getpid()}"
@@ -197,11 +205,11 @@ def _train(args, device: torch.device, preempt: PreemptionGuard):
     train_set = AudioTextLetterDataset(
         os.path.join(args.root_dir, args.train_dataset), vec,
         args.target_tokens_per_batch, args.max_sample_len, shuffle=True,
-        **common, **train_augmentation(args))
+        **common, **train_augmentation(args), **shard_kwargs(rank, world))
     valid_set = AudioTextLetterDataset(
         os.path.join(args.root_dir, args.valid_dataset), vec,
         args.target_tokens_per_batch, args.max_sample_len, shuffle=False,
-        is_infinite=False, **common)
+        is_infinite=False, **common, **shard_kwargs(rank, world))
     logger.info("Loaded datasets")
 
     dtype = torch.bfloat16 if args.bf16 else torch.float32
@@ -213,13 +221,15 @@ def _train(args, device: torch.device, preempt: PreemptionGuard):
                                                args.weight_decay))
     resolve_restart(args.restart_from, state, ctc=True,
                     restart_tt=args.restart_tt, kind="transducer")
+    if group is not None:
+        sync_from_rank0(model, group)
     state.log, state.valid = [], []
     n_params = sum(p.numel() for p in model.parameters())
     logger.info("Model has %s parameters on %s", f"{n_params:,}", device)
 
     grad_fn, update_fn, decode_fn, eval_loss_fn = make_transducer_steps(
         model, clip=args.clip, loss_reduction=args.loss_reduction_type,
-        fused_loss=args.fused_loss)
+        fused_loss=args.fused_loss, group=group)
     profiler = StepProfiler(args.profile_dir, device=device)
     validate_on = min(args.train_steps // 2, args.steps_per_checkpoint)
     report_on = max(10, args.steps_per_checkpoint) // 10
@@ -248,7 +258,7 @@ def _train(args, device: torch.device, preempt: PreemptionGuard):
         else:
             loss, grads, _, _ = grad_fn(tbatch, generator, freeze=freeze)
             acc_grads = accumulate_grads(acc_grads, grads)
-        acc_examples += batch["num_real"]
+        acc_examples += real_rows_here(batch)
         acc_audio += float(batch["signal_lengths"].sum()) / sr
         if iters % args.grad_accum:
             continue
@@ -257,9 +267,12 @@ def _train(args, device: torch.device, preempt: PreemptionGuard):
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         elapsed = time.time() - start
-        avg_loss.update(float(loss))
+        # the global batch's: every rank's shares summed
+        loss_g, acc_audio = global_sum_scalars([float(loss), acc_audio],
+                                               group).tolist()
+        avg_loss.update(loss_g)
         state.log.append({"step": gstep + 1, "seconds": elapsed,
-                          "audio_s": acc_audio, "loss": float(loss),
+                          "audio_s": acc_audio, "loss": loss_g,
                           "frozen": freeze})
         acc_grads, acc_examples, acc_audio = None, 0.0, 0.0
         gstep += 1
@@ -273,21 +286,22 @@ def _train(args, device: torch.device, preempt: PreemptionGuard):
             vm = validate(decode_fn, eval_loss_fn, valid_set, index2vocab,
                           args.valid_steps, postproc, device,
                           args.max_decode_len, args.max_symbols_per_frame,
-                          beam=args.valid_beam)
+                          beam=args.valid_beam, group=group)
             state.valid.append(vm)
             logger.info({"average_train_loss": avg_loss.avg})
             logger.info(vm)
-            save_checkpoint(state, f"{model_base}-step-{gstep}.pt",
-                            "transducer")
+            save_on_rank0(group, save_checkpoint, state,
+                          f"{model_base}-step-{gstep}.pt", "transducer")
             esm = args.early_stopping_metric
             if esm and vm.get(esm, 1e9) < best_metric:
                 best_metric = vm[esm]
                 logger.info("New best metric %.4f", best_metric)
-                save_checkpoint(state, f"{model_base}-best.pt", "transducer")
+                save_on_rank0(group, save_checkpoint, state,
+                              f"{model_base}-best.pt", "transducer")
             start = time.time()
         if preempt.should_save(gstep):
-            save_checkpoint(state, f"{model_base}-step-{gstep}.pt",
-                            "transducer")
+            save_on_rank0(group, save_checkpoint, state,
+                          f"{model_base}-step-{gstep}.pt", "transducer")
             logger.warning("preempted: saved step %d, exiting", gstep)
             break
     train_itr.close()  # stops the prefetch threads
@@ -298,11 +312,13 @@ def _train(args, device: torch.device, preempt: PreemptionGuard):
 
 def validate(decode_fn, eval_loss_fn, valid_set, index2vocab, valid_steps,
              postproc, device, max_decode_len: int, max_symbols: int,
-             beam: int = 1) -> dict:
+             beam: int = 1, group=None) -> dict:
     """Loss and WER/CER of the decode (greedy, or the 1-best of a beam of
     ``beam``) over up to ``valid_steps`` + 1 batches. ``decode_seconds``
-    and ``utterances`` time the decodes."""
-    avg_valid_loss = Average("average_valid_loss")
+    and ``utterances`` time the decodes (this rank's). Under a process
+    ``group`` each rank scores its own real rows and the counts and
+    losses are summed over the ranks."""
+    loss_sum, n_batches = 0.0, 0
     c_errors = c_total = w_errors = w_total = utts = 0
     decode_seconds = 0.0
     valid_start = time.time()
@@ -310,13 +326,14 @@ def validate(decode_fn, eval_loss_fn, valid_set, index2vocab, valid_steps,
         if j > valid_steps:
             break
         tbatch = _to_device(batch, device)
-        avg_valid_loss.update(float(eval_loss_fn(tbatch)))
+        loss_sum += float(eval_loss_fn(tbatch))
+        n_batches += 1
         t0 = time.perf_counter()
         toks, lengths = decode_fn(tbatch, max_output_len=max_decode_len,
                                   max_symbols=max_symbols, beam=beam)
         toks, lengths = toks.cpu().numpy(), lengths.cpu().numpy()
         decode_seconds += time.perf_counter() - t0
-        n_real = batch["num_real"]
+        n_real = real_rows_here(batch)
         utts += n_real
         decoded = [toks[i, :lengths[i]].tolist() for i in range(n_real)]
         sm = M.decode_metrics(decoded, batch["token_ids"][:n_real],
@@ -325,7 +342,9 @@ def validate(decode_fn, eval_loss_fn, valid_set, index2vocab, valid_steps,
         w_errors += sm["w_errors"]
         c_total += sm["c_total"]
         w_total += sm["w_total"]
-    return {"average_valid_loss": avg_valid_loss.avg,
+    c_errors, c_total, w_errors, w_total, loss_sum = global_sum_scalars(
+        [c_errors, c_total, w_errors, w_total, loss_sum], group).tolist()
+    return {"average_valid_loss": loss_sum / n_batches if n_batches else 0.0,
             "valid_elapsed_epoch": time.time() - valid_start,
             "cer": (c_errors / max(c_total, 1)) * 100,
             "wer": (w_errors / max(w_total, 1)) * 100,

@@ -12,7 +12,8 @@
 //     padded key's score is -1e9, so a row whose keys are all invalid is
 //     the uniform 1/T_pad, and ds is NOT zeroed at masked columns (such a
 //     row gets a dq and its keys a dk); dropout keeps column c of query
-//     row r iff murmur(r * T_pad + c ^ (seed + b*H + h)) >= threshold;
+//     row r iff murmur(r * T_pad + c ^ (seed + b*H + h)) >= threshold
+//     (b the global row: b0 + b for rows that start at b0, bh0 = b0*H);
 //   * "xla" semantics (xla = 1), the JAX package's XLA attention
 //     (audio8_tpu/nn/transformer.py, fused_attention=None): padded keys
 //     (c >= T) are out of the softmax, invalid keys take -1e9, ds is zero
@@ -131,15 +132,17 @@ struct Params {
   float* dv32;
   int n_heads, t, t_pad, n_kt;
   float scale, inv_keep;
-  uint32_t threshold, seed;
+  // bh0: the global head index of this call's head 0 (b0 * H mod 2^32
+  // for rows that start at row b0 of a larger batch), as in the forward
+  uint32_t threshold, seed, bh0;
   int dropout, xla, round_logits;
 };
 
-// First hash index of query row `row` of head bh (see the header).
-__device__ __forceinline__ uint32_t drop_row(const Params& P, int bh,
+// First hash index of query row `row` of global head hbh (P.bh0 + the
+// head's index in this call; see the header).
+__device__ __forceinline__ uint32_t drop_row(const Params& P, uint32_t hbh,
                                              int row) {
-  return P.xla ? ((uint32_t)bh * (uint32_t)P.t + (uint32_t)row) *
-                     (uint32_t)P.t
+  return P.xla ? (hbh * (uint32_t)P.t + (uint32_t)row) * (uint32_t)P.t
                : (uint32_t)row * (uint32_t)P.t_pad;
 }
 
@@ -158,15 +161,15 @@ __device__ __forceinline__ float fast_exp(float x) {
   return y;
 }
 
-// pd and ds of one (query row, key c) element of head bh from the raw
-// products s = q.k and dpd = dO.v. key_real: c < T; key_ok: it is also
-// valid. FAST: p from fast_exp (bf16) instead of expf (f32).
+// pd and ds of one (query row, key c) element of global head hbh from
+// the raw products s = q.k and dpd = dO.v. key_real: c < T; key_ok: it
+// is also valid. FAST: p from fast_exp (bf16) instead of expf (f32).
 template <bool FAST>
 __device__ __forceinline__ void element_grads(const Params& P, float s,
                                               float dpd, float m, float il,
                                               float d, bool key_real,
-                                              bool key_ok, int bh, int row,
-                                              int c, uint32_t seed_g,
+                                              bool key_ok, uint32_t hbh,
+                                              int row, int c, uint32_t seed_g,
                                               float& pd, float& ds) {
   float v = s * P.scale;
   if (P.round_logits) v = __bfloat162float(__float2bfloat16(v));
@@ -176,7 +179,7 @@ __device__ __forceinline__ void element_grads(const Params& P, float s,
   float dp = dpd;
   pd = p;
   if (P.dropout) {
-    const bool keep = hash_keep(drop_row(P, bh, row) + (uint32_t)c, seed_g,
+    const bool keep = hash_keep(drop_row(P, hbh, row) + (uint32_t)c, seed_g,
                                 P.threshold);
     pd = keep ? p * P.inv_keep : 0.f;
     dp = keep ? dp * P.inv_keep : 0.f;
@@ -373,7 +376,8 @@ __global__ void __launch_bounds__(256, 1)
   const size_t base = (size_t)bh * t * DH;
   const uint8_t* kvb =
       P.key_valid ? P.key_valid + (size_t)(bh / P.n_heads) * t : nullptr;
-  const uint32_t seed_g = P.xla ? P.seed : P.seed + (uint32_t)bh;
+  const uint32_t hbh = P.bh0 + (uint32_t)bh;  // the global head index
+  const uint32_t seed_g = P.xla ? P.seed : P.seed + hbh;
   float* ks = fsm + L::K;
   float* vs = fsm + L::V;
   float* pds = fsm + L::PD;
@@ -464,7 +468,7 @@ __global__ void __launch_bounds__(256, 1)
         const int key = tk + 8 * i, o = ql * PLD + key;
         float pd, ds;
         element_grads<false>(P, pds[o], dss[o], m, il, dd, key_real[i],
-                             key_ok[i], bh, q0 + ql, c0 + key, seed_g, pd,
+                             key_ok[i], hbh, q0 + ql, c0 + key, seed_g, pd,
                              ds);
         pds[o] = pd;
         dss[o] = ds;
@@ -611,7 +615,8 @@ __global__ void __launch_bounds__(128)
   const size_t base = (size_t)bh * t * DH;
   const uint8_t* kvb =
       P.key_valid ? P.key_valid + (size_t)(bh / P.n_heads) * t : nullptr;
-  const uint32_t seed_g = P.xla ? P.seed : P.seed + (uint32_t)bh;
+  const uint32_t hbh = P.bh0 + (uint32_t)bh;  // the global head index
+  const uint32_t seed_g = P.xla ? P.seed : P.seed + hbh;
 
   load_core_tile<DH>(sb + L::K, k + base, c0, t);
   load_core_tile<DH>(sb + L::V, v + base, c0, t);
@@ -685,10 +690,10 @@ __global__ void __launch_bounds__(128)
         const int c = c0 + 16 * warp + g + 8 * h;
         float pd0, ds0, pd1, ds1;
         element_grads<true>(P, st[4 * j + 2 * h], dpt[4 * j + 2 * h], m2.x,
-                            il2.x, d2.x, key_real[h], key_ok[h], bh, q0 + ql,
-                            c, seed_g, pd0, ds0);
+                            il2.x, d2.x, key_real[h], key_ok[h], hbh,
+                            q0 + ql, c, seed_g, pd0, ds0);
         element_grads<true>(P, st[4 * j + 2 * h + 1], dpt[4 * j + 2 * h + 1],
-                            m2.y, il2.y, d2.y, key_real[h], key_ok[h], bh,
+                            m2.y, il2.y, d2.y, key_real[h], key_ok[h], hbh,
                             q0 + ql + 1, c, seed_g, pd1, ds1);
         pa[j / 2][2 * (j % 2) + h] = pack_bf16(pd0, pd1);
         sa[j / 2][2 * (j % 2) + h] = pack_bf16(ds0, ds1);
@@ -826,8 +831,8 @@ int run_bwd(const void* q, const void* k, const void* v, const void* o,
             void* dvec, void* dq_part, void* dq, void* dk, void* dv,
             void* dq32, void* dk32, void* dv32, int batch, int heads, int t,
             int dh, int dtype, float scale, float inv_keep,
-            uint32_t threshold, uint32_t seed, int dropout, int xla,
-            int round_logits, cudaStream_t s) {
+            uint32_t threshold, uint32_t seed, uint32_t bh0, int dropout,
+            int xla, int round_logits, cudaStream_t s) {
   if (batch <= 0 || heads <= 0 || t <= 0 || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   // 16-byte copies of every row and vector stores of every output
@@ -851,6 +856,7 @@ int run_bwd(const void* q, const void* k, const void* v, const void* o,
   P.inv_keep = inv_keep;
   P.threshold = threshold;
   P.seed = seed;
+  P.bh0 = bh0;
   P.dropout = dropout;
   P.xla = xla;
   P.round_logits = round_logits;
@@ -890,9 +896,9 @@ int run_bwd(const void* q, const void* k, const void* v, const void* o,
 // scratch; dq_part: (B*H, ceil(T/64), T, dh) f32 scratch; dq32, dk32,
 // dv32: (B, H, T, dh) f32 copies of the gradients before their rounding,
 // or NULL. dtype: 0 = float32, 1 = bfloat16. inv_keep = 1 / (1 - rate);
-// threshold and seed as in the forward (dropout = 0 skips the hash); xla
-// and round_logits pick the semantics as in the forward. Returns the
-// cudaError_t of the launches.
+// threshold, seed and bh0 as in the forward (dropout = 0 skips the
+// hash); xla and round_logits pick the semantics as in the forward.
+// Returns the cudaError_t of the launches.
 extern "C" int a8t_attention_bwd(const void* q, const void* k, const void* v,
                                  const void* o, const void* dout,
                                  const void* key_valid, const void* stats,
@@ -901,10 +907,10 @@ extern "C" int a8t_attention_bwd(const void* q, const void* k, const void* v,
                                  void* dv32, int batch, int heads, int t,
                                  int dh, int dtype, float scale,
                                  float inv_keep, uint32_t threshold,
-                                 uint32_t seed, int dropout, int xla,
-                                 int round_logits, void* stream) {
+                                 uint32_t seed, uint32_t bh0, int dropout,
+                                 int xla, int round_logits, void* stream) {
   return run_bwd(q, k, v, o, dout, key_valid, stats, dvec, dq_part, dq, dk,
                  dv, dq32, dk32, dv32, batch, heads, t, dh, dtype, scale,
-                 inv_keep, threshold, seed, dropout, xla, round_logits,
+                 inv_keep, threshold, seed, bh0, dropout, xla, round_logits,
                  (cudaStream_t)stream);
 }

@@ -207,7 +207,8 @@ __device__ __forceinline__ void bf16_round2(float& a, float& b) {
 // First hash index of query row `row`: row * T_pad ("kernel", the TPU
 // kernel's per-head mask) or the flat (B, H, T, T) index of (bh, row, 0)
 // ("xla", nn/dropout.py's _hash_keep_mask), mod 2^32.
-__device__ __forceinline__ uint32_t drop_row(int xla, int bh, int row, int t,
+__device__ __forceinline__ uint32_t drop_row(int xla, uint32_t bh, int row,
+                                             int t,
                                              int t_pad) {
   return xla ? ((uint32_t)bh * (uint32_t)t + (uint32_t)row) * (uint32_t)t
              : (uint32_t)row * (uint32_t)t_pad;
@@ -305,7 +306,7 @@ __global__ void __launch_bounds__(SNT, SimtPlan<DH>::MINB)
                               T* __restrict__ o, float* __restrict__ stats,
                               float* __restrict__ o32, int n_heads, int t,
                               int t_pad, float scale, float inv_keep,
-                              uint32_t threshold, uint32_t seed, int dropout,
+                              uint32_t threshold, uint32_t seed, uint32_t bh0, int dropout,
                               int xla, int round_logits) {
   using Plan = SimtPlan<DH>;
   constexpr int KJ = Plan::KJ, DJ = Plan::DJ;
@@ -322,7 +323,8 @@ __global__ void __launch_bounds__(SNT, SimtPlan<DH>::MINB)
   const int q0 = blockIdx.x * SQ;
   const size_t base = (size_t)bh * t * DH;
   const uint8_t* kvb = key_valid ? key_valid + (size_t)b * t : nullptr;
-  const uint32_t seed_g = xla ? seed : seed + (uint32_t)bh;
+  const uint32_t hbh = bh0 + (uint32_t)bh;  // the global head index
+  const uint32_t seed_g = xla ? seed : seed + hbh;
   const T type_tag{};
   const int n_tiles = (t + BKV - 1) / BKV;
 
@@ -397,7 +399,7 @@ __global__ void __launch_bounds__(SNT, SimtPlan<DH>::MINB)
       m_r[i] = m_new;
       float sum = 0.f;
       const uint32_t rowbase =
-          dropout ? drop_row(xla, bh, q0 + 8 * ty + i, t, t_pad) : 0u;
+          dropout ? drop_row(xla, hbh, q0 + 8 * ty + i, t, t_pad) : 0u;
 #pragma unroll
       for (int j = 0; j < KJ; ++j) {
         float e = exp_from(s[i][j], m2);
@@ -520,7 +522,7 @@ __global__ void __launch_bounds__(128)
                                   float* __restrict__ o32, int n_heads,
                                   int t, int t_pad, float scale,
                                   float inv_keep, uint32_t threshold,
-                                  uint32_t seed, int dropout, int xla,
+                                  uint32_t seed, uint32_t bh0, int dropout, int xla,
                                   int round_logits) {
   constexpr int LD = DH + 8;  // bf16 row pitch of the k/v tiles
   constexpr int NS = BKV / 8;  // 8-key score tiles per key tile
@@ -536,7 +538,8 @@ __global__ void __launch_bounds__(128)
   const int r0 = blockIdx.x * BQ + warp * 16 + g;  // rows r0 and r0 + 8
   const size_t base = (size_t)bh * t * DH;
   const uint8_t* kvb = key_valid ? key_valid + (size_t)b * t : nullptr;
-  const uint32_t seed_g = xla ? seed : seed + (uint32_t)bh;
+  const uint32_t hbh = bh0 + (uint32_t)bh;  // the global head index
+  const uint32_t seed_g = xla ? seed : seed + hbh;
 
   auto q2 = [&](int r, int c) -> uint32_t {
     return r < t ? *reinterpret_cast<const uint32_t*>(q + base +
@@ -620,7 +623,7 @@ __global__ void __launch_bounds__(128)
         sum[e / 2] += s[n][e];
         if (dropout) {
           const uint32_t c = (uint32_t)(c0 + n * 8 + 2 * t4 + (e & 1));
-          if (!hash_keep(drop_row(xla, bh, r0 + (e / 2) * 8, t, t_pad) + c,
+          if (!hash_keep(drop_row(xla, hbh, r0 + (e / 2) * 8, t, t_pad) + c,
                          seed_g, threshold))
             s[n][e] = 0.f;
         }
@@ -722,7 +725,7 @@ __global__ void __launch_bounds__(W_THREADS, WgmmaPlan<DH>::MINB)
                                float* __restrict__ stats,
                                float* __restrict__ o32, int n_heads, int t,
                                int t_pad, float scale, float inv_keep,
-                               uint32_t threshold, uint32_t seed, int dropout,
+                               uint32_t threshold, uint32_t seed, uint32_t bh0, int dropout,
                                int xla, int round_logits) {
   using Plan = WgmmaPlan<DH>;
   constexpr int DB = Plan::DB;
@@ -788,10 +791,11 @@ __global__ void __launch_bounds__(W_THREADS, WgmmaPlan<DH>::MINB)
   const int r_lo = q0 + 64 * wi + 16 * (warp % 4) + g;
   const uint8_t* kvb =
       key_valid ? key_valid + (size_t)(bh / n_heads) * t : nullptr;
-  const uint32_t seed_g = xla ? seed : seed + (uint32_t)bh;
+  const uint32_t hbh = bh0 + (uint32_t)bh;  // the global head index
+  const uint32_t seed_g = xla ? seed : seed + hbh;
   uint32_t drow[2] = {0u, 0u};
   if (dropout)
-    for (int h = 0; h < 2; ++h) drow[h] = drop_row(xla, bh, r_lo + 8 * h, t, t_pad);
+    for (int h = 0; h < 2; ++h) drow[h] = drop_row(xla, hbh, r_lo + 8 * h, t, t_pad);
 
   float acc[DH / 2];
 #pragma unroll
@@ -959,7 +963,7 @@ template <int DH>
 int launch_wgmma(const void* q, const void* k, const void* v, const void* kv,
                  void* o, float* stats, float* o32, int batch, int heads,
                  int t, float scale, float inv_keep, uint32_t threshold,
-                 uint32_t seed, int dropout, int xla, int round_logits,
+                 uint32_t seed, uint32_t bh0, int dropout, int xla, int round_logits,
                  cudaStream_t stream) {
   // the shared-memory opt-in is set once per device
   static bool opted[64] = {false};
@@ -987,7 +991,7 @@ int launch_wgmma(const void* q, const void* k, const void* v, const void* kv,
   attention_fwd_wgmma_kernel<DH>
       <<<grid, W_THREADS, WgmmaPlan<DH>::SMEM, stream>>>(
           maps, (const uint8_t*)kv, (__nv_bfloat16*)o, stats, o32, heads, t,
-          t_pad, scale, inv_keep, threshold, seed, dropout, xla,
+          t_pad, scale, inv_keep, threshold, seed, bh0, dropout, xla,
           round_logits);
   return (int)cudaGetLastError();
 }
@@ -995,14 +999,14 @@ int launch_wgmma(const void* q, const void* k, const void* v, const void* kv,
 template <int DH>
 int launch_mma(const void* q, const void* k, const void* v, const void* kv,
                void* o, float* stats, float* o32, int batch, int heads, int t,
-               float scale, float inv_keep, uint32_t threshold, uint32_t seed,
+               float scale, float inv_keep, uint32_t threshold, uint32_t seed, uint32_t bh0,
                int dropout, int xla, int round_logits, cudaStream_t stream) {
   const int t_pad = (t + 127) / 128 * 128;
   const dim3 grid((unsigned)((t + BQ - 1) / BQ), (unsigned)(batch * heads));
   attention_fwd_bf16_mma_kernel<DH><<<grid, 128, 0, stream>>>(
       (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
       (const __nv_bfloat16*)v, (const uint8_t*)kv, (__nv_bfloat16*)o, stats,
-      o32, heads, t, t_pad, scale, inv_keep, threshold, seed, dropout, xla,
+      o32, heads, t, t_pad, scale, inv_keep, threshold, seed, bh0, dropout, xla,
       round_logits);
   return (int)cudaGetLastError();
 }
@@ -1011,7 +1015,7 @@ template <typename T, int DH>
 int launch_simt(const void* q, const void* k, const void* v, const void* kv,
                 void* o, float* stats, float* o32, int batch, int heads,
                 int t, float scale, float inv_keep, uint32_t threshold,
-                uint32_t seed, int dropout, int xla, int round_logits,
+                uint32_t seed, uint32_t bh0, int dropout, int xla, int round_logits,
                 cudaStream_t stream) {
   const size_t smem = sizeof(float) * SimtPlan<DH>::FLOATS;
   cudaError_t err = cudaFuncSetAttribute(
@@ -1023,14 +1027,15 @@ int launch_simt(const void* q, const void* k, const void* v, const void* kv,
   attention_fwd_simt_kernel<T, DH>
       <<<grid, SNT, smem, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (const uint8_t*)kv, (T*)o, stats,
-      o32, heads, t, t_pad, scale, inv_keep, threshold, seed, dropout, xla,
+      o32, heads, t, t_pad, scale, inv_keep, threshold, seed, bh0, dropout, xla,
       round_logits);
   return (int)cudaGetLastError();
 }
 
 typedef int (*Launch)(const void*, const void*, const void*, const void*,
                       void*, float*, float*, int, int, int, float, float,
-                      uint32_t, uint32_t, int, int, int, cudaStream_t);
+                      uint32_t, uint32_t, uint32_t, int, int, int,
+                      cudaStream_t);
 
 // The launch of (route, dtype, head dim), or null for a head dim the
 // route does not take.
@@ -1056,7 +1061,7 @@ Launch launch_of(int route, int dtype, int dh) {
 int run_fwd(const void* q, const void* k, const void* v,
             const void* key_valid, void* o, void* stats, void* o32,
             int batch, int heads, int t, int dh, int dtype, float scale,
-            float inv_keep, uint32_t threshold, uint32_t seed, int dropout,
+            float inv_keep, uint32_t threshold, uint32_t seed, uint32_t bh0, int dropout,
             int xla, int round_logits, cudaStream_t s) {
   if (batch <= 0 || heads <= 0 || t <= 0 || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
@@ -1065,7 +1070,7 @@ int run_fwd(const void* q, const void* k, const void* v,
   const Launch fn = launch_of(fwd_route(dtype, dh, aligned), dtype, dh);
   if (fn == nullptr) return (int)cudaErrorInvalidValue;
   return fn(q, k, v, key_valid, o, (float*)stats, (float*)o32, batch, heads,
-            t, scale, inv_keep, threshold, seed, dropout, xla, round_logits,
+            t, scale, inv_keep, threshold, seed, bh0, dropout, xla, round_logits,
             s);
 }
 
@@ -1084,16 +1089,21 @@ extern "C" int a8t_attention_fwd_route(int dtype, int dh, int aligned) {
 // and seed are the uint32 dropout parameters (dropout = 0 skips the hash).
 // xla = 0: the TPU kernel's semantics, 1: the XLA attention's;
 // round_logits = 1 rounds the scaled logits to bf16 (xla under
-// bf16_softmax). Returns the cudaError_t of the launch.
+// bf16_softmax). bh0 = b0 * H mod 2^32 for a block of rows that starts
+// at row b0 of a larger batch (a data-parallel rank's rows,
+// parallel/sharding.py): every hash above takes the global head index
+// b0 * H + b * H + h in place of b * H + h, so the rank draws the global
+// batch's masks (0 for a whole batch). Returns the cudaError_t of the
+// launch.
 extern "C" int a8t_attention_fwd(const void* q, const void* k, const void* v,
                                  const void* key_valid, void* o,
                                  void* stats, void* o32, int batch,
                                  int heads, int t, int dh, int dtype,
                                  float scale, float inv_keep,
-                                 uint32_t threshold, uint32_t seed,
+                                 uint32_t threshold, uint32_t seed, uint32_t bh0,
                                  int dropout, int xla, int round_logits,
                                  void* stream) {
   return run_fwd(q, k, v, key_valid, o, stats, o32, batch, heads, t, dh,
-                 dtype, scale, inv_keep, threshold, seed, dropout, xla,
+                 dtype, scale, inv_keep, threshold, seed, bh0, dropout, xla,
                  round_logits, (cudaStream_t)stream);
 }

@@ -12,9 +12,18 @@ seeded ``random.Random``. Pretraining (``AudioFileDataset``,
 ``BucketingAudioDataset``): dense min-cropped (B, T) batches with no
 padding. Supervised training batches may be augmented by speed
 perturbation and additive noise, drawn in the sequential batch plan as
-the JAX package draws them. Left out: multi-process sharding
-(``row_shard``, ``num_shards``, ``batch_multiple``) and ``lane_align``
-(TPU tiling).
+the JAX package draws them.
+
+Sharding, as the JAX package shards: by default batches are striped
+round-robin over ``num_shards`` (``shard_index`` takes every
+``num_shards``-th batch); with ``row_shard`` (data parallelism,
+``parallel/sharding.py``) every shard walks the same batch schedule
+(the same ``seed``), the global batch size snaps to a multiple of
+``num_shards * batch_multiple``, and a shard reads only its contiguous
+block of rows. Padding rows sit at the global batch's tail; a supervised
+batch carries ``num_real`` (the global count of real rows) and
+``row_offset`` (this shard's first global row). The pretraining min-crop
+is chosen from the global batch. Left out: ``lane_align`` (TPU tiling).
 """
 from __future__ import annotations
 
@@ -142,8 +151,14 @@ class AudioTextLetterDataset:
                  text_pad_multiple: int = 64,
                  length_grid: Optional[Sequence[int]] = None,
                  seed: int = 0, read_workers: int = 4,
-                 speed_perturb: Sequence[float] = (), noise_mixer=None):
+                 speed_perturb: Sequence[float] = (), noise_mixer=None,
+                 shard_index: int = 0, num_shards: int = 1,
+                 batch_multiple: int = 1, row_shard: bool = False):
         self.sample_factor = target_sample_rate / input_sample_rate
+        self.shard_index = shard_index
+        self.num_shards = num_shards
+        self.batch_multiple = max(batch_multiple, 1)
+        self.row_shard = row_shard
         self.reader = (AudioResampleReader(self.sample_factor)
                        if input_sample_rate != target_sample_rate
                        else SoundfileAudioReader())
@@ -212,11 +227,22 @@ class AudioTextLetterDataset:
         for plan in self.batch_plans():
             yield self.materialize(plan)
 
+    def _shard_order(self) -> List[int]:
+        if self.row_shard:
+            # every shard walks the whole schedule and reads its rows
+            return list(range(len(self.batches)))
+        order = list(range(self.shard_index, len(self.batches),
+                           self.num_shards))
+        if not order:
+            raise RuntimeError(f"No batches for shard {self.shard_index}/"
+                               f"{self.num_shards}")
+        return order
+
     def batch_plans(self) -> Iterator[dict]:
         """Sequential batch plans (rows and shapes, no decoding): all the
         stream's randomness is drawn here, so ``materialize`` may run on
         worker threads without changing the stream."""
-        order = list(range(len(self.batches)))
+        order = self._shard_order()
         while True:
             if self.shuffle:
                 self._rng.shuffle(order)
@@ -225,8 +251,14 @@ class AudioTextLetterDataset:
             if not self.is_infinite:
                 return
 
+    def _global_rows(self, n_real: int) -> int:
+        mult = self.batch_multiple * (self.num_shards if self.row_shard
+                                      else 1)
+        return snap_batch_size(n_real, mult)
+
     def _plan_batch(self, batch: Sequence[int]) -> dict:
         n_real = len(batch)
+        b_global = self._global_rows(n_real)
         max_audio = int(math.ceil(max(self.sizes[idx] for idx in batch)
                                   * self._max_stretch))
         if self.length_grid:
@@ -239,17 +271,23 @@ class AudioTextLetterDataset:
                        for idx in batch)
         t_text = min(_round_up(max_text, self.text_pad_multiple),
                      _round_up(self.max_dst_length, self.text_pad_multiple))
+        if self.row_shard:
+            b_local = b_global // self.num_shards
+            lo = self.shard_index * b_local
+        else:
+            b_local, lo = b_global, 0
+        rows = list(batch[lo:min(lo + b_local, n_real)])
         # the augmentations' draws, in the JAX package's order: the speed
         # factors, then one child generator per row for the noise
-        factors = (self._np_rng.choice(self.speed_perturb, size=n_real)
+        factors = (self._np_rng.choice(self.speed_perturb, size=len(rows))
                    if self.speed_perturb else None)
         noise_rngs = ([np.random.default_rng(s) for s in
-                       self._np_rng.integers(0, 2**63, size=n_real)]
+                       self._np_rng.integers(0, 2**63, size=len(rows))]
                       if self.noise_mixer is not None else None)
-        return {"rows": list(batch), "files": [self.files[i] for i in batch],
+        return {"rows": rows, "files": [self.files[i] for i in rows],
                 "factors": factors, "noise_rngs": noise_rngs,
-                "b_local": snap_batch_size(n_real), "t_audio": t_audio,
-                "t_text": t_text, "n_real": n_real}
+                "b_local": b_local, "t_audio": t_audio,
+                "t_text": t_text, "n_real": n_real, "lo": lo}
 
     def materialize(self, plan: dict) -> Dict[str, np.ndarray]:
         """Decode, augment (speed, then noise) and pad one planned
@@ -285,7 +323,8 @@ class AudioTextLetterDataset:
             token_ids[i, :len(toks)] = toks
         return {"signal": signal, "signal_lengths": audio_lengths,
                 "token_ids": token_ids, "token_lengths": text_lengths,
-                "files": files, "num_real": plan["n_real"], "row_offset": 0}
+                "files": files, "num_real": plan["n_real"],
+                "row_offset": plan["lo"]}
 
 
 class AudioFileDataset:
@@ -298,15 +337,24 @@ class AudioFileDataset:
     that fits, the rest carry into the next batch, and the sample that
     triggered the batch is discarded (the reference's quirk). Every row is
     cropped to the batch's shortest predicted length, snapped down to
-    ``length_grid`` when one is given."""
+    ``length_grid`` when one is given. The batch size is a multiple of
+    ``batch_multiple`` (times ``num_shards`` under ``row_shard``); batches
+    are striped over the shards, or with ``row_shard`` each shard reads
+    its block of every batch's rows (the module docstring)."""
 
     def __init__(self, manifest: str, max_length: int,
                  target_tokens_per_batch: int, shuffle: bool = True,
                  min_length: int = 0, input_sample_rate: int = 16_000,
                  target_sample_rate: int = 16_000,
                  length_grid: Optional[Sequence[int]] = None, seed: int = 0,
-                 read_workers: int = 4):
+                 read_workers: int = 4, shard_index: int = 0,
+                 num_shards: int = 1, batch_multiple: int = 1,
+                 row_shard: bool = False):
         self.sample_factor = target_sample_rate / input_sample_rate
+        self.shard_index = shard_index
+        self.num_shards = num_shards
+        self.batch_multiple = max(batch_multiple, 1)
+        self.row_shard = row_shard
         self.reader = (AudioResampleReader(self.sample_factor)
                        if input_sample_rate != target_sample_rate
                        else SoundfileAudioReader())
@@ -333,6 +381,10 @@ class AudioFileDataset:
                 self.files.append((os.path.join(directory, items[0]), sz))
         logger.info("loaded %d, skipped %d samples", len(self.files), skipped)
 
+    def _emit_multiple(self) -> int:
+        return self.batch_multiple * (self.num_shards if self.row_shard
+                                      else 1)
+
     def _snap(self, length: int) -> int:
         if not self.length_grid:
             return length
@@ -350,12 +402,13 @@ class AudioFileDataset:
 
     def _compose(self, stream) -> Iterator[Tuple[List[int], int]]:
         """(row file indices, crop length) from manifest lengths alone."""
+        emit_mult = self._emit_multiple()
         samples: List[Tuple[int, int]] = []  # (file index, predicted length)
         min_len = self.max_length
         for idx in stream:
             predlen = min(self.files[idx][1], self.max_length)
             if len(samples) * min_len >= self.target_tokens_per_batch:
-                b = snap_batch_size_down(len(samples))
+                b = snap_batch_size_down(len(samples), emit_mult)
                 if b > 0:
                     emitted, samples = samples[:b], samples[b:]
                     yield ([i for i, _ in emitted],
@@ -373,10 +426,16 @@ class AudioFileDataset:
         """Sequential (rows, crop length) plans; all the stream's
         randomness is drawn here, so ``materialize`` may run on worker
         threads without changing the stream."""
-        yield from self._compose(self._index_stream())
+        for bi, plan in enumerate(self._compose(self._index_stream())):
+            if self.row_shard or bi % self.num_shards == self.shard_index:
+                yield plan
 
     def materialize(self, plan: Tuple[List[int], int]) -> np.ndarray:
         rows, t = plan
+        if self.row_shard:
+            b_local = len(rows) // self.num_shards
+            rows = rows[self.shard_index * b_local:
+                        (self.shard_index + 1) * b_local]
         paths = [self.files[i][0] for i in rows]
 
         def read(path):
@@ -398,13 +457,17 @@ class BucketingAudioDataset(AudioFileDataset):
 
     def __init__(self, buckets, manifest, max_length, target_tokens_per_batch,
                  shuffle=True, min_length=0, seed=0, read_workers=4,
-                 input_sample_rate=16_000, target_sample_rate=16_000):
+                 input_sample_rate=16_000, target_sample_rate=16_000,
+                 shard_index=0, num_shards=1, batch_multiple=1,
+                 row_shard=False):
         self.bucket_lengths = sorted(buckets)
         super().__init__(manifest, max_length, target_tokens_per_batch,
                          shuffle=shuffle, min_length=min_length, seed=seed,
                          read_workers=read_workers,
                          input_sample_rate=input_sample_rate,
-                         target_sample_rate=target_sample_rate)
+                         target_sample_rate=target_sample_rate,
+                         shard_index=shard_index, num_shards=num_shards,
+                         batch_multiple=batch_multiple, row_shard=row_shard)
 
     def _read_manifest(self, manifest: str, _min_length) -> None:
         skipped = num_samples = 0
@@ -425,8 +488,10 @@ class BucketingAudioDataset(AudioFileDataset):
         logger.info("Num samples %d, skipped %d", num_samples, skipped)
 
     def _rows_per(self, bucket: int) -> int:
+        emit_mult = self._emit_multiple()
         return max(snap_batch_size_down(
-            max(self.target_tokens_per_batch // bucket, 1)), 1)
+            max(self.target_tokens_per_batch // bucket, 1), emit_mult),
+            emit_mult)
 
     def _compose(self, stream) -> Iterator[Tuple[List[int], int]]:
         pending: Dict[int, List[int]] = {}

@@ -33,6 +33,7 @@ from audio8_tpu_torch.models.wav2vec2 import (AudioTransformerEncoder,
 from audio8_tpu_torch.nn.dropout import dropout
 from audio8_tpu_torch.nn.layers import Dense, LayerNorm
 from audio8_tpu_torch.ops.masks import span_mask
+from audio8_tpu_torch.parallel.sharding import global_sum, row_offset
 
 # the JAX AudioTransformerEncoder's defaults of the fields the JAX data2vec
 # model does not pass on
@@ -86,7 +87,7 @@ class Data2VecAudioModel(nn.Module):
                         < frames[:, None])
         if mask_seed is not None and cfg.timestep_masking > 0.0:
             time_mask = span_mask(mask_seed, b, t, cfg.timestep_masking,
-                                  cfg.timestep_mask_len, dev)
+                                  cfg.timestep_mask_len, dev, row_offset())
             features = torch.where(time_mask[..., None],
                                    self.mask_emb.to(features.dtype), features)
         else:
@@ -118,23 +119,26 @@ def data2vec_loss(pred: torch.Tensor, target: torch.Tensor,
     """The squared error summed over channels over sqrt(D), averaged over
     the masked valid frames; also the target's and the prediction's
     standard deviation there (the collapse monitors) and the frame
-    count."""
+    count; over the global batch in a data-parallel step
+    (``parallel/sharding.py:global_sum``)."""
     d = pred.shape[-1]
     w = time_mask if pad_mask is None else (time_mask & pad_mask)
     wf = w.float()
     diff2 = ((pred.float() - target.detach()) ** 2).sum(dim=-1) \
         / float(np.sqrt(np.float32(d)))
-    denom = torch.clamp(wf.sum(), min=1.0)
-    loss = (diff2 * wf).sum() / denom
+    n_masked = global_sum(wf.sum())
+    denom = torch.clamp(n_masked, min=1.0)
+    loss = global_sum((diff2 * wf).sum() / denom)
 
     def masked_std(x):
-        mu = (x * wf[..., None]).sum(dim=(0, 1)) / denom
-        var = (((x - mu) ** 2) * wf[..., None]).sum(dim=(0, 1)) / denom
+        mu = global_sum((x * wf[..., None]).sum(dim=(0, 1))) / denom
+        var = global_sum((((x - mu) ** 2) * wf[..., None]).sum(dim=(0, 1))
+                         ) / denom
         return torch.sqrt(var + 1e-8).mean()
 
     metrics = {"target_std": masked_std(target.float()),
                "pred_std": masked_std(pred.detach().float()),
-               "n_masked": wf.sum()}
+               "n_masked": n_masked}
     return loss, metrics
 
 

@@ -21,6 +21,7 @@ from audio8_tpu_torch.models.text import (TextBoWPooledEncoder,
 from audio8_tpu_torch.models.wav2vec2 import (Wav2Vec2PooledEncoder,
                                               init_weights)
 from audio8_tpu_torch.nn.layers import Dense
+from audio8_tpu_torch.parallel.sharding import gather_rows, is_rank0
 
 
 class ProjectionStack(nn.Module):
@@ -111,9 +112,18 @@ class SymmetricCLIPLoss(nn.Module):
     def forward(self, audio_emb: torch.Tensor, text_emb: torch.Tensor,
                 row_mask: Optional[torch.Tensor] = None):
         """``row_mask`` (B,) marks real rows; padding rows are left out
-        both as anchors and as negatives. Returns (loss, metrics)."""
+        both as anchors and as negatives. Returns (loss, metrics). In a
+        data-parallel step the similarities are the global batch's
+        (``parallel/sharding.py:gather_rows``; each rank's gradient
+        reaches its own rows) and ``logit_scale``'s gradient is rank 0's
+        alone, so the ranks' sum counts it once."""
         logit_scale = self.scale(audio_emb.device)
-        a, t = audio_emb.float(), text_emb.float()
+        if not is_rank0():
+            logit_scale = logit_scale.detach()
+        a = gather_rows(audio_emb.float())
+        t = gather_rows(text_emb.float())
+        if row_mask is not None:
+            row_mask = gather_rows(row_mask.float())
         a = a / torch.clamp(torch.linalg.vector_norm(a, dim=-1,
                                                      keepdim=True), min=1e-8)
         t = t / torch.clamp(torch.linalg.vector_norm(t, dim=-1,

@@ -39,6 +39,7 @@ from audio8_tpu_torch.nn.dropout import dropout
 from audio8_tpu_torch.nn.layers import Dense, LayerNorm
 from audio8_tpu_torch.ops.hashrand import draw_seed
 from audio8_tpu_torch.ops.masks import span_mask
+from audio8_tpu_torch.parallel.sharding import global_sum, row_offset
 
 
 def ssl_encoder_config(cfg, **over):
@@ -118,14 +119,14 @@ class HubertPretrainModel(nn.Module):
                         < frames[:, None])
         if cfg.timestep_masking > 0.0:
             time_mask = span_mask(seeds.mask, b, t, cfg.timestep_masking,
-                                  cfg.timestep_mask_len, dev)
+                                  cfg.timestep_mask_len, dev, row_offset())
             features = torch.where(time_mask[..., None],
                                    self.mask_emb.to(features.dtype), features)
         else:
             time_mask = torch.zeros((b, t), dtype=torch.bool, device=dev)
         if generator is not None and cfg.channel_masking > 0.0:
             cm = span_mask(seeds.channel, b, c, cfg.channel_masking,
-                           cfg.channel_mask_len, dev)
+                           cfg.channel_mask_len, dev, row_offset())
             features = torch.where(cm[:, None, :], torch.zeros(
                 (), dtype=features.dtype, device=dev), features)
         context = self.encoder(features, pad_mask, generator)
@@ -146,7 +147,9 @@ def hubert_pretrain_loss(logits: torch.Tensor, time_mask: torch.Tensor,
     pad mask, and takes ``pred_masked_weight`` when masked and
     ``pred_unmasked_weight`` otherwise; both denominators clamp at 1.
     Returns ``(loss, metrics)`` with the masked accuracy (fairseq's
-    correct_m / count_m) and the masked-frame count."""
+    correct_m / count_m) and the masked-frame count. In a data-parallel
+    step the denominators and counts are the global batch's
+    (``parallel/sharding.py:global_sum``)."""
     b, t, k = logits.shape
     u = targets.shape[1]
     targets = targets.long()
@@ -164,11 +167,11 @@ def hubert_pretrain_loss(logits: torch.Tensor, time_mask: torch.Tensor,
     nll = -torch.gather(logp, -1, tgt[..., None])[..., 0]
     w = has_label * (pred_masked_weight * time_mask
                      + pred_unmasked_weight * (~time_mask))
-    denom = torch.clamp(w.sum(), min=1.0)
-    loss = (nll * w).sum() / denom
+    denom = torch.clamp(global_sum(w.sum()), min=1.0)
+    loss = global_sum((nll * w).sum() / denom)
     m = has_label & time_mask
-    correct = ((logits.argmax(dim=-1) == tgt) & m).sum()
-    n_masked = m.sum()
+    correct = global_sum(((logits.argmax(dim=-1) == tgt) & m).sum())
+    n_masked = global_sum(m.sum())
     metrics = {"acc_masked": correct / torch.clamp(n_masked, min=1),
                "n_masked": n_masked.float()}
     return loss, metrics

@@ -61,9 +61,11 @@ from audio8_tpu_torch.nn.pooling import Reduction
 from audio8_tpu_torch.nn.transformer import (TransformerEncoderLayer,
                                              run_layers, wavlm_position_bias)
 from audio8_tpu_torch.ops.hashrand import (draw_seed, hash_gumbel,
-                                           hash_randint)
+                                           hash_randint, row_base)
 from audio8_tpu_torch.ops.masks import (compact_mask_indices, num_spans,
                                         span_mask)
+from audio8_tpu_torch.parallel.sharding import global_sum, row_offset
+
 
 def check_supported(cfg: EncoderConfig) -> None:
     """Raise for a config the port cannot run rather than computing
@@ -342,12 +344,12 @@ class Wav2Vec2Encoder(nn.Module):
         features = dropout(features, cfg.dropout_input, generator)
         if cfg.timestep_masking > 0.0:
             tm = span_mask(draw_seed(generator), b, t, cfg.timestep_masking,
-                           cfg.timestep_mask_len, dev)
+                           cfg.timestep_mask_len, dev, row_offset())
             features = torch.where(tm[..., None],
                                    self.mask_emb.to(features.dtype), features)
         if cfg.channel_masking > 0.0:
             cm = span_mask(draw_seed(generator), b, c, cfg.channel_masking,
-                           cfg.channel_mask_len, dev)
+                           cfg.channel_mask_len, dev, row_offset())
             features = torch.where(cm[:, None, :], torch.zeros(
                 (), dtype=features.dtype, device=dev), features)
         return features
@@ -470,12 +472,15 @@ class GumbelVectorQuantizer(nn.Module):
         if valid is None:
             avg_probs = probs.mean(dim=0)
         else:
+            # the global batch's average in a data-parallel step
             w = valid.reshape(b * m, 1, 1).float()
-            avg_probs = (probs * w).sum(dim=0) / torch.clamp(w.sum(), min=1.0)
+            avg_probs = global_sum((probs * w).sum(dim=0)) / torch.clamp(
+                global_sum(w.sum()), min=1.0)
         prob_ppl = torch.exp(
             -(avg_probs * torch.log(avg_probs + 1e-7)).sum(dim=-1)).sum()
         if gumbel_seed is not None:
-            gumbels = hash_gumbel(logits.shape, gumbel_seed, logits.device)
+            gumbels = hash_gumbel(logits.shape, gumbel_seed, logits.device,
+                                  row_base(logits.shape, row_offset()))
             y_soft = torch.softmax((logits + gumbels) / temperature, dim=-1)
             index = y_soft.argmax(dim=-1)
             y_hard = nn.functional.one_hot(index, v).float()
@@ -600,12 +605,12 @@ class Wav2Vec2Model(nn.Module):
         features = dropout(features, cfg.dropout_input, generator)
         unmasked = dropout(unmasked, cfg.dropout_features, generator)
         time_mask = span_mask(seeds.mask, b, t, cfg.timestep_masking,
-                              cfg.timestep_mask_len, dev)
+                              cfg.timestep_mask_len, dev, row_offset())
         features = torch.where(time_mask[..., None],
                                self.mask_emb.to(features.dtype), features)
         if train and cfg.channel_masking > 0.0:
             cm = span_mask(seeds.channel, b, c, cfg.channel_masking,
-                           cfg.channel_mask_len, dev)
+                           cfg.channel_mask_len, dev, row_offset())
             features = torch.where(cm[:, None, :], torch.zeros(
                 (), dtype=features.dtype, device=dev), features)
         capacity = num_spans(t, cfg.timestep_masking,
@@ -623,14 +628,16 @@ class Wav2Vec2Model(nn.Module):
 
 
 def sample_negative_indices(seed: int, batch: int, slots: int,
-                            n_negatives: int,
-                            valid_counts: torch.Tensor) -> torch.Tensor:
+                            n_negatives: int, valid_counts: torch.Tensor,
+                            row_offset: int = 0) -> torch.Tensor:
     """(B, M, N) in-utterance negative slot ids: uniform over the row's
     valid slots except the slot itself (draw from [0, vc - 1), shift the
     draws at or past the own slot up by one); rows with fewer than two
-    valid slots clamp vc to 2."""
+    valid slots clamp vc to 2. The rows are rows ``row_offset ..`` of the
+    batch's draws (a data-parallel row block)."""
     vc = torch.clamp(valid_counts[:, None, None], min=2)
-    r = hash_randint((batch, slots, n_negatives), seed, vc - 1)
+    r = hash_randint((batch, slots, n_negatives), seed, vc - 1,
+                     row_offset * slots * n_negatives)
     own = torch.arange(slots, device=r.device)[None, :, None]
     r = r + (r >= own).to(r.dtype)
     return torch.minimum(r, vc - 1)
@@ -651,10 +658,13 @@ def wav2vec2_pretrain_loss(context_masked: torch.Tensor,
     similarities of the masked-slot context to [its target; sampled
     negative targets], cross-entropy against index 0 averaged over valid
     slots, plus ``DIVERSITY_WGT * (n_vars - ppl) / n_vars``. ``seed``
-    draws the negatives. Returns ``(loss, metrics)``."""
+    draws the negatives. Returns ``(loss, metrics)``. In a data-parallel
+    step the slot average and the accuracy are the global batch's (sums
+    over the ranks, ``parallel/sharding.py:global_sum``), as is
+    ``prob_ppl``."""
     b, m, _ = context_masked.shape
     neg_idx = sample_negative_indices(seed, b, m, n_negatives,
-                                      valid.sum(dim=-1))
+                                      valid.sum(dim=-1), row_offset())
     c_hat = _l2_normalize(context_masked.float())
     t_hat = _l2_normalize(targets_masked.float())
     sims = torch.bmm(c_hat, t_hat.transpose(1, 2))  # (B, M, M)
@@ -664,11 +674,12 @@ def wav2vec2_pretrain_loss(context_masked: torch.Tensor,
     logits = torch.cat([pos[..., None], negs], dim=2)
     xe = torch.logsumexp(logits, dim=-1) - logits[..., 0]
     w = valid.float()
-    denom = torch.clamp(w.sum(), min=1.0)
-    xe_loss = (xe * w).sum() / denom
+    denom = torch.clamp(global_sum(w.sum()), min=1.0)
+    xe_loss = global_sum((xe * w).sum() / denom)
     diversity = DIVERSITY_WGT * (n_vars - prob_ppl) / n_vars
     loss = XE_WGT * xe_loss + diversity
-    correct = ((logits.argmax(dim=-1) == 0).float() * w).sum() / denom
+    correct = global_sum(((logits.argmax(dim=-1) == 0).float() * w).sum()
+                         / denom)
     return loss, {"contrastive_loss": xe_loss, "diversity_loss": diversity,
                   "code_perplexity": prob_ppl, "accuracy": correct}
 

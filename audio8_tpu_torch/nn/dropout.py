@@ -15,7 +15,8 @@ from typing import Optional
 import torch
 
 from audio8_tpu_torch.ops.dropout import fused_dropout, hash_dropout
-from audio8_tpu_torch.ops.hashrand import draw_seed
+from audio8_tpu_torch.ops.hashrand import draw_seed, row_base
+from audio8_tpu_torch.parallel.sharding import row_offset
 
 __all__ = ["dropout", "hash_dropout"]
 
@@ -24,7 +25,9 @@ def dropout(x: torch.Tensor, rate: float,
             generator: Optional[torch.Generator]) -> torch.Tensor:
     """Training-time hash dropout with a seed drawn from ``generator``;
     the identity without a generator (evaluation) or at rate 0, where no
-    seed is drawn."""
+    seed is drawn. ``x`` is batch-first: in a data-parallel step its rows
+    draw the global batch's mask from the step's row offset."""
     if generator is None or rate == 0.0:
         return x
-    return fused_dropout(x, rate, draw_seed(generator))
+    return fused_dropout(x, rate, draw_seed(generator),
+                         row_base(x.shape, row_offset()))

@@ -33,6 +33,17 @@ from the fused form at most.
 The Switch load-balance loss ``E * sum_e mean(top1 one-hot)_e *
 mean(probs)_e`` (eq. 4) is returned beside the output; the stack hands
 it to the active :class:`AuxLosses` (the JAX ``sow`` into ``losses``).
+
+In a data-parallel step (``parallel/sharding.py``) a rank holds a block
+of the global batch's rows, and the layer computes the global batch's
+routing for them: the capacity counts the global tokens, each expert's
+slots are numbered in the global row-major order (this rank's tokens
+start after the earlier ranks' choices of that expert: one exchange of
+E counts per pass), and the aux's means are the global batch's (summed
+over the ranks with an identity backward). A token is kept where its
+global slot is below the capacity; the rank's expert table holds only
+its own kept tokens, in their order, so it has ``min(capacity, S_local)``
+rows per expert and the expert products do a rank's share of the work.
 The hidden-layer dropout of the JAX module has rate 0 in every model
 (no model passes ``ffn_dropout_rate``), so the port has none and draws
 no seed.
@@ -47,6 +58,8 @@ import torch
 from torch import nn
 
 from audio8_tpu_torch.nn.layers import Dense, gelu
+from audio8_tpu_torch.parallel.sharding import (active_group, global_sum,
+                                                rank_prefix, world_of)
 
 
 def capacity(tokens: int, num_experts: int, top_k: int,
@@ -66,25 +79,39 @@ def capacity(tokens: int, num_experts: int, top_k: int,
     return torch.sym_min(torch.sym_max(cap, 1), tokens)
 
 
+def _token_mean(x: torch.Tensor) -> torch.Tensor:
+    """The mean over the tokens (dim 0), the global batch's in a
+    data-parallel step."""
+    return global_sum(x.sum(0)) / (x.shape[0] * world_of(active_group()))
+
+
 def load_balance_loss(probs: torch.Tensor) -> torch.Tensor:
     """Switch eq. (4) over (S, E) router probabilities: E times the sum of
     each expert's top-1 token fraction times its mean probability."""
     e = probs.shape[-1]
     top1 = (probs.argmax(-1, keepdim=True)
             == torch.arange(e, device=probs.device)).float()
-    return e * torch.sum(top1.mean(0) * probs.mean(0))
+    return e * torch.sum(_token_mean(top1) * _token_mean(probs))
 
 
 def route(probs: torch.Tensor, top_k: int, cap: int
           ) -> Tuple[List[Tuple[torch.Tensor, torch.Tensor]],
                      List[torch.Tensor]]:
     """Top-k routing of (S, E) probabilities under ``cap`` slots per
-    expert. Returns, per pass, each token's ``(expert, position)`` slot
-    (position ``cap`` where it was dropped) and its combine weight (0
-    where dropped; under top-2 renormalised)."""
+    expert. Returns, per pass, each token's ``(expert, row)`` in the
+    expert table of :func:`table_rows` rows (row ``table_rows(cap, S)``
+    where it was dropped) and its combine weight (0 where dropped; under
+    top-2 renormalised). In a data-parallel step a token is kept by its
+    slot in the global batch's order, and the table holds this rank's
+    kept tokens only."""
     s, e = probs.shape
+    group = active_group()
     experts = torch.arange(e, device=probs.device)
+    # per expert: the global batch's kept slots of the earlier passes,
+    # and this rank's kept tokens (the same without a group)
     base = torch.zeros(e, dtype=torch.long, device=probs.device)
+    rows = torch.zeros_like(base)
+    dropped = table_rows(cap, s)
     masked = probs
     slots, weights = [], []
     for _ in range(top_k):
@@ -93,13 +120,21 @@ def route(probs: torch.Tensor, top_k: int, cap: int
         # CUDA scan is fast (over the outer dim of (S, E) it took 0.78 ms
         # of a 2.3 ms layer on an H100 at S 4 440, E 8)
         onehot = (idx[None, :] == experts[:, None]).long()
-        pos = (onehot.cumsum(1) - 1 + base[:, None]).gather(
-            0, idx[None, :])[0]
-        keep = pos < cap
+        count = onehot.sum(1)
+        # after the earlier ranks' tokens of each expert
+        before, total = (rank_prefix(count, group) if group is not None
+                         else (0, count))
+        # each token's place among this rank's tokens of its expert
+        order = (onehot.cumsum(1) - 1).gather(0, idx[None, :])[0]
+        keep = order + (base + before)[idx] < cap
+        row = order + rows[idx]
         gate = probs.gather(1, idx[:, None])[:, 0]
         weights.append(gate * keep)
-        slots.append((idx, torch.where(keep, pos, torch.full_like(pos, cap))))
-        base = base + (onehot * keep[None, :]).sum(1)
+        slots.append((idx, torch.where(keep, row,
+                                       torch.full_like(row, dropped))))
+        # the global batch's kept slots: base .. min(base + total, cap)
+        base = torch.clamp(base + total, max=cap)
+        rows = rows + (onehot * keep[None, :]).sum(1)
         masked = masked * (1.0 - onehot.t().float())
     if top_k == 2:
         tot = weights[0] + weights[1]
@@ -109,24 +144,32 @@ def route(probs: torch.Tensor, top_k: int, cap: int
     return slots, weights
 
 
+def table_rows(cap: int, tokens: int) -> int:
+    """Rows per expert of a rank's expert table: its kept tokens, at
+    most the capacity and at most its ``tokens`` (a token takes an expert
+    once); ``cap`` itself on one process (the capacity is at most the
+    batch's tokens)."""
+    return torch.sym_min(cap, tokens)
+
+
 def dispatch(x: torch.Tensor, slots, num_experts: int,
-             cap: int) -> torch.Tensor:
-    """(S, d) tokens -> (E, cap, d) expert inputs by gathering each slot's
-    token; an empty slot holds zeros."""
+             rows: int) -> torch.Tensor:
+    """(S, d) tokens -> (E, rows, d) expert inputs by gathering each
+    slot's token; an empty slot holds zeros."""
     s, d = x.shape
-    table = torch.full((num_experts, cap + 1), s, dtype=torch.long,
+    table = torch.full((num_experts, rows + 1), s, dtype=torch.long,
                        device=x.device)
     tokens = torch.arange(s, device=x.device)
     for idx, pos in slots:
         # a dropped token writes the spare last column, which is cut
         table.index_put_((idx, pos), tokens)
     padded = torch.cat([x, x.new_zeros(1, d)])
-    return padded[table[:, :cap]]
+    return padded[table[:, :rows]]
 
 
 def combine(ye: torch.Tensor, slots, weights: List[torch.Tensor]
             ) -> torch.Tensor:
-    """(E, cap, d) expert outputs -> (S, d): each token's gate-weighted
+    """(E, rows, d) expert outputs -> (S, d): each token's gate-weighted
     sum over its slots in float32, rounded once to ``ye``'s dtype (a
     dropped slot reads a zero row with weight 0). The gates are rounded
     to the compute dtype first; below float32 their products with the
@@ -181,12 +224,14 @@ class MoEFFN(nn.Module):
         b, t, d = x.shape
         e, dt = self.num_experts, self.compute_dtype
         s = b * t
-        cap = capacity(s, e, self.top_k, self.capacity_factor)
+        # every rank holds as many tokens: the global batch's capacity
+        cap = capacity(s * world_of(active_group()), e, self.top_k,
+                       self.capacity_factor)
         xf = x.reshape(s, d)
         probs = torch.softmax(self.router(xf.float()), dim=-1)
         aux = load_balance_loss(probs)
         slots, weights = route(probs, self.top_k, cap)
-        xe = dispatch(xf.to(dt), slots, e, cap)
+        xe = dispatch(xf.to(dt), slots, e, table_rows(cap, s))
         h = gelu(torch.bmm(xe, self.wi.to(dt)) + self.bi.to(dt)[:, None])
         ye = torch.bmm(h, self.wo.to(dt)) + self.bo.to(dt)[:, None]
         return combine(ye, slots, weights).view(b, t, d), aux

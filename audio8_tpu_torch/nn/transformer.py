@@ -75,6 +75,7 @@ from audio8_tpu_torch.nn.moe import AuxLosses, MoEFFN, record_aux
 from audio8_tpu_torch.ops.attention import attention_core
 from audio8_tpu_torch.ops.attention_block import HEAD_DIMS, attention_block
 from audio8_tpu_torch.ops.hashrand import SeedReplay, draw_keep, draw_seed
+from audio8_tpu_torch.parallel.sharding import row_offset
 
 
 # the JAX gates' bounds on T and the head dim
@@ -337,12 +338,13 @@ class MultiHeadAttention(nn.Module):
             params = [t.to(dt) for m in self.projections()
                       for t in (m.weight, m.bias)]
             return attention_block(x.to(dt).contiguous(), *params, key_valid,
-                                   self.num_heads, scale, rate, seed)
+                                   self.num_heads, scale, rate, seed,
+                                   row_offset())
         q, k, v = self.qkv(x)
         seed = draw_seed(generator) if rate > 0.0 else 0
         out = attention_core(q, k, v, key_valid, scale, rate, seed,
                              xla=self.xla_semantics(x.shape[1]),
-                             bf16_softmax=self.bf16_softmax)
+                             bf16_softmax=self.bf16_softmax, b0=row_offset())
         return self._merge(out)
 
     def _scaled(self, q: torch.Tensor) -> torch.Tensor:

@@ -27,6 +27,11 @@ probabilities and ds cast to the input dtype before their products):
   ``bf16_softmax`` and bf16 inputs the scaled logits are rounded to bf16
   before the softmax, which then runs in f32 (JAX runs it in bf16: a
   documented deviation).
+
+A block of rows that starts at row ``b0`` of a larger batch (a
+data-parallel rank's rows, ``parallel/sharding.py``) passes ``b0``: its
+row b draws the masks of global row ``b0 + b`` in both semantics (the
+seed ``seed + (b0 + b)*H + h``, or the flat index from ``b0*H*T*T``).
 """
 from __future__ import annotations
 
@@ -85,13 +90,13 @@ def _semantics_grid(q, xla):
     return t if xla else round_up(t, 128)
 
 
-def _keep(b, h, t_grid, rate, seed, xla, device):
+def _keep(b, h, t_grid, rate, seed, xla, device, b0=0):
     if rate <= 0.0:
         return None
     if xla:
-        return hash_bits((b, h, t_grid, t_grid), seed, device) \
-            >= keep_threshold(rate)
-    g = torch.arange(b * h, device=device, dtype=torch.int64)
+        return hash_bits((b, h, t_grid, t_grid), seed, device,
+                         b0 * h * t_grid * t_grid) >= keep_threshold(rate)
+    g = torch.arange(b * h, device=device, dtype=torch.int64) + b0 * h
     return hash_keep(t_grid, (int(seed) + g) & _MASK32, rate).view(
         b, h, t_grid, t_grid)
 
@@ -120,15 +125,15 @@ def _scores(q, k, v, key_valid, scale, xla, bf16_softmax, extra=()):
 def attention_core_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          key_valid: Optional[torch.Tensor], scale: float,
                          rate: float = 0.0, seed: int = 0, *,
-                         xla: bool = False,
-                         bf16_softmax: bool = False) -> torch.Tensor:
+                         xla: bool = False, bf16_softmax: bool = False,
+                         b0: int = 0) -> torch.Tensor:
     """Plain version of the forward in either semantics (the module
     docstring), computed on the semantics' grid."""
     b, h, t, dh = q.shape
     s, _, (qp, kp, vp) = _scores(q, k, v, key_valid, scale, xla,
                                  bf16_softmax)
     p = torch.softmax(s, dim=-1)
-    keep = _keep(b, h, s.shape[-1], rate, seed, xla, q.device)
+    keep = _keep(b, h, s.shape[-1], rate, seed, xla, q.device, b0)
     if keep is not None:
         p = torch.where(keep, p * (1.0 / (1.0 - rate)),
                         torch.zeros((), device=p.device))
@@ -140,18 +145,19 @@ def attention_core_bwd_plain(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, key_valid: Optional[torch.Tensor],
                              scale: float, rate: float, seed: int,
                              dout: torch.Tensor, *, xla: bool = False,
-                             bf16_softmax: bool = False):
+                             bf16_softmax: bool = False, b0: int = 0):
     """Plain version of the backward: ``(dq, dk, dv)`` by recompute on the
     semantics' grid, in the input dtype."""
     return tuple(g.to(q.dtype) for g in attention_core_bwd_f32(
         q, k, v, key_valid, scale, rate, seed, dout, xla=xla,
-        bf16_softmax=bf16_softmax))
+        bf16_softmax=bf16_softmax, b0=b0))
 
 
 def attention_core_bwd_f32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            key_valid: Optional[torch.Tensor], scale: float,
                            rate: float, seed: int, dout: torch.Tensor, *,
-                           xla: bool = False, bf16_softmax: bool = False):
+                           xla: bool = False, bf16_softmax: bool = False,
+                           b0: int = 0):
     """:func:`attention_core_bwd_plain` before its final rounding: the f32
     ``(dq, dk, dv)`` that the attention block's bias gradients sum."""
     b, h, t, dh = q.shape
@@ -161,7 +167,7 @@ def attention_core_bwd_f32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     p = torch.softmax(s, dim=-1)
     dpd = torch.matmul(dop, vp.transpose(-1, -2))
     zero = torch.zeros((), device=p.device)
-    keep = _keep(b, h, s.shape[-1], rate, seed, xla, q.device)
+    keep = _keep(b, h, s.shape[-1], rate, seed, xla, q.device, b0)
     if keep is not None:
         pd = torch.where(keep, p * (1.0 / (1.0 - rate)), zero)
         dp = torch.where(keep, dpd * (1.0 / (1.0 - rate)), zero)
@@ -239,14 +245,17 @@ def _ptr(x: Optional[torch.Tensor]):
     return None if x is None else x.data_ptr()
 
 
-def _dropout_args(rate: float, seed: int):
+def _dropout_args(rate: float, seed: int, bh0: int = 0):
+    """The kernels' dropout arguments: 1 / (1 - rate), the threshold, the
+    seed, the global head index of head 0 (``b0 * H``, mod 2**32) and
+    whether to drop."""
     return (1.0 / (1.0 - rate), keep_threshold(rate), int(seed) & _MASK32,
-            int(rate > 0.0))
+            int(bh0) & _MASK32, int(rate > 0.0))
 
 
 def _forward_kernel(q, k, v, key_valid, scale, rate, seed,
                     with_stats: bool, xla: bool = False,
-                    bf16_softmax: bool = False):
+                    bf16_softmax: bool = False, b0: int = 0):
     """Launch ``attention_fwd.cu``; returns ``(o, stats, o32)``. With
     ``with_stats`` the kernel also writes the row statistics and the
     output in f32 (``o`` itself for f32 inputs) for the backward; without
@@ -265,7 +274,7 @@ def _forward_kernel(q, k, v, key_valid, scale, rate, seed,
                   o.data_ptr(), _ptr(stats),
                   None if o32 is o else _ptr(o32), b, h, t, dh,
                   _ext.DTYPE_CODES[q.dtype], float(scale),
-                  *_dropout_args(rate, seed), int(xla),
+                  *_dropout_args(rate, seed, b0 * h), int(xla),
                   int(_round_logits(xla, bf16_softmax, q.dtype)),
                   _ext.stream_handle(q.device)), "attention_core")
     attention_core.launches += 1
@@ -273,7 +282,7 @@ def _forward_kernel(q, k, v, key_valid, scale, rate, seed,
 
 
 def _backward_kernel(q, k, v, o32, stats, key_valid, scale, rate, seed,
-                     dout, xla, bf16_softmax, f32_copies):
+                     dout, xla, bf16_softmax, f32_copies, b0=0):
     """Launch ``attention_bwd.cu``: ``(dq, dk, dv)`` and, with
     ``f32_copies``, their f32 copies before the rounding, else None."""
     kv = _checked(q, k, v, key_valid, rate, "attention_core_bwd")
@@ -294,7 +303,7 @@ def _backward_kernel(q, k, v, o32, stats, key_valid, scale, rate, seed,
                   dk.data_ptr(), dv.data_ptr(), *map(_ptr, copies),
                   b, h, t, dh,
                   _ext.DTYPE_CODES[q.dtype], float(scale),
-                  *_dropout_args(rate, seed), int(xla),
+                  *_dropout_args(rate, seed, b0 * h), int(xla),
                   int(_round_logits(xla, bf16_softmax, q.dtype)),
                   _ext.stream_handle(q.device)), "attention_core_bwd")
     attention_core_bwd.launches += 1
@@ -320,25 +329,27 @@ def _empties(like: torch.Tensor) -> tuple:
 def attention_core_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       key_valid: Optional[torch.Tensor], scale: float,
                       rate: float, seed: int, xla: bool, bf16_softmax: bool,
-                      with_stats: bool
+                      with_stats: bool, b0: int = 0
                       ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``(o, o32, stats)``; the residuals empty unless ``with_stats`` on a
     CUDA device."""
     return (attention_core_plain(q, k, v, key_valid, scale, rate, seed,
-                                 xla=xla, bf16_softmax=bf16_softmax),
+                                 xla=xla, bf16_softmax=bf16_softmax, b0=b0),
             _empty(q), _empty(q))
 
 
 @attention_core_op.register_kernel("cuda")
-def _(q, k, v, key_valid, scale, rate, seed, xla, bf16_softmax, with_stats):
+def _(q, k, v, key_valid, scale, rate, seed, xla, bf16_softmax, with_stats,
+      b0=0):
     o, stats, o32 = _forward_kernel(q, k, v, key_valid, scale, rate, seed,
-                                    with_stats, xla, bf16_softmax)
+                                    with_stats, xla, bf16_softmax, b0)
     return (o, _empty(q) if o32 is None or o32 is o else o32,
             _empty(q) if stats is None else stats)
 
 
 @attention_core_op.register_fake
-def _(q, k, v, key_valid, scale, rate, seed, xla, bf16_softmax, with_stats):
+def _(q, k, v, key_valid, scale, rate, seed, xla, bf16_softmax, with_stats,
+      b0=0):
     if not (with_stats and q.is_cuda):
         return torch.empty_like(q), _empty(q), _empty(q)
     b, h, t, _ = q.shape
@@ -354,7 +365,8 @@ def attention_core_bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           o32: torch.Tensor, stats: torch.Tensor,
                           key_valid: Optional[torch.Tensor], scale: float,
                           rate: float, seed: int, dout: torch.Tensor,
-                          xla: bool, bf16_softmax: bool, f32_copies: bool
+                          xla: bool, bf16_softmax: bool, f32_copies: bool,
+                          b0: int = 0
                           ) -> tuple[torch.Tensor, torch.Tensor,
                                      torch.Tensor, torch.Tensor,
                                      torch.Tensor, torch.Tensor]:
@@ -362,7 +374,8 @@ def attention_core_bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     without ``f32_copies``); the plain version recomputes and ignores
     ``o32`` and ``stats``."""
     g32 = attention_core_bwd_f32(q, k, v, key_valid, scale, rate, seed,
-                                 dout, xla=xla, bf16_softmax=bf16_softmax)
+                                 dout, xla=xla, bf16_softmax=bf16_softmax,
+                                 b0=b0)
     if not f32_copies:
         return (*(g.to(q.dtype) for g in g32), *_empties(q))
     return (*(g.to(q.dtype, copy=True) for g in g32), *g32)
@@ -370,28 +383,28 @@ def attention_core_bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 @attention_core_bwd_op.register_kernel("cuda")
 def _(q, k, v, o32, stats, key_valid, scale, rate, seed, dout, xla,
-      bf16_softmax, f32_copies):
+      bf16_softmax, f32_copies, b0=0):
     dq, dk, dv, *copies = _backward_kernel(
         q, k, v, o32, stats, key_valid, scale, rate, seed, dout, xla,
-        bf16_softmax, f32_copies)
+        bf16_softmax, f32_copies, b0)
     return (dq, dk, dv, *(copies if f32_copies else _empties(q)))
 
 
 @attention_core_bwd_op.register_fake
 def _(q, k, v, o32, stats, key_valid, scale, rate, seed, dout, xla,
-      bf16_softmax, f32_copies):
+      bf16_softmax, f32_copies, b0=0):
     copies = tuple(q.new_empty(q.shape, dtype=torch.float32) if f32_copies
                    else _empty(q) for _ in range(3))
     return (*(torch.empty_like(q) for _ in range(3)), *copies)
 
 
 def _setup(ctx, inputs, output):
-    q, k, v, key_valid, scale, rate, seed, xla, bf16_softmax, _ = inputs
+    q, k, v, key_valid, scale, rate, seed, xla, bf16_softmax, _, b0 = inputs
     o, o32, stats = output
     # an f32 forward's f32 output is o itself
     o32 = o if q.dtype == torch.float32 else o32
     ctx.save_for_backward(q, k, v, key_valid, o32, stats)
-    ctx.args = (scale, rate, seed, xla, bf16_softmax)
+    ctx.args = (scale, rate, seed, xla, bf16_softmax, b0)
 
 
 def _backward(ctx, dout, *_):
@@ -399,11 +412,11 @@ def _backward(ctx, dout, *_):
     the gradient of the XLA attention): residuals are the inputs (plus, on
     the card, the f32 output and the row statistics)."""
     q, k, v, key_valid, o32, stats = ctx.saved_tensors
-    scale, rate, seed, xla, bf16_softmax = ctx.args
+    scale, rate, seed, xla, bf16_softmax, b0 = ctx.args
     dq, dk, dv, *_ = attention_core_bwd_op(
         q, k, v, o32, stats, key_valid, scale, rate, seed, dout, xla,
-        bf16_softmax, False)
-    return dq, dk, dv, None, None, None, None, None, None, None
+        bf16_softmax, False, b0)
+    return dq, dk, dv, None, None, None, None, None, None, None, None
 
 
 attention_core_op.register_autograd(_backward, setup_context=_setup)
@@ -414,7 +427,7 @@ def attention_core_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        key_valid: Optional[torch.Tensor], scale: float,
                        rate: float, seed: int, dout: torch.Tensor, *,
                        xla: bool = False, bf16_softmax: bool = False,
-                       f32_copies: bool = False):
+                       f32_copies: bool = False, b0: int = 0):
     """The backward, ``a8t::attention_core_bwd``: ``(dq, dk, dv)`` from the
     forward's inputs, its output in f32 ``o32`` and its row ``stats``
     (both written by the forward kernel when a gradient is needed; the
@@ -424,26 +437,28 @@ def attention_core_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``f32_copies`` it also returns the gradients in f32 before their
     rounding (what the attention block's bias gradients sum)."""
     out = attention_core_bwd_op(q, k, v, o32, stats, key_valid, scale, rate,
-                                seed, dout, xla, bf16_softmax, f32_copies)
+                                seed, dout, xla, bf16_softmax, f32_copies,
+                                b0)
     return out if f32_copies else out[:3]
 
 
 def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    key_valid: Optional[torch.Tensor], scale: float,
                    rate: float = 0.0, seed: int = 0, *, xla: bool = False,
-                   bf16_softmax: bool = False) -> torch.Tensor:
+                   bf16_softmax: bool = False, b0: int = 0) -> torch.Tensor:
     """Fused attention core, ``a8t::attention_core``. q/k/v ``(B, H, T,
     dh)`` float32 or bfloat16; key_valid optional ``(B, T)`` bool; ``rate``
     the probability dropout (0 = off) with uint32 ``seed``. ``xla`` picks
     the semantics (the module docstring): False, the TPU kernel's (head
     ``(b, h)`` seeded ``seed + b*H + h``); True, the JAX XLA attention's,
-    where ``bf16_softmax`` rounds bf16 logits. Returns ``(B, H, T, dh)``
+    where ``bf16_softmax`` rounds bf16 logits. ``b0``: the batch row of
+    row 0 (a data-parallel rank's row offset). Returns ``(B, H, T, dh)``
     in the input dtype, differentiable in q, k and v. CPU tensors take
     the plain versions; CUDA tensors launch the kernels or raise."""
     with_stats = torch.is_grad_enabled() and any(
         a.requires_grad for a in (q, k, v))
     return attention_core_op(q, k, v, key_valid, scale, rate, seed, xla,
-                             bf16_softmax, with_stats)[0]
+                             bf16_softmax, with_stats, int(b0))[0]
 
 
 attention_core.launches = 0

@@ -34,37 +34,54 @@ def mix32(x: torch.Tensor) -> torch.Tensor:
 
 
 def hash_bits(shape: Sequence[int], seed: int,
-              device: torch.device | str = "cpu") -> torch.Tensor:
-    """uint32 bits (as int64) of ``shape``: mix(flat index ^ seed)."""
+              device: torch.device | str = "cpu",
+              base: int = 0) -> torch.Tensor:
+    """uint32 bits (as int64) of ``shape``: mix(flat index ^ seed). The
+    flat index starts at ``base``, added before the 2**32 wrap: a block
+    of rows of a larger tensor passes its first element's flat index
+    there and draws that tensor's bits (data parallelism's row blocks,
+    ``parallel/sharding.py``)."""
     n = 1
     for d in shape:
         n *= int(d)
-    idx = torch.arange(n, dtype=torch.int64, device=device) & MASK32
+    idx = (torch.arange(n, dtype=torch.int64, device=device) + int(base)) \
+        & MASK32
     return mix32(idx ^ (int(seed) & MASK32)).reshape(tuple(shape))
 
 
 def hash_uniform(shape: Sequence[int], seed: int,
-                 device: torch.device | str = "cpu") -> torch.Tensor:
+                 device: torch.device | str = "cpu",
+                 base: int = 0) -> torch.Tensor:
     """float32 in the open interval (0, 1): the top 24 bits plus half an
     ulp."""
-    bits = hash_bits(shape, seed, device)
+    bits = hash_bits(shape, seed, device, base)
     return (bits >> 8).to(torch.float32) * (1.0 / 16777216.0) \
         + (0.5 / 16777216.0)
 
 
 def hash_gumbel(shape: Sequence[int], seed: int,
-                device: torch.device | str = "cpu") -> torch.Tensor:
+                device: torch.device | str = "cpu",
+                base: int = 0) -> torch.Tensor:
     """Standard Gumbel noise ``-log(-log(u))`` from :func:`hash_uniform`
     (float32)."""
-    return -torch.log(-torch.log(hash_uniform(shape, seed, device)))
+    return -torch.log(-torch.log(hash_uniform(shape, seed, device, base)))
 
 
 def hash_randint(shape: Sequence[int], seed: int,
-                 maxval: torch.Tensor) -> torch.Tensor:
+                 maxval: torch.Tensor, base: int = 0) -> torch.Tensor:
     """int64 in ``[0, maxval)``: the uint32 bits modulo ``maxval``, which
     broadcasts against ``shape`` (the JAX package's uint32 remainder)."""
-    bits = hash_bits(shape, seed, maxval.device)
+    bits = hash_bits(shape, seed, maxval.device, base)
     return bits % maxval.to(torch.int64)
+
+
+def row_base(shape: Sequence[int], row_offset: int) -> int:
+    """The flat index of row ``row_offset`` of a batch-first tensor whose
+    rows have ``shape[1:]``: the ``base`` of a row block's draws."""
+    n = int(row_offset)
+    for d in shape[1:]:
+        n *= int(d)
+    return n
 
 
 def keep_threshold(rate: float) -> int:

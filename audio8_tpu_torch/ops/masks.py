@@ -21,14 +21,17 @@ def num_spans(seq_len: int, p: float, span_len: int) -> int:
 
 
 def span_mask(seed: int, batch: int, seq_len: int, p: float = 0.65,
-              span_len: int = 10,
-              device: torch.device | str = "cpu") -> torch.Tensor:
-    """A (B, T) boolean span mask from an integer ``seed``."""
+              span_len: int = 10, device: torch.device | str = "cpu",
+              row_offset: int = 0) -> torch.Tensor:
+    """A (B, T) boolean span mask from an integer ``seed``; the rows are
+    rows ``row_offset ..`` of the batch's mask (a data-parallel row
+    block draws the global batch's keys)."""
     n = num_spans(seq_len, p, span_len)
     if n == 0:
         return torch.zeros((batch, seq_len), dtype=torch.bool, device=device)
     max_start = max(seq_len - span_len, 1)
-    keys = hash_uniform((batch, max_start), seed, device)
+    keys = hash_uniform((batch, max_start), seed, device,
+                        row_offset * max_start)
     starts = torch.argsort(keys, dim=-1, stable=True)[:, :n]
     t = torch.arange(seq_len, device=device)[None, None, :]
     covered = (t >= starts[..., None]) & (t < starts[..., None] + span_len)

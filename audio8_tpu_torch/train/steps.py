@@ -51,6 +51,20 @@ aux`` (the layers' summed load-balance losses, collected by
 weight survives. Pretraining, HuBERT, data2vec and paired report it as
 ``moe_aux``; data2vec collects it from the student alone, in its
 evaluation too (the JAX steps).
+
+Data parallelism: a factory given a process ``group`` runs each rank's
+block of the global batch (``parallel/sharding.py``). Each step runs its
+forward and backward under ``sharding.data_parallel`` with the batch's
+``row_offset`` (a dict key, or the pretraining steps' argument), so the
+hash draws are the global batch's and the denominators (rows, tokens,
+slots, frames) are summed over the ranks. The factories that return the
+summed loss and counts (CTC, seq2seq, paired, RNN-T) return this rank's
+share; their ``update_fn`` (and the fused ``train_step``) sums the
+gradients over the ranks with one all-reduce and the example count it is
+given (this rank's) before it scales and clips, once per update under
+gradient accumulation. The others all-reduce the gradients before their
+clipped step, and their metrics are the global batch's. Without a group
+nothing changes.
 """
 from __future__ import annotations
 
@@ -69,6 +83,8 @@ from audio8_tpu_torch.models.wav2vec2 import (moe_aux_weight,
 from audio8_tpu_torch.nn.moe import AuxLosses
 from audio8_tpu_torch.ops.ctc import ctc_loss
 from audio8_tpu_torch.ops.transducer import transducer_loss
+from audio8_tpu_torch.parallel.sharding import (all_reduce_grads,
+                                                data_parallel, global_sum)
 from audio8_tpu_torch.utils import Offsets
 
 
@@ -101,7 +117,7 @@ def _per_example_aux(loss, aux_w: float, aux, rows):
     divides by the real-row count)."""
     if aux is None:
         return loss
-    return loss + aux_w * aux * torch.clamp(rows.sum(), min=1.0)
+    return loss + aux_w * aux * torch.clamp(global_sum(rows.sum()), min=1.0)
 
 
 def _with_aux(loss, metrics, aux_w: float, aux):
@@ -131,11 +147,30 @@ def _take_grads(module: torch.nn.Module) -> Dict[str, torch.Tensor]:
     return grads
 
 
-def _scaled_update(clip: float):
+def _row_offset(batch) -> int:
+    return int(batch.get("row_offset", 0))
+
+
+def _reduce(grads, total_examples, group):
+    """The gradients and the example count summed over ``group``'s ranks
+    (unchanged without a group)."""
+    total = torch.as_tensor(total_examples, dtype=torch.float32)
+    if group is None:
+        return grads, total
+    all_reduce_grads(grads, group)
+    dev = next(iter(grads.values()) if isinstance(grads, dict)
+               else iter(grads)).device
+    with data_parallel(group):
+        return grads, global_sum(total.to(dev))
+
+
+def _scaled_update(clip: float, group=None):
     def update_fn(state_, grads, total_examples):
         """Step with the summed gradient over ``total_examples`` rows
-        (a number or a 0-dim tensor); returns ``(state, gnorm)``."""
-        total = torch.as_tensor(total_examples, dtype=torch.float32)
+        (a number or a 0-dim tensor; this rank's rows under a process
+        group, whose gradients and counts are summed first); returns
+        ``(state, gnorm)``."""
+        grads, total = _reduce(grads, total_examples, group)
         gnorm = state_.apply_gradients(
             grads, grad_scale=1.0 / torch.clamp(total, min=1.0),
             clip_norm=clip)
@@ -144,13 +179,17 @@ def _scaled_update(clip: float):
     return update_fn
 
 
-def make_ctc_steps(model, clip: float = 25.0, loss_reduction: str = "sum"):
+def make_ctc_steps(model, clip: float = 25.0, loss_reduction: str = "sum",
+                   group=None):
     """Returns ``(grad_fn, update_fn, eval_fn)`` for CTC fine-tuning of
     ``model``; ``update_fn`` and ``grad_fn.train_step`` step a
     :class:`~audio8_tpu_torch.train.optim.TrainState` over the model's
-    parameters, the latter fusing grad and update. Batches are dicts of tensors on the
-    model's device (``signal``, ``signal_lengths``, ``token_ids``,
-    ``token_lengths``)."""
+    parameters, the latter fusing grad and update. Batches are dicts of
+    tensors on the model's device (``signal``, ``signal_lengths``,
+    ``token_ids``, ``token_lengths``; ``row_offset`` an int under a
+    process ``group``). The loss, rows and tokens that ``grad_fn``
+    returns, and ``eval_fn``'s loss, are this rank's shares: the global
+    values are their sums over the ranks."""
 
     def masked_ctc(log_probs, frame_lengths, targets, target_lengths, rows):
         per_row = ctc_loss(log_probs, frame_lengths, targets, target_lengths,
@@ -158,7 +197,8 @@ def make_ctc_steps(model, clip: float = 25.0, loss_reduction: str = "sum"):
         if loss_reduction == "sum":
             return torch.sum(per_row * rows)
         per = per_row / torch.clamp(target_lengths.float(), min=1.0)
-        return torch.sum(per * rows) / torch.clamp(rows.sum(), min=1.0)
+        return torch.sum(per * rows) / torch.clamp(global_sum(rows.sum()),
+                                                   min=1.0)
 
     aux_w = moe_aux_weight(model.config)
 
@@ -169,23 +209,25 @@ def make_ctc_steps(model, clip: float = 25.0, loss_reduction: str = "sum"):
         rows = row_validity(batch)
         for p in model.parameters():
             p.grad = None
-        (log_probs, pad_mask), aux = collecting_aux(
-            aux_w, model, batch["signal"], batch["signal_lengths"],
-            generator=generator, freeze=freeze)
-        loss = masked_ctc(log_probs, pad_mask.sum(dim=-1), targets,
-                          target_lengths, rows)
-        loss = _per_example_aux(loss, aux_w, aux, rows)
-        loss.backward()
+        with data_parallel(group, _row_offset(batch)):
+            (log_probs, pad_mask), aux = collecting_aux(
+                aux_w, model, batch["signal"], batch["signal_lengths"],
+                generator=generator, freeze=freeze)
+            loss = masked_ctc(log_probs, pad_mask.sum(dim=-1), targets,
+                              target_lengths, rows)
+            loss = _per_example_aux(loss, aux_w, aux, rows)
+            loss.backward()
         grads = _take_grads(model)
         num_tokens = (target_lengths * rows).sum().float()
         return loss.detach(), grads, rows.sum(), num_tokens
 
-    update_fn = _scaled_update(clip)
+    update_fn = _scaled_update(clip, group)
 
     def train_step(state_, batch, generator, freeze: bool = True):
         loss, grads, bsz, toks = grad_fn(batch, generator, freeze)
+        grads, total = _reduce(grads, bsz, group)
         state_.apply_gradients(grads,
-                               grad_scale=1.0 / torch.clamp(bsz, min=1.0),
+                               grad_scale=1.0 / torch.clamp(total, min=1.0),
                                clip_norm=clip)
         return state_, loss, bsz, toks
 
@@ -195,8 +237,9 @@ def make_ctc_steps(model, clip: float = 25.0, loss_reduction: str = "sum"):
                                                 batch["token_lengths"])
         log_probs, pad_mask = model(batch["signal"], batch["signal_lengths"])
         frame_lengths = pad_mask.sum(dim=-1)
-        loss = masked_ctc(log_probs, frame_lengths, targets, target_lengths,
-                          row_validity(batch))
+        with data_parallel(group, _row_offset(batch)):
+            loss = masked_ctc(log_probs, frame_lengths, targets,
+                              target_lengths, row_validity(batch))
         frames = torch.argmax(log_probs, dim=-1).to(torch.int32)
         return loss, frames, frame_lengths
 
@@ -213,14 +256,17 @@ def current_temperature(step: int, start: float = START_TEMP,
     return float(max(t, np.float32(end)))
 
 
-def make_pretrain_steps(model, clip: float = 1.0, n_negatives: int = 100):
+def make_pretrain_steps(model, clip: float = 1.0, n_negatives: int = 100,
+                        group=None):
     """Returns ``(train_step, eval_step)`` for contrastive pretraining of a
-    ``Wav2Vec2Model``. ``train_step(state, signal, seeds, generator)``
-    steps the :class:`~audio8_tpu_torch.train.optim.TrainState` and
-    returns ``(state, metrics)`` (metrics as 0-dim tensors, plus
-    ``temperature``); ``eval_step(signal, seeds, step)`` returns ``(loss,
-    metrics)``. ``signal`` is a dense (B, T) batch on the model's
-    device."""
+    ``Wav2Vec2Model``. ``train_step(state, signal, seeds, generator,
+    row_offset=0)`` steps the
+    :class:`~audio8_tpu_torch.train.optim.TrainState` and returns
+    ``(state, metrics)`` (metrics as 0-dim tensors, plus
+    ``temperature``); ``eval_step(signal, seeds, step, row_offset=0)``
+    returns ``(loss, metrics)``. ``signal`` is a dense (B, T) batch on the
+    model's device, rows ``row_offset ..`` of the global batch under a
+    process ``group`` (the metrics are then the global batch's)."""
     cfg = model.config
     n_vars = cfg.num_vq_vars * cfg.num_vq_groups
     aux_w = moe_aux_weight(cfg)
@@ -229,45 +275,55 @@ def make_pretrain_steps(model, clip: float = 1.0, n_negatives: int = 100):
         return current_temperature(step, cfg.start_temp, cfg.end_temp,
                                    cfg.temp_decay_factor)
 
-    def train_step(state, signal, seeds, generator):
+    def train_step(state, signal, seeds, generator, row_offset: int = 0):
         temp = temperature(state.step)
         for p in model.parameters():
             p.grad = None
-        (c, t, ppl, valid), aux = collecting_aux(
-            aux_w, model, signal, seeds, generator=generator,
-            temperature=temp)
-        loss, metrics = wav2vec2_pretrain_loss(c, t, ppl, valid,
-                                               seeds.negatives, n_vars,
-                                               n_negatives)
-        loss, metrics = _with_aux(loss, metrics, aux_w, aux)
-        loss.backward()
+        with data_parallel(group, row_offset):
+            (c, t, ppl, valid), aux = collecting_aux(
+                aux_w, model, signal, seeds, generator=generator,
+                temperature=temp)
+            loss, metrics = wav2vec2_pretrain_loss(c, t, ppl, valid,
+                                                   seeds.negatives, n_vars,
+                                                   n_negatives)
+            loss, metrics = _with_aux(loss, metrics, aux_w, aux)
+            loss.backward()
         grads = []
         for p in model.parameters():
             grads.append(torch.zeros_like(p) if p.grad is None else p.grad)
             p.grad = None
+        if group is not None:
+            all_reduce_grads(grads, group)
         gnorm = state.apply_gradients(grads, clip_norm=clip)
         metrics = {k: v.detach() for k, v in metrics.items()}
         return state, dict(metrics, loss=loss.detach(), grad_norm=gnorm,
                            temperature=temp)
 
     @torch.no_grad()
-    def eval_step(signal, seeds, step: int):
-        c, t, ppl, valid = model(signal, seeds,
-                                 temperature=temperature(step))
-        return wav2vec2_pretrain_loss(c, t, ppl, valid, seeds.negatives,
-                                      n_vars, n_negatives)
+    def eval_step(signal, seeds, step: int, row_offset: int = 0):
+        with data_parallel(group, row_offset):
+            c, t, ppl, valid = model(signal, seeds,
+                                     temperature=temperature(step))
+            return wav2vec2_pretrain_loss(c, t, ppl, valid, seeds.negatives,
+                                          n_vars, n_negatives)
 
     return train_step, eval_step
 
 
-def _step_grads(model, state, loss, clip: float):
-    """Backward, every parameter's gradient (zeros where none arrived),
-    then one clipped optimizer step; returns the global norm."""
-    loss.backward()
-    return state.apply_gradients(_take_grads(model), clip_norm=clip)
+def _step_grads(model, state, loss, clip: float, group=None):
+    """Backward (unless ``loss`` is None: it ran already), every
+    parameter's gradient (zeros where none arrived) summed over
+    ``group``'s ranks, then one clipped optimizer step; returns the global
+    norm."""
+    if loss is not None:
+        loss.backward()
+    grads = _take_grads(model)
+    if group is not None:
+        all_reduce_grads(grads, group)
+    return state.apply_gradients(grads, clip_norm=clip)
 
 
-def make_hubert_steps(model, clip: float = 1.0):
+def make_hubert_steps(model, clip: float = 1.0, group=None):
     """Returns ``(train_step, eval_step)`` for HuBERT masked-prediction
     pretraining of a ``models.hubert.HubertPretrainModel``.
     ``train_step(state, batch, seeds, generator)`` steps the
@@ -277,7 +333,8 @@ def make_hubert_steps(model, clip: float = 1.0):
     mask still drawn. Batches are the supervised pipeline's dicts with
     ``token_ids`` the frame cluster ids (``TGT_KM``, padded -1); a padding
     row (``signal_lengths == 0``) has an empty pad mask and adds
-    nothing."""
+    nothing. Under a process ``group`` a batch is a rank's row block
+    (its ``row_offset``) and the metrics are the global batch's."""
     cfg = model.config
     aux_w = moe_aux_weight(cfg)
 
@@ -293,21 +350,24 @@ def make_hubert_steps(model, clip: float = 1.0):
     def train_step(state, batch, seeds, generator):
         for p in model.parameters():
             p.grad = None
-        (loss, metrics), aux = collecting_aux(aux_w, loss_of, batch, seeds,
-                                              generator)
-        loss, metrics = _with_aux(loss, metrics, aux_w, aux)
-        gnorm = _step_grads(model, state, loss, clip)
+        with data_parallel(group, _row_offset(batch)):
+            (loss, metrics), aux = collecting_aux(aux_w, loss_of, batch,
+                                                  seeds, generator)
+            loss, metrics = _with_aux(loss, metrics, aux_w, aux)
+            loss.backward()
+        gnorm = _step_grads(model, state, None, clip, group)
         metrics = {k: v.detach() for k, v in metrics.items()}
         return state, dict(metrics, loss=loss.detach(), grad_norm=gnorm)
 
     @torch.no_grad()
     def eval_step(batch, seeds):
-        return loss_of(batch, seeds, None)
+        with data_parallel(group, _row_offset(batch)):
+            return loss_of(batch, seeds, None)
 
     return train_step, eval_step
 
 
-def make_data2vec_steps(model, teacher, clip: float = 1.0):
+def make_data2vec_steps(model, teacher, clip: float = 1.0, group=None):
     """Returns ``(train_step, eval_step)`` for data2vec masked regression
     of a ``models.data2vec.Data2VecAudioModel`` (the student) against
     ``teacher``, a module of the same config (at the start a copy of the
@@ -316,7 +376,8 @@ def make_data2vec_steps(model, teacher, clip: float = 1.0):
     LayerDrop, no mask) for the targets, steps the student, then moves the
     teacher by the EMA with the decay at the new step; it returns
     ``(state, metrics)``. ``eval_step(batch, mask_seed)`` returns ``(loss,
-    metrics)``."""
+    metrics)``. Under a process ``group`` as HuBERT's; every rank's
+    teacher moves by the same EMA of the same student."""
     cfg = model.config
     aux_w = moe_aux_weight(cfg)
     student_params = list(model.parameters())
@@ -335,8 +396,10 @@ def make_data2vec_steps(model, teacher, clip: float = 1.0):
     def train_step(state, batch, mask_seed, generator):
         for p in model.parameters():
             p.grad = None
-        loss, metrics = loss_of(batch, mask_seed, generator)
-        gnorm = _step_grads(model, state, loss, clip)
+        with data_parallel(group, _row_offset(batch)):
+            loss, metrics = loss_of(batch, mask_seed, generator)
+            loss.backward()
+        gnorm = _step_grads(model, state, None, clip, group)
         decay = ema_decay_schedule(state.step, cfg.ema_decay,
                                    cfg.ema_end_decay, cfg.ema_anneal_steps)
         ema_update(teacher_params, student_params, decay)
@@ -346,7 +409,8 @@ def make_data2vec_steps(model, teacher, clip: float = 1.0):
 
     @torch.no_grad()
     def eval_step(batch, mask_seed):
-        return loss_of(batch, mask_seed, None)
+        with data_parallel(group, _row_offset(batch)):
+            return loss_of(batch, mask_seed, None)
 
     return train_step, eval_step
 
@@ -360,7 +424,7 @@ def sequence_loss(log_probs: torch.Tensor, targets: torch.Tensor,
     total = (nll * mask).sum()
     if reduction == "sum":
         return total
-    return total / torch.clamp(mask.sum(), min=1.0)
+    return total / torch.clamp(global_sum(mask.sum()), min=1.0)
 
 
 def _teacher_forcing(batch):
@@ -371,12 +435,14 @@ def _teacher_forcing(batch):
 
 
 def make_seq2seq_steps(model, clip: float = 25.0,
-                       loss_reduction: str = "sum"):
+                       loss_reduction: str = "sum", group=None):
     """Returns ``(grad_fn, update_fn, decode_fn, eval_loss_fn)`` for a
     ``models.seq2seq.Seq2Seq``: ``grad_fn(batch, generator, freeze)`` ->
     (summed loss, gradients by name, real rows, decoder tokens);
     ``decode_fn(batch, max_output_len, beam)`` -> (tokens, lengths);
-    ``eval_loss_fn(batch)`` -> the teacher-forced loss."""
+    ``eval_loss_fn(batch)`` -> the teacher-forced loss. Under a process
+    ``group``, CTC's conventions (this rank's shares; ``update_fn`` sums
+    the gradients and rows)."""
     aux_w = moe_aux_weight(model.encoder_config)
 
     def grad_fn(batch, generator: Optional[torch.Generator],
@@ -385,12 +451,13 @@ def make_seq2seq_steps(model, clip: float = 25.0,
         dst, tgt, dst_lengths = _teacher_forcing(batch)
         for p in model.parameters():
             p.grad = None
-        log_probs, aux = collecting_aux(
-            aux_w, model, batch["signal"], batch["signal_lengths"], dst,
-            dst_lengths, generator=generator, freeze=freeze)
-        loss = sequence_loss(log_probs, tgt, loss_reduction)
-        loss = _per_example_aux(loss, aux_w, aux, rows)
-        loss.backward()
+        with data_parallel(group, _row_offset(batch)):
+            log_probs, aux = collecting_aux(
+                aux_w, model, batch["signal"], batch["signal_lengths"], dst,
+                dst_lengths, generator=generator, freeze=freeze)
+            loss = sequence_loss(log_probs, tgt, loss_reduction)
+            loss = _per_example_aux(loss, aux_w, aux, rows)
+            loss.backward()
         num_tokens = (dst_lengths * rows).sum().float()
         return loss.detach(), _take_grads(model), rows.sum(), num_tokens
 
@@ -407,18 +474,22 @@ def make_seq2seq_steps(model, clip: float = 25.0,
         dst, tgt, dst_lengths = _teacher_forcing(batch)
         log_probs = model(batch["signal"], batch["signal_lengths"], dst,
                           dst_lengths)
-        return sequence_loss(log_probs, tgt, loss_reduction)
+        with data_parallel(group, _row_offset(batch)):
+            return sequence_loss(log_probs, tgt, loss_reduction)
 
-    return grad_fn, _scaled_update(clip), decode_fn, eval_loss_fn
+    return grad_fn, _scaled_update(clip, group), decode_fn, eval_loss_fn
 
 
-def make_paired_steps(module, clip: float = 25.0):
+def make_paired_steps(module, clip: float = 25.0, group=None):
     """Returns ``(grad_fn, update_fn, eval_fn)`` for paired pretraining of
     a ``models.dual_encoder.PairedModule`` (``module.model`` the dual
     encoder, ``module.loss`` the CLIP loss with its temperature):
     ``grad_fn(batch, generator, freeze_audio, freeze_text)`` -> (loss,
     metrics, gradients by name, real rows, text tokens); ``eval_fn(batch)``
-    -> (loss, metrics)."""
+    -> (loss, metrics). Under a process ``group`` the loss and metrics
+    are the global batch's on every rank (the CLIP similarities over all
+    ranks' rows), the rows and tokens this rank's; ``update_fn`` sums the
+    gradients and rows."""
     aux_w = moe_aux_weight(module.model.audio_encoder.config)
 
     def grad_fn(batch, generator: Optional[torch.Generator],
@@ -426,15 +497,17 @@ def make_paired_steps(module, clip: float = 25.0):
         rows = row_validity(batch)
         for p in module.parameters():
             p.grad = None
-        (a, t), aux = collecting_aux(
-            aux_w, module.model, batch["signal"], batch["signal_lengths"],
-            batch["token_ids"], batch["token_lengths"], generator=generator,
-            freeze_audio=freeze_audio, freeze_text=freeze_text)
-        loss, metrics = module.loss(a, t, rows)
-        if aux is not None:
-            loss = _per_example_aux(loss, aux_w, aux, rows)
-            metrics = dict(metrics, moe_aux=aux)
-        loss.backward()
+        with data_parallel(group, _row_offset(batch)):
+            (a, t), aux = collecting_aux(
+                aux_w, module.model, batch["signal"],
+                batch["signal_lengths"], batch["token_ids"],
+                batch["token_lengths"], generator=generator,
+                freeze_audio=freeze_audio, freeze_text=freeze_text)
+            loss, metrics = module.loss(a, t, rows)
+            if aux is not None:
+                loss = _per_example_aux(loss, aux_w, aux, rows)
+                metrics = dict(metrics, moe_aux=aux)
+            loss.backward()
         num_tokens = (batch["token_lengths"] * rows).sum().float()
         metrics = {k: v.detach() for k, v in metrics.items()}
         return (loss.detach(), metrics, _take_grads(module), rows.sum(),
@@ -444,14 +517,15 @@ def make_paired_steps(module, clip: float = 25.0):
     def eval_fn(batch):
         a, t = module.model(batch["signal"], batch["signal_lengths"],
                             batch["token_ids"], batch["token_lengths"])
-        return module.loss(a, t, row_validity(batch))
+        with data_parallel(group, _row_offset(batch)):
+            return module.loss(a, t, row_validity(batch))
 
-    return grad_fn, _scaled_update(clip), eval_fn
+    return grad_fn, _scaled_update(clip, group), eval_fn
 
 
 def make_transducer_steps(model, clip: float = 25.0,
                           loss_reduction: str = "sum",
-                          fused_loss: bool = False):
+                          fused_loss: bool = False, group=None):
     """Returns ``(grad_fn, update_fn, decode_fn, eval_loss_fn)`` for a
     ``models.transducer.Transducer``: ``grad_fn(batch, generator,
     freeze)`` -> (loss, gradients by name, real rows, label tokens) and
@@ -459,7 +533,7 @@ def make_transducer_steps(model, clip: float = 25.0,
     ``decode_fn(batch, max_output_len, max_symbols, beam)`` -> (tokens,
     lengths); ``eval_loss_fn(batch)`` -> the loss. ``sum`` sums the
     rows' NLL, ``mean`` averages each row's NLL per label over the real
-    rows."""
+    rows. Under a process ``group``, CTC's conventions."""
 
     def masked_loss(log_probs, frame_lengths, targets, target_lengths,
                     rows):
@@ -469,7 +543,8 @@ def make_transducer_steps(model, clip: float = 25.0,
         if loss_reduction == "sum":
             return torch.sum(per_row * rows)
         per = per_row / torch.clamp(target_lengths.float(), min=1.0)
-        return torch.sum(per * rows) / torch.clamp(rows.sum(), min=1.0)
+        return torch.sum(per * rows) / torch.clamp(global_sum(rows.sum()),
+                                                   min=1.0)
 
     aux_w = moe_aux_weight(model.config)
 
@@ -480,20 +555,22 @@ def make_transducer_steps(model, clip: float = 25.0,
         rows = row_validity(batch)
         for p in model.parameters():
             p.grad = None
-        (log_probs, pad_mask), aux = collecting_aux(
-            aux_w, model, batch["signal"], batch["signal_lengths"], targets,
-            generator=generator, freeze=freeze)
-        loss = masked_loss(log_probs, pad_mask.sum(dim=-1), targets,
-                           target_lengths, rows)
-        loss = _per_example_aux(loss, aux_w, aux, rows)
-        loss.backward()
+        with data_parallel(group, _row_offset(batch)):
+            (log_probs, pad_mask), aux = collecting_aux(
+                aux_w, model, batch["signal"], batch["signal_lengths"],
+                targets, generator=generator, freeze=freeze)
+            loss = masked_loss(log_probs, pad_mask.sum(dim=-1), targets,
+                               target_lengths, rows)
+            loss = _per_example_aux(loss, aux_w, aux, rows)
+            loss.backward()
         num_tokens = (target_lengths * rows).sum().float()
         return loss.detach(), _take_grads(model), rows.sum(), num_tokens
 
     def train_step(state_, batch, generator, freeze: bool = True):
         loss, grads, bsz, toks = grad_fn(batch, generator, freeze)
+        grads, total = _reduce(grads, bsz, group)
         state_.apply_gradients(grads,
-                               grad_scale=1.0 / torch.clamp(bsz, min=1.0),
+                               grad_scale=1.0 / torch.clamp(total, min=1.0),
                                clip_norm=clip)
         return state_, loss, bsz, toks
 
@@ -514,14 +591,15 @@ def make_transducer_steps(model, clip: float = 25.0,
                                                 batch["token_lengths"])
         log_probs, pad_mask = model(batch["signal"], batch["signal_lengths"],
                                     targets)
-        return masked_loss(log_probs, pad_mask.sum(dim=-1), targets,
-                           target_lengths, row_validity(batch))
+        with data_parallel(group, _row_offset(batch)):
+            return masked_loss(log_probs, pad_mask.sum(dim=-1), targets,
+                               target_lengths, row_validity(batch))
 
     grad_fn.train_step = train_step
-    return grad_fn, _scaled_update(clip), decode_fn, eval_loss_fn
+    return grad_fn, _scaled_update(clip, group), decode_fn, eval_loss_fn
 
 
-def make_lm_steps(model, clip: float = 1.0):
+def make_lm_steps(model, clip: float = 1.0, group=None):
     """Returns ``(train_step, eval_fn)`` for causal text-LM training of a
     ``models.text.CausalTextLM`` (``cli/train_lm.py``). Batches are
     ``{"ids": (B, L + 1)}`` packed token blocks: position t predicts
@@ -530,7 +608,9 @@ def make_lm_steps(model, clip: float = 1.0):
     generator)`` clips the gradient at ``clip`` and steps the
     :class:`~audio8_tpu_torch.train.optim.TrainState`, returning
     ``(state, {"loss", "tokens", "grad_norm"})``; ``eval_fn(batch)``
-    returns ``(loss, tokens)`` without dropout."""
+    returns ``(loss, tokens)`` without dropout. Under a process ``group``
+    a batch is a rank's row block (``row_offset``) and the loss and tokens
+    are the global batch's."""
     pad = Offsets.PAD
 
     def nll(ids, generator):
@@ -538,19 +618,22 @@ def make_lm_steps(model, clip: float = 1.0):
         tgt = ids[:, 1:].long()
         tok_lp = torch.gather(lp, 2, tgt[..., None])[..., 0]
         valid = (tgt != pad).float()
-        n = torch.clamp(valid.sum(), min=1.0)
-        return -(tok_lp * valid).sum() / n, n
+        n = torch.clamp(global_sum(valid.sum()), min=1.0)
+        return -global_sum((tok_lp * valid).sum() / n), n
 
     def train_step(state, batch, generator):
         for p in model.parameters():
             p.grad = None
-        loss, ntok = nll(batch["ids"], generator)
-        gnorm = _step_grads(model, state, loss, clip)
+        with data_parallel(group, _row_offset(batch)):
+            loss, ntok = nll(batch["ids"], generator)
+            loss.backward()
+        gnorm = _step_grads(model, state, None, clip, group)
         return state, {"loss": loss.detach(), "tokens": ntok,
                        "grad_norm": gnorm}
 
     @torch.no_grad()
     def eval_fn(batch):
-        return nll(batch["ids"], None)
+        with data_parallel(group, _row_offset(batch)):
+            return nll(batch["ids"], None)
 
     return train_step, eval_fn

@@ -5,8 +5,10 @@ Drives the port's serving path, its CTC fine-tuning path, its
 contrastive pretraining path, its seq2seq path, its paired audio-text
 path, its RNN-T path (training, decoding, streaming, serving, eval
 and export), its HuBERT and data2vec pretraining paths, and its
-decoders' device beam, text-LM trainer and n-best rescoring at full
-wav2vec2-base width with seeded random weights, the trainers' remat,
+decoders' device beam, text-LM trainer and n-best rescoring, and its
+data-parallel training (one NCCL rank, then two gloo ranks sharing the
+card) at full wav2vec2-base width with seeded random weights, the
+trainers' remat,
 SGD, augmentation and profiler flags, KenLM binaries written by the port
 and the text tower's warm start, the pretraining path again through the
 attention block (``fused_attention="block"``), the public large layouts
@@ -108,8 +110,10 @@ Phases, each printing JSON lines:
               kernel's semantics on a model path) and every dropout at
               0.1, both sides fed the same seeds;
 13. seq2seq - ``python -m audio8_tpu_torch.cli.train_seq2seq``'s entry
-              point at full width (the wav2vec2-base encoder warm-started
-              from phase 7's ``checkpoint-step-5.pt``, the default decoder
+              point at full width (the wav2vec2-base encoder, 6 of its 12
+              layers, a depth cut, warm-started from phase 7's
+              ``checkpoint-step-5.pt``; the paired phase's audio tower
+              likewise), the default decoder
               of 768 wide, 4 heads, 2 layers, 3072, max_len 1200) on a
               letter corpus of 4-15 s rows: 6 steps of 2 micro-batches,
               the encoder frozen up to step 3, the launches of kernels 2,
@@ -192,8 +196,9 @@ instead, to compare.
 
 16. topologies - each large public layout (``large-lv60``,
               ``hubert-large``, ``data2vec-large``, ``wavlm-large``,
-              ``conformer-large-rope``, ``conformer-large-rel``: 24 layers
-              of 1024, 16 heads, 4096) with seeded weights: one (4, 30 s)
+              ``conformer-large-rope``, ``conformer-large-rel``: 12 of their
+              24 layers, a depth cut, 1024 wide, 16 heads, 4096) with seeded
+              weights: one (4, 30 s)
               dispatch in f32 and in bf16 (CUDA-event ms), the card
               against the CPU on (1, 4 s) (f32 log-probs within
               MODEL_TOL), layer 0's first bf16 FFN ``Dense`` held to the
@@ -210,7 +215,9 @@ instead, to compare.
               computed; then ``cli.transcribe --checkpoint <dir>
               --dict_file vocab.json`` on the stable-LN one, card and CPU
               transcripts equal;
-    lv60_train - ``cli.pretrain --preset large-lv60`` for 2 steps (conv
+    lv60_train - (the LV-60 runs keep 12 of the preset's 24 layers, a
+              depth cut that makes room for phase 23)
+              ``cli.pretrain --preset large-lv60`` for 2 steps (conv
               bias and layer-mode norms through kernels 3b and 3c), then
               ``cli.train --preset large-lv60 --layer_drop 0.1
               --restart_from`` its ``.pt`` for 4 steps in f32 and in bf16
@@ -375,6 +382,24 @@ instead, to compare.
               quantized count the dense model's less two per MoE layer)
               and exported by ``cli.export``, whose log-probs must be
               bitwise the live forward's;
+23. dp      - data parallelism (``parallel/sharding.py``): (a)
+              ``cli.train --distributed true`` with ``WORLD_SIZE`` 1 over
+              NCCL (full width, 4 of the 12 layers, 2 SGD steps, cuDNN's
+              deterministic algorithms), whose parameters must be bitwise
+              the plain run's, its launches on the path and the NCCL
+              all-reduce ms of its gradients;
+              (b) two ranks sharing the card over gloo with CUDA tensors
+              (spawned, ``setup(backend="gloo")``, a check of gloo's CUDA
+              all-gather, ``per_rank``) take 2 SGD CTC steps (every dropout 0.1, the
+              span masks on, a padding row) and 2 SGD pretraining steps
+              (dropout 0.1) at full wav2vec2-base width (4 of the 12
+              layers) on their row blocks: ranks bitwise equal (checksums, parameter samples,
+              losses), held to one process's step on the global batches
+              (loss 1e-4, gradient norm 1e-3, parameters 1e-6), the gloo
+              all-reduce ms; kernels 4, 2, 2b (both semantics), 6 and 6b
+              in float32 and bfloat16 with a nonzero row base, and bases
+              past the 2**32 wrap, against their plain versions, with
+              their ms at base 0 and at the base;
 
 then a ``phase_seconds`` line (each phase's wall seconds and each phase's
 retried profiler traces, ``trace_retries``), a ``kernels``
@@ -398,6 +423,8 @@ card it exits with code 2 and prints no result.
     python3 chip_smoke.py --ssl-phases       # the build and phase 20 only
     python3 chip_smoke.py --decode-phases    # the build and phase 21 only
     python3 chip_smoke.py --moe-phases       # the build and phase 22 only
+    python3 chip_smoke.py --dp-phases        # the build and phase 23 only
+    python3 chip_smoke.py --dp-timing        # rows 2, 2b, 4, 6, 6b only
 
 ``--block-timing`` builds the block's two sources and prints only the
 attention block's timing rows (phase 14) in float32 and bfloat16, then
@@ -1067,14 +1094,15 @@ def check_conv_fwd_route(x, w, run) -> str:
         run, conv_fwd_route_of)
 
 
-def check_block(phase, b, t, d, heads, lengths, dtype, gen) -> tuple:
+def check_block(phase, b, t, d, heads, lengths, dtype, gen,
+                b0: int = 0) -> tuple:
     """The block's forward (with and without the backward's residuals)
     and its nine gradients, through the kernels, vs the plain versions on
-    the same inputs, at rates 0 and 0.1; every row is compared, a
-    zero-length row included; a second backward must be bitwise equal to
-    the first, and the GEMM kernels must be the shape's route
-    (:func:`check_block_route`). Returns the largest forward and gradient
-    errors."""
+    the same inputs, at rates 0 and 0.1, the rows' dropout drawn as rows
+    ``b0``.. of a larger batch; every row is compared, a zero-length row
+    included; a second backward must be bitwise equal to the first, and
+    the GEMM kernels must be the shape's route (:func:`check_block_route`).
+    Returns the largest forward and gradient errors."""
     from audio8_tpu_torch.ops.attention_block import (
         attention_block, attention_block_bwd_plain, attention_block_plain)
 
@@ -1089,7 +1117,7 @@ def check_block(phase, b, t, d, heads, lengths, dtype, gen) -> tuple:
     route = None
     for rate, seed in ((0.0, 0), (0.1, 3_000_000_019)):
         xs = [a.detach().requires_grad_() for a in (x, *weights)]
-        out = attention_block(*xs, kv, heads, scale, rate, seed)
+        out = attention_block(*xs, kv, heads, scale, rate, seed, b0)
         got = torch.autograd.grad(out, xs, dy, retain_graph=True)
         again = torch.autograd.grad(out, xs, dy)
         check(all(torch.equal(g1, g2) for g1, g2 in zip(got, again)),
@@ -1099,16 +1127,16 @@ def check_block(phase, b, t, d, heads, lengths, dtype, gen) -> tuple:
             route = check_block_route(
                 b, t, d, heads, dtype,
                 lambda: torch.autograd.grad(attention_block(
-                    *xs, kv, heads, scale, rate, seed), xs, dy))
+                    *xs, kv, heads, scale, rate, seed, b0), xs, dy))
         with torch.no_grad():
             evaluated = attention_block(x, *weights, kv, heads, scale, rate,
-                                        seed)
+                                        seed, b0)
         torch.cuda.synchronize()
         with torch.no_grad():
             want = attention_block_plain(x, *weights, kv, heads, scale, rate,
-                                         seed)
+                                         seed, b0)
             want_g = attention_block_bwd_plain(x, *weights, kv, heads, scale,
-                                               rate, seed, dy)
+                                               rate, seed, dy, b0=b0)
         errs = {}
         for name, g, w in zip(("out", "out_eval") + BLOCK_GRADS,
                               (out, evaluated, *got), (want, want, *want_g)):
@@ -1123,7 +1151,8 @@ def check_block(phase, b, t, d, heads, lengths, dtype, gen) -> tuple:
         worst_bwd = max(worst_bwd, *(errs[k] for k in BLOCK_GRADS))
         emit({"phase": phase, "kernel": "attention_block(+_bwd)",
               "dtype": str(dtype), "shape": [b, t, d, heads],
-              "key_lengths": lengths, "rate": rate, "gemm_route": route,
+              "key_lengths": lengths, "rate": rate, "b0": b0,
+              "gemm_route": route,
               "max_abs_err": errs, "tol_factor": TOL[dtype],
               "bias_grad_rows": rows, "repeat_bitwise_equal": True})
     return worst_fwd, worst_bwd
@@ -2558,13 +2587,19 @@ def phase_block_gate() -> None:
 # JAX package leaves to XLA too; the extractor is frozen by default)
 S2S_PATH = ("conv_k3s2_fwd", "attention_fwd", "attention_bwd", "dropout",
             "adamw")
-SEQ2SEQ_FLAGS = ["--target_tokens_per_batch", "700000", "--grad_accum", "2",
+# the seq2seq and paired runs (and the text warm start) keep 6 of the
+# encoder's 12 layers, and the large layouts 12 of 24: depth cuts that
+# keep the full run inside its time limit since phase 23 came
+CUT_LAYERS = "6"
+SEQ2SEQ_FLAGS = ["--num_layers", CUT_LAYERS,
+                 "--target_tokens_per_batch", "700000", "--grad_accum", "2",
                  "--train_steps", "6", "--unfreeze_enc_after_step", "3",
                  "--warmup_steps", "2", "--steps_per_checkpoint", "6",
                  "--valid_steps", "0", "--num_train_workers", "4"]
 VALID_BEAM = 4
 PAIRED_ROWS = 8
-PAIRED_FLAGS = ["--train_steps", "6", "--unfreeze_audio_after_step", "3",
+PAIRED_FLAGS = ["--num_layers", CUT_LAYERS,
+                "--train_steps", "6", "--unfreeze_audio_after_step", "3",
                 "--unfreeze_text_after_step", "3", "--warmup_steps", "2",
                 "--steps_per_checkpoint", "6", "--valid_steps", "0",
                 "--num_train_workers", "4", "--target_type", "bpe"]
@@ -2650,9 +2685,9 @@ def recorded_path_calls(calls: dict):
                                    tuple(sorted(sem.items())), grad))
         return real[1](q, k, v, key_valid, scale, rate, seed, **sem)
 
-    def dropout(x, rate, seed):
+    def dropout(x, rate, seed, base=0):
         calls["dropout"].append(tuple(x.shape))
-        return real[2](x, rate, seed)
+        return real[2](x, rate, seed, base)
 
     nn_layers.conv1d_k3s2 = conv
     nn_transformer.attention_core = attention
@@ -2968,7 +3003,7 @@ def phase_seq2seq(tmp: str, seed: int):
     dec = timings["decoder_fwd_bwd_device_ms"]
     timings["decoder_share_of_unfrozen_f32"] = dec and f32 and dec / f32
 
-    emit({"phase": "seq2seq", "config": "wav2vec2-base encoder d768 h12 L12 "
+    emit({"phase": "seq2seq", "config": "wav2vec2-base encoder d768 h12 L6 "
           "ff3072 + decoder d768 h4 L2 ff3072 max_len 1200, "
           f"{len(vocab)} letters, f32", "flags": SEQ2SEQ_FLAGS,
           "params": sum(p.numel() for p in state.params),
@@ -3259,7 +3294,7 @@ def phase_paired(tmp: str, seed: int):
         del module, tstate
         torch.cuda.empty_cache()
 
-    emit({"phase": "paired", "config": "audio wav2vec2-base d768 h12 L12 "
+    emit({"phase": "paired", "config": "audio wav2vec2-base d768 h12 L6 "
           "ff3072 max; text d512 h8 L8 ff2048 rpr_k 8 max; output_dim 256; "
           f"{len(vocab)} BPE pieces, f32", "flags": flags,
           "params": sum(p.numel() for p in state.params),
@@ -4308,8 +4343,13 @@ def export_phases(gen) -> int:
 LARGE_PRESETS = ("large-lv60", "hubert-large", "data2vec-large",
                  "wavlm-large", "conformer-large-rope", "conformer-large-rel")
 TOPO_PATH = ("conv_k3s2_fwd", "attention_fwd")
+TOPO_LAYERS = 12  # of the presets' 24 (a depth cut for the time limit)
 TOPO_LENGTHS = [30 * SR, 24 * SR, 11 * SR, 4 * SR]  # one (4, 30 s) dispatch
-LV60_PRETRAIN_FLAGS = ["--preset", "large-lv60", "--tokens_per_batch",
+# the LV-60 runs keep 12 of the preset's 24 layers (a depth cut that
+# makes room for phase 23 in the run's time and disk-write limits)
+LV60_LAYERS = "12"
+LV60_PRETRAIN_FLAGS = ["--preset", "large-lv60", "--num_layers", LV60_LAYERS,
+                       "--tokens_per_batch",
                        "700000", "--max_sample_len", "250000",
                        "--train_steps", "2", "--steps_per_checkpoint", "2",
                        "--warmup_steps", "1", "--num_train_workers", "4"]
@@ -4317,7 +4357,8 @@ LV60_PRETRAIN_FLAGS = ["--preset", "large-lv60", "--tokens_per_batch",
 # the full run's disk writes under the machine's 45 GiB cap (each save
 # of the f32 run wrote 3.8 GB on AdamW; kernel 5 runs at LV-60's 317 M
 # parameters in the pretraining run)
-LV60_TRAIN_FLAGS = ["--preset", "large-lv60", "--layer_drop", "0.1",
+LV60_TRAIN_FLAGS = ["--preset", "large-lv60", "--num_layers", LV60_LAYERS,
+                    "--layer_drop", "0.1",
                     "--target_tokens_per_batch", "700000", "--grad_accum",
                     "1", "--train_steps", "4", "--unfreeze_enc_after_step",
                     "1", "--warmup_steps", "2", "--valid_steps", "1",
@@ -4326,7 +4367,8 @@ LV60_PATH = ("conv_k3s2_fwd", "conv_k3s2_dgrad", "conv_k3s2_wgrad",
              "attention_fwd", "attention_bwd", "ctc_loss", "dropout",
              "adamw")
 LV60_BLOCK_STEPS = 2
-LV60_SIZE = dict(d_model=1024, d_ff=4096, num_heads=16, num_layers=24,
+LV60_SIZE = dict(d_model=1024, d_ff=4096, num_heads=16,
+                 num_layers=int(LV60_LAYERS),
                  pre_norm=True, extractor_mode="layer", conv_bias=True)
 
 
@@ -4462,7 +4504,8 @@ def phase_topologies(seed: int, gen) -> tuple:
     calls = {}
     with recorded_path_calls(calls):
         for preset in LARGE_PRESETS:
-            cfg = preset_config(preset, 4 + len(LETTERS))
+            cfg = preset_config(preset, 4 + len(LETTERS),
+                                num_layers=TOPO_LAYERS)
             cpu = Wav2Vec2AcousticModel(
                 cfg, generator=torch.Generator().manual_seed(seed + 13))
             state = cpu.state_dict()
@@ -5628,6 +5671,32 @@ def block_timing(gen) -> int:
     return 0
 
 
+def dp_timing(gen) -> int:
+    """The timing rows of the kernels whose hashes take a row base since
+    data parallelism came, 2 and 2b (both semantics, the serving and
+    training shapes), 4 and 6, 6b, in float32 and bfloat16, alone
+    (``--dp-timing``). It drives only the wrappers' arguments that every
+    tree of the port has had, so a copy placed in another tree's root
+    times that tree (two trees in turns in one call)."""
+    from audio8_tpu_torch.csrc.build import build
+
+    t0 = time.perf_counter()
+    build(("attention_fwd.cu", "attention_bwd.cu", "dropout.cu",
+           "attention_block_fwd.cu", "attention_block_bwd.cu"))
+    emit({"phase": "build", "seconds": time.perf_counter() - t0,
+          "tree": HERE})
+    for dtype in (torch.float32, torch.bfloat16):
+        rows = dict(time_attention(dtype, gen))
+        torch.cuda.empty_cache()
+        rows.update({**time_dropout(dtype, gen), **time_block(dtype, gen)})
+        torch.cuda.empty_cache()
+        for name, r in rows.items():
+            emit({"phase": "timing", "kernel": name, "dtype": str(dtype),
+                  "tree": HERE, **r})
+    print_card()
+    return 0
+
+
 def core_timing(gen) -> int:
     """The timing rows of kernels 1 (the CTC loss and gradient at the
     training shape, float32), 2 (the forward at the serving shape in both
@@ -6578,8 +6647,8 @@ def counted_dropouts(run) -> int:
     import audio8_tpu_torch.nn.dropout as nn_dropout
 
     calls, real = [], nn_dropout.fused_dropout
-    nn_dropout.fused_dropout = lambda x, r, s: calls.append(1) or real(
-        x, r, s)
+    nn_dropout.fused_dropout = lambda x, r, s, b=0: calls.append(1) or real(
+        x, r, s, b)
     try:
         with torch.no_grad():
             run()
@@ -8901,6 +8970,451 @@ def moe_phases(gen) -> int:
     return 0
 
 
+# ------------------------------------------------------------------ phase 23
+
+DP_PATH = ("conv_k3s2_fwd", "attention_fwd", "attention_bwd", "ctc_loss",
+           "dropout")
+# (a) and (b) run full width at 4 of the 12 layers
+DP_LAYERS = 4
+# (a): cli.train, 2 SGD steps (each of the two runs writes two small SGD
+# checkpoints: validate_on = 1 at 2 steps)
+DP_CLI_FLAGS = ["--target_tokens_per_batch", "700000", "--grad_accum", "1",
+                "--train_steps", "2", "--unfreeze_enc_after_step", "0",
+                "--warmup_steps", "1", "--valid_steps", "1", "--optim",
+                "sgd", "--num_layers", str(DP_LAYERS)]
+DP_RANKS = 2
+DP_CTC_SECONDS = (10.0, 8.0, 6.0, 0.0)  # the global CTC batch; a padding row
+DP_PRETRAIN_BATCH = (4, 71_428)  # the global pretraining batch
+DP_STEPS = 2
+# SGD: the parameters move by the (clipped) gradient, so a rounding-level
+# gradient difference stays one (AdamW normalises a noise-level gradient,
+# an attention key bias's, into a step of the learning rate)
+DP_LR = 1e-4
+DP_LOSS_RTOL = 1e-4  # 2 ranks vs 1 on the card: the train_vs_cpu gates
+DP_GNORM_RTOL = 1e-3
+DP_PARAM_ATOL = 1e-6
+DP_STRIDE = 97  # the parameter sample compared across processes
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def dp_env(rank: int, world: int, local_rank: int, port: int) -> None:
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
+                      LOCAL_RANK=str(local_rank), MASTER_ADDR="127.0.0.1",
+                      MASTER_PORT=str(port))
+
+
+def dp_env_clear() -> None:
+    for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
+              "MASTER_PORT"):
+        os.environ.pop(k, None)
+
+
+def dp_sample(model) -> dict:
+    """Every ``DP_STRIDE``-th value of each parameter, on the host."""
+    return {n: p.detach().reshape(-1)[::DP_STRIDE].float().cpu()
+            for n, p in model.named_parameters()}
+
+
+def dp_ctc_batch(seed: int) -> dict:
+    rng = np.random.default_rng(seed)
+    t = int(max(DP_CTC_SECONDS) * SR)
+    b = len(DP_CTC_SECONDS)
+    signal = np.zeros((b, t), np.float32)
+    lengths = np.array([int(s * SR) for s in DP_CTC_SECONDS], np.int32)
+    for i, n in enumerate(lengths):
+        if n:
+            signal[i, :n] = synthetic_speechlike(n / SR + 1e-3, rng)[:n]
+    u = 140
+    tok_len = np.where(lengths > 0, u - 10 * np.arange(b), 0).astype(
+        np.int32)
+    tokens = rng.integers(4, 4 + len(LETTERS), size=(b, u)).astype(np.int32)
+    tokens[np.arange(u)[None, :] >= tok_len[:, None]] = 1  # fairseq's PAD
+    return {"signal": signal, "signal_lengths": lengths,
+            "token_ids": tokens, "token_lengths": tok_len}
+
+
+def dp_steps(rank: int, world: int, group, seed: int) -> dict:
+    """Rank ``rank``'s block of phase 23 (b): ``DP_STEPS`` SGD CTC steps
+    (unfrozen, every dropout 0.1, the span masks on) and ``DP_STEPS``
+    SGD pretraining steps (dropout 0.1) at full wav2vec2-base width and
+    ``DP_LAYERS`` layers on its
+    rows of the global batches, the seeds drawn from CPU generators seeded
+    alike on every rank; ``group`` None and ``world`` 1: one process on
+    the whole batches. Returns the global losses, gradient norms, the
+    parameters' checksums and samples, and (under a group) the ms of one
+    gloo all-reduce of the CTC model's gradients."""
+    from audio8_tpu_torch.config import PretrainConfig
+    from audio8_tpu_torch.models.wav2vec2 import (PretrainSeeds,
+                                                  Wav2Vec2AcousticModel,
+                                                  Wav2Vec2Model)
+    from audio8_tpu_torch.parallel.sharding import (all_reduce_grads,
+                                                    checksum,
+                                                    global_sum_scalars,
+                                                    row_block)
+    from audio8_tpu_torch.train.optim import (TrainState, create_lrs,
+                                              create_optimizer)
+    from audio8_tpu_torch.config import AcousticConfig
+    from audio8_tpu_torch.train.steps import (make_ctc_steps,
+                                              make_pretrain_steps)
+    from audio8_tpu_torch.utils import Offsets
+
+    Offsets.remap_fairseq_ctc()  # the CTC trainer's ids, in every process
+
+    def state_of(model):
+        return TrainState(model, create_optimizer(create_lrs(
+            DP_LR, 10, sched_type="constant", warmup_steps=0), "sgd"))
+
+    out = {"ctc": {"loss": [], "gnorm": []},
+           "pretrain": {"loss": [], "gnorm": [], "ppl": [], "accuracy": []}}
+    batch = dp_ctc_batch(seed)
+    n_real = int((batch["signal_lengths"] > 0).sum())
+    lo, b_local, _ = row_block(n_real, len(DP_CTC_SECONDS), rank, world)
+    local = {k: torch.from_numpy(v[lo:lo + b_local]).cuda()
+             for k, v in batch.items()}
+    local["row_offset"] = lo
+    cfg = AcousticConfig(num_labels=len(LETTERS) + 4, dropout=0.1,
+                         attention_dropout=0.1, timestep_masking=0.5,
+                         channel_masking=0.1, freeze_fx=False,
+                         num_layers=DP_LAYERS)
+    model = Wav2Vec2AcousticModel(
+        cfg, generator=torch.Generator().manual_seed(seed)).cuda()
+    state = state_of(model)
+    grad_fn, update_fn, _ = make_ctc_steps(model, group=group)
+    gen = torch.Generator().manual_seed(seed + 1)
+    for _ in range(DP_STEPS):
+        loss, grads, rows, _ = grad_fn(local, gen, freeze=False)
+        state, gnorm = update_fn(state, grads, rows)
+        out["ctc"]["loss"].append(
+            float(global_sum_scalars([float(loss)], group)[0]))
+        out["ctc"]["gnorm"].append(float(gnorm))
+    if group is not None:
+        zeros = [torch.zeros_like(p) for p in model.parameters()]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        all_reduce_grads(zeros, group)
+        torch.cuda.synchronize()
+        out["gloo_allreduce_ms"] = (time.perf_counter() - t0) * 1e3
+        out["allreduce_bytes"] = sum(z.numel() * 4 for z in zeros)
+        del zeros
+    out["ctc"]["checksum"] = checksum(model)
+    out["ctc"]["sample"] = dp_sample(model)
+    del model, state, grads
+    torch.cuda.empty_cache()
+
+    rows, samples = DP_PRETRAIN_BATCH
+    rng = np.random.default_rng(seed + 2)
+    sig = np.stack([synthetic_speechlike((samples + 1) / SR, rng)[:samples]
+                    for _ in range(rows)])
+    b_local = rows // world
+    x = torch.from_numpy(sig[rank * b_local:(rank + 1) * b_local]).cuda()
+    model = Wav2Vec2Model(PretrainConfig(
+        dropout=0.1, dropout_input=0.1, dropout_features=0.1,
+        num_layers=DP_LAYERS),
+        generator=torch.Generator().manual_seed(seed + 3)).cuda()
+    state = state_of(model)
+    step, _ = make_pretrain_steps(model, group=group)
+    gen = torch.Generator().manual_seed(seed + 4)
+    for _ in range(DP_STEPS):
+        state, m = step(state, x, PretrainSeeds.draw(gen), gen,
+                        rank * b_local)
+        for k, key in (("loss", "loss"), ("gnorm", "grad_norm"),
+                       ("ppl", "code_perplexity"),
+                       ("accuracy", "accuracy")):
+            out["pretrain"][k].append(float(m[key]))
+    out["pretrain"]["checksum"] = checksum(model)
+    out["pretrain"]["sample"] = dp_sample(model)
+    del model, state
+    torch.cuda.empty_cache()
+    return out
+
+
+def _dp_rank(rank: int, world: int, port: int, out_dir: str,
+             seed: int) -> None:
+    """One gloo rank of phase 23 (b), sharing the one card
+    (``LOCAL_RANK`` 0 on every rank): the process group through
+    ``parallel/sharding.py:setup`` with the gloo backend, gloo's
+    all-gather of CUDA tensors (``per_rank``, which the MoE routing and
+    CLIP's gathered rows use), :func:`dp_steps`, its launches."""
+    import torch.distributed as dist
+
+    sys.path.insert(0, HERE)
+    from audio8_tpu_torch.parallel.sharding import (per_rank, setup,
+                                                    world_group)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dp_env(rank, world, 0, port)
+    setup(True, "cuda:0", backend="gloo")
+    group = world_group()
+    every = per_rank(torch.full((2,), float(rank), device="cuda"), group)
+    gather = every[:, 0].tolist() == [float(r) for r in range(world)]
+    reset_launches()
+    out = dp_steps(rank, world, group, seed)
+    out["launches"] = read_launches()
+    out["all_gather_cuda"] = gather
+    torch.save(out, os.path.join(out_dir, f"dp_rank{rank}.pt"))
+    dist.destroy_process_group()
+
+
+def dp_close(a: list, b: list, rtol: float, what: str) -> float:
+    err = max(abs(x - y) / max(abs(y), 1e-12) for x, y in zip(a, b))
+    check(err <= rtol, f"{what}: {a} vs {b} (rel {err} > {rtol})")
+    return err
+
+
+def dp_compare(ranks: list, one: dict, kind: str) -> dict:
+    """Ranks bitwise equal to each other (checksums, samples, metrics);
+    rank 0 against one process within the gates."""
+    r0 = ranks[0][kind]
+    for r in ranks[1:]:
+        check(r[kind]["checksum"] == r0["checksum"],
+              f"dp {kind}: rank parameters differ (checksums)")
+        check(all(torch.equal(v, r0["sample"][k])
+                  for k, v in r[kind]["sample"].items()),
+              f"dp {kind}: rank parameter samples differ")
+        check(r[kind]["loss"] == r0["loss"], f"dp {kind}: rank losses")
+    errs = {"loss_rel_err": dp_close(r0["loss"], one[kind]["loss"],
+                                     DP_LOSS_RTOL, f"dp {kind} loss"),
+            "gnorm_rel_err": dp_close(r0["gnorm"], one[kind]["gnorm"],
+                                      DP_GNORM_RTOL, f"dp {kind} grad norm")}
+    worst = 0.0
+    for k, v in r0["sample"].items():
+        d = float((v - one[kind]["sample"][k]).abs().max())
+        worst = max(worst, d)
+        check(d <= DP_PARAM_ATOL, f"dp {kind} {k}: {d} > {DP_PARAM_ATOL}")
+    return {**errs, "param_max_abs_err": worst}
+
+
+def dp_kernels(gen) -> dict:
+    """Kernels 4, 2, 2b, 6 and 6b with a nonzero row base against their
+    plain versions on the card, in float32 and bfloat16: a rank's rows 2..
+    of a (4, 15 s) CTC batch (dropout on the (2, 749, 768) stream, the
+    core on (2, 12, 749, 64) in both semantics, the block's forward and
+    gradients on (2, 222, 768)), and bases past the 2**32 wrap; plus
+    each kernel's event ms at base 0 and at the base, in turns. Returns
+    the max errors."""
+    from audio8_tpu_torch.ops.attention import (attention_core,
+                                                attention_core_bwd_plain,
+                                                attention_core_plain)
+    from audio8_tpu_torch.ops.dropout import fused_dropout, hash_dropout
+    from audio8_tpu_torch.ops.hashrand import row_base
+
+    worst = {"dropout": 0.0, "attention_fwd": 0.0, "attention_bwd": 0.0,
+             "attention_block": 0.0, "attention_block_bwd": 0.0}
+    shape = (2,) + DROPOUT_SHAPE[1:]
+    for dtype in (torch.float32, torch.bfloat16):
+        x, dy = (torch.randn(shape, device="cuda", generator=gen).to(dtype)
+                 for _ in range(2))
+        for base in (row_base(shape, 2), 2 ** 32 - 1000):
+            xg = x.detach().requires_grad_()
+            y = fused_dropout(xg, 0.1, DROPOUT_SEED, base)
+            (dx,) = torch.autograd.grad(y, xg, dy)
+            torch.cuda.synchronize()
+            err = max(max_err(y, hash_dropout(x, 0.1, DROPOUT_SEED,
+                                              base))[0],
+                      max_err(dx, hash_dropout(dy, 0.1, DROPOUT_SEED,
+                                               base))[0])
+            emit({"phase": "dp_kernel", "kernel": "dropout",
+                  "dtype": str(dtype), "shape": list(shape), "base": base,
+                  "max_abs_err": err, "tol": 0.0})
+            check(err == 0.0, f"dropout base {base} {dtype}: {err}")
+            worst["dropout"] = max(worst["dropout"], err)
+    b, h, t, dh = 2, 12, 749, 64
+    lengths = torch.tensor([612, 0], device="cuda")
+    kv = torch.arange(t, device="cuda")[None, :] < lengths[:, None]
+    wrap_b0 = 2 ** 32 // (h * t * t) + 1  # xla: the flat index wraps
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, do = (torch.randn((b, h, t, dh), device="cuda",
+                                   generator=gen).to(dtype)
+                       for _ in range(4))
+        for xla in (True, False):
+            for b0 in (2, wrap_b0):
+                qs = [a.detach().requires_grad_() for a in (q, k, v)]
+                o = attention_core(*qs, kv, dh ** -0.5, 0.1, 4_000_000_000,
+                                   xla=xla, b0=b0)
+                grads = torch.autograd.grad(o, qs, do)
+                torch.cuda.synchronize()
+                want = attention_core_plain(q, k, v, kv, dh ** -0.5, 0.1,
+                                            4_000_000_000, xla=xla, b0=b0)
+                err, scale = max_err(o, want)
+                tol = TOL[dtype] * max(1.0, scale)
+                check(err <= tol, f"attention_fwd b0 {b0} xla {xla} "
+                                  f"{dtype}: {err} > {tol}")
+                worst["attention_fwd"] = max(worst["attention_fwd"], err)
+                gerr = 0.0
+                for g, w in zip(grads, attention_core_bwd_plain(
+                        q, k, v, kv, dh ** -0.5, 0.1, 4_000_000_000, do,
+                        xla=xla, b0=b0)):
+                    e, s = max_err(g, w)
+                    check(e <= TOL[dtype] * max(1.0, s),
+                          f"attention_bwd b0 {b0} xla {xla} {dtype}: {e}")
+                    gerr = max(gerr, e)
+                worst["attention_bwd"] = max(worst["attention_bwd"], gerr)
+                emit({"phase": "dp_kernel", "kernel": "attention_core",
+                      "dtype": str(dtype), "shape": [b, h, t, dh],
+                      "key_lengths": [612, 0], "xla": xla, "b0": b0,
+                      "rate": 0.1, "max_abs_err": {"fwd": err,
+                                                    "bwd": gerr},
+                      "tol_factor": TOL[dtype]})
+    # kernels 6 and 6b: rows 2.. and rows whose head index seed +
+    # (b0 + b) * H wraps past 2**32, forward and the nine gradients
+    for dtype in (torch.float32, torch.bfloat16):
+        for b0 in (2, 2 ** 32 // BLOCK_HEADS):
+            fwd, bwd = check_block("dp_kernel", 2, 222, 768, BLOCK_HEADS,
+                                   [200, 0], dtype, gen, b0=b0)
+            worst["attention_block"] = max(worst["attention_block"], fwd)
+            worst["attention_block_bwd"] = max(worst["attention_block_bwd"],
+                                               bwd)
+
+    x = torch.randn(DROPOUT_SHAPE, device="cuda", generator=gen)
+    q, k, v = (torch.randn(ATTN_SHAPE, device="cuda", generator=gen)
+               for _ in range(3))
+    base_ms = {}
+    for name, run in (
+            ("dropout", lambda base: fused_dropout(x, 0.1, 7, base)),
+            ("attention_fwd", lambda base: attention_core(
+                q, k, v, None, 0.125, 0.1, 7, xla=True, b0=base))):
+        turns = []
+        for base in (0, 2, 0, 2):
+            turns.append(event_ms(lambda: run(
+                row_base(x.shape, base) if name == "dropout" else base),
+                calls=10))
+        base_ms[name] = {"base0_ms": turns[0::2], "base_ms": turns[1::2]}
+    emit({"phase": "dp_kernel_ms", "card": card_name(), **base_ms})
+    return worst
+
+
+def phase_dp(tmp: str, seed: int, gen) -> tuple:
+    """Phase 23: data parallelism (module docstring). Returns the launches
+    of (a)'s ``--distributed`` run and the kernels' max errors at nonzero
+    row bases."""
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    from audio8_tpu_torch.cli.train import train
+    from audio8_tpu_torch.parallel.sharding import all_reduce_grads
+
+    corpus = os.path.join(tmp, "dp_corpus")
+    os.makedirs(corpus)
+    write_corpus(corpus, seed + 80)
+    argv = ["--root_dir", corpus, "--train_dataset", "train.tsv",
+            "--valid_dataset", "valid.tsv", "--device", "cuda",
+            *DP_CLI_FLAGS]
+    def max_diff(params, others):
+        return max(float((a.detach() - b).abs().max())
+                   for a, b in zip(params, others))
+
+    # cuDNN's deterministic algorithms (the positional conv's backward):
+    # the plain run is then repeatable, and the --distributed one must be
+    # bitwise equal to it
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    with timed("dp_cli"):
+        plain = train(argv + ["--basedir", os.path.join(tmp, "dp_plain")])
+        plain_params = [p.detach().clone() for p in plain.params]
+        del plain
+        torch.cuda.empty_cache()
+        dp_env(0, 1, 0, free_port())
+        try:
+            reset_launches()
+            state = train(argv + ["--basedir", os.path.join(tmp, "dp_run"),
+                                  "--distributed", "true"])
+            launches = read_launches()
+            check(dist.is_initialized()
+                  and dist.get_backend() == "nccl"
+                  and dist.get_world_size() == 1, "dp: no NCCL group")
+            dp_diff = max_diff(state.params, plain_params)
+            emit({"phase": "dp", "part": "a_check",
+                  "distributed_max_abs_diff": dp_diff})
+            check(dp_diff == 0.0, f"dp (a): --distributed (1 rank, NCCL) "
+                                  f"parameters differ from the plain "
+                                  f"run's by {dp_diff}")
+            zeros = [torch.zeros_like(p) for p in state.params]
+            allreduce_ms = [event_ms(lambda: all_reduce_grads(zeros,
+                                                              None),
+                                     calls=5) for _ in range(2)]
+            nbytes = sum(z.numel() * 4 for z in zeros)
+            log = state.log
+            del state, zeros, plain_params
+        finally:
+            if dist.is_initialized():
+                dist.destroy_process_group()
+            dp_env_clear()
+            torch.backends.cudnn.deterministic = deterministic
+        torch.cuda.empty_cache()
+    for k in DP_PATH:
+        check(launches[k] > 0, f"dp (a): {k} not launched")
+    emit({"phase": "dp", "part": "a", "card": card_name(),
+          "flags": DP_CLI_FLAGS, "backend": "nccl", "world": 1,
+          "params_bitwise_equal": True,
+          "losses": [r["loss"] for r in log],
+          "step_seconds": [r["seconds"] for r in log],
+          "allreduce_ms": allreduce_ms, "allreduce_bytes": nbytes,
+          "launches": {k: launches[k] for k in DP_PATH + ("adamw",)}})
+
+    with timed("dp_ranks"):
+        one = dp_steps(0, 1, None, seed + 81)
+        torch.cuda.empty_cache()
+        out_dir = os.path.join(tmp, "dp_ranks")
+        os.makedirs(out_dir)
+        mp.start_processes(_dp_rank, args=(DP_RANKS, free_port(), out_dir,
+                                           seed + 81),
+                           nprocs=DP_RANKS, start_method="spawn", join=True)
+        ranks = [torch.load(os.path.join(out_dir, f"dp_rank{r}.pt"))
+                 for r in range(DP_RANKS)]
+    check(all(r["all_gather_cuda"] for r in ranks),
+          "dp (b): gloo's all-gather of CUDA tensors gave wrong values")
+    ctc = dp_compare(ranks, one, "ctc")
+    pre = dp_compare(ranks, one, "pretrain")
+    for k in DP_PATH:
+        check(ranks[0]["launches"][k] > 0, f"dp (b): {k} not launched")
+    emit({"phase": "dp", "part": "b", "card": card_name(),
+          "backend": "gloo (CUDA tensors, one card)", "world": DP_RANKS,
+          "ctc_seconds": list(DP_CTC_SECONDS),
+          "pretrain_batch": list(DP_PRETRAIN_BATCH), "steps": DP_STEPS,
+          "ctc": {**ctc, "loss": ranks[0]["ctc"]["loss"],
+                  "one_rank_loss": one["ctc"]["loss"]},
+          "pretrain": {**pre, "loss": ranks[0]["pretrain"]["loss"],
+                       "one_rank_loss": one["pretrain"]["loss"],
+                       "ppl": ranks[0]["pretrain"]["ppl"],
+                       "one_rank_ppl": one["pretrain"]["ppl"]},
+          "all_gather_cuda": [r["all_gather_cuda"] for r in ranks],
+          "gloo_allreduce_ms": [r["gloo_allreduce_ms"] for r in ranks],
+          "allreduce_bytes": ranks[0]["allreduce_bytes"],
+          "rank0_launches": ranks[0]["launches"]})
+    with timed("dp_kernel"):
+        worst = dp_kernels(gen)
+    emit({"phase": "dp", "launches": {k: launches[k] for k in REPLACES},
+          "kernel_max_abs_err": worst,
+          "bytes_written": tree_bytes(corpus, os.path.join(tmp, "dp_plain"),
+                                      os.path.join(tmp, "dp_run"))})
+    return {k: launches[k] for k in REPLACES}, worst
+
+
+def dp_phases(gen) -> int:
+    """The build and phase 23 alone (``--dp-phases``), then the phase
+    seconds, the card and the last line."""
+    with timed("build"):
+        phase_build()
+    with tempfile.TemporaryDirectory() as tmp:
+        launches, worst = phase_dp(tmp, SEED, gen)
+    emit({"phase": "phase_seconds", **PHASE_SECONDS})
+    emit({"phase": "dp_phases", "launches": launches,
+          "kernel_max_abs_err": worst})
+    print_card()
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if not torch.cuda.is_available():
@@ -8916,6 +9430,8 @@ def main(argv=None) -> int:
         return block_timing(gen)
     if argv == ["--core-timing"]:
         return core_timing(gen)
+    if argv == ["--dp-timing"]:
+        return dp_timing(gen)
     if argv == ["--test-timing"]:
         return test_timing()
     if argv == ["--freeze-timing"]:
@@ -8936,6 +9452,8 @@ def main(argv=None) -> int:
         return decode_phases(gen)
     if argv == ["--moe-phases"]:
         return moe_phases(gen)
+    if argv == ["--dp-phases"]:
+        return dp_phases(gen)
     inference_first = argv == ["--inference-first"]
     if argv and not inference_first:
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
@@ -9039,6 +9557,10 @@ def main(argv=None) -> int:
         moe_launches, errs = phase_moe(tmp, SEED, gen)
         for k, e in errs.items():
             worst[k] = max(worst[k], e)
+        torch.cuda.empty_cache()
+        dp_launches, errs = phase_dp(tmp, SEED, gen)
+        for k, e in errs.items():
+            worst[k] = max(worst[k], e)
     emit({"phase": "phase_seconds", **PHASE_SECONDS,
           "inference_first": inference_first,
           "trace_retries": {str(k): n for k, n in TRACE_RETRIES.items()},
@@ -9122,6 +9644,7 @@ def main(argv=None) -> int:
          "decode_lm_launches": lm_launches.get(name, 0),
          "decode_rescore_launches": rescore_launches.get(name, 0),
          "moe_launches": moe_launches.get(name, 0),
+         "dp_launches": dp_launches.get(name, 0),
          "max_abs_err": worst[name],
          **{k: times[(name, torch.float32)][k] for k in keys},
          **extra(name)}

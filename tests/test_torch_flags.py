@@ -137,28 +137,34 @@ def parse_and_check(entry, extra):
     ("train", ["--fsdp", "true"], "item 8"),
     ("train", ["--moe_experts", "4", "--tensor_parallel", "2"],
      "item 8"),
-    ("train", ["--distributed", "true"], "item 3"),
+    ("train", ["--distributed", "true", "--tensor_parallel", "2"],
+     "item 8"),
     ("pretrain", ["--sequence_parallel", "true"], "item 8"),
     ("test", ["--tensor_parallel", "2"], "item 8"),
     ("serve", ["--zero1", "true"], "item 8"),
-    ("train_seq2seq", ["--distributed", "true"], "item 3"),
+    ("train_seq2seq", ["--distributed", "true", "--tensor_parallel", "2"],
+     "item 8"),
     ("train_seq2seq", ["--fsdp", "true"], "item 8"),
-    ("pretrain_paired", ["--distributed", "true"], "item 3"),
+    ("pretrain_paired", ["--distributed", "true", "--tensor_parallel", "2"],
+     "item 8"),
     ("pretrain_paired", ["--moe_experts", "4", "--tensor_parallel", "2"],
      "item 8"),
     ("export", ["--transducer", "true", "--tensor_parallel", "2"], "item 8"),
-    ("train_transducer", ["--distributed", "true"], "item 3"),
+    ("train_transducer", ["--distributed", "true", "--tensor_parallel", "2"],
+     "item 8"),
     ("train_transducer", ["--moe_experts", "4", "--tensor_parallel", "2"],
      "item 8"),
     ("train_transducer", ["--fsdp", "true"], "item 8"),
-    ("pretrain_hubert", ["--distributed", "true"], "item 3"),
+    ("pretrain_hubert", ["--distributed", "true", "--tensor_parallel", "2"],
+     "item 8"),
     ("pretrain_hubert", ["--tensor_parallel", "2"], "item 8"),
     ("pretrain_hubert", ["--zero1", "true"], "item 8"),
     ("pretrain_hubert", ["--fsdp", "true"], "item 8"),
     ("pretrain_hubert", ["--sequence_parallel", "true"], "item 8"),
     ("pretrain_hubert", ["--moe_experts", "4", "--tensor_parallel", "2"],
      "item 8"),
-    ("pretrain_data2vec", ["--distributed", "true"], "item 3"),
+    ("pretrain_data2vec", ["--distributed", "true", "--tensor_parallel", "2"],
+     "item 8"),
     ("pretrain_data2vec", ["--tensor_parallel", "2"], "item 8"),
     ("pretrain_data2vec", ["--zero1", "true"], "item 8"),
     ("pretrain_data2vec", ["--fsdp", "true"], "item 8"),

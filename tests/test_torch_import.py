@@ -60,7 +60,8 @@ def test_every_module_imports_with_jax_blocked():
                 "train.profiler", "cli.train_transducer",
                 "models.transducer", "ops.transducer", "data.mfcc",
                 "models.hubert", "models.data2vec", "cli.cluster_targets",
-                "cli.pretrain_hubert", "cli.pretrain_data2vec"):
+                "cli.pretrain_hubert", "cli.pretrain_data2vec",
+                "parallel", "parallel.sharding"):
         assert f"audio8_tpu_torch.{new}" in mods
     code = (
         "import sys\n"

@@ -5,7 +5,9 @@ on the CPU (``--device cpu``), on the tiny letter corpus of
 * ``cli.train_lm`` takes 3 steps (validating and saving at step 2 and
   at the last), writes ``lm_config.json`` with the absolute dict file,
   ``lm`` checkpoints with resume files, and resumes from its directory
-  at the step it saved; ``--distributed true`` raises naming item 3;
+  at the step it saved; ``--distributed true`` with ``WORLD_SIZE`` set
+  but no launcher's rank and rendezvous raises (it never trains one
+  rank);
 * ``cli.test --beam 4 --lm_rescore`` that basedir, with and without
   ``--device_beam``, gives the JAX entry point's metrics on the same
   checkpoints (``werr_rescore_4``, CER, WER; JAX's rescorer reads the
@@ -81,7 +83,7 @@ def run(tmp_path_factory):
     return root, str(root / "ctc" / "checkpoint-step-2.pt"), lm_dir, state
 
 
-def test_train_lm_saves_validates_and_resumes(run):
+def test_train_lm_saves_validates_and_resumes(run, monkeypatch):
     root, _, lm_dir, state = run
     assert state.step == 3 and [r["step"] for r in state.log] == [1, 2, 3]
     assert all(np.isfinite(r["loss"]) and r["tokens"] > 0
@@ -102,7 +104,11 @@ def test_train_lm_saves_validates_and_resumes(run):
                            "--steps_per_checkpoint", "2", "--restart_from",
                            lm_dir, *LM])
     assert more.step == 4 and [r["step"] for r in more.log] == [4]
-    with pytest.raises(NotImplementedError, match="item 3"):
+    # --distributed under a launcher's WORLD_SIZE never trains one rank
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    for k in ("RANK", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(k, raising=False)
+    with pytest.raises(RuntimeError, match="launch with torchrun"):
         train_lm.train(["--text", "t", "--dict_file", "d",
                         "--distributed", "true", "--device", "cpu"])
 

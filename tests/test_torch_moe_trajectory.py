@@ -19,6 +19,6 @@ from tests.test_torch_topology_trajectories import run_ctc_trajectory
 cap_torch_threads()
 
 
-def test_ten_steps_with_dropout_match_jax(monkeypatch):
+def test_ten_steps_with_dropout_match_jax(_fairseq_offsets, monkeypatch):
     curves, _, _ = run_ctc_trajectory(monkeypatch, dict(CTC_CFG, **MOE))
     _check(*curves)

@@ -31,17 +31,16 @@ TEXT = ["--text_d_model", "16", "--text_num_heads", "2", "--text_num_layers",
         "1", "--text_d_ff", "32", "--text_rpr_k", "3", "--output_dim", "8"]
 
 
-@pytest.fixture
-def corpus(tmp_path):
+def write_paired_corpus(root):
     """Words in ``.wrd``, their dict, and BPE pieces (``.bpe``,
     ``dict.bpe.txt``) from codes the port learned on the train set."""
     Offsets.remap_fairseq_ctc()  # "<s>" and "</s>" among the specials
-    audio = tmp_path / "audio"
+    audio = root / "audio"
     audio.mkdir()
     rng = np.random.default_rng(0)
     for split in ("train", "valid"):
-        with open(tmp_path / f"{split}.tsv", "w") as tf, \
-                open(tmp_path / f"{split}.wrd", "w") as wf:
+        with open(root / f"{split}.tsv", "w") as tf, \
+                open(root / f"{split}.wrd", "w") as wf:
             tf.write(str(audio) + "\n")
             for i, w in enumerate(WORDS):
                 n = 8000 + 1500 * i
@@ -50,16 +49,21 @@ def corpus(tmp_path):
                 tf.write(f"{split}{i}.wav\t{n}\n")
                 wf.write(w + "\n")
     words = sorted({w for line in WORDS for w in line.split()})
-    (tmp_path / "dict.wrd.txt").write_text("".join(f"{w} 1\n" for w in words))
-    learn_bpe.main(["--input", str(tmp_path / "train.wrd"), "--output",
-                    str(tmp_path / "codes.bpe"), "--num_merges", "6",
+    (root / "dict.wrd.txt").write_text("".join(f"{w} 1\n" for w in words))
+    learn_bpe.main(["--input", str(root / "train.wrd"), "--output",
+                    str(root / "codes.bpe"), "--num_merges", "6",
                     "--min_frequency", "1", "--write_vocab",
-                    str(tmp_path / "vocab.bpe")])
-    wrd2bpe.main(["--root_dir", str(tmp_path), "--train_dataset",
+                    str(root / "vocab.bpe")])
+    wrd2bpe.main(["--root_dir", str(root), "--train_dataset",
                   "train.tsv", "--valid_dataset", "valid.tsv",
-                  "--subword_model_file", str(tmp_path / "codes.bpe"),
-                  "--subword_vocab_file", str(tmp_path / "vocab.bpe")])
-    return tmp_path
+                  "--subword_model_file", str(root / "codes.bpe"),
+                  "--subword_vocab_file", str(root / "vocab.bpe")])
+    return root
+
+
+@pytest.fixture
+def corpus(tmp_path):
+    return write_paired_corpus(tmp_path)
 
 
 def _args(corpus, basedir, steps="3", target="bpe"):
@@ -124,7 +128,7 @@ def test_default_device_is_the_card(corpus, tmp_path):
 
 
 @pytest.mark.parametrize("flag,value,item", [
-    ("--distributed", "true", "item 3"),
+    ("--fsdp", "true", "item 8"),
     ("--zero1", "true", "item 8"),
 ])
 def test_unported_flags_raise(corpus, tmp_path, flag, value, item):

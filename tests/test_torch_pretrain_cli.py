@@ -28,19 +28,25 @@ SMALL = ["--d_model", "32", "--num_heads", "2", "--num_layers", "1",
          "--n_negatives", "10", "--device", "cpu"]
 
 
-@pytest.fixture
-def corpus(tmp_path):
+def write_audio_corpus(root):
+    """Eight train and three valid unlabelled clips under ``root``;
+    returns it."""
     rng = np.random.default_rng(0)
     for split, n in (("train", 8), ("valid", 3)):
-        with open(tmp_path / f"{split}.tsv", "w") as tf:
-            tf.write(str(tmp_path) + "\n")
+        with open(root / f"{split}.tsv", "w") as tf:
+            tf.write(str(root) + "\n")
             for i in range(n):
                 samples = int(rng.integers(8000, 20000))
-                wavfile.write(str(tmp_path / f"{split}{i}.wav"), 16000,
+                wavfile.write(str(root / f"{split}{i}.wav"), 16000,
                               (rng.normal(size=samples) * 3000)
                               .astype(np.int16))
                 tf.write(f"{split}{i}.wav\t{samples}\n")
-    return tmp_path
+    return root
+
+
+@pytest.fixture
+def corpus(tmp_path):
+    return write_audio_corpus(tmp_path)
 
 
 def _args(corpus, basedir, steps=10):
@@ -96,7 +102,8 @@ def test_pretrain_with_bucketing(corpus, tmp_path):
         <= {(2, 8000, 1.0), (1, 12000, 0.75)}
 
 
-@pytest.mark.parametrize("flag", [["--distributed", "true"],
+@pytest.mark.parametrize("flag", [["--distributed", "true",
+                                   "--tensor_parallel", "2"],
                                   ["--tensor_parallel", "2"],
                                   ["--zero1", "true"], ["--fsdp", "true"],
                                   ["--sequence_parallel", "true"],

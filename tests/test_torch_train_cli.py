@@ -35,18 +35,19 @@ def _restore_port_offsets():
     Offsets.VALUES[:] = saved[4]
 
 
-@pytest.fixture
-def corpus(tmp_path):
-    audio_dir = tmp_path / "audio"
+def write_letter_corpus(root):
+    """Six train and six valid clips with letter transcripts under
+    ``root``; returns it."""
+    audio_dir = root / "audio"
     audio_dir.mkdir()
     rng = np.random.default_rng(0)
     words = ["CAT", "DOG", "GO ON", "HI", "SO SO", "NO WAY"]
     letters = sorted(set("".join(w.replace(" ", "") for w in words)) | {"|"})
-    with open(tmp_path / "dict.ltr.txt", "w") as df:
+    with open(root / "dict.ltr.txt", "w") as df:
         df.writelines(f"{ch} 1\n" for ch in letters)
     for split in ["train", "valid"]:
-        with open(tmp_path / f"{split}.tsv", "w") as tf, \
-                open(tmp_path / f"{split}.ltr", "w") as lf:
+        with open(root / f"{split}.tsv", "w") as tf, \
+                open(root / f"{split}.ltr", "w") as lf:
             tf.write(str(audio_dir) + "\n")
             for i, w in enumerate(words):
                 n = 8000 + 2000 * i
@@ -55,7 +56,12 @@ def corpus(tmp_path):
                               (rng.normal(size=n) * 5000).astype(np.int16))
                 tf.write(f"{name}\t{n}\n")
                 lf.write(" ".join(list(w.replace(" ", "|"))) + " |\n")
-    return tmp_path
+    return root
+
+
+@pytest.fixture
+def corpus(tmp_path):
+    return write_letter_corpus(tmp_path)
 
 
 def _train_args(corpus, basedir):
@@ -120,7 +126,8 @@ def test_unfrozen_extractor_trains(corpus, tmp_path):
 
 
 @pytest.mark.parametrize("flag", [["--tensor_parallel", "2"],
-                                  ["--distributed", "true"]])
+                                  ["--distributed", "true", "--zero1",
+                                   "true"]])
 def test_unported_flags_raise(corpus, tmp_path, flag):
     with pytest.raises(NotImplementedError):
         train_cli.train(_train_args(corpus, str(tmp_path / "r")) + flag)
