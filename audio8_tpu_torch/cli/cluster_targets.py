@@ -58,12 +58,15 @@ def read_manifest(tsv: str):
 
 
 def checkpoint_file(path: str) -> str:
-    """A run's directory -> its latest ``checkpoint-step-N.pt``; a file
-    or an HF directory as it is."""
+    """A run's directory -> its latest checkpoint (the port's
+    ``checkpoint-step-N.pt`` or JAX's Orbax ``checkpoint-step-N``); a
+    file, an Orbax or an HF directory as it is."""
     from audio8_tpu_torch.models.convert_hf import is_hf_dir
     from audio8_tpu_torch.train.checkpoint import find_latest_checkpoint
+    from audio8_tpu_torch.train.orbax import is_orbax_dir
 
-    if os.path.isdir(path) and not is_hf_dir(path):
+    if os.path.isdir(path) and not is_hf_dir(path) \
+            and not is_orbax_dir(path):
         return find_latest_checkpoint(path)[0]
     return path
 

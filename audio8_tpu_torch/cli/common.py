@@ -17,9 +17,10 @@ entry point has them, as is ``--exported`` (a ``cli.export`` artifact)
 everywhere.
 
 :func:`resolve_restart` is ``--restart_from`` (fairseq ``.pt`` and
-HuggingFace ``save_pretrained`` warm starts, directories of the port's
-checkpoints, full-state resume); :func:`load_weights` reads the same
-sources for the evaluation entry points.
+HuggingFace ``save_pretrained`` warm starts, the JAX package's Orbax
+checkpoints, directories of either package's checkpoints, full-state
+resume); :func:`load_weights` reads the same sources for the evaluation
+entry points.
 """
 from __future__ import annotations
 
@@ -28,6 +29,7 @@ import os
 from argparse import ArgumentParser, Namespace
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 
 from audio8_tpu_torch.utils import str2bool
@@ -438,9 +440,33 @@ def _hf_weights(path: str, model: torch.nn.Module,
     return loaded
 
 
+def load_orbax_params(tree, model: torch.nn.Module, ctc: bool,
+                      path: str) -> None:
+    """The params of a JAX Orbax tree (its ``params``, or the tree
+    itself) over ``model``'s weights with the JAX ``resolve_restart``'s
+    params-only semantics (``audio8_tpu/cli/common.py``): a pretraining
+    tree warm-starting a model with an ``encoder`` (``ctc``) nests under
+    ``encoder``, the model's entries the tree lacks keep their values,
+    the tree's leaves the model lacks are dropped and logged."""
+    from audio8_tpu_torch.models.convert import (load_jax_params,
+                                                 model_assignments)
+
+    params = tree.get("params", tree) if isinstance(tree, dict) else tree
+    top = {p[0] for p, _, _ in model_assignments(model)}
+    if (ctc and "encoder" in top and "feature_extractor" in params
+            and "feature_extractor" not in top):
+        params = {"encoder": params}
+    dropped = load_jax_params(params, model)
+    if dropped:
+        logger.info("checkpoint keys not in model (dropped): %s",
+                    ["/".join(p) for p in dropped[:8]])
+    logger.info("weights from the Orbax checkpoint %s", path)
+
+
 def load_weights(path: str, model: torch.nn.Module, ctc: bool,
                  kind: Optional[str] = None) -> None:
-    """Load a checkpoint's weights over ``model``'s. The port's own
+    """Load a checkpoint's weights over ``model``'s. The JAX package's
+    Orbax directory goes through :func:`load_orbax_params`; the port's own
     seq2seq or paired ``.pt`` of ``kind`` loads whole; an HF
     ``save_pretrained`` directory goes through :func:`_hf_weights`;
     otherwise the file is a fairseq one (:func:`_fairseq_weights`;
@@ -453,7 +479,11 @@ def load_weights(path: str, model: torch.nn.Module, ctc: bool,
     JAX trainer would merge none of their keys)."""
     from audio8_tpu_torch.models.convert_hf import is_hf_dir
     from audio8_tpu_torch.train.checkpoint import load_port_checkpoint
+    from audio8_tpu_torch.train.orbax import is_orbax_dir, load_checkpoint
 
+    if is_orbax_dir(path):
+        load_orbax_params(load_checkpoint(path), model, ctc, path)
+        return
     hf = is_hf_dir(path)
     own = load_port_checkpoint(path, kind) if kind and not hf else None
     if own is not None:
@@ -477,11 +507,78 @@ def load_weights(path: str, model: torch.nn.Module, ctc: bool,
                 dropped[:5])
 
 
+def _tree_state(tree, triples, names=None) -> Optional[Dict]:
+    """A JAX tree as a state dict through ``triples`` (restricted to
+    ``names``), or ``None`` if it lacks one of their paths."""
+    from audio8_tpu_torch.models.convert import _as_numpy, _get_path
+
+    out = {}
+    for path, key, tf in triples:
+        if names is not None and key not in names:
+            continue
+        leaf = _get_path(tree, path)
+        if leaf is None:
+            return None
+        out[key] = torch.from_numpy(np.array(tf(_as_numpy(leaf))))
+    return out
+
+
+def restore_full_state(tree, state) -> Optional[int]:
+    """The JAX full-state restore of an Orbax TrainState tree (``params``,
+    ``opt_state``, ``step``) into ``state``: only when the saved optimizer
+    state is the kind ``state``'s ``--optim`` builds (``jax_optim``) and
+    the saved params and moments are the model's, every leaf and shape
+    (JAX's restore against its template fails otherwise). Sets the
+    weights, the optimizer count (the LR schedule's position) and moments,
+    and the step from the saved ``step``; returns it, else ``None`` and
+    ``state`` is untouched."""
+    from audio8_tpu_torch.models.convert import (_adam_state, _field,
+                                                 _opt_count, jax_optim,
+                                                 model_assignments,
+                                                 tree_paths)
+
+    if not (isinstance(tree, dict)
+            and {"params", "opt_state", "step"} <= set(tree)):
+        return None
+    saved = jax_optim(tree["opt_state"])
+    if saved != state.tx.optim:
+        logger.info("saved optimizer %s is not --optim %s: params only",
+                    saved, state.tx.optim)
+        return None
+    triples = model_assignments(state.model)
+    if sorted(tree_paths(tree["params"])) != sorted(p for p, _, _ in
+                                                      triples):
+        logger.info("saved params are not the model's: params only")
+        return None
+    own = state.model.state_dict()
+    weights = _tree_state(tree["params"], triples)
+    if any(weights[k].shape != v.shape for k, v in own.items()):
+        logger.info("saved shapes are not the model's: params only")
+        return None
+    adam = _adam_state(tree["opt_state"])
+    mu = nu = None
+    if adam is not None:
+        names = set(state.names)
+        mu = _tree_state(_field(adam, "mu"), triples, names)
+        nu = _tree_state(_field(adam, "nu"), triples, names)
+        if mu is None or nu is None or any(
+                mu[n].shape != p.shape for n, p in zip(state.names,
+                                                        state.params)):
+            logger.info("saved moments are not the model's: params only")
+            return None
+    state.model.load_state_dict(
+        {k: weights[k].to(v.dtype) for k, v in own.items()}, strict=True)
+    state.load_opt_state(int(np.asarray(_opt_count(tree["opt_state"]))),
+                         mu, nu)
+    state.step = int(np.asarray(tree["step"]))
+    return state.step
+
+
 def resolve_restart(restart_from: Optional[str], state, ctc: bool,
                     restart_tt: Optional[str] = None,
                     kind: Optional[str] = None) -> int:
     """``--restart_from`` with the JAX package's semantics
-    (``audio8_tpu/cli/common.py:resolve_restart``), on the port's
+    (``audio8_tpu/cli/common.py:resolve_restart``), on either package's
     checkpoints; loads into ``state.model`` (and ``state``) in place and
     returns the global step to start from. ``kind`` is the model's
     checkpoint kind (``train/checkpoint.py``), by default ``ctc`` or
@@ -491,10 +588,16 @@ def resolve_restart(restart_from: Optional[str], state, ctc: bool,
     - a ``.pt`` named directly is a warm start at step 0, even when it
       is one of the port's own checkpoints: its weights load over the
       initialised model (:func:`load_weights`);
-    - a directory picks its latest ``checkpoint-step-N.pt`` and loads its
-      weights so. A resume file beside it (``train/checkpoint.py``) of
-      this model's kind over the same parameters restores the AdamW
-      moments and the step count too, and its own step is the step;
+    - a JAX Orbax directory restores the full state when it holds one of
+      this model and ``--optim`` (:func:`restore_full_state`), else its
+      params (:func:`load_orbax_params`) at the step of its name, or 0
+      under ``restart_tt == "ignore"``;
+    - another directory picks its latest checkpoint, the port's
+      ``checkpoint-step-N.pt`` or JAX's Orbax ``checkpoint-step-N``
+      (``train/checkpoint.py:find_latest_checkpoint``). An Orbax one
+      restores as above. A ``.pt`` loads its weights so; a resume file
+      beside it of this model's kind over the same parameters restores the
+      AdamW moments and the step count too, and its own step is the step;
       otherwise the step comes from the name unless ``restart_tt ==
       "ignore"`` (JAX's full-state and params-only restores);
     - a HuggingFace ``save_pretrained`` directory is a warm start at step
@@ -503,22 +606,34 @@ def resolve_restart(restart_from: Optional[str], state, ctc: bool,
     from audio8_tpu_torch.train.checkpoint import (find_latest_checkpoint,
                                                    load_resume,
                                                    parse_checkpoint_step)
+    from audio8_tpu_torch.train.orbax import is_orbax_dir, load_checkpoint
 
     if not restart_from:
         return 0
     kind = kind or ("ctc" if ctc else "pretrain")
-    if not os.path.isdir(restart_from) or os.path.exists(
-            os.path.join(restart_from, "config.json")):
+    path = restart_from
+    if os.path.isdir(path) and not is_orbax_dir(path) and \
+            not os.path.exists(os.path.join(path, "config.json")):
+        path, _ = find_latest_checkpoint(path)
+    elif not is_orbax_dir(path):
         # a .pt or an HF directory: a warm start
-        load_weights(restart_from, state.model, ctc, kind)
+        load_weights(path, state.model, ctc, kind)
         state.step = state.opt_state.count = 0
         return 0
-    path, _ = find_latest_checkpoint(restart_from)
-    load_weights(path, state.model, ctc, kind)
-    resumed = load_resume(state, path, kind)
-    if resumed is not None:
-        logger.info("resumed the full state at step %d", resumed)
-        return resumed
+    if is_orbax_dir(path):
+        tree = load_checkpoint(path)
+        step = restore_full_state(tree, state)
+        if step is not None:
+            logger.info("restored the full JAX state of %s at step %d",
+                        path, step)
+            return step
+        load_orbax_params(tree, state.model, ctc, path)
+    else:
+        load_weights(path, state.model, ctc, kind)
+        resumed = load_resume(state, path, kind)
+        if resumed is not None:
+            logger.info("resumed the full state at step %d", resumed)
+            return resumed
     step = 0 if restart_tt == "ignore" else parse_checkpoint_step(path)
     state.step = state.opt_state.count = step
     return step

@@ -12,10 +12,28 @@ directory, whose config gives the sizes and the topology
 (``models/convert_hf.py``). The conversion runs on the host;
 ``--device`` is inert.
 
+The JAX package's Orbax checkpoints cross both ways (``train/orbax.py``):
+
+- ``--format orbax`` (the default for a directory with ``_METADATA``)
+  reads one, a CTC or pretraining params tree or TrainState, and writes
+  the port's ``{output}-step-N.pt`` at its step; a TrainState's
+  optimizer state (``adamw``, ``adam``, ``fused_adamw`` or ``sgd``) goes
+  into the ``.resume`` file beside it, so ``--restart_from`` resumes it;
+- ``--output_format orbax`` writes an Orbax directory in place of the
+  ``.pt`` (the default stays ``pt``): from a fairseq ``.pt`` or an HF
+  directory, what the JAX converter writes (``{"params": tree}`` at step
+  0); from the port's own checkpoint with its resume file, the whole
+  TrainState (params, the JAX layout of ``create_optimizer``'s state
+  with the moments and count, step) at its step, which the JAX trainer's
+  ``--restart_from`` restores whole.
+
   python -m audio8_tpu_torch.cli.convert_checkpoint --input wav2vec_small.pt \\
       --output converted/checkpoint
   python -m audio8_tpu_torch.cli.convert_checkpoint --ctc true \\
       --input ./hf-wav2vec2-large-960h-lv60-self --output converted/ctc
+  python -m audio8_tpu_torch.cli.convert_checkpoint --ctc true \\
+      --input run/checkpoint-step-40.pt --output jax/checkpoint \\
+      --output_format orbax
 """
 from __future__ import annotations
 
@@ -24,6 +42,7 @@ import logging
 import os
 from argparse import ArgumentParser
 
+import numpy as np
 import torch
 
 from audio8_tpu_torch.cli.common import (add_common_model_args,
@@ -31,8 +50,10 @@ from audio8_tpu_torch.cli.common import (add_common_model_args,
                                         encoder_kwargs)
 from audio8_tpu_torch.config import AcousticConfig, PretrainConfig
 from audio8_tpu_torch.models.convert import (FAIRSEQ_ENCODER,
-                                             from_fairseq_ctc_state,
+                                             _field, from_fairseq_ctc_state,
                                              from_fairseq_pretrained_state,
+                                             jax_from_params, jax_opt_state,
+                                             jax_optim, params_from_jax,
                                              read_fairseq_state,
                                              save_fairseq_ctc,
                                              save_fairseq_pretrained)
@@ -40,6 +61,10 @@ from audio8_tpu_torch.models.convert_hf import (acoustic_config_from_hf,
                                                 is_hf_dir, load_hf_dir)
 from audio8_tpu_torch.models.wav2vec2 import (Wav2Vec2AcousticModel,
                                               Wav2Vec2Model)
+from audio8_tpu_torch.train import orbax
+from audio8_tpu_torch.train.checkpoint import (parse_checkpoint_step,
+                                               resume_path, save_checkpoint)
+from audio8_tpu_torch.train.optim import TrainState, create_optimizer
 from audio8_tpu_torch.utils import str2bool
 
 logger = logging.getLogger("audio8_tpu_torch.convert")
@@ -55,8 +80,12 @@ def parse_args(argv=None):
                         help="fairseq .pt file or HF save_pretrained dir")
     parser.add_argument("--output", required=True,
                         help="output checkpoint base")
-    parser.add_argument("--format", choices=["auto", "fairseq", "hf"],
-                        default="auto")
+    parser.add_argument("--format", choices=["auto", "fairseq", "hf",
+                                             "orbax"], default="auto")
+    parser.add_argument("--output_format", choices=["pt", "orbax"],
+                        default="pt",
+                        help="the port's .pt, or an Orbax directory the "
+                             "JAX package restores")
     parser.add_argument("--ctc", type=str2bool, default=False,
                         help="fine-tuned CTC checkpoint (vs pretrained)")
     parser.add_argument("--num_labels", type=int, default=32)
@@ -71,7 +100,8 @@ def main(argv=None) -> str:
     check_ported(args, "convert_checkpoint")
     fmt = args.format
     if fmt == "auto":
-        fmt = "hf" if is_hf_dir(args.input) else "fairseq"
+        fmt = ("orbax" if orbax.is_orbax_dir(args.input) else
+               "hf" if is_hf_dir(args.input) else "fairseq")
     sr = args.target_sample_rate // 1000
     size = dict(sample_rate=sr, d_model=args.d_model,
                 num_heads=args.num_heads, num_layers=args.num_layers,
@@ -89,17 +119,23 @@ def main(argv=None) -> str:
         if args.ctc:
             args.num_labels = hf.num_labels
         unexpected = []
+    if fmt == "orbax":
+        tree = orbax.load_checkpoint(args.input)
+        state = params_from_jax(tree.get("params", tree))
+        args.ctc, unexpected = "proj.weight" in state, []
+        if args.ctc:
+            args.num_labels = state["proj.weight"].shape[0]
     if args.ctc:
         model = Wav2Vec2AcousticModel(AcousticConfig(
             num_labels=args.num_labels, **size))
-        if fmt != "hf":
+        if fmt not in ("hf", "orbax"):
             state, ignored = from_fairseq_ctc_state(
                 read_fairseq_state(args.input))
             unexpected = [k for k in ignored
                           if not k.startswith(_CTC_LEFTOVERS)]
         save = save_fairseq_ctc
     else:
-        if fmt != "hf":
+        if fmt not in ("hf", "orbax"):
             state = from_fairseq_pretrained_state(
                 read_fairseq_state(args.input))
         # the projection and codebook sizes come from the checkpoint
@@ -118,11 +154,67 @@ def main(argv=None) -> str:
                          f"unexpected {unexpected[:8]}")
     model.load_state_dict({k: torch.as_tensor(v) for k, v in state.items()},
                           strict=True)
-    path = os.path.abspath(f"{args.output}-step-0.pt")
-    os.makedirs(os.path.dirname(path), exist_ok=True)
-    save(model, path)
+    os.makedirs(os.path.dirname(os.path.abspath(args.output)), exist_ok=True)
+    if args.output_format == "orbax":
+        path = to_orbax(model, args.input if fmt == "fairseq" else None,
+                        args.output)
+    elif fmt == "orbax":
+        path = from_orbax(model, tree, args.input, args.output,
+                          "ctc" if args.ctc else "pretrain")
+    else:
+        path = os.path.abspath(f"{args.output}-step-0.pt")
+        save(model, path)
     logger.info("Wrote %s", path)
     return path
+
+
+def from_orbax(model, tree, source: str, output: str, kind: str) -> str:
+    """The port's ``{output}-step-N.pt`` of ``model`` (the Orbax tree's
+    weights), with a resume file of the tree's optimizer state when it is
+    a TrainState; N is its saved step, else the step of its name."""
+    opt = tree.get("opt_state") if isinstance(tree, dict) else None
+    optim = jax_optim(opt) if opt is not None else None
+    if optim is None:
+        step = parse_checkpoint_step(source)
+        path = os.path.abspath(f"{output}-step-{step}.pt")
+        (save_fairseq_ctc if kind == "ctc" else save_fairseq_pretrained)(
+            model, path)
+        return path
+    _, (count, mu, nu) = params_from_jax(tree["params"], opt)
+    hyper = _field(opt, "hyperparams") or {}
+    rate = float(np.asarray(hyper.get("learning_rate", 0.0)))
+    tx = create_optimizer(lambda _: rate, optim, **{
+        name: float(np.asarray(hyper[key])) for key, name in (
+            ("weight_decay", "weight_decay"), ("b1", "beta1"),
+            ("b2", "beta2"), ("eps", "eps")) if key in hyper})
+    state = TrainState(model, tx)
+    state.load_opt_state(count, mu, nu)
+    state.step = int(np.asarray(tree["step"]))
+    return save_checkpoint(state, os.path.abspath(
+        f"{output}-step-{state.step}.pt"), kind)
+
+
+def to_orbax(model, source, output: str) -> str:
+    """``model`` as an Orbax directory: with the port's resume file beside
+    ``source`` (over this model's parameters), the whole TrainState at
+    its step; else ``{"params": tree}`` at step 0, as the JAX converter
+    writes."""
+    resume = resume_path(source) if source else None
+    if resume is None or not os.path.exists(resume):
+        return orbax.save_checkpoint({"params": jax_from_params(model)},
+                                     output, 0)
+    blob = torch.load(resume, map_location="cpu", weights_only=True)
+    if blob["names"] != [n for n, _ in model.named_parameters()]:
+        raise ValueError(f"{resume}: the resume file is not this model's")
+    mu = nu = None
+    if blob["optim"] == "adamw":
+        mu = jax_from_params(model, blob["mu"])
+        nu = jax_from_params(model, blob["nu"])
+    opt = jax_opt_state(blob.get("jax_optim", blob["optim"]), blob["count"],
+                        mu, nu, **blob.get("hyper", {}))
+    return orbax.save_checkpoint(
+        {"params": jax_from_params(model), "opt_state": opt,
+         "step": np.asarray(blob["step"], np.int32)}, output, blob["step"])
 
 
 if __name__ == "__main__":

@@ -15,7 +15,9 @@ it scores cosine similarity per pair and prints the EER instead.
 
 ``--checkpoint`` is a fairseq ``.pt`` or an HF ``save_pretrained``
 directory (pretrained or CTC: its encoder) or the port's paired ``.pt``
-(its audio tower, reduction heads included). Use ``mean`` or ``max``
+(its audio tower, reduction heads included), or a JAX Orbax directory
+(merged into the pooled encoder's tree as JAX's ``resolve_restart``
+merges it: a CTC tree fills the encoder). Use ``mean`` or ``max``
 for a checkpoint without heads. ``--exported`` runs a ``cli.export
 --pooled`` artifact instead (its reduction baked in at export).
 """
@@ -37,6 +39,7 @@ from audio8_tpu_torch.config import PooledConfig
 from audio8_tpu_torch.data.audio import SoundfileAudioReader
 from audio8_tpu_torch.models.wav2vec2 import Wav2Vec2PooledEncoder
 from audio8_tpu_torch.train.checkpoint import load_port_checkpoint
+from audio8_tpu_torch.train.orbax import is_orbax_dir
 
 logger = logging.getLogger("audio8_tpu_torch.embed")
 
@@ -82,6 +85,10 @@ def load_pooled_weights(path: str, model: Wav2Vec2PooledEncoder) -> None:
     ``model``), else a fairseq ``.pt``'s or an HF directory's encoder
     into ``model.encoder`` (the reduction keeps its initial weights, as
     in JAX)."""
+    if is_orbax_dir(path):
+        # JAX's params-only merge into the pooled encoder's tree
+        load_weights(path, model, ctc=False)
+        return
     paired = (None if os.path.isdir(path)
               else load_port_checkpoint(path, "paired"))
     if paired is None:

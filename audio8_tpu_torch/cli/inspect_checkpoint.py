@@ -9,11 +9,15 @@ seq2seq or paired ``.pt`` (``{"kind": ..., "model": ...}``), with the
 step of a ``...-step-N.pt`` name and the optimizer state of a resume
 file beside it (``train/checkpoint.py``), and a HuggingFace
 ``save_pretrained`` directory (``model.safetensors`` or
-``pytorch_model.bin``, read without the ``safetensors`` package).
+``pytorch_model.bin``, read without the ``safetensors`` package), and the
+JAX package's Orbax directories (``train/orbax.py``; a run's directory
+gives its latest checkpoint), whose leaves are named by their key paths
+and counted by their first key, as the JAX tool does.
 
   python -m audio8_tpu_torch.cli.inspect_checkpoint run/checkpoint-step-40.pt
   python -m audio8_tpu_torch.cli.inspect_checkpoint wav2vec_small.pt --tree
   python -m audio8_tpu_torch.cli.inspect_checkpoint ./hf-wav2vec2-base-960h
+  python -m audio8_tpu_torch.cli.inspect_checkpoint runs/ctc/checkpoint-step-320
 """
 from __future__ import annotations
 
@@ -26,8 +30,11 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 
+from audio8_tpu_torch.models.convert import tree_paths
 from audio8_tpu_torch.models.convert_hf import is_hf_dir, read_hf_weights
-from audio8_tpu_torch.train.checkpoint import (parse_checkpoint_step,
+from audio8_tpu_torch.train import orbax
+from audio8_tpu_torch.train.checkpoint import (find_latest_checkpoint,
+                                               parse_checkpoint_step,
                                                resume_path)
 
 
@@ -39,13 +46,40 @@ def _arrays(tensors):
             for k, v in tensors.items()}
 
 
+def _orbax(path: str):
+    """An Orbax directory -> (format, step, {"a/b": array}, has_opt_state)
+    as the JAX tool reads it: the params (the tree's ``params`` or the
+    tree), the step of the name."""
+    raw = orbax.load_checkpoint(path)
+    params = raw.get("params", raw) if isinstance(raw, dict) else raw
+    has_opt = isinstance(raw, dict) and any(
+        k in raw for k in ("opt_state", "mu", "nu"))
+    tree = {}
+    for p in tree_paths(params):
+        node = params
+        for k in p:
+            node = node[k]
+        if isinstance(node, torch.Tensor):  # bfloat16
+            tree["/".join(p)] = _arrays({"": node})[""]
+        elif hasattr(node, "shape"):
+            tree["/".join(p)] = node
+    return "a8t (Orbax)", parse_checkpoint_step(path), tree, has_opt
+
+
 def _load(path: str):
     """-> (format, step, {name: array}, has_opt_state)."""
     if os.path.isdir(path):
-        if not is_hf_dir(path):
+        if is_hf_dir(path):
+            return "huggingface save_pretrained", None, _arrays(
+                read_hf_weights(path)), False
+        if orbax.is_orbax_dir(path):
+            return _orbax(path)
+        if not any(n.startswith("checkpoint") for n in os.listdir(path)):
             raise SystemExit(f"{path}: not a recognizable checkpoint dir")
-        return "huggingface save_pretrained", None, _arrays(
-            read_hf_weights(path)), False
+        path, step = find_latest_checkpoint(path)
+        if orbax.is_orbax_dir(path):
+            fmt, _, tree, has_opt = _orbax(path)
+            return fmt, step, tree, has_opt
     if not path.endswith((".pt", ".pth")):
         raise SystemExit(f"{path}: unknown checkpoint format")
     blob = torch.load(path, map_location="cpu", weights_only=False)
@@ -84,7 +118,8 @@ def main(argv=None):
     by_module = defaultdict(int)
     by_dtype = defaultdict(int)
     for name, a in leaves:
-        by_module[name] += int(np.prod(a.shape))
+        # an Orbax leaf's first key (a .pt's names hold no "/")
+        by_module[name.split("/")[0]] += int(np.prod(a.shape))
         by_dtype[str(a.dtype)] += int(np.prod(a.shape))
 
     summary = {

@@ -16,7 +16,8 @@ and AdamW kernels.
 
 Each checkpoint has a resume file beside it (``train/checkpoint.py``):
 ``--restart_from <basedir>`` continues a run at its latest step, with
-its AdamW moments, LR schedule and Gumbel temperature; a fairseq ``.pt``
+its AdamW moments, LR schedule and Gumbel temperature, as does a JAX
+Orbax ``checkpoint-step-N`` of the same ``--optim``; a fairseq ``.pt``
 named directly warm-starts the weights at step 0
 (``cli/common.py:resolve_restart``). On SIGTERM the loop saves at the
 next step boundary and exits 0 (``train/preempt.py``).

@@ -17,8 +17,8 @@ Checkpoints are fairseq-layout CTC files (``checkpoint-step-N.pt``,
 each with a resume file beside it (``train/checkpoint.py``).
 ``--restart_from`` warm-starts from a fairseq ``.pt`` or an HF
 ``save_pretrained`` directory (a pretrained one into the encoder) or
-resumes a run from its directory
-(``cli/common.py:resolve_restart``); on SIGTERM the trainer saves at the
+resumes a run from its directory, or from the JAX package's Orbax
+checkpoint (``cli/common.py:resolve_restart``); on SIGTERM the trainer saves at the
 next step boundary and exits 0 (``train/preempt.py``). ``--verbose``
 prints a beam-decoded (``--beam``, ``--lm``) validation sample.
 ``--speed_perturb`` and ``--noise_manifest`` augment the training

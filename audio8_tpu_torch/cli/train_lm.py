@@ -43,14 +43,18 @@ from argparse import ArgumentParser
 import numpy as np
 import torch
 
-from audio8_tpu_torch.cli.common import save_on_rank0, start_distributed
+from audio8_tpu_torch.cli.common import (restore_full_state, save_on_rank0,
+                                        start_distributed)
 from audio8_tpu_torch.config import TextLMConfig
 from audio8_tpu_torch.models.text import (CausalTextLM, TextVectorizer,
                                           read_vocab_list)
 from audio8_tpu_torch.parallel.sharding import sync_from_rank0
 from audio8_tpu_torch.train.checkpoint import (find_latest_checkpoint,
-                                               load_port_checkpoint,
-                                               load_resume, save_checkpoint)
+                                               load_model_weights,
+                                               load_resume,
+                                               parse_checkpoint_step,
+                                               save_checkpoint)
+from audio8_tpu_torch.train.orbax import is_orbax_dir, load_checkpoint
 from audio8_tpu_torch.train.optim import (TrainState, create_lrs,
                                           create_optimizer)
 from audio8_tpu_torch.train.preempt import PreemptionGuard
@@ -243,16 +247,25 @@ def _train(args, device: torch.device, preempt: PreemptionGuard,
 
 
 def restore(state: TrainState, restart_from: str) -> None:
-    """Load an LM ``.pt`` (``restart_from``, or the latest under it) into
-    ``state.model``, and its resume file's optimizer state and step when
-    it has one."""
+    """Load an LM checkpoint (``restart_from``, or the latest under it)
+    into ``state.model``: the port's ``.pt`` with its resume file's
+    optimizer state and step when it has one, or the JAX package's Orbax
+    directory, its full state when it is one of this ``--optim``
+    (``cli/common.py:restore_full_state``), else its params at the step
+    of its name."""
     path = (find_latest_checkpoint(restart_from)[0]
-            if os.path.isdir(restart_from) else restart_from)
-    weights = load_port_checkpoint(path, "lm")
-    if weights is None:
-        raise ValueError(f"{path} is not an LM checkpoint of the port")
-    state.model.load_state_dict(weights, strict=True)
-    step = load_resume(state, path, "lm")
+            if os.path.isdir(restart_from) and not is_orbax_dir(restart_from)
+            else restart_from)
+    if is_orbax_dir(path):
+        tree = load_checkpoint(path)
+        step = restore_full_state(tree, state)
+        if step is None:
+            load_model_weights(path, state.model, "lm")
+            step = state.step = state.opt_state.count = \
+                parse_checkpoint_step(path)
+    else:
+        load_model_weights(path, state.model, "lm")
+        step = load_resume(state, path, "lm")
     logger.info("restarted from %s at step %s", path, step or 0)
 
 

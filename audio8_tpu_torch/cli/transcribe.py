@@ -61,6 +61,7 @@ from audio8_tpu_torch.ops.quant import quantize_model_params
 from audio8_tpu_torch.ops.vad import speech_segments
 from audio8_tpu_torch.serve import ChunkedTranscriber, decode_stitched
 from audio8_tpu_torch.utils import Offsets, revlut, str2bool
+from audio8_tpu_torch.train.orbax import is_orbax_dir
 
 
 def parse_args(argv=None):
@@ -124,7 +125,7 @@ def build_acoustic(args, device: torch.device):
         timestep_masking=0.0, channel_masking=0.0, **encoder_kwargs(args))
     dtype = torch.bfloat16 if args.bf16 else torch.float32
     model = Wav2Vec2AcousticModel(cfg, dtype)
-    if is_hf_dir(args.checkpoint):
+    if is_hf_dir(args.checkpoint) or is_orbax_dir(args.checkpoint):
         load_weights(args.checkpoint, model, ctc=True)
     else:
         model.load_state_dict(load_fairseq_ctc(args.checkpoint), strict=True)

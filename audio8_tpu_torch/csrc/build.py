@@ -14,8 +14,9 @@ each kernel's registers and spills; the report is kept beside the library
 
 The host library (:func:`build_host`) holds the C++ host code of the
 decode and data layer: edit distance, the CTC prefix beam search with
-and without LM fusion, the ARPA and KenLM-binary LM readers and the FLAC
-decoder (``HOST_SOURCES``). ``g++`` links them into one
+and without LM fusion, the ARPA and KenLM-binary LM readers, the FLAC
+decoder and the zstd decoder with CRC32C and XXH64 that read the JAX
+package's Orbax checkpoints (``HOST_SOURCES``). ``g++`` links them into one
 ``libaudio8_host-<hash>.so`` beside the kernels, under the same content
 hash; ``csrc/native.py`` loads it with ``ctypes``.
 
@@ -37,7 +38,7 @@ from typing import Dict, Sequence
 CSRC = os.path.dirname(os.path.abspath(__file__))
 SOURCES = tuple(sorted(f for f in os.listdir(CSRC) if f.endswith(".cu")))
 HOST_SOURCES = ("editdistance.cc", "beam.cc", "flac.cc", "arpa_lm.cc",
-                "kenlm_bin.cc")
+                "kenlm_bin.cc", "zstd.cc")
 HOST_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -1,6 +1,8 @@
 """ctypes bindings of the port's host library (``csrc/*.cc``, plain C ABI):
 edit distance, the CTC prefix beam search without and with LM fusion,
-the ARPA and KenLM-binary LM readers and the FLAC decoder.
+the ARPA and KenLM-binary LM readers, the FLAC decoder, and the zstd
+decoder with the CRC32C and XXH64 checksums that read the JAX package's
+Orbax checkpoints (``train/ocdbt.py``, ``train/zarr.py``).
 
 The library is built with ``g++`` at first use (``csrc/build.py:
 build_host``) and loaded once per process; nothing is built or loaded
@@ -43,6 +45,11 @@ _SIGNATURES = {
     "a8t_lm_load_kenlm": (ctypes.c_void_p, [ctypes.c_char_p]),
     "a8t_lm_free": (None, [ctypes.c_void_p]),
     "a8t_lm_logp": (_F, [ctypes.c_void_p, ctypes.c_char_p, ctypes.c_char_p]),
+    "a8t_zstd_decompress": (ctypes.c_void_p, [ctypes.c_void_p, _I64, _P64,
+                                              ctypes.c_char_p, _I64]),
+    "a8t_free": (None, [ctypes.c_void_p]),
+    "a8t_crc32c": (ctypes.c_uint32, [ctypes.c_void_p, _I64, ctypes.c_uint32]),
+    "a8t_xxh64": (ctypes.c_uint64, [ctypes.c_void_p, _I64, ctypes.c_uint64]),
 }
 
 _lock = threading.Lock()
@@ -201,3 +208,37 @@ def flac_read(path: str) -> Tuple[np.ndarray, int, int]:
     if ch.value > 1:
         data = data.reshape(-1, ch.value)
     return data, int(sr.value), int(bps.value)
+
+
+def _bytes_ptr(data) -> Tuple[np.ndarray, int]:
+    """A bytes-like object as a uint8 array (no copy) and its address."""
+    a = np.frombuffer(data, np.uint8)
+    return a, a.ctypes.data
+
+
+def zstd_decompress(data) -> bytes:
+    """Decode every zstd frame of ``data`` (RFC 8878); raises
+    ``ValueError`` naming the fault on a corrupt frame, a frame that needs
+    a dictionary, or a content size or checksum that does not match."""
+    a, ptr = _bytes_ptr(data)
+    n = ctypes.c_int64()
+    err = ctypes.create_string_buffer(256)
+    out = lib().a8t_zstd_decompress(ptr, a.size, ctypes.byref(n), err, 256)
+    if not out:
+        raise ValueError(err.value.decode(errors="replace"))
+    try:
+        return ctypes.string_at(out, n.value)
+    finally:
+        lib().a8t_free(out)
+
+
+def crc32c(data, crc: int = 0) -> int:
+    """CRC32C (Castagnoli) of ``data``, continuing from ``crc``."""
+    a, ptr = _bytes_ptr(data)
+    return int(lib().a8t_crc32c(ptr, a.size, crc))
+
+
+def xxh64(data, seed: int = 0) -> int:
+    """XXH64 of ``data`` (zstd's content checksum is its low 32 bits)."""
+    a, ptr = _bytes_ptr(data)
+    return int(lib().a8t_xxh64(ptr, a.size, seed))

@@ -26,9 +26,16 @@ The port's parameter names are fairseq's, so:
   ``audio8_tpu/models/convert.py:_encoder_assignments``); the decoder,
   the text towers, the reductions, the projections and ``logit_scale``
   keep the JAX names (:func:`_by_name_assignments`). Given the JAX
-  optimizer state too (optax ``adamw``/``adam`` or ``FusedAdamW``), it
-  carries the moments and the step count across, so both packages can
-  train on from the same point.
+  optimizer state too (optax ``adamw``/``adam`` or ``FusedAdamW``, as
+  objects or as the dicts and lists Orbax restores), it carries the
+  moments and the step count across, so both packages can train on from
+  the same point;
+* the other way, :func:`jax_from_params` builds a port model's JAX tree
+  through the same triples (:func:`model_assignments`), and
+  :func:`jax_opt_state` lays the port's count and moments out as the JAX
+  ``create_optimizer``'s state, for the Orbax writer
+  (``train/orbax.py``); :func:`load_jax_params` overlays a JAX tree on a
+  model as JAX's ``merge_params`` does.
 """
 from __future__ import annotations
 
@@ -492,31 +499,60 @@ def _jax_assignments(tree: Mapping[str, Any]
     return out
 
 
+def _field(node: Any, name: str):
+    """``node.name`` of an optax state, or ``node[name]`` of the dict
+    Orbax restores it as without a target."""
+    if isinstance(node, Mapping):
+        return node.get(name)
+    return getattr(node, name, None)
+
+
+def _children(node: Any):
+    if isinstance(node, Mapping):
+        return list(node.values())
+    return list(node) if isinstance(node, (tuple, list)) else []
+
+
 def _adam_state(opt_state: Any):
-    """The node of a JAX optimizer state that holds ``mu`` and ``nu``
-    (optax's ScaleByAdamState, possibly inside inject_hyperparams and a
-    chain, or FusedAdamWState)."""
-    if hasattr(opt_state, "mu") and hasattr(opt_state, "nu"):
+    """The node of a JAX optimizer state that holds ``mu`` and ``nu``:
+    optax's ScaleByAdamState (inside inject_hyperparams' ``inner_state``
+    and a chain) or FusedAdamWState, as optax's objects or as the dicts
+    and lists Orbax restores without a target."""
+    if _field(opt_state, "mu") is not None and \
+            _field(opt_state, "nu") is not None:
         return opt_state
-    if isinstance(opt_state, (tuple, list)):
-        for child in opt_state:
-            found = _adam_state(child)
-            if found is not None:
-                return found
+    for child in _children(opt_state):
+        found = _adam_state(child)
+        if found is not None:
+            return found
     return None
 
 
 def _opt_count(opt_state: Any):
     """The step count of a JAX optimizer state: the outermost ``count``
     (optax's inject_hyperparams state, which SGD's is, or an Adam
-    state)."""
-    if hasattr(opt_state, "count"):
-        return opt_state.count
-    if isinstance(opt_state, (tuple, list)):
-        for child in opt_state:
-            found = _opt_count(child)
-            if found is not None:
-                return found
+    state), in either form."""
+    count = _field(opt_state, "count")
+    if count is not None:
+        return count
+    for child in _children(opt_state):
+        found = _opt_count(child)
+        if found is not None:
+            return found
+    return None
+
+
+def jax_optim(opt_state: Any):
+    """Which ``create_optimizer(optim)`` of the JAX package built this
+    optimizer state (``adamw``, ``adam``, ``fused_adamw`` or ``sgd``), or
+    ``None``."""
+    hyper = _field(opt_state, "hyperparams")
+    if hyper is not None:
+        if _adam_state(opt_state) is None:
+            return "sgd"
+        return "adamw" if "weight_decay" in hyper else "adam"
+    if _field(opt_state, "mu") is not None:
+        return "fused_adamw"
     return None
 
 
@@ -532,22 +568,33 @@ def params_from_jax(tree: Mapping[str, Any], opt_state: Any = None):
     ``weight`` and ``weight_scale`` buffers of a model quantized with
     ``ops.quant.quantize_model_params``.
 
-    With ``opt_state`` (the JAX AdamW or SGD state, arrays as numpy) it
-    returns ``(state_dict, (count, mu, nu))`` where ``mu`` and ``nu``
-    are state dicts laid out like the parameters (``None`` for SGD,
-    whose state is its count): feed them to
+    With ``opt_state`` (the JAX AdamW or SGD state, arrays as numpy; the
+    optax objects or Orbax's dicts) it returns ``(state_dict, (count, mu,
+    nu))`` where ``mu`` and ``nu`` are state dicts laid out like the
+    parameters (``None`` for SGD, whose state is its count): feed them to
     ``train.optim.TrainState.load_opt_state``."""
     state = _params_from_jax(tree)
     if opt_state is None:
         return state
-    adam = _adam_state(opt_state)
-    if adam is not None:
-        return state, (int(np.asarray(adam.count)),
-                       _params_from_jax(adam.mu), _params_from_jax(adam.nu))
     count = _opt_count(opt_state)
     if count is None:
         raise KeyError("no step count in the JAX optimizer state")
+    adam = _adam_state(opt_state)
+    if adam is not None:
+        return state, (int(np.asarray(count)),
+                       _params_from_jax(_field(adam, "mu")),
+                       _params_from_jax(_field(adam, "nu")))
     return state, (int(np.asarray(count)), None, None)
+
+
+def _as_numpy(leaf: Any) -> np.ndarray:
+    """A leaf as numpy; a bfloat16 tensor (Orbax's bfloat16 arrays, read
+    by ``train/zarr.py``) widens to float32, which is exact."""
+    if isinstance(leaf, torch.Tensor):
+        leaf = leaf.detach().cpu()
+        return (leaf.float() if leaf.dtype == torch.bfloat16
+                else leaf).numpy()
+    return np.asarray(leaf)
 
 
 def _params_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
@@ -556,7 +603,7 @@ def _params_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
         node = tree
         for p in path[:-1]:
             node = node[p]
-        leaf = np.asarray(node[path[-1]])
+        leaf = _as_numpy(node[path[-1]])
         if leaf.dtype == np.int8:
             # an int8-quantized Dense (JAX ops/quant.py): int8 (in, out)
             # codes -> the (out, in) ``weight`` buffer, ``kernel_scale``
@@ -581,3 +628,194 @@ def _params_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     if left:
         raise KeyError(f"JAX parameters with no port counterpart: {left[:5]}")
     return state
+
+
+# ------------------------------------------------ port modules -> JAX trees
+
+_TOPOLOGY = ("extractor_mode", "conv_bias", "pre_norm", "pos_conv_depth",
+             "gated_rel_pos", "encoder_type", "position_embeddings_type",
+             "moe_experts", "moe_every")
+
+
+def _is_body(module: torch.nn.Module) -> bool:
+    names = dict(module.named_children())
+    return "feature_extractor" in names and "encoder" in names
+
+
+def _port_body(body: torch.nn.Module, jax_root: Tuple[str, ...],
+               port_root: str):
+    """(JAX path, port key, transform) for an encoder body of the port
+    (a module with the fairseq body's ``feature_extractor``, ``encoder``,
+    ...), its topology from its config and its depths from its keys."""
+    cfg = body.config
+    topo = {k: getattr(cfg, k) for k in _TOPOLOGY if hasattr(cfg, k)}
+    keys = list(body.state_dict())
+    num_fx = len({k.split(".")[2] for k in keys
+                  if k.startswith("feature_extractor.conv_layers.")})
+    num_layers = len({k.split(".")[2] for k in keys
+                      if k.startswith("encoder.layers.")})
+    return [(jax_root + path, port_root + key, tf) for key, path, tf in
+            encoder_table(topo, num_fx, num_layers)]
+
+
+def _port_named(module: torch.nn.Module, jax_root: Tuple[str, ...],
+                port_root: str):
+    return [(jax_root + path, port_root + key, tf)
+            for path, key, tf in jax_named_assignments(module)]
+
+
+def model_assignments(model: torch.nn.Module
+                      ) -> List[Tuple[Tuple[str, ...], str, Callable]]:
+    """(JAX path, port key, transform) for every entry of a port model's
+    state dict, laid out as :func:`_jax_assignments` lays out the JAX
+    tree of the same model: an encoder body at the top (the pretraining,
+    HuBERT and data2vec models, a bare ``Wav2Vec2Encoder``) with its
+    heads, the body under ``encoder`` with the CTC head, the decoder or
+    the transducer's predictor and joint, the paired module, or a text
+    LM. Each transform is its own inverse."""
+    children = dict(model.named_children())
+    if _is_body(model):
+        out = _port_body(model, (), "")
+        if "quantizer" in children:
+            out.append((("quantizer", "vars"), "quantizer.vars", _same))
+            heads = (("quantizer", "weight_proj"), ("project_q",),
+                     ("final_proj",))
+        else:
+            heads = (("final_proj",),) if "final_proj" in children else ()
+        for path in heads:
+            key = ".".join(path)
+            out.append((path + ("kernel",), f"{key}.weight", _t))
+            out.append((path + ("bias",), f"{key}.bias", _same))
+        if hasattr(model, "label_embs_concat"):
+            out.append((("label_embs",), "label_embs_concat", _same))
+    elif "model" in children and "loss" in children:
+        inner = children["model"]
+        audio = inner.audio_encoder
+        out = _port_body(audio.encoder, ("model", "audio_encoder", "encoder"),
+                         "model.audio_encoder.encoder.")
+        for k, m in audio.named_children():
+            if k != "encoder":
+                out += _port_named(m, ("model", "audio_encoder", k),
+                                   f"model.audio_encoder.{k}.")
+        for k, m in inner.named_children():
+            if k != "audio_encoder":
+                out += _port_named(m, ("model", k), f"model.{k}.")
+        out += _port_named(children["loss"], ("loss",), "loss.")
+    elif "encoder" in children and _is_body(children["encoder"]):
+        out = _port_body(children["encoder"], ("encoder",), "encoder.")
+        for k, m in children.items():
+            if k == "proj":
+                out.append((("proj", "kernel"), "proj.weight", _t))
+                out.append((("proj", "bias"), "proj.bias", _same))
+            elif k != "encoder":
+                out += _port_named(m, (k,), f"{k}.")
+    else:
+        out = _port_named(model, (), "")
+    have = sorted(model.state_dict())
+    if sorted(k for _, k, _ in out) != have:
+        missing = sorted(set(have) - {k for _, k, _ in out})
+        raise KeyError(f"{type(model).__name__}: state dict entries "
+                       f"without a JAX path: {missing[:5]}")
+    return out
+
+
+def _set_path(tree: Dict[str, Any], path: Tuple[str, ...], value) -> None:
+    for p in path[:-1]:
+        tree = tree.setdefault(p, {})
+    tree[path[-1]] = value
+
+
+def _get_path(tree: Any, path: Tuple[str, ...]):
+    for p in path:
+        if not isinstance(tree, Mapping) or p not in tree:
+            return None
+        tree = tree[p]
+    return tree
+
+
+def jax_from_params(model: torch.nn.Module,
+                    state: Mapping[str, torch.Tensor] = None
+                    ) -> Dict[str, Any]:
+    """The JAX params tree (numpy) of a port model: the inverse of
+    :func:`params_from_jax` through the same (JAX path, port key,
+    transform) triples (:func:`model_assignments`), so
+    ``params_from_jax(jax_from_params(m))`` is ``m.state_dict()``
+    bitwise. ``state`` (a state dict laid out like the model's, such as
+    its AdamW moments) is converted in place of the model's own."""
+    state = model.state_dict() if state is None else state
+    tree: Dict[str, Any] = {}
+    for path, key, tf in model_assignments(model):
+        _set_path(tree, path, np.array(tf(_as_numpy(state[key]))))
+    return tree
+
+
+def load_jax_params(tree: Mapping[str, Any], model: torch.nn.Module,
+                    strict: bool = False) -> List[Tuple[str, ...]]:
+    """Overlay a JAX params tree on ``model``'s weights as the JAX
+    ``merge_params`` overlays it on an initialised tree: the model's
+    entries the tree lacks keep their values, the tree's leaves the model
+    lacks are dropped; returns the dropped paths. ``strict``: the tree
+    must be the model's, every leaf (``KeyError`` otherwise)."""
+    merged = model.state_dict()
+    used = set()
+    for path, key, tf in model_assignments(model):
+        leaf = _get_path(tree, path)
+        if leaf is None:
+            if strict:
+                raise KeyError(f"{'/'.join(path)}: not in the JAX tree")
+            continue
+        value = torch.from_numpy(np.array(tf(_as_numpy(leaf))))
+        if value.shape != merged[key].shape:
+            raise ValueError(f"{'/'.join(path)}: shape {tuple(value.shape)}"
+                             f", the model's {tuple(merged[key].shape)}")
+        merged[key] = value.to(merged[key].dtype)
+        used.add(path)
+    dropped = [p for p in tree_paths(tree) if p not in used]
+    if strict and dropped:
+        raise KeyError(f"JAX leaves the model lacks: {dropped[:5]}")
+    model.load_state_dict(merged, strict=True)
+    return dropped
+
+
+def tree_paths(tree: Any, prefix: Tuple[str, ...] = ()
+               ) -> List[Tuple[str, ...]]:
+    """The key paths of a nested mapping's leaves."""
+    if isinstance(tree, Mapping):
+        out = []
+        for k, v in tree.items():
+            out += tree_paths(v, prefix + (str(k),))
+        return out
+    return [prefix]
+
+
+def jax_opt_state(optim: str, count: int, mu: Any = None, nu: Any = None,
+                  b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
+                  weight_decay: float = 0.0, learning_rate: float = 0.0
+                  ) -> Dict[str, Any]:
+    """The optimizer state the JAX package's ``create_optimizer(optim)``
+    keeps, as Orbax restores it without a target: ``adamw`` and ``adam``
+    (optax ``inject_hyperparams``: ``count``, the hyperparameters, the
+    schedule's count and the moments in ``inner_state[0]``),
+    ``fused_adamw`` (``FusedAdamWState``: ``count``, ``mu``, ``nu``) and
+    ``sgd`` (``inject_hyperparams(sgd)``, no moments). ``mu`` and ``nu``
+    are JAX trees (:func:`jax_from_params`). ``learning_rate`` is the
+    schedule's value at the last update, which optax keeps but recomputes
+    from the count at the next one."""
+    c = np.asarray(count, np.int32)
+    f32 = lambda v: np.asarray(v, np.float32)  # noqa: E731
+    if optim == "fused_adamw":
+        return {"count": c, "mu": mu, "nu": nu}
+    if optim == "sgd":
+        hyper, inner = {"learning_rate": f32(learning_rate)}, [None, None]
+    elif optim in ("adamw", "adam"):
+        hyper = {"b1": f32(b1), "b2": f32(b2), "eps": f32(eps),
+                 "eps_root": f32(0.0), "learning_rate": f32(learning_rate)}
+        inner = [{"count": c, "mu": mu, "nu": nu}, None]
+        if optim == "adamw":
+            hyper["weight_decay"] = f32(weight_decay)
+            inner.append(None)
+    else:
+        raise ValueError(f"Unknown optimizer {optim!r}")
+    return {"count": c, "hyperparams": hyper,
+            "hyperparams_states": {"learning_rate": {"count": c}},
+            "inner_state": inner}

@@ -35,13 +35,14 @@ from audio8_tpu_torch.config import TextLMConfig
 from audio8_tpu_torch.models.text import CausalTextLM
 from audio8_tpu_torch.ops.ctc import ctc_loss
 from audio8_tpu_torch.train.checkpoint import (find_latest_checkpoint,
-                                               load_port_checkpoint)
+                                               load_model_weights)
 from audio8_tpu_torch.utils import Offsets
 
 
 class NeuralLMRescorer:
     """Configures itself from a ``cli.train_lm`` basedir
-    (``lm_config.json`` and the latest ``checkpoint-step-N.pt``) and
+    (``lm_config.json`` and the latest ``checkpoint-step-N.pt``), or the
+    JAX ``a8t-train-lm`` one (its latest Orbax ``checkpoint-step-N``), and
     scores letter or BPE id sequences with the LM on ``device``."""
 
     def __init__(self, lm_dir: str, alpha: float = 0.5,
@@ -55,11 +56,8 @@ class NeuralLMRescorer:
         self.word_bonus = float(word_bonus)
         self.device = torch.device(device)
         path, _ = find_latest_checkpoint(lm_dir)
-        weights = load_port_checkpoint(path, "lm")
-        if weights is None:
-            raise ValueError(f"{path} is not an LM checkpoint of the port")
         self.model = CausalTextLM(self.config, dtype)
-        self.model.load_state_dict(weights, strict=True)
+        load_model_weights(path, self.model, "lm")
         self.model.to(self.device)
 
     @torch.inference_mode()

@@ -14,9 +14,15 @@ resume file (``{base}-step-N.resume``, torch state dicts) that holds what a
 restart needs to continue the same run: the optimizer (``adamw`` with
 its moments, or ``sgd``) and its step count (the LR schedule's
 position), the trainer's step (in pretraining also the Gumbel
-temperature's), the parameter names and the model kind.
-Orbax checkpoints of the JAX package do not cross; the two packages meet
-through the fairseq ``.pt``.
+temperature's), the parameter names, the model kind, and the JAX
+optimizer (``create_optimizer``'s name) with its hyperparameters.
+
+An Orbax directory (``{base}-step-N`` with a ``_METADATA`` file) is a
+checkpoint of the JAX package, read by ``train/orbax.py`` with the
+port's own zstd, OCDBT and zarr readers: a run's directory may hold
+both kinds, and :func:`find_latest_checkpoint` takes the newer.
+``cli.convert_checkpoint --output_format orbax`` writes one back for
+the JAX package.
 """
 from __future__ import annotations
 
@@ -27,8 +33,10 @@ from typing import Optional, Tuple
 import torch
 
 from audio8_tpu_torch.models.convert import (load_fairseq_pretrained,
+                                             load_jax_params,
                                              save_fairseq_ctc,
                                              save_fairseq_pretrained)
+from audio8_tpu_torch.train import orbax
 
 RESUME_SUFFIX = ".resume"
 KINDS = ("ctc", "pretrain", "hubert", "data2vec", "seq2seq", "paired",
@@ -45,16 +53,24 @@ def parse_checkpoint_step(path: str) -> int:
 
 def find_latest_checkpoint(ckpt_dir: str, base: str = "checkpoint"
                            ) -> Tuple[str, int]:
-    """The latest ``{base}-step-N.pt`` under ``ckpt_dir`` -> (path, N)."""
-    best, best_step = None, -1
-    pat = re.compile(re.escape(base) + r"-step-(\d+)\.pt$")
+    """The latest checkpoint under ``ckpt_dir`` -> (path, N): the port's
+    ``{base}-step-N.pt`` or the JAX package's Orbax directory
+    ``{base}-step-N``, whichever has the higher step. Both kinds at that
+    step raise ``ValueError`` naming both."""
+    found = {}
+    pat = re.compile(re.escape(base) + r"-step-(\d+)(\.pt)?$")
     for name in os.listdir(ckpt_dir):
         m = pat.match(name)
-        if m and int(m.group(1)) > best_step:
-            best, best_step = os.path.join(ckpt_dir, name), int(m.group(1))
-    if best is None:
+        path = os.path.join(ckpt_dir, name)
+        if m and (m.group(2) or orbax.is_orbax_dir(path)):
+            found.setdefault(int(m.group(1)), []).append(path)
+    if not found:
         raise FileNotFoundError(f"No checkpoints under {ckpt_dir}")
-    return best, best_step
+    step = max(found)
+    if len(found[step]) > 1:
+        raise ValueError(f"two checkpoints at step {step}: "
+                         f"{sorted(found[step])}; remove one")
+    return found[step][0], step
 
 
 def resume_path(checkpoint: str) -> str:
@@ -79,7 +95,8 @@ def save_checkpoint(state, path: str, kind: str) -> str:
             path)
     opt = state.opt_state
     blob = {"kind": kind, "step": int(state.step), "count": int(opt.count),
-            "names": list(state.names), "optim": _optim_name(opt)}
+            "names": list(state.names), "optim": _optim_name(opt),
+            "jax_optim": state.tx.optim, "hyper": optim_hyper(state)}
     if blob["optim"] == "adamw":
         for key in ("mu", "nu"):
             blob[key] = {n: m.detach().cpu()
@@ -90,21 +107,38 @@ def save_checkpoint(state, path: str, kind: str) -> str:
 
 def load_teacher(teacher: torch.nn.Module,
                  restart_from: str) -> Optional[str]:
-    """Load the latest ``teacher-step-N.pt`` beside ``restart_from`` (a
-    run's directory or a checkpoint in it) into ``teacher``, as the JAX
-    entry point's ``find_latest_checkpoint(..., base="teacher")`` restores it;
-    returns its path, or ``None`` when there is none (the teacher then
-    stays the student's copy)."""
+    """Load the latest teacher checkpoint beside ``restart_from`` (a run's
+    directory or a checkpoint in it) into ``teacher``, as the JAX
+    entry point's ``find_latest_checkpoint(..., base="teacher")`` restores it:
+    the port's ``teacher-step-N.pt`` or the JAX package's Orbax
+    ``teacher-step-N`` (a params tree); returns its path, or ``None`` when
+    there is none (the teacher then stays the student's copy)."""
     directory = (restart_from if os.path.isdir(restart_from)
-                 else os.path.dirname(restart_from))
+                 and not orbax.is_orbax_dir(restart_from)
+                 else os.path.dirname(restart_from.rstrip("/")))
     try:
         path, _ = find_latest_checkpoint(directory or ".", TEACHER_BASE)
     except (FileNotFoundError, OSError):
         return None
+    if orbax.is_orbax_dir(path):
+        load_model_weights(path, teacher, "data2vec")
+        return path
     state = load_fairseq_pretrained(path)
     teacher.load_state_dict({k: state[k].to(v.dtype) for k, v in
                              teacher.state_dict().items()}, strict=True)
     return path
+
+
+def optim_hyper(state) -> dict:
+    """The optimizer's hyperparameters a JAX optimizer state keeps
+    (``models/convert.py:jax_opt_state``): the betas, eps, weight decay
+    and the schedule's rate at the last update."""
+    tx = state.tx
+    count = int(state.opt_state.count)
+    return {"b1": getattr(tx, "b1", 0.9), "b2": getattr(tx, "b2", 0.999),
+            "eps": getattr(tx, "eps", 1e-8),
+            "weight_decay": getattr(tx, "weight_decay", 0.0),
+            "learning_rate": float(tx.lr_schedule(max(count - 1, 0)))}
 
 
 def _optim_name(opt_state) -> str:
@@ -131,6 +165,20 @@ def load_resume(state, checkpoint: str, kind: str) -> Optional[int]:
     state.load_opt_state(blob["count"], blob.get("mu"), blob.get("nu"))
     state.step = int(blob["step"])
     return state.step
+
+
+def load_model_weights(path: str, model: torch.nn.Module, kind: str) -> None:
+    """Load the port's own ``.pt`` of ``kind``, or a JAX Orbax
+    checkpoint's params tree (exactly the model's leaves, as the JAX
+    entry points apply it), into ``model``."""
+    if orbax.is_orbax_dir(path):
+        tree = orbax.load_checkpoint(path)
+        load_jax_params(tree.get("params", tree), model, strict=True)
+        return
+    weights = load_port_checkpoint(path, kind)
+    if weights is None:
+        raise ValueError(f"{path} is not a {kind} checkpoint of the port")
+    model.load_state_dict(weights, strict=True)
 
 
 def load_port_checkpoint(path: str, kind: str) -> Optional[dict]:

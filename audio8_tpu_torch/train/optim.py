@@ -78,7 +78,12 @@ class AdamWState:
 
 
 class AdamW:
-    """AdamW with optax.adamw semantics through the fused kernel."""
+    """AdamW with optax.adamw semantics through the fused kernel.
+    ``optim`` names the JAX optimizer it stands for (``adamw``,
+    ``fused_adamw`` or ``adam``), whose state layout an Orbax checkpoint
+    carries."""
+
+    optim = "adamw"
 
     def __init__(self, lr_schedule: Callable[[int], float], b1: float = 0.9,
                  b2: float = 0.999, eps: float = 1e-8,
@@ -121,6 +126,8 @@ class SGD:
     (no momentum): ``p + (-lr) * (grad_scale * g)`` per leaf, with the
     rate from the schedule at the pre-increment count."""
 
+    optim = "sgd"
+
     def __init__(self, lr_schedule: Callable[[int], float]):
         self.lr_schedule = lr_schedule
 
@@ -146,14 +153,18 @@ def create_optimizer(lr_schedule: Callable, optim: str = "adamw",
                      weight_decay: float = 0.0, beta1: float = 0.9,
                      beta2: float = 0.999, eps: float = 1e-8):
     """``AdamW`` (``adamw``, ``fused_adamw``; ``adam`` without weight
-    decay) or ``SGD`` (``sgd``), as the JAX ``create_optimizer``."""
+    decay) or ``SGD`` (``sgd``), as the JAX ``create_optimizer``; its
+    ``optim`` is the name given."""
     if optim in ("adamw", "fused_adamw"):
-        return AdamW(lr_schedule, beta1, beta2, eps, weight_decay)
-    if optim == "adam":
-        return AdamW(lr_schedule, beta1, beta2, eps, 0.0)
-    if optim == "sgd":
-        return SGD(lr_schedule)
-    raise ValueError(f"Unknown optimizer {optim!r}")
+        tx = AdamW(lr_schedule, beta1, beta2, eps, weight_decay)
+    elif optim == "adam":
+        tx = AdamW(lr_schedule, beta1, beta2, eps, 0.0)
+    elif optim == "sgd":
+        tx = SGD(lr_schedule)
+    else:
+        raise ValueError(f"Unknown optimizer {optim!r}")
+    tx.optim = optim
+    return tx
 
 
 def global_norm(grads: Sequence[torch.Tensor]) -> torch.Tensor:

@@ -400,6 +400,26 @@ instead, to compare.
               in float32 and bfloat16 with a nonzero row base, and bases
               past the 2**32 wrap, against their plain versions, with
               their ms at base 0 and at the base;
+24. orbax   - the JAX package's Orbax checkpoints, read with the port's
+              own zstd, OCDBT and zarr readers (no tensorstore on the
+              card's machine): (a) the committed
+              ``tests/fixtures/orbax_golden`` (written by the JAX
+              package) reads bitwise to its ``expected.npz``; its CTC
+              TrainState resumes for 2 steps and its pretraining one for
+              1 on the card (every dropout 0.1 on the resumed models),
+              each first loss held to a CPU resume of the same directory
+              on the same batch and seeds (TRAIN_LOSS_RTOL; the
+              pretraining loss PRETRAIN_LOSS_RTOL where a Gumbel code
+              flips), and the kernels each run launched; (b)
+              ``cli.train`` at full width (4 of the 12 layers) for 2 SGD
+              steps, ``cli.convert_checkpoint --output_format orbax`` of
+              its ``.pt`` and resume file, then one more step resumed
+              from the Orbax directory and one from the ``.pt`` (cuDNN's
+              deterministic algorithms): losses equal, parameters
+              bitwise; ``cli.transcribe`` on the Orbax directory gives
+              the ``.pt``'s log-probs bitwise and its text; the reader's
+              and the writer's host seconds for the full-width
+              directory, its bytes and the phase's bytes written;
 
 then a ``phase_seconds`` line (each phase's wall seconds and each phase's
 retried profiler traces, ``trace_retries``), a ``kernels``
@@ -423,6 +443,7 @@ card it exits with code 2 and prints no result.
     python3 chip_smoke.py --ssl-phases       # the build and phase 20 only
     python3 chip_smoke.py --decode-phases    # the build and phase 21 only
     python3 chip_smoke.py --moe-phases       # the build and phase 22 only
+    python3 chip_smoke.py --orbax-phases     # the build and phase 24 only
     python3 chip_smoke.py --dp-phases        # the build and phase 23 only
     python3 chip_smoke.py --dp-timing        # rows 2, 2b, 4, 6, 6b only
 
@@ -475,6 +496,7 @@ import io
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -7430,8 +7452,6 @@ def ssl_targets(tmp: str, corpus: str, cfg, seed: int) -> dict:
     card, whose ids on SSL_CPU_CLIPS validation clips are recomputed from
     CPU features of the same weights (the same centroids): equal, or the
     card's choice within SSL_TIE_RTOL of the CPU's best distance."""
-    import shutil
-
     from audio8_tpu_torch.cli import cluster_targets
     from audio8_tpu_torch.config import CONV_FEATURES, conv_output_length
     from audio8_tpu_torch.data.audio import SoundfileAudioReader
@@ -9415,6 +9435,296 @@ def dp_phases(gen) -> int:
     return 0
 
 
+# ------------------------------------------------------------------ phase 24
+
+ORBAX_GOLDEN = os.path.join(HERE, "tests", "fixtures", "orbax_golden")
+# (a): the fixture's tiny models resumed with every dropout at 0.1, so
+# the hash dropout (kernel 4) runs; the CTC model's extractor trains, so
+# its stride-2 conv runs forward and backward
+ORBAX_DROPOUT = 0.1
+ORBAX_STEPS = {"ctc": 2, "pretrain": 1}
+ORBAX_CTC_PATH = ("conv_k3s2_fwd", "conv_k3s2_dgrad", "conv_k3s2_wgrad",
+                  "attention_fwd", "attention_bwd", "dropout", "ctc_loss",
+                  "adamw")
+# (b): cli.train at full width, 4 of the 12 layers (phase 23's cut), SGD;
+# validate_on = 1, so every step writes a checkpoint (about 150 MB each)
+ORBAX_LAYERS = DP_LAYERS
+ORBAX_SIZE = ["--num_layers", str(ORBAX_LAYERS)]
+ORBAX_CLI_FLAGS = ["--target_tokens_per_batch", "700000", "--grad_accum",
+                   "1", "--unfreeze_enc_after_step", "0", "--warmup_steps",
+                   "1", "--valid_steps", "1", "--optim", "sgd"]
+ORBAX_FULL_PATH = ("conv_k3s2_fwd", "attention_fwd", "attention_bwd",
+                   "ctc_loss", "dropout")
+
+
+def orbax_model(kind: str, manifest: dict, device: str):
+    """The fixture's ``kind`` model (dropout ORBAX_DROPOUT) and its
+    TrainState on ``device``, restored from the fixture's directory by
+    ``cli.common.resolve_restart`` (the full state: step 2)."""
+    from audio8_tpu_torch.cli.common import resolve_restart
+    from audio8_tpu_torch.config import AcousticConfig, PretrainConfig
+    from audio8_tpu_torch.models.wav2vec2 import (Wav2Vec2AcousticModel,
+                                                  Wav2Vec2Model)
+    from audio8_tpu_torch.train.optim import (TrainState, create_lrs,
+                                              create_optimizer)
+
+    cfg = dict(manifest[kind]["config"])
+    cfg["custom_conv_features"] = tuple(map(tuple,
+                                            cfg["custom_conv_features"]))
+    for k in ("dropout", "attention_dropout", "dropout_input",
+              "dropout_features"):
+        cfg[k] = ORBAX_DROPOUT
+    model = (Wav2Vec2AcousticModel(AcousticConfig(**cfg)) if kind == "ctc"
+             else Wav2Vec2Model(PretrainConfig(**cfg))).to(device)
+    opt = manifest[kind]
+    state = TrainState(model, create_optimizer(
+        create_lrs(**manifest["schedule"]), opt["optim"],
+        opt["weight_decay"]))
+    step = resolve_restart(os.path.join(ORBAX_GOLDEN, kind), state,
+                           ctc=kind == "ctc")
+    check(step == state.opt_state.count == manifest["steps"],
+          f"orbax (a): {kind} restored step {step}, count "
+          f"{state.opt_state.count}: not the full state")
+    return state
+
+
+def orbax_resume(kind: str, manifest: dict, device: str, seed: int) -> dict:
+    """ORBAX_STEPS[kind] steps of the fixture's TrainState resumed on
+    ``device``: the losses, the first step's Gumbel codes (pretraining)
+    and, on the card, the launches."""
+    from tools.make_orbax_golden_fixtures import ctc_batch, pretrain_signal
+    from audio8_tpu_torch.models.wav2vec2 import PretrainSeeds
+    from audio8_tpu_torch.train.steps import (make_ctc_steps,
+                                              make_pretrain_steps)
+
+    state = orbax_model(kind, manifest, device)
+    model, opt = state.model, manifest[kind]
+    losses, codes = [], []
+    reset_launches()
+    if kind == "ctc":
+        batch = {k: torch.from_numpy(v).to(device) for k, v in
+                 ctc_batch(opt["batch_seed"]).items()}
+        grad_fn, update_fn, _ = make_ctc_steps(model, clip=opt["clip"])
+        for i in range(ORBAX_STEPS[kind]):
+            loss, grads, bsz, _ = grad_fn(
+                batch, torch.Generator().manual_seed(seed + i), freeze=False)
+            update_fn(state, grads, bsz)
+            losses.append(float(loss))
+    else:
+        signal = torch.from_numpy(pretrain_signal(
+            opt["signal_seed"])).to(device)
+        step, _ = make_pretrain_steps(
+            model, clip=opt["clip"],
+            n_negatives=opt["config"]["n_negatives"])
+        hook = model.quantizer.register_forward_hook(
+            lambda m, i, o: codes.append(o[2].cpu()))
+        for i in range(ORBAX_STEPS[kind]):
+            _, metrics = step(state, signal, PretrainSeeds(
+                mask=seed + 11 * i + 1, gumbel=seed + 11 * i + 2,
+                negatives=seed + 11 * i + 3),
+                torch.Generator().manual_seed(seed + i))
+            losses.append(float(metrics["loss"]))
+        hook.remove()
+    launches = read_launches()
+    check(all(np.isfinite(losses)), f"orbax (a): {kind} losses {losses}")
+    return {"losses": losses, "codes": codes, "launches": launches}
+
+
+def orbax_golden(seed: int) -> dict:
+    """Phase 24 (a); returns the card runs' launches, summed."""
+    from audio8_tpu_torch.csrc import native
+    from audio8_tpu_torch.models.convert import params_from_jax
+    from audio8_tpu_torch.train.orbax import load_checkpoint
+    from audio8_tpu_torch.utils import Offsets
+
+    with open(os.path.join(ORBAX_GOLDEN, "MANIFEST.json")) as f:
+        manifest = json.load(f)
+    expected = np.load(os.path.join(ORBAX_GOLDEN, "expected.npz"))
+    Offsets.remap_fairseq_ctc()  # the fixture's CTC blank
+    t0 = time.perf_counter()
+    native.lib()  # the host library's zstd, built outside the timed reads
+    emit({"phase": "orbax", "host_library_s": time.perf_counter() - t0})
+    launches = {}
+    for kind in ("ctc", "pretrain"):
+        path = os.path.join(ORBAX_GOLDEN, kind, "checkpoint-step-2")
+        t0 = time.perf_counter()
+        tree = load_checkpoint(path)
+        read_s = time.perf_counter() - t0
+        sd, (count, mu, nu) = params_from_jax(tree["params"],
+                                              tree["opt_state"])
+        got = {"count": np.asarray(count),
+               "step": np.asarray(int(tree["step"]))}
+        for part, d in (("params", sd), ("mu", mu), ("nu", nu)):
+            got.update({f"{part}/{k}": v.numpy() for k, v in d.items()})
+        want = {k[len(kind) + 1:] for k in expected.files
+                if k.startswith(kind + "/")}
+        check(set(got) == want and all(
+            np.array_equal(expected[f"{kind}/{k}"], v)
+            for k, v in got.items()),
+            f"orbax (a): the {kind} fixture does not read bitwise to "
+            "expected.npz")
+        card = orbax_resume(kind, manifest, "cuda", seed)
+        cpu = orbax_resume(kind, manifest, "cpu", seed)
+        rtol = TRAIN_LOSS_RTOL
+        agree = None
+        if kind == "pretrain":
+            agree = float((card["codes"][0] == cpu["codes"][0]).float()
+                          .mean())
+            rtol = TRAIN_LOSS_RTOL if agree == 1.0 else PRETRAIN_LOSS_RTOL
+        err = rel(card["losses"][0], cpu["losses"][0])
+        path_of = ORBAX_CTC_PATH if kind == "ctc" else PRETRAIN_PATH
+        ran = card["launches"]
+        emit({"phase": "orbax", "part": "a", "kind": kind,
+              "read_s": read_s, "bytes": tree_bytes(path),
+              "bitwise_expected": True, "steps": ORBAX_STEPS[kind],
+              "losses": card["losses"], "cpu_losses": cpu["losses"],
+              "first_loss_rel_err": err, "rtol": rtol,
+              "code_agreement": agree,
+              "launches": {k: ran[k] for k in path_of}})
+        check(err <= rtol, f"orbax (a): {kind} first loss card vs CPU "
+                           f"{err} > {rtol}")
+        for k in path_of:
+            check(ran[k] > 0, f"orbax (a): {k} not launched by the {kind} "
+                              "resume")
+            launches[k] = launches.get(k, 0) + ran[k]
+    return launches
+
+
+def orbax_full(tmp: str, seed: int) -> dict:
+    """Phase 24 (b); returns the launches of the Orbax resume."""
+    from scipy.io import wavfile
+
+    from audio8_tpu_torch.cli import convert_checkpoint, transcribe
+    from audio8_tpu_torch.cli.train import train
+    from audio8_tpu_torch.models.text import read_vocab_list
+    from audio8_tpu_torch.train import orbax
+    from audio8_tpu_torch.train.checkpoint import find_latest_checkpoint
+
+    corpus = os.path.join(tmp, "orbax_corpus")
+    os.makedirs(corpus)
+    write_corpus(corpus, seed + 90)
+    argv = ["--root_dir", corpus, "--train_dataset", "train.tsv",
+            "--valid_dataset", "valid.tsv", "--device", "cuda",
+            *ORBAX_CLI_FLAGS, *ORBAX_SIZE]
+    run = os.path.join(tmp, "orbax_run")
+    with timed("orbax_train"):
+        train(argv + ["--basedir", run, "--train_steps", "2"])
+    pt, step = find_latest_checkpoint(run)
+    check(step == 2 and pt.endswith(".pt"), f"orbax (b): trained {pt}")
+    dict_file = os.path.join(corpus, "dict.ltr.txt")
+    t0 = time.perf_counter()
+    out = convert_checkpoint.main([
+        "--input", pt, "--output", os.path.join(tmp, "orbax_conv",
+                                                "checkpoint"),
+        "--output_format", "orbax", "--ctc", "true", "--num_labels",
+        str(len(read_vocab_list(dict_file))), *ORBAX_SIZE])
+    convert_s = time.perf_counter() - t0
+    written = tree_bytes(out)
+    t0 = time.perf_counter()
+    tree = orbax.load_checkpoint(out)
+    read_s = time.perf_counter() - t0
+    check(int(tree["step"]) == 2 and "opt_state" in tree,
+          "orbax (b): the converted directory is not the TrainState")
+    t0 = time.perf_counter()  # the writer alone, on the same tree
+    again = orbax.save_checkpoint(tree, os.path.join(tmp, "orbax_rewrite"),
+                                  2)
+    write_s = time.perf_counter() - t0
+    shutil.rmtree(again)
+    del tree
+    # the positional conv's backward: cuDNN's deterministic algorithms,
+    # so the two resumed runs can be bitwise equal
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        with timed("orbax_resume"):
+            reset_launches()
+            a = train(argv + ["--basedir", os.path.join(tmp, "orbax_a"),
+                              "--train_steps", "3", "--restart_from", out])
+            launches = read_launches()
+            pa = [p.detach().cpu() for p in a.params]
+            la = [r["loss"] for r in a.log]
+            del a
+            torch.cuda.empty_cache()
+            b = train(argv + ["--basedir", os.path.join(tmp, "orbax_b"),
+                              "--train_steps", "3", "--restart_from", run])
+            pb = [p.detach().cpu() for p in b.params]
+            lb = [r["loss"] for r in b.log]
+            del b
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    diff = max(float((x - y).abs().max()) for x, y in zip(pa, pb))
+    check(len(la) == len(lb) == 1 and la == lb,
+          f"orbax (b): resumed losses {la} (Orbax) vs {lb} (.pt)")
+    check(diff == 0.0, f"orbax (b): resumed parameters differ by {diff}")
+    for k in ORBAX_FULL_PATH:
+        check(launches[k] > 0, f"orbax (b): {k} not launched")
+    with timed("orbax_transcribe"):
+        rng = np.random.default_rng(seed + 91)
+        wav = synthetic_speechlike(6.0, rng)
+        wav_path = os.path.join(tmp, "orbax_utt.wav")
+        wavfile.write(wav_path, SR, (np.clip(wav, -1, 1) * 32767)
+                      .astype(np.int16))
+        common = ["--dict_file", dict_file, *ORBAX_SIZE, "--device", "cuda"]
+        sig = torch.from_numpy(wav.astype(np.float32))[None].cuda()
+        lens = torch.tensor([len(wav)], device="cuda")
+        lps = []
+        for ckpt in (out, pt):
+            args = transcribe.parse_args(["--checkpoint", ckpt, *common,
+                                          wav_path])
+            _, forward, _, _, _ = transcribe.load_acoustic(args)
+            lps.append(forward(sig, lens)[0].cpu())
+            del forward
+            torch.cuda.empty_cache()
+        texts = [transcribe.main(["--checkpoint", c, *common, wav_path])
+                 for c in (out, pt)]
+    check(torch.equal(lps[0], lps[1]),
+          "orbax (b): transcribe's log-probs from the Orbax directory are "
+          "not the .pt's")
+    check(texts[0] == texts[1], f"orbax (b): transcripts {texts}")
+    emit({"phase": "orbax", "part": "b", "card": card_name(),
+          "layers": ORBAX_LAYERS, "flags": ORBAX_CLI_FLAGS,
+          "orbax_dir_bytes": written, "convert_s": convert_s,
+          "write_s": write_s, "read_s": read_s,
+          "resumed_loss": la, "params_bitwise_equal": True,
+          "logprobs_bitwise_equal": True, "transcript": texts[0],
+          "launches": {k: launches[k] for k in ORBAX_FULL_PATH}})
+    return launches
+
+
+def phase_orbax(tmp: str, seed: int) -> dict:
+    """Phase 24 (module docstring). Returns the launches of (a)'s card
+    resumes and (b)'s Orbax resume, summed."""
+    start = time.perf_counter()
+    with timed("orbax"):
+        launches = orbax_golden(seed)
+        for k, n in orbax_full(tmp, seed).items():
+            launches[k] = launches.get(k, 0) + n
+    emit({"phase": "orbax", "seconds": time.perf_counter() - start,
+          "bytes_written": tree_bytes(*(os.path.join(tmp, d) for d in (
+              "orbax_corpus", "orbax_run", "orbax_conv", "orbax_a",
+              "orbax_b", "orbax_utt.wav") if os.path.exists(
+                  os.path.join(tmp, d)))),
+          "launches": {k: launches.get(k, 0) for k in REPLACES}})
+    return {k: launches.get(k, 0) for k in REPLACES}
+
+
+def orbax_phases() -> int:
+    """The build and phase 24 alone (``--orbax-phases``), then the phase
+    seconds, the card and the last line."""
+    with timed("build"):
+        phase_build()
+    with tempfile.TemporaryDirectory() as tmp:
+        launches = phase_orbax(tmp, SEED)
+    emit({"phase": "phase_seconds", **PHASE_SECONDS})
+    emit({"phase": "orbax_phases", "launches": launches})
+    print_card()
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if not torch.cuda.is_available():
@@ -9454,6 +9764,8 @@ def main(argv=None) -> int:
         return moe_phases(gen)
     if argv == ["--dp-phases"]:
         return dp_phases(gen)
+    if argv == ["--orbax-phases"]:
+        return orbax_phases()
     inference_first = argv == ["--inference-first"]
     if argv and not inference_first:
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
@@ -9561,6 +9873,8 @@ def main(argv=None) -> int:
         dp_launches, errs = phase_dp(tmp, SEED, gen)
         for k, e in errs.items():
             worst[k] = max(worst[k], e)
+        torch.cuda.empty_cache()
+        orbax_launches = phase_orbax(tmp, SEED)
     emit({"phase": "phase_seconds", **PHASE_SECONDS,
           "inference_first": inference_first,
           "trace_retries": {str(k): n for k, n in TRACE_RETRIES.items()},
@@ -9645,6 +9959,7 @@ def main(argv=None) -> int:
          "decode_rescore_launches": rescore_launches.get(name, 0),
          "moe_launches": moe_launches.get(name, 0),
          "dp_launches": dp_launches.get(name, 0),
+         "orbax_launches": orbax_launches.get(name, 0),
          "max_abs_err": worst[name],
          **{k: times[(name, torch.float32)][k] for k in keys},
          **extra(name)}

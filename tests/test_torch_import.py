@@ -1,10 +1,13 @@
 """The PyTorch port imports with jax, flax, the JAX package itself,
-``safetensors`` and ``transformers`` unavailable (the card's machine has
-none of them, and the port keeps its own copies of the host code it
-needs and reads safetensors files itself); no source of the port or of
-``chip_smoke.py`` imports any of them; and the entry points run on the
-card by default, raising on a machine without one rather than falling
-back to the CPU."""
+``safetensors``, ``transformers``, ``tensorstore``, ``orbax`` and
+``zstandard`` unavailable (the card's machine has none of them, and the
+port keeps its own copies of the host code it needs, reads safetensors
+files itself and reads Orbax checkpoints with its own zstd, OCDBT and
+zarr readers); no source of the port or of ``chip_smoke.py`` imports any
+of them; and the entry points run on the card by default, raising on a
+machine without one rather than falling back to the CPU
+(``cli.convert_checkpoint``, which runs on the host, keeps ``--device
+cuda`` and ``--output_format pt`` as its defaults)."""
 import os
 import pkgutil
 import re
@@ -61,7 +64,8 @@ def test_every_module_imports_with_jax_blocked():
                 "models.transducer", "ops.transducer", "data.mfcc",
                 "models.hubert", "models.data2vec", "cli.cluster_targets",
                 "cli.pretrain_hubert", "cli.pretrain_data2vec",
-                "parallel", "parallel.sharding"):
+                "parallel", "parallel.sharding", "train.orbax",
+                "train.ocdbt", "train.zarr"):
         assert f"audio8_tpu_torch.{new}" in mods
     code = (
         "import sys\n"
@@ -70,12 +74,15 @@ def test_every_module_imports_with_jax_blocked():
         "sys.modules['audio8_tpu'] = None\n"
         "sys.modules['safetensors'] = None\n"
         "sys.modules['transformers'] = None\n"
+        "for name in ('tensorstore', 'orbax', 'zstandard'):\n"
+        "    sys.modules[name] = None\n"
         "import importlib\n"
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
         "assert not any(k == 'jax' or k.startswith(('jax.', 'flax'))\n"
         "               or k == 'audio8_tpu' or k.startswith('audio8_tpu.')\n"
-        "               or k.startswith(('safetensors', 'transformers'))\n"
+        "               or k.startswith(('safetensors', 'transformers',\n"
+        "                                'tensorstore', 'orbax', 'zstandard'))\n"
         "               for k, v in sys.modules.items() if v is not None)\n"
         "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -85,14 +92,15 @@ def test_every_module_imports_with_jax_blocked():
 
 
 def test_no_source_imports_jax():
-    """Nor ``safetensors`` or ``transformers``, which the card's machine
-    lacks too."""
+    """Nor ``safetensors``, ``transformers``, ``tensorstore``, ``orbax``
+    or ``zstandard``, which the card's machine lacks too."""
     paths = [os.path.join(ROOT, "chip_smoke.py")]
     for dirpath, _, files in os.walk(PKG_DIR):
         paths += [os.path.join(dirpath, f) for f in files
                   if f.endswith(".py")]
     banned = tuple(f"{kw} {mod}" for kw in ("import", "from")
-                   for mod in ("jax", "flax", "safetensors", "transformers"))
+                   for mod in ("jax", "flax", "safetensors", "transformers",
+                               "tensorstore", "orbax", "zstandard"))
     offenders = []
     for path in paths:
         with open(path) as f:
@@ -207,3 +215,18 @@ def test_default_device_is_cuda_and_raises_without_a_card(
                              "--root_dir", str(tmp_path),
                              "--train_dataset", "t.tsv",
                              "--valid_dataset", "v.tsv"])
+
+
+def test_convert_checkpoint_defaults():
+    """The converter runs on the host, but keeps the entry points'
+    ``--device cuda`` default; its output stays the port's ``.pt`` unless
+    ``--output_format orbax`` is given."""
+    from audio8_tpu_torch.cli import convert_checkpoint
+
+    args = convert_checkpoint.parse_args(["--input", "a.pt", "--output",
+                                          "b"])
+    assert (args.device, args.output_format, args.format) == (
+        "cuda", "pt", "auto")
+    args = convert_checkpoint.parse_args(["--input", "a.pt", "--output",
+                                          "b", "--output_format", "orbax"])
+    assert args.output_format == "orbax"
