@@ -90,8 +90,6 @@ PARALLEL = "ROADMAP.md queue 1, item 8 (parallelism beyond DP)"
 # value raises; a flag an entry point does not have is skipped.
 NOT_PORTED = {
     "tensor_parallel": (1, PARALLEL),
-    "zero1": (False, PARALLEL),
-    "fsdp": (False, PARALLEL),
     "sequence_parallel": (False, PARALLEL),
     "pipeline_parallel": (1, PARALLEL),
     "lm": (None, DECODE),
@@ -187,16 +185,23 @@ def shard_kwargs(rank: int, world: int) -> dict:
             "row_shard": world > 1}
 
 
-def save_on_rank0(group, save, *args) -> None:
+def save_on_rank0(group, save, *args, whole=()) -> None:
     """``save(*args)`` on rank 0 of ``group`` only (always without a
     group); every rank then waits at a barrier, so no rank reads or
-    resumes from a file still being written."""
+    resumes from a file still being written. A ZeRO-1 or FSDP state
+    among ``args``, and the states and modules in ``whole``, are
+    gathered whole first, on every rank (``parallel/zero.py:
+    full_state``, a collective: a gather inside rank 0's save alone
+    would hang)."""
     import torch.distributed as dist
 
     from audio8_tpu_torch.parallel.sharding import barrier
+    from audio8_tpu_torch.parallel.zero import full_state
 
-    if group is None or dist.get_rank(group) == 0:
-        save(*args)
+    states = [a for a in args if getattr(a, "shards", None) is not None]
+    with full_state(*states, *whole):
+        if group is None or dist.get_rank(group) == 0:
+            save(*args)
     barrier(group)
 
 
@@ -256,8 +261,13 @@ def add_common_model_args(parser: ArgumentParser) -> None:
     add("--preset", choices=sorted(MODEL_PRESETS), default="base",
         help="model-size preset; individual size flags override it")
     add("--tensor_parallel", type=int, default=1, help="not ported yet")
-    add("--zero1", type=str2bool, default=False, help="not ported yet")
-    add("--fsdp", type=str2bool, default=False, help="not ported yet")
+    add("--zero1", type=str2bool, default=False,
+        help="shard the AdamW moments over the --distributed ranks "
+             "(parallel/zero.py; a trainer's flag, inert elsewhere)")
+    add("--fsdp", type=str2bool, default=False,
+        help="shard parameters, gradients and moments over the "
+             "--distributed ranks, gathering each layer as it runs "
+             "(implies --zero1; a trainer's flag, inert elsewhere)")
     add("--sequence_parallel", type=str2bool, default=False,
         help="not ported yet")
     add("--moe_experts", type=int, default=0,

@@ -60,6 +60,7 @@ from audio8_tpu_torch.data.datasets import (AudioFileDataset,
                                             PrefetchLoader)
 from audio8_tpu_torch.models.wav2vec2 import PretrainSeeds, Wav2Vec2Model
 from audio8_tpu_torch.parallel.sharding import sync_from_rank0
+from audio8_tpu_torch.parallel.zero import shard_state
 from audio8_tpu_torch.train.checkpoint import save_checkpoint
 from audio8_tpu_torch.train.optim import (TrainState, create_lrs,
                                           create_optimizer)
@@ -194,6 +195,9 @@ def _train(args, device: torch.device, preempt: PreemptionGuard,
     n_params = sum(p.numel() for p in model.parameters())
     logger.info("Model has %s parameters on %s", f"{n_params:,}", device)
 
+    # ZeRO-1 / FSDP: the whole state restored and broadcast, now
+    # sharded (nothing without a group or at one rank)
+    shard_state(state, group, zero1=args.zero1, fsdp=args.fsdp)
     train_step, eval_step = make_pretrain_steps(
         model, clip=args.clip, n_negatives=args.n_negatives, group=group)
 

@@ -58,6 +58,7 @@ from audio8_tpu_torch.models.convert import save_fairseq_pretrained
 from audio8_tpu_torch.models.data2vec import Data2VecAudioModel
 from audio8_tpu_torch.ops.hashrand import draw_seed
 from audio8_tpu_torch.parallel.sharding import sync_from_rank0
+from audio8_tpu_torch.parallel.zero import shard_like, shard_state
 from audio8_tpu_torch.train.checkpoint import (TEACHER_BASE, load_teacher,
                                                save_checkpoint)
 from audio8_tpu_torch.train.optim import (TrainState, create_lrs,
@@ -192,6 +193,10 @@ def _train(args, device: torch.device, preempt: PreemptionGuard,
     logger.info("Model has %s parameters on %s (x2 with the EMA teacher)",
                 f"{n_params:,}", device)
 
+    # ZeRO-1 / FSDP: the whole state restored and broadcast, now
+    # sharded (nothing without a group or at one rank)
+    shard_state(state, group, zero1=args.zero1, fsdp=args.fsdp)
+    shard_like(teacher, state)
     train_step, eval_step = make_data2vec_steps(model, teacher,
                                                 clip=args.clip, group=group)
     validate_on = min(args.train_steps // 2, args.steps_per_checkpoint)
@@ -205,7 +210,7 @@ def _train(args, device: torch.device, preempt: PreemptionGuard,
         save_fairseq_pretrained(teacher, f"{teacher_base}-step-{step}.pt")
 
     def save_all(step: int) -> None:
-        save_on_rank0(group, save, step)
+        save_on_rank0(group, save, step, whole=(state, teacher))
 
     train_itr = iter(PrefetchLoader(train_set,
                                     num_workers=args.num_train_workers,

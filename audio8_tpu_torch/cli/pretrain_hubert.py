@@ -58,6 +58,7 @@ from audio8_tpu_torch.data.datasets import (AudioTextLetterDataset,
 from audio8_tpu_torch.models.hubert import HubertPretrainModel, HubertSeeds
 from audio8_tpu_torch.parallel.sharding import (global_sum_scalars,
                                                 sync_from_rank0)
+from audio8_tpu_torch.parallel.zero import shard_state
 from audio8_tpu_torch.train.checkpoint import save_checkpoint
 from audio8_tpu_torch.train.optim import (TrainState, create_lrs,
                                           create_optimizer)
@@ -205,6 +206,9 @@ def _train(args, device: torch.device, preempt: PreemptionGuard,
     n_params = sum(p.numel() for p in model.parameters())
     logger.info("Model has %s parameters on %s", f"{n_params:,}", device)
 
+    # ZeRO-1 / FSDP: the whole state restored and broadcast, now
+    # sharded (nothing without a group or at one rank)
+    shard_state(state, group, zero1=args.zero1, fsdp=args.fsdp)
     train_step, eval_step = make_hubert_steps(model, clip=args.clip,
                                               group=group)
     validate_on = min(args.train_steps // 2, args.steps_per_checkpoint)

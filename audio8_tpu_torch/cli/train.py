@@ -70,6 +70,7 @@ from audio8_tpu_torch.ops import metrics as M
 from audio8_tpu_torch.ops.beam import PrefixBeamSearch
 from audio8_tpu_torch.parallel.sharding import (global_sum_scalars,
                                                 sync_from_rank0)
+from audio8_tpu_torch.parallel.zero import shard_state
 from audio8_tpu_torch.train.checkpoint import save_checkpoint
 from audio8_tpu_torch.train.optim import (TrainState, create_lrs,
                                           create_optimizer)
@@ -251,6 +252,9 @@ def _train(args, device: torch.device, preempt: PreemptionGuard,
     n_params = sum(p.numel() for p in model.parameters())
     logger.info("Model has %s parameters on %s", f"{n_params:,}", device)
 
+    # ZeRO-1 / FSDP: the whole state restored and broadcast, now
+    # sharded (nothing without a group or at one rank)
+    shard_state(state, group, zero1=args.zero1, fsdp=args.fsdp)
     grad_fn, update_fn, eval_fn = make_ctc_steps(
         model, clip=args.clip, loss_reduction=args.loss_reduction_type,
         group=group)
@@ -373,14 +377,17 @@ def validate(eval_fn, valid_set, index2vocab, valid_steps, postproc,
         w_total += sm["w_total"]
         loss_sum += float(loss)
         n_batches += 1
-        if ctc_decoder is not None and n_real > 0:
+        if ctc_decoder is not None:
+            # every rank runs the forward (under FSDP it gathers: a
+            # collective); a rank with a real first row prints
             tbatch = _to_device(batch, device)
             with torch.no_grad():
                 lp, pad_mask = model(tbatch["signal"][:1],
                                      tbatch["signal_lengths"][:1])
-            print("".join(ctc_decoder.run(
-                lp.float().cpu().numpy(),
-                pad_mask.sum(dim=-1).cpu().numpy(), n_best=1)[0]))
+            if n_real > 0:
+                print("".join(ctc_decoder.run(
+                    lp.float().cpu().numpy(),
+                    pad_mask.sum(dim=-1).cpu().numpy(), n_best=1)[0]))
     c_errors, c_total, w_errors, w_total, loss_sum = global_sum_scalars(
         [c_errors, c_total, w_errors, w_total, loss_sum], group).tolist()
     return {"average_valid_loss": loss_sum / n_batches if n_batches else 0.0,

@@ -56,6 +56,7 @@ from audio8_tpu_torch.models.text import TextVectorizer, read_vocab_file
 from audio8_tpu_torch.ops import metrics as M
 from audio8_tpu_torch.parallel.sharding import (global_sum_scalars,
                                                 sync_from_rank0)
+from audio8_tpu_torch.parallel.zero import shard_state
 from audio8_tpu_torch.train.checkpoint import save_checkpoint
 from audio8_tpu_torch.train.optim import (TrainState, create_lrs,
                                           create_optimizer)
@@ -219,6 +220,9 @@ def _train(args, device: torch.device, preempt: PreemptionGuard,
     n_params = sum(p.numel() for p in model.parameters())
     logger.info("Model has %s parameters on %s", f"{n_params:,}", device)
 
+    # ZeRO-1 / FSDP: the whole state restored and broadcast, now
+    # sharded (nothing without a group or at one rank)
+    shard_state(state, group, zero1=args.zero1, fsdp=args.fsdp)
     grad_fn, update_fn, decode_fn, eval_loss_fn = make_seq2seq_steps(
         model, clip=args.clip, loss_reduction=args.loss_reduction_type,
         group=group)

@@ -61,6 +61,7 @@ from __future__ import annotations
 
 import functools
 import math
+import threading
 from typing import Optional
 
 import numpy as np
@@ -573,12 +574,26 @@ def run_layers(layers, x, generator, layer_drop: float,
     return x
 
 
+_REMAT = threading.local()
+
+
+def in_remat() -> bool:
+    """Whether this thread runs a layer under ``torch.utils.checkpoint``
+    (a remat forward or its recompute), whose saved-tensor hooks an FSDP
+    unit then leaves in charge (``parallel/zero.py``)."""
+    return getattr(_REMAT, "depth", 0) > 0
+
+
 def _replayed(layer, seeds, x, **kwargs):
     """``layer``'s forward with its dropout seeds given (a remat
     forward and its recompute); an MoE layer's returns ``(out, aux)``."""
     replay = SeedReplay(seeds)
-    with AuxLosses() as aux:
-        out = layer(x, generator=replay, **kwargs)
+    _REMAT.depth = getattr(_REMAT, "depth", 0) + 1
+    try:
+        with AuxLosses() as aux:
+            out = layer(x, generator=replay, **kwargs)
+    finally:
+        _REMAT.depth -= 1
     if replay.remaining:
         raise RuntimeError(f"{type(layer).__name__}: drew "
                            f"{len(seeds) - replay.remaining} of its "

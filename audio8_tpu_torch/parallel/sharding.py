@@ -235,6 +235,21 @@ def _flat_groups(tensors: Sequence[torch.Tensor]):
     return by_key.values()
 
 
+def _summed(flat: torch.Tensor, group) -> torch.Tensor:
+    """``flat`` (float32) summed over the ranks. NCCL sums in its own
+    order; another backend (gloo, the test transport) sums in float64 and
+    rounds once, so each element's sum is the same wherever it lies in
+    the buffer and in whatever order the ranks add: the data-parallel,
+    ZeRO-1 and FSDP steps then agree bitwise at any world size (at two
+    ranks this is gloo's float32 sum, bit for bit)."""
+    if flat.dtype != torch.float32 or shard_route(group) == "native":
+        dist.all_reduce(flat, group=group)
+        return flat
+    wide = flat.double()
+    dist.all_reduce(wide, group=group)
+    return wide.float()
+
+
 def all_reduce_grads(grads: Union[Dict[str, torch.Tensor],
                                   Sequence[torch.Tensor]],
                      group=None):
@@ -245,8 +260,7 @@ def all_reduce_grads(grads: Union[Dict[str, torch.Tensor],
     tensors = list(grads.values()) if isinstance(grads, dict) \
         else list(grads)
     for ts in _flat_groups(tensors):
-        flat = torch.cat([t.reshape(-1) for t in ts])
-        dist.all_reduce(flat, group=group)
+        flat = _summed(torch.cat([t.reshape(-1) for t in ts]), group)
         offset = 0
         for t in ts:
             n = t.numel()
@@ -295,6 +309,75 @@ def rank_prefix(counts: torch.Tensor, group) -> Tuple[torch.Tensor,
 def world_of(group) -> int:
     """The group's rank count (1 without a group)."""
     return 1 if group is None else dist.get_world_size(group)
+
+
+# --------------------------- the ZeRO-1 and FSDP collectives (zero.py)
+
+_ROUTES: Dict[object, str] = {}
+
+
+def shard_route(group) -> str:
+    """How :func:`reduce_scatter_sum` and :func:`all_gather_flat` run over
+    ``group``, chosen once per group by its backend and logged: ``native``
+    under NCCL (``reduce_scatter_tensor``, ``all_gather_into_tensor``),
+    else ``composed``: the reduce-scatter is an all-reduce of the whole
+    buffer (in float64, :func:`_summed`) and this rank's slice of it, the
+    all-gather gloo's list all-gather, which both take CUDA tensors
+    (staged through the host)."""
+    route = _ROUTES.get(group)
+    if route is None:
+        backend = dist.get_backend(group)
+        route = "native" if backend == "nccl" else "composed"
+        _ROUTES[group] = route
+        logger.info("ZeRO/FSDP collectives over %s: %s", backend,
+                    "reduce_scatter_tensor, all_gather_into_tensor"
+                    if route == "native" else
+                    "reduce-scatter = all_reduce + this rank's slice, "
+                    "all-gather = all_gather into the buffer's slices")
+    return route
+
+
+# the names torch gives these collectives since 2.13 (the older ones warn)
+_REDUCE_SCATTER = getattr(dist, "reduce_scatter_single", None) or \
+    getattr(dist, "reduce_scatter_tensor", None)
+_ALL_GATHER = getattr(dist, "all_gather_single", None) or \
+    getattr(dist, "all_gather_into_tensor", None)
+
+
+def reduce_scatter_sum(flat: torch.Tensor, group) -> torch.Tensor:
+    """This rank's ``1/world`` slice of ``flat`` (1-D, a multiple of the
+    world size long) summed over the ranks: a new tensor. Sums, never
+    averages, as :func:`all_reduce_grads`. ``flat`` is left as it was."""
+    world, rank = world_of(group), dist.get_rank(group)
+    c = flat.numel() // world
+    if c * world != flat.numel():
+        raise ValueError(f"reduce_scatter_sum: {flat.numel()} elements "
+                         f"over {world} ranks")
+    if shard_route(group) == "native":
+        out = flat.new_empty(c)
+        _REDUCE_SCATTER(out, flat.contiguous(), group=group)
+        return out
+    summed = _summed(flat.contiguous().clone(), group)
+    return summed[rank * c:(rank + 1) * c].clone()
+
+
+def all_gather_flat(chunk: torch.Tensor, group,
+                    out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Every rank's ``chunk`` (1-D, the same length on every rank)
+    concatenated in rank order, into ``out`` when given (which ``chunk``
+    must not alias) or a new tensor."""
+    world = world_of(group)
+    if out is None:
+        out = chunk.new_empty(chunk.numel() * world)
+    if out.numel() != chunk.numel() * world:
+        raise ValueError(f"all_gather_flat: {chunk.numel()} x {world} "
+                         f"into {out.numel()}")
+    if shard_route(group) == "native":
+        _ALL_GATHER(out, chunk.contiguous(), group=group)
+    else:
+        dist.all_gather(list(out.chunk(world)), chunk.contiguous(),
+                        group=group)
+    return out
 
 
 def checksum(module: torch.nn.Module) -> int:

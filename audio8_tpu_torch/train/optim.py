@@ -194,6 +194,21 @@ class TrainState:
         self.opt_state = tx.init(self.params)
         self.opt_state.count = step
         self.step = step
+        # the ZeRO-1 / FSDP sharding (``parallel/zero.py:shard_state``);
+        # None: every rank holds the whole state
+        self.shards = None
+
+    def reduce_grads(self, grads, group):
+        """The step's gradients summed over ``group``'s ranks: whole
+        (all-reduced) when the state is whole, this rank's chunks
+        (``parallel/zero.py``) when it is sharded."""
+        if self.shards is not None:
+            return self.shards.reduce_grads(grads, self.names)
+        if group is not None:
+            from audio8_tpu_torch.parallel.sharding import all_reduce_grads
+
+            all_reduce_grads(grads, group)
+        return grads
 
     def apply_gradients(self, grads: Union[Dict[str, torch.Tensor],
                                            Sequence[torch.Tensor]],
@@ -202,18 +217,30 @@ class TrainState:
         """Scale, clip by global norm, step. Every parameter takes part:
         a frozen one passes a zero gradient, so its moments decay and its
         weight decays, as in the JAX package. Returns the global norm of
-        the scaled gradient (before clipping)."""
-        if isinstance(grads, dict):
-            grads = [grads[n] for n in self.names]
-        dev = self.params[0].device
+        the scaled gradient (before clipping). A sharded state takes the
+        chunks :meth:`reduce_grads` returns and updates this rank's
+        chunk (kernel 5 over the chunk's slices), then, under ZeRO-1,
+        gathers the whole parameters."""
+        shards = self.shards
+        if shards is not None:
+            grads = shards.chunk_list(grads)
+            params = shards.params()
+        else:
+            if isinstance(grads, dict):
+                grads = [grads[n] for n in self.names]
+            params = self.params
+        dev = params[0].device
         scale = torch.as_tensor(1.0 if grad_scale is None else grad_scale,
                                 dtype=torch.float32, device=dev)
-        gnorm = global_norm(grads) * scale
+        norm = global_norm(grads) if shards is None \
+            else shards.global_norm(grads)
+        gnorm = norm * scale
         if clip_norm is not None:
             scale = scale * torch.clamp(
                 clip_norm / torch.clamp(gnorm, min=1e-6), max=1.0)
-        self.opt_state = self.tx.apply(grads, self.opt_state, self.params,
-                                       scale)
+        self.opt_state = self.tx.apply(grads, self.opt_state, params, scale)
+        if shards is not None:
+            shards.after_update()
         self.step += 1
         return gnorm
 

@@ -65,6 +65,15 @@ given (this rank's) before it scales and clips, once per update under
 gradient accumulation. The others all-reduce the gradients before their
 clipped step, and their metrics are the global batch's. Without a group
 nothing changes.
+
+ZeRO-1 and FSDP (``parallel/zero.py``): the sums go through the state
+(``TrainState.reduce_grads``), which reduce-scatters into its rank's
+chunk when it is sharded; under FSDP the backward has done so already.
+A step's forward and backward run in ``zero.gathered``, which keeps the
+model's root gathered until the backward has passed it, a decode in
+``gathered(whole=True)`` (its loops call layers' other methods), and
+the paired evaluation in ``gathered`` (it calls the root's parts); an
+evaluation's forward gathers by itself.
 """
 from __future__ import annotations
 
@@ -83,8 +92,9 @@ from audio8_tpu_torch.models.wav2vec2 import (moe_aux_weight,
 from audio8_tpu_torch.nn.moe import AuxLosses
 from audio8_tpu_torch.ops.ctc import ctc_loss
 from audio8_tpu_torch.ops.transducer import transducer_loss
-from audio8_tpu_torch.parallel.sharding import (all_reduce_grads,
-                                                data_parallel, global_sum)
+from audio8_tpu_torch.parallel.sharding import data_parallel, global_sum
+from audio8_tpu_torch.parallel.zero import (gathered, module_shards,
+                                            sharded_tensors)
 from audio8_tpu_torch.utils import Offsets
 
 
@@ -139,7 +149,11 @@ def accumulate_grads(acc: Optional[Dict[str, torch.Tensor]],
 
 def _take_grads(module: torch.nn.Module) -> Dict[str, torch.Tensor]:
     """Every parameter's gradient by name (zeros where none arrived, as
-    JAX returns for a frozen leaf); the ``.grad`` fields are cleared."""
+    JAX returns for a frozen leaf); the ``.grad`` fields are cleared.
+    Under FSDP: the rank's chunk gradients (``zero.ShardGrads``)."""
+    shards = module_shards(module)
+    if shards is not None:
+        return shards.take_grads()
     grads = {}
     for n, p in module.named_parameters():
         grads[n] = torch.zeros_like(p) if p.grad is None else p.grad
@@ -151,13 +165,14 @@ def _row_offset(batch) -> int:
     return int(batch.get("row_offset", 0))
 
 
-def _reduce(grads, total_examples, group):
+def _reduce(state, grads, total_examples, group):
     """The gradients and the example count summed over ``group``'s ranks
-    (unchanged without a group)."""
+    (unchanged without a group; the state's chunks when it is
+    sharded)."""
     total = torch.as_tensor(total_examples, dtype=torch.float32)
     if group is None:
         return grads, total
-    all_reduce_grads(grads, group)
+    grads = state.reduce_grads(grads, group)
     dev = next(iter(grads.values()) if isinstance(grads, dict)
                else iter(grads)).device
     with data_parallel(group):
@@ -170,7 +185,7 @@ def _scaled_update(clip: float, group=None):
         (a number or a 0-dim tensor; this rank's rows under a process
         group, whose gradients and counts are summed first); returns
         ``(state, gnorm)``."""
-        grads, total = _reduce(grads, total_examples, group)
+        grads, total = _reduce(state_, grads, total_examples, group)
         gnorm = state_.apply_gradients(
             grads, grad_scale=1.0 / torch.clamp(total, min=1.0),
             clip_norm=clip)
@@ -209,7 +224,7 @@ def make_ctc_steps(model, clip: float = 25.0, loss_reduction: str = "sum",
         rows = row_validity(batch)
         for p in model.parameters():
             p.grad = None
-        with data_parallel(group, _row_offset(batch)):
+        with gathered(model), data_parallel(group, _row_offset(batch)):
             (log_probs, pad_mask), aux = collecting_aux(
                 aux_w, model, batch["signal"], batch["signal_lengths"],
                 generator=generator, freeze=freeze)
@@ -225,7 +240,7 @@ def make_ctc_steps(model, clip: float = 25.0, loss_reduction: str = "sum",
 
     def train_step(state_, batch, generator, freeze: bool = True):
         loss, grads, bsz, toks = grad_fn(batch, generator, freeze)
-        grads, total = _reduce(grads, bsz, group)
+        grads, total = _reduce(state_, grads, bsz, group)
         state_.apply_gradients(grads,
                                grad_scale=1.0 / torch.clamp(total, min=1.0),
                                clip_norm=clip)
@@ -279,7 +294,7 @@ def make_pretrain_steps(model, clip: float = 1.0, n_negatives: int = 100,
         temp = temperature(state.step)
         for p in model.parameters():
             p.grad = None
-        with data_parallel(group, row_offset):
+        with gathered(model), data_parallel(group, row_offset):
             (c, t, ppl, valid), aux = collecting_aux(
                 aux_w, model, signal, seeds, generator=generator,
                 temperature=temp)
@@ -288,12 +303,7 @@ def make_pretrain_steps(model, clip: float = 1.0, n_negatives: int = 100,
                                                    n_negatives)
             loss, metrics = _with_aux(loss, metrics, aux_w, aux)
             loss.backward()
-        grads = []
-        for p in model.parameters():
-            grads.append(torch.zeros_like(p) if p.grad is None else p.grad)
-            p.grad = None
-        if group is not None:
-            all_reduce_grads(grads, group)
+        grads = state.reduce_grads(_take_grads(model), group)
         gnorm = state.apply_gradients(grads, clip_norm=clip)
         metrics = {k: v.detach() for k, v in metrics.items()}
         return state, dict(metrics, loss=loss.detach(), grad_norm=gnorm,
@@ -317,9 +327,7 @@ def _step_grads(model, state, loss, clip: float, group=None):
     norm."""
     if loss is not None:
         loss.backward()
-    grads = _take_grads(model)
-    if group is not None:
-        all_reduce_grads(grads, group)
+    grads = state.reduce_grads(_take_grads(model), group)
     return state.apply_gradients(grads, clip_norm=clip)
 
 
@@ -350,7 +358,7 @@ def make_hubert_steps(model, clip: float = 1.0, group=None):
     def train_step(state, batch, seeds, generator):
         for p in model.parameters():
             p.grad = None
-        with data_parallel(group, _row_offset(batch)):
+        with gathered(model), data_parallel(group, _row_offset(batch)):
             (loss, metrics), aux = collecting_aux(aux_w, loss_of, batch,
                                                   seeds, generator)
             loss, metrics = _with_aux(loss, metrics, aux_w, aux)
@@ -380,8 +388,6 @@ def make_data2vec_steps(model, teacher, clip: float = 1.0, group=None):
     teacher moves by the same EMA of the same student."""
     cfg = model.config
     aux_w = moe_aux_weight(cfg)
-    student_params = list(model.parameters())
-    teacher_params = list(teacher.parameters())
 
     def loss_of(batch, mask_seed, generator):
         signal, lengths = batch["signal"], batch.get("signal_lengths")
@@ -396,13 +402,15 @@ def make_data2vec_steps(model, teacher, clip: float = 1.0, group=None):
     def train_step(state, batch, mask_seed, generator):
         for p in model.parameters():
             p.grad = None
-        with data_parallel(group, _row_offset(batch)):
+        with gathered(model), data_parallel(group, _row_offset(batch)):
             loss, metrics = loss_of(batch, mask_seed, generator)
             loss.backward()
         gnorm = _step_grads(model, state, None, clip, group)
         decay = ema_decay_schedule(state.step, cfg.ema_decay,
                                    cfg.ema_end_decay, cfg.ema_anneal_steps)
-        ema_update(teacher_params, student_params, decay)
+        # the EMA on whatever holds the weights: the parameters, or
+        # under FSDP the rank's chunks (elementwise either way)
+        ema_update(sharded_tensors(teacher), sharded_tensors(model), decay)
         metrics = {k: v.detach() for k, v in metrics.items()}
         return state, dict(metrics, loss=loss.detach(), grad_norm=gnorm,
                            ema_decay=decay)
@@ -451,7 +459,7 @@ def make_seq2seq_steps(model, clip: float = 25.0,
         dst, tgt, dst_lengths = _teacher_forcing(batch)
         for p in model.parameters():
             p.grad = None
-        with data_parallel(group, _row_offset(batch)):
+        with gathered(model), data_parallel(group, _row_offset(batch)):
             log_probs, aux = collecting_aux(
                 aux_w, model, batch["signal"], batch["signal_lengths"], dst,
                 dst_lengths, generator=generator, freeze=freeze)
@@ -462,12 +470,13 @@ def make_seq2seq_steps(model, clip: float = 25.0,
         return loss.detach(), _take_grads(model), rows.sum(), num_tokens
 
     def decode_fn(batch, max_output_len: int = 100, beam: int = 1):
-        if beam > 1:
-            return model.decode_beam(batch["signal"],
-                                     batch["signal_lengths"], beam,
-                                     max_output_len)
-        return model.decode(batch["signal"], batch["signal_lengths"],
-                            max_output_len)
+        with gathered(model, whole=True):
+            if beam > 1:
+                return model.decode_beam(batch["signal"],
+                                         batch["signal_lengths"], beam,
+                                         max_output_len)
+            return model.decode(batch["signal"], batch["signal_lengths"],
+                                max_output_len)
 
     @torch.no_grad()
     def eval_loss_fn(batch):
@@ -497,7 +506,7 @@ def make_paired_steps(module, clip: float = 25.0, group=None):
         rows = row_validity(batch)
         for p in module.parameters():
             p.grad = None
-        with data_parallel(group, _row_offset(batch)):
+        with gathered(module), data_parallel(group, _row_offset(batch)):
             (a, t), aux = collecting_aux(
                 aux_w, module.model, batch["signal"],
                 batch["signal_lengths"], batch["token_ids"],
@@ -515,10 +524,11 @@ def make_paired_steps(module, clip: float = 25.0, group=None):
 
     @torch.no_grad()
     def eval_fn(batch):
-        a, t = module.model(batch["signal"], batch["signal_lengths"],
-                            batch["token_ids"], batch["token_lengths"])
-        with data_parallel(group, _row_offset(batch)):
-            return module.loss(a, t, row_validity(batch))
+        with gathered(module):
+            a, t = module.model(batch["signal"], batch["signal_lengths"],
+                                batch["token_ids"], batch["token_lengths"])
+            with data_parallel(group, _row_offset(batch)):
+                return module.loss(a, t, row_validity(batch))
 
     return grad_fn, _scaled_update(clip, group), eval_fn
 
@@ -555,7 +565,7 @@ def make_transducer_steps(model, clip: float = 25.0,
         rows = row_validity(batch)
         for p in model.parameters():
             p.grad = None
-        with data_parallel(group, _row_offset(batch)):
+        with gathered(model), data_parallel(group, _row_offset(batch)):
             (log_probs, pad_mask), aux = collecting_aux(
                 aux_w, model, batch["signal"], batch["signal_lengths"],
                 targets, generator=generator, freeze=freeze)
@@ -568,7 +578,7 @@ def make_transducer_steps(model, clip: float = 25.0,
 
     def train_step(state_, batch, generator, freeze: bool = True):
         loss, grads, bsz, toks = grad_fn(batch, generator, freeze)
-        grads, total = _reduce(grads, bsz, group)
+        grads, total = _reduce(state_, grads, bsz, group)
         state_.apply_gradients(grads,
                                grad_scale=1.0 / torch.clamp(total, min=1.0),
                                clip_norm=clip)
@@ -577,13 +587,14 @@ def make_transducer_steps(model, clip: float = 25.0,
     @torch.no_grad()
     def decode_fn(batch, max_output_len: int = 200, max_symbols: int = 4,
                   beam: int = 1):
-        if beam > 1:
-            toks, n, _ = model.decode_beam(
-                batch["signal"], batch["signal_lengths"], beam,
-                max_output_len, max_symbols)
-            return toks[:, 0], n[:, 0]
-        return model.decode(batch["signal"], batch["signal_lengths"],
-                            max_output_len, max_symbols)
+        with gathered(model, whole=True):
+            if beam > 1:
+                toks, n, _ = model.decode_beam(
+                    batch["signal"], batch["signal_lengths"], beam,
+                    max_output_len, max_symbols)
+                return toks[:, 0], n[:, 0]
+            return model.decode(batch["signal"], batch["signal_lengths"],
+                                max_output_len, max_symbols)
 
     @torch.no_grad()
     def eval_loss_fn(batch):

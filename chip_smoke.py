@@ -7,8 +7,8 @@ path, its RNN-T path (training, decoding, streaming, serving, eval
 and export), its HuBERT and data2vec pretraining paths, and its
 decoders' device beam, text-LM trainer and n-best rescoring, and its
 data-parallel training (one NCCL rank, then two gloo ranks sharing the
-card) at full wav2vec2-base width with seeded random weights, the
-trainers' remat,
+card) with its ZeRO-1 and FSDP sharding, at full wav2vec2-base width
+with seeded random weights, the trainers' remat,
 SGD, augmentation and profiler flags, KenLM binaries written by the port
 and the text tower's warm start, the pretraining path again through the
 attention block (``fused_attention="block"``), the public large layouts
@@ -196,7 +196,7 @@ instead, to compare.
 
 16. topologies - each large public layout (``large-lv60``,
               ``hubert-large``, ``data2vec-large``, ``wavlm-large``,
-              ``conformer-large-rope``, ``conformer-large-rel``: 12 of their
+              ``conformer-large-rope``, ``conformer-large-rel``: 6 of their
               24 layers, a depth cut, 1024 wide, 16 heads, 4096) with seeded
               weights: one (4, 30 s)
               dispatch in f32 and in bf16 (CUDA-event ms), the card
@@ -215,8 +215,8 @@ instead, to compare.
               computed; then ``cli.transcribe --checkpoint <dir>
               --dict_file vocab.json`` on the stable-LN one, card and CPU
               transcripts equal;
-    lv60_train - (the LV-60 runs keep 12 of the preset's 24 layers, a
-              depth cut that makes room for phase 23)
+    lv60_train - (the LV-60 runs keep 6 of the preset's 24 layers, a
+              depth cut that makes room for phases 23 and 25)
               ``cli.pretrain --preset large-lv60`` for 2 steps (conv
               bias and layer-mode norms through kernels 3b and 3c), then
               ``cli.train --preset large-lv60 --layer_drop 0.1
@@ -228,7 +228,7 @@ instead, to compare.
               plain versions at every shape those runs gave them;
     lv60_block - pretraining steps of the LV-60 model through the
               attention block (``fused_attention="block"``, d_model 1024,
-              pre-norm: 24 block forwards and backwards a step, no core
+              pre-norm: a block forward and backward per layer a step, no core
               launch), then the block against its plain versions at those
               shapes in f32 and bf16;
 
@@ -420,6 +420,30 @@ instead, to compare.
               the ``.pt``'s log-probs bitwise and its text; the reader's
               and the writer's host seconds for the full-width
               directory, its bytes and the phase's bytes written;
+25. zero    - ZeRO-1 and FSDP (``parallel/zero.py``): (a) one NCCL rank
+              (``WORLD_SIZE`` 1, full width, 4 of the 12 layers, cuDNN's
+              deterministic algorithms): ``cli.train --distributed true``
+              under ``--zero1`` and ``--fsdp`` (2 AdamW steps each) and
+              ``cli.pretrain --fsdp`` (1 step), each run's parameters
+              bitwise the plain run's, the launches of kernels 1, 2, 2b,
+              3, 4 and 5 and the NCCL reduce-scatter and all-gather ms
+              over the flat buffer; (b) two gloo ranks sharing the card
+              (the composed collectives on CUDA tensors checked first)
+              take 2 AdamW CTC steps under DP, ZeRO-1 and FSDP (every
+              dropout 0.1, the span masks on, a padding row) and 2 AdamW
+              pretraining steps under DP and FSDP: ranks bitwise equal,
+              held to the 2-rank DP run (loss rtol 1e-6, parameters and
+              moments 1e-6; the max differences and whether they are 0)
+              and to one process's step (loss 1e-4, gradient norm 1e-3;
+              parameters 1e-6 after 2 SGD steps under FSDP); kernel 5 on
+              a chunk's slices that cross leaves and end in padding
+              against its plain version; (c) each rank's persistent
+              bytes (parameters, the gradients an update takes, moments),
+              a step's peak and the gloo collectives' ms; (d) the 2-rank
+              checkpoints equal DP's, one more step resumed from each in
+              one plain process gives the DP resume's loss, and
+              ``cli.convert_checkpoint --output_format orbax`` of the
+              ZeRO-1 one reads back bitwise;
 
 then a ``phase_seconds`` line (each phase's wall seconds and each phase's
 retried profiler traces, ``trace_retries``), a ``kernels``
@@ -445,6 +469,7 @@ card it exits with code 2 and prints no result.
     python3 chip_smoke.py --moe-phases       # the build and phase 22 only
     python3 chip_smoke.py --orbax-phases     # the build and phase 24 only
     python3 chip_smoke.py --dp-phases        # the build and phase 23 only
+    python3 chip_smoke.py --zero-phases      # the build and phase 25 only
     python3 chip_smoke.py --dp-timing        # rows 2, 2b, 4, 6, 6b only
 
 ``--block-timing`` builds the block's two sources and prints only the
@@ -2610,8 +2635,8 @@ def phase_block_gate() -> None:
 S2S_PATH = ("conv_k3s2_fwd", "attention_fwd", "attention_bwd", "dropout",
             "adamw")
 # the seq2seq and paired runs (and the text warm start) keep 6 of the
-# encoder's 12 layers, and the large layouts 12 of 24: depth cuts that
-# keep the full run inside its time limit since phase 23 came
+# encoder's 12 layers, and the large layouts 6 of 24: depth cuts that
+# keep the full run inside its time limit since phases 23 and 25 came
 CUT_LAYERS = "6"
 SEQ2SEQ_FLAGS = ["--num_layers", CUT_LAYERS,
                  "--target_tokens_per_batch", "700000", "--grad_accum", "2",
@@ -4365,11 +4390,11 @@ def export_phases(gen) -> int:
 LARGE_PRESETS = ("large-lv60", "hubert-large", "data2vec-large",
                  "wavlm-large", "conformer-large-rope", "conformer-large-rel")
 TOPO_PATH = ("conv_k3s2_fwd", "attention_fwd")
-TOPO_LAYERS = 12  # of the presets' 24 (a depth cut for the time limit)
+TOPO_LAYERS = 6  # of the presets' 24 (a depth cut for the time limit)
 TOPO_LENGTHS = [30 * SR, 24 * SR, 11 * SR, 4 * SR]  # one (4, 30 s) dispatch
-# the LV-60 runs keep 12 of the preset's 24 layers (a depth cut that
-# makes room for phase 23 in the run's time and disk-write limits)
-LV60_LAYERS = "12"
+# the LV-60 runs keep 6 of the preset's 24 layers (a depth cut that
+# makes room for phases 23 and 25 in the run's time and disk-write limits)
+LV60_LAYERS = "6"
 LV60_PRETRAIN_FLAGS = ["--preset", "large-lv60", "--num_layers", LV60_LAYERS,
                        "--tokens_per_batch",
                        "700000", "--max_sample_len", "250000",
@@ -4829,7 +4854,7 @@ def phase_lv60_block(tmp: str, batches, seed: int, gen) -> tuple:
     """The attention block (kernels 6 and 6b) at d_model 1024 under
     pre-norm: ``make_pretrain_steps`` with ``fused_attention="block"`` on
     the LV-60 pretraining model from the lv60 run's ``.pt`` at its
-    batches' shapes (24 block forwards and backwards per step, no core
+    batches' shapes (a block forward and backward per layer a step, no core
     launch; step ms), then the block against its plain versions at those
     shapes, f32 and bf16. Returns the launch counts and max errors."""
     from audio8_tpu_torch.config import PretrainConfig
@@ -6148,7 +6173,8 @@ def remat_run(weights: dict, signal: torch.Tensor, remat: bool,
     apply = state.apply_gradients
 
     def keeping(g, **kw):
-        grads.update({n: t.detach().cpu() for n, t in zip(state.names, g)})
+        named = g.items() if isinstance(g, dict) else zip(state.names, g)
+        grads.update({n: t.detach().cpu() for n, t in named})
         return apply(g, **kw)
 
     state.apply_gradients = keeping
@@ -9725,6 +9751,613 @@ def orbax_phases() -> int:
     return 0
 
 
+# ------------------------------------------------------------------ phase 25
+
+ZERO_LAYERS = DP_LAYERS  # full width, 4 of the 12 layers (phase 23's cut)
+# (a): cli.train under AdamW, 2 steps (validate_on = 1: a checkpoint each,
+# about 0.45 GB with its moments at 4 layers), then one cli.pretrain step
+ZERO_CLI_FLAGS = ["--target_tokens_per_batch", "700000", "--grad_accum",
+                  "1", "--train_steps", "2", "--unfreeze_enc_after_step",
+                  "0", "--warmup_steps", "1", "--valid_steps", "1",
+                  "--optim", "adamw", "--weight_decay", "0.01", "--num_layers",
+                  str(ZERO_LAYERS)]
+ZERO_PRETRAIN_FLAGS = ["--tokens_per_batch", "1400000", "--max_sample_len",
+                       "325000", "--train_steps", "1",
+                       "--steps_per_checkpoint", "3", "--warmup_steps", "1",
+                       "--num_train_workers", "1", "--num_layers",
+                       str(ZERO_LAYERS)]
+ZERO_PATH = ("conv_k3s2_fwd", "attention_fwd", "attention_bwd", "ctc_loss",
+             "dropout", "adamw")
+ZERO_RANKS = 2
+ZERO_MODES = ("dp", "zero1", "fsdp")
+ZERO_LR = 1e-4
+ZERO_LOSS_RTOL = 1e-6  # the sharded ranks against the 2-rank DP run
+ZERO_PARAM_ATOL = 1e-6
+
+
+def zero_state(model, optim: str = "adamw"):
+    from audio8_tpu_torch.train.optim import (TrainState, create_lrs,
+                                              create_optimizer)
+
+    return TrainState(model, create_optimizer(create_lrs(
+        ZERO_LR, 10, sched_type="constant", warmup_steps=0), optim, 0.01))
+
+
+def zero_whole(state, model) -> dict:
+    """Every ``DP_STRIDE``-th value of the whole parameters and moments
+    and their checksum, read in ``zero.full_state`` (every rank)."""
+    from audio8_tpu_torch.parallel.sharding import checksum
+    from audio8_tpu_torch.parallel.zero import full_state
+
+    with full_state(state):
+        out = {"checksum": checksum(model), "sample": dp_sample(model)}
+        for key in ("mu", "nu"):
+            if hasattr(state.opt_state, key):
+                out[key] = {n: m.detach().reshape(-1)[::DP_STRIDE].cpu()
+                            for n, m in zip(state.names,
+                                            getattr(state.opt_state, key))}
+    return out
+
+
+def zero_bytes(state, grads) -> dict:
+    """This rank's persistent state in bytes: the parameters it keeps
+    (whole or its chunks), the gradient storage an update takes (whole, or
+    the chunks a sharded backward leaves) and the moments."""
+    opt = state.opt_state
+    if state.shards is not None:
+        stored = state.shards.stored(state)
+        params = stored["params"]
+    else:
+        params = sum(p.numel() for p in state.params)
+    moments = sum(m.numel() for m in getattr(opt, "mu", ())) + \
+        sum(v.numel() for v in getattr(opt, "nu", ()))
+    n_grads = sum(g.numel() for g in grads.values())
+    return {"params": 4 * params, "grads": 4 * n_grads,
+            "moments": 4 * moments,
+            "total": 4 * (params + n_grads + moments)}
+
+
+def zero_ctc(rank: int, world: int, group, seed: int, mode: str,
+             optim: str = "adamw", save: str | None = None) -> dict:
+    """``DP_STEPS`` CTC steps of phase 25 (b) on rank ``rank``'s block of
+    the global batch (every dropout 0.1, the span masks on, a padding
+    row) under ``mode``: the global losses, gradient norms, the rank's
+    bytes and the second step's peak, the whole state's samples; with
+    ``save``, the checkpoint (rank 0 writes it, every rank gathers)."""
+    from audio8_tpu_torch.cli.common import save_on_rank0
+    from audio8_tpu_torch.config import AcousticConfig
+    from audio8_tpu_torch.models.wav2vec2 import Wav2Vec2AcousticModel
+    from audio8_tpu_torch.parallel.sharding import (global_sum_scalars,
+                                                    row_block)
+    from audio8_tpu_torch.parallel.zero import shard_state
+    from audio8_tpu_torch.train.checkpoint import save_checkpoint
+    from audio8_tpu_torch.train.steps import make_ctc_steps
+
+    batch = dp_ctc_batch(seed)
+    n_real = int((batch["signal_lengths"] > 0).sum())
+    lo, b_local, _ = row_block(n_real, len(DP_CTC_SECONDS), rank, world)
+    local = {k: torch.from_numpy(v[lo:lo + b_local]).cuda()
+             for k, v in batch.items()}
+    local["row_offset"] = lo
+    cfg = AcousticConfig(num_labels=len(LETTERS) + 4, dropout=0.1,
+                         attention_dropout=0.1, timestep_masking=0.5,
+                         channel_masking=0.1, freeze_fx=False,
+                         num_layers=ZERO_LAYERS)
+    model = Wav2Vec2AcousticModel(
+        cfg, generator=torch.Generator().manual_seed(seed)).cuda()
+    state = zero_state(model, optim)
+    shard_state(state, group, zero1=mode == "zero1", fsdp=mode == "fsdp")
+    grad_fn, update_fn, _ = make_ctc_steps(model, group=group)
+    gen = torch.Generator().manual_seed(seed + 1)
+    out = {"loss": [], "gnorm": []}
+    for i in range(DP_STEPS):
+        if i == DP_STEPS - 1:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        loss, grads, rows, _ = grad_fn(local, gen, freeze=False)
+        nbytes = zero_bytes(state, grads)
+        state, gnorm = update_fn(state, grads, rows)
+        del grads
+        out["loss"].append(float(global_sum_scalars([float(loss)],
+                                                    group)[0]))
+        out["gnorm"].append(float(gnorm))
+    torch.cuda.synchronize()
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    out["bytes"] = nbytes
+    out.update(zero_whole(state, model))
+    if save:
+        save_on_rank0(group, save_checkpoint, state, save, "ctc")
+    del model, state
+    torch.cuda.empty_cache()
+    return out
+
+
+def zero_pretrain(rank: int, world: int, group, seed: int,
+                  mode: str) -> dict:
+    """``DP_STEPS`` AdamW pretraining steps of phase 25 (b) (dropout
+    0.1, the span masks on) on rank ``rank``'s rows under ``mode``."""
+    from audio8_tpu_torch.config import PretrainConfig
+    from audio8_tpu_torch.models.wav2vec2 import PretrainSeeds, Wav2Vec2Model
+    from audio8_tpu_torch.parallel.zero import shard_state
+    from audio8_tpu_torch.train.steps import make_pretrain_steps
+
+    rows, samples = DP_PRETRAIN_BATCH
+    rng = np.random.default_rng(seed + 2)
+    sig = np.stack([synthetic_speechlike((samples + 1) / SR, rng)[:samples]
+                    for _ in range(rows)])
+    b_local = rows // world
+    x = torch.from_numpy(sig[rank * b_local:(rank + 1) * b_local]).cuda()
+    model = Wav2Vec2Model(PretrainConfig(
+        dropout=0.1, dropout_input=0.1, dropout_features=0.1,
+        num_layers=ZERO_LAYERS),
+        generator=torch.Generator().manual_seed(seed + 3)).cuda()
+    state = zero_state(model)
+    shard_state(state, group, zero1=mode == "zero1", fsdp=mode == "fsdp")
+    step, _ = make_pretrain_steps(model, group=group)
+    gen = torch.Generator().manual_seed(seed + 4)
+    out = {"loss": [], "gnorm": []}
+    for _ in range(DP_STEPS):
+        state, m = step(state, x, PretrainSeeds.draw(gen), gen,
+                        rank * b_local)
+        out["loss"].append(float(m["loss"]))
+        out["gnorm"].append(float(m["grad_norm"]))
+    out.update(zero_whole(state, model))
+    del model, state
+    torch.cuda.empty_cache()
+    return out
+
+
+def zero_collectives(group) -> dict:
+    """The group's reduce-scatter and all-gather of CUDA tensors against
+    their definitions, then their ms over the 4-layer CTC model's flat
+    buffer (one segment, as ZeRO-1 lays it out)."""
+    from audio8_tpu_torch.config import AcousticConfig
+    from audio8_tpu_torch.models.wav2vec2 import Wav2Vec2AcousticModel
+    from audio8_tpu_torch.parallel.sharding import (all_gather_flat,
+                                                    reduce_scatter_sum,
+                                                    shard_route, world_of)
+    from audio8_tpu_torch.parallel.zero import Segment
+    import torch.distributed as dist
+
+    world, rank = world_of(group), dist.get_rank(group)
+    x = torch.arange(4 * world, dtype=torch.float32, device="cuda") \
+        * (rank + 1)
+    got = reduce_scatter_sum(x, group)
+    want = torch.arange(4 * world, dtype=torch.float32, device="cuda")[
+        4 * rank:4 * rank + 4] * (world * (world + 1) / 2)
+    gathered = all_gather_flat(torch.full((3,), float(rank), device="cuda"),
+                               group)
+    ok = bool(torch.equal(got, want)) and gathered.tolist() == [
+        float(r) for r in range(world) for _ in range(3)]
+    model = Wav2Vec2AcousticModel(AcousticConfig(
+        num_labels=len(LETTERS) + 4, num_layers=ZERO_LAYERS))
+    seg = Segment.of(range(len(list(model.parameters()))),
+                     list(model.parameters()), world)
+    del model
+    flat = torch.zeros(seg.padded, device="cuda")
+    chunk = flat[:seg.chunk].clone()
+    ms = {"reduce_scatter": [], "all_gather": []}
+    for _ in range(3):
+        for name, fn in (("reduce_scatter",
+                          lambda: reduce_scatter_sum(flat, group)),
+                         ("all_gather",
+                          lambda: all_gather_flat(chunk, group))):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ms[name].append((time.perf_counter() - t0) * 1e3)
+    del flat, chunk
+    torch.cuda.empty_cache()
+    return {"collectives_ok": ok, "route": shard_route(group),
+            "flat_bytes": 4 * seg.padded, "ms": ms}
+
+
+def _zero_rank(rank: int, world: int, port: int, out_dir: str,
+               seed: int) -> None:
+    """One gloo rank of phase 25 (b)-(d), sharing the one card: the
+    collectives checked and timed, each mode's CTC steps (DP, ZeRO-1 and
+    FSDP save a checkpoint), FSDP's SGD CTC steps, and the DP and FSDP
+    pretraining steps; the launches of the sharded runs."""
+    import torch.distributed as dist
+
+    sys.path.insert(0, HERE)
+    from audio8_tpu_torch.parallel.sharding import setup, world_group
+    from audio8_tpu_torch.utils import Offsets
+
+    Offsets.remap_fairseq_ctc()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # the positional conv's backward: cuDNN's deterministic algorithms,
+    # so that the modes' runs can be bitwise equal
+    torch.backends.cudnn.deterministic = True
+    dp_env(rank, world, 0, port)
+    setup(True, "cuda:0", backend="gloo")
+    group = world_group()
+    out = {"collectives": zero_collectives(group), "ctc": {}}
+    launches = {}
+    for mode in ZERO_MODES:
+        os.makedirs(os.path.join(out_dir, mode), exist_ok=True)
+        reset_launches()
+        out["ctc"][mode] = zero_ctc(
+            rank, world, group, seed, mode,
+            save=os.path.join(out_dir, mode,
+                              f"checkpoint-step-{DP_STEPS}.pt"))
+        launches[mode] = read_launches()
+    out["ctc_sgd"] = zero_ctc(rank, world, group, seed, "fsdp", "sgd")
+    out["pretrain"] = {m: zero_pretrain(rank, world, group, seed, m)
+                       for m in ("dp", "fsdp")}
+    out["launches"] = launches
+    torch.save(out, os.path.join(out_dir, f"zero_rank{rank}.pt"))
+    dist.destroy_process_group()
+
+
+def zero_adamw_chunk(gen) -> float:
+    """Kernel 5 on a ZeRO chunk: the last rank's chunk of the 4-layer CTC
+    model's flat buffer at world 2 (its leaves' pieces, the alignment gaps
+    and the tail padding, all zero there) cut into three slices that cross
+    leaves' boundaries, against ``adamw_update_plain`` on the same slices."""
+    from audio8_tpu_torch.config import AcousticConfig
+    from audio8_tpu_torch.models.wav2vec2 import Wav2Vec2AcousticModel
+    from audio8_tpu_torch.ops.adamw import adamw_update, adamw_update_plain
+    from audio8_tpu_torch.parallel.zero import Segment
+
+    model = Wav2Vec2AcousticModel(AcousticConfig(
+        num_labels=len(LETTERS) + 4, num_layers=ZERO_LAYERS))
+    params = [p.detach().cuda() for p in model.parameters()]
+    del model
+    seg = Segment.of(range(len(params)), params, ZERO_RANKS)
+    rank = ZERO_RANKS - 1
+    c0, c1 = rank * seg.chunk, (rank + 1) * seg.chunk
+    layout = seg.flatten([torch.ones_like(p) for p in params])[c0:c1]
+    del params
+    p, g, m = (torch.randn(seg.chunk, device="cuda", generator=gen) * layout
+               for _ in range(3))
+    v = torch.rand(seg.chunk, device="cuda", generator=gen) * layout
+    cuts = [0, seg.chunk // 3 + 17, 2 * seg.chunk // 3 + 5, seg.chunk]
+    pieces = [(j, lo, hi) for j, lo, hi in seg.pieces(rank)]
+    crosses = all(not any(lo <= cuts[i] and cuts[i + 1] <= hi
+                          for _, lo, hi in pieces)
+                  for i in range(3))
+    padded = float(layout[-1]) == 0.0
+
+    def slices(t):
+        return [t[a:b] for a, b in zip(cuts, cuts[1:])]
+
+    copies = [x.clone() for x in (p, m, v)]
+    scale = torch.tensor(0.37, device="cuda")
+    args = (scale, 3e-4, 0.9, 0.98, 1e-6, 0.01, 1.0 / (1.0 - 0.9 ** 3),
+            1.0 / (1.0 - 0.98 ** 3))
+    adamw_update(slices(p), slices(g), slices(m), slices(v), *args)
+    torch.cuda.synchronize()
+    adamw_update_plain(slices(copies[0]), slices(g), slices(copies[1]),
+                       slices(copies[2]), *args)
+    worst, tol = 0.0, 0.0
+    for got, want in zip((p, m, v), copies):
+        err, scale_ = max_err(got, want)
+        worst, tol = max(worst, err), max(tol, TOL[torch.float32]
+                                          * max(1.0, scale_))
+    gaps_zero = bool((p[layout == 0] == 0).all())
+    emit({"phase": "zero", "kernel": "adamw", "chunk": seg.chunk,
+          "slices": [b - a for a, b in zip(cuts, cuts[1:])],
+          "leaf_pieces": len(pieces), "slices_cross_leaves": crosses,
+          "ends_in_padding": padded, "padding_stays_zero": gaps_zero,
+          "max_abs_err": worst, "tol": tol})
+    check(crosses and padded, "zero: the chunk's slices do not cross "
+                              "leaves or end in padding")
+    check(worst <= tol, f"zero: adamw on chunk slices {worst} > {tol}")
+    check(gaps_zero, "zero: adamw moved the chunk's padding")
+    return worst
+
+
+def zero_cli(tmp: str, seed: int) -> dict:
+    """Phase 25 (a): one NCCL rank (``WORLD_SIZE`` 1, full width, 4 of 12
+    layers, cuDNN's deterministic algorithms): ``cli.train`` plain, under
+    ``--distributed --zero1`` and ``--fsdp`` (2 AdamW steps each) and
+    ``cli.pretrain`` plain and under ``--fsdp`` (1 step); each run's
+    parameters bitwise the plain run's; the NCCL collectives' ms over the
+    flat buffer. Returns the launches of the sharded runs."""
+    import torch.distributed as dist
+
+    from audio8_tpu_torch.cli import pretrain
+    from audio8_tpu_torch.cli.train import train
+    from audio8_tpu_torch.parallel.sharding import world_group
+
+    corpus = os.path.join(tmp, "zero_corpus")
+    os.makedirs(corpus)
+    write_corpus(corpus, seed + 100)
+    pcorpus = os.path.join(tmp, "zero_pretrain_corpus")
+    os.makedirs(pcorpus)
+    write_pretrain_corpus(pcorpus, seed + 101)
+    argv = {"train": ["--root_dir", corpus, "--train_dataset", "train.tsv",
+                      "--valid_dataset", "valid.tsv", "--device", "cuda",
+                      *ZERO_CLI_FLAGS],
+            "pretrain": ["--manifest_dir", pcorpus, "--device", "cuda",
+                         *ZERO_PRETRAIN_FLAGS]}
+    run = {"train": train, "pretrain": pretrain.train}
+    runs = {"train": ("zero1", "fsdp"), "pretrain": ("fsdp",)}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    results, launches, collectives = {}, {}, None
+    try:
+        for kind in ("train", "pretrain"):
+            state = run[kind](argv[kind] + ["--basedir", os.path.join(
+                tmp, f"zero_{kind}_plain")])
+            plain = [p.detach().clone() for p in state.params]
+            plain_loss = [r["loss"] for r in state.log]
+            del state
+            torch.cuda.empty_cache()
+            for mode in runs[kind]:
+                dp_env(0, 1, 0, free_port())
+                try:
+                    reset_launches()
+                    state = run[kind](argv[kind] + [
+                        "--basedir", os.path.join(tmp, f"zero_{kind}_{mode}"),
+                        "--distributed", "true", f"--{mode}", "true"])
+                    ran = read_launches()
+                    check(dist.is_initialized()
+                          and dist.get_backend() == "nccl"
+                          and dist.get_world_size() == 1,
+                          "zero (a): no NCCL group")
+                    diff = max(float((a.detach() - b).abs().max())
+                               for a, b in zip(state.params, plain))
+                    results[f"{kind}_{mode}"] = {
+                        "max_abs_diff": diff,
+                        "losses": [r["loss"] for r in state.log],
+                        "plain_losses": plain_loss,
+                        "step_seconds": [r["seconds"] for r in state.log]}
+                    check(diff == 0.0, f"zero (a): {kind} --{mode} (1 rank, "
+                                       f"NCCL) differs from the plain run "
+                                       f"by {diff}")
+                    for k, n in ran.items():
+                        launches[k] = launches.get(k, 0) + n
+                    if collectives is None:
+                        del state
+                        torch.cuda.empty_cache()
+                        collectives = zero_collectives(world_group())
+                finally:
+                    if dist.is_initialized():
+                        dist.destroy_process_group()
+                    dp_env_clear()
+                state = None
+                torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    for k in ZERO_PATH:
+        check(launches[k] > 0, f"zero (a): {k} not launched")
+    check(collectives["collectives_ok"], "zero (a): NCCL's reduce-scatter "
+                                         "or all-gather gave wrong values")
+    emit({"phase": "zero", "part": "a", "card": card_name(),
+          "backend": "nccl", "world": 1, "flags": ZERO_CLI_FLAGS,
+          "pretrain_flags": ZERO_PRETRAIN_FLAGS, "runs": results,
+          "params_bitwise_equal": True, "nccl": collectives,
+          "launches": {k: launches[k] for k in ZERO_PATH}})
+    return launches
+
+
+def zero_compare(ranks: list, kind: str, mode: str, ref: str = "dp") -> dict:
+    """``mode``'s ranks bitwise equal to each other and held to ``ref``'s
+    run: loss rtol ZERO_LOSS_RTOL, parameters and moments
+    ZERO_PARAM_ATOL (max differences reported, and whether they are 0)."""
+    runs = [r[kind][mode] for r in ranks]
+    for r in runs[1:]:
+        check(r["checksum"] == runs[0]["checksum"]
+              and r["loss"] == runs[0]["loss"],
+              f"zero {kind} {mode}: ranks differ")
+    mine, want = runs[0], ranks[0][kind][ref]
+    loss_err = dp_close(mine["loss"], want["loss"], ZERO_LOSS_RTOL,
+                        f"zero {kind} {mode} loss")
+    diffs = {}
+    for part in ("sample", "mu", "nu"):
+        if part in want:
+            diffs[part] = max(float((v - want[part][k]).abs().max())
+                              for k, v in mine[part].items())
+            check(diffs[part] <= ZERO_PARAM_ATOL,
+                  f"zero {kind} {mode} {part}: {diffs[part]}")
+    return {"loss": mine["loss"], "loss_rel_err": loss_err,
+            "max_abs_diff": diffs,
+            "bitwise": all(d == 0.0 for d in diffs.values())
+            and mine["checksum"] == want["checksum"]}
+
+
+def zero_resume(path: str, seed: int) -> float:
+    """One more CTC step in one plain process on the card from the run
+    directory ``path`` (its checkpoint and resume file: the moments and
+    count), on the global batch; its loss."""
+    from audio8_tpu_torch.cli.common import resolve_restart
+    from audio8_tpu_torch.config import AcousticConfig
+    from audio8_tpu_torch.models.wav2vec2 import Wav2Vec2AcousticModel
+    from audio8_tpu_torch.train.steps import make_ctc_steps
+
+    model = Wav2Vec2AcousticModel(AcousticConfig(
+        num_labels=len(LETTERS) + 4, dropout=0.1, attention_dropout=0.1,
+        timestep_masking=0.5, channel_masking=0.1, freeze_fx=False,
+        num_layers=ZERO_LAYERS)).cuda()
+    state = zero_state(model)
+    step = resolve_restart(path, state, ctc=True)
+    check(step == DP_STEPS == state.opt_state.count,
+          f"zero (d): {path} restored step {step}, not the full state")
+    batch = {k: torch.from_numpy(v).cuda()
+             for k, v in dp_ctc_batch(seed).items()}
+    grad_fn, update_fn, _ = make_ctc_steps(model)
+    loss, grads, rows, _ = grad_fn(batch, torch.Generator().manual_seed(
+        seed + 5), freeze=False)
+    update_fn(state, grads, rows)
+    del model, state, grads
+    torch.cuda.empty_cache()
+    return float(loss)
+
+
+def zero_checkpoints(tmp: str, out_dir: str, seed: int) -> dict:
+    """Phase 25 (d): the 2-rank checkpoints against the DP run's (whole
+    parameters and moments, 1e-6), one step resumed from each in one plain
+    process (the DP resume's loss), and ``cli.convert_checkpoint
+    --output_format orbax`` of the ZeRO-1 one read back by the port's
+    reader bitwise."""
+    from audio8_tpu_torch.cli import convert_checkpoint
+    from audio8_tpu_torch.models.convert import (from_fairseq_ctc_state,
+                                                 params_from_jax,
+                                                 read_fairseq_state)
+    from audio8_tpu_torch.train import orbax
+    from audio8_tpu_torch.train.checkpoint import resume_path
+
+    def read(mode):
+        pt = os.path.join(out_dir, mode, f"checkpoint-step-{DP_STEPS}.pt")
+        blob = torch.load(resume_path(pt), weights_only=True)
+        return pt, torch.load(pt, weights_only=False), blob
+
+    dp_pt, dp_model, dp_blob = read("dp")
+    out = {}
+    for mode in ("zero1", "fsdp"):
+        pt, model, blob = read(mode)
+        check(sorted(model["model"]) == sorted(dp_model["model"]),
+              f"zero (d): {mode} checkpoint keys")
+        diff = max(float((v - dp_model["model"][k]).abs().max())
+                   for k, v in model["model"].items())
+        mdiff = max(float((blob[key][n] - dp_blob[key][n]).abs().max())
+                    for key in ("mu", "nu") for n in dp_blob["names"])
+        check(blob["names"] == dp_blob["names"]
+              and blob["count"] == dp_blob["count"] == DP_STEPS,
+              f"zero (d): {mode} resume file")
+        check(diff <= ZERO_PARAM_ATOL and mdiff <= ZERO_PARAM_ATOL,
+              f"zero (d): {mode} checkpoint differs from DP's by {diff}, "
+              f"moments {mdiff}")
+        out[mode] = {"params_max_abs_diff": diff,
+                     "moments_max_abs_diff": mdiff}
+    losses = {m: zero_resume(os.path.join(out_dir, m), seed)
+              for m in ZERO_MODES}
+    for mode in ("zero1", "fsdp"):
+        out[mode]["resumed_loss"] = losses[mode]
+        check(rel(losses[mode], losses["dp"]) <= ZERO_LOSS_RTOL,
+              f"zero (d): {mode} resume loss {losses[mode]} vs DP's "
+              f"{losses['dp']}")
+    pt = os.path.join(out_dir, "zero1", f"checkpoint-step-{DP_STEPS}.pt")
+    conv = convert_checkpoint.main([
+        "--input", pt, "--output", os.path.join(tmp, "zero_orbax",
+                                                "checkpoint"),
+        "--output_format", "orbax", "--ctc", "true", "--num_labels",
+        str(len(LETTERS) + 4), "--num_layers", str(ZERO_LAYERS)])
+    tree = orbax.load_checkpoint(conv)
+    sd, (count, mu, nu) = params_from_jax(tree["params"], tree["opt_state"])
+    _, _, blob = read("zero1")
+    want, _ = from_fairseq_ctc_state(read_fairseq_state(pt))
+    bitwise = (int(count) == blob["count"]
+               and all(torch.equal(torch.as_tensor(sd[k]), torch.as_tensor(v))
+                       for k, v in want.items())
+               and all(torch.equal(torch.as_tensor(mu[n]), blob["mu"][n])
+                       and torch.equal(torch.as_tensor(nu[n]), blob["nu"][n])
+                       for n in blob["names"]))
+    check(bitwise, "zero (d): the Orbax directory of the ZeRO-1 save does "
+                   "not read back bitwise")
+    out.update(dp_resumed_loss=losses["dp"], orbax_bitwise=True,
+               orbax_bytes=tree_bytes(conv))
+    return out
+
+
+def phase_zero(tmp: str, seed: int, gen) -> tuple:
+    """Phase 25 (module docstring). Returns the launches of (a)'s sharded
+    runs and kernel 5's max error on chunk slices."""
+    import torch.multiprocessing as mp
+
+    start = time.perf_counter()
+    with timed("zero_cli"):
+        launches = zero_cli(tmp, seed)
+    with timed("zero_ranks"):
+        one = {"ctc": zero_ctc(0, 1, None, seed + 110, "dp"),
+               "ctc_sgd": zero_ctc(0, 1, None, seed + 110, "dp", "sgd"),
+               "pretrain": zero_pretrain(0, 1, None, seed + 110, "dp")}
+        out_dir = os.path.join(tmp, "zero_ranks")
+        os.makedirs(out_dir)
+        mp.start_processes(_zero_rank, args=(ZERO_RANKS, free_port(),
+                                             out_dir, seed + 110),
+                           nprocs=ZERO_RANKS, start_method="spawn",
+                           join=True)
+        ranks = [torch.load(os.path.join(out_dir, f"zero_rank{r}.pt"))
+                 for r in range(ZERO_RANKS)]
+    for r in ranks:
+        check(r["collectives"]["collectives_ok"],
+              "zero (b): gloo's reduce-scatter or all-gather of CUDA "
+              "tensors gave wrong values")
+    # (b) the sharded runs against the 2-rank DP run and one process
+    held = {f"ctc_{m}": zero_compare(ranks, "ctc", m) for m in ("zero1",
+                                                                "fsdp")}
+    held["pretrain_fsdp"] = zero_compare(ranks, "pretrain", "fsdp")
+    vs_one = {}
+    for kind, mode in (("ctc", "dp"), ("ctc", "zero1"), ("ctc", "fsdp"),
+                       ("pretrain", "fsdp"), ("ctc_sgd", None)):
+        mine = ranks[0][kind] if mode is None else ranks[0][kind][mode]
+        want = one[kind]
+        name = kind if mode is None else f"{kind}_{mode}"
+        vs_one[name] = {
+            "loss_rel_err": dp_close(mine["loss"], want["loss"],
+                                     DP_LOSS_RTOL, f"zero {name} loss"),
+            "gnorm_rel_err": dp_close(mine["gnorm"], want["gnorm"],
+                                      DP_GNORM_RTOL, f"zero {name} gnorm")}
+    # SGD moves a parameter by its gradient: FSDP's parameters against
+    # one process's (AdamW normalises a noise-level gradient into a step
+    # of the learning rate, so the AdamW runs are held to the 2-rank DP
+    # run instead)
+    sgd_diff = max(float((v - one["ctc_sgd"]["sample"][k]).abs().max())
+                   for k, v in ranks[0]["ctc_sgd"]["sample"].items())
+    vs_one["ctc_sgd"]["param_max_abs_err"] = sgd_diff
+    check(sgd_diff <= DP_PARAM_ATOL, f"zero (b): FSDP SGD parameters vs one "
+                                     f"process {sgd_diff}")
+    for mode in ("zero1", "fsdp"):
+        for k in ZERO_PATH:
+            check(ranks[0]["launches"][mode][k] > 0,
+                  f"zero (b): {k} not launched under {mode}")
+    # (c) bytes: ZeRO-1's moments are its chunk's (the padded flat buffer
+    # over the ranks), FSDP's parameters, gradients and moments half DP's
+    nbytes = {m: [r["ctc"][m]["bytes"] for r in ranks] for m in ZERO_MODES}
+    peaks = {m: [r["ctc"][m]["peak_bytes"] for r in ranks]
+             for m in ZERO_MODES}
+    dp_b, z1_b, fs_b = (nbytes[m][0] for m in ZERO_MODES)
+    check(z1_b["moments"] == z1_b["params"],  # 2 x (padded / 2) x 4 B
+          f"zero (c): ZeRO-1 moments {z1_b['moments']} vs its flat buffer "
+          f"{z1_b['params']}")
+    ratio = fs_b["total"] / dp_b["total"]
+    check(0.5 <= ratio <= 0.52, f"zero (c): FSDP keeps {ratio} of DP's")
+    emit({"phase": "zero", "part": "b", "card": card_name(),
+          "backend": "gloo (CUDA tensors, one card)", "world": ZERO_RANKS,
+          "route": ranks[0]["collectives"]["route"],
+          "ctc_seconds": list(DP_CTC_SECONDS),
+          "pretrain_batch": list(DP_PRETRAIN_BATCH), "steps": DP_STEPS,
+          "lr": ZERO_LR, "vs_dp": held, "vs_one_process": vs_one,
+          "rank0_launches": ranks[0]["launches"]})
+    emit({"phase": "zero", "part": "c", "card": card_name(),
+          "persistent_bytes": nbytes, "step_peak_bytes": peaks,
+          "fsdp_over_dp": ratio,
+          "collective_ms": {"gloo": [r["collectives"] for r in ranks]}})
+    with timed("zero_ckpt"):
+        ckpt = zero_checkpoints(tmp, out_dir, seed + 110)
+    emit({"phase": "zero", "part": "d", **ckpt})
+    with timed("zero_kernel"):
+        err = zero_adamw_chunk(gen)
+    emit({"phase": "zero", "seconds": time.perf_counter() - start,
+          "bytes_written": tree_bytes(*(os.path.join(tmp, d) for d in
+                                        os.listdir(tmp)
+                                        if d.startswith("zero"))),
+          "launches": {k: launches.get(k, 0) for k in REPLACES}})
+    return {k: launches.get(k, 0) for k in REPLACES}, {"adamw": err}
+
+
+def zero_phases(gen) -> int:
+    """The build and phase 25 alone (``--zero-phases``), then the phase
+    seconds, the card and the last line."""
+    with timed("build"):
+        phase_build()
+    with tempfile.TemporaryDirectory() as tmp:
+        launches, worst = phase_zero(tmp, SEED, gen)
+    emit({"phase": "phase_seconds", **PHASE_SECONDS})
+    emit({"phase": "zero_phases", "launches": launches,
+          "kernel_max_abs_err": worst})
+    print_card()
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if not torch.cuda.is_available():
@@ -9766,6 +10399,8 @@ def main(argv=None) -> int:
         return dp_phases(gen)
     if argv == ["--orbax-phases"]:
         return orbax_phases()
+    if argv == ["--zero-phases"]:
+        return zero_phases(gen)
     inference_first = argv == ["--inference-first"]
     if argv and not inference_first:
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
@@ -9875,6 +10510,10 @@ def main(argv=None) -> int:
             worst[k] = max(worst[k], e)
         torch.cuda.empty_cache()
         orbax_launches = phase_orbax(tmp, SEED)
+        torch.cuda.empty_cache()
+        zero_launches, errs = phase_zero(tmp, SEED, gen)
+        for k, e in errs.items():
+            worst[k] = max(worst[k], e)
     emit({"phase": "phase_seconds", **PHASE_SECONDS,
           "inference_first": inference_first,
           "trace_retries": {str(k): n for k, n in TRACE_RETRIES.items()},
@@ -9960,6 +10599,7 @@ def main(argv=None) -> int:
          "moe_launches": moe_launches.get(name, 0),
          "dp_launches": dp_launches.get(name, 0),
          "orbax_launches": orbax_launches.get(name, 0),
+         "zero_launches": zero_launches.get(name, 0),
          "max_abs_err": worst[name],
          **{k: times[(name, torch.float32)][k] for k in keys},
          **extra(name)}

@@ -31,6 +31,10 @@
   ``--layer_drop`` and every entry point every topology flag and
   preset, and the MoE flags; expert parallelism (``--moe_experts``
   beside ``--tensor_parallel 2``, item 8) still raises.
+* ``--zero1`` and ``--fsdp`` pass in the seven trainers that take them
+  in JAX (with ``--distributed`` too) and are inert in the entry points
+  where JAX parses and ignores them; tensor, sequence and pipeline
+  parallelism still raise naming item 8.
 * A value the port can run runs: dropout flags at inference, the LM
   weights without an LM, the MoE and transducer sizes without MoE or a
   transducer, the topology flags at the port's own topology.
@@ -75,7 +79,8 @@ NEEDED = {"train": [], "pretrain": ["--manifest_dir", "m"],
                      "--output", "o"],
           "cluster_targets": ["--root_dir", "r", "--manifests", "t.tsv"],
           "pretrain_hubert": [], "pretrain_data2vec": ["--manifest_dir",
-                                                       "m"]}
+                                                       "m"],
+          "convert_checkpoint": ["--input", "i", "--output", "o"]}
 SSL_ENTRIES = ("cluster_targets", "pretrain_hubert", "pretrain_data2vec")
 
 
@@ -142,17 +147,14 @@ def parse_and_check(entry, extra):
 @pytest.mark.parametrize("entry,extra,item", [
     ("train", ["--pipeline_parallel", "2"], "item 8"),
     ("train", ["--tensor_parallel", "2"], "item 8"),
-    ("train", ["--fsdp", "true"], "item 8"),
     ("train", ["--moe_experts", "4", "--tensor_parallel", "2"],
      "item 8"),
     ("train", ["--distributed", "true", "--tensor_parallel", "2"],
      "item 8"),
     ("pretrain", ["--sequence_parallel", "true"], "item 8"),
     ("test", ["--tensor_parallel", "2"], "item 8"),
-    ("serve", ["--zero1", "true"], "item 8"),
     ("train_seq2seq", ["--distributed", "true", "--tensor_parallel", "2"],
      "item 8"),
-    ("train_seq2seq", ["--fsdp", "true"], "item 8"),
     ("pretrain_paired", ["--distributed", "true", "--tensor_parallel", "2"],
      "item 8"),
     ("pretrain_paired", ["--moe_experts", "4", "--tensor_parallel", "2"],
@@ -162,20 +164,15 @@ def parse_and_check(entry, extra):
      "item 8"),
     ("train_transducer", ["--moe_experts", "4", "--tensor_parallel", "2"],
      "item 8"),
-    ("train_transducer", ["--fsdp", "true"], "item 8"),
     ("pretrain_hubert", ["--distributed", "true", "--tensor_parallel", "2"],
      "item 8"),
     ("pretrain_hubert", ["--tensor_parallel", "2"], "item 8"),
-    ("pretrain_hubert", ["--zero1", "true"], "item 8"),
-    ("pretrain_hubert", ["--fsdp", "true"], "item 8"),
     ("pretrain_hubert", ["--sequence_parallel", "true"], "item 8"),
     ("pretrain_hubert", ["--moe_experts", "4", "--tensor_parallel", "2"],
      "item 8"),
     ("pretrain_data2vec", ["--distributed", "true", "--tensor_parallel", "2"],
      "item 8"),
     ("pretrain_data2vec", ["--tensor_parallel", "2"], "item 8"),
-    ("pretrain_data2vec", ["--zero1", "true"], "item 8"),
-    ("pretrain_data2vec", ["--fsdp", "true"], "item 8"),
     ("pretrain_data2vec", ["--sequence_parallel", "true"], "item 8"),
     ("pretrain_data2vec", ["--moe_experts", "4", "--tensor_parallel", "2"],
      "item 8"),
@@ -185,6 +182,40 @@ def parse_and_check(entry, extra):
 ])
 def test_unported_values_raise_naming_their_item(entry, extra, item):
     with pytest.raises(NotImplementedError, match=item):
+        parse_and_check(entry, extra)
+
+
+SHARDING_TRAINERS = ("train", "pretrain", "train_transducer",
+                     "train_seq2seq", "pretrain_paired", "pretrain_hubert",
+                     "pretrain_data2vec")
+SHARDING_IGNORED = ("serve", "test", "transcribe", "embed", "export",
+                    "cluster_targets", "convert_checkpoint")
+
+
+@pytest.mark.parametrize("flag", ["--zero1", "--fsdp"])
+@pytest.mark.parametrize("entry", SHARDING_TRAINERS + SHARDING_IGNORED)
+def test_sharding_flags_pass(entry, flag):
+    """``--zero1`` and ``--fsdp`` (item 8's first part, ported): the seven
+    trainers that take them in JAX take them, with ``--distributed`` too;
+    the entry points where JAX parses them and ignores them do the
+    same."""
+    args = parse_and_check(entry, [flag, "true"])
+    assert getattr(args, flag[2:]) is True
+    if entry in SHARDING_TRAINERS:
+        args = parse_and_check(entry, [flag, "true", "--distributed",
+                                       "true"])
+        assert args.distributed is True
+
+
+@pytest.mark.parametrize("entry,extra", [
+    ("train", ["--zero1", "true", "--tensor_parallel", "2"]),
+    ("pretrain", ["--fsdp", "true", "--sequence_parallel", "true"]),
+    ("train", ["--fsdp", "true", "--pipeline_parallel", "2"]),
+])
+def test_model_parallel_flags_still_raise(entry, extra):
+    """Tensor, sequence and pipeline parallelism (item 8's rest) still
+    raise beside the sharding flags."""
+    with pytest.raises(NotImplementedError, match="item 8"):
         parse_and_check(entry, extra)
 
 

@@ -64,7 +64,8 @@ def test_every_module_imports_with_jax_blocked():
                 "models.transducer", "ops.transducer", "data.mfcc",
                 "models.hubert", "models.data2vec", "cli.cluster_targets",
                 "cli.pretrain_hubert", "cli.pretrain_data2vec",
-                "parallel", "parallel.sharding", "train.orbax",
+                "parallel", "parallel.sharding", "parallel.zero",
+                "train.orbax",
                 "train.ocdbt", "train.zarr"):
         assert f"audio8_tpu_torch.{new}" in mods
     code = (

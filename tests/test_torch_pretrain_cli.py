@@ -105,7 +105,12 @@ def test_pretrain_with_bucketing(corpus, tmp_path):
 @pytest.mark.parametrize("flag", [["--distributed", "true",
                                    "--tensor_parallel", "2"],
                                   ["--tensor_parallel", "2"],
-                                  ["--zero1", "true"], ["--fsdp", "true"],
+                                  # sharding runs, the model group beside
+                                  # it does not
+                                  ["--zero1", "true", "--tensor_parallel",
+                                   "2"],
+                                  ["--fsdp", "true", "--sequence_parallel",
+                                   "true"],
                                   ["--sequence_parallel", "true"],
                                   ["--moe_experts", "4",
                                    "--tensor_parallel", "2"]])

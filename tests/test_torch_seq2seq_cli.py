@@ -81,7 +81,7 @@ def test_default_device_is_the_card(corpus, tmp_path):
 
 
 @pytest.mark.parametrize("flag,value,item", [
-    ("--fsdp", "true", "item 8"),
+    ("--sequence_parallel", "true", "item 8"),
     ("--tensor_parallel", "2", "item 8"),
 ])
 def test_unported_flags_raise(corpus, tmp_path, flag, value, item):

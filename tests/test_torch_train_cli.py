@@ -126,8 +126,10 @@ def test_unfrozen_extractor_trains(corpus, tmp_path):
 
 
 @pytest.mark.parametrize("flag", [["--tensor_parallel", "2"],
+                                  # --zero1 runs, pipeline parallelism
+                                  # beside it does not
                                   ["--distributed", "true", "--zero1",
-                                   "true"]])
+                                   "true", "--pipeline_parallel", "2"]])
 def test_unported_flags_raise(corpus, tmp_path, flag):
     with pytest.raises(NotImplementedError):
         train_cli.train(_train_args(corpus, str(tmp_path / "r")) + flag)

@@ -183,6 +183,8 @@ def _cli_entry(rank, world, port, out_dir, jobs, offsets):
     process group."""
     import importlib
 
+    from audio8_tpu_torch.parallel.zero import full_state
+
     os.environ.update(RANK=str(rank), LOCAL_RANK=str(rank),
                       WORLD_SIZE=str(world), MASTER_ADDR="127.0.0.1",
                       MASTER_PORT=str(port))
@@ -194,7 +196,9 @@ def _cli_entry(rank, world, port, out_dir, jobs, offsets):
                 argv + ["--distributed", "true"])
             if isinstance(state, tuple):  # data2vec: (state, teacher)
                 state = state[0]
-            torch.save({"log": state.log, "params": _params(state.model),
+            with full_state(state):  # whole parameters, every rank
+                params = _params(state.model)
+            torch.save({"log": state.log, "params": params,
                         "valid": getattr(state, "valid", None)},
                        os.path.join(out_dir, f"job{i}_rank{rank}.pt"))
     finally:
