@@ -87,7 +87,9 @@ DECODE = "ROADMAP.md queue 1, item 6 (serving and inference)"
 PARALLEL = "ROADMAP.md queue 1, item 8 (parallelism beyond DP)"
 
 # flag -> (its value when unused, the item that ports it). Any other
-# value raises; a flag an entry point does not have is skipped.
+# value raises; a flag an entry point does not have is skipped. The
+# seven trainers run --tensor_parallel and --sequence_parallel
+# (``parallel/tensor.py``; :data:`PARALLEL_TRAINERS`).
 NOT_PORTED = {
     "tensor_parallel": (1, PARALLEL),
     "sequence_parallel": (False, PARALLEL),
@@ -102,7 +104,13 @@ NOT_PORTED = {
 # and LM fusion of the trainer's verbose validation and of the decoders,
 # word timestamps, VAD and int8 weights (``--device_beam`` and
 # ``--lm_rescore`` run wherever an entry point has them)
-PORTED = {"train": ("beam", "lm"), "test": ("beam", "lm", "quantize"),
+PARALLEL_TRAINERS = ("train", "pretrain", "train_transducer",
+                     "train_seq2seq", "pretrain_paired", "pretrain_hubert",
+                     "pretrain_data2vec")
+_TP = ("tensor_parallel", "sequence_parallel")
+PORTED = {**{e: _TP for e in PARALLEL_TRAINERS},
+          "train": ("beam", "lm") + _TP,
+          "test": ("beam", "lm", "quantize"),
           "transcribe": ("beam", "lm", "timestamps", "vad", "quantize"),
           "serve": ("beam", "lm", "timestamps", "quantize"),
           "export": ("quantize",)}
@@ -160,21 +168,33 @@ def check_ported(args: Namespace, entry: str) -> None:
         if hasattr(args, flag) and getattr(args, flag) != unused:
             raise NotImplementedError(
                 f"--{flag} {getattr(args, flag)} is not ported yet: {item}")
+    if getattr(args, "tensor_parallel", 1) > 1:
+        for flag, unused, what in (("moe_experts", 0, "expert parallelism"),
+                                   ("zero1", False, "ZeRO-1"),
+                                   ("fsdp", False, "FSDP")):
+            if getattr(args, flag, unused) != unused:
+                raise NotImplementedError(
+                    f"--{flag} beside --tensor_parallel "
+                    f"{args.tensor_parallel} ({what} over the model group) "
+                    f"is not ported yet: {PARALLEL}")
     check_supported(EncoderConfig(**encoder_kwargs(args)))
 
 
 def start_distributed(args):
     """``--distributed``: the rank's device (``cuda`` is
     ``cuda:$LOCAL_RANK``), then the process group
-    (``parallel/sharding.py:setup``); returns ``(device, rank, world,
-    group)``, ``group`` None when no process group runs. Without
-    ``--distributed``: ``--device``, rank 0 of 1, no group."""
-    from audio8_tpu_torch.parallel.sharding import (dp_device, setup,
-                                                    world_group)
+    (``parallel/sharding.py:setup``) laid out as ``--tensor_parallel``
+    model ranks per data rank; returns ``(device, rank, world, group)``:
+    the data rank, the data extent and the data group (the world at
+    ``--tensor_parallel`` 1), ``group`` None when no process group runs.
+    Without ``--distributed``: ``--device``, rank 0 of 1, no group."""
+    from audio8_tpu_torch.parallel.sharding import (data_group, dp_device,
+                                                    setup)
 
     device = resolve_device(dp_device(args.device, args.distributed))
-    rank, world = setup(args.distributed, device)
-    return device, rank, world, world_group()
+    rank, world = setup(args.distributed, device,
+                        tensor_parallel=getattr(args, "tensor_parallel", 1))
+    return device, rank, world, data_group()
 
 
 def shard_kwargs(rank: int, world: int) -> dict:
@@ -186,23 +206,24 @@ def shard_kwargs(rank: int, world: int) -> dict:
 
 
 def save_on_rank0(group, save, *args, whole=()) -> None:
-    """``save(*args)`` on rank 0 of ``group`` only (always without a
-    group); every rank then waits at a barrier, so no rank reads or
-    resumes from a file still being written. A ZeRO-1 or FSDP state
-    among ``args``, and the states and modules in ``whole``, are
-    gathered whole first, on every rank (``parallel/zero.py:
-    full_state``, a collective: a gather inside rank 0's save alone
-    would hang)."""
+    """``save(*args)`` on the first rank of the run only (always without
+    a group); every rank then waits at a barrier, so no rank reads or
+    resumes from a file still being written. A ZeRO-1, FSDP or
+    tensor-parallel state among ``args``, and the states and modules in
+    ``whole``, are gathered whole first, on every rank
+    (``parallel/__init__.py:full_state``, a collective: a gather inside rank
+    0's save alone would hang)."""
     import torch.distributed as dist
 
+    from audio8_tpu_torch.parallel import full_state
     from audio8_tpu_torch.parallel.sharding import barrier
-    from audio8_tpu_torch.parallel.zero import full_state
 
-    states = [a for a in args if getattr(a, "shards", None) is not None]
+    states = [a for a in args if getattr(a, "shards", None) is not None
+              or getattr(a, "tensor_shards", None) is not None]
     with full_state(*states, *whole):
-        if group is None or dist.get_rank(group) == 0:
+        if group is None or dist.get_rank() == 0:
             save(*args)
-    barrier(group)
+    barrier(None if group is None else dist.group.WORLD)
 
 
 def add_augmentation_args(parser: ArgumentParser) -> None:
@@ -260,7 +281,10 @@ def add_common_model_args(parser: ArgumentParser) -> None:
     add = parser.add_argument
     add("--preset", choices=sorted(MODEL_PRESETS), default="base",
         help="model-size preset; individual size flags override it")
-    add("--tensor_parallel", type=int, default=1, help="not ported yet")
+    add("--tensor_parallel", type=int, default=1,
+        help="ranks of a model group: the transformer's heads and FFN "
+             "columns split over them (parallel/tensor.py; a trainer's "
+             "flag under --distributed)")
     add("--zero1", type=str2bool, default=False,
         help="shard the AdamW moments over the --distributed ranks "
              "(parallel/zero.py; a trainer's flag, inert elsewhere)")
@@ -269,7 +293,8 @@ def add_common_model_args(parser: ArgumentParser) -> None:
              "--distributed ranks, gathering each layer as it runs "
              "(implies --zero1; a trainer's flag, inert elsewhere)")
     add("--sequence_parallel", type=str2bool, default=False,
-        help="not ported yet")
+        help="split the wav2vec2 stack's residual stream on T over the "
+             "--tensor_parallel model group between layers")
     add("--moe_experts", type=int, default=0,
         help="Mixture-of-Experts FFN with this many experts in every "
              "--moe_every-th transformer layer (nn/moe.py; 0: dense)")

@@ -59,8 +59,8 @@ from audio8_tpu_torch.data.datasets import (AudioFileDataset,
                                             BucketingAudioDataset,
                                             PrefetchLoader)
 from audio8_tpu_torch.models.wav2vec2 import PretrainSeeds, Wav2Vec2Model
+from audio8_tpu_torch.parallel import shard_state
 from audio8_tpu_torch.parallel.sharding import sync_from_rank0
-from audio8_tpu_torch.parallel.zero import shard_state
 from audio8_tpu_torch.train.checkpoint import save_checkpoint
 from audio8_tpu_torch.train.optim import (TrainState, create_lrs,
                                           create_optimizer)

@@ -57,8 +57,8 @@ from audio8_tpu_torch.data.datasets import AudioFileDataset, PrefetchLoader
 from audio8_tpu_torch.models.convert import save_fairseq_pretrained
 from audio8_tpu_torch.models.data2vec import Data2VecAudioModel
 from audio8_tpu_torch.ops.hashrand import draw_seed
+from audio8_tpu_torch.parallel import shard_like, shard_state
 from audio8_tpu_torch.parallel.sharding import sync_from_rank0
-from audio8_tpu_torch.parallel.zero import shard_like, shard_state
 from audio8_tpu_torch.train.checkpoint import (TEACHER_BASE, load_teacher,
                                                save_checkpoint)
 from audio8_tpu_torch.train.optim import (TrainState, create_lrs,

@@ -56,9 +56,9 @@ from audio8_tpu_torch.config import HubertPretrainConfig
 from audio8_tpu_torch.data.datasets import (AudioTextLetterDataset,
                                             PrefetchLoader)
 from audio8_tpu_torch.models.hubert import HubertPretrainModel, HubertSeeds
+from audio8_tpu_torch.parallel import shard_state
 from audio8_tpu_torch.parallel.sharding import (global_sum_scalars,
                                                 sync_from_rank0)
-from audio8_tpu_torch.parallel.zero import shard_state
 from audio8_tpu_torch.train.checkpoint import save_checkpoint
 from audio8_tpu_torch.train.optim import (TrainState, create_lrs,
                                           create_optimizer)

@@ -58,9 +58,9 @@ from audio8_tpu_torch.models.dual_encoder import (DualEncoderModel,
 from audio8_tpu_torch.models.text import (BPEVectorizer, TextVectorizer,
                                           read_vocab_file)
 from audio8_tpu_torch.models.warmstart import load_tlm_npz
+from audio8_tpu_torch.parallel import shard_state
 from audio8_tpu_torch.parallel.sharding import (global_sum_scalars,
                                                 sync_from_rank0)
-from audio8_tpu_torch.parallel.zero import shard_state
 from audio8_tpu_torch.train.checkpoint import save_checkpoint
 from audio8_tpu_torch.train.optim import (TrainState, create_lrs,
                                           create_optimizer)

@@ -68,9 +68,9 @@ from audio8_tpu_torch.models.text import TextVectorizer, read_vocab_list
 from audio8_tpu_torch.models.wav2vec2 import Wav2Vec2AcousticModel
 from audio8_tpu_torch.ops import metrics as M
 from audio8_tpu_torch.ops.beam import PrefixBeamSearch
+from audio8_tpu_torch.parallel import shard_state
 from audio8_tpu_torch.parallel.sharding import (global_sum_scalars,
                                                 sync_from_rank0)
-from audio8_tpu_torch.parallel.zero import shard_state
 from audio8_tpu_torch.train.checkpoint import save_checkpoint
 from audio8_tpu_torch.train.optim import (TrainState, create_lrs,
                                           create_optimizer)

@@ -54,9 +54,9 @@ from audio8_tpu_torch.data.datasets import (AudioTextLetterDataset,
 from audio8_tpu_torch.models.seq2seq import Seq2Seq
 from audio8_tpu_torch.models.text import TextVectorizer, read_vocab_file
 from audio8_tpu_torch.ops import metrics as M
+from audio8_tpu_torch.parallel import shard_state
 from audio8_tpu_torch.parallel.sharding import (global_sum_scalars,
                                                 sync_from_rank0)
-from audio8_tpu_torch.parallel.zero import shard_state
 from audio8_tpu_torch.train.checkpoint import save_checkpoint
 from audio8_tpu_torch.train.optim import (TrainState, create_lrs,
                                           create_optimizer)

@@ -145,7 +145,7 @@ int block_bwd(const void* x, const void* wq, const void* wk, const void* wv,
               void* dk32, void* dv32, void* dx, float* dw_part,
               float* dwo_part, float* db_part, int batch, int t, int d_model,
               int heads, int dh, int dtype, float scale, float inv_keep,
-              uint32_t threshold, uint32_t seed, uint32_t bh0, int dropout,
+              uint32_t threshold, uint32_t seed, uint32_t bh0, uint32_t hs, int dropout,
               int route, int s_w, int s_wo, cudaStream_t s) {
   using namespace blockgemm;
   const int t_pad = (t + 127) / 128 * 128, hd = heads * dh;
@@ -181,7 +181,7 @@ int block_bwd(const void* x, const void* wq, const void* wk, const void* wv,
   // 3-5. the core backward on (B, H, T_pad, dh), "kernel" semantics
   err = run_bwd(q, k, v, o32, dxo, key_valid, stats, dvec, dq_part, dq, dk,
                 dv, dq32, dk32, dv32, batch, heads, t_pad, dh, dtype, scale,
-                inv_keep, threshold, seed, bh0, dropout, 0, 0, s);
+                inv_keep, threshold, seed, bh0, hs, dropout, 0, 0, s);
   if (err != 0) return err;
   // 6. dW{q,k,v} partials (3, s_w, H*dh, D): d{q,k,v}^T x over the rows
   // of all batch rows
@@ -234,7 +234,7 @@ extern "C" int a8t_attention_block_bwd(
     void* dk, void* dv, void* dq32, void* dk32, void* dv32, void* dx,
     void* dw_part, void* dwo_part, void* db_part, int batch, int t,
     int d_model, int heads, int dh, int dtype, float scale, float inv_keep,
-    uint32_t threshold, uint32_t seed, uint32_t bh0, int dropout, int route,
+    uint32_t threshold, uint32_t seed, uint32_t bh0, uint32_t hs, int dropout, int route,
     int s_w, int s_wo, void* stream) {
   if (batch <= 0 || t <= 0 || d_model <= 0 || heads <= 0 || dh <= 0 ||
       s_w <= 0 || s_wo <= 0 ||
@@ -249,13 +249,13 @@ extern "C" int a8t_attention_block_bwd(
                             nullptr, nullptr, nullptr, dx, (float*)dw_part,
                             (float*)dwo_part, (float*)db_part, batch, t,
                             d_model, heads, dh, dtype, scale, inv_keep,
-                            threshold, seed, bh0, dropout, route, s_w, s_wo, s);
+                            threshold, seed, bh0, hs, dropout, route, s_w, s_wo, s);
   if (dtype == 1)
     return block_bwd<__nv_bfloat16>(
         x, wq, wk, wv, wo, key_valid, dout, q, k, v, o, o32, stats, dxo, dvec,
         dq_part, dq, dk, dv, dq32, dk32, dv32, dx, (float*)dw_part,
         (float*)dwo_part, (float*)db_part, batch, t, d_model, heads, dh,
-        dtype, scale, inv_keep, threshold, seed, bh0, dropout, route, s_w, s_wo,
+        dtype, scale, inv_keep, threshold, seed, bh0, hs, dropout, route, s_w, s_wo,
         s);
   return (int)cudaErrorInvalidValue;
 }

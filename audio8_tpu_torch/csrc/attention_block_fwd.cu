@@ -90,7 +90,7 @@ int block_fwd(const void* x, const void* wq, const void* bq, const void* wk,
               void* v, void* o, void* stats, void* o32, void* out, int batch,
               int t, int d_model, int heads, int dh, int dtype, float scale,
               float inv_keep, uint32_t threshold, uint32_t seed,
-              uint32_t bh0, int dropout, int route, cudaStream_t s) {
+              uint32_t bh0, uint32_t hs, int dropout, int route, cudaStream_t s) {
   using namespace blockgemm;
   const int t_pad = (t + 127) / 128 * 128, hd = heads * dh;
   const int lg = log2_exact(dh);
@@ -116,7 +116,7 @@ int block_fwd(const void* x, const void* wq, const void* bq, const void* wk,
   if (err != 0) return err;
   // 2. the attention core on (B, H, T_pad, dh)
   err = run_fwd(q, k, v, key_valid, o, stats, o32, batch, heads, t_pad, dh,
-                dtype, scale, inv_keep, threshold, seed, bh0, dropout, 0, 0, s);
+                dtype, scale, inv_keep, threshold, seed, bh0, hs, dropout, 0, 0, s);
   if (err != 0) return err;
   // 3. out = [o_1 .. o_H] Wo^T + bo over the real rows
   if (route == kWgmma)
@@ -144,9 +144,9 @@ extern "C" int a8t_attention_block_route(int dtype, int d_model, int heads,
 // backward; stats: (B*H*T_pad, 2) f32 or NULL; o32: (B, H, T_pad, dh) f32
 // or NULL (bf16 only). All contiguous and 16-byte aligned, one dtype (0 =
 // float32, 1 = bfloat16). inv_keep = 1 / (1 - rate); threshold and seed
-// are the uint32 dropout parameters (dropout = 0 skips the hash), bh0 the
-// global head index of head 0 (b0 * H for rows that start at row b0 of a
-// larger batch, as in a8t_attention_fwd). route
+// are the uint32 dropout parameters (dropout = 0 skips the hash), bh0 and
+// hs place the rows and heads in a larger tensor's (global_head of
+// attention_fwd.cu; b0 * H_glob + h0 and H_glob), as in a8t_attention_fwd. route
 // must be block_route's for the shape. Returns the cudaError_t of the
 // three launches.
 extern "C" int a8t_attention_block_fwd(
@@ -155,7 +155,7 @@ extern "C" int a8t_attention_block_fwd(
     const void* bo, const void* key_valid, void* q, void* k, void* v, void* o,
     void* stats, void* o32, void* out, int batch, int t, int d_model,
     int heads, int dh, int dtype, float scale, float inv_keep,
-    uint32_t threshold, uint32_t seed, uint32_t bh0, int dropout, int route,
+    uint32_t threshold, uint32_t seed, uint32_t bh0, uint32_t hs, int dropout, int route,
     void* stream) {
   if (batch <= 0 || t <= 0 || d_model <= 0 || heads <= 0 || dh <= 0 ||
       route != blockgemm::block_route(dtype, d_model, heads, dh))
@@ -165,12 +165,12 @@ extern "C" int a8t_attention_block_fwd(
     return block_fwd<float>(x, wq, bq, wk, bk, wv, bv, wo, bo, key_valid, q,
                             k, v, o, stats, o32, out, batch, t, d_model,
                             heads, dh, dtype, scale, inv_keep, threshold,
-                            seed, bh0, dropout, route, s);
+                            seed, bh0, hs, dropout, route, s);
   if (dtype == 1)
     return block_fwd<__nv_bfloat16>(x, wq, bq, wk, bk, wv, bv, wo, bo,
                                     key_valid, q, k, v, o, stats, o32, out,
                                     batch, t, d_model, heads, dh, dtype,
-                                    scale, inv_keep, threshold, seed, bh0,
+                                    scale, inv_keep, threshold, seed, bh0, hs,
                                     dropout, route, s);
   return (int)cudaErrorInvalidValue;
 }

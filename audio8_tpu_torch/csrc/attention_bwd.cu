@@ -13,7 +13,8 @@
 //     the uniform 1/T_pad, and ds is NOT zeroed at masked columns (such a
 //     row gets a dq and its keys a dk); dropout keeps column c of query
 //     row r iff murmur(r * T_pad + c ^ (seed + b*H + h)) >= threshold
-//     (b the global row: b0 + b for rows that start at b0, bh0 = b0*H);
+//     (b*H + h the global head index bh0 + b*hs + h of rows from b0
+//     and heads from h0 of a larger tensor: bh0 = b0*H_glob + h0);
 //   * "xla" semantics (xla = 1), the JAX package's XLA attention
 //     (audio8_tpu/nn/transformer.py, fused_attention=None): padded keys
 //     (c >= T) are out of the softmax, invalid keys take -1e9, ds is zero
@@ -132,11 +133,22 @@ struct Params {
   float* dv32;
   int n_heads, t, t_pad, n_kt;
   float scale, inv_keep;
-  // bh0: the global head index of this call's head 0 (b0 * H mod 2^32
-  // for rows that start at row b0 of a larger batch), as in the forward
-  uint32_t threshold, seed, bh0;
+  // bh0, hs: where this call's heads lie in the whole tensor's
+  // (global_head), as in the forward
+  uint32_t threshold, seed, bh0, hs;
   int dropout, xla, round_logits;
 };
+
+// The global head index of this call's (b, h) = (bh / heads, bh % heads):
+// bh0 + b * hs + h, mod 2^32. bh0 = b0 * H_glob + h0 and hs = H_glob for
+// heads h0 .. h0 + heads - 1 of rows b0 .. of a larger (B_glob, H_glob)
+// tensor (a data-parallel rank's rows, a tensor-parallel rank's heads:
+// parallel/sharding.py, parallel/tensor.py); bh0 = 0, hs = heads for a
+// whole tensor, where it is bh itself.
+__device__ __forceinline__ uint32_t global_head(uint32_t bh0, uint32_t hs,
+                                                int bh, int heads) {
+  return bh0 + (uint32_t)(bh / heads) * hs + (uint32_t)(bh % heads);
+}
 
 // First hash index of query row `row` of global head hbh (P.bh0 + the
 // head's index in this call; see the header).
@@ -376,7 +388,7 @@ __global__ void __launch_bounds__(256, 1)
   const size_t base = (size_t)bh * t * DH;
   const uint8_t* kvb =
       P.key_valid ? P.key_valid + (size_t)(bh / P.n_heads) * t : nullptr;
-  const uint32_t hbh = P.bh0 + (uint32_t)bh;  // the global head index
+  const uint32_t hbh = global_head(P.bh0, P.hs, bh, P.n_heads);
   const uint32_t seed_g = P.xla ? P.seed : P.seed + hbh;
   float* ks = fsm + L::K;
   float* vs = fsm + L::V;
@@ -615,7 +627,7 @@ __global__ void __launch_bounds__(128)
   const size_t base = (size_t)bh * t * DH;
   const uint8_t* kvb =
       P.key_valid ? P.key_valid + (size_t)(bh / P.n_heads) * t : nullptr;
-  const uint32_t hbh = P.bh0 + (uint32_t)bh;  // the global head index
+  const uint32_t hbh = global_head(P.bh0, P.hs, bh, P.n_heads);
   const uint32_t seed_g = P.xla ? P.seed : P.seed + hbh;
 
   load_core_tile<DH>(sb + L::K, k + base, c0, t);
@@ -831,7 +843,7 @@ int run_bwd(const void* q, const void* k, const void* v, const void* o,
             void* dvec, void* dq_part, void* dq, void* dk, void* dv,
             void* dq32, void* dk32, void* dv32, int batch, int heads, int t,
             int dh, int dtype, float scale, float inv_keep,
-            uint32_t threshold, uint32_t seed, uint32_t bh0, int dropout,
+            uint32_t threshold, uint32_t seed, uint32_t bh0, uint32_t hs, int dropout,
             int xla, int round_logits, cudaStream_t s) {
   if (batch <= 0 || heads <= 0 || t <= 0 || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
@@ -857,6 +869,7 @@ int run_bwd(const void* q, const void* k, const void* v, const void* o,
   P.threshold = threshold;
   P.seed = seed;
   P.bh0 = bh0;
+  P.hs = hs;
   P.dropout = dropout;
   P.xla = xla;
   P.round_logits = round_logits;
@@ -896,7 +909,7 @@ int run_bwd(const void* q, const void* k, const void* v, const void* o,
 // scratch; dq_part: (B*H, ceil(T/64), T, dh) f32 scratch; dq32, dk32,
 // dv32: (B, H, T, dh) f32 copies of the gradients before their rounding,
 // or NULL. dtype: 0 = float32, 1 = bfloat16. inv_keep = 1 / (1 - rate);
-// threshold, seed and bh0 as in the forward (dropout = 0 skips the
+// threshold, seed, bh0 and hs as in the forward (dropout = 0 skips the
 // hash); xla and round_logits pick the semantics as in the forward.
 // Returns the cudaError_t of the launches.
 extern "C" int a8t_attention_bwd(const void* q, const void* k, const void* v,
@@ -907,10 +920,10 @@ extern "C" int a8t_attention_bwd(const void* q, const void* k, const void* v,
                                  void* dv32, int batch, int heads, int t,
                                  int dh, int dtype, float scale,
                                  float inv_keep, uint32_t threshold,
-                                 uint32_t seed, uint32_t bh0, int dropout,
+                                 uint32_t seed, uint32_t bh0, uint32_t hs, int dropout,
                                  int xla, int round_logits, void* stream) {
   return run_bwd(q, k, v, o, dout, key_valid, stats, dvec, dq_part, dq, dk,
                  dv, dq32, dk32, dv32, batch, heads, t, dh, dtype, scale,
-                 inv_keep, threshold, seed, bh0, dropout, xla, round_logits,
+                 inv_keep, threshold, seed, bh0, hs, dropout, xla, round_logits,
                  (cudaStream_t)stream);
 }

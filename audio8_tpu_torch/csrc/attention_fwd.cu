@@ -204,6 +204,17 @@ __device__ __forceinline__ void bf16_round2(float& a, float& b) {
   b = __uint_as_float(u & 0xFFFF0000u);
 }
 
+// The global head index of this call's (b, h) = (bh / heads, bh % heads):
+// bh0 + b * hs + h, mod 2^32. bh0 = b0 * H_glob + h0 and hs = H_glob for
+// heads h0 .. h0 + heads - 1 of rows b0 .. of a larger (B_glob, H_glob)
+// tensor (a data-parallel rank's rows, a tensor-parallel rank's heads:
+// parallel/sharding.py, parallel/tensor.py); bh0 = 0, hs = heads for a
+// whole tensor, where it is bh itself.
+__device__ __forceinline__ uint32_t global_head(uint32_t bh0, uint32_t hs,
+                                                int bh, int heads) {
+  return bh0 + (uint32_t)(bh / heads) * hs + (uint32_t)(bh % heads);
+}
+
 // First hash index of query row `row`: row * T_pad ("kernel", the TPU
 // kernel's per-head mask) or the flat (B, H, T, T) index of (bh, row, 0)
 // ("xla", nn/dropout.py's _hash_keep_mask), mod 2^32.
@@ -306,7 +317,7 @@ __global__ void __launch_bounds__(SNT, SimtPlan<DH>::MINB)
                               T* __restrict__ o, float* __restrict__ stats,
                               float* __restrict__ o32, int n_heads, int t,
                               int t_pad, float scale, float inv_keep,
-                              uint32_t threshold, uint32_t seed, uint32_t bh0, int dropout,
+                              uint32_t threshold, uint32_t seed, uint32_t bh0, uint32_t hs, int dropout,
                               int xla, int round_logits) {
   using Plan = SimtPlan<DH>;
   constexpr int KJ = Plan::KJ, DJ = Plan::DJ;
@@ -323,7 +334,7 @@ __global__ void __launch_bounds__(SNT, SimtPlan<DH>::MINB)
   const int q0 = blockIdx.x * SQ;
   const size_t base = (size_t)bh * t * DH;
   const uint8_t* kvb = key_valid ? key_valid + (size_t)b * t : nullptr;
-  const uint32_t hbh = bh0 + (uint32_t)bh;  // the global head index
+  const uint32_t hbh = global_head(bh0, hs, bh, n_heads);
   const uint32_t seed_g = xla ? seed : seed + hbh;
   const T type_tag{};
   const int n_tiles = (t + BKV - 1) / BKV;
@@ -522,7 +533,7 @@ __global__ void __launch_bounds__(128)
                                   float* __restrict__ o32, int n_heads,
                                   int t, int t_pad, float scale,
                                   float inv_keep, uint32_t threshold,
-                                  uint32_t seed, uint32_t bh0, int dropout, int xla,
+                                  uint32_t seed, uint32_t bh0, uint32_t hs, int dropout, int xla,
                                   int round_logits) {
   constexpr int LD = DH + 8;  // bf16 row pitch of the k/v tiles
   constexpr int NS = BKV / 8;  // 8-key score tiles per key tile
@@ -538,7 +549,7 @@ __global__ void __launch_bounds__(128)
   const int r0 = blockIdx.x * BQ + warp * 16 + g;  // rows r0 and r0 + 8
   const size_t base = (size_t)bh * t * DH;
   const uint8_t* kvb = key_valid ? key_valid + (size_t)b * t : nullptr;
-  const uint32_t hbh = bh0 + (uint32_t)bh;  // the global head index
+  const uint32_t hbh = global_head(bh0, hs, bh, n_heads);
   const uint32_t seed_g = xla ? seed : seed + hbh;
 
   auto q2 = [&](int r, int c) -> uint32_t {
@@ -725,7 +736,7 @@ __global__ void __launch_bounds__(W_THREADS, WgmmaPlan<DH>::MINB)
                                float* __restrict__ stats,
                                float* __restrict__ o32, int n_heads, int t,
                                int t_pad, float scale, float inv_keep,
-                               uint32_t threshold, uint32_t seed, uint32_t bh0, int dropout,
+                               uint32_t threshold, uint32_t seed, uint32_t bh0, uint32_t hs, int dropout,
                                int xla, int round_logits) {
   using Plan = WgmmaPlan<DH>;
   constexpr int DB = Plan::DB;
@@ -791,7 +802,7 @@ __global__ void __launch_bounds__(W_THREADS, WgmmaPlan<DH>::MINB)
   const int r_lo = q0 + 64 * wi + 16 * (warp % 4) + g;
   const uint8_t* kvb =
       key_valid ? key_valid + (size_t)(bh / n_heads) * t : nullptr;
-  const uint32_t hbh = bh0 + (uint32_t)bh;  // the global head index
+  const uint32_t hbh = global_head(bh0, hs, bh, n_heads);
   const uint32_t seed_g = xla ? seed : seed + hbh;
   uint32_t drow[2] = {0u, 0u};
   if (dropout)
@@ -963,7 +974,7 @@ template <int DH>
 int launch_wgmma(const void* q, const void* k, const void* v, const void* kv,
                  void* o, float* stats, float* o32, int batch, int heads,
                  int t, float scale, float inv_keep, uint32_t threshold,
-                 uint32_t seed, uint32_t bh0, int dropout, int xla, int round_logits,
+                 uint32_t seed, uint32_t bh0, uint32_t hs, int dropout, int xla, int round_logits,
                  cudaStream_t stream) {
   // the shared-memory opt-in is set once per device
   static bool opted[64] = {false};
@@ -991,7 +1002,7 @@ int launch_wgmma(const void* q, const void* k, const void* v, const void* kv,
   attention_fwd_wgmma_kernel<DH>
       <<<grid, W_THREADS, WgmmaPlan<DH>::SMEM, stream>>>(
           maps, (const uint8_t*)kv, (__nv_bfloat16*)o, stats, o32, heads, t,
-          t_pad, scale, inv_keep, threshold, seed, bh0, dropout, xla,
+          t_pad, scale, inv_keep, threshold, seed, bh0, hs, dropout, xla,
           round_logits);
   return (int)cudaGetLastError();
 }
@@ -999,14 +1010,14 @@ int launch_wgmma(const void* q, const void* k, const void* v, const void* kv,
 template <int DH>
 int launch_mma(const void* q, const void* k, const void* v, const void* kv,
                void* o, float* stats, float* o32, int batch, int heads, int t,
-               float scale, float inv_keep, uint32_t threshold, uint32_t seed, uint32_t bh0,
+               float scale, float inv_keep, uint32_t threshold, uint32_t seed, uint32_t bh0, uint32_t hs,
                int dropout, int xla, int round_logits, cudaStream_t stream) {
   const int t_pad = (t + 127) / 128 * 128;
   const dim3 grid((unsigned)((t + BQ - 1) / BQ), (unsigned)(batch * heads));
   attention_fwd_bf16_mma_kernel<DH><<<grid, 128, 0, stream>>>(
       (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
       (const __nv_bfloat16*)v, (const uint8_t*)kv, (__nv_bfloat16*)o, stats,
-      o32, heads, t, t_pad, scale, inv_keep, threshold, seed, bh0, dropout, xla,
+      o32, heads, t, t_pad, scale, inv_keep, threshold, seed, bh0, hs, dropout, xla,
       round_logits);
   return (int)cudaGetLastError();
 }
@@ -1015,7 +1026,7 @@ template <typename T, int DH>
 int launch_simt(const void* q, const void* k, const void* v, const void* kv,
                 void* o, float* stats, float* o32, int batch, int heads,
                 int t, float scale, float inv_keep, uint32_t threshold,
-                uint32_t seed, uint32_t bh0, int dropout, int xla, int round_logits,
+                uint32_t seed, uint32_t bh0, uint32_t hs, int dropout, int xla, int round_logits,
                 cudaStream_t stream) {
   const size_t smem = sizeof(float) * SimtPlan<DH>::FLOATS;
   cudaError_t err = cudaFuncSetAttribute(
@@ -1027,14 +1038,14 @@ int launch_simt(const void* q, const void* k, const void* v, const void* kv,
   attention_fwd_simt_kernel<T, DH>
       <<<grid, SNT, smem, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (const uint8_t*)kv, (T*)o, stats,
-      o32, heads, t, t_pad, scale, inv_keep, threshold, seed, bh0, dropout, xla,
+      o32, heads, t, t_pad, scale, inv_keep, threshold, seed, bh0, hs, dropout, xla,
       round_logits);
   return (int)cudaGetLastError();
 }
 
 typedef int (*Launch)(const void*, const void*, const void*, const void*,
                       void*, float*, float*, int, int, int, float, float,
-                      uint32_t, uint32_t, uint32_t, int, int, int,
+                      uint32_t, uint32_t, uint32_t, uint32_t, int, int, int,
                       cudaStream_t);
 
 // The launch of (route, dtype, head dim), or null for a head dim the
@@ -1061,7 +1072,7 @@ Launch launch_of(int route, int dtype, int dh) {
 int run_fwd(const void* q, const void* k, const void* v,
             const void* key_valid, void* o, void* stats, void* o32,
             int batch, int heads, int t, int dh, int dtype, float scale,
-            float inv_keep, uint32_t threshold, uint32_t seed, uint32_t bh0, int dropout,
+            float inv_keep, uint32_t threshold, uint32_t seed, uint32_t bh0, uint32_t hs, int dropout,
             int xla, int round_logits, cudaStream_t s) {
   if (batch <= 0 || heads <= 0 || t <= 0 || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
@@ -1070,7 +1081,7 @@ int run_fwd(const void* q, const void* k, const void* v,
   const Launch fn = launch_of(fwd_route(dtype, dh, aligned), dtype, dh);
   if (fn == nullptr) return (int)cudaErrorInvalidValue;
   return fn(q, k, v, key_valid, o, (float*)stats, (float*)o32, batch, heads,
-            t, scale, inv_keep, threshold, seed, bh0, dropout, xla, round_logits,
+            t, scale, inv_keep, threshold, seed, bh0, hs, dropout, xla, round_logits,
             s);
 }
 
@@ -1089,21 +1100,22 @@ extern "C" int a8t_attention_fwd_route(int dtype, int dh, int aligned) {
 // and seed are the uint32 dropout parameters (dropout = 0 skips the hash).
 // xla = 0: the TPU kernel's semantics, 1: the XLA attention's;
 // round_logits = 1 rounds the scaled logits to bf16 (xla under
-// bf16_softmax). bh0 = b0 * H mod 2^32 for a block of rows that starts
-// at row b0 of a larger batch (a data-parallel rank's rows,
-// parallel/sharding.py): every hash above takes the global head index
-// b0 * H + b * H + h in place of b * H + h, so the rank draws the global
-// batch's masks (0 for a whole batch). Returns the cudaError_t of the
-// launch.
+// bf16_softmax). bh0 and hs place this call's heads in a larger
+// (B_glob, H_glob) tensor: every hash above takes the global head index
+// bh0 + b * hs + h (global_head) in place of b * H + h, so a rank draws
+// the whole tensor's masks. bh0 = b0 * H_glob + h0 and hs = H_glob for
+// rows from b0 (a data-parallel rank's, parallel/sharding.py) and heads
+// from h0 (a tensor-parallel rank's, parallel/tensor.py); 0 and H for a
+// whole tensor. Returns the cudaError_t of the launch.
 extern "C" int a8t_attention_fwd(const void* q, const void* k, const void* v,
                                  const void* key_valid, void* o,
                                  void* stats, void* o32, int batch,
                                  int heads, int t, int dh, int dtype,
                                  float scale, float inv_keep,
-                                 uint32_t threshold, uint32_t seed, uint32_t bh0,
+                                 uint32_t threshold, uint32_t seed, uint32_t bh0, uint32_t hs,
                                  int dropout, int xla, int round_logits,
                                  void* stream) {
   return run_fwd(q, k, v, key_valid, o, stats, o32, batch, heads, t, dh,
-                 dtype, scale, inv_keep, threshold, seed, bh0, dropout, xla,
+                 dtype, scale, inv_keep, threshold, seed, bh0, hs, dropout, xla,
                  round_logits, (cudaStream_t)stream);
 }

@@ -18,6 +18,14 @@
 // batch's mask. The sum wraps in uint32, as the plain version's int64
 // sum masked to 32 bits.
 //
+// A piece of a larger tensor that is not one contiguous range of its flat
+// index (a sequence-parallel rank's (B, T/tp, D) frames, a tensor-parallel
+// rank's heads of (B, H, T, T) probabilities: parallel/tensor.py) is rows
+// of row_len elements, each row_stride apart in the whole tensor: element
+// i draws index base + (i / row_len) * row_stride + i % row_len, so the
+// rank draws the whole tensor's mask there. row_len = n (or 0) is the
+// contiguous case above.
+//
 // with threshold = min(rate * 2^32, 2^32 - 1) and the murmur finaliser
 // mix32. The value divides by (1 - rate) in f32 (IEEE division, as the
 // plain version's division by a 0-dim f32 tensor), then rounds once to
@@ -61,11 +69,22 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);
 }
 
+// The whole tensor's flat index of element i (mod 2^32).
+struct Index {
+  uint32_t base, row_stride;
+  long long row_len;  // 0: contiguous
+  __device__ __forceinline__ uint32_t operator()(long long i) const {
+    return row_len == 0 ? base + (uint32_t)i
+                        : base + (uint32_t)(i / row_len) * row_stride +
+                              (uint32_t)(i % row_len);
+  }
+};
+
 template <typename T>
-__device__ __forceinline__ T drop(T v, long long i, uint32_t base,
+__device__ __forceinline__ T drop(T v, long long i, const Index& index,
                                   uint32_t seed, uint32_t threshold,
                                   float den) {
-  const bool keep = mix32((base + (uint32_t)i) ^ seed) >= threshold;
+  const bool keep = mix32(index(i) ^ seed) >= threshold;
   return keep ? from_f32<T>(__fdiv_rn(to_f32(v), den)) : from_f32<T>(0.f);
 }
 
@@ -73,7 +92,7 @@ __device__ __forceinline__ T drop(T v, long long i, uint32_t base,
 template <typename T>
 __global__ void __launch_bounds__(NT)
     dropout_vec_kernel(const T* __restrict__ x, T* __restrict__ y,
-                       long long n, uint32_t base, uint32_t seed,
+                       long long n, Index index, uint32_t seed,
                        uint32_t threshold, float den) {
   constexpr int V = 16 / sizeof(T);
   const long long n_vec = n / V;
@@ -84,28 +103,28 @@ __global__ void __launch_bounds__(NT)
     T* e = reinterpret_cast<T*>(&raw);
 #pragma unroll
     for (int j = 0; j < V; ++j)
-      e[j] = drop(e[j], v * V + j, base, seed, threshold, den);
+      e[j] = drop(e[j], v * V + j, index, seed, threshold, den);
     reinterpret_cast<uint4*>(y)[v] = raw;
   }
   // the ragged tail of fewer than V elements
   for (long long i = n_vec * V + (long long)blockIdx.x * NT + threadIdx.x;
        i < n; i += stride)
-    y[i] = drop(x[i], i, base, seed, threshold, den);
+    y[i] = drop(x[i], i, index, seed, threshold, den);
 }
 
 template <typename T>
 __global__ void __launch_bounds__(NT)
     dropout_kernel(const T* __restrict__ x, T* __restrict__ y, long long n,
-                   uint32_t base, uint32_t seed, uint32_t threshold,
+                   Index index, uint32_t seed, uint32_t threshold,
                    float den) {
   const long long stride = (long long)gridDim.x * NT;
   for (long long i = (long long)blockIdx.x * NT + threadIdx.x; i < n;
        i += stride)
-    y[i] = drop(x[i], i, base, seed, threshold, den);
+    y[i] = drop(x[i], i, index, seed, threshold, den);
 }
 
 template <typename T>
-int launch(const void* x, void* y, long long n, uint32_t base,
+int launch(const void* x, void* y, long long n, Index index,
            uint32_t seed, uint32_t threshold, float den, cudaStream_t s) {
   constexpr int V = 16 / sizeof(T);
   const bool vec = (((uintptr_t)x | (uintptr_t)y) % 16) == 0;
@@ -114,28 +133,32 @@ int launch(const void* x, void* y, long long n, uint32_t base,
   if (blocks > 65536) blocks = 65536;  // grid-stride beyond that
   if (vec)
     dropout_vec_kernel<T><<<(unsigned)blocks, NT, 0, s>>>(
-        (const T*)x, (T*)y, n, base, seed, threshold, den);
+        (const T*)x, (T*)y, n, index, seed, threshold, den);
   else
     dropout_kernel<T><<<(unsigned)blocks, NT, 0, s>>>(
-        (const T*)x, (T*)y, n, base, seed, threshold, den);
+        (const T*)x, (T*)y, n, index, seed, threshold, den);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // y = keep ? x / den : 0 over n contiguous elements, keep =
-// mix32((base + i) mod 2^32 ^ seed) >= threshold; x and y do not overlap.
+// mix32(index(i) ^ seed) >= threshold with index(i) = base + i, or with
+// row_len > 0 base + (i / row_len) * row_stride + i % row_len (all mod
+// 2^32); x and y do not overlap.
 // dtype: 0 = float32, 1 = bfloat16.
 // Returns the cudaError_t of the launch.
 extern "C" int a8t_dropout(const void* x, void* y, long long n, uint32_t seed,
-                           uint32_t base, uint32_t threshold, float den,
+                           uint32_t base, long long row_len,
+                           uint32_t row_stride, uint32_t threshold, float den,
                            int dtype, void* stream) {
-  if (n < 0 || !(den > 0.f)) return (int)cudaErrorInvalidValue;
+  if (n < 0 || row_len < 0 || !(den > 0.f)) return (int)cudaErrorInvalidValue;
   if (n == 0) return (int)cudaSuccess;
   cudaStream_t s = (cudaStream_t)stream;
+  const Index index{base, row_stride, row_len >= n ? 0 : row_len};
   if (dtype == 0)
-    return launch<float>(x, y, n, base, seed, threshold, den, s);
+    return launch<float>(x, y, n, index, seed, threshold, den, s);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(x, y, n, base, seed, threshold, den, s);
+    return launch<__nv_bfloat16>(x, y, n, index, seed, threshold, den, s);
   return (int)cudaErrorInvalidValue;
 }

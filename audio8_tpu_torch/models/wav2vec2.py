@@ -268,8 +268,9 @@ class AudioTransformerEncoder(nn.Module):
                                        cfg.rel_pos_max_distance,
                                        self.compute_dtype)
         x = run_layers(self.layers, x, generator, cfg.layer_drop,
-                       cfg.remat, hiddens=hiddens, key_valid=pad_mask,
-                       mask=mask, position_bias=bias)
+                       cfg.remat, hiddens=hiddens,
+                       sequence_parallel=cfg.sequence_parallel,
+                       key_valid=pad_mask, mask=mask, position_bias=bias)
         out = self.layer_norm(x) if cfg.pre_norm else x
         return (out, hiddens) if return_hiddens else out
 

@@ -31,11 +31,13 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from audio8_tpu_torch.nn.dropout import dropout
 from audio8_tpu_torch.nn.layers import Dense, GroupedConv, LayerNorm, gelu
 from audio8_tpu_torch.nn.transformer import NEG_INF, softmax
+from audio8_tpu_torch.parallel import tensor as tp_ops
 
 
 class _LowPrecisionSigmoid(torch.autograd.Function):
@@ -132,7 +134,12 @@ def position_table(kind: str, t: int, dim: int, base: float,
 class ConformerAttention(nn.Module):
     """Self-attention with rotary or Transformer-XL relative positions
     (HF ``Wav2Vec2ConformerSelfAttention``), ``mask`` broadcastable to
-    (B, H, T, T), True = attend."""
+    (B, H, T, T), True = attend. Under tensor parallelism
+    (``parallel/tensor.py``) it holds the rank's heads, as
+    ``MultiHeadAttention`` does; ``linear_pos`` and the two position
+    biases stay replicated and serve the rank's heads."""
+
+    proj_names = ("linear_q", "linear_k", "linear_v", "linear_out")
 
     def __init__(self, num_heads: int, d_model: int,
                  position_embeddings_type: str = "relative",
@@ -144,12 +151,14 @@ class ConformerAttention(nn.Module):
             raise ValueError(f"d_model {d_model} % num_heads {num_heads}")
         self.num_heads, self.d_model = num_heads, d_model
         self.d_head = d_model // num_heads
+        # tensor parallelism (parallel/tensor.py): the rank's heads
+        self.tp, self.h0, self.heads_global = None, 0, num_heads
         self.position_embeddings_type = position_embeddings_type
         self.rotary_base = rotary_base
         self.dropout_rate = dropout_rate
         self.bf16_softmax = bf16_softmax
         self.compute_dtype = dtype
-        for name in ("linear_q", "linear_k", "linear_v", "linear_out"):
+        for name in self.proj_names:
             self.add_module(name, Dense(d_model, d_model, dtype=dtype))
         if position_embeddings_type == "relative":
             self.linear_pos = Dense(d_model, d_model, bias=False, dtype=dtype)
@@ -168,7 +177,7 @@ class ConformerAttention(nn.Module):
         b, t, _ = x.shape
         cos, sin = (a[None, :, None, :] for a in position_table(
             "rotary", t, self.d_head, self.rotary_base, x.device, x.dtype))
-        h = x.reshape(b, t, self.num_heads, self.d_head)
+        h = x.reshape(b, t, self.heads_global, self.d_head)
         half = self.d_head // 2
         rot = torch.cat([-h[..., half:], h[..., :half]], dim=-1)
         return (h * cos + rot * sin).reshape(b, t, self.d_model)
@@ -181,9 +190,19 @@ class ConformerAttention(nn.Module):
         dt = q.dtype
         pe = position_table("relative", t, self.d_model, 0.0, q.device,
                            dt)[None]
-        r = self._split(self.linear_pos(pe))  # (1, H, 2T-1, dh)
-        u = self.pos_bias_u.to(dt)[None, :, None, :]
-        v = self.pos_bias_v.to(dt)[None, :, None, :]
+        if self.tp is None:
+            r = self._split(self.linear_pos(pe))  # (1, H, 2T-1, dh)
+            bias_u, bias_v = self.pos_bias_u, self.pos_bias_v
+        else:  # the rank's heads' rows of the replicated weights
+            rows = slice(self.h0 * self.d_head,
+                         (self.h0 + self.num_heads) * self.d_head)
+            w = tp_ops.replicated(self.linear_pos.weight, self.tp)[rows]
+            r = self._split(F.linear(pe, w.to(dt)))
+            heads = slice(self.h0, self.h0 + self.num_heads)
+            bias_u = tp_ops.replicated(self.pos_bias_u, self.tp)[heads]
+            bias_v = tp_ops.replicated(self.pos_bias_v, self.tp)[heads]
+        u = bias_u.to(dt)[None, :, None, :]
+        v = bias_v.to(dt)[None, :, None, :]
         ac = torch.matmul((q + u).float(), k.float().transpose(-1, -2))
         bd = torch.matmul((q + v).float(), r.float().transpose(-1, -2))
         b, h, _, rr = bd.shape
@@ -196,6 +215,8 @@ class ConformerAttention(nn.Module):
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         dt = self.compute_dtype
         x = x.to(dt)
+        if self.tp is not None:
+            x = tp_ops.enter(x, self.tp)
         qk_in = self._rotate(x) if self.position_embeddings_type == \
             "rotary" else x
         q = self._split(self.linear_q(qk_in))
@@ -215,10 +236,16 @@ class ConformerAttention(nn.Module):
         else:
             probs = softmax(logits).to(dt)
         rate = self.dropout_rate if generator is not None else 0.0
-        probs = dropout(probs, rate, generator)
+        probs = dropout(probs, rate, generator,
+                        (self.heads_global,) + tuple(probs.shape[2:]),
+                        (self.h0, 0, 0))
         out = torch.matmul(probs, v)
         b, h, tq, d = out.shape
-        return self.linear_out(out.permute(0, 2, 1, 3).reshape(b, tq, h * d))
+        out = out.permute(0, 2, 1, 3).reshape(b, tq, h * d)
+        if self.tp is None:
+            return self.linear_out(out)
+        return tp_ops.leave(tp_ops.dense_product(self.linear_out, out),
+                            self.linear_out.bias, self.tp)
 
 
 class _FoldedBatchNorm(nn.Module):

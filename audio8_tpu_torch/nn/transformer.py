@@ -56,6 +56,15 @@ wav2vec2 layer's FFN can be a Mixture-of-Experts (``nn/moe.py``,
 ``layers.{i}.moe``) whose load-balance loss goes to the active
 ``nn.moe.AuxLosses``; :func:`run_layers` keeps it right under LayerDrop
 and remat.
+
+Under tensor parallelism (``parallel/tensor.py``) an attention whose
+projections are split holds the rank's heads (``num_heads`` of
+``heads_global``, from ``h0``): it enters the region on its input, draws
+the whole tensor's masks for its heads, and leaves it after the output
+projection, whose bias is added after the sum; an FFN whose ``expand`` is
+split does the same around its hidden columns (``ffn_tp``). Under
+sequence parallelism :func:`run_layers` splits the stream on T between
+the layers.
 """
 from __future__ import annotations
 
@@ -66,6 +75,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
 
@@ -76,6 +86,7 @@ from audio8_tpu_torch.nn.moe import AuxLosses, MoEFFN, record_aux
 from audio8_tpu_torch.ops.attention import attention_core
 from audio8_tpu_torch.ops.attention_block import HEAD_DIMS, attention_block
 from audio8_tpu_torch.ops.hashrand import SeedReplay, draw_keep, draw_seed
+from audio8_tpu_torch.parallel import tensor as tp_ops
 from audio8_tpu_torch.parallel.sharding import row_offset
 
 
@@ -210,6 +221,8 @@ class MultiHeadAttention(nn.Module):
         self.flash = flash
         self.gated_rel_pos = gated_rel_pos
         self.d_head = d_model // num_heads
+        # tensor parallelism (parallel/tensor.py): the rank's heads
+        self.tp, self.h0, self.heads_global = None, 0, num_heads
         self.proj_names = PROJ_NAMES[names]
         for name in self.proj_names:
             self.add_module(name, Dense(d_model, d_model, dtype=dtype))
@@ -250,8 +263,23 @@ class MultiHeadAttention(nn.Module):
 
     def _merge(self, out: torch.Tensor) -> torch.Tensor:
         b, h, t, d = out.shape
-        return self.projections()[3](out.permute(0, 2, 1, 3).reshape(
-            b, t, h * d))
+        y = out.permute(0, 2, 1, 3).reshape(b, t, h * d)
+        wo = self.projections()[3]
+        if self.tp is None:
+            return wo(y)
+        return tp_ops.leave(tp_ops.dense_product(wo, y), wo.bias, self.tp)
+
+    def _shared(self, t: torch.Tensor) -> torch.Tensor:
+        """A replicated tensor the rank uses for its heads only (a
+        relative-position table, WavLM's gate and bias): its gradient
+        summed over the model group under tensor parallelism."""
+        return t if self.tp is None else tp_ops.replicated(t, self.tp)
+
+    def _heads_of(self, t: torch.Tensor, dim: int = 1) -> torch.Tensor:
+        """The rank's heads of a tensor over all heads (axis ``dim``)."""
+        if self.tp is None:
+            return t
+        return self._shared(t).narrow(dim, self.h0, self.num_heads)
 
     def gate(self, t: int) -> bool:
         """The JAX ``structural_ok`` for self-attention under a
@@ -286,14 +314,23 @@ class MultiHeadAttention(nn.Module):
                   position_bias: torch.Tensor) -> torch.Tensor:
         """WavLM's gated bias (HF ``WavLMAttention`` steps 1-4) in f32:
         per-head slices of the attention input -> Dense(8) -> (2, 4) sums
-        -> sigmoid -> ``a * (b * const - 1) + 2`` times the bias."""
+        -> sigmoid -> ``a * (b * const - 1) + 2`` times the bias (the
+        rank's heads under tensor parallelism)."""
         b, t, _ = x.shape
-        g = x.reshape(b, t, self.num_heads, self.d_head).permute(0, 2, 1, 3)
-        proj = self.gru_rel_pos_linear(g).float()
+        g = x.reshape(b, t, self.heads_global, self.d_head).permute(
+            0, 2, 1, 3).narrow(1, self.h0, self.num_heads)
+        if self.tp is None:
+            proj = self.gru_rel_pos_linear(g).float()
+        else:
+            lin = self.gru_rel_pos_linear
+            dt = lin.compute_dtype
+            proj = F.linear(g.to(dt), self._shared(lin.weight).to(dt))
+            proj = (proj + self._shared(lin.bias).to(dt)).float()
         gates = torch.sigmoid(proj.reshape(proj.shape[:-1] + (2, 4)).sum(-1))
         gate_a, gate_b = gates[..., :1], gates[..., 1:]
-        const = self.gru_rel_pos_const.float()
-        return (gate_a * (gate_b * const - 1.0) + 2.0) * position_bias.float()
+        const = self._heads_of(self.gru_rel_pos_const.float())
+        return (gate_a * (gate_b * const - 1.0) + 2.0) * \
+            self._heads_of(position_bias.float())
 
     def forward(self, x: torch.Tensor,
                 key_valid: Optional[torch.Tensor] = None,
@@ -315,6 +352,10 @@ class MultiHeadAttention(nn.Module):
         masked, and ``(out, cache)`` is returned) take the composition,
         as does a (1|B, H, T, T) ``position_bias`` (WavLM; gated by this
         layer's gate over ``x`` when ``gated_rel_pos``)."""
+        if self.tp is not None:
+            x = tp_ops.enter(x, self.tp)
+            key = None if key is None else tp_ops.enter(key, self.tp)
+            value = None if value is None else tp_ops.enter(value, self.tp)
         if (key is None and value is None and mask is None and cache is None
                 and self.rpr_k is None and position_bias is None):
             return self._self_attention(x, key_valid, generator)
@@ -323,6 +364,8 @@ class MultiHeadAttention(nn.Module):
             mask = kv if mask is None else mask & kv
         if position_bias is not None and self.gated_rel_pos:
             position_bias = self.gate_bias(x, position_bias)
+        elif position_bias is not None:
+            position_bias = self._heads_of(position_bias)
         q, k, v = self.qkv(x, key, value)
         return self._composed(q, k, v, mask, generator, cache, cache_index,
                               position_bias)
@@ -338,14 +381,24 @@ class MultiHeadAttention(nn.Module):
                                  "int8 Dense layers run the core")
             params = [t.to(dt) for m in self.projections()
                       for t in (m.weight, m.bias)]
-            return attention_block(x.to(dt).contiguous(), *params, key_valid,
-                                   self.num_heads, scale, rate, seed,
-                                   row_offset())
+            if self.tp is None:
+                return attention_block(
+                    x.to(dt).contiguous(), *params, key_valid,
+                    self.num_heads, scale, rate, seed, row_offset())
+            # the rank's heads: its part of the O projection, the bias
+            # added once after the sum
+            bo = params.pop()
+            out = attention_block(
+                x.to(dt).contiguous(), *params, torch.zeros_like(bo),
+                key_valid, self.num_heads, scale, rate, seed, row_offset(),
+                self.h0, self.heads_global)
+            return tp_ops.leave(out, self.projections()[3].bias, self.tp)
         q, k, v = self.qkv(x)
         seed = draw_seed(generator) if rate > 0.0 else 0
         out = attention_core(q, k, v, key_valid, scale, rate, seed,
                              xla=self.xla_semantics(x.shape[1]),
-                             bf16_softmax=self.bf16_softmax, b0=row_offset())
+                             bf16_softmax=self.bf16_softmax, b0=row_offset(),
+                             h0=self.h0, heads=self.heads_global)
         return self._merge(out)
 
     def _scaled(self, q: torch.Tensor) -> torch.Tensor:
@@ -392,7 +445,8 @@ class MultiHeadAttention(nn.Module):
             # same products, and its backward a scatter over 2k+1 bins
             # where the (T_q, T_k, dh) lookup's took 0.5 s a step
             ids = self._rel_ids(q.shape[2], k.shape[2], q_offset, q.device)
-            table = self.rpr_key_emb.embedding.to(self.compute_dtype)
+            table = self._shared(self.rpr_key_emb.embedding).to(
+                self.compute_dtype)
             per_id = torch.matmul(q.float(), table.float().t())
             logits = logits + torch.gather(
                 per_id, -1, ids.expand(*per_id.shape[:-1], ids.shape[-1]))
@@ -406,11 +460,13 @@ class MultiHeadAttention(nn.Module):
         else:
             probs = softmax(logits).to(dt)
         rate = self.dropout_rate if generator is not None else 0.0
-        probs = dropout(probs, rate, generator)
+        whole = (self.heads_global,) + tuple(probs.shape[2:])
+        probs = dropout(probs, rate, generator, whole, (self.h0, 0, 0))
         out = torch.matmul(probs, v)
         if self.rpr_k is not None and self.rpr_value_on:
-            rel_v = self.rpr_value_emb(self._rel_ids(q.shape[2], k.shape[2],
-                                                     q_offset, q.device))
+            ids = self._rel_ids(q.shape[2], k.shape[2], q_offset, q.device)
+            rel_v = self._shared(self.rpr_value_emb.embedding).to(
+                self.compute_dtype)[ids]
             out = out + torch.einsum("bhqk,qkd->bhqd", probs, rel_v).to(dt)
         out = self._merge(out)
         if cache is not None:
@@ -421,6 +477,9 @@ class MultiHeadAttention(nn.Module):
         """Split K/V heads of a fixed memory, projected once for a
         decode's every step."""
         _, wk, wv, _ = self.projections()
+        if self.tp is not None:
+            key = tp_ops.enter(key, self.tp)
+            value = tp_ops.enter(value, self.tp)
         return self._split(wk(key)), self._split(wv(value))
 
     def attend_kv(self, query: torch.Tensor, k: torch.Tensor,
@@ -430,6 +489,8 @@ class MultiHeadAttention(nn.Module):
         the logits and the softmax in f32, then the probabilities cast to
         the compute dtype (the JAX ``attend_kv``, which rounds unlike the
         bf16 ``__call__``)."""
+        if self.tp is not None:
+            query = tp_ops.enter(query, self.tp)
         q = self._scaled(self._split(self.projections()[0](query)))
         logits = torch.matmul(q.float(), k.float().transpose(-1, -2))
         if mask is not None:
@@ -444,6 +505,16 @@ def ffn(x: torch.Tensor, fc1: Dense, fc2: Dense) -> torch.Tensor:
     ``fc2(gelu(fc1(x)))``. A function over the layer's own ``fc1``/``fc2``
     so the parameters keep fairseq's names."""
     return fc2(gelu(fc1(x)))
+
+
+def split_ffn(x: torch.Tensor, fc1: Dense, fc2: Dense, mg) -> torch.Tensor:
+    """:func:`ffn`, over the rank's hidden columns when ``mg`` (a model
+    group) is given: ``fc1`` split on its output, ``fc2`` on its input,
+    the partial products summed and ``fc2``'s bias added once."""
+    if mg is None:
+        return ffn(x, fc1, fc2)
+    h = gelu(fc1(tp_ops.enter(x, mg)))
+    return tp_ops.leave(tp_ops.dense_product(fc2, h), fc2.bias, mg)
 
 
 class TransformerEncoderLayer(nn.Module):
@@ -486,10 +557,11 @@ class TransformerEncoderLayer(nn.Module):
             self.fc1 = Dense(d_model, d_ff, dtype=dtype)
             self.fc2 = Dense(d_ff, d_model, dtype=dtype)
         self.final_layer_norm = LayerNorm(d_model, dtype)
+        self.ffn_tp = None  # the model group of a split FFN
 
     def ffn(self, x: torch.Tensor) -> torch.Tensor:
         if self.moe is None:
-            return ffn(x, self.fc1, self.fc2)
+            return split_ffn(x, self.fc1, self.fc2, self.ffn_tp)
         y, aux = self.moe(x)
         record_aux(self.name, aux)
         return y
@@ -511,20 +583,22 @@ class TransformerEncoderLayer(nn.Module):
             return self.self_attn(h, key_valid, generator, mask=mask,
                                   position_bias=position_bias)
 
+        # the residual dropouts: on the rank's frames under sequence
+        # parallelism (parallel/tensor.py:seq_dropout)
+        drop = tp_ops.seq_dropout
         if self.pre_norm:
-            x = x + dropout(attn(self.self_attn_layer_norm(x)), rate,
+            x = x + drop(attn(self.self_attn_layer_norm(x)), rate, generator)
+            return x + drop(self.ffn(self.final_layer_norm(x)), rate,
                             generator)
-            return x + dropout(self.ffn(self.final_layer_norm(x)), rate,
-                               generator)
-        x = x + dropout(attn(x), rate, generator)
+        x = x + drop(attn(x), rate, generator)
         x = self.self_attn_layer_norm(x)
-        x = x + dropout(self.ffn(x), rate, generator)
+        x = x + drop(self.ffn(x), rate, generator)
         return self.final_layer_norm(x)
 
 
 def run_layers(layers, x, generator, layer_drop: float,
                remat: bool = False, hiddens: Optional[list] = None,
-               **kwargs):
+               sequence_parallel: bool = False, **kwargs):
     """The layers in order, under LayerDrop in training: every layer's
     keep decision is drawn before the first layer, as the JAX stack
     splits its key (``jax.random.bernoulli`` with ``1 - layer_drop``); a
@@ -545,33 +619,53 @@ def run_layers(layers, x, generator, layer_drop: float,
     checkpointed call, recorded once (the recompute's is dropped).
 
     ``hiddens``: a list that gets each layer's output appended (a
-    dropped layer's input), the JAX stack's ``return_hiddens``."""
+    dropped layer's input), the JAX stack's ``return_hiddens``.
+
+    ``sequence_parallel`` (the JAX stack's ``seq_shard``), with layers
+    split over a model group (``parallel/tensor.py``): the stream is cut
+    to the rank's frames before the first layer (T padded to a multiple
+    of the group) and gathered after the last; each layer gathers the
+    frames for its attention and FFN and scatters their outputs back.
+    Every rank draws the same keep decisions and seeds, and a recomputed
+    layer runs in the same stretch (its collectives again, on every
+    rank). ``hiddens`` are whole."""
+    region = tp_ops.stack_region(layers, x.shape[1], sequence_parallel)
+    if region is not None:
+        x = tp_ops.split_frames(x, region)
     keeps = None
     if generator is not None and layer_drop > 0.0:
         keeps = [draw_keep(generator, 1.0 - layer_drop) for _ in layers]
-    for i, layer in enumerate(layers):
-        dropped = keeps is not None and not keeps[i]
-        moe = getattr(layer, "moe", None) is not None
-        if dropped and not moe:
-            for _ in range(layer.num_seeds()):
-                draw_seed(generator)
+    with tp_ops.in_region(region):
+        for i, layer in enumerate(layers):
+            dropped = keeps is not None and not keeps[i]
+            moe = getattr(layer, "moe", None) is not None
+            if dropped and not moe:
+                for _ in range(layer.num_seeds()):
+                    draw_seed(generator)
+                if hiddens is not None:
+                    hiddens.append(_whole(x, region))
+                continue
+            if remat and generator is not None and torch.is_grad_enabled():
+                seeds = [draw_seed(generator)
+                         for _ in range(layer.num_seeds())]
+                y = torch.utils.checkpoint.checkpoint(
+                    _replayed, layer, seeds, region, x, use_reentrant=False,
+                    **kwargs)
+                if moe:
+                    y, aux = y
+                    record_aux(layer.name, aux)
+            else:
+                y = layer(x, generator=generator, **kwargs)
+            if not dropped:
+                x = y
             if hiddens is not None:
-                hiddens.append(x)
-            continue
-        if remat and generator is not None and torch.is_grad_enabled():
-            seeds = [draw_seed(generator) for _ in range(layer.num_seeds())]
-            y = torch.utils.checkpoint.checkpoint(
-                _replayed, layer, seeds, x, use_reentrant=False, **kwargs)
-            if moe:
-                y, aux = y
-                record_aux(layer.name, aux)
-        else:
-            y = layer(x, generator=generator, **kwargs)
-        if not dropped:
-            x = y
-        if hiddens is not None:
-            hiddens.append(x)
-    return x
+                hiddens.append(_whole(x, region))
+    return _whole(x, region)
+
+
+def _whole(x: torch.Tensor, region) -> torch.Tensor:
+    """The whole stream of a sequence-parallel stretch's frames."""
+    return x if region is None else tp_ops.join_frames(x, region)
 
 
 _REMAT = threading.local()
@@ -584,13 +678,14 @@ def in_remat() -> bool:
     return getattr(_REMAT, "depth", 0) > 0
 
 
-def _replayed(layer, seeds, x, **kwargs):
+def _replayed(layer, seeds, region, x, **kwargs):
     """``layer``'s forward with its dropout seeds given (a remat
-    forward and its recompute); an MoE layer's returns ``(out, aux)``."""
+    forward and its recompute), in the sequence-parallel ``region`` of
+    its stack; an MoE layer's returns ``(out, aux)``."""
     replay = SeedReplay(seeds)
     _REMAT.depth = getattr(_REMAT, "depth", 0) + 1
     try:
-        with AuxLosses() as aux:
+        with AuxLosses() as aux, tp_ops.in_region(region):
             out = layer(x, generator=replay, **kwargs)
     finally:
         _REMAT.depth -= 1
@@ -621,9 +716,10 @@ class FFN(nn.Module):
         super().__init__()
         self.expand = Dense(d_model, d_ff, dtype=dtype)
         self.contract = Dense(d_ff, d_model, dtype=dtype)
+        self.ffn_tp = None  # the model group of a split FFN
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.contract(gelu(self.expand(x)))
+        return split_ffn(x, self.expand, self.contract, self.ffn_tp)
 
 
 class TextEncoderLayer(nn.Module):
@@ -753,7 +849,8 @@ class TransformerDecoderLayer(nn.Module):
 
 class TransformerDecoderStack(nn.Module):
     """``num_layers`` decoder layers (``layer_{i}``) and the final
-    ``ln_out``. The JAX stack's ``layer_drop`` is inert there too."""
+    ``ln_out``. The JAX stack's ``layer_drop`` is inert there too.
+    ``num_heads`` is the rank's under tensor parallelism (its cache's)."""
 
     def __init__(self, num_heads: int, d_model: int, num_layers: int,
                  d_ff: Optional[int] = None,
@@ -761,6 +858,7 @@ class TransformerDecoderStack(nn.Module):
                  dropout_rate: float = 0.1):
         super().__init__()
         self.num_heads, self.d_model = num_heads, d_model
+        self.d_head = d_model // num_heads
         self.num_layers = num_layers
         self.compute_dtype = dtype
         d_ff = d_ff or 4 * d_model
@@ -783,7 +881,7 @@ class TransformerDecoderStack(nn.Module):
         dtype, index 0 (the JAX ``KVCache.init``); :meth:`step` writes
         into it in place."""
         shape = (self.num_layers, batch, self.num_heads, max_len,
-                 self.d_model // self.num_heads)
+                 self.d_head)
         return {"k": torch.zeros(shape, dtype=self.compute_dtype,
                                  device=device),
                 "v": torch.zeros(shape, dtype=self.compute_dtype,

@@ -39,23 +39,26 @@ _SIGNATURES = {
                          "wgrad_route": ("a8t_conv_k3s2_wgrad_route",
                                          [_I] * 3)},
     "dropout.cu": {"main": ("a8t_dropout",
-                            [_P, _P, _L, _U, _U, _U, _F, _I, _P])},
+                            [_P, _P, _L, _U, _U, _L, _U, _U, _F, _I, _P])},
     "attention_fwd.cu": {"main": ("a8t_attention_fwd",
                                   [_P] * 7 + [_I] * 5
-                                  + [_F, _F, _U, _U, _U, _I, _I, _I, _P]),
+                                  + [_F, _F, _U, _U, _U, _U, _I, _I, _I,
+                                     _P]),
                          "route": ("a8t_attention_fwd_route", [_I] * 3)},
     "attention_bwd.cu": {"main": ("a8t_attention_bwd",
                                   [_P] * 15 + [_I] * 5
-                                  + [_F, _F, _U, _U, _U, _I, _I, _I, _P])},
+                                  + [_F, _F, _U, _U, _U, _U, _I, _I, _I,
+                                     _P])},
     "attention_block_fwd.cu": {"main": ("a8t_attention_block_fwd",
                                         [_P] * 17 + [_I] * 6
-                                        + [_F, _F, _U, _U, _U, _I, _I, _P]),
+                                        + [_F, _F, _U, _U, _U, _U, _I, _I,
+                                           _P]),
                                "route": ("a8t_attention_block_route",
                                          [_I] * 4)},
     "attention_block_bwd.cu": {"main": ("a8t_attention_block_bwd",
                                         [_P] * 26 + [_I] * 6
-                                        + [_F, _F, _U, _U, _U, _I, _I, _I,
-                                           _I, _P])},
+                                        + [_F, _F, _U, _U, _U, _U, _I, _I,
+                                           _I, _I, _P])},
     "ctc_loss.cu": {"main": ("a8t_ctc_loss",
                              [_P] * 6 + [_I] * 5 + [_P]),
                     "bwd": ("a8t_ctc_loss_bwd", [_P] * 7 + [_I] * 5 + [_P])},

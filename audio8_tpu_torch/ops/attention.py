@@ -29,9 +29,13 @@ probabilities and ds cast to the input dtype before their products):
   documented deviation).
 
 A block of rows that starts at row ``b0`` of a larger batch (a
-data-parallel rank's rows, ``parallel/sharding.py``) passes ``b0``: its
-row b draws the masks of global row ``b0 + b`` in both semantics (the
-seed ``seed + (b0 + b)*H + h``, or the flat index from ``b0*H*T*T``).
+data-parallel rank's rows, ``parallel/sharding.py``) passes ``b0``, and
+the heads ``h0 .. h0 + H - 1`` of ``heads`` (a tensor-parallel rank's,
+``parallel/tensor.py``) pass ``h0`` and ``heads``: its (b, h) draws the
+masks of the global head ``g = (b0 + b)*heads + h0 + h`` in both
+semantics (the seed ``seed + g``, or the flat (B, heads, T, T) index
+from ``g*T*T``). The kernels take ``g`` as ``bh0 + b*hs + h``
+(``bh0 = b0*heads + h0``, ``hs = heads``).
 """
 from __future__ import annotations
 
@@ -41,7 +45,7 @@ import torch
 
 from audio8_tpu_torch.ops import _ext
 from audio8_tpu_torch.ops.hashrand import MASK32 as _MASK32
-from audio8_tpu_torch.ops.hashrand import hash_bits, keep_threshold, mix32
+from audio8_tpu_torch.ops.hashrand import keep_threshold, mix32
 
 SOURCE = "attention_fwd.cu"
 BWD_SOURCE = "attention_bwd.cu"
@@ -90,13 +94,26 @@ def _semantics_grid(q, xla):
     return t if xla else round_up(t, 128)
 
 
-def _keep(b, h, t_grid, rate, seed, xla, device, b0=0):
+def global_heads(b: int, h: int, device, b0: int = 0, h0: int = 0,
+                 heads: int = 0) -> torch.Tensor:
+    """The global head index ``(b0 + b)*heads + h0 + h`` of each of a
+    call's (B, H) heads (int64, (B*H,)); ``heads`` 0 means ``h``."""
+    hg = heads or h
+    rows = torch.arange(b, device=device, dtype=torch.int64) + b0
+    cols = torch.arange(h, device=device, dtype=torch.int64) + h0
+    return (rows[:, None] * hg + cols[None, :]).reshape(-1)
+
+
+def _keep(b, h, t_grid, rate, seed, xla, device, b0=0, h0=0, heads=0):
     if rate <= 0.0:
         return None
+    g = global_heads(b, h, device, b0, h0, heads)
     if xla:
-        return hash_bits((b, h, t_grid, t_grid), seed, device,
-                         b0 * h * t_grid * t_grid) >= keep_threshold(rate)
-    g = torch.arange(b * h, device=device, dtype=torch.int64) + b0 * h
+        n = t_grid * t_grid
+        idx = (g[:, None] * n + torch.arange(n, device=device,
+                                             dtype=torch.int64)) & _MASK32
+        return (mix32(idx ^ (int(seed) & _MASK32)) >= keep_threshold(rate)
+                ).view(b, h, t_grid, t_grid)
     return hash_keep(t_grid, (int(seed) + g) & _MASK32, rate).view(
         b, h, t_grid, t_grid)
 
@@ -126,14 +143,16 @@ def attention_core_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          key_valid: Optional[torch.Tensor], scale: float,
                          rate: float = 0.0, seed: int = 0, *,
                          xla: bool = False, bf16_softmax: bool = False,
-                         b0: int = 0) -> torch.Tensor:
+                         b0: int = 0, h0: int = 0,
+                         heads: int = 0) -> torch.Tensor:
     """Plain version of the forward in either semantics (the module
     docstring), computed on the semantics' grid."""
     b, h, t, dh = q.shape
     s, _, (qp, kp, vp) = _scores(q, k, v, key_valid, scale, xla,
                                  bf16_softmax)
     p = torch.softmax(s, dim=-1)
-    keep = _keep(b, h, s.shape[-1], rate, seed, xla, q.device, b0)
+    keep = _keep(b, h, s.shape[-1], rate, seed, xla, q.device, b0, h0,
+                 heads)
     if keep is not None:
         p = torch.where(keep, p * (1.0 / (1.0 - rate)),
                         torch.zeros((), device=p.device))
@@ -145,19 +164,20 @@ def attention_core_bwd_plain(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, key_valid: Optional[torch.Tensor],
                              scale: float, rate: float, seed: int,
                              dout: torch.Tensor, *, xla: bool = False,
-                             bf16_softmax: bool = False, b0: int = 0):
+                             bf16_softmax: bool = False, b0: int = 0,
+                             h0: int = 0, heads: int = 0):
     """Plain version of the backward: ``(dq, dk, dv)`` by recompute on the
     semantics' grid, in the input dtype."""
     return tuple(g.to(q.dtype) for g in attention_core_bwd_f32(
         q, k, v, key_valid, scale, rate, seed, dout, xla=xla,
-        bf16_softmax=bf16_softmax, b0=b0))
+        bf16_softmax=bf16_softmax, b0=b0, h0=h0, heads=heads))
 
 
 def attention_core_bwd_f32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            key_valid: Optional[torch.Tensor], scale: float,
                            rate: float, seed: int, dout: torch.Tensor, *,
                            xla: bool = False, bf16_softmax: bool = False,
-                           b0: int = 0):
+                           b0: int = 0, h0: int = 0, heads: int = 0):
     """:func:`attention_core_bwd_plain` before its final rounding: the f32
     ``(dq, dk, dv)`` that the attention block's bias gradients sum."""
     b, h, t, dh = q.shape
@@ -167,7 +187,8 @@ def attention_core_bwd_f32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     p = torch.softmax(s, dim=-1)
     dpd = torch.matmul(dop, vp.transpose(-1, -2))
     zero = torch.zeros((), device=p.device)
-    keep = _keep(b, h, s.shape[-1], rate, seed, xla, q.device, b0)
+    keep = _keep(b, h, s.shape[-1], rate, seed, xla, q.device, b0, h0,
+                 heads)
     if keep is not None:
         pd = torch.where(keep, p * (1.0 / (1.0 - rate)), zero)
         dp = torch.where(keep, dpd * (1.0 / (1.0 - rate)), zero)
@@ -245,17 +266,22 @@ def _ptr(x: Optional[torch.Tensor]):
     return None if x is None else x.data_ptr()
 
 
-def _dropout_args(rate: float, seed: int, bh0: int = 0):
+def _dropout_args(rate: float, seed: int, h: int, b0: int = 0, h0: int = 0,
+                  heads: int = 0):
     """The kernels' dropout arguments: 1 / (1 - rate), the threshold, the
-    seed, the global head index of head 0 (``b0 * H``, mod 2**32) and
-    whether to drop."""
+    seed, the global head index of head 0 and the head stride (``bh0 =
+    b0*heads + h0`` and ``hs = heads``, mod 2**32; ``heads`` 0 means the
+    call's ``h``) and whether to drop."""
+    hs = heads or h
     return (1.0 / (1.0 - rate), keep_threshold(rate), int(seed) & _MASK32,
-            int(bh0) & _MASK32, int(rate > 0.0))
+            (int(b0) * hs + int(h0)) & _MASK32, hs & _MASK32,
+            int(rate > 0.0))
 
 
 def _forward_kernel(q, k, v, key_valid, scale, rate, seed,
                     with_stats: bool, xla: bool = False,
-                    bf16_softmax: bool = False, b0: int = 0):
+                    bf16_softmax: bool = False, b0: int = 0, h0: int = 0,
+                    heads: int = 0):
     """Launch ``attention_fwd.cu``; returns ``(o, stats, o32)``. With
     ``with_stats`` the kernel also writes the row statistics and the
     output in f32 (``o`` itself for f32 inputs) for the backward; without
@@ -274,7 +300,7 @@ def _forward_kernel(q, k, v, key_valid, scale, rate, seed,
                   o.data_ptr(), _ptr(stats),
                   None if o32 is o else _ptr(o32), b, h, t, dh,
                   _ext.DTYPE_CODES[q.dtype], float(scale),
-                  *_dropout_args(rate, seed, b0 * h), int(xla),
+                  *_dropout_args(rate, seed, h, b0, h0, heads), int(xla),
                   int(_round_logits(xla, bf16_softmax, q.dtype)),
                   _ext.stream_handle(q.device)), "attention_core")
     attention_core.launches += 1
@@ -282,7 +308,8 @@ def _forward_kernel(q, k, v, key_valid, scale, rate, seed,
 
 
 def _backward_kernel(q, k, v, o32, stats, key_valid, scale, rate, seed,
-                     dout, xla, bf16_softmax, f32_copies, b0=0):
+                     dout, xla, bf16_softmax, f32_copies, b0=0, h0=0,
+                     heads=0):
     """Launch ``attention_bwd.cu``: ``(dq, dk, dv)`` and, with
     ``f32_copies``, their f32 copies before the rounding, else None."""
     kv = _checked(q, k, v, key_valid, rate, "attention_core_bwd")
@@ -303,7 +330,7 @@ def _backward_kernel(q, k, v, o32, stats, key_valid, scale, rate, seed,
                   dk.data_ptr(), dv.data_ptr(), *map(_ptr, copies),
                   b, h, t, dh,
                   _ext.DTYPE_CODES[q.dtype], float(scale),
-                  *_dropout_args(rate, seed, b0 * h), int(xla),
+                  *_dropout_args(rate, seed, h, b0, h0, heads), int(xla),
                   int(_round_logits(xla, bf16_softmax, q.dtype)),
                   _ext.stream_handle(q.device)), "attention_core_bwd")
     attention_core_bwd.launches += 1
@@ -329,27 +356,30 @@ def _empties(like: torch.Tensor) -> tuple:
 def attention_core_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       key_valid: Optional[torch.Tensor], scale: float,
                       rate: float, seed: int, xla: bool, bf16_softmax: bool,
-                      with_stats: bool, b0: int = 0
+                      with_stats: bool, b0: int = 0, h0: int = 0,
+                      heads: int = 0
                       ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``(o, o32, stats)``; the residuals empty unless ``with_stats`` on a
     CUDA device."""
     return (attention_core_plain(q, k, v, key_valid, scale, rate, seed,
-                                 xla=xla, bf16_softmax=bf16_softmax, b0=b0),
+                                 xla=xla, bf16_softmax=bf16_softmax, b0=b0,
+                                 h0=h0, heads=heads),
             _empty(q), _empty(q))
 
 
 @attention_core_op.register_kernel("cuda")
 def _(q, k, v, key_valid, scale, rate, seed, xla, bf16_softmax, with_stats,
-      b0=0):
+      b0=0, h0=0, heads=0):
     o, stats, o32 = _forward_kernel(q, k, v, key_valid, scale, rate, seed,
-                                    with_stats, xla, bf16_softmax, b0)
+                                    with_stats, xla, bf16_softmax, b0, h0,
+                                    heads)
     return (o, _empty(q) if o32 is None or o32 is o else o32,
             _empty(q) if stats is None else stats)
 
 
 @attention_core_op.register_fake
 def _(q, k, v, key_valid, scale, rate, seed, xla, bf16_softmax, with_stats,
-      b0=0):
+      b0=0, h0=0, heads=0):
     if not (with_stats and q.is_cuda):
         return torch.empty_like(q), _empty(q), _empty(q)
     b, h, t, _ = q.shape
@@ -366,7 +396,7 @@ def attention_core_bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           key_valid: Optional[torch.Tensor], scale: float,
                           rate: float, seed: int, dout: torch.Tensor,
                           xla: bool, bf16_softmax: bool, f32_copies: bool,
-                          b0: int = 0
+                          b0: int = 0, h0: int = 0, heads: int = 0
                           ) -> tuple[torch.Tensor, torch.Tensor,
                                      torch.Tensor, torch.Tensor,
                                      torch.Tensor, torch.Tensor]:
@@ -375,7 +405,7 @@ def attention_core_bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``o32`` and ``stats``."""
     g32 = attention_core_bwd_f32(q, k, v, key_valid, scale, rate, seed,
                                  dout, xla=xla, bf16_softmax=bf16_softmax,
-                                 b0=b0)
+                                 b0=b0, h0=h0, heads=heads)
     if not f32_copies:
         return (*(g.to(q.dtype) for g in g32), *_empties(q))
     return (*(g.to(q.dtype, copy=True) for g in g32), *g32)
@@ -383,28 +413,29 @@ def attention_core_bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 @attention_core_bwd_op.register_kernel("cuda")
 def _(q, k, v, o32, stats, key_valid, scale, rate, seed, dout, xla,
-      bf16_softmax, f32_copies, b0=0):
+      bf16_softmax, f32_copies, b0=0, h0=0, heads=0):
     dq, dk, dv, *copies = _backward_kernel(
         q, k, v, o32, stats, key_valid, scale, rate, seed, dout, xla,
-        bf16_softmax, f32_copies, b0)
+        bf16_softmax, f32_copies, b0, h0, heads)
     return (dq, dk, dv, *(copies if f32_copies else _empties(q)))
 
 
 @attention_core_bwd_op.register_fake
 def _(q, k, v, o32, stats, key_valid, scale, rate, seed, dout, xla,
-      bf16_softmax, f32_copies, b0=0):
+      bf16_softmax, f32_copies, b0=0, h0=0, heads=0):
     copies = tuple(q.new_empty(q.shape, dtype=torch.float32) if f32_copies
                    else _empty(q) for _ in range(3))
     return (*(torch.empty_like(q) for _ in range(3)), *copies)
 
 
 def _setup(ctx, inputs, output):
-    q, k, v, key_valid, scale, rate, seed, xla, bf16_softmax, _, b0 = inputs
+    (q, k, v, key_valid, scale, rate, seed, xla, bf16_softmax, _, b0, h0,
+     heads) = inputs
     o, o32, stats = output
     # an f32 forward's f32 output is o itself
     o32 = o if q.dtype == torch.float32 else o32
     ctx.save_for_backward(q, k, v, key_valid, o32, stats)
-    ctx.args = (scale, rate, seed, xla, bf16_softmax, b0)
+    ctx.args = (scale, rate, seed, xla, bf16_softmax, b0, h0, heads)
 
 
 def _backward(ctx, dout, *_):
@@ -412,11 +443,11 @@ def _backward(ctx, dout, *_):
     the gradient of the XLA attention): residuals are the inputs (plus, on
     the card, the f32 output and the row statistics)."""
     q, k, v, key_valid, o32, stats = ctx.saved_tensors
-    scale, rate, seed, xla, bf16_softmax, b0 = ctx.args
+    scale, rate, seed, xla, bf16_softmax, b0, h0, heads = ctx.args
     dq, dk, dv, *_ = attention_core_bwd_op(
         q, k, v, o32, stats, key_valid, scale, rate, seed, dout, xla,
-        bf16_softmax, False, b0)
-    return dq, dk, dv, None, None, None, None, None, None, None, None
+        bf16_softmax, False, b0, h0, heads)
+    return (dq, dk, dv) + (None,) * 10
 
 
 attention_core_op.register_autograd(_backward, setup_context=_setup)
@@ -427,7 +458,8 @@ def attention_core_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        key_valid: Optional[torch.Tensor], scale: float,
                        rate: float, seed: int, dout: torch.Tensor, *,
                        xla: bool = False, bf16_softmax: bool = False,
-                       f32_copies: bool = False, b0: int = 0):
+                       f32_copies: bool = False, b0: int = 0, h0: int = 0,
+                       heads: int = 0):
     """The backward, ``a8t::attention_core_bwd``: ``(dq, dk, dv)`` from the
     forward's inputs, its output in f32 ``o32`` and its row ``stats``
     (both written by the forward kernel when a gradient is needed; the
@@ -438,27 +470,31 @@ def attention_core_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     rounding (what the attention block's bias gradients sum)."""
     out = attention_core_bwd_op(q, k, v, o32, stats, key_valid, scale, rate,
                                 seed, dout, xla, bf16_softmax, f32_copies,
-                                b0)
+                                b0, h0, heads)
     return out if f32_copies else out[:3]
 
 
 def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    key_valid: Optional[torch.Tensor], scale: float,
                    rate: float = 0.0, seed: int = 0, *, xla: bool = False,
-                   bf16_softmax: bool = False, b0: int = 0) -> torch.Tensor:
+                   bf16_softmax: bool = False, b0: int = 0, h0: int = 0,
+                   heads: int = 0) -> torch.Tensor:
     """Fused attention core, ``a8t::attention_core``. q/k/v ``(B, H, T,
     dh)`` float32 or bfloat16; key_valid optional ``(B, T)`` bool; ``rate``
     the probability dropout (0 = off) with uint32 ``seed``. ``xla`` picks
     the semantics (the module docstring): False, the TPU kernel's (head
     ``(b, h)`` seeded ``seed + b*H + h``); True, the JAX XLA attention's,
     where ``bf16_softmax`` rounds bf16 logits. ``b0``: the batch row of
-    row 0 (a data-parallel rank's row offset). Returns ``(B, H, T, dh)``
+    row 0 (a data-parallel rank's row offset); ``h0`` and ``heads``: the
+    global index of head 0 and the global head count (a tensor-parallel
+    rank's heads; ``heads`` 0 is H). Returns ``(B, H, T, dh)``
     in the input dtype, differentiable in q, k and v. CPU tensors take
     the plain versions; CUDA tensors launch the kernels or raise."""
     with_stats = torch.is_grad_enabled() and any(
         a.requires_grad for a in (q, k, v))
     return attention_core_op(q, k, v, key_valid, scale, rate, seed, xla,
-                             bf16_softmax, with_stats, int(b0))[0]
+                             bf16_softmax, with_stats, int(b0), int(h0),
+                             int(heads))[0]
 
 
 attention_core.launches = 0

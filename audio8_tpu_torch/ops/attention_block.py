@@ -129,16 +129,19 @@ def _merge(a: torch.Tensor) -> torch.Tensor:
 def attention_block_plain(x, wq, bq, wk, bk, wv, bv, wo, bo,
                           key_valid: Optional[torch.Tensor], num_heads: int,
                           scale: float, rate: float = 0.0,
-                          seed: int = 0, b0: int = 0) -> torch.Tensor:
+                          seed: int = 0, b0: int = 0, h0: int = 0,
+                          heads: int = 0) -> torch.Tensor:
     """Plain version of the TPU kernel's forward (``_fwd_kernel``); ``b0``
-    the batch row of row 0, as in the core."""
+    the batch row of row 0, ``h0`` and ``heads`` the global index of head
+    0 and the global head count, as in the core."""
     b, t, _ = x.shape
     t_pad = round_up(t, 128)
     xp = torch.nn.functional.pad(x, (0, 0, 0, t_pad - t))
     q, k, v = (_project(xp, w, bias, num_heads)
                for w, bias in ((wq, bq), (wk, bk), (wv, bv)))
     kv = padded_key_mask(key_valid, b, t, t_pad, x.device)
-    o = attention_core_plain(q, k, v, kv, scale, rate, seed, b0=b0)
+    o = attention_core_plain(q, k, v, kv, scale, rate, seed, b0=b0, h0=h0,
+                             heads=heads)
     out = torch.matmul(_merge(o)[:, :t].float(), wo.float().t()) + bo.float()
     return out.to(x.dtype)
 
@@ -197,18 +200,20 @@ def attention_block_bwd_plain(x, wq, bq, wk, bk, wv, bv, wo, bo,
                               key_valid: Optional[torch.Tensor],
                               num_heads: int, scale: float, rate: float,
                               seed: int, dout: torch.Tensor,
-                              slices: tuple = (1, 1), b0: int = 0):
+                              slices: tuple = (1, 1), b0: int = 0,
+                              h0: int = 0, heads: int = 0):
     """Plain version of the TPU kernel's backward (``_bwd_kernel``, then
     the sums outside it): ``(dx, dwq, dbq, dwk, dbk, dwv, dbv, dwo, dbo)``
     by recompute; ``slices`` = (S_w, S_wo) K slices of the dW{q,k,v} and
     dWo products over the B*T_pad rows."""
     dx, flat = _bwd_plain(x, wq, bq, wk, bk, wv, bv, wo, bo, key_valid,
-                          num_heads, scale, rate, seed, dout, slices, b0)
+                          num_heads, scale, rate, seed, dout, slices, b0,
+                          h0, heads)
     return (dx,) + split_grads(flat, *wq.shape)
 
 
 def _bwd_plain(x, wq, bq, wk, bk, wv, bv, wo, bo, key_valid, num_heads,
-               scale, rate, seed, dout, slices=(1, 1), b0=0):
+               scale, rate, seed, dout, slices=(1, 1), b0=0, h0=0, heads=0):
     """:func:`attention_block_bwd_plain` with the weights' and biases'
     gradients in one buffer: ``(dx, flat)``."""
     b, t, d = x.shape
@@ -218,12 +223,14 @@ def _bwd_plain(x, wq, bq, wk, bk, wv, bv, wo, bo, key_valid, num_heads,
     q, k, v = (_project(xp, w, bias, num_heads)
                for w, bias in ((wq, bq), (wk, bk), (wv, bv)))
     kv = padded_key_mask(key_valid, b, t, t_pad, x.device)
-    o = _merge(attention_core_plain(q, k, v, kv, scale, rate, seed, b0=b0))
+    o = _merge(attention_core_plain(q, k, v, kv, scale, rate, seed, b0=b0,
+                                    h0=h0, heads=heads))
     dop = torch.nn.functional.pad(dout.to(dt), (0, 0, 0, t_pad - t)).float()
     dxo = torch.matmul(dop, wo.float()).to(dt)                 # (B, T_pad, HD)
     dwo_part = weight_grad_partials(dop, o, slices[1])        # (S, D, HD)
     dxo = dxo.view(b, t_pad, num_heads, -1).permute(0, 2, 1, 3)
-    g32 = attention_core_bwd_f32(q, k, v, kv, scale, rate, seed, dxo, b0=b0)
+    g32 = attention_core_bwd_f32(q, k, v, kv, scale, rate, seed, dxo, b0=b0,
+                                 h0=h0, heads=heads)
     g = [_merge(a.to(dt)).float() for a in g32]               # (B, T_pad, HD)
     dw_part = torch.stack([weight_grad_partials(a, xp, slices[0])
                            for a in g])                       # (3, S, HD, D)
@@ -282,13 +289,19 @@ def _checked(x, weights, key_valid, num_heads, rate, what):
     return hd // num_heads, round_up(t, 128)
 
 
-def _dropout_args(rate: float, seed: int, bh0: int):
+def _dropout_args(rate: float, seed: int, h: int, b0: int, h0: int,
+                  heads: int):
+    """The kernels' dropout arguments, the core's
+    (``ops/attention.py:_dropout_args``)."""
+    hs = heads or h
     return (1.0 / (1.0 - rate), keep_threshold(rate), int(seed) & MASK32,
-            int(bh0) & MASK32, int(rate > 0.0))
+            (int(b0) * hs + int(h0)) & MASK32, hs & MASK32,
+            int(rate > 0.0))
 
 
 def _forward_kernel(x, weights, key_valid, num_heads, scale, rate, seed,
-                    with_residuals: bool, b0: int = 0):
+                    with_residuals: bool, b0: int = 0, h0: int = 0,
+                    heads: int = 0):
     """Launch ``attention_block_fwd.cu``: the projections into q, k, v on
     the padded grid, the attention core, the output projection (three
     device kernels). Returns ``(out, residuals)``; with
@@ -302,16 +315,16 @@ def _forward_kernel(x, weights, key_valid, num_heads, scale, rate, seed,
     x, weights = _aligned(x), [_aligned(w) for w in weights]
     route = GEMM_ROUTES.index(gemm_route(x.dtype, d, num_heads, dh))
     kv = padded_key_mask(key_valid, b, t, t_pad, dev).to(torch.uint8)
-    heads = (b, num_heads, t_pad, dh)
+    grid = (b, num_heads, t_pad, dh)
     if with_residuals:  # the op's outputs: one allocation each
-        q, k, v, o = (torch.empty(heads, dtype=x.dtype, device=dev)
+        q, k, v, o = (torch.empty(grid, dtype=x.dtype, device=dev)
                       for _ in range(4))
         stats = torch.empty((b * num_heads * t_pad, 2), dtype=torch.float32,
                             device=dev)
         o32 = o if x.dtype == torch.float32 else torch.empty(
-            heads, dtype=torch.float32, device=dev)
+            grid, dtype=torch.float32, device=dev)
     else:
-        q, k, v, o = _workspace([heads] * 4, x.dtype, dev)
+        q, k, v, o = _workspace([grid] * 4, x.dtype, dev)
         stats = o32 = None
     out = torch.empty_like(x)
     ptrs = [a.data_ptr() for a in (x, *weights, kv, q, k, v, o)]
@@ -320,7 +333,7 @@ def _forward_kernel(x, weights, key_valid, num_heads, scale, rate, seed,
                   None if o32 is None or o32 is o else o32.data_ptr(),
                   out.data_ptr(), b, t, d, num_heads, dh,
                   _ext.DTYPE_CODES[x.dtype], float(scale),
-                  *_dropout_args(rate, seed, b0 * num_heads), route,
+                  *_dropout_args(rate, seed, num_heads, b0, h0, heads), route,
                   _ext.stream_handle(dev)),
                "attention_block")
     attention_block.launches += 1
@@ -330,7 +343,7 @@ def _forward_kernel(x, weights, key_valid, num_heads, scale, rate, seed,
 
 def _backward_kernel(x, weights, residuals, num_heads: int, scale: float,
                      rate: float, seed: int, dout: torch.Tensor,
-                     b0: int = 0):
+                     b0: int = 0, h0: int = 0, heads: int = 0):
     """The backward kernel on CUDA tensors (eight device kernels: dxo,
     the dWo partials, the core backward's three (D, the fused pass, the
     dq reduction), the dW{q,k,v} partials, dx and the bias partials),
@@ -368,7 +381,8 @@ def _backward_kernel(x, weights, residuals, num_heads: int, scale: float,
         dq_part, dq, dk, dv)), *(None if a is None else a.data_ptr() for a in g32),
         *(a.data_ptr() for a in (dx, dw_part, dwo_part, db_part)),
         b, t, d, num_heads, dh, _ext.DTYPE_CODES[x.dtype], float(scale),
-        *_dropout_args(rate, seed, b0 * num_heads), GEMM_ROUTES.index(route),
+        *_dropout_args(rate, seed, num_heads, b0, h0, heads),
+        GEMM_ROUTES.index(route),
         s_w, s_wo,
         _ext.stream_handle(dev)),
         "attention_block_bwd")
@@ -396,22 +410,23 @@ def attention_block_op(x: torch.Tensor, wq: torch.Tensor, bq: torch.Tensor,
                        bv: torch.Tensor, wo: torch.Tensor, bo: torch.Tensor,
                        key_valid: Optional[torch.Tensor], num_heads: int,
                        scale: float, rate: float, seed: int,
-                       with_residuals: bool, b0: int = 0) -> _Tensors8:
+                       with_residuals: bool, b0: int = 0, h0: int = 0,
+                       heads: int = 0) -> _Tensors8:
     """``(out, kv, q, k, v, o, o32, stats)``: the output, then the
     backward kernel's residuals (empty unless ``with_residuals`` on a
     CUDA device)."""
     out = attention_block_plain(x, wq, bq, wk, bk, wv, bv, wo, bo, key_valid,
-                                num_heads, scale, rate, seed, b0)
+                                num_heads, scale, rate, seed, b0, h0, heads)
     return (out, _empty(x, torch.uint8),
             *(_empty(x) for _ in range(6)))
 
 
 @attention_block_op.register_kernel("cuda")
 def _(x, wq, bq, wk, bk, wv, bv, wo, bo, key_valid, num_heads, scale, rate,
-      seed, with_residuals, b0=0):
+      seed, with_residuals, b0=0, h0=0, heads=0):
     out, res = _forward_kernel(x, (wq, bq, wk, bk, wv, bv, wo, bo),
                                key_valid, num_heads, scale, rate, seed,
-                               with_residuals, b0)
+                               with_residuals, b0, h0, heads)
     if res is None:
         return (out, _empty(x, torch.uint8),
                 *(_empty(x) for _ in range(6)))
@@ -421,17 +436,17 @@ def _(x, wq, bq, wk, bk, wv, bv, wo, bo, key_valid, num_heads, scale, rate,
 
 @attention_block_op.register_fake
 def _(x, wq, bq, wk, bk, wv, bv, wo, bo, key_valid, num_heads, scale, rate,
-      seed, with_residuals, b0=0):
+      seed, with_residuals, b0=0, h0=0, heads=0):
     if not (with_residuals and x.is_cuda):
         return (torch.empty_like(x), _empty(x, torch.uint8),
                 *(_empty(x) for _ in range(6)))
     b, t, _ = x.shape
     t_pad = (t + 127) // 128 * 128
-    heads = (b, num_heads, t_pad, wq.shape[0] // num_heads)
+    grid = (b, num_heads, t_pad, wq.shape[0] // num_heads)
     o32 = _empty(x) if x.dtype == torch.float32 else \
-        x.new_empty(heads, dtype=torch.float32)
+        x.new_empty(grid, dtype=torch.float32)
     return (torch.empty_like(x), x.new_empty((b, t_pad), dtype=torch.uint8),
-            *(x.new_empty(heads) for _ in range(4)), o32,
+            *(x.new_empty(grid) for _ in range(4)), o32,
             x.new_empty((b * num_heads * t_pad, 2), dtype=torch.float32))
 
 
@@ -448,36 +463,37 @@ def attention_block_bwd_op(x: torch.Tensor, wq: torch.Tensor,
                            o: torch.Tensor, o32: torch.Tensor,
                            stats: torch.Tensor, num_heads: int, scale: float,
                            rate: float, seed: int, dout: torch.Tensor,
-                           b0: int = 0
+                           b0: int = 0, h0: int = 0, heads: int = 0
                            ) -> tuple[torch.Tensor, torch.Tensor]:
     """``(dx, flat)``: the weights' and biases' gradients in one buffer
     (:func:`split_grads`); the plain version recomputes from ``x`` and
     ``key_valid`` and ignores the residuals."""
     return _bwd_plain(x, wq, bq, wk, bk, wv, bv, wo, bo, key_valid,
-                      num_heads, scale, rate, seed, dout, b0=b0)
+                      num_heads, scale, rate, seed, dout, b0=b0, h0=h0,
+                      heads=heads)
 
 
 @attention_block_bwd_op.register_kernel("cuda")
 def _(x, wq, bq, wk, bk, wv, bv, wo, bo, key_valid, kv, q, k, v, o, o32,
-      stats, num_heads, scale, rate, seed, dout, b0=0):
+      stats, num_heads, scale, rate, seed, dout, b0=0, h0=0, heads=0):
     o32 = o if x.dtype == torch.float32 else o32
     return _backward_kernel(x, (wq, bq, wk, bk, wv, bv, wo, bo),
                             (kv, q, k, v, o, o32, stats), num_heads, scale,
-                            rate, seed, dout, b0)
+                            rate, seed, dout, b0, h0, heads)
 
 
 @attention_block_bwd_op.register_fake
 def _(x, wq, bq, wk, bk, wv, bv, wo, bo, key_valid, kv, q, k, v, o, o32,
-      stats, num_heads, scale, rate, seed, dout, b0=0):
+      stats, num_heads, scale, rate, seed, dout, b0=0, h0=0, heads=0):
     hd, d = wq.shape
     return torch.empty_like(x), x.new_empty((4 * hd * d + 3 * hd + d,))
 
 
 def _setup(ctx, inputs, output):
     x, *weights = inputs[:9]
-    key_valid, num_heads, scale, rate, seed, _, b0 = inputs[9:]
+    key_valid, num_heads, scale, rate, seed, _, b0, h0, heads = inputs[9:]
     ctx.save_for_backward(x, *weights, key_valid, *output[1:])
-    ctx.args = (num_heads, scale, rate, seed, b0)
+    ctx.args = (num_heads, scale, rate, seed, b0, h0, heads)
 
 
 def _backward(ctx, dout, *_):
@@ -485,11 +501,11 @@ def _backward(ctx, dout, *_):
     weights and biases."""
     x, *weights = ctx.saved_tensors[:9]
     key_valid, *residuals = ctx.saved_tensors[9:]
-    num_heads, scale, rate, seed, b0 = ctx.args
+    num_heads, scale, rate, seed, b0, h0, heads = ctx.args
     dx, flat = attention_block_bwd_op(x, *weights, key_valid, *residuals,
-                                      num_heads, scale, rate, seed, dout, b0)
-    return (dx, *split_grads(flat, *weights[0].shape), None, None, None,
-            None, None, None, None)
+                                      num_heads, scale, rate, seed, dout, b0,
+                                      h0, heads)
+    return (dx, *split_grads(flat, *weights[0].shape)) + (None,) * 9
 
 
 attention_block_op.register_autograd(_backward, setup_context=_setup)
@@ -497,14 +513,14 @@ attention_block_op.register_autograd(_backward, setup_context=_setup)
 
 def attention_block_bwd(x, weights, residuals, num_heads: int, scale: float,
                         rate: float, seed: int, dout: torch.Tensor,
-                        b0: int = 0):
+                        b0: int = 0, h0: int = 0, heads: int = 0):
     """The backward, ``a8t::attention_block_bwd``, from the forward
     kernel's ``residuals`` (:func:`_forward_kernel`): ``(dx, dwq, dbq,
     dwk, dbk, dwv, dbv, dwo, dbo)``."""
     kv, q, k, v, o, o32, stats = residuals
     dx, flat = attention_block_bwd_op(
         x, *weights, None, kv, q, k, v, o, _empty(x) if o32 is o else o32,
-        stats, num_heads, scale, rate, seed, dout, b0)
+        stats, num_heads, scale, rate, seed, dout, b0, h0, heads)
     return (dx,) + split_grads(flat, *weights[0].shape)
 
 
@@ -513,19 +529,23 @@ def attention_block(x: torch.Tensor, wq: torch.Tensor, bq: torch.Tensor,
                     bv: torch.Tensor, wo: torch.Tensor, bo: torch.Tensor,
                     key_valid: Optional[torch.Tensor], num_heads: int,
                     scale: float, rate: float = 0.0,
-                    seed: int = 0, b0: int = 0) -> torch.Tensor:
+                    seed: int = 0, b0: int = 0, h0: int = 0,
+                    heads: int = 0) -> torch.Tensor:
     """Self-attention of x through its four projections, the op
     ``a8t::attention_block``: ``(B, T, D)`` in the input dtype (float32 or
     bfloat16; weights and biases in the same dtype), differentiable in x
     and all eight weights and biases. ``rate``: attention-probability
     dropout with uint32 ``seed``, row 0 being batch row ``b0`` (a
-    data-parallel rank's row offset). CPU tensors take the plain versions;
-    CUDA tensors launch the kernels or raise."""
+    data-parallel rank's row offset), ``num_heads`` heads from global
+    head ``h0`` of ``heads`` (a tensor-parallel rank's: the output is then
+    its heads' part of the O projection plus ``bo``). CPU tensors take the
+    plain versions; CUDA tensors launch the kernels or raise."""
     weights = (wq, bq, wk, bk, wv, bv, wo, bo)
     with_residuals = torch.is_grad_enabled() and any(
         a.requires_grad for a in (x, *weights))
     return attention_block_op(x, *weights, key_valid, num_heads, scale, rate,
-                              seed, with_residuals, int(b0))[0]
+                              seed, with_residuals, int(b0), int(h0),
+                              int(heads))[0]
 
 
 attention_block.launches = 0

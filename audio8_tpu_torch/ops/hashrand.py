@@ -35,18 +35,51 @@ def mix32(x: torch.Tensor) -> torch.Tensor:
 
 def hash_bits(shape: Sequence[int], seed: int,
               device: torch.device | str = "cpu",
-              base: int = 0) -> torch.Tensor:
+              base: int = 0, row_len: int = 0,
+              row_stride: int = 0) -> torch.Tensor:
     """uint32 bits (as int64) of ``shape``: mix(flat index ^ seed). The
     flat index starts at ``base``, added before the 2**32 wrap: a block
     of rows of a larger tensor passes its first element's flat index
     there and draws that tensor's bits (data parallelism's row blocks,
-    ``parallel/sharding.py``)."""
+    ``parallel/sharding.py``). A piece that is not one contiguous range
+    of the larger tensor's index (a sequence-parallel rank's frames, a
+    tensor-parallel rank's heads, ``parallel/tensor.py``) is rows of
+    ``row_len`` elements ``row_stride`` apart there: element i takes
+    index ``base + (i // row_len) * row_stride + i % row_len``
+    (:func:`strided_index`)."""
     n = 1
     for d in shape:
         n *= int(d)
-    idx = (torch.arange(n, dtype=torch.int64, device=device) + int(base)) \
-        & MASK32
+    idx = torch.arange(n, dtype=torch.int64, device=device)
+    if row_len and row_len < n:
+        idx = idx // row_len * int(row_stride) + idx % row_len
+    idx = (idx + int(base)) & MASK32
     return mix32(idx ^ (int(seed) & MASK32)).reshape(tuple(shape))
+
+
+def strided_index(shape: Sequence[int], whole: Sequence[int],
+                  offset: Sequence[int]) -> tuple:
+    """``(base, row_len, row_stride)`` of a piece of ``shape`` at
+    ``offset`` in a batch-first tensor of ``whole``, which differ in the
+    batch axis and at most one more axis ``a``: the piece's rows are its
+    ``shape[a:]`` blocks, each ``prod(whole[a:])`` apart. ``row_len`` is
+    0 when the piece is one contiguous range (the other axes whole)."""
+    axis = next((i for i in range(1, len(shape))
+                 if shape[i] != whole[i] or offset[i]), None)
+    strides = [1] * len(whole)
+    for i in range(len(whole) - 2, -1, -1):
+        strides[i] = strides[i + 1] * int(whole[i + 1])
+    base = sum(int(o) * st for o, st in zip(offset, strides))
+    if axis is None:
+        return base, 0, 0
+    if any(shape[i] != whole[i] or offset[i] for i in range(axis + 1,
+                                                             len(shape))):
+        raise ValueError(f"strided_index: {tuple(shape)} at {tuple(offset)} "
+                         f"of {tuple(whole)} is not rows of one stride")
+    row_len = 1
+    for d in shape[axis:]:
+        row_len *= int(d)
+    return base, row_len, strides[axis - 1]
 
 
 def hash_uniform(shape: Sequence[int], seed: int,

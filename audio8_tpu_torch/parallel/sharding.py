@@ -28,6 +28,18 @@ numbers from its rows:
 
 Single process (no group) every function here is the identity, and a
 step computes exactly what it computed before.
+
+Tensor parallelism (``--tensor_parallel tp``, ``parallel/tensor.py``)
+makes the ranks two-dimensional, as JAX's ``make_mesh`` reshapes its
+devices to ``(data, model)``: rank ``r`` is data rank ``r // tp`` and
+model rank ``r % tp``, so a model group is ``tp`` consecutive ranks
+(:func:`setup` builds both kinds of group). Every function above that
+counts rows (the row block, the datasets' shards, :func:`global_sum`,
+:func:`gather_rows`, :func:`global_sum_scalars`, :func:`all_reduce_grads`
+and the MoE counts) takes the **data** group (:func:`data_group`, what
+the entry points pass as their ``group``): the model ranks of one data
+rank hold the same rows, and a sum over the world would count each row
+``tp`` times.
 """
 from __future__ import annotations
 
@@ -63,11 +75,69 @@ def dp_device(name: str, distributed: bool) -> str:
     return name
 
 
+class _Mesh:
+    """The ranks' layout: ``tp`` model ranks per data rank, this rank's
+    data and model groups (None without a process group)."""
+    tp = 1
+    data = None
+    model = None
+
+
+_MESH = _Mesh()
+
+
+def make_groups(tp: int = 1) -> None:
+    """Lay the running group's ranks out as ``(data, model)`` with ``tp``
+    model ranks (the counterpart of ``make_mesh``): every rank builds
+    every group, in one order. Raises, naming the flag, when ``tp`` does
+    not divide the ranks. At ``tp`` 1 the data group is the whole world
+    and there is no model group."""
+    world = dist.get_world_size()
+    tp = max(int(tp), 1)
+    if world % tp:
+        raise ValueError(f"model-parallel extent {tp} (--tensor_parallel) "
+                         f"does not divide the {world} ranks")
+    _MESH.tp, _MESH.data, _MESH.model = tp, dist.group.WORLD, None
+    if tp == 1:
+        return
+    rank = dist.get_rank()
+    for d in range(world // tp):
+        ranks = [d * tp + m for m in range(tp)]
+        group = dist.new_group(ranks)
+        if rank in ranks:
+            _MESH.model = group
+    for m in range(tp):
+        ranks = [d * tp + m for d in range(world // tp)]
+        group = dist.new_group(ranks)
+        if rank in ranks:
+            _MESH.data = group
+
+
+def data_group():
+    """The data-parallel group of this rank (the world at
+    ``--tensor_parallel`` 1), None without a process group."""
+    if not (dist.is_available() and dist.is_initialized()):
+        return None
+    return _MESH.data or dist.group.WORLD
+
+
+def model_group():
+    """The model (tensor-parallel) group of this rank, None below
+    ``--tensor_parallel`` 2 or without a process group."""
+    if not (dist.is_available() and dist.is_initialized()):
+        return None
+    return _MESH.model
+
+
 def setup(distributed: bool, device: Union[torch.device, str] = "cuda",
-          backend: Optional[str] = None) -> Tuple[int, int]:
+          backend: Optional[str] = None,
+          tensor_parallel: int = 1) -> Tuple[int, int]:
     """Start the process group of a ``--distributed`` run; returns
-    ``(rank, world)``. The counterpart of ``audio8_tpu/cli/common.py:
-    setup``: it reads ``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK`` and
+    ``(rank, world)`` of the data-parallel layout: this rank's data rank
+    and the data extent (the ranks over ``tensor_parallel``, whose model
+    groups :func:`make_groups` builds). The counterpart of
+    ``audio8_tpu/cli/common.py:setup`` and ``setup_parallelism``: it reads
+    ``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK`` and
     ``MASTER_ADDR``/``MASTER_PORT`` as ``torchrun`` sets them and calls
     ``init_process_group``, NCCL for a CUDA ``device`` and gloo for the
     CPU (``backend`` overrides that; no flag sets it). Without those
@@ -77,6 +147,7 @@ def setup(distributed: bool, device: Union[torch.device, str] = "cuda",
     logging is left as it is."""
     env = os.environ
     rank, world = 0, 1
+    _MESH.tp, _MESH.data, _MESH.model = 1, None, None
     if distributed and env.get("WORLD_SIZE"):
         missing = [k for k in ("RANK", "MASTER_ADDR", "MASTER_PORT")
                    if not env.get(k)]
@@ -99,9 +170,20 @@ def setup(distributed: bool, device: Union[torch.device, str] = "cuda",
             format="%(asctime)s %(levelname)s %(name)s: %(message)s",
             force=True)
         logger.info("process %d/%d", rank, world)
+        make_groups(tensor_parallel)
+        tp = _MESH.tp
+        if tp > 1:
+            logger.info("tensor parallel: data rank %d/%d, model rank %d/%d",
+                        rank // tp, world // tp, rank % tp, tp)
+        return rank // tp, world // tp
     elif distributed:
         logger.warning("--distributed requested but no torchrun "
                        "environment (WORLD_SIZE) is set; training one rank")
+    if tensor_parallel > 1:
+        raise ValueError(f"model-parallel extent {tensor_parallel} "
+                         "(--tensor_parallel) does not divide the 1 ranks: "
+                         "launch --tensor_parallel ranks or more with "
+                         "torchrun and --distributed true")
     return rank, world
 
 
@@ -132,6 +214,12 @@ def barrier(group) -> None:
     """Wait for every rank of ``group`` (nothing without one)."""
     if group is not None:
         dist.barrier(group=group)
+
+
+def group_root(group) -> int:
+    """The global rank of ``group``'s rank 0 (a collective's ``src``)."""
+    return dist.get_global_rank(group, 0) if group is not None and \
+        group is not dist.group.WORLD else 0
 
 
 # ------------------------------------------------- the step's context
@@ -235,19 +323,23 @@ def _flat_groups(tensors: Sequence[torch.Tensor]):
     return by_key.values()
 
 
-def _summed(flat: torch.Tensor, group) -> torch.Tensor:
-    """``flat`` (float32) summed over the ranks. NCCL sums in its own
-    order; another backend (gloo, the test transport) sums in float64 and
+def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` summed over the ranks: a new tensor in ``x``'s dtype, ``x``
+    left as it was. NCCL sums in its own order; another backend (gloo,
+    the test transport) sums a floating-point tensor in float64 and
     rounds once, so each element's sum is the same wherever it lies in
     the buffer and in whatever order the ranks add: the data-parallel,
-    ZeRO-1 and FSDP steps then agree bitwise at any world size (at two
-    ranks this is gloo's float32 sum, bit for bit)."""
-    if flat.dtype != torch.float32 or shard_route(group) == "native":
-        dist.all_reduce(flat, group=group)
-        return flat
-    wide = flat.double()
+    ZeRO-1, FSDP and tensor-parallel steps then agree bitwise at any
+    world size (at two ranks this is gloo's sum in ``x``'s dtype, bit for
+    bit; a bf16 row-split partial's sum is the bf16 sum of the rounded
+    partials, as JAX's psum)."""
+    if shard_route(group) == "native" or not x.is_floating_point():
+        y = x.contiguous().clone()
+        dist.all_reduce(y, group=group)
+        return y
+    wide = x.to(torch.float64, copy=True)
     dist.all_reduce(wide, group=group)
-    return wide.float()
+    return wide.to(x.dtype)
 
 
 def all_reduce_grads(grads: Union[Dict[str, torch.Tensor],
@@ -260,7 +352,8 @@ def all_reduce_grads(grads: Union[Dict[str, torch.Tensor],
     tensors = list(grads.values()) if isinstance(grads, dict) \
         else list(grads)
     for ts in _flat_groups(tensors):
-        flat = _summed(torch.cat([t.reshape(-1) for t in ts]), group)
+        flat = all_reduce_sum(torch.cat([t.reshape(-1) for t in ts]),
+                              group)
         offset = 0
         for t in ts:
             n = t.numel()
@@ -311,27 +404,29 @@ def world_of(group) -> int:
     return 1 if group is None else dist.get_world_size(group)
 
 
-# --------------------------- the ZeRO-1 and FSDP collectives (zero.py)
+# ----------- the sharded collectives (zero.py, tensor.py; all_reduce_sum)
 
 _ROUTES: Dict[object, str] = {}
 
 
 def shard_route(group) -> str:
-    """How :func:`reduce_scatter_sum` and :func:`all_gather_flat` run over
-    ``group``, chosen once per group by its backend and logged: ``native``
-    under NCCL (``reduce_scatter_tensor``, ``all_gather_into_tensor``),
-    else ``composed``: the reduce-scatter is an all-reduce of the whole
-    buffer (in float64, :func:`_summed`) and this rank's slice of it, the
-    all-gather gloo's list all-gather, which both take CUDA tensors
-    (staged through the host)."""
+    """How :func:`all_reduce_sum`, :func:`reduce_scatter_sum` and
+    :func:`all_gather_flat` run over ``group``, chosen once per group by
+    its backend and logged: ``native`` under NCCL (``all_reduce``,
+    ``reduce_scatter_tensor``, ``all_gather_into_tensor``), else
+    ``composed``: the all-reduce in float64, the reduce-scatter an
+    all-reduce of the whole buffer and this rank's slice of it, the
+    all-gather gloo's list all-gather (bf16 moved as int16), which all
+    take CUDA tensors (staged through the host)."""
     route = _ROUTES.get(group)
     if route is None:
         backend = dist.get_backend(group)
         route = "native" if backend == "nccl" else "composed"
         _ROUTES[group] = route
-        logger.info("ZeRO/FSDP collectives over %s: %s", backend,
+        logger.info("sharded collectives over %s: %s", backend,
                     "reduce_scatter_tensor, all_gather_into_tensor"
                     if route == "native" else
+                    "all-reduce in float64, "
                     "reduce-scatter = all_reduce + this rank's slice, "
                     "all-gather = all_gather into the buffer's slices")
     return route
@@ -357,7 +452,7 @@ def reduce_scatter_sum(flat: torch.Tensor, group) -> torch.Tensor:
         out = flat.new_empty(c)
         _REDUCE_SCATTER(out, flat.contiguous(), group=group)
         return out
-    summed = _summed(flat.contiguous().clone(), group)
+    summed = all_reduce_sum(flat, group)
     return summed[rank * c:(rank + 1) * c].clone()
 
 
@@ -374,9 +469,11 @@ def all_gather_flat(chunk: torch.Tensor, group,
                          f"into {out.numel()}")
     if shard_route(group) == "native":
         _ALL_GATHER(out, chunk.contiguous(), group=group)
-    else:
-        dist.all_gather(list(out.chunk(world)), chunk.contiguous(),
-                        group=group)
+    else:  # gloo moves bytes: bf16 travels as int16
+        bits = (lambda t: t.view(torch.int16)) \
+            if chunk.dtype == torch.bfloat16 else (lambda t: t)
+        dist.all_gather(list(bits(out).chunk(world)),
+                        bits(chunk.contiguous()), group=group)
     return out
 
 
@@ -400,7 +497,7 @@ def sync_from_rank0(module: torch.nn.Module, group=None) -> int:
         return checksum(module)
     with torch.no_grad():
         for t in list(module.parameters()) + list(module.buffers()):
-            dist.broadcast(t.data, src=0, group=group)
+            dist.broadcast(t.data, src=group_root(group), group=group)
     mine = checksum(module)
     sums = per_rank(torch.tensor(mine, dtype=torch.int64,
                                  device=collective_device(group)), group)

@@ -197,11 +197,18 @@ class TrainState:
         # the ZeRO-1 / FSDP sharding (``parallel/zero.py:shard_state``);
         # None: every rank holds the whole state
         self.shards = None
+        # the tensor-parallel split (``parallel/tensor.py:shard_state``);
+        # None: the model is whole
+        self.tensor_shards = None
 
     def reduce_grads(self, grads, group):
         """The step's gradients summed over ``group``'s ranks: whole
         (all-reduced) when the state is whole, this rank's chunks
         (``parallel/zero.py``) when it is sharded."""
+        if self.tensor_shards is not None:
+            self.tensor_shards.reduce_seq_grads(
+                grads if isinstance(grads, dict) else
+                dict(zip(self.names, grads)))
         if self.shards is not None:
             return self.shards.reduce_grads(grads, self.names)
         if group is not None:
@@ -220,7 +227,8 @@ class TrainState:
         the scaled gradient (before clipping). A sharded state takes the
         chunks :meth:`reduce_grads` returns and updates this rank's
         chunk (kernel 5 over the chunk's slices), then, under ZeRO-1,
-        gathers the whole parameters."""
+        gathers the whole parameters. A tensor-parallel state updates the
+        rank's slices, its norm that of the whole gradient."""
         shards = self.shards
         if shards is not None:
             grads = shards.chunk_list(grads)
@@ -232,8 +240,12 @@ class TrainState:
         dev = params[0].device
         scale = torch.as_tensor(1.0 if grad_scale is None else grad_scale,
                                 dtype=torch.float32, device=dev)
-        norm = global_norm(grads) if shards is None \
-            else shards.global_norm(grads)
+        if shards is not None:
+            norm = shards.global_norm(grads)
+        elif self.tensor_shards is not None:
+            norm = self.tensor_shards.global_norm(grads, params)
+        else:
+            norm = global_norm(grads)
         gnorm = norm * scale
         if clip_norm is not None:
             scale = scale * torch.clamp(

@@ -25,10 +25,11 @@ logger = logging.getLogger("audio8_tpu_torch")
 
 class PreemptionGuard:
     """``should_save(step)`` is True exactly once, at the first step
-    polled after a SIGTERM (on any rank of ``group``)."""
+    polled after a SIGTERM (on any rank of ``group``'s run: every rank of
+    the world decides, the model ranks of a tensor-parallel run too)."""
 
     def __init__(self, group=None):
-        self._group = group
+        self._group = None if group is None else dist.group.WORLD
         self._flag = threading.Event()
         self._fired = False
         self._prev = None

@@ -7,7 +7,8 @@ path, its RNN-T path (training, decoding, streaming, serving, eval
 and export), its HuBERT and data2vec pretraining paths, and its
 decoders' device beam, text-LM trainer and n-best rescoring, and its
 data-parallel training (one NCCL rank, then two gloo ranks sharing the
-card) with its ZeRO-1 and FSDP sharding, at full wav2vec2-base width
+card) with its ZeRO-1 and FSDP sharding and its tensor and sequence
+parallelism, at full wav2vec2-base width
 with seeded random weights, the trainers' remat,
 SGD, augmentation and profiler flags, KenLM binaries written by the port
 and the text tower's warm start, the pretraining path again through the
@@ -444,6 +445,30 @@ instead, to compare.
               one plain process gives the DP resume's loss, and
               ``cli.convert_checkpoint --output_format orbax`` of the
               ZeRO-1 one reads back bitwise;
+26. tp      - tensor and sequence parallelism (``parallel/tensor.py``):
+              (a) kernels 4, 2, 2b, 6 and 6b at a rank's place in a
+              larger tensor (kernel 4 on frames from a T offset, bitwise
+              its plain version and the whole tensor's draw; 2 and 2b on
+              heads 6..11 of 12, both semantics, and 6 and 6b on half the
+              heads, against their plain versions and the whole call);
+              (b) two gloo ranks sharing the card run ``cli.train`` (2
+              unfrozen SGD CTC steps, a checkpoint each) and
+              ``cli.pretrain`` (1 SGD step) at full wav2vec2-base width
+              and depth, every dropout 0.1, no warmup (every step moves
+              every parameter), under ``--distributed true
+              --tensor_parallel 2``, sequence parallelism off and on,
+              against one process on the card: ranks' replicated
+              parameters bitwise equal, losses rtol 1e-4, gradient norms
+              1e-3, each parameter's difference within 1e-3 of its
+              leaf's largest update plus a float32 rounding of the
+              parameter a step (the key biases, whose true gradient is
+              0, within 1e-9), the split leaves moved, the saved ``.pt``
+              read in one process equal to the run's whole state, the
+              launches of kernels 1, 2, 2b, 3 and 4 (pretraining 2, 2b,
+              3, 3b, 3c and 4); each rank's
+              parameter bytes beside one process's, and the gloo
+              all-reduce ms per layer (host-staged on one card: not a
+              scaling number);
 
 then a ``phase_seconds`` line (each phase's wall seconds and each phase's
 retried profiler traces, ``trace_retries``), a ``kernels``
@@ -470,6 +495,7 @@ card it exits with code 2 and prints no result.
     python3 chip_smoke.py --orbax-phases     # the build and phase 24 only
     python3 chip_smoke.py --dp-phases        # the build and phase 23 only
     python3 chip_smoke.py --zero-phases      # the build and phase 25 only
+    python3 chip_smoke.py --tp-phases        # the build and phase 26 only
     python3 chip_smoke.py --dp-timing        # rows 2, 2b, 4, 6, 6b only
 
 ``--block-timing`` builds the block's two sources and prints only the
@@ -2732,9 +2758,9 @@ def recorded_path_calls(calls: dict):
                                    tuple(sorted(sem.items())), grad))
         return real[1](q, k, v, key_valid, scale, rate, seed, **sem)
 
-    def dropout(x, rate, seed, base=0):
+    def dropout(x, rate, seed, *index):
         calls["dropout"].append(tuple(x.shape))
-        return real[2](x, rate, seed, base)
+        return real[2](x, rate, seed, *index)
 
     nn_layers.conv1d_k3s2 = conv
     nn_transformer.attention_core = attention
@@ -6695,8 +6721,8 @@ def counted_dropouts(run) -> int:
     import audio8_tpu_torch.nn.dropout as nn_dropout
 
     calls, real = [], nn_dropout.fused_dropout
-    nn_dropout.fused_dropout = lambda x, r, s, b=0: calls.append(1) or real(
-        x, r, s, b)
+    nn_dropout.fused_dropout = lambda x, r, s, *index: calls.append(1) or \
+        real(x, r, s, *index)
     try:
         with torch.no_grad():
             run()
@@ -10358,6 +10384,453 @@ def zero_phases(gen) -> int:
     return 0
 
 
+
+# ------------------------------------------------------------------ phase 26
+
+# (b): cli.train (2 unfrozen SGD CTC steps; validate_on = 1, so each run
+# writes two checkpoints of about 0.38 GB) and cli.pretrain (1 SGD step,
+# no checkpoint) at full wav2vec2-base width and depth, every dropout 0.1,
+# no warmup: the learning rate of step 0 is not 0, so every step moves
+# every parameter the gradient reaches
+TP_RANKS = 2
+TP_CLI_FLAGS = ["--target_tokens_per_batch", "700000", "--grad_accum", "1",
+                "--train_steps", "2", "--unfreeze_enc_after_step", "-1",
+                "--warmup_steps", "0", "--valid_steps", "1", "--optim",
+                "sgd"]
+TP_PRETRAIN_FLAGS = ["--tokens_per_batch", "1400000", "--max_sample_len",
+                     "325000", "--train_steps", "1",
+                     "--steps_per_checkpoint", "3", "--warmup_steps", "0",
+                     "--num_train_workers", "1", "--optim", "sgd"]
+TP_MODES = (("tp", []), ("tp_sp", ["--sequence_parallel", "true"]))
+# the kernels each run must launch (SGD: no kernel 5; pretraining trains
+# the extractor, so its conv backward runs)
+TP_PATH = {"train": DP_PATH,
+           "pretrain": tuple(k for k in PRETRAIN_PATH if k != "adamw")}
+# 2 model ranks against one process: the loss and norm gates of phase 23;
+# each parameter after SGD within TP_UPDATE_RTOL of its leaf's largest
+# update |p_after - p_before| (one process's), plus a float32 rounding of
+# the parameter per step (the sum order of the split products and of the
+# norm differs; a gradient that misses a rank's share is off by about the
+# update itself)
+TP_UPDATE_RTOL = 1e-3
+# an attention key bias shifts all of a query's logits by one constant:
+# its true gradient is 0 and its computed one rounding noise (updates of
+# 1e-14 on the card), so it is held to this bound instead, far below any
+# update a gradient makes
+TP_KEY_BIAS_ATOL = 1e-9
+TP_T0 = 375  # rank 1's first frame of a 749-frame stream split over 2
+
+
+def tp_run(kind: str, argv: list, basedir: str) -> dict:
+    """One trainer run (``kind`` train or pretrain) in this process: its
+    log, launches, every update's global gradient norm, the rank's own
+    parameter bytes, the checksum of its replicated parameters and a
+    sample of the whole parameters before the first step and after the
+    last."""
+    from audio8_tpu_torch.cli import pretrain
+    from audio8_tpu_torch.cli import train as train_cli
+    from audio8_tpu_torch.parallel import full_state
+    from audio8_tpu_torch.parallel.sharding import checksum
+    from audio8_tpu_torch.train.optim import TrainState
+
+    module = train_cli if kind == "train" else pretrain
+    before, norms = {}, []
+    real_shard, real_apply = module.shard_state, TrainState.apply_gradients
+
+    def shard_state(state, *args, **kwargs):  # the whole state, restored
+        before.update(dp_sample(state.model))
+        return real_shard(state, *args, **kwargs)
+
+    def apply_gradients(self, *args, **kwargs):
+        norm = real_apply(self, *args, **kwargs)
+        norms.append(float(norm))
+        return norm
+
+    module.shard_state, TrainState.apply_gradients = \
+        shard_state, apply_gradients
+    reset_launches()
+    try:
+        state = module.train(argv + ["--basedir", basedir])
+    finally:
+        module.shard_state, TrainState.apply_gradients = \
+            real_shard, real_apply
+    launches = read_launches()
+    shards = state.tensor_shards
+    split = set() if shards is None else {id(p) for p, _ in shards.split}
+    rep = torch.nn.ParameterList([p for p in state.model.parameters()
+                                  if id(p) not in split])
+    names = [] if shards is None else [shards.names[id(p)]
+                                       for p, _ in shards.split]
+    out = {"log": state.log, "launches": launches, "grad_norms": norms,
+           "before": before, "split_names": names,
+           "param_bytes": 4 * sum(p.numel() for p in state.params),
+           "split_bytes": 4 * sum(p.numel() for p in state.params
+                                  if id(p) in split),
+           "replicated_checksum": checksum(rep)}
+    with full_state(state):
+        out["sample"] = dp_sample(state.model)
+    del state
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_allreduce_ms(mg) -> dict:
+    """The gloo all-reduce of one (4, 749, 768) f32 activation over the
+    model group (CUDA tensors staged through the host on one card), the
+    region's four per layer (two forward, two backward)."""
+    from audio8_tpu_torch.parallel.sharding import all_reduce_sum
+
+    x = torch.randn(DROPOUT_SHAPE, device="cuda")
+    all_reduce_sum(x, mg.group)
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        all_reduce_sum(x, mg.group)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return {"allreduce_ms": times, "bytes": x.numel() * 4,
+            "per_layer_ms": 4 * min(times)}
+
+
+def _tp_rank(rank: int, world: int, port: int, out_dir: str,
+             argv: dict) -> None:
+    """One gloo rank of phase 26 (b), sharing the one card: the process
+    group through ``parallel/sharding.py:setup`` with the gloo backend,
+    then each trainer under ``--distributed true --tensor_parallel 2``,
+    sequence parallelism off and on (the entry points lay the model
+    group out themselves)."""
+    import torch.distributed as dist
+
+    sys.path.insert(0, HERE)
+    from audio8_tpu_torch.parallel.sharding import setup
+    from audio8_tpu_torch.parallel.tensor import current_model_group
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    dp_env(rank, world, 0, port)
+    setup(True, "cuda:0", backend="gloo")
+    out = {}
+    for kind in ("train", "pretrain"):
+        for mode, extra in TP_MODES:
+            out[f"{kind}_{mode}"] = tp_run(
+                kind, argv[kind] + ["--distributed", "true",
+                                    "--tensor_parallel", str(world),
+                                    *extra],
+                os.path.join(out_dir, f"{kind}_{mode}"))
+    out["collectives"] = tp_allreduce_ms(current_model_group())
+    torch.save(out, os.path.join(out_dir, f"tp_rank{rank}.pt"))
+    dist.destroy_process_group()
+
+
+def tp_kernels(gen) -> dict:
+    """Kernels 4, 2, 2b, 6 and 6b at a tensor- or sequence-parallel
+    rank's place in a larger tensor, on the card, float32 and bfloat16:
+    the dropout of rank 1's frames (from ``TP_T0``) of a (2, 749, 768)
+    stream (rows from 2) with the strided index, bitwise its plain
+    version and the slice of the whole stream's draw, forward and
+    backward; the core on heads 6..11 of 12 of (2, 12, 749, 64) rows from
+    2, both semantics, against its plain version and the matching heads
+    of the whole call, forward and gradients; the block's forward and
+    gradients on heads 6..11 of (2, 222, 768) against its plain version,
+    and both halves' outputs and dx summed against the whole block's.
+    Returns the max errors."""
+    from audio8_tpu_torch.ops.attention import (attention_core,
+                                                attention_core_bwd_plain,
+                                                attention_core_plain)
+    from audio8_tpu_torch.ops.attention_block import (
+        attention_block, attention_block_bwd_plain, attention_block_plain)
+    from audio8_tpu_torch.ops.dropout import fused_dropout, hash_dropout
+    from audio8_tpu_torch.ops.hashrand import strided_index
+
+    worst = {"dropout": 0.0, "attention_fwd": 0.0, "attention_bwd": 0.0,
+             "attention_block": 0.0, "attention_block_bwd": 0.0}
+    b, t, d = 2, DROPOUT_SHAPE[1], DROPOUT_SHAPE[2]
+    n_real = t - TP_T0
+    for dtype in (torch.float32, torch.bfloat16):
+        x, dy = (torch.randn((b, t, d), device="cuda", generator=gen)
+                 .to(dtype) for _ in range(2))
+        whole = fused_dropout(x, 0.1, DROPOUT_SEED, 2 * t * d)
+        piece = x[:, TP_T0:].contiguous().requires_grad_()
+        index = strided_index(piece.shape, (4, t, d), (2, TP_T0, 0))
+        y = fused_dropout(piece, 0.1, DROPOUT_SEED, *index)
+        (dx,) = torch.autograd.grad(y, piece, dy[:, TP_T0:].contiguous())
+        torch.cuda.synchronize()
+        err = max(max_err(y, whole[:, TP_T0:])[0],
+                  max_err(y, hash_dropout(piece.detach(), 0.1, DROPOUT_SEED,
+                                          *index))[0],
+                  max_err(dx, hash_dropout(dy[:, TP_T0:].contiguous(), 0.1,
+                                           DROPOUT_SEED, *index))[0])
+        emit({"phase": "tp_kernel", "kernel": "dropout", "dtype": str(dtype),
+              "shape": [b, n_real, d], "t0": TP_T0, "index": list(index),
+              "max_abs_err": err, "tol": 0.0})
+        check(err == 0.0, f"tp dropout t0 {TP_T0} {dtype}: {err}")
+        worst["dropout"] = max(worst["dropout"], err)
+    h, t, dh, h0 = 12, 749, 64, 6
+    kv = torch.arange(t, device="cuda")[None, :] < torch.tensor(
+        [612, 0], device="cuda")[:, None]
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, do = (torch.randn((b, h, t, dh), device="cuda",
+                                   generator=gen).to(dtype)
+                       for _ in range(4))
+        mine = [a[:, h0:].contiguous() for a in (q, k, v, do)]
+        for xla in (True, False):
+            args = (kv, dh ** -0.5, 0.1, 4_000_000_000)
+            full = [a.detach().requires_grad_() for a in (q, k, v)]
+            o_full = attention_core(*full, *args, xla=xla, b0=2)
+            g_full = torch.autograd.grad(o_full, full, do)
+            part = [a.detach().requires_grad_() for a in mine[:3]]
+            o = attention_core(*part, *args, xla=xla, b0=2, h0=h0, heads=h)
+            grads = torch.autograd.grad(o, part, mine[3])
+            torch.cuda.synchronize()
+            want = attention_core_plain(*mine[:3], *args, xla=xla, b0=2,
+                                        h0=h0, heads=h)
+            err, scale = max_err(o, want)
+            tol = TOL[dtype] * max(1.0, scale)
+            e_full, _ = max_err(o, o_full[:, h0:])
+            check(err <= tol and e_full <= tol,
+                  f"tp attention_fwd h0 {h0} xla {xla} {dtype}: {err}, "
+                  f"{e_full} vs the whole call > {tol}")
+            gerr = 0.0
+            for g, w, gf in zip(grads, attention_core_bwd_plain(
+                    *mine[:3], *args, mine[3], xla=xla, b0=2, h0=h0,
+                    heads=h), g_full):
+                e, s = max_err(g, w)
+                ef, _ = max_err(g, gf[:, h0:])
+                check(max(e, ef) <= TOL[dtype] * max(1.0, s),
+                      f"tp attention_bwd h0 {h0} xla {xla} {dtype}: {e}, "
+                      f"{ef} vs the whole call")
+                gerr = max(gerr, e, ef)
+            worst["attention_fwd"] = max(worst["attention_fwd"], err, e_full)
+            worst["attention_bwd"] = max(worst["attention_bwd"], gerr)
+            emit({"phase": "tp_kernel", "kernel": "attention_core",
+                  "dtype": str(dtype), "shape": [b, h - h0, t, dh],
+                  "h0": h0, "heads": h, "b0": 2, "xla": xla, "rate": 0.1,
+                  "max_abs_err": {"fwd": err, "bwd": gerr},
+                  "vs_whole_call": {"fwd": e_full}})
+    bt, hd = 222, BLOCK_HEADS // 2
+    kvb = torch.arange(bt, device="cuda")[None, :] < torch.tensor(
+        [200, 0], device="cuda")[:, None]
+    for dtype in (torch.float32, torch.bfloat16):
+        x, weights = block_inputs(b, bt, d, dtype, gen)
+        dy = torch.randn(b, bt, d, device="cuda", generator=gen).to(dtype)
+        wq, bq, wk, bk, wv, bv, wo, bo = weights
+        scale = (d // BLOCK_HEADS) ** -0.5
+        args = (kvb, BLOCK_HEADS, scale, 0.1, 3_000_000_019, 2)
+        xf = x.detach().requires_grad_()
+        out_full = attention_block(xf, *weights, *args)
+        (dx_full,) = torch.autograd.grad(out_full, xf, dy)
+        outs, dxs, fwd_err, bwd_err = [], [], 0.0, 0.0
+        for r in range(2):
+            rows = slice(r * hd * 64, (r + 1) * hd * 64)
+            mine = [wq[rows], bq[rows], wk[rows], bk[rows], wv[rows],
+                    bv[rows], wo[:, rows], torch.zeros_like(bo)]
+            mine = [a.contiguous() for a in mine]
+            local = (kvb, hd, scale, 0.1, 3_000_000_019, 2, r * hd,
+                     BLOCK_HEADS)
+            xs = [a.detach().requires_grad_() for a in (x, *mine)]
+            out = attention_block(*xs, *local)
+            got = torch.autograd.grad(out, xs, dy)
+            torch.cuda.synchronize()
+            e, s = max_err(out, attention_block_plain(x, *mine, *local))
+            check(e <= TOL[dtype] * max(1.0, s),
+                  f"tp attention_block h0 {r * hd} {dtype}: {e}")
+            fwd_err = max(fwd_err, e)
+            want = attention_block_bwd_plain(x, *mine, kvb, hd, scale, 0.1,
+                                             3_000_000_019, dy, b0=2,
+                                             h0=r * hd, heads=BLOCK_HEADS)
+            for i, (g, w) in enumerate(zip(got, want)):
+                if i == 8:  # the zero bias of the partial O projection
+                    continue
+                e, s = max_err(g, w)
+                check(e <= TOL[dtype] * max(1.0, s),
+                      f"tp attention_block_bwd h0 {r * hd} {dtype} "
+                      f"gradient {i}: {e}")
+                bwd_err = max(bwd_err, e)
+            outs.append(out.float())
+            dxs.append(got[0].float())
+        e_sum, s = max_err(outs[0] + outs[1] + bo.float(), out_full.float())
+        e_dx, s_dx = max_err(dxs[0] + dxs[1], dx_full.float())
+        tol = 4 * TOL[dtype]
+        check(e_sum <= tol * max(1.0, s) and e_dx <= tol * max(1.0, s_dx),
+              f"tp attention_block halves vs the whole block {dtype}: "
+              f"{e_sum}, dx {e_dx}")
+        worst["attention_block"] = max(worst["attention_block"], fwd_err)
+        worst["attention_block_bwd"] = max(worst["attention_block_bwd"],
+                                           bwd_err)
+        emit({"phase": "tp_kernel", "kernel": "attention_block",
+              "dtype": str(dtype), "shape": [b, bt, d], "heads": [hd,
+                                                                  BLOCK_HEADS],
+              "max_abs_err": {"fwd": fwd_err, "bwd": bwd_err},
+              "halves_vs_whole": {"out": e_sum, "dx": e_dx}})
+    return worst
+
+
+def tp_close(mine: dict, one: dict, before: dict, steps: int,
+             split: list, name: str) -> dict:
+    """The sampled whole parameters against one process's, each within
+    ``TP_UPDATE_RTOL`` times its leaf's largest update (``one - before``)
+    plus ``steps`` float32 roundings of ``|one|`` (the key biases within
+    ``TP_KEY_BIAS_ATOL``); the leaves in ``split`` (the ones the model
+    group splits) moved as a whole (a leaf whose every sampled update
+    rounds away is held within its roundings, and listed). Every failing
+    leaf is named. Returns the largest difference, the largest difference
+    over its leaf's largest update, the key biases' largest difference,
+    the largest update of a split leaf and the split leaves that did not
+    move."""
+    worst, worst_rel, key_bias, most = 0.0, 0.0, 0.0, 0.0
+    eps = float(torch.finfo(torch.float32).eps)
+    failed, still = [], []
+    for k, v in mine.items():
+        d = (v - one[k]).abs()
+        u = float((one[k] - before[k]).abs().max())
+        if k.endswith("k_proj.bias"):
+            key_bias = max(key_bias, float(d.max()))
+            bad = d > TP_KEY_BIAS_ATOL
+        else:
+            worst = max(worst, float(d.max()))
+            if u > 0.0:
+                worst_rel = max(worst_rel, float(d.max()) / u)
+            bad = d > TP_UPDATE_RTOL * u + steps * eps * one[k].abs()
+            if k in split:
+                most = max(most, u)
+                if u == 0.0:
+                    still.append(k)
+        if bool(bad.any()):
+            failed.append(f"{k}: {float(d.max())} against an update of {u}")
+    check(not failed, f"tp {name}: {failed}")
+    check(most > 0.0, f"tp {name}: no split leaf moved")
+    return {"param_max_abs_err": worst, "param_err_over_update": worst_rel,
+            "key_bias_max_abs_err": key_bias,
+            "largest_split_leaf_update": most, "unmoved_split_leaves": still}
+
+
+def phase_tp(tmp: str, seed: int, gen) -> tuple:
+    """Phase 26: tensor and sequence parallelism (module docstring).
+    Returns the launches of (b)'s rank 0 and the kernels' max errors."""
+    import torch.multiprocessing as mp
+
+    from audio8_tpu_torch.models.convert import load_fairseq_ctc
+
+    start = time.perf_counter()
+    with timed("tp_kernel"):
+        worst = tp_kernels(gen)
+    corpus = os.path.join(tmp, "tp_corpus")
+    os.makedirs(corpus)
+    write_corpus(corpus, seed + 120)
+    pcorpus = os.path.join(tmp, "tp_pretrain_corpus")
+    os.makedirs(pcorpus)
+    write_pretrain_corpus(pcorpus, seed + 121)
+    argv = {"train": ["--root_dir", corpus, "--train_dataset", "train.tsv",
+                      "--valid_dataset", "valid.tsv", "--device", "cuda",
+                      *TP_CLI_FLAGS],
+            "pretrain": ["--manifest_dir", pcorpus, "--device", "cuda",
+                         *TP_PRETRAIN_FLAGS]}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        with timed("tp_one"):
+            one = {kind: tp_run(kind, argv[kind],
+                                os.path.join(tmp, f"tp_{kind}_one"))
+                   for kind in ("train", "pretrain")}
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    out_dir = os.path.join(tmp, "tp_ranks")
+    os.makedirs(out_dir)
+    with timed("tp_ranks"):
+        mp.start_processes(_tp_rank, args=(TP_RANKS, free_port(), out_dir,
+                                           argv),
+                           nprocs=TP_RANKS, start_method="spawn", join=True)
+        ranks = [torch.load(os.path.join(out_dir, f"tp_rank{r}.pt"))
+                 for r in range(TP_RANKS)]
+    results = {}
+    for kind in ("train", "pretrain"):
+        for mode, _ in TP_MODES:
+            name = f"{kind}_{mode}"
+            r0 = ranks[0][name]
+            for r in ranks[1:]:
+                check(r[name]["replicated_checksum"]
+                      == r0["replicated_checksum"],
+                      f"tp {name}: the ranks' replicated parameters differ")
+                check(all(torch.equal(v, r0["sample"][k])
+                          for k, v in r[name]["sample"].items()),
+                      f"tp {name}: the ranks' whole parameters differ")
+                check([x["loss"] for x in r[name]["log"]]
+                      == [x["loss"] for x in r0["log"]],
+                      f"tp {name}: the ranks' losses differ")
+            check(all(torch.equal(v, one[kind]["before"][k])
+                      for k, v in r0["before"].items()),
+                  f"tp {name}: the run did not start from one process's "
+                  "parameters")
+            loss = [x["loss"] for x in r0["log"]]
+            want = [x["loss"] for x in one[kind]["log"]]
+            res = {"loss": loss, "one_process_loss": want,
+                   "loss_rel_err": dp_close(loss, want, DP_LOSS_RTOL,
+                                            f"tp {name} loss"),
+                   "grad_norm": r0["grad_norms"],
+                   "one_process_grad_norm": one[kind]["grad_norms"],
+                   "gnorm_rel_err": dp_close(
+                       r0["grad_norms"], one[kind]["grad_norms"],
+                       DP_GNORM_RTOL, f"tp {name} grad norm"),
+                   **tp_close(r0["sample"], one[kind]["sample"],
+                              one[kind]["before"], len(loss),
+                              r0["split_names"], name),
+                   "rank_param_bytes": [r[name]["param_bytes"]
+                                        for r in ranks],
+                   "rank_split_bytes": [r[name]["split_bytes"]
+                                        for r in ranks],
+                   "one_process_param_bytes": one[kind]["param_bytes"],
+                   "step_seconds": [x["seconds"] for x in r0["log"]],
+                   "one_process_step_seconds": [x["seconds"] for x in
+                                                one[kind]["log"]]}
+            for k in TP_PATH[kind]:
+                check(r0["launches"][k] > 0, f"tp {name}: {k} not launched")
+            res["launches"] = {k: r0["launches"][k] for k in TP_PATH[kind]}
+            results[name] = res
+    # the TP run's last checkpoint, read in this process, is its whole
+    # state
+    ckpt = load_fairseq_ctc(os.path.join(out_dir, "train_tp",
+                                         "checkpoint-step-2.pt"))
+    ckpt_equal = all(torch.equal(ckpt[k].reshape(-1)[::DP_STRIDE].float(),
+                                 v) for k, v in
+                     ranks[0]["train_tp"]["sample"].items())
+    check(ckpt_equal, "tp: the saved .pt is not the run's whole state")
+    emit({"phase": "tp", "part": "b", "card": card_name(),
+          "backend": "gloo (CUDA tensors, one card)", "world": TP_RANKS,
+          "tensor_parallel": TP_RANKS, "flags": TP_CLI_FLAGS,
+          "pretrain_flags": TP_PRETRAIN_FLAGS, "runs": results,
+          "checkpoint_loads_whole": ckpt_equal,
+          "host_staged_allreduce": {
+              "note": "gloo over CUDA tensors staged through the host, two "
+                      "ranks on one card: not a scaling number",
+              "ranks": [r["collectives"] for r in ranks]}})
+    launches = ranks[0]["train_tp"]["launches"]
+    emit({"phase": "tp", "seconds": time.perf_counter() - start,
+          "bytes_written": tree_bytes(*(os.path.join(tmp, n) for n in
+                                        os.listdir(tmp)
+                                        if n.startswith("tp_"))),
+          "launches": {k: launches.get(k, 0) for k in REPLACES},
+          "kernel_max_abs_err": worst})
+    return {k: launches.get(k, 0) for k in REPLACES}, worst
+
+
+def tp_phases(gen) -> int:
+    """The build and phase 26 alone (``--tp-phases``), then the phase
+    seconds, the card and the last line."""
+    with timed("build"):
+        phase_build()
+    with tempfile.TemporaryDirectory() as tmp:
+        launches, worst = phase_tp(tmp, SEED, gen)
+    emit({"phase": "phase_seconds", **PHASE_SECONDS})
+    emit({"phase": "tp_phases", "launches": launches,
+          "kernel_max_abs_err": worst})
+    print_card()
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if not torch.cuda.is_available():
@@ -10401,6 +10874,8 @@ def main(argv=None) -> int:
         return orbax_phases()
     if argv == ["--zero-phases"]:
         return zero_phases(gen)
+    if argv == ["--tp-phases"]:
+        return tp_phases(gen)
     inference_first = argv == ["--inference-first"]
     if argv and not inference_first:
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
@@ -10514,6 +10989,10 @@ def main(argv=None) -> int:
         zero_launches, errs = phase_zero(tmp, SEED, gen)
         for k, e in errs.items():
             worst[k] = max(worst[k], e)
+        torch.cuda.empty_cache()
+        tp_launches, errs = phase_tp(tmp, SEED, gen)
+        for k, e in errs.items():
+            worst[k] = max(worst[k], e)
     emit({"phase": "phase_seconds", **PHASE_SECONDS,
           "inference_first": inference_first,
           "trace_retries": {str(k): n for k, n in TRACE_RETRIES.items()},
@@ -10600,6 +11079,7 @@ def main(argv=None) -> int:
          "dp_launches": dp_launches.get(name, 0),
          "orbax_launches": orbax_launches.get(name, 0),
          "zero_launches": zero_launches.get(name, 0),
+         "tp_launches": tp_launches.get(name, 0),
          "max_abs_err": worst[name],
          **{k: times[(name, torch.float32)][k] for k in keys},
          **extra(name)}

@@ -8,7 +8,10 @@ and router; the port computes a dropped MoE layer on the seeds it would
 have drawn and discards only its output. An aux left out would move the
 loss by about 2 in ~800, past the bound (loss rtol 1e-3, grad norm
 5e-3, step 1's loss 1e-4). The run must drop layer 1 in some steps and
-keep it in others.
+keep it in others. Both packages take fairseq's special-token ids
+(``_fairseq_offsets``), as the sibling trajectories do: without the
+fixture the port's ids were whatever an earlier test in the worker's
+process left, and a remapped blank moved the loss 9%.
 """
 from tests.test_torch_dropout_trajectories import CTC_CFG, _check
 from tests.test_torch_dropout_trajectories import \
@@ -21,7 +24,8 @@ from tests.test_torch_topology_trajectories import run_ctc_trajectory
 cap_torch_threads()
 
 
-def test_dropped_moe_layer_aux_counts_as_in_jax(monkeypatch):
+def test_dropped_moe_layer_aux_counts_as_in_jax(_fairseq_offsets,
+                                                monkeypatch):
     KEEPS_SEEN.clear()
     cfg = dict(CTC_CFG, layer_drop=0.5, **dict(MOE, moe_aux_weight=1.0))
     curves, _, _ = run_ctc_trajectory(monkeypatch, cfg, seeds_cls=JaxKeeps)

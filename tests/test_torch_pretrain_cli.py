@@ -103,15 +103,19 @@ def test_pretrain_with_bucketing(corpus, tmp_path):
 
 
 @pytest.mark.parametrize("flag", [["--distributed", "true",
-                                   "--tensor_parallel", "2"],
-                                  ["--tensor_parallel", "2"],
-                                  # sharding runs, the model group beside
-                                  # it does not
+                                   "--tensor_parallel", "2", "--zero1",
+                                   "true"],
+                                  ["--tensor_parallel", "2", "--fsdp",
+                                   "true"],
+                                  # sharding and the model group run,
+                                  # not side by side
                                   ["--zero1", "true", "--tensor_parallel",
                                    "2"],
                                   ["--fsdp", "true", "--sequence_parallel",
+                                   "true", "--tensor_parallel", "2"],
+                                  ["--sequence_parallel", "true",
+                                   "--tensor_parallel", "2", "--zero1",
                                    "true"],
-                                  ["--sequence_parallel", "true"],
                                   ["--moe_experts", "4",
                                    "--tensor_parallel", "2"]])
 def test_unported_flags_raise(corpus, tmp_path, flag):

@@ -125,7 +125,8 @@ def test_unfrozen_extractor_trains(corpus, tmp_path):
         assert not torch.equal(frozen[k], unfrozen[k]), k
 
 
-@pytest.mark.parametrize("flag", [["--tensor_parallel", "2"],
+@pytest.mark.parametrize("flag", [["--tensor_parallel", "2", "--zero1",
+                                   "true"],
                                   # --zero1 runs, pipeline parallelism
                                   # beside it does not
                                   ["--distributed", "true", "--zero1",

@@ -183,7 +183,7 @@ def _cli_entry(rank, world, port, out_dir, jobs, offsets):
     process group."""
     import importlib
 
-    from audio8_tpu_torch.parallel.zero import full_state
+    from audio8_tpu_torch.parallel import full_state
 
     os.environ.update(RANK=str(rank), LOCAL_RANK=str(rank),
                       WORLD_SIZE=str(world), MASTER_ADDR="127.0.0.1",
